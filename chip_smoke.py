@@ -2,19 +2,31 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds the four CUDA kernels
-   from e2e_asr_tpu_torch/csrc/ and prints the build time.
-2. Holds every kernel against its plain PyTorch version at the flagship
-   decode shapes (configs/libri/asr_example.yaml model, decode B=16, W=16),
-   each with its stated tolerance, and times kernel, plain version and,
-   where one PyTorch call computes the same function, that call.
+1. Prints the card's name and power limit, builds every CUDA kernel from
+   e2e_asr_tpu_torch/csrc/ (one nvcc per source, in parallel) and prints
+   the build time.
+2. Holds every kernel against its plain PyTorch version, each with its
+   stated tolerance, and times kernel, plain version and, where one
+   PyTorch call computes the same function, that call: the decode kernels
+   at the flagship decode shapes (configs/libri/asr_example.yaml model,
+   decode B=16, W=16), the training kernels (the LSTM's training forward
+   and backward, the CTC lattice) at the flagship training shapes (B=16 in
+   the 816-frame bucket: S=204 encoder frames, up to 199 CTC labels).
 3. Drives the serving path: the flagship-width model from a fixed seed
    decodes 16 synthetic utterances in the 816-frame bucket (beam 16,
    ctc_weight 0.3, lm_weight 0) through ``bin/test_asr.Solver`` on the
-   card, and checks that every kernel was launched in that run. The same
-   batch is then decoded with the kernels and with the plain versions on
-   the card and the top-beam scores must agree.
-4. Prints a ``kernels`` JSON line, then the device JSON line last; the
+   card, and checks that every decode kernel was launched in that run. The
+   same batch is then decoded with the kernels and with the plain versions
+   on the card and the top-beam scores must agree.
+4. Drives the training path: the flagship at full width from seed-0
+   weights trains TRAIN_STEPS steps (batch 16 in the 816-frame bucket of
+   the synthetic train split) through ``bin/train_asr.Solver.exec`` and
+   validates once on dev; every loss must be finite, no step skipped, and
+   every training kernel launched in that run. Then one train step with
+   the kernels and one with the plain versions, from the same weights,
+   batch and random stream, must agree in loss, gradient norm and the
+   updated parameters.
+5. Prints a ``kernels`` JSON line, then the device JSON line last; the
    details go to ``--json`` (default e2e_asr_tpu_torch/_build/chip_smoke.json).
 
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -29,6 +41,7 @@ import os
 import subprocess
 import sys
 import time
+from contextlib import nullcontext
 from unittest import mock
 
 import torch
@@ -38,6 +51,7 @@ import torch
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SEED = 0
+TRAIN_STEPS = 5
 
 
 def fail(msg: str) -> None:
@@ -249,6 +263,270 @@ def kernel_checks(dev, cfg, vocab):
     return out
 
 
+def _lstm_inputs(gen, dev, s_len, b, d, h, lens):
+    mask = (torch.arange(s_len, device=dev)[:, None] < lens[None, :]).float()
+    bound_h = 1.0 / math.sqrt(h)
+    x = torch.tanh(torch.randn((s_len, b, d), generator=gen, device=dev))
+    wx = (torch.rand((2, d, 4 * h), generator=gen, device=dev) * 2 - 1) * bound_h
+    wh = (torch.rand((2, h, 4 * h), generator=gen, device=dev) * 2 - 1) * bound_h
+    bias = (torch.rand((2, 4 * h), generator=gen, device=dev) * 2 - 1) * bound_h
+    return x, mask, wx, wh, bias
+
+
+def _cudnn_lstm(dev, wx, wh, bias):
+    """torch.nn.LSTM (cuDNN) with the same weights: the library call."""
+    d, h = wx.shape[1], wh.shape[1]
+    lstm = torch.nn.LSTM(d, h, bidirectional=True).to(dev)
+    with torch.no_grad():
+        for sfx, di in (("", 0), ("_reverse", 1)):
+            getattr(lstm, f"weight_ih_l0{sfx}").copy_(wx[di].t())
+            getattr(lstm, f"weight_hh_l0{sfx}").copy_(wh[di].t())
+            getattr(lstm, f"bias_ih_l0{sfx}").copy_(bias[di])
+            getattr(lstm, f"bias_hh_l0{sfx}").zero_()
+    return lstm
+
+
+def _scaled(name, got, want, rtol):
+    """compare with atol = rtol * max|want| (sums over many rows whose
+    terms cancel)."""
+    return compare(name, got, want, rtol=rtol, atol=rtol * float(want.abs().max()))
+
+
+def train_kernel_checks(dev, cfg, vocab):
+    """The training kernels against their plain versions at the flagship
+    training shapes: S = 204 encoder frames (816 / 4), B = 16, H = 320,
+    D = 1280 (first layer) and 640 (the three others); CTC over the same
+    S with labels up to the token bucket."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.ops import ctc_cuda, rnn_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    m = cfg.model
+    b = cfg.data.corpus.batch_size
+    s_len = 816 // 4
+    h = m.encoder.dim[0]
+    lens = torch.randint(s_len // 2, s_len + 1, (b,), generator=gen, device=dev)
+    lens[0] = s_len
+    vr = 2 * float(lens.sum())  # valid rows over both directions
+    out = {}
+    fwd, bwd = [], []
+    for d in (1280, 2 * h):
+        print(f"[kernel] lstm_bidir_fwd_train / lstm_bidir_bwd D={d}", flush=True)
+        args = _lstm_inputs(gen, dev, s_len, b, d, h, lens)
+        x, mask, wx, wh, bias = args
+        with torch.no_grad():
+            got = rnn_cuda.lstm_bidir_fwd_train(*args)
+            want = rnn_cuda.lstm_bidir_fwd_train_plain(*args)
+            err = max(compare(f"lstm_bidir_fwd_train D={d} {nm}", g, w, rtol=1e-4, atol=1e-4)
+                      for nm, g, w in zip(("ys", "c", "acts"), got, want))
+        lstm = _cudnn_lstm(dev, wx, wh, bias)
+        xg = x.clone().requires_grad_()
+        # bytes: the inference forward's, plus the residuals c [T, 2B, H]
+        # and acts [T, 2B, 4H] written once
+        io = 4 * (s_len * b * d + s_len * b + 2 * d * 4 * h + 2 * h * 4 * h + 2 * 4 * h
+                  + s_len * 2 * b * h * 6)
+        nf = vr * (2 * (d + h) * 4 * h + 12 * h)
+        with torch.no_grad():
+            f_ms = time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train(*args), 10)
+            f_plain = time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train_plain(*args), 3, 1)
+        fwd.append(dict(d=d, max_abs_err=err, ms=f_ms, plain_ms=f_plain,
+                        library_ms=time_ms(lambda: lstm(xg), 10), bound=bound_ms(io, nf)))
+
+        ys, c, acts = want
+        dy = torch.randn(ys.shape, generator=gen, device=dev)
+        with torch.no_grad():
+            got = rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy)
+            want_b = rnn_cuda.lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy)
+            err = max(_scaled(f"lstm_bidir_bwd D={d} {nm}", g, w, 1e-4)
+                      for nm, g, w in zip(("dx", "dWx", "dWh", "db"), got, want_b))
+        # and the autograd function against autograd through the plain loop
+        leaves = [a.clone().requires_grad_() for a in (x, wx, wh, bias)]
+        auto = torch.autograd.grad(
+            (rnn_cuda.lstm_bidir_fwd_plain(leaves[0], mask, *leaves[1:]) * dy).sum(), leaves)
+        ours = torch.autograd.grad((rnn_cuda.lstm_bidir_train(leaves[0], mask, *leaves[1:]) * dy).sum(),
+                                   leaves)
+        err = max([err] + [_scaled(f"lstm_bidir_train D={d} autograd {nm}", g, w, 1e-4)
+                           for nm, g, w in zip(("dx", "dWx", "dWh", "db"), ours, auto)])
+        out_lib, _ = lstm(xg)
+        dy_lib = torch.randn(out_lib.shape, generator=gen, device=dev)
+        lib_in = [xg] + list(lstm.parameters())
+        # bytes: x, mask, wx, wh, ys, c, acts, dy read once; dx, dWx, dWh,
+        # db written once. Operations on the valid rows: the sweep's
+        # dgates Wh^T and its elementwise part, dx, dWx and dWh
+        io = 4 * (2 * s_len * b * d + s_len * b + 2 * 2 * d * 4 * h + 2 * 2 * h * 4 * h
+                  + 2 * 4 * h + s_len * 2 * b * h * 7)
+        nf = vr * (16 * h * d + 16 * h * h + 20 * h)
+        with torch.no_grad():
+            b_ms = time_ms(lambda: rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy), 10)
+            b_plain = time_ms(lambda: rnn_cuda.lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy),
+                              3, 1)
+        bwd.append(dict(d=d, max_abs_err=err, ms=b_ms, plain_ms=b_plain,
+                        library_ms=time_ms(lambda: torch.autograd.grad(out_lib, lib_in, dy_lib,
+                                                                       retain_graph=True), 10),
+                        bound=bound_ms(io, nf)))
+        del lstm, out_lib, xg
+
+    def layer_mean(entries, key):
+        # one training step runs the D=1280 layer once and the D=640 layer three times
+        return (entries[0][key] + 3 * entries[1][key]) / 4
+
+    for name, entries, line, src in (
+        ("lstm_bidir_fwd_train", fwd, 510, "lstm_bidir.cu"),
+        ("lstm_bidir_bwd", bwd, 569, "lstm_bidir_bwd.cu"),
+    ):
+        out[name] = dict(
+            route="cuda", source=f"e2e_asr_tpu_torch/csrc/{src}",
+            replaces=f"e2e_asr_tpu/ops/rnn_pallas.py:{line}",
+            max_abs_err=max(e["max_abs_err"] for e in entries),
+            ms=layer_mean(entries, "ms"), plain_ms=layer_mean(entries, "plain_ms"),
+            library_ms=layer_mean(entries, "library_ms"),
+            bound=((entries[0]["bound"][0] + 3 * entries[1]["bound"][0]) / 4, entries[0]["bound"][1]),
+            shapes=f"x [{s_len},{b},1280|{2 * h}], H {h} (ms = mean per layer of 1x1280 + 3x{2 * h})",
+            per_width={str(e["d"]): {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound")}
+                       for e in entries},
+        )
+
+    # ---- CTC lattice: log_probs [B, S, V], labels [B, L] up to the token bucket
+    print("[kernel] ctc_loss (lattice)", flush=True)
+    l_max = cfg.data.corpus.token_buckets[-1] - 1  # <eos> is not a CTC label
+    logits = 3.0 * torch.randn((b, s_len, vocab), generator=gen, device=dev)
+    logits[:, :, 0] += 2.0
+    lp = torch.log_softmax(logits, -1)
+    lablen = torch.randint(l_max // 8, l_max // 3 + 1, (b,), generator=gen, device=dev)
+    lablen[0] = l_max
+    lablen[1] = 0  # no labels: the blank path only
+    labels = torch.randint(1, vocab, (b, l_max), generator=gen, device=dev)
+    labels = torch.where(torch.arange(l_max, device=dev)[None] < lablen[:, None], labels, 0)
+    inlen = lens.clone()
+    inlen[0] = l_max - 1  # fewer frames than labels: no alignment, +inf
+    got = ctc_cuda.ctc_lattice(lp, labels, inlen, lablen)
+    want = ctc_cuda.ctc_lattice_plain(lp, labels, inlen, lablen)
+    ok = want[0] <= ctc_cuda.BIG
+    if not torch.equal(got[0] <= ctc_cuda.BIG, ok) or bool(ok[0]) or not bool(ok[1:].all()):
+        fail("ctc_loss: rows with no alignment differ between kernel and plain version")
+    err = compare("ctc_loss nll", got[0][ok], want[0][ok], rtol=1e-5, atol=1e-3)
+
+    def loss_grad():
+        lp_g = lp.clone().requires_grad_()
+        nll = ctc_cuda.CTCLossFn.apply(lp_g, inlen, labels, lablen)
+        (g,) = torch.autograd.grad(torch.where(torch.isfinite(nll), nll, 0.0).sum(), lp_g)
+        return g
+
+    g_k = loss_grad()
+    with mock.patch.object(cuda_build, "use_plain", lambda x: True):
+        g_p = loss_grad()
+    err = max(err, compare("ctc_loss d nll / d log_probs", g_k, g_p, rtol=1e-4, atol=1e-4))
+    if float(g_k[0].abs().max()) != 0.0:
+        fail("ctc_loss: a row with no alignment has a gradient")
+    targets = torch.cat([labels[i, :lablen[i]] for i in range(b)])
+    lp_t = lp.transpose(0, 1).detach().requires_grad_()
+
+    def library():
+        nll = torch.nn.functional.ctc_loss(lp_t, targets, inlen, lablen, reduction="sum",
+                                           zero_infinity=True)
+        torch.autograd.grad(nll, lp_t)
+
+    s_lat = 2 * l_max + 1
+    # bytes: log_probs, labels and lengths read once, nll and gamma written
+    # once; ~30 operations per valid (t, s) cell for alpha and beta
+    io = 4 * (lp.numel() + labels.numel() + 2 * b + b + b * s_len * s_lat)
+    nf = 30 * float((inlen * (2 * lablen + 1)).sum())
+    out["ctc_loss"] = dict(
+        route="cuda", source="e2e_asr_tpu_torch/csrc/ctc_loss.cu",
+        replaces="e2e_asr_tpu/ops/ctc_pallas.py:170", max_abs_err=err,
+        ms=time_ms(lambda: ctc_cuda.ctc_lattice(lp, labels, inlen, lablen), 20),
+        plain_ms=time_ms(lambda: ctc_cuda.ctc_lattice_plain(lp, labels, inlen, lablen), 3, 1),
+        library_ms=time_ms(library, 10), bound=bound_ms(io, nf),
+        loss_fwd_bwd_ms=time_ms(loss_grad, 10),
+        shapes=f"log_probs [{b},{s_len},{vocab}], labels [{b},{l_max}] (S {s_lat}); "
+               "ms: the lattice (nll + gamma); library_ms: F.ctc_loss forward + backward; "
+               "loss_fwd_bwd_ms: CTCLossFn forward + backward",
+    )
+    return out
+
+
+def train_phase(smi):
+    """The training path through bin/train_asr.Solver on the card, then one
+    train step with the kernels against one with the plain versions."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import smoke_train_solver
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.ops.ctc_cuda import ctc_lattice
+    from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
+    from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_bwd, lstm_bidir_fwd_train
+    from e2e_asr_tpu_torch.training.step import Trainer, param_leaves
+
+    solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_train"), SEED, TRAIN_STEPS)
+    cfg = solver.config
+    batch = next(solver.tr_set.epoch(0))
+    if batch.wav.shape != (16, (816 - 1) * 160 + 400):
+        fail(f"train batch has shape {batch.wav.shape}, expected 16 utterances in the 816 bucket")
+    wrappers = {"log_mel": log_mel, "lstm_bidir_fwd_train": lstm_bidir_fwd_train,
+                "lstm_bidir_bwd": lstm_bidir_bwd, "ctc_loss": ctc_lattice}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.time()
+    solver.exec()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    print(f"train path launches: {launches}", flush=True)
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            fail(f"kernel {name} was not launched on the training path")
+    log = list(solver.step_log)
+    if len(log) != TRAIN_STEPS:
+        fail(f"{len(log)} training steps ran, expected {TRAIN_STEPS}")
+    for rec in log:
+        print(f"  step {rec['step']}: loss {rec['loss']:.4f} att {rec['att_loss']:.4f} "
+              f"ctc {rec['ctc_loss']:.4f} gnorm {rec['grad_norm']:.3f} | {rec['audio_s']:.2f} audio-s "
+              f"in {rec['wall_s']:.3f}s = {rec['audio_s'] / rec['wall_s']:.2f} audio-s/s on {smi}",
+              flush=True)
+        if not all(math.isfinite(rec[k]) for k in ("loss", "att_loss", "ctc_loss", "grad_norm")):
+            fail(f"step {rec['step']}: a loss or the gradient norm is not finite")
+        if rec["step_skipped"] != 0.0:
+            fail(f"step {rec['step']} was skipped")
+    dev_sum = solver.dev_summary
+    print(f"  dev: {dev_sum}", flush=True)
+    if not all(math.isfinite(v) for v in dev_sum.values()):
+        fail("validation gave a non-finite number")
+    steady = sorted(r["audio_s"] / r["wall_s"] for r in log[1:])
+    rate = steady[len(steady) // 2]
+    print(f"train e2e: median {rate:.2f} audio-s/s per step over steps 2-{TRAIN_STEPS} "
+          f"(step 1 {log[0]['audio_s'] / log[0]['wall_s']:.2f}) on {smi} (flagship, B=16, 816 "
+          f"bucket, seed-{SEED} weights); {TRAIN_STEPS} steps + validation {wall:.1f}s", flush=True)
+
+    # ---- one step with the kernels, one with the plain versions
+    dbatch = solver._put(batch)
+    res = {}
+    for mode in ("kernel", "plain"):
+        params, _ = asr_mod.asr_init(SEED, solver.feat_dim, solver.vocab_size, cfg.model, solver.device)
+        trainer = Trainer(cfg)
+        state = trainer.init_state(params)
+        ctx = mock.patch.object(cuda_build, "use_plain", lambda x: True) if mode == "plain" else nullcontext()
+        with ctx:
+            t1 = time.time()
+            m = trainer.train_step(state, dbatch, solver.step_generator(0))
+            torch.cuda.synchronize()
+            dt = time.time() - t1
+        res[mode] = (float(m["loss"]), float(m["grad_norm"]),
+                     [p.detach() for p in param_leaves(state.params)], dt)
+    (lk, gk, pk, tk), (lp_, gp, pp, tp) = res["kernel"], res["plain"]
+    loss_rel = abs(lk - lp_) / abs(lp_)
+    gn_rel = abs(gk - gp) / abs(gp)
+    p_err = max(float((a - c).abs().max()) for a, c in zip(pk, pp))
+    print(f"train step kernel vs plain: loss {lk:.6f} vs {lp_:.6f} (rel {loss_rel:.2e}, tolerance "
+          f"1e-4); grad_norm {gk:.6f} vs {gp:.6f} (rel {gn_rel:.2e}, tolerance 1e-3); updated params "
+          f"max abs diff {p_err:.3e} (tolerance 1e-5; an Adadelta first step moves a parameter by at "
+          f"most 3.2e-4); step {tk:.2f}s vs {tp:.2f}s", flush=True)
+    if not (loss_rel <= 1e-4 and gn_rel <= 1e-3 and p_err <= 1e-5):
+        fail("the kernel and plain train steps disagree")
+    return dict(launches=launches, steps=log, dev=dev_sum, audio_s_per_s=rate, wall_s=wall,
+                parity=dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, param_max_abs=p_err,
+                            kernel_step_s=tk, plain_step_s=tp))
+
+
 def main(json_path: str = "") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -260,6 +538,7 @@ def main(json_path: str = "") -> None:
         from e2e_asr_tpu_torch.ops.att_step_cuda import att_step_beam_loc
         from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
         from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_fwd
+        from e2e_asr_tpu_torch.training.step import Trainer  # noqa: F401
     except ImportError as e:
         fail(f"the port is not importable here: {e}")
     if not os.path.isfile(FLAGSHIP):
@@ -283,6 +562,7 @@ def main(json_path: str = "") -> None:
     cfg = solver.config
     with torch.inference_mode():
         kern = kernel_checks(dev, cfg, solver.vocab_size)
+    kern.update(train_kernel_checks(dev, cfg, solver.vocab_size))
 
     # ---- the serving path through the CLI's Solver, on the card
     batch = next(solver.eval_sets["dev"].epoch())
@@ -328,21 +608,26 @@ def main(json_path: str = "") -> None:
     if same < 16:
         fail("kernel decode and plain decode differ in top hypotheses")
 
+    # ---- the training path
+    train = train_phase(smi)
+
+    # launches: each kernel's count on its own path (log_mel: decode)
+    path_launches = {**train["launches"], **launches}
     rows = []
-    for name in wrappers:
-        kv = kern[name]
+    for name, kv in kern.items():
         rows.append({
             "name": name, "route": kv["route"], "source": kv["source"], "replaces": kv["replaces"],
-            "launches": launches[name], "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
+            "launches": path_launches[name], "max_abs_err": kv["max_abs_err"], "ms": kv["ms"],
             "plain_ms": kv["plain_ms"], "bound_ms": kv["bound"][0], "bound_by": kv["bound"][1],
             "library_ms": kv["library_ms"], "shapes": kv["shapes"],
-            **({"per_width": kv["per_width"]} if "per_width" in kv else {}),
+            **{k: kv[k] for k in ("per_width", "loss_fwd_bwd_ms") if k in kv},
         })
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump({"card": smi, "kernels": rows, "e2e_audio_s_per_s": rate, "e2e": st,
-                   "top_score_rel_diff": score_err, "identical_top": same}, f, indent=1)
+                   "top_score_rel_diff": score_err, "identical_top": same, "train": train},
+                  f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,7 @@ from __future__ import annotations
 import csv
 import os
 import time
-from typing import Dict, Sequence
+from typing import Dict
 
 import numpy as np
 import torch
@@ -23,19 +23,9 @@ from e2e_asr_tpu_torch.config import Config
 from e2e_asr_tpu_torch.data.dataset import load_eval_datasets
 from e2e_asr_tpu_torch.decode.beam import BeamResult, beam_search
 from e2e_asr_tpu_torch.device import resolve_device
+from e2e_asr_tpu_torch.metrics import edit_distance
 from e2e_asr_tpu_torch.models.encoder import total_downsample
 from e2e_asr_tpu_torch.ops.frontend import compute_features
-
-
-def edit_distance(a: Sequence, b: Sequence) -> int:
-    """Levenshtein distance (insert, delete, substitute: cost 1 each)."""
-    prev = list(range(len(b) + 1))
-    for i in range(1, len(a) + 1):
-        cur = [i] + [0] * len(b)
-        for j in range(1, len(b) + 1):
-            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (a[i - 1] != b[j - 1]))
-        prev = cur
-    return prev[-1]
 
 
 class Solver:
@@ -43,7 +33,8 @@ class Solver:
 
     def __init__(self, config: Config, paras, mode: str = "test"):
         if mode != "test":
-            raise NotImplementedError("training: later slice")
+            raise ValueError(f"bin/test_asr.Solver decodes only (mode 'test', not {mode!r}); "
+                             "training is bin/train_asr.Solver")
         self.config = config
         self.paras = paras
         self.device = resolve_device("cpu" if paras.cpu else "cuda")

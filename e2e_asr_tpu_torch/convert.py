@@ -12,7 +12,9 @@ the port's parameter tree. Layouts that change:
 - dense ``w [in, out]``, embeddings and vectors are kept as they are.
 
 The port's checkpoint is ``torch.save({"params": tree, "vocab_size",
-"feat_dim"})``; ``bin/test_asr.py`` reads it with ``load_checkpoint``.
+"feat_dim"})``; a training checkpoint adds ``opt_state`` and ``step``.
+``bin/test_asr.py`` reads either with ``load_checkpoint`` and uses only
+``params``.
 """
 
 from __future__ import annotations
@@ -49,22 +51,29 @@ def params_from_jax(tree: Any) -> Any:
 
 
 def params_to(tree: Any, device: torch.device) -> Any:
+    """A copy of a tree of tensors (detached) on ``device``; other leaves
+    (counts) are kept."""
     if isinstance(tree, dict):
         return {k: params_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [params_to(v, device) for v in tree]
-    return tree.to(device)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to(device)
+    return tree
 
 
-def save_checkpoint(path: str, params: Any, vocab_size: int, feat_dim: int) -> None:
-    torch.save(
-        {"params": params_to(params, torch.device("cpu")), "vocab_size": vocab_size,
-         "feat_dim": feat_dim},
-        path,
-    )
+def save_checkpoint(path: str, params: Any, vocab_size: int, feat_dim: int, **extra) -> None:
+    """``extra`` (a training run's ``opt_state`` and ``step``) is saved beside
+    the parameters."""
+    cpu = torch.device("cpu")
+    payload = {"params": params_to(params, cpu), "vocab_size": vocab_size, "feat_dim": feat_dim}
+    payload.update({k: params_to(v, cpu) for k, v in extra.items()})
+    torch.save(payload, path)
 
 
 def load_checkpoint(path: str, device: torch.device) -> dict:
     payload = torch.load(path, map_location="cpu", weights_only=True)
-    payload["params"] = params_to(payload["params"], device)
+    for key in ("params", "opt_state"):
+        if key in payload:
+            payload[key] = params_to(payload[key], device)
     return payload

@@ -1,4 +1,4 @@
-// Bidirectional masked LSTM layer, forward only, with x @ Wx inside.
+// Bidirectional masked LSTM layer, forward, with x @ Wx inside.
 //
 // Replaces the forward of the TPU kernel e2e_asr_tpu/ops/rnn_pallas.py
 // lstm_seq_fused (_fused_fwd_call / _fused_fwd_kernel). Same contract:
@@ -6,9 +6,12 @@
 // original time, rows [B, 2B) run the backward direction in kernel time
 // (kernel step k reads original time T-1-k); gates = x_t @ Wx + h @ Wh + b
 // in i,f,g,o order; zero initial state; where mask = 0 the h/c carries
-// freeze and the output row is zero. Output ys [T, 2B, H]. Unlike the TPU
-// forward it writes no residuals (gate activations, c carry): inference
-// has no backward pass to feed.
+// freeze and the output row is zero. Output ys [T, 2B, H]. The inference
+// variant writes nothing else; the training variant (TRAIN) also writes,
+// per step, the residuals the TPU forward streams out for its backward
+// (rnn_pallas.py _fused_fwd_kernel c_ref / acts_ref): the frozen c carry
+// c_out [T, 2B, H] and the gate activations acts [T, 2B, 4H] (i, f, g, o),
+// read by csrc/lstm_bidir_bwd.cu.
 //
 // What bounds it on the H100: the recurrence. Every step must finish
 // h_{t-1} @ Wh before the next starts, and 2B rows (32 at decode B=16)
@@ -42,10 +45,12 @@ constexpr int KS = 2;  // threads per gate column (reduction split)
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // launch bounds: H up to 1024 gives up to 1024 threads, so at most 64 registers
+template <bool TRAIN>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(1024)
 lstm_bidir_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                       const float* __restrict__ wx, const float* __restrict__ wh,
                       const float* __restrict__ bias, float* __restrict__ ys,
+                      float* __restrict__ c_out, float* __restrict__ acts,
                       int T, int B, int D, int H) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -152,7 +157,16 @@ lstm_bidir_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mas
         const int hi = u0 + ou;
         const float hv = m ? h2 : hc[hi];
         if (m) c = c2;
-        ys[((long)k * 2 * B + dir * B + row) * H + hi] = m ? h2 : 0.0f;
+        const long r = (long)k * 2 * B + dir * B + row;
+        ys[r * H + hi] = m ? h2 : 0.0f;
+        if (TRAIN) {
+          c_out[r * H + hi] = c;
+          float* a = acts + r * G + hi;
+          a[0] = ig;
+          a[H] = fg;
+          a[2 * H] = gg;
+          a[3 * H] = og;
+        }
 #pragma unroll
         for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(hn + hi, q) = hv;
       }
@@ -161,16 +175,19 @@ lstm_bidir_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mas
   }
 }
 
+template <bool TRAIN>
 int launch(const float* x, const float* mask, const float* wx, const float* wh, const float* b,
-           float* ys, int T, int B, int D, int H, cudaStream_t stream) {
+           float* ys, float* c_out, float* acts, int T, int B, int D, int H,
+           cudaStream_t stream) {
   const int nc = 4 * (H / CL);
   const size_t smem = sizeof(float) * ((size_t)TS * D + 2 * (size_t)H + (size_t)TS * nc +
                                        (size_t)KS * TS * nc);
-  cudaError_t e = cudaFuncSetAttribute(lstm_bidir_fwd_kernel,
+  cudaError_t e = cudaFuncSetAttribute(lstm_bidir_fwd_kernel<TRAIN>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int threads = ((KS * nc + 31) / 32) * 32;  // KS * nc >= H / CL cell owners
-  lstm_bidir_fwd_kernel<<<2 * B * CL, threads, smem, stream>>>(x, mask, wx, wh, b, ys, T, B, D, H);
+  lstm_bidir_fwd_kernel<TRAIN><<<2 * B * CL, threads, smem, stream>>>(x, mask, wx, wh, b, ys,
+                                                                     c_out, acts, T, B, D, H);
   return (int)cudaGetLastError();
 }
 
@@ -187,5 +204,16 @@ extern "C" int e2e_lstm_bidir_fwd(const float* x, const float* mask, const float
                                   const float* wh, const float* b, float* ys, int T, int B,
                                   int D, int H, void* stream) {
   if (H % CL != 0 || KS * 4 * (H / CL) > 1024) return (int)cudaErrorInvalidValue;
-  return launch(x, mask, wx, wh, b, ys, T, B, D, H, (cudaStream_t)stream);
+  return launch<false>(x, mask, wx, wh, b, ys, nullptr, nullptr, T, B, D, H,
+                       (cudaStream_t)stream);
+}
+
+// The training variant: as above, plus c_out [T, 2B, H] (the c carry after
+// each step, frozen where mask = 0) and acts [T, 2B, 4H] (the gate
+// activations of each step), both in the layout of ys.
+extern "C" int e2e_lstm_bidir_fwd_train(const float* x, const float* mask, const float* wx,
+                                        const float* wh, const float* b, float* ys, float* c_out,
+                                        float* acts, int T, int B, int D, int H, void* stream) {
+  if (H % CL != 0 || KS * 4 * (H / CL) > 1024) return (int)cudaErrorInvalidValue;
+  return launch<true>(x, mask, wx, wh, b, ys, c_out, acts, T, B, D, H, (cudaStream_t)stream);
 }

@@ -33,7 +33,7 @@ import torch
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-SOURCES = ("log_mel", "lstm_bidir", "att_step", "ctc_prefix")
+SOURCES = ("log_mel", "lstm_bidir", "lstm_bidir_bwd", "att_step", "ctc_prefix", "ctc_loss")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,11 +1,15 @@
-"""Host-side eval dataset assembly: manifests -> fixed-shape bucketed batches.
+"""Host-side dataset assembly: manifests -> fixed-shape bucketed batches.
 
 A trimmed copy of ``e2e_asr_tpu/data/dataset.py`` (the port imports nothing
-of the JAX package). It keeps what decoding needs: the static bucket ladder
-(every batch padded to its bucket's (samples, tokens) shape, so each bucket
-decodes at one shape), the HALF_BATCHSIZE_AUDIO_LEN rule, ``batch_shapes()``
-and ``load_eval_datasets``. The device-resident corpus, multi-process row
-blocks and LM text batches of the JAX package belong to later slices.
+of the JAX package). It keeps the static bucket ladder (every batch padded
+to its bucket's (samples, tokens) shape), the HALF_BATCHSIZE_AUDIO_LEN
+rule, ``batch_shapes()``, the training schedule (batch order shuffled per
+epoch with ``RandomState(seed + epoch)``, a length-ascending curriculum
+epoch, ``forever(skip_steps)`` to replay a resumed run's data) and
+``load_dataset`` / ``load_eval_datasets``. Batches are materialised on the
+calling thread. The device-resident corpus, the prefetch threads,
+multi-process row blocks and LM text batches of the JAX package are not
+ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ def frames_to_samples(frames: int, win: int, shift: int) -> int:
 
 
 class BucketedLoader:
-    """Bucketing batcher over a manifest (eval order: duration-ascending)."""
+    """Bucketing batcher over a manifest."""
 
     def __init__(
         self,
@@ -54,6 +58,9 @@ class BucketedLoader:
         shift: int,
         half_batch_len: int = 800,
         wire_dtype: str = "int16",
+        shuffle: bool = False,
+        ascending: bool = False,
+        seed: int = 0,
     ):
         if len(buckets_frames) != len(token_buckets):
             raise ValueError("buckets and token_buckets must have the same length")
@@ -62,6 +69,9 @@ class BucketedLoader:
         self.buckets_frames = list(buckets_frames)
         self.token_buckets = list(token_buckets)
         self.wire_dtype = wire_dtype
+        self.shuffle = shuffle
+        self.ascending = ascending
+        self.seed = seed
         self._items = []
         skipped = 0
         for u in utts:
@@ -134,9 +144,31 @@ class BucketedLoader:
         uids += [""] * (b - len(idxs))
         return Batch(wav, wav_len, txt, txt_len, tuple(uids))
 
-    def epoch(self) -> Iterator[Batch]:
-        for bi, idxs in self._batches:
+    def epoch(
+        self, epoch_idx: int = 0, ascending: Optional[bool] = None, skip_first: int = 0
+    ) -> Iterator[Batch]:
+        """One epoch of batches: duration-ascending, or shuffled per epoch;
+        ``skip_first`` batches are skipped without being materialised."""
+        order = list(range(len(self._batches)))
+        asc = self.ascending if ascending is None else ascending
+        if not asc and self.shuffle:
+            np.random.RandomState(self.seed + epoch_idx).shuffle(order)
+        for oi in order[skip_first:]:
+            bi, idxs = self._batches[oi]
             yield self._materialize(bi, idxs)
+
+    def forever(
+        self, start_epoch: int = 0, curriculum_epochs: int = 0, skip_steps: int = 0
+    ) -> Iterator[Batch]:
+        """Endless step-based iteration; ``skip_steps`` fast-forwards past the
+        batches a resumed run already consumed."""
+        n = max(len(self._batches), 1)
+        e = start_epoch + skip_steps // n
+        skip = skip_steps % n
+        while True:
+            yield from self.epoch(e, ascending=(e < curriculum_epochs), skip_first=skip)
+            skip = 0
+            e += 1
 
 
 def build_tokenizer(cfg: DataConfig, utts: List[corpus_mod.Utterance]) -> text_mod.TextEncoder:
@@ -154,6 +186,30 @@ def build_tokenizer(cfg: DataConfig, utts: List[corpus_mod.Utterance]) -> text_m
     if mode == "bert":
         return text_mod.BertTextEncoder.from_corpus(texts)
     raise ValueError(f"unknown text mode {mode}")
+
+
+def load_dataset(cfg: DataConfig, ascending: bool = False):
+    """(train loader, dev loader, feat_dim, vocab size, tokenizer, msg). The
+    train loader shuffles its batches per epoch unless ``ascending``."""
+    c = cfg.corpus
+    win = int(cfg.audio.sample_rate * cfg.audio.frame_length / 1000)
+    shift = int(cfg.audio.sample_rate * cfg.audio.frame_shift / 1000)
+    tr_utts = corpus_mod.load_corpus(c.name, c.path, c.train_split)
+    dv_utts = corpus_mod.load_corpus(c.name, c.path, c.dev_split)
+    tokenizer = build_tokenizer(cfg, tr_utts)
+    common = dict(
+        buckets_frames=c.buckets, token_buckets=c.token_buckets, win=win, shift=shift,
+        half_batch_len=c.half_batch_len, wire_dtype=c.wire_dtype,
+    )
+    tr = BucketedLoader(tr_utts, tokenizer, c.batch_size, shuffle=not ascending,
+                        ascending=ascending, **common)
+    dv = BucketedLoader(dv_utts, tokenizer, c.batch_size, **common)
+    msg = (
+        f"corpus {c.name}: {tr.num_utts} train / {dv.num_utts} dev utts "
+        f"({tr.skipped}+{dv.skipped} over-bucket skipped), "
+        f"{len(tr)}/{len(dv)} batches, vocab={tokenizer.vocab_size} ({cfg.text.mode})"
+    )
+    return tr, dv, cfg.audio.output_dim, tokenizer.vocab_size, tokenizer, msg
 
 
 def load_eval_datasets(cfg: DataConfig, batch_size: Optional[int] = None):

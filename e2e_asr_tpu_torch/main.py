@@ -1,10 +1,14 @@
-"""CLI entry point, with the JAX package's flag surface for ``--test``.
+"""CLI entry point, with the JAX package's flag surface.
 
-    python -m e2e_asr_tpu_torch.main --config cfg.yaml --test --load ckpt.pt
+    python -m e2e_asr_tpu_torch.main --config cfg.yaml              # train ASR
+        [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt]
+        [--no-auto-resume] [-o KEY=VAL ...] [--cpu]
+    python -m e2e_asr_tpu_torch.main --config cfg.yaml --test --load ckpt
         [--name exp] [--outdir result/] [-o KEY=VAL ...] [--cpu]
 
-Decoding runs on the card unless ``--cpu`` is given. Training and ``--lm``
-come with later slices of the port and raise ``NotImplementedError``.
+Training and decoding run on the card unless ``--cpu`` is given (without
+CUDA and without ``--cpu`` they raise). ``--lm`` comes with a later slice of
+the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,15 +19,22 @@ import numpy as np
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="End-to-end ASR on PyTorch/CUDA (decode)")
+    p = argparse.ArgumentParser(description="End-to-end ASR on PyTorch/CUDA")
     p.add_argument("--config", type=str, required=True, help="experiment yaml")
     p.add_argument("--name", default=None, type=str, help="experiment name")
+    p.add_argument("--logdir", default="log/", type=str)
+    p.add_argument("--ckpdir", default="ckpt/", type=str)
     p.add_argument("--outdir", default="result/", type=str)
-    p.add_argument("--load", default=None, type=str, help="checkpoint (convert.save_checkpoint)")
+    p.add_argument("--load", default=None, type=str,
+                   help="checkpoint (convert.save_checkpoint) to resume from / decode")
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--test", action="store_true", help="evaluation (beam decode)")
     p.add_argument("--lm", action="store_true", help="RNN-LM task")
     p.add_argument("--no-msg", action="store_true")
+    p.add_argument(
+        "--no-auto-resume", dest="auto_resume", action="store_false",
+        help="do not auto-resume from ckpdir/<name>/latest",
+    )
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument(
         "-o", "--override", action="append", default=[], metavar="KEY=VAL",
@@ -56,16 +67,20 @@ def main(argv=None):
     np.random.seed(paras.seed)
     if paras.lm:
         raise NotImplementedError("RNN-LM task: later slice")
-    if not paras.test:
-        raise NotImplementedError("training: later slice")
+    if paras.test:
+        from e2e_asr_tpu_torch.bin.test_asr import Solver
 
-    from e2e_asr_tpu_torch.bin.test_asr import Solver
+        mode = "test"
+    else:
+        from e2e_asr_tpu_torch.bin.train_asr import Solver
+
+        mode = "train"
     from e2e_asr_tpu_torch.config import Config
 
     config = Config.load(paras.config)
     apply_overrides(config, paras.override)
     config.hparas.seed = paras.seed
-    solver = Solver(config, paras, "test")
+    solver = Solver(config, paras, mode)
     solver.load_data()
     solver.set_model()
     return solver.exec()

@@ -1,7 +1,9 @@
-"""Attention for beam decoding: location-aware and scaled-dot, multi-head.
+"""Location-aware and scaled-dot attention, multi-head.
 
 Counterpart of ``e2e_asr_tpu/models/attention.py`` (``attention_init``,
-``prepare``, ``init_align``, ``step_beam``). ``prepare`` caches the key
+``prepare``, ``init_align``, ``step``, ``step_beam``). ``step`` (one query
+per utterance: teacher-forced training and greedy decoding) is plain and
+differentiable. ``prepare`` caches the key
 projection once per utterance batch; it builds no Toeplitz bank: the
 location conv reads its taps directly (ops/att_step_cuda.py). Inside the
 kernel's envelope (location mode, one head, no value projection, no merge)
@@ -66,6 +68,37 @@ def init_align(cfg: AttentionConfig, mem: Dict) -> torch.Tensor:
     b, s = mask.shape
     uni = mask.float() / torch.clamp(mem["enc_len"], min=1)[:, None]
     return uni[:, None].expand(b, cfg.num_head, s)
+
+
+def step(
+    params: Params, cfg: AttentionConfig, query: torch.Tensor, mem: Dict, prev_att: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One attention step, one query per utterance.
+
+    query: [B, dec_dim]; prev_att: [B, H, S].
+    Returns (align [B, H, S], ctx [B, enc_dim])."""
+    b = query.shape[0]
+    h, d = cfg.num_head, cfg.dim
+    k, v, mask = mem["k"], mem["v"], mem["mask"]
+    s = k.shape[2]
+    q = L.dense(params["proj_q"], query).reshape(b, h, d)
+    if cfg.mode == "dot":
+        energy = torch.einsum("bhd,bhsd->bhs", q, k) / math.sqrt(d)
+    elif cfg.mode == "location":
+        f = location_features(prev_att, params["loc_conv"]["w"]) + params["loc_conv"]["b"]
+        f = L.dense(params["loc_proj"], f)  # [B, S, d]
+        e = torch.tanh(q[:, :, None, :] + k + f[:, None] + params["loc_b"])
+        energy = torch.einsum("bhsd,hd->bhs", e, params["loc_v"])
+    else:
+        raise ValueError(f"unknown attention mode {cfg.mode}")
+    m = mask[:, None]
+    energy = torch.where(m, energy, NEG)
+    align = torch.softmax(energy / cfg.temperature, dim=-1)
+    align = torch.where(m, align, 0.0)
+    ctx = torch.einsum("bhs,bhse->bhe", align, v).reshape(b, -1)
+    if "merge" in params:
+        ctx = torch.tanh(L.dense(params["merge"], ctx))
+    return align, ctx
 
 
 def step_beam(

@@ -1,13 +1,13 @@
 """Speller decoder: stacked LSTM cells + character projection.
 
 Counterpart of ``e2e_asr_tpu/models/decoder.py``. The state is an explicit
-(h, c) pair of [layers, B, H] tensors that the beam loop threads through.
-GRU spellers come with a later slice.
+(h, c) pair of [layers, B, H] tensors that the beam loop and the
+teacher-forced loop thread through. GRU spellers come with a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,8 +44,12 @@ def query_of(state: State) -> torch.Tensor:
     return state[0][-1]
 
 
-def step(params: Params, cfg: DecoderConfig, state: State, x: torch.Tensor):
-    """One decode step. x: [B, in_dim] = [char_emb; context].
+def step(
+    params: Params, cfg: DecoderConfig, state: State, x: torch.Tensor,
+    generator: Optional[torch.Generator] = None, train: bool = False,
+):
+    """One decode step. x: [B, in_dim] = [char_emb; context]. In training,
+    dropout at ``cfg.dropout`` follows each layer.
 
     Returns (char_logits [B, vocab], hidden [B, H], new_state)."""
     _check_supported(cfg)
@@ -57,5 +61,6 @@ def step(params: Params, cfg: DecoderConfig, state: State, x: torch.Tensor):
         hs.append(h_new)
         cs.append(c_new)
         inp = h_new
+        inp = L.dropout(inp, cfg.dropout, generator, train)
     logits = L.dense(params["char"], inp)
     return logits, inp, (torch.stack(hs), torch.stack(cs))

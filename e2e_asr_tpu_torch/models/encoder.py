@@ -9,7 +9,7 @@ later slice and raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -86,7 +86,8 @@ def rnn_layer_init(
 
 
 def rnn_layer_apply(
-    p: Params, x: torch.Tensor, x_len: torch.Tensor, sample_rate: int, sample_style: str
+    p: Params, x: torch.Tensor, x_len: torch.Tensor, sample_rate: int, sample_style: str,
+    dropout: float = 0.0, generator: Optional[torch.Generator] = None, train: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     out = rnn_ops.bidir(x, x_len, p["fwd"], p["bwd"])
     if sample_rate > 1:
@@ -101,6 +102,7 @@ def rnn_layer_apply(
         x_len = torch.div(x_len, sample_rate, rounding_mode="floor")
     if "ln" in p:
         out = L.layernorm(p["ln"], out)
+    out = L.dropout(out, dropout, generator, train)
     if "proj" in p:
         out = torch.tanh(L.dense(p["proj"], out))
     # re-mask after downsample/proj so padding stays exactly zero
@@ -125,15 +127,20 @@ def encoder_init(gen: torch.Generator, feat_dim: int, cfg: EncoderConfig) -> Tup
 
 
 def encoder_apply(
-    p: Params, cfg: EncoderConfig, feat: torch.Tensor, feat_len: torch.Tensor
+    p: Params, cfg: EncoderConfig, feat: torch.Tensor, feat_len: torch.Tensor,
+    generator: Optional[torch.Generator] = None, train: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, T, D] -> (enc [B, S, H], enc_len [B]), inference (no dropout)."""
+    """[B, T, D] -> (enc [B, S, H], enc_len [B]). Dropout (after each
+    layer's layer norm, before its projection) only with ``train`` and a
+    generator."""
     _check_supported(cfg)
     x, x_len = feat, feat_len
     if cfg.prenet == "vgg":
         x, x_len = vgg_apply(p["prenet"], x, x_len)
     for i, lp in enumerate(p["layers"]):
-        x, x_len = rnn_layer_apply(lp, x, x_len, cfg.sample_rate[i], cfg.sample_style)
+        x, x_len = rnn_layer_apply(
+            lp, x, x_len, cfg.sample_rate[i], cfg.sample_style, cfg.dropout[i], generator, train
+        )
     return x, torch.clamp(x_len, min=1)
 
 

@@ -12,7 +12,7 @@ activations NCHW, PyTorch's own layout; dense weights stay [in, out].
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -85,3 +85,13 @@ def conv1d_init(gen: torch.Generator, k: int, c_in: int, c_out: int) -> Params:
 def maxpool2d(x: torch.Tensor) -> torch.Tensor:
     """[B, C, H, W] floor-mode 2x2 max pool: an odd H or W drops its last row."""
     return F.max_pool2d(x, kernel_size=2, stride=2)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+    """Inverted dropout with keep mask ~ Bernoulli(1 - rate) drawn from
+    ``generator`` (a no-op outside training, at rate 0 or without one)."""
+    if not train or rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) < keep
+    return torch.where(mask, x / keep, 0.0)

@@ -5,8 +5,11 @@ Counterpart of ``e2e_asr_tpu/ops/rnn.py``. Weights are dicts
 JAX ``LSTMWeights`` fields). ``bidir`` keeps the JAX package's layout: both
 directions ride as 2B rows of one recurrence, the backward rows in flipped
 time, carries freeze where the mask is 0 and outputs there are zero
-(``_masked_scan``). The recurrence itself is ``ops/rnn_cuda.py``
-``lstm_bidir_fwd`` (the hand-written kernel on CUDA tensors).
+(``_masked_scan``). The recurrence itself is ``ops/rnn_cuda.py``: when
+autograd records (grad enabled and an input needs grad), the training
+forward and the backward kernel through ``lstm_bidir_train``; otherwise
+the inference kernel ``lstm_bidir_fwd`` (each the hand-written kernel on
+CUDA tensors).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_fwd
+from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_fwd, lstm_bidir_train
 
 LSTMWeights = Dict[str, torch.Tensor]
 
@@ -40,7 +43,9 @@ def bidir(
     wx = torch.stack([w_fwd["wx"], w_bwd["wx"]])
     wh = torch.stack([w_fwd["wh"], w_bwd["wh"]])
     bias = torch.stack([w_fwd["b"], w_bwd["b"]])
-    ys = lstm_bidir_fwd(x.transpose(0, 1), mask, wx, wh, bias)  # [T, 2B, H]
+    train = torch.is_grad_enabled() and any(a.requires_grad for a in (x, wx, wh, bias))
+    run = lstm_bidir_train if train else lstm_bidir_fwd
+    ys = run(x.transpose(0, 1), mask, wx, wh, bias)  # [T, 2B, H]
     y_f = ys[:, :b].transpose(0, 1)
     y_b = torch.flip(ys[:, b:], dims=[0]).transpose(0, 1)
     return torch.cat([y_f, y_b], dim=-1)

@@ -4,6 +4,7 @@ the JAX package."""
 
 import ast
 import csv
+import json
 import os
 import subprocess
 import sys
@@ -23,7 +24,7 @@ from e2e_asr_tpu_torch.data.dataset import build_tokenizer
 from e2e_asr_tpu_torch.decode import ctc_prefix_cuda
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.main import main as cli_main
-from e2e_asr_tpu_torch.ops import att_step_cuda, frontend_cuda, rnn_cuda
+from e2e_asr_tpu_torch.ops import att_step_cuda, ctc_cuda, frontend_cuda, rnn_cuda
 from tests.torch_parity import small_config
 
 torch.set_num_threads(1)
@@ -119,12 +120,74 @@ def test_decode_cli_on_cpu(tmp_path):
         assert 0.0 <= ers[split] < 50.0
 
 
+def _tiny_train_yaml(tmp_path, max_step=2):
+    """The flagship's structure at test size on the synthetic corpus, with
+    dither, SpecAugment, dropout and scheduled teacher forcing on."""
+    d = small_config()
+    d["data"] = {
+        "corpus": {"name": "synthetic", "train_split": ["train:8"], "dev_split": ["dev:4"],
+                   "batch_size": 4, "buckets": [416], "token_buckets": [48], "half_batch_len": 1000},
+        "audio": {"feat_dim": 40, "use_pallas": True, "dither": 1e-5},
+        "text": {"mode": "character"},
+    }
+    d["hparas"] = {"valid_step": 2, "max_step": max_step, "log_step": 1, "optimizer": "Adadelta",
+                   "lr": 1.0, "eps": 1e-8, "grad_clip": 5.0, "curriculum": 1, "tf_start": 0.9,
+                   "tf_end": 0.5, "tf_step": 10}
+    d["model"]["encoder"]["dropout"] = [0.1, 0.0]
+    d["model"]["decoder"]["dropout"] = 0.1
+    d["model"]["specaugment"] = {"enable": True, "freq_mask_width": 5, "time_mask_width": 10}
+    path = tmp_path / "tiny_train.yaml"
+    path.write_text(yaml.safe_dump(d))
+    return path
+
+
+def test_train_cli_on_cpu_then_resume_and_decode(tmp_path):
+    """main --cpu trains 2 steps and writes best_att / best_ctc / latest
+    with the optimizer state; a second run resumes from latest; --test
+    --load decodes the training checkpoint's params."""
+    train_yaml = _tiny_train_yaml(tmp_path)
+    dirs = ["--logdir", str(tmp_path / "log"), "--ckpdir", str(tmp_path / "ckpt"), "--no-msg"]
+    cli_main(["--config", str(train_yaml), "--cpu", "--name", "tiny", *dirs])
+    ck = tmp_path / "ckpt" / "tiny"
+    for f in ("latest", "best_att", "best_ctc", "tokenizer.vocab"):
+        assert (ck / f).is_file(), f
+    payload = torch.load(ck / "latest", weights_only=True)
+    assert payload["step"] == 2 and payload["opt_state"]["count"] == 2
+    assert (ck / "latest.meta").read_text().splitlines()[1] == "global_step 2"
+    with open(tmp_path / "log" / "tiny" / "scalars.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    tags = {r["tag"] for r in recs}
+    assert {"loss", "grad_norm", "tf_rate", "throughput_audio_sec_per_sec", "dev_loss", "er"} <= tags
+    assert all(np.isfinite(r["value"]) for r in recs if r["tag"] == "grad_norm")
+
+    cli_main(["--config", str(train_yaml), "--cpu", "--name", "tiny", "-o", "hparas.max_step=3", *dirs])
+    resumed = torch.load(ck / "latest", weights_only=True)
+    assert resumed["step"] == 3 and resumed["opt_state"]["count"] == 3
+
+    with open(os.path.join(ROOT, "configs", "synthetic_decode.yaml")) as f:
+        d = yaml.safe_load(f)
+    d["data"]["corpus"].update(train_split=["train:8"], dev_split=["dev:4"], test_split=["test:4"],
+                               buckets=[416], token_buckets=[48])
+    d["src"] = {"ckpt": "", "config": str(train_yaml)}
+    d["decode"].update(beam_size=2, batch_size=2, max_len_ratio=0.3)
+    decode_yaml = tmp_path / "decode.yaml"
+    decode_yaml.write_text(yaml.safe_dump(d))
+    ers = cli_main(["--config", str(decode_yaml), "--test", "--cpu", "--load", str(ck / "latest"),
+                    "--name", "tiny", "--outdir", str(tmp_path / "res"), "--no-msg"])
+    assert set(ers) == {"dev", "test"} and all(np.isfinite(v) for v in ers.values())
+
+
 def test_cli_later_slices_raise(tmp_path):
+    """--lm is a later slice; training needs CUDA unless --cpu is given."""
     cfg = str(os.path.join(ROOT, "configs", "synthetic_decode.yaml"))
     with pytest.raises(NotImplementedError, match="later slice"):
         cli_main(["--config", cfg, "--lm", "--cpu"])
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cli_main(["--config", cfg, "--cpu"])
+    if torch.cuda.is_available():
+        return
+    train_yaml = _tiny_train_yaml(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_main(["--config", str(train_yaml), "--logdir", str(tmp_path / "log"),
+                  "--ckpdir", str(tmp_path / "ckpt"), "--no-msg"])
 
 
 def test_cuda_device_without_cuda_raises():
@@ -136,7 +199,7 @@ def test_cuda_device_without_cuda_raises():
 
 
 def _wrapper_calls():
-    """(wrapper, plain version, args on CPU) for the four kernels."""
+    """(wrapper, plain version, args on CPU) for every kernel wrapper."""
     cfg = AudioConfig(feat_dim=40)
     wav = torch.randn(2, 2000)
     x, mask = torch.randn(5, 2, 8), torch.ones(5, 2)
@@ -145,16 +208,23 @@ def _wrapper_calls():
     k, v, lens = torch.randn(2, 11, 6), torch.randn(2, 11, 7), torch.tensor([11, 6])
     taps, wlp, locv, locb = torch.randn(2, 5), torch.randn(2, 6), torch.randn(6), torch.randn(6)
     streams = (torch.randn(7, 9), torch.randn(7, 9), torch.randn(7, 9), torch.ones(7, 9))
+    ys, c, acts = rnn_cuda.lstm_bidir_fwd_train_plain(x, mask, wx, wh, b)
+    dy = torch.randn(ys.shape)
+    lp = torch.log_softmax(torch.randn(2, 9, 6), -1)
+    labels, inlen, lablen = torch.tensor([[1, 2, 2], [3, 0, 0]]), torch.tensor([9, 5]), torch.tensor([3, 1])
     return [
         (frontend_cuda.log_mel, frontend_cuda.log_mel_plain, (wav, cfg, 400, 160, 512)),
         (rnn_cuda.lstm_bidir_fwd, rnn_cuda.lstm_bidir_fwd_plain, (x, mask, wx, wh, b)),
         (att_step_cuda.att_step_beam_loc, att_step_cuda.att_step_beam_loc_plain,
          (q, prev, k, v, lens, taps, wlp, locv, locb, 0.5)),
         (ctc_prefix_cuda.prefix_recursion, ctc_prefix_cuda.prefix_recursion_plain, streams),
+        (rnn_cuda.lstm_bidir_fwd_train, rnn_cuda.lstm_bidir_fwd_train_plain, (x, mask, wx, wh, b)),
+        (rnn_cuda.lstm_bidir_bwd, rnn_cuda.lstm_bidir_bwd_plain, (x, mask, wx, wh, ys, c, acts, dy)),
+        (ctc_cuda.ctc_lattice, ctc_cuda.ctc_lattice_plain, (lp, labels, inlen, lablen)),
     ]
 
 
-@pytest.mark.parametrize("idx", range(4))
+@pytest.mark.parametrize("idx", range(7))
 def test_wrapper_routes_cpu_tensors_to_plain(idx):
     wrapper, plain, args = _wrapper_calls()[idx]
     before = wrapper.launches
@@ -164,7 +234,7 @@ def test_wrapper_routes_cpu_tensors_to_plain(idx):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("idx", range(4))
+@pytest.mark.parametrize("idx", range(7))
 def test_wrapper_raises_for_cuda_without_kernels(monkeypatch, tmp_path, idx):
     """A CUDA tensor goes to the kernel or raises: with no nvcc and no built
     library there is no fallback to the plain version."""
