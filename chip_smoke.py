@@ -466,19 +466,6 @@ def train_kernel_checks(dev, cfg, vocab):
     return out
 
 
-def _scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens):
-    """Seeded inputs of the fused speller scan at the given shapes."""
-    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    uni = lambda bound, *shape: (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
-    return (torch.tanh(rnd(b, s, dk)), torch.tanh(rnd(b, s, e_dim)), lens,
-            uni(1 / math.sqrt(p), kk, p), uni(1 / math.sqrt(h), h, dk), uni(0.1, dk),
-            uni(1 / math.sqrt(kk), kk, dk), uni(1 / math.sqrt(dk), dk), uni(0.1, dk),
-            rnd(v, emb) / math.sqrt(emb), uni(1 / math.sqrt(h), emb + e_dim, 4 * h),
-            uni(1 / math.sqrt(h), h, 4 * h), uni(1 / math.sqrt(h), 4 * h),
-            uni(1 / math.sqrt(h), h, v), uni(0.1, v),
-            torch.randint(0, v, (l, b), generator=gen, device=dev, dtype=torch.int32))
-
-
 def _conv_taps(lens, p):
     """Taps of a centred P-tap filter that fall on frames inside [0, len),
     summed over the valid frames of every utterance."""
@@ -524,6 +511,7 @@ def scan_kernel_checks(dev, cfg, vocab):
     the flagship training shapes (B=16, S=204, L=200, ragged lengths), in the
     three feedback modes, and once at the longest flagship bucket (S=764)
     with a short L."""
+    from e2e_asr_tpu_torch.bin.profile_decode import print_scan_phases
     from e2e_asr_tpu_torch.ops import decoder_cuda as dc
 
     gen = torch.Generator(device=dev)
@@ -536,7 +524,7 @@ def scan_kernel_checks(dev, cfg, vocab):
     temp = float(ac.temperature)
     lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
     lens[0] = s
-    args = _scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens)
+    args = dc.scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens)
     seed = 20261016
     noise = dc.gumbel_noise(seed, l, b, vocab, dev)
     out = {}
@@ -626,12 +614,18 @@ def scan_kernel_checks(dev, cfg, vocab):
                    "kernel alone, without the contractions outside it)",
         )
 
+        # one step of each kernel split into its phases (the timing build)
+        split = dc.scan_phase_split(args, use, temp, cots)
+        print_scan_phases(split)
+        out["decoder_scan_fwd"]["phases_us"] = split["fwd"]
+        out["decoder_scan_bwd"]["phases_us"] = split["bwd"]
+
         # the longest flagship bucket: S = 764 (3056 / 4), short L
         print("[kernel] decoder_scan_fwd / decoder_scan_bwd at S=764", flush=True)
         s2, l2 = 3056 // 4, 8
         lens2 = torch.randint(s2 // 2, s2 + 1, (b,), generator=gen, device=dev)
         lens2[0] = s2
-        args2 = _scan_inputs(gen, dev, b, s2, dk, e_dim, kk, p, h, emb, vocab, l2, lens2)
+        args2 = dc.scan_inputs(gen, dev, b, s2, dk, e_dim, kk, p, h, emb, vocab, l2, lens2)
         use2 = torch.ones(l2, dtype=torch.bool)
         got = dc.decoder_scan_fwd(*args2, use2, temp)
         want = dc.decoder_scan_fwd_plain(*args2, use2, temp)
@@ -1016,6 +1010,7 @@ def main(json_path: str = "") -> None:
         from e2e_asr_tpu_torch import cuda_build
         from e2e_asr_tpu_torch.bin.profile_decode import FLAGSHIP, smoke_solver
         from e2e_asr_tpu_torch.device import resolve_device
+        from e2e_asr_tpu_torch.ops import decoder_cuda as dc
         from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_fwd, lstm_seq_fwd
         from e2e_asr_tpu_torch.training.step import Trainer  # noqa: F401
     except ImportError as e:
@@ -1030,7 +1025,7 @@ def main(json_path: str = "") -> None:
     print(smi, flush=True)
     dev = resolve_device("cuda")
     t0 = time.time()
-    logs = cuda_build.build_all()
+    logs = cuda_build.build_all(dc.PHASE_VARIANTS)  # the scan kernels' timing build too
     print(f"build: {time.time() - t0:.1f}s for {sorted(logs) or 'nothing (cached)'}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1096,7 +1091,7 @@ def main(json_path: str = "") -> None:
             "library_ms": kv["library_ms"], "shapes": kv["shapes"], "launches_path": first,
             "launches_by_path": by_path,
             **{k: kv[k] for k in ("per_width", "per_shape", "layer_routes", "loss_fwd_bwd_ms",
-                                  "ms_sampled", "ms_s764_l8") if k in kv},
+                                  "ms_sampled", "ms_s764_l8", "phases_us") if k in kv},
         })
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

@@ -1,7 +1,7 @@
 """Where the time of one flagship decode batch, or one training step, goes
 on the card.
 
-    python -m e2e_asr_tpu_torch.bin.profile_decode [--train] [--rnn-impl IMPL] [--out PATH]
+    python -m e2e_asr_tpu_torch.bin.profile_decode [--train [--scan-phases]] [--rnn-impl IMPL] [--out PATH]
 
 Decode (default): decodes the chip smoke batch (16 synthetic utterances in
 the 816-frame bucket, flagship width, seed-0 weights, beam 16, ctc_weight
@@ -17,6 +17,13 @@ not overlap), its idle share of the unprofiled and of the profiled wall,
 and the kernels by device time. Writes the same as JSON to ``--out``
 (default ``e2e_asr_tpu_torch/_build/profile_decode.json`` or
 ``profile_train.json``).
+
+``--train --scan-phases`` instead splits one step of each fused speller
+scan kernel into its phases: the kernels' timing build (``-DSCAN_PHASES``,
+built beside the normal libraries) runs at the flagship training shapes
+(B=16, S=204, Dk=300, E=640, K=10, P=201, H=Emb=320, V=26, L=200, ragged
+lengths: the inputs of ``chip_smoke.py``'s scan checks) and the mean us per
+phase per step of each kernel is printed (``profile_scan_phases.json``).
 """
 
 from __future__ import annotations
@@ -168,23 +175,68 @@ def _run_fn(train: bool, rnn_impl: str):
     return (lambda: solver.decode_batch(batch.wav, batch.wav_len)), audio_s
 
 
+def flagship_scan_inputs(dev, seed: int = 2):
+    """The fused scan's inputs at the flagship training shapes, as
+    ``chip_smoke.py`` draws them (seeded generator on ``dev``): B=16,
+    S=204 with ragged lengths in [S/2, S], L=200 teacher ids."""
+    from e2e_asr_tpu_torch.data.dataset import load_eval_datasets
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    cfg = flagship_smoke_config()
+    _, _, vocab, _, _ = load_eval_datasets(cfg.data, cfg.decode.batch_size)
+    m, ac = cfg.model, cfg.model.attention
+    b, s, l = cfg.data.corpus.batch_size, 816 // 4, cfg.data.corpus.token_buckets[-1]
+    dk, e_dim, kk, p = ac.dim, 2 * m.encoder.dim[-1], ac.loc_kernel_num, 2 * ac.loc_kernel_size + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
+    lens[0] = s
+    args = dc.scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, m.decoder.dim, m.decoder.dim, vocab, l, lens)
+    return args, float(ac.temperature)
+
+
+def print_scan_phases(split: dict) -> None:
+    for which, names_ms in (("decoder_scan_fwd", "fwd"), ("decoder_scan_bwd", "bwd")):
+        ph = split[names_ms]
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in ph.items())
+        print(f"{which} phases, mean us per step (timing build, {split[names_ms + '_ms']:.2f} ms a "
+              f"launch): {parts}; sum {sum(ph.values()):.2f}", flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true", help="profile one training step")
     ap.add_argument("--rnn-impl", default="auto", choices=("auto", "pallas", "pallas_xw"),
                     help="kernel pair of the BiLSTM layers (encoder.rnn_impl)")
+    ap.add_argument("--scan-phases", action="store_true",
+                    help="with --train: split a step of each fused scan kernel into its phases")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
     args = ap.parse_args(argv)
+    if args.scan_phases and not args.train:
+        ap.error("--scan-phases needs --train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
-    what = "train" if args.train else "decode"
+    what = "scan_phases" if args.scan_phases else "train" if args.train else "decode"
     out = args.out or os.path.join(cuda_build.BUILD_DIR, f"profile_{what}.json")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.scan_phases:
+        from e2e_asr_tpu_torch.device import resolve_device
+        from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+        dev = resolve_device("cuda")
+        scan_args, temp = flagship_scan_inputs(dev)
+        split = dc.scan_phase_split(scan_args, torch.ones(scan_args[-1].shape[0], dtype=torch.bool), temp)
+        print(f"{card}: fused scan phase split, flagship training shapes")
+        print_scan_phases(split)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"card": card, **split}, f, indent=1)
+        return
     run, audio_s = _run_fn(args.train, args.rnn_impl)
     run()  # warm-up
     torch.cuda.synchronize()

@@ -68,6 +68,29 @@ constexpr int NW = NT / 32;
 constexpr float LOWEST = -3.402823466e38f;  // -FLT_MAX
 constexpr size_t SMEM_MAX = 227 * 1024;
 
+// Timing build (nvcc -DSCAN_PHASES): block 0 writes %globaltimer at each
+// phase boundary of each step (after a __syncthreads, so a mark closes the
+// phase for the whole block) into g_phase_ts[step][mark]; the normal build
+// compiles the marks away. e2e_decoder_scan_phase_times copies the buffer out.
+constexpr int PH_STEPS = 512;  // steps recorded
+constexpr int PH_SLOTS = 16;   // marks per step
+#ifdef SCAN_PHASES
+__device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
+#define PHASE(t, i)                                                                   \
+  do {                                                                                \
+    __syncthreads();                                                                  \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (t) < PH_STEPS) {                      \
+      unsigned long long ts_;                                                         \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ts_));                         \
+      g_phase_ts[(t) * PH_SLOTS + (i)] = ts_;                                         \
+    }                                                                                 \
+  } while (0)
+#else
+#define PHASE(t, i) \
+  do {              \
+  } while (0)
+#endif
+
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -224,6 +247,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
     float* hn = h_s + ((t + 1) & 1) * H;
     const float* ap = att_s + (t & 1) * S;
     float* an = att_s + ((t + 1) & 1) * S;
+    PHASE(t, 0);
 
     // ---- phase A: q from its 8 parts, then this block's frames
     for (int d = tid; d < Dk; d += NT) {
@@ -233,6 +257,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
       if (rank == 0) a.qs[row * Dk + d] = acc;
       qb[d] = acc + a.locb[d];
     }
+    PHASE(t, 1);  // q sum
     for (int idx = tid; idx < nv * K; idx += NT) {
       const int sl = idx / K, kk = idx % K, s = s0 + sl;
       const int p0 = max(0, half - s), p1 = min(P, len + half - s);
@@ -242,6 +267,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
       f_s[idx] = acc;
     }
     __syncthreads();
+    PHASE(t, 2);  // conv
     for (int sl = wid; sl < nv; sl += NW) {
       const float* fs = f_s + sl * K;
       const float* ks = k_o + (long)sl * Dk;
@@ -255,6 +281,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
       if (lane == 0) en[sl] = acc * a.inv_temp;
     }
     __syncthreads();
+    PHASE(t, 3);  // energies
     float m_b = LOWEST;
     for (int sl = tid; sl < nv; sl += NT) m_b = fmaxf(m_b, en[sl]);
     m_b = block_reduce<true>(m_b, red);
@@ -273,6 +300,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
       *cluster.map_shared_rank(stat + rank, tid) = m_b;
       *cluster.map_shared_rank(stat + CL + rank, tid) = l_b;
     }
+    PHASE(t, 4);  // softmax and the align push
     for (int e = tid; e < E; e += NT) {
       float acc = 0.0f;
 #pragma unroll 4
@@ -280,7 +308,9 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
 #pragma unroll
       for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(ctxp + rank * E + e, q) = acc;
     }
+    PHASE(t, 5);  // context partial and push
     cluster.sync();  // barrier 1: every block holds all partials
+    PHASE(t, 6);  // barrier 1
 
     // ---- phase B: full alignment and context, token, gate product
     float gm = LOWEST;
@@ -331,6 +361,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
     if (rank == 0 && tid == 0) a.tokens[row] = tok;
     for (int j = tid; j < Emb; j += NT) xin[j] = a.embed[(long)tok * Emb + j];
     __syncthreads();
+    PHASE(t, 7);  // combine
     {
       const int cq = tid % NQ, split = tid / NQ;
       if (split < KS && vec) {
@@ -370,6 +401,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
       }
     }
     __syncthreads();
+    PHASE(t, 8);  // gate product
     if (tid < Hc) {
       const int u = u0 + tid;
       float pre[4];
@@ -395,6 +427,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
       for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(hn + u, q) = h2;
     }
     __syncthreads();
+    PHASE(t, 9);  // cell update and h' push
     // the own units' part of the next step's q = h' Wq
     for (int d = tid; d < Dk; d += NT) {
       float acc = 0.0f;
@@ -403,7 +436,9 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
 #pragma unroll
       for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(qp + rank * Dk + d, q) = acc;
     }
+    PHASE(t, 10);  // q part and push
     cluster.sync();  // barrier 2: h' and the parts of q are in every block
+    PHASE(t, 11);  // barrier 2
 
     // ---- phase C: logits of this block's vocabulary slice, local argmax
     const bool feed = t + 1 < L && !a.use_teacher[t + 1];
@@ -448,6 +483,7 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
         }
       }
     }
+    PHASE(t, 12);  // logits and argmax
   }
   cluster.sync();  // no block exits while another may still write into it
 }
@@ -502,6 +538,21 @@ extern "C" int e2e_decoder_scan_fwd(
             (uint32_t)seed_lo, (uint32_t)seed_hi, wq_smem, kv_smem};
   decoder_scan_fwd_kernel<<<B * CL, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// out [PH_STEPS * PH_SLOTS] u64: the timing build's phase marks of the last
+// launch (cudaErrorNotSupported in the normal build)
+extern "C" int e2e_decoder_scan_phase_times(unsigned long long* out, int n, void* stream) {
+#ifdef SCAN_PHASES
+  if (n > PH_STEPS * PH_SLOTS) n = PH_STEPS * PH_SLOTS;
+  return (int)cudaMemcpyFromSymbolAsync(out, g_phase_ts, sizeof(unsigned long long) * n, 0,
+                                        cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+#else
+  (void)out;
+  (void)n;
+  (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 // out [L, B, V]: the Gumbel noise the scan adds under (seed_lo, seed_hi)

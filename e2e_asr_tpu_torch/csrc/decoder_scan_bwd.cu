@@ -67,6 +67,29 @@ constexpr int NW = NT / 32;
 constexpr int KSU = 8;   // lanes per hidden unit (H / CL <= 64 units per block)
 constexpr size_t SMEM_MAX = 227 * 1024;
 
+// Timing build (nvcc -DSCAN_PHASES): block 0 writes %globaltimer at each
+// phase boundary of each step (after a __syncthreads, so a mark closes the
+// phase for the whole block) into g_phase_ts[step][mark]; the normal build
+// compiles the marks away. e2e_decoder_scan_phase_times copies the buffer out.
+constexpr int PH_STEPS = 512;  // steps recorded
+constexpr int PH_SLOTS = 16;   // marks per step
+#ifdef SCAN_PHASES
+__device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
+#define PHASE(t, i)                                                                   \
+  do {                                                                                \
+    __syncthreads();                                                                  \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (t) < PH_STEPS) {                      \
+      unsigned long long ts_;                                                         \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ts_));                         \
+      g_phase_ts[(t) * PH_SLOTS + (i)] = ts_;                                         \
+    }                                                                                 \
+  } while (0)
+#else
+#define PHASE(t, i) \
+  do {              \
+  } while (0)
+#endif
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -191,6 +214,7 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
 
   for (int t = L - 1; t >= 0; --t) {
     const long row = (long)t * B + b;
+    PHASE(t, 0);
 
     // ---- phase a
     for (int s = tid; s < S; s += NT)
@@ -237,7 +261,9 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
         }
       }
     }
+    PHASE(t, 1);  // phase a
     cluster.sync();  // barrier 1: the utterance's dgates are in every block
+    PHASE(t, 2);  // barrier 1
 
     // ---- phase b: one warp per output (own context columns, own units)
     for (int o = wid; o < ne + Hc; o += NW) {
@@ -256,7 +282,9 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
         dhl[o - ne] = acc;
       }
     }
+    PHASE(t, 3);  // phase b
     cluster.sync();  // barrier 2: dctx is in every block
+    PHASE(t, 4);  // barrier 2
 
     // ---- phase c: own frames
     float sdot = 0.0f;
@@ -271,6 +299,7 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
       acc = warp_sum(acc);
       if (lane == 0) den[sl] = attt[sl] * (acc + base[sl] - sdot) * a.inv_temp;
     }
+    PHASE(t, 5);  // the softmax term
     for (int idx = tid; idx < nv * K; idx += NT) {
       const int sl = idx / K, kk = idx % K, s = s0 + sl;
       const int p0 = max(0, half - s), p1 = min(P, len + half - s);
@@ -280,6 +309,7 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
       f_s[idx] = acc;
     }
     __syncthreads();
+    PHASE(t, 6);  // conv
     // pass 1, one warp per frame: dfpre[s, :] = de[s, :] Wlp^T
     {
       float* de = dew + wid * Dk;
@@ -306,6 +336,7 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
       }
     }
     for (int idx = tid + nv * K; idx < ns * K; idx += NT) a.dfpre[(row * S + s0) * K + idx] = 0.0f;
+    PHASE(t, 7);  // pass 1
     // pass 2, one thread per attention column: sums over the own frames
     for (int d = tid; d < Dk; d += NT) {
       float dqa = 0.0f;
@@ -324,7 +355,9 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
 #pragma unroll
       for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(dqp + rank * Dk + d, q) = dqa;
     }
+    PHASE(t, 8);  // pass 2
     cluster.sync();  // barrier 3: dfpre and the dq partials are in every block
+    PHASE(t, 9);  // barrier 3
 
     // ---- phase d
     for (int d = tid; d < Dk; d += NT) {
@@ -361,6 +394,7 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
       datt[sl] = acc;
     }
     __syncthreads();
+    PHASE(t, 10);  // phase d
   }
 
   if (a.dk_smem) {
@@ -376,6 +410,21 @@ decoder_scan_bwd_kernel(const BwdArgs a) {
 
 extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// out [PH_STEPS * PH_SLOTS] u64: the timing build's phase marks of the last
+// launch (cudaErrorNotSupported in the normal build)
+extern "C" int e2e_decoder_scan_phase_times(unsigned long long* out, int n, void* stream) {
+#ifdef SCAN_PHASES
+  if (n > PH_STEPS * PH_SLOTS) n = PH_STEPS * PH_SLOTS;
+  return (int)cudaMemcpyFromSymbolAsync(out, g_phase_ts, sizeof(unsigned long long) * n, 0,
+                                        cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+#else
+  (void)out;
+  (void)n;
+  (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 // k [B, S, Dk], v [B, S, E], enc_len [B] i32, taps [K, P], wq [H, Dk], wlp [K, Dk],

@@ -9,6 +9,10 @@ to compile, a plain one seconds). All sources are compiled in parallel, one
 reused while its source and flags are unchanged (the file name carries
 their hash).
 
+A source may also be built as a variant with extra preprocessor defines
+(``library(name, defines=("SCAN_PHASES",))``): its own library beside the
+normal one, built only when asked for, never by ``build_all()``.
+
 Every exported launcher returns the ``cudaError_t`` of
 ``cudaGetLastError()`` taken right after its launch; ``launch`` raises on
 anything but ``cudaSuccess``. A build failure raises too: there is no
@@ -26,7 +30,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -40,7 +44,7 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -51,26 +55,33 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> str:
+def _flags(defines: Sequence[str]) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _lib_path(name: str, defines: Sequence[str] = ()) -> str:
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+        digest = hashlib.sha1(f.read() + " ".join(_flags(defines)).encode()).hexdigest()[:12]
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return os.path.join(BUILD_DIR, f"{name}{tag}-{digest}.so")
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every kernel source that has no current library, in parallel.
+def build_all(variants: Sequence[Tuple[str, Sequence[str]]] = ()) -> Dict[str, str]:
+    """Compile every kernel source that has no current library, and the
+    ``variants`` (pairs of source name and defines) asked for, in parallel.
 
-    Returns {name: compiler log} for the sources compiled by this call
+    Returns {name: compiler log} for the libraries compiled by this call
     (``-Xptxas -v`` lists each kernel's registers and shared memory)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in SOURCES:
-        out = _lib_path(name)
+    for name, defines in [(n, ()) for n in SOURCES] + [(n, tuple(d)) for n, d in variants]:
+        out = _lib_path(name, defines)
         if os.path.isfile(out):
             continue
         tmp = f"{out}.tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out)
+        cmd = [_nvcc(), *_flags(defines), "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")]
+        label = name + "".join(f" -D{d}" for d in defines)
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), tmp, out)
     logs = {}
     failed: List[str] = []
     for name, (proc, tmp, out) in procs.items():
@@ -85,25 +96,29 @@ def build_all() -> Dict[str, str]:
     return logs
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel source ``name`` (built on first use)."""
+def library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of kernel source ``name`` built with ``defines``
+    (built on first use)."""
+    key = (name, tuple(defines))
     with _lock:
-        if name not in _libs:
-            if not os.path.isfile(_lib_path(name)):
-                build_all()
-            lib = ctypes.CDLL(_lib_path(name))
+        if key not in _libs:
+            path = _lib_path(name, key[1])
+            if not os.path.isfile(path):
+                build_all([key] if key[1] else ())
+            lib = ctypes.CDLL(path)
             lib.e2e_error_string.argtypes = [ctypes.c_int]
             lib.e2e_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
-        return _libs[name]
+            _libs[key] = lib
+        return _libs[key]
 
 
-def launch(name: str, fn: str, *args) -> None:
-    """Call launcher ``fn`` of library ``name`` on the current stream.
+def launch(name: str, fn: str, *args, defines: Sequence[str] = ()) -> None:
+    """Call launcher ``fn`` of library ``name`` (built with ``defines``) on
+    the current stream.
 
     ``args`` are tensors (passed as device pointers), Python ints (passed as
     C ``int``) or floats (passed as C ``float``); the stream goes last."""
-    lib = library(name)
+    lib = library(name, defines)
     cargs = []
     for a in args:
         if isinstance(a, torch.Tensor):

@@ -49,6 +49,7 @@ E, Emb, K and odd P; one thread-block cluster of 8 blocks per utterance.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -182,6 +183,16 @@ def decoder_scan_fwd(
         return decoder_scan_fwd_plain(k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh,
                                       bl, wout, bout, teacher, use_teacher, temp, sample, noise,
                                       generator)
+    out = _fwd_launch((), k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
+                      teacher, use_teacher, temp, sample, seed)
+    decoder_scan_fwd.launches += 1
+    return out
+
+
+def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout,
+                bout, teacher, use_teacher, temp, sample, seed):
+    """Checks, allocates and launches the forward kernel of the library
+    built with ``defines``."""
     fl = [a.contiguous() for a in (k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout)]
     k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout = fl
     enc_len = enc_len.to(torch.int32).contiguous()
@@ -202,9 +213,8 @@ def decoder_scan_fwd(
         "decoder_scan", "e2e_decoder_scan_fwd", k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed,
         wx, wh, bl, wout, bout, teacher, use_i, logits, align, hidden, cseq, tokens, acts, qs, ctxs,
         b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)),
-        seed & 0x7FFFFFFF, (seed >> 31) & 0x7FFFFFFF,
+        seed & 0x7FFFFFFF, (seed >> 31) & 0x7FFFFFFF, defines=defines,
     )
-    decoder_scan_fwd.launches += 1
     return logits, align, hidden, (cseq, tokens, acts, qs, ctxs)
 
 
@@ -309,6 +319,15 @@ def decoder_scan_bwd(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
             ctxs, dlogits, dalign, dhidden)
     if cuda_build.use_plain(k):
         return decoder_scan_bwd_plain(*args, temp)
+    out = _bwd_launch((), *args, temp)
+    decoder_scan_bwd.launches += 1
+    return out
+
+
+def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
+                cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp):
+    """Checks, allocates and launches the backward kernel of the library
+    built with ``defines``; sums the per-block partials."""
     fl = [a.contiguous() for a in (k, v, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
                                    cseq, acts, qs, ctxs, dlogits, dalign, dhidden)]
     (k, v, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs, ctxs, dlogits,
@@ -342,12 +361,88 @@ def decoder_scan_bwd(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
         "decoder_scan_bwd", "e2e_decoder_scan_bwd", k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh,
         wout, align, cseq, acts, qs, ctxs, dlogits, dalign, dhidden, dgates, dq, dfpre, dk,
         dwlp_part, dlocv_part, b, s, dk_dim, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp),
+        defines=defines,
     )
-    decoder_scan_bwd.launches += 1
     return dgates, dq, dfpre, dk, dwlp_part.sum(dim=(0, 1)), dlocv_part.sum(dim=(0, 1))
 
 
 decoder_scan_bwd.launches = 0
+
+
+# ---------------------------------------------------------------- phase split
+PHASE_BUILD = ("SCAN_PHASES",)  # the define of the kernels' timing build
+PHASE_VARIANTS = (("decoder_scan", PHASE_BUILD), ("decoder_scan_bwd", PHASE_BUILD))
+PH_STEPS, PH_SLOTS = 512, 16  # csrc: steps recorded, marks per step
+# the phases between consecutive marks of one step, in order (csrc PHASE(t, i))
+FWD_PHASES = ("q sum", "conv", "energies", "softmax and the align push", "context partial and push",
+              "barrier 1", "combine", "gate product", "cell update and h' push", "q part and push",
+              "barrier 2", "logits and argmax")
+BWD_PHASES = ("phase a", "barrier 1", "phase b", "barrier 2", "the softmax term", "conv", "pass 1",
+              "pass 2", "barrier 3", "phase d")
+
+
+def scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens):
+    """Seeded inputs of the fused speller scan at the given shapes: (k, v,
+    enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
+    teacher [L, B] int32), weights at their init scales."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    uni = lambda bound, *shape: (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+    return (torch.tanh(rnd(b, s, dk)), torch.tanh(rnd(b, s, e_dim)), lens,
+            uni(1 / math.sqrt(p), kk, p), uni(1 / math.sqrt(h), h, dk), uni(0.1, dk),
+            uni(1 / math.sqrt(kk), kk, dk), uni(1 / math.sqrt(dk), dk), uni(0.1, dk),
+            rnd(v, emb) / math.sqrt(emb), uni(1 / math.sqrt(h), emb + e_dim, 4 * h),
+            uni(1 / math.sqrt(h), h, 4 * h), uni(1 / math.sqrt(h), 4 * h),
+            uni(1 / math.sqrt(h), h, v), uni(0.1, v),
+            torch.randint(0, v, (l, b), generator=gen, device=dev, dtype=torch.int32))
+
+
+def _phase_means(name: str, l: int, names) -> dict:
+    """Mean us per phase over the L steps of the last launch of the timing
+    build of ``name``."""
+    out = torch.zeros(PH_STEPS * PH_SLOTS, dtype=torch.int64, device="cuda")
+    cuda_build.launch(name, "e2e_decoder_scan_phase_times", out, out.numel(), defines=PHASE_BUILD)
+    marks = out.view(PH_STEPS, PH_SLOTS)[:min(l, PH_STEPS), :len(names) + 1].double()
+    dur = (marks[:, 1:] - marks[:, :-1]).mean(0) / 1e3
+    return {nm: float(x) for nm, x in zip(names, dur)}
+
+
+def scan_phase_split(args, use_teacher, temp: float, cots=None):
+    """The per-phase split of one step of each scan kernel (timing build:
+    block 0 marks %globaltimer at every phase boundary of every step), on
+    the card. ``args`` as ``scan_inputs``; ``cots`` the cotangents of
+    (logits, align, hidden) for the backward (random if None). Returns
+    {"fwd": {phase: mean us per step}, "bwd": {...}, "fwd_ms", "bwd_ms": the
+    timing build's whole-launch times}. Launch counters are not touched."""
+    k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout, teacher = args
+    l = teacher.shape[0]
+    res = {}
+    fwd = lambda: _fwd_launch(PHASE_BUILD, *args, use_teacher, temp, False, 0)
+    logits, align, hidden, (cseq, _, acts, qs, ctxs) = fwd()  # builds the variant, warms up
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fwd()
+    t1.record()
+    torch.cuda.synchronize()
+    res["fwd_ms"] = t0.elapsed_time(t1)
+    res["fwd"] = _phase_means("decoder_scan", l, FWD_PHASES)
+    if cots is None:
+        g = torch.Generator(device=k.device)
+        g.manual_seed(0)
+        cots = [torch.randn(o.shape, generator=g, device=k.device) / math.sqrt(o.shape[-1])
+                for o in (logits, align, hidden)]
+    bwd = lambda: _bwd_launch(PHASE_BUILD, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
+                              align, hidden, cseq, acts, qs, ctxs, *cots, temp)
+    bwd()
+    torch.cuda.synchronize()
+    t0.record()
+    bwd()
+    t1.record()
+    torch.cuda.synchronize()
+    res["bwd_ms"] = t0.elapsed_time(t1)
+    res["bwd"] = _phase_means("decoder_scan_bwd", l, BWD_PHASES)
+    return res
 
 
 class DecoderScanFn(torch.autograd.Function):
