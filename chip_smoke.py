@@ -71,6 +71,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 TRAIN_STEPS = 5
+ALT_ROUNDS = 21  # rounds of a kernel against its library call in turns
 CONV_STEPS = 3
 
 
@@ -97,6 +98,20 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def alternating_ms(fns: dict, rounds: int = ALT_ROUNDS, iters: int = 3) -> dict:
+    """Median ms a call of each function over ``rounds`` rounds that time
+    them in turns (the order reversed every other round), ``iters`` calls a
+    round: a comparison within one call, which host-paced single timings of
+    two functions minutes apart do not give."""
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(reversed(fns))):
+            times[name].append(time_ms(fns[name], iters, 0))
+    return {name: sorted(v)[len(v) // 2] for name, v in times.items()}
 
 
 def compare(name, got, want, rtol, atol, unreachable=None):
@@ -385,6 +400,24 @@ def train_kernel_checks(dev, cfg, vocab):
                         library_ms=time_ms(lambda: torch.autograd.grad(out_lib, lib_in, dy_lib,
                                                                        retain_graph=True), 10),
                         bound=bound_ms(io, nf)))
+
+        def kernel_fwd():
+            with torch.no_grad():
+                rnn_cuda.lstm_bidir_fwd_train(*args)
+
+        def kernel_bwd():
+            with torch.no_grad():
+                rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy)
+
+        alt = alternating_ms({"kernel_fwd": kernel_fwd, "cudnn_fwd": lambda: lstm(xg),
+                              "kernel_bwd": kernel_bwd,
+                              "cudnn_bwd": lambda: torch.autograd.grad(out_lib, lib_in, dy_lib,
+                                                                       retain_graph=True)})
+        fwd[-1]["alternating"] = {"ms": alt["kernel_fwd"], "library_ms": alt["cudnn_fwd"]}
+        bwd[-1]["alternating"] = {"ms": alt["kernel_bwd"], "library_ms": alt["cudnn_bwd"]}
+        print(f"  alternating rounds ({ALT_ROUNDS}, median) D={d}: lstm_bidir_fwd_train {alt['kernel_fwd']:.3f} "
+              f"ms vs cuDNN {alt['cudnn_fwd']:.3f} ms; lstm_bidir_bwd {alt['kernel_bwd']:.3f} ms vs cuDNN "
+              f"{alt['cudnn_bwd']:.3f} ms", flush=True)
         del lstm, out_lib, xg
 
     def layer_mean(entries, key):
@@ -403,8 +436,10 @@ def train_kernel_checks(dev, cfg, vocab):
             library_ms=layer_mean(entries, "library_ms"),
             bound=((entries[0]["bound"][0] + 3 * entries[1]["bound"][0]) / 4, entries[0]["bound"][1]),
             shapes=f"x [{s_len},{b},1280|{2 * h}], H {h} (ms = mean per layer of 1x1280 + 3x{2 * h})",
-            per_width={str(e["d"]): {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound")}
+            per_width={str(e["d"]): {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound", "alternating")}
                        for e in entries},
+            alternating={k: (entries[0]["alternating"][k] + 3 * entries[1]["alternating"][k]) / 4
+                         for k in ("ms", "library_ms")},
         )
 
     # ---- CTC lattice: log_probs [B, S, V], labels [B, L] up to the token bucket
@@ -447,6 +482,9 @@ def train_kernel_checks(dev, cfg, vocab):
                                            zero_infinity=True)
         torch.autograd.grad(nll, lp_t)
 
+    alt = alternating_ms({"kernel": loss_grad, "library": library})
+    print(f"  alternating rounds ({ALT_ROUNDS}, median): ctc_loss forward + backward {alt['kernel']:.3f} ms vs "
+          f"F.ctc_loss {alt['library']:.3f} ms (ratio {alt['kernel'] / alt['library']:.3f})", flush=True)
     s_lat = 2 * l_max + 1
     # bytes: log_probs, labels and lengths read once, nll and gamma written
     # once; ~30 operations per valid (t, s) cell for alpha and beta
@@ -459,6 +497,7 @@ def train_kernel_checks(dev, cfg, vocab):
         plain_ms=time_ms(lambda: ctc_cuda.ctc_lattice_plain(lp, labels, inlen, lablen), 3, 1),
         library_ms=time_ms(library, 10), bound=bound_ms(io, nf),
         loss_fwd_bwd_ms=time_ms(loss_grad, 10),
+        alternating={"ms": alt["kernel"], "library_ms": alt["library"]},
         shapes=f"log_probs [{b},{s_len},{vocab}], labels [{b},{l_max}] (S {s_lat}); "
                "ms: the lattice (nll + gamma); library_ms: F.ctc_loss forward + backward; "
                "loss_fwd_bwd_ms: CTCLossFn forward + backward",
@@ -525,6 +564,9 @@ def scan_kernel_checks(dev, cfg, vocab):
     lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
     lens[0] = s
     args = dc.scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens)
+    grid = {w: dc.scan_grid(w, b, s, dk, e_dim, kk, p, h, vocab) for w in ("fwd", "bwd")}
+    print(f"fused scan grid: {grid['fwd']['clusters']} resident clusters of {dc.CL} blocks "
+          f"(cudaOccupancyMaxActiveClusters); forward {grid['fwd']}; backward {grid['bwd']}", flush=True)
     seed = 20261016
     noise = dc.gumbel_noise(seed, l, b, vocab, dev)
     out = {}
@@ -617,8 +659,9 @@ def scan_kernel_checks(dev, cfg, vocab):
         # one step of each kernel split into its phases (the timing build)
         split = dc.scan_phase_split(args, use, temp, cots)
         print_scan_phases(split)
-        out["decoder_scan_fwd"]["phases_us"] = split["fwd"]
-        out["decoder_scan_bwd"]["phases_us"] = split["bwd"]
+        for w in ("fwd", "bwd"):
+            out[f"decoder_scan_{w}"]["phases_us"] = {**split[w], **split.get(f"{w}_detail", {})}
+            out[f"decoder_scan_{w}"]["grid"] = grid[w]
 
         # the longest flagship bucket: S = 764 (3056 / 4), short L
         print("[kernel] decoder_scan_fwd / decoder_scan_bwd at S=764", flush=True)
@@ -1091,7 +1134,8 @@ def main(json_path: str = "") -> None:
             "library_ms": kv["library_ms"], "shapes": kv["shapes"], "launches_path": first,
             "launches_by_path": by_path,
             **{k: kv[k] for k in ("per_width", "per_shape", "layer_routes", "loss_fwd_bwd_ms",
-                                  "ms_sampled", "ms_s764_l8", "phases_us") if k in kv},
+                                  "ms_sampled", "ms_s764_l8", "phases_us", "grid", "alternating")
+                                  if k in kv},
         })
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

@@ -200,7 +200,11 @@ def print_scan_phases(split: dict) -> None:
         ph = split[names_ms]
         parts = ", ".join(f"{k} {v:.2f}" for k, v in ph.items())
         print(f"{which} phases, mean us per step (timing build, {split[names_ms + '_ms']:.2f} ms a "
-              f"launch): {parts}; sum {sum(ph.values()):.2f}", flush=True)
+              f"launch; normal build {split[names_ms + '_ms_normal']:.2f} ms): {parts}; sum "
+              f"{sum(ph.values()):.2f}", flush=True)
+        detail = split.get(names_ms + "_detail")
+        if detail:
+            print(f"  inside: " + ", ".join(f"{k} {v:.2f}" for k, v in detail.items()), flush=True)
 
 
 def main(argv=None):

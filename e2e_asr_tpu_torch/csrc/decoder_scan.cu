@@ -16,43 +16,43 @@
 // logits, align, hidden and, for the backward, c, the token fed, the gate
 // activations, q and ctx of every step. Unlike the TPU kernel it reads the
 // conv taps directly (no [K, S, S] Toeplitz bank), gathers the embedding
-// row by token id (no one-hot product) and pads nothing.
+// row's product by token id (no one-hot product) and pads nothing.
 //
-// What bounds it on the H100: latency of a chain of L dependent steps, each
-// a chain of small dependent phases (q, conv, energies, softmax, context,
-// gate product, logits). One step of one utterance is ~2.3 M FMAs, and the
+// What bounds it on the H100: latency. L dependent steps, each a chain of
+// dependent phases; one step of one utterance is ~2.3 M FMAs, and the
 // scan's inputs and outputs are a few tens of MB, so neither the FLOP nor
-// the HBM bound is near (the f32 operations give the larger of the two).
-// Design: utterances never exchange state, so each runs on its own
-// thread-block cluster of CL = 8 blocks (no grid-wide barrier; B = 16 fills
-// 128 SMs). Within a cluster the encoder frames are split 8 ways for the
-// attention part and the hidden units 8 ways for the LSTM part:
-//   phase A  every block sums the 8 partial products of q, then forms the
-//            location features, the tanh energies, a local softmax max / sum
-//            and an unnormalised partial context for ITS frames, and writes
-//            them into every block's shared memory (DSMEM);
-//   barrier 1
-//   phase B  every block combines the 8 partials into the full alignment
-//            and context (flash-style rescale), picks the token, gathers the
-//            embedding row, computes the gate columns of ITS hidden units
-//            (several threads per column split the reduction over
-//            Emb + E + H; four columns a thread through 16-byte loads where
-//            H is a multiple of 32), updates c in registers and writes
-//            everywhere its slice of h' and its units' part of the next
-//            step's q = h' Wq (its rows of Wq stay in shared memory);
-//   barrier 2
-//   phase C  every block computes the logits of ITS vocabulary slice and
-//            its local argmax, written everywhere and combined after the
-//            next step's barrier 1.
-// Two cluster barriers a step; h and the alignment are double-buffered.
-// A block's frames of k and v and its rows of Wq are copied into shared
-// memory once where they fit (97 KB + 48 KB at S=204, Dk=300, E=640, H=320)
-// and are read from global memory (L2) otherwise, so S has no limit. The
-// gate product streams the cell's weights (Wx, Wh: 6.5 MB at the flagship)
-// from L2 once per step and utterance, 1/8 per block (820 KB a step); an SM
-// needs ~100 KB of loads in flight to pull that at its L2 rate, hence the
-// 16-byte loads. Rows do not share the weights. Tensor cores and sharing
-// weights across utterances are later work.
+// the HBM bound is near. Split into phases (the timing build below), the
+// first design (one 8-block cluster per utterance) spent half of each step
+// streaming the cell's weights (Wx, Wh: 6.5 MB at the flagship) from L2 once
+// per utterance, a sixth of it in the energies, and ran B = 16 utterances
+// in two waves: at most 15 such clusters are resident on a 132-SM H100.
+// Design: a persistent grid of G co-resident clusters of CL = 8 blocks
+// (cooperative launch, G from cudaOccupancyMaxActiveClusters, grid.sync()).
+//   - The cell's weights are split by hidden unit over all 8G blocks, a
+//     unit's four gate columns in one block, and copied into shared memory
+//     once per launch; each step's gate product is then one
+//     [B, E + H] x [E + H, 4u] product per block for all utterances at once,
+//     its inputs (ctx of step t, h of step t-1) read from L2. The embedding
+//     row's part is a gather from ew = embed Wx[:Emb] + bl, which each block
+//     computes for its own columns before the first step.
+//   - A cluster walks one or more utterances (slots) for the attention part;
+//     utterances are ranked by length and dealt to clusters in a snake order
+//     so that a cluster with two gets two short ones, and an utterance's
+//     valid frames are split evenly over its 8 blocks.
+//   - Per step: phase A (each slot: q pulled from the 8 blocks' slices, the
+//     token, the location conv one warp per (frame, filter), the energies
+//     two frames per warp, a local softmax and an unnormalised partial
+//     context); cluster barrier; phase B (each slot: the 8 blocks' partials
+//     pulled through distributed shared memory; each block writes its
+//     slice of the context to global memory); grid barrier; the gate product
+//     and cell update of the block's units for every utterance; grid
+//     barrier; phase C (each slot: h' read back, this block's vocabulary
+//     slice of the logits and its local argmax, its slice of the next q);
+//     cluster barrier. Partials are pulled, not pushed to every block.
+// A block's frames of k and v (first slot), its Wq columns and Wout columns
+// stay in shared memory where they fit (the wrapper decides, in order: gate
+// weights, v, Wq, Wout, k) and are read from L2 otherwise, so S has no
+// limit. No atomics: every sum has a fixed order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -62,32 +62,43 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CL = 8;     // blocks per cluster = per utterance
+constexpr int CLMAX = 8;  // blocks per cluster, at most (the portable cluster size)
+constexpr int NSPL = 4;   // threads a conv sum is split over
+constexpr int KPF = 8;    // k-steps of gate-product inputs a warp loads at once
 constexpr int NT = 512;   // threads per block
 constexpr int NW = NT / 32;
 constexpr float LOWEST = -3.402823466e38f;  // -FLT_MAX
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Timing build (nvcc -DSCAN_PHASES): block 0 writes %globaltimer at each
-// phase boundary of each step (after a __syncthreads, so a mark closes the
-// phase for the whole block) into g_phase_ts[step][mark]; the normal build
-// compiles the marks away. e2e_decoder_scan_phase_times copies the buffer out.
+// Timing build (nvcc -DSCAN_PHASES): block 0 writes its SM's clock64() at
+// each phase boundary of each step (after a __syncthreads, so a mark closes
+// the phase for the whole block) into g_phase_ts[step][mark]; the normal
+// build compiles the marks away. e2e_decoder_scan_phase_times copies the
+// buffer out.
 constexpr int PH_STEPS = 512;  // steps recorded
-constexpr int PH_SLOTS = 16;   // marks per step
+constexpr int PH_SLOTS = 24;   // marks per step
 #ifdef SCAN_PHASES
 __device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
 #define PHASE(t, i)                                                                   \
   do {                                                                                \
     __syncthreads();                                                                  \
     if (blockIdx.x == 0 && threadIdx.x == 0 && (t) < PH_STEPS) {                      \
-      unsigned long long ts_;                                                         \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ts_));                         \
-      g_phase_ts[(t) * PH_SLOTS + (i)] = ts_;                                         \
+      g_phase_ts[(t) * PH_SLOTS + (i)] = (unsigned long long)clock64();               \
+    }                                                                                 \
+  } while (0)
+// the same from thread 0 alone (no barrier), for the work of utterance 0 in warp 0
+#define WMARK(t, i, b)                                                                \
+  do {                                                                                \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && (b) == 0 && (t) < PH_STEPS) {          \
+      g_phase_ts[(t) * PH_SLOTS + (i)] = (unsigned long long)clock64();               \
     }                                                                                 \
   } while (0)
 #else
 #define PHASE(t, i) \
   do {              \
+  } while (0)
+#define WMARK(t, i, b) \
+  do {                 \
   } while (0)
 #endif
 
@@ -143,6 +154,68 @@ __device__ __forceinline__ float gumbel(uint32_t seed_lo, uint32_t seed_hi, int 
   return -logf(-logf(u));
 }
 
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// float -> TF32 (round to nearest), as the bits mma takes
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d (16 x 8, the m16n8k8 accumulator fragment) += a (16 x 8) b (8 x 8) in
+// float32 accuracy from three TF32 products: a_lo b_hi + a_hi b_lo + a_hi b_hi
+__device__ __forceinline__ void mma_3xtf32(float* d, const float* a, const float* b) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ah[i] = tf32(a[i]);
+    al[i] = tf32(a[i] - __uint_as_float(ah[i]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    bh[i] = tf32(b[i]);
+    bl[i] = tf32(b[i] - __uint_as_float(bh[i]));
+  }
+#define MMA_TF32(A, B)                                                                       \
+  asm(                                                                                       \
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "    \
+      "{%8,%9}, {%0,%1,%2,%3};\n"                                                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                                       \
+      : "r"(A[0]), "r"(A[1]), "r"(A[2]), "r"(A[3]), "r"(B[0]), "r"(B[1]))
+  MMA_TF32(al, bh);
+  MMA_TF32(ah, bl);
+  MMA_TF32(ah, bh);
+#undef MMA_TF32
+}
+
+
+// hidden units [u0, u0 + nu) of block j of nb (the first H % nb blocks own one more)
+__host__ __device__ inline void unit_range(int H, int nb, int j, int& u0, int& nu) {
+  const int base = H / nb, rem = H % nb;
+  nu = base + (j < rem ? 1 : 0);
+  u0 = j * base + (j < rem ? j : rem);
+}
+
+// utterances ranked by length, longest first (ties: lower index first), into
+// ord[B]; slot i of cluster c takes rank i G + c (i even) or i G + G-1-c (odd)
+__device__ void rank_utterances(const int* enc_len, int B, int S, int* ord) {
+  for (int b = threadIdx.x; b < B; b += NT) {
+    const int lb = min(max(enc_len[b], 0), S);
+    int r = 0;
+    for (int o = 0; o < B; ++o) {
+      const int lo = min(max(enc_len[o], 0), S);
+      r += (lo > lb || (lo == lb && o < b)) ? 1 : 0;
+    }
+    ord[r] = b;
+  }
+}
+
+__device__ __forceinline__ int slot_utterance(const int* ord, int B, int G, int c, int i) {
+  const int idx = i * G + ((i & 1) ? G - 1 - c : c);
+  return idx < B ? ord[idx] : -1;
+}
+
 struct FwdArgs {
   const float *k, *v;
   const int* enc_len;
@@ -151,315 +224,517 @@ struct FwdArgs {
   float *logits, *align, *hidden, *cseq;
   int* tokens;
   float *acts, *qs, *ctxs;
+  float* ew;       // scratch [V, 4H]: embed Wx[:Emb] + bl, each block its own columns
+  float* scratch;  // [G CL][NS][E]: the partial contexts where they do not fit in shared memory
   int B, S, Dk, E, K, P, H, Emb, V, L;
   float inv_temp;
   int sample;
   uint32_t seed_lo, seed_hi;
-  int wq_smem, kv_smem;  // this block's rows of Wq / frames of k and v live in shared memory
+  int G, CL, NS;  // clusters, blocks per cluster, utterance slots per cluster
+  // residents in shared memory: gate weights, Wq columns, Wout columns, and
+  // the first slot's frames of k and of v
+  int ctxp_smem, w_smem, wq_smem, wo_smem, k_smem, v_smem;
 };
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// shared-memory floats of the forward kernel
-size_t fwd_smem_floats(int S, int Dk, int E, int K, int P, int H, int Emb, int V) {
-  const int Sl = cdiv(S, CL), Vc = cdiv(V, CL);
-  return 4 * (size_t)NT + 2 * (size_t)H + 2 * (size_t)S + (size_t)CL * E + (size_t)(Emb + E) +
-         2 * (size_t)Dk + (size_t)CL * Dk + (size_t)K * Dk + (size_t)K * P + (size_t)Sl * K + Sl +
-         H / CL + 4 * CL + NW + Vc;
+// row r of the gate product's input [ctx, h] of (step, utterance) ``row``:
+// ctx of this step, then h of the step before (written by other blocks in
+// this launch, so read through L2)
+__device__ __forceinline__ float gate_input(const FwdArgs& a, long row, int r) {
+  return r < a.E ? __ldcg(a.ctxs + row * a.E + r) : __ldcg(a.hidden + (row - a.B) * a.H + r - a.E);
 }
 
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
-decoder_scan_fwd_kernel(const FwdArgs a) {
+// the block's gate weight (column cc, row r of [Wx[Emb:]; Wh]): from shared
+// memory where it is resident, else from global memory; column cc is gate
+// cc / nu of unit u0 + cc % nu
+__device__ __forceinline__ float gate_weight(const FwdArgs& a, const float* wt, int cc, int r, int nu,
+                                             int u0) {
+  if (a.w_smem) return wt[cc * (a.E + a.H + 4) + r];
+  const int gcol = (cc / nu) * a.H + u0 + cc % nu;
+  return r < a.E ? __ldg(a.wx + (long)(a.Emb + r) * 4 * a.H + gcol)
+                 : __ldg(a.wh + (long)(r - a.E) * 4 * a.H + gcol);
+}
+
+struct FwdLayout {
+  size_t wt, wqs, wos, ks, vs, att, ctxp, en, stat, qsl, amx, aix, qb, lv, wl, fs, hs, lg, gpart, gsum,
+      cst, red, sc, ord, tp, cpart, opart, epart, total;
+};
+
+// shared-memory layout of the forward kernel, in floats
+__host__ __device__ inline FwdLayout fwd_layout(int B, int S, int Dk, int E, int K, int P, int H,
+                                                 int V, int G, int CL, int NS, int ctxres, int w,
+                                                 int wq, int wo, int kres, int vres) {
+  const int nb = G * CL, numax = cdiv(H, nb), ncmax = 4 * numax;
+  const int Sl = cdiv(S, CL), Dkc = cdiv(Dk, CL), Vc = cdiv(V, CL);
+  FwdLayout l;
+  size_t o = 0;
+  l.wt = o;   o += w ? (size_t)ncmax * (E + H + 4) : 0;
+  l.wqs = o;  o += wq ? (size_t)Dkc * H : 0;
+  l.wos = o;  o += wo ? (size_t)Vc * H : 0;
+  l.ks = o;   o += kres ? (size_t)Sl * Dk : 0;
+  l.vs = o;   o += vres ? (size_t)Sl * E : 0;
+  l.att = o;  o += (size_t)NS * S;
+  l.ctxp = o; o += ctxres ? (size_t)NS * E : 0;
+  l.en = o;   o += (size_t)NS * Sl;
+  l.stat = o; o += 2 * (size_t)NS;
+  l.qsl = o;  o += (size_t)NS * Dkc;
+  l.amx = o;  o += NS;
+  l.aix = o;  o += NS;
+  l.qb = o;   o += Dk;
+  l.lv = o;   o += Dk;
+  l.wl = o;   o += (size_t)K * Dk;
+  l.fs = o;   o += (size_t)Sl * K;
+  l.hs = o;   o += H;
+  l.lg = o;   o += Vc;
+  l.gpart = o; o += 4 * 32 * 8;
+  l.gsum = o; o += 16 * (size_t)ncmax;
+  l.cst = o;  o += (size_t)B * numax;
+  l.red = o;  o += NW;
+  l.sc = o;   o += 3 * CLMAX;
+  l.ord = o;  o += B;
+  l.tp = o;   o += (size_t)K * P;
+  l.cpart = o; o += NSPL * (size_t)Sl * K;
+  l.opart = o; o += (size_t)(NT > Vc + Dkc ? NT : Vc + Dkc);
+  l.epart = o; o += (size_t)NW * cdiv(Sl, 16) * 16;
+  l.total = o;
+  return l;
+}
+
+__global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
+  cg::grid_group grid = cg::this_grid();
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / CL;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int B = a.B, S = a.S, Dk = a.Dk, E = a.E, K = a.K, P = a.P, H = a.H, Emb = a.Emb,
-            V = a.V, L = a.L;
+            V = a.V, L = a.L, G = a.G, CL = a.CL, NS = a.NS;
+  const int c = blockIdx.x / CL;  // cluster index
+  const int j = blockIdx.x;       // block index in the grid
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int half = (P - 1) / 2;
-  const int len = min(max(a.enc_len[b], 0), S);
-  const int Sl = cdiv(S, CL), s0 = rank * Sl;
-  const int ns = max(0, min(Sl, S - s0));    // frames owned by this block
-  const int nv = max(0, min(ns, len - s0));  // of these, the valid ones
-  const int Hc = H / CL, NC = 4 * Hc, u0 = rank * Hc, G = 4 * H, X = Emb + E;
-  // the gate product: a thread owns one column (NC columns, KS threads each)
-  // or, where the block's units per gate are a multiple of 4, four adjacent
-  // columns read as one 16-byte load (NC / 4 quads, KS threads each)
-  const bool vec = Hc % 4 == 0;
-  const int NQ = vec ? NC / 4 : NC;
-  const int KS = NT / NQ;
-  const int Vc = cdiv(V, CL), v0 = rank * Vc;
-  const int nvc = max(0, min(Vc, V - v0));  // vocabulary columns owned by this block
-  int vsp = 32;                             // lanes per logit column (a power of two)
-  while (vsp > 1 && Vc * vsp > NT) vsp >>= 1;
-  const int vgroups = NT / vsp;
+  const int G4 = 4 * H, X = E + H;
+  const int nb = G * CL, numax = cdiv(H, nb), ncmax = 4 * numax;
+  int u0, nu;
+  unit_range(H, nb, j, u0, nu);
+  const int nc = 4 * nu;  // gate columns of this block: column cc is gate cc / nu of unit u0 + cc % nu
+  const int Sl = cdiv(S, CL);  // frame capacity per block, and the static split of the outputs
+  const int Dkc = cdiv(Dk, CL), d0 = rank * Dkc, ndk = max(0, min(Dkc, Dk - d0));
+  const int Vc = cdiv(V, CL), v0 = rank * Vc, nvc = max(0, min(Vc, V - v0));
+  const int Ec = cdiv(E, CL), e0 = rank * Ec, ne = max(0, min(Ec, E - e0));
 
   extern __shared__ float smem[];
-  float* part = smem;                // [KS][NC] partial gate sums (at most 4 NT floats)
-  float* h_s = part + 4 * NT;        // [2][H]   h, double-buffered
-  float* att_s = h_s + 2 * H;        // [2][S]   alignment, double-buffered
-  float* ctxp = att_s + 2 * S;       // [CL][E]  partial contexts of the 8 blocks
-  float* xin = ctxp + CL * E;        // [Emb + E]
-  float* qb = xin + X;               // [Dk]     q + locb
-  float* lv = qb + Dk;               // [Dk]
-  float* qp = lv + Dk;               // [CL][Dk] the 8 blocks' parts of q
-  float* wl = qp + CL * Dk;          // [K][Dk]
-  float* tp = wl + K * Dk;           // [K][P]
-  float* f_s = tp + K * P;           // [Sl][K]
-  float* en = f_s + Sl * K;          // [Sl]
-  float* hl = en + Sl;               // [Hc]     h' of the own units
-  float* stat = hl + Hc;             // [2][CL]  local softmax max, sum
-  float* amax = stat + 2 * CL;       // [CL]     local best score
-  int* aidx = (int*)(amax + CL);     // [CL]     and its column
-  float* red = (float*)(aidx + CL);  // [NW]
-  float* lg = red + NW;              // [Vc]     scores of the owned columns
-  float* opt = lg + Vc;              // optional residents
-  const float* wq_o = a.wq + (long)u0 * Dk;             // [Hc][Dk] own rows of Wq
-  const float* k_o = a.k + ((long)b * S + s0) * Dk;     // [ns][Dk] own frames of k
-  const float* v_o = a.v + ((long)b * S + s0) * E;      // [ns][E]  own frames of v
-  if (a.wq_smem) {
-    for (int i = tid; i < Hc * Dk; i += NT) opt[i] = wq_o[i];
-    wq_o = opt;
-    opt += Hc * Dk;
-  }
-  if (a.kv_smem) {
-    float* k_s = opt;
-    float* v_s = opt + Sl * Dk;
-    for (int i = tid; i < nv * Dk; i += NT) k_s[i] = k_o[i];
-    for (int i = tid; i < nv * E; i += NT) v_s[i] = v_o[i];
-    k_o = k_s;
-    v_o = v_s;
-  }
+  const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, a.ctxp_smem, a.w_smem,
+                                  a.wq_smem, a.wo_smem, a.k_smem, a.v_smem);
+  float* wt = smem + ly.wt;      // [ncmax][E + H + 4] gate weights, column-major (padded: no bank conflicts)
+  float* wqs = smem + ly.wqs;    // [H][Dkc]       own columns of Wq
+  float* wos = smem + ly.wos;    // [H][Vc]        own columns of Wout
+  float* ks = smem + ly.ks;      // [Sl][Dk]       slot 0's own frames of k
+  float* vs = smem + ly.vs;      // [Sl][E]        and of v
+  float* att = smem + ly.att;    // [NS][S]        alignment of the last step
+  // [NS][E] unnormalised partial context (this block's slice of the scratch where it does not fit)
+  float* ctxp = a.ctxp_smem ? smem + ly.ctxp : a.scratch + (long)j * NS * E;
+  float* en = smem + ly.en;      // [NS][Sl]       exp(energy - local max)
+  float* stat = smem + ly.stat;  // [NS][2]        local max, sum
+  float* qsl = smem + ly.qsl;    // [NS][Dkc]      own slice of q = h Wq + bq
+  float* amx = smem + ly.amx;    // [NS]           local best score
+  int* aix = (int*)(smem + ly.aix);  // [NS]       and its column
+  float* qb = smem + ly.qb;      // [Dk]           q + locb
+  float* lv = smem + ly.lv;      // [Dk]
+  float* wl = smem + ly.wl;      // [K][Dk]
+  float* fs = smem + ly.fs;      // [Sl][K]        location features
+  float* hs = smem + ly.hs;      // [H]            h' of the slot's utterance
+  float* lg = smem + ly.lg;      // [Vc]           scores of the own columns
+  float* gpart = smem + ly.gpart;  // [4][32][8]   four warps' partial tiles
+  float* gsum = smem + ly.gsum;    // [16][ncmax]  gate sums of 16 utterances
+  float* cst = smem + ly.cst;    // [B][numax]     c of the own units
+  float* red = smem + ly.red;    // [NW]
+  float* sc = smem + ly.sc;      // [3][CLMAX]     partial maxima, sums, scales
+  int* ord = (int*)(smem + ly.ord);  // [B]
+  float* tp = smem + ly.tp;          // [K][P]         conv taps
+  float* cpart = smem + ly.cpart;    // [NSPL][Sl][K]  parts of the conv sums
+  float* opart = smem + ly.opart;    // [NT]           partial sums of phase C
+  float* epart = smem + ly.epart;    // [NW][Sl16]     the warps' partial energies
+  const int Sl16 = cdiv(Sl, 16) * 16;
 
-  for (int i = tid; i < 2 * H; i += NT) h_s[i] = 0.0f;
-  const float uni = len > 0 ? 1.0f / (float)len : 0.0f;
-  for (int i = tid; i < S; i += NT) att_s[i] = i < len ? uni : 0.0f;
-  for (int i = tid; i < K * P; i += NT) tp[i] = a.taps[i];
+  // ---- once per launch: residents, the embedding table's own columns
   for (int i = tid; i < K * Dk; i += NT) wl[i] = a.wlp[i];
   for (int i = tid; i < Dk; i += NT) lv[i] = a.locv[i];
-  for (int i = tid; i < CL * Dk; i += NT) qp[i] = 0.0f;  // h = 0 before the first step
-  float c = 0.0f;  // the cell state of unit u0 + tid (tid < Hc)
-  cluster.sync();  // every block's buffers are set before any remote write
+  for (int i = tid; i < K * P; i += NT) tp[i] = a.taps[i];
+  for (int i = tid; i < B * numax; i += NT) cst[i] = 0.0f;
+  if (a.w_smem) {
+    for (int i = tid; i < nc * X; i += NT) {
+      const int cc = i / X, r = i % X;
+      const int gcol = (cc / nu) * H + u0 + cc % nu;
+      wt[cc * (X + 4) + r] = r < E ? a.wx[(long)(Emb + r) * G4 + gcol] : a.wh[(long)(r - E) * G4 + gcol];
+    }
+  }
+  if (a.wq_smem)
+    for (int i = tid; i < ndk * H; i += NT) wqs[(i / ndk) * Dkc + i % ndk] = a.wq[(long)(i / ndk) * Dk + d0 + i % ndk];
+  if (a.wo_smem)
+    for (int i = tid; i < nvc * H; i += NT) wos[(i / nvc) * Vc + i % nvc] = a.wout[(long)(i / nvc) * V + v0 + i % nvc];
+  for (int pr = wid; pr < V * nc; pr += NW) {  // ew[v, col] = bl[col] + embed[v] . Wx[:Emb, col]
+    const int vv = pr / nc, cc = pr % nc;
+    const int gcol = (cc / nu) * H + u0 + cc % nu;
+    float acc = 0.0f;
+    for (int m = lane; m < Emb; m += 32)
+      acc = fmaf(a.embed[(long)vv * Emb + m], __ldg(a.wx + (long)m * G4 + gcol), acc);
+    acc = warp_sum(acc);
+    if (lane == 0) a.ew[(long)vv * G4 + gcol] = acc + a.bl[gcol];
+  }
+  rank_utterances(a.enc_len, B, S, ord);
+  __syncthreads();
+  for (int i = 0; i < NS; ++i) {
+    const int b = slot_utterance(ord, B, G, c, i);
+    if (b < 0) continue;
+    const int len = min(max(a.enc_len[b], 0), S);
+    const float uni = len > 0 ? 1.0f / (float)len : 0.0f;
+    for (int s = tid; s < S; s += NT) att[i * S + s] = s < len ? uni : 0.0f;
+    for (int dl = tid; dl < ndk; dl += NT) qsl[i * Dkc + dl] = a.bq[d0 + dl];  // h = 0
+    if (i == 0) {
+      const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
+      if (a.k_smem)
+        for (int x = tid; x < nv * Dk; x += NT) ks[x] = a.k[((long)b * S + s0) * Dk + x];
+      if (a.v_smem)
+        for (int x = tid; x < nv * E; x += NT) vs[x] = a.v[((long)b * S + s0) * E + x];
+    }
+  }
+  cluster.sync();  // every block's slices are set before any remote read
 
   for (int t = 0; t < L; ++t) {
-    const long row = (long)t * B + b;
-    const float* hc = h_s + (t & 1) * H;
-    float* hn = h_s + ((t + 1) & 1) * H;
-    const float* ap = att_s + (t & 1) * S;
-    float* an = att_s + ((t + 1) & 1) * S;
     PHASE(t, 0);
-
-    // ---- phase A: q from its 8 parts, then this block's frames
-    for (int d = tid; d < Dk; d += NT) {
-      float acc = a.bq[d];
-#pragma unroll
-      for (int q = 0; q < CL; ++q) acc += qp[q * Dk + d];
-      if (rank == 0) a.qs[row * Dk + d] = acc;
-      qb[d] = acc + a.locb[d];
-    }
-    PHASE(t, 1);  // q sum
-    for (int idx = tid; idx < nv * K; idx += NT) {
-      const int sl = idx / K, kk = idx % K, s = s0 + sl;
-      const int p0 = max(0, half - s), p1 = min(P, len + half - s);
-      const float* tk = tp + kk * P;
-      float acc = 0.0f;
-      for (int p = p0; p < p1; ++p) acc = fmaf(ap[s + p - half], tk[p], acc);
-      f_s[idx] = acc;
-    }
-    __syncthreads();
-    PHASE(t, 2);  // conv
-    for (int sl = wid; sl < nv; sl += NW) {
-      const float* fs = f_s + sl * K;
-      const float* ks = k_o + (long)sl * Dk;
-      float acc = 0.0f;
-      for (int d = lane; d < Dk; d += 32) {
-        float fp = 0.0f;
-        for (int kk = 0; kk < K; ++kk) fp = fmaf(fs[kk], wl[kk * Dk + d], fp);
-        acc = fmaf(lv[d], tanhf(ks[d] + qb[d] + fp), acc);
+    // ---- phase A, each slot: q, token, conv, energies, local softmax, partial context
+    for (int i = 0; i < NS; ++i) {
+      const int b = slot_utterance(ord, B, G, c, i);
+      if (b < 0) continue;
+      const long row = (long)t * B + b;
+      const int len = min(max(a.enc_len[b], 0), S);
+      const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
+      const float* ap = att + i * S;
+      for (int d = tid; d < Dk; d += NT) {
+        const int q = d / Dkc;
+        const float qv = *cluster.map_shared_rank(qsl + i * Dkc + d - q * Dkc, q);
+        if (rank == 0) a.qs[row * Dk + d] = qv;
+        qb[d] = qv + a.locb[d];
       }
-      acc = warp_sum(acc);
-      if (lane == 0) en[sl] = acc * a.inv_temp;
-    }
-    __syncthreads();
-    PHASE(t, 3);  // energies
-    float m_b = LOWEST;
-    for (int sl = tid; sl < nv; sl += NT) m_b = fmaxf(m_b, en[sl]);
-    m_b = block_reduce<true>(m_b, red);
-    float l_b = 0.0f;
-    for (int sl = tid; sl < nv; sl += NT) {
-      const float ex = expf(en[sl] - m_b);
-      en[sl] = ex;
-      l_b += ex;
-    }
-    l_b = block_reduce<false>(l_b, red);  // its barriers publish en
-    for (int idx = tid; idx < ns * CL; idx += NT) {
-      const int q = idx / ns, sl = idx % ns;
-      *cluster.map_shared_rank(an + s0 + sl, q) = sl < nv ? en[sl] : 0.0f;
-    }
-    if (tid < CL) {
-      *cluster.map_shared_rank(stat + rank, tid) = m_b;
-      *cluster.map_shared_rank(stat + CL + rank, tid) = l_b;
-    }
-    PHASE(t, 4);  // softmax and the align push
-    for (int e = tid; e < E; e += NT) {
-      float acc = 0.0f;
-#pragma unroll 4
-      for (int sl = 0; sl < nv; ++sl) acc = fmaf(en[sl], v_o[(long)sl * E + e], acc);
+      const bool fed = !a.use_teacher[t] && t > 0;
+      if (fed && tid < CL) {  // the blocks' local argmaxes
+        red[tid] = *cluster.map_shared_rank(amx + i, tid);
+        red[CLMAX + tid] = __int_as_float(*cluster.map_shared_rank(aix + i, tid));
+      }
+      __syncthreads();
+      if (tid == 0) {
+        int tok;
+        if (a.use_teacher[t]) {
+          tok = a.teacher[row];
+        } else if (t == 0) {
+          tok = 0;
+        } else {
+          float best = red[0];
+          tok = __float_as_int(red[CLMAX]);
+          for (int q = 1; q < CL; ++q) {
+            if (red[q] > best) {  // ties keep the lowest column
+              best = red[q];
+              tok = __float_as_int(red[CLMAX + q]);
+            }
+          }
+        }
+        tok = min(max(tok, 0), V - 1);
+        if (rank == 0) a.tokens[row] = tok;
+      }
+      PHASE(t, 1);  // q pull and token
+      // location features: NSPL threads per (frame, filter), each a part of the taps
+      for (int x = tid; x < NSPL * nv * K; x += NT) {
+        const int pr = x / NSPL, part = x % NSPL, sl = pr / K, kk = pr % K, s = s0 + sl;
+        const int p0 = max(0, half - s), p1 = min(P, len + half - s), pc = cdiv(p1 - p0, NSPL);
+        const float* tk = tp + kk * P;
+        float acc = 0.0f;
+        for (int p = p0 + part * pc; p < min(p1, p0 + (part + 1) * pc); ++p)
+          acc = fmaf(ap[s + p - half], tk[p], acc);
+        cpart[part * Sl * K + pr] = acc;
+      }
+      __syncthreads();
+      for (int x = tid; x < nv * K; x += NT) {
+        float acc = 0.0f;
+        for (int part = 0; part < NSPL; ++part) acc += cpart[part * Sl * K + x];
+        fs[x] = acc;
+      }
+      __syncthreads();
+      PHASE(t, 2);  // conv
+      // energies: fW = f Wlp on the tensor cores ([16 frames, K] x [K, 8
+      // units] tiles), then locv . tanh(k + q + fW) for each (frame, unit) of
+      // a tile in its lanes' registers, summed per frame over the tile's
+      // lanes and, in a fixed order, over the warps
+      const bool kres = i == 0 && a.k_smem;
+      {
+        const int mt = cdiv(nv, 16), nt = cdiv(Dk, 8), g8 = lane >> 2, tig = lane & 3;
+        for (int x = tid; x < NW * Sl16; x += NT) epart[x] = 0.0f;
+        __syncthreads();
+        for (int item = wid; item < mt * nt; item += NW) {
+          const int m0 = (item / nt) * 16, n0 = (item % nt) * 8;
+          const int ra = m0 + g8, rb = ra + 8, cn = n0 + g8;
+          float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int k0 = 0; k0 < K; k0 += 8) {
+            const int ka = k0 + tig, kb = ka + 4;
+            float av[4], bv[2];
+            av[0] = ra < nv && ka < K ? fs[ra * K + ka] : 0.0f;
+            av[1] = rb < nv && ka < K ? fs[rb * K + ka] : 0.0f;
+            av[2] = ra < nv && kb < K ? fs[ra * K + kb] : 0.0f;
+            av[3] = rb < nv && kb < K ? fs[rb * K + kb] : 0.0f;
+            bv[0] = ka < K && cn < Dk ? wl[ka * Dk + cn] : 0.0f;
+            bv[1] = kb < K && cn < Dk ? wl[kb * Dk + cn] : 0.0f;
+            mma_3xtf32(dacc, av, bv);
+          }
+          float r0 = 0.0f, r1 = 0.0f;  // rows ra and rb
 #pragma unroll
-      for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(ctxp + rank * E + e, q) = acc;
-    }
-    PHASE(t, 5);  // context partial and push
-    cluster.sync();  // barrier 1: every block holds all partials
-    PHASE(t, 6);  // barrier 1
-
-    // ---- phase B: full alignment and context, token, gate product
-    float gm = LOWEST;
-#pragma unroll
-    for (int q = 0; q < CL; ++q) gm = fmaxf(gm, stat[q]);
-    float sc[CL];
-    float z = 0.0f;
-#pragma unroll
-    for (int q = 0; q < CL; ++q) {
-      sc[q] = expf(stat[q] - gm);
-      z = fmaf(stat[CL + q], sc[q], z);
-    }
-    const float inv = z > 0.0f ? 1.0f / z : 0.0f;
-    for (int s = tid; s < S; s += NT) {
-      const int q = s / Sl;
-      float scale = 0.0f;
-#pragma unroll
-      for (int qq = 0; qq < CL; ++qq) scale = qq == q ? sc[qq] : scale;
-      const float al = an[s] * scale * inv;
-      an[s] = al;
-      if (q == rank) a.align[row * S + s] = al;
-    }
-    for (int e = tid; e < E; e += NT) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < CL; ++q) acc = fmaf(ctxp[q * E + e], sc[q], acc);
-      acc *= inv;
-      xin[Emb + e] = acc;
-      if (rank == 0) a.ctxs[row * E + e] = acc;
-    }
-    int tok;
-    if (a.use_teacher[t]) {
-      tok = a.teacher[row];
-    } else if (t == 0) {
-      tok = 0;
-    } else {
-      float best = amax[0];
-      tok = aidx[0];
-#pragma unroll
-      for (int q = 1; q < CL; ++q) {
-        if (amax[q] > best) {  // ties keep the lowest column
-          best = amax[q];
-          tok = aidx[q];
+          for (int e = 0; e < 4; ++e) {
+            const int sl = e < 2 ? ra : rb, d = n0 + 2 * tig + (e & 1);
+            if (sl < nv && d < Dk) {
+              const float kv = kres ? ks[sl * Dk + d] : a.k[((long)b * S + s0 + sl) * Dk + d];
+              const float z = lv[d] * tanhf(kv + qb[d] + dacc[e]);
+              if (e < 2) r0 += z;
+              else r1 += z;
+            }
+          }
+          r0 += __shfl_xor_sync(0xffffffffu, r0, 1);
+          r0 += __shfl_xor_sync(0xffffffffu, r0, 2);
+          r1 += __shfl_xor_sync(0xffffffffu, r1, 1);
+          r1 += __shfl_xor_sync(0xffffffffu, r1, 2);
+          if (tig == 0) {
+            epart[wid * Sl16 + ra] += r0;
+            epart[wid * Sl16 + rb] += r1;
+          }
+        }
+        __syncthreads();
+        for (int sl = tid; sl < nv; sl += NT) {
+          float acc = 0.0f;
+          for (int w = 0; w < NW; ++w) acc += epart[w * Sl16 + sl];
+          en[i * Sl + sl] = acc * a.inv_temp;
         }
       }
-    }
-    tok = min(max(tok, 0), V - 1);
-    if (rank == 0 && tid == 0) a.tokens[row] = tok;
-    for (int j = tid; j < Emb; j += NT) xin[j] = a.embed[(long)tok * Emb + j];
-    __syncthreads();
-    PHASE(t, 7);  // combine
-    {
-      const int cq = tid % NQ, split = tid / NQ;
-      if (split < KS && vec) {
-        const int gcol = (4 * cq / Hc) * H + u0 + 4 * cq % Hc;
-        const float* wxc = a.wx + gcol;
-        const float* whc = a.wh + gcol;
-        float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll 8
-        for (int i = split; i < X; i += KS) {
-          const float4 w = __ldg(reinterpret_cast<const float4*>(wxc + (long)i * G));
-          const float x = xin[i];
-          acc.x = fmaf(x, w.x, acc.x);
-          acc.y = fmaf(x, w.y, acc.y);
-          acc.z = fmaf(x, w.z, acc.z);
-          acc.w = fmaf(x, w.w, acc.w);
-        }
-#pragma unroll 8
-        for (int j = split; j < H; j += KS) {
-          const float4 w = __ldg(reinterpret_cast<const float4*>(whc + (long)j * G));
-          const float x = hc[j];
-          acc.x = fmaf(x, w.x, acc.x);
-          acc.y = fmaf(x, w.y, acc.y);
-          acc.z = fmaf(x, w.z, acc.z);
-          acc.w = fmaf(x, w.w, acc.w);
-        }
-        *reinterpret_cast<float4*>(part + split * NC + 4 * cq) = acc;
-      } else if (split < KS) {
-        const int gcol = (cq / Hc) * H + u0 + cq % Hc;
-        const float* wxc = a.wx + gcol;
-        const float* whc = a.wh + gcol;
+      __syncthreads();
+      PHASE(t, 3);  // energies
+      float m_b = LOWEST;
+      for (int sl = tid; sl < nv; sl += NT) m_b = fmaxf(m_b, en[i * Sl + sl]);
+      m_b = block_reduce<true>(m_b, red);
+      float l_b = 0.0f;
+      for (int sl = tid; sl < nv; sl += NT) {
+        const float ex = expf(en[i * Sl + sl] - m_b);
+        en[i * Sl + sl] = ex;
+        l_b += ex;
+      }
+      l_b = block_reduce<false>(l_b, red);  // its barriers publish en
+      if (tid == 0) {
+        stat[2 * i] = m_b;
+        stat[2 * i + 1] = l_b;
+      }
+      PHASE(t, 4);  // softmax
+      const bool vres = i == 0 && a.v_smem;
+      const float* vb = vres ? vs : a.v + ((long)b * S + s0) * E;
+      for (int e = tid; e < E; e += NT) {
         float acc = 0.0f;
 #pragma unroll 8
-        for (int i = split; i < X; i += KS) acc = fmaf(xin[i], __ldg(wxc + (long)i * G), acc);
-#pragma unroll 8
-        for (int j = split; j < H; j += KS) acc = fmaf(hc[j], __ldg(whc + (long)j * G), acc);
-        part[split * NC + cq] = acc;
+        for (int sl = 0; sl < nv; ++sl) acc = fmaf(en[i * Sl + sl], vb[(long)sl * E + e], acc);
+        ctxp[i * E + e] = acc;
       }
+      PHASE(t, 5);  // context partial
     }
-    __syncthreads();
-    PHASE(t, 8);  // gate product
-    if (tid < Hc) {
-      const int u = u0 + tid;
-      float pre[4];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float v_ = a.bl[g * H + u];
-        for (int sp = 0; sp < KS; ++sp) v_ += part[sp * NC + g * Hc + tid];
-        pre[g] = v_;
-      }
-      const float ig = sigmoidf_(pre[0]), fg = sigmoidf_(pre[1]), gg = tanhf(pre[2]),
-                  og = sigmoidf_(pre[3]);
-      c = fg * c + ig * gg;
-      const float h2 = og * tanhf(c);
-      a.hidden[row * H + u] = h2;
-      a.cseq[row * H + u] = c;
-      float* ac = a.acts + row * G + u;
-      ac[0] = ig;
-      ac[H] = fg;
-      ac[2 * H] = gg;
-      ac[3 * H] = og;
-      hl[tid] = h2;
-#pragma unroll
-      for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(hn + u, q) = h2;
-    }
-    __syncthreads();
-    PHASE(t, 9);  // cell update and h' push
-    // the own units' part of the next step's q = h' Wq
-    for (int d = tid; d < Dk; d += NT) {
-      float acc = 0.0f;
-#pragma unroll 8
-      for (int j = 0; j < Hc; ++j) acc = fmaf(hl[j], wq_o[j * Dk + d], acc);
-#pragma unroll
-      for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(qp + rank * Dk + d, q) = acc;
-    }
-    PHASE(t, 10);  // q part and push
-    cluster.sync();  // barrier 2: h' and the parts of q are in every block
-    PHASE(t, 11);  // barrier 2
+    cluster.sync();  // every block's partials are readable
+    PHASE(t, 6);  // cluster barrier 1
 
-    // ---- phase C: logits of this block's vocabulary slice, local argmax
-    const bool feed = t + 1 < L && !a.use_teacher[t + 1];
-    for (int base = 0; base < nvc; base += vgroups) {
-      const int c0 = base + tid / vsp, vl = tid % vsp;
-      const bool valid = c0 < nvc;
-      float acc = 0.0f;
-      if (valid) {
-        const float* wo = a.wout + v0 + c0;
-        for (int j = vl; j < H; j += vsp) acc = fmaf(hn[j], __ldg(wo + (long)j * V), acc);
+    // ---- phase B, each slot: alignment and this block's slice of the context
+    for (int i = 0; i < NS; ++i) {
+      const int b = slot_utterance(ord, B, G, c, i);
+      if (b < 0) continue;
+      const long row = (long)t * B + b;
+      const int len = min(max(a.enc_len[b], 0), S);
+      const int Sb = cdiv(max(len, 1), CL);
+      if (tid < CL) {
+        sc[tid] = *cluster.map_shared_rank(stat + 2 * i, tid);
+        sc[CLMAX + tid] = *cluster.map_shared_rank(stat + 2 * i + 1, tid);
       }
-      for (int o = vsp >> 1; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (valid && vl == 0) {
-        const float lgt = acc + a.bout[v0 + c0];
-        a.logits[row * V + v0 + c0] = lgt;
-        if (feed) lg[c0] = a.sample ? lgt + gumbel(a.seed_lo, a.seed_hi, t, b, v0 + c0) : lgt;
+      __syncthreads();
+      float gm = LOWEST;
+      for (int q = 0; q < CL; ++q) gm = fmaxf(gm, sc[q]);
+      float z = 0.0f;
+      for (int q = 0; q < CL; ++q) z = fmaf(sc[CLMAX + q], expf(sc[q] - gm), z);
+      const float inv = z > 0.0f ? 1.0f / z : 0.0f;
+      float* scl = sc + 2 * CLMAX;  // the blocks' scales, normalised
+      __syncthreads();
+      if (tid < CL) scl[tid] = expf(sc[tid] - gm) * inv;
+      __syncthreads();
+      for (int s = tid; s < S; s += NT) {
+        float al = 0.0f;
+        if (s < len) {
+          const int q = s / Sb;
+          al = *cluster.map_shared_rank(en + i * Sl + s - q * Sb, q) * scl[q];
+        }
+        att[i * S + s] = al;
+        if (s / Sl == rank) a.align[row * S + s] = al;
+      }
+      for (int e = e0 + tid; e < e0 + ne; e += NT) {
+        float pv[CLMAX];  // the blocks' partials, all loads in flight
+#pragma unroll
+        for (int q = 0; q < CLMAX; ++q)
+          pv[q] = q >= CL ? 0.0f
+                  : a.ctxp_smem ? *cluster.map_shared_rank(ctxp + i * E + e, q)
+                                : __ldcg(a.scratch + ((long)(c * CL + q) * NS + i) * E + e);
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < CLMAX; ++q)
+          if (q < CL) acc = fmaf(pv[q], scl[q], acc);
+        a.ctxs[row * E + e] = acc;
+      }
+      __syncthreads();
+    }
+    PHASE(t, 7);  // combine
+    grid.sync();  // ctx and the token of every utterance are in global memory
+    PHASE(t, 8);  // grid barrier 1
+
+#ifdef SCAN_PHASES
+    // latency probes (SM cycles) of one load each, thread 0 of block 0: the
+    // context just written by other blocks, a weight and a frame of k
+    if (blockIdx.x == 0 && tid == 0 && t < PH_STEPS) {
+      float sink = 0.0f;
+      const float* srcs[3] = {a.ctxs + (long)t * B * E + 5, a.wx + 7 + 13 * t, a.k + 11 + 17 * t};
+      for (int pi = 0; pi < 3; ++pi) {
+        const long long c0 = clock64();
+        const float x = pi == 0 ? __ldcg(srcs[pi]) : pi == 1 ? __ldg(srcs[pi]) : *srcs[pi];
+        if (x == 1234.5f) sink += 1.0f;
+        const long long c1 = clock64();
+        g_phase_ts[t * PH_SLOTS + 16 + pi] = (unsigned long long)(c1 - c0) + (sink > 0.0f ? 1ull : 0ull);
       }
     }
-    if (feed) {
+#endif
+    // ---- gate product and cell update of the own units, all utterances:
+    // [16 utterances, E + H] x [E + H, 8 columns] tiles on the tensor cores
+    // (mma m16n8k8, three TF32 products per tile for float32 accuracy), the
+    // k-steps dealt over the warps; the warps' partial tiles summed in a
+    // fixed order through shared memory, four warps a round
+    for (int ub = 0; ub < B && nu > 0; ub += 16) {
+      const int rows = t > 0 ? X : E;  // h = 0 before the first step
+      const int ksteps = cdiv(rows, 8), g8 = lane >> 2, tig = lane & 3;
+      const long ra = (long)t * B + ub + g8, rb = ra + 8;
+      const bool oka = ub + g8 < B, okb = ub + g8 + 8 < B;
+      for (int n0 = 0; n0 < nc; n0 += 16) {
+        float d[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) d[q] = 0.0f;
+        for (int kc = wid; kc < ksteps; kc += NW * KPF) {
+          float av[KPF][4];  // the warp's next KPF k-steps of inputs, all loads in flight
+#pragma unroll
+          for (int u = 0; u < KPF; ++u) {
+            const int ka = (kc + NW * u) * 8 + tig, kb = ka + 4;
+            av[u][0] = oka && ka < rows ? gate_input(a, ra, ka) : 0.0f;
+            av[u][1] = okb && ka < rows ? gate_input(a, rb, ka) : 0.0f;
+            av[u][2] = oka && kb < rows ? gate_input(a, ra, kb) : 0.0f;
+            av[u][3] = okb && kb < rows ? gate_input(a, rb, kb) : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < KPF; ++u) {
+            const int ka = (kc + NW * u) * 8 + tig, kb = ka + 4;
+            if (ka - tig >= rows) break;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int cc = n0 + 8 * q + g8;
+              float bv[2];
+              bv[0] = cc < nc && ka < rows ? gate_weight(a, wt, cc, ka, nu, u0) : 0.0f;
+              bv[1] = cc < nc && kb < rows ? gate_weight(a, wt, cc, kb, nu, u0) : 0.0f;
+              mma_3xtf32(d + 4 * q, av[u], bv);
+            }
+          }
+        }
+        WMARK(t, 13, wid);
+        for (int r = 0; r < NW / 4; ++r) {
+          if (wid / 4 == r) {
+            float* slot = gpart + ((wid % 4) * 32 + lane) * 8;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) slot[q] = (r == 0 ? 0.0f : slot[q]) + d[q];
+          }
+          __syncthreads();
+        }
+        // tile entry (utterance ub + bl, column n0 + cl): lane 4 (bl % 8) + (cl % 8) / 2, value
+        // 4 (cl / 8) + 2 (bl / 8) + cl % 2
+        for (int x = tid; x < 16 * 16; x += NT) {
+          const int bl = x / 16, cl = x % 16;
+          const int ln = 4 * (bl % 8) + (cl % 8) / 2, q = 4 * (cl / 8) + 2 * (bl / 8) + cl % 2;
+          float v = 0.0f;
+#pragma unroll
+          for (int w4 = 0; w4 < 4; ++w4) v += gpart[(w4 * 32 + ln) * 8 + q];
+          if (n0 + cl < nc) gsum[bl * ncmax + n0 + cl] = v;
+        }
+        __syncthreads();
+      }
+      WMARK(t, 14, 0);
+      // cell update: one thread per (utterance, unit)
+      for (int x = tid; x < min(16, B - ub) * nu; x += NT) {
+        const int bl = x / nu, b = ub + bl, jj = x % nu, u = u0 + jj;
+        const long row = (long)t * B + b;
+        const float* ewr = a.ew + (long)__ldcg(a.tokens + row) * G4 + u;
+        const float* gs = gsum + bl * ncmax;
+        const float ig = sigmoidf_(gs[jj] + ewr[0]), fg = sigmoidf_(gs[nu + jj] + ewr[H]),
+                    gg = tanhf(gs[2 * nu + jj] + ewr[2 * H]), og = sigmoidf_(gs[3 * nu + jj] + ewr[3 * H]);
+        const float cn = fg * cst[b * numax + jj] + ig * gg;
+        cst[b * numax + jj] = cn;
+        a.hidden[row * H + u] = og * tanhf(cn);
+        a.cseq[row * H + u] = cn;
+        float* ac = a.acts + row * G4 + u;
+        ac[0] = ig;
+        ac[H] = fg;
+        ac[2 * H] = gg;
+        ac[3 * H] = og;
+      }
       __syncthreads();
-      if (wid == 0) {
+      WMARK(t, 15, 0);
+    }
+    PHASE(t, 9);  // gate product and cell update
+    grid.sync();  // h' of every utterance is in global memory
+    PHASE(t, 10);  // grid barrier 2
+
+    // ---- phase C, each slot: logits of the own vocabulary slice, local
+    // argmax, own slice of the next q
+    const bool feed = t + 1 < L && !a.use_teacher[t + 1];
+    const int no = nvc + ndk, xsplit = max(1, min(H, NT / max(no, 1))), xchunk = cdiv(H, xsplit);
+    for (int i = 0; i < NS; ++i) {
+      const int b = slot_utterance(ord, B, G, c, i);
+      if (b < 0) continue;
+      const long row = (long)t * B + b;
+      for (int x = tid; x < H; x += NT) hs[x] = __ldcg(a.hidden + row * H + x);
+      __syncthreads();
+      // outputs o < nvc: own logits; then the own slice of q. Threads over
+      // (output, chunk of h'), neighbours on neighbouring columns
+      for (int x2 = tid; x2 < no * xsplit; x2 += NT) {
+        const int o = x2 % no, xs = x2 / no, xa = xs * xchunk, xb = min(H, xa + xchunk);
+        float acc = 0.0f;
+        if (o < nvc) {
+          if (a.wo_smem) {
+            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], wos[x * Vc + o], acc);
+          } else {
+#pragma unroll 4
+            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], __ldg(a.wout + (long)x * V + v0 + o), acc);
+          }
+        } else {
+          const int dl = o - nvc;
+          if (a.wq_smem) {
+            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], wqs[x * Dkc + dl], acc);
+          } else {
+#pragma unroll 4
+            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], __ldg(a.wq + (long)x * Dk + d0 + dl), acc);
+          }
+        }
+        opart[x2] = acc;
+      }
+      __syncthreads();
+      for (int o = tid; o < no; o += NT) {
+        float acc = 0.0f;
+        for (int xs = 0; xs < xsplit; ++xs) acc += opart[xs * no + o];
+        if (o < nvc) {
+          const int col = v0 + o;
+          const float lgt = acc + a.bout[col];
+          a.logits[row * V + col] = lgt;
+          lg[o] = a.sample ? lgt + gumbel(a.seed_lo, a.seed_hi, t, b, col) : lgt;
+        } else {
+          qsl[i * Dkc + o - nvc] = acc + a.bq[d0 + o - nvc];
+        }
+      }
+      __syncthreads();
+      if (feed && wid == 0) {
         float best = LOWEST;
         int bi = 0;
         for (int c0 = lane; c0 < nvc; c0 += 32) {
@@ -477,15 +752,17 @@ decoder_scan_fwd_kernel(const FwdArgs a) {
             bi = oi;
           }
         }
-        if (lane < CL) {
-          *cluster.map_shared_rank(amax + rank, lane) = best;
-          *cluster.map_shared_rank(aidx + rank, lane) = v0 + bi;
+        if (lane == 0) {
+          amx[i] = best;
+          aix[i] = v0 + bi;
         }
       }
+      __syncthreads();
     }
-    PHASE(t, 12);  // logits and argmax
+    PHASE(t, 11);  // logits, argmax and q slice
+    cluster.sync();  // q slices and the local argmaxes are readable
+    PHASE(t, 12);  // cluster barrier 2
   }
-  cluster.sync();  // no block exits while another may still write into it
 }
 
 __global__ void gumbel_noise_kernel(float* out, int L, int B, int V, uint32_t seed_lo,
@@ -499,10 +776,42 @@ __global__ void gumbel_noise_kernel(float* out, int L, int B, int V, uint32_t se
   }
 }
 
+// a cooperative launch of G clusters with smem bytes of shared memory a block
+cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* at, int G, int CL,
+                          size_t smem, cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3(G * CL);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CL;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  return cudaFuncSetAttribute(decoder_scan_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 }  // namespace
 
 extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// out[0] = the clusters of cl blocks of the forward kernel that can be
+// resident at once with smem bytes of dynamic shared memory a block
+extern "C" int e2e_decoder_scan_fwd_clusters(int cl, int smem, int* out, void* stream) {
+  if (cl < 1 || cl > CLMAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at[2];
+  cudaError_t e = launch_config(cfg, at, 1, cl, (size_t)smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  cfg.numAttrs = 1;  // the query takes the cluster shape
+  return (int)cudaOccupancyMaxActiveClusters(out, (void*)decoder_scan_fwd_kernel, &cfg);
 }
 
 // k [B, S, Dk], v [B, S, E], enc_len [B] i32, taps [K, P], wq [H, Dk], bq [Dk],
@@ -510,34 +819,38 @@ extern "C" const char* e2e_error_string(int err) {
 // wh [H, 4H], bl [4H], wout [H, V], bout [V], teacher [L, B] i32,
 // use_teacher [L] i32 -> logits [L, B, V], align [L, B, S], hidden [L, B, H],
 // cseq [L, B, H], tokens [L, B] i32, acts [L, B, 4H], qs [L, B, Dk],
-// ctxs [L, B, E]. All f32 but the ids, contiguous. H a multiple of 8 up to
-// 512, Dk up to 512, P odd.
+// ctxs [L, B, E]; scratch ew [V, 4H] and scratch [G CL, ceil(B / G), E]. All
+// f32 but the ids, contiguous. H a
+// multiple of 8 up to 512, Dk up to 512, P odd. G clusters of CL blocks (all
+// resident: the cooperative launch fails otherwise), ceil(B / G) utterance
+// slots each; the flags say what lives in shared memory.
 extern "C" int e2e_decoder_scan_fwd(
     const float* k, const float* v, const int* enc_len, const float* taps, const float* wq,
     const float* bq, const float* wlp, const float* locv, const float* locb, const float* embed,
     const float* wx, const float* wh, const float* bl, const float* wout, const float* bout,
     const int* teacher, const int* use_teacher, float* logits, float* align, float* hidden,
-    float* cseq, int* tokens, float* acts, float* qs, float* ctxs, int B, int S, int Dk, int E,
-    int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample, int seed_lo,
-    int seed_hi, void* stream) {
-  if (H % CL != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1)
+    float* cseq, int* tokens, float* acts, float* qs, float* ctxs, float* ew, float* scratch, int B,
+    int S, int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample,
+    int seed_lo, int seed_hi, int G, int CL, int ctxp_smem, int w_smem, int wq_smem, int wo_smem,
+    int k_smem, int v_smem, void* stream) {
+  if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
+      CL < 1 || CL > CLMAX)
     return (int)cudaErrorInvalidValue;
-  size_t smem = sizeof(float) * fwd_smem_floats(S, Dk, E, K, P, H, Emb, V);
-  const size_t wq_bytes = sizeof(float) * (size_t)(H / CL) * Dk;
-  const size_t kv_bytes = sizeof(float) * (size_t)cdiv(S, CL) * (Dk + E);
-  const int wq_smem = smem + wq_bytes <= SMEM_MAX;
-  if (wq_smem) smem += wq_bytes;
-  const int kv_smem = smem + kv_bytes <= SMEM_MAX;
-  if (kv_smem) smem += kv_bytes;
-  cudaError_t e = cudaFuncSetAttribute(decoder_scan_fwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int NS = cdiv(B, G);
+  const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, ctxp_smem, w_smem, wq_smem,
+                                  wo_smem, k_smem, v_smem);
+  const size_t smem = sizeof(float) * ly.total;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at[2];
+  cudaError_t e = launch_config(cfg, at, G, CL, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   FwdArgs a{k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-            teacher, use_teacher, logits, align, hidden, cseq, tokens, acts, qs, ctxs,
+            teacher, use_teacher, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew, scratch,
             B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, sample,
-            (uint32_t)seed_lo, (uint32_t)seed_hi, wq_smem, kv_smem};
-  decoder_scan_fwd_kernel<<<B * CL, NT, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+            (uint32_t)seed_lo, (uint32_t)seed_hi, G, CL, NS, ctxp_smem, w_smem, wq_smem, wo_smem, k_smem,
+            v_smem};
+  return (int)cudaLaunchKernelEx(&cfg, decoder_scan_fwd_kernel, a);
 }
 
 // out [PH_STEPS * PH_SLOTS] u64: the timing build's phase marks of the last

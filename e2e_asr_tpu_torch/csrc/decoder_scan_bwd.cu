@@ -28,60 +28,66 @@
 //
 // What bounds it on the H100: latency, as the forward: L dependent steps of
 // dependent phases; per step and utterance ~3 M FMAs, and a few tens of MB
-// in and out over the whole sweep.
-// Design: one cluster of CL = 8 blocks per utterance; hidden units, context
-// columns and encoder frames are each split 8 ways:
-//   phase a  each block: dh, dc and the 4 gate gradients of ITS units
-//            (8 lanes per unit for dlogits Wout^T), broadcast to all blocks;
-//            its share of <dalign_up + dalign_carry, align>;
-//   barrier 1
-//   phase b  one warp per output: dctx for ITS context columns (broadcast)
-//            and dh_lstm for ITS units from the full dgates;
-//   barrier 2
-//   phase c  ITS frames: dalign, denergy (<dctx, ctx> closes the softmax
-//            term without another exchange), the tanh energies rebuilt,
-//            dfpre (one warp per frame; broadcast), then one thread per
-//            attention column sums dq, dlocv, dWlp over the frames and adds
-//            de into the block's dk slice (shared memory where it fits,
-//            else its exclusive slice of global memory, never an atomic);
-//   barrier 3
-//   phase d  dq summed over blocks, dh_carry for ITS units, dalign_carry
-//            for ITS frames from the full dfpre.
-// Three cluster barriers a step. A block's frames of k and v and its rows of
-// Wq are copied into shared memory once where they fit beside its dk slice
-// (at S=204, Dk=300, E=640: dk 31 KB, k 31 KB, v 66 KB fit, Wq's 48 KB do
-// not) and are read from global memory (L2) otherwise. Phase b streams the
-// block's rows of Wx and Wh (614 KB a step at the flagship) from L2 through
-// 16-byte loads, ten in flight per lane.
+// in and out over the whole sweep. Split into phases (the timing build), the
+// first design (one 8-block cluster per utterance) spent 60% of a step in
+// two passes that each rebuilt the tanh energies (one warp per frame, then
+// one thread per attention unit walking the frames), an eighth streaming its
+// rows of Wx and Wh from L2, and ran B = 16 utterances in two waves (at most
+// 15 such clusters are resident).
+// Design: a persistent grid of G co-resident clusters of CL = 8 blocks
+// (cooperative launch, grid.sync()), three grid barriers a step:
+//   gate stage  each block: dh, dc and dgates of its hidden units for every
+//               utterance (dq Wq^T and dlogits Wout^T from the units' rows);
+//   grid barrier
+//   row stage   each block: its rows of Wx[Emb:] (a slice of the context
+//               columns) and of Wh (its units), resident in shared memory
+//               once per launch, times the dgates of every utterance: dctx
+//               to global memory, dh_lstm kept for the next gate stage;
+//   grid barrier
+//   attention   each cluster, each of its utterances (ranked by length and
+//               dealt in a snake order, valid frames split evenly over the 8
+//               blocks): the softmax term (the 8 blocks' shares of
+//               <dalign, align> pulled after a cluster barrier), the conv
+//               one warp per (frame, filter), the tanh energies rebuilt ONCE
+//               over (frame, unit) into shared memory (dk added there), then
+//               dq, dlocv, dWlp as reductions over the frames and dfpre one
+//               warp per (frame, filter); cluster barrier; dq (own slice)
+//               and dfpre of all frames pulled from the 8 blocks, the
+//               transposed conv one warp per frame;
+//   grid barrier.
+// dk of a block's frames (first slot), its frames of k and v stay in shared
+// memory where they fit (the wrapper decides, in order: the rows, dk, k, v)
+// and are read from L2 otherwise; the taps are read through L1.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CL = 8;    // blocks per cluster = per utterance
+constexpr int CLMAX = 8; // blocks per cluster, at most (the portable cluster size)
+constexpr int NSPL = 4;  // threads a conv sum is split over
 constexpr int NT = 512;  // threads per block
 constexpr int NW = NT / 32;
-constexpr int KSU = 8;   // lanes per hidden unit (H / CL <= 64 units per block)
+constexpr int UCH = 4;   // hidden units a lane accumulates at once in the gate stage
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Timing build (nvcc -DSCAN_PHASES): block 0 writes %globaltimer at each
-// phase boundary of each step (after a __syncthreads, so a mark closes the
-// phase for the whole block) into g_phase_ts[step][mark]; the normal build
-// compiles the marks away. e2e_decoder_scan_phase_times copies the buffer out.
+// Timing build (nvcc -DSCAN_PHASES): block 0 writes its SM's clock64() at
+// each phase boundary of each step (after a __syncthreads, so a mark closes
+// the phase for the whole block) into g_phase_ts[step][mark]; the normal
+// build compiles the marks away. e2e_decoder_scan_phase_times copies the
+// buffer out.
 constexpr int PH_STEPS = 512;  // steps recorded
-constexpr int PH_SLOTS = 16;   // marks per step
+constexpr int PH_SLOTS = 24;   // marks per step
 #ifdef SCAN_PHASES
 __device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
 #define PHASE(t, i)                                                                   \
   do {                                                                                \
     __syncthreads();                                                                  \
     if (blockIdx.x == 0 && threadIdx.x == 0 && (t) < PH_STEPS) {                      \
-      unsigned long long ts_;                                                         \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ts_));                         \
-      g_phase_ts[(t) * PH_SLOTS + (i)] = ts_;                                         \
+      g_phase_ts[(t) * PH_SLOTS + (i)] = (unsigned long long)clock64();               \
     }                                                                                 \
   } while (0)
 #else
@@ -106,310 +112,648 @@ __device__ float block_sum(float x, float* red) {
   return warp_sum(lane < NW ? red[lane] : 0.0f);
 }
 
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// 4 bytes global -> shared in the background (cp.async); cp_async_wait_all
+// waits for the thread's own copies
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// float -> TF32 (round to nearest), as the bits mma takes
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// d (16 x 8, the m16n8k8 accumulator fragment) += a (16 x 8) b (8 x 8) in
+// float32 accuracy from three TF32 products: a_lo b_hi + a_hi b_lo + a_hi b_hi
+__device__ __forceinline__ void mma_3xtf32(float* d, const float* a, const float* b) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ah[i] = tf32(a[i]);
+    al[i] = tf32(a[i] - __uint_as_float(ah[i]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    bh[i] = tf32(b[i]);
+    bl[i] = tf32(b[i] - __uint_as_float(bh[i]));
+  }
+#define MMA_TF32(A, B)                                                                       \
+  asm(                                                                                       \
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "    \
+      "{%8,%9}, {%0,%1,%2,%3};\n"                                                            \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                                       \
+      : "r"(A[0]), "r"(A[1]), "r"(A[2]), "r"(A[3]), "r"(B[0]), "r"(B[1]))
+  MMA_TF32(al, bh);
+  MMA_TF32(ah, bl);
+  MMA_TF32(ah, bh);
+#undef MMA_TF32
+}
+
+
+// items [i0, i0 + n) of block j when n_all items are split over nb blocks
+// (the first n_all % nb blocks own one more)
+__host__ __device__ inline void split_range(int n_all, int nb, int j, int& i0, int& n) {
+  const int base = n_all / nb, rem = n_all % nb;
+  n = base + (j < rem ? 1 : 0);
+  i0 = j * base + (j < rem ? j : rem);
+}
+
+// utterances ranked by length, longest first (ties: lower index first)
+__device__ void rank_utterances(const int* enc_len, int B, int S, int* ord) {
+  for (int b = threadIdx.x; b < B; b += NT) {
+    const int lb = min(max(enc_len[b], 0), S);
+    int r = 0;
+    for (int o = 0; o < B; ++o) {
+      const int lo = min(max(enc_len[o], 0), S);
+      r += (lo > lb || (lo == lb && o < b)) ? 1 : 0;
+    }
+    ord[r] = b;
+  }
+}
+
+// slot i of cluster c: rank i G + c (i even) or i G + G-1-c (i odd)
+__device__ __forceinline__ int slot_utterance(const int* ord, int B, int G, int c, int i) {
+  const int idx = i * G + ((i & 1) ? G - 1 - c : c);
+  return idx < B ? ord[idx] : -1;
+}
+
 struct BwdArgs {
   const float *k, *v;
   const int* enc_len;
   const float *taps, *wq, *wlp, *locv, *locb, *wx, *wh, *wout;
   const float *align, *cseq, *acts, *qs, *ctxs, *dlogits, *dalign, *dhidden;
   float *dgates, *dq, *dfpre, *dk, *dwlp_part, *dlocv_part;
+  float* dctxg;    // scratch [B, E]: dctx of the step
+  float* scratch;  // [G CL][Sl Dk + S K]: es and dfa of the blocks that keep them out of shared memory
   int B, S, Dk, E, K, P, H, Emb, V, L;
   float inv_temp;
-  // what lives in shared memory: the block's dk slice, its frames of k and
-  // of v, its rows of Wq
-  int dk_smem, k_smem, v_smem, wq_smem;
+  int G, CL, NS;  // clusters, blocks per cluster, utterance slots per cluster
+  // residents in shared memory: the block's rows of Wx[Emb:] and Wh, and the
+  // first slot's dk slice and frames of k and of v
+  int es_smem, dfa_smem, wr_smem, dk_smem, k_smem, v_smem;
 };
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// shared-memory floats of the sweep without the dk slice
-size_t bwd_smem_floats(int S, int Dk, int E, int K, int P, int H) {
-  const int Sl = cdiv(S, CL);
-  return (size_t)S + 4 * (size_t)Sl + 2 * (size_t)Sl * K + (size_t)S * K + 4 * (size_t)H +
-         2 * (size_t)E + (size_t)CL * Dk + 3 * (size_t)Dk + 2 * (size_t)K * Dk + (size_t)K * P +
-         H / CL + CL + NW + (size_t)NW * Dk;
+// the block's row r (of [Wx[Emb + er0 .. + ner]; Wh[u0 ..]]) at column k:
+// from shared memory where the rows are resident, else from global memory
+__device__ __forceinline__ float row_weight(const BwdArgs& a, const float* wr, int r, int k, int ner,
+                                            int er0, int u0) {
+  if (a.wr_smem) return wr[r * (4 * a.H + 4) + k];
+  return r < ner ? __ldg(a.wx + (long)(a.Emb + er0 + r) * 4 * a.H + k)
+                 : __ldg(a.wh + (long)(u0 + r - ner) * 4 * a.H + k);
 }
 
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
-decoder_scan_bwd_kernel(const BwdArgs a) {
+struct BwdLayout {
+  size_t wr, dks, ks, vs, es, attp, attt, base, den, fs, dfo, dfa, dctx, ctx, dqp, qb, lv, wl, dwl,
+      datt, p2s, dhl, dcc, gdot, red, ord, tp, cpart, tpart, total;
+};
+
+// shared-memory layout of the backward kernel, in floats
+__host__ __device__ inline BwdLayout bwd_layout(int B, int S, int Dk, int E, int K, int P, int H,
+                                                 int G, int CL, int NS, int esres, int dfares,
+                                                 int wr, int dkres, int kres, int vres) {
+  const int nb = G * CL, numax = cdiv(H, nb), nrmax = cdiv(E, nb) + numax;
+  const int Sl = cdiv(S, CL);
+  BwdLayout l;
+  size_t o = 0;
+  l.wr = o;   o += wr ? (size_t)nrmax * (4 * H + 4) : 0;
+  l.dks = o;  o += dkres ? (size_t)Sl * Dk : 0;
+  l.ks = o;   o += kres ? (size_t)Sl * Dk : 0;
+  l.vs = o;   o += vres ? (size_t)Sl * E : 0;
+  l.es = o;   o += esres ? (size_t)Sl * Dk : 0;
+  l.attp = o; o += S;
+  l.attt = o; o += Sl;
+  l.base = o; o += Sl;
+  l.den = o;  o += Sl;
+  l.fs = o;   o += (size_t)Sl * K;
+  l.dfo = o;  o += (size_t)Sl * K;
+  l.dfa = o;  o += dfares ? (size_t)S * K : 0;
+  l.dctx = o; o += E;
+  l.ctx = o;  o += E;
+  l.dqp = o;  o += Dk;
+  l.qb = o;   o += Dk;
+  l.lv = o;   o += Dk;
+  l.wl = o;   o += (size_t)K * Dk;
+  l.dwl = o;  o += (size_t)K * Dk;
+  l.datt = o; o += (size_t)NS * Sl;
+  l.p2s = o;  o += NS;
+  l.dhl = o;  o += (size_t)B * numax;
+  l.dcc = o;  o += (size_t)B * numax;
+  l.gdot = o; o += (size_t)B * numax;
+  l.red = o;  o += NW;
+  l.ord = o;  o += B;
+  l.tp = o;   o += (size_t)K * P;
+  l.cpart = o; o += NSPL * (size_t)Sl * K;
+  l.tpart = o; o += 4 * 32 * 8;
+  l.total = o;
+  return l;
+}
+
+__global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
   cg::cluster_group cluster = cg::this_cluster();
+  cg::grid_group grid = cg::this_grid();
   const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / CL;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int B = a.B, S = a.S, Dk = a.Dk, E = a.E, K = a.K, P = a.P, H = a.H, Emb = a.Emb,
-            V = a.V, L = a.L;
+            V = a.V, L = a.L, G = a.G, CL = a.CL, NS = a.NS;
+  const int c = blockIdx.x / CL;
+  const int j = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int half = (P - 1) / 2;
-  const int len = min(max(a.enc_len[b], 0), S);
-  const int Sl = cdiv(S, CL), s0 = rank * Sl;
-  const int ns = max(0, min(Sl, S - s0));    // frames owned by this block
-  const int nv = max(0, min(ns, len - s0));  // of these, the valid ones
-  const int Hc = H / CL, u0 = rank * Hc, G = 4 * H;
-  const int Ec = cdiv(E, CL), e0 = rank * Ec;
-  const int ne = max(0, min(Ec, E - e0));  // context columns owned by this block
+  const int G4 = 4 * H;
+  const int nb = G * CL, numax = cdiv(H, nb);
+  int u0, nu, er0, ner;
+  split_range(H, nb, j, u0, nu);    // hidden units of this block
+  split_range(E, nb, j, er0, ner);  // context columns (rows of Wx[Emb:]) of this block
+  const int nr = ner + nu;          // row r < ner: Wx[Emb + er0 + r], else Wh[u0 + r - ner]
+  const int Sl = cdiv(S, CL);
+  const int Dkc = cdiv(Dk, CL), d0 = rank * Dkc, ndk = max(0, min(Dkc, Dk - d0));
 
   extern __shared__ float smem[];
-  float* dg_s = smem;               // [4H]     dgates of the utterance (16-byte aligned)
-  float* attp = dg_s + G;           // [S]      alignment of step t-1
-  float* attt = attp + S;           // [Sl]     alignment of step t, own frames
-  float* base = attt + Sl;          // [Sl]     dalign_up + dalign_carry
-  float* den = base + Sl;           // [Sl]     denergy
-  float* datt = den + Sl;           // [Sl]     dalign_carry, own frames
-  float* f_s = datt + Sl;           // [Sl][K]  location features
-  float* dattp = f_s + Sl * K;      // [Sl][K]  partials of dalign_carry
-  float* dfa = dattp + Sl * K;      // [S][K]   dfpre of all frames
-  float* dctx = dfa + S * K;        // [E]
-  float* ctx = dctx + E;            // [E]
-  float* dqp = ctx + E;             // [CL][Dk] dq partials of the 8 blocks
-  float* dq_s = dqp + CL * Dk;      // [Dk]
-  float* qb = dq_s + Dk;            // [Dk]     q + locb
-  float* lv = qb + Dk;              // [Dk]
-  float* wl = lv + Dk;              // [K][Dk]
-  float* dwl = wl + K * Dk;         // [K][Dk]  dWlp partial of this block
-  float* tp = dwl + K * Dk;         // [K][P]
-  float* dhl = tp + K * P;          // [Hc]     dh_lstm of the own units
-  float* sd = dhl + Hc;             // [CL]     shares of <dalign base, align>
-  float* red = sd + CL;             // [NW]
-  float* dew = red + NW;            // [NW][Dk] de of the frame a warp works on
-  float* opt = dew + NW * Dk;       // optional residents
-  float* dkacc = a.dk + ((long)b * S + s0) * Dk;        // [ns][Dk] own slice of dk
-  const float* k_o = a.k + ((long)b * S + s0) * Dk;     // [ns][Dk] own frames of k
-  const float* v_o = a.v + ((long)b * S + s0) * E;      // [ns][E]  own frames of v
-  const float* wq_o = a.wq + (long)u0 * Dk;             // [Hc][Dk] own rows of Wq
-  if (a.dk_smem) {
-    dkacc = opt;
-    opt += Sl * Dk;
-  }
-  if (a.k_smem) {
-    for (int i = tid; i < nv * Dk; i += NT) opt[i] = k_o[i];
-    k_o = opt;
-    opt += Sl * Dk;
-  }
-  if (a.v_smem) {
-    for (int i = tid; i < nv * E; i += NT) opt[i] = v_o[i];
-    v_o = opt;
-    opt += Sl * E;
-  }
-  if (a.wq_smem) {
-    for (int i = tid; i < Hc * Dk; i += NT) opt[i] = wq_o[i];
-    wq_o = opt;
-  }
+  const BwdLayout ly = bwd_layout(B, S, Dk, E, K, P, H, G, CL, NS, a.es_smem, a.dfa_smem, a.wr_smem,
+                                  a.dk_smem, a.k_smem, a.v_smem);
+  float* own = a.scratch + (long)j * ((long)Sl * Dk + (long)S * K);  // this block's scratch
+  float* wr = smem + ly.wr;      // [nr][4H + 4] rows of Wx[Emb:] and Wh (padded: no bank conflicts)
+  float* dks = smem + ly.dks;    // [Sl][Dk]  dk of slot 0's own frames
+  float* ks = smem + ly.ks;      // [Sl][Dk]  slot 0's own frames of k
+  float* vs = smem + ly.vs;      // [Sl][E]   and of v
+  float* es = a.es_smem ? smem + ly.es : own;  // [Sl][Dk]  the rebuilt tanh energies
+  float* attp = smem + ly.attp;  // [S]       alignment of step t-1
+  float* attt = smem + ly.attt;  // [Sl]      alignment of step t, own frames
+  float* base = smem + ly.base;  // [Sl]      dalign_up + dalign_carry
+  float* den = smem + ly.den;    // [Sl]      denergy
+  float* fs = smem + ly.fs;      // [Sl][K]   location features
+  float* dfo = smem + ly.dfo;    // [Sl][K]   dfpre of the own frames
+  float* dfa = a.dfa_smem ? smem + ly.dfa : own + (long)Sl * Dk;  // [S][K] dfpre of all frames
+  float* dctx = smem + ly.dctx;  // [E]
+  float* ctx = smem + ly.ctx;    // [E]
+  float* dqp = smem + ly.dqp;    // [Dk]      dq over the own frames
+  float* qb = smem + ly.qb;      // [Dk]      q + locb
+  float* lv = smem + ly.lv;      // [Dk]
+  float* wl = smem + ly.wl;      // [K][Dk]
+  float* dwl = smem + ly.dwl;    // [K][Dk]   dWlp partial of this block
+  float* datt = smem + ly.datt;  // [NS][Sl]  dalign_carry, own frames
+  float* p2s = smem + ly.p2s;    // [NS]      own share of <dalign_up + carry, align>
+  float* dhl = smem + ly.dhl;    // [B][numax] dh_lstm of the own units
+  float* dcc = smem + ly.dcc;    // [B][numax] dc carry of the own units
+  float* gdot = smem + ly.gdot;  // [B][numax] dlogits Wout^T + dq Wq^T of the own units
+  float* red = smem + ly.red;    // [NW]
+  int* ord = (int*)(smem + ly.ord);  // [B]
+  float* tp = smem + ly.tp;          // [K][P]    conv taps
+  float* cpart = smem + ly.cpart;    // [NSPL][Sl][K] parts of the conv sums
+  float* tpart = smem + ly.tpart;    // [4][32][8] four warps' partial tiles
 
-  for (int i = tid; i < Sl; i += NT) datt[i] = 0.0f;
-  for (int i = tid; i < S * K; i += NT) dfa[i] = 0.0f;
+  // ---- once per launch
   for (int i = tid; i < K * Dk; i += NT) {
     wl[i] = a.wlp[i];
     dwl[i] = 0.0f;
   }
-  for (int i = tid; i < K * P; i += NT) tp[i] = a.taps[i];
   for (int i = tid; i < Dk; i += NT) lv[i] = a.locv[i];
-  for (int i = tid; i < ns * Dk; i += NT) dkacc[i] = 0.0f;
-  float dlocv_acc = 0.0f;  // attention column tid
-  float dh_c = 0.0f, dc_c = 0.0f;  // carries of unit u0 + tid / KSU (lane 0 of its group)
-  const int ul = tid / KSU, sub = tid % KSU;
-  const bool active = ul < Hc;
-  const bool owner = active && sub == 0;
-  const int u = u0 + (active ? ul : 0);
-  cluster.sync();  // every block's buffers are set before any remote write
-
-  const float uni = len > 0 ? 1.0f / (float)len : 0.0f;
+  for (int i = tid; i < K * P; i += NT) tp[i] = a.taps[i];
+  for (int i = tid; i < B * numax; i += NT) {
+    dhl[i] = 0.0f;
+    dcc[i] = 0.0f;
+  }
+  if (a.wr_smem) {
+    for (int i = tid; i < nr * G4; i += NT) {
+      const int r = i / G4, col = i % G4;
+      wr[r * (G4 + 4) + col] = r < ner ? a.wx[(long)(Emb + er0 + r) * G4 + col] : a.wh[(long)(u0 + r - ner) * G4 + col];
+    }
+  }
+  rank_utterances(a.enc_len, B, S, ord);
+  __syncthreads();
+  for (int i = 0; i < NS; ++i) {
+    const int b = slot_utterance(ord, B, G, c, i);
+    if (b < 0) continue;
+    const int len = min(max(a.enc_len[b], 0), S);
+    const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
+    for (int x = tid; x < Sl; x += NT) datt[i * Sl + x] = 0.0f;
+    float* dkg = a.dk + (long)b * S * Dk;
+    // frames past the length: zero, split statically over the blocks
+    for (long x = (long)max(len, rank * Sl) * Dk + tid; x < (long)min(S, (rank + 1) * Sl) * Dk; x += NT)
+      dkg[x] = 0.0f;
+    if (i == 0 && a.dk_smem) {
+      for (int x = tid; x < Sl * Dk; x += NT) dks[x] = 0.0f;
+    } else {
+      for (int x = tid; x < nv * Dk; x += NT) dkg[(long)s0 * Dk + x] = 0.0f;
+    }
+    if (i == 0) {
+      if (a.k_smem)
+        for (int x = tid; x < nv * Dk; x += NT) ks[x] = a.k[((long)b * S + s0) * Dk + x];
+      if (a.v_smem)
+        for (int x = tid; x < nv * E; x += NT) vs[x] = a.v[((long)b * S + s0) * E + x];
+    }
+    // the own share of <dalign_up, align> of the last step (no carry yet)
+    const long row = (long)(L - 1) * B + b;
+    float p2 = 0.0f;
+    for (int sl = tid; sl < nv; sl += NT)
+      p2 = fmaf(a.dalign[row * S + s0 + sl], a.align[row * S + s0 + sl], p2);
+    p2 = block_sum(p2, red);
+    if (tid == 0) p2s[i] = p2;
+  }
+  float dloc = 0.0f;  // dlocv of attention unit tid
+  __syncthreads();
+  cluster.sync();
 
   for (int t = L - 1; t >= 0; --t) {
-    const long row = (long)t * B + b;
     PHASE(t, 0);
-
-    // ---- phase a
-    for (int s = tid; s < S; s += NT)
-      attp[s] = t > 0 ? a.align[(row - B) * S + s] : (s < len ? uni : 0.0f);
-    float p2 = 0.0f;
-    for (int sl = tid; sl < ns; sl += NT) {
-      const float at = a.align[row * S + s0 + sl];
-      const float bs = a.dalign[row * S + s0 + sl] + datt[sl];
-      attt[sl] = at;
-      base[sl] = bs;
-      p2 = fmaf(bs, at, p2);
-    }
-    for (int d = tid; d < Dk; d += NT) qb[d] = a.qs[row * Dk + d] + a.locb[d];
-    for (int e = tid; e < E; e += NT) ctx[e] = a.ctxs[row * E + e];
-    p2 = block_sum(p2, red);
-    if (tid < CL) *cluster.map_shared_rank(sd + rank, tid) = p2;
-    {
-      float s_ = 0.0f;
-      if (active) {
-        const float* dl = a.dlogits + row * V;
-        const float* wo = a.wout + (long)u * V;
-        for (int vv = sub; vv < V; vv += KSU) s_ = fmaf(dl[vv], __ldg(wo + vv), s_);
-      }
+    // ---- gate stage: dh, dc, dgates of the own units, every utterance.
+    // First dlogits Wout^T + dq Wq^T of the units, one warp per utterance,
+    // UCH units at once; then one thread per (utterance, unit)
+    for (int b = wid; b < B && nu > 0; b += NW) {
+      const long row = (long)t * B + b;
+      for (int j0 = 0; j0 < nu; j0 += UCH) {
+        float acc[UCH];
 #pragma unroll
-      for (int o = KSU / 2; o > 0; o >>= 1) s_ += __shfl_down_sync(0xffffffffu, s_, o, KSU);
-      if (owner) {
-        const float* ac = a.acts + row * G;
-        const float ig = ac[u], fg = ac[H + u], gg = ac[2 * H + u], og = ac[3 * H + u];
-        const float tc = tanhf(a.cseq[row * H + u]);
-        const float cp = t > 0 ? a.cseq[(row - B) * H + u] : 0.0f;
-        const float dh = s_ + a.dhidden[row * H + u] + dh_c;
-        const float dc = dc_c + dh * og * (1.0f - tc * tc);
-        float dgv[4];
-        dgv[0] = dc * gg * ig * (1.0f - ig);
-        dgv[1] = dc * cp * fg * (1.0f - fg);
-        dgv[2] = dc * ig * (1.0f - gg * gg);
-        dgv[3] = dh * tc * og * (1.0f - og);
-        dc_c = dc * fg;
+        for (int q = 0; q < UCH; ++q) acc[q] = 0.0f;
+        for (int vv = lane; vv < V; vv += 32) {
+          const float x = a.dlogits[row * V + vv];
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          a.dgates[row * G + g * H + u] = dgv[g];
+          for (int q = 0; q < UCH; ++q)
+            if (j0 + q < nu) acc[q] = fmaf(x, __ldg(a.wout + (long)(u0 + j0 + q) * V + vv), acc[q]);
+        }
+        if (t + 1 < L) {
+#pragma unroll 4
+          for (int d = lane; d < Dk; d += 32) {
+            const float x = __ldcg(a.dq + (row + B) * Dk + d);
 #pragma unroll
-          for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(dg_s + g * H + u, q) = dgv[g];
+            for (int q = 0; q < UCH; ++q)
+              if (j0 + q < nu) acc[q] = fmaf(x, __ldg(a.wq + (long)(u0 + j0 + q) * Dk + d), acc[q]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < UCH; ++q) {
+          const float tot = warp_sum(acc[q]);
+          if (lane == 0 && j0 + q < nu) gdot[b * numax + j0 + q] = tot;
         }
       }
     }
-    PHASE(t, 1);  // phase a
-    cluster.sync();  // barrier 1: the utterance's dgates are in every block
-    PHASE(t, 2);  // barrier 1
-
-    // ---- phase b: one warp per output (own context columns, own units)
-    for (int o = wid; o < ne + Hc; o += NW) {
-      const float* wr = o < ne ? a.wx + (long)(Emb + e0 + o) * G : a.wh + (long)(u0 + o - ne) * G;
-      float acc = 0.0f;
-#pragma unroll 10
-      for (int j = lane; j < H; j += 32) {  // G / 4 = H quads
-        const float4 w = __ldg(reinterpret_cast<const float4*>(wr) + j);
-        const float4 g = reinterpret_cast<const float4*>(dg_s)[j];
-        acc = fmaf(g.x, w.x, fmaf(g.y, w.y, fmaf(g.z, w.z, fmaf(g.w, w.w, acc))));
-      }
-      acc = warp_sum(acc);
-      if (o < ne) {
-        if (lane < CL) *cluster.map_shared_rank(dctx + e0 + o, lane) = acc;
-      } else if (lane == 0) {
-        dhl[o - ne] = acc;
-      }
-    }
-    PHASE(t, 3);  // phase b
-    cluster.sync();  // barrier 2: dctx is in every block
-    PHASE(t, 4);  // barrier 2
-
-    // ---- phase c: own frames
-    float sdot = 0.0f;
-    for (int e = tid; e < E; e += NT) sdot = fmaf(dctx[e], ctx[e], sdot);
-    sdot = block_sum(sdot, red);
-#pragma unroll
-    for (int q = 0; q < CL; ++q) sdot += sd[q];
-    for (int sl = wid; sl < nv; sl += NW) {
-      const float* vs = v_o + (long)sl * E;
-      float acc = 0.0f;
-      for (int e = lane; e < E; e += 32) acc = fmaf(dctx[e], vs[e], acc);
-      acc = warp_sum(acc);
-      if (lane == 0) den[sl] = attt[sl] * (acc + base[sl] - sdot) * a.inv_temp;
-    }
-    PHASE(t, 5);  // the softmax term
-    for (int idx = tid; idx < nv * K; idx += NT) {
-      const int sl = idx / K, kk = idx % K, s = s0 + sl;
-      const int p0 = max(0, half - s), p1 = min(P, len + half - s);
-      const float* tk = tp + kk * P;
-      float acc = 0.0f;
-      for (int p = p0; p < p1; ++p) acc = fmaf(attp[s + p - half], tk[p], acc);
-      f_s[idx] = acc;
-    }
     __syncthreads();
-    PHASE(t, 6);  // conv
-    // pass 1, one warp per frame: dfpre[s, :] = de[s, :] Wlp^T
-    {
-      float* de = dew + wid * Dk;
-      for (int sl = wid; sl < nv; sl += NW) {
-        const int s = s0 + sl;
-        const float* fs = f_s + sl * K;
-        const float* ks = k_o + (long)sl * Dk;
-        const float g_ = den[sl];
-        for (int d = lane; d < Dk; d += 32) {
-          float fp = 0.0f;
-          for (int kk = 0; kk < K; ++kk) fp = fmaf(fs[kk], wl[kk * Dk + d], fp);
-          const float e = tanhf(ks[d] + qb[d] + fp);
-          de[d] = g_ * lv[d] * (1.0f - e * e);
+    for (int x = tid; x < B * nu; x += NT) {
+      const int b = x / nu, jj = x % nu, u = u0 + jj;
+      const long row = (long)t * B + b;
+      const float* ac = a.acts + row * G4;
+      const float ig = ac[u], fg = ac[H + u], gg = ac[2 * H + u], og = ac[3 * H + u];
+      const float tc = tanhf(a.cseq[row * H + u]);
+      const float cp = t > 0 ? a.cseq[(row - B) * H + u] : 0.0f;
+      const float dh = gdot[b * numax + jj] + a.dhidden[row * H + u] + dhl[b * numax + jj];
+      const float dc = dcc[b * numax + jj] + dh * og * (1.0f - tc * tc);
+      float* dg = a.dgates + row * G4 + u;
+      dg[0] = dc * gg * ig * (1.0f - ig);
+      dg[H] = dc * cp * fg * (1.0f - fg);
+      dg[2 * H] = dc * ig * (1.0f - gg * gg);
+      dg[3 * H] = dh * tc * og * (1.0f - og);
+      dcc[b * numax + jj] = dc * fg;
+    }
+    PHASE(t, 1);  // gate stage
+    grid.sync();  // the dgates of every utterance are in global memory
+    PHASE(t, 2);  // grid barrier 1
+
+    // ---- row stage: dctx of the own context columns, dh_lstm of the own
+    // units: [16 utterances, 4H] x [4H, 8 rows] tiles on the tensor cores
+    // (three TF32 products a tile), the k-steps dealt over the warps, the
+    // partial tiles summed in a fixed order, four warps a round
+    for (int ub = 0; ub < B && nr > 0; ub += 16) {
+      const int ksteps = G4 / 8, g8 = lane >> 2, tig = lane & 3;
+      const float* ga = a.dgates + ((long)t * B + ub + g8) * G4;
+      const float* gb = ga + 8L * G4;
+      const bool oka = ub + g8 < B, okb = ub + g8 + 8 < B;
+      for (int n0 = 0; n0 < nr; n0 += 16) {
+        float d[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) d[q] = 0.0f;
+#pragma unroll 4
+        for (int ks = wid; ks < ksteps; ks += NW) {
+          const int ka = ks * 8 + tig, kb = ka + 4;
+          float av[4];
+          av[0] = oka ? __ldcg(ga + ka) : 0.0f;
+          av[1] = okb ? __ldcg(gb + ka) : 0.0f;
+          av[2] = oka ? __ldcg(ga + kb) : 0.0f;
+          av[3] = okb ? __ldcg(gb + kb) : 0.0f;
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int r = n0 + 8 * q + g8;
+            float bv[2];
+            bv[0] = r < nr ? row_weight(a, wr, r, ka, ner, er0, u0) : 0.0f;
+            bv[1] = r < nr ? row_weight(a, wr, r, kb, ner, er0, u0) : 0.0f;
+            mma_3xtf32(d + 4 * q, av, bv);
+          }
         }
-        __syncwarp();
-        for (int kk = 0; kk < K; ++kk) {
-          float acc = 0.0f;
-          for (int d = lane; d < Dk; d += 32) acc = fmaf(wl[kk * Dk + d], de[d], acc);
-          acc = warp_sum(acc);
-          if (lane < CL) *cluster.map_shared_rank(dfa + s * K + kk, lane) = acc;
-          if (lane == CL) a.dfpre[(row * S + s) * K + kk] = acc;
+        for (int rd = 0; rd < NW / 4; ++rd) {
+          if (wid / 4 == rd) {
+            float* slot = tpart + ((wid % 4) * 32 + lane) * 8;
+#pragma unroll
+            for (int q = 0; q < 8; ++q) slot[q] = (rd == 0 ? 0.0f : slot[q]) + d[q];
+          }
+          __syncthreads();
         }
-        __syncwarp();
-      }
-    }
-    for (int idx = tid + nv * K; idx < ns * K; idx += NT) a.dfpre[(row * S + s0) * K + idx] = 0.0f;
-    PHASE(t, 7);  // pass 1
-    // pass 2, one thread per attention column: sums over the own frames
-    for (int d = tid; d < Dk; d += NT) {
-      float dqa = 0.0f;
-      for (int sl = 0; sl < nv; ++sl) {
-        const float* fs = f_s + sl * K;
-        float fp = 0.0f;
-        for (int kk = 0; kk < K; ++kk) fp = fmaf(fs[kk], wl[kk * Dk + d], fp);
-        const float e = tanhf(k_o[(long)sl * Dk + d] + qb[d] + fp);
-        const float g_ = den[sl];
-        const float dev = g_ * lv[d] * (1.0f - e * e);
-        dqa += dev;
-        dlocv_acc = fmaf(e, g_, dlocv_acc);
-        dkacc[sl * Dk + d] += dev;
-        for (int kk = 0; kk < K; ++kk) dwl[kk * Dk + d] = fmaf(fs[kk], dev, dwl[kk * Dk + d]);
-      }
+        for (int x = tid; x < 16 * 16; x += NT) {
+          const int bl = x / 16, cl = x % 16, b = ub + bl, r = n0 + cl;
+          if (b >= B || r >= nr) continue;
+          const int ln = 4 * (bl % 8) + (cl % 8) / 2, q = 4 * (cl / 8) + 2 * (bl / 8) + cl % 2;
+          float v = 0.0f;
 #pragma unroll
-      for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(dqp + rank * Dk + d, q) = dqa;
+          for (int w4 = 0; w4 < 4; ++w4) v += tpart[(w4 * 32 + ln) * 8 + q];
+          if (r < ner) a.dctxg[(long)b * E + er0 + r] = v;
+          else dhl[b * numax + r - ner] = v;
+        }
+        __syncthreads();
+      }
     }
-    PHASE(t, 8);  // pass 2
-    cluster.sync();  // barrier 3: dfpre and the dq partials are in every block
-    PHASE(t, 9);  // barrier 3
+    PHASE(t, 3);  // row stage
+    grid.sync();  // dctx of every utterance is in global memory
+    PHASE(t, 4);  // grid barrier 2
 
-    // ---- phase d
-    for (int d = tid; d < Dk; d += NT) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int q = 0; q < CL; ++q) acc += dqp[q * Dk + d];
-      dq_s[d] = acc;
-      if (rank == 0) a.dq[row * Dk + d] = acc;
-    }
-    for (int idx = tid; idx < nv * K; idx += NT) {
-      const int sl = idx / K, kk = idx % K, j = s0 + sl;
-      // f[s] reads align[j] through tap j - s + half
-      const int sa = max(0, j + half - P + 1), sb = min(len - 1, j + half);
-      const float* tk = tp + kk * P + j + half;
-      float acc = 0.0f;
-      for (int s = sa; s <= sb; ++s) acc = fmaf(dfa[s * K + kk], tk[-s], acc);
-      dattp[idx] = acc;
-    }
-    __syncthreads();
-    {
-      float s_ = 0.0f;
-      if (active) {
-        const float* wr = wq_o + (long)ul * Dk;
-        for (int d = sub; d < Dk; d += KSU) s_ = fmaf(dq_s[d], wr[d], s_);
+    // ---- attention part, each slot
+    for (int i = 0; i < NS; ++i) {
+      const int b = slot_utterance(ord, B, G, c, i);
+      if (b < 0) continue;
+      const long row = (long)t * B + b;
+      const int len = min(max(a.enc_len[b], 0), S);
+      const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
+      const float uni = len > 0 ? 1.0f / (float)len : 0.0f;
+      // k of the own frames into es in the background, where k is not resident
+      const bool kres = i == 0 && a.k_smem, kpref = !kres && a.es_smem;
+      if (kpref)
+        for (int x = tid; x < nv * Dk; x += NT) cp_async4(es + x, a.k + ((long)b * S + s0) * Dk + x);
+      for (int s = tid; s < S; s += NT) attp[s] = t > 0 ? a.align[(row - B) * S + s] : (s < len ? uni : 0.0f);
+      for (int sl = tid; sl < nv; sl += NT) {
+        attt[sl] = a.align[row * S + s0 + sl];
+        base[sl] = a.dalign[row * S + s0 + sl] + datt[i * Sl + sl];
       }
+      for (int d = tid; d < Dk; d += NT) qb[d] = a.qs[row * Dk + d] + a.locb[d];
+      float sdot = 0.0f;
+      for (int e = tid; e < E; e += NT) {
+        const float dce = __ldcg(a.dctxg + (long)b * E + e), ce = a.ctxs[row * E + e];
+        dctx[e] = dce;
+        ctx[e] = ce;
+        sdot = fmaf(dce, ce, sdot);
+      }
+      sdot = block_sum(sdot, red);  // its barriers publish the loads
+      cluster.sync();  // every block's share p2s is readable
+      if (tid < CL) red[NW - CLMAX + tid] = *cluster.map_shared_rank(p2s + i, tid);
+      __syncthreads();
+      for (int q = 0; q < CL; ++q) sdot += red[NW - CLMAX + q];
+      // the softmax term, two own frames a warp
+      const bool vres = i == 0 && a.v_smem;
+      for (int sl = wid; sl < nv; sl += 2 * NW) {
+        const int sl2 = sl + NW;
+        const bool two = sl2 < nv;
+        const float* vr1 = vres ? vs + (long)sl * E : a.v + ((long)b * S + s0 + sl) * E;
+        const float* vr2 = vres ? vs + (long)sl2 * E : a.v + ((long)b * S + s0 + sl2) * E;
+        float acc1 = 0.0f, acc2 = 0.0f;
+#pragma unroll 8
+        for (int e = lane; e < E; e += 32) {
+          const float x = dctx[e];
+          acc1 = fmaf(x, vr1[e], acc1);
+          if (two) acc2 = fmaf(x, vr2[e], acc2);
+        }
+        acc1 = warp_sum(acc1);
+        acc2 = warp_sum(acc2);
+        if (lane == 0) {
+          den[sl] = attt[sl] * (acc1 + base[sl] - sdot) * a.inv_temp;
+          if (two) den[sl2] = attt[sl2] * (acc2 + base[sl2] - sdot) * a.inv_temp;
+        }
+      }
+      PHASE(t, 5);  // the softmax term (with the cluster barrier for the shares)
+      // location features of step t-1's alignment: NSPL threads per (frame,
+      // filter), each a part of the taps
+      for (int x = tid; x < NSPL * nv * K; x += NT) {
+        const int pr = x / NSPL, part = x % NSPL, sl = pr / K, kk = pr % K, s = s0 + sl;
+        const int p0 = max(0, half - s), p1 = min(P, len + half - s), pc = cdiv(p1 - p0, NSPL);
+        const float* tk = tp + kk * P;
+        float acc = 0.0f;
+        for (int p = p0 + part * pc; p < min(p1, p0 + (part + 1) * pc); ++p)
+          acc = fmaf(attp[s + p - half], tk[p], acc);
+        cpart[part * Sl * K + pr] = acc;
+      }
+      cp_async_wait_all();
+      __syncthreads();
+      for (int x = tid; x < nv * K; x += NT) {
+        float acc = 0.0f;
+        for (int part = 0; part < NSPL; ++part) acc += cpart[part * Sl * K + x];
+        fs[x] = acc;
+      }
+      __syncthreads();
+      PHASE(t, 6);  // conv
+      // the tanh energies, rebuilt once: fW = f Wlp on the tensor cores
+      // ([16 frames, K] x [K, 8 units] tiles), then e = tanh(k + q + fW) for
+      // each (frame, unit) of a tile in its lanes' registers; es = e, dk += de
+      const bool dkres = i == 0 && a.dk_smem;
+      float* dkg = a.dk + ((long)b * S + s0) * Dk;
+      const int g8 = lane >> 2, tig = lane & 3;
+      {
+        const int mt = cdiv(nv, 16), nt = cdiv(Dk, 8);
+        for (int item = wid; item < mt * nt; item += NW) {
+          const int m0 = (item / nt) * 16, n0 = (item % nt) * 8;
+          const int ra = m0 + g8, rb = ra + 8, cn = n0 + g8;
+          float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          for (int k0 = 0; k0 < K; k0 += 8) {
+            const int ka = k0 + tig, kb = ka + 4;
+            float av[4], bv[2];
+            av[0] = ra < nv && ka < K ? fs[ra * K + ka] : 0.0f;
+            av[1] = rb < nv && ka < K ? fs[rb * K + ka] : 0.0f;
+            av[2] = ra < nv && kb < K ? fs[ra * K + kb] : 0.0f;
+            av[3] = rb < nv && kb < K ? fs[rb * K + kb] : 0.0f;
+            bv[0] = ka < K && cn < Dk ? wl[ka * Dk + cn] : 0.0f;
+            bv[1] = kb < K && cn < Dk ? wl[kb * Dk + cn] : 0.0f;
+            mma_3xtf32(dacc, av, bv);
+          }
 #pragma unroll
-      for (int o = KSU / 2; o > 0; o >>= 1) s_ += __shfl_down_sync(0xffffffffu, s_, o, KSU);
-      if (owner) dh_c = dhl[ul] + s_;
+          for (int e = 0; e < 4; ++e) {
+            const int sl = e < 2 ? ra : rb, d = n0 + 2 * tig + (e & 1);
+            if (sl < nv && d < Dk) {
+              const int x = sl * Dk + d;
+              const float kv = kres ? ks[x] : kpref ? es[x] : a.k[((long)b * S + s0) * Dk + x];
+              const float ev = tanhf(kv + qb[d] + dacc[e]);
+              es[x] = ev;
+              const float de = den[sl] * lv[d] * (1.0f - ev * ev);
+              if (dkres) dks[x] += de;
+              else dkg[x] += de;
+            }
+          }
+        }
+      }
+      __syncthreads();
+      PHASE(t, 7);  // energies
+      // dq and dlocv over the own frames: one thread per attention unit; es
+      // turns from e into de in place
+      for (int d = tid; d < Dk; d += NT) {
+        const float lvd = lv[d];
+        float dqa = 0.0f, dl = 0.0f;
+#pragma unroll 4
+        for (int sl = 0; sl < nv; ++sl) {
+          const float e = es[sl * Dk + d], g = den[sl];
+          const float de = g * lvd * (1.0f - e * e);
+          es[sl * Dk + d] = de;
+          dqa += de;
+          dl = fmaf(e, g, dl);
+        }
+        dqp[d] = dqa;
+        dloc += dl;
+      }
+      __syncthreads();
+      PHASE(t, 8);  // reductions over the frames
+      // dWlp += f^T de ([16 filters, frames] x [frames, 8 units] tiles) and
+      // dfpre = de Wlp^T ([16 frames, Dk] x [Dk, 8 filters] tiles) on the
+      // tensor cores, one tile a warp
+      {
+        const int mtw = cdiv(K, 16), ntw = cdiv(Dk, 8), mtf = cdiv(nv, 16), ntf = cdiv(K, 8);
+        for (int item = wid; item < mtw * ntw + mtf * ntf; item += NW) {
+          float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          float av[4], bv[2];
+          if (item < mtw * ntw) {
+            const int m0 = (item / ntw) * 16, n0 = (item % ntw) * 8;  // filters x units
+            const int ra = m0 + g8, rb = ra + 8, cn = n0 + g8;
+            for (int k0 = 0; k0 < nv; k0 += 8) {  // over the own frames
+              const int ka = k0 + tig, kb = ka + 4;
+              av[0] = ra < K && ka < nv ? fs[ka * K + ra] : 0.0f;
+              av[1] = rb < K && ka < nv ? fs[ka * K + rb] : 0.0f;
+              av[2] = ra < K && kb < nv ? fs[kb * K + ra] : 0.0f;
+              av[3] = rb < K && kb < nv ? fs[kb * K + rb] : 0.0f;
+              bv[0] = ka < nv && cn < Dk ? es[ka * Dk + cn] : 0.0f;
+              bv[1] = kb < nv && cn < Dk ? es[kb * Dk + cn] : 0.0f;
+              mma_3xtf32(dacc, av, bv);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kk = e < 2 ? ra : rb, d = n0 + 2 * tig + (e & 1);
+              if (kk < K && d < Dk) dwl[kk * Dk + d] += dacc[e];
+            }
+          } else {
+            const int it2 = item - mtw * ntw;
+            const int m0 = (it2 / ntf) * 16, n0 = (it2 % ntf) * 8;  // frames x filters
+            const int ra = m0 + g8, rb = ra + 8, cn = n0 + g8;
+            for (int k0 = 0; k0 < Dk; k0 += 8) {  // over the attention units
+              const int ka = k0 + tig, kb = ka + 4;
+              av[0] = ra < nv && ka < Dk ? es[ra * Dk + ka] : 0.0f;
+              av[1] = rb < nv && ka < Dk ? es[rb * Dk + ka] : 0.0f;
+              av[2] = ra < nv && kb < Dk ? es[ra * Dk + kb] : 0.0f;
+              av[3] = rb < nv && kb < Dk ? es[rb * Dk + kb] : 0.0f;
+              bv[0] = ka < Dk && cn < K ? wl[cn * Dk + ka] : 0.0f;
+              bv[1] = kb < Dk && cn < K ? wl[cn * Dk + kb] : 0.0f;
+              mma_3xtf32(dacc, av, bv);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int sl = e < 2 ? ra : rb, kk = n0 + 2 * tig + (e & 1);
+              if (sl < nv && kk < K) {
+                dfo[sl * K + kk] = dacc[e];
+                a.dfpre[(row * S + s0 + sl) * K + kk] = dacc[e];
+              }
+            }
+          }
+        }
+      }
+      // frames past the length: zero, split statically over the blocks
+      for (int x = max(len, rank * Sl) * K + tid; x < min(S, (rank + 1) * Sl) * K; x += NT)
+        a.dfpre[row * S * K + x] = 0.0f;
+      PHASE(t, 9);  // dfpre
+      cluster.sync();  // dq partials and dfpre of all frames are readable
+      PHASE(t, 10);  // cluster barrier
+      for (int d = d0 + tid; d < d0 + ndk; d += NT) {
+        float pv[CLMAX];  // the blocks' partials, all loads in flight
+#pragma unroll
+        for (int q = 0; q < CLMAX; ++q) pv[q] = q < CL ? *cluster.map_shared_rank(dqp + d, q) : 0.0f;
+        float acc = 0.0f;
+#pragma unroll
+        for (int q = 0; q < CLMAX; ++q) acc += pv[q];
+        a.dq[row * Dk + d] = acc;
+      }
+      for (int x = tid; x < len * K; x += NT) {
+        const int s = x / K, q = s / Sb;
+        dfa[x] = *cluster.map_shared_rank(dfo + (s - q * Sb) * K + x % K, q);
+      }
+      __syncthreads();
+      // dalign_carry[jf] = sum_kk sum_s dfpre[s, kk] taps[kk, jf - s + half]:
+      // NSPL threads per (own frame, filter), each a part of the window
+      for (int x = tid; x < NSPL * nv * K; x += NT) {
+        const int pr = x / NSPL, part = x % NSPL, sl = pr / K, kk = pr % K, jf = s0 + sl;
+        const int sa = max(0, jf + half - P + 1), sb = min(len - 1, jf + half) + 1, sc_ = cdiv(sb - sa, NSPL);
+        const float* tk = tp + kk * P + jf + half;
+        float acc = 0.0f;
+        for (int s = sa + part * sc_; s < min(sb, sa + (part + 1) * sc_); ++s)
+          acc = fmaf(dfa[s * K + kk], tk[-s], acc);
+        cpart[part * Sl * K + pr] = acc;
+      }
+      __syncthreads();
+      for (int sl = tid; sl < Sl; sl += NT) {
+        float acc = 0.0f;
+        if (sl < nv)
+          for (int kk = 0; kk < K; ++kk)
+            for (int part = 0; part < NSPL; ++part) acc += cpart[part * Sl * K + sl * K + kk];
+        datt[i * Sl + sl] = acc;
+      }
+      __syncthreads();
+      // the own share of <dalign_up + carry, align> of step t-1
+      if (t > 0) {
+        float p2 = 0.0f;
+        for (int sl = tid; sl < nv; sl += NT) {
+          const long o = (row - B) * S + s0 + sl;
+          p2 = fmaf(a.dalign[o] + datt[i * Sl + sl], a.align[o], p2);
+        }
+        p2 = block_sum(p2, red);
+        if (tid == 0) p2s[i] = p2;
+      }
+      PHASE(t, 11);  // pulls, transposed conv
     }
-    for (int sl = tid; sl < ns; sl += NT) {
-      float acc = 0.0f;
-      if (sl < nv)
-        for (int kk = 0; kk < K; ++kk) acc += dattp[sl * K + kk];
-      datt[sl] = acc;
-    }
-    __syncthreads();
-    PHASE(t, 10);  // phase d
+    grid.sync();  // dq of every utterance is in global memory
+    PHASE(t, 12);  // grid barrier 3
   }
 
-  if (a.dk_smem) {
+  for (int i = 0; i < NS; ++i) {
+    const int b = slot_utterance(ord, B, G, c, i);
+    if (b < 0 || i != 0 || !a.dk_smem) continue;
+    const int len = min(max(a.enc_len[b], 0), S);
+    const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
     float* out = a.dk + ((long)b * S + s0) * Dk;
-    for (int i = tid; i < ns * Dk; i += NT) out[i] = dkacc[i];
+    for (int x = tid; x < nv * Dk; x += NT) out[x] = dks[x];
   }
-  for (int d = tid; d < Dk; d += NT) a.dlocv_part[((long)b * CL + rank) * Dk + d] = dlocv_acc;
-  for (int i = tid; i < K * Dk; i += NT) a.dwlp_part[((long)b * CL + rank) * K * Dk + i] = dwl[i];
-  cluster.sync();  // no block exits while another may still write into it
+  for (int d = tid; d < Dk; d += NT) a.dlocv_part[(long)j * Dk + d] = dloc;
+  for (int i = tid; i < K * Dk; i += NT) a.dwlp_part[(long)j * K * Dk + i] = dwl[i];
+}
+
+// a cooperative launch of G clusters with smem bytes of shared memory a block
+cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* at, int G, int CL,
+                          size_t smem, cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3(G * CL);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CL;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  return cudaFuncSetAttribute(decoder_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
 
 extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// out[0] = the clusters of cl blocks of the backward kernel that can be
+// resident at once with smem bytes of dynamic shared memory a block
+extern "C" int e2e_decoder_scan_bwd_clusters(int cl, int smem, int* out, void* stream) {
+  if (cl < 1 || cl > CLMAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at[2];
+  cudaError_t e = launch_config(cfg, at, 1, cl, (size_t)smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  cfg.numAttrs = 1;  // the query takes the cluster shape
+  return (int)cudaOccupancyMaxActiveClusters(out, (void*)decoder_scan_bwd_kernel, &cfg);
 }
 
 // out [PH_STEPS * PH_SLOTS] u64: the timing build's phase marks of the last
@@ -432,35 +776,34 @@ extern "C" int e2e_decoder_scan_phase_times(unsigned long long* out, int n, void
 // align [L, B, S], cseq [L, B, H], acts [L, B, 4H], qs [L, B, Dk], ctxs [L, B, E];
 // cotangents dlogits [L, B, V], dalign [L, B, S], dhidden [L, B, H]
 // -> dgates [L, B, 4H], dq [L, B, Dk], dfpre [L, B, S, K], dk [B, S, Dk],
-// dwlp_part [B, 8, K, Dk], dlocv_part [B, 8, Dk]. All f32, contiguous. H a
-// multiple of 8 up to 512, Dk up to 512, P odd.
+// dwlp_part [G CL, K, Dk], dlocv_part [G CL, Dk]; scratch dctxg [B, E] and
+// scratch [G CL, ceil(S / CL) Dk + S K]. All f32, contiguous. H a multiple of 8 up to 512, Dk up to 512, P odd. G
+// clusters of CL blocks (all resident: the cooperative launch fails
+// otherwise); the flags say what lives in shared memory.
 extern "C" int e2e_decoder_scan_bwd(
     const float* k, const float* v, const int* enc_len, const float* taps, const float* wq,
     const float* wlp, const float* locv, const float* locb, const float* wx, const float* wh,
     const float* wout, const float* align, const float* cseq, const float* acts, const float* qs,
     const float* ctxs, const float* dlogits, const float* dalign, const float* dhidden,
-    float* dgates, float* dq, float* dfpre, float* dk, float* dwlp_part, float* dlocv_part, int B,
-    int S, int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp,
-    void* stream) {
-  if (H % CL != 0 || H / CL * KSU > NT || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1)
+    float* dgates, float* dq, float* dfpre, float* dk, float* dwlp_part, float* dlocv_part,
+    float* dctxg, float* scratch, int B, int S, int Dk, int E, int K, int P, int H, int Emb, int V,
+    int L, float inv_temp, int G, int CL, int es_smem, int dfa_smem, int wr_smem, int dk_smem,
+    int k_smem, int v_smem, void* stream) {
+  if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
+      CL < 1 || CL > CLMAX)
     return (int)cudaErrorInvalidValue;
-  size_t smem = sizeof(float) * bwd_smem_floats(S, Dk, E, K, P, H);
-  // residents, in order of the reads they save per byte: dk (read and written
-  // every step), k (read twice a step), v, Wq
-  const size_t sl = (size_t)cdiv(S, CL);
-  const size_t want[4] = {sizeof(float) * sl * Dk, sizeof(float) * sl * Dk, sizeof(float) * sl * E,
-                          sizeof(float) * (size_t)(H / CL) * Dk};
-  int fit[4];
-  for (int i = 0; i < 4; ++i) {
-    fit[i] = smem + want[i] <= SMEM_MAX;
-    if (fit[i]) smem += want[i];
-  }
-  cudaError_t e = cudaFuncSetAttribute(decoder_scan_bwd_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int NS = cdiv(B, G);
+  const BwdLayout ly = bwd_layout(B, S, Dk, E, K, P, H, G, CL, NS, es_smem, dfa_smem, wr_smem, dk_smem,
+                                  k_smem, v_smem);
+  const size_t smem = sizeof(float) * ly.total;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at[2];
+  cudaError_t e = launch_config(cfg, at, G, CL, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   BwdArgs a{k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, cseq, acts, qs, ctxs,
-            dlogits, dalign, dhidden, dgates, dq, dfpre, dk, dwlp_part, dlocv_part,
-            B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, fit[0], fit[1], fit[2], fit[3]};
-  decoder_scan_bwd_kernel<<<B * CL, NT, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+            dlogits, dalign, dhidden, dgates, dq, dfpre, dk, dwlp_part, dlocv_part, dctxg, scratch,
+            B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, G, CL, NS, es_smem, dfa_smem, wr_smem, dk_smem,
+            k_smem, v_smem};
+  return (int)cudaLaunchKernelEx(&cfg, decoder_scan_bwd_kernel, a);
 }

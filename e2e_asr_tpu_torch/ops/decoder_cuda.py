@@ -44,12 +44,19 @@ distribution is the same (Gumbel-max), the numbers are not. Teacher-forced
 and argmax feedback are comparable value for value.
 
 The kernels take H a multiple of 8 up to 512, Dk up to 512, any S, L, V,
-E, Emb, K and odd P; one thread-block cluster of 8 blocks per utterance.
+E, Emb, K and odd P. Each runs as a persistent grid of G co-resident
+clusters of 8 blocks (a cooperative launch; G is what
+cudaOccupancyMaxActiveClusters allows, 15 on a 132-SM H100 at one block
+an SM): the cell's weights are split by hidden unit over all 8G blocks
+(``unit_split``) and held in shared memory for the whole launch, and each
+cluster walks ceil(B / G) utterances for the attention part. ``fwd_plan``
+and ``bwd_plan`` decide what else fits in a block's shared memory.
 """
 
 from __future__ import annotations
 
 import math
+import subprocess
 from typing import Optional, Tuple
 
 import torch
@@ -58,9 +65,138 @@ import torch.nn.functional as F
 from e2e_asr_tpu_torch import cuda_build
 from e2e_asr_tpu_torch.ops.att_step_cuda import NEG, location_features
 
-CL = 8  # blocks per cluster in both kernels (partials of dWlp / dlocv per block)
+CL = 8  # blocks per cluster, at most (the portable cluster size)
+CLUSTER_SIZES = (8, 7, 6, 5, 4)  # the sizes scan_grid weighs
+SLOT_COST = 10  # an utterance slot's fixed cost, in frames a block, for that choice
+NT, NW = 512, 16  # threads and warps per block
 MAX_H = 512
 MAX_DK = 512
+SMEM_MAX = 227 * 1024  # shared memory a block may use on the H100
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def unit_split(h_dim: int, nblocks: int):
+    """[(u0, nu)] for each of ``nblocks`` blocks: block j owns the hidden
+    units [u0, u0 + nu), the first h_dim % nblocks blocks one more (the
+    kernels' ``unit_range`` / ``split_range``)."""
+    base, rem = divmod(h_dim, nblocks)
+    return [(j * base + min(j, rem), base + (1 if j < rem else 0)) for j in range(nblocks)]
+
+
+def gate_columns(h_dim: int, u0: int, nu: int):
+    """The columns of the gate product (i, f, g, o blocks of width H) that a
+    block owning units [u0, u0 + nu) computes: its units' four gates."""
+    return [g * h_dim + u for g in range(4) for u in range(u0, u0 + nu)]
+
+
+def _greedy(base: int, optional):
+    """Residents in order of priority, each taken while the block's shared
+    memory (floats) stays within SMEM_MAX: (bytes, {name: 0/1})."""
+    if 4 * base > SMEM_MAX:
+        raise ValueError(f"the fused scan needs {4 * base} bytes of shared memory a block beyond "
+                         f"its residents, above {SMEM_MAX}")
+    total, flags = base, {}
+    for name, n in optional:
+        flags[name] = int(4 * (total + n) <= SMEM_MAX)
+        total += n * flags[name]
+    return 4 * total, flags
+
+
+def fwd_plan(nblocks: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, h_dim: int,
+             vocab: int, cl: int = CL):
+    """Shared memory of the forward kernel on a grid of ``nblocks`` blocks in
+    clusters of ``cl`` (csrc/decoder_scan.cu ``fwd_layout``): (bytes, flags).
+    Residents in order: the partial contexts of the utterance slots (in the
+    launch's scratch in global memory where they do not fit), the block's
+    gate weights [4u, E + H], v, its Wq columns, its Wout columns, k (v and
+    k: the first utterance slot's own frames)."""
+    ns = _cdiv(b, nblocks // cl)
+    numax = _cdiv(h_dim, nblocks)
+    sl, dkc, vc = _cdiv(s, cl), _cdiv(dk, cl), _cdiv(vocab, cl)
+    base = (ns * (s + sl + 2 + dkc + 2) + 2 * dk + kk * dk + sl * kk + h_dim + vc
+            + 4 * 32 * 8 + 16 * 4 * numax + b * numax + NW + 3 * CL + b + kk * p + 4 * sl * kk + max(NT, vc + dkc)
+            + NW * _cdiv(sl, 16) * 16)
+    return _greedy(base, (("ctxp_smem", ns * e_dim), ("w_smem", 4 * numax * (e_dim + h_dim + 4)), ("v_smem", sl * e_dim),
+                          ("wq_smem", dkc * h_dim), ("wo_smem", vc * h_dim), ("k_smem", sl * dk)))
+
+
+def bwd_plan(nblocks: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, h_dim: int,
+             cl: int = CL):
+    """Shared memory of the backward kernel (csrc/decoder_scan_bwd.cu
+    ``bwd_layout``): (bytes, flags). Residents in order: the block's rows of
+    Wx[Emb:] and Wh [rows, 4H], dk, k, v (the last three for the first
+    utterance slot's own frames), after the two working buffers, the rebuilt
+    energies of the own frames and dfpre of all frames (in the launch's
+    scratch in global memory where they do not fit)."""
+    ns = _cdiv(b, nblocks // cl)
+    numax = _cdiv(h_dim, nblocks)
+    nrmax = _cdiv(e_dim, nblocks) + numax
+    sl = _cdiv(s, cl)
+    base = (s + 3 * sl + 2 * sl * kk + 2 * e_dim + 3 * dk + 2 * kk * dk
+            + ns * sl + ns + 3 * b * numax + NW + b + kk * p + 4 * sl * kk + 4 * 32 * 8)
+    return _greedy(base, (("es_smem", sl * dk), ("dfa_smem", s * kk), ("wr_smem", nrmax * (4 * h_dim + 4)), ("dk_smem", sl * dk), ("k_smem", sl * dk),
+                          ("v_smem", sl * e_dim)))
+
+
+_clusters = {}
+
+
+def resident_clusters(which: str, cl: int = CL, smem: int = SMEM_MAX) -> int:
+    """How many clusters of ``cl`` blocks of kernel ``which`` ("fwd" or
+    "bwd") can be resident at once with ``smem`` bytes of shared memory a
+    block (cudaOccupancyMaxActiveClusters; card only)."""
+    key = (which, cl, smem, torch.cuda.current_device())
+    if key not in _clusters:
+        out = torch.zeros(1, dtype=torch.int32)
+        name = "decoder_scan" if which == "fwd" else "decoder_scan_bwd"
+        cuda_build.launch(name, f"e2e_decoder_scan_{which}_clusters", cl, smem, out)
+        _clusters[key] = int(out[0])
+    return _clusters[key]
+
+
+def pick_cluster_size(b: int, s: int, resident) -> int:
+    """The cluster size for B utterances of S frames, given ``resident(cl)``
+    = the clusters of that size that fit: the fewest slots x (frames a block
+    + SLOT_COST), larger clusters first on a tie. On an H100 at one block an
+    SM (15, 15, 17, 22, 30 clusters of 8, 7, 6, 5, 4) that is 6 for B = 16,
+    where 8 would leave one cluster two utterances."""
+    def cost(cl):
+        g = resident(cl)
+        return float("inf") if g < 1 else _cdiv(b, g) * (_cdiv(s, cl) + SLOT_COST)
+    return min(CLUSTER_SIZES, key=lambda cl: (cost(cl), -cl))
+
+
+def scan_grid(which: str, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, h_dim: int,
+              vocab: int, cluster_size: Optional[int] = None):
+    """The grid a launch of kernel ``which`` uses at these shapes: G clusters
+    of CL blocks (all that can be resident, CL from ``pick_cluster_size``),
+    the shared memory a block and the residents (``cluster_size`` overrides
+    the pick). Raises when the planned grid cannot be resident: a cooperative
+    grid that does not fit would not run."""
+    def plan(cl):
+        nb = resident_clusters(which, cl) * cl
+        return (fwd_plan(nb, b, s, dk, e_dim, kk, p, h_dim, vocab, cl) if which == "fwd"
+                else bwd_plan(nb, b, s, dk, e_dim, kk, p, h_dim, cl))
+
+    def fits_plan(cl):
+        try:
+            return resident_clusters(which, cl) >= 1 and plan(cl) is not None
+        except ValueError:
+            return False
+
+    cl = cluster_size or pick_cluster_size(b, s, lambda c: resident_clusters(which, c) if fits_plan(c) else 0)
+    g = resident_clusters(which, cl)
+    if g < 1 or not fits_plan(cl):
+        raise RuntimeError(f"decoder_scan_{which}: no grid of clusters fits on this card at these shapes")
+    nb = g * cl
+    smem, flags = plan(cl)
+    if resident_clusters(which, cl, smem) < g:
+        raise RuntimeError(f"decoder_scan_{which}: {g} clusters with {smem} bytes of shared memory a "
+                           "block cannot be resident at once")
+    return dict(clusters=g, cluster_size=cl, blocks=nb, slots=_cdiv(b, g), smem=smem, **flags)
 
 
 def supported(cfg, train: bool) -> bool:
@@ -190,7 +326,7 @@ def decoder_scan_fwd(
 
 
 def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout,
-                bout, teacher, use_teacher, temp, sample, seed):
+                bout, teacher, use_teacher, temp, sample, seed, cluster_size=None):
     """Checks, allocates and launches the forward kernel of the library
     built with ``defines``."""
     fl = [a.contiguous() for a in (k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout)]
@@ -203,17 +339,23 @@ def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx
            ((enc_len, "enc_len"), (teacher, "teacher"), (use_i, "use_teacher")))
     b, s, dk, e_dim, kk, p, h_dim, vocab, emb, l = _dims(
         "decoder_scan_fwd", k, v, taps, wq, wlp, embed, wx, wh, wout, teacher)
+    grid = scan_grid("fwd", b, s, dk, e_dim, kk, p, h_dim, vocab, cluster_size)
     dev = k.device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     logits, align, hidden, cseq = new(l, b, vocab), new(l, b, s), new(l, b, h_dim), new(l, b, h_dim)
     acts, qs, ctxs = new(l, b, 4 * h_dim), new(l, b, dk), new(l, b, e_dim)
     tokens = torch.empty((l, b), dtype=torch.int32, device=dev)
+    ew = new(vocab, 4 * h_dim)  # scratch: embed Wx[:Emb] + bl
+    scratch = new(1) if grid["ctxp_smem"] else new(grid["blocks"], grid["slots"], e_dim)
     seed = int(seed)
     cuda_build.launch(
         "decoder_scan", "e2e_decoder_scan_fwd", k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed,
-        wx, wh, bl, wout, bout, teacher, use_i, logits, align, hidden, cseq, tokens, acts, qs, ctxs,
+        wx, wh, bl, wout, bout, teacher, use_i, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew,
+        scratch,
         b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)),
-        seed & 0x7FFFFFFF, (seed >> 31) & 0x7FFFFFFF, defines=defines,
+        seed & 0x7FFFFFFF, (seed >> 31) & 0x7FFFFFFF, grid["clusters"], grid["cluster_size"],
+        grid["ctxp_smem"], grid["w_smem"],
+        grid["wq_smem"], grid["wo_smem"], grid["k_smem"], grid["v_smem"], defines=defines,
     )
     return logits, align, hidden, (cseq, tokens, acts, qs, ctxs)
 
@@ -325,7 +467,7 @@ def decoder_scan_bwd(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
 
 
 def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
-                cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp):
+                cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp, cluster_size=None):
     """Checks, allocates and launches the backward kernel of the library
     built with ``defines``; sums the per-block partials."""
     fl = [a.contiguous() for a in (k, v, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
@@ -352,18 +494,25 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
                          (dhidden, "dhidden", (l, b, h_dim))):
         if a.shape != shape:
             raise ValueError(f"decoder_scan_bwd: {an} {tuple(a.shape)} != {shape}")
+    grid = scan_grid("bwd", b, s, dk_dim, e_dim, kk, p, h_dim, vocab, cluster_size)
     dev = k.device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     dgates, dq, dfpre = new(l, b, 4 * h_dim), new(l, b, dk_dim), new(l, b, s, kk)
     dk = new(b, s, dk_dim)
-    dwlp_part, dlocv_part = new(b, CL, kk, dk_dim), new(b, CL, dk_dim)
+    nb = grid["blocks"]
+    dwlp_part, dlocv_part = new(nb, kk, dk_dim), new(nb, dk_dim)
+    dctx = new(b, e_dim)  # scratch: dctx of the step
+    cl = grid["cluster_size"]
+    scratch = new(1) if grid["es_smem"] and grid["dfa_smem"] else new(nb, _cdiv(s, cl) * dk_dim + s * kk)
     cuda_build.launch(
         "decoder_scan_bwd", "e2e_decoder_scan_bwd", k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh,
         wout, align, cseq, acts, qs, ctxs, dlogits, dalign, dhidden, dgates, dq, dfpre, dk,
-        dwlp_part, dlocv_part, b, s, dk_dim, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp),
-        defines=defines,
+        dwlp_part, dlocv_part, dctx, scratch, b, s, dk_dim, e_dim, kk, p, h_dim, emb, vocab, l,
+        1.0 / float(temp), grid["clusters"], grid["cluster_size"], grid["es_smem"], grid["dfa_smem"],
+        grid["wr_smem"], grid["dk_smem"], grid["k_smem"],
+        grid["v_smem"], defines=defines,
     )
-    return dgates, dq, dfpre, dk, dwlp_part.sum(dim=(0, 1)), dlocv_part.sum(dim=(0, 1))
+    return dgates, dq, dfpre, dk, dwlp_part.sum(dim=0), dlocv_part.sum(dim=0)
 
 
 decoder_scan_bwd.launches = 0
@@ -372,13 +521,30 @@ decoder_scan_bwd.launches = 0
 # ---------------------------------------------------------------- phase split
 PHASE_BUILD = ("SCAN_PHASES",)  # the define of the kernels' timing build
 PHASE_VARIANTS = (("decoder_scan", PHASE_BUILD), ("decoder_scan_bwd", PHASE_BUILD))
-PH_STEPS, PH_SLOTS = 512, 16  # csrc: steps recorded, marks per step
+PH_STEPS, PH_SLOTS = 512, 24  # csrc: steps recorded, marks per step
 # the phases between consecutive marks of one step, in order (csrc PHASE(t, i))
-FWD_PHASES = ("q sum", "conv", "energies", "softmax and the align push", "context partial and push",
-              "barrier 1", "combine", "gate product", "cell update and h' push", "q part and push",
-              "barrier 2", "logits and argmax")
-BWD_PHASES = ("phase a", "barrier 1", "phase b", "barrier 2", "the softmax term", "conv", "pass 1",
-              "pass 2", "barrier 3", "phase d")
+FWD_PHASES = ("q pull and token", "conv", "energies", "softmax", "context partial",
+              "cluster barrier 1", "combine", "grid barrier 1", "gate product and cell update",
+              "grid barrier 2", "logits, argmax and q slice", "cluster barrier 2")
+BWD_PHASES = ("gate stage", "grid barrier 1", "row stage", "grid barrier 2",
+              "loads, cluster barrier and the softmax term", "conv", "energies",
+              "reductions over frames", "dfpre", "cluster barrier", "pulls and transposed conv",
+              "grid barrier 3")
+# warp 0 of block 0 inside the forward's gate product: (name, mark from, mark to)
+FWD_DETAIL = (("gate tiles on the tensor cores (warp 0)", 8, 13),
+              ("to the gate sums (thread 0)", 13, 14), ("cell update (thread 0)", 14, 15))
+# latency probes of the forward's timing build, SM cycles of one load: slot
+FWD_PROBES = (("cycles: load of ctx written this step (ld.cg)", 16),
+              ("cycles: load of a weight (ld.global.nc)", 17), ("cycles: load of k", 18))
+
+
+def sm_clock_mhz() -> float:
+    """The card's SM clock under load (nvidia-smi's clocks.max.sm, the clock
+    the timing build's cycle counts are converted at; the H100 holds it at
+    its power limit while the scan runs)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()
+    return float(out[0])
 
 
 def scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens):
@@ -396,27 +562,35 @@ def scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens):
             torch.randint(0, v, (l, b), generator=gen, device=dev, dtype=torch.int32))
 
 
-def _phase_means(name: str, l: int, names) -> dict:
+def _phase_means(name: str, l: int, names, detail=(), probes=()) -> dict:
     """Mean us per phase over the L steps of the last launch of the timing
-    build of ``name``."""
+    build of ``name`` (marks in SM cycles, at the card's SM clock);
+    ``detail``: (name, mark from, mark to) spans besides; ``probes``: (name,
+    slot) values in cycles."""
     out = torch.zeros(PH_STEPS * PH_SLOTS, dtype=torch.int64, device="cuda")
     cuda_build.launch(name, "e2e_decoder_scan_phase_times", out, out.numel(), defines=PHASE_BUILD)
-    marks = out.view(PH_STEPS, PH_SLOTS)[:min(l, PH_STEPS), :len(names) + 1].double()
-    dur = (marks[:, 1:] - marks[:, :-1]).mean(0) / 1e3
-    return {nm: float(x) for nm, x in zip(names, dur)}
+    marks = out.view(PH_STEPS, PH_SLOTS)[:min(l, PH_STEPS)].double()
+    per_us = sm_clock_mhz()
+    dur = (marks[:, 1:len(names) + 1] - marks[:, :len(names)]).mean(0) / per_us
+    res = {nm: float(x) for nm, x in zip(names, dur)}
+    spans = {nm: float((marks[:, m1] - marks[:, m0]).mean() / per_us) for nm, m0, m1 in detail}
+    spans.update({nm: float(marks[:, m].mean()) for nm, m in probes})
+    return res, spans
 
 
-def scan_phase_split(args, use_teacher, temp: float, cots=None):
+def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=None):
     """The per-phase split of one step of each scan kernel (timing build:
-    block 0 marks %globaltimer at every phase boundary of every step), on
+    block 0 marks its SM's clock at every phase boundary of every step), on
     the card. ``args`` as ``scan_inputs``; ``cots`` the cotangents of
     (logits, align, hidden) for the backward (random if None). Returns
     {"fwd": {phase: mean us per step}, "bwd": {...}, "fwd_ms", "bwd_ms": the
-    timing build's whole-launch times}. Launch counters are not touched."""
+    timing build's whole-launch times, "fwd_ms_normal", "bwd_ms_normal": the
+    normal build's, "fwd_detail": spans inside the gate product}. Launch
+    counters are not touched."""
     k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout, teacher = args
     l = teacher.shape[0]
     res = {}
-    fwd = lambda: _fwd_launch(PHASE_BUILD, *args, use_teacher, temp, False, 0)
+    fwd = lambda: _fwd_launch(PHASE_BUILD, *args, use_teacher, temp, False, 0, cluster_size)
     logits, align, hidden, (cseq, _, acts, qs, ctxs) = fwd()  # builds the variant, warms up
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -426,14 +600,14 @@ def scan_phase_split(args, use_teacher, temp: float, cots=None):
     t1.record()
     torch.cuda.synchronize()
     res["fwd_ms"] = t0.elapsed_time(t1)
-    res["fwd"] = _phase_means("decoder_scan", l, FWD_PHASES)
+    res["fwd"], res["fwd_detail"] = _phase_means("decoder_scan", l, FWD_PHASES, FWD_DETAIL, FWD_PROBES)
     if cots is None:
         g = torch.Generator(device=k.device)
         g.manual_seed(0)
         cots = [torch.randn(o.shape, generator=g, device=k.device) / math.sqrt(o.shape[-1])
                 for o in (logits, align, hidden)]
     bwd = lambda: _bwd_launch(PHASE_BUILD, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
-                              align, hidden, cseq, acts, qs, ctxs, *cots, temp)
+                              align, hidden, cseq, acts, qs, ctxs, *cots, temp, cluster_size)
     bwd()
     torch.cuda.synchronize()
     t0.record()
@@ -441,7 +615,19 @@ def scan_phase_split(args, use_teacher, temp: float, cots=None):
     t1.record()
     torch.cuda.synchronize()
     res["bwd_ms"] = t0.elapsed_time(t1)
-    res["bwd"] = _phase_means("decoder_scan_bwd", l, BWD_PHASES)
+    res["bwd"], _ = _phase_means("decoder_scan_bwd", l, BWD_PHASES)
+    for w, fn in (("fwd", lambda: _fwd_launch((), *args, use_teacher, temp, False, 0, cluster_size)),
+                  ("bwd", lambda: _bwd_launch((), k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
+                                              align, hidden, cseq, acts, qs, ctxs, *cots, temp,
+                                              cluster_size))):
+        fn()
+        torch.cuda.synchronize()
+        t0.record()
+        for _ in range(3):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        res[f"{w}_ms_normal"] = t0.elapsed_time(t1) / 3
     return res
 
 

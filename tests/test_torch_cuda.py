@@ -6,7 +6,10 @@ a multiple of the block size, B = 1, CTC rows with no alignment and with no
 labels; the lstm_seq pair with one and two directions, prefix and suffix
 masks, B = 33; the fused speller scan at Dk 8 to 300, H 8 to 320, S = 1, 7
 and 764, L = 1, B = 1 and 33, in its three feedback modes, its backward
-sweep and its autograd function. Marked ``cuda``: they skip without a card. Run on the card with
+sweep and its autograd function, at flagship widths with B = 40 (more
+utterances than resident clusters), with H = 8 (most blocks of the grid own
+no hidden unit), at S = 3000 (the backward's working buffers in global
+memory), and twice on the same inputs (bitwise equal). Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
@@ -254,6 +257,9 @@ SCAN_SHAPES = [
     (2, 61, 300, 96, 10, 201, 320, 40, 31, 6),
     (33, 30, 128, 64, 8, 65, 256, 32, 70, 3),
     (2, 764, 300, 64, 10, 201, 320, 32, 31, 2),
+    (40, 61, 300, 640, 10, 201, 320, 320, 26, 3),  # flagship widths, B above the resident clusters
+    (5, 13, 24, 32, 3, 7, 8, 16, 11, 5),  # H = 8: most blocks of the grid own no hidden unit
+    (2, 3000, 256, 64, 4, 31, 64, 16, 9, 2),  # the backward's working buffers in global memory
 ]
 
 
@@ -317,3 +323,23 @@ def test_decoder_scan_bwd_kernel(gen, shape):
     got = grads(dc.decoder_scan)
     for g, w in zip(got, want):
         _close_scaled(g, w, 1e-4)
+
+
+def test_decoder_scan_kernels_repeat_bitwise(gen):
+    """Two launches of each scan kernel on the same inputs give bitwise-equal
+    outputs: no atomics, every sum in a fixed order."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    shape = (16, 61, 300, 640, 10, 201, 320, 320, 26, 6)
+    args = _scan_args(gen, *shape)
+    use = torch.zeros(shape[-1], dtype=torch.bool)
+    first, second = (dc.decoder_scan_fwd(*args, use, 0.5, True, 7) for _ in range(2))
+    for g, w in zip((*first[:3], *first[3]), (*second[:3], *second[3])):
+        assert torch.equal(g, w)
+    logits, align, hidden, (cseq, tokens, acts, qs, ctxs) = first
+    k, vv, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout, teacher = args
+    cots = [torch.randn(o.shape, generator=gen, device="cuda") for o in (logits, align, hidden)]
+    bargs = (k, vv, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs,
+             ctxs, *cots, 0.5)
+    for g, w in zip(dc.decoder_scan_bwd(*bargs), dc.decoder_scan_bwd(*bargs)):
+        assert torch.equal(g, w)

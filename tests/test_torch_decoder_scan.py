@@ -299,3 +299,44 @@ def test_sampled_feedback_draws_valid_ids():
     noise[:, :, 4] = 100.0
     fed = dc.decoder_scan_fwd(*args, use, 1.0, True, noise=noise)[3][1]
     assert bool((fed[1:] == 4).all())
+
+
+# ------------------------------- (f) the kernels' split of the cell over the grid
+@pytest.mark.parametrize("h_dim", [8, 64, 256, 320, 512])
+@pytest.mark.parametrize("nblocks", [8, 64, 128, 132])
+def test_grid_split_of_the_cell(h_dim, nblocks):
+    """unit_split / gate_columns, the host's copy of the kernels' split: every
+    hidden unit owned by exactly one block, a unit's four gate columns in
+    that block, every gate column computed once, blocks within one unit of
+    each other; and the shared memory a block plans (flagship widths, B 16
+    and 40) stays within the H100's 227 KB."""
+    split = dc.unit_split(h_dim, nblocks)
+    assert len(split) == nblocks
+    owned = [u for u0, nu in split for u in range(u0, u0 + nu)]
+    assert sorted(owned) == list(range(h_dim))
+    cols = [col for u0, nu in split for col in dc.gate_columns(h_dim, u0, nu)]
+    assert sorted(cols) == list(range(4 * h_dim))
+    for u0, nu in split:
+        mine = set(dc.gate_columns(h_dim, u0, nu))
+        for u in range(u0, u0 + nu):
+            assert {g * h_dim + u for g in range(4)} <= mine
+    sizes = [nu for _, nu in split]
+    assert max(sizes) - min(sizes) <= 1
+    for b in (16, 40):
+        assert dc.fwd_plan(nblocks, b, 204, 300, 640, 10, 201, h_dim, 26)[0] <= dc.SMEM_MAX
+        assert dc.bwd_plan(nblocks, b, 204, 300, 640, 10, 201, h_dim)[0] <= dc.SMEM_MAX
+
+
+def test_flagship_plan_keeps_the_cell_resident():
+    """At the flagship training shapes on 15 clusters (120 blocks) both
+    kernels hold their slice of the cell in shared memory; at S = 764 the
+    plan still fits, with k and v left in L2; at S = 4000 the backward's
+    working buffers move to global memory and it still fits (S has no limit)."""
+    smem, flags = dc.fwd_plan(120, 16, 204, 300, 640, 10, 201, 320, 26)
+    assert flags["w_smem"] and smem <= dc.SMEM_MAX
+    smem, flags = dc.bwd_plan(120, 16, 204, 300, 640, 10, 201, 320)
+    assert flags["wr_smem"] and flags["dk_smem"] and smem <= dc.SMEM_MAX
+    smem, flags = dc.fwd_plan(120, 16, 764, 300, 640, 10, 201, 320, 26)
+    assert flags["w_smem"] and not flags["k_smem"] and not flags["v_smem"] and smem <= dc.SMEM_MAX
+    smem, flags = dc.bwd_plan(120, 16, 4000, 512, 640, 10, 201, 320)
+    assert not flags["es_smem"] and not flags["dfa_smem"] and smem <= dc.SMEM_MAX
