@@ -565,8 +565,10 @@ def scan_kernel_checks(dev, cfg, vocab):
     lens[0] = s
     args = dc.scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens)
     grid = {w: dc.scan_grid(w, b, s, dk, e_dim, kk, p, h, vocab) for w in ("fwd", "bwd")}
-    print(f"fused scan grid: {grid['fwd']['clusters']} resident clusters of {dc.CL} blocks "
-          f"(cudaOccupancyMaxActiveClusters); forward {grid['fwd']}; backward {grid['bwd']}", flush=True)
+    resident = {cl: dc.resident_clusters("fwd", cl) for cl in dc.CLUSTER_SIZES}
+    print(f"fused scan grid: resident clusters by cluster size (cudaOccupancyMaxActiveClusters at "
+          f"{dc.SMEM_MAX} B a block) {resident}; grid used: forward {grid['fwd']}; backward "
+          f"{grid['bwd']}", flush=True)
     seed = 20261016
     noise = dc.gumbel_noise(seed, l, b, vocab, dev)
     out = {}
@@ -660,8 +662,8 @@ def scan_kernel_checks(dev, cfg, vocab):
         split = dc.scan_phase_split(args, use, temp, cots)
         print_scan_phases(split)
         for w in ("fwd", "bwd"):
-            out[f"decoder_scan_{w}"]["phases_us"] = {**split[w], **split.get(f"{w}_detail", {})}
-            out[f"decoder_scan_{w}"]["grid"] = grid[w]
+            out[f"decoder_scan_{w}"]["phases_us"] = split[w]
+            out[f"decoder_scan_{w}"]["grid"] = {**grid[w], "resident_clusters_by_size": resident}
 
         # the longest flagship bucket: S = 764 (3056 / 4), short L
         print("[kernel] decoder_scan_fwd / decoder_scan_bwd at S=764", flush=True)

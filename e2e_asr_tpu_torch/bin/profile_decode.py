@@ -195,6 +195,13 @@ def flagship_scan_inputs(dev, seed: int = 2):
     return args, float(ac.temperature)
 
 
+def scan_shape(args):
+    """(B, S, Dk, E, K, P, H, V) of the fused scan's inputs ``args``."""
+    k, v, _, taps, wq, *_rest = args
+    return (k.shape[0], k.shape[1], k.shape[2], v.shape[2], taps.shape[0], taps.shape[1], wq.shape[0],
+            args[13].shape[1])
+
+
 def print_scan_phases(split: dict) -> None:
     for which, names_ms in (("decoder_scan_fwd", "fwd"), ("decoder_scan_bwd", "bwd")):
         ph = split[names_ms]
@@ -202,9 +209,6 @@ def print_scan_phases(split: dict) -> None:
         print(f"{which} phases, mean us per step (timing build, {split[names_ms + '_ms']:.2f} ms a "
               f"launch; normal build {split[names_ms + '_ms_normal']:.2f} ms): {parts}; sum "
               f"{sum(ph.values()):.2f}", flush=True)
-        detail = split.get(names_ms + "_detail")
-        if detail:
-            print(f"  inside: " + ", ".join(f"{k} {v:.2f}" for k, v in detail.items()), flush=True)
 
 
 def main(argv=None):
@@ -214,6 +218,9 @@ def main(argv=None):
                     help="kernel pair of the BiLSTM layers (encoder.rnn_impl)")
     ap.add_argument("--scan-phases", action="store_true",
                     help="with --train: split a step of each fused scan kernel into its phases")
+    ap.add_argument("--cluster-sizes", default="",
+                    help="with --scan-phases: comma-separated cluster sizes to split the kernels at "
+                         "(default: the size the grid picks)")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
     args = ap.parse_args(argv)
     if args.scan_phases and not args.train:
@@ -234,12 +241,17 @@ def main(argv=None):
 
         dev = resolve_device("cuda")
         scan_args, temp = flagship_scan_inputs(dev)
-        split = dc.scan_phase_split(scan_args, torch.ones(scan_args[-1].shape[0], dtype=torch.bool), temp)
-        print(f"{card}: fused scan phase split, flagship training shapes")
-        print_scan_phases(split)
+        use = torch.ones(scan_args[-1].shape[0], dtype=torch.bool)
+        splits = {}
+        for cl in [int(c) for c in args.cluster_sizes.split(",") if c] or [None]:
+            split = dc.scan_phase_split(scan_args, use, temp, cluster_size=cl)
+            grids = {w: dc.scan_grid(w, *scan_shape(scan_args), cluster_size=cl) for w in ("fwd", "bwd")}
+            print(f"{card}: fused scan phase split, flagship training shapes; grid {grids}")
+            print_scan_phases(split)
+            splits[str(grids["fwd"]["cluster_size"])] = {**split, "grid": grids}
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
-            json.dump({"card": card, **split}, f, indent=1)
+            json.dump({"card": card, "by_cluster_size": splits}, f, indent=1)
         return
     run, audio_s = _run_fn(args.train, args.rnn_impl)
     run()  # warm-up

@@ -76,7 +76,7 @@ constexpr size_t SMEM_MAX = 227 * 1024;
 // build compiles the marks away. e2e_decoder_scan_phase_times copies the
 // buffer out.
 constexpr int PH_STEPS = 512;  // steps recorded
-constexpr int PH_SLOTS = 24;   // marks per step
+constexpr int PH_SLOTS = 16;   // marks per step
 #ifdef SCAN_PHASES
 __device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
 #define PHASE(t, i)                                                                   \
@@ -86,19 +86,9 @@ __device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
       g_phase_ts[(t) * PH_SLOTS + (i)] = (unsigned long long)clock64();               \
     }                                                                                 \
   } while (0)
-// the same from thread 0 alone (no barrier), for the work of utterance 0 in warp 0
-#define WMARK(t, i, b)                                                                \
-  do {                                                                                \
-    if (blockIdx.x == 0 && threadIdx.x == 0 && (b) == 0 && (t) < PH_STEPS) {          \
-      g_phase_ts[(t) * PH_SLOTS + (i)] = (unsigned long long)clock64();               \
-    }                                                                                 \
-  } while (0)
 #else
 #define PHASE(t, i) \
   do {              \
-  } while (0)
-#define WMARK(t, i, b) \
-  do {                 \
   } while (0)
 #endif
 
@@ -224,8 +214,7 @@ struct FwdArgs {
   float *logits, *align, *hidden, *cseq;
   int* tokens;
   float *acts, *qs, *ctxs;
-  float* ew;       // scratch [V, 4H]: embed Wx[:Emb] + bl, each block its own columns
-  float* scratch;  // [G CL][NS][E]: the partial contexts where they do not fit in shared memory
+  float* ew;  // scratch [V, 4H]: embed Wx[:Emb] + bl, each block its own columns
   int B, S, Dk, E, K, P, H, Emb, V, L;
   float inv_temp;
   int sample;
@@ -233,7 +222,7 @@ struct FwdArgs {
   int G, CL, NS;  // clusters, blocks per cluster, utterance slots per cluster
   // residents in shared memory: gate weights, Wq columns, Wout columns, and
   // the first slot's frames of k and of v
-  int ctxp_smem, w_smem, wq_smem, wo_smem, k_smem, v_smem;
+  int w_smem, wq_smem, wo_smem, k_smem, v_smem;
 };
 
 // row r of the gate product's input [ctx, h] of (step, utterance) ``row``:
@@ -261,8 +250,8 @@ struct FwdLayout {
 
 // shared-memory layout of the forward kernel, in floats
 __host__ __device__ inline FwdLayout fwd_layout(int B, int S, int Dk, int E, int K, int P, int H,
-                                                 int V, int G, int CL, int NS, int ctxres, int w,
-                                                 int wq, int wo, int kres, int vres) {
+                                                 int V, int G, int CL, int NS, int w, int wq,
+                                                 int wo, int kres, int vres) {
   const int nb = G * CL, numax = cdiv(H, nb), ncmax = 4 * numax;
   const int Sl = cdiv(S, CL), Dkc = cdiv(Dk, CL), Vc = cdiv(V, CL);
   FwdLayout l;
@@ -273,7 +262,7 @@ __host__ __device__ inline FwdLayout fwd_layout(int B, int S, int Dk, int E, int
   l.ks = o;   o += kres ? (size_t)Sl * Dk : 0;
   l.vs = o;   o += vres ? (size_t)Sl * E : 0;
   l.att = o;  o += (size_t)NS * S;
-  l.ctxp = o; o += ctxres ? (size_t)NS * E : 0;
+  l.ctxp = o; o += (size_t)NS * E;
   l.en = o;   o += (size_t)NS * Sl;
   l.stat = o; o += 2 * (size_t)NS;
   l.qsl = o;  o += (size_t)NS * Dkc;
@@ -320,16 +309,15 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
   const int Ec = cdiv(E, CL), e0 = rank * Ec, ne = max(0, min(Ec, E - e0));
 
   extern __shared__ float smem[];
-  const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, a.ctxp_smem, a.w_smem,
-                                  a.wq_smem, a.wo_smem, a.k_smem, a.v_smem);
+  const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, a.w_smem, a.wq_smem,
+                                  a.wo_smem, a.k_smem, a.v_smem);
   float* wt = smem + ly.wt;      // [ncmax][E + H + 4] gate weights, column-major (padded: no bank conflicts)
   float* wqs = smem + ly.wqs;    // [H][Dkc]       own columns of Wq
   float* wos = smem + ly.wos;    // [H][Vc]        own columns of Wout
   float* ks = smem + ly.ks;      // [Sl][Dk]       slot 0's own frames of k
   float* vs = smem + ly.vs;      // [Sl][E]        and of v
   float* att = smem + ly.att;    // [NS][S]        alignment of the last step
-  // [NS][E] unnormalised partial context (this block's slice of the scratch where it does not fit)
-  float* ctxp = a.ctxp_smem ? smem + ly.ctxp : a.scratch + (long)j * NS * E;
+  float* ctxp = smem + ly.ctxp;  // [NS][E]        unnormalised partial context
   float* en = smem + ly.en;      // [NS][Sl]       exp(energy - local max)
   float* stat = smem + ly.stat;  // [NS][2]        local max, sum
   float* qsl = smem + ly.qsl;    // [NS][Dkc]      own slice of q = h Wq + bq
@@ -571,10 +559,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
       for (int e = e0 + tid; e < e0 + ne; e += NT) {
         float pv[CLMAX];  // the blocks' partials, all loads in flight
 #pragma unroll
-        for (int q = 0; q < CLMAX; ++q)
-          pv[q] = q >= CL ? 0.0f
-                  : a.ctxp_smem ? *cluster.map_shared_rank(ctxp + i * E + e, q)
-                                : __ldcg(a.scratch + ((long)(c * CL + q) * NS + i) * E + e);
+        for (int q = 0; q < CLMAX; ++q) pv[q] = q < CL ? *cluster.map_shared_rank(ctxp + i * E + e, q) : 0.0f;
         float acc = 0.0f;
 #pragma unroll
         for (int q = 0; q < CLMAX; ++q)
@@ -587,21 +572,6 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
     grid.sync();  // ctx and the token of every utterance are in global memory
     PHASE(t, 8);  // grid barrier 1
 
-#ifdef SCAN_PHASES
-    // latency probes (SM cycles) of one load each, thread 0 of block 0: the
-    // context just written by other blocks, a weight and a frame of k
-    if (blockIdx.x == 0 && tid == 0 && t < PH_STEPS) {
-      float sink = 0.0f;
-      const float* srcs[3] = {a.ctxs + (long)t * B * E + 5, a.wx + 7 + 13 * t, a.k + 11 + 17 * t};
-      for (int pi = 0; pi < 3; ++pi) {
-        const long long c0 = clock64();
-        const float x = pi == 0 ? __ldcg(srcs[pi]) : pi == 1 ? __ldg(srcs[pi]) : *srcs[pi];
-        if (x == 1234.5f) sink += 1.0f;
-        const long long c1 = clock64();
-        g_phase_ts[t * PH_SLOTS + 16 + pi] = (unsigned long long)(c1 - c0) + (sink > 0.0f ? 1ull : 0ull);
-      }
-    }
-#endif
     // ---- gate product and cell update of the own units, all utterances:
     // [16 utterances, E + H] x [E + H, 8 columns] tiles on the tensor cores
     // (mma m16n8k8, three TF32 products per tile for float32 accuracy), the
@@ -640,7 +610,6 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
             }
           }
         }
-        WMARK(t, 13, wid);
         for (int r = 0; r < NW / 4; ++r) {
           if (wid / 4 == r) {
             float* slot = gpart + ((wid % 4) * 32 + lane) * 8;
@@ -661,7 +630,6 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
         }
         __syncthreads();
       }
-      WMARK(t, 14, 0);
       // cell update: one thread per (utterance, unit)
       for (int x = tid; x < min(16, B - ub) * nu; x += NT) {
         const int bl = x / nu, b = ub + bl, jj = x % nu, u = u0 + jj;
@@ -681,7 +649,6 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
         ac[3 * H] = og;
       }
       __syncthreads();
-      WMARK(t, 15, 0);
     }
     PHASE(t, 9);  // gate product and cell update
     grid.sync();  // h' of every utterance is in global memory
@@ -706,7 +673,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
           if (a.wo_smem) {
             for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], wos[x * Vc + o], acc);
           } else {
-#pragma unroll 4
+#pragma unroll 12
             for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], __ldg(a.wout + (long)x * V + v0 + o), acc);
           }
         } else {
@@ -714,7 +681,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
           if (a.wq_smem) {
             for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], wqs[x * Dkc + dl], acc);
           } else {
-#pragma unroll 4
+#pragma unroll 12
             for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], __ldg(a.wq + (long)x * Dk + d0 + dl), acc);
           }
         }
@@ -819,8 +786,7 @@ extern "C" int e2e_decoder_scan_fwd_clusters(int cl, int smem, int* out, void* s
 // wh [H, 4H], bl [4H], wout [H, V], bout [V], teacher [L, B] i32,
 // use_teacher [L] i32 -> logits [L, B, V], align [L, B, S], hidden [L, B, H],
 // cseq [L, B, H], tokens [L, B] i32, acts [L, B, 4H], qs [L, B, Dk],
-// ctxs [L, B, E]; scratch ew [V, 4H] and scratch [G CL, ceil(B / G), E]. All
-// f32 but the ids, contiguous. H a
+// ctxs [L, B, E]; ew [V, 4H] scratch. All f32 but the ids, contiguous. H a
 // multiple of 8 up to 512, Dk up to 512, P odd. G clusters of CL blocks (all
 // resident: the cooperative launch fails otherwise), ceil(B / G) utterance
 // slots each; the flags say what lives in shared memory.
@@ -829,16 +795,16 @@ extern "C" int e2e_decoder_scan_fwd(
     const float* bq, const float* wlp, const float* locv, const float* locb, const float* embed,
     const float* wx, const float* wh, const float* bl, const float* wout, const float* bout,
     const int* teacher, const int* use_teacher, float* logits, float* align, float* hidden,
-    float* cseq, int* tokens, float* acts, float* qs, float* ctxs, float* ew, float* scratch, int B,
-    int S, int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample,
-    int seed_lo, int seed_hi, int G, int CL, int ctxp_smem, int w_smem, int wq_smem, int wo_smem,
-    int k_smem, int v_smem, void* stream) {
+    float* cseq, int* tokens, float* acts, float* qs, float* ctxs, float* ew, int B, int S, int Dk,
+    int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample, int seed_lo,
+    int seed_hi, int G, int CL, int w_smem, int wq_smem, int wo_smem, int k_smem, int v_smem,
+    void* stream) {
   if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
       CL < 1 || CL > CLMAX)
     return (int)cudaErrorInvalidValue;
   const int NS = cdiv(B, G);
-  const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, ctxp_smem, w_smem, wq_smem,
-                                  wo_smem, k_smem, v_smem);
+  const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, w_smem, wq_smem, wo_smem,
+                                  k_smem, v_smem);
   const size_t smem = sizeof(float) * ly.total;
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
@@ -846,10 +812,9 @@ extern "C" int e2e_decoder_scan_fwd(
   cudaError_t e = launch_config(cfg, at, G, CL, smem, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   FwdArgs a{k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-            teacher, use_teacher, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew, scratch,
+            teacher, use_teacher, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew,
             B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, sample,
-            (uint32_t)seed_lo, (uint32_t)seed_hi, G, CL, NS, ctxp_smem, w_smem, wq_smem, wo_smem, k_smem,
-            v_smem};
+            (uint32_t)seed_lo, (uint32_t)seed_hi, G, CL, NS, w_smem, wq_smem, wo_smem, k_smem, v_smem};
   return (int)cudaLaunchKernelEx(&cfg, decoder_scan_fwd_kernel, a);
 }
 

@@ -80,7 +80,7 @@ constexpr size_t SMEM_MAX = 227 * 1024;
 // build compiles the marks away. e2e_decoder_scan_phase_times copies the
 // buffer out.
 constexpr int PH_STEPS = 512;  // steps recorded
-constexpr int PH_SLOTS = 24;   // marks per step
+constexpr int PH_SLOTS = 16;   // marks per step
 #ifdef SCAN_PHASES
 __device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
 #define PHASE(t, i)                                                                   \
@@ -629,16 +629,23 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
             const int it2 = item - mtw * ntw;
             const int m0 = (it2 / ntf) * 16, n0 = (it2 % ntf) * 8;  // frames x filters
             const int ra = m0 + g8, rb = ra + 8, cn = n0 + g8;
-            for (int k0 = 0; k0 < Dk; k0 += 8) {  // over the attention units
-              const int ka = k0 + tig, kb = ka + 4;
-              av[0] = ra < nv && ka < Dk ? es[ra * Dk + ka] : 0.0f;
-              av[1] = rb < nv && ka < Dk ? es[rb * Dk + ka] : 0.0f;
-              av[2] = ra < nv && kb < Dk ? es[ra * Dk + kb] : 0.0f;
-              av[3] = rb < nv && kb < Dk ? es[rb * Dk + kb] : 0.0f;
-              bv[0] = ka < Dk && cn < K ? wl[cn * Dk + ka] : 0.0f;
-              bv[1] = kb < Dk && cn < K ? wl[cn * Dk + kb] : 0.0f;
-              mma_3xtf32(dacc, av, bv);
+            float dacc2[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // odd k-steps: two chains of mma
+            for (int k0 = 0; k0 < Dk; k0 += 16) {  // over the attention units
+#pragma unroll
+              for (int h2 = 0; h2 < 2; ++h2) {
+                const int ka = k0 + 8 * h2 + tig, kb = ka + 4;
+                av[0] = ra < nv && ka < Dk ? es[ra * Dk + ka] : 0.0f;
+                av[1] = rb < nv && ka < Dk ? es[rb * Dk + ka] : 0.0f;
+                av[2] = ra < nv && kb < Dk ? es[ra * Dk + kb] : 0.0f;
+                av[3] = rb < nv && kb < Dk ? es[rb * Dk + kb] : 0.0f;
+                bv[0] = ka < Dk && cn < K ? wl[cn * Dk + ka] : 0.0f;
+                bv[1] = kb < Dk && cn < K ? wl[cn * Dk + kb] : 0.0f;
+                if (h2 == 0) mma_3xtf32(dacc, av, bv);
+                else mma_3xtf32(dacc2, av, bv);
+              }
             }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dacc[e] += dacc2[e];
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int sl = e < 2 ? ra : rb, kk = n0 + 2 * tig + (e & 1);

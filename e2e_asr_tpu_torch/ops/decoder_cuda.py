@@ -109,17 +109,16 @@ def fwd_plan(nblocks: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int,
              vocab: int, cl: int = CL):
     """Shared memory of the forward kernel on a grid of ``nblocks`` blocks in
     clusters of ``cl`` (csrc/decoder_scan.cu ``fwd_layout``): (bytes, flags).
-    Residents in order: the partial contexts of the utterance slots (in the
-    launch's scratch in global memory where they do not fit), the block's
-    gate weights [4u, E + H], v, its Wq columns, its Wout columns, k (v and
-    k: the first utterance slot's own frames)."""
+    Residents in order: the block's gate weights [4u, E + H], v, its Wq
+    columns, its Wout columns, k (v and k: the first utterance slot's own
+    frames)."""
     ns = _cdiv(b, nblocks // cl)
     numax = _cdiv(h_dim, nblocks)
     sl, dkc, vc = _cdiv(s, cl), _cdiv(dk, cl), _cdiv(vocab, cl)
-    base = (ns * (s + sl + 2 + dkc + 2) + 2 * dk + kk * dk + sl * kk + h_dim + vc
+    base = (ns * (s + e_dim + sl + 2 + dkc + 2) + 2 * dk + kk * dk + sl * kk + h_dim + vc
             + 4 * 32 * 8 + 16 * 4 * numax + b * numax + NW + 3 * CL + b + kk * p + 4 * sl * kk + max(NT, vc + dkc)
             + NW * _cdiv(sl, 16) * 16)
-    return _greedy(base, (("ctxp_smem", ns * e_dim), ("w_smem", 4 * numax * (e_dim + h_dim + 4)), ("v_smem", sl * e_dim),
+    return _greedy(base, (("w_smem", 4 * numax * (e_dim + h_dim + 4)), ("v_smem", sl * e_dim),
                           ("wq_smem", dkc * h_dim), ("wo_smem", vc * h_dim), ("k_smem", sl * dk)))
 
 
@@ -346,16 +345,14 @@ def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx
     acts, qs, ctxs = new(l, b, 4 * h_dim), new(l, b, dk), new(l, b, e_dim)
     tokens = torch.empty((l, b), dtype=torch.int32, device=dev)
     ew = new(vocab, 4 * h_dim)  # scratch: embed Wx[:Emb] + bl
-    scratch = new(1) if grid["ctxp_smem"] else new(grid["blocks"], grid["slots"], e_dim)
     seed = int(seed)
     cuda_build.launch(
         "decoder_scan", "e2e_decoder_scan_fwd", k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed,
         wx, wh, bl, wout, bout, teacher, use_i, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew,
-        scratch,
         b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)),
         seed & 0x7FFFFFFF, (seed >> 31) & 0x7FFFFFFF, grid["clusters"], grid["cluster_size"],
-        grid["ctxp_smem"], grid["w_smem"],
-        grid["wq_smem"], grid["wo_smem"], grid["k_smem"], grid["v_smem"], defines=defines,
+        grid["w_smem"], grid["wq_smem"], grid["wo_smem"], grid["k_smem"], grid["v_smem"],
+        defines=defines,
     )
     return logits, align, hidden, (cseq, tokens, acts, qs, ctxs)
 
@@ -521,7 +518,7 @@ decoder_scan_bwd.launches = 0
 # ---------------------------------------------------------------- phase split
 PHASE_BUILD = ("SCAN_PHASES",)  # the define of the kernels' timing build
 PHASE_VARIANTS = (("decoder_scan", PHASE_BUILD), ("decoder_scan_bwd", PHASE_BUILD))
-PH_STEPS, PH_SLOTS = 512, 24  # csrc: steps recorded, marks per step
+PH_STEPS, PH_SLOTS = 512, 16  # csrc: steps recorded, marks per step
 # the phases between consecutive marks of one step, in order (csrc PHASE(t, i))
 FWD_PHASES = ("q pull and token", "conv", "energies", "softmax", "context partial",
               "cluster barrier 1", "combine", "grid barrier 1", "gate product and cell update",
@@ -530,12 +527,6 @@ BWD_PHASES = ("gate stage", "grid barrier 1", "row stage", "grid barrier 2",
               "loads, cluster barrier and the softmax term", "conv", "energies",
               "reductions over frames", "dfpre", "cluster barrier", "pulls and transposed conv",
               "grid barrier 3")
-# warp 0 of block 0 inside the forward's gate product: (name, mark from, mark to)
-FWD_DETAIL = (("gate tiles on the tensor cores (warp 0)", 8, 13),
-              ("to the gate sums (thread 0)", 13, 14), ("cell update (thread 0)", 14, 15))
-# latency probes of the forward's timing build, SM cycles of one load: slot
-FWD_PROBES = (("cycles: load of ctx written this step (ld.cg)", 16),
-              ("cycles: load of a weight (ld.global.nc)", 17), ("cycles: load of k", 18))
 
 
 def sm_clock_mhz() -> float:
@@ -562,20 +553,15 @@ def scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens):
             torch.randint(0, v, (l, b), generator=gen, device=dev, dtype=torch.int32))
 
 
-def _phase_means(name: str, l: int, names, detail=(), probes=()) -> dict:
+def _phase_means(name: str, l: int, names) -> dict:
     """Mean us per phase over the L steps of the last launch of the timing
-    build of ``name`` (marks in SM cycles, at the card's SM clock);
-    ``detail``: (name, mark from, mark to) spans besides; ``probes``: (name,
-    slot) values in cycles."""
+    build of ``name`` (marks in SM cycles, at the card's SM clock)."""
     out = torch.zeros(PH_STEPS * PH_SLOTS, dtype=torch.int64, device="cuda")
     cuda_build.launch(name, "e2e_decoder_scan_phase_times", out, out.numel(), defines=PHASE_BUILD)
     marks = out.view(PH_STEPS, PH_SLOTS)[:min(l, PH_STEPS)].double()
     per_us = sm_clock_mhz()
     dur = (marks[:, 1:len(names) + 1] - marks[:, :len(names)]).mean(0) / per_us
-    res = {nm: float(x) for nm, x in zip(names, dur)}
-    spans = {nm: float((marks[:, m1] - marks[:, m0]).mean() / per_us) for nm, m0, m1 in detail}
-    spans.update({nm: float(marks[:, m].mean()) for nm, m in probes})
-    return res, spans
+    return {nm: float(x) for nm, x in zip(names, dur)}
 
 
 def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=None):
@@ -585,7 +571,7 @@ def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=Non
     (logits, align, hidden) for the backward (random if None). Returns
     {"fwd": {phase: mean us per step}, "bwd": {...}, "fwd_ms", "bwd_ms": the
     timing build's whole-launch times, "fwd_ms_normal", "bwd_ms_normal": the
-    normal build's, "fwd_detail": spans inside the gate product}. Launch
+    normal build's}; ``cluster_size`` overrides the grid's pick. Launch
     counters are not touched."""
     k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout, teacher = args
     l = teacher.shape[0]
@@ -600,7 +586,7 @@ def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=Non
     t1.record()
     torch.cuda.synchronize()
     res["fwd_ms"] = t0.elapsed_time(t1)
-    res["fwd"], res["fwd_detail"] = _phase_means("decoder_scan", l, FWD_PHASES, FWD_DETAIL, FWD_PROBES)
+    res["fwd"] = _phase_means("decoder_scan", l, FWD_PHASES)
     if cots is None:
         g = torch.Generator(device=k.device)
         g.manual_seed(0)
@@ -615,7 +601,7 @@ def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=Non
     t1.record()
     torch.cuda.synchronize()
     res["bwd_ms"] = t0.elapsed_time(t1)
-    res["bwd"], _ = _phase_means("decoder_scan_bwd", l, BWD_PHASES)
+    res["bwd"] = _phase_means("decoder_scan_bwd", l, BWD_PHASES)
     for w, fn in (("fwd", lambda: _fwd_launch((), *args, use_teacher, temp, False, 0, cluster_size)),
                   ("bwd", lambda: _bwd_launch((), k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
                                               align, hidden, cseq, acts, qs, ctxs, *cots, temp,

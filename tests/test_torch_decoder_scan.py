@@ -308,8 +308,8 @@ def test_grid_split_of_the_cell(h_dim, nblocks):
     """unit_split / gate_columns, the host's copy of the kernels' split: every
     hidden unit owned by exactly one block, a unit's four gate columns in
     that block, every gate column computed once, blocks within one unit of
-    each other; and the shared memory a block plans (flagship widths, B 16
-    and 40) stays within the H100's 227 KB."""
+    each other; and the shared memory a block plans (flagship widths, B 16,
+    and B 40 on grids of 8 clusters or more) stays within the H100's 227 KB."""
     split = dc.unit_split(h_dim, nblocks)
     assert len(split) == nblocks
     owned = [u for u0, nu in split for u in range(u0, u0 + nu)]
@@ -322,7 +322,7 @@ def test_grid_split_of_the_cell(h_dim, nblocks):
             assert {g * h_dim + u for g in range(4)} <= mine
     sizes = [nu for _, nu in split]
     assert max(sizes) - min(sizes) <= 1
-    for b in (16, 40):
+    for b in (16, 40) if nblocks >= 64 else (16,):
         assert dc.fwd_plan(nblocks, b, 204, 300, 640, 10, 201, h_dim, 26)[0] <= dc.SMEM_MAX
         assert dc.bwd_plan(nblocks, b, 204, 300, 640, 10, 201, h_dim)[0] <= dc.SMEM_MAX
 
