@@ -96,6 +96,12 @@ __device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
   } while (0)
 #endif
 
+// tanh(x) = 1 - 2 / (exp(2x) + 1) through the special-function unit:
+// absolute error below ~1e-6, a fraction of tanhf's instructions
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.0f - __fdividef(2.0f, __expf(2.0f * x) + 1.0f);
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -123,27 +129,23 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
-// float -> TF32 (round to nearest), as the bits mma takes
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
+// x = hi + lo, hi its top 19 bits (a TF32 value), lo the exact rest; the
+// tensor core reads lo's top 19 bits, so a product of such splits keeps
+// ~21 bits of x
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // d (16 x 8, the m16n8k8 accumulator fragment) += a (16 x 8) b (8 x 8) in
-// float32 accuracy from three TF32 products: a_lo b_hi + a_hi b_lo + a_hi b_hi
+// float32 accuracy (relative error ~1e-6 a product) from three TF32
+// products: a_lo b_hi + a_hi b_lo + a_hi b_hi
 __device__ __forceinline__ void mma_3xtf32(float* d, const float* a, const float* b) {
   uint32_t ah[4], al[4], bh[2], bl[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    ah[i] = tf32(a[i]);
-    al[i] = tf32(a[i] - __uint_as_float(ah[i]));
-  }
+  for (int i = 0; i < 4; ++i) tf32_split(a[i], ah[i], al[i]);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bh[i] = tf32(b[i]);
-    bl[i] = tf32(b[i] - __uint_as_float(bh[i]));
-  }
+  for (int i = 0; i < 2; ++i) tf32_split(b[i], bh[i], bl[i]);
 #define MMA_TF32(A, B)                                                                       \
   asm(                                                                                       \
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "    \
@@ -570,7 +572,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
             if (sl < nv && d < Dk) {
               const int x = sl * Dk + d;
               const float kv = kres ? ks[x] : kpref ? es[x] : a.k[((long)b * S + s0) * Dk + x];
-              const float ev = tanhf(kv + qb[d] + dacc[e]);
+              const float ev = tanh_fast(kv + qb[d] + dacc[e]);
               es[x] = ev;
               const float de = den[sl] * lv[d] * (1.0f - ev * ev);
               if (dkres) dks[x] += de;

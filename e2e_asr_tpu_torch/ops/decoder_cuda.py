@@ -147,10 +147,11 @@ def resident_clusters(which: str, cl: int = CL, smem: int = SMEM_MAX) -> int:
     """How many clusters of ``cl`` blocks of kernel ``which`` ("fwd" or
     "bwd") can be resident at once with ``smem`` bytes of shared memory a
     block (cudaOccupancyMaxActiveClusters; card only)."""
+    name = "decoder_scan" if which == "fwd" else "decoder_scan_bwd"
+    cuda_build.library(name)  # built (or the build's error raised) before the card is asked
     key = (which, cl, smem, torch.cuda.current_device())
     if key not in _clusters:
         out = torch.zeros(1, dtype=torch.int32)
-        name = "decoder_scan" if which == "fwd" else "decoder_scan_bwd"
         cuda_build.launch(name, f"e2e_decoder_scan_{which}_clusters", cl, smem, out)
         _clusters[key] = int(out[0])
     return _clusters[key]
