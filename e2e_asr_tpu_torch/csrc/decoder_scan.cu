@@ -24,35 +24,45 @@
 // the HBM bound is near. Split into phases (the timing build below), the
 // first design (one 8-block cluster per utterance) spent half of each step
 // streaming the cell's weights (Wx, Wh: 6.5 MB at the flagship) from L2 once
-// per utterance, a sixth of it in the energies, and ran B = 16 utterances
-// in two waves: at most 15 such clusters are resident on a 132-SM H100.
-// Design: a persistent grid of G co-resident clusters of CL = 8 blocks
-// (cooperative launch, G from cudaOccupancyMaxActiveClusters, grid.sync()).
-//   - The cell's weights are split by hidden unit over all 8G blocks, a
+// per utterance, and ran B = 16 utterances in two waves: at most 15 such
+// clusters are resident on a 132-SM H100. With the weights resident, what
+// the gate product waits for is its inputs: every block pulls all
+// utterances' [ctx, h] from L2 after a grid barrier (61 KB a step at the
+// flagship), which 4-byte loads moved at ~8.5 GB/s a block (bound by the
+// requests a block keeps in flight), so they are loaded 16 bytes at a time.
+// Design: a persistent grid of G co-resident clusters of CL blocks
+// (cooperative launch; the wrapper picks CL and G from
+// cudaOccupancyMaxActiveClusters, e.g. 17 clusters of 6 for B = 16).
+//   - The cell's weights are split by hidden unit over all G CL blocks, a
 //     unit's four gate columns in one block, and copied into shared memory
-//     once per launch; each step's gate product is then one
-//     [B, E + H] x [E + H, 4u] product per block for all utterances at once,
-//     its inputs (ctx of step t, h of step t-1) read from L2. The embedding
-//     row's part is a gather from ew = embed Wx[:Emb] + bl, which each block
-//     computes for its own columns before the first step.
+//     once per launch; each step's gate product is [16 utterances, E + H] x
+//     [E + H, 8 columns] tiles on the tensor cores (mma m16n8k8, three TF32
+//     products a tile for float32 accuracy) over chunks of 16 input
+//     features, a lane's four inputs and weights of a chunk each one 16-byte
+//     load (the k index permuted within the chunk to match), its inputs (ctx
+//     of step t, h of step t-1) read from L2, all utterances at once. The
+//     embedding row's part is a gather from ew = embed Wx[:Emb] + bl, which
+//     each block computes for its own columns before the first step.
 //   - A cluster walks one or more utterances (slots) for the attention part;
 //     utterances are ranked by length and dealt to clusters in a snake order
 //     so that a cluster with two gets two short ones, and an utterance's
-//     valid frames are split evenly over its 8 blocks.
-//   - Per step: phase A (each slot: q pulled from the 8 blocks' slices, the
-//     token, the location conv one warp per (frame, filter), the energies
-//     two frames per warp, a local softmax and an unnormalised partial
-//     context); cluster barrier; phase B (each slot: the 8 blocks' partials
-//     pulled through distributed shared memory; each block writes its
-//     slice of the context to global memory); grid barrier; the gate product
-//     and cell update of the block's units for every utterance; grid
-//     barrier; phase C (each slot: h' read back, this block's vocabulary
-//     slice of the logits and its local argmax, its slice of the next q);
-//     cluster barrier. Partials are pulled, not pushed to every block.
+//     valid frames are split evenly over the cluster's blocks.
+//   - Per step: phase A (each slot: q pulled from the blocks' slices, the
+//     token, the location conv over 4-frame windows held in registers, f
+//     Wlp on the tensor cores and the tanh energies, a warp walking the
+//     units of one 16-frame tile, a local softmax and an unnormalised
+//     partial context); cluster barrier; phase B (each slot: the blocks'
+//     partials pulled through distributed shared memory; each block writes
+//     its slice of the context to global memory); grid barrier; the gate
+//     product and cell update of the block's units for every utterance;
+//     grid barrier; phase C (each slot: h' read back, this block's
+//     vocabulary slice of the logits and its local argmax, its slice of the
+//     next q); cluster barrier. Partials are pulled, not pushed.
 // A block's frames of k and v (first slot), its Wq columns and Wout columns
 // stay in shared memory where they fit (the wrapper decides, in order: gate
-// weights, v, Wq, Wout, k) and are read from L2 otherwise, so S has no
-// limit. No atomics: every sum has a fixed order.
+// weights, v, Wq, Wout, k) and are read from L2 otherwise; S is bounded
+// only by the per-frame buffers (about 6,000 frames at the flagship widths
+// on 8-block clusters). No atomics: every sum has a fixed order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -63,8 +73,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int CLMAX = 8;  // blocks per cluster, at most (the portable cluster size)
-constexpr int NSPL = 4;   // threads a conv sum is split over
-constexpr int KPF = 8;    // k-steps of gate-product inputs a warp loads at once
+constexpr int NSPL = 4;   // threads a conv sum is split over, at most
+constexpr int APAD = 4;   // zeros on each side of a stored alignment (the conv's 4-frame windows)
+constexpr int KPF = 4;    // 16-column chunks of gate-product inputs a warp loads at once
+constexpr int NTPF = 8;   // energy tiles whose k a lane loads at once
 constexpr int NT = 512;   // threads per block
 constexpr int NW = NT / 32;
 constexpr float LOWEST = -3.402823466e38f;  // -FLT_MAX
@@ -152,6 +164,19 @@ __device__ __forceinline__ float gumbel(uint32_t seed_lo, uint32_t seed_hi, int 
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// threads a conv sum of a block with Sl frames is split over: NSPL, fewer
+// where the (4 frames, filter) items alone fill the block
+__host__ __device__ inline int conv_parts(int Sl, int K) {
+  const int n = NT / (cdiv(Sl, 4) * K);
+  return n < 1 ? 1 : n < NSPL ? n : NSPL;
+}
+
+// row strides of the energies' operands: f [frames][KPS] (filters padded to
+// a multiple of 8 with zeros) and Wlp [K][WLS]; both keep a warp's fragment
+// loads free of bank conflicts
+__host__ __device__ inline int kps_of(int K) { return cdiv(K, 8) * 8 + 4; }
+__host__ __device__ inline int wls_of(int Dk) { return cdiv(Dk, 32) * 32 + 8; }
+
 // x = hi + lo, hi its top 19 bits (a TF32 value), lo the exact rest; the
 // tensor core reads lo's top 19 bits, so a product of such splits keeps
 // ~21 bits of x
@@ -234,16 +259,19 @@ __device__ __forceinline__ float gate_input(const FwdArgs& a, long row, int r) {
   return r < a.E ? __ldcg(a.ctxs + row * a.E + r) : __ldcg(a.hidden + (row - a.B) * a.H + r - a.E);
 }
 
-// the block's gate weight (column cc, row r of [Wx[Emb:]; Wh]): from shared
-// memory where it is resident, else from global memory; column cc is gate
-// cc / nu of unit u0 + cc % nu
-__device__ __forceinline__ float gate_weight(const FwdArgs& a, const float* wt, int cc, int r, int nu,
-                                             int u0) {
-  if (a.w_smem) return wt[cc * (a.E + a.H + 4) + r];
+// the block's gate weight (column cc, row r of [Wx[Emb:]; Wh]) from global
+// memory, where the weights are not resident; column cc is gate cc / nu of
+// unit u0 + cc % nu
+__device__ __forceinline__ float gate_weight(const FwdArgs& a, int cc, int r, int nu, int u0) {
   const int gcol = (cc / nu) * a.H + u0 + cc % nu;
   return r < a.E ? __ldg(a.wx + (long)(a.Emb + r) * 4 * a.H + gcol)
                  : __ldg(a.wh + (long)(r - a.E) * 4 * a.H + gcol);
 }
+
+// resident gate weights: [4 numax][WST], column cc of the block at row cc,
+// its E + H rows padded with zeros to WST = a multiple of 32, + 16 (a
+// quarter warp's 16-byte loads free of bank conflicts)
+__host__ __device__ inline int gate_stride(int E, int H) { return cdiv(E + H, 32) * 32 + 16; }
 
 struct FwdLayout {
   size_t wt, wqs, wos, ks, vs, att, ctxp, en, stat, qsl, amx, aix, qb, lv, wl, fs, hs, lg, gpart, gsum,
@@ -256,34 +284,35 @@ __host__ __device__ inline FwdLayout fwd_layout(int B, int S, int Dk, int E, int
                                                  int wo, int kres, int vres) {
   const int nb = G * CL, numax = cdiv(H, nb), ncmax = 4 * numax;
   const int Sl = cdiv(S, CL), Dkc = cdiv(Dk, CL), Vc = cdiv(V, CL);
+  const int Sl4 = cdiv(Sl, 4) * 4, Sl16 = cdiv(Sl, 16) * 16, Dk8 = cdiv(Dk, 8) * 8;
   FwdLayout l;
   size_t o = 0;
-  l.wt = o;   o += w ? (size_t)ncmax * (E + H + 4) : 0;
+  l.wt = o;   o += w ? (size_t)ncmax * gate_stride(E, H) : 0;
   l.wqs = o;  o += wq ? (size_t)Dkc * H : 0;
   l.wos = o;  o += wo ? (size_t)Vc * H : 0;
   l.ks = o;   o += kres ? (size_t)Sl * Dk : 0;
   l.vs = o;   o += vres ? (size_t)Sl * E : 0;
-  l.att = o;  o += (size_t)NS * S;
+  l.att = o;  o += (size_t)NS * (S + 2 * APAD);
   l.ctxp = o; o += (size_t)NS * E;
   l.en = o;   o += (size_t)NS * Sl;
   l.stat = o; o += 2 * (size_t)NS;
   l.qsl = o;  o += (size_t)NS * Dkc;
   l.amx = o;  o += NS;
   l.aix = o;  o += NS;
-  l.qb = o;   o += Dk;
-  l.lv = o;   o += Dk;
-  l.wl = o;   o += (size_t)K * Dk;
-  l.fs = o;   o += (size_t)Sl * K;
+  l.qb = o;   o += Dk8;
+  l.lv = o;   o += Dk8;
+  l.wl = o;   o += (size_t)K * wls_of(Dk);
+  l.fs = o;   o += (size_t)Sl16 * kps_of(K);
   l.hs = o;   o += H;
   l.lg = o;   o += Vc;
   l.gpart = o; o += 4 * 32 * 8;
-  l.gsum = o; o += 16 * (size_t)ncmax;
+  l.gsum = o; o += (size_t)B * ncmax;
   l.cst = o;  o += (size_t)B * numax;
   l.red = o;  o += NW;
   l.sc = o;   o += 3 * CLMAX;
   l.ord = o;  o += B;
   l.tp = o;   o += (size_t)K * P;
-  l.cpart = o; o += NSPL * (size_t)Sl * K;
+  l.cpart = o; o += (size_t)conv_parts(Sl, K) * Sl4 * K;
   l.opart = o; o += (size_t)(NT > Vc + Dkc ? NT : Vc + Dkc);
   l.epart = o; o += (size_t)NW * cdiv(Sl, 16) * 16;
   l.total = o;
@@ -313,46 +342,52 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
   extern __shared__ float smem[];
   const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, a.w_smem, a.wq_smem,
                                   a.wo_smem, a.k_smem, a.v_smem);
-  float* wt = smem + ly.wt;      // [ncmax][E + H + 4] gate weights, column-major (padded: no bank conflicts)
+  float* wt = smem + ly.wt;      // [ncmax][WST]   gate weights, column-major (gate_stride)
   float* wqs = smem + ly.wqs;    // [H][Dkc]       own columns of Wq
   float* wos = smem + ly.wos;    // [H][Vc]        own columns of Wout
   float* ks = smem + ly.ks;      // [Sl][Dk]       slot 0's own frames of k
   float* vs = smem + ly.vs;      // [Sl][E]        and of v
-  float* att = smem + ly.att;    // [NS][S]        alignment of the last step
+  float* att = smem + ly.att;    // [NS][S + 2 APAD] alignment of the last step, zeros around it
   float* ctxp = smem + ly.ctxp;  // [NS][E]        unnormalised partial context
   float* en = smem + ly.en;      // [NS][Sl]       exp(energy - local max)
   float* stat = smem + ly.stat;  // [NS][2]        local max, sum
   float* qsl = smem + ly.qsl;    // [NS][Dkc]      own slice of q = h Wq + bq
   float* amx = smem + ly.amx;    // [NS]           local best score
   int* aix = (int*)(smem + ly.aix);  // [NS]       and its column
-  float* qb = smem + ly.qb;      // [Dk]           q + locb
-  float* lv = smem + ly.lv;      // [Dk]
-  float* wl = smem + ly.wl;      // [K][Dk]
-  float* fs = smem + ly.fs;      // [Sl][K]        location features
+  float* qb = smem + ly.qb;      // [Dk8]          q + locb (zeros past Dk)
+  float* lv = smem + ly.lv;      // [Dk8]          locv (zeros past Dk)
+  float* wl = smem + ly.wl;      // [K][WLS]       Wlp (zeros past Dk)
+  float* fs = smem + ly.fs;      // [Sl16][KPS]    location features (zeros past nv and K)
   float* hs = smem + ly.hs;      // [H]            h' of the slot's utterance
   float* lg = smem + ly.lg;      // [Vc]           scores of the own columns
   float* gpart = smem + ly.gpart;  // [4][32][8]   four warps' partial tiles
-  float* gsum = smem + ly.gsum;    // [16][ncmax]  gate sums of 16 utterances
+  float* gsum = smem + ly.gsum;    // [B][ncmax]   gate sums of every utterance
   float* cst = smem + ly.cst;    // [B][numax]     c of the own units
   float* red = smem + ly.red;    // [NW]
   float* sc = smem + ly.sc;      // [3][CLMAX]     partial maxima, sums, scales
   int* ord = (int*)(smem + ly.ord);  // [B]
   float* tp = smem + ly.tp;          // [K][P]         conv taps
-  float* cpart = smem + ly.cpart;    // [NSPL][Sl][K]  parts of the conv sums
+  float* cpart = smem + ly.cpart;    // [nsp][Sl4][K] parts of the conv sums
   float* opart = smem + ly.opart;    // [NT]           partial sums of phase C
   float* epart = smem + ly.epart;    // [NW][Sl16]     the warps' partial energies
-  const int Sl16 = cdiv(Sl, 16) * 16;
+  const int Sl4 = cdiv(Sl, 4) * 4, Sl16 = cdiv(Sl, 16) * 16, Dk8 = cdiv(Dk, 8) * 8;
+  const int nsp = conv_parts(Sl, K);
+  const int SA = S + 2 * APAD, KPS = kps_of(K), WLS = wls_of(Dk);
 
   // ---- once per launch: residents, the embedding table's own columns
-  for (int i = tid; i < K * Dk; i += NT) wl[i] = a.wlp[i];
-  for (int i = tid; i < Dk; i += NT) lv[i] = a.locv[i];
+  for (int i = tid; i < K * WLS; i += NT) wl[i] = i % WLS < Dk ? a.wlp[(i / WLS) * Dk + i % WLS] : 0.0f;
+  for (int i = tid; i < Dk8; i += NT) {
+    lv[i] = i < Dk ? a.locv[i] : 0.0f;
+    qb[i] = 0.0f;
+  }
   for (int i = tid; i < K * P; i += NT) tp[i] = a.taps[i];
   for (int i = tid; i < B * numax; i += NT) cst[i] = 0.0f;
+  const int WST = gate_stride(E, H);
   if (a.w_smem) {
-    for (int i = tid; i < nc * X; i += NT) {
-      const int cc = i / X, r = i % X;
+    for (int i = tid; i < nc * WST; i += NT) {
+      const int cc = i / WST, r = i % WST;
       const int gcol = (cc / nu) * H + u0 + cc % nu;
-      wt[cc * (X + 4) + r] = r < E ? a.wx[(long)(Emb + r) * G4 + gcol] : a.wh[(long)(r - E) * G4 + gcol];
+      wt[i] = r >= X ? 0.0f : r < E ? a.wx[(long)(Emb + r) * G4 + gcol] : a.wh[(long)(r - E) * G4 + gcol];
     }
   }
   if (a.wq_smem)
@@ -375,7 +410,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
     if (b < 0) continue;
     const int len = min(max(a.enc_len[b], 0), S);
     const float uni = len > 0 ? 1.0f / (float)len : 0.0f;
-    for (int s = tid; s < S; s += NT) att[i * S + s] = s < len ? uni : 0.0f;
+    for (int x = tid; x < SA; x += NT) att[i * SA + x] = x >= APAD && x - APAD < len ? uni : 0.0f;
     for (int dl = tid; dl < ndk; dl += NT) qsl[i * Dkc + dl] = a.bq[d0 + dl];  // h = 0
     if (i == 0) {
       const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
@@ -396,7 +431,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
       const long row = (long)t * B + b;
       const int len = min(max(a.enc_len[b], 0), S);
       const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
-      const float* ap = att + i * S;
+      const float* ap = att + i * SA + APAD;  // ap[s], zero for s in [-APAD, 0) and [len, S + APAD)
       for (int d = tid; d < Dk; d += NT) {
         const int q = d / Dkc;
         const float qv = *cluster.map_shared_rank(qsl + i * Dkc + d - q * Dkc, q);
@@ -429,57 +464,102 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
         if (rank == 0) a.tokens[row] = tok;
       }
       PHASE(t, 1);  // q pull and token
-      // location features: NSPL threads per (frame, filter), each a part of the taps
-      for (int x = tid; x < NSPL * nv * K; x += NT) {
-        const int pr = x / NSPL, part = x % NSPL, sl = pr / K, kk = pr % K, s = s0 + sl;
-        const int p0 = max(0, half - s), p1 = min(P, len + half - s), pc = cdiv(p1 - p0, NSPL);
+      // location features: threads over (4 frames, filter, part of the
+      // taps), the 4 frames' alignment values slid through registers (the
+      // stored alignment is zero outside [0, len), with APAD zeros around it)
+      for (int x = tid; x < nsp * cdiv(nv, 4) * K; x += NT) {
+        const int part = x % nsp, pr = x / nsp, kk = pr % K, sl = 4 * (pr / K), s = s0 + sl;
+        const int p0 = max(0, half - s - 3), p1 = min(P, len + half - s), pc = cdiv(p1 - p0, nsp);
+        const int pa = p0 + part * pc, pb = min(p1, pa + pc);
         const float* tk = tp + kk * P;
-        float acc = 0.0f;
-        for (int p = p0 + part * pc; p < min(p1, p0 + (part + 1) * pc); ++p)
-          acc = fmaf(ap[s + p - half], tk[p], acc);
-        cpart[part * Sl * K + pr] = acc;
+        const float* w = ap + s - half;  // w[p + j] = alignment at frame s + j + p - half
+        float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
+        if (pa < pb) {
+          float w0 = w[pa], w1 = w[pa + 1], w2 = w[pa + 2];
+#pragma unroll 4
+          for (int p = pa; p < pb; ++p) {
+            const float w3 = w[p + 3], tv = tk[p];
+            c0 = fmaf(w0, tv, c0);
+            c1 = fmaf(w1, tv, c1);
+            c2 = fmaf(w2, tv, c2);
+            c3 = fmaf(w3, tv, c3);
+            w0 = w1;
+            w1 = w2;
+            w2 = w3;
+          }
+        }
+        float* cp = cpart + (part * Sl4 + sl) * K + kk;
+        cp[0] = c0;
+        cp[K] = c1;
+        cp[2 * K] = c2;
+        cp[3 * K] = c3;
       }
       __syncthreads();
-      for (int x = tid; x < nv * K; x += NT) {
+      const int mt = cdiv(nv, 16);  // 16-frame tiles of the energies
+      for (int x = tid; x < mt * 16 * KPS; x += NT) {
+        const int sl = x / KPS, kk = x % KPS;
         float acc = 0.0f;
-        for (int part = 0; part < NSPL; ++part) acc += cpart[part * Sl * K + x];
+        if (sl < nv && kk < K)
+          for (int part = 0; part < nsp; ++part) acc += cpart[(part * Sl4 + sl) * K + kk];
         fs[x] = acc;
       }
       __syncthreads();
       PHASE(t, 2);  // conv
       // energies: fW = f Wlp on the tensor cores ([16 frames, K] x [K, 8
       // units] tiles), then locv . tanh(k + q + fW) for each (frame, unit) of
-      // a tile in its lanes' registers, summed per frame over the tile's
-      // lanes and, in a fixed order, over the warps
-      const bool kres = i == 0 && a.k_smem;
+      // a tile in its lanes' registers. A warp keeps one frame tile and walks
+      // its units, k of NTPF tiles loaded at once; its rows' sums go over the
+      // tile's lanes, then in a fixed order over the warps
       {
-        const int mt = cdiv(nv, 16), nt = cdiv(Dk, 8), g8 = lane >> 2, tig = lane & 3;
+        const int nt = cdiv(Dk, 8), g8 = lane >> 2, tig = lane & 3;
+        const int wpm = max(1, NW / max(mt, 1)), mg = NW / wpm;  // warps a frame tile, tiles at once
+        const float* kp = i == 0 && a.k_smem ? ks : a.k + ((long)b * S + s0) * Dk;
+        const bool k2 = Dk % 2 == 0 && ((uintptr_t)kp & 7) == 0;
         for (int x = tid; x < NW * Sl16; x += NT) epart[x] = 0.0f;
         __syncthreads();
-        for (int item = wid; item < mt * nt; item += NW) {
-          const int m0 = (item / nt) * 16, n0 = (item % nt) * 8;
-          const int ra = m0 + g8, rb = ra + 8, cn = n0 + g8;
-          float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          for (int k0 = 0; k0 < K; k0 += 8) {
-            const int ka = k0 + tig, kb = ka + 4;
-            float av[4], bv[2];
-            av[0] = ra < nv && ka < K ? fs[ra * K + ka] : 0.0f;
-            av[1] = rb < nv && ka < K ? fs[rb * K + ka] : 0.0f;
-            av[2] = ra < nv && kb < K ? fs[ra * K + kb] : 0.0f;
-            av[3] = rb < nv && kb < K ? fs[rb * K + kb] : 0.0f;
-            bv[0] = ka < K && cn < Dk ? wl[ka * Dk + cn] : 0.0f;
-            bv[1] = kb < K && cn < Dk ? wl[kb * Dk + cn] : 0.0f;
-            mma_3xtf32(dacc, av, bv);
-          }
+        for (int mi = wid / wpm; wid < mg * wpm && mi < mt; mi += mg) {
+          const int ra = mi * 16 + g8, rb = ra + 8;
+          const bool va = ra < nv, vb = rb < nv;
+          const float* fa = fs + ra * KPS;
+          const float* fb = fs + rb * KPS;
           float r0 = 0.0f, r1 = 0.0f;  // rows ra and rb
+          for (int nc0 = wid % wpm; nc0 < nt; nc0 += NTPF * wpm) {
+            float kv[NTPF][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int sl = e < 2 ? ra : rb, d = n0 + 2 * tig + (e & 1);
-            if (sl < nv && d < Dk) {
-              const float kv = kres ? ks[sl * Dk + d] : a.k[((long)b * S + s0 + sl) * Dk + d];
-              const float z = lv[d] * tanh_fast(kv + qb[d] + dacc[e]);
-              if (e < 2) r0 += z;
-              else r1 += z;
+            for (int u = 0; u < NTPF; ++u) {
+              const int d = (nc0 + u * wpm) * 8 + 2 * tig;
+              if (k2) {  // d even, Dk even: the pair in one 8-byte load
+                const float2 x = va && d < Dk ? *reinterpret_cast<const float2*>(kp + ra * Dk + d) : make_float2(0.0f, 0.0f);
+                const float2 y = vb && d < Dk ? *reinterpret_cast<const float2*>(kp + rb * Dk + d) : make_float2(0.0f, 0.0f);
+                kv[u][0] = x.x;
+                kv[u][1] = x.y;
+                kv[u][2] = y.x;
+                kv[u][3] = y.y;
+              } else {
+                kv[u][0] = va && d < Dk ? kp[ra * Dk + d] : 0.0f;
+                kv[u][1] = va && d + 1 < Dk ? kp[ra * Dk + d + 1] : 0.0f;
+                kv[u][2] = vb && d < Dk ? kp[rb * Dk + d] : 0.0f;
+                kv[u][3] = vb && d + 1 < Dk ? kp[rb * Dk + d + 1] : 0.0f;
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < NTPF; ++u) {
+              const int n0 = (nc0 + u * wpm) * 8;
+              if (n0 >= Dk) break;
+              const int d = n0 + 2 * tig;
+              float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              for (int k0 = 0; k0 < K; k0 += 8) {
+                const int ka = k0 + tig, kb = ka + 4;
+                const float av[4] = {fa[ka], fb[ka], fa[kb], fb[kb]};
+                const float bv[2] = {ka < K ? wl[ka * WLS + n0 + g8] : 0.0f,
+                                     kb < K ? wl[kb * WLS + n0 + g8] : 0.0f};
+                mma_3xtf32(dacc, av, bv);
+              }
+              const float q0 = qb[d], q1 = qb[d + 1], l0 = lv[d], l1 = lv[d + 1];
+              r0 = fmaf(l0, tanh_fast(kv[u][0] + q0 + dacc[0]), r0);
+              r0 = fmaf(l1, tanh_fast(kv[u][1] + q1 + dacc[1]), r0);
+              r1 = fmaf(l0, tanh_fast(kv[u][2] + q0 + dacc[2]), r1);
+              r1 = fmaf(l1, tanh_fast(kv[u][3] + q1 + dacc[3]), r1);
             }
           }
           r0 += __shfl_xor_sync(0xffffffffu, r0, 1);
@@ -487,8 +567,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
           r1 += __shfl_xor_sync(0xffffffffu, r1, 1);
           r1 += __shfl_xor_sync(0xffffffffu, r1, 2);
           if (tig == 0) {
-            epart[wid * Sl16 + ra] += r0;
-            epart[wid * Sl16 + rb] += r1;
+            epart[wid * Sl16 + ra] = r0;
+            epart[wid * Sl16 + rb] = r1;
           }
         }
         __syncthreads();
@@ -555,7 +635,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
           const int q = s / Sb;
           al = *cluster.map_shared_rank(en + i * Sl + s - q * Sb, q) * scl[q];
         }
-        att[i * S + s] = al;
+        att[i * SA + APAD + s] = al;
         if (s / Sl == rank) a.align[row * S + s] = al;
       }
       for (int e = e0 + tid; e < e0 + ne; e += NT) {
@@ -578,37 +658,82 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
     // [16 utterances, E + H] x [E + H, 8 columns] tiles on the tensor cores
     // (mma m16n8k8, three TF32 products per tile for float32 accuracy), the
     // k-steps dealt over the warps; the warps' partial tiles summed in a
-    // fixed order through shared memory, four warps a round
+    // fixed order through shared memory, four warps a round. The cell
+    // update's row of ew (by the token fed) is loaded first, in the
+    // background, for a thread's first (utterance, unit)
+    const int ncu = nu > 0 ? B * nu : 0;
+    float ewp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (tid < ncu) {
+      const float* ewr = a.ew + (long)__ldcg(a.tokens + (long)t * B + tid / nu) * G4 + u0 + tid % nu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) ewp[g] = ewr[g * H];
+    }
     for (int ub = 0; ub < B && nu > 0; ub += 16) {
       const int rows = t > 0 ? X : E;  // h = 0 before the first step
-      const int ksteps = cdiv(rows, 8), g8 = lane >> 2, tig = lane & 3;
+      const int nch = cdiv(rows, 16), g8 = lane >> 2, tig = lane & 3;
       const long ra = (long)t * B + ub + g8, rb = ra + 8;
       const bool oka = ub + g8 < B, okb = ub + g8 + 8 < B;
+      const float* ca = a.ctxs + ra * E;
+      const float* cb = a.ctxs + rb * E;
+      const float* ha = a.hidden + (ra - B) * H - E;  // ha[r] = h of row r >= E
+      const float* hb = a.hidden + (rb - B) * H - E;
+      const bool vec = E % 4 == 0;  // rows of ctx and h start on 16 bytes
       for (int n0 = 0; n0 < nc; n0 += 16) {
+        const int c0 = n0 + g8, c1 = c0 + 8;  // the lane's columns of the two tiles
+        const bool okc0 = c0 < nc, okc1 = c1 < nc;
         float d[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) d[q] = 0.0f;
-        for (int kc = wid; kc < ksteps; kc += NW * KPF) {
-          float av[KPF][4];  // the warp's next KPF k-steps of inputs, all loads in flight
+        for (int kc = wid; kc < nch; kc += NW * KPF) {
+          // chunk kc + NW u: input columns 16 (kc + NW u) + 4 tig .. + 3 of
+          // rows g8 and g8 + 8 (one 16-byte load each, all in flight)
+          float aa[KPF][4], ab[KPF][4];
 #pragma unroll
           for (int u = 0; u < KPF; ++u) {
-            const int ka = (kc + NW * u) * 8 + tig, kb = ka + 4;
-            av[u][0] = oka && ka < rows ? gate_input(a, ra, ka) : 0.0f;
-            av[u][1] = okb && ka < rows ? gate_input(a, rb, ka) : 0.0f;
-            av[u][2] = oka && kb < rows ? gate_input(a, ra, kb) : 0.0f;
-            av[u][3] = okb && kb < rows ? gate_input(a, rb, kb) : 0.0f;
+            const int k0 = 16 * (kc + NW * u), kx = k0 + 4 * tig;
+            if (vec && k0 + 16 <= E) {
+              const float4 x = oka ? __ldcg(reinterpret_cast<const float4*>(ca + kx)) : make_float4(0, 0, 0, 0);
+              const float4 y = okb ? __ldcg(reinterpret_cast<const float4*>(cb + kx)) : make_float4(0, 0, 0, 0);
+              aa[u][0] = x.x; aa[u][1] = x.y; aa[u][2] = x.z; aa[u][3] = x.w;
+              ab[u][0] = y.x; ab[u][1] = y.y; ab[u][2] = y.z; ab[u][3] = y.w;
+            } else if (vec && k0 >= E && k0 + 16 <= rows) {
+              const float4 x = oka ? __ldcg(reinterpret_cast<const float4*>(ha + kx)) : make_float4(0, 0, 0, 0);
+              const float4 y = okb ? __ldcg(reinterpret_cast<const float4*>(hb + kx)) : make_float4(0, 0, 0, 0);
+              aa[u][0] = x.x; aa[u][1] = x.y; aa[u][2] = x.z; aa[u][3] = x.w;
+              ab[u][0] = y.x; ab[u][1] = y.y; ab[u][2] = y.z; ab[u][3] = y.w;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                aa[u][e] = oka && kx + e < rows ? gate_input(a, ra, kx + e) : 0.0f;
+                ab[u][e] = okb && kx + e < rows ? gate_input(a, rb, kx + e) : 0.0f;
+              }
+            }
           }
 #pragma unroll
           for (int u = 0; u < KPF; ++u) {
-            const int ka = (kc + NW * u) * 8 + tig, kb = ka + 4;
-            if (ka - tig >= rows) break;
+            const int k0 = 16 * (kc + NW * u), kx = k0 + 4 * tig;
+            if (k0 >= rows) break;
+            float w0[4], w1[4];  // rows kx .. + 3 of the lane's two columns
+            if (a.w_smem) {
+              const float4 x = okc0 ? *reinterpret_cast<const float4*>(wt + c0 * WST + kx) : make_float4(0, 0, 0, 0);
+              const float4 y = okc1 ? *reinterpret_cast<const float4*>(wt + c1 * WST + kx) : make_float4(0, 0, 0, 0);
+              w0[0] = x.x; w0[1] = x.y; w0[2] = x.z; w0[3] = x.w;
+              w1[0] = y.x; w1[1] = y.y; w1[2] = y.z; w1[3] = y.w;
+            } else {
 #pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              const int cc = n0 + 8 * q + g8;
-              float bv[2];
-              bv[0] = cc < nc && ka < rows ? gate_weight(a, wt, cc, ka, nu, u0) : 0.0f;
-              bv[1] = cc < nc && kb < rows ? gate_weight(a, wt, cc, kb, nu, u0) : 0.0f;
-              mma_3xtf32(d + 4 * q, av[u], bv);
+              for (int e = 0; e < 4; ++e) {
+                w0[e] = okc0 && kx + e < rows ? gate_weight(a, c0, kx + e, nu, u0) : 0.0f;
+                w1[e] = okc1 && kx + e < rows ? gate_weight(a, c1, kx + e, nu, u0) : 0.0f;
+              }
+            }
+            // k-step j of the chunk: its k = tig and tig + 4 are the input
+            // columns kx + 2 j and kx + 2 j + 1 (a permutation of the 16)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float av[4] = {aa[u][2 * j], ab[u][2 * j], aa[u][2 * j + 1], ab[u][2 * j + 1]};
+              const float b0[2] = {w0[2 * j], w0[2 * j + 1]}, b1[2] = {w1[2 * j], w1[2 * j + 1]};
+              mma_3xtf32(d, av, b0);
+              mma_3xtf32(d + 4, av, b1);
             }
           }
         }
@@ -628,33 +753,41 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
           float v = 0.0f;
 #pragma unroll
           for (int w4 = 0; w4 < 4; ++w4) v += gpart[(w4 * 32 + ln) * 8 + q];
-          if (n0 + cl < nc) gsum[bl * ncmax + n0 + cl] = v;
+          if (n0 + cl < nc && ub + bl < B) gsum[(ub + bl) * ncmax + n0 + cl] = v;
         }
         __syncthreads();
       }
-      // cell update: one thread per (utterance, unit)
-      for (int x = tid; x < min(16, B - ub) * nu; x += NT) {
-        const int bl = x / nu, b = ub + bl, jj = x % nu, u = u0 + jj;
-        const long row = (long)t * B + b;
-        const float* ewr = a.ew + (long)__ldcg(a.tokens + row) * G4 + u;
-        const float* gs = gsum + bl * ncmax;
-        const float ig = sigmoidf_(gs[jj] + ewr[0]), fg = sigmoidf_(gs[nu + jj] + ewr[H]),
-                    gg = tanhf(gs[2 * nu + jj] + ewr[2 * H]), og = sigmoidf_(gs[3 * nu + jj] + ewr[3 * H]);
-        const float cn = fg * cst[b * numax + jj] + ig * gg;
-        cst[b * numax + jj] = cn;
-        a.hidden[row * H + u] = og * tanhf(cn);
-        a.cseq[row * H + u] = cn;
-        float* ac = a.acts + row * G4 + u;
-        ac[0] = ig;
-        ac[H] = fg;
-        ac[2 * H] = gg;
-        ac[3 * H] = og;
-      }
-      __syncthreads();
     }
-    PHASE(t, 9);  // gate product and cell update
+    PHASE(t, 9);  // gate product
+    // cell update: one thread per (utterance, unit)
+    for (int x = tid; x < ncu; x += NT) {
+      const int b = x / nu, jj = x % nu, u = u0 + jj;
+      const long row = (long)t * B + b;
+      float ewv[4];
+      if (x == tid) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) ewv[g] = ewp[g];
+      } else {
+        const float* ewr = a.ew + (long)__ldcg(a.tokens + row) * G4 + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) ewv[g] = ewr[g * H];
+      }
+      const float* gs = gsum + b * ncmax;
+      const float ig = sigmoidf_(gs[jj] + ewv[0]), fg = sigmoidf_(gs[nu + jj] + ewv[1]),
+                  gg = tanhf(gs[2 * nu + jj] + ewv[2]), og = sigmoidf_(gs[3 * nu + jj] + ewv[3]);
+      const float cn = fg * cst[b * numax + jj] + ig * gg;
+      cst[b * numax + jj] = cn;
+      a.hidden[row * H + u] = og * tanhf(cn);
+      a.cseq[row * H + u] = cn;
+      float* ac = a.acts + row * G4 + u;
+      ac[0] = ig;
+      ac[H] = fg;
+      ac[2 * H] = gg;
+      ac[3 * H] = og;
+    }
+    PHASE(t, 10);  // cell update
     grid.sync();  // h' of every utterance is in global memory
-    PHASE(t, 10);  // grid barrier 2
+    PHASE(t, 11);  // grid barrier 2
 
     // ---- phase C, each slot: logits of the own vocabulary slice, local
     // argmax, own slice of the next q
@@ -728,9 +861,9 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
       }
       __syncthreads();
     }
-    PHASE(t, 11);  // logits, argmax and q slice
+    PHASE(t, 12);  // logits, argmax and q slice
     cluster.sync();  // q slices and the local argmaxes are readable
-    PHASE(t, 12);  // cluster barrier 2
+    PHASE(t, 13);  // cluster barrier 2
   }
 }
 

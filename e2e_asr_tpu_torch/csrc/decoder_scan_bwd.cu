@@ -33,31 +33,42 @@
 // two passes that each rebuilt the tanh energies (one warp per frame, then
 // one thread per attention unit walking the frames), an eighth streaming its
 // rows of Wx and Wh from L2, and ran B = 16 utterances in two waves (at most
-// 15 such clusters are resident).
-// Design: a persistent grid of G co-resident clusters of CL = 8 blocks
-// (cooperative launch, grid.sync()), three grid barriers a step:
+// 15 such clusters are resident). As in the forward, the row stage then
+// waited on its inputs (every block pulls all utterances' dgates, 82 KB a
+// step at the flagship), now loaded 16 bytes at a time, as are v and the
+// k prefetch.
+// Design: a persistent grid of G co-resident clusters of CL blocks
+// (cooperative launch, CL and G picked by the wrapper as for the forward),
+// three grid barriers a step:
 //   gate stage  each block: dh, dc and dgates of its hidden units for every
 //               utterance (dq Wq^T and dlogits Wout^T from the units' rows);
 //   grid barrier
 //   row stage   each block: its rows of Wx[Emb:] (a slice of the context
 //               columns) and of Wh (its units), resident in shared memory
-//               once per launch, times the dgates of every utterance: dctx
-//               to global memory, dh_lstm kept for the next gate stage;
+//               once per launch, times the dgates of every utterance as
+//               [16 utterances, 4H] x [4H, 8 rows] tiles on the tensor cores
+//               (three TF32 products a tile, 16-byte loads of 16-column
+//               chunks): dctx to global memory, dh_lstm kept for the next
+//               gate stage;
 //   grid barrier
 //   attention   each cluster, each of its utterances (ranked by length and
-//               dealt in a snake order, valid frames split evenly over the 8
-//               blocks): the softmax term (the 8 blocks' shares of
-//               <dalign, align> pulled after a cluster barrier), the conv
-//               one warp per (frame, filter), the tanh energies rebuilt ONCE
-//               over (frame, unit) into shared memory (dk added there), then
-//               dq, dlocv, dWlp as reductions over the frames and dfpre one
-//               warp per (frame, filter); cluster barrier; dq (own slice)
-//               and dfpre of all frames pulled from the 8 blocks, the
-//               transposed conv one warp per frame;
+//               dealt in a snake order, valid frames split evenly over the
+//               blocks): the softmax term (the blocks' shares of
+//               <dalign, align>, published by the grid barriers), the conv
+//               over 4-frame register windows, the tanh energies rebuilt
+//               ONCE into shared memory (f Wlp on the tensor cores, a warp
+//               walking the units of one 16-frame tile, k prefetched with
+//               cp.async; dk added there), dq and dlocv as sums over the
+//               frames, dWlp += f^T de and dfpre = de Wlp^T as tensor-core
+//               tiles; cluster barrier; dq (own slice) and dfpre of all
+//               frames pulled from the blocks, the transposed conv over
+//               4-frame register windows;
 //   grid barrier.
 // dk of a block's frames (first slot), its frames of k and v stay in shared
-// memory where they fit (the wrapper decides, in order: the rows, dk, k, v)
-// and are read from L2 otherwise; the taps are read through L1.
+// memory where they fit (the wrapper decides, in order: the energies and
+// dfpre buffers, the rows, dk, k, v) and are read from L2 or a global
+// scratch otherwise; S is bounded only by the per-frame buffers (about
+// 6,800 frames at the flagship widths on 8-block clusters).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -68,10 +79,13 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int CLMAX = 8; // blocks per cluster, at most (the portable cluster size)
-constexpr int NSPL = 4;  // threads a conv sum is split over
+constexpr int NSPL = 4;   // threads a conv sum is split over, at most
+constexpr int APAD = 4;  // zeros on each side of a stored alignment or dfpre (the convs' 4-frame windows)
+constexpr int NTPF = 8;  // energy tiles whose k a lane loads at once
 constexpr int NT = 512;  // threads per block
 constexpr int NW = NT / 32;
 constexpr int UCH = 4;   // hidden units a lane accumulates at once in the gate stage
+constexpr int KPF = 5;   // 16-column chunks of row-stage inputs a warp loads at once
 constexpr size_t SMEM_MAX = 227 * 1024;
 
 // Timing build (nvcc -DSCAN_PHASES): block 0 writes its SM's clock64() at
@@ -120,11 +134,33 @@ __device__ float block_sum(float x, float* red) {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// 4 bytes global -> shared in the background (cp.async); cp_async_wait_all
-// waits for the thread's own copies
+// threads a conv sum of a block with Sl frames is split over: NSPL, fewer
+// where the (4 frames, filter) items alone fill the block
+__host__ __device__ inline int conv_parts(int Sl, int K) {
+  const int n = NT / (cdiv(Sl, 4) * K);
+  return n < 1 ? 1 : n < NSPL ? n : NSPL;
+}
+
+// row strides of the energies' operands: f [frames][KPS] (filters padded to
+// a multiple of 8 with zeros) and Wlp [K][WLS]; both keep a warp's fragment
+// loads free of bank conflicts
+__host__ __device__ inline int kps_of(int K) { return cdiv(K, 8) * 8 + 4; }
+__host__ __device__ inline int wls_of(int Dk) { return cdiv(Dk, 32) * 32 + 8; }
+
+// row stride of the resident rows of Wx[Emb:] and Wh: 4H + 16 (4H is a
+// multiple of 32; a quarter warp's 16-byte loads free of bank conflicts)
+__host__ __device__ inline int row_stride(int H) { return 4 * H + 16; }
+
+// 4 or 16 bytes global -> shared in the background (cp.async);
+// cp_async_wait_all waits for the thread's own copies
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
@@ -202,17 +238,15 @@ struct BwdArgs {
   int es_smem, dfa_smem, wr_smem, dk_smem, k_smem, v_smem;
 };
 
-// the block's row r (of [Wx[Emb + er0 .. + ner]; Wh[u0 ..]]) at column k:
-// from shared memory where the rows are resident, else from global memory
-__device__ __forceinline__ float row_weight(const BwdArgs& a, const float* wr, int r, int k, int ner,
-                                            int er0, int u0) {
-  if (a.wr_smem) return wr[r * (4 * a.H + 4) + k];
+// the block's row r (of [Wx[Emb + er0 .. + ner]; Wh[u0 ..]]) at column k
+// from global memory, where the rows are not resident
+__device__ __forceinline__ float row_weight(const BwdArgs& a, int r, int k, int ner, int er0, int u0) {
   return r < ner ? __ldg(a.wx + (long)(a.Emb + er0 + r) * 4 * a.H + k)
                  : __ldg(a.wh + (long)(u0 + r - ner) * 4 * a.H + k);
 }
 
 struct BwdLayout {
-  size_t wr, dks, ks, vs, es, attp, attt, base, den, fs, dfo, dfa, dctx, ctx, dqp, qb, lv, wl, dwl,
+  size_t wr, dks, ks, vs, es, attp, attt, base, den, dnx, fs, dfo, dfa, dctx, ctx, dqp, qb, lv, wl, dwl,
       datt, p2s, dhl, dcc, gdot, red, ord, tp, cpart, tpart, total;
 };
 
@@ -222,26 +256,28 @@ __host__ __device__ inline BwdLayout bwd_layout(int B, int S, int Dk, int E, int
                                                  int wr, int dkres, int kres, int vres) {
   const int nb = G * CL, numax = cdiv(H, nb), nrmax = cdiv(E, nb) + numax;
   const int Sl = cdiv(S, CL);
+  const int Sl4 = cdiv(Sl, 4) * 4, Sl16 = cdiv(Sl, 16) * 16, Dk8 = cdiv(Dk, 8) * 8;
   BwdLayout l;
   size_t o = 0;
-  l.wr = o;   o += wr ? (size_t)nrmax * (4 * H + 4) : 0;
+  l.wr = o;   o += wr ? (size_t)nrmax * row_stride(H) : 0;
+  l.dctx = o; o += E;  // on 16 bytes: row_stride is a multiple of 16 floats
   l.dks = o;  o += dkres ? (size_t)Sl * Dk : 0;
   l.ks = o;   o += kres ? (size_t)Sl * Dk : 0;
   l.vs = o;   o += vres ? (size_t)Sl * E : 0;
   l.es = o;   o += esres ? (size_t)Sl * Dk : 0;
-  l.attp = o; o += S;
+  l.attp = o; o += S + 2 * APAD;
   l.attt = o; o += Sl;
   l.base = o; o += Sl;
   l.den = o;  o += Sl;
-  l.fs = o;   o += (size_t)Sl * K;
+  l.dnx = o;  o += Sl;
+  l.fs = o;   o += (size_t)Sl16 * kps_of(K);
   l.dfo = o;  o += (size_t)Sl * K;
-  l.dfa = o;  o += dfares ? (size_t)S * K : 0;
-  l.dctx = o; o += E;
+  l.dfa = o;  o += dfares ? (size_t)(S + 2 * APAD) * K : 0;
   l.ctx = o;  o += E;
   l.dqp = o;  o += Dk;
-  l.qb = o;   o += Dk;
-  l.lv = o;   o += Dk;
-  l.wl = o;   o += (size_t)K * Dk;
+  l.qb = o;   o += Dk8;
+  l.lv = o;   o += Dk8;
+  l.wl = o;   o += (size_t)K * wls_of(Dk);
   l.dwl = o;  o += (size_t)K * Dk;
   l.datt = o; o += (size_t)NS * Sl;
   l.p2s = o;  o += NS;
@@ -251,7 +287,7 @@ __host__ __device__ inline BwdLayout bwd_layout(int B, int S, int Dk, int E, int
   l.red = o;  o += NW;
   l.ord = o;  o += B;
   l.tp = o;   o += (size_t)K * P;
-  l.cpart = o; o += NSPL * (size_t)Sl * K;
+  l.cpart = o; o += (size_t)conv_parts(Sl, K) * Sl4 * K;
   l.tpart = o; o += 4 * 32 * 8;
   l.total = o;
   return l;
@@ -279,25 +315,31 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
   const BwdLayout ly = bwd_layout(B, S, Dk, E, K, P, H, G, CL, NS, a.es_smem, a.dfa_smem, a.wr_smem,
                                   a.dk_smem, a.k_smem, a.v_smem);
-  float* own = a.scratch + (long)j * ((long)Sl * Dk + (long)S * K);  // this block's scratch
-  float* wr = smem + ly.wr;      // [nr][4H + 4] rows of Wx[Emb:] and Wh (padded: no bank conflicts)
+  const int Sl4 = cdiv(Sl, 4) * 4, Dk8 = cdiv(Dk, 8) * 8;
+  const int nsp = conv_parts(Sl, K);
+  const int SA = S + 2 * APAD, KPS = kps_of(K), WLS = wls_of(Dk);
+  const int WRS = row_stride(H);
+  float* own = a.scratch + (long)j * ((long)Sl * Dk + (long)SA * K);  // this block's scratch
+  float* wr = smem + ly.wr;      // [nr][WRS] rows of Wx[Emb:] and Wh (row_stride)
   float* dks = smem + ly.dks;    // [Sl][Dk]  dk of slot 0's own frames
   float* ks = smem + ly.ks;      // [Sl][Dk]  slot 0's own frames of k
   float* vs = smem + ly.vs;      // [Sl][E]   and of v
   float* es = a.es_smem ? smem + ly.es : own;  // [Sl][Dk]  the rebuilt tanh energies
-  float* attp = smem + ly.attp;  // [S]       alignment of step t-1
+  float* attp = smem + ly.attp + APAD;  // [S] alignment of step t-1, APAD zeros on each side
   float* attt = smem + ly.attt;  // [Sl]      alignment of step t, own frames
   float* base = smem + ly.base;  // [Sl]      dalign_up + dalign_carry
   float* den = smem + ly.den;    // [Sl]      denergy
-  float* fs = smem + ly.fs;      // [Sl][K]   location features
+  float* dnx = smem + ly.dnx;    // [Sl]      dalign_up of step t-1, own frames
+  float* fs = smem + ly.fs;      // [Sl16][KPS] location features (zeros past nv and K)
   float* dfo = smem + ly.dfo;    // [Sl][K]   dfpre of the own frames
-  float* dfa = a.dfa_smem ? smem + ly.dfa : own + (long)Sl * Dk;  // [S][K] dfpre of all frames
+  // [S][K] dfpre of all frames, zero outside [0, len) with APAD zero rows on each side
+  float* dfa = (a.dfa_smem ? smem + ly.dfa : own + (long)Sl * Dk) + APAD * K;
   float* dctx = smem + ly.dctx;  // [E]
   float* ctx = smem + ly.ctx;    // [E]
   float* dqp = smem + ly.dqp;    // [Dk]      dq over the own frames
-  float* qb = smem + ly.qb;      // [Dk]      q + locb
-  float* lv = smem + ly.lv;      // [Dk]
-  float* wl = smem + ly.wl;      // [K][Dk]
+  float* qb = smem + ly.qb;      // [Dk8]     q + locb (zeros past Dk)
+  float* lv = smem + ly.lv;      // [Dk8]     locv (zeros past Dk)
+  float* wl = smem + ly.wl;      // [K][WLS]  Wlp (zeros past Dk)
   float* dwl = smem + ly.dwl;    // [K][Dk]   dWlp partial of this block
   float* datt = smem + ly.datt;  // [NS][Sl]  dalign_carry, own frames
   float* p2s = smem + ly.p2s;    // [NS]      own share of <dalign_up + carry, align>
@@ -307,15 +349,21 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
   float* red = smem + ly.red;    // [NW]
   int* ord = (int*)(smem + ly.ord);  // [B]
   float* tp = smem + ly.tp;          // [K][P]    conv taps
-  float* cpart = smem + ly.cpart;    // [NSPL][Sl][K] parts of the conv sums
+  float* cpart = smem + ly.cpart;    // [nsp][Sl4][K] parts of the conv sums
   float* tpart = smem + ly.tpart;    // [4][32][8] four warps' partial tiles
 
   // ---- once per launch
-  for (int i = tid; i < K * Dk; i += NT) {
-    wl[i] = a.wlp[i];
-    dwl[i] = 0.0f;
+  for (int i = tid; i < K * Dk; i += NT) dwl[i] = 0.0f;
+  for (int i = tid; i < K * WLS; i += NT) wl[i] = i % WLS < Dk ? a.wlp[(i / WLS) * Dk + i % WLS] : 0.0f;
+  for (int i = tid; i < Dk8; i += NT) {
+    lv[i] = i < Dk ? a.locv[i] : 0.0f;
+    qb[i] = 0.0f;
   }
-  for (int i = tid; i < Dk; i += NT) lv[i] = a.locv[i];
+  for (int i = tid; i < APAD; i += NT) {
+    attp[-APAD + i] = 0.0f;
+    attp[S + i] = 0.0f;
+  }
+  for (int i = tid; i < APAD * K; i += NT) dfa[-APAD * K + i] = 0.0f;
   for (int i = tid; i < K * P; i += NT) tp[i] = a.taps[i];
   for (int i = tid; i < B * numax; i += NT) {
     dhl[i] = 0.0f;
@@ -324,7 +372,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
   if (a.wr_smem) {
     for (int i = tid; i < nr * G4; i += NT) {
       const int r = i / G4, col = i % G4;
-      wr[r * (G4 + 4) + col] = r < ner ? a.wx[(long)(Emb + er0 + r) * G4 + col] : a.wh[(long)(u0 + r - ner) * G4 + col];
+      wr[r * WRS + col] = r < ner ? a.wx[(long)(Emb + er0 + r) * G4 + col] : a.wh[(long)(u0 + r - ner) * G4 + col];
     }
   }
   rank_utterances(a.enc_len, B, S, ord);
@@ -366,7 +414,20 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
     PHASE(t, 0);
     // ---- gate stage: dh, dc, dgates of the own units, every utterance.
     // First dlogits Wout^T + dq Wq^T of the units, one warp per utterance,
-    // UCH units at once; then one thread per (utterance, unit)
+    // UCH units at once; then one thread per (utterance, unit), whose
+    // stored activations, c and dhidden are loaded first, in the background,
+    // for a thread's first (utterance, unit)
+    const bool dq4 = Dk % 4 == 0 && ((uintptr_t)a.dq & 15) == 0 && ((uintptr_t)a.wq & 15) == 0;
+    float pf[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (nu > 0 && tid < B * nu) {
+      const int u = u0 + tid % nu;
+      const long row = (long)t * B + tid / nu;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) pf[g] = a.acts[row * G4 + g * H + u];
+      pf[4] = a.cseq[row * H + u];
+      pf[5] = t > 0 ? a.cseq[(row - B) * H + u] : 0.0f;
+      pf[6] = a.dhidden[row * H + u];
+    }
     for (int b = wid; b < B && nu > 0; b += NW) {
       const long row = (long)t * B + b;
       for (int j0 = 0; j0 < nu; j0 += UCH) {
@@ -379,7 +440,31 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
           for (int q = 0; q < UCH; ++q)
             if (j0 + q < nu) acc[q] = fmaf(x, __ldg(a.wout + (long)(u0 + j0 + q) * V + vv), acc[q]);
         }
-        if (t + 1 < L) {
+        if (t + 1 < L && dq4) {  // rows of dq and Wq on 16 bytes: 16-byte loads, dq's all in flight
+          float4 xs[NT / 128];
+#pragma unroll
+          for (int r = 0; r < NT / 128; ++r) {
+            const int d = 4 * lane + 128 * r;
+            xs[r] = d < Dk ? __ldcg(reinterpret_cast<const float4*>(a.dq + (row + B) * Dk + d))
+                           : make_float4(0, 0, 0, 0);
+          }
+#pragma unroll
+          for (int r = 0; r < NT / 128; ++r) {
+            const int d = 4 * lane + 128 * r;
+            if (d >= Dk) break;
+            const float4 x = xs[r];
+#pragma unroll
+            for (int q = 0; q < UCH; ++q) {
+              if (j0 + q < nu) {
+                const float4 w = __ldg(reinterpret_cast<const float4*>(a.wq + (long)(u0 + j0 + q) * Dk + d));
+                acc[q] = fmaf(x.x, w.x, acc[q]);
+                acc[q] = fmaf(x.y, w.y, acc[q]);
+                acc[q] = fmaf(x.z, w.z, acc[q]);
+                acc[q] = fmaf(x.w, w.w, acc[q]);
+              }
+            }
+          }
+        } else if (t + 1 < L) {
 #pragma unroll 4
           for (int d = lane; d < Dk; d += 32) {
             const float x = __ldcg(a.dq + (row + B) * Dk + d);
@@ -399,11 +484,21 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
     for (int x = tid; x < B * nu; x += NT) {
       const int b = x / nu, jj = x % nu, u = u0 + jj;
       const long row = (long)t * B + b;
-      const float* ac = a.acts + row * G4;
-      const float ig = ac[u], fg = ac[H + u], gg = ac[2 * H + u], og = ac[3 * H + u];
-      const float tc = tanhf(a.cseq[row * H + u]);
-      const float cp = t > 0 ? a.cseq[(row - B) * H + u] : 0.0f;
-      const float dh = gdot[b * numax + jj] + a.dhidden[row * H + u] + dhl[b * numax + jj];
+      float v[7];
+      if (x == tid) {
+#pragma unroll
+        for (int g = 0; g < 7; ++g) v[g] = pf[g];
+      } else {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) v[g] = a.acts[row * G4 + g * H + u];
+        v[4] = a.cseq[row * H + u];
+        v[5] = t > 0 ? a.cseq[(row - B) * H + u] : 0.0f;
+        v[6] = a.dhidden[row * H + u];
+      }
+      const float ig = v[0], fg = v[1], gg = v[2], og = v[3];
+      const float tc = tanhf(v[4]);
+      const float cp = v[5];
+      const float dh = gdot[b * numax + jj] + v[6] + dhl[b * numax + jj];
       const float dc = dcc[b * numax + jj] + dh * og * (1.0f - tc * tc);
       float* dg = a.dgates + row * G4 + u;
       dg[0] = dc * gg * ig * (1.0f - ig);
@@ -421,29 +516,55 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
     // (three TF32 products a tile), the k-steps dealt over the warps, the
     // partial tiles summed in a fixed order, four warps a round
     for (int ub = 0; ub < B && nr > 0; ub += 16) {
-      const int ksteps = G4 / 8, g8 = lane >> 2, tig = lane & 3;
+      const int nch = G4 / 16, g8 = lane >> 2, tig = lane & 3;  // 4H: a multiple of 32
       const float* ga = a.dgates + ((long)t * B + ub + g8) * G4;
       const float* gb = ga + 8L * G4;
       const bool oka = ub + g8 < B, okb = ub + g8 + 8 < B;
       for (int n0 = 0; n0 < nr; n0 += 16) {
+        const int r0 = n0 + g8, r1 = r0 + 8;  // the lane's rows of the two tiles
+        const bool okr0 = r0 < nr, okr1 = r1 < nr;
         float d[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) d[q] = 0.0f;
-#pragma unroll 4
-        for (int ks = wid; ks < ksteps; ks += NW) {
-          const int ka = ks * 8 + tig, kb = ka + 4;
-          float av[4];
-          av[0] = oka ? __ldcg(ga + ka) : 0.0f;
-          av[1] = okb ? __ldcg(gb + ka) : 0.0f;
-          av[2] = oka ? __ldcg(ga + kb) : 0.0f;
-          av[3] = okb ? __ldcg(gb + kb) : 0.0f;
+        for (int kc = wid; kc < nch; kc += NW * KPF) {
+          // chunk kc + NW u: dgates columns 16 (kc + NW u) + 4 tig .. + 3 of
+          // utterances g8 and g8 + 8 (one 16-byte load each, all in flight)
+          float4 aa[KPF], ab[KPF];
 #pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int r = n0 + 8 * q + g8;
-            float bv[2];
-            bv[0] = r < nr ? row_weight(a, wr, r, ka, ner, er0, u0) : 0.0f;
-            bv[1] = r < nr ? row_weight(a, wr, r, kb, ner, er0, u0) : 0.0f;
-            mma_3xtf32(d + 4 * q, av, bv);
+          for (int u = 0; u < KPF; ++u) {
+            const int kx = 16 * (kc + NW * u) + 4 * tig;
+            const bool ok = kc + NW * u < nch;
+            aa[u] = ok && oka ? __ldcg(reinterpret_cast<const float4*>(ga + kx)) : make_float4(0, 0, 0, 0);
+            ab[u] = ok && okb ? __ldcg(reinterpret_cast<const float4*>(gb + kx)) : make_float4(0, 0, 0, 0);
+          }
+#pragma unroll
+          for (int u = 0; u < KPF; ++u) {
+            if (kc + NW * u >= nch) break;
+            const int kx = 16 * (kc + NW * u) + 4 * tig;
+            float w0[4], w1[4];  // columns kx .. + 3 of the lane's two rows
+            if (a.wr_smem) {
+              const float4 x = okr0 ? *reinterpret_cast<const float4*>(wr + r0 * WRS + kx) : make_float4(0, 0, 0, 0);
+              const float4 y = okr1 ? *reinterpret_cast<const float4*>(wr + r1 * WRS + kx) : make_float4(0, 0, 0, 0);
+              w0[0] = x.x; w0[1] = x.y; w0[2] = x.z; w0[3] = x.w;
+              w1[0] = y.x; w1[1] = y.y; w1[2] = y.z; w1[3] = y.w;
+            } else {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                w0[e] = okr0 ? row_weight(a, r0, kx + e, ner, er0, u0) : 0.0f;
+                w1[e] = okr1 ? row_weight(a, r1, kx + e, ner, er0, u0) : 0.0f;
+              }
+            }
+            const float xa[4] = {aa[u].x, aa[u].y, aa[u].z, aa[u].w};
+            const float xb[4] = {ab[u].x, ab[u].y, ab[u].z, ab[u].w};
+            // k-step j of the chunk: its k = tig and tig + 4 are the columns
+            // kx + 2 j and kx + 2 j + 1 (a permutation of the 16)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float av[4] = {xa[2 * j], xb[2 * j], xa[2 * j + 1], xb[2 * j + 1]};
+              const float b0[2] = {w0[2 * j], w0[2 * j + 1]}, b1[2] = {w1[2 * j], w1[2 * j + 1]};
+              mma_3xtf32(d, av, b0);
+              mma_3xtf32(d + 4, av, b1);
+            }
           }
         }
         for (int rd = 0; rd < NW / 4; ++rd) {
@@ -481,12 +602,17 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
       const float uni = len > 0 ? 1.0f / (float)len : 0.0f;
       // k of the own frames into es in the background, where k is not resident
       const bool kres = i == 0 && a.k_smem, kpref = !kres && a.es_smem;
-      if (kpref)
-        for (int x = tid; x < nv * Dk; x += NT) cp_async4(es + x, a.k + ((long)b * S + s0) * Dk + x);
+      if (kpref) {
+        const float* kg = a.k + ((long)b * S + s0) * Dk;
+        const int n4 = ((uintptr_t)kg & 15) == 0 && ((uintptr_t)es & 15) == 0 ? nv * Dk / 4 : 0;
+        for (int x = tid; x < n4; x += NT) cp_async16(es + 4 * x, kg + 4 * x);
+        for (int x = 4 * n4 + tid; x < nv * Dk; x += NT) cp_async4(es + x, kg + x);
+      }
       for (int s = tid; s < S; s += NT) attp[s] = t > 0 ? a.align[(row - B) * S + s] : (s < len ? uni : 0.0f);
       for (int sl = tid; sl < nv; sl += NT) {
         attt[sl] = a.align[row * S + s0 + sl];
         base[sl] = a.dalign[row * S + s0 + sl] + datt[i * Sl + sl];
+        dnx[sl] = t > 0 ? a.dalign[(row - B) * S + s0 + sl] : 0.0f;
       }
       for (int d = tid; d < Dk; d += NT) qb[d] = a.qs[row * Dk + d] + a.locb[d];
       float sdot = 0.0f;
@@ -497,23 +623,43 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
         sdot = fmaf(dce, ce, sdot);
       }
       sdot = block_sum(sdot, red);  // its barriers publish the loads
-      cluster.sync();  // every block's share p2s is readable
+      // every block's share p2s (written before the last grid barrier, and
+      // rewritten only after the cluster barrier below) is readable
+      __syncthreads();
       if (tid < CL) red[NW - CLMAX + tid] = *cluster.map_shared_rank(p2s + i, tid);
       __syncthreads();
       for (int q = 0; q < CL; ++q) sdot += red[NW - CLMAX + q];
       // the softmax term, two own frames a warp
       const bool vres = i == 0 && a.v_smem;
+      const bool v4 = E % 4 == 0 && ((uintptr_t)(vres ? vs : a.v) & 15) == 0;
       for (int sl = wid; sl < nv; sl += 2 * NW) {
         const int sl2 = sl + NW;
         const bool two = sl2 < nv;
         const float* vr1 = vres ? vs + (long)sl * E : a.v + ((long)b * S + s0 + sl) * E;
         const float* vr2 = vres ? vs + (long)sl2 * E : a.v + ((long)b * S + s0 + sl2) * E;
         float acc1 = 0.0f, acc2 = 0.0f;
+        if (v4) {  // 16-byte loads of v and dctx
+#pragma unroll 5
+          for (int e = 4 * lane; e < E; e += 128) {
+            const float4 c = *reinterpret_cast<const float4*>(dctx + e);
+            const float4 x = *reinterpret_cast<const float4*>(vr1 + e);
+            const float4 y = two ? *reinterpret_cast<const float4*>(vr2 + e) : make_float4(0, 0, 0, 0);
+            acc1 = fmaf(c.x, x.x, acc1);
+            acc1 = fmaf(c.y, x.y, acc1);
+            acc1 = fmaf(c.z, x.z, acc1);
+            acc1 = fmaf(c.w, x.w, acc1);
+            acc2 = fmaf(c.x, y.x, acc2);
+            acc2 = fmaf(c.y, y.y, acc2);
+            acc2 = fmaf(c.z, y.z, acc2);
+            acc2 = fmaf(c.w, y.w, acc2);
+          }
+        } else {
 #pragma unroll 8
-        for (int e = lane; e < E; e += 32) {
-          const float x = dctx[e];
-          acc1 = fmaf(x, vr1[e], acc1);
-          if (two) acc2 = fmaf(x, vr2[e], acc2);
+          for (int e = lane; e < E; e += 32) {
+            const float x = dctx[e];
+            acc1 = fmaf(x, vr1[e], acc1);
+            if (two) acc2 = fmaf(x, vr2[e], acc2);
+          }
         }
         acc1 = warp_sum(acc1);
         acc2 = warp_sum(acc2);
@@ -522,61 +668,111 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
           if (two) den[sl2] = attt[sl2] * (acc2 + base[sl2] - sdot) * a.inv_temp;
         }
       }
-      PHASE(t, 5);  // the softmax term (with the cluster barrier for the shares)
-      // location features of step t-1's alignment: NSPL threads per (frame,
-      // filter), each a part of the taps
-      for (int x = tid; x < NSPL * nv * K; x += NT) {
-        const int pr = x / NSPL, part = x % NSPL, sl = pr / K, kk = pr % K, s = s0 + sl;
-        const int p0 = max(0, half - s), p1 = min(P, len + half - s), pc = cdiv(p1 - p0, NSPL);
+      PHASE(t, 5);  // loads and the softmax term
+      // location features of step t-1's alignment: threads over (4 frames,
+      // filter, part of the taps), the 4 frames' alignment values slid
+      // through registers (attp is zero outside [0, len), APAD zeros around)
+      for (int x = tid; x < nsp * cdiv(nv, 4) * K; x += NT) {
+        const int part = x % nsp, pr = x / nsp, kk = pr % K, sl = 4 * (pr / K), s = s0 + sl;
+        const int p0 = max(0, half - s - 3), p1 = min(P, len + half - s), pc = cdiv(p1 - p0, nsp);
+        const int pa = p0 + part * pc, pb = min(p1, pa + pc);
         const float* tk = tp + kk * P;
-        float acc = 0.0f;
-        for (int p = p0 + part * pc; p < min(p1, p0 + (part + 1) * pc); ++p)
-          acc = fmaf(attp[s + p - half], tk[p], acc);
-        cpart[part * Sl * K + pr] = acc;
+        const float* w = attp + s - half;  // w[p + j] = alignment at frame s + j + p - half
+        float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
+        if (pa < pb) {
+          float w0 = w[pa], w1 = w[pa + 1], w2 = w[pa + 2];
+#pragma unroll 4
+          for (int p = pa; p < pb; ++p) {
+            const float w3 = w[p + 3], tv = tk[p];
+            c0 = fmaf(w0, tv, c0);
+            c1 = fmaf(w1, tv, c1);
+            c2 = fmaf(w2, tv, c2);
+            c3 = fmaf(w3, tv, c3);
+            w0 = w1;
+            w1 = w2;
+            w2 = w3;
+          }
+        }
+        float* cp = cpart + (part * Sl4 + sl) * K + kk;
+        cp[0] = c0;
+        cp[K] = c1;
+        cp[2 * K] = c2;
+        cp[3 * K] = c3;
       }
       cp_async_wait_all();
       __syncthreads();
-      for (int x = tid; x < nv * K; x += NT) {
+      const int mt = cdiv(nv, 16);  // 16-frame tiles of the energies
+      for (int x = tid; x < mt * 16 * KPS; x += NT) {
+        const int sl = x / KPS, kk = x % KPS;
         float acc = 0.0f;
-        for (int part = 0; part < NSPL; ++part) acc += cpart[part * Sl * K + x];
+        if (sl < nv && kk < K)
+          for (int part = 0; part < nsp; ++part) acc += cpart[(part * Sl4 + sl) * K + kk];
         fs[x] = acc;
       }
       __syncthreads();
       PHASE(t, 6);  // conv
       // the tanh energies, rebuilt once: fW = f Wlp on the tensor cores
       // ([16 frames, K] x [K, 8 units] tiles), then e = tanh(k + q + fW) for
-      // each (frame, unit) of a tile in its lanes' registers; es = e, dk += de
+      // each (frame, unit) of a tile in its lanes' registers; es = e, dk +=
+      // de. A warp keeps one frame tile and walks its units, k of NTPF tiles
+      // loaded at once
       const bool dkres = i == 0 && a.dk_smem;
       float* dkg = a.dk + ((long)b * S + s0) * Dk;
       const int g8 = lane >> 2, tig = lane & 3;
       {
-        const int mt = cdiv(nv, 16), nt = cdiv(Dk, 8);
-        for (int item = wid; item < mt * nt; item += NW) {
-          const int m0 = (item / nt) * 16, n0 = (item % nt) * 8;
-          const int ra = m0 + g8, rb = ra + 8, cn = n0 + g8;
-          float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          for (int k0 = 0; k0 < K; k0 += 8) {
-            const int ka = k0 + tig, kb = ka + 4;
-            float av[4], bv[2];
-            av[0] = ra < nv && ka < K ? fs[ra * K + ka] : 0.0f;
-            av[1] = rb < nv && ka < K ? fs[rb * K + ka] : 0.0f;
-            av[2] = ra < nv && kb < K ? fs[ra * K + kb] : 0.0f;
-            av[3] = rb < nv && kb < K ? fs[rb * K + kb] : 0.0f;
-            bv[0] = ka < K && cn < Dk ? wl[ka * Dk + cn] : 0.0f;
-            bv[1] = kb < K && cn < Dk ? wl[kb * Dk + cn] : 0.0f;
-            mma_3xtf32(dacc, av, bv);
-          }
+        const int nt = cdiv(Dk, 8);
+        const int wpm = max(1, NW / max(mt, 1)), mg = NW / wpm;  // warps a frame tile, tiles at once
+        const float* kp = kres ? ks : kpref ? es : a.k + ((long)b * S + s0) * Dk;
+        const bool k2 = Dk % 2 == 0 && ((uintptr_t)kp & 7) == 0;
+        float* dkp = dkres ? dks : dkg;
+        for (int mi = wid / wpm; wid < mg * wpm && mi < mt; mi += mg) {
+          const int ra = mi * 16 + g8, rb = ra + 8;
+          const bool va = ra < nv, vb = rb < nv;
+          const float* fa = fs + ra * KPS;
+          const float* fb = fs + rb * KPS;
+          const float dna = va ? den[ra] : 0.0f, dnb = vb ? den[rb] : 0.0f;
+          for (int nc0 = wid % wpm; nc0 < nt; nc0 += NTPF * wpm) {
+            float kv[NTPF][4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int sl = e < 2 ? ra : rb, d = n0 + 2 * tig + (e & 1);
-            if (sl < nv && d < Dk) {
-              const int x = sl * Dk + d;
-              const float kv = kres ? ks[x] : kpref ? es[x] : a.k[((long)b * S + s0) * Dk + x];
-              const float ev = tanh_fast(kv + qb[d] + dacc[e]);
-              es[x] = ev;
-              const float de = den[sl] * lv[d] * (1.0f - ev * ev);
-              if (dkres) dks[x] += de;
-              else dkg[x] += de;
+            for (int u = 0; u < NTPF; ++u) {
+              const int d = (nc0 + u * wpm) * 8 + 2 * tig;
+              if (k2) {  // d even, Dk even: the pair in one 8-byte load
+                const float2 x = va && d < Dk ? *reinterpret_cast<const float2*>(kp + ra * Dk + d) : make_float2(0.0f, 0.0f);
+                const float2 y = vb && d < Dk ? *reinterpret_cast<const float2*>(kp + rb * Dk + d) : make_float2(0.0f, 0.0f);
+                kv[u][0] = x.x;
+                kv[u][1] = x.y;
+                kv[u][2] = y.x;
+                kv[u][3] = y.y;
+              } else {
+                kv[u][0] = va && d < Dk ? kp[ra * Dk + d] : 0.0f;
+                kv[u][1] = va && d + 1 < Dk ? kp[ra * Dk + d + 1] : 0.0f;
+                kv[u][2] = vb && d < Dk ? kp[rb * Dk + d] : 0.0f;
+                kv[u][3] = vb && d + 1 < Dk ? kp[rb * Dk + d + 1] : 0.0f;
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < NTPF; ++u) {
+              const int n0 = (nc0 + u * wpm) * 8;
+              if (n0 >= Dk) break;
+              const int d = n0 + 2 * tig;
+              float dacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+              for (int k0 = 0; k0 < K; k0 += 8) {
+                const int ka = k0 + tig, kb = ka + 4;
+                const float av[4] = {fa[ka], fb[ka], fa[kb], fb[kb]};
+                const float bv[2] = {ka < K ? wl[ka * WLS + n0 + g8] : 0.0f,
+                                     kb < K ? wl[kb * WLS + n0 + g8] : 0.0f};
+                mma_3xtf32(dacc, av, bv);
+              }
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int sl = e < 2 ? ra : rb, dd = d + (e & 1);
+                if ((e < 2 ? va : vb) && dd < Dk) {
+                  const int x = sl * Dk + dd;
+                  const float ev = tanh_fast(kv[u][e] + qb[dd] + dacc[e]);
+                  es[x] = ev;
+                  dkp[x] += (e < 2 ? dna : dnb) * lv[dd] * (1.0f - ev * ev);
+                }
+              }
             }
           }
         }
@@ -614,10 +810,10 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
             const int ra = m0 + g8, rb = ra + 8, cn = n0 + g8;
             for (int k0 = 0; k0 < nv; k0 += 8) {  // over the own frames
               const int ka = k0 + tig, kb = ka + 4;
-              av[0] = ra < K && ka < nv ? fs[ka * K + ra] : 0.0f;
-              av[1] = rb < K && ka < nv ? fs[ka * K + rb] : 0.0f;
-              av[2] = ra < K && kb < nv ? fs[kb * K + ra] : 0.0f;
-              av[3] = rb < K && kb < nv ? fs[kb * K + rb] : 0.0f;
+              av[0] = ra < K && ka < nv ? fs[ka * KPS + ra] : 0.0f;
+              av[1] = rb < K && ka < nv ? fs[ka * KPS + rb] : 0.0f;
+              av[2] = ra < K && kb < nv ? fs[kb * KPS + ra] : 0.0f;
+              av[3] = rb < K && kb < nv ? fs[kb * KPS + rb] : 0.0f;
               bv[0] = ka < nv && cn < Dk ? es[ka * Dk + cn] : 0.0f;
               bv[1] = kb < nv && cn < Dk ? es[kb * Dk + cn] : 0.0f;
               mma_3xtf32(dacc, av, bv);
@@ -640,8 +836,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
                 av[1] = rb < nv && ka < Dk ? es[rb * Dk + ka] : 0.0f;
                 av[2] = ra < nv && kb < Dk ? es[ra * Dk + kb] : 0.0f;
                 av[3] = rb < nv && kb < Dk ? es[rb * Dk + kb] : 0.0f;
-                bv[0] = ka < Dk && cn < K ? wl[cn * Dk + ka] : 0.0f;
-                bv[1] = kb < Dk && cn < K ? wl[cn * Dk + kb] : 0.0f;
+                bv[0] = ka < Dk && cn < K ? wl[cn * WLS + ka] : 0.0f;
+                bv[1] = kb < Dk && cn < K ? wl[cn * WLS + kb] : 0.0f;
                 if (h2 == 0) mma_3xtf32(dacc, av, bv);
                 else mma_3xtf32(dacc2, av, bv);
               }
@@ -678,33 +874,54 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
         const int s = x / K, q = s / Sb;
         dfa[x] = *cluster.map_shared_rank(dfo + (s - q * Sb) * K + x % K, q);
       }
+      for (int x = tid; x < APAD * K; x += NT) dfa[len * K + x] = 0.0f;
       __syncthreads();
-      // dalign_carry[jf] = sum_kk sum_s dfpre[s, kk] taps[kk, jf - s + half]:
-      // NSPL threads per (own frame, filter), each a part of the window
-      for (int x = tid; x < NSPL * nv * K; x += NT) {
-        const int pr = x / NSPL, part = x % NSPL, sl = pr / K, kk = pr % K, jf = s0 + sl;
-        const int sa = max(0, jf + half - P + 1), sb = min(len - 1, jf + half) + 1, sc_ = cdiv(sb - sa, NSPL);
-        const float* tk = tp + kk * P + jf + half;
-        float acc = 0.0f;
-        for (int s = sa + part * sc_; s < min(sb, sa + (part + 1) * sc_); ++s)
-          acc = fmaf(dfa[s * K + kk], tk[-s], acc);
-        cpart[part * Sl * K + pr] = acc;
+      // dalign_carry[jf] = sum_kk sum_p dfpre[jf + half - p, kk] taps[kk, p]:
+      // threads over (4 own frames, filter, part of the taps), the 4 frames'
+      // dfpre values slid through registers
+      for (int x = tid; x < nsp * cdiv(nv, 4) * K; x += NT) {
+        const int part = x % nsp, pr = x / nsp, kk = pr % K, sl = 4 * (pr / K), jf = s0 + sl;
+        const int p0 = max(0, jf + half - len + 1), p1 = min(P, jf + half + 4), pc = cdiv(p1 - p0, nsp);
+        const int pa = p0 + part * pc, pb = min(p1, pa + pc);
+        const float* tk = tp + kk * P;
+        const float* dcol = dfa + (jf + half) * K + kk;  // dcol[(j - p) K] = dfpre at frame jf + j + half - p
+        float c0 = 0.0f, c1 = 0.0f, c2 = 0.0f, c3 = 0.0f;
+        if (pa < pb) {
+          float x0 = dcol[-pa * K], x1 = dcol[(1 - pa) * K], x2 = dcol[(2 - pa) * K],
+                x3 = dcol[(3 - pa) * K];
+#pragma unroll 4
+          for (int p = pa; p < pb; ++p) {
+            const float tv = tk[p];
+            c0 = fmaf(x0, tv, c0);
+            c1 = fmaf(x1, tv, c1);
+            c2 = fmaf(x2, tv, c2);
+            c3 = fmaf(x3, tv, c3);
+            x3 = x2;
+            x2 = x1;
+            x1 = x0;
+            x0 = dcol[(-p - 1) * K];
+          }
+        }
+        float* cp = cpart + (part * Sl4 + sl) * K + kk;
+        cp[0] = c0;
+        cp[K] = c1;
+        cp[2 * K] = c2;
+        cp[3 * K] = c3;
       }
       __syncthreads();
-      for (int sl = tid; sl < Sl; sl += NT) {
+      for (int sl = wid; sl < Sl; sl += NW) {  // one warp a frame: the sum over filters and parts
         float acc = 0.0f;
         if (sl < nv)
-          for (int kk = 0; kk < K; ++kk)
-            for (int part = 0; part < NSPL; ++part) acc += cpart[part * Sl * K + sl * K + kk];
-        datt[i * Sl + sl] = acc;
+          for (int y = lane; y < nsp * K; y += 32) acc += cpart[((y / K) * Sl4 + sl) * K + y % K];
+        acc = warp_sum(acc);
+        if (lane == 0) datt[i * Sl + sl] = acc;
       }
       __syncthreads();
       // the own share of <dalign_up + carry, align> of step t-1
       if (t > 0) {
         float p2 = 0.0f;
         for (int sl = tid; sl < nv; sl += NT) {
-          const long o = (row - B) * S + s0 + sl;
-          p2 = fmaf(a.dalign[o] + datt[i * Sl + sl], a.align[o], p2);
+          p2 = fmaf(dnx[sl] + datt[i * Sl + sl], attp[s0 + sl], p2);
         }
         p2 = block_sum(p2, red);
         if (tid == 0) p2s[i] = p2;

@@ -43,14 +43,17 @@ version draws its noise from the generator itself. Neither reproduces
 distribution is the same (Gumbel-max), the numbers are not. Teacher-forced
 and argmax feedback are comparable value for value.
 
-The kernels take H a multiple of 8 up to 512, Dk up to 512, any S, L, V,
-E, Emb, K and odd P. Each runs as a persistent grid of G co-resident
-clusters of 8 blocks (a cooperative launch; G is what
-cudaOccupancyMaxActiveClusters allows, 15 on a 132-SM H100 at one block
-an SM): the cell's weights are split by hidden unit over all 8G blocks
-(``unit_split``) and held in shared memory for the whole launch, and each
-cluster walks ceil(B / G) utterances for the attention part. ``fwd_plan``
-and ``bwd_plan`` decide what else fits in a block's shared memory.
+The kernels take H a multiple of 8 up to 512, Dk up to 512, any L, V, E,
+Emb, K, odd P and S up to what their per-frame buffers leave of a block's
+shared memory (``fwd_plan`` / ``bwd_plan`` raise past it: about 6,000
+frames at the flagship widths). Each runs as a persistent grid of G co-resident
+clusters of CL blocks (a cooperative launch; ``scan_grid`` picks CL from 4
+to 8 and G from cudaOccupancyMaxActiveClusters, e.g. 17 clusters of 6 on a
+132-SM H100 for B = 16): the cell's weights are split by hidden unit over
+all G CL blocks (``unit_split``) and held in shared memory for the whole
+launch, and each cluster walks ceil(B / G) utterances for the attention
+part. ``fwd_plan`` and ``bwd_plan`` decide what else fits in a block's
+shared memory.
 """
 
 from __future__ import annotations
@@ -72,10 +75,32 @@ NT, NW = 512, 16  # threads and warps per block
 MAX_H = 512
 MAX_DK = 512
 SMEM_MAX = 227 * 1024  # shared memory a block may use on the H100
+NSPL = 4  # threads a conv sum is split over, at most (csrc)
+APAD = 4  # zeros on each side of a stored alignment or dfpre (csrc)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _round(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+def conv_parts(sl: int, kk: int) -> int:
+    """Threads a conv sum is split over in a block of ``sl`` frames (csrc
+    ``conv_parts``)."""
+    return max(1, min(NSPL, NT // (_cdiv(sl, 4) * kk)))
+
+
+def kps_of(kk: int) -> int:
+    """Row stride of the location features in shared memory (csrc ``kps_of``)."""
+    return _round(kk, 8) + 4
+
+
+def wls_of(dk: int) -> int:
+    """Row stride of Wlp in shared memory (csrc ``wls_of``)."""
+    return _round(dk, 32) + 8
 
 
 def unit_split(h_dim: int, nblocks: int):
@@ -115,10 +140,12 @@ def fwd_plan(nblocks: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int,
     ns = _cdiv(b, nblocks // cl)
     numax = _cdiv(h_dim, nblocks)
     sl, dkc, vc = _cdiv(s, cl), _cdiv(dk, cl), _cdiv(vocab, cl)
-    base = (ns * (s + e_dim + sl + 2 + dkc + 2) + 2 * dk + kk * dk + sl * kk + h_dim + vc
-            + 4 * 32 * 8 + 16 * 4 * numax + b * numax + NW + 3 * CL + b + kk * p + 4 * sl * kk + max(NT, vc + dkc)
-            + NW * _cdiv(sl, 16) * 16)
-    return _greedy(base, (("w_smem", 4 * numax * (e_dim + h_dim + 4)), ("v_smem", sl * e_dim),
+    sl4, sl16, dk8 = _round(sl, 4), _round(sl, 16), _round(dk, 8)
+    base = (ns * (s + 2 * APAD + e_dim + sl + 2 + dkc + 2) + 2 * dk8 + kk * wls_of(dk) + sl16 * kps_of(kk)
+            + h_dim + vc + 4 * 32 * 8 + b * 4 * numax + b * numax + NW + 3 * CL + b + kk * p
+            + conv_parts(sl, kk) * sl4 * kk + max(NT, vc + dkc) + NW * sl16)
+    return _greedy(base, (("w_smem", 4 * numax * (_round(e_dim + h_dim, 32) + 16)),
+                          ("v_smem", sl * e_dim),
                           ("wq_smem", dkc * h_dim), ("wo_smem", vc * h_dim), ("k_smem", sl * dk)))
 
 
@@ -134,9 +161,11 @@ def bwd_plan(nblocks: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int,
     numax = _cdiv(h_dim, nblocks)
     nrmax = _cdiv(e_dim, nblocks) + numax
     sl = _cdiv(s, cl)
-    base = (s + 3 * sl + 2 * sl * kk + 2 * e_dim + 3 * dk + 2 * kk * dk
-            + ns * sl + ns + 3 * b * numax + NW + b + kk * p + 4 * sl * kk + 4 * 32 * 8)
-    return _greedy(base, (("es_smem", sl * dk), ("dfa_smem", s * kk), ("wr_smem", nrmax * (4 * h_dim + 4)), ("dk_smem", sl * dk), ("k_smem", sl * dk),
+    sl4, sl16, dk8 = _round(sl, 4), _round(sl, 16), _round(dk, 8)
+    base = (s + 2 * APAD + 4 * sl + sl16 * kps_of(kk) + sl * kk + 2 * e_dim + dk + 2 * dk8
+            + kk * wls_of(dk) + kk * dk + ns * sl + ns + 3 * b * numax + NW + b + kk * p
+            + conv_parts(sl, kk) * sl4 * kk + 4 * 32 * 8)
+    return _greedy(base, (("es_smem", sl * dk), ("dfa_smem", (s + 2 * APAD) * kk), ("wr_smem", nrmax * (4 * h_dim + 16)), ("dk_smem", sl * dk), ("k_smem", sl * dk),
                           ("v_smem", sl * e_dim)))
 
 
@@ -159,8 +188,8 @@ def resident_clusters(which: str, cl: int = CL, smem: int = SMEM_MAX) -> int:
 
 def pick_cluster_size(b: int, s: int, resident) -> int:
     """The cluster size for B utterances of S frames, given ``resident(cl)``
-    = the clusters of that size that fit: the fewest slots x (frames a block
-    + SLOT_COST), larger clusters first on a tie. On an H100 at one block an
+    = the clusters of that size that fit: the smallest slots x (frames a
+    block + SLOT_COST), larger clusters first on a tie. On an H100 at one block an
     SM (15, 15, 17, 22, 30 clusters of 8, 7, 6, 5, 4) that is 6 for B = 16,
     where 8 would leave one cluster two utterances."""
     def cost(cl):
@@ -501,7 +530,7 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
     dwlp_part, dlocv_part = new(nb, kk, dk_dim), new(nb, dk_dim)
     dctx = new(b, e_dim)  # scratch: dctx of the step
     cl = grid["cluster_size"]
-    scratch = new(1) if grid["es_smem"] and grid["dfa_smem"] else new(nb, _cdiv(s, cl) * dk_dim + s * kk)
+    scratch = new(1) if grid["es_smem"] and grid["dfa_smem"] else new(nb, _cdiv(s, cl) * dk_dim + (s + 2 * APAD) * kk)
     cuda_build.launch(
         "decoder_scan_bwd", "e2e_decoder_scan_bwd", k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh,
         wout, align, cseq, acts, qs, ctxs, dlogits, dalign, dhidden, dgates, dq, dfpre, dk,
@@ -522,10 +551,10 @@ PHASE_VARIANTS = (("decoder_scan", PHASE_BUILD), ("decoder_scan_bwd", PHASE_BUIL
 PH_STEPS, PH_SLOTS = 512, 16  # csrc: steps recorded, marks per step
 # the phases between consecutive marks of one step, in order (csrc PHASE(t, i))
 FWD_PHASES = ("q pull and token", "conv", "energies", "softmax", "context partial",
-              "cluster barrier 1", "combine", "grid barrier 1", "gate product and cell update",
+              "cluster barrier 1", "combine", "grid barrier 1", "gate product", "cell update",
               "grid barrier 2", "logits, argmax and q slice", "cluster barrier 2")
 BWD_PHASES = ("gate stage", "grid barrier 1", "row stage", "grid barrier 2",
-              "loads, cluster barrier and the softmax term", "conv", "energies",
+              "loads and the softmax term", "conv", "energies",
               "reductions over frames", "dfpre", "cluster barrier", "pulls and transposed conv",
               "grid barrier 3")
 

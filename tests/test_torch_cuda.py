@@ -260,6 +260,7 @@ SCAN_SHAPES = [
     (40, 61, 300, 640, 10, 201, 320, 320, 26, 3),  # flagship widths, B above the resident clusters
     (5, 13, 24, 32, 3, 7, 8, 16, 11, 5),  # H = 8: most blocks of the grid own no hidden unit
     (2, 3000, 256, 64, 4, 31, 64, 16, 9, 2),  # the backward's working buffers in global memory
+    (2, 20, 64, 3000, 4, 15, 512, 16, 9, 2),  # the cell's weights too wide to stay in shared memory
 ]
 
 

@@ -340,3 +340,14 @@ def test_flagship_plan_keeps_the_cell_resident():
     assert flags["w_smem"] and not flags["k_smem"] and not flags["v_smem"] and smem <= dc.SMEM_MAX
     smem, flags = dc.bwd_plan(120, 16, 4000, 512, 640, 10, 201, 320)
     assert not flags["es_smem"] and not flags["dfa_smem"] and smem <= dc.SMEM_MAX
+
+
+@pytest.mark.parametrize("b,s,want", [(16, 204, 6), (1, 204, 8), (32, 204, 6), (16, 764, 6), (40, 61, 5)])
+def test_pick_cluster_size(b, s, want):
+    """The cluster size the kernels run at, from the resident-cluster counts
+    of a 132-SM H100 at one block an SM: every utterance of a flagship batch
+    gets its own cluster where a size allows it; a size that fits no
+    cluster is never taken."""
+    h100 = {8: 15, 7: 15, 6: 17, 5: 22, 4: 30}
+    assert dc.pick_cluster_size(b, s, h100.get) == want
+    assert dc.pick_cluster_size(b, s, lambda cl: 0 if cl == want else h100[cl]) != want
