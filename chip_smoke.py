@@ -73,6 +73,7 @@ SEED = 0
 TRAIN_STEPS = 5
 ALT_ROUNDS = 21  # rounds of a kernel against its library call in turns
 CONV_STEPS = 3
+NOISE_SEED = 20261016  # the scan checks' sampled feedback
 
 
 def fail(msg: str) -> None:
@@ -545,12 +546,93 @@ def _compare_scan_fwd(name, got, want, noise, tie_tol=1e-3):
     return err
 
 
+def _scan_parity(gen, dev, args, vocab, temp, what):
+    """decoder_scan_fwd against its plain version in the three feedback modes
+    (teacher-forced, argmax, sampled with the kernel's noise), then
+    decoder_scan_bwd against its plain version and the autograd function
+    against autograd through the plain forward (scaled rtol 1e-4), all at the
+    shapes of ``args``. Returns (forward error, backward error, the
+    backward's arguments, the cotangents)."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    l, b = args[-1].shape
+    seed = NOISE_SEED
+    noise = dc.gumbel_noise(seed, l, b, vocab, dev)
+    err = 0.0
+    with torch.no_grad():
+        for mode in ("teacher", "argmax", "sample"):
+            print(f"[kernel] decoder_scan_fwd {mode} ({what})", flush=True)
+            use = torch.ones(l, dtype=torch.bool) if mode == "teacher" else torch.zeros(l, dtype=torch.bool)
+            sample = mode == "sample"
+            got = dc.decoder_scan_fwd(*args, use, temp, sample, seed)
+            want = dc.decoder_scan_fwd_plain(*args, use, temp, sample, noise if sample else None)
+            err = max(err, _compare_scan_fwd(f"decoder_scan_fwd {mode} ({what})", got, want,
+                                             noise if sample else None))
+            if mode != "teacher" and not (int(got[3][1].max()) < vocab and int(got[3][1].min()) >= 0):
+                fail(f"decoder_scan_fwd ({what}): a fed-back token is not a vocabulary id")
+        print(f"[kernel] decoder_scan_bwd ({what})", flush=True)
+        use = torch.ones(l, dtype=torch.bool)
+        logits, align, hidden, (cseq, _, acts, qs, ctxs) = dc.decoder_scan_fwd_plain(*args, use, temp)
+        k, v, lens, taps, wq, _, wlp, locv, locb, _, wx, wh, _, wout, _, _ = args
+        cots = [torch.randn(o.shape, generator=gen, device=dev) / math.sqrt(o.shape[-1])
+                for o in (logits, align, hidden)]
+        bargs = (k, v, lens, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs,
+                 ctxs, *cots, temp)
+        got_b = dc.decoder_scan_bwd(*bargs)
+        want_b = dc.decoder_scan_bwd_plain(*bargs)
+        err_b = max(_scaled(f"decoder_scan_bwd {nm} ({what})", g, w, 1e-4)
+                    for nm, g, w in zip(("dgates", "dq", "dfpre", "dk", "dWlp", "dlocv"), got_b, want_b))
+    # the autograd function (sweep + outside contractions) against autograd
+    # through the plain forward loop, every float input
+    idx = [0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14]
+    names = "k v . taps wq bq wlp locv locb embed wx wh bl wout bout".split()
+
+    def grads(fn):
+        leaves = [a.clone().requires_grad_() if i in idx else a for i, a in enumerate(args)]
+        outs = fn(*leaves, use, temp)[:3]
+        return torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cots)),
+                                   [leaves[i] for i in idx])
+
+    g_plain = grads(dc.decoder_scan_fwd_plain)
+    g_kern = grads(dc.decoder_scan)
+    err_b = max([err_b] + [_scaled(f"decoder_scan autograd d{names[i]} ({what})", g, w, 1e-4)
+                           for i, g, w in zip(idx, g_kern, g_plain)])
+    return err, err_b, bargs, cots
+
+
+def convergence_scan_checks(dev, cfg, vocab):
+    """The scan pair at the convergence recipe's shapes (B=32, the longest
+    bucket's S=204 with ragged lengths, L=72, Dk 128, E 512, 8 x 65 taps,
+    H = Emb = 256), where B exceeds the clusters that can be resident, so
+    each cluster walks two utterances: _scan_parity there."""
+    from e2e_asr_tpu_torch.bin.profile_decode import scan_inputs
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    m, ac = cfg.model, cfg.model.attention
+    b, s, l = cfg.data.corpus.batch_size, cfg.data.corpus.buckets[-1] // 4, cfg.data.corpus.token_buckets[-1]
+    dk, e_dim, kk, p = ac.dim, 2 * m.encoder.dim[-1], ac.loc_kernel_num, 2 * ac.loc_kernel_size + 1
+    h = emb = m.decoder.dim
+    lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
+    lens[0] = s
+    args = scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens)
+    grid = {w: dc.scan_grid(w, b, s, dk, e_dim, kk, p, h, vocab) for w in ("fwd", "bwd")}
+    shapes = f"B {b}, S {s}, Dk {dk}, E {e_dim}, taps {kk}x{p}, H {h}, V {vocab}, L {l}"
+    print(f"fused scan at the convergence recipe's shapes ({shapes}): grid forward {grid['fwd']}; "
+          f"backward {grid['bwd']}", flush=True)
+    err, err_b, _, _ = _scan_parity(gen, dev, args, vocab, float(ac.temperature), "convergence shapes")
+    print(f"convergence shapes: decoder_scan_fwd max abs err {err:.3e} (three feedback modes), "
+          f"decoder_scan_bwd and the autograd function {err_b:.3e} (scaled rtol 1e-4)", flush=True)
+    return dict(shapes=shapes, grid=grid, fwd_max_abs_err=err, bwd_max_abs_err=err_b)
+
+
 def scan_kernel_checks(dev, cfg, vocab):
     """decoder_scan_fwd / decoder_scan_bwd against their plain versions at
     the flagship training shapes (B=16, S=204, L=200, ragged lengths), in the
     three feedback modes, and once at the longest flagship bucket (S=764)
     with a short L."""
-    from e2e_asr_tpu_torch.bin.profile_decode import print_scan_phases
+    from e2e_asr_tpu_torch.bin.profile_decode import print_scan_phases, scan_inputs, scan_phase_split
     from e2e_asr_tpu_torch.ops import decoder_cuda as dc
 
     gen = torch.Generator(device=dev)
@@ -563,27 +645,16 @@ def scan_kernel_checks(dev, cfg, vocab):
     temp = float(ac.temperature)
     lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
     lens[0] = s
-    args = dc.scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens)
+    args = scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens)
     grid = {w: dc.scan_grid(w, b, s, dk, e_dim, kk, p, h, vocab) for w in ("fwd", "bwd")}
     resident = {cl: dc.resident_clusters("fwd", cl) for cl in dc.CLUSTER_SIZES}
     print(f"fused scan grid: resident clusters by cluster size (cudaOccupancyMaxActiveClusters at "
           f"{dc.SMEM_MAX} B a block) {resident}; grid used: forward {grid['fwd']}; backward "
           f"{grid['bwd']}", flush=True)
-    seed = 20261016
-    noise = dc.gumbel_noise(seed, l, b, vocab, dev)
+    err, err_b, bargs, cots = _scan_parity(gen, dev, args, vocab, temp, "flagship shapes")
+    seed = NOISE_SEED
     out = {}
-    err = 0.0
     with torch.no_grad():
-        for mode in ("teacher", "argmax", "sample"):
-            print(f"[kernel] decoder_scan_fwd {mode}", flush=True)
-            use = torch.ones(l, dtype=torch.bool) if mode == "teacher" else torch.zeros(l, dtype=torch.bool)
-            sample = mode == "sample"
-            got = dc.decoder_scan_fwd(*args, use, temp, sample, seed)
-            want = dc.decoder_scan_fwd_plain(*args, use, temp, sample, noise if sample else None)
-            err = max(err, _compare_scan_fwd(f"decoder_scan_fwd {mode}", got, want,
-                                             noise if sample else None))
-            if mode != "teacher" and not (int(got[3][1].max()) < vocab and int(got[3][1].min()) >= 0):
-                fail("decoder_scan_fwd: a fed-back token is not a vocabulary id")
         use = torch.ones(l, dtype=torch.bool)
         nvalid = float(lens.sum())
         ntaps = _conv_taps(lens, p)
@@ -609,33 +680,7 @@ def scan_kernel_checks(dev, cfg, vocab):
                    "single PyTorch call computes a location-attention speller scan)",
         )
 
-        print("[kernel] decoder_scan_bwd", flush=True)
-        logits, align, hidden, (cseq, _, acts, qs, ctxs) = want = dc.decoder_scan_fwd_plain(*args, use, temp)
         k, v, _, taps, wq, _, wlp, locv, locb, _, wx, wh, _, wout, _, _ = args
-        cots = [torch.randn(o.shape, generator=gen, device=dev) / math.sqrt(o.shape[-1])
-                for o in (logits, align, hidden)]
-        bargs = (k, v, lens, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs,
-                 ctxs, *cots, temp)
-        got_b = dc.decoder_scan_bwd(*bargs)
-        want_b = dc.decoder_scan_bwd_plain(*bargs)
-        err_b = max(_scaled(f"decoder_scan_bwd {nm}", g, w, 1e-4)
-                    for nm, g, w in zip(("dgates", "dq", "dfpre", "dk", "dWlp", "dlocv"), got_b, want_b))
-    # the autograd function (sweep + outside contractions) against autograd
-    # through the plain forward loop, every float input
-    idx = [0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14]
-    names = "k v . taps wq bq wlp locv locb embed wx wh bl wout bout".split()
-
-    def grads(fn):
-        leaves = [a.clone().requires_grad_() if i in idx else a for i, a in enumerate(args)]
-        outs = fn(*leaves, use, temp)[:3]
-        return torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cots)),
-                                   [leaves[i] for i in idx])
-
-    g_plain = grads(dc.decoder_scan_fwd_plain)
-    g_kern = grads(dc.decoder_scan)
-    err_b = max([err_b] + [_scaled(f"decoder_scan autograd d{names[i]}", g, w, 1e-4)
-                           for i, g, w in zip(idx, g_kern, g_plain)])
-    with torch.no_grad():
         # bytes: k, v (valid frames), the weights, the stored sequences and the
         # three cotangents in; dgates, dq, dfpre, dk and the partials out
         io = 4 * (nvalid * (dk + e_dim) + sum(a.numel() for a in (taps, wq, wlp, locv, locb, wx, wh, wout))
@@ -659,7 +704,7 @@ def scan_kernel_checks(dev, cfg, vocab):
         )
 
         # one step of each kernel split into its phases (the timing build)
-        split = dc.scan_phase_split(args, use, temp, cots)
+        split = scan_phase_split(args, use, temp, cots)
         print_scan_phases(split)
         for w in ("fwd", "bwd"):
             out[f"decoder_scan_{w}"]["phases_us"] = split[w]
@@ -670,7 +715,7 @@ def scan_kernel_checks(dev, cfg, vocab):
         s2, l2 = 3056 // 4, 8
         lens2 = torch.randint(s2 // 2, s2 + 1, (b,), generator=gen, device=dev)
         lens2[0] = s2
-        args2 = dc.scan_inputs(gen, dev, b, s2, dk, e_dim, kk, p, h, emb, vocab, l2, lens2)
+        args2 = scan_inputs(gen, dev, b, s2, dk, e_dim, kk, p, h, emb, vocab, l2, lens2)
         use2 = torch.ones(l2, dtype=torch.bool)
         got = dc.decoder_scan_fwd(*args2, use2, temp)
         want = dc.decoder_scan_fwd_plain(*args2, use2, temp)
@@ -841,11 +886,13 @@ def _run_counted(solver, wrappers, what):
     return launches, wall
 
 
-def convergence_phase(smi):
+def convergence_phase(dev, smi):
     """The convergence recipe (configs/synthetic_convergence.yaml) at its full
-    width for CONV_STEPS steps and one validation through
-    bin/train_asr.Solver.exec, its BiLSTM layers through the lstm_seq kernel
-    pair and its speller through the fused scan, coins failing (tf 0.8)."""
+    width: first the scan pair against its plain versions at the recipe's
+    shapes (``convergence_scan_checks``), then CONV_STEPS steps and one
+    validation through bin/train_asr.Solver.exec, its BiLSTM layers through
+    the lstm_seq kernel pair and its speller through the fused scan, coins
+    failing (tf 0.8)."""
     from e2e_asr_tpu_torch import cuda_build
     from e2e_asr_tpu_torch.bin.profile_decode import convergence_train_solver
     from e2e_asr_tpu_torch.ops.decoder_cuda import decoder_scan_bwd, decoder_scan_fwd
@@ -857,6 +904,7 @@ def convergence_phase(smi):
     if (solver.config.data.corpus.batch_size, m.encoder.dim, m.attention.dim, m.decoder.dim) != (
             32, [256, 256, 256], 128, 256):
         fail("the convergence recipe is not at its full width")
+    scan_check = convergence_scan_checks(dev, solver.config, solver.vocab_size)
     wrappers = {"lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd,
                 "decoder_scan_fwd": decoder_scan_fwd, "decoder_scan_bwd": decoder_scan_bwd}
     launches, wall = _run_counted(solver, wrappers, "convergence")
@@ -873,7 +921,7 @@ def convergence_phase(smi):
     rate = log[-1]["audio_s"] / log[-1]["wall_s"]
     print(f"convergence e2e: last step {rate:.2f} audio-s/s on {smi} (B=32, 3x256 BiLSTM on 80-dim "
           f"fbank, seed-{SEED} weights); {CONV_STEPS} steps + validation {wall:.1f}s", flush=True)
-    return dict(launches=launches, steps=log, dev=dev_sum, wall_s=wall)
+    return dict(launches=launches, steps=log, dev=dev_sum, wall_s=wall, scan_check=scan_check)
 
 
 def train_phase(smi):
@@ -1053,9 +1101,8 @@ def main(json_path: str = "") -> None:
         fail("torch.cuda.is_available() is false")
     try:
         from e2e_asr_tpu_torch import cuda_build
-        from e2e_asr_tpu_torch.bin.profile_decode import FLAGSHIP, smoke_solver
+        from e2e_asr_tpu_torch.bin.profile_decode import FLAGSHIP, PHASE_VARIANTS, smoke_solver
         from e2e_asr_tpu_torch.device import resolve_device
-        from e2e_asr_tpu_torch.ops import decoder_cuda as dc
         from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_fwd, lstm_seq_fwd
         from e2e_asr_tpu_torch.training.step import Trainer  # noqa: F401
     except ImportError as e:
@@ -1070,7 +1117,7 @@ def main(json_path: str = "") -> None:
     print(smi, flush=True)
     dev = resolve_device("cuda")
     t0 = time.time()
-    logs = cuda_build.build_all(dc.PHASE_VARIANTS)  # the scan kernels' timing build too
+    logs = cuda_build.build_all(PHASE_VARIANTS)  # the scan kernels' timing build too
     print(f"build: {time.time() - t0:.1f}s for {sorted(logs) or 'nothing (cached)'}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1104,7 +1151,7 @@ def main(json_path: str = "") -> None:
 
     # ---- the training path
     train = train_phase(smi)
-    conv = convergence_phase(smi)
+    conv = convergence_phase(dev, smi)
 
     # launches: every counted run that launched the kernel, by path, each
     # with its counts set to 0 just before; ``launches`` is the count of the

@@ -30,12 +30,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import time
 import types
 
 import torch
+
+from e2e_asr_tpu_torch.ops.decoder_cuda import PHASE_BUILD
 
 FLAGSHIP = "configs/libri/asr_example.yaml"
 
@@ -175,12 +178,39 @@ def _run_fn(train: bool, rnn_impl: str):
     return (lambda: solver.decode_batch(batch.wav, batch.wav_len)), audio_s
 
 
+# ----------------------------------------------- the fused scan's phase split
+PHASE_VARIANTS = (("decoder_scan", PHASE_BUILD), ("decoder_scan_bwd", PHASE_BUILD))  # timing builds
+PH_STEPS, PH_SLOTS = 512, 16  # csrc: steps recorded, marks per step
+# the phases between consecutive marks of one step, in order (csrc PHASE(t, i))
+FWD_PHASES = ("q pull and token", "conv", "energies", "softmax", "context partial",
+              "cluster barrier 1", "combine", "grid barrier 1", "gate product", "cell update",
+              "grid barrier 2", "logits, argmax and q slice", "cluster barrier 2")
+BWD_PHASES = ("gate stage", "grid barrier 1", "row stage", "grid barrier 2",
+              "loads and the softmax term", "conv", "energies",
+              "reductions over frames", "dfpre", "cluster barrier", "pulls and transposed conv",
+              "grid barrier 3")
+
+
+def scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens):
+    """Seeded inputs of the fused speller scan at the given shapes: (k, v,
+    enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
+    teacher [L, B] int32), weights at their init scales."""
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    uni = lambda bound, *shape: (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+    return (torch.tanh(rnd(b, s, dk)), torch.tanh(rnd(b, s, e_dim)), lens,
+            uni(1 / math.sqrt(p), kk, p), uni(1 / math.sqrt(h), h, dk), uni(0.1, dk),
+            uni(1 / math.sqrt(kk), kk, dk), uni(1 / math.sqrt(dk), dk), uni(0.1, dk),
+            rnd(v, emb) / math.sqrt(emb), uni(1 / math.sqrt(h), emb + e_dim, 4 * h),
+            uni(1 / math.sqrt(h), h, 4 * h), uni(1 / math.sqrt(h), 4 * h),
+            uni(1 / math.sqrt(h), h, v), uni(0.1, v),
+            torch.randint(0, v, (l, b), generator=gen, device=dev, dtype=torch.int32))
+
+
 def flagship_scan_inputs(dev, seed: int = 2):
     """The fused scan's inputs at the flagship training shapes, as
     ``chip_smoke.py`` draws them (seeded generator on ``dev``): B=16,
     S=204 with ragged lengths in [S/2, S], L=200 teacher ids."""
     from e2e_asr_tpu_torch.data.dataset import load_eval_datasets
-    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
 
     cfg = flagship_smoke_config()
     _, _, vocab, _, _ = load_eval_datasets(cfg.data, cfg.decode.batch_size)
@@ -191,7 +221,7 @@ def flagship_scan_inputs(dev, seed: int = 2):
     gen.manual_seed(seed)
     lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
     lens[0] = s
-    args = dc.scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, m.decoder.dim, m.decoder.dim, vocab, l, lens)
+    args = scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, m.decoder.dim, m.decoder.dim, vocab, l, lens)
     return args, float(ac.temperature)
 
 
@@ -202,13 +232,89 @@ def scan_shape(args):
             args[13].shape[1])
 
 
+def _phase_means(name: str, l: int, names) -> tuple:
+    """Mean us per phase over the L steps of the last launch of the timing
+    build of ``name`` (marks of the global timer, in ns), and the timer's
+    step: the smallest nonzero difference of two marks."""
+    from e2e_asr_tpu_torch import cuda_build
+
+    out = torch.zeros(PH_STEPS * PH_SLOTS, dtype=torch.int64, device="cuda")
+    cuda_build.launch(name, "e2e_decoder_scan_phase_times", out, out.numel(), defines=PHASE_BUILD)
+    marks = out.view(PH_STEPS, PH_SLOTS)[:min(l, PH_STEPS)].double()
+    diff = marks[:, 1:len(names) + 1] - marks[:, :len(names)]
+    dur = diff.mean(0) / 1e3
+    return {nm: float(x) for nm, x in zip(names, dur)}, float(diff[diff > 0].min())
+
+
+def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=None):
+    """The per-phase split of one step of each scan kernel (timing build:
+    block 0 marks the global timer at every phase boundary of every step),
+    on the card. ``args`` as ``scan_inputs``; ``cots`` the cotangents of
+    (logits, align, hidden) for the backward (random if None). Returns
+    {"fwd": {phase: mean us per step}, "bwd": {...}, "fwd_ms", "bwd_ms": the
+    timing build's whole-launch times, "fwd_ms_normal", "bwd_ms_normal": the
+    normal build's, "timer_step_ns"}; ``cluster_size`` overrides the grid's
+    pick. Launch counters are not touched."""
+    from e2e_asr_tpu_torch.ops.decoder_cuda import _bwd_launch, _fwd_launch
+
+    k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout, teacher = args
+    l = teacher.shape[0]
+    res = {}
+    fwd = lambda: _fwd_launch(PHASE_BUILD, *args, use_teacher, temp, False, 0, cluster_size)
+    logits, align, hidden, (cseq, _, acts, qs, ctxs) = fwd()  # builds the variant, warms up
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fwd()
+    t1.record()
+    torch.cuda.synchronize()
+    res["fwd_ms"] = t0.elapsed_time(t1)
+    res["fwd"], step_f = _phase_means("decoder_scan", l, FWD_PHASES)
+    if cots is None:
+        g = torch.Generator(device=k.device)
+        g.manual_seed(0)
+        cots = [torch.randn(o.shape, generator=g, device=k.device) / math.sqrt(o.shape[-1])
+                for o in (logits, align, hidden)]
+    bwd = lambda: _bwd_launch(PHASE_BUILD, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
+                              align, hidden, cseq, acts, qs, ctxs, *cots, temp, cluster_size)
+    bwd()
+    torch.cuda.synchronize()
+    t0.record()
+    bwd()
+    t1.record()
+    torch.cuda.synchronize()
+    res["bwd_ms"] = t0.elapsed_time(t1)
+    res["bwd"], step_b = _phase_means("decoder_scan_bwd", l, BWD_PHASES)
+    res["timer_step_ns"] = min(step_f, step_b)
+    res["steps"] = l
+    for w, fn in (("fwd", lambda: _fwd_launch((), *args, use_teacher, temp, False, 0, cluster_size)),
+                  ("bwd", lambda: _bwd_launch((), k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
+                                              align, hidden, cseq, acts, qs, ctxs, *cots, temp,
+                                              cluster_size))):
+        fn()
+        torch.cuda.synchronize()
+        t0.record()
+        for _ in range(3):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        res[f"{w}_ms_normal"] = t0.elapsed_time(t1) / 3
+    return res
+
+
 def print_scan_phases(split: dict) -> None:
-    for which, names_ms in (("decoder_scan_fwd", "fwd"), ("decoder_scan_bwd", "bwd")):
-        ph = split[names_ms]
+    """One line a kernel: the mean us per phase, their sum, and the sum over
+    the L steps beside the timing build's launch time (the rest is the
+    launch's set-up before the first step and its tail after the last)."""
+    for which, w in (("decoder_scan_fwd", "fwd"), ("decoder_scan_bwd", "bwd")):
+        ph = split[w]
         parts = ", ".join(f"{k} {v:.2f}" for k, v in ph.items())
-        print(f"{which} phases, mean us per step (timing build, {split[names_ms + '_ms']:.2f} ms a "
-              f"launch; normal build {split[names_ms + '_ms_normal']:.2f} ms): {parts}; sum "
-              f"{sum(ph.values()):.2f}", flush=True)
+        total = sum(ph.values())
+        print(f"{which} phases, mean us per step (timing build, {split[w + '_ms']:.2f} ms a launch; "
+              f"normal build {split[w + '_ms_normal']:.2f} ms): {parts}; sum {total:.2f} us x "
+              f"{split['steps']} steps = {total * split['steps'] / 1e3:.2f} ms of the "
+              f"{split[w + '_ms']:.2f} (global timer step {split['timer_step_ns']:.0f} ns)", flush=True)
 
 
 def main(argv=None):
@@ -239,12 +345,13 @@ def main(argv=None):
         from e2e_asr_tpu_torch.device import resolve_device
         from e2e_asr_tpu_torch.ops import decoder_cuda as dc
 
+        cuda_build.build_all(PHASE_VARIANTS)  # every library, the timing build too, in parallel
         dev = resolve_device("cuda")
         scan_args, temp = flagship_scan_inputs(dev)
         use = torch.ones(scan_args[-1].shape[0], dtype=torch.bool)
         splits = {}
         for cl in [int(c) for c in args.cluster_sizes.split(",") if c] or [None]:
-            split = dc.scan_phase_split(scan_args, use, temp, cluster_size=cl)
+            split = scan_phase_split(scan_args, use, temp, cluster_size=cl)
             grids = {w: dc.scan_grid(w, *scan_shape(scan_args), cluster_size=cl) for w in ("fwd", "bwd")}
             print(f"{card}: fused scan phase split, flagship training shapes; grid {grids}")
             print_scan_phases(split)

@@ -28,8 +28,8 @@
 // clusters are resident on a 132-SM H100. With the weights resident, what
 // the gate product waits for is its inputs: every block pulls all
 // utterances' [ctx, h] from L2 after a grid barrier (61 KB a step at the
-// flagship), which 4-byte loads moved at ~8.5 GB/s a block (bound by the
-// requests a block keeps in flight), so they are loaded 16 bytes at a time.
+// flagship), which 4-byte loads moved slowly (bound by the requests a block
+// keeps in flight), so they are loaded 16 bytes at a time.
 // Design: a persistent grid of G co-resident clusters of CL blocks
 // (cooperative launch; the wrapper picks CL and G from
 // cudaOccupancyMaxActiveClusters, e.g. 17 clusters of 6 for B = 16).
@@ -59,10 +59,10 @@
 //     vocabulary slice of the logits and its local argmax, its slice of the
 //     next q); cluster barrier. Partials are pulled, not pushed.
 // A block's frames of k and v (first slot), its Wq columns and Wout columns
-// stay in shared memory where they fit (the wrapper decides, in order: gate
-// weights, v, Wq, Wout, k) and are read from L2 otherwise; S is bounded
-// only by the per-frame buffers (about 6,000 frames at the flagship widths
-// on 8-block clusters). No atomics: every sum has a fixed order.
+// stay in shared memory where they fit (e2e_decoder_scan_fwd_plan decides,
+// in order: gate weights, v, Wq, Wout, k) and are read from L2 otherwise;
+// S is bounded only by the per-frame buffers (about 6,000 frames at the
+// flagship widths on 8-block clusters). No atomics: every sum has a fixed order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -82,20 +82,25 @@ constexpr int NW = NT / 32;
 constexpr float LOWEST = -3.402823466e38f;  // -FLT_MAX
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Timing build (nvcc -DSCAN_PHASES): block 0 writes its SM's clock64() at
-// each phase boundary of each step (after a __syncthreads, so a mark closes
-// the phase for the whole block) into g_phase_ts[step][mark]; the normal
-// build compiles the marks away. e2e_decoder_scan_phase_times copies the
-// buffer out.
+// Timing build (nvcc -DSCAN_PHASES): block 0 writes the global timer (ns)
+// at each phase boundary of each step (after a __syncthreads, so a mark
+// closes the phase for the whole block) into g_phase_ts[step][mark]; the
+// normal build compiles the marks away. e2e_decoder_scan_phase_times copies
+// the buffer out.
 constexpr int PH_STEPS = 512;  // steps recorded
 constexpr int PH_SLOTS = 16;   // marks per step
 #ifdef SCAN_PHASES
 __device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 #define PHASE(t, i)                                                                   \
   do {                                                                                \
     __syncthreads();                                                                  \
     if (blockIdx.x == 0 && threadIdx.x == 0 && (t) < PH_STEPS) {                      \
-      g_phase_ts[(t) * PH_SLOTS + (i)] = (unsigned long long)clock64();               \
+      g_phase_ts[(t) * PH_SLOTS + (i)] = global_ns();                                 \
     }                                                                                 \
   } while (0)
 #else
@@ -914,6 +919,31 @@ extern "C" int e2e_decoder_scan_fwd_clusters(int cl, int smem, int* out, void* s
   if (e != cudaSuccess) return (int)e;
   cfg.numAttrs = 1;  // the query takes the cluster shape
   return (int)cudaOccupancyMaxActiveClusters(out, (void*)decoder_scan_fwd_kernel, &cfg);
+}
+
+// The forward kernel's shared memory on G clusters of CL blocks (host only):
+// out[0] = bytes a block, or -1 where the working buffers alone exceed
+// SMEM_MAX; out[1..5] = the flags w_smem, v_smem, wq_smem, wo_smem, k_smem
+// of e2e_decoder_scan_fwd, each resident taken in that order while the
+// block's total stays within SMEM_MAX.
+extern "C" int e2e_decoder_scan_fwd_plan(int B, int S, int Dk, int E, int K, int P, int H, int V,
+                                         int G, int CL, int* out, void* stream) {
+  (void)stream;
+  if (B < 1 || S < 1 || G < 1 || CL < 1 || CL > CLMAX) return (int)cudaErrorInvalidValue;
+  const int NS = cdiv(B, G);
+  int f[5] = {0, 0, 0, 0, 0};  // w, v, wq, wo, k
+  auto bytes = [&]() {
+    return sizeof(float) * fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, f[0], f[2], f[3], f[4], f[1]).total;
+  };
+  out[0] = -1;
+  if (bytes() > SMEM_MAX) return 0;
+  for (int i = 0; i < 5; ++i) {
+    f[i] = 1;
+    if (bytes() > SMEM_MAX) f[i] = 0;
+    out[1 + i] = f[i];
+  }
+  out[0] = (int)bytes();
+  return 0;
 }
 
 // k [B, S, Dk], v [B, S, E], enc_len [B] i32, taps [K, P], wq [H, Dk], bq [Dk],

@@ -65,9 +65,9 @@
 //               4-frame register windows;
 //   grid barrier.
 // dk of a block's frames (first slot), its frames of k and v stay in shared
-// memory where they fit (the wrapper decides, in order: the energies and
-// dfpre buffers, the rows, dk, k, v) and are read from L2 or a global
-// scratch otherwise; S is bounded only by the per-frame buffers (about
+// memory where they fit (e2e_decoder_scan_bwd_plan decides, in order: the
+// energies and dfpre buffers, the rows, dk, k, v) and are read from L2 or
+// a global scratch otherwise; S is bounded only by the per-frame buffers (about
 // 6,800 frames at the flagship widths on 8-block clusters).
 
 #include <cooperative_groups.h>
@@ -88,20 +88,25 @@ constexpr int UCH = 4;   // hidden units a lane accumulates at once in the gate 
 constexpr int KPF = 5;   // 16-column chunks of row-stage inputs a warp loads at once
 constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Timing build (nvcc -DSCAN_PHASES): block 0 writes its SM's clock64() at
-// each phase boundary of each step (after a __syncthreads, so a mark closes
-// the phase for the whole block) into g_phase_ts[step][mark]; the normal
-// build compiles the marks away. e2e_decoder_scan_phase_times copies the
-// buffer out.
+// Timing build (nvcc -DSCAN_PHASES): block 0 writes the global timer (ns)
+// at each phase boundary of each step (after a __syncthreads, so a mark
+// closes the phase for the whole block) into g_phase_ts[step][mark]; the
+// normal build compiles the marks away. e2e_decoder_scan_phase_times copies
+// the buffer out.
 constexpr int PH_STEPS = 512;  // steps recorded
 constexpr int PH_SLOTS = 16;   // marks per step
 #ifdef SCAN_PHASES
 __device__ unsigned long long g_phase_ts[PH_STEPS * PH_SLOTS];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
 #define PHASE(t, i)                                                                   \
   do {                                                                                \
     __syncthreads();                                                                  \
     if (blockIdx.x == 0 && threadIdx.x == 0 && (t) < PH_STEPS) {                      \
-      g_phase_ts[(t) * PH_SLOTS + (i)] = (unsigned long long)clock64();               \
+      g_phase_ts[(t) * PH_SLOTS + (i)] = global_ns();                                 \
     }                                                                                 \
   } while (0)
 #else
@@ -980,6 +985,33 @@ extern "C" int e2e_decoder_scan_bwd_clusters(int cl, int smem, int* out, void* s
   if (e != cudaSuccess) return (int)e;
   cfg.numAttrs = 1;  // the query takes the cluster shape
   return (int)cudaOccupancyMaxActiveClusters(out, (void*)decoder_scan_bwd_kernel, &cfg);
+}
+
+// The backward kernel's shared memory on G clusters of CL blocks (host
+// only): out[0] = bytes a block, or -1 where the working buffers alone
+// exceed SMEM_MAX; out[1..6] = the flags es_smem, dfa_smem, wr_smem,
+// dk_smem, k_smem, v_smem of e2e_decoder_scan_bwd, each resident taken in
+// that order while the block's total stays within SMEM_MAX; out[7] = the
+// floats of scratch a block needs (0 when es and dfa are both resident).
+extern "C" int e2e_decoder_scan_bwd_plan(int B, int S, int Dk, int E, int K, int P, int H, int G,
+                                         int CL, int* out, void* stream) {
+  (void)stream;
+  if (B < 1 || S < 1 || G < 1 || CL < 1 || CL > CLMAX) return (int)cudaErrorInvalidValue;
+  const int NS = cdiv(B, G);
+  int f[6] = {0, 0, 0, 0, 0, 0};  // es, dfa, wr, dk, k, v
+  auto bytes = [&]() {
+    return sizeof(float) * bwd_layout(B, S, Dk, E, K, P, H, G, CL, NS, f[0], f[1], f[2], f[3], f[4], f[5]).total;
+  };
+  out[0] = -1;
+  if (bytes() > SMEM_MAX) return 0;
+  for (int i = 0; i < 6; ++i) {
+    f[i] = 1;
+    if (bytes() > SMEM_MAX) f[i] = 0;
+    out[1 + i] = f[i];
+  }
+  out[0] = (int)bytes();
+  out[7] = f[0] && f[1] ? 0 : cdiv(S, CL) * Dk + (S + 2 * APAD) * K;
+  return 0;
 }
 
 // out [PH_STEPS * PH_SLOTS] u64: the timing build's phase marks of the last

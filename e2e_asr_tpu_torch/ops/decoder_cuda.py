@@ -45,21 +45,18 @@ and argmax feedback are comparable value for value.
 
 The kernels take H a multiple of 8 up to 512, Dk up to 512, any L, V, E,
 Emb, K, odd P and S up to what their per-frame buffers leave of a block's
-shared memory (``fwd_plan`` / ``bwd_plan`` raise past it: about 6,000
-frames at the flagship widths). Each runs as a persistent grid of G co-resident
-clusters of CL blocks (a cooperative launch; ``scan_grid`` picks CL from 4
-to 8 and G from cudaOccupancyMaxActiveClusters, e.g. 17 clusters of 6 on a
-132-SM H100 for B = 16): the cell's weights are split by hidden unit over
-all G CL blocks (``unit_split``) and held in shared memory for the whole
-launch, and each cluster walks ceil(B / G) utterances for the attention
-part. ``fwd_plan`` and ``bwd_plan`` decide what else fits in a block's
-shared memory.
+shared memory (``scan_grid`` raises past it: about 6,000 frames at the
+flagship widths). Each runs as a persistent grid of G co-resident clusters
+of CL blocks (a cooperative launch; ``scan_grid`` picks CL from 4 to 8 and G
+from cudaOccupancyMaxActiveClusters, e.g. 17 clusters of 6 on a 132-SM H100
+for B = 16): the cell's weights are split by hidden unit over all G CL
+blocks and held in shared memory for the whole launch, and each cluster
+walks ceil(B / G) utterances for the attention part. What else fits in a
+block's shared memory the kernels' own layout decides (``plan``).
 """
 
 from __future__ import annotations
 
-import math
-import subprocess
 from typing import Optional, Tuple
 
 import torch
@@ -71,102 +68,43 @@ from e2e_asr_tpu_torch.ops.att_step_cuda import NEG, location_features
 CL = 8  # blocks per cluster, at most (the portable cluster size)
 CLUSTER_SIZES = (8, 7, 6, 5, 4)  # the sizes scan_grid weighs
 SLOT_COST = 10  # an utterance slot's fixed cost, in frames a block, for that choice
-NT, NW = 512, 16  # threads and warps per block
 MAX_H = 512
 MAX_DK = 512
 SMEM_MAX = 227 * 1024  # shared memory a block may use on the H100
-NSPL = 4  # threads a conv sum is split over, at most (csrc)
-APAD = 4  # zeros on each side of a stored alignment or dfpre (csrc)
+# the residents' flags of the kernels' plans (csrc e2e_decoder_scan_fwd_plan / _bwd_plan out[1:])
+FWD_RESIDENTS = ("w_smem", "v_smem", "wq_smem", "wo_smem", "k_smem")
+BWD_RESIDENTS = ("es_smem", "dfa_smem", "wr_smem", "dk_smem", "k_smem", "v_smem")
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _round(a: int, b: int) -> int:
-    return _cdiv(a, b) * b
+def plan(which: str, g: int, cl: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int,
+         h_dim: int, vocab: int):
+    """Shared memory of kernel ``which`` ("fwd" or "bwd") on ``g`` clusters
+    of ``cl`` blocks, from the kernel's own layout (csrc
+    ``e2e_decoder_scan_{fwd,bwd}_plan``): (bytes a block, {resident: 0/1},
+    floats of global scratch a block). Residents are taken in order of
+    priority while a block stays within 227 KB; raises ValueError when its
+    working buffers alone exceed that. Needs the built library, not the card."""
+    out = torch.zeros(8, dtype=torch.int32)
+    dims = (b, s, dk, e_dim, kk, p, h_dim) + ((vocab,) if which == "fwd" else ())
+    cuda_build.launch(_library(which), f"e2e_decoder_scan_{which}_plan", *dims, g, cl, out)
+    o = out.tolist()
+    if o[0] < 0:
+        raise ValueError(f"decoder_scan_{which}: S = {s} leaves a block's working buffers above "
+                         f"{SMEM_MAX} bytes of shared memory")
+    names = FWD_RESIDENTS if which == "fwd" else BWD_RESIDENTS
+    return o[0], dict(zip(names, o[1:])), (o[7] if which == "bwd" else 0)
 
 
-def conv_parts(sl: int, kk: int) -> int:
-    """Threads a conv sum is split over in a block of ``sl`` frames (csrc
-    ``conv_parts``)."""
-    return max(1, min(NSPL, NT // (_cdiv(sl, 4) * kk)))
-
-
-def kps_of(kk: int) -> int:
-    """Row stride of the location features in shared memory (csrc ``kps_of``)."""
-    return _round(kk, 8) + 4
-
-
-def wls_of(dk: int) -> int:
-    """Row stride of Wlp in shared memory (csrc ``wls_of``)."""
-    return _round(dk, 32) + 8
-
-
-def unit_split(h_dim: int, nblocks: int):
-    """[(u0, nu)] for each of ``nblocks`` blocks: block j owns the hidden
-    units [u0, u0 + nu), the first h_dim % nblocks blocks one more (the
-    kernels' ``unit_range`` / ``split_range``)."""
-    base, rem = divmod(h_dim, nblocks)
-    return [(j * base + min(j, rem), base + (1 if j < rem else 0)) for j in range(nblocks)]
-
-
-def gate_columns(h_dim: int, u0: int, nu: int):
-    """The columns of the gate product (i, f, g, o blocks of width H) that a
-    block owning units [u0, u0 + nu) computes: its units' four gates."""
-    return [g * h_dim + u for g in range(4) for u in range(u0, u0 + nu)]
-
-
-def _greedy(base: int, optional):
-    """Residents in order of priority, each taken while the block's shared
-    memory (floats) stays within SMEM_MAX: (bytes, {name: 0/1})."""
-    if 4 * base > SMEM_MAX:
-        raise ValueError(f"the fused scan needs {4 * base} bytes of shared memory a block beyond "
-                         f"its residents, above {SMEM_MAX}")
-    total, flags = base, {}
-    for name, n in optional:
-        flags[name] = int(4 * (total + n) <= SMEM_MAX)
-        total += n * flags[name]
-    return 4 * total, flags
-
-
-def fwd_plan(nblocks: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, h_dim: int,
-             vocab: int, cl: int = CL):
-    """Shared memory of the forward kernel on a grid of ``nblocks`` blocks in
-    clusters of ``cl`` (csrc/decoder_scan.cu ``fwd_layout``): (bytes, flags).
-    Residents in order: the block's gate weights [4u, E + H], v, its Wq
-    columns, its Wout columns, k (v and k: the first utterance slot's own
-    frames)."""
-    ns = _cdiv(b, nblocks // cl)
-    numax = _cdiv(h_dim, nblocks)
-    sl, dkc, vc = _cdiv(s, cl), _cdiv(dk, cl), _cdiv(vocab, cl)
-    sl4, sl16, dk8 = _round(sl, 4), _round(sl, 16), _round(dk, 8)
-    base = (ns * (s + 2 * APAD + e_dim + sl + 2 + dkc + 2) + 2 * dk8 + kk * wls_of(dk) + sl16 * kps_of(kk)
-            + h_dim + vc + 4 * 32 * 8 + b * 4 * numax + b * numax + NW + 3 * CL + b + kk * p
-            + conv_parts(sl, kk) * sl4 * kk + max(NT, vc + dkc) + NW * sl16)
-    return _greedy(base, (("w_smem", 4 * numax * (_round(e_dim + h_dim, 32) + 16)),
-                          ("v_smem", sl * e_dim),
-                          ("wq_smem", dkc * h_dim), ("wo_smem", vc * h_dim), ("k_smem", sl * dk)))
-
-
-def bwd_plan(nblocks: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, h_dim: int,
-             cl: int = CL):
-    """Shared memory of the backward kernel (csrc/decoder_scan_bwd.cu
-    ``bwd_layout``): (bytes, flags). Residents in order: the block's rows of
-    Wx[Emb:] and Wh [rows, 4H], dk, k, v (the last three for the first
-    utterance slot's own frames), after the two working buffers, the rebuilt
-    energies of the own frames and dfpre of all frames (in the launch's
-    scratch in global memory where they do not fit)."""
-    ns = _cdiv(b, nblocks // cl)
-    numax = _cdiv(h_dim, nblocks)
-    nrmax = _cdiv(e_dim, nblocks) + numax
-    sl = _cdiv(s, cl)
-    sl4, sl16, dk8 = _round(sl, 4), _round(sl, 16), _round(dk, 8)
-    base = (s + 2 * APAD + 4 * sl + sl16 * kps_of(kk) + sl * kk + 2 * e_dim + dk + 2 * dk8
-            + kk * wls_of(dk) + kk * dk + ns * sl + ns + 3 * b * numax + NW + b + kk * p
-            + conv_parts(sl, kk) * sl4 * kk + 4 * 32 * 8)
-    return _greedy(base, (("es_smem", sl * dk), ("dfa_smem", (s + 2 * APAD) * kk), ("wr_smem", nrmax * (4 * h_dim + 16)), ("dk_smem", sl * dk), ("k_smem", sl * dk),
-                          ("v_smem", sl * e_dim)))
+def _library(which: str) -> str:
+    """The name of kernel ``which``'s library, built (or the build's error
+    raised) before the card is asked anything."""
+    name = "decoder_scan" if which == "fwd" else "decoder_scan_bwd"
+    cuda_build.library(name)
+    return name
 
 
 _clusters = {}
@@ -176,8 +114,7 @@ def resident_clusters(which: str, cl: int = CL, smem: int = SMEM_MAX) -> int:
     """How many clusters of ``cl`` blocks of kernel ``which`` ("fwd" or
     "bwd") can be resident at once with ``smem`` bytes of shared memory a
     block (cudaOccupancyMaxActiveClusters; card only)."""
-    name = "decoder_scan" if which == "fwd" else "decoder_scan_bwd"
-    cuda_build.library(name)  # built (or the build's error raised) before the card is asked
+    name = _library(which)
     key = (which, cl, smem, torch.cuda.current_device())
     if key not in _clusters:
         out = torch.zeros(1, dtype=torch.int32)
@@ -198,34 +135,43 @@ def pick_cluster_size(b: int, s: int, resident) -> int:
     return min(CLUSTER_SIZES, key=lambda cl: (cost(cl), -cl))
 
 
+_grids = {}
+
+
 def scan_grid(which: str, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, h_dim: int,
               vocab: int, cluster_size: Optional[int] = None):
     """The grid a launch of kernel ``which`` uses at these shapes: G clusters
     of CL blocks (all that can be resident, CL from ``pick_cluster_size``),
-    the shared memory a block and the residents (``cluster_size`` overrides
-    the pick). Raises when the planned grid cannot be resident: a cooperative
-    grid that does not fit would not run."""
-    def plan(cl):
-        nb = resident_clusters(which, cl) * cl
-        return (fwd_plan(nb, b, s, dk, e_dim, kk, p, h_dim, vocab, cl) if which == "fwd"
-                else bwd_plan(nb, b, s, dk, e_dim, kk, p, h_dim, cl))
+    the shared memory a block, the residents and the global scratch a block
+    (``cluster_size`` overrides the pick). Raises when the planned grid
+    cannot be resident: a cooperative grid that does not fit would not run."""
+    _library(which)
+    key = (which, b, s, dk, e_dim, kk, p, h_dim, vocab, cluster_size, torch.cuda.current_device())
+    if key in _grids:
+        return dict(_grids[key])
+    shapes = (b, s, dk, e_dim, kk, p, h_dim, vocab)
 
     def fits_plan(cl):
+        g = resident_clusters(which, cl)
+        if g < 1:
+            return False
         try:
-            return resident_clusters(which, cl) >= 1 and plan(cl) is not None
+            plan(which, g, cl, *shapes)
         except ValueError:
             return False
+        return True
 
     cl = cluster_size or pick_cluster_size(b, s, lambda c: resident_clusters(which, c) if fits_plan(c) else 0)
     g = resident_clusters(which, cl)
     if g < 1 or not fits_plan(cl):
         raise RuntimeError(f"decoder_scan_{which}: no grid of clusters fits on this card at these shapes")
-    nb = g * cl
-    smem, flags = plan(cl)
+    smem, flags, scratch = plan(which, g, cl, *shapes)
     if resident_clusters(which, cl, smem) < g:
         raise RuntimeError(f"decoder_scan_{which}: {g} clusters with {smem} bytes of shared memory a "
                            "block cannot be resident at once")
-    return dict(clusters=g, cluster_size=cl, blocks=nb, slots=_cdiv(b, g), smem=smem, **flags)
+    _grids[key] = dict(clusters=g, cluster_size=cl, blocks=g * cl, slots=_cdiv(b, g), smem=smem,
+                       scratch=scratch, **flags)
+    return dict(_grids[key])
 
 
 def supported(cfg, train: bool) -> bool:
@@ -529,8 +475,7 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
     nb = grid["blocks"]
     dwlp_part, dlocv_part = new(nb, kk, dk_dim), new(nb, dk_dim)
     dctx = new(b, e_dim)  # scratch: dctx of the step
-    cl = grid["cluster_size"]
-    scratch = new(1) if grid["es_smem"] and grid["dfa_smem"] else new(nb, _cdiv(s, cl) * dk_dim + (s + 2 * APAD) * kk)
+    scratch = new(max(1, nb * grid["scratch"]))
     cuda_build.launch(
         "decoder_scan_bwd", "e2e_decoder_scan_bwd", k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh,
         wout, align, cseq, acts, qs, ctxs, dlogits, dalign, dhidden, dgates, dq, dfpre, dk,
@@ -545,106 +490,7 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
 decoder_scan_bwd.launches = 0
 
 
-# ---------------------------------------------------------------- phase split
-PHASE_BUILD = ("SCAN_PHASES",)  # the define of the kernels' timing build
-PHASE_VARIANTS = (("decoder_scan", PHASE_BUILD), ("decoder_scan_bwd", PHASE_BUILD))
-PH_STEPS, PH_SLOTS = 512, 16  # csrc: steps recorded, marks per step
-# the phases between consecutive marks of one step, in order (csrc PHASE(t, i))
-FWD_PHASES = ("q pull and token", "conv", "energies", "softmax", "context partial",
-              "cluster barrier 1", "combine", "grid barrier 1", "gate product", "cell update",
-              "grid barrier 2", "logits, argmax and q slice", "cluster barrier 2")
-BWD_PHASES = ("gate stage", "grid barrier 1", "row stage", "grid barrier 2",
-              "loads and the softmax term", "conv", "energies",
-              "reductions over frames", "dfpre", "cluster barrier", "pulls and transposed conv",
-              "grid barrier 3")
-
-
-def sm_clock_mhz() -> float:
-    """The card's SM clock under load (nvidia-smi's clocks.max.sm, the clock
-    the timing build's cycle counts are converted at; the H100 holds it at
-    its power limit while the scan runs)."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True).stdout.split()
-    return float(out[0])
-
-
-def scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens):
-    """Seeded inputs of the fused speller scan at the given shapes: (k, v,
-    enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-    teacher [L, B] int32), weights at their init scales."""
-    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-    uni = lambda bound, *shape: (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
-    return (torch.tanh(rnd(b, s, dk)), torch.tanh(rnd(b, s, e_dim)), lens,
-            uni(1 / math.sqrt(p), kk, p), uni(1 / math.sqrt(h), h, dk), uni(0.1, dk),
-            uni(1 / math.sqrt(kk), kk, dk), uni(1 / math.sqrt(dk), dk), uni(0.1, dk),
-            rnd(v, emb) / math.sqrt(emb), uni(1 / math.sqrt(h), emb + e_dim, 4 * h),
-            uni(1 / math.sqrt(h), h, 4 * h), uni(1 / math.sqrt(h), 4 * h),
-            uni(1 / math.sqrt(h), h, v), uni(0.1, v),
-            torch.randint(0, v, (l, b), generator=gen, device=dev, dtype=torch.int32))
-
-
-def _phase_means(name: str, l: int, names) -> dict:
-    """Mean us per phase over the L steps of the last launch of the timing
-    build of ``name`` (marks in SM cycles, at the card's SM clock)."""
-    out = torch.zeros(PH_STEPS * PH_SLOTS, dtype=torch.int64, device="cuda")
-    cuda_build.launch(name, "e2e_decoder_scan_phase_times", out, out.numel(), defines=PHASE_BUILD)
-    marks = out.view(PH_STEPS, PH_SLOTS)[:min(l, PH_STEPS)].double()
-    per_us = sm_clock_mhz()
-    dur = (marks[:, 1:len(names) + 1] - marks[:, :len(names)]).mean(0) / per_us
-    return {nm: float(x) for nm, x in zip(names, dur)}
-
-
-def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=None):
-    """The per-phase split of one step of each scan kernel (timing build:
-    block 0 marks its SM's clock at every phase boundary of every step), on
-    the card. ``args`` as ``scan_inputs``; ``cots`` the cotangents of
-    (logits, align, hidden) for the backward (random if None). Returns
-    {"fwd": {phase: mean us per step}, "bwd": {...}, "fwd_ms", "bwd_ms": the
-    timing build's whole-launch times, "fwd_ms_normal", "bwd_ms_normal": the
-    normal build's}; ``cluster_size`` overrides the grid's pick. Launch
-    counters are not touched."""
-    k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout, teacher = args
-    l = teacher.shape[0]
-    res = {}
-    fwd = lambda: _fwd_launch(PHASE_BUILD, *args, use_teacher, temp, False, 0, cluster_size)
-    logits, align, hidden, (cseq, _, acts, qs, ctxs) = fwd()  # builds the variant, warms up
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    fwd()
-    t1.record()
-    torch.cuda.synchronize()
-    res["fwd_ms"] = t0.elapsed_time(t1)
-    res["fwd"] = _phase_means("decoder_scan", l, FWD_PHASES)
-    if cots is None:
-        g = torch.Generator(device=k.device)
-        g.manual_seed(0)
-        cots = [torch.randn(o.shape, generator=g, device=k.device) / math.sqrt(o.shape[-1])
-                for o in (logits, align, hidden)]
-    bwd = lambda: _bwd_launch(PHASE_BUILD, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
-                              align, hidden, cseq, acts, qs, ctxs, *cots, temp, cluster_size)
-    bwd()
-    torch.cuda.synchronize()
-    t0.record()
-    bwd()
-    t1.record()
-    torch.cuda.synchronize()
-    res["bwd_ms"] = t0.elapsed_time(t1)
-    res["bwd"] = _phase_means("decoder_scan_bwd", l, BWD_PHASES)
-    for w, fn in (("fwd", lambda: _fwd_launch((), *args, use_teacher, temp, False, 0, cluster_size)),
-                  ("bwd", lambda: _bwd_launch((), k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
-                                              align, hidden, cseq, acts, qs, ctxs, *cots, temp,
-                                              cluster_size))):
-        fn()
-        torch.cuda.synchronize()
-        t0.record()
-        for _ in range(3):
-            fn()
-        t1.record()
-        torch.cuda.synchronize()
-        res[f"{w}_ms_normal"] = t0.elapsed_time(t1) / 3
-    return res
+PHASE_BUILD = ("SCAN_PHASES",)  # the define of the kernels' timing build (bin/profile_decode.py)
 
 
 class DecoderScanFn(torch.autograd.Function):

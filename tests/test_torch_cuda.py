@@ -9,7 +9,9 @@ and 764, L = 1, B = 1 and 33, in its three feedback modes, its backward
 sweep and its autograd function, at flagship widths with B = 40 (more
 utterances than resident clusters), with H = 8 (most blocks of the grid own
 no hidden unit), at S = 3000 (the backward's working buffers in global
-memory), and twice on the same inputs (bitwise equal). Marked ``cuda``: they skip without a card. Run on the card with
+memory), at the convergence recipe's widths with B = 32, and twice on the
+same inputs (bitwise equal); the kernels' shared-memory plan over grids of
+8 to 132 blocks. Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
@@ -261,6 +263,7 @@ SCAN_SHAPES = [
     (5, 13, 24, 32, 3, 7, 8, 16, 11, 5),  # H = 8: most blocks of the grid own no hidden unit
     (2, 3000, 256, 64, 4, 31, 64, 16, 9, 2),  # the backward's working buffers in global memory
     (2, 20, 64, 3000, 4, 15, 512, 16, 9, 2),  # the cell's weights too wide to stay in shared memory
+    (32, 204, 128, 512, 8, 65, 256, 256, 32, 6),  # the convergence recipe's widths, B above the resident clusters
 ]
 
 
@@ -344,3 +347,39 @@ def test_decoder_scan_kernels_repeat_bitwise(gen):
              ctxs, *cots, 0.5)
     for g, w in zip(dc.decoder_scan_bwd(*bargs), dc.decoder_scan_bwd(*bargs)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("h_dim", [8, 64, 256, 320, 512])
+@pytest.mark.parametrize("nblocks", [8, 64, 128, 132])
+def test_scan_plan_fits_the_grid(gen, h_dim, nblocks):
+    """The kernels' own shared-memory plan (csrc e2e_decoder_scan_*_plan) at
+    the flagship widths on a grid of ``nblocks`` blocks in clusters of 4:
+    a block stays within the H100's 227 KB (B 16, and B 40 on grids of 64
+    blocks or more), and a grid of 128 or more blocks holds its slice of the
+    cell in shared memory."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    for b in (16, 40) if nblocks >= 64 else (16,):
+        for which in ("fwd", "bwd"):
+            smem, flags, _ = dc.plan(which, nblocks // 4, 4, b, 204, 300, 640, 10, 201, h_dim, 26)
+            assert 0 < smem <= dc.SMEM_MAX
+            if nblocks >= 128:
+                assert flags["w_smem" if which == "fwd" else "wr_smem"]
+
+
+def test_flagship_plan_keeps_the_cell_resident(gen):
+    """At the flagship training shapes on 15 clusters of 8 both kernels hold
+    their slice of the cell in shared memory; at S = 764 the plan still fits,
+    with k and v left in L2; at S = 4000 the backward's working buffers move
+    to global memory (its scratch) and it still fits (S has no limit)."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    smem, flags, _ = dc.plan("fwd", 15, 8, 16, 204, 300, 640, 10, 201, 320, 26)
+    assert flags["w_smem"] and smem <= dc.SMEM_MAX
+    smem, flags, scratch = dc.plan("bwd", 15, 8, 16, 204, 300, 640, 10, 201, 320, 26)
+    assert flags["wr_smem"] and flags["dk_smem"] and smem <= dc.SMEM_MAX and scratch == 0
+    smem, flags, _ = dc.plan("fwd", 15, 8, 16, 764, 300, 640, 10, 201, 320, 26)
+    assert flags["w_smem"] and not flags["k_smem"] and not flags["v_smem"] and smem <= dc.SMEM_MAX
+    smem, flags, scratch = dc.plan("bwd", 15, 8, 16, 4000, 512, 640, 10, 201, 320, 26)
+    assert not flags["es_smem"] and not flags["dfa_smem"] and smem <= dc.SMEM_MAX
+    assert scratch == 500 * 512 + (4000 + 8) * 10

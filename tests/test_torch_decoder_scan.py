@@ -102,10 +102,23 @@ def close_grads(got, want, what):
 
 
 # ------------------------------------------------------------ (a) against JAX
+def model_cfg(taps="default"):
+    """``cfg_dict()``; with taps "wide", 8 filters of 33 taps over 18 encoder
+    frames: the convergence recipe's 8 x 65 taps over the 52 frames of its
+    shortest bucket, at test size."""
+    d = cfg_dict()
+    if taps == "wide":
+        d["model"]["attention"].update(loc_kernel_size=16, loc_kernel_num=8)
+    return d
+
+
 @pytest.mark.parametrize("fused_jax", ["pallas", "scan"])
-@pytest.mark.parametrize("tf,sample", [(1.0, True), (0.0, False)])
-def test_fused_forward_matches_jax(fused_jax, tf, sample):
-    jc, tc, jp, tp = models(cfg_dict(), fused_jax)
+@pytest.mark.parametrize("tf,sample,taps", [
+    pytest.param(1.0, True, "default", id="1.0-True"), pytest.param(0.0, False, "default", id="0.0-False"),
+    pytest.param(1.0, True, "wide", id="1.0-True-wide_taps"),
+    pytest.param(0.0, False, "wide", id="0.0-False-wide_taps")])
+def test_fused_forward_matches_jax(fused_jax, tf, sample, taps):
+    jc, tc, jp, tp = models(model_cfg(taps), fused_jax)
     feat, feat_len, teacher = inputs()
     jo = jasr.forward(jp, jc, jnp.asarray(feat), jnp.asarray(feat_len), teacher.shape[1], tf_rate=tf,
                       teacher=jnp.asarray(teacher), rng=jax.random.PRNGKey(5), train=True,
@@ -116,15 +129,19 @@ def test_fused_forward_matches_jax(fused_jax, tf, sample):
         np.testing.assert_allclose(to[k].numpy(), np.asarray(jo[k]), rtol=V_RTOL, atol=V_ATOL, err_msg=k)
     s_valid = int(to["enc_len"][1])
     assert s_valid < to["align"].shape[-1]
+    if taps == "wide":
+        assert to["align"].shape[-1] < 2 * tc.attention.loc_kernel_size + 1
     assert float(to["align"][1, :, 0, s_valid:].abs().max()) == 0.0
     if tf == 0.0:  # the run really fed its own predictions
         assert (to["att_logits"].argmax(-1)[:, :-1].numpy() != teacher[:, :-1]).any()
 
 
 # ------------------------------------------------------------ (b) every gradient
-@pytest.mark.parametrize("fused_jax", ["pallas", "scan"])
-def test_fused_gradients_match_jax(fused_jax):
-    jc, tc, jp, tp = models(cfg_dict(), fused_jax)
+@pytest.mark.parametrize("fused_jax,taps", [
+    pytest.param("pallas", "default", id="pallas"), pytest.param("scan", "default", id="scan"),
+    pytest.param("pallas", "wide", id="pallas-wide_taps"), pytest.param("scan", "wide", id="scan-wide_taps")])
+def test_fused_gradients_match_jax(fused_jax, taps):
+    jc, tc, jp, tp = models(model_cfg(taps), fused_jax)
     feat, feat_len, teacher = inputs()
 
     def jloss(params):
@@ -301,47 +318,7 @@ def test_sampled_feedback_draws_valid_ids():
     assert bool((fed[1:] == 4).all())
 
 
-# ------------------------------- (f) the kernels' split of the cell over the grid
-@pytest.mark.parametrize("h_dim", [8, 64, 256, 320, 512])
-@pytest.mark.parametrize("nblocks", [8, 64, 128, 132])
-def test_grid_split_of_the_cell(h_dim, nblocks):
-    """unit_split / gate_columns, the host's copy of the kernels' split: every
-    hidden unit owned by exactly one block, a unit's four gate columns in
-    that block, every gate column computed once, blocks within one unit of
-    each other; and the shared memory a block plans (flagship widths, B 16,
-    and B 40 on grids of 8 clusters or more) stays within the H100's 227 KB."""
-    split = dc.unit_split(h_dim, nblocks)
-    assert len(split) == nblocks
-    owned = [u for u0, nu in split for u in range(u0, u0 + nu)]
-    assert sorted(owned) == list(range(h_dim))
-    cols = [col for u0, nu in split for col in dc.gate_columns(h_dim, u0, nu)]
-    assert sorted(cols) == list(range(4 * h_dim))
-    for u0, nu in split:
-        mine = set(dc.gate_columns(h_dim, u0, nu))
-        for u in range(u0, u0 + nu):
-            assert {g * h_dim + u for g in range(4)} <= mine
-    sizes = [nu for _, nu in split]
-    assert max(sizes) - min(sizes) <= 1
-    for b in (16, 40) if nblocks >= 64 else (16,):
-        assert dc.fwd_plan(nblocks, b, 204, 300, 640, 10, 201, h_dim, 26)[0] <= dc.SMEM_MAX
-        assert dc.bwd_plan(nblocks, b, 204, 300, 640, 10, 201, h_dim)[0] <= dc.SMEM_MAX
-
-
-def test_flagship_plan_keeps_the_cell_resident():
-    """At the flagship training shapes on 15 clusters (120 blocks) both
-    kernels hold their slice of the cell in shared memory; at S = 764 the
-    plan still fits, with k and v left in L2; at S = 4000 the backward's
-    working buffers move to global memory and it still fits (S has no limit)."""
-    smem, flags = dc.fwd_plan(120, 16, 204, 300, 640, 10, 201, 320, 26)
-    assert flags["w_smem"] and smem <= dc.SMEM_MAX
-    smem, flags = dc.bwd_plan(120, 16, 204, 300, 640, 10, 201, 320)
-    assert flags["wr_smem"] and flags["dk_smem"] and smem <= dc.SMEM_MAX
-    smem, flags = dc.fwd_plan(120, 16, 764, 300, 640, 10, 201, 320, 26)
-    assert flags["w_smem"] and not flags["k_smem"] and not flags["v_smem"] and smem <= dc.SMEM_MAX
-    smem, flags = dc.bwd_plan(120, 16, 4000, 512, 640, 10, 201, 320)
-    assert not flags["es_smem"] and not flags["dfa_smem"] and smem <= dc.SMEM_MAX
-
-
+# ----------------------------------------- (f) the grid's cluster size
 @pytest.mark.parametrize("b,s,want", [(16, 204, 6), (1, 204, 8), (32, 204, 6), (16, 764, 6), (40, 61, 5)])
 def test_pick_cluster_size(b, s, want):
     """The cluster size the kernels run at, from the resident-cluster counts
