@@ -10,7 +10,9 @@
    PyTorch call computes the same function, that call: the decode kernels
    at the flagship decode shapes (configs/libri/asr_example.yaml model,
    decode B=16, W=16), the training kernels (the LSTM's training forward
-   and backward, the CTC lattice) at the flagship training shapes (B=16 in
+   and backward, the backward's sweep and products timed apart; the CTC
+   loss, nll and gradient in one launch, checked for bitwise repeats and
+   for no host synchronisation) at the flagship training shapes (B=16 in
    the 816-frame bucket: S=204 encoder frames, up to 199 CTC labels); the
    fused speller scan (forward in its three feedback modes, backward, and
    its autograd function) at B=16, S=204, L=200 and once at S=764; the
@@ -328,6 +330,23 @@ def _scaled(name, got, want, rtol):
     return compare(name, got, want, rtol=rtol, atol=rtol * float(want.abs().max()))
 
 
+def _bidir_bwd_parts(x, mask, wx, wh, ys, c, acts, dy, iters: int = 10) -> dict:
+    """lstm_bidir_bwd's two parts apart (separate launches, CUDA events):
+    the reverse sweep and the products (dx, dWx with db, dWh)."""
+    from e2e_asr_tpu_torch.ops import rnn_cuda
+
+    t, b, d = x.shape
+    h = wh.shape[1]
+    dg = torch.empty((t, 2 * b, 4 * h), device=x.device)
+    outs = (torch.empty_like(x), torch.empty_like(wx), torch.empty_like(wh),
+            torch.empty((2, 4 * h), device=x.device))
+    return dict(
+        sweep_ms=time_ms(lambda: rnn_cuda._sweep(mask, wh, c, acts, dy, dg, t, b, 2, h, 0), iters),
+        products_ms=time_ms(lambda: rnn_cuda._bidir_products(x, wx, ys, dg, *outs), iters),
+        sweep_grid=dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
+                            rnn_cuda.sweep_grid(t, b, 2, h, x.device))))
+
+
 def train_kernel_checks(dev, cfg, vocab):
     """The training kernels against their plain versions at the flagship
     training shapes: S = 204 encoder frames (816 / 4), B = 16, H = 320,
@@ -397,10 +416,16 @@ def train_kernel_checks(dev, cfg, vocab):
             b_ms = time_ms(lambda: rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy), 10)
             b_plain = time_ms(lambda: rnn_cuda.lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy),
                               3, 1)
+            parts = _bidir_bwd_parts(x, mask, wx, wh, ys, c, acts, dy)
+            again = rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy)
+            if not all(torch.equal(p, q) for p, q in zip(got, again)):
+                fail(f"lstm_bidir_bwd D={d}: two runs on the same inputs differ")
+        print(f"  lstm_bidir_bwd D={d}: {b_ms:.3f} ms = sweep {parts['sweep_ms']:.3f} ms (grid "
+              f"{parts['sweep_grid']}) + products {parts['products_ms']:.3f} ms; repeats bitwise", flush=True)
         bwd.append(dict(d=d, max_abs_err=err, ms=b_ms, plain_ms=b_plain,
                         library_ms=time_ms(lambda: torch.autograd.grad(out_lib, lib_in, dy_lib,
                                                                        retain_graph=True), 10),
-                        bound=bound_ms(io, nf)))
+                        bound=bound_ms(io, nf), **parts))
 
         def kernel_fwd():
             with torch.no_grad():
@@ -437,14 +462,15 @@ def train_kernel_checks(dev, cfg, vocab):
             library_ms=layer_mean(entries, "library_ms"),
             bound=((entries[0]["bound"][0] + 3 * entries[1]["bound"][0]) / 4, entries[0]["bound"][1]),
             shapes=f"x [{s_len},{b},1280|{2 * h}], H {h} (ms = mean per layer of 1x1280 + 3x{2 * h})",
-            per_width={str(e["d"]): {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound", "alternating")}
+            per_width={str(e["d"]): {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound", "alternating",
+                                                        "sweep_ms", "products_ms", "sweep_grid") if k in e}
                        for e in entries},
             alternating={k: (entries[0]["alternating"][k] + 3 * entries[1]["alternating"][k]) / 4
                          for k in ("ms", "library_ms")},
         )
 
     # ---- CTC lattice: log_probs [B, S, V], labels [B, L] up to the token bucket
-    print("[kernel] ctc_loss (lattice)", flush=True)
+    print("[kernel] ctc_loss (lattice: nll and its gradient)", flush=True)
     l_max = cfg.data.corpus.token_buckets[-1] - 1  # <eos> is not a CTC label
     logits = 3.0 * torch.randn((b, s_len, vocab), generator=gen, device=dev)
     logits[:, :, 0] += 2.0
@@ -457,11 +483,16 @@ def train_kernel_checks(dev, cfg, vocab):
     inlen = lens.clone()
     inlen[0] = l_max - 1  # fewer frames than labels: no alignment, +inf
     got = ctc_cuda.ctc_lattice(lp, labels, inlen, lablen)
-    want = ctc_cuda.ctc_lattice_plain(lp, labels, inlen, lablen)
+    want = ctc_cuda.ctc_lattice_grad_plain(lp, labels, inlen, lablen)
     ok = want[0] <= ctc_cuda.BIG
     if not torch.equal(got[0] <= ctc_cuda.BIG, ok) or bool(ok[0]) or not bool(ok[1:].all()):
         fail("ctc_loss: rows with no alignment differ between kernel and plain version")
     err = compare("ctc_loss nll", got[0][ok], want[0][ok], rtol=1e-5, atol=1e-3)
+    err = max(err, compare("ctc_loss G = d nll / d log_probs", got[1], want[1], rtol=1e-4, atol=1e-4))
+    for _ in range(2):
+        again = ctc_cuda.ctc_lattice(lp, labels, inlen, lablen)
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            fail("ctc_loss: two runs on the same inputs differ")
 
     def loss_grad():
         lp_g = lp.clone().requires_grad_()
@@ -472,9 +503,15 @@ def train_kernel_checks(dev, cfg, vocab):
     g_k = loss_grad()
     with mock.patch.object(cuda_build, "use_plain", lambda x: True):
         g_p = loss_grad()
-    err = max(err, compare("ctc_loss d nll / d log_probs", g_k, g_p, rtol=1e-4, atol=1e-4))
+    err = max(err, compare("ctc_loss CTCLossFn d nll / d log_probs", g_k, g_p, rtol=1e-4, atol=1e-4))
     if float(g_k[0].abs().max()) != 0.0:
         fail("ctc_loss: a row with no alignment has a gradient")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # the CUDA route must not synchronise with the host
+    try:
+        loss_grad()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     targets = torch.cat([labels[i, :lablen[i]] for i in range(b)])
     lp_t = lp.transpose(0, 1).detach().requires_grad_()
 
@@ -483,24 +520,45 @@ def train_kernel_checks(dev, cfg, vocab):
                                            zero_infinity=True)
         torch.autograd.grad(nll, lp_t)
 
+    # launches of one forward + backward: the wrapper's count, and the
+    # device kernels the profiler sees (kernel route and library)
+    from torch.profiler import ProfilerActivity, profile
+
+    before = ctc_cuda.ctc_lattice.launches
+    loss_grad()
+    per_call = ctc_cuda.ctc_lattice.launches - before
+    if per_call != 1:
+        fail(f"ctc_loss: {per_call} kernel launches in one CTCLossFn forward + backward, expected 1")
+    device_launches = {}
+    for nm, fn in (("kernel", loss_grad), ("library", library)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device_launches[nm] = sum(e.count for e in prof.key_averages()
+                                  if e.device_type == torch.autograd.DeviceType.CUDA)
     alt = alternating_ms({"kernel": loss_grad, "library": library})
+    print(f"  ctc_loss: {per_call} kernel launch per CTCLossFn forward + backward; device launches "
+          f"{device_launches['kernel']} (F.ctc_loss {device_launches['library']}); no host sync", flush=True)
     print(f"  alternating rounds ({ALT_ROUNDS}, median): ctc_loss forward + backward {alt['kernel']:.3f} ms vs "
           f"F.ctc_loss {alt['library']:.3f} ms (ratio {alt['kernel'] / alt['library']:.3f})", flush=True)
-    s_lat = 2 * l_max + 1
-    # bytes: log_probs, labels and lengths read once, nll and gamma written
+    # the function's least work, the same for the kernel and the library:
+    # log_probs, labels and lengths read once, nll and G [B, T, V] written
     # once; ~30 operations per valid (t, s) cell for alpha and beta
-    io = 4 * (lp.numel() + labels.numel() + 2 * b + b + b * s_len * s_lat)
-    nf = 30 * float((inlen * (2 * lablen + 1)).sum())
+    io = (4 * lp.numel() + labels.element_size() * labels.numel()
+          + inlen.element_size() * b + lablen.element_size() * b + 4 * (b + lp.numel()))
+    nf = 30 * float((inlen.clamp(max=s_len) * (2 * lablen + 1)).sum())
     out["ctc_loss"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/ctc_loss.cu",
         replaces="e2e_asr_tpu/ops/ctc_pallas.py:170", max_abs_err=err,
         ms=time_ms(lambda: ctc_cuda.ctc_lattice(lp, labels, inlen, lablen), 20),
-        plain_ms=time_ms(lambda: ctc_cuda.ctc_lattice_plain(lp, labels, inlen, lablen), 3, 1),
+        plain_ms=time_ms(lambda: ctc_cuda.ctc_lattice_grad_plain(lp, labels, inlen, lablen), 3, 1),
         library_ms=time_ms(library, 10), bound=bound_ms(io, nf),
-        loss_fwd_bwd_ms=time_ms(loss_grad, 10),
+        loss_fwd_bwd_ms=time_ms(loss_grad, 10), launches_per_fwd_bwd=per_call,
+        device_launches_per_fwd_bwd=device_launches,
         alternating={"ms": alt["kernel"], "library_ms": alt["library"]},
-        shapes=f"log_probs [{b},{s_len},{vocab}], labels [{b},{l_max}] (S {s_lat}); "
-               "ms: the lattice (nll + gamma); library_ms: F.ctc_loss forward + backward; "
+        shapes=f"log_probs [{b},{s_len},{vocab}], labels [{b},{l_max}] (S {2 * l_max + 1}), int64; "
+               "ms: the kernel (nll + G); library_ms: F.ctc_loss forward + backward; "
                "loss_fwd_bwd_ms: CTCLossFn forward + backward",
     )
     return out
@@ -780,10 +838,17 @@ def lstm_seq_checks(dev):
                 t=t, b=b, h=h, max_abs_err=err, bound=bound_ms(io_f, vr * (2 * h * 4 * h + 12 * h)),
                 ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True), 5),
                 plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd_plain(xw, m2, wh), 2, 1)))
+            dxw, dwh = torch.empty_like(acts), torch.empty_like(wh)
             bwd.append(dict(
                 t=t, b=b, h=h, max_abs_err=err_b, bound=bound_ms(io_b, vr * (16 * h * h + 20 * h)),
                 ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy), 5),
-                plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy), 2, 1)))
+                plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy), 2, 1),
+                sweep_ms=time_ms(lambda: rnn_cuda._sweep(m2, wh, c, acts, dy, dxw, t, b, 2, h, 1), 5),
+                products_ms=time_ms(lambda: rnn_cuda._seq_products(ys, dxw, dwh), 5),
+                sweep_grid=dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
+                                    rnn_cuda.sweep_grid(t, b, 2, h, dev)))))
+            print(f"  lstm_seq_bwd T={t} B={b} H={h}: {bwd[-1]['ms']:.3f} ms = sweep {bwd[-1]['sweep_ms']:.3f} "
+                  f"ms (grid {bwd[-1]['sweep_grid']}) + dWh {bwd[-1]['products_ms']:.3f} ms", flush=True)
         fwd[-1]["library_ms"] = time_ms(lambda: lstm(xg), 5)
         # cuDNN's call includes x @ Wx; the port's projection outside the
         # kernel (one matmul, the flip of the backward direction) beside it
@@ -848,7 +913,9 @@ def lstm_seq_checks(dev):
                    "convergence recipe's first layer; library_ms: cuDNN nn.LSTM on x [T,B,80], its "
                    "projection included, which ms leaves out: layer_routes compares whole layers)",
             per_shape={f"T{e['t']}_B{e['b']}_H{e['h']}": {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound",
-                                                                            "projection_ms") if k in e}
+                                                                            "projection_ms", "sweep_ms",
+                                                                            "products_ms", "sweep_grid")
+                                                         if k in e}
                        for e in entries},
         )
     out["lstm_seq_fwd"]["layer_routes"] = routes
@@ -1183,6 +1250,7 @@ def main(json_path: str = "") -> None:
             "library_ms": kv["library_ms"], "shapes": kv["shapes"], "launches_path": first,
             "launches_by_path": by_path,
             **{k: kv[k] for k in ("per_width", "per_shape", "layer_routes", "loss_fwd_bwd_ms",
+                                  "launches_per_fwd_bwd", "device_launches_per_fwd_bwd",
                                   "ms_sampled", "ms_s764_l8", "phases_us", "grid", "alternating")
                                   if k in kv},
         })

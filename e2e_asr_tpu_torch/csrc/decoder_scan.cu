@@ -68,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -181,36 +183,6 @@ __host__ __device__ inline int conv_parts(int Sl, int K) {
 // loads free of bank conflicts
 __host__ __device__ inline int kps_of(int K) { return cdiv(K, 8) * 8 + 4; }
 __host__ __device__ inline int wls_of(int Dk) { return cdiv(Dk, 32) * 32 + 8; }
-
-// x = hi + lo, hi its top 19 bits (a TF32 value), lo the exact rest; the
-// tensor core reads lo's top 19 bits, so a product of such splits keeps
-// ~21 bits of x
-__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8, the m16n8k8 accumulator fragment) += a (16 x 8) b (8 x 8) in
-// float32 accuracy (relative error ~1e-6 a product) from three TF32
-// products: a_lo b_hi + a_hi b_lo + a_hi b_hi
-__device__ __forceinline__ void mma_3xtf32(float* d, const float* a, const float* b) {
-  uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tf32_split(a[i], ah[i], al[i]);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) tf32_split(b[i], bh[i], bl[i]);
-#define MMA_TF32(A, B)                                                                       \
-  asm(                                                                                       \
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "    \
-      "{%8,%9}, {%0,%1,%2,%3};\n"                                                            \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                                       \
-      : "r"(A[0]), "r"(A[1]), "r"(A[2]), "r"(A[3]), "r"(B[0]), "r"(B[1]))
-  MMA_TF32(al, bh);
-  MMA_TF32(ah, bl);
-  MMA_TF32(ah, bh);
-#undef MMA_TF32
-}
-
 
 // hidden units [u0, u0 + nu) of block j of nb (the first H % nb blocks own one more)
 __host__ __device__ inline void unit_range(int H, int nb, int j, int& u0, int& nu) {

@@ -74,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -155,50 +157,6 @@ __host__ __device__ inline int wls_of(int Dk) { return cdiv(Dk, 32) * 32 + 8; }
 // row stride of the resident rows of Wx[Emb:] and Wh: 4H + 16 (4H is a
 // multiple of 32; a quarter warp's 16-byte loads free of bank conflicts)
 __host__ __device__ inline int row_stride(int H) { return 4 * H + 16; }
-
-// 4 or 16 bytes global -> shared in the background (cp.async);
-// cp_async_wait_all waits for the thread's own copies
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
-
-// x = hi + lo, hi its top 19 bits (a TF32 value), lo the exact rest; the
-// tensor core reads lo's top 19 bits, so a product of such splits keeps
-// ~21 bits of x
-__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-// d (16 x 8, the m16n8k8 accumulator fragment) += a (16 x 8) b (8 x 8) in
-// float32 accuracy (relative error ~1e-6 a product) from three TF32
-// products: a_lo b_hi + a_hi b_lo + a_hi b_hi
-__device__ __forceinline__ void mma_3xtf32(float* d, const float* a, const float* b) {
-  uint32_t ah[4], al[4], bh[2], bl[2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) tf32_split(a[i], ah[i], al[i]);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) tf32_split(b[i], bh[i], bl[i]);
-#define MMA_TF32(A, B)                                                                       \
-  asm(                                                                                       \
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "    \
-      "{%8,%9}, {%0,%1,%2,%3};\n"                                                            \
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                                       \
-      : "r"(A[0]), "r"(A[1]), "r"(A[2]), "r"(A[3]), "r"(B[0]), "r"(B[1]))
-  MMA_TF32(al, bh);
-  MMA_TF32(ah, bl);
-  MMA_TF32(ah, bh);
-#undef MMA_TF32
-}
-
 
 // items [i0, i0 + n) of block j when n_all items are split over nb blocks
 // (the first n_all % nb blocks own one more)

@@ -19,238 +19,569 @@
 //   is the h carry wherever the step is valid), db = sum of dg over rows.
 // The mask gets no gradient.
 //
-// What bounds it on the H100: the sweep is a recurrence like the forward
-// (every step needs the last step's dh, i.e. dgates Wh^T over all 4H gate
-// columns), latency-bound at 2B = 32 rows; the products are ~48 GFLOP per
-// flagship layer (D = 1280), bound by f32 FMA throughput on the CUDA cores.
-// Design: the sweep mirrors the forward. Each row (one direction of one
-// utterance) runs on a cluster of CL = 8 blocks; block q owns H/8 hidden
-// units, computes their 4 gate gradients per step, writes them to dg and
-// to every block of the cluster through distributed shared memory
-// (double-buffered), and after one cluster barrier per step forms dh for
-// its units from the row's whole dgates vector and its H/8 rows of Wh (KS
-// lanes per unit, reduced by warp shuffles). The dh and dc carries stay in
-// registers of each unit's owner lane. The products run in a tiled f32
-// GEMM (64x64 tiles, shared-memory staging, 4x4 outputs a thread; no tensor
-// cores yet) whose operands are addressed through (time, batch) index maps,
-// so the kernel-time backward rows and the h_prev shift need no copies.
-//
-// The same sweep and GEMM also replace the backward of the TPU kernel
+// The same sweep and products also replace the backward of the TPU kernel
 // rnn_pallas.py lstm_seq (_lstm_seq_bwd_call / _bwd_kernel) for R = Dirs * B
 // rows already in kernel time with a per-row mask [T, R]: the gate
 // gradients ARE dxw [T, R, 4H], and dWh[d] = h_prev^T dxw over direction d's
 // rows. The TPU kernel rebuilds the gates from xw_t + h_{t-1} Wh; here the
-// forward stores the activations (as for the fused-projection layer), so
-// the sweep reads acts and never xw. That variant is bound by bytes once
-// T*R is large (acts in and dxw out: 214 MB each at T=816, R=64, H=256).
+// forward stores the activations, so the sweep reads acts and never xw.
+// The TPU kernels accumulate dWh (and dWx) inside the kernel body; here they
+// are this file's own tensor-core products.
+//
+// What bounds it on the H100. The sweep: latency. Every step needs the last
+// step's dh = dgates Wh^T over all 4H gate columns of every row; a design
+// that streams Wh from L2 on every step (a row a cluster of 8 blocks, each
+// with its H/8 rows of Wh: 205 KB a block a step at H = 320) is bound by L2
+// bandwidth instead. The products: ~48 GFLOP a flagship layer (D = 1280),
+// bound by the tensor cores' TF32 rate (three products a tile).
+//
+// Design, the sweep: one persistent cooperative grid, a block for each
+// (direction, 16 hidden units, group of 8 nt rows); its 16 rows of Wh stay
+// in shared memory for the whole launch (read from L2 where they do not
+// fit), so no weight crosses L2 after the first step. A step: each block
+// forms the gate gradients of its (unit, row) pairs and writes them to dg;
+// one grid barrier; each block copies its rows' dgates of the step into
+// shared memory (16-byte cp.async) while the next step's inputs load, and
+// forms dgates Wh^T for its units on the tensor cores (m16n8k8, three TF32
+// products a tile: float32 accuracy; six accumulators and two chunks a
+// round keep the mma chains short), the 4H columns split over the warps,
+// whose partial tiles are summed in a fixed order. The plan (rows a block,
+// weights resident or not) comes from e2e_lstm_bwd_sweep_plan: the grid must
+// be resident, or the launch fails and the wrapper raises. (A barrier among
+// each group's blocks alone, per-block step counts that the group polls,
+// measured slower than the grid barrier.)
+// Design, the products: one tensor-core GEMM kernel (128 x 64 x 32 tiles,
+// 8 warps of 32 x 32, three-stage 16-byte cp.async pipeline, three TF32
+// products a tile) whose operands are rows addressed through (time, batch)
+// maps, so the kernel-time backward rows and the h_prev shift need no
+// copies; each map's division by B is a multiply-high resolved on the host.
+// dx is one product over K = 2 x 4H (the two directions as two K segments);
+// dWx and dWh run both directions in one launch, split over K where the
+// tiles alone would not fill the card (the split picked by the wrapper),
+// the partials summed in a fixed order by a second kernel: no atomics, so
+// every output repeats bitwise. db is folded into dWx: the blocks of its
+// first row of tiles also sum the columns of the dg tiles they load.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CL = 8;  // blocks per cluster: a row's hidden units split CL ways
-constexpr int KS = 8;  // lanes per hidden unit in dgates Wh^T
+constexpr int SMEM_MAX = 232448 - 1024;  // a block's shared memory on the H100, less a margin
 
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(1024)
-lstm_bwd_sweep_kernel(const float* __restrict__ mask, const float* __restrict__ wh,
-                      const float* __restrict__ c_out, const float* __restrict__ acts,
-                      const float* __restrict__ dy, float* __restrict__ dg, int T, int B,
-                      int H, int row_mask) {
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int cid = blockIdx.x / CL;
-  const int dir = cid / B;
-  const int row = cid % B;
-  const int r = cid;            // row of ys / c_out / acts / dy / dg
-  const int R = gridDim.x / CL;  // rows of a time step: directions * B
-  const int G = 4 * H;
-  const int Hc = H / CL;
-  const int tid = threadIdx.x;
-  const int ul = tid / KS;
-  const int split = tid % KS;
-  const bool active = ul < Hc;
-  const bool owner = active && split == 0;
-  const int u = rank * Hc + (active ? ul : 0);
-  const float* whu = wh + ((long)dir * H + u) * G;  // row u of Wh[dir]
+// ----------------------------------------------------------------- sweep
+constexpr int SW_NT = 256;  // threads a block
+constexpr int SW_NW = SW_NT / 32;
+constexpr int SW_US = 16;   // hidden units a block (one m16 tile)
 
-  extern __shared__ float dg_s[];  // [2][G]: the row's dgates, double-buffered
-  float dh = 0.0f;
-  float dc = 0.0f;
-  cluster.sync();  // every block of the cluster runs before any remote write
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ inline int sw_stride(int G) { return G + 16; }  // 16-byte loads free of conflicts
+
+// floats of shared memory: the resident Wh rows (none where w_smem is 0:
+// read from L2), the step's dgates of the block's rows, the warps' partial
+// tiles
+__host__ __device__ inline int sw_smem_floats(int G, int nt, int w_smem) {
+  return (w_smem ? SW_US * sw_stride(G) : 0) + 8 * nt * sw_stride(G) + SW_NW * nt * SW_US * 8;
+}
+
+struct SweepArgs {
+  const float *mask, *wh, *c_out, *acts, *dy;
+  float* dg;
+  int T, B, H, dirs, row_mask;
+  int nt, nrg, slices, w_smem;
+};
+
+// one (unit, row) pair's inputs of a step
+struct PairIn {
+  float m, ig, fg, gg, og, c, cp, dy;
+};
+
+__device__ __forceinline__ PairIn load_pair(const SweepArgs& a, int k, int r, int row, int u,
+                                            int dir) {
+  const int R = a.dirs * a.B, H = a.H, G = 4 * a.H;
+  const long base = (long)k * R + r;
+  const int t = dir == 0 ? k : a.T - 1 - k;
+  PairIn p;
+  p.m = (a.row_mask ? a.mask[base] : a.mask[(long)t * a.B + row]) > 0.0f ? 1.0f : 0.0f;
+  const float* ac = a.acts + base * G + u;
+  p.ig = ac[0];
+  p.fg = ac[H];
+  p.gg = ac[2 * H];
+  p.og = ac[3 * H];
+  p.c = a.c_out[base * H + u];
+  p.cp = k > 0 ? a.c_out[(base - R) * H + u] : 0.0f;
+  p.dy = a.dy[base * H + u];
+  return p;
+}
+
+// NT n8 tiles of rows a block
+template <int NT>
+__global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
+  constexpr int SW_PPT = (SW_US * 8 * NT + SW_NT - 1) / SW_NT;  // (unit, row) pairs a thread
+  cg::grid_group grid = cg::this_grid();
+  const int T = a.T, B = a.B, H = a.H, G = 4 * H, R = a.dirs * B;
+  const int slice = blockIdx.x % a.slices;
+  const int rg = (blockIdx.x / a.slices) % a.nrg;
+  const int dir = blockIdx.x / (a.slices * a.nrg);
+  const int u0 = slice * SW_US, nu = min(SW_US, H - u0);
+  const int b0 = rg * 8 * NT, nb = min(8 * NT, B - b0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int LS = sw_stride(G);
+
+  extern __shared__ __align__(16) float smem[];
+  float* whs = smem;                                // [16][LS] (w_smem)
+  float* dgs = smem + (a.w_smem ? SW_US * LS : 0);  // [8 NT][LS]
+  float* red = dgs + 8 * NT * LS;                   // [warps][NT][16][8]
+  const float* whd = a.wh + (long)dir * H * G;
+
+  // the block's rows of Wh (rows past H zero), and zero rows past B
+  if (a.w_smem) {
+    for (int i = tid; i < SW_US * (G / 4); i += SW_NT) {
+      const int ul = i / (G / 4), c4 = (i % (G / 4)) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (ul < nu) v = __ldg(reinterpret_cast<const float4*>(whd + (long)(u0 + ul) * G + c4));
+      *reinterpret_cast<float4*>(whs + ul * LS + c4) = v;
+    }
+  }
+  for (int i = tid; i < (8 * NT - nb) * (G / 4); i += SW_NT) {
+    const int rl = nb + i / (G / 4), c4 = (i % (G / 4)) * 4;
+    *reinterpret_cast<float4*>(dgs + rl * LS + c4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float* wrow0 = a.w_smem ? whs + g * LS : whd + (long)(u0 + g) * G;
+  const float* wrow1 = a.w_smem ? whs + (g + 8) * LS : whd + (long)(u0 + g + 8) * G;
+  const bool ok0 = a.w_smem || g < nu, ok1 = a.w_smem || g + 8 < nu;
+
+  // the (unit, row) pairs this thread owns: p = tid + SW_NT i, unit p % 16,
+  // row p / 16 of the block's group
+  const int npairs = SW_US * 8 * NT;
+  float dh[SW_PPT], dc[SW_PPT], mk[SW_PPT];
+  PairIn in[SW_PPT];
+#pragma unroll
+  for (int i = 0; i < SW_PPT; ++i) {
+    dh[i] = dc[i] = mk[i] = 0.0f;
+    const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
+    if (p < npairs && ul < nu && rl < nb) {
+      in[i] = load_pair(a, T - 1, dir * B + b0 + rl, b0 + rl, u0 + ul, dir);
+    }
+  }
+  __syncthreads();
 
   for (int k = T - 1; k >= 0; --k) {
-    const int t = dir == 0 ? k : T - 1 - k;
-    const float m = (row_mask ? mask[(long)k * R + r] : mask[(long)t * B + row]) > 0.0f ? 1.0f : 0.0f;
-    float* buf = dg_s + (k & 1) * G;
-    if (owner) {
-      const long base = (long)k * R + r;
-      const float* a = acts + base * G;
-      const float ig = a[u];
-      const float fg = a[H + u];
-      const float gg = a[2 * H + u];
-      const float og = a[3 * H + u];
-      const float tc = tanhf(c_out[base * H + u]);
-      const float cp = k > 0 ? c_out[(base - R) * H + u] : 0.0f;
-      const float dh2 = m * (dy[base * H + u] + dh);
-      const float dc2 = m * dc + dh2 * og * (1.0f - tc * tc);
-      const float d0 = dc2 * gg * ig * (1.0f - ig);
-      const float d1 = dc2 * cp * fg * (1.0f - fg);
-      const float d2 = dc2 * ig * (1.0f - gg * gg);
-      const float d3 = dh2 * tc * og * (1.0f - og);
-      float* dgo = dg + base * G;
-      dgo[u] = d0;
-      dgo[H + u] = d1;
-      dgo[2 * H + u] = d2;
-      dgo[3 * H + u] = d3;
 #pragma unroll
-      for (int q = 0; q < CL; ++q) {
-        float* rb = cluster.map_shared_rank(buf, q);
-        rb[u] = d0;
-        rb[H + u] = d1;
-        rb[2 * H + u] = d2;
-        rb[3 * H + u] = d3;
+    for (int i = 0; i < SW_PPT; ++i) {
+      const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
+      if (!(p < npairs && ul < nu && rl < nb)) continue;
+      const PairIn& x = in[i];
+      const float tc = tanhf(x.c);
+      const float dh2 = x.m * (x.dy + dh[i]);
+      const float dc2 = x.m * dc[i] + dh2 * x.og * (1.0f - tc * tc);
+      float* dgo = a.dg + ((long)k * R + dir * B + b0 + rl) * G + u0 + ul;
+      dgo[0] = dc2 * x.gg * x.ig * (1.0f - x.ig);
+      dgo[H] = dc2 * x.cp * x.fg * (1.0f - x.fg);
+      dgo[2 * H] = dc2 * x.ig * (1.0f - x.gg * x.gg);
+      dgo[3 * H] = dh2 * tc * x.og * (1.0f - x.og);
+      dc[i] = (1.0f - x.m) * dc[i] + dc2 * x.fg;
+      mk[i] = x.m;
+    }
+    if (k == 0) break;
+    grid.sync();  // every block's dgates of step k are in dg
+
+    // the block's rows of dgates of step k into shared memory, and the next
+    // step's inputs, both in flight together
+    const float* dgk = a.dg + ((long)k * R + dir * B + b0) * G;
+    for (int i = tid; i < nb * (G / 4); i += SW_NT) {
+      const int rl = i / (G / 4), c4 = (i % (G / 4)) * 4;
+      cp_async16(dgs + rl * LS + c4, dgk + (long)rl * G + c4);
+    }
+#pragma unroll
+    for (int i = 0; i < SW_PPT; ++i) {
+      const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
+      if (p < npairs && ul < nu && rl < nb) {
+        in[i] = load_pair(a, k - 1, dir * B + b0 + rl, b0 + rl, u0 + ul, dir);
       }
-      dc = (1.0f - m) * dc + dc2 * fg;
     }
-    cluster.sync();  // the row's dgates are in every block
-    float s = 0.0f;
-    if (active) {
-#pragma unroll 8
-      for (int j = split; j < G; j += KS) s = fmaf(buf[j], __ldg(whu + j), s);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // dgates Wh^T for the block's units: [16 units x 4H] x [4H x 8 NT rows],
+    // warp w taking the 16-column chunks w, w + 8, ...; within a chunk the k
+    // index is permuted (lane q holds columns 4q .. 4q+3) so that each
+    // operand is one 16-byte load. Six accumulators (two k halves x three
+    // TF32 products) keep the mma chains short.
+    float acc[NT][6][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 6; ++e) acc[j][e][0] = acc[j][e][1] = acc[j][e][2] = acc[j][e][3] = 0.0f;
+    for (int c0 = warp; c0 < G / 16; c0 += 2 * SW_NW) {
+      // two chunks a round, all their operands loaded before the first mma
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 wv[2][2], bv[2][NT];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int c = c0 + r * SW_NW;
+        const bool live = c < G / 16;
+        const int col = 16 * c + 4 * q;
+        wv[r][0] = live && ok0 ? *reinterpret_cast<const float4*>(wrow0 + col) : z;
+        wv[r][1] = live && ok1 ? *reinterpret_cast<const float4*>(wrow1 + col) : z;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          bv[r][j] = live ? *reinterpret_cast<const float4*>(dgs + (j * 8 + g) * LS + col) : z;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t ah[2][4], al[2][4];
+        const float afr[2][4] = {{wv[r][0].x, wv[r][1].x, wv[r][0].y, wv[r][1].y},
+                                 {wv[r][0].z, wv[r][1].z, wv[r][0].w, wv[r][1].w}};
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tf32_split(afr[h2][e], ah[h2][e], al[h2][e]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          uint32_t bh[2][2], bl[2][2];
+          const float bfr[2][2] = {{bv[r][j].x, bv[r][j].y}, {bv[r][j].z, bv[r][j].w}};
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) tf32_split(bfr[h2][e], bh[h2][e], bl[h2][e]);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            mma_tf32(acc[j][3 * h2], al[h2], bh[h2]);
+            mma_tf32(acc[j][3 * h2 + 1], ah[h2], bl[h2]);
+            mma_tf32(acc[j][3 * h2 + 2], ah[h2], bh[h2]);
+          }
+        }
+      }
     }
 #pragma unroll
-    for (int o = KS / 2; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o, KS);
-    if (owner) dh = (1.0f - m) * dh + s;
+    for (int j = 0; j < NT; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = ((acc[j][0][e] + acc[j][1][e]) + acc[j][2][e]) +
+               ((acc[j][3][e] + acc[j][4][e]) + acc[j][5][e]);
+      }
+      float* rp = red + ((warp * NT + j) * SW_US) * 8;
+      rp[g * 8 + 2 * q] = v[0];
+      rp[g * 8 + 2 * q + 1] = v[1];
+      rp[(g + 8) * 8 + 2 * q] = v[2];
+      rp[(g + 8) * 8 + 2 * q + 1] = v[3];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < SW_PPT; ++i) {
+      const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
+      if (!(p < npairs && ul < nu && rl < nb)) continue;
+      float sum = 0.0f;
+      for (int w = 0; w < SW_NW; ++w) sum += red[((w * NT + rl / 8) * SW_US + ul) * 8 + rl % 8];
+      dh[i] = (1.0f - mk[i]) * dh[i] + sum;
+    }
   }
 }
 
-// Index map of one GEMM index i: offset (i / div) * hi + (i % div) * lo.
-struct IMap {
-  long div, hi, lo;
-  __device__ __forceinline__ long operator()(long i) const {
-    return div == 1 ? i * hi : (i / div) * hi + (i % div) * lo;
+// ------------------------------------------------------------- products
+constexpr int GM = 128, GN = 64, GK = 32, G_NT = 256, G_ST = 3;
+constexpr int LDO_A = GM + 8, LDO_B = GN + 8;  // k-outer tiles [GK][...]: fragment loads conflict-free
+constexpr int LDI = GK + 4;                    // k-inner tiles [...][GK]
+constexpr int G_STAGE = GK * LDO_A + GK * LDO_B > GM * LDI + GN * LDI ? GK * LDO_A + GK * LDO_B
+                                                                      : GM * LDI + GN * LDI;
+constexpr int G_SMEM = sizeof(float) * (G_ST * G_STAGE + 4 * GN);
+
+// offset of row i: base + (i / div) st + (i % div) sb, for 0 <= i < 2^31;
+// the division is a multiply-high and a shift (mul, shr from the host)
+struct RowMap {
+  long long base, st, sb;
+  unsigned div, mul, shr;
+  __device__ __forceinline__ long long operator()(int i) const {
+    const unsigned q = div == 1 ? (unsigned)i : __umulhi((unsigned)i, mul) >> shr;
+    return base + (long long)q * st + (long long)((unsigned)i - q * div) * sb;
   }
 };
 
-constexpr int BM = 64, BN = 64, BK = 16;
+RowMap row_map(long long base, int div, long long st, long long sb) {
+  RowMap m{base, st, sb, (unsigned)div, 0u, 0u};
+  if (div > 1) {
+    unsigned l = 0;
+    while ((1u << l) < (unsigned)div) ++l;  // ceil(log2 div)
+    const unsigned p = 31 + l;
+    m.mul = (unsigned)(((1ull << p) + (unsigned)div - 1) / (unsigned)div);
+    m.shr = p - 32;
+  }
+  return m;
+}
 
-// C(m, n) (+)= sum_k A(m, k) B(k, n), every operand addressed through index
-// maps (A: am(m) + ak(k), B: bk(k) + bn(n), C: cm(m) + cn(n)). A_KF / B_KF
-// say whether k is the operand's contiguous index, which picks the thread
-// layout of the tile loads.
-template <bool A_KF, bool B_KF>
-__global__ void __launch_bounds__(256)
-gemm_map_kernel(const float* __restrict__ A, const float* __restrict__ Bm, float* __restrict__ C,
-                int M, int N, int K, IMap am, IMap ak, IMap bk, IMap bn, IMap cm, IMap cn,
-                int accumulate) {
-  __shared__ float As[BK][BM + 4];
-  __shared__ float Bs[BK][BN + 4];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += BK) {
+RowMap plain_rows(long long stride) { return row_map(0, 1, stride, 0); }
+
+struct Operand {
+  const float* p;
+  RowMap rows;
+};
+
+struct GemmProblem {
+  Operand a[2], b[2];  // per K segment
+  float* c;            // [M, N]
+  float* ones;         // the columns of B summed over K (the bias gradient), or null
+};
+
+// C = A B over K = nseg x seg_len. KIN: A(m, k) at a.p + a.rows(m) + k and
+// B(k, n) at b.p + b.rows(n) + k (k contiguous); otherwise A(m, k) at
+// a.p + a.rows(k) + m and B(k, n) at b.p + b.rows(k) + n.
+struct GemmArgs {
+  GemmProblem pr[2];
+  float* ws;  // split partials [problem][split][M + 1][N]
+  int M, N, K, seg_len, splits, kchunk;
+};
+
+template <bool KIN, bool V4>
+__device__ __forceinline__ void load_tile(const GemmArgs& ga, const GemmProblem& pr, float* st,
+                                          int m0, int n0, int k0, int kend, int tid) {
+  const int seg = k0 / ga.seg_len;
+  const int kl0 = k0 - seg * ga.seg_len;  // k within the segment
+  const Operand& A = pr.a[seg];
+  const Operand& Bo = pr.b[seg];
+  float* As = st;
+  float* Bs = st + (KIN ? GM * LDI : GK * LDO_A);
+  constexpr int W = V4 ? 4 : 1;
+  // A: KIN [GM rows m][GK k], else [GK rows k][GM m]
+  constexpr int A_ROWS = KIN ? GM : GK, A_COLS = KIN ? GK : GM;
+  constexpr int B_ROWS = KIN ? GN : GK, B_COLS = KIN ? GK : GN;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + 256 * q;
-      const int kk = A_KF ? e % BK : e / BM;
-      const int mm = A_KF ? e / BK : e % BM;
-      const int gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? A[am(gm) + ak(gk)] : 0.0f;
+  for (int i = tid; i < A_ROWS * A_COLS / W; i += G_NT) {
+    const int r = i / (A_COLS / W), cc = (i % (A_COLS / W)) * W;
+    int n_ok;
+    long long off = 0;
+    if (KIN) {
+      const int gm = m0 + r, k = k0 + cc;
+      n_ok = gm < ga.M ? min(max(kend - k, 0), W) : 0;
+      if (n_ok) off = A.rows(gm) + kl0 + cc;
+    } else {
+      const int k = k0 + r, gm = m0 + cc;
+      n_ok = k < kend ? min(max(ga.M - gm, 0), W) : 0;
+      if (n_ok) off = A.rows(kl0 + r) + gm;
     }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int e = tid + 256 * q;
-      const int kk = B_KF ? e % BK : e / BN;
-      const int nn = B_KF ? e / BK : e % BN;
-      const int gn = n0 + nn, gk = k0 + kk;
-      Bs[kk][nn] = (gn < N && gk < K) ? Bm[bk(gk) + bn(gn)] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    float* dst = As + r * (KIN ? LDI : LDO_A) + cc;
+    if (V4) cp_async16_zfill(dst, A.p + off, 4 * n_ok);
+    else cp_async4_zfill(dst, A.p + off, 4 * n_ok);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
+  for (int i = tid; i < B_ROWS * B_COLS / W; i += G_NT) {
+    const int r = i / (B_COLS / W), cc = (i % (B_COLS / W)) * W;
+    int n_ok;
+    long long off = 0;
+    if (KIN) {
+      const int gn = n0 + r, k = k0 + cc;
+      n_ok = gn < ga.N ? min(max(kend - k, 0), W) : 0;
+      if (n_ok) off = Bo.rows(gn) + kl0 + cc;
+    } else {
+      const int k = k0 + r, gn = n0 + cc;
+      n_ok = k < kend ? min(max(ga.N - gn, 0), W) : 0;
+      if (n_ok) off = Bo.rows(kl0 + r) + gn;
+    }
+    float* dst = Bs + r * (KIN ? LDI : LDO_B) + cc;
+    if (V4) cp_async16_zfill(dst, Bo.p + off, 4 * n_ok);
+    else cp_async4_zfill(dst, Bo.p + off, 4 * n_ok);
+  }
+}
+
+template <bool KIN, bool V4>
+__global__ void __launch_bounds__(G_NT) gemm_tf32_kernel(GemmArgs ga) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int wm = warp % 4, wn = warp / 4;
+  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
+  const int prob = blockIdx.z / ga.splits, split = blockIdx.z % ga.splits;
+  const GemmProblem& pr = ga.pr[prob];
+  const int ktiles = cdiv(ga.K, GK);
+  const int kt0 = split * ga.kchunk, kt1 = min(ktiles, kt0 + ga.kchunk);
+  const int kend = ga.K;
+  const bool sums = !KIN && pr.ones != nullptr && blockIdx.y == 0;
+
+  float acc[2][4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn >= N) continue;
-      float* c = C + cm(gm) + cn(gn);
-      *c = accumulate ? *c + acc[i][j] : acc[i][j];
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+  float colsum = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < G_ST - 1; ++s) {
+    if (kt0 + s < kt1) load_tile<KIN, V4>(ga, pr, smem + s * G_STAGE, m0, n0, (kt0 + s) * GK, kend, tid);
+    cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    cp_async_wait<G_ST - 2>();
+    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
+    const int nk = kt + G_ST - 1;
+    if (nk < kt1) load_tile<KIN, V4>(ga, pr, smem + ((nk - kt0) % G_ST) * G_STAGE, m0, n0, nk * GK, kend, tid);
+    cp_async_commit();
+    const float* As = smem + ((kt - kt0) % G_ST) * G_STAGE;
+    const float* Bs = As + (KIN ? GM * LDI : GK * LDO_A);
+#pragma unroll
+    for (int kq = 0; kq < GK / 8; ++kq) {
+      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int rm = wm * 32 + mi * 16 + g, kc = kq * 8 + q;
+        const float v[4] = {
+            KIN ? As[rm * LDI + kc] : As[kc * LDO_A + rm],
+            KIN ? As[(rm + 8) * LDI + kc] : As[kc * LDO_A + rm + 8],
+            KIN ? As[rm * LDI + kc + 4] : As[(kc + 4) * LDO_A + rm],
+            KIN ? As[(rm + 8) * LDI + kc + 4] : As[(kc + 4) * LDO_A + rm + 8]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(v[e], ah[mi][e], al[mi][e]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int cn = wn * 32 + ni * 8 + g, kc = kq * 8 + q;
+        const float v[2] = {KIN ? Bs[cn * LDI + kc] : Bs[kc * LDO_B + cn],
+                            KIN ? Bs[cn * LDI + kc + 4] : Bs[(kc + 4) * LDO_B + cn]};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) tf32_split(v[e], bh[ni][e], bl[ni][e]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_tf32(acc[mi][ni], al[mi], bh[ni]);
+          mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
+          mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
+        }
+    }
+    if (sums) {
+      // thread: column tid % 64 over the tile's rows 8 (tid / 64) .. + 7
+      const int col = tid % GN, r0 = (tid / GN) * 8;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) colsum += Bs[(r0 + r) * LDO_B + col];
+    }
+  }
+  cp_async_wait_all();
+
+  const bool split_out = ga.splits > 1;
+  float* out = split_out ? ga.ws + (long)(prob * ga.splits + split) * (ga.M + 1) * ga.N : pr.c;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = m0 + wm * 32 + mi * 16 + g + (e >= 2 ? 8 : 0);
+        const int col = n0 + wn * 32 + ni * 8 + 2 * q + (e & 1);
+        if (row < ga.M && col < ga.N) out[(long)row * ga.N + col] = acc[mi][ni][e];
+      }
+  if (sums) {
+    float* part = smem + G_ST * G_STAGE;  // [4][GN]
+    __syncthreads();
+    part[(tid / GN) * GN + tid % GN] = colsum;
+    __syncthreads();
+    if (tid < GN && n0 + tid < ga.N) {
+      const float s = ((part[tid] + part[GN + tid]) + part[2 * GN + tid]) + part[3 * GN + tid];
+      float* ones = split_out ? out + (long)ga.M * ga.N : pr.ones;
+      ones[n0 + tid] = s;
     }
   }
 }
 
-// db[dir, n] = sum over the rows (k, b) of dg[k, dir*B + b, n]
-__global__ void bias_grad_kernel(const float* __restrict__ dg, float* __restrict__ db, int T,
-                                 int B, int G) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int dir = blockIdx.y;
-  if (n >= G) return;
-  float s = 0.0f;
-  for (int k = 0; k < T; ++k) {
-    const float* p = dg + ((long)k * 2 * B + (long)dir * B) * G + n;
-    for (int b = 0; b < B; ++b) s += p[(long)b * G];
+// C (and the column sums) = the splits' partials summed in split order
+__global__ void split_sum_kernel(GemmArgs ga) {
+  const int prob = blockIdx.y;
+  const GemmProblem& pr = ga.pr[prob];
+  const long mn = (long)ga.M * ga.N;
+  const long n_out = mn + (pr.ones != nullptr ? ga.N : 0);
+  const float* ws = ga.ws + (long)prob * ga.splits * (ga.M + 1) * ga.N;
+  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n_out; i += (long)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int sp = 0; sp < ga.splits; ++sp) s += ws[(long)sp * (ga.M + 1) * ga.N + i];
+    if (i < mn) pr.c[i] = s;
+    else pr.ones[i - mn] = s;
   }
-  db[(long)dir * G + n] = s;
 }
 
-constexpr IMap plain(long stride) { return IMap{1, stride, 0}; }
-
-template <bool A_KF, bool B_KF>
-int gemm(const float* A, const float* Bm, float* C, int M, int N, int K, IMap am, IMap ak,
-         IMap bk, IMap bn, IMap cm, IMap cn, int accumulate, cudaStream_t stream) {
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_map_kernel<A_KF, B_KF><<<grid, 256, 0, stream>>>(A, Bm, C, M, N, K, am, ak, bk, bn, cm,
-                                                         cn, accumulate);
+int gemm(GemmArgs& ga, int nprob, bool kin, bool v4, cudaStream_t stream) {
+  const dim3 grid(cdiv(ga.N, GN), cdiv(ga.M, GM), nprob * ga.splits);
+  const size_t smem = G_SMEM;
+  cudaError_t e;
+#define LAUNCH(KI, VV)                                                                         \
+  e = cudaFuncSetAttribute(gemm_tf32_kernel<KI, VV>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                           (int)smem);                                                         \
+  if (e != cudaSuccess) return (int)e;                                                         \
+  gemm_tf32_kernel<KI, VV><<<grid, G_NT, smem, stream>>>(ga);
+  if (kin) {
+    if (v4) { LAUNCH(true, true) } else { LAUNCH(true, false) }
+  } else {
+    if (v4) { LAUNCH(false, true) } else { LAUNCH(false, false) }
+  }
+#undef LAUNCH
+  e = cudaGetLastError();
+  if (e != cudaSuccess || ga.splits == 1) return (int)e;
+  const long n_out = (long)(ga.M + 1) * ga.N;
+  const int blocks = (int)((n_out + 255) / 256 < 1024 ? (n_out + 255) / 256 : 1024);
+  split_sum_kernel<<<dim3(blocks, nprob), 256, 0, stream>>>(ga);
   return (int)cudaGetLastError();
 }
 
-// the sweep over all rows (dirs * B), gate gradients to dg [T, dirs * B, 4H]
-int sweep(const float* mask, const float* wh, const float* c_out, const float* acts,
-          const float* dy, float* dg, int T, int B, int dirs, int H, int row_mask,
-          cudaStream_t stream) {
-  const size_t smem = sizeof(float) * 2 * 4 * (size_t)H;
-  cudaError_t e = cudaFuncSetAttribute(lstm_bwd_sweep_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int threads = ((H / CL * KS + 31) / 32) * 32;
-  lstm_bwd_sweep_kernel<<<dirs * B * CL, threads, smem, stream>>>(mask, wh, c_out, acts, dy, dg, T,
-                                                                  B, H, row_mask);
-  return (int)cudaGetLastError();
-}
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// dWh[d] = h_prev^T dg over kernel steps k >= 1 and direction d's rows: h_prev = ys[k-1]
-// (T = 1 gives a product over no rows: zeros)
-int dwh_products(const float* ys, const float* dg, float* dwh, int T, int B, int dirs, int H,
-                 cudaStream_t stream) {
-  const long G = 4L * H, R = (long)dirs * B;
-  const IMap krows_h{B, R * H, H}, krows_dg{B, R * G, G};
+// dWh[d] = h_prev^T dg over kernel steps k >= 1 and direction d's rows:
+// h_prev = ys[k-1] (T = 1 gives a product over no rows: zeros)
+int dwh_products(const float* ys, const float* dg, float* dwh, float* ws, int T, int B, int dirs,
+                 int H, int splits, int kchunk, cudaStream_t stream) {
+  const long long G = 4LL * H, R = (long long)dirs * B;
+  GemmArgs ga{};
   for (int d = 0; d < dirs; ++d) {
-    int err = gemm<false, false>(ys + (long)d * B * H, dg + (R + (long)d * B) * G,
-                                 dwh + (long)d * H * G, H, (int)G, (int)((long)(T - 1) * B),
-                                 plain(1), krows_h, krows_dg, plain(1), plain(G), plain(1), 0,
-                                 stream);
-    if (err) return err;
+    ga.pr[d].a[0] = {ys, row_map((long long)d * B * H, B, R * H, H)};
+    ga.pr[d].b[0] = {dg, row_map((R + (long long)d * B) * G, B, R * G, G)};
+    ga.pr[d].c = dwh + (long long)d * H * G;
+    ga.pr[d].ones = nullptr;
+  }
+  ga.ws = ws;
+  ga.M = H;
+  ga.N = (int)G;
+  ga.K = (T - 1) * B;
+  ga.seg_len = ga.K > 0 ? ga.K : 1;
+  ga.splits = splits;
+  ga.kchunk = kchunk;
+  return gemm(ga, dirs, false, aligned16(ys) && aligned16(dg), stream);
+}
+
+const void* sweep_kernel(int nt) {
+  return nt == 1 ? (const void*)lstm_bwd_sweep_kernel<1>
+         : nt == 2 ? (const void*)lstm_bwd_sweep_kernel<2>
+                   : (const void*)lstm_bwd_sweep_kernel<4>;
+}
+
+int sweep_plan(int T, int B, int dirs, int H, int* out) {
+  (void)T;
+  const int G = 4 * H;
+  int dev = 0, nsm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = -1;
+  const int slices = cdiv(H, SW_US);
+  for (int w_smem = 1; w_smem >= 0; --w_smem) {
+    for (int nt = 1; nt <= 4; nt *= 2) {
+      const int smem = 4 * sw_smem_floats(G, nt, w_smem);
+      if (smem > SMEM_MAX) continue;
+      e = cudaFuncSetAttribute(sweep_kernel(nt), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel(nt), SW_NT, smem);
+      if (e != cudaSuccess) return (int)e;
+      const int nb = dirs * slices * cdiv(B, 8 * nt);
+      if (nb <= per_sm * nsm) {
+        out[0] = nt;
+        out[1] = w_smem;
+        out[2] = smem;
+        out[3] = nb;
+        return 0;
+      }
+    }
   }
   return 0;
 }
@@ -261,67 +592,104 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x [T, B, D], mask [T, B], wx [2, D, 4H], wh [2, H, 4H], ys / c_out [T, 2B, H],
-// acts [T, 2B, 4H], dy [T, 2B, H] -> dx [T, B, D], dwx [2, D, 4H],
-// dwh [2, H, 4H], db [2, 4H]; dg [T, 2B, 4H] is scratch (the gate
-// gradients, kernel time). All f32, contiguous. H is a multiple of 8 and at
-// most 1024.
-extern "C" int e2e_lstm_bidir_bwd(const float* x, const float* mask, const float* wx,
-                                  const float* wh, const float* ys, const float* c_out,
-                                  const float* acts, const float* dy, float* dg, float* dx,
-                                  float* dwx, float* dwh, float* db, int T, int B, int D, int H,
-                                  void* stream_) {
-  if (H % CL != 0 || H > 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)stream_;
-  const long G = 4L * H;
-  const long R = 2L * B;  // rows of a time step in the kernel-time tensors
-  int err = sweep(mask, wh, c_out, acts, dy, dg, T, B, 2, H, 0, stream);
-  if (err) return err;
-
-  const long TB = (long)T * B;
-  // rows (t, b) of dx in original time; the backward direction's dgates of
-  // original time t sit at kernel time T-1-t, row B+b
-  const IMap rows_x{B, (long)B * D, D};
-  const IMap dg_fwd_rows{B, R * G, G};
-  const IMap dg_bwd_rows{B, -R * G, G};
-  const float* dg_bwd_t0 = dg + ((long)(T - 1) * R + B) * G;
-  // dx = dg_fwd Wx0^T + dg_bwd Wx1^T: B(k = j, n) = wx[dir][n][j]
-  err = gemm<true, true>(dg, wx, dx, (int)TB, D, (int)G, dg_fwd_rows, plain(1), plain(1),
-                         plain(G), rows_x, plain(1), 0, stream);
-  if (err) return err;
-  err = gemm<true, true>(dg_bwd_t0, wx + (long)D * G, dx, (int)TB, D, (int)G, dg_bwd_rows,
-                         plain(1), plain(1), plain(G), rows_x, plain(1), 1, stream);
-  if (err) return err;
-
-  // dWx[0] = x^T dg_fwd over rows (t, b)
-  const IMap krows_dg{B, R * G, G};
-  err = gemm<false, false>(x, dg, dwx, D, (int)G, (int)TB, plain(1), rows_x, krows_dg, plain(1),
-                           plain(G), plain(1), 0, stream);
-  if (err) return err;
-  // dWx[1] = x^T dg_bwd: kernel step k reads x at original time T-1-k
-  const IMap krows_x_rev{B, -(long)B * D, D};
-  err = gemm<false, false>(x + (long)(T - 1) * B * D, dg + (long)B * G, dwx + (long)D * G, D,
-                           (int)G, (int)TB, plain(1), krows_x_rev, krows_dg, plain(1), plain(G),
-                           plain(1), 0, stream);
-  if (err) return err;
-
-  err = dwh_products(ys, dg, dwh, T, B, 2, H, stream);
-  if (err) return err;
-
-  bias_grad_kernel<<<dim3((unsigned)((G + 255) / 256), 2), 256, 0, stream>>>(dg, db, T, B, (int)G);
-  return (int)cudaGetLastError();
+// The sweep's grid: out = [n8 tiles of rows a block (-1: no grid can be
+// resident), Wh resident in shared memory (1; 0: read from L2), shared
+// memory bytes a block, blocks]. The first of (w_smem = 1, 0) x (nt = 1, 2,
+// 4) whose grid is resident at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+extern "C" int e2e_lstm_bwd_sweep_plan(int T, int B, int dirs, int H, int* out, void* stream) {
+  (void)stream;
+  if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1) return (int)cudaErrorInvalidValue;
+  return sweep_plan(T, B, dirs, H, out);
 }
 
-// lstm_seq backward: mask [T, R], wh [Dirs, H, 4H], ys / c_out / dy [T, R, H],
-// acts [T, R, 4H], R = Dirs * B rows in kernel time -> dxw [T, R, 4H],
-// dwh [Dirs, H, 4H].
-extern "C" int e2e_lstm_seq_bwd(const float* mask, const float* wh, const float* ys,
-                                const float* c_out, const float* acts, const float* dy,
-                                float* dxw, float* dwh, int T, int B, int dirs, int H,
-                                void* stream_) {
-  if (H % CL != 0 || H > 1024 || dirs < 1 || B < 1) return (int)cudaErrorInvalidValue;
+// The reverse sweep over all rows (dirs * B) -> dg [T, dirs * B, 4H]. mask
+// [T, B] in original time (row_mask 0, the fused-projection layer) or
+// [T, dirs * B] in kernel time (row_mask 1), wh [dirs, H, 4H], c_out / dy
+// [T, dirs * B, H], acts [T, dirs * B, 4H]; nt, w_smem and smem from the
+// plan. One cooperative launch (a grid barrier a step): it fails where the
+// grid cannot be resident.
+extern "C" int e2e_lstm_bwd_sweep(const float* mask, const float* wh, const float* c_out,
+                                  const float* acts, const float* dy, float* dg, int T, int B,
+                                  int dirs, int H, int row_mask, int nt, int w_smem, int smem,
+                                  void* stream) {
+  if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1 || T < 1 ||
+      (nt != 1 && nt != 2 && nt != 4) || w_smem < 0 || w_smem > 1 ||
+      smem != 4 * sw_smem_floats(4 * H, nt, w_smem) ||
+      smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(sweep_kernel(nt),
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  SweepArgs a{mask, wh, c_out, acts, dy, dg, T, B, H, dirs, row_mask,
+              nt, cdiv(B, 8 * nt), cdiv(H, SW_US), w_smem};
+  void* params[] = {&a};
+  const int nb = dirs * a.slices * a.nrg;
+  return (int)cudaLaunchCooperativeKernel(sweep_kernel(nt), dim3(nb), dim3(SW_NT), params,
+                                          (size_t)smem, (cudaStream_t)stream);
+}
+
+// The fused-projection layer's products from dg [T, 2B, 4H] (kernel time):
+// x [T, B, D], wx [2, D, 4H], ys [T, 2B, H] -> dx [T, B, D], dwx [2, D, 4H],
+// dwh [2, H, 4H], db [2, 4H]. ws: split partials, at least 2 x max(sx x
+// (D + 1), sh x (H + 1)) x 4H floats where a split count is above 1; sx /
+// sh and cx / ch: the splits and k-tiles a split of dWx and dWh.
+extern "C" int e2e_lstm_bidir_bwd_products(const float* x, const float* wx, const float* ys,
+                                           const float* dg, float* dx, float* dwx, float* dwh,
+                                           float* db, float* ws, int T, int B, int D, int H,
+                                           int sx, int cx, int sh, int ch, void* stream_) {
+  if (H % 8 != 0 || H > 1024 || D < 1 || B < 1 || T < 1 || sx < 1 || sh < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
-  int err = sweep(mask, wh, c_out, acts, dy, dxw, T, B, dirs, H, 1, stream);
+  const long long G = 4LL * H, R = 2LL * B;
+  const int TB = T * B;
+  // dx rows (t, b) in original time: dg_fwd at kernel time t, row b; dg_bwd
+  // at kernel time T-1-t, row B+b; B(k, n) = wx[dir][n][k]
+  GemmArgs ga{};
+  ga.pr[0].a[0] = {dg, row_map(0, B, R * G, G)};
+  ga.pr[0].a[1] = {dg, row_map(((long long)(T - 1) * R + B) * G, B, -R * G, G)};
+  ga.pr[0].b[0] = {wx, plain_rows(G)};
+  ga.pr[0].b[1] = {wx + (long long)D * G, plain_rows(G)};
+  ga.pr[0].c = dx;
+  ga.pr[0].ones = nullptr;
+  ga.ws = ws;
+  ga.M = TB;
+  ga.N = D;
+  ga.K = (int)(2 * G);
+  ga.seg_len = (int)G;
+  ga.splits = 1;
+  ga.kchunk = cdiv(ga.K, GK);
+  int err = gemm(ga, 1, true, aligned16(dg) && aligned16(wx), stream);
   if (err) return err;
-  return dwh_products(ys, dxw, dwh, T, B, dirs, H, stream);
+
+  // dWx[d] = x^T dg_d over rows (k, b); direction 1's kernel step k reads x
+  // at original time T-1-k; db[d] = the columns of dg_d summed
+  GemmArgs gx{};
+  gx.pr[0].a[0] = {x, plain_rows(D)};
+  gx.pr[1].a[0] = {x, row_map((long long)(T - 1) * B * D, B, -(long long)B * D, D)};
+  for (int d = 0; d < 2; ++d) {
+    gx.pr[d].b[0] = {dg, row_map((long long)d * B * G, B, R * G, G)};
+    gx.pr[d].c = dwx + (long long)d * D * G;
+    gx.pr[d].ones = db + (long long)d * G;
+  }
+  gx.ws = ws;
+  gx.M = D;
+  gx.N = (int)G;
+  gx.K = TB;
+  gx.seg_len = TB;
+  gx.splits = sx;
+  gx.kchunk = cx;
+  err = gemm(gx, 2, false, D % 4 == 0 && aligned16(x) && aligned16(dg), stream);
+  if (err) return err;
+  return dwh_products(ys, dg, dwh, ws, T, B, 2, H, sh, ch, stream);
+}
+
+// lstm_seq's product: dwh [dirs, H, 4H] = h_prev^T dxw per direction, from
+// ys [T, R, H] and dxw [T, R, 4H] (kernel time); ws as above with sh x (H+1).
+extern "C" int e2e_lstm_seq_bwd_products(const float* ys, const float* dxw, float* dwh, float* ws,
+                                         int T, int B, int dirs, int H, int sh, int ch,
+                                         void* stream) {
+  if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1 || T < 1 || sh < 1)
+    return (int)cudaErrorInvalidValue;
+  return dwh_products(ys, dxw, dwh, ws, T, B, dirs, H, sh, ch, (cudaStream_t)stream);
 }

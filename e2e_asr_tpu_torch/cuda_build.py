@@ -6,8 +6,8 @@ PyTorch headers: a source that includes ``torch/extension.h`` takes minutes
 to compile, a plain one seconds). All sources are compiled in parallel, one
 ``nvcc`` process each, at the first kernel launch of the process, into
 ``e2e_asr_tpu_torch/_build/`` (listed in ``.gitignore``). A library is
-reused while its source and flags are unchanged (the file name carries
-their hash).
+reused while its source, the ``csrc/*.cuh`` headers it includes and its
+flags are unchanged (the file name carries their hash).
 
 A source may also be built as a variant with extra preprocessor defines
 (``library(name, defines=("SCAN_PHASES",))``): its own library beside the
@@ -27,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,9 +60,21 @@ def _flags(defines: Sequence[str]) -> List[str]:
     return NVCC_FLAGS + [f"-D{d}" for d in defines]
 
 
-def _lib_path(name: str, defines: Sequence[str] = ()) -> str:
+def _source_bytes(name: str) -> bytes:
+    """The text of ``csrc/<name>.cu`` followed by that of every ``csrc``
+    header it includes (``#include "x.cuh"``, one level), so that an edited
+    header changes the library's name too."""
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(_flags(defines)).encode()).hexdigest()[:12]
+        src = f.read()
+    out = [src]
+    for header in re.findall(rb'^\s*#include\s+"([^"]+)"', src, flags=re.M):
+        with open(os.path.join(CSRC_DIR, header.decode()), "rb") as f:
+            out.append(f.read())
+    return b"".join(out)
+
+
+def _lib_path(name: str, defines: Sequence[str] = ()) -> str:
+    digest = hashlib.sha1(_source_bytes(name) + " ".join(_flags(defines)).encode()).hexdigest()[:12]
     tag = "".join(f"-{d.lower()}" for d in defines)
     return os.path.join(BUILD_DIR, f"{name}{tag}-{digest}.so")
 

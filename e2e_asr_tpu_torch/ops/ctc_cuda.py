@@ -1,17 +1,24 @@
-"""CTC lattice kernel (csrc/ctc_loss.cu) beside its plain PyTorch version,
+"""CTC loss kernel (csrc/ctc_loss.cu) beside its plain PyTorch version,
 and the autograd function of the CTC loss.
 
 Replaces the TPU kernel ``e2e_asr_tpu/ops/ctc_pallas.py``
-``ctc_loss_pallas`` (its lattice ``_kernel`` and its ``custom_vjp``). Both
-versions take log_probs [B, T, V] f32, labels [B, L] (0-padded; blank is 0),
-input_len [B] and label_len [B], and return the raw nll [B] (1e30 where no
-alignment exists) and gamma [B, T, S] = alpha + beta - logZ over the
-S = 2L+1 lattice states, so that d nll / d lp_ext = -exp(gamma). input_len
-is clamped to T. The gradient's route from the lattice back to the
-vocabulary is ``scatter_add_`` in PyTorch (``CTCLossFn.backward``), as the
-TPU package leaves it to XLA: on CUDA tensors its sums over the repeated
-blank states come in no fixed order (float rounding differs from run to
-run at ~1e-7 relative).
+``ctc_loss_pallas`` (its lattice ``_kernel`` and its ``custom_vjp``). All
+versions take log_probs [B, T, V] f32, labels [B, L] (0-padded; blank is
+0), input_len [B] and label_len [B]; input_len is clamped to T.
+
+- ``ctc_lattice_plain``: the semantics-defining alpha/beta lattice, the raw
+  nll [B] (1e30 where no alignment exists) and gamma [B, T, S] = alpha +
+  beta - logZ over the S = 2L+1 lattice states (d nll / d lp_ext =
+  -exp(gamma)).
+- ``ctc_lattice`` (the kernel on CUDA tensors) and ``ctc_lattice_grad_plain``
+  (its plain version: the lattice above, then -exp(gamma) routed to the
+  vocabulary by a one-hot product, as the TPU package's ``_bwd``): the raw
+  nll and G [B, T, V] = d nll / d log_probs for a unit upstream gradient,
+  zero on rows with no alignment. The kernel's G repeats bitwise (no
+  atomics), and its wrapper never synchronises with the host: the kernel
+  checks the labels itself (a device-side assert).
+- ``CTCLossFn``: the loss with G saved by the forward; its backward is one
+  product, G times the upstream gradient.
 """
 
 from __future__ import annotations
@@ -97,60 +104,92 @@ def ctc_lattice_plain(
     return nll, gamma
 
 
+def ctc_lattice_grad_plain(
+    log_probs: torch.Tensor, labels: torch.Tensor, input_len: torch.Tensor, label_len: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``ctc_lattice``: the raw nll [B] and G [B, T, V],
+    -exp(gamma) routed to the vocabulary, zero where no alignment exists."""
+    nll, gamma = ctc_lattice_plain(log_probs, labels, input_len, label_len)
+    ext = extend_labels(labels.long())
+    onehot = (ext[:, :, None] == torch.arange(log_probs.shape[2], device=ext.device)).to(gamma.dtype)
+    g = torch.where((nll <= BIG)[:, None, None], -torch.exp(gamma), 0.0)
+    return nll, torch.einsum("bts,bsv->btv", g, onehot)
+
+
+def _plan(t_len: int, v: int, l_max: int) -> Tuple[int, int, int]:
+    """(threads a block, rows a tile or 0 for all rows resident, shared memory
+    bytes) from the kernel's own layout; raises where a row does not fit.
+    Needs the built library, not the card."""
+    key = (t_len, v, l_max)
+    if key not in _plans:
+        out = torch.zeros(3, dtype=torch.int32)
+        cuda_build.launch("ctc_loss", "e2e_ctc_loss_plan", t_len, v, l_max, out)
+        threads, tr, smem = out.tolist()
+        if smem < 0:
+            raise ValueError(f"ctc_lattice: V = {v} and L = {l_max} leave no room for one row of "
+                             "log_probs in shared memory")
+        _plans[key] = (threads, tr, smem)
+    return _plans[key]
+
+
+_plans: dict = {}
+_INDEX_TYPES = (torch.int32, torch.int64)
+
+
 def ctc_lattice(
     log_probs: torch.Tensor, labels: torch.Tensor, input_len: torch.Tensor, label_len: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version on CPU tensors; the CUDA kernel on CUDA tensors.
-    Labels outside [0, V) and label lengths outside [0, L] are refused (the
-    kernel indexes log_probs and its shared lattice with them)."""
+    """The raw nll [B] and G [B, T, V] = d nll / d log_probs: plain version on
+    CPU tensors; the CUDA kernel on CUDA tensors. Labels outside [0, V) and
+    label lengths outside [0, L] are refused: by a ValueError on the CPU, by
+    the kernel's device-side assert on the card (the CUDA route does not
+    synchronise with the host)."""
     b, t_len, v = log_probs.shape
-    if labels.numel() and bool(
-        (labels < 0).any() | (labels >= v).any() | (label_len < 0).any()
-        | (label_len > labels.shape[1]).any()
-    ):
-        raise ValueError(f"ctc_lattice: labels outside [0, {v}) or label lengths outside "
-                         f"[0, {labels.shape[1]}]")
     if cuda_build.use_plain(log_probs):
-        return ctc_lattice_plain(log_probs, labels, input_len, label_len)
+        if labels.numel() and bool(
+            (labels < 0).any() | (labels >= v).any() | (label_len < 0).any()
+            | (label_len > labels.shape[1]).any()
+        ):
+            raise ValueError(f"ctc_lattice: labels outside [0, {v}) or label lengths outside "
+                             f"[0, {labels.shape[1]}]")
+        return ctc_lattice_grad_plain(log_probs, labels, input_len, label_len)
     lp = log_probs.contiguous()
     cuda_build.check_cuda(lp, "ctc_lattice log_probs")
-    labels = labels.to(torch.int32).contiguous()
-    inlen = torch.clamp(input_len, max=t_len).to(torch.int32).contiguous()
-    lablen = label_len.to(torch.int32).contiguous()
-    for a, name in ((labels, "labels"), (inlen, "input_len"), (lablen, "label_len")):
-        cuda_build.check_cuda(a, f"ctc_lattice {name}", torch.int32)
-    if labels.shape[0] != b or inlen.shape != (b,) or lablen.shape != (b,):
+    labels, input_len, label_len = (a.contiguous() for a in (labels, input_len, label_len))
+    for a, name in ((labels, "labels"), (input_len, "input_len"), (label_len, "label_len")):
+        if a.device != lp.device or a.dtype not in _INDEX_TYPES:
+            raise ValueError(f"ctc_lattice: {name} must be int32 or int64 on {lp.device}, got "
+                             f"{a.dtype} on {a.device}")
+    if labels.dim() != 2 or labels.shape[0] != b or input_len.shape != (b,) or label_len.shape != (b,):
         raise ValueError(f"ctc_lattice: batch {b} vs labels {tuple(labels.shape)}, "
-                         f"lengths {tuple(inlen.shape)} {tuple(lablen.shape)}")
-    s = 2 * labels.shape[1] + 1
+                         f"lengths {tuple(input_len.shape)} {tuple(label_len.shape)}")
+    l_max = labels.shape[1]
+    threads, tr, smem = _plan(t_len, v, l_max)
     nll = torch.empty((b,), dtype=torch.float32, device=lp.device)
-    gamma = torch.empty((b, t_len, s), dtype=torch.float32, device=lp.device)
-    cuda_build.launch("ctc_loss", "e2e_ctc_lattice", lp, labels, inlen, lablen, nll, gamma,
-                      b, t_len, v, labels.shape[1])
+    grad = torch.empty((b, t_len, v), dtype=torch.float32, device=lp.device)
+    work = torch.empty((2, b, t_len, 2 * l_max + 1), dtype=torch.float32, device=lp.device)
+    cuda_build.launch("ctc_loss", "e2e_ctc_loss", lp, labels, input_len, label_len,
+                      int(labels.dtype == torch.int64), int(input_len.dtype == torch.int64),
+                      int(label_len.dtype == torch.int64), nll, grad, work, b, t_len, v, l_max,
+                      threads, tr, smem)
     ctc_lattice.launches += 1
-    return nll, gamma
+    return nll, grad
 
 
 ctc_lattice.launches = 0
 
 
 class CTCLossFn(torch.autograd.Function):
-    """Per-utterance CTC nll [B] with the analytic gradient -exp(gamma),
-    zero for utterances with no alignment (which report +inf)."""
+    """Per-utterance CTC nll [B] with the analytic gradient, zero for
+    utterances with no alignment (which report +inf)."""
 
     @staticmethod
     def forward(ctx, log_probs, input_len, labels, label_len):
-        raw, gamma = ctc_lattice(log_probs, labels, input_len, label_len)
-        ctx.save_for_backward(gamma, raw, labels)
-        ctx.vocab = log_probs.shape[2]
+        raw, grad = ctc_lattice(log_probs, labels, input_len, label_len)
+        ctx.save_for_backward(grad)
         return torch.where(raw > BIG, torch.inf, raw)
 
     @staticmethod
     def backward(ctx, ct):
-        gamma, raw, labels = ctx.saved_tensors
-        b, t_len, s = gamma.shape
-        ok = (raw <= BIG)[:, None, None]
-        g = torch.where(ok, -torch.exp(gamma), 0.0) * ct[:, None, None]
-        ext = extend_labels(labels.long())[:, None, :].expand(b, t_len, s)
-        grad = gamma.new_zeros((b, t_len, ctx.vocab)).scatter_add_(2, ext, g)
-        return grad, None, None, None
+        (grad,) = ctx.saved_tensors
+        return grad * ct[:, None, None], None, None, None

@@ -10,9 +10,11 @@ original time and rows [B, 2B) for the backward direction in kernel time
 (flip over T to get original time). Carries freeze where mask = 0, outputs
 are zeroed there, and the initial state is zero. Masks are contiguous
 prefix runs per utterance (the backward reads h_prev from ys, which equals
-the h carry wherever a step is valid under that contract). The kernels
-split the hidden units over a cluster of 8 blocks, so they take H a
-multiple of 8.
+the h carry wherever a step is valid under that contract). The forward
+kernels split the hidden units over a cluster of 8 blocks, so the layer
+takes H a multiple of 8. The backward is two kernels in a row: the reverse
+sweep (one cooperative grid, ``sweep_grid``) and the tensor-core products
+(``split_k`` picks their split over K); chip_smoke.py times them apart.
 
 The second half of the module is ``lstm_seq``: the same recurrence over
 projections computed outside the kernel (the TPU kernel
@@ -201,9 +203,78 @@ def lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy):
     return dx, dwx, dwh, db
 
 
+GEMM_TILE = (128, 64, 32)  # (M, N, K) of a block's tile in csrc/lstm_bidir_bwd.cu
+
+
+def split_k(m: int, n: int, k: int, problems: int, sms: int) -> Tuple[int, int]:
+    """(splits, k-tiles a split) of a product of ``problems`` M x N outputs
+    over K on the GEMM of csrc/lstm_bidir_bwd.cu: split K while the tiles
+    fill fewer than two blocks an SM, keeping at least 8 k-tiles (256 of K)
+    a split; every split non-empty. The partials are summed in split order."""
+    bm, bn, bk = GEMM_TILE
+    ktiles = -(-k // bk)
+    tiles = -(-m // bm) * -(-n // bn) * problems
+    splits = max(1, min(-(-2 * sms // tiles), ktiles // 8))
+    chunk = -(-ktiles // splits) if ktiles else 0
+    return (-(-ktiles // chunk) if chunk else 1), chunk
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_sweep_grids: dict = {}
+
+
+def sweep_grid(t: int, b: int, dirs: int, h_dim: int, dev: torch.device) -> Tuple[int, int, int, int]:
+    """(n8 tiles of rows a block, Wh resident in shared memory (1; 0: read
+    from L2), shared memory bytes a block, blocks) of the backward sweep's
+    cooperative grid, from the kernel's own plan (csrc
+    ``e2e_lstm_bwd_sweep_plan``: the first that is resident at once).
+    Raises where no grid can be resident. Card only."""
+    key = (t, b, dirs, h_dim, str(dev))
+    if key not in _sweep_grids:
+        out = torch.zeros(4, dtype=torch.int32)
+        cuda_build.launch("lstm_bidir_bwd", "e2e_lstm_bwd_sweep_plan", t, b, dirs, h_dim, out)
+        plan = tuple(out.tolist())
+        if plan[0] < 0:
+            raise ValueError(f"lstm backward sweep: no resident grid for B={b}, H={h_dim}, "
+                             f"{dirs} direction(s)")
+        _sweep_grids[key] = plan
+    return _sweep_grids[key]
+
+
+def _sweep(mask, wh, c, acts, dy, dg, t, b, dirs, h_dim, row_mask):
+    """The reverse sweep kernel: dg [T, dirs B, 4H] from the residuals."""
+    nt, w_smem, smem, _ = sweep_grid(t, b, dirs, h_dim, dg.device)
+    cuda_build.launch("lstm_bidir_bwd", "e2e_lstm_bwd_sweep", mask, wh, c, acts, dy, dg, t, b, dirs,
+                      h_dim, row_mask, nt, w_smem, smem)
+
+
+def _workspace(dev, *shapes) -> torch.Tensor:
+    """Room for the split partials of the products one launch runs, each
+    given as (problems, splits, M, N): the largest that splits (one element
+    where none does)."""
+    n = max([p * s * (m + 1) * g for p, s, m, g in shapes if s > 1] or [1])
+    return torch.empty((n,), dtype=torch.float32, device=dev)
+
+
+def _bidir_products(x, wx, ys, dg, dx, dwx, dwh, db):
+    """dx, dWx, db and dWh of the fused-projection layer from dg: the
+    tensor-core GEMM kernel (three launches, plus the split sums)."""
+    t, bsz, d = x.shape
+    h_dim = ys.shape[2]
+    sms = _sms(x.device)
+    sx, cx = split_k(d, 4 * h_dim, t * bsz, 2, sms)
+    sh, ch = split_k(h_dim, 4 * h_dim, (t - 1) * bsz, 2, sms)
+    ws = _workspace(x.device, (2, sx, d, 4 * h_dim), (2, sh, h_dim, 4 * h_dim))
+    cuda_build.launch("lstm_bidir_bwd", "e2e_lstm_bidir_bwd_products", x, wx, ys, dg, dx, dwx, dwh,
+                      db, ws, t, bsz, d, h_dim, sx, cx, sh, ch)
+
+
 def lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy):
-    """Backward: plain version on CPU tensors; the CUDA kernels on CUDA
-    tensors."""
+    """Backward: plain version on CPU tensors; the CUDA kernels (the sweep,
+    then the products) on CUDA tensors."""
     if cuda_build.use_plain(x):
         return lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy)
     x, mask, wx, wh, ys, c, acts, dy = (a.contiguous() for a in (x, mask, wx, wh, ys, c, acts, dy))
@@ -219,8 +290,8 @@ def lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy):
     dwx = torch.empty((2, d, 4 * h_dim), dtype=torch.float32, device=dev)
     dwh = torch.empty((2, h_dim, 4 * h_dim), dtype=torch.float32, device=dev)
     db = torch.empty((2, 4 * h_dim), dtype=torch.float32, device=dev)
-    cuda_build.launch("lstm_bidir_bwd", "e2e_lstm_bidir_bwd", x, mask, wx, wh, ys, c, acts, dy,
-                      dg, dx, dwx, dwh, db, t, bsz, d, h_dim)
+    _sweep(mask, wh, c, acts, dy, dg, t, bsz, 2, h_dim, 0)
+    _bidir_products(x, wx, ys, dg, dx, dwx, dwh, db)
     lstm_bidir_bwd.launches += 1
     return dx, dwx, dwh, db
 
@@ -302,21 +373,34 @@ def lstm_seq_bwd_plain(mask, wh, ys, c, acts, dy):
     return dxw, _dwh_plain(ys, dxw, wh.shape[0])
 
 
+def _seq_products(ys, dxw, dwh):
+    """dWh of lstm_seq from dxw: the tensor-core GEMM kernel."""
+    t, r, h_dim = ys.shape
+    dirs = dwh.shape[0]
+    bsz = r // dirs
+    sh, ch = split_k(h_dim, 4 * h_dim, (t - 1) * bsz, dirs, _sms(ys.device))
+    ws = _workspace(ys.device, (dirs, sh, h_dim, 4 * h_dim))
+    cuda_build.launch("lstm_bidir_bwd", "e2e_lstm_seq_bwd_products", ys, dxw, dwh, ws, t, bsz, dirs,
+                      h_dim, sh, ch)
+
+
 def lstm_seq_bwd(mask, wh, ys, c, acts, dy):
-    """Backward: plain version on CPU tensors; the CUDA kernels on CUDA
-    tensors."""
+    """Backward: plain version on CPU tensors; the CUDA kernels (the sweep,
+    then dWh's product) on CUDA tensors."""
     if cuda_build.use_plain(ys):
         return lstm_seq_bwd_plain(mask, wh, ys, c, acts, dy)
     mask, wh, ys, c, acts, dy = (a.contiguous() for a in (mask, wh, ys, c, acts, dy))
     t, r, dirs, h_dim = _check_seq(acts, mask, wh, "lstm_seq_bwd")
+    if dirs > 2:
+        raise ValueError(f"lstm_seq_bwd: {dirs} directions (the kernel takes 1 or 2)")
     for a, an in ((ys, "ys"), (c, "c"), (dy, "dy")):
         cuda_build.check_cuda(a, f"lstm_seq_bwd {an}")
         if a.shape != (t, r, h_dim):
             raise ValueError(f"lstm_seq_bwd: {an} {tuple(a.shape)} != {(t, r, h_dim)}")
     dxw = torch.empty_like(acts)
     dwh = torch.empty_like(wh)
-    cuda_build.launch("lstm_bidir_bwd", "e2e_lstm_seq_bwd", mask, wh, ys, c, acts, dy, dxw, dwh,
-                      t, r // dirs, dirs, h_dim)
+    _sweep(mask, wh, c, acts, dy, dxw, t, r // dirs, dirs, h_dim, 1)
+    _seq_products(ys, dxw, dwh)
     lstm_seq_bwd.launches += 1
     return dxw, dwh
 

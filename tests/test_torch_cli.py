@@ -266,7 +266,7 @@ def _wrapper_calls():
         (ctc_prefix_cuda.prefix_recursion, ctc_prefix_cuda.prefix_recursion_plain, streams),
         (rnn_cuda.lstm_bidir_fwd_train, rnn_cuda.lstm_bidir_fwd_train_plain, (x, mask, wx, wh, b)),
         (rnn_cuda.lstm_bidir_bwd, rnn_cuda.lstm_bidir_bwd_plain, (x, mask, wx, wh, ys, c, acts, dy)),
-        (ctc_cuda.ctc_lattice, ctc_cuda.ctc_lattice_plain, (lp, labels, inlen, lablen)),
+        (ctc_cuda.ctc_lattice, ctc_cuda.ctc_lattice_grad_plain, (lp, labels, inlen, lablen)),
         (lambda *a: rnn_cuda.lstm_seq_fwd(*a, train=True), rnn_cuda.lstm_seq_fwd_plain, (xw, mask2, wh1)),
         (rnn_cuda.lstm_seq_bwd, rnn_cuda.lstm_seq_bwd_plain, (mask2, wh1, sys_, sc, sacts, torch.randn(sys_.shape))),
         (decoder_cuda.decoder_scan_fwd, decoder_cuda.decoder_scan_fwd_plain, scan),
@@ -317,3 +317,22 @@ def test_wrapper_raises_for_cuda_without_kernels(monkeypatch, tmp_path, idx):
 def test_non_cuda_device_has_no_kernel():
     with pytest.raises(RuntimeError, match="no kernel for device"):
         cuda_build.use_plain(torch.empty(1, device="meta"))
+
+
+@pytest.mark.parametrize("name", ["lstm_bidir_bwd", "ctc_loss", "decoder_scan", "decoder_scan_bwd"])
+def test_library_name_follows_included_headers(monkeypatch, tmp_path, name):
+    """A library's file name hashes its source and the csrc headers it
+    includes: editing a header gives the sources that include it a new name
+    (so no stale library is loaded), and leaves the others' names alone."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in os.listdir(cuda_build.CSRC_DIR):
+        (src / f).write_bytes(open(os.path.join(cuda_build.CSRC_DIR, f), "rb").read())
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(src))
+    assert '#include "tf32_mma.cuh"' in (src / f"{name}.cu").read_text()
+    before = {n: cuda_build._lib_path(n) for n in cuda_build.SOURCES}
+    header = src / "tf32_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: cuda_build._lib_path(n) for n in cuda_build.SOURCES}
+    assert after[name] != before[name]
+    assert after["log_mel"] == before["log_mel"]

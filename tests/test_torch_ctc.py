@@ -138,7 +138,7 @@ def test_lattice_plain_matches_pallas_gamma(name):
     b, t, _ = logits.shape
     s = 2 * labels.shape[1] + 1
     nll_j, gamma_j = np.asarray(nll_j), np.asarray(gamma_j)[:, :t, :s]
-    nll, gamma = ctc_cuda.ctc_lattice(torch.from_numpy(np.array(lp)), *(
+    nll, gamma = ctc_cuda.ctc_lattice_plain(torch.from_numpy(np.array(lp)), *(
         torch.from_numpy(a) for a in (labels, input_len, label_len)))
     nll, gamma = nll.numpy(), gamma.numpy()
     ok = nll_j <= ctc_cuda.BIG
@@ -175,3 +175,81 @@ def test_lattice_refuses_out_of_range_labels(bad):
         label_len[0] = labels.shape[1] + 1
     with pytest.raises(ValueError, match="ctc_lattice"):
         ctc_cuda.ctc_lattice(lp, *(torch.from_numpy(a) for a in (labels, input_len, label_len)))
+
+
+# (seed, B, T, V, L): row 0 has no alignment, row 1 no labels, row 2
+# input_len > T; T a multiple of the Pallas kernel's 8-frame padding or not
+ROUTE_CASES = {"t24": (7, 5, 24, 7, 6), "t21": (8, 4, 21, 9, 5)}
+
+
+def _route_case(name):
+    seed, b, t, v, l = ROUTE_CASES[name]
+    rng = np.random.RandomState(seed)
+    logits = (2.0 * rng.randn(b, t, v)).astype(np.float32)
+    labels = rng.randint(1, v, size=(b, l)).astype(np.int32)
+    labels[:, 2] = labels[:, 1]
+    label_len = rng.randint(2, l + 1, size=b).astype(np.int32)
+    label_len[0] = l
+    label_len[1] = 0
+    input_len = rng.randint(2 * l + 1, t + 1, size=b).astype(np.int32)
+    input_len[0] = l - 1
+    input_len[2] = t + 3
+    for i in range(b):
+        labels[i, label_len[i]:] = 0
+    weights = rng.uniform(0.5, 2.0, size=b).astype(np.float32)
+    return logits, input_len, labels, label_len, weights
+
+
+@pytest.mark.parametrize("name", list(ROUTE_CASES))
+def test_plain_route_matches_jax_pallas_with_upstream_weights(name):
+    """The CPU route of the loss (ctc_lattice_grad_plain: nll and G in the
+    forward; the backward G times the upstream gradient) against
+    ctc_loss_pallas in interpret mode, with a per-utterance upstream
+    gradient, a row with no alignment, one with no labels and one with
+    input_len > T. The port clamps input_len to T, as ctc_forward_scan
+    does; the Pallas kernel does not (it runs on into its zero-padded frames
+    and leaves beta out of its last row), so it gets the clamped lengths."""
+    logits, input_len, labels, label_len, w = _route_case(name)
+    t = logits.shape[1]
+    lp_np = np.asarray(jax.nn.log_softmax(jnp.asarray(logits), -1))
+
+    lp = torch.from_numpy(lp_np.copy()).requires_grad_()
+    targs = [torch.from_numpy(a) for a in (input_len, labels, label_len)]
+    nll = tctc.ctc_loss(lp, *targs)
+    (g,) = torch.autograd.grad((torch.where(torch.isfinite(nll), nll, 0.0) * torch.from_numpy(w)).sum(), lp)
+    nll, g = nll.detach().numpy(), g.numpy()
+
+    def f(lp_j):
+        n = jctc.ctc_loss(lp_j, jnp.minimum(jnp.asarray(input_len), t), jnp.asarray(labels),
+                          jnp.asarray(label_len), impl="pallas")
+        return jnp.sum(jnp.where(jnp.isfinite(n), n, 0.0) * w), n
+
+    (_, nll_j), g_j = jax.value_and_grad(f, has_aux=True)(jnp.asarray(lp_np))
+    nll_j, g_j = np.asarray(nll_j), np.asarray(g_j)
+    feasible = np.isfinite(nll_j)
+    assert not feasible[0] and feasible[1:].all()
+    np.testing.assert_array_equal(np.isfinite(nll), feasible)
+    np.testing.assert_allclose(nll[feasible], nll_j[feasible], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(g, g_j, rtol=G_RTOL, atol=G_ATOL)
+    assert np.all(g[0] == 0.0)
+    # and the unclamped lengths against the semantics-defining scan
+    want = np.asarray(jctc.ctc_forward_scan(jnp.asarray(lp_np), jnp.asarray(input_len),
+                                            jnp.asarray(labels), jnp.asarray(label_len)))
+    np.testing.assert_allclose(nll[feasible], want[feasible], rtol=RTOL, atol=ATOL)
+
+
+def test_backward_is_g_times_upstream():
+    """CTCLossFn's backward is G (the forward's gradient for a unit upstream
+    gradient, zero on the row with no alignment) times the upstream
+    gradient, exactly."""
+    logits, input_len, labels, label_len, w = _route_case("t21")
+    lp = torch.log_softmax(torch.from_numpy(logits), -1)
+    targs = [torch.from_numpy(a) for a in (labels, input_len, label_len)]
+    raw, grad = ctc_cuda.ctc_lattice_grad_plain(lp, *targs)
+    assert raw[0] > ctc_cuda.BIG and float(grad[0].abs().max()) == 0.0
+    assert float(grad[1, input_len[1]:].abs().max()) == 0.0  # nothing past input_len
+    lp_g = lp.clone().requires_grad_()
+    nll = ctc_cuda.CTCLossFn.apply(lp_g, targs[1], targs[0], targs[2])
+    ct = torch.from_numpy(w)
+    (g,) = torch.autograd.grad(nll, lp_g, ct)
+    assert torch.equal(g, grad * ct[:, None, None])

@@ -2,9 +2,15 @@
 ragged shapes the flagship run does not reach: odd batch (one row per
 LSTM block), T not a multiple of the kernels' tiles, a wave shorter than
 one window, S large enough to need more than 48 KB of shared memory, N not
-a multiple of the block size, B = 1, CTC rows with no alignment and with no
-labels; the lstm_seq pair with one and two directions, prefix and suffix
-masks, B = 33; the fused speller scan at Dk 8 to 300, H 8 to 320, S = 1, 7
+a multiple of the block size, B = 1; the LSTM backward with D and 4H off
+the products' tiles, H = 8, H = 512 and 1024 (its sweep's weights read
+from L2), a grid that cannot be resident (raises), and bitwise-equal repeats
+at the flagship's shapes; the CTC loss with rows with no alignment, with no
+labels and with input_len > T, S up to 1201, T V above the shared-memory
+budget, int32 and int64 labels, bitwise-equal repeats, no host
+synchronisation (sync debug mode) and out-of-range labels refused by a
+device-side assert (in a subprocess); the lstm_seq pair with one and two
+directions, prefix and suffix masks, B = 33 and 32; the fused speller scan at Dk 8 to 300, H 8 to 320, S = 1, 7
 and 764, L = 1, B = 1 and 33, in its three feedback modes, its backward
 sweep and its autograd function, at flagship widths with B = 40 (more
 utterances than resident clusters), with H = 8 (most blocks of the grid own
@@ -118,7 +124,10 @@ def _lstm_args(gen, b, t, d, h, full=False):
     return x, mask, wx, wh, bias
 
 
-LSTM_TRAIN_SHAPES = [(1, 9, 40, 64), (3, 11, 24, 64), (3, 17, 1280, 320), (1, 33, 640, 320)]
+# (B, T, D, H): D and 4H not multiples of the products' tiles (D = 37: rows
+# not 16-byte aligned), H = 8
+LSTM_TRAIN_SHAPES = [(1, 9, 40, 64), (3, 11, 24, 64), (3, 17, 1280, 320), (1, 33, 640, 320),
+                     (2, 13, 37, 8), (5, 7, 200, 24)]
 
 
 @pytest.mark.parametrize("b,t,d,h", LSTM_TRAIN_SHAPES)
@@ -160,11 +169,9 @@ def test_lstm_bwd_kernel(gen, b, t, d, h):
         _close_scaled(g, w, 1e-4)
 
 
-@pytest.mark.parametrize("b,t,v,l", [(1, 7, 5, 3), (4, 61, 12, 20), (3, 204, 30, 199)])
-def test_ctc_lattice_kernel(gen, b, t, v, l):
-    """nll and gamma against the plain lattice, with one row that has no
-    alignment (+inf, zero gradient) and one with no labels; the gradient of
-    CTCLossFn against the plain route (scatter order differs on the card)."""
+def _ctc_args(gen, b, t, v, l, index_dtype=torch.int64):
+    """log_probs, labels, input_len, label_len: row 0 without alignment, row
+    1 without labels, row 2 with input_len > T, repeated labels."""
     lp = torch.log_softmax(3.0 * torch.randn((b, t, v), generator=gen, device="cuda"), -1)
     labels = torch.randint(1, v, (b, l), generator=gen, device="cuda")
     labels[:, 1:3] = labels[:, :1]  # repeated labels forbid the skip
@@ -174,32 +181,142 @@ def test_ctc_lattice_kernel(gen, b, t, v, l):
     inlen[0] = max(1, l - 1)  # too few frames: no alignment
     if b > 1:
         lablen[1] = 0
+    if b > 2:
+        inlen[2] = t + 5  # clamped to T
     labels = torch.where(torch.arange(l, device="cuda")[None] < lablen[:, None], labels, 0)
+    return lp, labels.to(index_dtype), inlen.to(index_dtype), lablen.to(index_dtype)
+
+
+# (B, T, V, L): S = 2L+1 up to 1201 (more states than a half's 512 threads);
+# T V above the shared-memory budget (emission rows streamed in tiles)
+CTC_SHAPES = [(1, 7, 5, 3), (4, 61, 12, 20), (3, 204, 30, 199), (3, 1300, 9, 600), (4, 300, 400, 30)]
+
+
+@pytest.mark.parametrize("index_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("b,t,v,l", CTC_SHAPES)
+def test_ctc_lattice_kernel(gen, b, t, v, l, index_dtype):
+    """nll and G = d nll / d log_probs against the plain route, with a row
+    that has no alignment (+inf, zero gradient), one with no labels and one
+    with input_len > T; labels and lengths as int32 or int64; CTCLossFn's
+    gradient against the plain route's."""
+    lp, labels, inlen, lablen = _ctc_args(gen, b, t, v, l, index_dtype)
     before = ctc_cuda.ctc_lattice.launches
-    nll, gamma = ctc_cuda.ctc_lattice(lp, labels, inlen, lablen)
+    nll, grad = ctc_cuda.ctc_lattice(lp, labels, inlen, lablen)
     assert ctc_cuda.ctc_lattice.launches == before + 1
-    nll_p, gamma_p = ctc_cuda.ctc_lattice_plain(lp, labels, inlen, lablen)
+    nll_p, grad_p = ctc_cuda.ctc_lattice_grad_plain(lp, labels, inlen, lablen)
     assert float(nll[0]) > ctc_cuda.BIG and float(nll_p[0]) > ctc_cuda.BIG
     _close(nll[1:], nll_p[1:], rtol=1e-5, atol=1e-4)
-    # row 0 has no alignment: its gamma is never used (zero gradient)
-    low = gamma_p[1:] < ctc_cuda.NEG / 2
-    assert torch.equal(gamma[1:] < ctc_cuda.NEG / 2, low)
-    _close(gamma[1:][~low], gamma_p[1:][~low], rtol=1e-5, atol=1e-3)
+    assert float(grad[0].abs().max()) == 0.0
+    _close(grad, grad_p, rtol=1e-5, atol=1e-5)
     lp_k = lp.clone().requires_grad_()
     loss_k = ctc_cuda.CTCLossFn.apply(lp_k, inlen, labels, lablen)
     assert torch.isinf(loss_k[0])
-    (g_k,) = torch.autograd.grad(torch.where(torch.isfinite(loss_k), loss_k, 0.0).sum(), lp_k)
-    assert float(g_k[0].abs().max()) == 0.0
+    ct = torch.rand((b,), generator=gen, device="cuda") + 0.5
+    (g_k,) = torch.autograd.grad(torch.where(torch.isfinite(loss_k), loss_k, 0.0), lp_k, ct)
     with mock.patch.object(cuda_build, "use_plain", lambda x: True):
         lp_p = lp.clone().requires_grad_()
         loss_p = ctc_cuda.CTCLossFn.apply(lp_p, inlen, labels, lablen)
-        (g_p,) = torch.autograd.grad(torch.where(torch.isfinite(loss_p), loss_p, 0.0).sum(), lp_p)
+        (g_p,) = torch.autograd.grad(torch.where(torch.isfinite(loss_p), loss_p, 0.0), lp_p, ct)
     _close(g_k, g_p, rtol=1e-5, atol=1e-5)
+
+
+def test_ctc_gradient_repeats_bitwise(gen):
+    """No atomics: nll and G are bitwise equal from run to run."""
+    args = _ctc_args(gen, 16, 204, 32, 199)
+    first = ctc_cuda.ctc_lattice(*args)
+    for _ in range(3):
+        again = ctc_cuda.ctc_lattice(*args)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_ctc_route_makes_no_host_sync(gen):
+    """The CUDA route of the loss, forward and backward, under PyTorch's
+    sync debug mode set to raise: no device-to-host synchronisation."""
+    lp, labels, inlen, lablen = _ctc_args(gen, 4, 61, 12, 20)
+    ctc_cuda.ctc_lattice(lp, labels, inlen, lablen)  # plan and build outside the check
+    lp = lp.clone().requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nll = ctc_cuda.CTCLossFn.apply(lp, inlen, labels, lablen)
+        (g,) = torch.autograd.grad(torch.where(torch.isfinite(nll), nll, 0.0).sum(), lp)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(g).all())
+
+
+_BAD_LABELS = """
+import sys, torch
+from e2e_asr_tpu_torch.ops import ctc_cuda
+bad = sys.argv[1]
+lp = torch.log_softmax(torch.randn((2, 9, 6), device="cuda"), -1)
+labels = torch.tensor([[1, 2, 2], [3, 1, 0]], device="cuda")
+inlen, lablen = torch.tensor([9, 7], device="cuda"), torch.tensor([3, 2], device="cuda")
+if bad == "label_ge_vocab":
+    labels[0, 0] = 6
+elif bad == "negative_label":
+    labels[1, 2] = -1
+else:
+    lablen[0] = 4
+nll, grad = ctc_cuda.ctc_lattice(lp, labels, inlen, lablen)
+torch.cuda.synchronize()
+print("LOSS", nll.tolist())
+"""
+
+
+@pytest.mark.parametrize("bad", ["label_ge_vocab", "negative_label", "label_len_gt_l"])
+def test_ctc_kernel_refuses_out_of_range_labels(gen, bad):
+    """The kernel checks labels and label lengths itself (the wrapper does
+    not synchronise to look): a bad one stops it with a device-side assert,
+    which poisons the process's CUDA context, hence a subprocess; no loss
+    comes out."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _BAD_LABELS, bad], cwd=root, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": root})
+    out = res.stdout + res.stderr
+    assert res.returncode != 0, out
+    assert "LOSS" not in res.stdout
+    assert "device-side assert" in out or "ctc_loss: a label" in out, out
+
+
+def test_lstm_bwd_kernels_repeat_bitwise(gen):
+    """No atomics in the sweep or the products (split partials summed in a
+    fixed order): every output of lstm_bidir_bwd and lstm_seq_bwd is bitwise
+    equal from run to run, at the flagship's shapes, where dWx (D = 640) and
+    dWh are split over K."""
+    b, t, h = 16, 204, 320
+    for d in (1280, 640):
+        x, mask, wx, wh, bias = _lstm_args(gen, b, t, d, h, full=True)
+        ys, c, acts = rnn_cuda.lstm_bidir_fwd_train(x, mask, wx, wh, bias)
+        dy = torch.randn(ys.shape, generator=gen, device="cuda")
+        first = rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy)
+        for _ in range(2):
+            again = rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy)
+            assert all(torch.equal(p, q) for p, q in zip(first, again))
+    m2 = torch.cat([mask, torch.flip(mask, dims=[0])], dim=1)
+    first = rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy)
+    again = rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy)
+    assert all(torch.equal(p, q) for p, q in zip(first, again))
+
+
+def test_lstm_bwd_sweep_grid_raises_when_not_resident(gen):
+    """The sweep is one cooperative grid: where no plan is resident (here
+    4096 rows a direction at H = 1024) the wrapper raises instead of
+    launching a grid that would hang."""
+    with pytest.raises(ValueError, match="no resident grid"):
+        rnn_cuda.sweep_grid(10, 4096, 2, 1024, torch.device("cuda", torch.cuda.current_device()))
+    nt, w_smem, smem, blocks = rnn_cuda.sweep_grid(204, 16, 2, 320, torch.device("cuda", torch.cuda.current_device()))
+    assert (nt, w_smem) == (1, 1) and blocks == 80
 
 
 # ------------------------------------------------------------ lstm_seq pair
 @pytest.mark.parametrize("dirs,b,t,h,suffix", [(2, 3, 11, 64, False), (1, 1, 9, 256, False),
-                                               (2, 33, 17, 320, False), (1, 5, 13, 104, True)])
+                                               (2, 33, 17, 320, False), (1, 5, 13, 104, True),
+                                               (2, 32, 40, 256, False)])
 def test_lstm_seq_kernels(gen, dirs, b, t, h, suffix):
     """lstm_seq forward (ys, c, acts) and backward (dxw, dWh) against their
     plain versions, prefix and suffix masks, and LSTMSeqFn against autograd
@@ -230,6 +347,25 @@ def test_lstm_seq_kernels(gen, dirs, b, t, h, suffix):
                                leaves)
     got = torch.autograd.grad((rnn_cuda.lstm_seq(leaves[0], mask, leaves[1]) * dy).sum(), leaves)
     for g, w in zip(got, want):
+        _close_scaled(g, w, 1e-4)
+
+
+@pytest.mark.parametrize("h,resident", [(512, 1), (1024, 0)])
+def test_lstm_seq_bwd_wide_h(gen, h, resident):
+    """At H = 512 (the 960 h recipe's width) a block's 16 rows of Wh still
+    live in shared memory beside the step's dgates; at H = 1024 they do not fit and the sweep reads them from L2;
+    both agree with the plain reverse sweep."""
+    dirs, b, t = 2, 5, 9
+    dev = torch.device("cuda", torch.cuda.current_device())
+    assert rnn_cuda.sweep_grid(t, b, dirs, h, dev)[1] == resident
+    lens = torch.randint(1, t + 1, (dirs * b,), generator=gen, device="cuda")
+    mask = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
+    xw = torch.randn((t, dirs * b, 4 * h), generator=gen, device="cuda")
+    wh = (torch.rand((dirs, h, 4 * h), generator=gen, device="cuda") * 2 - 1) / math.sqrt(h)
+    ys, c, acts = rnn_cuda.lstm_seq_fwd_plain(xw, mask, wh)
+    dy = torch.randn(ys.shape, generator=gen, device="cuda")
+    for g, w in zip(rnn_cuda.lstm_seq_bwd(mask, wh, ys, c, acts, dy),
+                    rnn_cuda.lstm_seq_bwd_plain(mask, wh, ys, c, acts, dy)):
         _close_scaled(g, w, 1e-4)
 
 

@@ -168,3 +168,74 @@ def test_bidir_routes_inference_without_grad():
     y1 = trnn.bidir(xg, lens, *w)
     assert y1.grad_fn is not None
     torch.testing.assert_close(y1.detach(), y0, rtol=0, atol=0)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """The top 19 bits of float32 x (what a TF32 tensor-core input reads)."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as csrc/lstm_bidir_bwd.cu's GEMM forms it: each operand split
+    into hi (its top 19 bits) and lo (the exact rest, of which the tensor
+    core reads the top 19 bits), three products a_lo b_hi + a_hi b_lo +
+    a_hi b_hi accumulated in float32, K in tiles of 32 added in order."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    out = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], 32):
+        ks = slice(k0, k0 + 32)
+        out = out + ((al[:, ks].double() @ bh[ks].double() + ah[:, ks].double() @ bl[ks].double())
+                     + ah[:, ks].double() @ bh[ks].double()).float()
+    return out
+
+
+@pytest.mark.parametrize("which", ["dWh", "dWx"])
+def test_3xtf32_products_hold_rtol_1e4_at_flagship_k(which):
+    """The numerics the tensor-core products rely on: the 3xTF32 split,
+    applied to the plain dWh = h_prev^T dg and dWx = x^T dg at the flagship
+    layer's K (T=204 frames x B=16: 3,248 rows for dWh, 3,264 for dWx; a
+    slice of the M x N outputs), stays within the tests' rtol 1e-4 (atol 1e-4
+    of the largest entry) of float64, where a single TF32 product does not."""
+    rng = np.random.RandomState(9)
+    t, b, h = 204, 16, 320
+    k = (t - 1) * b if which == "dWh" else t * b
+    lens = rng.randint(t // 2, t + 1, size=b)
+    lens[0] = t
+    valid = (np.arange(t)[:, None] < lens[None, :]).reshape(-1)[-k:]
+    if which == "dWh":  # h_prev: LSTM outputs in (-1, 1), zero on masked steps
+        a = np.tanh(rng.randn(k, 64)) * valid[:, None]
+    else:  # x: the VGG prenet's features
+        a = np.maximum(rng.randn(k, 64) * 0.5, 0.0)
+    dg = rng.randn(k, 128) * 1e-2 * valid[:, None]
+    at = torch.from_numpy(a.T.astype(np.float32)).contiguous()
+    dgt = torch.from_numpy(dg.astype(np.float32))
+    want = at.double() @ dgt.double()
+    got = _matmul_3xtf32(at, dgt)
+    tol = dict(rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    torch.testing.assert_close(got.double(), want, **tol)
+    one = (_tf32(at).double() @ _tf32(dgt).double())
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(one, want, **tol)
+
+
+@pytest.mark.parametrize("m", [8, 127, 128, 320, 1281])
+@pytest.mark.parametrize("k", [0, 1, 31, 32, 255, 3248, 26080])
+def test_split_k_plan_covers_k(m, k):
+    """rnn_cuda.split_k over M, N and K tails: every k-tile of 32 belongs to
+    exactly one split, no split is empty, at least 8 k-tiles a split once K
+    is split, and a split only where the tiles alone fill fewer than two
+    blocks an SM."""
+    for n, problems, sms in ((32, 2, 132), (1280, 2, 132), (1024, 1, 132), (200, 2, 16)):
+        splits, chunk = rnn_cuda.split_k(m, n, k, problems, sms)
+        ktiles = -(-k // 32)
+        assert splits >= 1
+        if ktiles == 0:
+            assert splits == 1
+            continue
+        ranges = [range(s * chunk, min(ktiles, (s + 1) * chunk)) for s in range(splits)]
+        assert all(len(r) > 0 for r in ranges)
+        assert sorted(i for r in ranges for i in r) == list(range(ktiles))
+        tiles = -(-m // 128) * -(-n // 64) * problems
+        if splits > 1:
+            assert chunk >= 8 and tiles < 2 * sms
