@@ -10,15 +10,18 @@
    PyTorch call computes the same function, that call: the decode kernels
    at the flagship decode shapes (configs/libri/asr_example.yaml model,
    decode B=16, W=16), the training kernels (the LSTM's training forward
-   and backward, the backward's sweep and products timed apart; the CTC
+   and backward, each one's two launches timed apart, their outputs
+   repeated bitwise; the CTC
    loss, nll and gradient in one launch, checked for bitwise repeats and
    for no host synchronisation) at the flagship training shapes (B=16 in
    the 816-frame bucket: S=204 encoder frames, up to 199 CTC labels); the
    fused speller scan (forward in its three feedback modes, backward, and
    its autograd function) at B=16, S=204, L=200 and once at S=764; the
    lstm_seq pair at the convergence recipe's first layer (T=816, B=32,
-   H=256) and the flagship's (T=204, B=16, H=320), and a BiLSTM layer
-   forward + backward by either kernel pair at five input widths.
+   H=256) and the flagship's (T=204, B=16, H=320), the forward in
+   alternating rounds with cuDNN's, and a BiLSTM layer forward + backward
+   by either kernel pair at five input widths. Each LSTM forward row
+   carries its sweep's plan.
 3. Drives the serving path: the flagship-width model from a fixed seed
    decodes 16 synthetic utterances in the 816-frame bucket (beam 16,
    ctc_weight 0.3, lm_weight 0) through ``bin/test_asr.Solver`` on the
@@ -217,6 +220,7 @@ def kernel_checks(dev, cfg, vocab):
                 ms=time_ms(lambda: rnn_cuda.lstm_bidir_fwd(*args), 10),
                 plain_ms=time_ms(lambda: rnn_cuda.lstm_bidir_fwd_plain(*args), 3, 1),
                 library_ms=time_ms(lambda: lstm(x), 10), bound=bound_ms(nb, nf),
+                **_bidir_fwd_parts(*args, train=False),
             ))
     out["lstm_bidir_fwd"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/lstm_bidir.cu",
@@ -228,8 +232,10 @@ def kernel_checks(dev, cfg, vocab):
         library_ms=(entries[0]["library_ms"] + 3 * entries[1]["library_ms"]) / 4,
         bound=((entries[0]["bound"][0] + 3 * entries[1]["bound"][0]) / 4, entries[0]["bound"][1]),
         shapes=f"x [{s_len},{b},1280|{2 * h}], H {h} (ms = mean per layer of 1x1280 + 3x{2 * h})",
-        per_width={str(e["d"]): {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound")}
+        per_width={str(e["d"]): {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound", "projection_ms",
+                                                    "sweep_ms")}
                    for e in entries},
+        plan=_fwd_plan(b, h, dev),
     )
 
     # ---- 3. att_step_beam_loc: q [B, W, Dk], S encoder frames
@@ -347,6 +353,29 @@ def _bidir_bwd_parts(x, mask, wx, wh, ys, c, acts, dy, iters: int = 10) -> dict:
                             rnn_cuda.sweep_grid(t, b, 2, h, x.device))))
 
 
+def _fwd_plan(b, h, dev, dirs=2) -> dict:
+    """The forward sweep's plan (csrc e2e_lstm_fwd_plan) by name."""
+    from e2e_asr_tpu_torch.ops import rnn_cuda
+
+    return dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
+                    rnn_cuda.fwd_plan(b, dirs, h, dev)))
+
+
+def _bidir_fwd_parts(x, mask, wx, wh, bias, train=True, iters: int = 10) -> dict:
+    """The fused-projection forward's two launches apart (CUDA events): the
+    projection into the kernel-time xw scratch and the sweep over it."""
+    from e2e_asr_tpu_torch.ops import rnn_cuda
+
+    t, b, _ = x.shape
+    h = wh.shape[1]
+    xw = torch.empty((t, 2 * b, 4 * h), device=x.device)
+    ys = torch.empty((t, 2 * b, h), device=x.device)
+    cs, acts = (torch.empty_like(ys), torch.empty_like(xw)) if train else (ys, ys)
+    return dict(
+        projection_ms=time_ms(lambda: rnn_cuda._projection(x, wx, bias, xw), iters),
+        sweep_ms=time_ms(lambda: rnn_cuda._fwd_sweep(xw, mask, wh, ys, cs, acts, t, b, 2, h, 0, train), iters))
+
+
 def train_kernel_checks(dev, cfg, vocab):
     """The training kernels against their plain versions at the flagship
     training shapes: S = 204 encoder frames (816 / 4), B = 16, H = 320,
@@ -385,8 +414,13 @@ def train_kernel_checks(dev, cfg, vocab):
         with torch.no_grad():
             f_ms = time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train(*args), 10)
             f_plain = time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train_plain(*args), 3, 1)
+            f_parts = _bidir_fwd_parts(*args)
+            if not all(torch.equal(p, q) for p, q in zip(got, rnn_cuda.lstm_bidir_fwd_train(*args))):
+                fail(f"lstm_bidir_fwd_train D={d}: two runs on the same inputs differ")
+        print(f"  lstm_bidir_fwd_train D={d}: {f_ms:.3f} ms = projection {f_parts['projection_ms']:.3f} ms + "
+              f"sweep {f_parts['sweep_ms']:.3f} ms (plan {_fwd_plan(b, h, dev)}); repeats bitwise", flush=True)
         fwd.append(dict(d=d, max_abs_err=err, ms=f_ms, plain_ms=f_plain,
-                        library_ms=time_ms(lambda: lstm(xg), 10), bound=bound_ms(io, nf)))
+                        library_ms=time_ms(lambda: lstm(xg), 10), bound=bound_ms(io, nf), **f_parts))
 
         ys, c, acts = want
         dy = torch.randn(ys.shape, generator=gen, device=dev)
@@ -463,11 +497,13 @@ def train_kernel_checks(dev, cfg, vocab):
             bound=((entries[0]["bound"][0] + 3 * entries[1]["bound"][0]) / 4, entries[0]["bound"][1]),
             shapes=f"x [{s_len},{b},1280|{2 * h}], H {h} (ms = mean per layer of 1x1280 + 3x{2 * h})",
             per_width={str(e["d"]): {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound", "alternating",
-                                                        "sweep_ms", "products_ms", "sweep_grid") if k in e}
+                                                        "projection_ms", "sweep_ms", "products_ms", "sweep_grid")
+                                     if k in e}
                        for e in entries},
             alternating={k: (entries[0]["alternating"][k] + 3 * entries[1]["alternating"][k]) / 4
                          for k in ("ms", "library_ms")},
         )
+    out["lstm_bidir_fwd_train"]["plan"] = _fwd_plan(b, h, dev)
 
     # ---- CTC lattice: log_probs [B, S, V], labels [B, L] up to the token bucket
     print("[kernel] ctc_loss (lattice: nll and its gradient)", flush=True)
@@ -834,10 +870,14 @@ def lstm_seq_checks(dev):
         io_f = 4 * (t * r * 4 * h + t * r + 2 * h * 4 * h + t * r * h * 6)
         io_b = 4 * (t * r + 2 * h * 4 * h + t * r * h * 7 + t * r * 4 * h + 2 * h * 4 * h)
         with torch.no_grad():
+            # the sweep alone, its outputs allocated outside
+            f_out = [torch.empty_like(v) for v in want]
             fwd.append(dict(
                 t=t, b=b, h=h, max_abs_err=err, bound=bound_ms(io_f, vr * (2 * h * 4 * h + 12 * h)),
                 ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True), 5),
-                plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd_plain(xw, m2, wh), 2, 1)))
+                plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd_plain(xw, m2, wh), 2, 1),
+                sweep_ms=time_ms(lambda: rnn_cuda._fwd_sweep(xw, m2, wh, *f_out, t, b, 2, h, 1, True), 5),
+                plan=_fwd_plan(b, h, dev)))
             dxw, dwh = torch.empty_like(acts), torch.empty_like(wh)
             bwd.append(dict(
                 t=t, b=b, h=h, max_abs_err=err_b, bound=bound_ms(io_b, vr * (16 * h * h + 20 * h)),
@@ -851,9 +891,22 @@ def lstm_seq_checks(dev):
                   f"ms (grid {bwd[-1]['sweep_grid']}) + dWh {bwd[-1]['products_ms']:.3f} ms", flush=True)
         fwd[-1]["library_ms"] = time_ms(lambda: lstm(xg), 5)
         # cuDNN's call includes x @ Wx; the port's projection outside the
-        # kernel (one matmul, the flip of the backward direction) beside it
+        # kernel (one matmul, the flip of the backward direction) beside it,
+        # alone and in rounds in turns with the kernel and cuDNN's forward
         with torch.no_grad():
             fwd[-1]["projection_ms"] = time_ms(lambda: rnn_cuda._kernel_time_inputs(x, mask, wx, bias), 5)
+
+            def kernel_fwd():
+                rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True)
+
+            alt = alternating_ms({"kernel_fwd": kernel_fwd,
+                                  "projection": lambda: rnn_cuda._kernel_time_inputs(x, mask, wx, bias),
+                                  "cudnn_fwd": lambda: lstm(xg)})
+        fwd[-1]["alternating"] = {"ms": alt["kernel_fwd"], "projection_ms": alt["projection"],
+                                  "library_ms": alt["cudnn_fwd"]}
+        print(f"  lstm_seq_fwd T={t} B={b} H={h}: {fwd[-1]['ms']:.3f} ms (sweep alone {fwd[-1]['sweep_ms']:.3f} ms, "
+              f"plan {fwd[-1]['plan']}); alternating rounds ({ALT_ROUNDS}, median): kernel {alt['kernel_fwd']:.3f} "
+              f"ms + projection {alt['projection']:.3f} ms vs cuDNN {alt['cudnn_fwd']:.3f} ms", flush=True)
         out_lib, _ = lstm(xg)
         dy_lib = torch.randn(out_lib.shape, generator=gen, device=dev)
         lib_in = [xg] + list(lstm.parameters())
@@ -914,10 +967,14 @@ def lstm_seq_checks(dev):
                    "projection included, which ms leaves out: layer_routes compares whole layers)",
             per_shape={f"T{e['t']}_B{e['b']}_H{e['h']}": {k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound",
                                                                             "projection_ms", "sweep_ms",
-                                                                            "products_ms", "sweep_grid")
+                                                                            "products_ms", "sweep_grid", "plan",
+                                                                            "alternating")
                                                          if k in e}
                        for e in entries},
         )
+        for k in ("plan", "alternating"):
+            if k in e0:
+                out[name][k] = e0[k]
     out["lstm_seq_fwd"]["layer_routes"] = routes
     return out
 
@@ -1251,7 +1308,7 @@ def main(json_path: str = "") -> None:
             "launches_by_path": by_path,
             **{k: kv[k] for k in ("per_width", "per_shape", "layer_routes", "loss_fwd_bwd_ms",
                                   "launches_per_fwd_bwd", "device_launches_per_fwd_bwd",
-                                  "ms_sampled", "ms_s764_l8", "phases_us", "grid", "alternating")
+                                  "ms_sampled", "ms_s764_l8", "phases_us", "grid", "alternating", "plan")
                                   if k in kv},
         })
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")

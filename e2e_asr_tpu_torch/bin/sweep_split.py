@@ -1,12 +1,15 @@
-"""Where a step of the LSTM backward sweep goes, by ablation, on the card.
+"""Where a step of the LSTM sweeps goes, by ablation, on the card.
 
-    python -m e2e_asr_tpu_torch.bin.sweep_split [--out PATH]
+    python -m e2e_asr_tpu_torch.bin.sweep_split [--sweep forward|backward] [--out PATH]
 
-Builds variants of csrc/lstm_bidir_bwd.cu with one part of the step compiled
-out (their gradients are wrong; only their times count) into
+Builds variants of each sweep's source with one part of the step compiled
+out (their outputs are wrong; only their times count) into
 ``_build/sweep_split/`` and times each variant's sweep launch (CUDA events,
 10 launches) at the flagship's layer (T=204, B=16, H=320) and the
-convergence recipe's first layer (T=816, B=32, H=256), both directions:
+convergence recipe's first layer (T=816, B=32, H=256), both directions;
+both sweeps unless ``--sweep`` names one.
+
+The backward sweep (csrc/lstm_bidir_bwd.cu):
 
 - ``full``: the kernel as built for the port;
 - ``no_grid``: no grid barrier a step;
@@ -14,6 +17,16 @@ convergence recipe's first layer (T=816, B=32, H=256), both directions:
 - ``no_product``: no tensor-core product (dgates Wh^T);
 - ``elementwise``: none of the three: the gate gradients, their stores,
   the next step's loads and the reduction.
+
+The forward sweep (csrc/lstm_bidir.cu):
+
+- ``full``: the kernel as built for the port;
+- ``no_product``: no tensor-core product (h Wh);
+- ``no_publish``: no publication of h_t (its stores to L2, the staging of
+  the next step's h and the grid barrier a step);
+- ``no_cell``: no cell update and no stores of ys, c and acts;
+- ``rest``: none of the three: the loop, the next step's xw and mask loads
+  and the block barrier.
 
 The time a part's removal saves, a step, splits the step (the parts overlap
 in part, so the savings need not add up to the whole). Needs the card.
@@ -32,15 +45,27 @@ import torch
 from e2e_asr_tpu_torch import cuda_build
 from e2e_asr_tpu_torch.ops import rnn_cuda
 
-# the define that compiles a part out: (its first line in the source, a
-# block whole or one statement)
-CUTS = {
-    "NO_GRID": ("    grid.sync();  // every block's dgates of step k are in dg\n", "statement"),
-    "NO_STAGE": ("    for (int i = tid; i < nb * (G / 4); i += SW_NT) {\n", "block"),
-    "NO_PRODUCT": ("    for (int c0 = warp; c0 < G / 16; c0 += 2 * SW_NW) {\n", "block"),
+# per sweep: its source, and the define that compiles a part out with the
+# parts it cuts (their first lines in the source, a block whole or the
+# lines alone)
+SWEEPS = {
+    "backward": ("lstm_bidir_bwd", {
+        "NO_GRID": [("    grid.sync();  // every block's dgates of step k are in dg\n", "statement")],
+        "NO_STAGE": [("    for (int i = tid; i < nb * (G / 4); i += SW_NT) {\n", "block")],
+        "NO_PRODUCT": [("    for (int c0 = warp; c0 < G / 16; c0 += 2 * SW_NW) {\n", "block")],
+    }, {"full": (), "no_grid": ("NO_GRID",), "no_stage": ("NO_STAGE",), "no_product": ("NO_PRODUCT",),
+        "elementwise": ("NO_GRID", "NO_STAGE", "NO_PRODUCT")}),
+    "forward": ("lstm_bidir", {
+        "NO_PRODUCT": [("    for (int cc = kh; cc < KC; cc += FW_KSPLIT) {\n", "block")],
+        "NO_PUBLISH": [
+            ("    if (k > 0) {  // h_{k-1} of the group's rows from L2\n", "block"),
+            ("#pragma unroll\n    for (int i = 0; i < NT; ++i) {  // publish h_k\n", "block"),
+            ("    grid.sync();  // h_k is in hbuf; hs and red are free again\n", "statement"),
+        ],
+        "NO_CELL": [("#pragma unroll\n    for (int i = 0; i < NT; ++i) {  // cell update and stores\n", "block")],
+    }, {"full": (), "no_product": ("NO_PRODUCT",), "no_publish": ("NO_PUBLISH",), "no_cell": ("NO_CELL",),
+        "rest": ("NO_PRODUCT", "NO_PUBLISH", "NO_CELL")}),
 }
-VARIANTS = {"full": (), "no_grid": ("NO_GRID",), "no_stage": ("NO_STAGE",), "no_product": ("NO_PRODUCT",),
-            "elementwise": ("NO_GRID", "NO_STAGE", "NO_PRODUCT")}
 SHAPES = ((204, 16, 320), (816, 32, 256))
 
 
@@ -58,66 +83,92 @@ def _block_end(src: str, start: int) -> int:
         i += 1
 
 
-def ablated_source() -> str:
+def ablated_source(sweep: str) -> str:
     """The sweep's source with each cut wrapped in ``#ifndef <define>``."""
-    with open(os.path.join(cuda_build.CSRC_DIR, "lstm_bidir_bwd.cu")) as f:
+    name, cuts, _ = SWEEPS[sweep]
+    with open(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu")) as f:
         src = f.read()
-    for define, (marker, kind) in CUTS.items():
-        if src.count(marker) != 1:
-            raise RuntimeError(f"sweep_split: the source no longer has one {define} marker")
-        start = src.index(marker)
-        end = start + len(marker) if kind == "statement" else _block_end(src, start)
-        src = src[:start] + f"#ifndef {define}\n" + src[start:end] + "#endif\n" + src[end:]
+    for define, parts in cuts.items():
+        for marker, kind in parts:
+            if src.count(marker) != 1:
+                raise RuntimeError(f"sweep_split: {name}.cu no longer has one {define} marker")
+            start = src.index(marker)
+            end = start + len(marker) if kind == "statement" else _block_end(src, start)
+            src = src[:start] + f"#ifndef {define}\n" + src[start:end] + "#endif\n" + src[end:]
     return src
 
 
-def build(out_dir: str) -> dict:
-    """One library a variant, compiled in parallel; {variant: path}."""
+def build(out_dir: str, sweeps=tuple(SWEEPS)) -> dict:
+    """One library a (sweep, variant), compiled in parallel; {sweep: {variant: path}}."""
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "sweep.cu"), "w") as f:
-        f.write(ablated_source())
-    with open(os.path.join(cuda_build.CSRC_DIR, "tf32_mma.cuh")) as f, \
-            open(os.path.join(out_dir, "tf32_mma.cuh"), "w") as g:
-        g.write(f.read())
+    for header in ("tf32_mma.cuh", "gemm_tf32.cuh"):
+        with open(os.path.join(cuda_build.CSRC_DIR, header)) as f, open(os.path.join(out_dir, header), "w") as g:
+            g.write(f.read())
     procs, paths = {}, {}
-    for name, defines in VARIANTS.items():
-        paths[name] = os.path.join(out_dir, f"{name}.so")
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *[f"-D{d}" for d in defines], "-o", paths[name],
-               os.path.join(out_dir, "sweep.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-    for name, proc in procs.items():
+    for sweep in sweeps:
+        variants = SWEEPS[sweep][2]
+        src = os.path.join(out_dir, f"{sweep}.cu")
+        with open(src, "w") as f:
+            f.write(ablated_source(sweep))
+        paths[sweep] = {}
+        for name, defines in variants.items():
+            paths[sweep][name] = os.path.join(out_dir, f"{sweep}_{name}.so")
+            cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *[f"-D{d}" for d in defines], "-o",
+                   paths[sweep][name], src]
+            procs[(sweep, name)] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    for (sweep, name), proc in procs.items():
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
-            raise RuntimeError(f"sweep variant {name} failed to build:\n{log}")
+            raise RuntimeError(f"{sweep} sweep variant {name} failed to build:\n{log}")
     return paths
 
 
-def time_variant(path: str, t: int, b: int, h: int, iters: int = 10) -> float:
-    """ms a sweep launch of the variant at (T, B, H), two directions, every
-    row valid."""
-    dev = torch.device("cuda", torch.cuda.current_device())
+def _inputs(t: int, b: int, h: int, dev: torch.device) -> dict:
+    """Both sweeps' inputs at (T, B, H), two directions, every row valid."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     r = 2 * b
-    mask = torch.ones((t, r), device=dev)
-    wh = torch.randn((2, h, 4 * h), generator=gen, device=dev) / h ** 0.5
-    c = torch.randn((t, r, h), generator=gen, device=dev)
-    acts = torch.rand((t, r, 4 * h), generator=gen, device=dev)
-    dy = torch.randn((t, r, h), generator=gen, device=dev)
-    dg = torch.empty((t, r, 4 * h), device=dev)
-    nt, w_smem, smem, _ = rnn_cuda.sweep_grid(t, b, 2, h, dev)
+    return dict(
+        mask=torch.ones((t, r), device=dev),
+        wh=torch.randn((2, h, 4 * h), generator=gen, device=dev) / h ** 0.5,
+        c=torch.randn((t, r, h), generator=gen, device=dev),
+        acts=torch.rand((t, r, 4 * h), generator=gen, device=dev),
+        dy=torch.randn((t, r, h), generator=gen, device=dev),
+        dg=torch.empty((t, r, 4 * h), device=dev),
+        xw=torch.randn((t, r, 4 * h), generator=gen, device=dev),
+        ys=torch.empty((t, r, h), device=dev),
+        hbuf=torch.empty((2, r, h), device=dev),
+    )
+
+
+def _launcher(sweep: str, path: str, t: int, b: int, h: int, x: dict, dev: torch.device):
+    """A function that launches the variant's sweep once (raises on error)."""
     lib = ctypes.CDLL(path)
-    fn = lib.e2e_lstm_bwd_sweep
+    if sweep == "backward":
+        fn = lib.e2e_lstm_bwd_sweep
+        ptrs = (x["mask"], x["wh"], x["c"], x["acts"], x["dy"], x["dg"])
+        ints = (t, b, 2, h, 1, *rnn_cuda.sweep_grid(t, b, 2, h, dev)[:3])
+    else:
+        fn = lib.e2e_lstm_fwd_sweep
+        ptrs = (x["xw"], x["mask"], x["wh"], x["ys"], x["c"], x["acts"], x["hbuf"])
+        ints = (t, b, 2, h, 1, 1, *rnn_cuda.fwd_plan(b, 2, h, dev)[:3])
     fn.restype = ctypes.c_int
 
     def run():
-        args = [ctypes.c_void_p(x.data_ptr()) for x in (mask, wh, c, acts, dy, dg)]
-        args += [ctypes.c_int(v) for v in (t, b, 2, h, 1, nt, w_smem, smem)]
+        args = [ctypes.c_void_p(v.data_ptr()) for v in ptrs] + [ctypes.c_int(v) for v in ints]
         args.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
         err = fn(*args)
         if err:
-            raise RuntimeError(f"sweep variant launch failed: error {err}")
+            raise RuntimeError(f"{sweep} sweep variant launch failed: error {err}")
 
+    return run
+
+
+def time_variant(sweep: str, path: str, t: int, b: int, h: int, iters: int = 10) -> float:
+    """ms a sweep launch of the variant at (T, B, H), two directions, every
+    row valid (the forward in its training variant)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    run = _launcher(sweep, path, t, b, h, _inputs(t, b, h, dev), dev)
     run()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -129,31 +180,50 @@ def time_variant(path: str, t: int, b: int, h: int, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _split(sweep: str, us: dict) -> dict:
+    if sweep == "backward":
+        return {
+            "grid barrier": us["full"] - us["no_grid"],
+            "dgates staging": us["full"] - us["no_stage"],
+            "product": us["full"] - us["no_product"],
+            "gate gradients, stores, next loads, reduction": us["elementwise"],
+        }
+    return {
+        "product": us["full"] - us["no_product"],
+        "publication (h stores, staging, grid barrier)": us["full"] - us["no_publish"],
+        "cell update and stores": us["full"] - us["no_cell"],
+        "rest (loop, next xw and mask loads, block barrier)": us["rest"],
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sweep", choices=sorted(SWEEPS), default=None, help="time one sweep only (default: both)")
     ap.add_argument("--out", default="", help="JSON result (default: _build/sweep_split.json)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sweep_split: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    paths = build(os.path.join(cuda_build.BUILD_DIR, "sweep_split"))
-    result = {"card": card, "shapes": {}}
-    for t, b, h in SHAPES:
-        ms = {name: time_variant(path, t, b, h) for name, path in paths.items()}
-        us = {name: v / t * 1e3 for name, v in ms.items()}
-        split = {
-            "grid barrier": us["full"] - us["no_grid"],
-            "dgates staging": us["full"] - us["no_stage"],
-            "product": us["full"] - us["no_product"],
-            "gate gradients, stores, next loads, reduction": us["elementwise"],
-        }
-        grid = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
-                        rnn_cuda.sweep_grid(t, b, 2, h, torch.device("cuda", torch.cuda.current_device()))))
-        result["shapes"][f"T{t}_B{b}_H{h}"] = {"ms": ms, "us_per_step": us, "split_us": split, "grid": grid}
-        print(f"{card}: sweep T={t} B={b} H={h} grid {grid}: "
-              + "; ".join(f"{n} {v:.3f} ms ({us[n]:.2f} us/step)" for n, v in ms.items()), flush=True)
-        print("  split (us a step): " + "; ".join(f"{k} {v:.2f}" for k, v in split.items()), flush=True)
+    sweeps = (args.sweep,) if args.sweep else tuple(SWEEPS)
+    paths = build(os.path.join(cuda_build.BUILD_DIR, "sweep_split"), sweeps)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    result = {"card": card, "shapes": {}, "forward": {}}
+    for sweep in sweeps:
+        for t, b, h in SHAPES:
+            ms = {name: time_variant(sweep, path, t, b, h) for name, path in paths[sweep].items()}
+            us = {name: v / t * 1e3 for name, v in ms.items()}
+            split = _split(sweep, us)
+            if sweep == "backward":
+                plan = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"), rnn_cuda.sweep_grid(t, b, 2, h, dev)))
+            else:
+                plan = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
+                                rnn_cuda.fwd_plan(b, 2, h, dev)))
+            entry = {"ms": ms, "us_per_step": us, "split_us": split, "grid" if sweep == "backward" else "plan": plan}
+            (result["shapes"] if sweep == "backward" else result["forward"])[f"T{t}_B{b}_H{h}"] = entry
+            print(f"{card}: {sweep} sweep T={t} B={b} H={h} plan {plan}: "
+                  + "; ".join(f"{n} {v:.3f} ms ({us[n]:.2f} us/step)" for n, v in ms.items()), flush=True)
+            print("  split (us a step): " + "; ".join(f"{k} {v:.2f}" for k, v in split.items()), flush=True)
     out = args.out or os.path.join(cuda_build.BUILD_DIR, "sweep_split.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:

@@ -1,214 +1,318 @@
-// Bidirectional masked LSTM layer, forward, with x @ Wx inside.
+// Masked LSTM layer, forward: the recurrence over precomputed input
+// projections, and the fused layer's input projection.
 //
-// Replaces the forward of the TPU kernel e2e_asr_tpu/ops/rnn_pallas.py
-// lstm_seq_fused (_fused_fwd_call / _fused_fwd_kernel). Same contract:
-// x [T, B, D] is shared by both directions; rows [0, B) run forward in
-// original time, rows [B, 2B) run the backward direction in kernel time
-// (kernel step k reads original time T-1-k); gates = x_t @ Wx + h @ Wh + b
-// in i,f,g,o order; zero initial state; where mask = 0 the h/c carries
-// freeze and the output row is zero. Output ys [T, 2B, H]. The inference
-// variant writes nothing else; the training variant (TRAIN) also writes,
-// per step, the residuals the TPU forward streams out for its backward
-// (rnn_pallas.py _fused_fwd_kernel c_ref / acts_ref): the frozen c carry
-// c_out [T, 2B, H] and the gate activations acts [T, 2B, 4H] (i, f, g, o),
-// read by csrc/lstm_bidir_bwd.cu.
+// Replaces the forward of two TPU kernels of e2e_asr_tpu/ops/rnn_pallas.py:
+// - lstm_seq (_lstm_seq_fwd_call / _fwd_kernel): xw [T, R, 4H] = x Wx + b
+//   computed by the caller for R = Dirs * B rows already in kernel time
+//   (direction d owns rows [dB, (d+1)B) and wh[d]), mask [T, R] per row;
+// - lstm_seq_fused (_fused_fwd_call / _fused_fwd_kernel): x [T, B, D] shared
+//   by both directions, mask [T, B] in original time; rows [0, B) run forward
+//   in original time, rows [B, 2B) the backward direction in kernel time
+//   (kernel step k reads original time T-1-k). The TPU kernel computes x Wx
+//   + b in its own body; here this file's projection writes it for the whole
+//   sequence into an xw scratch [T, 2B, 4H] in kernel time (the backward
+//   direction flipped by the output row map), and the same sweep runs over it.
+// Same contract for both: gates = xw_t + h Wh in i,f,g,o order, zero initial
+// state; where mask = 0 the h and c carries freeze and the output row is
+// zero. Output ys [T, R, H]; the training variant also writes, per step, the
+// residuals read by csrc/lstm_bidir_bwd.cu: the c carry c_out [T, R, H] and
+// the gate activations acts [T, R, 4H] (i, f, g, o), in the layout of ys.
 //
-// What bounds it on the H100: the recurrence. Every step must finish
-// h_{t-1} @ Wh before the next starts, and 2B rows (32 at decode B=16)
-// give little parallel work per step: (D + H) * 4H FMAs per row. On one SM
-// per row a step takes tens of microseconds (the direction's Wh, 1.6 MB at
-// H=320, streams from L2 through one SM), far from the card's FLOP and HBM
-// bounds.
-// Design: each row (one direction of one utterance; no grid-wide sync
-// needed) has its hidden units split over a thread-block cluster of CL
-// blocks: block q owns units [q*H/CL, (q+1)*H/CL) and their four gate
-// columns, so each block streams 1/CL of Wh and Wx per step. Each block computes its gate columns' partial
-// products (KS threads per column split the reduction), updates c for its
-// units in registers, and writes its slice of h_t into every block of the
-// cluster through distributed shared memory; one cluster barrier per step
-// publishes h_t (h is double-buffered, so no second barrier is needed).
-// The input projection is done for TS steps at once from a shared-memory
-// tile of x, so each Wx element read from L2 feeds TS FMAs. Tensor-core
-// products are later work.
+// What bounds it on the H100. The sweep: latency. Every step needs all of
+// h_{t-1} before h_{t-1} Wh, and R rows (32 in the flagship, 64 in the
+// convergence recipe) give little work a step: 8 H^2 flops a row. A design
+// that reads Wh from L2 on every step (each row a cluster of 8 blocks, each
+// block its 4H/8 gate columns: 205 KB a block a step at H = 320) is bound by
+// L2 bandwidth instead. The projection: the tensor cores' TF32 rate (~21
+// GFLOP at the flagship's first layer, three products a tile).
 //
-// The same kernel, with the projection taken out (XW), replaces the forward
-// of the TPU kernel rnn_pallas.py lstm_seq (_lstm_seq_fwd_call /
-// _fwd_kernel): xw [T, R, 4H] = x @ Wx + b is computed by the caller for
-// R = Dirs * B rows already in kernel time (direction d owns rows
-// [dB, (d+1)B) and wh[d]), mask [T, R] is per row, and a block reads its
-// gate columns of xw for TS steps into the tile the projection would have
-// filled. That variant is bound by bytes, not by the recurrence, once T*R is
-// large: xw alone is 214 MB at T=816, R=64, H=256, read once.
+// Design, the sweep: one persistent cooperative grid, a block for each
+// (direction, 16 hidden units, group of 8 NT rows). The block's 64 gate
+// columns of Wh (its units' i, f, g, o) stay in shared memory for the whole
+// launch, stored in the mma's fragment order (read from L2 where they do not
+// fit). A step: the product h_{t-1} [rows x H] Wh [H x 64] on the tensor
+// cores (mma m16n8k8, one m16 tile a gate, rows as N, three TF32 products a
+// tile: float32 accuracy), each warp taking one gate and every other
+// 16-wide K chunk, its partial tiles summed in a fixed order; the cell
+// update of the block's (unit, row) pairs with c and h kept in registers and
+// the step's xw and mask loaded during the last step's barrier; the stores
+// of ys (c_out and acts); h_t published through a global double buffer (L2),
+// one grid barrier a step, and the next step's rows of h staged into shared
+// memory with cp.async. The plan (rows a block, weights resident or not)
+// comes from e2e_lstm_fwd_plan: the grid must be resident,
+// or the plan has none and the wrapper raises. (One cluster of up to 16
+// blocks per (direction, row group), h pushed through distributed shared
+// memory with a cluster barrier a step, measured no faster: PERF.md.)
+//
+// Design, the projection: the GEMM of csrc/gemm_tf32.cuh, both directions in
+// one launch, x's rows read through a plain map, the bias added and the rows
+// placed in kernel time by the epilogue's row map, each k8 step's products
+// summed apart (STEP_SUMS: K = D is up to 1280 here).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gemm_tf32.cuh"
+#include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CL = 8;  // blocks per cluster: a row's hidden units split CL ways
-constexpr int TS = 8;  // time steps per input-projection tile
-constexpr int KS = 2;  // threads per gate column (reduction split)
+constexpr int SMEM_MAX = 232448 - 1024;  // a block's shared memory on the H100, less a margin
+constexpr int FW_US = 16;                // hidden units a block (one m16 tile a gate)
+constexpr int FW_KSPLIT = 2;             // warps a gate, each taking every other K chunk
+constexpr int FW_NT = 32 * 4 * FW_KSPLIT;  // threads a block
 
 __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf(-x)); }
 
-// launch bounds: H up to 1024 gives up to 1024 threads, so at most 64 registers
-// XW: x holds xw [T, R, 4H] and mask is [T, R] (lstm_seq); wx and bias unused
-template <bool TRAIN, bool XW>
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(1024)
-lstm_bidir_fwd_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-                      const float* __restrict__ wx, const float* __restrict__ wh,
-                      const float* __restrict__ bias, float* __restrict__ ys,
-                      float* __restrict__ c_out, float* __restrict__ acts,
-                      int T, int B, int D, int H) {
-  const int R = gridDim.x / CL;  // rows of a time step: directions * B
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int cid = blockIdx.x / CL;
-  const int dir = cid / B;
-  const int row = cid % B;
-  const int G = 4 * H;
-  const int Hc = H / CL;   // hidden units owned by this block
-  const int NC = 4 * Hc;   // gate columns owned by this block
-  const int u0 = rank * Hc;
+__host__ __device__ inline int fw_kp(int H) { return cdiv(H, 16) * 16; }  // K in whole 16-wide chunks
+__host__ __device__ inline int fw_ldh(int H) { return fw_kp(H) | 16; }    // 16-byte h loads conflict-free
 
-  extern __shared__ float smem[];
-  float* x_s = smem;               // [TS][D]
-  float* h_s = x_s + TS * D;       // [2][H], double-buffered h
-  float* xw_s = h_s + 2 * H;       // [TS][NC] projections + bias
-  float* part = xw_s + TS * NC;    // [KS][TS][NC] split partial sums
+// floats of shared memory: the resident Wh columns (none where w_smem is
+// 0), h of the block's rows, the warps' partial tiles
+__host__ __device__ inline int fw_smem_floats(int H, int nt, int w_smem) {
+  return (w_smem ? 64 * fw_kp(H) : 0) + 8 * nt * fw_ldh(H) + 4 * FW_KSPLIT * nt * 128;
+}
 
-  const int tid = threadIdx.x;
-  const bool active = tid < KS * NC;
-  const int col = tid % NC;
-  const int split = tid / NC;
-  const int gcol = (col / Hc) * H + u0 + col % Hc;  // gate column in [0, 4H)
-  const float* wxd = XW ? nullptr : wx + (long)dir * D * G + gcol;
-  const float* whd = wh + (long)dir * H * G + gcol;
-  const float* bd = XW ? nullptr : bias + (long)dir * G;
+struct FwdArgs {
+  const float *xw, *mask, *wh;
+  float *ys, *c_out, *acts, *hbuf;
+  int T, B, H, dirs, row_mask, train;
+  int slices, nrg, w_smem;
+};
 
-  // cell owner: thread tid < Hc updates unit u0 + tid
-  const bool owner = tid < Hc;
-  const int ou = owner ? tid : 0;
-  float c = 0.0f;
+// four consecutive rows k0 .. k0+3 of Wh column col (zero where col < 0 or
+// k0 >= H; H is a multiple of 8, k0 of 4)
+__device__ __forceinline__ float4 wh_col4(const float* whd, int G, int H, int col, int k0) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (col >= 0 && k0 < H) {
+    const float* p = whd + (long)k0 * G + col;
+    v = make_float4(__ldg(p), __ldg(p + G), __ldg(p + 2 * G), __ldg(p + 3 * G));
+  }
+  return v;
+}
 
-  for (int i = tid; i < 2 * H; i += blockDim.x) h_s[i] = 0.0f;
-  cluster.sync();  // every block's h buffers are zero before any remote write
-
-  for (int k0 = 0; k0 < T; k0 += TS) {
-    const int nsteps = min(TS, T - k0);
-    __syncthreads();
-    if (XW) {
-      // the tile of precomputed projections: this block's gate columns
-      for (int idx = tid; idx < nsteps * NC; idx += blockDim.x) {
-        const int s = idx / NC, cc = idx % NC;
-        xw_s[idx] = x[((long)(k0 + s) * R + cid) * G + (cc / Hc) * H + u0 + cc % Hc];
-      }
-    } else {
-      for (int idx = tid; idx < TS * D; idx += blockDim.x) {
-        const int s = idx / D;
-        const int d = idx % D;
-        float v = 0.0f;
-        if (s < nsteps) {
-          const int k = k0 + s;
-          const int t = dir == 0 ? k : T - 1 - k;
-          v = x[((long)t * B + row) * D + d];
-        }
-        x_s[idx] = v;
-      }
-      __syncthreads();
-
-      // input projection of this tile: split partials over d, then reduce
-      if (active) {
-        float acc[TS];
+// the step's inputs of the thread's (unit, row) pairs: pair p = tid + FW_NT i
+// owns unit p % 16 and row p / 16 of the block's group
+template <int NT>
+__device__ __forceinline__ void load_step(const FwdArgs& a, int k, int dir, int u0, int nu, int b0,
+                                          int nb, int tid, float (&xv)[NT][4], float (&mk)[NT]) {
+  const int R = a.dirs * a.B, G = 4 * a.H;
+  const int t = dir == 0 ? k : a.T - 1 - k;
 #pragma unroll
-        for (int s = 0; s < TS; ++s) acc[s] = 0.0f;
-#pragma unroll 4
-        for (int d = split; d < D; d += KS) {
-          const float w = __ldg(wxd + (long)d * G);
-#pragma unroll
-          for (int s = 0; s < TS; ++s) acc[s] = fmaf(x_s[s * D + d], w, acc[s]);
-        }
-#pragma unroll
-        for (int s = 0; s < TS; ++s) part[(split * TS + s) * NC + col] = acc[s];
-      }
-      __syncthreads();
-      for (int idx = tid; idx < TS * NC; idx += blockDim.x) {
-        const int cc = idx % NC;
-        float v = bd[(cc / Hc) * H + u0 + cc % Hc];
-#pragma unroll
-        for (int sp = 0; sp < KS; ++sp) v += part[sp * TS * NC + idx];
-        xw_s[idx] = v;
-      }
-    }
-    __syncthreads();
-
-    for (int s = 0; s < nsteps; ++s) {
-      const int k = k0 + s;
-      const int t = dir == 0 ? k : T - 1 - k;
-      const float* hc = h_s + (k & 1) * H;
-      float* hn = h_s + ((k + 1) & 1) * H;
-      if (active) {
-        float gs = 0.0f;
-#pragma unroll 8
-        for (int kk = split; kk < H; kk += KS) gs = fmaf(hc[kk], __ldg(whd + (long)kk * G), gs);
-        part[split * NC + col] = gs;
-      }
-      __syncthreads();
-      if (owner) {
-        float pre[4];
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const int cc = g * Hc + ou;
-          float v = xw_s[s * NC + cc];
-#pragma unroll
-          for (int sp = 0; sp < KS; ++sp) v += part[sp * NC + cc];
-          pre[g] = v;
-        }
-        const float ig = sigmoidf_(pre[0]);
-        const float fg = sigmoidf_(pre[1]);
-        const float gg = tanhf(pre[2]);
-        const float og = sigmoidf_(pre[3]);
-        const float c2 = fg * c + ig * gg;
-        const float h2 = og * tanhf(c2);
-        const bool m = (XW ? mask[(long)k * R + cid] : mask[(long)t * B + row]) > 0.0f;
-        const int hi = u0 + ou;
-        const float hv = m ? h2 : hc[hi];
-        if (m) c = c2;
-        const long r = (long)k * R + cid;
-        ys[r * H + hi] = m ? h2 : 0.0f;
-        if (TRAIN) {
-          c_out[r * H + hi] = c;
-          float* a = acts + r * G + hi;
-          a[0] = ig;
-          a[H] = fg;
-          a[2 * H] = gg;
-          a[3 * H] = og;
-        }
-#pragma unroll
-        for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(hn + hi, q) = hv;
-      }
-      cluster.sync();  // h_t is in every block; h_{t-1} and part are free again
+  for (int i = 0; i < NT; ++i) {
+    const int p = tid + FW_NT * i, ul = p % FW_US, rl = p / FW_US;
+    if (ul < nu && rl < nb) {
+      const int r = dir * a.B + b0 + rl;
+      const float* x = a.xw + ((long)k * R + r) * G + u0 + ul;
+      xv[i][0] = x[0];
+      xv[i][1] = x[a.H];
+      xv[i][2] = x[2 * a.H];
+      xv[i][3] = x[3 * a.H];
+      mk[i] = a.row_mask ? a.mask[(long)k * R + r] : a.mask[(long)t * a.B + b0 + rl];
     }
   }
 }
 
-template <bool TRAIN, bool XW>
-int launch(const float* x, const float* mask, const float* wx, const float* wh, const float* b,
-           float* ys, float* c_out, float* acts, int T, int B, int dirs, int D, int H,
-           cudaStream_t stream) {
-  if (H % CL != 0 || KS * 4 * (H / CL) > 1024 || dirs < 1 || B < 1) return (int)cudaErrorInvalidValue;
-  const int nc = 4 * (H / CL);
-  const size_t smem = sizeof(float) * ((size_t)TS * D + 2 * (size_t)H + (size_t)TS * nc +
-                                       (size_t)KS * TS * nc);
-  cudaError_t e = cudaFuncSetAttribute(lstm_bidir_fwd_kernel<TRAIN, XW>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// NT n8 tiles of rows a block
+template <int NT>
+__global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
+  constexpr int NA = NT >= 4 ? 1 : 2;  // accumulator sets a tile (the two mma steps of a chunk)
+  cg::grid_group grid = cg::this_grid();
+  const int T = a.T, B = a.B, H = a.H, G = 4 * H, R = a.dirs * B;
+  const int KC = fw_kp(H) / 16, LDH = fw_ldh(H);
+  const int slice = blockIdx.x % a.slices;
+  const int rg = (blockIdx.x / a.slices) % a.nrg;
+  const int dir = blockIdx.x / (a.slices * a.nrg);
+  const int u0 = slice * FW_US, nu = min(FW_US, H - u0);
+  const int b0 = rg * 8 * NT, nb = min(8 * NT, B - b0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
+  const int gate = warp % 4, kh = warp / 4;  // the warp's gate (m16 tile) and K chunks kh, kh + FW_KSPLIT, ...
+
+  extern __shared__ __align__(16) float smem[];
+  float* whs = smem;                                 // [KC][4][2][32][4] (w_smem)
+  float* hs = smem + (a.w_smem ? 64 * fw_kp(H) : 0);  // [8 NT][LDH]
+  float* red = hs + 8 * NT * LDH;                    // [warps][NT][16][8]
+  const float* whd = a.wh + (long)dir * H * G;
+
+  // the block's columns of Wh (column m: gate m / 16, unit u0 + m % 16; none
+  // past nu) in fragment order: chunk c, gate j, half hf, lane (g, q) holds
+  // rows 16c + 4q .. +3 of column 16j + 8hf + g
+  if (a.w_smem) {
+    const int kp = fw_kp(H);
+    for (int i = tid; i < kp * 64; i += FW_NT) {
+      const int k = i / 64, m = i % 64, ul = m % 16;
+      const float v = k < H && ul < nu ? whd[(long)k * G + (m / 16) * H + u0 + ul] : 0.0f;
+      const int kk = k % 16;
+      whs[((((k / 16) * 4 + m / 16) * 2 + ul / 8) * 32 + (ul % 8) * 4 + kk / 4) * 4 + kk % 4] = v;
+    }
+  }
+  for (int i = tid; i < 8 * NT * LDH; i += FW_NT) hs[i] = 0.0f;  // h_{-1} = 0, padding 0
+  const int col0 = g < nu ? gate * H + u0 + g : -1;           // the warp's columns of A (w_smem = 0)
+  const int col1 = g + 8 < nu ? gate * H + u0 + g + 8 : -1;
+
+  float c[NT], hcar[NT], xv[NT][4], mk[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) c[i] = hcar[i] = 0.0f;
+  load_step<NT>(a, 0, dir, u0, nu, b0, nb, tid, xv, mk);
+  __syncthreads();
+
+  for (int k = 0; k < T; ++k) {
+    if (k > 0) {  // h_{k-1} of the group's rows from L2
+      const float* src = a.hbuf + ((long)(k & 1) * R + dir * B + b0) * H;
+      for (int i = tid; i < nb * (H / 4); i += FW_NT) {
+        const int rl = i / (H / 4), c4 = (i % (H / 4)) * 4;
+        cp_async16(hs + rl * LDH + c4, src + (long)rl * H + c4);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+    }
+
+    // h_{k-1} Wh for the block's columns: the warp's gate over its chunks
+    float acc[NT][3 * NA][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 3 * NA; ++e) acc[n][e][0] = acc[n][e][1] = acc[n][e][2] = acc[n][e][3] = 0.0f;
+    for (int cc = kh; cc < KC; cc += FW_KSPLIT) {
+      float4 w0, w1;
+      if (a.w_smem) {
+        const float* wp = whs + ((cc * 4 + gate) * 2 * 32 + lane) * 4;
+        w0 = *reinterpret_cast<const float4*>(wp);
+        w1 = *reinterpret_cast<const float4*>(wp + 128);
+      } else {
+        w0 = wh_col4(whd, G, H, col0, 16 * cc + 4 * q);
+        w1 = wh_col4(whd, G, H, col1, 16 * cc + 4 * q);
+      }
+      // the chunk's two mma steps: k index t of step s is row 16cc + 4t + s
+      // of Wh in a's column (and of h in b's row), so that each operand is
+      // one 16-byte load
+      uint32_t ah[2][4], al[2][4];
+      const float afr[2][4] = {{w0.x, w1.x, w0.y, w1.y}, {w0.z, w1.z, w0.w, w1.w}};
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(afr[s][e], ah[s][e], al[s][e]);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float4 hv = *reinterpret_cast<const float4*>(hs + (n * 8 + g) * LDH + 16 * cc + 4 * q);
+        const float bfr[2][2] = {{hv.x, hv.y}, {hv.z, hv.w}};
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          uint32_t bh[2], bl[2];
+          tf32_split(bfr[s][0], bh[0], bl[0]);
+          tf32_split(bfr[s][1], bh[1], bl[1]);
+          mma_tf32(acc[n][3 * (s % NA)], al[s], bh);
+          mma_tf32(acc[n][3 * (s % NA) + 1], ah[s], bl);
+          mma_tf32(acc[n][3 * (s % NA) + 2], ah[s], bh);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = (acc[n][0][e] + acc[n][1][e]) + acc[n][2][e];
+        if constexpr (NA == 2) v[e] += (acc[n][3][e] + acc[n][4][e]) + acc[n][5][e];
+      }
+      float* rp = red + (warp * NT + n) * 128;
+      rp[g * 8 + 2 * q] = v[0];
+      rp[g * 8 + 2 * q + 1] = v[1];
+      rp[(g + 8) * 8 + 2 * q] = v[2];
+      rp[(g + 8) * 8 + 2 * q + 1] = v[3];
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {  // cell update and stores
+      const int p = tid + FW_NT * i, ul = p % FW_US, rl = p / FW_US;
+      if (!(ul < nu && rl < nb)) continue;
+      float pre[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = 0.0f;
+#pragma unroll
+        for (int s = 0; s < FW_KSPLIT; ++s) v += red[((s * 4 + j) * NT + rl / 8) * 128 + ul * 8 + rl % 8];
+        pre[j] = xv[i][j] + v;
+      }
+      const float ig = sigmoidf_(pre[0]);
+      const float fg = sigmoidf_(pre[1]);
+      const float gg = tanhf(pre[2]);
+      const float og = sigmoidf_(pre[3]);
+      const float c2 = fg * c[i] + ig * gg;
+      const float h2 = og * tanhf(c2);
+      const bool m = mk[i] > 0.0f;
+      if (m) {
+        c[i] = c2;
+        hcar[i] = h2;
+      }
+      const long r = (long)k * R + dir * B + b0 + rl;
+      const int u = u0 + ul;
+      a.ys[r * H + u] = m ? h2 : 0.0f;
+      if (a.train) {
+        a.c_out[r * H + u] = c[i];
+        float* ac = a.acts + r * G + u;
+        ac[0] = ig;
+        ac[H] = fg;
+        ac[2 * H] = gg;
+        ac[3 * H] = og;
+      }
+    }
+    if (k + 1 == T) break;
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {  // publish h_k
+      const int p = tid + FW_NT * i, ul = p % FW_US, rl = p / FW_US;
+      if (ul < nu && rl < nb)
+        a.hbuf[((long)((k + 1) & 1) * R + dir * B + b0 + rl) * H + u0 + ul] = hcar[i];
+    }
+    load_step<NT>(a, k + 1, dir, u0, nu, b0, nb, tid, xv, mk);
+    grid.sync();  // h_k is in hbuf; hs and red are free again
+  }
+}
+
+const void* sweep_kernel(int nt) {
+  return nt == 1 ? (const void*)lstm_fwd_sweep_kernel<1>
+         : nt == 2 ? (const void*)lstm_fwd_sweep_kernel<2>
+                   : (const void*)lstm_fwd_sweep_kernel<4>;
+}
+
+// out = [n8 tiles of rows a block (-1: no grid can be resident), Wh
+// resident in shared memory (1; 0: read from L2), shared memory bytes a
+// block, blocks]: the first of (w_smem = 1, 0) x (nt = 1, 2, 4) whose grid
+// is resident at once
+int fwd_plan(int B, int dirs, int H, int* out) {
+  int dev = 0, nsm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const int threads = ((KS * nc + 31) / 32) * 32;  // KS * nc >= H / CL cell owners
-  lstm_bidir_fwd_kernel<TRAIN, XW><<<dirs * B * CL, threads, smem, stream>>>(
-      x, mask, wx, wh, b, ys, c_out, acts, T, B, D, H);
-  return (int)cudaGetLastError();
+  out[0] = -1;
+  for (int w_smem = 1; w_smem >= 0; --w_smem) {
+    for (int nt = 1; nt <= 4; nt *= 2) {
+      const int smem = 4 * fw_smem_floats(H, nt, w_smem);
+      if (smem > SMEM_MAX) continue;
+      e = cudaFuncSetAttribute(sweep_kernel(nt), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      int per_sm = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel(nt), FW_NT, smem);
+      if (e != cudaSuccess) return (int)e;
+      const int nb = dirs * cdiv(H, FW_US) * cdiv(B, 8 * nt);
+      if (nb <= per_sm * nsm) {
+        out[0] = nt;
+        out[1] = w_smem;
+        out[2] = smem;
+        out[3] = nb;
+        return 0;
+      }
+    }
+  }
+  return 0;
+}
+
+bool fwd_shape_ok(int B, int dirs, int H) {
+  return H % 8 == 0 && H >= 8 && H <= 1024 && dirs >= 1 && dirs <= 2 && B >= 1;
 }
 
 }  // namespace
@@ -217,35 +321,60 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// x [T, B, D], mask [T, B], wx [2, D, 4H], wh [2, H, 4H], b [2, 4H]
-// -> ys [T, 2B, H]; all f32, contiguous. H is a multiple of 8 and at most
-// 1024.
-extern "C" int e2e_lstm_bidir_fwd(const float* x, const float* mask, const float* wx,
-                                  const float* wh, const float* b, float* ys, int T, int B,
-                                  int D, int H, void* stream) {
-  return launch<false, false>(x, mask, wx, wh, b, ys, nullptr, nullptr, T, B, 2, D, H,
-                              (cudaStream_t)stream);
+// The sweep's plan for R = dirs * B rows of H units: out as fwd_plan
+// above (out[0] = -1 where no grid can be resident).
+extern "C" int e2e_lstm_fwd_plan(int B, int dirs, int H, int* out, void* stream) {
+  (void)stream;
+  if (!fwd_shape_ok(B, dirs, H)) return (int)cudaErrorInvalidValue;
+  return fwd_plan(B, dirs, H, out);
 }
 
-// The training variant: as above, plus c_out [T, 2B, H] (the c carry after
-// each step, frozen where mask = 0) and acts [T, 2B, 4H] (the gate
-// activations of each step), both in the layout of ys.
-extern "C" int e2e_lstm_bidir_fwd_train(const float* x, const float* mask, const float* wx,
-                                        const float* wh, const float* b, float* ys, float* c_out,
-                                        float* acts, int T, int B, int D, int H, void* stream) {
-  return launch<true, false>(x, mask, wx, wh, b, ys, c_out, acts, T, B, 2, D, H,
-                             (cudaStream_t)stream);
+// The recurrence over xw [T, dirs B, 4H] (rows in kernel time) -> ys
+// [T, dirs B, H]; with train != 0 also c_out [T, dirs B, H] and acts
+// [T, dirs B, 4H]. mask [T, B] in original time (row_mask 0, the fused
+// layer: dirs = 2) or [T, dirs B] in kernel time (row_mask 1); wh
+// [dirs, H, 4H]; hbuf [2, dirs B, H] scratch; nt, w_smem and smem from the
+// plan. One cooperative launch (a grid barrier a step): it fails
+// where the grid cannot be resident.
+extern "C" int e2e_lstm_fwd_sweep(const float* xw, const float* mask, const float* wh, float* ys,
+                                  float* c_out, float* acts, float* hbuf, int T, int B, int dirs, int H,
+                                  int row_mask, int train, int nt, int w_smem, int smem, void* stream) {
+  if (!fwd_shape_ok(B, dirs, H) || T < 1 || (nt != 1 && nt != 2 && nt != 4) || w_smem < 0 || w_smem > 1 ||
+      smem != 4 * fw_smem_floats(H, nt, w_smem) || smem > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(sweep_kernel(nt), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  FwdArgs a{xw, mask, wh, ys, c_out, acts, hbuf, T, B, H, dirs, row_mask, train,
+            cdiv(H, FW_US), cdiv(B, 8 * nt), w_smem};
+  void* params[] = {&a};
+  const int nb = dirs * a.nrg * a.slices;
+  return (int)cudaLaunchCooperativeKernel(sweep_kernel(nt), dim3(nb), dim3(FW_NT), params,
+                                          (size_t)smem, (cudaStream_t)stream);
 }
 
-// lstm_seq: xw [T, R, 4H] (projections + bias, rows in kernel time), mask
-// [T, R], wh [Dirs, H, 4H], R = Dirs * B -> ys [T, R, H]; with train != 0
-// also c_out [T, R, H] and acts [T, R, 4H] as above.
-extern "C" int e2e_lstm_seq_fwd(const float* xw, const float* mask, const float* wh, float* ys,
-                                float* c_out, float* acts, int T, int B, int dirs, int H,
-                                int train, void* stream) {
-  if (train)
-    return launch<true, true>(xw, mask, nullptr, wh, nullptr, ys, c_out, acts, T, B, dirs, 0, H,
-                              (cudaStream_t)stream);
-  return launch<false, true>(xw, mask, nullptr, wh, nullptr, ys, nullptr, nullptr, T, B, dirs, 0,
-                             H, (cudaStream_t)stream);
+// The fused layer's input projection: x [T, B, D], wx [2, D, 4H], b [2, 4H]
+// -> xw [T, 2B, 4H] = x wx[d] + b[d] for direction d's rows [dB, (d+1)B),
+// in kernel time (direction 1 flipped over T).
+extern "C" int e2e_lstm_bidir_projection(const float* x, const float* wx, const float* b, float* xw,
+                                         int T, int B, int D, int H, void* stream) {
+  if (H % 8 != 0 || H > 1024 || D < 1 || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  const long long G = 4LL * H, R = 2LL * B;
+  GemmArgs ga{};
+  for (int d = 0; d < 2; ++d) {
+    ga.pr[d].a[0] = {x, plain_rows(D)};
+    ga.pr[d].b[0] = {wx + (long long)d * D * G, plain_rows(G)};
+    ga.pr[d].c = xw;
+    ga.pr[d].bias = b + (long long)d * G;
+  }
+  // row (t, b) of x: kernel time t for direction 0, T-1-t for direction 1
+  ga.pr[0].crow = row_map(0, B, R * G, G);
+  ga.pr[1].crow = row_map(((long long)(T - 1) * R + B) * G, B, -R * G, G);
+  ga.ws = nullptr;
+  ga.M = T * B;
+  ga.N = (int)G;
+  ga.K = D;
+  ga.seg_len = D;
+  ga.splits = 1;
+  ga.kchunk = cdiv(D, GK);
+  return gemm(ga, 2, true, false, D % 4 == 0 && aligned16(x) && aligned16(wx), true, (cudaStream_t)stream);
 }

@@ -50,11 +50,11 @@
 // be resident, or the launch fails and the wrapper raises. (A barrier among
 // each group's blocks alone, per-block step counts that the group polls,
 // measured slower than the grid barrier.)
-// Design, the products: one tensor-core GEMM kernel (128 x 64 x 32 tiles,
-// 8 warps of 32 x 32, three-stage 16-byte cp.async pipeline, three TF32
+// Design, the products: the tensor-core GEMM of csrc/gemm_tf32.cuh (shared
+// with the forward's input projection; 128 x 64 x 32 tiles, three TF32
 // products a tile) whose operands are rows addressed through (time, batch)
 // maps, so the kernel-time backward rows and the h_prev shift need no
-// copies; each map's division by B is a multiply-high resolved on the host.
+// copies.
 // dx is one product over K = 2 x 4H (the two directions as two K segments);
 // dWx and dWh run both directions in one launch, split over K where the
 // tiles alone would not fill the card (the split picked by the wrapper),
@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gemm_tf32.cuh"
 #include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -79,7 +80,6 @@ constexpr int SW_NT = 256;  // threads a block
 constexpr int SW_NW = SW_NT / 32;
 constexpr int SW_US = 16;   // hidden units a block (one m16 tile)
 
-__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 __host__ __device__ inline int sw_stride(int G) { return G + 16; }  // 16-byte loads free of conflicts
 
 // floats of shared memory: the resident Wh rows (none where w_smem is 0:
@@ -285,248 +285,6 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
   }
 }
 
-// ------------------------------------------------------------- products
-constexpr int GM = 128, GN = 64, GK = 32, G_NT = 256, G_ST = 3;
-constexpr int LDO_A = GM + 8, LDO_B = GN + 8;  // k-outer tiles [GK][...]: fragment loads conflict-free
-constexpr int LDI = GK + 4;                    // k-inner tiles [...][GK]
-constexpr int G_STAGE = GK * LDO_A + GK * LDO_B > GM * LDI + GN * LDI ? GK * LDO_A + GK * LDO_B
-                                                                      : GM * LDI + GN * LDI;
-constexpr int G_SMEM = sizeof(float) * (G_ST * G_STAGE + 4 * GN);
-
-// offset of row i: base + (i / div) st + (i % div) sb, for 0 <= i < 2^31;
-// the division is a multiply-high and a shift (mul, shr from the host)
-struct RowMap {
-  long long base, st, sb;
-  unsigned div, mul, shr;
-  __device__ __forceinline__ long long operator()(int i) const {
-    const unsigned q = div == 1 ? (unsigned)i : __umulhi((unsigned)i, mul) >> shr;
-    return base + (long long)q * st + (long long)((unsigned)i - q * div) * sb;
-  }
-};
-
-RowMap row_map(long long base, int div, long long st, long long sb) {
-  RowMap m{base, st, sb, (unsigned)div, 0u, 0u};
-  if (div > 1) {
-    unsigned l = 0;
-    while ((1u << l) < (unsigned)div) ++l;  // ceil(log2 div)
-    const unsigned p = 31 + l;
-    m.mul = (unsigned)(((1ull << p) + (unsigned)div - 1) / (unsigned)div);
-    m.shr = p - 32;
-  }
-  return m;
-}
-
-RowMap plain_rows(long long stride) { return row_map(0, 1, stride, 0); }
-
-struct Operand {
-  const float* p;
-  RowMap rows;
-};
-
-struct GemmProblem {
-  Operand a[2], b[2];  // per K segment
-  float* c;            // [M, N]
-  float* ones;         // the columns of B summed over K (the bias gradient), or null
-};
-
-// C = A B over K = nseg x seg_len. KIN: A(m, k) at a.p + a.rows(m) + k and
-// B(k, n) at b.p + b.rows(n) + k (k contiguous); otherwise A(m, k) at
-// a.p + a.rows(k) + m and B(k, n) at b.p + b.rows(k) + n.
-struct GemmArgs {
-  GemmProblem pr[2];
-  float* ws;  // split partials [problem][split][M + 1][N]
-  int M, N, K, seg_len, splits, kchunk;
-};
-
-template <bool KIN, bool V4>
-__device__ __forceinline__ void load_tile(const GemmArgs& ga, const GemmProblem& pr, float* st,
-                                          int m0, int n0, int k0, int kend, int tid) {
-  const int seg = k0 / ga.seg_len;
-  const int kl0 = k0 - seg * ga.seg_len;  // k within the segment
-  const Operand& A = pr.a[seg];
-  const Operand& Bo = pr.b[seg];
-  float* As = st;
-  float* Bs = st + (KIN ? GM * LDI : GK * LDO_A);
-  constexpr int W = V4 ? 4 : 1;
-  // A: KIN [GM rows m][GK k], else [GK rows k][GM m]
-  constexpr int A_ROWS = KIN ? GM : GK, A_COLS = KIN ? GK : GM;
-  constexpr int B_ROWS = KIN ? GN : GK, B_COLS = KIN ? GK : GN;
-#pragma unroll
-  for (int i = tid; i < A_ROWS * A_COLS / W; i += G_NT) {
-    const int r = i / (A_COLS / W), cc = (i % (A_COLS / W)) * W;
-    int n_ok;
-    long long off = 0;
-    if (KIN) {
-      const int gm = m0 + r, k = k0 + cc;
-      n_ok = gm < ga.M ? min(max(kend - k, 0), W) : 0;
-      if (n_ok) off = A.rows(gm) + kl0 + cc;
-    } else {
-      const int k = k0 + r, gm = m0 + cc;
-      n_ok = k < kend ? min(max(ga.M - gm, 0), W) : 0;
-      if (n_ok) off = A.rows(kl0 + r) + gm;
-    }
-    float* dst = As + r * (KIN ? LDI : LDO_A) + cc;
-    if (V4) cp_async16_zfill(dst, A.p + off, 4 * n_ok);
-    else cp_async4_zfill(dst, A.p + off, 4 * n_ok);
-  }
-#pragma unroll
-  for (int i = tid; i < B_ROWS * B_COLS / W; i += G_NT) {
-    const int r = i / (B_COLS / W), cc = (i % (B_COLS / W)) * W;
-    int n_ok;
-    long long off = 0;
-    if (KIN) {
-      const int gn = n0 + r, k = k0 + cc;
-      n_ok = gn < ga.N ? min(max(kend - k, 0), W) : 0;
-      if (n_ok) off = Bo.rows(gn) + kl0 + cc;
-    } else {
-      const int k = k0 + r, gn = n0 + cc;
-      n_ok = k < kend ? min(max(ga.N - gn, 0), W) : 0;
-      if (n_ok) off = Bo.rows(kl0 + r) + gn;
-    }
-    float* dst = Bs + r * (KIN ? LDI : LDO_B) + cc;
-    if (V4) cp_async16_zfill(dst, Bo.p + off, 4 * n_ok);
-    else cp_async4_zfill(dst, Bo.p + off, 4 * n_ok);
-  }
-}
-
-template <bool KIN, bool V4>
-__global__ void __launch_bounds__(G_NT) gemm_tf32_kernel(GemmArgs ga) {
-  extern __shared__ __align__(16) float smem[];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
-  const int wm = warp % 4, wn = warp / 4;
-  const int n0 = blockIdx.x * GN, m0 = blockIdx.y * GM;
-  const int prob = blockIdx.z / ga.splits, split = blockIdx.z % ga.splits;
-  const GemmProblem& pr = ga.pr[prob];
-  const int ktiles = cdiv(ga.K, GK);
-  const int kt0 = split * ga.kchunk, kt1 = min(ktiles, kt0 + ga.kchunk);
-  const int kend = ga.K;
-  const bool sums = !KIN && pr.ones != nullptr && blockIdx.y == 0;
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-  float colsum = 0.0f;
-
-#pragma unroll
-  for (int s = 0; s < G_ST - 1; ++s) {
-    if (kt0 + s < kt1) load_tile<KIN, V4>(ga, pr, smem + s * G_STAGE, m0, n0, (kt0 + s) * GK, kend, tid);
-    cp_async_commit();
-  }
-  for (int kt = kt0; kt < kt1; ++kt) {
-    cp_async_wait<G_ST - 2>();
-    __syncthreads();  // tile kt is in; every warp is done with tile kt - 1
-    const int nk = kt + G_ST - 1;
-    if (nk < kt1) load_tile<KIN, V4>(ga, pr, smem + ((nk - kt0) % G_ST) * G_STAGE, m0, n0, nk * GK, kend, tid);
-    cp_async_commit();
-    const float* As = smem + ((kt - kt0) % G_ST) * G_STAGE;
-    const float* Bs = As + (KIN ? GM * LDI : GK * LDO_A);
-#pragma unroll
-    for (int kq = 0; kq < GK / 8; ++kq) {
-      uint32_t ah[2][4], al[2][4], bh[4][2], bl[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int rm = wm * 32 + mi * 16 + g, kc = kq * 8 + q;
-        const float v[4] = {
-            KIN ? As[rm * LDI + kc] : As[kc * LDO_A + rm],
-            KIN ? As[(rm + 8) * LDI + kc] : As[kc * LDO_A + rm + 8],
-            KIN ? As[rm * LDI + kc + 4] : As[(kc + 4) * LDO_A + rm],
-            KIN ? As[(rm + 8) * LDI + kc + 4] : As[(kc + 4) * LDO_A + rm + 8]};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) tf32_split(v[e], ah[mi][e], al[mi][e]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int cn = wn * 32 + ni * 8 + g, kc = kq * 8 + q;
-        const float v[2] = {KIN ? Bs[cn * LDI + kc] : Bs[kc * LDO_B + cn],
-                            KIN ? Bs[cn * LDI + kc + 4] : Bs[(kc + 4) * LDO_B + cn]};
-#pragma unroll
-        for (int e = 0; e < 2; ++e) tf32_split(v[e], bh[ni][e], bl[ni][e]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          mma_tf32(acc[mi][ni], al[mi], bh[ni]);
-          mma_tf32(acc[mi][ni], ah[mi], bl[ni]);
-          mma_tf32(acc[mi][ni], ah[mi], bh[ni]);
-        }
-    }
-    if (sums) {
-      // thread: column tid % 64 over the tile's rows 8 (tid / 64) .. + 7
-      const int col = tid % GN, r0 = (tid / GN) * 8;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) colsum += Bs[(r0 + r) * LDO_B + col];
-    }
-  }
-  cp_async_wait_all();
-
-  const bool split_out = ga.splits > 1;
-  float* out = split_out ? ga.ws + (long)(prob * ga.splits + split) * (ga.M + 1) * ga.N : pr.c;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm * 32 + mi * 16 + g + (e >= 2 ? 8 : 0);
-        const int col = n0 + wn * 32 + ni * 8 + 2 * q + (e & 1);
-        if (row < ga.M && col < ga.N) out[(long)row * ga.N + col] = acc[mi][ni][e];
-      }
-  if (sums) {
-    float* part = smem + G_ST * G_STAGE;  // [4][GN]
-    __syncthreads();
-    part[(tid / GN) * GN + tid % GN] = colsum;
-    __syncthreads();
-    if (tid < GN && n0 + tid < ga.N) {
-      const float s = ((part[tid] + part[GN + tid]) + part[2 * GN + tid]) + part[3 * GN + tid];
-      float* ones = split_out ? out + (long)ga.M * ga.N : pr.ones;
-      ones[n0 + tid] = s;
-    }
-  }
-}
-
-// C (and the column sums) = the splits' partials summed in split order
-__global__ void split_sum_kernel(GemmArgs ga) {
-  const int prob = blockIdx.y;
-  const GemmProblem& pr = ga.pr[prob];
-  const long mn = (long)ga.M * ga.N;
-  const long n_out = mn + (pr.ones != nullptr ? ga.N : 0);
-  const float* ws = ga.ws + (long)prob * ga.splits * (ga.M + 1) * ga.N;
-  for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n_out; i += (long)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int sp = 0; sp < ga.splits; ++sp) s += ws[(long)sp * (ga.M + 1) * ga.N + i];
-    if (i < mn) pr.c[i] = s;
-    else pr.ones[i - mn] = s;
-  }
-}
-
-int gemm(GemmArgs& ga, int nprob, bool kin, bool v4, cudaStream_t stream) {
-  const dim3 grid(cdiv(ga.N, GN), cdiv(ga.M, GM), nprob * ga.splits);
-  const size_t smem = G_SMEM;
-  cudaError_t e;
-#define LAUNCH(KI, VV)                                                                         \
-  e = cudaFuncSetAttribute(gemm_tf32_kernel<KI, VV>, cudaFuncAttributeMaxDynamicSharedMemorySize, \
-                           (int)smem);                                                         \
-  if (e != cudaSuccess) return (int)e;                                                         \
-  gemm_tf32_kernel<KI, VV><<<grid, G_NT, smem, stream>>>(ga);
-  if (kin) {
-    if (v4) { LAUNCH(true, true) } else { LAUNCH(true, false) }
-  } else {
-    if (v4) { LAUNCH(false, true) } else { LAUNCH(false, false) }
-  }
-#undef LAUNCH
-  e = cudaGetLastError();
-  if (e != cudaSuccess || ga.splits == 1) return (int)e;
-  const long n_out = (long)(ga.M + 1) * ga.N;
-  const int blocks = (int)((n_out + 255) / 256 < 1024 ? (n_out + 255) / 256 : 1024);
-  split_sum_kernel<<<dim3(blocks, nprob), 256, 0, stream>>>(ga);
-  return (int)cudaGetLastError();
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 // dWh[d] = h_prev^T dg over kernel steps k >= 1 and direction d's rows:
 // h_prev = ys[k-1] (T = 1 gives a product over no rows: zeros)
 int dwh_products(const float* ys, const float* dg, float* dwh, float* ws, int T, int B, int dirs,
@@ -537,7 +295,7 @@ int dwh_products(const float* ys, const float* dg, float* dwh, float* ws, int T,
     ga.pr[d].a[0] = {ys, row_map((long long)d * B * H, B, R * H, H)};
     ga.pr[d].b[0] = {dg, row_map((R + (long long)d * B) * G, B, R * G, G)};
     ga.pr[d].c = dwh + (long long)d * H * G;
-    ga.pr[d].ones = nullptr;
+    ga.pr[d].crow = plain_rows(G);
   }
   ga.ws = ws;
   ga.M = H;
@@ -546,7 +304,7 @@ int dwh_products(const float* ys, const float* dg, float* dwh, float* ws, int T,
   ga.seg_len = ga.K > 0 ? ga.K : 1;
   ga.splits = splits;
   ga.kchunk = kchunk;
-  return gemm(ga, dirs, false, aligned16(ys) && aligned16(dg), stream);
+  return gemm(ga, dirs, false, false, aligned16(ys) && aligned16(dg), false, stream);
 }
 
 const void* sweep_kernel(int nt) {
@@ -651,7 +409,7 @@ extern "C" int e2e_lstm_bidir_bwd_products(const float* x, const float* wx, cons
   ga.pr[0].b[0] = {wx, plain_rows(G)};
   ga.pr[0].b[1] = {wx + (long long)D * G, plain_rows(G)};
   ga.pr[0].c = dx;
-  ga.pr[0].ones = nullptr;
+  ga.pr[0].crow = plain_rows(D);
   ga.ws = ws;
   ga.M = TB;
   ga.N = D;
@@ -659,7 +417,7 @@ extern "C" int e2e_lstm_bidir_bwd_products(const float* x, const float* wx, cons
   ga.seg_len = (int)G;
   ga.splits = 1;
   ga.kchunk = cdiv(ga.K, GK);
-  int err = gemm(ga, 1, true, aligned16(dg) && aligned16(wx), stream);
+  int err = gemm(ga, 1, true, true, aligned16(dg) && aligned16(wx), false, stream);
   if (err) return err;
 
   // dWx[d] = x^T dg_d over rows (k, b); direction 1's kernel step k reads x
@@ -670,6 +428,7 @@ extern "C" int e2e_lstm_bidir_bwd_products(const float* x, const float* wx, cons
   for (int d = 0; d < 2; ++d) {
     gx.pr[d].b[0] = {dg, row_map((long long)d * B * G, B, R * G, G)};
     gx.pr[d].c = dwx + (long long)d * D * G;
+    gx.pr[d].crow = plain_rows(G);
     gx.pr[d].ones = db + (long long)d * G;
   }
   gx.ws = ws;
@@ -679,7 +438,7 @@ extern "C" int e2e_lstm_bidir_bwd_products(const float* x, const float* wx, cons
   gx.seg_len = TB;
   gx.splits = sx;
   gx.kchunk = cx;
-  err = gemm(gx, 2, false, D % 4 == 0 && aligned16(x) && aligned16(dg), stream);
+  err = gemm(gx, 2, false, false, D % 4 == 0 && aligned16(x) && aligned16(dg), false, stream);
   if (err) return err;
   return dwh_products(ys, dg, dwh, ws, T, B, 2, H, sh, ch, stream);
 }

@@ -135,7 +135,9 @@ class BucketedLoader:
             u, ids, _ = self._items[idx]
             x = u.load()
             n = min(len(x), n_bucket)
-            wav[j, :n] = quantize_i16(x[:n]) if dt == np.int16 else x[:n]
+            # float32 waves pass through int16 too, as the JAX loader's cache does
+            q = quantize_i16(x[:n])
+            wav[j, :n] = q if dt == np.int16 else q.astype(np.float32) / 32768.0
             wav_len[j] = n
             txt[j, : len(ids)] = ids[:l_bucket]
             txt_len[j] = min(len(ids), l_bucket)

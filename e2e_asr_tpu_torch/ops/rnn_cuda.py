@@ -10,15 +10,18 @@ original time and rows [B, 2B) for the backward direction in kernel time
 (flip over T to get original time). Carries freeze where mask = 0, outputs
 are zeroed there, and the initial state is zero. Masks are contiguous
 prefix runs per utterance (the backward reads h_prev from ys, which equals
-the h carry wherever a step is valid under that contract). The forward
-kernels split the hidden units over a cluster of 8 blocks, so the layer
-takes H a multiple of 8. The backward is two kernels in a row: the reverse
-sweep (one cooperative grid, ``sweep_grid``) and the tensor-core products
-(``split_k`` picks their split over K); chip_smoke.py times them apart.
+the h carry wherever a step is valid under that contract). The layer takes
+H a multiple of 8 up to 1024. The forward is two kernels in a row: the
+input projection (the tensor-core GEMM, rows written in kernel time) and
+the recurrence's sweep (``fwd_plan``: Wh resident in shared memory, the
+product h Wh on the tensor cores). The backward is two kernels in a row
+too: the reverse sweep (one cooperative grid, ``sweep_grid``) and the
+tensor-core products (``split_k`` picks their split over K). chip_smoke.py
+times each part apart.
 
 The second half of the module is ``lstm_seq``: the same recurrence over
 projections computed outside the kernel (the TPU kernel
-``rnn_pallas.lstm_seq``), by the XW variants of the same two sources.
+``rnn_pallas.lstm_seq``), by the same sweeps.
 """
 
 from __future__ import annotations
@@ -107,17 +110,66 @@ def _check_layer(x, mask, wx, wh, name, b=None):
     return t, bsz, d, h_dim
 
 
+_fwd_plans: dict = {}
+
+
+def fwd_plan(b: int, dirs: int, h_dim: int, dev: torch.device) -> Tuple[int, int, int, int]:
+    """(n8 tiles of rows a block, Wh resident in shared memory (1; 0: read
+    from L2), shared memory bytes a block, blocks) of the forward sweep's
+    cooperative grid, from the kernel's own plan (csrc ``e2e_lstm_fwd_plan``:
+    the first that is resident at once). Raises where no grid can be
+    resident. Card only."""
+    key = (b, dirs, h_dim, str(dev))
+    if key not in _fwd_plans:
+        out = torch.zeros(4, dtype=torch.int32)
+        cuda_build.launch("lstm_bidir", "e2e_lstm_fwd_plan", b, dirs, h_dim, out)
+        plan = tuple(out.tolist())
+        if plan[0] < 0:
+            raise ValueError(f"lstm forward sweep: no resident grid for B={b}, H={h_dim}, "
+                             f"{dirs} direction(s)")
+        _fwd_plans[key] = plan
+    return _fwd_plans[key]
+
+
+def _fwd_sweep(xw, mask, wh, ys, cs, acts, t, b, dirs, h_dim, row_mask, train):
+    """The forward sweep kernel over xw [T, dirs B, 4H] (kernel time): ys,
+    and with ``train`` c and acts (else any tensor for both: unwritten)."""
+    plan = fwd_plan(b, dirs, h_dim, xw.device)
+    hbuf = torch.empty((2, dirs * b, h_dim), dtype=torch.float32, device=xw.device)  # h between steps
+    cuda_build.launch("lstm_bidir", "e2e_lstm_fwd_sweep", xw, mask, wh, ys, cs, acts, hbuf, t, b, dirs,
+                      h_dim, row_mask, int(train), *plan[:3])
+
+
+def _projection(x, wx, b, xw):
+    """xw [T, 2B, 4H] = x wx[d] + b[d] in kernel time (the backward
+    direction flipped): the tensor-core GEMM kernel."""
+    t, bsz, d = x.shape
+    cuda_build.launch("lstm_bidir", "e2e_lstm_bidir_projection", x, wx, b, xw, t, bsz, d, wx.shape[2] // 4)
+
+
+def _bidir_fwd(x, mask, wx, wh, b, name, train):
+    """The fused layer's forward on the card: (ys, c, acts), c and acts
+    unwritten (ys itself) unless ``train``."""
+    x, mask, wx, wh, b = (a.contiguous() for a in (x, mask, wx, wh, b))
+    t, bsz, d, h_dim = _check_layer(x, mask, wx, wh, name, b)
+    dev = x.device
+    xw = torch.empty((t, 2 * bsz, 4 * h_dim), dtype=torch.float32, device=dev)
+    ys = torch.empty((t, 2 * bsz, h_dim), dtype=torch.float32, device=dev)
+    cs = torch.empty_like(ys) if train else ys
+    acts = torch.empty_like(xw) if train else ys
+    _projection(x, wx, b, xw)
+    _fwd_sweep(xw, mask, wh, ys, cs, acts, t, bsz, 2, h_dim, 0, train)
+    return ys, cs, acts
+
+
 def lstm_bidir_fwd(
     x: torch.Tensor, mask: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
-    """Inference forward: plain version on CPU tensors; the CUDA kernel on
-    CUDA tensors."""
+    """Inference forward: plain version on CPU tensors; the CUDA kernels (the
+    projection, then the sweep) on CUDA tensors."""
     if cuda_build.use_plain(x):
         return lstm_bidir_fwd_plain(x, mask, wx, wh, b)
-    x, mask, wx, wh, b = (a.contiguous() for a in (x, mask, wx, wh, b))
-    t, bsz, d, h_dim = _check_layer(x, mask, wx, wh, "lstm_bidir_fwd", b)
-    ys = torch.empty((t, 2 * bsz, h_dim), dtype=torch.float32, device=x.device)
-    cuda_build.launch("lstm_bidir", "e2e_lstm_bidir_fwd", x, mask, wx, wh, b, ys, t, bsz, d, h_dim)
+    ys = _bidir_fwd(x, mask, wx, wh, b, "lstm_bidir_fwd", False)[0]
     lstm_bidir_fwd.launches += 1
     return ys
 
@@ -129,18 +181,12 @@ def lstm_bidir_fwd_train(
     x: torch.Tensor, mask: torch.Tensor, wx: torch.Tensor, wh: torch.Tensor, b: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training forward (ys, c, acts): plain version on CPU tensors; the
-    kernel's training variant on CUDA tensors."""
+    kernels' training variant on CUDA tensors."""
     if cuda_build.use_plain(x):
         return lstm_bidir_fwd_train_plain(x, mask, wx, wh, b)
-    x, mask, wx, wh, b = (a.contiguous() for a in (x, mask, wx, wh, b))
-    t, bsz, d, h_dim = _check_layer(x, mask, wx, wh, "lstm_bidir_fwd_train", b)
-    ys = torch.empty((t, 2 * bsz, h_dim), dtype=torch.float32, device=x.device)
-    cs = torch.empty_like(ys)
-    acts = torch.empty((t, 2 * bsz, 4 * h_dim), dtype=torch.float32, device=x.device)
-    cuda_build.launch("lstm_bidir", "e2e_lstm_bidir_fwd_train", x, mask, wx, wh, b, ys, cs, acts,
-                      t, bsz, d, h_dim)
+    out = _bidir_fwd(x, mask, wx, wh, b, "lstm_bidir_fwd_train", True)
     lstm_bidir_fwd_train.launches += 1
-    return ys, cs, acts
+    return out
 
 
 lstm_bidir_fwd_train.launches = 0
@@ -203,12 +249,12 @@ def lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy):
     return dx, dwx, dwh, db
 
 
-GEMM_TILE = (128, 64, 32)  # (M, N, K) of a block's tile in csrc/lstm_bidir_bwd.cu
+GEMM_TILE = (128, 64, 32)  # (M, N, K) of a block's tile in csrc/gemm_tf32.cuh
 
 
 def split_k(m: int, n: int, k: int, problems: int, sms: int) -> Tuple[int, int]:
     """(splits, k-tiles a split) of a product of ``problems`` M x N outputs
-    over K on the GEMM of csrc/lstm_bidir_bwd.cu: split K while the tiles
+    over K on the GEMM of csrc/gemm_tf32.cuh: split K while the tiles
     fill fewer than two blocks an SM, keeping at least 8 k-tiles (256 of K)
     a split; every split non-empty. The partials are summed in split order."""
     bm, bn, bk = GEMM_TILE
@@ -324,8 +370,8 @@ def lstm_bidir_train(x, mask, wx, wh, b) -> torch.Tensor:
 # ------------------------------------------------------------------ lstm_seq
 # The recurrence over precomputed projections: replaces the TPU kernel
 # ``rnn_pallas.lstm_seq`` (forward and backward, its ``custom_vjp``) with the
-# XW variants of the two kernels above. xw [T, R, 4H] (= x @ Wx + b, rows in
-# kernel time), mask [T, R] (a contiguous prefix or suffix run per row),
+# two sweeps above (mask per row in kernel time). xw [T, R, 4H] (= x @ Wx + b,
+# rows in kernel time), mask [T, R] (a contiguous prefix or suffix run per row),
 # wh [Dirs, H, 4H], R = Dirs * B. The training forward stores the gate
 # activations, so the backward takes acts and not xw (the TPU kernel rebuilds
 # the gates from xw_t + h_{t-1} Wh instead).
@@ -347,18 +393,19 @@ def _check_seq(xw, mask, wh, name):
 
 def lstm_seq_fwd(xw: torch.Tensor, mask: torch.Tensor, wh: torch.Tensor, train: bool = False):
     """ys [T, R, H]; with ``train`` (ys, c, acts). Plain version on CPU
-    tensors; the CUDA kernel on CUDA tensors."""
+    tensors; the CUDA sweep on CUDA tensors."""
     if cuda_build.use_plain(xw):
         out = lstm_seq_fwd_plain(xw, mask, wh)
         return out if train else out[0]
     xw, mask, wh = (a.contiguous() for a in (xw, mask, wh))
     t, r, dirs, h_dim = _check_seq(xw, mask, wh, "lstm_seq_fwd")
+    if dirs > 2:
+        raise ValueError(f"lstm_seq_fwd: {dirs} directions (the kernel takes 1 or 2)")
     ys = torch.empty((t, r, h_dim), dtype=torch.float32, device=xw.device)
     # the inference variant writes neither c nor acts: any pointer will do
     cs = torch.empty_like(ys) if train else ys
-    acts = torch.empty((t, r, 4 * h_dim), dtype=torch.float32, device=xw.device) if train else ys
-    cuda_build.launch("lstm_bidir", "e2e_lstm_seq_fwd", xw, mask, wh, ys, cs, acts, t, r // dirs,
-                      dirs, h_dim, int(train))
+    acts = torch.empty_like(xw) if train else ys
+    _fwd_sweep(xw, mask, wh, ys, cs, acts, t, r // dirs, dirs, h_dim, 1, train)
     lstm_seq_fwd.launches += 1
     return (ys, cs, acts) if train else ys
 

@@ -319,7 +319,8 @@ def test_non_cuda_device_has_no_kernel():
         cuda_build.use_plain(torch.empty(1, device="meta"))
 
 
-@pytest.mark.parametrize("name", ["lstm_bidir_bwd", "ctc_loss", "decoder_scan", "decoder_scan_bwd"])
+@pytest.mark.parametrize("name", ["lstm_bidir_bwd", "ctc_loss", "decoder_scan", "decoder_scan_bwd",
+                                  "lstm_bidir"])
 def test_library_name_follows_included_headers(monkeypatch, tmp_path, name):
     """A library's file name hashes its source and the csrc headers it
     includes: editing a header gives the sources that include it a new name
@@ -336,3 +337,18 @@ def test_library_name_follows_included_headers(monkeypatch, tmp_path, name):
     after = {n: cuda_build._lib_path(n) for n in cuda_build.SOURCES}
     assert after[name] != before[name]
     assert after["log_mel"] == before["log_mel"]
+
+
+def test_shared_gemm_header_renames_both_lstm_libraries(monkeypatch, tmp_path):
+    """Both LSTM sources include the shared GEMM header (csrc/gemm_tf32.cuh):
+    editing it renames both libraries and no other."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for f in os.listdir(cuda_build.CSRC_DIR):
+        (src / f).write_bytes(open(os.path.join(cuda_build.CSRC_DIR, f), "rb").read())
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(src))
+    before = {n: cuda_build._lib_path(n) for n in cuda_build.SOURCES}
+    header = src / "gemm_tf32.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: cuda_build._lib_path(n) for n in cuda_build.SOURCES}
+    assert {n for n in cuda_build.SOURCES if after[n] != before[n]} == {"lstm_bidir", "lstm_bidir_bwd"}

@@ -2,7 +2,10 @@
 ragged shapes the flagship run does not reach: odd batch (one row per
 LSTM block), T not a multiple of the kernels' tiles, a wave shorter than
 one window, S large enough to need more than 48 KB of shared memory, N not
-a multiple of the block size, B = 1; the LSTM backward with D and 4H off
+a multiple of the block size, B = 1; the LSTM forward's plan (Wh resident
+at the flagship and convergence layers; a shape with no layout raises), its
+projection's kernel-time rows, H = 512 and 1024 (Wh read from L2) and
+bitwise-equal repeats; the LSTM backward with D and 4H off
 the products' tiles, H = 8, H = 512 and 1024 (its sweep's weights read
 from L2), a grid that cannot be resident (raises), and bitwise-equal repeats
 at the flagship's shapes; the CTC loss with rows with no alignment, with no
@@ -311,6 +314,69 @@ def test_lstm_bwd_sweep_grid_raises_when_not_resident(gen):
         rnn_cuda.sweep_grid(10, 4096, 2, 1024, torch.device("cuda", torch.cuda.current_device()))
     nt, w_smem, smem, blocks = rnn_cuda.sweep_grid(204, 16, 2, 320, torch.device("cuda", torch.cuda.current_device()))
     assert (nt, w_smem) == (1, 1) and blocks == 80
+
+
+def _dev():
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def test_lstm_fwd_plan_keeps_wh_resident_and_raises_without_layout(gen):
+    """The forward sweep's plan (the kernel's own): the flagship layer (B=16,
+    H=320) and the convergence recipe's first layer (B=32, H=256) keep their
+    columns of Wh in shared memory, a block a (direction, 16 units, 8 rows);
+    a shape with no resident grid (4096 rows a direction at H = 1024) raises
+    instead of launching a grid that would hang."""
+    for b, h, blocks in ((16, 320, 80), (32, 256, 128)):
+        nt, w_smem, smem, nb = rnn_cuda.fwd_plan(b, 2, h, _dev())
+        assert (nt, w_smem, nb) == (1, 1, blocks) and smem <= 232448
+    with pytest.raises(ValueError, match="no resident grid"):
+        rnn_cuda.fwd_plan(4096, 2, 1024, _dev())
+
+
+def test_lstm_fwd_kernels_repeat_bitwise(gen):
+    """No atomics and a fixed order of the partial sums: the forward's
+    outputs (ys, c, acts of the fused layer and of lstm_seq) are bitwise
+    equal from run to run at the flagship's shapes."""
+    b, t, h = 16, 204, 320
+    for d in (1280, 640):
+        args = _lstm_args(gen, b, t, d, h)
+        first = rnn_cuda.lstm_bidir_fwd_train(*args)
+        for _ in range(2):
+            again = rnn_cuda.lstm_bidir_fwd_train(*args)
+            assert all(torch.equal(p, q) for p, q in zip(first, again))
+        assert torch.equal(rnn_cuda.lstm_bidir_fwd(*args), first[0])
+    xw, m2 = rnn_cuda._kernel_time_inputs(*(args[i] for i in (0, 1, 2, 4)))
+    m2 = m2.float()
+    first = rnn_cuda.lstm_seq_fwd(xw, m2, args[3], train=True)
+    again = rnn_cuda.lstm_seq_fwd(xw, m2, args[3], train=True)
+    assert all(torch.equal(p, q) for p, q in zip(first, again))
+
+
+@pytest.mark.parametrize("b,t,d,h", [(3, 11, 37, 8), (16, 204, 1280, 320), (5, 9, 640, 104)])
+def test_lstm_projection_rows_in_kernel_time(gen, b, t, d, h):
+    """The fused layer's input projection (the shared GEMM with a bias and a
+    flipped output row map) against _kernel_time_inputs: x wx[d] + b[d],
+    the backward direction's rows flipped over T (D = 37: rows not 16-byte
+    aligned)."""
+    x, mask, wx, _, bias = _lstm_args(gen, b, t, d, h)
+    xw = torch.empty((t, 2 * b, 4 * h), device="cuda")
+    rnn_cuda._projection(x, wx, bias, xw)
+    _close(xw, rnn_cuda._kernel_time_inputs(x, mask, wx, bias)[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dirs,h,resident", [(2, 512, 1), (1, 1024, 0)])
+def test_lstm_seq_fwd_wide_h(gen, dirs, h, resident):
+    """At H = 512 the forward's columns of Wh still live in shared memory; at
+    H = 1024 they do not fit and the sweep reads them from L2; both agree
+    with the plain loop."""
+    b, t = 5, 9
+    assert rnn_cuda.fwd_plan(b, dirs, h, _dev())[1] == resident
+    lens = torch.randint(1, t + 1, (dirs * b,), generator=gen, device="cuda")
+    mask = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
+    xw = torch.randn((t, dirs * b, 4 * h), generator=gen, device="cuda")
+    wh = (torch.rand((dirs, h, 4 * h), generator=gen, device="cuda") * 2 - 1) / math.sqrt(h)
+    for g, w in zip(rnn_cuda.lstm_seq_fwd(xw, mask, wh, train=True), rnn_cuda.lstm_seq_fwd_plain(xw, mask, wh)):
+        _close(g, w, rtol=1e-4, atol=1e-4)
 
 
 # ------------------------------------------------------------ lstm_seq pair

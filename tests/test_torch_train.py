@@ -466,17 +466,23 @@ def test_schedules_match_jax():
         np.testing.assert_allclose(tf_rate(h, step), float(jtf_rate(h, step)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("curriculum,skip", [(1, 0), (0, 5)])
-def test_train_loader_order_matches_jax(curriculum, skip):
+@pytest.mark.parametrize("curriculum,skip,wire", [
+    pytest.param(1, 0, "int16", id="1-0"),
+    pytest.param(0, 5, "int16", id="0-5"),
+    pytest.param(1, 0, "float32", id="1-0-float32"),
+])
+def test_train_loader_order_matches_jax(curriculum, skip, wire):
     """The training data trajectory: a length-ascending first epoch with
     curriculum, shuffled epochs (RandomState(seed + epoch)) after it, and a
-    resumed run's skip_steps, batch for batch as the JAX loader gives it."""
+    resumed run's skip_steps, batch for batch as the JAX loader gives it;
+    with either wire dtype (float32 waves pass through int16 as in JAX)."""
     from e2e_asr_tpu.data.dataset import load_dataset as jload
 
     from e2e_asr_tpu_torch.data.dataset import load_dataset as tload
 
     d = {"corpus": {"name": "synthetic", "train_split": ["train:40"], "dev_split": ["dev:4"],
-                    "batch_size": 4, "buckets": [208, 416, 816], "token_buckets": [32, 48, 64]},
+                    "batch_size": 4, "buckets": [208, 416, 816], "token_buckets": [32, 48, 64],
+                    "wire_dtype": wire},
          "audio": {"feat_dim": FEAT_DIM}, "text": {"mode": "character"}}
     jc, tc = JConfig.from_dict({"data": d}), TConfig.from_dict({"data": d})
     jtr = jload(jc.data, ascending=curriculum > 0, num_workers=0)[0]
