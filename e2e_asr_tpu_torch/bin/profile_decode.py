@@ -18,6 +18,12 @@ and the kernels by device time. Writes the same as JSON to ``--out``
 (default ``e2e_asr_tpu_torch/_build/profile_decode.json`` or
 ``profile_train.json``).
 
+``--att-phases`` instead splits one launch of the beam attention step
+(``att_step_beam_loc``) into its phases: its timing build (``-DATT_PHASES``)
+runs at the flagship decode shapes (B=16, W=16, S=204, Dk=300, E=640, K=10,
+P=201, lengths in [S/2, S]) and block 0's us per phase are printed
+(``profile_att_phases.json``).
+
 ``--train --scan-phases`` instead splits one step of each fused speller
 scan kernel into its phases: the kernels' timing build (``-DSCAN_PHASES``,
 built beside the normal libraries) runs at the flagship training shapes
@@ -303,6 +309,67 @@ def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=Non
     return res
 
 
+def flagship_att_inputs(dev, seed: int = 1):
+    """The beam attention step's inputs at the flagship decode shapes (B=16,
+    W=16, S=204, Dk=300, E=640, 10 x 201 taps, lengths in [S/2, S] with the
+    first at S), weights at their init scales: the arguments of
+    ``att_step_cuda.att_step_beam_loc``."""
+    cfg = flagship_smoke_config()
+    m, ac = cfg.model, cfg.model.attention
+    b, w, s = cfg.decode.batch_size, cfg.decode.beam_size, 816 // 4
+    dk, e_dim, kk, p = ac.dim, 2 * m.encoder.dim[-1], ac.loc_kernel_num, 2 * ac.loc_kernel_size + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
+    lens[0] = s
+    uni = lambda bound, *shape: (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+    return (torch.randn((b, w, dk), generator=gen, device=dev),
+            torch.softmax(2.0 * torch.randn((b, w, s), generator=gen, device=dev), -1),
+            torch.tanh(torch.randn((b, s, dk), generator=gen, device=dev)),
+            torch.tanh(torch.randn((b, s, e_dim), generator=gen, device=dev)), lens,
+            uni(1 / math.sqrt(p), kk, p), uni(1 / math.sqrt(kk), kk, dk), uni(1 / math.sqrt(dk), dk),
+            0.1 * torch.randn((dk,), generator=gen, device=dev), float(ac.temperature))
+
+
+def att_phase_split(args, iters: int = 20) -> dict:
+    """The per-phase split of one launch of the beam attention step (timing
+    build: block 0 marks the global timer at every phase boundary), mean us
+    per phase over ``iters`` launches, beside the timing build's and the
+    normal build's ms a launch (CUDA events). Launch counters are not
+    touched."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.ops import att_step_cuda as asc
+
+    def ms(defines):
+        asc._launch(defines, *args)
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            asc._launch(defines, *args)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / iters
+
+    n = len(asc.PHASES) + 1
+    out = torch.zeros(16, dtype=torch.int64, device="cuda")
+    sums = torch.zeros(len(asc.PHASES), dtype=torch.float64)
+    for _ in range(iters):
+        asc._launch(asc.PHASE_BUILD, *args)
+        cuda_build.launch("att_step", "e2e_att_step_phase_times", out, out.numel(), defines=asc.PHASE_BUILD)
+        marks = out[:n].double().cpu()
+        sums += marks[1:] - marks[:-1]
+    phases = {nm: float(x) / iters / 1e3 for nm, x in zip(asc.PHASES, sums)}
+    return {"phases_us": phases, "timing_build_ms": ms(asc.PHASE_BUILD), "ms": ms(())}
+
+
+def print_att_phases(split: dict) -> None:
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in split["phases_us"].items())
+    print(f"att_step_beam_loc phases, block 0, us (timing build {split['timing_build_ms'] * 1e3:.1f} us a "
+          f"launch; normal build {split['ms'] * 1e3:.1f} us): {parts}; sum "
+          f"{sum(split['phases_us'].values()):.2f} us", flush=True)
+
+
 def print_scan_phases(split: dict) -> None:
     """One line a kernel: the mean us per phase, their sum, and the sum over
     the L steps beside the timing build's launch time (the rest is the
@@ -324,6 +391,8 @@ def main(argv=None):
                     help="kernel pair of the BiLSTM layers (encoder.rnn_impl)")
     ap.add_argument("--scan-phases", action="store_true",
                     help="with --train: split a step of each fused scan kernel into its phases")
+    ap.add_argument("--att-phases", action="store_true",
+                    help="split a launch of the beam attention step into its phases")
     ap.add_argument("--cluster-sizes", default="",
                     help="with --scan-phases: comma-separated cluster sizes to split the kernels at "
                          "(default: the size the grid picks)")
@@ -335,12 +404,25 @@ def main(argv=None):
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
-    what = "scan_phases" if args.scan_phases else "train" if args.train else "decode"
+    what = ("scan_phases" if args.scan_phases else "att_phases" if args.att_phases
+            else "train" if args.train else "decode")
     out = args.out or os.path.join(cuda_build.BUILD_DIR, f"profile_{what}.json")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.att_phases:
+        from e2e_asr_tpu_torch.device import resolve_device
+        from e2e_asr_tpu_torch.ops import att_step_cuda as asc
+
+        cuda_build.build_all([("att_step", asc.PHASE_BUILD)])
+        split = att_phase_split(flagship_att_inputs(resolve_device("cuda")))
+        print(f"{card}: beam attention step at the flagship decode shapes")
+        print_att_phases(split)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"card": card, **split}, f, indent=1)
+        return
     if args.scan_phases:
         from e2e_asr_tpu_torch.device import resolve_device
         from e2e_asr_tpu_torch.ops import decoder_cuda as dc

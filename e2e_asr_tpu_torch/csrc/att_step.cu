@@ -28,6 +28,27 @@
 namespace {
 
 constexpr int THREADS = 256;
+
+// Timing build (nvcc -DATT_PHASES): block 0 writes the global timer (ns) at
+// each phase boundary (after a __syncthreads) into g_att_ts; the normal
+// build compiles the marks away. e2e_att_step_phase_times copies them out.
+constexpr int ATT_SLOTS = 16;
+#ifdef ATT_PHASES
+__device__ unsigned long long g_att_ts[ATT_SLOTS];
+#define PHASE(i)                                                                         \
+  do {                                                                                   \
+    __syncthreads();                                                                     \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                                           \
+      unsigned long long t_;                                                             \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                            \
+      g_att_ts[i] = t_;                                                                  \
+    }                                                                                    \
+  } while (0)
+#else
+#define PHASE(i) \
+  do {           \
+  } while (0)
+#endif
 constexpr float NEG = -1.0e9f;
 constexpr float LOWEST = -3.402823466e38f;  // -FLT_MAX
 
@@ -78,6 +99,7 @@ att_step_kernel(const float* __restrict__ q, const float* __restrict__ prev_att,
   const int L = min(max(enc_len[b], 0), S);
   const int half = (P - 1) / 2;
 
+  PHASE(0);
   for (int i = threadIdx.x; i < S; i += THREADS) att[i] = prev_att[(long)bw * S + i];
   for (int i = threadIdx.x; i < K * P; i += THREADS) tp[i] = taps[i];
   for (int i = threadIdx.x; i < K * Dk; i += THREADS) wl[i] = wlp[i];
@@ -86,6 +108,7 @@ att_step_kernel(const float* __restrict__ q, const float* __restrict__ prev_att,
     lv[i] = locv[i];
   }
   __syncthreads();
+  PHASE(1);  // staging
 
   // location features of the valid frames, straight from the taps
   for (int idx = threadIdx.x; idx < L * K; idx += THREADS) {
@@ -97,6 +120,7 @@ att_step_kernel(const float* __restrict__ q, const float* __restrict__ prev_att,
     f[s * K + kk] = acc;
   }
   __syncthreads();
+  PHASE(2);  // conv
 
   // additive energies: one warp per frame, lanes over Dk
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -117,6 +141,7 @@ att_step_kernel(const float* __restrict__ q, const float* __restrict__ prev_att,
     if (lane == 0) en[s] = acc * inv_temp;
   }
   __syncthreads();
+  PHASE(3);  // energies
 
   // masked softmax over S
   float m = LOWEST;
@@ -136,6 +161,7 @@ att_step_kernel(const float* __restrict__ q, const float* __restrict__ prev_att,
     align[(long)bw * S + s] = a;
   }
   __syncthreads();
+  PHASE(4);  // softmax
 
   // context over the valid frames
   const float* vb = v + (long)b * S * E;
@@ -144,6 +170,7 @@ att_step_kernel(const float* __restrict__ q, const float* __restrict__ prev_att,
     for (int s = 0; s < L; ++s) acc = fmaf(en[s], vb[(long)s * E + e], acc);
     ctx[(long)bw * E + e] = acc;
   }
+  PHASE(5);  // context
 }
 
 }  // namespace
@@ -169,4 +196,19 @@ extern "C" int e2e_att_step_beam_loc(const float* q, const float* prev_att, cons
   att_step_kernel<<<B * W, THREADS, smem, (cudaStream_t)stream>>>(
       q, prev_att, k, v, enc_len, taps, wlp, locv, locb, align, ctx, W, S, Dk, E, K, P, inv_temp);
   return (int)cudaGetLastError();
+}
+
+// out [ATT_SLOTS] u64: the timing build's phase marks of the last launch
+// (cudaErrorNotSupported in the normal build)
+extern "C" int e2e_att_step_phase_times(unsigned long long* out, int n, void* stream) {
+#ifdef ATT_PHASES
+  if (n > ATT_SLOTS) n = ATT_SLOTS;
+  return (int)cudaMemcpyFromSymbolAsync(out, g_att_ts, sizeof(unsigned long long) * n, 0,
+                                        cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+#else
+  (void)out;
+  (void)n;
+  (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }

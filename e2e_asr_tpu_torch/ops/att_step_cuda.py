@@ -53,16 +53,16 @@ def att_step_beam_loc_plain(q, prev_att, k, v, enc_len, taps, wlp, locv, locb, t
     return align, ctx
 
 
-def att_step_beam_loc(
-    q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp: float
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
-    if cuda_build.use_plain(q):
-        return att_step_beam_loc_plain(q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp)
+PHASE_BUILD = ("ATT_PHASES",)  # the define of the kernel's timing build (bin/profile_decode.py)
+# the phases between consecutive marks of the timing build (csrc PHASE(i))
+PHASES = ("staging", "conv", "energies", "softmax", "context")
+
+
+def _launch(defines, q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp):
     q, prev_att, k, v, taps, wlp, locv, locb = (
         a.contiguous() for a in (q, prev_att, k, v, taps, wlp, locv, locb)
     )
-    enc_len = enc_len.to(torch.int32).contiguous()
+    enc_len = (enc_len if enc_len.dtype == torch.int32 else enc_len.to(torch.int32)).contiguous()
     for a, name in ((q, "q"), (prev_att, "prev_att"), (k, "k"), (v, "v"), (taps, "taps"),
                     (wlp, "wlp"), (locv, "locv"), (locb, "locb")):
         cuda_build.check_cuda(a, f"att_step_beam_loc {name}")
@@ -80,10 +80,20 @@ def att_step_beam_loc(
     ctx = torch.empty((b, w, e_dim), dtype=torch.float32, device=q.device)
     cuda_build.launch(
         "att_step", "e2e_att_step_beam_loc", q, prev_att, k, v, enc_len, taps, wlp, locv, locb,
-        align, ctx, b, w, s, dk, e_dim, kk, p, 1.0 / float(temp),
+        align, ctx, b, w, s, dk, e_dim, kk, p, 1.0 / float(temp), defines=defines,
     )
-    att_step_beam_loc.launches += 1
     return align, ctx
+
+
+def att_step_beam_loc(
+    q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
+    if cuda_build.use_plain(q):
+        return att_step_beam_loc_plain(q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp)
+    out = _launch((), q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp)
+    att_step_beam_loc.launches += 1
+    return out
 
 
 att_step_beam_loc.launches = 0
