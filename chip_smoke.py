@@ -1,6 +1,6 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR] [--json PATH]
 
 1. Prints the card's name and power limit, builds every CUDA kernel from
    e2e_asr_tpu_torch/csrc/ (one nvcc per source, in parallel) and prints
@@ -9,7 +9,12 @@
    stated tolerance, and times kernel, plain version and, where one
    PyTorch call computes the same function, that call: the decode kernels
    at the flagship decode shapes (configs/libri/asr_example.yaml model,
-   decode B=16, W=16), the training kernels (the LSTM's training forward
+   decode B=16, W=16; the attention step also at S=764; both repeated
+   bitwise and run once under the sync debug mode set to raise, each split
+   by phase by its timing build, the attention step beside its ablation
+   builds; with ``--parent DIR``, a checkout of the parent commit, the CTC
+   prefix side of a beam step is timed there and here in turns), the
+   training kernels (the LSTM's training forward
    and backward, each one's two launches timed apart, their outputs
    repeated bitwise; the CTC
    loss, nll and gradient in one launch, checked for bitwise repeats and
@@ -25,7 +30,8 @@
 3. Drives the serving path: the flagship-width model from a fixed seed
    decodes 16 synthetic utterances in the 816-frame bucket (beam 16,
    ctc_weight 0.3, lm_weight 0) through ``bin/test_asr.Solver`` on the
-   card, and checks that every decode kernel was launched in that run. The
+   card, and checks that every decode kernel was launched in that run; the
+   profiler counts the device launches of one decoded batch. The
    same batch is then decoded with the kernels and with the plain versions
    on the card: the top-beam scores must agree and the top hypotheses be
    identical. All of this runs twice: under the default LSTM route
@@ -79,6 +85,9 @@ TRAIN_STEPS = 5
 ALT_ROUNDS = 21  # rounds of a kernel against its library call in turns
 CONV_STEPS = 3
 NOISE_SEED = 20261016  # the scan checks' sampled feedback
+SPIN_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock queued ahead of each timed call
+SFU_LANES = 16  # special-function lanes of an H100 SM a cycle (two per accurate tanhf)
+SMS, BOOST_HZ = 132, 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -93,11 +102,15 @@ def bound_ms(n_bytes: float, n_flops: float):
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """ms a call (CUDA events over ``iters`` calls), the calls queued behind
+    a spin of the card so that a wrapper's host time does not pace a short
+    kernel (a plain version of many launches stays host-paced)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -145,6 +158,7 @@ def compare(name, got, want, rtol, atol, unreachable=None):
 
 def kernel_checks(dev, cfg, vocab):
     """Each kernel against its plain version at the flagship decode shapes."""
+    from e2e_asr_tpu_torch.bin.profile_decode import att_phase_split, prefix_phase_split, print_decode_phases
     from e2e_asr_tpu_torch.decode import ctc_prefix
     from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
     from e2e_asr_tpu_torch.ops import att_step_cuda as asc
@@ -242,23 +256,41 @@ def kernel_checks(dev, cfg, vocab):
     print("[kernel] att_step_beam_loc", flush=True)
     ac = m.attention
     dk, e_dim, kk, p = ac.dim, 2 * h, ac.loc_kernel_num, 2 * ac.loc_kernel_size + 1
-    q = torch.randn((b, w, dk), generator=gen, device=dev)
-    prev = torch.softmax(2.0 * torch.randn((b, w, s_len), generator=gen, device=dev), -1)
-    k = torch.tanh(torch.randn((b, s_len, dk), generator=gen, device=dev))
-    v = torch.tanh(torch.randn((b, s_len, e_dim), generator=gen, device=dev))
+
+    def att_inputs(s):
+        return (torch.randn((b, w, dk), generator=gen, device=dev),
+                torch.softmax(2.0 * torch.randn((b, w, s), generator=gen, device=dev), -1),
+                torch.tanh(torch.randn((b, s, dk), generator=gen, device=dev)),
+                torch.tanh(torch.randn((b, s, e_dim), generator=gen, device=dev)))
+
+    q, prev, k, v = att_inputs(s_len)
     taps = (torch.rand((kk, p), generator=gen, device=dev) * 2 - 1) / math.sqrt(p)
     wlp = (torch.rand((kk, dk), generator=gen, device=dev) * 2 - 1) / math.sqrt(kk)
     locv = (torch.rand((dk,), generator=gen, device=dev) * 2 - 1) / math.sqrt(dk)
     locb = 0.1 * torch.randn((dk,), generator=gen, device=dev)
-    args = (q, prev, k, v, lens, taps, wlp, locv, locb, float(ac.temperature))
+    args = (q, prev, k, v, lens.to(torch.int32), taps, wlp, locv, locb, float(ac.temperature))
     got = asc.att_step_beam_loc(*args)
     want = asc.att_step_beam_loc_plain(*args)
     err = max(compare("att_step align", got[0], want[0], rtol=1e-4, atol=1e-6),
               compare("att_step ctx", got[1], want[1], rtol=1e-4, atol=1e-5))
+    att_extra = _repeat_and_sync("att_step_beam_loc", lambda: asc.att_step_beam_loc(*args), got)
+    # the 960 h recipe's encoder length: k and v streamed in tiles
+    s764 = 764
+    lens764 = torch.randint(s764 // 2, s764 + 1, (b,), generator=gen, device=dev)
+    args764 = (*att_inputs(s764), lens764, taps, wlp, locv, locb, float(ac.temperature))
+    g764, w764 = asc.att_step_beam_loc(*args764), asc.att_step_beam_loc_plain(*args764)
+    err = max(err, compare("att_step align S=764", g764[0], w764[0], rtol=1e-4, atol=1e-6),
+              compare("att_step ctx S=764", g764[1], w764[1], rtol=1e-4, atol=1e-5))
+    split = att_phase_split(args)
+    print_decode_phases({"att_step_beam_loc": split})
     nvalid = float(lens.sum())
     nb = 4 * (b * w * dk + 2 * b * w * s_len + nvalid * (dk + e_dim) + b + kk * p + kk * dk
               + 2 * dk + b * w * e_dim)
     nf = w * nvalid * (2 * p * kk + dk * (2 * kk + 4) + 2 * e_dim) + b * w * s_len * 4
+    # the accurate tanhf alone: two special-function ops each, on every SM's
+    # SFU lanes at the boost clock (a floor above bound_ms, which counts a
+    # tanh as 4 operations)
+    tanh_floor = w * nvalid * dk * 2 / (SMS * SFU_LANES * BOOST_HZ) * 1e3
     out["att_step_beam_loc"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/att_step.cu",
         replaces="e2e_asr_tpu/ops/att_step_pallas.py:159", max_abs_err=err,
@@ -266,45 +298,174 @@ def kernel_checks(dev, cfg, vocab):
         plain_ms=time_ms(lambda: asc.att_step_beam_loc_plain(*args), 20),
         library_ms=None, bound=bound_ms(nb, nf),
         shapes=f"q [{b},{w},{dk}], S {s_len}, E {e_dim}, taps [{kk},{p}]",
+        ms_s764=time_ms(lambda: asc.att_step_beam_loc(*args764), 10),
+        phases_us=split["phases_us"], plan=split["plan"], ablations_ms=split["ablations_ms"],
+        tanh_floor_ms=tanh_floor, **att_extra,
     )
+    print(f"  att_step_beam_loc: {out['att_step_beam_loc']['ms'] * 1e3:.1f} us (S=764: "
+          f"{out['att_step_beam_loc']['ms_s764'] * 1e3:.1f} us), bound {out['att_step_beam_loc']['bound'][0] * 1e3:.2f} "
+          f"us, tanhf floor {tanh_floor * 1e3:.2f} us", flush=True)
 
-    # ---- 4. prefix_recursion: [T, N], N = B*W*K
-    print("[kernel] prefix_recursion", flush=True)
+    # ---- 4. prefix_recursion: the fused CTC prefix function
+    print("[kernel] prefix_recursion (prefix_scores_fused)", flush=True)
+    pargs = _prefix_inputs(gen, dev, cfg, vocab, s_len, lens)
+    ctc_lp, plens, r_g1, last1, cand1, _ = pargs
+    got = cpc.prefix_scores_fused(*pargs)
+    want = cpc.prefix_scores_fused_plain(*pargs)
+    # cells unreachable in the plain version (NEG sums) must stay below the
+    # NEG/2 guard of the log-sum-exp that consumes them
+    err = max(compare(f"prefix_scores_fused {nm}", g, wt, rtol=1e-5, atol=2e-3, unreachable=ctc_prefix.NEG / 2)
+              for nm, g, wt in zip(("psi", "r_h", "psi_eos"), got, want))
+    prefix_extra = _repeat_and_sync("prefix_scores_fused", lambda: cpc.prefix_scores_fused(*pargs), got)
+    psplit = prefix_phase_split(pargs)
+    print_decode_phases({"prefix_recursion": psplit})
+    t_p = ctc_lp.shape[1]
+    n_p = cand1.numel()
+    # the function's least traffic: ctc_lp and the parents' r_g in, the
+    # candidate and last-token ids, r_h, psi and psi_eos out; ~30 operations
+    # per valid (t, column) cell
+    nb = (4 * (ctc_lp.numel() + r_g1.numel() + 2 * t_p * n_p + n_p + b + b * w)
+          + 8 * (cand1.numel() + last1.numel()))
+    nf = 30 * float(torch.clamp(plens, max=t_p).sum()) * w * cand1.shape[2]
+    out["prefix_recursion"] = dict(
+        route="cuda", source="e2e_asr_tpu_torch/csrc/ctc_prefix.cu",
+        replaces="e2e_asr_tpu/decode/ctc_prefix_pallas.py:155", max_abs_err=err,
+        ms=time_ms(lambda: cpc.prefix_scores_fused(*pargs), 20),
+        plain_ms=time_ms(lambda: cpc.prefix_scores_fused_plain(*pargs), 3, 1),
+        library_ms=None, bound=bound_ms(nb, nf),
+        shapes=f"ctc_lp [{b},{t_p},{vocab}], W {w}, K {cand1.shape[2]}: psi, r_h [{b},{w},{cand1.shape[2]},{t_p},2], psi_eos",
+        phases_us=psplit["phases_us"], **prefix_extra,
+    )
+    return out
+
+
+def _prefix_inputs(gen, dev, cfg, vocab, t_len, lens):
+    """The fused CTC prefix function's inputs at the flagship decode shapes:
+    parents that emitted one token (the general case), one candidate of
+    each beam equal to its last token, enc_len as int32 (as the beam loop
+    passes it)."""
+    from e2e_asr_tpu_torch.decode import ctc_prefix
+    from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
+
+    b, w = cfg.decode.batch_size, cfg.decode.beam_size
     k_cand = min(vocab, max(w, int(w * cfg.decode.ctc_beam_ratio)))
-    logits = 3.0 * torch.randn((b, s_len, vocab), generator=gen, device=dev)
+    logits = 3.0 * torch.randn((b, t_len, vocab), generator=gen, device=dev)
     logits[:, :, 0] += 2.0
     ctc_lp = torch.log_softmax(logits, -1)
     r_g0 = ctc_prefix.init_empty_prefix(ctc_lp, lens, w)
     cand0 = torch.randint(1, vocab, (b, w, k_cand), generator=gen, device=dev)
     last0 = torch.zeros((b, w), dtype=torch.long, device=dev)
-    psi0, r_h0 = ctc_prefix.prefix_scores(ctc_lp, lens, r_g0, last0, cand0, True)
-    r_g1 = r_h0[:, :, 0]  # parents that emitted one token: the general case
-    last1 = cand0[:, :, 0]
+    _, r_h0, _ = cpc.prefix_scores_fused_plain(ctc_lp, lens, r_g0, last0, cand0, 1)
+    last1 = cand0[:, :, 0].contiguous()
     cand1 = torch.randint(1, vocab, (b, w, k_cand), generator=gen, device=dev)
     cand1[:, :, 1] = last1
-    ins = ctc_prefix.recursion_inputs(ctc_lp, lens, r_g1, last1, cand1, False)
-    got = cpc.prefix_recursion(*ins)
-    want = cpc.prefix_recursion_plain(*ins)
-    # cells unreachable in the plain version (NEG sums) must stay below the
-    # NEG/2 guard of the log-sum-exp that consumes them
-    err = max(compare(f"prefix_recursion {nm}", g, wt, rtol=1e-5, atol=2e-3,
-                      unreachable=ctc_prefix.NEG / 2)
-              for nm, g, wt in zip(("r_n", "r_b", "psi"), got, want))
-    t_p, n_p = ins[0].shape
-    # the function's least traffic: ctc_lp and the parents' r_g in, the
-    # candidate and last-token ids, r_n, r_b and psi out; ~30 operations per
-    # valid (t, column) cell
-    nb = (4 * (ctc_lp.numel() + r_g1.numel() + 2 * t_p * n_p + n_p + b)
-          + 8 * (cand1.numel() + last1.numel()))
-    nf = 30 * float(ins[3].sum())
-    out["prefix_recursion"] = dict(
-        route="cuda", source="e2e_asr_tpu_torch/csrc/ctc_prefix.cu",
-        replaces="e2e_asr_tpu/decode/ctc_prefix_pallas.py:155", max_abs_err=err,
-        ms=time_ms(lambda: cpc.prefix_recursion(*ins), 20),
-        plain_ms=time_ms(lambda: cpc.prefix_recursion_plain(*ins), 3, 1),
-        library_ms=None, bound=bound_ms(nb, nf), shapes=f"[T={t_p}, N={n_p}]",
-    )
-    return out
+    return ctc_lp, lens.to(torch.int32), r_h0[:, :, 0].contiguous(), last1, cand1, 0
+
+
+def _repeat_and_sync(name, call, first) -> dict:
+    """Three more launches bitwise equal to the first (no atomics), then one
+    under PyTorch's sync debug mode set to raise: no device-to-host
+    synchronisation, so a CUDA graph can capture the call."""
+    for _ in range(3):
+        again = call()
+        if not all(torch.equal(x, y) for x, y in zip(first, again)):
+            fail(f"{name}: a repeat on the same inputs differs")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"  {name}: repeats bitwise; no host sync", flush=True)
+    return {"repeats_bitwise": True, "host_sync": False}
+
+
+# The CTC prefix side of one beam step as a tree's beam loop runs it, timed in
+# a process of its own over the package of the tree at its working directory:
+# prefix_scores_fused + the r_h gather where the tree has the fused entry,
+# else prefix_scores + eos_score + the gather (the composition it replaces).
+# Prints one JSON line: device ms a call (queued behind a spin), host ms a
+# call, device launches a call (profiler).
+PREFIX_PATH = """
+import json, time, torch
+from torch.profiler import ProfilerActivity, profile
+from e2e_asr_tpu_torch.decode import ctc_prefix
+from e2e_asr_tpu_torch.device import resolve_device
+dev = resolve_device("cuda")
+g = torch.Generator(device=dev)
+g.manual_seed(5)
+b, w, t, v, k = 16, 16, 204, 26, 24
+logits = 3.0 * torch.randn((b, t, v), generator=g, device=dev)
+logits[:, :, 0] += 2.0
+lp = torch.log_softmax(logits, -1)
+lens = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
+lens[0] = t
+r_g = ctc_prefix.init_empty_prefix(lp, lens, w)
+cand = torch.randint(1, v, (b, w, k), generator=g, device=dev)
+last = torch.randint(1, v, (b, w), generator=g, device=dev)
+live = torch.randint(0, w * k, (b, w), generator=g, device=dev)
+rows = torch.arange(b, device=dev)[:, None]
+parent = live // k
+fused = getattr(ctc_prefix, "prefix_scores_fused", None)
+if fused is not None:
+    len32 = lens.to(torch.int32)
+    def path():
+        psi, r_h, eos = fused(lp, len32, r_g, last, cand, False)
+        return r_h[rows, parent, live % k], psi, eos
+else:
+    def path():
+        psi, r_h = ctc_prefix.prefix_scores(lp, lens, r_g, last, cand, prefix_is_empty=False)
+        eos = ctc_prefix.eos_score(r_g, lens)
+        return r_h[rows, parent, live % k], psi, eos
+for _ in range(3):
+    path()
+torch.cuda.synchronize()
+n = 20
+t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+torch.cuda._sleep(2_000_000 * n)
+t0.record()
+for _ in range(n):
+    path()
+t1.record()
+torch.cuda.synchronize()
+h0 = time.perf_counter()
+for _ in range(n):
+    path()
+torch.cuda.synchronize()
+host_ms = (time.perf_counter() - h0) * 1e3 / n
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    path()
+    torch.cuda.synchronize()
+launches = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+print(json.dumps({"fused": fused is not None, "ms": t0.elapsed_time(t1) / n, "host_ms": host_ms,
+                  "launches": launches}))
+"""
+
+
+def parent_prefix_path(parent: str) -> dict:
+    """The CTC prefix side of a beam step (PREFIX_PATH) in the parent's
+    checkout at ``parent`` and in this one, in turns (parent, change, change,
+    parent); medians of each tree's two runs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"parent": [], "change": []}
+    for which in ("parent", "change", "change", "parent"):
+        root = os.path.abspath(parent) if which == "parent" else here
+        proc = subprocess.run([sys.executable, "-c", PREFIX_PATH], cwd=root, capture_output=True, text=True,
+                              env={**os.environ, "PYTHONPATH": root}, timeout=600)
+        if proc.returncode != 0:
+            fail(f"the {which}'s prefix path did not run: {proc.stderr[-2000:]}")
+        runs[which].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    res = {}
+    for which, rs in runs.items():
+        res[which] = {key: sorted(r[key] for r in rs)[len(rs) // 2] if key != "fused" else rs[0][key]
+                      for key in rs[0]}
+        res[which]["runs"] = rs
+    print(f"  CTC prefix side of a beam step, parent (prefix_scores + eos_score + gather) vs change "
+          f"(prefix_scores_fused + gather): device {res['parent']['ms']:.4f} vs {res['change']['ms']:.4f} ms, "
+          f"host {res['parent']['host_ms']:.3f} vs {res['change']['host_ms']:.3f} ms, launches "
+          f"{res['parent']['launches']} vs {res['change']['launches']}", flush=True)
+    return res
 
 
 def _lstm_inputs(gen, dev, s_len, b, d, h, lens):
@@ -1170,8 +1331,10 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi):
     before and read just after; then the same batch with the kernels and
     with the plain versions on the card: top-beam scores within rel 1e-3 and
     identical top hypotheses."""
+    from torch.profiler import ProfilerActivity, profile
+
     from e2e_asr_tpu_torch import cuda_build
-    from e2e_asr_tpu_torch.decode.ctc_prefix_cuda import prefix_recursion
+    from e2e_asr_tpu_torch.decode.ctc_prefix_cuda import prefix_scores_fused
     from e2e_asr_tpu_torch.ops.att_step_cuda import att_step_beam_loc
     from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
 
@@ -1179,7 +1342,7 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi):
     solver.decode_batch(batch.wav, batch.wav_len)  # warm-up (cuBLAS/cuDNN handles)
     torch.cuda.synchronize()
     wrappers = {"log_mel": log_mel, lstm_fwd[0]: lstm_fwd[1],
-                "att_step_beam_loc": att_step_beam_loc, "prefix_recursion": prefix_recursion}
+                "att_step_beam_loc": att_step_beam_loc, "prefix_recursion": prefix_scores_fused}
     for fn in wrappers.values():
         fn.launches = 0
     solver.exec()
@@ -1193,6 +1356,15 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi):
     print(f"e2e (rnn_impl {impl}): {st['utts']} utts, {st['audio_sec']:.2f} audio-s in {st['wall_s']:.3f}s "
           f"wall = {rate:.2f} audio-s/s on {smi} (decode B=16 W=16, seed-{SEED} weights, cer {st['cer']:.3f})",
           flush=True)
+
+    # device launches of one decoded batch and of one beam step (profiler)
+    steps = solver.max_step_for(batch.wav.shape[1])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solver.decode_batch(batch.wav, batch.wav_len)
+        torch.cuda.synchronize()
+    batch_launches = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"decode launches (rnn_impl {impl}): {batch_launches} a batch of {steps} beam steps, "
+          f"{batch_launches / steps:.1f} a step", flush=True)
 
     # ---- the same batch with kernels and with plain versions, on the card
     res_k = solver.decode_batch(batch.wav, batch.wav_len)
@@ -1217,15 +1389,17 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi):
     if same < 16:
         fail("kernel decode and plain decode differ in top hypotheses")
     return dict(launches=launches, e2e=st, audio_s_per_s=rate, top_score_rel_diff=score_err,
-                identical_top=same, top_tokens=res_k.tokens[:, 0].cpu(), top_scores=sk)
+                identical_top=same, top_tokens=res_k.tokens[:, 0].cpu(), top_scores=sk,
+                device_launches_a_batch=batch_launches, beam_steps=steps)
 
 
-def main(json_path: str = "") -> None:
+def main(json_path: str = "", parent: str = "") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
         from e2e_asr_tpu_torch import cuda_build
-        from e2e_asr_tpu_torch.bin.profile_decode import FLAGSHIP, PHASE_VARIANTS, smoke_solver
+        from e2e_asr_tpu_torch.bin.profile_decode import (DECODE_PHASE_VARIANTS, FLAGSHIP, PHASE_VARIANTS,
+                                                          smoke_solver)
         from e2e_asr_tpu_torch.device import resolve_device
         from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_fwd, lstm_seq_fwd
         from e2e_asr_tpu_torch.training.step import Trainer  # noqa: F401
@@ -1241,7 +1415,7 @@ def main(json_path: str = "") -> None:
     print(smi, flush=True)
     dev = resolve_device("cuda")
     t0 = time.time()
-    logs = cuda_build.build_all(PHASE_VARIANTS)  # the scan kernels' timing build too
+    logs = cuda_build.build_all(PHASE_VARIANTS + DECODE_PHASE_VARIANTS)  # the timing and ablation builds too
     print(f"build: {time.time() - t0:.1f}s for {sorted(logs) or 'nothing (cached)'}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1255,6 +1429,8 @@ def main(json_path: str = "") -> None:
     kern.update(train_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(scan_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(lstm_seq_checks(dev))
+    if parent:
+        kern["prefix_recursion"]["parent_path"] = parent_prefix_path(parent)
 
     # ---- the serving path through the CLI's Solver, on the card, under
     # either LSTM route: the default first, then the fused-projection kernel
@@ -1308,7 +1484,9 @@ def main(json_path: str = "") -> None:
             "launches_by_path": by_path,
             **{k: kv[k] for k in ("per_width", "per_shape", "layer_routes", "loss_fwd_bwd_ms",
                                   "launches_per_fwd_bwd", "device_launches_per_fwd_bwd",
-                                  "ms_sampled", "ms_s764_l8", "phases_us", "grid", "alternating", "plan")
+                                  "ms_sampled", "ms_s764_l8", "phases_us", "grid", "alternating", "plan",
+                                  "ms_s764", "tanh_floor_ms", "ablations_ms", "repeats_bitwise", "host_sync",
+                                  "parent_path")
                                   if k in kv},
         })
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
@@ -1324,6 +1502,9 @@ def main(json_path: str = "") -> None:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="chip smoke run of the PyTorch/CUDA port")
+    ap.add_argument("--parent", default="", help="a checkout of the parent commit: time the CTC prefix side "
+                    "of a beam step there and here, in turns")
     ap.add_argument("--json", default="", help="where to write the detailed JSON "
                     "(default: e2e_asr_tpu_torch/_build/chip_smoke.json)")
-    main(ap.parse_args().json)
+    args = ap.parse_args()
+    main(args.json, args.parent)

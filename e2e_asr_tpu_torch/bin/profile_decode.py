@@ -18,11 +18,12 @@ and the kernels by device time. Writes the same as JSON to ``--out``
 (default ``e2e_asr_tpu_torch/_build/profile_decode.json`` or
 ``profile_train.json``).
 
-``--att-phases`` instead splits one launch of the beam attention step
-(``att_step_beam_loc``) into its phases: its timing build (``-DATT_PHASES``)
-runs at the flagship decode shapes (B=16, W=16, S=204, Dk=300, E=640, K=10,
-P=201, lengths in [S/2, S]) and block 0's us per phase are printed
-(``profile_att_phases.json``).
+``--decode-phases`` instead splits one launch of each decode kernel into
+its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
+the flagship decode shapes (B=16, W=16, S=T=204, Dk=300, E=640, K=10, P=201,
+24 candidates a beam, vocabulary 26, lengths in [S/2, S]) and block 0's us
+per phase are printed beside each kernel's device time
+(``profile_decode_phases.json``).
 
 ``--train --scan-phases`` instead splits one step of each fused speller
 scan kernel into its phases: the kernels' timing build (``-DSCAN_PHASES``,
@@ -331,43 +332,106 @@ def flagship_att_inputs(dev, seed: int = 1):
             0.1 * torch.randn((dk,), generator=gen, device=dev), float(ac.temperature))
 
 
-def att_phase_split(args, iters: int = 20) -> dict:
-    """The per-phase split of one launch of the beam attention step (timing
-    build: block 0 marks the global timer at every phase boundary), mean us
-    per phase over ``iters`` launches, beside the timing build's and the
-    normal build's ms a launch (CUDA events). Launch counters are not
-    touched."""
+def device_ms(fn, iters: int = 20) -> float:
+    """ms a call of ``fn`` on the card (CUDA events over ``iters`` calls),
+    the calls queued behind a spin of the card long enough that the host's
+    issue of them does not pace the card: device time, not launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+SPIN_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock per queued call: above a wrapper's host time
+# the attention step's ablation builds, timed beside it: tanh through the
+# special-function unit, no tanh, one TF32 product in place of three, neither
+ATT_ABLATIONS = (("ATT_TANH_FAST",), ("ATT_ABLATE_TANH",), ("ATT_ABLATE_SPLIT",),
+                 ("ATT_ABLATE_TANH", "ATT_ABLATE_SPLIT"))
+DECODE_PHASE_VARIANTS = (("att_step", ("ATT_PHASES",)), ("ctc_prefix", ("PREFIX_PHASES",))) + tuple(
+    ("att_step", d) for d in ATT_ABLATIONS)
+
+
+def _phase_split(launch, phase_fn: str, lib: str, defines, names, iters: int) -> dict:
+    """Mean us per phase over ``iters`` launches of a timing build (block 0
+    sums the global timer's advance over each phase; ``phase_fn`` copies the
+    sums out), beside the timing build's and the normal build's device ms."""
     from e2e_asr_tpu_torch import cuda_build
+
+    out = torch.zeros(16, dtype=torch.int64, device="cuda")
+    sums = torch.zeros(len(names), dtype=torch.float64)
+    for _ in range(iters):
+        launch(defines)
+        cuda_build.launch(lib, phase_fn, out, out.numel(), defines=defines)
+        sums += out[:len(names)].double().cpu()
+    return {"phases_us": {nm: float(x) / iters / 1e3 for nm, x in zip(names, sums)},
+            "timing_build_ms": device_ms(lambda: launch(defines), iters), "ms": device_ms(lambda: launch(()), iters)}
+
+
+def att_phase_split(args, iters: int = 20) -> dict:
+    """The beam attention step's phases (``att_step_cuda.PHASES``) at
+    ``args`` and its launch plan. Launch counters are not touched."""
     from e2e_asr_tpu_torch.ops import att_step_cuda as asc
 
-    def ms(defines):
-        asc._launch(defines, *args)
-        torch.cuda.synchronize()
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        for _ in range(iters):
-            asc._launch(defines, *args)
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / iters
-
-    n = len(asc.PHASES) + 1
-    out = torch.zeros(16, dtype=torch.int64, device="cuda")
-    sums = torch.zeros(len(asc.PHASES), dtype=torch.float64)
-    for _ in range(iters):
-        asc._launch(asc.PHASE_BUILD, *args)
-        cuda_build.launch("att_step", "e2e_att_step_phase_times", out, out.numel(), defines=asc.PHASE_BUILD)
-        marks = out[:n].double().cpu()
-        sums += marks[1:] - marks[:-1]
-    phases = {nm: float(x) / iters / 1e3 for nm, x in zip(asc.PHASES, sums)}
-    return {"phases_us": phases, "timing_build_ms": ms(asc.PHASE_BUILD), "ms": ms(())}
+    q, prev, k, v, *_ = args
+    res = _phase_split(lambda d: asc._launch(d, *args), "e2e_att_step_phase_times", "att_step",
+                       asc.PHASE_BUILD, asc.PHASES, iters)
+    res["plan"] = asc.plan(*prev.shape, k.shape[2], v.shape[2], args[5].shape[0], args[5].shape[1])
+    res["ablations_ms"] = {"+".join(d): device_ms(lambda: asc._launch(d, *args), iters) for d in ATT_ABLATIONS}
+    return res
 
 
-def print_att_phases(split: dict) -> None:
-    parts = ", ".join(f"{k} {v:.2f}" for k, v in split["phases_us"].items())
-    print(f"att_step_beam_loc phases, block 0, us (timing build {split['timing_build_ms'] * 1e3:.1f} us a "
-          f"launch; normal build {split['ms'] * 1e3:.1f} us): {parts}; sum "
-          f"{sum(split['phases_us'].values()):.2f} us", flush=True)
+def flagship_prefix_inputs(dev, seed: int = 3):
+    """The fused CTC prefix function's inputs at the flagship decode shapes
+    (B=16, W=16, K=24 candidates a beam, T=204, vocabulary 26, lengths in
+    [T/2, T] with the first at T): parents that emitted one token, one
+    candidate of each beam equal to its last token, as ``chip_smoke.py``
+    draws them."""
+    from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
+    from e2e_asr_tpu_torch.decode.ctc_prefix import init_empty_prefix
+
+    cfg = flagship_smoke_config()
+    b, w, t, vocab = cfg.decode.batch_size, cfg.decode.beam_size, 816 // 4, 26
+    k = min(vocab, max(w, int(w * cfg.decode.ctc_beam_ratio)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    logits = 3.0 * torch.randn((b, t, vocab), generator=gen, device=dev)
+    logits[:, :, 0] += 2.0
+    ctc_lp = torch.log_softmax(logits, -1)
+    lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev)
+    lens[0] = t
+    cand0 = torch.randint(1, vocab, (b, w, k), generator=gen, device=dev)
+    last0 = torch.zeros((b, w), dtype=torch.long, device=dev)
+    _, r_h0, _ = cpc.prefix_scores_fused_plain(ctc_lp, lens, init_empty_prefix(ctc_lp, lens, w), last0, cand0, 1)
+    last1 = cand0[:, :, 0].contiguous()
+    cand1 = torch.randint(1, vocab, (b, w, k), generator=gen, device=dev)
+    cand1[:, :, 1] = last1
+    return ctc_lp, lens.to(torch.int32), r_h0[:, :, 0].contiguous(), last1, cand1, 0
+
+
+def prefix_phase_split(args, iters: int = 20) -> dict:
+    """The fused CTC prefix kernel's phases (``ctc_prefix_cuda.PHASES``) at
+    ``args``. Launch counters are not touched."""
+    from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
+
+    return _phase_split(lambda d: cpc._launch(d, *args), "e2e_prefix_phase_times", "ctc_prefix",
+                        cpc.PHASE_BUILD, cpc.PHASES, iters)
+
+
+def print_decode_phases(split: dict) -> None:
+    for name, sp in split.items():
+        parts = ", ".join(f"{k} {v:.2f}" for k, v in sp["phases_us"].items())
+        print(f"{name} phases, block 0, us (timing build {sp['timing_build_ms'] * 1e3:.1f} us a launch; normal "
+              f"build {sp['ms'] * 1e3:.1f} us{'; plan ' + str(sp['plan']) if 'plan' in sp else ''}): {parts}; "
+              f"sum {sum(sp['phases_us'].values()):.2f} us", flush=True)
+        if "ablations_ms" in sp:
+            abl = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sp["ablations_ms"].items())
+            print(f"  {name} ablation builds, us a launch: {abl}", flush=True)
 
 
 def print_scan_phases(split: dict) -> None:
@@ -391,8 +455,8 @@ def main(argv=None):
                     help="kernel pair of the BiLSTM layers (encoder.rnn_impl)")
     ap.add_argument("--scan-phases", action="store_true",
                     help="with --train: split a step of each fused scan kernel into its phases")
-    ap.add_argument("--att-phases", action="store_true",
-                    help="split a launch of the beam attention step into its phases")
+    ap.add_argument("--decode-phases", action="store_true",
+                    help="split a launch of each decode kernel into its phases")
     ap.add_argument("--cluster-sizes", default="",
                     help="with --scan-phases: comma-separated cluster sizes to split the kernels at "
                          "(default: the size the grid picks)")
@@ -404,21 +468,22 @@ def main(argv=None):
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
-    what = ("scan_phases" if args.scan_phases else "att_phases" if args.att_phases
+    what = ("scan_phases" if args.scan_phases else "decode_phases" if args.decode_phases
             else "train" if args.train else "decode")
     out = args.out or os.path.join(cuda_build.BUILD_DIR, f"profile_{what}.json")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    if args.att_phases:
+    if args.decode_phases:
         from e2e_asr_tpu_torch.device import resolve_device
-        from e2e_asr_tpu_torch.ops import att_step_cuda as asc
 
-        cuda_build.build_all([("att_step", asc.PHASE_BUILD)])
-        split = att_phase_split(flagship_att_inputs(resolve_device("cuda")))
-        print(f"{card}: beam attention step at the flagship decode shapes")
-        print_att_phases(split)
+        cuda_build.build_all(DECODE_PHASE_VARIANTS)
+        dev = resolve_device("cuda")
+        split = {"att_step_beam_loc": att_phase_split(flagship_att_inputs(dev)),
+                 "prefix_recursion": prefix_phase_split(flagship_prefix_inputs(dev))}
+        print(f"{card}: decode kernels at the flagship decode shapes")
+        print_decode_phases(split)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
             json.dump({"card": card, **split}, f, indent=1)

@@ -11,46 +11,92 @@
 // kernel it reads the 2K+1 conv taps directly instead of a [K, S, S]
 // Toeplitz bank (23 MB of f32 per step at S = 764).
 //
-// What bounds it on the H100: bytes. Per utterance it must read k [S, Dk]
-// and v [S, E] (0.77 MB at S = 204, Dk = 300, E = 640) and per beam only
-// O(S) more, against ~2*S*(P*K + Dk*K + E) operations per beam, under
-// the card's balance point at W = 16.
-// Design: one block per (utterance, beam). prev_att, the taps, wlp, q+locb
-// and locv sit in shared memory; the location features are computed there
-// from the taps; one warp per encoder frame reduces the tanh energy over
-// Dk; a block-wide max/sum gives the softmax; threads over E accumulate the
-// context. Frames past enc_len are never read from k or v: their energy is
-// the mask value. The W beams of an utterance read the same k/v rows, which
-// the 50 MB L2 serves after the first beam.
+// What bounds it on the H100: issue, not bytes. Per utterance the function
+// reads k [S, Dk] and v [S, E] once (0.77 MB at S = 204, Dk = 300, E = 640),
+// but every beam evaluates W x frames x Dk accurate tanhf (12.8 M a call at
+// the flagship decode shapes, ~15 instructions and two special-function ops
+// each) beside f @ wlp, and a conv of W x frames x K x P multiply-adds
+// (~87 M); the longest utterance's cluster sets the time. The first design
+// (a block per (utterance, beam)) spent 140 of its ~180 us in the energies
+// (block 0, timing build): one warp a frame over Dk with the K = 10 products
+// f @ wlp as scalar FMAs, and every beam re-reading k and v.
+// Design: one thread-block cluster of CL blocks per utterance (CL picked by
+// e2e_att_step_plan from the clusters the card can hold at once: 6 at the
+// flagship, 17 of them resident, where 16 clusters of 8 do not fit). Each block takes a slice of the utterance's valid frames for
+// all W beams at once, so k and v are read from memory once an utterance:
+//   - staging, all with cp.async: the taps (then transposed, 4 filters a
+//     16-byte load), wlp, locv, q + locb of all beams and each beam's window
+//     of prev_att around the slice in shared memory; v's slice prefetched
+//     into L2; the slice's k rows in tiles of TF frames, behind the conv;
+//   - conv: a thread an item (4 filters, beam, 4 frames) over all taps, the
+//     4 frames' window slid through registers, 16 FMAs a tap; a warp's
+//     items share their filters, so the taps' loads are broadcasts;
+//   - energies: rows (beam, frame) of the tile in 16-row tiles; f @ wlp on
+//     the tensor cores (mma m16n8k8, three TF32 products for float32
+//     accuracy) for NB n-tiles at once, then locv . tanhf(k + q + fW) on the
+//     CUDA cores in the lanes' registers (accurate tanhf: tanh.approx errs
+//     by ~5e-4); the (row tile, Dk chunk) units dealt over the warps, the
+//     chunks' partial sums added in a fixed order;
+//   - softmax: each block's per-beam max and sum, exchanged through
+//     distributed shared memory after a cluster barrier and combined in
+//     rank order;
+//   - context: the block's align [W, frames] @ v [frames, E] on the tensor
+//     cores (three TF32 products), v in tiles of TF frames through shared
+//     memory (the first copied behind the softmax); the blocks' partial
+//     contexts summed in rank order by the block that owns each slice of E,
+//     after a second cluster barrier.
+// No atomics, every sum in a fixed order: repeats are bitwise. The wrapper
+// launches it on PyTorch's stream with no host synchronisation.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int NT = 512;  // threads a block
+constexpr int NW = NT / 32;
+constexpr int CLMAX = 8;   // blocks a cluster, at most (the portable cluster size)
+constexpr int TF = 48;     // frames of k a tile
+constexpr int KSMAX = 2;   // k-steps of f @ wlp (K <= 16)
+constexpr int NPW = 8;     // n-tiles of the context a warp holds at once
+constexpr int NCHMAX = 8;  // chunks of Dk the energies' units split into, at most
+constexpr int NB = 4;      // n-tiles of the energies a warp takes at once
+constexpr float LOWEST = -3.402823466e38f;  // -FLT_MAX
+constexpr size_t SMEM_MAX = 227 * 1024;
 
-// Timing build (nvcc -DATT_PHASES): block 0 writes the global timer (ns) at
-// each phase boundary (after a __syncthreads) into g_att_ts; the normal
-// build compiles the marks away. e2e_att_step_phase_times copies them out.
+// Timing build (nvcc -DATT_PHASES): thread 0 of block 0 adds the global
+// timer's advance (ns) over each phase, after a __syncthreads that closes
+// it for the block, into its own counters and writes them to g_att_ts at
+// the end; the normal build compiles the marks away.
 constexpr int ATT_SLOTS = 16;
 #ifdef ATT_PHASES
 __device__ unsigned long long g_att_ts[ATT_SLOTS];
-#define PHASE(i)                                                                         \
-  do {                                                                                   \
-    __syncthreads();                                                                     \
-    if (blockIdx.x == 0 && threadIdx.x == 0) {                                           \
-      unsigned long long t_;                                                             \
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                            \
-      g_att_ts[i] = t_;                                                                  \
-    }                                                                                    \
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define PHASE(i)                                        \
+  do {                                                  \
+    __syncthreads();                                    \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {          \
+      const unsigned long long now_ = global_ns();      \
+      ph_ns[i] += now_ - ph_last;                       \
+      ph_last = now_;                                   \
+    }                                                   \
   } while (0)
 #else
 #define PHASE(i) \
   do {           \
   } while (0)
 #endif
-constexpr float NEG = -1.0e9f;
-constexpr float LOWEST = -3.402823466e38f;  // -FLT_MAX
+// the phases (ops/att_step_cuda.py PHASES)
+enum { PH_STAGE, PH_CONV, PH_ENERGY, PH_SOFTMAX, PH_BAR1, PH_ALIGN, PH_CONTEXT, PH_BAR2, PH_REDUCE, PH_N };
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -64,113 +110,479 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// reduce over the block; red has THREADS/32 slots; every thread gets the result
-template <bool IS_MAX>
-__device__ float block_reduce(float x, float* red) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  x = IS_MAX ? warp_max(x) : warp_sum(x);
-  __syncthreads();
-  if (lane == 0) red[wid] = x;
-  __syncthreads();
-  float y = lane < THREADS / 32 ? red[lane] : (IS_MAX ? LOWEST : 0.0f);
-  return IS_MAX ? warp_max(y) : warp_sum(y);
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Ablation builds, timed only (bin/profile_decode.py --decode-phases): the
+// energies with tanh(x) = 1 - 2 / (exp(2x) + 1) through the special-function
+// unit (-DATT_TANH_FAST; absolute error ~1e-6), with no tanh at all
+// (-DATT_ABLATE_TANH) and with one TF32 product in place of three
+// (-DATT_ABLATE_SPLIT); the last two compute wrong values.
+#if defined(ATT_ABLATE_TANH)
+#define TANH(x) (x)
+#elif defined(ATT_TANH_FAST)
+__device__ __forceinline__ float tanh_fast(float x) { return 1.0f - __fdividef(2.0f, __expf(2.0f * x) + 1.0f); }
+#define TANH tanh_fast
+#else
+#define TANH tanhf
+#endif
+
+// row strides: k tile [TF][KS] and wlp [K][WLS] with stride = 8 mod 32 (a
+// quarter warp's fragment and pair loads free of bank conflicts); f [rows]
+// [KPS] with KPS = 4 mod 8 (the A fragments' eight rows on distinct banks)
+__host__ __device__ inline int stride8(int n) { return n <= 8 ? 8 : cdiv(n - 8, 32) * 32 + 8; }
+__host__ __device__ inline int kps_of(int K) { return cdiv(K + 4, 8) * 8 - 4; }
+
+// a region of n floats at offset o, o moved past it to the next 16 bytes
+// (cp.async and float4 loads need 16-byte aligned shared memory)
+__host__ __device__ inline size_t take(size_t& o, size_t n) {
+  const size_t at = o;
+  o = (o + n + 3) / 4 * 4;
+  return at;
 }
 
-__global__ void __launch_bounds__(THREADS)
-att_step_kernel(const float* __restrict__ q, const float* __restrict__ prev_att,
-                const float* __restrict__ k, const float* __restrict__ v,
-                const int* __restrict__ enc_len, const float* __restrict__ taps,
-                const float* __restrict__ wlp, const float* __restrict__ locv,
-                const float* __restrict__ locb, float* __restrict__ align,
-                float* __restrict__ ctx, int W, int S, int Dk, int E, int K, int P,
-                float inv_temp) {
-  extern __shared__ float smem[];
-  float* att = smem;             // [S]
-  float* f = att + S;            // [S][K]
-  float* en = f + S * K;         // [S]
-  float* tp = en + S;            // [K][P]
-  float* wl = tp + K * P;        // [K][Dk]
-  float* qb = wl + K * Dk;       // [Dk]  q + locb
-  float* lv = qb + Dk;           // [Dk]
-  float* red = lv + Dk;          // [THREADS / 32]
+struct Layout {
+  size_t tt, wl, lv, lb, qb, aw, en, stat, scl, kb, fs, ep, vt, ctxp, total;
+  int SbM, AW, KP4, KS, WLS, KPS, QS, VS;
+};
 
-  const int bw = blockIdx.x;
-  const int b = bw / W;
-  const int L = min(max(enc_len[b], 0), S);
+// shared-memory layout, in floats: per launch shapes only (the slice of a
+// block is at most SbM = ceil(S / CL) frames)
+__host__ __device__ inline Layout att_layout(int W, int S, int Dk, int E, int K, int P, int CL) {
+  Layout l;
+  l.SbM = cdiv(S, CL);
+  l.AW = cdiv(l.SbM + P + 3, 4) * 4;  // a beam's window of prev_att around the slice
+  l.KP4 = cdiv(K, 4) * 4;
+  l.KS = stride8(Dk);
+  l.WLS = stride8(Dk);
+  l.KPS = kps_of(K);
+  l.QS = cdiv(Dk, 8) * 8;
+  l.VS = stride8(E);
+  const int rows = W * TF;
+  size_t o = 0;
+  l.tt = take(o, (size_t)P * l.KP4);         // taps [P][KP4]
+  l.wl = take(o, (size_t)K * l.WLS);         // wlp [K][WLS]
+  l.lv = take(o, (size_t)cdiv(Dk, 8) * 8);   // locv (zeros past Dk)
+  l.lb = take(o, (size_t)Dk);                // locb
+  l.qb = take(o, (size_t)W * l.QS);          // q + locb [W][QS]
+  l.aw = take(o, (size_t)W * l.AW);          // prev_att windows [W][AW]
+  l.en = take(o, (size_t)W * l.SbM);         // energies, then align [W][SbM]
+  l.stat = take(o, 2 * (size_t)W);           // local max, sum [W][2]
+  l.scl = take(o, (size_t)W);                // scale of the local exps [W]
+  // the union: k tile, f and the energies' partial sums; then a v tile;
+  // then the partial context
+  const size_t u0 = o;
+  l.kb = take(o, (size_t)TF * l.KS);         // k tile [TF][KS]
+  const size_t f0 = o;
+  l.fs = take(o, (size_t)rows * l.KPS);      // f [W TF][KPS]
+  l.ep = take(o, (size_t)NCHMAX * rows);     // partial energies [NCH][W TF]
+  const size_t ts = f0 + (size_t)K * P;      // staging: the taps [K][P] as they come, at fs
+  o = o > ts ? o : ts;
+  l.vt = u0;                                 // v tile [TF][VS]
+  const size_t u1 = u0 + (size_t)TF * l.VS;
+  o = o > u1 ? o : u1;
+  if (W <= 16 && E <= NW * NPW * 8) {        // one pass of the context: its partial [W][E] in the union too
+    l.ctxp = u0;
+    const size_t u2 = u0 + (size_t)W * E;
+    o = o > u2 ? o : u2;
+  } else {
+    o = (o + 3) / 4 * 4;
+    l.ctxp = take(o, (size_t)W * E);
+  }
+  l.total = o;
+  return l;
+}
+
+struct Args {
+  const float *q, *prev_att, *k, *v;
+  const int* enc_len;
+  const float *taps, *wlp, *locv, *locb;
+  float *align, *ctx;
+  int B, W, S, Dk, E, K, P, CL;
+  float inv_temp;
+};
+
+__global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int W = a.W, S = a.S, Dk = a.Dk, E = a.E, K = a.K, P = a.P, CL = a.CL;
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.x / CL;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int g8 = lane >> 2, tig = lane & 3;
   const int half = (P - 1) / 2;
+  const int L = min(max(a.enc_len[b], 0), S);
+  const int Sb = cdiv(max(L, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, L - s0));
+  extern __shared__ float smem[];
+  const Layout ly = att_layout(W, S, Dk, E, K, P, CL);
+  const int AW = ly.AW, KP4 = ly.KP4, KS = ly.KS, WLS = ly.WLS, KPS = ly.KPS, QS = ly.QS, SbM = ly.SbM;
+  const int VS = ly.VS;
+  float* tt = smem + ly.tt;
+  float* wl = smem + ly.wl;
+  float* lv = smem + ly.lv;
+  float* lb = smem + ly.lb;
+  float* qb = smem + ly.qb;
+  float* aw = smem + ly.aw;
+  float* en = smem + ly.en;
+  float* stat = smem + ly.stat;
+  float* scl = smem + ly.scl;
+  float* kb = smem + ly.kb;
+  float* fs = smem + ly.fs;
+  float* ep = smem + ly.ep;
+  float* vt = smem + ly.vt;
+  float* ctxp = smem + ly.ctxp;
+#ifdef ATT_PHASES
+  unsigned long long ph_ns[PH_N] = {}, ph_last = 0;
+  if (blockIdx.x == 0 && tid == 0) ph_last = global_ns();
+#endif
 
-  PHASE(0);
-  for (int i = threadIdx.x; i < S; i += THREADS) att[i] = prev_att[(long)bw * S + i];
-  for (int i = threadIdx.x; i < K * P; i += THREADS) tp[i] = taps[i];
-  for (int i = threadIdx.x; i < K * Dk; i += THREADS) wl[i] = wlp[i];
-  for (int i = threadIdx.x; i < Dk; i += THREADS) {
-    qb[i] = q[(long)bw * Dk + i] + locb[i];
-    lv[i] = locv[i];
-  }
-  __syncthreads();
-  PHASE(1);  // staging
-
-  // location features of the valid frames, straight from the taps
-  for (int idx = threadIdx.x; idx < L * K; idx += THREADS) {
-    const int s = idx / K, kk = idx % K;
-    const int p0 = max(0, half - s), p1 = min(P, S + half - s);
-    const float* t = tp + kk * P;
-    float acc = 0.0f;
-    for (int p = p0; p < p1; ++p) acc = fmaf(att[s + p - half], t[p], acc);
-    f[s * K + kk] = acc;
-  }
-  __syncthreads();
-  PHASE(2);  // conv
-
-  // additive energies: one warp per frame, lanes over Dk
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const float* kb = k + (long)b * S * Dk;
-  for (int s = wid; s < S; s += THREADS / 32) {
-    float acc = 0.0f;
-    if (s < L) {
-      const float* fs = f + s * K;
-      for (int d = lane; d < Dk; d += 32) {
-        float fp = 0.0f;
-        for (int kk = 0; kk < K; ++kk) fp = fmaf(fs[kk], wl[kk * Dk + d], fp);
-        acc = fmaf(lv[d], tanhf(kb[(long)s * Dk + d] + qb[d] + fp), acc);
+  const float* kg = a.k + ((long)b * S + s0) * Dk;  // the slice's rows of k
+  const float* vg = a.v + ((long)b * S + s0) * E;   // and of v
+  // rows [f0, f0 + n) of width `width` from src into dst (row stride ds),
+  // in the background (16-byte copies where the rows allow them); the
+  // caller commits
+  auto load_rows = [&](float* dst, int ds, const float* src, int width, int f0, int n) {
+    if (width % 4 == 0 && ds % 4 == 0 && ((uintptr_t)src & 15) == 0) {
+      const int n4 = width / 4;
+      for (int x = tid; x < n * n4; x += NT) {
+        const int r = x / n4, c = (x % n4) * 4;
+        cp_async16(dst + r * ds + c, src + (long)(f0 + r) * width + c);
       }
-      acc = warp_sum(acc);
     } else {
-      acc = NEG;
+      for (int x = tid; x < n * width; x += NT) {
+        const int r = x / width, c = x % width;
+        cp_async4(dst + r * ds + c, src + (long)(f0 + r) * width + c);
+      }
     }
-    if (lane == 0) en[s] = acc * inv_temp;
+  };
+
+  // ---- staging, in the background: the constants (one group), then the
+  // first k tile (a second, waited for after the conv); zeros in every pad
+  // column the energies read, so that no lane needs a bound check there
+  {
+    float* tsc = fs;  // the taps as they come, [K][P]
+    load_rows(qb, QS, a.q + (long)b * W * Dk, Dk, 0, W);
+    load_rows(wl, WLS, a.wlp, Dk, 0, K);
+    for (int i = tid; i < K * P; i += NT) cp_async4(tsc + i, a.taps + i);
+    for (int i = tid; i < Dk; i += NT) {
+      cp_async4(lv + i, a.locv + i);
+      cp_async4(lb + i, a.locb + i);
+    }
+    for (int i = tid; i < W * AW; i += NT) {  // window j holds prev_att at frame s0 - half + j, 0 outside [0, S)
+      const int w = i / AW, x = s0 - half + i % AW;
+      const bool in = x >= 0 && x < S;
+      cp_async4_zfill(aw + i, a.prev_att + ((long)b * W + w) * S + (in ? x : 0), in ? 4 : 0);
+    }
+    cp_async_commit();
+    if (nv > 0) load_rows(kb, KS, kg, Dk, 0, min(nv, TF));
+    cp_async_commit();
+    for (long x = (long)tid * 32; x < (long)nv * E; x += (long)NT * 32)  // v's slice into L2
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(vg + x));
+    const int pad = QS - Dk;  // qb, lv and each k row past Dk
+    for (int i = tid; i < W * pad; i += NT) qb[(i / pad) * QS + Dk + i % pad] = 0.0f;
+    for (int i = tid; i < pad; i += NT) lv[Dk + i] = 0.0f;
+    for (int i = tid; i < TF * pad; i += NT) kb[(i / pad) * KS + Dk + i % pad] = 0.0f;
+    for (int i = tid; i < K * (WLS - Dk); i += NT) wl[(i / (WLS - Dk)) * WLS + Dk + i % (WLS - Dk)] = 0.0f;
+    cp_async_wait<1>();  // the constants
+    __syncthreads();
+    for (int i = tid; i < P * KP4; i += NT) {  // taps transposed: 4 filters a 16-byte load
+      const int pp = i / KP4, kk = i % KP4;
+      tt[i] = kk < K ? tsc[kk * P + pp] : 0.0f;
+    }
+    for (int i = tid; i < W * Dk; i += NT) qb[(i / Dk) * QS + i % Dk] += lb[i % Dk];  // q + locb
+    __syncthreads();
+  }
+  PHASE(PH_STAGE);
+
+  for (int f0 = 0; f0 < nv; f0 += TF) {
+    const int nt = min(TF, nv - f0), rows = W * nt;
+    // ---- conv: a thread an item (4 filters, beam, 4 frames) over all taps;
+    // the items of a warp share their filters, so that the taps' 16-byte
+    // loads are broadcasts, and step through the taps together
+    {
+      const int ng = cdiv(nt, 4), nk = cdiv(K, 4), items = W * ng * nk;
+      for (int item = tid; item < items; item += NT) {
+        const int kg4 = item / (W * ng), r = item % (W * ng), w = r / ng, fg = r % ng;
+        const float* win = aw + w * AW + f0 + 4 * fg;  // win[p + i] = prev_att at slice frame f0 + 4 fg + i, tap p
+        const float* tk = tt + 4 * kg4;
+        float acc[4][4] = {};
+        float w0 = win[0], w1 = win[1], w2 = win[2];
+#pragma unroll 4
+        for (int p = 0; p < P; ++p) {
+          const float w3 = win[p + 3];
+          const float4 tv = *reinterpret_cast<const float4*>(tk + p * KP4);
+          const float wv[4] = {w0, w1, w2, w3}, tp[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(wv[i], tp[c], acc[i][c]);
+          w0 = w1;
+          w1 = w2;
+          w2 = w3;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // all KP4 columns: zeros past K
+          const int sl = 4 * fg + i;
+          if (sl < nt) *reinterpret_cast<float4*>(fs + (w * nt + sl) * KPS + 4 * kg4) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        }
+      }
+    }
+    cp_async_wait_all();  // the tile's k rows
+    __syncthreads();
+    PHASE(PH_CONV);
+
+    // ---- energies: units (16-row tile, chunk of Dk's n-tiles), NB n-tiles
+    // of a unit at once: fW = f @ wlp on the tensor cores for all of them
+    // (K <= 16: at most two k-steps, accumulated in the tensor core), then
+    // their tanh terms on the CUDA cores
+    {
+      const int mt = cdiv(rows, 16), ntd = cdiv(Dk, 8), ks = cdiv(K, 8);
+      int nch = 1;  // chunks: the fewest rounds x NB-batches a warp
+      for (int c = 2; c <= NCHMAX; ++c)
+        if ((long)cdiv(mt * c, NW) * cdiv(cdiv(ntd, c), NB) < (long)cdiv(mt * nch, NW) * cdiv(cdiv(ntd, nch), NB))
+          nch = c;
+      const int cn = cdiv(ntd, nch);
+      // B rows of the lane (k = 8 s + tig and + 4), clamped into [0, K): the
+      // A columns past K are zero, so any finite row does
+      int wo[KSMAX][2];
+#pragma unroll
+      for (int s2 = 0; s2 < KSMAX; ++s2) {
+        wo[s2][0] = min(8 * s2 + tig, K - 1) * WLS + g8;
+        wo[s2][1] = min(8 * s2 + tig + 4, K - 1) * WLS + g8;
+      }
+      for (int u = wid; u < mt * nch; u += NW) {
+        const int mi = u / nch, ci = u % nch;
+        const int ra = mi * 16 + g8, rb = ra + 8;
+        const bool va = ra < rows, vb = rb < rows;
+        const int wa = va ? ra / nt : 0, sa = va ? ra % nt : 0, wb = vb ? rb / nt : 0, sb = vb ? rb % nt : 0;
+        uint32_t ah[KSMAX][4], al[KSMAX][4];
+#pragma unroll
+        for (int s2 = 0; s2 < KSMAX; ++s2) {
+          const int c0 = 8 * s2 + tig, c1 = c0 + 4;
+          const float av[4] = {va && c0 < KP4 ? fs[ra * KPS + c0] : 0.0f, vb && c0 < KP4 ? fs[rb * KPS + c0] : 0.0f,
+                               va && c1 < KP4 ? fs[ra * KPS + c1] : 0.0f, vb && c1 < KP4 ? fs[rb * KPS + c1] : 0.0f};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32_split(av[i], ah[s2][i], al[s2][i]);
+        }
+        const float* ka = kb + sa * KS + 2 * tig;
+        const float* kbr = kb + sb * KS + 2 * tig;
+        const float* qa = qb + wa * QS + 2 * tig;
+        const float* qbr = qb + wb * QS + 2 * tig;
+        const float* lw = lv + 2 * tig;
+        float r0 = 0.0f, r1 = 0.0f;
+        const int n_beg = ci * cn, n_end = min(ntd, n_beg + cn);
+        for (int nc = n_beg; nc < n_end; nc += NB) {
+          float fw[NB][4];
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            const int n0 = min(nc + j, n_end - 1) * 8;  // (a batch's tail repeats the last n-tile, unused)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) fw[j][i] = 0.0f;
+#pragma unroll
+            for (int s2 = 0; s2 < KSMAX; ++s2) {
+              if (s2 < ks) {  // three TF32 products: lo hi + hi lo + hi hi
+                uint32_t bh[2], bl[2];
+                tf32_split(wl[wo[s2][0] + n0], bh[0], bl[0]);
+                tf32_split(wl[wo[s2][1] + n0], bh[1], bl[1]);
+#ifndef ATT_ABLATE_SPLIT
+                mma_tf32(fw[j], al[s2], bh);
+                mma_tf32(fw[j], ah[s2], bl);
+#endif
+                mma_tf32(fw[j], ah[s2], bh);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NB; ++j) {
+            if (nc + j < n_end) {
+              const int d = (nc + j) * 8;  // the lane's columns d + 2 tig, + 1 (zeros past Dk)
+              const float2 kx = *reinterpret_cast<const float2*>(ka + d), ky = *reinterpret_cast<const float2*>(kbr + d);
+              const float2 qx = *reinterpret_cast<const float2*>(qa + d), qy = *reinterpret_cast<const float2*>(qbr + d);
+              const float2 l2 = *reinterpret_cast<const float2*>(lw + d);
+              r0 = fmaf(l2.x, TANH(kx.x + qx.x + fw[j][0]), r0);
+              r0 = fmaf(l2.y, TANH(kx.y + qx.y + fw[j][1]), r0);
+              r1 = fmaf(l2.x, TANH(ky.x + qy.x + fw[j][2]), r1);
+              r1 = fmaf(l2.y, TANH(ky.y + qy.y + fw[j][3]), r1);
+            }
+          }
+        }
+        r0 += __shfl_xor_sync(0xffffffffu, r0, 1);
+        r0 += __shfl_xor_sync(0xffffffffu, r0, 2);
+        r1 += __shfl_xor_sync(0xffffffffu, r1, 1);
+        r1 += __shfl_xor_sync(0xffffffffu, r1, 2);
+        if (tig == 0) {
+          if (va) ep[ci * W * TF + ra] = r0;
+          if (vb) ep[ci * W * TF + rb] = r1;
+        }
+      }
+      __syncthreads();
+      for (int r = tid; r < rows; r += NT) {
+        float e = 0.0f;
+        for (int c = 0; c < nch; ++c) e += ep[c * W * TF + r];
+        en[(r / nt) * SbM + f0 + r % nt] = e * a.inv_temp;
+      }
+    }
+    __syncthreads();  // the k tile, f and the partial sums are consumed
+    if (f0 + TF < nv) load_rows(kb, KS, kg, Dk, f0 + TF, min(TF, nv - f0 - TF));
+    cp_async_commit();
+    PHASE(PH_ENERGY);
+  }
+  // v's first tile into the union, behind the softmax and the barrier
+  if (nv > 0) load_rows(vt, VS, vg, E, 0, min(nv, TF));
+  cp_async_commit();
+
+  // ---- local softmax statistics, a warp a beam
+  for (int w = wid; w < W; w += NW) {
+    float m = LOWEST;
+    for (int sl = lane; sl < nv; sl += 32) m = fmaxf(m, en[w * SbM + sl]);
+    m = warp_max(m);
+    float l = 0.0f;
+    for (int sl = lane; sl < nv; sl += 32) {
+      const float ex = expf(en[w * SbM + sl] - m);
+      en[w * SbM + sl] = ex;
+      l += ex;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      stat[2 * w] = m;
+      stat[2 * w + 1] = l;
+    }
+  }
+  PHASE(PH_SOFTMAX);
+  cluster.sync();  // every block's statistics are readable
+  PHASE(PH_BAR1);
+
+  // ---- the cluster's statistics in rank order; this block's align
+  for (int w = tid; w < W; w += NT) {
+    float ms[CLMAX], ls[CLMAX];
+#pragma unroll
+    for (int q = 0; q < CLMAX; ++q) {
+      ms[q] = q < CL ? *cluster.map_shared_rank(stat + 2 * w, q) : LOWEST;
+      ls[q] = q < CL ? *cluster.map_shared_rank(stat + 2 * w + 1, q) : 0.0f;
+    }
+    float gm = LOWEST;
+#pragma unroll
+    for (int q = 0; q < CLMAX; ++q) gm = fmaxf(gm, ms[q]);
+    float z = 0.0f;
+#pragma unroll
+    for (int q = 0; q < CLMAX; ++q)
+      if (q < CL) z = fmaf(ls[q], expf(ms[q] - gm), z);
+    scl[w] = z > 0.0f ? expf(stat[2 * w] - gm) / z : 0.0f;
   }
   __syncthreads();
-  PHASE(3);  // energies
-
-  // masked softmax over S
-  float m = LOWEST;
-  for (int s = threadIdx.x; s < S; s += THREADS) m = fmaxf(m, en[s]);
-  m = block_reduce<true>(m, red);
-  float sum = 0.0f;
-  for (int s = threadIdx.x; s < S; s += THREADS) {
-    const float ex = expf(en[s] - m);
-    en[s] = ex;
-    sum += ex;
+  for (int i = tid; i < W * nv; i += NT) {
+    const int w = i / nv, sl = i % nv;
+    const float al = en[w * SbM + sl] * scl[w];
+    en[w * SbM + sl] = al;
+    a.align[((long)b * W + w) * S + s0 + sl] = al;
   }
-  sum = block_reduce<false>(sum, red);
-  const float inv = 1.0f / sum;
-  for (int s = threadIdx.x; s < S; s += THREADS) {
-    const float a = s < L ? en[s] * inv : 0.0f;
-    en[s] = a;
-    align[(long)bw * S + s] = a;
+  {  // frames past enc_len: zeros, split over the cluster's blocks
+    const int zb = cdiv(S - L, CL), z0 = L + rank * zb, z1 = min(S, z0 + zb);
+    for (int i = tid; i < W * max(0, z1 - z0); i += NT) {
+      const int w = i / (z1 - z0), s = z0 + i % (z1 - z0);
+      a.align[((long)b * W + w) * S + s] = 0.0f;
+    }
   }
   __syncthreads();
-  PHASE(4);  // softmax
+  PHASE(PH_ALIGN);
 
-  // context over the valid frames
-  const float* vb = v + (long)b * S * E;
-  for (int e = threadIdx.x; e < E; e += THREADS) {
-    float acc = 0.0f;
-    for (int s = 0; s < L; ++s) acc = fmaf(en[s], vb[(long)s * E + e], acc);
-    ctx[(long)bw * E + e] = acc;
+  // ---- partial context align [W, nv] @ v [nv, E] on the tensor cores, v
+  // in tiles of TF frames through shared memory: rows = beams (16-beam
+  // tiles), columns = E's n-tiles dealt over the warps (NPW each), k = frames
+  {
+    const int nte = cdiv(E, 8);
+    for (int m0 = 0; m0 < W; m0 += 16) {
+      const int wa = m0 + g8, wb = wa + 8;
+      for (int nb = 0; nb < nte; nb += NW * NPW) {
+        float acc[NPW][4] = {};
+        for (int f0 = 0; f0 < nv; f0 += TF) {
+          const int nt = min(TF, nv - f0);
+          if (m0 > 0 || nb > 0 || f0 > 0) load_rows(vt, VS, vg, E, f0, nt);  // (the first is in flight)
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
+          for (int s = 0; s < cdiv(nt, 8); ++s) {
+            const int fa = 8 * s + tig, fb = fa + 4;  // frames of the tile
+            const float av[4] = {wa < W && fa < nt ? en[wa * SbM + f0 + fa] : 0.0f,
+                                 wb < W && fa < nt ? en[wb * SbM + f0 + fa] : 0.0f,
+                                 wa < W && fb < nt ? en[wa * SbM + f0 + fb] : 0.0f,
+                                 wb < W && fb < nt ? en[wb * SbM + f0 + fb] : 0.0f};
+            uint32_t ahf[4], alf[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) tf32_split(av[i], ahf[i], alf[i]);
+#pragma unroll
+            for (int j = 0; j < NPW; ++j) {
+              const int nj = nb + wid + j * NW, e = nj * 8 + g8;
+              if (nj < nte) {
+                const float b0 = fa < nt && e < E ? vt[fa * VS + e] : 0.0f;
+                const float b1 = fb < nt && e < E ? vt[fb * VS + e] : 0.0f;
+                uint32_t bh[2], bl[2];
+                tf32_split(b0, bh[0], bl[0]);
+                tf32_split(b1, bh[1], bl[1]);
+                mma_tf32(acc[j], alf, bh);
+                mma_tf32(acc[j], ahf, bl);
+                mma_tf32(acc[j], ahf, bh);
+              }
+            }
+          }
+          __syncthreads();  // the tile is consumed (and, in one pass, the union free for ctxp)
+        }
+#pragma unroll
+        for (int j = 0; j < NPW; ++j) {
+          const int nj = nb + wid + j * NW, e = nj * 8 + 2 * tig;
+          if (nj >= nte) continue;
+          if (wa < W) {
+            if (e < E) ctxp[wa * E + e] = acc[j][0];
+            if (e + 1 < E) ctxp[wa * E + e + 1] = acc[j][1];
+          }
+          if (wb < W) {
+            if (e < E) ctxp[wb * E + e] = acc[j][2];
+            if (e + 1 < E) ctxp[wb * E + e + 1] = acc[j][3];
+          }
+        }
+      }
+    }
   }
-  PHASE(5);  // context
+  PHASE(PH_CONTEXT);
+  cluster.sync();  // every block's partial context is readable
+  PHASE(PH_BAR2);
+
+  // ---- this block's slice of E: the blocks' partials in rank order
+  {
+    const int ec = cdiv(E, CL), e0 = rank * ec, ne = max(0, min(ec, E - e0));
+    for (int i = tid; i < W * ne; i += NT) {
+      const int w = i / ne, e = e0 + i % ne;
+      float pv[CLMAX];
+#pragma unroll
+      for (int q = 0; q < CLMAX; ++q) pv[q] = q < CL ? *cluster.map_shared_rank(ctxp + w * E + e, q) : 0.0f;
+      float acc = 0.0f;
+#pragma unroll
+      for (int q = 0; q < CLMAX; ++q)
+        if (q < CL) acc += pv[q];
+      a.ctx[((long)b * W + w) * E + e] = acc;
+    }
+  }
+  PHASE(PH_REDUCE);
+  cluster.sync();  // no block leaves while another reads its shared memory
+#ifdef ATT_PHASES
+  if (blockIdx.x == 0 && tid == 0)
+    for (int i = 0; i < PH_N; ++i) g_att_ts[i] = ph_ns[i];
+#endif
+}
+
+cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* at, int grid, int CL, size_t smem,
+                          cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CL;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  return cudaFuncSetAttribute(att_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -179,27 +591,64 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q [B, W, Dk], prev_att [B, W, S], k [B, S, Dk], v [B, S, E], enc_len [B] int32,
-// taps [K, P], wlp [K, Dk], locv [Dk], locb [Dk] -> align [B, W, S], ctx [B, W, E].
-extern "C" int e2e_att_step_beam_loc(const float* q, const float* prev_att, const float* k,
-                                     const float* v, const int* enc_len, const float* taps,
-                                     const float* wlp, const float* locv, const float* locb,
-                                     float* align, float* ctx, int B, int W, int S, int Dk,
-                                     int E, int K, int P, float inv_temp, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)S * (K + 2) + (size_t)K * P + (size_t)K * Dk +
-                                       2 * (size_t)Dk + THREADS / 32);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(att_step_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The launch plan (host; asks the card once): out[0] = blocks a cluster, the
+// size (at most CLMAX, a layout within SMEM_MAX) with the least modelled time
+// for B utterances, out[1] = its clusters resident at once, out[2] =
+// shared-memory bytes a block; out[0] = 0 where no size fits.
+extern "C" int e2e_att_step_plan(int B, int W, int S, int Dk, int E, int K, int P, int* out, void* stream) {
+  out[0] = out[1] = out[2] = 0;
+  if (B < 1 || W < 1 || S < 1 || Dk < 1 || E < 1 || K < 1 || K > 8 * KSMAX || P < 1 || P % 2 != 1)
+    return (int)cudaErrorInvalidValue;
+  double best = 0.0;
+  for (int cl = CLMAX; cl >= 1; --cl) {
+    const size_t smem = sizeof(float) * att_layout(W, S, Dk, E, K, P, cl).total;
+    if (smem > SMEM_MAX) continue;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute at[1];
+    cudaError_t e = launch_config(cfg, at, cl, cl, smem, (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
+    int act = 0;
+    e = cudaOccupancyMaxActiveClusters(&act, (void*)att_step_kernel, &cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (act < 1) continue;
+    // rounds of clusters x frames a block (a cluster that waits for a free
+    // place costs a whole round: a block's fixed costs do not shrink with
+    // its frames)
+    const double cost = (double)cdiv(B, act) / cl;
+    if (out[0] == 0 || cost < best) {
+      best = cost;
+      out[0] = cl;
+      out[1] = act;
+      out[2] = (int)smem;
+    }
   }
-  att_step_kernel<<<B * W, THREADS, smem, (cudaStream_t)stream>>>(
-      q, prev_att, k, v, enc_len, taps, wlp, locv, locb, align, ctx, W, S, Dk, E, K, P, inv_temp);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
-// out [ATT_SLOTS] u64: the timing build's phase marks of the last launch
-// (cudaErrorNotSupported in the normal build)
+// q [B, W, Dk], prev_att [B, W, S], k [B, S, Dk], v [B, S, E], enc_len [B] int32,
+// taps [K, P], wlp [K, Dk], locv [Dk], locb [Dk] -> align [B, W, S], ctx [B, W, E];
+// clusters of CL blocks (e2e_att_step_plan), one an utterance.
+extern "C" int e2e_att_step_beam_loc(const float* q, const float* prev_att, const float* k, const float* v,
+                                     const int* enc_len, const float* taps, const float* wlp,
+                                     const float* locv, const float* locb, float* align, float* ctx, int B,
+                                     int W, int S, int Dk, int E, int K, int P, float inv_temp, int CL,
+                                     void* stream) {
+  if (B < 1 || W < 1 || S < 1 || Dk < 1 || E < 1 || K < 1 || K > 8 * KSMAX || P % 2 != 1 || CL < 1 ||
+      CL > CLMAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * att_layout(W, S, Dk, E, K, P, CL).total;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at[1];
+  cudaError_t e = launch_config(cfg, at, B * CL, CL, smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
+  const Args a{q, prev_att, k, v, enc_len, taps, wlp, locv, locb, align, ctx, B, W, S, Dk, E, K, P, CL,
+               inv_temp};
+  return (int)cudaLaunchKernelEx(&cfg, att_step_kernel, a);
+}
+
+// out [ATT_SLOTS] u64: the timing build's ns per phase of block 0 in the
+// last launch (cudaErrorNotSupported in the normal build)
 extern "C" int e2e_att_step_phase_times(unsigned long long* out, int n, void* stream) {
 #ifdef ATT_PHASES
   if (n > ATT_SLOTS) n = ATT_SLOTS;

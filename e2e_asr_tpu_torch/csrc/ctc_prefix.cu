@@ -1,70 +1,321 @@
-// CTC prefix-score recursion over encoder time, for every beam candidate.
+// CTC prefix scores of every beam candidate, and the eos score, in one launch.
 //
 // Replaces the TPU kernel e2e_asr_tpu/decode/ctc_prefix_pallas.py
-// prefix_recursion (_kernel). For each column n (one (utterance, beam,
-// candidate) triple) and t = 0..T-1, in log space with NEG = -1e30:
-//   r_n(t) = lse(r_n(t-1), phi(t)) + lp_c(t)
-//   r_b(t) = lse(r_b(t-1), r_n(t-1)) + lp_b(t)
-//   psi    = lse(psi, phi(t) + lp_c(t))
-// all three frozen where valid(t) = 0, starting from r_n = r_b = psi = NEG;
-// lse(a, b) = m + log(exp(a-m) + exp(b-m)) if m = max(a, b) > NEG/2, else
-// NEG (decode/ctc_prefix.py _lse). It is the serial recursion of
-// prefix_scores_scan, not the TPU kernel's blockwise log-depth form, which
-// cancels catastrophically when its inputs hold NEG.
+// prefix_recursion (_kernel) together with the stream building around it
+// (e2e_asr_tpu/decode/ctc_prefix.py prefix_scores: the candidate emissions,
+// phi(t-1), the masks) and eos_score. For utterance b, beam w, candidate k
+// (column n = (b, w, k)), c = cand[b, w, k], L = clamp(enc_len[b], 0, T),
+// in log space with NEG = -1e30:
+//   phi(-1)    = 0 if prefix_is_empty else NEG
+//   phi(t-1)   = lse(r_g[b, w, t-1, 1], c == last_tok[b, w] ? NEG : r_g[b, w, t-1, 0])
+//   r_n(t)     = lse(r_n(t-1), phi(t-1)) + ctc_lp[b, t, c]
+//   r_b(t)     = lse(r_b(t-1), r_n(t-1)) + ctc_lp[b, t, 0]
+//   psi        = lse(psi, phi(t-1) + ctc_lp[b, t, c])
+// for t < L, frozen from L on, starting from r_n = r_b = psi = NEG; r_h[b,
+// w, k, t] = (r_n(t), r_b(t)); psi_eos[b, w] = lse(r_g[b, w, max(L-1, 0), 0],
+// r_g[b, w, max(L-1, 0), 1]); lse(a, b) = m + log(exp(a-m) + exp(b-m)) if m =
+// max(a, b) > NEG/2, else NEG (decode/ctc_prefix_cuda.py lse). The recursion
+// is the serial one of prefix_scores_scan, not the TPU kernel's blockwise
+// log-depth form, which cancels catastrophically when its inputs hold NEG.
 //
-// What bounds it on the H100: bytes. Per column and step it reads four
-// floats and writes two (24 bytes) for ~20 operations, far under the
-// card's balance point.
-// Design: one thread per column, a loop over T inside the thread; at every
-// t neighbouring threads touch neighbouring addresses of the [T, N] rows,
-// so each load and store is coalesced. The next step's inputs are loaded
-// before the current step's arithmetic so two steps of loads are in flight.
+// What bounds it on the H100: latency. Per column the recursion is a chain
+// of T dependent log-sum-exps (~8 dependent instructions, two of them on the
+// special-function unit: ~70 cycles, ~7 us at T = 204); the function's
+// traffic (ctc_lp and the parents' r_g in, r_h out: ~11 MB at the flagship
+// decode shapes) takes ~3 us of HBM time. The parent composition built four
+// [T, B W K] streams in ~24 device ops, then the recursion read them back
+// (one thread a column, 48 blocks at the flagship), and eos_score took 14
+// more ops.
+// Design: a block per (utterance, run of CPB columns of that utterance), so
+// that B * nbu blocks cover the card (128 at the flagship: 48 columns, two
+// beams, a block). All NT threads first stage a tile of TT steps in shared
+// memory with cp.async: the block's candidate emissions and the blank's,
+// gathered from ctc_lp (never the whole vocabulary row), and the parents'
+// r_g rows, from which phi(t-1) of each beam is computed in both forms
+// (candidate equal to the beam's last token or not). Then one thread a
+// column runs the recursion over the tile (at most three warps a block), CH
+// steps at a time unrolled with the chunk's inputs in registers first, in
+// log2 units (the emissions scaled by log2 e when loaded, the outputs by ln 2
+// when written): each log-sum-exp is then max, min, one ex2 and one lg2
+// (.approx.ftz) and three adds on the chain. Each recursion warp stages its
+// columns' (r_n, r_b) for CH steps in shared memory (two buffers) and a
+// writer warp of its own, paired with it by named barriers, writes them out
+// as 128-byte runs of the [K, T, 2] layout, one column a store instruction
+// (coalesced), so that no store sits in the recursion's issue stream. No
+// atomics, no cross-block communication: repeats are bitwise.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"  // cp.async helpers
 
 namespace {
 
 constexpr float NEG = -1.0e30f;
-constexpr int THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+constexpr float NEG2 = NEG * LOG2E;  // NEG in log2 units
+constexpr int NT = 512;  // threads a block
+constexpr int RWMAX = 3;  // warps a block that run the recursion (as many more write their output)
+constexpr int CH = 16;   // steps a warp stages before writing its columns' runs (2 CH = 32 floats)
+constexpr int SST = 33;  // row stride of a warp's stage: conflict-free writes and reads
+constexpr int SD = 4;    // groups of CH steps the stager warps keep in flight
+constexpr size_t SMEM_MAX = 227 * 1024;
 
-__device__ __forceinline__ float lse(float a, float b) {
-  const float m = fmaxf(a, b);
-  const float ms = fmaxf(m, NEG);
-  const float out = ms + logf(expf(a - ms) + expf(b - ms));
-  return m > NEG / 2 ? out : NEG;
+// Timing build (nvcc -DPREFIX_PHASES): thread 0 of block 0 adds the global
+// timer's advance (ns) over the staging of each tile (after the block's
+// barrier) and over its own recursion, and writes both to g_prefix_ts at
+// the end; the normal build compiles the marks away.
+constexpr int PREFIX_SLOTS = 4;
+#ifdef PREFIX_PHASES
+__device__ unsigned long long g_prefix_ts[PREFIX_SLOTS];
+#define MARK(i)                                                       \
+  do {                                                                \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                        \
+      unsigned long long now_;                                        \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now_));       \
+      ph_ns[i] += now_ - ph_last;                                     \
+      ph_last = now_;                                                 \
+    }                                                                 \
+  } while (0)
+#else
+#define MARK(i) \
+  do {          \
+  } while (0)
+#endif
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__global__ void __launch_bounds__(THREADS)
-prefix_recursion_kernel(const float* __restrict__ lp_c, const float* __restrict__ phi,
-                        const float* __restrict__ lp_b, const float* __restrict__ valid,
-                        float* __restrict__ r_n_out, float* __restrict__ r_b_out,
-                        float* __restrict__ psi_out, int T, int N) {
-  const long n = (long)blockIdx.x * THREADS + threadIdx.x;
-  if (n >= N) return;
-  float rn = NEG, rb = NEG, psi = NEG;
-  float c = 0.0f, ph = NEG, b = 0.0f, v = 0.0f;
-  if (T > 0) {
-    c = lp_c[n]; ph = phi[n]; b = lp_b[n]; v = valid[n];
-  }
-  for (int t = 0; t < T; ++t) {
-    float c1 = 0.0f, ph1 = NEG, b1 = 0.0f, v1 = 0.0f;
-    if (t + 1 < T) {
-      const long i = (long)(t + 1) * N + n;
-      c1 = lp_c[i]; ph1 = phi[i]; b1 = lp_b[i]; v1 = valid[i];
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the log-sum-exp of the recursion in log2 units (a value x here is x ln 2
+// in the function's units): log2(2^a + 2^b) = m + log2(1 + 2^(n - m)),
+// floored at NEG2 where m = max(a, b) <= NEG2 / 2 (the NEG / 2 guard of
+// decode/ctc_prefix_cuda.py lse); the short chain of the serial recursion
+__device__ __forceinline__ float lse2(float a, float b) {
+  const float m = fmaxf(a, b), n = fminf(a, b);
+  const float out = m + lg2(1.0f + ex2(n - m));
+  return m > NEG2 / 2 ? out : NEG2;
+}
+
+// the same in the function's natural-log units (decode/ctc_prefix_cuda.py lse)
+__device__ __forceinline__ float lse(float a, float b) { return lse2(a * LOG2E, b * LOG2E) * LN2; }
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// beams a run of CPB columns can touch, at most
+__host__ __device__ inline int beams_of(int CPB, int K) { return cdiv(CPB - 1, K) + 1; }
+
+// shared memory of a block, in floats: lpc [TT][CPB], lpb [TT], phi
+// [nbb][TT][2], the parents' r_g rows [nbb][TT][2], stage [warps][2][32][SST],
+// cid [CPB] (ints), the count of staged groups (an int)
+__host__ __device__ inline size_t smem_floats(int TT, int CPB, int K) {
+  return (size_t)TT * (CPB + 1 + 4 * beams_of(CPB, K)) + (size_t)cdiv(CPB, 32) * 2 * 32 * SST + CPB + 1;
+}
+
+// named barriers between recursion warp r and its writer warp (64 threads):
+// buffer u of the pair is full / empty (ids 1-12); barrier 0 is
+// __syncthreads'
+__device__ __forceinline__ int bar_full(int r, int u) { return 1 + 4 * r + u; }
+__device__ __forceinline__ int bar_empty(int r, int u) { return 3 + 4 * r + u; }
+__device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory"); }
+__device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory"); }
+// barrier 15: the stager warps among themselves
+__device__ __forceinline__ void stager_sync(int warps) {
+  asm volatile("bar.sync 15, %0;" ::"r"(warps * 32) : "memory");
+}
+
+struct Args {
+  const float* ctc_lp;     // [B, T, V]
+  const int* enc_len;      // [B]
+  const float* r_g;        // [B, W, T, 2]
+  const int64_t* last_tok; // [B, W]
+  const int64_t* cand;     // [B, W, K]
+  float* psi;              // [B, W, K]
+  float* r_h;              // [B, W, K, T, 2]
+  float* psi_eos;          // [B, W]
+  int B, T, V, W, K, empty, CPB, nbu, TT;
+};
+
+// one step of a column's recursion in log2 units: p = phi(t-1), c and lb the
+// candidate's and the blank's emissions at t
+__device__ __forceinline__ void step(float& rn, float& rb, float& psi, float p, float c, float lb) {
+  const float rn_t = lse2(rn, p) + c;
+  const float rb_t = lse2(rb, rn) + lb;
+  psi = lse2(psi, p + c);
+  rn = rn_t;
+  rb = rb_t;
+}
+
+__global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
+  extern __shared__ float smem[];
+  const int T = a.T, V = a.V, W = a.W, K = a.K, CPB = a.CPB, TT = a.TT;
+  const int b = blockIdx.x / a.nbu, j = blockIdx.x % a.nbu;
+  const int c0 = j * CPB, ncol = max(0, min(CPB, W * K - c0));
+  if (ncol == 0) return;
+  const int wa = c0 / K, nbb = (c0 + ncol - 1) / K - wa + 1;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int L = min(max(a.enc_len[b], 0), T);
+  const float init = a.empty ? 0.0f : NEG2;
+#ifdef PREFIX_PHASES
+  unsigned long long ph_ns[PREFIX_SLOTS] = {}, ph_last = 0;
+  if (blockIdx.x == 0 && tid == 0) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ph_last));
+#endif
+
+  const int nbm = beams_of(CPB, K);
+  float* lpc = smem;                            // [TT][CPB] candidate emissions
+  float* lpb = lpc + (size_t)TT * CPB;          // [TT]      blank emissions
+  float* phi = lpb + TT;                        // [nbb][TT][2] phi(t-1): (no match, match), log2 units
+  float* rgs = phi + (size_t)TT * 2 * nbm;      // [nbb][TT][2] the parents' r_g at t-1
+  float* stage = rgs + (size_t)TT * 2 * nbm;    // [recursion warps][2][32][SST]
+  int* cid = (int*)(stage + (size_t)cdiv(CPB, 32) * 2 * 32 * SST);  // [CPB] candidate ids, clamped to [0, V)
+  volatile int* ready = cid + CPB;              // groups of CH steps staged so far (all tiles)
+  for (int i = tid; i < ncol; i += NT)
+    cid[i] = (int)min(max(a.cand[(long)b * W * K + c0 + i], (int64_t)0), (int64_t)(V - 1));
+  if (tid == 0) *ready = 0;
+
+  // roles: warps [0, R) run the recursion of their columns, warp R + r
+  // writes out what recursion warp r stages, warps [2 R, NT / 32) stage the
+  // inputs, CH steps a group, ahead of the recursion
+  const int R = cdiv(ncol, 32), nstg = NT / 32 - 2 * R;
+  const bool rec = wid < R, writer = !rec && wid < 2 * R, stager = wid >= 2 * R;
+  const int pr = rec ? wid : wid - R;
+  float* st = stage + (size_t)pr * 2 * 32 * SST;
+  const float* lp_b = a.ctc_lp + (long)b * T * V;
+  float* rh_warp = a.r_h + ((long)b * W * K + c0 + pr * 32) * T * 2;  // column j's run: + j T 2
+  const int wcols = min(32, ncol - pr * 32);  // columns of the pair
+  const float* rg_b = a.r_g + ((long)b * W + wa) * T * 2;  // the block's first beam's r_g
+  int kc = 0;  // chunks staged (recursion warp) or written (writer warp) so far
+
+  // the column of this thread (recursion threads: tid < ncol, whole warps run)
+  const bool mine = tid < ncol;
+  const int col = c0 + min(tid, ncol - 1);
+  const int wl = col / K - wa;
+  const long n = (long)b * W * K + col;
+  int match = 0;
+  if (rec) match = a.cand[n] == a.last_tok[(long)b * W + col / K] ? 1 : 0;
+  if (stager && tid - 2 * R * 32 < nbb) {  // the eos score of each beam whose first column is this block's
+    const int w = wa + tid - 2 * R * 32;
+    if (w * K >= c0) {
+      const float2 r = *reinterpret_cast<const float2*>(a.r_g + (((long)b * W + w) * T + max(L - 1, 0)) * 2);
+      a.psi_eos[(long)b * W + w] = lse(r.x, r.y);
     }
-    if (v > 0.0f) {
-      const float rn_t = lse(rn, ph) + c;
-      const float rb_t = lse(rb, rn) + b;
-      psi = lse(psi, ph + c);
-      rn = rn_t;
-      rb = rb_t;
-    }
-    const long o = (long)t * N + n;
-    r_n_out[o] = rn;
-    r_b_out[o] = rb;
-    c = c1; ph = ph1; b = b1; v = v1;
   }
-  psi_out[n] = psi;
+
+  float rn = NEG2, rb = NEG2, psi = NEG2;
+  int g0 = 0;  // groups of the tiles before this one
+  for (int t0 = 0; t0 < T; t0 += TT) {
+    const int nt = min(TT, T - t0), nv = max(0, min(nt, L - t0));  // steps of the tile, valid ones
+    const int ng = cdiv(nt, CH);
+    __syncthreads();  // the previous tile is consumed (and, first, cid and ready are set)
+    if (t0 == 0) MARK(0);  // set-up
+
+    if (stager) {
+      const int sw = wid - 2 * R;  // stager warp index
+      // in the background, SD groups ahead: a group's candidate and blank
+      // emissions (gathers, a warp a step) and the parents' r_g rows at t - 1
+      auto issue = [&](int g) {
+        const int s0 = g * CH, s1 = min(nv, s0 + CH);
+        for (int tl = s0 + sw; tl < s1; tl += nstg) {
+          const float* row = lp_b + (long)(t0 + tl) * V;
+          for (int i = lane; i < ncol; i += 32) cp_async4(lpc + (size_t)tl * CPB + i, row + cid[i]);
+          if (lane == 0) cp_async4(lpb + tl, row);
+        }
+        for (int x = sw * 32 + lane; x < nbb * max(0, s1 - s0) * 2; x += nstg * 32) {
+          const int w = x / ((s1 - s0) * 2), r = 2 * s0 + x % ((s1 - s0) * 2);
+          if (t0 + r / 2 > 0) cp_async4(rgs + (size_t)w * TT * 2 + r, rg_b + ((long)w * T + t0 - 1) * 2 + r);
+        }
+        cp_async_commit();  // (an empty group past the last: the count stays uniform)
+      };
+      for (int g = 0; g < SD; ++g) issue(g);
+      for (int g = 0; g < ng; ++g) {
+        const int s0 = g * CH, s1 = min(nv, s0 + CH);
+        issue(g + SD);
+        cp_async_wait<SD>();  // group g's copies
+        stager_sync(nstg);  // the group's copies are in place
+        for (int x = sw * 32 + lane; x < nbb * (s1 - s0); x += nstg * 32) {  // phi(t-1) in both forms
+          const int w = x / (s1 - s0), tl = s0 + x % (s1 - s0);
+          float p0 = init, p1 = init;
+          if (t0 + tl > 0) {
+            const float rgn = rgs[((size_t)w * TT + tl) * 2] * LOG2E, rgb = rgs[((size_t)w * TT + tl) * 2 + 1] * LOG2E;
+            p0 = lse2(rgb, rgn);
+            p1 = lse2(rgb, NEG2);
+          }
+          phi[((size_t)w * TT + tl) * 2] = p0;
+          phi[((size_t)w * TT + tl) * 2 + 1] = p1;
+        }
+        stager_sync(nstg);  // the group is complete
+        if (sw == 0 && lane == 0) {
+          __threadfence_block();
+          *ready = g0 + g + 1;  // publish it to the recursion warps
+        }
+      }
+    } else if (rec) {
+      const float* ph = phi + (size_t)wl * TT * 2 + match;
+      const float* lc = lpc + (col - c0);
+      for (int c = 0, g = 0; c < nt; c += CH, ++g, ++kc) {  // chunk = group g (TT is a multiple of CH, or T)
+        const int cn = min(CH, nt - c), cv = max(0, min(cn, nv - c)), u = kc & 1;
+        float* sb = st + (size_t)u * 32 * SST + lane * SST;
+        while (*ready <= g0 + g) __nanosleep(32);
+        __threadfence_block();
+        if (kc >= 2) bar_sync(bar_empty(pr, u));  // the writer is done with this buffer
+        if (cv == CH) {  // a whole valid chunk: its inputs in registers first, then the chain
+          float pv[CH], cc[CH], lbv[CH], on[CH], ob[CH];
+#pragma unroll
+          for (int s2 = 0; s2 < CH; ++s2) {
+            pv[s2] = ph[(c + s2) * 2];
+            cc[s2] = lc[(size_t)(c + s2) * CPB] * LOG2E;
+            lbv[s2] = lpb[c + s2] * LOG2E;
+          }
+#pragma unroll
+          for (int s2 = 0; s2 < CH; ++s2) {
+            step(rn, rb, psi, pv[s2], cc[s2], lbv[s2]);
+            on[s2] = rn;
+            ob[s2] = rb;
+          }
+#pragma unroll
+          for (int s2 = 0; s2 < CH; ++s2) {
+            sb[2 * s2] = on[s2];
+            sb[2 * s2 + 1] = ob[s2];
+          }
+        } else {
+          for (int s2 = 0; s2 < cn; ++s2) {
+            if (s2 < cv) step(rn, rb, psi, ph[(c + s2) * 2], lc[(size_t)(c + s2) * CPB] * LOG2E, lpb[c + s2] * LOG2E);
+            sb[2 * s2] = rn;
+            sb[2 * s2 + 1] = rb;
+          }
+        }
+        bar_arrive(bar_full(pr, u));
+      }
+    } else if (writer) {
+      // the pair's runs of steps [t0 + c, t0 + c + cn), 128 bytes a column,
+      // in natural-log units
+      for (int c = 0; c < nt; c += CH, ++kc) {
+        const int cn = min(CH, nt - c), u = kc & 1;
+        const float* sb = st + (size_t)u * 32 * SST;
+        bar_sync(bar_full(pr, u));
+        if (lane < 2 * cn)
+#pragma unroll 4
+          for (int jc = 0; jc < wcols; ++jc) rh_warp[(long)jc * T * 2 + 2 * (t0 + c) + lane] = sb[jc * SST + lane] * LN2;
+        bar_arrive(bar_empty(pr, u));
+      }
+    }
+    g0 += ng;
+  }
+  if (mine) a.psi[n] = psi * LN2;
+  MARK(1);  // the tiles: staging, overlapped with thread 0's recursion
+#ifdef PREFIX_PHASES
+  if (blockIdx.x == 0 && tid == 0)
+    for (int i = 0; i < PREFIX_SLOTS; ++i) g_prefix_ts[i] = ph_ns[i];
+#endif
 }
 
 }  // namespace
@@ -73,12 +324,55 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// lp_c, phi, lp_b, valid [T, N] -> r_n, r_b [T, N], psi [N]; all f32, contiguous.
-extern "C" int e2e_prefix_recursion(const float* lp_c, const float* phi, const float* lp_b,
-                                    const float* valid, float* r_n, float* r_b, float* psi,
-                                    int T, int N, void* stream) {
-  if (N <= 0) return 0;
-  prefix_recursion_kernel<<<(N + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)stream>>>(
-      lp_c, phi, lp_b, valid, r_n, r_b, psi, T, N);
+// The launch plan (host only): out[0] = steps a tile (TT), out[1] = bytes of
+// shared memory a block, for runs of CPB columns at T steps.
+extern "C" int e2e_prefix_scores_plan(int T, int CPB, int K, int* out, void* stream) {
+  (void)stream;
+  if (T < 1 || CPB < 1 || CPB > 32 * RWMAX || K < 1) return (int)cudaErrorInvalidValue;
+  int tt = T;  // all steps in one tile, else the most multiples of CH that fit
+  if (sizeof(float) * smem_floats(tt, CPB, K) > SMEM_MAX) {
+    tt = CH;
+    while (sizeof(float) * smem_floats(tt + CH, CPB, K) <= SMEM_MAX) tt += CH;
+  }
+  out[0] = tt;
+  out[1] = (int)(sizeof(float) * smem_floats(tt, CPB, K));
+  return 0;
+}
+
+// ctc_lp [B, T, V] f32, enc_len [B] i32, r_g [B, W, T, 2] f32, last_tok [B, W]
+// i64, cand [B, W, K] i64, prefix_is_empty -> psi [B, W, K], r_h [B, W, K, T,
+// 2], psi_eos [B, W] f32; all contiguous. nbu blocks an utterance, each of CPB
+// (<= 32 RWMAX) columns, tiles of TT steps (e2e_prefix_scores_plan).
+extern "C" int e2e_prefix_scores(const float* ctc_lp, const int* enc_len, const float* r_g,
+                                 const int64_t* last_tok, const int64_t* cand, float* psi, float* r_h,
+                                 float* psi_eos, int B, int T, int V, int W, int K, int prefix_is_empty,
+                                 int CPB, int nbu, int TT, void* stream) {
+  if (B < 1 || T < 1 || V < 1 || W < 1 || K < 1 || CPB < 1 || CPB > 32 * RWMAX || nbu < 1 || TT < 1 ||
+      (TT < T && TT % CH != 0) || (long)CPB * nbu < (long)W * K)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * smem_floats(TT, CPB, K);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(prefix_scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const Args a{ctc_lp, enc_len, r_g, last_tok, cand, psi, r_h, psi_eos, B, T, V, W, K,
+               prefix_is_empty ? 1 : 0, CPB, nbu, TT};
+  prefix_scores_kernel<<<B * nbu, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// out [PREFIX_SLOTS] u64: the timing build's ns of staging and of the
+// recursion in block 0 of the last launch (cudaErrorNotSupported in the
+// normal build)
+extern "C" int e2e_prefix_phase_times(unsigned long long* out, int n, void* stream) {
+#ifdef PREFIX_PHASES
+  if (n > PREFIX_SLOTS) n = PREFIX_SLOTS;
+  return (int)cudaMemcpyFromSymbolAsync(out, g_prefix_ts, sizeof(unsigned long long) * n, 0,
+                                        cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+#else
+  (void)out;
+  (void)n;
+  (void)stream;
+  return (int)cudaErrorNotSupported;
+#endif
 }

@@ -124,10 +124,11 @@ def beam_search(
         # ---- candidate set + mixed scores
         if use_ctc:
             attlm_k, cand = top_k(step_lp, k_cand)  # [B, W, K]
-            psi_h, r_h = ctc_prefix.prefix_scores(
-                ctc_lp, enc_len, r_g, prev_tok, cand, prefix_is_empty=(t == 0)
+            # candidates' prefix scores, their forward variables and each
+            # beam's eos score: one kernel launch on the card
+            psi_h, r_h, psi_eos = ctc_prefix.prefix_scores_fused(
+                ctc_lp, mem["enc_len32"], r_g, prev_tok, cand, t == 0
             )
-            psi_eos = ctc_prefix.eos_score(r_g, enc_len)  # [B, W]
             is_eos = cand == EOS_ID
             ctc_term = torch.where(is_eos, psi_eos[:, :, None], psi_h)
             step_score = (1.0 - dcfg.ctc_weight) * attlm_k + dcfg.ctc_weight * (

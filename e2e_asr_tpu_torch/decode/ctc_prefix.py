@@ -10,10 +10,11 @@ advanced over encoder time at once, in log space:
     psi(h)     = sum_t phi_g(t-1) * p_t(c)        (prefix probability)
     psi(g+eos) = r^n(g,T) + r^b(g,T)              (full-sequence probability)
 
-Per-utterance lengths freeze the recursion at t >= enc_len. The recursion
-over time is ``decode/ctc_prefix_cuda.py`` ``prefix_recursion`` (the
-hand-written kernel on CUDA tensors, the serial loop of
-``prefix_scores_scan`` as its plain version).
+Per-utterance lengths freeze the recursion at t >= enc_len. The scores and
+the eos score are ``decode/ctc_prefix_cuda.py`` ``prefix_scores_fused`` (the
+hand-written kernel, one launch, on CUDA tensors; on CPU tensors its plain
+version, the serial loop of ``prefix_scores_scan`` over the streams of
+``recursion_inputs``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,12 @@ from typing import Tuple
 
 import torch
 
-from e2e_asr_tpu_torch.decode.ctc_prefix_cuda import NEG, lse, prefix_recursion
+from e2e_asr_tpu_torch.decode.ctc_prefix_cuda import (  # noqa: F401 (re-exported)
+    NEG,
+    eos_score,
+    prefix_scores_fused,
+    recursion_inputs,
+)
 
 
 def init_empty_prefix(ctc_lp: torch.Tensor, enc_len: torch.Tensor, beam: int) -> torch.Tensor:
@@ -37,69 +43,6 @@ def init_empty_prefix(ctc_lp: torch.Tensor, enc_len: torch.Tensor, beam: int) ->
     r_n = torch.full_like(r_b, NEG)
     r = torch.stack([r_n, r_b], dim=-1)  # [B, T, 2]
     return r[:, None].expand(b, beam, t, 2).contiguous()
-
-
-def eos_score(r_g: torch.Tensor, enc_len: torch.Tensor) -> torch.Tensor:
-    """psi(g+eos) = full-prefix probability at the last valid frame.
-    r_g: [B, W, T, 2] -> [B, W]."""
-    b, w = r_g.shape[:2]
-    idx = torch.clamp(enc_len - 1, min=0).long()[:, None, None, None].expand(b, w, 1, 2)
-    r_end = torch.gather(r_g, 2, idx)
-    return lse(r_end[:, :, 0, 0], r_end[:, :, 0, 1])
-
-
-def _candidate_emissions(ctc_lp: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
-    """Per-time candidate emission log-probs [T, B, W, K], a gather (the JAX
-    package's one-hot product was a TPU workaround for slow gathers)."""
-    b, w, k = cand.shape
-    t = ctc_lp.shape[1]
-    idx = cand.reshape(b, 1, w * k).expand(b, t, w * k).long()
-    lp_c = torch.gather(ctc_lp, 2, idx).reshape(b, t, w, k)
-    return lp_c.permute(1, 0, 2, 3)
-
-
-def _phi_prev(r_g_t, match, prefix_is_empty: bool):
-    """phi(t-1) for every t: the score of prefix g ending at frame t-1 such
-    that candidate c may start at frame t. phi(-1) = 0 for the empty prefix,
-    NEG otherwise. r_g_t [T, B, W, 2], match [B, W, K] -> [T, B, W, K]."""
-    t, b, w, _ = r_g_t.shape
-    k = match.shape[-1]
-    r_n_g = r_g_t[..., 0:1]
-    r_b_g = r_g_t[..., 1:2]
-    phi = lse(r_b_g.expand(t, b, w, k), torch.where(match[None], NEG, r_n_g))
-    init = r_g_t.new_full((1, b, w, k), 0.0 if prefix_is_empty else NEG)
-    return torch.cat([init, phi[:-1]], dim=0)
-
-
-def recursion_inputs(
-    ctc_lp: torch.Tensor,
-    enc_len: torch.Tensor,
-    r_g: torch.Tensor,
-    last_tok: torch.Tensor,
-    cand: torch.Tensor,
-    prefix_is_empty: bool,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The [T, N] streams of ``prefix_recursion`` (N = B*W*K): candidate
-    emissions and phi(t-1), masked to 0 / NEG past enc_len, blank
-    log-probs masked to 0, and the 1/0 validity stream."""
-    b, w, k = cand.shape
-    t_len = ctc_lp.shape[1]
-    lp_c = _candidate_emissions(ctc_lp, cand)  # [T, B, W, K]
-    match = cand == last_tok[:, :, None]
-    r_g_t = r_g.permute(2, 0, 1, 3)  # [T, B, W, 2]
-    valid = torch.arange(t_len, device=ctc_lp.device)[:, None] < enc_len[None, :]  # [T, B]
-    v4 = valid[:, :, None, None]
-    phi_prev = torch.where(v4, _phi_prev(r_g_t, match, prefix_is_empty), NEG)
-    lp_c_eff = torch.where(v4, lp_c, 0.0)
-    lp_b = torch.where(valid, ctc_lp[:, :, 0].transpose(0, 1), 0.0)[:, :, None, None]
-    shape = (t_len, b, w, k)
-    n = b * w * k
-    return (
-        lp_c_eff.reshape(t_len, n),
-        phi_prev.reshape(t_len, n),
-        lp_b.expand(shape).reshape(t_len, n),
-        v4.float().expand(shape).reshape(t_len, n),
-    )
 
 
 def prefix_scores(
@@ -117,10 +60,5 @@ def prefix_scores(
     token (ignored when prefix_is_empty); cand: [B, W, K] candidate ids.
     Returns (psi [B, W, K], r_h [B, W, K, T, 2]).
     """
-    b, w, k = cand.shape
-    shape = (ctc_lp.shape[1], b, w, k)
-    r_n, r_b, psi = prefix_recursion(
-        *recursion_inputs(ctc_lp, enc_len, r_g, last_tok, cand, prefix_is_empty)
-    )
-    r_h = torch.stack([r_n.reshape(shape), r_b.reshape(shape)], dim=-1)  # [T, B, W, K, 2]
-    return psi.reshape(b, w, k), r_h.permute(1, 2, 3, 0, 4)
+    psi, r_h, _ = prefix_scores_fused(ctc_lp, enc_len, r_g, last_tok, cand, prefix_is_empty)
+    return psi, r_h

@@ -50,7 +50,10 @@ def attention_init(
 
 
 def prepare(params: Params, cfg: AttentionConfig, enc: torch.Tensor, enc_len: torch.Tensor) -> Dict:
-    """Cache per-utterance projections: k [B, H, S, d], v [B, H, S, E]."""
+    """Cache per-utterance projections, k [B, H, S, d] and v [B, H, S, E],
+    and what the beam step would otherwise recompute every step: enc_len as
+    int32 and, in location mode, the folded bias locb = loc_b + loc_conv.b
+    @ loc_proj."""
     b, s, e = enc.shape
     h, d = cfg.num_head, cfg.dim
     k = L.dense(params["proj_k"], enc).reshape(b, s, h, d).transpose(1, 2)
@@ -59,7 +62,10 @@ def prepare(params: Params, cfg: AttentionConfig, enc: torch.Tensor, enc_len: to
     else:
         v = enc[:, None].expand(b, h, s, e)
     mask = torch.arange(s, device=enc.device)[None, :] < enc_len[:, None]  # [B, S]
-    return {"k": k, "v": v, "mask": mask, "enc_len": enc_len}
+    mem = {"k": k, "v": v, "mask": mask, "enc_len": enc_len, "enc_len32": enc_len.to(torch.int32)}
+    if cfg.mode == "location":
+        mem["locb"] = params["loc_b"] + params["loc_conv"]["b"] @ params["loc_proj"]["w"]
+    return mem
 
 
 def init_align(cfg: AttentionConfig, mem: Dict) -> torch.Tensor:
@@ -115,11 +121,9 @@ def step_beam(
     q = L.dense(params["proj_q"], query).reshape(b, w, h, d)
 
     if att_step_cuda.supported(cfg, params):
-        wlp = params["loc_proj"]["w"]
-        locb = params["loc_b"] + params["loc_conv"]["b"] @ wlp
         align, ctx = att_step_cuda.att_step_beam_loc(
-            q[:, :, 0], prev_att[:, :, 0], k[:, 0], v[:, 0], mem["enc_len"],
-            params["loc_conv"]["w"][:, 0], wlp, params["loc_v"][0], locb,
+            q[:, :, 0], prev_att[:, :, 0], k[:, 0], v[:, 0], mem["enc_len32"],
+            params["loc_conv"]["w"][:, 0], params["loc_proj"]["w"], params["loc_v"][0], mem["locb"],
             temp=float(cfg.temperature),
         )
         return align[:, :, None], ctx

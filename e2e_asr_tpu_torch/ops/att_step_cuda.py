@@ -12,6 +12,8 @@ cross-correlation of prev_att with the taps; there is no Toeplitz bank.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -54,8 +56,28 @@ def att_step_beam_loc_plain(q, prev_att, k, v, enc_len, taps, wlp, locv, locb, t
 
 
 PHASE_BUILD = ("ATT_PHASES",)  # the define of the kernel's timing build (bin/profile_decode.py)
-# the phases between consecutive marks of the timing build (csrc PHASE(i))
-PHASES = ("staging", "conv", "energies", "softmax", "context")
+# the phases the timing build times (csrc PH_*, in order)
+PHASES = ("staging", "conv", "energies", "softmax", "cluster barrier 1", "align", "context",
+          "cluster barrier 2", "reduce")
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, w: int, s: int, dk: int, e_dim: int, kk: int, p: int) -> dict:
+    """The kernel's launch plan from its own layout code and the card's
+    cluster occupancy (``e2e_att_step_plan``, asked once a shape): blocks a
+    cluster (one cluster an utterance), clusters resident at once, shared
+    memory a block. Raises where no cluster size fits."""
+    out = torch.zeros(3, dtype=torch.int32)
+    lib = cuda_build.library("att_step")
+    fn = lib.e2e_att_step_plan
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(b, w, s, dk, e_dim, kk, p, out.data_ptr(), None)
+    if err != 0:
+        raise RuntimeError(f"e2e_att_step_plan: {lib.e2e_error_string(err).decode()}")
+    if int(out[0]) < 1:
+        raise RuntimeError(f"att_step_beam_loc: no cluster layout fits B={b} W={w} S={s} Dk={dk} E={e_dim}")
+    return {"cluster_size": int(out[0]), "clusters_resident": int(out[1]), "smem": int(out[2])}
 
 
 def _launch(defines, q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp):
@@ -76,11 +98,12 @@ def _launch(defines, q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp):
             f"att_step_beam_loc: shapes q {tuple(q.shape)} prev_att {tuple(prev_att.shape)} "
             f"k {tuple(k.shape)} v {tuple(v.shape)} taps {tuple(taps.shape)} wlp {tuple(wlp.shape)}"
         )
+    cl = plan(b, w, s, dk, e_dim, kk, p)["cluster_size"]
     align = torch.empty((b, w, s), dtype=torch.float32, device=q.device)
     ctx = torch.empty((b, w, e_dim), dtype=torch.float32, device=q.device)
     cuda_build.launch(
         "att_step", "e2e_att_step_beam_loc", q, prev_att, k, v, enc_len, taps, wlp, locv, locb,
-        align, ctx, b, w, s, dk, e_dim, kk, p, 1.0 / float(temp), defines=defines,
+        align, ctx, b, w, s, dk, e_dim, kk, p, 1.0 / float(temp), cl, defines=defines,
     )
     return align, ctx
 

@@ -21,7 +21,7 @@ from e2e_asr_tpu_torch import convert, cuda_build
 from e2e_asr_tpu_torch.config import AudioConfig
 from e2e_asr_tpu_torch.data import corpus
 from e2e_asr_tpu_torch.data.dataset import build_tokenizer
-from e2e_asr_tpu_torch.decode import ctc_prefix_cuda
+from e2e_asr_tpu_torch.decode import ctc_prefix, ctc_prefix_cuda
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.main import main as cli_main
 from e2e_asr_tpu_torch.ops import att_step_cuda, ctc_cuda, decoder_cuda, frontend_cuda, rnn_cuda
@@ -244,7 +244,10 @@ def _wrapper_calls():
     q, prev = torch.randn(2, 3, 6), torch.rand(2, 3, 11)
     k, v, lens = torch.randn(2, 11, 6), torch.randn(2, 11, 7), torch.tensor([11, 6])
     taps, wlp, locv, locb = torch.randn(2, 5), torch.randn(2, 6), torch.randn(6), torch.randn(6)
-    streams = (torch.randn(7, 9), torch.randn(7, 9), torch.randn(7, 9), torch.ones(7, 9))
+    lp_c = torch.log_softmax(torch.randn(2, 9, 6), -1)
+    lens_c = torch.tensor([9, 5])
+    prefix = (lp_c, lens_c, ctc_prefix.init_empty_prefix(lp_c, lens_c, 3), torch.zeros((2, 3), dtype=torch.long),
+              torch.randint(1, 6, (2, 3, 4)), True)
     ys, c, acts = rnn_cuda.lstm_bidir_fwd_train_plain(x, mask, wx, wh, b)
     dy = torch.randn(ys.shape)
     lp = torch.log_softmax(torch.randn(2, 9, 6), -1)
@@ -263,7 +266,7 @@ def _wrapper_calls():
         (rnn_cuda.lstm_bidir_fwd, rnn_cuda.lstm_bidir_fwd_plain, (x, mask, wx, wh, b)),
         (att_step_cuda.att_step_beam_loc, att_step_cuda.att_step_beam_loc_plain,
          (q, prev, k, v, lens, taps, wlp, locv, locb, 0.5)),
-        (ctc_prefix_cuda.prefix_recursion, ctc_prefix_cuda.prefix_recursion_plain, streams),
+        (ctc_prefix_cuda.prefix_scores_fused, ctc_prefix_cuda.prefix_scores_fused_plain, prefix),
         (rnn_cuda.lstm_bidir_fwd_train, rnn_cuda.lstm_bidir_fwd_train_plain, (x, mask, wx, wh, b)),
         (rnn_cuda.lstm_bidir_bwd, rnn_cuda.lstm_bidir_bwd_plain, (x, mask, wx, wh, ys, c, acts, dy)),
         (ctc_cuda.ctc_lattice, ctc_cuda.ctc_lattice_grad_plain, (lp, labels, inlen, lablen)),
@@ -320,7 +323,7 @@ def test_non_cuda_device_has_no_kernel():
 
 
 @pytest.mark.parametrize("name", ["lstm_bidir_bwd", "ctc_loss", "decoder_scan", "decoder_scan_bwd",
-                                  "lstm_bidir"])
+                                  "lstm_bidir", "ctc_prefix", "att_step"])
 def test_library_name_follows_included_headers(monkeypatch, tmp_path, name):
     """A library's file name hashes its source and the csrc headers it
     includes: editing a header gives the sources that include it a new name

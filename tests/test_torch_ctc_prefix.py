@@ -80,14 +80,15 @@ def test_prefix_scores_matches_jax(lattice, impl, empty):
 
 
 def test_recursion_plain_matches_pallas_kernel(lattice):
-    """prefix_recursion (plain version on CPU) on the [T, N] streams
-    against ctc_prefix_pallas.prefix_recursion on the same streams."""
+    """prefix_recursion_plain (the stream-level building block of the fused
+    function's plain version) on the [T, N] streams against
+    ctc_prefix_pallas.prefix_recursion on the same streams."""
     rng, lp, enc_len = lattice
     lp_t, len_t = torch.from_numpy(lp), torch.from_numpy(enc_len)
     r_g = tcp.init_empty_prefix(lp_t, len_t, W)
     cand = torch.from_numpy(rng.randint(1, V, (B, W, K))).long()
     ins = tcp.recursion_inputs(lp_t, len_t, r_g, torch.zeros((B, W), dtype=torch.long), cand, True)
-    got = ctc_prefix_cuda.prefix_recursion(*ins)
+    got = ctc_prefix_cuda.prefix_recursion_plain(*ins)
     want = ctc_prefix_pallas.prefix_recursion(*(jnp.asarray(x.numpy()) for x in ins))
     for g, wv in zip(got, want):
         _close(g.numpy(), wv)

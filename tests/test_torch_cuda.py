@@ -1,8 +1,12 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes the flagship run does not reach: odd batch (one row per
 LSTM block), T not a multiple of the kernels' tiles, a wave shorter than
-one window, S large enough to need more than 48 KB of shared memory, N not
-a multiple of the block size, B = 1; the LSTM forward's plan (Wh resident
+one window, B = 1; the beam attention step with W = 1 and 16, S = 1 to
+1100 (k and v in several tiles), enc_len of 1, B not a multiple of
+anything, and its plan refusing K > 16; the fused CTC prefix kernel with
+and without an empty prefix, K = 1 and V - 1, T up to 2000 (several
+tiles), enc_len of 1 and of T; both decode kernels repeated bitwise and
+run under the sync debug mode set to raise; the LSTM forward's plan (Wh resident
 at the flagship and convergence layers; a shape with no layout raises), its
 projection's kernel-time rows, H = 512 and 1024 (Wh read from L2) and
 bitwise-equal repeats; the LSTM backward with D and 4H off
@@ -82,36 +86,117 @@ def test_lstm_kernel(gen, b, t, d, h):
     _close(rnn_cuda.lstm_bidir_fwd(*args), rnn_cuda.lstm_bidir_fwd_plain(*args), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("s,e_dim", [(7, 16), (300, 64), (1100, 48)])
-def test_att_step_kernel(gen, s, e_dim):
-    b, w, dk, kk, p = 2, 3, 20, 10, 2 * 50 + 1
+def _att_args(gen, b, w, s, dk, e_dim, lens, kk=10, p=2 * 50 + 1):
     q = torch.randn((b, w, dk), generator=gen, device="cuda")
     prev = torch.softmax(torch.randn((b, w, s), generator=gen, device="cuda"), -1)
     k = torch.tanh(torch.randn((b, s, dk), generator=gen, device="cuda"))
     v = torch.randn((b, s, e_dim), generator=gen, device="cuda")
-    lens = torch.tensor([s, max(1, s // 3)], device="cuda")
     taps = torch.randn((kk, p), generator=gen, device="cuda") / math.sqrt(p)
     wlp = torch.randn((kk, dk), generator=gen, device="cuda") / math.sqrt(kk)
     locv = torch.randn((dk,), generator=gen, device="cuda") / math.sqrt(dk)
     locb = torch.randn((dk,), generator=gen, device="cuda")
-    args = (q, prev, k, v, lens, taps, wlp, locv, locb, 0.5)
+    return (q, prev, k, v, torch.tensor(lens, device="cuda"), taps, wlp, locv, locb, 0.5)
+
+
+# (B, W, S, Dk, E, enc_len): B = 3 and 5 (clusters of the plan's size, one
+# an utterance, whatever B), W = 1 and 16, S = 7 to 1100 (k and v in several
+# tiles past 48 frames a block), enc_len of 1 and of S, the flagship widths
+ATT_SHAPES = [
+    (2, 3, 7, 20, 16, [7, 2]), (2, 3, 300, 20, 64, [300, 100]), (2, 3, 1100, 20, 48, [1100, 366]),
+    (3, 1, 204, 300, 640, [204, 1, 150]), (3, 16, 7, 20, 16, [1, 7, 4]), (5, 16, 204, 300, 640, [204, 1, 160, 102, 190]),
+    (3, 16, 764, 300, 640, [764, 400, 1]), (2, 16, 1100, 300, 640, [1100, 551]), (1, 1, 1, 8, 8, [1]),
+]
+
+
+@pytest.mark.parametrize("b,w,s,dk,e_dim,lens", ATT_SHAPES)
+def test_att_step_kernel(gen, b, w, s, dk, e_dim, lens):
+    args = _att_args(gen, b, w, s, dk, e_dim, lens)
+    before = asc.att_step_beam_loc.launches
     got, want = asc.att_step_beam_loc(*args), asc.att_step_beam_loc_plain(*args)
+    assert asc.att_step_beam_loc.launches == before + 1
     _close(got[0], want[0], rtol=1e-4, atol=1e-6)
     _close(got[1], want[1], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("b,w,k,t", [(1, 1, 3, 5), (3, 4, 7, 61)])
-def test_prefix_recursion_kernel(gen, b, w, k, t):
-    v = 9
+def test_att_step_plan_raises_outside_its_envelope(gen):
+    """More than 16 location filters (two k-steps of the energies' product)
+    has no layout: the plan raises, no launch is made."""
+    with pytest.raises(RuntimeError, match="e2e_att_step_plan"):
+        asc.att_step_beam_loc(*_att_args(gen, 2, 3, 30, 20, 16, [30, 9], kk=17))
+
+
+def _prefix_args(gen, b, w, k, t, v, lens, empty):
+    """ctc_lp, enc_len (int32), parents' r_g, last_tok, cand (one candidate
+    of each beam equal to its last token where the prefix is not empty)."""
     lp = torch.log_softmax(3.0 * torch.randn((b, t, v), generator=gen, device="cuda"), -1)
-    lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    lens = torch.tensor(lens, device="cuda")
     r_g = ctc_prefix.init_empty_prefix(lp, lens, w)
+    last = torch.zeros((b, w), dtype=torch.long, device="cuda")
+    if not empty:  # parents that emitted one token
+        first = torch.randint(1, v, (b, w, 1), generator=gen, device="cuda")
+        _, r_h, _ = cpc.prefix_scores_fused_plain(lp, lens, r_g, last, first, 1)
+        r_g, last = r_h[:, :, 0].contiguous(), first[:, :, 0].contiguous()
     cand = torch.randint(1, v, (b, w, k), generator=gen, device="cuda")
-    ins = ctc_prefix.recursion_inputs(lp, lens, r_g, torch.zeros((b, w), dtype=torch.long, device="cuda"), cand, True)
-    for g, want in zip(cpc.prefix_recursion(*ins), cpc.prefix_recursion_plain(*ins)):
-        keep = want > -1e20
+    if not empty and k > 1:
+        cand[:, :, 1] = last
+    return lp, lens.to(torch.int32), r_g, last, cand, int(empty)
+
+
+# (B, W, K, T, V, enc_len): K = 1 and V - 1, T = 764 (one tile of shared
+# memory) and T = 1000 with 96 columns a block (several tiles), enc_len of 1
+# and of T, column runs across beams, the flagship's shapes
+PREFIX_SHAPES = [
+    (1, 1, 3, 5, 9, [5]), (3, 4, 7, 61, 9, [61, 1, 30]), (2, 3, 1, 40, 9, [40, 17]), (2, 3, 8, 40, 9, [1, 40]),
+    (16, 16, 24, 204, 26, [204 - 6 * i for i in range(16)]), (4, 16, 24, 764, 26, [764, 380, 1, 500]),
+    (32, 16, 24, 1000, 26, [1000 - 29 * i for i in range(31)] + [1]), (3, 40, 30, 50, 31, [50, 25, 3]),
+]
+
+
+@pytest.mark.parametrize("empty", [True, False])
+@pytest.mark.parametrize("b,w,k,t,v,lens", PREFIX_SHAPES)
+def test_prefix_recursion_kernel(gen, b, w, k, t, v, lens, empty):
+    """The fused CTC prefix kernel (psi, r_h, psi_eos in one launch) against
+    its plain version (the streams, the serial recursion, the layout change
+    and eos_score): cells unreachable in the plain version stay unreachable."""
+    args = _prefix_args(gen, b, w, k, t, v, lens, empty)
+    before = cpc.prefix_scores_fused.launches
+    got, want = cpc.prefix_scores_fused(*args), cpc.prefix_scores_fused_plain(*args)
+    assert cpc.prefix_scores_fused.launches == before + 1
+    assert got[1].shape == (b, w, k, t, 2)
+    for g, wv in zip(got, want):
+        keep = wv > -1e20
         assert torch.equal(g > -1e20, keep)
-        _close(g[keep], want[keep], rtol=1e-5, atol=2e-3)
+        assert bool((g[~keep] <= ctc_prefix.NEG / 2).all())
+        _close(g[keep], wv[keep], rtol=1e-5, atol=2e-3)
+
+
+def test_decode_kernels_repeat_bitwise(gen):
+    """No atomics: both decode kernels give bitwise equal outputs from run to
+    run, at the flagship decode shapes."""
+    att = _att_args(gen, 16, 16, 204, 300, 640, list(range(204, 101, -6))[:16], p=201)
+    prefix = _prefix_args(gen, 16, 16, 24, 204, 26, list(range(204, 101, -6))[:16], False)
+    for fn, args in ((asc.att_step_beam_loc, att), (cpc.prefix_scores_fused, prefix)):
+        first = fn(*args)
+        for _ in range(3):
+            assert all(torch.equal(x, y) for x, y in zip(first, fn(*args)))
+
+
+def test_decode_kernels_make_no_host_sync(gen):
+    """Both decode wrappers under PyTorch's sync debug mode set to raise (as
+    a CUDA graph of the beam step needs): no device-to-host synchronisation,
+    once their plans are cached and their libraries built."""
+    att = _att_args(gen, 3, 16, 204, 300, 640, [204, 150, 1], p=201)
+    prefix = _prefix_args(gen, 3, 16, 24, 204, 26, [204, 150, 1], False)
+    asc.att_step_beam_loc(*att)
+    cpc.prefix_scores_fused(*prefix)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        align, ctx = asc.att_step_beam_loc(*att)
+        psi, r_h, psi_eos = cpc.prefix_scores_fused(*prefix)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(ctx).all()) and bool(torch.isfinite(psi_eos).all())
 
 
 def _lstm_args(gen, b, t, d, h, full=False):
