@@ -22,7 +22,9 @@ and the kernels by device time. Writes the same as JSON to ``--out``
 its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
 the flagship decode shapes (B=16, W=16, S=T=204, Dk=300, E=640, K=10, P=201,
 24 candidates a beam, vocabulary 26, lengths in [S/2, S]) and block 0's us
-per phase are printed beside each kernel's device time
+per phase are printed beside each kernel's device time, and the attention
+step's ablation builds (tanh through the special-function unit, no tanh,
+one TF32 product in place of three) are timed beside it
 (``profile_decode_phases.json``).
 
 ``--train --scan-phases`` instead splits one step of each fused speller

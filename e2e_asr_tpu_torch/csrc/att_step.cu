@@ -150,7 +150,9 @@ struct Layout {
 __host__ __device__ inline Layout att_layout(int W, int S, int Dk, int E, int K, int P, int CL) {
   Layout l;
   l.SbM = cdiv(S, CL);
-  l.AW = cdiv(l.SbM + P + 3, 4) * 4;  // a beam's window of prev_att around the slice
+  // a beam's window of prev_att around the slice; an odd stride, so that the
+  // conv's lanes (beam, 4-frame group) fall on all 32 banks
+  l.AW = cdiv(l.SbM + P + 3, 4) * 4 + 1;
   l.KP4 = cdiv(K, 4) * 4;
   l.KS = stride8(Dk);
   l.WLS = stride8(Dk);
@@ -335,7 +337,7 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
     // (K <= 16: at most two k-steps, accumulated in the tensor core), then
     // their tanh terms on the CUDA cores
     {
-      const int mt = cdiv(rows, 16), ntd = cdiv(Dk, 8), ks = cdiv(K, 8);
+      const int mt = cdiv(rows, 16), ntd = cdiv(Dk, 8);
       int nch = 1;  // chunks: the fewest rounds x NB-batches a warp
       for (int c = 2; c <= NCHMAX; ++c)
         if ((long)cdiv(mt * c, NW) * cdiv(cdiv(ntd, c), NB) < (long)cdiv(mt * nch, NW) * cdiv(cdiv(ntd, nch), NB))
@@ -378,17 +380,15 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
 #pragma unroll
             for (int i = 0; i < 4; ++i) fw[j][i] = 0.0f;
 #pragma unroll
-            for (int s2 = 0; s2 < KSMAX; ++s2) {
-              if (s2 < ks) {  // three TF32 products: lo hi + hi lo + hi hi
-                uint32_t bh[2], bl[2];
-                tf32_split(wl[wo[s2][0] + n0], bh[0], bl[0]);
-                tf32_split(wl[wo[s2][1] + n0], bh[1], bl[1]);
+            for (int s2 = 0; s2 < KSMAX; ++s2) {  // both k-steps always (A is zero past K): no branch
+              uint32_t bh[2], bl[2];                // between the n-tiles' products
+              tf32_split(wl[wo[s2][0] + n0], bh[0], bl[0]);
+              tf32_split(wl[wo[s2][1] + n0], bh[1], bl[1]);
 #ifndef ATT_ABLATE_SPLIT
-                mma_tf32(fw[j], al[s2], bh);
-                mma_tf32(fw[j], ah[s2], bl);
+              mma_tf32(fw[j], al[s2], bh);  // three TF32 products: lo hi + hi lo + hi hi
+              mma_tf32(fw[j], ah[s2], bl);
 #endif
-                mma_tf32(fw[j], ah[s2], bh);
-              }
+              mma_tf32(fw[j], ah[s2], bh);
             }
           }
 #pragma unroll
