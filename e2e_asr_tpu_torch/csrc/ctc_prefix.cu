@@ -28,26 +28,25 @@
 // more ops.
 // Design: a block per (utterance, run of CPB columns of that utterance), so
 // that B * nbu blocks cover the card (128 at the flagship: 48 columns, two
-// beams, a block). All NT threads first stage a tile of TT steps in shared
-// memory with cp.async: the block's candidate emissions and the blank's,
-// gathered from ctc_lp (never the whole vocabulary row), and the parents'
-// r_g rows, from which phi(t-1) of each beam is computed in both forms
-// (candidate equal to the beam's last token or not). Then one thread a
-// column runs the recursion over the tile (at most three warps a block), CH
-// steps at a time unrolled with the chunk's inputs in registers first, in
-// log2 units (the emissions scaled by log2 e when loaded, the outputs by ln 2
-// when written): each log-sum-exp is then max, min, one ex2 and one lg2
-// (.approx.ftz) and three adds on the chain. Each recursion warp stages its
-// columns' (r_n, r_b) for CH steps in shared memory (two buffers) and a
-// writer warp of its own, paired with it by named barriers, writes them out
-// as 128-byte runs of the [K, T, 2] layout, one column a store instruction
+// beams, a block), with three roles. Recursion warps, one thread a column,
+// run the serial recursion CH steps at a time unrolled: each lane loads its
+// own candidate's emissions from ctc_lp (never the whole vocabulary row;
+// the lanes of a warp read one row a step, a few sectors) a whole chunk
+// ahead into registers, and works in log2 units (the emissions scaled by
+// log2 e when loaded, the outputs by ln 2 when written), so that each
+// log-sum-exp is max, min, one ex2 and one lg2 (.approx.ftz) and three adds
+// on the chain. Stager warps compute, a group of CH steps a warp, phi(t-1)
+// of each beam of the block in both forms (candidate equal to the beam's
+// last token or not) from the parents' r_g, and the blank's emissions, into
+// shared memory, and publish each group by a flag the recursion waits on.
+// Writer warps, each paired with a recursion warp by named barriers, take
+// the (r_n, r_b) it stages for CH steps (two buffers) and write them out as
+// 128-byte runs of the [K, T, 2] layout, one column a store instruction
 // (coalesced), so that no store sits in the recursion's issue stream. No
 // atomics, no cross-block communication: repeats are bitwise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "tf32_mma.cuh"  // cp.async helpers
 
 namespace {
 
@@ -55,11 +54,10 @@ constexpr float NEG = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG2 = NEG * LOG2E;  // NEG in log2 units
-constexpr int NT = 512;  // threads a block
+constexpr int NT = 256;  // threads a block
 constexpr int RWMAX = 3;  // warps a block that run the recursion (as many more write their output)
 constexpr int CH = 16;   // steps a warp stages before writing its columns' runs (2 CH = 32 floats)
 constexpr int SST = 33;  // row stride of a warp's stage: conflict-free writes and reads
-constexpr int SD = 4;    // groups of CH steps the stager warps keep in flight
 constexpr size_t SMEM_MAX = 227 * 1024;
 
 // Timing build (nvcc -DPREFIX_PHASES): thread 0 of block 0 adds the global
@@ -114,11 +112,10 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // beams a run of CPB columns can touch, at most
 __host__ __device__ inline int beams_of(int CPB, int K) { return cdiv(CPB - 1, K) + 1; }
 
-// shared memory of a block, in floats: lpc [TT][CPB], lpb [TT], phi
-// [nbb][TT][2], the parents' r_g rows [nbb][TT][2], stage [warps][2][32][SST],
-// cid [CPB] (ints), the count of staged groups (an int)
+// shared memory of a block, in floats: lpb [TT], phi [nbb][TT][2], stage
+// [recursion warps][2][32][SST], a flag a group of CH steps (ints)
 __host__ __device__ inline size_t smem_floats(int TT, int CPB, int K) {
-  return (size_t)TT * (CPB + 1 + 4 * beams_of(CPB, K)) + (size_t)cdiv(CPB, 32) * 2 * 32 * SST + CPB + 1;
+  return (size_t)TT * (1 + 2 * beams_of(CPB, K)) + (size_t)cdiv(CPB, 32) * 2 * 32 * SST + cdiv(TT, CH);
 }
 
 // named barriers between recursion warp r and its writer warp (64 threads):
@@ -128,10 +125,7 @@ __device__ __forceinline__ int bar_full(int r, int u) { return 1 + 4 * r + u; }
 __device__ __forceinline__ int bar_empty(int r, int u) { return 3 + 4 * r + u; }
 __device__ __forceinline__ void bar_sync(int id) { asm volatile("bar.sync %0, 64;" ::"r"(id) : "memory"); }
 __device__ __forceinline__ void bar_arrive(int id) { asm volatile("bar.arrive %0, 64;" ::"r"(id) : "memory"); }
-// barrier 15: the stager warps among themselves
-__device__ __forceinline__ void stager_sync(int warps) {
-  asm volatile("bar.sync 15, %0;" ::"r"(warps * 32) : "memory");
-}
+
 
 struct Args {
   const float* ctc_lp;     // [B, T, V]
@@ -171,20 +165,15 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
 #endif
 
   const int nbm = beams_of(CPB, K);
-  float* lpc = smem;                            // [TT][CPB] candidate emissions
-  float* lpb = lpc + (size_t)TT * CPB;          // [TT]      blank emissions
+  float* lpb = smem;                            // [TT] blank emissions, log2 units
   float* phi = lpb + TT;                        // [nbb][TT][2] phi(t-1): (no match, match), log2 units
-  float* rgs = phi + (size_t)TT * 2 * nbm;      // [nbb][TT][2] the parents' r_g at t-1
-  float* stage = rgs + (size_t)TT * 2 * nbm;    // [recursion warps][2][32][SST]
-  int* cid = (int*)(stage + (size_t)cdiv(CPB, 32) * 2 * 32 * SST);  // [CPB] candidate ids, clamped to [0, V)
-  volatile int* ready = cid + CPB;              // groups of CH steps staged so far (all tiles)
-  for (int i = tid; i < ncol; i += NT)
-    cid[i] = (int)min(max(a.cand[(long)b * W * K + c0 + i], (int64_t)0), (int64_t)(V - 1));
-  if (tid == 0) *ready = 0;
+  float* stage = phi + (size_t)TT * 2 * nbm;    // [recursion warps][2][32][SST]
+  volatile int* ready = (volatile int*)(stage + (size_t)cdiv(CPB, 32) * 2 * 32 * SST);  // [groups]: staged
 
   // roles: warps [0, R) run the recursion of their columns, warp R + r
-  // writes out what recursion warp r stages, warps [2 R, NT / 32) stage the
-  // inputs, CH steps a group, ahead of the recursion
+  // writes out what recursion warp r stages, warps [2 R, NT / 32) compute
+  // phi(t-1) and the blank's emissions of the tile's groups of CH steps, a
+  // group a warp at once, each published by its own flag
   const int R = cdiv(ncol, 32), nstg = NT / 32 - 2 * R;
   const bool rec = wid < R, writer = !rec && wid < 2 * R, stager = wid >= 2 * R;
   const int pr = rec ? wid : wid - R;
@@ -200,8 +189,11 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
   const int col = c0 + min(tid, ncol - 1);
   const int wl = col / K - wa;
   const long n = (long)b * W * K + col;
-  int match = 0;
-  if (rec) match = a.cand[n] == a.last_tok[(long)b * W + col / K] ? 1 : 0;
+  int match = 0, cidv = 0;
+  if (rec) {
+    match = a.cand[n] == a.last_tok[(long)b * W + col / K] ? 1 : 0;
+    cidv = (int)min(max(a.cand[n], (int64_t)0), (int64_t)(V - 1));
+  }
   if (stager && tid - 2 * R * 32 < nbb) {  // the eos score of each beam whose first column is this block's
     const int w = wa + tid - 2 * R * 32;
     if (w * K >= c0) {
@@ -211,69 +203,61 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
   }
 
   float rn = NEG2, rb = NEG2, psi = NEG2;
-  int g0 = 0;  // groups of the tiles before this one
   for (int t0 = 0; t0 < T; t0 += TT) {
     const int nt = min(TT, T - t0), nv = max(0, min(nt, L - t0));  // steps of the tile, valid ones
     const int ng = cdiv(nt, CH);
-    __syncthreads();  // the previous tile is consumed (and, first, cid and ready are set)
+    __syncthreads();  // the previous tile is consumed
+    for (int g = tid; g < ng; g += NT) ready[g] = 0;
+    __syncthreads();
     if (t0 == 0) MARK(0);  // set-up
 
     if (stager) {
-      const int sw = wid - 2 * R;  // stager warp index
-      // in the background, SD groups ahead: a group's candidate and blank
-      // emissions (gathers, a warp a step) and the parents' r_g rows at t - 1
-      auto issue = [&](int g) {
+      for (int g = wid - 2 * R; g < ng; g += nstg) {
         const int s0 = g * CH, s1 = min(nv, s0 + CH);
-        for (int tl = s0 + sw; tl < s1; tl += nstg) {
-          const float* row = lp_b + (long)(t0 + tl) * V;
-          for (int i = lane; i < ncol; i += 32) cp_async4(lpc + (size_t)tl * CPB + i, row + cid[i]);
-          if (lane == 0) cp_async4(lpb + tl, row);
-        }
-        for (int x = sw * 32 + lane; x < nbb * max(0, s1 - s0) * 2; x += nstg * 32) {
-          const int w = x / ((s1 - s0) * 2), r = 2 * s0 + x % ((s1 - s0) * 2);
-          if (t0 + r / 2 > 0) cp_async4(rgs + (size_t)w * TT * 2 + r, rg_b + ((long)w * T + t0 - 1) * 2 + r);
-        }
-        cp_async_commit();  // (an empty group past the last: the count stays uniform)
-      };
-      for (int g = 0; g < SD; ++g) issue(g);
-      for (int g = 0; g < ng; ++g) {
-        const int s0 = g * CH, s1 = min(nv, s0 + CH);
-        issue(g + SD);
-        cp_async_wait<SD>();  // group g's copies
-        stager_sync(nstg);  // the group's copies are in place
-        for (int x = sw * 32 + lane; x < nbb * (s1 - s0); x += nstg * 32) {  // phi(t-1) in both forms
-          const int w = x / (s1 - s0), tl = s0 + x % (s1 - s0);
+        for (int x = lane; x < nbb * max(0, s1 - s0); x += 32) {  // phi(t-1) of each beam, in both forms
+          const int w = x / (s1 - s0), tl = s0 + x % (s1 - s0), t = t0 + tl;
           float p0 = init, p1 = init;
-          if (t0 + tl > 0) {
-            const float rgn = rgs[((size_t)w * TT + tl) * 2] * LOG2E, rgb = rgs[((size_t)w * TT + tl) * 2 + 1] * LOG2E;
-            p0 = lse2(rgb, rgn);
-            p1 = lse2(rgb, NEG2);
+          if (t > 0) {
+            const float2 r = __ldg(reinterpret_cast<const float2*>(rg_b + ((long)w * T + t - 1) * 2));
+            p0 = lse2(r.y * LOG2E, r.x * LOG2E);
+            p1 = lse2(r.y * LOG2E, NEG2);
           }
           phi[((size_t)w * TT + tl) * 2] = p0;
           phi[((size_t)w * TT + tl) * 2 + 1] = p1;
         }
-        stager_sync(nstg);  // the group is complete
-        if (sw == 0 && lane == 0) {
+        if (lane < s1 - s0) lpb[s0 + lane] = __ldg(lp_b + (long)(t0 + s0 + lane) * V) * LOG2E;
+        __syncwarp();
+        if (lane == 0) {
           __threadfence_block();
-          *ready = g0 + g + 1;  // publish it to the recursion warps
+          ready[g] = 1;  // the group is staged
         }
       }
     } else if (rec) {
+      // the lane's candidate emissions, straight from L2 (a warp's lanes read
+      // one row of ctc_lp a step), one chunk ahead in registers
+      const float* lc = lp_b + (long)t0 * V + cidv;
       const float* ph = phi + (size_t)wl * TT * 2 + match;
-      const float* lc = lpc + (col - c0);
+      float cn_[CH];
+#pragma unroll
+      for (int s2 = 0; s2 < CH; ++s2) cn_[s2] = s2 < nv ? __ldg(lc + (long)s2 * V) : 0.0f;
       for (int c = 0, g = 0; c < nt; c += CH, ++g, ++kc) {  // chunk = group g (TT is a multiple of CH, or T)
         const int cn = min(CH, nt - c), cv = max(0, min(cn, nv - c)), u = kc & 1;
+        float cc[CH];
+#pragma unroll
+        for (int s2 = 0; s2 < CH; ++s2) {
+          cc[s2] = cn_[s2] * LOG2E;
+          cn_[s2] = c + CH + s2 < nv ? __ldg(lc + (long)(c + CH + s2) * V) : 0.0f;  // the next chunk's
+        }
         float* sb = st + (size_t)u * 32 * SST + lane * SST;
-        while (*ready <= g0 + g) __nanosleep(32);
+        while (ready[g] == 0) __nanosleep(20);
         __threadfence_block();
         if (kc >= 2) bar_sync(bar_empty(pr, u));  // the writer is done with this buffer
         if (cv == CH) {  // a whole valid chunk: its inputs in registers first, then the chain
-          float pv[CH], cc[CH], lbv[CH], on[CH], ob[CH];
+          float pv[CH], lbv[CH], on[CH], ob[CH];
 #pragma unroll
           for (int s2 = 0; s2 < CH; ++s2) {
             pv[s2] = ph[(c + s2) * 2];
-            cc[s2] = lc[(size_t)(c + s2) * CPB] * LOG2E;
-            lbv[s2] = lpb[c + s2] * LOG2E;
+            lbv[s2] = lpb[c + s2];
           }
 #pragma unroll
           for (int s2 = 0; s2 < CH; ++s2) {
@@ -287,10 +271,13 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
             sb[2 * s2 + 1] = ob[s2];
           }
         } else {
-          for (int s2 = 0; s2 < cn; ++s2) {
-            if (s2 < cv) step(rn, rb, psi, ph[(c + s2) * 2], lc[(size_t)(c + s2) * CPB] * LOG2E, lpb[c + s2] * LOG2E);
-            sb[2 * s2] = rn;
-            sb[2 * s2 + 1] = rb;
+#pragma unroll
+          for (int s2 = 0; s2 < CH; ++s2) {
+            if (s2 < cv) step(rn, rb, psi, ph[(c + s2) * 2], cc[s2], lpb[c + s2]);
+            if (s2 < cn) {
+              sb[2 * s2] = rn;
+              sb[2 * s2 + 1] = rb;
+            }
           }
         }
         bar_arrive(bar_full(pr, u));
@@ -308,7 +295,6 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
         bar_arrive(bar_empty(pr, u));
       }
     }
-    g0 += ng;
   }
   if (mine) a.psi[n] = psi * LN2;
   MARK(1);  // the tiles: staging, overlapped with thread 0's recursion

@@ -323,7 +323,7 @@ def test_non_cuda_device_has_no_kernel():
 
 
 @pytest.mark.parametrize("name", ["lstm_bidir_bwd", "ctc_loss", "decoder_scan", "decoder_scan_bwd",
-                                  "lstm_bidir", "ctc_prefix", "att_step"])
+                                  "lstm_bidir", "att_step"])
 def test_library_name_follows_included_headers(monkeypatch, tmp_path, name):
     """A library's file name hashes its source and the csrc headers it
     includes: editing a header gives the sources that include it a new name
