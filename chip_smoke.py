@@ -85,7 +85,6 @@ TRAIN_STEPS = 5
 ALT_ROUNDS = 21  # rounds of a kernel against its library call in turns
 CONV_STEPS = 3
 NOISE_SEED = 20261016  # the scan checks' sampled feedback
-SPIN_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock queued ahead of each timed call
 SFU_LANES = 16  # special-function lanes of an H100 SM a cycle (two per accurate tanhf)
 SMS, BOOST_HZ = 132, 1.98e9
 
@@ -102,21 +101,12 @@ def bound_ms(n_bytes: float, n_flops: float):
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """ms a call (CUDA events over ``iters`` calls), the calls queued behind
-    a spin of the card so that a wrapper's host time does not pace a short
-    kernel (a plain version of many launches stays host-paced)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    """ms a call (CUDA events over ``iters`` calls queued behind a spin of
+    the card, so that a wrapper's host time does not pace a short kernel; a
+    plain version of many launches stays host-paced)."""
+    from e2e_asr_tpu_torch.bin.profile_decode import device_ms
+
+    return device_ms(fn, iters, warmup)
 
 
 def alternating_ms(fns: dict, rounds: int = ALT_ROUNDS, iters: int = 3) -> dict:
@@ -158,7 +148,8 @@ def compare(name, got, want, rtol, atol, unreachable=None):
 
 def kernel_checks(dev, cfg, vocab):
     """Each kernel against its plain version at the flagship decode shapes."""
-    from e2e_asr_tpu_torch.bin.profile_decode import att_phase_split, prefix_phase_split, print_decode_phases
+    from e2e_asr_tpu_torch.bin.profile_decode import (att_phase_split, flagship_att_inputs, flagship_prefix_inputs,
+                                                      prefix_phase_split, print_decode_phases)
     from e2e_asr_tpu_torch.decode import ctc_prefix
     from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
     from e2e_asr_tpu_torch.ops import att_step_cuda as asc
@@ -254,36 +245,22 @@ def kernel_checks(dev, cfg, vocab):
 
     # ---- 3. att_step_beam_loc: q [B, W, Dk], S encoder frames
     print("[kernel] att_step_beam_loc", flush=True)
-    ac = m.attention
-    dk, e_dim, kk, p = ac.dim, 2 * h, ac.loc_kernel_num, 2 * ac.loc_kernel_size + 1
-
-    def att_inputs(s):
-        return (torch.randn((b, w, dk), generator=gen, device=dev),
-                torch.softmax(2.0 * torch.randn((b, w, s), generator=gen, device=dev), -1),
-                torch.tanh(torch.randn((b, s, dk), generator=gen, device=dev)),
-                torch.tanh(torch.randn((b, s, e_dim), generator=gen, device=dev)))
-
-    q, prev, k, v = att_inputs(s_len)
-    taps = (torch.rand((kk, p), generator=gen, device=dev) * 2 - 1) / math.sqrt(p)
-    wlp = (torch.rand((kk, dk), generator=gen, device=dev) * 2 - 1) / math.sqrt(kk)
-    locv = (torch.rand((dk,), generator=gen, device=dev) * 2 - 1) / math.sqrt(dk)
-    locb = 0.1 * torch.randn((dk,), generator=gen, device=dev)
-    args = (q, prev, k, v, lens.to(torch.int32), taps, wlp, locv, locb, float(ac.temperature))
+    args = flagship_att_inputs(dev)
+    q, prev, k, v, alens, taps = args[:6]
+    dk, e_dim, kk, p = q.shape[2], v.shape[2], taps.shape[0], taps.shape[1]
     got = asc.att_step_beam_loc(*args)
     want = asc.att_step_beam_loc_plain(*args)
     err = max(compare("att_step align", got[0], want[0], rtol=1e-4, atol=1e-6),
               compare("att_step ctx", got[1], want[1], rtol=1e-4, atol=1e-5))
     att_extra = _repeat_and_sync("att_step_beam_loc", lambda: asc.att_step_beam_loc(*args), got)
     # the 960 h recipe's encoder length: k and v streamed in tiles
-    s764 = 764
-    lens764 = torch.randint(s764 // 2, s764 + 1, (b,), generator=gen, device=dev)
-    args764 = (*att_inputs(s764), lens764, taps, wlp, locv, locb, float(ac.temperature))
+    args764 = flagship_att_inputs(dev, s=764)
     g764, w764 = asc.att_step_beam_loc(*args764), asc.att_step_beam_loc_plain(*args764)
     err = max(err, compare("att_step align S=764", g764[0], w764[0], rtol=1e-4, atol=1e-6),
               compare("att_step ctx S=764", g764[1], w764[1], rtol=1e-4, atol=1e-5))
     split = att_phase_split(args)
     print_decode_phases({"att_step_beam_loc": split})
-    nvalid = float(lens.sum())
+    nvalid = float(alens.sum())
     nb = 4 * (b * w * dk + 2 * b * w * s_len + nvalid * (dk + e_dim) + b + kk * p + kk * dk
               + 2 * dk + b * w * e_dim)
     nf = w * nvalid * (2 * p * kk + dk * (2 * kk + 4) + 2 * e_dim) + b * w * s_len * 4
@@ -308,7 +285,7 @@ def kernel_checks(dev, cfg, vocab):
 
     # ---- 4. prefix_recursion: the fused CTC prefix function
     print("[kernel] prefix_recursion (prefix_scores_fused)", flush=True)
-    pargs = _prefix_inputs(gen, dev, cfg, vocab, s_len, lens)
+    pargs = flagship_prefix_inputs(dev)
     ctc_lp, plens, r_g1, last1, cand1, _ = pargs
     got = cpc.prefix_scores_fused(*pargs)
     want = cpc.prefix_scores_fused_plain(*pargs)
@@ -333,33 +310,10 @@ def kernel_checks(dev, cfg, vocab):
         ms=time_ms(lambda: cpc.prefix_scores_fused(*pargs), 20),
         plain_ms=time_ms(lambda: cpc.prefix_scores_fused_plain(*pargs), 3, 1),
         library_ms=None, bound=bound_ms(nb, nf),
-        shapes=f"ctc_lp [{b},{t_p},{vocab}], W {w}, K {cand1.shape[2]}: psi, r_h [{b},{w},{cand1.shape[2]},{t_p},2], psi_eos",
+        shapes=f"ctc_lp [{b},{t_p},{ctc_lp.shape[2]}], W {w}, K {cand1.shape[2]}: psi, r_h [{b},{w},{cand1.shape[2]},{t_p},2], psi_eos",
         phases_us=psplit["phases_us"], **prefix_extra,
     )
     return out
-
-
-def _prefix_inputs(gen, dev, cfg, vocab, t_len, lens):
-    """The fused CTC prefix function's inputs at the flagship decode shapes:
-    parents that emitted one token (the general case), one candidate of
-    each beam equal to its last token, enc_len as int32 (as the beam loop
-    passes it)."""
-    from e2e_asr_tpu_torch.decode import ctc_prefix
-    from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
-
-    b, w = cfg.decode.batch_size, cfg.decode.beam_size
-    k_cand = min(vocab, max(w, int(w * cfg.decode.ctc_beam_ratio)))
-    logits = 3.0 * torch.randn((b, t_len, vocab), generator=gen, device=dev)
-    logits[:, :, 0] += 2.0
-    ctc_lp = torch.log_softmax(logits, -1)
-    r_g0 = ctc_prefix.init_empty_prefix(ctc_lp, lens, w)
-    cand0 = torch.randint(1, vocab, (b, w, k_cand), generator=gen, device=dev)
-    last0 = torch.zeros((b, w), dtype=torch.long, device=dev)
-    _, r_h0, _ = cpc.prefix_scores_fused_plain(ctc_lp, lens, r_g0, last0, cand0, 1)
-    last1 = cand0[:, :, 0].contiguous()
-    cand1 = torch.randint(1, vocab, (b, w, k_cand), generator=gen, device=dev)
-    cand1[:, :, 1] = last1
-    return ctc_lp, lens.to(torch.int32), r_h0[:, :, 0].contiguous(), last1, cand1, 0
 
 
 def _repeat_and_sync(name, call, first) -> dict:

@@ -23,8 +23,8 @@ its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
 the flagship decode shapes (B=16, W=16, S=T=204, Dk=300, E=640, K=10, P=201,
 24 candidates a beam, vocabulary 26, lengths in [S/2, S]) and block 0's us
 per phase are printed beside each kernel's device time, and the attention
-step's ablation builds (tanh through the special-function unit, no tanh,
-one TF32 product in place of three) are timed beside it
+step's ablation builds (no tanh, one TF32 product in place of three) are
+timed beside it
 (``profile_decode_phases.json``).
 
 ``--train --scan-phases`` instead splits one step of each fused speller
@@ -312,14 +312,14 @@ def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=Non
     return res
 
 
-def flagship_att_inputs(dev, seed: int = 1):
+def flagship_att_inputs(dev, seed: int = 1, s: int = 816 // 4):
     """The beam attention step's inputs at the flagship decode shapes (B=16,
-    W=16, S=204, Dk=300, E=640, 10 x 201 taps, lengths in [S/2, S] with the
-    first at S), weights at their init scales: the arguments of
-    ``att_step_cuda.att_step_beam_loc``."""
+    W=16, S=204 unless given, Dk=300, E=640, 10 x 201 taps, lengths in [S/2,
+    S] with the first at S, int32), weights at their init scales: the
+    arguments of ``att_step_cuda.att_step_beam_loc``."""
     cfg = flagship_smoke_config()
     m, ac = cfg.model, cfg.model.attention
-    b, w, s = cfg.decode.batch_size, cfg.decode.beam_size, 816 // 4
+    b, w = cfg.decode.batch_size, cfg.decode.beam_size
     dk, e_dim, kk, p = ac.dim, 2 * m.encoder.dim[-1], ac.loc_kernel_num, 2 * ac.loc_kernel_size + 1
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -329,16 +329,18 @@ def flagship_att_inputs(dev, seed: int = 1):
     return (torch.randn((b, w, dk), generator=gen, device=dev),
             torch.softmax(2.0 * torch.randn((b, w, s), generator=gen, device=dev), -1),
             torch.tanh(torch.randn((b, s, dk), generator=gen, device=dev)),
-            torch.tanh(torch.randn((b, s, e_dim), generator=gen, device=dev)), lens,
+            torch.tanh(torch.randn((b, s, e_dim), generator=gen, device=dev)), lens.to(torch.int32),
             uni(1 / math.sqrt(p), kk, p), uni(1 / math.sqrt(kk), kk, dk), uni(1 / math.sqrt(dk), dk),
             0.1 * torch.randn((dk,), generator=gen, device=dev), float(ac.temperature))
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, warmup: int = 1) -> float:
     """ms a call of ``fn`` on the card (CUDA events over ``iters`` calls),
     the calls queued behind a spin of the card long enough that the host's
-    issue of them does not pace the card: device time, not launch rate."""
-    fn()
+    issue of them does not pace the card: device time, not launch rate (a
+    function of many launches stays host-paced)."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
@@ -351,10 +353,9 @@ def device_ms(fn, iters: int = 20) -> float:
 
 
 SPIN_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock per queued call: above a wrapper's host time
-# the attention step's ablation builds, timed beside it: tanh through the
-# special-function unit, no tanh, one TF32 product in place of three, neither
-ATT_ABLATIONS = (("ATT_TANH_FAST",), ("ATT_ABLATE_TANH",), ("ATT_ABLATE_SPLIT",),
-                 ("ATT_ABLATE_TANH", "ATT_ABLATE_SPLIT"))
+# the attention step's ablation builds, timed beside it: no tanh, one TF32
+# product in place of three, neither
+ATT_ABLATIONS = (("ATT_ABLATE_TANH",), ("ATT_ABLATE_SPLIT",), ("ATT_ABLATE_TANH", "ATT_ABLATE_SPLIT"))
 DECODE_PHASE_VARIANTS = (("att_step", ("ATT_PHASES",)), ("ctc_prefix", ("PREFIX_PHASES",))) + tuple(
     ("att_step", d) for d in ATT_ABLATIONS)
 

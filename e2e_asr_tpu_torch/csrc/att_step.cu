@@ -112,16 +112,12 @@ __device__ __forceinline__ float warp_max(float x) {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Ablation builds, timed only (bin/profile_decode.py --decode-phases): the
-// energies with tanh(x) = 1 - 2 / (exp(2x) + 1) through the special-function
-// unit (-DATT_TANH_FAST; absolute error ~1e-6), with no tanh at all
+// Ablation builds, timed only (bin/profile_decode.py --decode-phases), both
+// computing wrong values: the energies with no tanh at all
 // (-DATT_ABLATE_TANH) and with one TF32 product in place of three
-// (-DATT_ABLATE_SPLIT); the last two compute wrong values.
-#if defined(ATT_ABLATE_TANH)
+// (-DATT_ABLATE_SPLIT).
+#ifdef ATT_ABLATE_TANH
 #define TANH(x) (x)
-#elif defined(ATT_TANH_FAST)
-__device__ __forceinline__ float tanh_fast(float x) { return 1.0f - __fdividef(2.0f, __expf(2.0f * x) + 1.0f); }
-#define TANH tanh_fast
 #else
 #define TANH tanhf
 #endif
