@@ -7,7 +7,11 @@ prev_att [B, W, S], k [B, S, Dk], v [B, S, E], enc_len [B], the location
 conv taps [K, P] (P = 2*loc_kernel_size + 1, head squeezed), wlp [K, Dk]
 (loc_proj), locv [Dk] and locb [Dk] = loc_b + loc_conv.b @ wlp, and return
 (align [B, W, S], ctx [B, W, E]). The location features are a SAME
-cross-correlation of prev_att with the taps; there is no Toeplitz bank.
+cross-correlation of prev_att with the taps; there is no Toeplitz bank. The
+kernel is one cooperative grid of every SM's resident blocks that splits
+the utterances' valid frames evenly over them, an utterance's share to a
+block; it takes at most as many utterances as blocks (132 on an H100) and
+raises beyond.
 """
 
 from __future__ import annotations
@@ -57,16 +61,15 @@ def att_step_beam_loc_plain(q, prev_att, k, v, enc_len, taps, wlp, locv, locb, t
 
 PHASE_BUILD = ("ATT_PHASES",)  # the define of the kernel's timing build (bin/profile_decode.py)
 # the phases the timing build times (csrc PH_*, in order)
-PHASES = ("staging", "conv", "energies", "softmax", "cluster barrier 1", "align", "context",
-          "cluster barrier 2", "reduce")
+PHASES = ("staging", "conv", "energies", "softmax", "context", "grid barrier", "align", "reduce")
 
 
 @functools.lru_cache(maxsize=None)
 def plan(b: int, w: int, s: int, dk: int, e_dim: int, kk: int, p: int) -> dict:
     """The kernel's launch plan from its own layout code and the card's
-    cluster occupancy (``e2e_att_step_plan``, asked once a shape): blocks a
-    cluster (one cluster an utterance), clusters resident at once, shared
-    memory a block. Raises where no cluster size fits."""
+    occupancy (``e2e_att_step_plan``, asked once a shape): blocks of the
+    cooperative grid (all resident), shared memory a block, floats of
+    scratch. Raises where no layout fits."""
     out = torch.zeros(3, dtype=torch.int32)
     lib = cuda_build.library("att_step")
     fn = lib.e2e_att_step_plan
@@ -76,8 +79,8 @@ def plan(b: int, w: int, s: int, dk: int, e_dim: int, kk: int, p: int) -> dict:
     if err != 0:
         raise RuntimeError(f"e2e_att_step_plan: {lib.e2e_error_string(err).decode()}")
     if int(out[0]) < 1:
-        raise RuntimeError(f"att_step_beam_loc: no cluster layout fits B={b} W={w} S={s} Dk={dk} E={e_dim}")
-    return {"cluster_size": int(out[0]), "clusters_resident": int(out[1]), "smem": int(out[2])}
+        raise RuntimeError(f"att_step_beam_loc: no layout fits B={b} W={w} S={s} Dk={dk} E={e_dim}")
+    return {"blocks": int(out[0]), "smem": int(out[1]), "scratch": int(out[2])}
 
 
 def _launch(defines, q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp):
@@ -98,12 +101,13 @@ def _launch(defines, q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp):
             f"att_step_beam_loc: shapes q {tuple(q.shape)} prev_att {tuple(prev_att.shape)} "
             f"k {tuple(k.shape)} v {tuple(v.shape)} taps {tuple(taps.shape)} wlp {tuple(wlp.shape)}"
         )
-    cl = plan(b, w, s, dk, e_dim, kk, p)["cluster_size"]
+    pl = plan(b, w, s, dk, e_dim, kk, p)
     align = torch.empty((b, w, s), dtype=torch.float32, device=q.device)
     ctx = torch.empty((b, w, e_dim), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((pl["scratch"],), dtype=torch.float32, device=q.device)
     cuda_build.launch(
         "att_step", "e2e_att_step_beam_loc", q, prev_att, k, v, enc_len, taps, wlp, locv, locb,
-        align, ctx, b, w, s, dk, e_dim, kk, p, 1.0 / float(temp), cl, defines=defines,
+        align, ctx, scratch, b, w, s, dk, e_dim, kk, p, 1.0 / float(temp), pl["blocks"], defines=defines,
     )
     return align, ctx
 

@@ -2,8 +2,8 @@
 ragged shapes the flagship run does not reach: odd batch (one row per
 LSTM block), T not a multiple of the kernels' tiles, a wave shorter than
 one window, B = 1; the beam attention step with W = 1 and 16, S = 1 to
-1100 (k and v in several tiles), enc_len of 1, B not a multiple of
-anything, and its plan refusing K > 16; the fused CTC prefix kernel with
+1100 (k and v in several tiles), enc_len of 1, B from 1 to 5, and its plan
+refusing K > 16 and more utterances than the grid's blocks; the fused CTC prefix kernel with
 and without an empty prefix, K = 1 and V - 1, T up to 2000 (several
 tiles), enc_len of 1 and of T; both decode kernels repeated bitwise and
 run under the sync debug mode set to raise; the LSTM forward's plan (Wh resident
@@ -119,10 +119,16 @@ def test_att_step_kernel(gen, b, w, s, dk, e_dim, lens):
 
 
 def test_att_step_plan_raises_outside_its_envelope(gen):
-    """More than 16 location filters (two k-steps of the energies' product)
-    has no layout: the plan raises, no launch is made."""
+    """More than 16 location filters (two k-steps of the energies' product),
+    or more utterances than the grid's blocks (a block an utterance's share
+    at least), have no layout: the plan raises, no launch is made."""
+    before = asc.att_step_beam_loc.launches
     with pytest.raises(RuntimeError, match="e2e_att_step_plan"):
         asc.att_step_beam_loc(*_att_args(gen, 2, 3, 30, 20, 16, [30, 9], kk=17))
+    b = torch.cuda.get_device_properties(0).multi_processor_count * 4 + 1
+    with pytest.raises(RuntimeError, match="no layout fits"):
+        asc.att_step_beam_loc(*_att_args(gen, b, 1, 3, 8, 8, [3] * b, p=3))
+    assert asc.att_step_beam_loc.launches == before
 
 
 def _prefix_args(gen, b, w, k, t, v, lens, empty):
