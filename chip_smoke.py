@@ -11,8 +11,7 @@
    at the flagship decode shapes (configs/libri/asr_example.yaml model,
    decode B=16, W=16; the attention step also at S=764; both repeated
    bitwise and run once under the sync debug mode set to raise, each split
-   by phase by its timing build, the attention step beside its ablation
-   builds; with ``--parent DIR``, a checkout of the parent commit, the CTC
+   by phase by its timing build; with ``--parent DIR``, a checkout of the parent commit, the CTC
    prefix side of a beam step is timed there and here in turns), the
    training kernels (the LSTM's training forward
    and backward, each one's two launches timed apart, their outputs
@@ -85,8 +84,6 @@ TRAIN_STEPS = 5
 ALT_ROUNDS = 21  # rounds of a kernel against its library call in turns
 CONV_STEPS = 3
 NOISE_SEED = 20261016  # the scan checks' sampled feedback
-SFU_LANES = 16  # special-function lanes of an H100 SM a cycle (two per accurate tanhf)
-SMS, BOOST_HZ = 132, 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -111,16 +108,10 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 def alternating_ms(fns: dict, rounds: int = ALT_ROUNDS, iters: int = 3) -> dict:
     """Median ms a call of each function over ``rounds`` rounds that time
-    them in turns (the order reversed every other round), ``iters`` calls a
-    round: a comparison within one call, which host-paced single timings of
-    two functions minutes apart do not give."""
-    times = {name: [] for name in fns}
-    for fn in fns.values():
-        fn()
-    for r in range(rounds):
-        for name in (list(fns) if r % 2 == 0 else list(reversed(fns))):
-            times[name].append(time_ms(fns[name], iters, 0))
-    return {name: sorted(v)[len(v) // 2] for name, v in times.items()}
+    them in turns (``profile_decode.alternating_ms``)."""
+    from e2e_asr_tpu_torch.bin.profile_decode import alternating_ms as in_turns
+
+    return in_turns(fns, rounds, iters)
 
 
 def compare(name, got, want, rtol, atol, unreachable=None):
@@ -264,10 +255,6 @@ def kernel_checks(dev, cfg, vocab):
     nb = 4 * (b * w * dk + 2 * b * w * s_len + nvalid * (dk + e_dim) + b + kk * p + kk * dk
               + 2 * dk + b * w * e_dim)
     nf = w * nvalid * (2 * p * kk + dk * (2 * kk + 4) + 2 * e_dim) + b * w * s_len * 4
-    # the accurate tanhf alone: two special-function ops each, on every SM's
-    # SFU lanes at the boost clock (a floor above bound_ms, which counts a
-    # tanh as 4 operations)
-    tanh_floor = w * nvalid * dk * 2 / (SMS * SFU_LANES * BOOST_HZ) * 1e3
     out["att_step_beam_loc"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/att_step.cu",
         replaces="e2e_asr_tpu/ops/att_step_pallas.py:159", max_abs_err=err,
@@ -276,12 +263,11 @@ def kernel_checks(dev, cfg, vocab):
         library_ms=None, bound=bound_ms(nb, nf),
         shapes=f"q [{b},{w},{dk}], S {s_len}, E {e_dim}, taps [{kk},{p}]",
         ms_s764=time_ms(lambda: asc.att_step_beam_loc(*args764), 10),
-        phases_us=split["phases_us"], plan=split["plan"], ablations_ms=split["ablations_ms"],
-        tanh_floor_ms=tanh_floor, **att_extra,
+        phases_us=split["phases_us"], plan=split["plan"], **att_extra,
     )
     print(f"  att_step_beam_loc: {out['att_step_beam_loc']['ms'] * 1e3:.1f} us (S=764: "
           f"{out['att_step_beam_loc']['ms_s764'] * 1e3:.1f} us), bound {out['att_step_beam_loc']['bound'][0] * 1e3:.2f} "
-          f"us, tanhf floor {tanh_floor * 1e3:.2f} us", flush=True)
+          f"us", flush=True)
 
     # ---- 4. prefix_recursion: the fused CTC prefix function
     print("[kernel] prefix_recursion (prefix_scores_fused)", flush=True)
@@ -1369,7 +1355,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     print(smi, flush=True)
     dev = resolve_device("cuda")
     t0 = time.time()
-    logs = cuda_build.build_all(PHASE_VARIANTS + DECODE_PHASE_VARIANTS)  # the timing and ablation builds too
+    logs = cuda_build.build_all(PHASE_VARIANTS + DECODE_PHASE_VARIANTS)  # the timing builds too
     print(f"build: {time.time() - t0:.1f}s for {sorted(logs) or 'nothing (cached)'}", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
@@ -1439,7 +1425,7 @@ def main(json_path: str = "", parent: str = "") -> None:
             **{k: kv[k] for k in ("per_width", "per_shape", "layer_routes", "loss_fwd_bwd_ms",
                                   "launches_per_fwd_bwd", "device_launches_per_fwd_bwd",
                                   "ms_sampled", "ms_s764_l8", "phases_us", "grid", "alternating", "plan",
-                                  "ms_s764", "tanh_floor_ms", "ablations_ms", "repeats_bitwise", "host_sync",
+                                  "ms_s764", "repeats_bitwise", "host_sync",
                                   "parent_path")
                                   if k in kv},
         })

@@ -22,9 +22,14 @@ and the kernels by device time. Writes the same as JSON to ``--out``
 its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
 the flagship decode shapes (B=16, W=16, S=T=204, Dk=300, E=640, K=10, P=201,
 24 candidates a beam, vocabulary 26, lengths in [S/2, S]) and block 0's us
-per phase are printed beside each kernel's device time, and the attention
-step's ablation builds (no tanh, one TF32 product in place of three) are
-timed beside it
+per phase are printed beside each kernel's device time. Variants of both
+sources, made by rewriting their text into ``_build/decode_variants/`` and
+built only here, are timed in turns with the normal build: the attention
+step's ablations (no tanh, one TF32 product in place of three, neither;
+their values are wrong, only their times count), and the CTC prefix kernel's
+log-sum-exp on exp2f/log2f, and in natural-log units on expf/logf or on
+the intrinsics __expf/__logf, in place of log2 units on ex2/lg2.approx,
+each also held against the plain version at T = 204, 764 and 1000
 (``profile_decode_phases.json``).
 
 ``--train --scan-phases`` instead splits one step of each fused speller
@@ -353,11 +358,73 @@ def device_ms(fn, iters: int = 20, warmup: int = 1) -> float:
 
 
 SPIN_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock per queued call: above a wrapper's host time
-# the attention step's ablation builds, timed beside it: no tanh, one TF32
-# product in place of three, neither
-ATT_ABLATIONS = (("ATT_ABLATE_TANH",), ("ATT_ABLATE_SPLIT",), ("ATT_ABLATE_TANH", "ATT_ABLATE_SPLIT"))
-DECODE_PHASE_VARIANTS = (("att_step", ("ATT_PHASES",)), ("ctc_prefix", ("PREFIX_PHASES",))) + tuple(
-    ("att_step", d) for d in ATT_ABLATIONS)
+DECODE_PHASE_VARIANTS = (("att_step", ("ATT_PHASES",)), ("ctc_prefix", ("PREFIX_PHASES",)))  # timing builds
+
+
+def alternating_ms(fns: dict, rounds: int = 21, iters: int = 3) -> dict:
+    """Median ms a call of each function over ``rounds`` rounds that time
+    them in turns (the order reversed every other round), ``iters`` calls a
+    round: a comparison within one call, which host-paced single timings of
+    two functions minutes apart do not give."""
+    times = {name: [] for name in fns}
+    for fn in fns.values():
+        fn()
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(reversed(fns))):
+            times[name].append(device_ms(fns[name], iters, 0))
+    return {name: sorted(v)[len(v) // 2] for name, v in times.items()}
+
+
+# variants of the decode kernels' sources, built and timed only by
+# --decode-phases: {source: {variant: [(text, its replacement, occurrences)]}}
+_NO_TANH = [("fmaf(l2.x, tanhf(", "fmaf(l2.x, (", 2), ("fmaf(l2.y, tanhf(", "fmaf(l2.y, (", 2)]
+_ONE_TF32 = [("                mma_tf32(fw[j], al[s2], bh);  // three TF32 products: lo hi + hi lo + hi hi\n"
+              "                mma_tf32(fw[j], ah[s2], bl);\n", "", 1)]
+_EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));'
+_LG2 = 'asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));'
+_NATURAL = [("LOG2E = 1.4426950408889634f;", "LOG2E = 1.0f;", 1), ("LN2 = 0.6931471805599453f;", "LN2 = 1.0f;", 1)]
+SOURCE_VARIANTS = {
+    "att_step": {"no_tanh": _NO_TANH, "one_tf32": _ONE_TF32, "no_tanh+one_tf32": _NO_TANH + _ONE_TF32},
+    "ctc_prefix": {
+        "exp2f_log2f": [(_EX2, "y = exp2f(x);", 1), (_LG2, "y = log2f(x);", 1)],
+        "natural_expf_logf": [(_EX2, "y = expf(x);", 1), (_LG2, "y = logf(x);", 1), *_NATURAL],
+        "natural___expf___logf": [(_EX2, "y = __expf(x);", 1), (_LG2, "y = __logf(x);", 1), *_NATURAL],
+    },
+}
+
+
+def build_source_variants() -> None:
+    """Write each variant of ``SOURCE_VARIANTS`` (its source's text with
+    the replacements made, each found as often as stated) into
+    ``_build/decode_variants/``, compile them in parallel and register each
+    library as ``cuda_build.library(source, (variant,))``."""
+    from e2e_asr_tpu_torch import cuda_build
+
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "decode_variants")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(cuda_build.CSRC_DIR, "tf32_mma.cuh")) as f, \
+            open(os.path.join(out_dir, "tf32_mma.cuh"), "w") as g:
+        g.write(f.read())
+    procs = {}
+    for name, variants in SOURCE_VARIANTS.items():
+        with open(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu")) as f:
+            base = f.read()
+        for var, edits in variants.items():
+            src = base
+            for old, new, count in edits:
+                if src.count(old) != count:
+                    raise RuntimeError(f"{name}.cu: {old!r} found {src.count(old)} times, not {count}")
+                src = src.replace(old, new)
+            stem = os.path.join(out_dir, f"{name}-{var.replace('+', '-')}")
+            with open(stem + ".cu", "w") as f:
+                f.write(src)
+            cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", stem + ".so", stem + ".cu"]
+            procs[(name, var)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT), stem)
+    for (name, var), (proc, stem) in procs.items():
+        log = proc.communicate()[0].decode(errors="replace")
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}.cu variant {var} failed to build:\n{log}")
+        cuda_build.register(name, var, stem + ".so")
 
 
 def _phase_split(launch, phase_fn: str, lib: str, defines, names, iters: int) -> dict:
@@ -385,21 +452,52 @@ def att_phase_split(args, iters: int = 20) -> dict:
     res = _phase_split(lambda d: asc._launch(d, *args), "e2e_att_step_phase_times", "att_step",
                        asc.PHASE_BUILD, asc.PHASES, iters)
     res["plan"] = asc.plan(*prev.shape, k.shape[2], v.shape[2], args[5].shape[0], args[5].shape[1])
-    res["ablations_ms"] = {"+".join(d): device_ms(lambda: asc._launch(d, *args), iters) for d in ATT_ABLATIONS}
     return res
 
 
-def flagship_prefix_inputs(dev, seed: int = 3):
+def att_variants_ms(args) -> dict:
+    """ms a launch of the normal build and of each attention-step variant
+    of ``SOURCE_VARIANTS`` (built by ``build_source_variants``), in turns."""
+    from e2e_asr_tpu_torch.ops import att_step_cuda as asc
+
+    fns = {"normal": lambda: asc._launch((), *args)}
+    fns.update({v: (lambda v=v: asc._launch((v,), *args)) for v in SOURCE_VARIANTS["att_step"]})
+    return alternating_ms(fns, rounds=9)
+
+
+def prefix_variants(dev, ts=(816 // 4, 764, 1000)) -> dict:
+    """At each T of ``ts`` (the flagship's other shapes): the normal build
+    and each CTC prefix variant of ``SOURCE_VARIANTS``, ms a launch in turns
+    and the max abs error of psi, r_h and psi_eos against the plain version
+    over the cells the plain version reaches (> NEG / 2)."""
+    from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
+
+    res = {}
+    for t in ts:
+        args = flagship_prefix_inputs(dev, t=t)
+        want = cpc.prefix_scores_fused_plain(*args)
+        builds = {"normal": ()} | {v: (v,) for v in SOURCE_VARIANTS["ctc_prefix"]}
+        err = {}
+        for name, d in builds.items():
+            got = cpc._launch(d, *args)
+            err[name] = {nm: float((g.double() - wv.double())[wv > cpc.NEG / 2].abs().max())
+                         for nm, g, wv in zip(("psi", "r_h", "psi_eos"), got, want)}
+        ms = alternating_ms({name: (lambda d=d: cpc._launch(d, *args)) for name, d in builds.items()}, rounds=9)
+        res[f"T{t}"] = {name: {"ms": ms[name], "max_abs_err": err[name]} for name in builds}
+    return res
+
+
+def flagship_prefix_inputs(dev, seed: int = 3, t: int = 816 // 4):
     """The fused CTC prefix function's inputs at the flagship decode shapes
-    (B=16, W=16, K=24 candidates a beam, T=204, vocabulary 26, lengths in
-    [T/2, T] with the first at T): parents that emitted one token, one
-    candidate of each beam equal to its last token, as ``chip_smoke.py``
-    draws them."""
+    (B=16, W=16, K=24 candidates a beam, T=204 unless given, vocabulary 26,
+    lengths in [T/2, T] with the first at T): parents that emitted one
+    token, one candidate of each beam equal to its last token, as
+    ``chip_smoke.py`` draws them."""
     from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
     from e2e_asr_tpu_torch.decode.ctc_prefix import init_empty_prefix
 
     cfg = flagship_smoke_config()
-    b, w, t, vocab = cfg.decode.batch_size, cfg.decode.beam_size, 816 // 4, 26
+    b, w, vocab = cfg.decode.batch_size, cfg.decode.beam_size, 26
     k = min(vocab, max(w, int(w * cfg.decode.ctc_beam_ratio)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -432,9 +530,14 @@ def print_decode_phases(split: dict) -> None:
         print(f"{name} phases, block 0, us (timing build {sp['timing_build_ms'] * 1e3:.1f} us a launch; normal "
               f"build {sp['ms'] * 1e3:.1f} us{'; plan ' + str(sp['plan']) if 'plan' in sp else ''}): {parts}; "
               f"sum {sum(sp['phases_us'].values()):.2f} us", flush=True)
-        if "ablations_ms" in sp:
-            abl = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sp["ablations_ms"].items())
-            print(f"  {name} ablation builds, us a launch: {abl}", flush=True)
+        if "variants_ms" in sp:
+            var = ", ".join(f"{k} {v * 1e3:.2f}" for k, v in sp["variants_ms"].items())
+            print(f"  {name} source variants in turns, us a launch: {var}", flush=True)
+        for t, by in sp.get("variants", {}).items():
+            for k, r in by.items():
+                errs = ", ".join(f"{nm} {e:.3e}" for nm, e in r["max_abs_err"].items())
+                print(f"  {name} {t} {k}: {r['ms'] * 1e3:.2f} us (in turns), max abs err vs plain {errs}",
+                      flush=True)
 
 
 def print_scan_phases(split: dict) -> None:
@@ -482,9 +585,13 @@ def main(argv=None):
         from e2e_asr_tpu_torch.device import resolve_device
 
         cuda_build.build_all(DECODE_PHASE_VARIANTS)
+        build_source_variants()
         dev = resolve_device("cuda")
-        split = {"att_step_beam_loc": att_phase_split(flagship_att_inputs(dev)),
+        att_args = flagship_att_inputs(dev)
+        split = {"att_step_beam_loc": att_phase_split(att_args),
                  "prefix_recursion": prefix_phase_split(flagship_prefix_inputs(dev))}
+        split["att_step_beam_loc"]["variants_ms"] = att_variants_ms(att_args)
+        split["prefix_recursion"]["variants"] = prefix_variants(dev)
         print(f"{card}: decode kernels at the flagship decode shapes")
         print_decode_phases(split)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

@@ -47,6 +47,10 @@
 //   - one grid barrier; then each block scales its exps by the statistics
 //     of its utterance's units into align, and the warps sum the units'
 //     partial contexts, scaled, in unit order into ctx.
+// A launch takes at most G utterances, and fewer where their units' frames
+// would not fit in shared memory (e2e_att_step_plan); the wrapper launches
+// the kernel for groups of utterances in turn where B is larger (one launch
+// at the flagship decode shapes).
 // No atomics, every sum in a fixed order: repeats are bitwise. The wrapper
 // allocates the scratch (its size from the shapes alone) and launches on
 // PyTorch's stream with no host synchronisation.
@@ -113,16 +117,6 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// Ablation builds, timed only (bin/profile_decode.py --decode-phases), both
-// computing wrong values: the energies with no tanh at all
-// (-DATT_ABLATE_TANH) and with one TF32 product in place of three
-// (-DATT_ABLATE_SPLIT).
-#ifdef ATT_ABLATE_TANH
-#define TANH(x) (x)
-#else
-#define TANH tanhf
-#endif
 
 // row strides: k tile [TF][KS] and wlp [K][WLS] with stride = 8 mod 32 (a
 // quarter warp's fragment and pair loads free of bank conflicts); f [rows]
@@ -417,10 +411,8 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
                 uint32_t bh[2], bl[2];                // between the n-tiles' products
                 tf32_split(wl[wo[s2][0] + n0], bh[0], bl[0]);
                 tf32_split(wl[wo[s2][1] + n0], bh[1], bl[1]);
-#ifndef ATT_ABLATE_SPLIT
                 mma_tf32(fw[j], al[s2], bh);  // three TF32 products: lo hi + hi lo + hi hi
                 mma_tf32(fw[j], ah[s2], bl);
-#endif
                 mma_tf32(fw[j], ah[s2], bh);
               }
             }
@@ -431,10 +423,10 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
                 const float2 kx = *reinterpret_cast<const float2*>(ka + d), ky = *reinterpret_cast<const float2*>(kbr + d);
                 const float2 qx = *reinterpret_cast<const float2*>(qa + d), qy = *reinterpret_cast<const float2*>(qbr + d);
                 const float2 l2 = *reinterpret_cast<const float2*>(lw + d);
-                r0 = fmaf(l2.x, TANH(kx.x + qx.x + fw[j][0]), r0);
-                r0 = fmaf(l2.y, TANH(kx.y + qx.y + fw[j][1]), r0);
-                r1 = fmaf(l2.x, TANH(ky.x + qy.x + fw[j][2]), r1);
-                r1 = fmaf(l2.y, TANH(ky.y + qy.y + fw[j][3]), r1);
+                r0 = fmaf(l2.x, tanhf(kx.x + qx.x + fw[j][0]), r0);
+                r0 = fmaf(l2.y, tanhf(kx.y + qx.y + fw[j][1]), r0);
+                r1 = fmaf(l2.x, tanhf(ky.x + qy.x + fw[j][2]), r1);
+                r1 = fmaf(l2.y, tanhf(ky.y + qy.y + fw[j][3]), r1);
               }
             }
           }
@@ -668,41 +660,52 @@ extern "C" const char* e2e_error_string(int err) {
 
 // The launch plan (host; asks the card once): out[0] = G, the blocks of the
 // grid (every SM's resident blocks: one a SM at the flagship), out[1] =
-// shared-memory bytes a block, out[2] = floats of scratch the launch needs;
-// out[0] = 0 where no layout fits.
+// shared-memory bytes a block, out[2] = floats of scratch a launch needs,
+// out[3] = Bg, the utterances a launch. A launch takes at most G utterances
+// (a unit a block needs an utterance a block at least), and its units'
+// frames, so its shared memory, grow with its utterances; where all B do not
+// fit, the wrapper launches the kernel for groups of Bg utterances in turn,
+// B split evenly into the fewest groups that fit. out[0] = 0 where not even
+// one utterance fits.
 extern "C" int e2e_att_step_plan(int B, int W, int S, int Dk, int E, int K, int P, int* out, void* stream) {
   (void)stream;
-  out[0] = out[1] = out[2] = 0;
+  out[0] = out[1] = out[2] = out[3] = 0;
   if (B < 1 || W < 1 || S < 1 || Dk < 1 || E < 1 || K < 1 || K > 8 * KSMAX || P < 1 || P % 2 != 1)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0;
+  int dev = 0, sms = 0, per_sm = 0, G = 0, bg = B;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  const size_t smem = sizeof(float) * att_layout(B, W, S, Dk, E, K, P, sms).total;
-  if (smem > SMEM_MAX) return 0;
-  e = cudaFuncSetAttribute(att_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, att_step_kernel, NT, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return 0;
-  const int G = sms * per_sm;  // (a smaller share a block: the layout for sms blocks fits)
-  if (B > G) return 0;  // a unit a block needs an utterance a block at least
+  for (; bg >= 1; --bg) {  // the most utterances a launch whose layout fits
+    const size_t smem = sizeof(float) * att_layout(bg, W, S, Dk, E, K, P, sms).total;
+    if (smem > SMEM_MAX) continue;
+    e = cudaFuncSetAttribute(att_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, att_step_kernel, NT, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) continue;
+    G = sms * per_sm;  // (a smaller share a block: the layout for sms blocks fits)
+    if (bg <= G) break;
+    bg = G + 1;  // the next try: G utterances
+  }
+  if (bg < 1) return 0;
+  bg = cdiv(B, cdiv(B, bg));  // the groups evened out (each fits: the layout grows with the utterances)
   out[0] = G;
-  out[1] = (int)(sizeof(float) * att_layout(B, W, S, Dk, E, K, P, G).total);
-  out[2] = (G + B) * W * (E + 2);  // a slot a unit: at most max(G, B) units
+  out[1] = (int)(sizeof(float) * att_layout(bg, W, S, Dk, E, K, P, G).total);
+  out[2] = (G + bg) * W * (E + 2);  // a slot a unit: at most max(G, Bg) units
+  out[3] = bg;
   return 0;
 }
 
 // q [B, W, Dk], prev_att [B, W, S], k [B, S, Dk], v [B, S, E], enc_len [B] int32,
 // taps [K, P], wlp [K, Dk], locv [Dk], locb [Dk] -> align [B, W, S], ctx [B, W, E];
 // scratch [(G + B) W (E + 2)] floats; a cooperative grid of G blocks, all
-// resident (e2e_att_step_plan).
+// resident, B <= G (e2e_att_step_plan).
 extern "C" int e2e_att_step_beam_loc(const float* q, const float* prev_att, const float* k, const float* v,
                                      const int* enc_len, const float* taps, const float* wlp,
                                      const float* locv, const float* locb, float* align, float* ctx,
                                      float* scratch, int B, int W, int S, int Dk, int E, int K, int P,
                                      float inv_temp, int G, void* stream) {
-  if (B < 1 || W < 1 || S < 1 || Dk < 1 || E < 1 || K < 1 || K > 8 * KSMAX || P % 2 != 1 || G < 1)
+  if (B < 1 || W < 1 || S < 1 || Dk < 1 || E < 1 || K < 1 || K > 8 * KSMAX || P % 2 != 1 || G < B)
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * att_layout(B, W, S, Dk, E, K, P, G).total;
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;

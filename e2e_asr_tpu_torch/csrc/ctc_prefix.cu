@@ -17,6 +17,13 @@
 // max(a, b) > NEG/2, else NEG (decode/ctc_prefix_cuda.py lse). The recursion
 // is the serial one of prefix_scores_scan, not the TPU kernel's blockwise
 // log-depth form, which cancels catastrophically when its inputs hold NEG.
+// Precision: psi_eos is computed as the plain version does, in natural-log
+// units with the accurate expf and logf. The recursion and phi work in log2
+// units on the approximate ex2.approx.ftz and lg2.approx.ftz (2^-22 relative
+// and absolute error): r_h and psi then differ from the plain version by a
+// rounding that grows with T. PERF.md gives the errors at T = 204, 764 and
+// 1000 and the times beside a build on exp2f/log2f and one in natural-log
+// units on expf/logf (bin/profile_decode.py --decode-phases).
 //
 // What bounds it on the H100: latency. Per column the recursion is a chain
 // of T dependent log-sum-exps (~8 dependent instructions, two of them on the
@@ -104,8 +111,13 @@ __device__ __forceinline__ float lse2(float a, float b) {
   return m > NEG2 / 2 ? out : NEG2;
 }
 
-// the same in the function's natural-log units (decode/ctc_prefix_cuda.py lse)
-__device__ __forceinline__ float lse(float a, float b) { return lse2(a * LOG2E, b * LOG2E) * LN2; }
+// the log-sum-exp in the function's natural-log units as the plain version
+// computes it, accurate expf and logf (decode/ctc_prefix_cuda.py lse)
+__device__ __forceinline__ float lse(float a, float b) {
+  const float m = fmaxf(a, b), ms = fmaxf(m, NEG);
+  const float out = ms + logf(expf(a - ms) + expf(b - ms));
+  return m > NEG / 2 ? out : NEG;
+}
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 

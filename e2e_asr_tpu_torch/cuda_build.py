@@ -125,6 +125,17 @@ def library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
         return _libs[key]
 
 
+def register(name: str, tag: str, path: str) -> None:
+    """Load the library at ``path``, a variant of source ``name`` built
+    from rewritten source (``bin/profile_decode.py``), as ``library(name,
+    (tag,))``, so that the launchers that take ``defines`` reach it."""
+    lib = ctypes.CDLL(path)
+    lib.e2e_error_string.argtypes = [ctypes.c_int]
+    lib.e2e_error_string.restype = ctypes.c_char_p
+    with _lock:
+        _libs[(name, (tag,))] = lib
+
+
 def launch(name: str, fn: str, *args, defines: Sequence[str] = ()) -> None:
     """Call launcher ``fn`` of library ``name`` (built with ``defines``) on
     the current stream.

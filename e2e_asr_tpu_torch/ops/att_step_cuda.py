@@ -10,8 +10,10 @@ conv taps [K, P] (P = 2*loc_kernel_size + 1, head squeezed), wlp [K, Dk]
 cross-correlation of prev_att with the taps; there is no Toeplitz bank. The
 kernel is one cooperative grid of every SM's resident blocks that splits
 the utterances' valid frames evenly over them, an utterance's share to a
-block; it takes at most as many utterances as blocks (132 on an H100) and
-raises beyond.
+block. A launch takes at most as many utterances as blocks (132 on an
+H100), and fewer where their shares would not fit in shared memory (long S
+with many utterances); the wrapper then launches it for groups of
+utterances in turn, B split evenly into the fewest groups that fit.
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ def plan(b: int, w: int, s: int, dk: int, e_dim: int, kk: int, p: int) -> dict:
     """The kernel's launch plan from its own layout code and the card's
     occupancy (``e2e_att_step_plan``, asked once a shape): blocks of the
     cooperative grid (all resident), shared memory a block, floats of
-    scratch. Raises where no layout fits."""
-    out = torch.zeros(3, dtype=torch.int32)
+    scratch a launch, utterances a launch (``group``). Raises where not even
+    one utterance fits."""
+    out = torch.zeros(4, dtype=torch.int32)
     lib = cuda_build.library("att_step")
     fn = lib.e2e_att_step_plan
     fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
@@ -80,10 +83,12 @@ def plan(b: int, w: int, s: int, dk: int, e_dim: int, kk: int, p: int) -> dict:
         raise RuntimeError(f"e2e_att_step_plan: {lib.e2e_error_string(err).decode()}")
     if int(out[0]) < 1:
         raise RuntimeError(f"att_step_beam_loc: no layout fits B={b} W={w} S={s} Dk={dk} E={e_dim}")
-    return {"blocks": int(out[0]), "smem": int(out[1]), "scratch": int(out[2])}
+    return {"blocks": int(out[0]), "smem": int(out[1]), "scratch": int(out[2]), "group": int(out[3])}
 
 
 def _launch(defines, q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp):
+    """(align, ctx) from the kernel built with ``defines``, and its launches:
+    one a group of the plan's utterances, in turn on one scratch."""
     q, prev_att, k, v, taps, wlp, locv, locb = (
         a.contiguous() for a in (q, prev_att, k, v, taps, wlp, locv, locb)
     )
@@ -105,11 +110,15 @@ def _launch(defines, q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp):
     align = torch.empty((b, w, s), dtype=torch.float32, device=q.device)
     ctx = torch.empty((b, w, e_dim), dtype=torch.float32, device=q.device)
     scratch = torch.empty((pl["scratch"],), dtype=torch.float32, device=q.device)
-    cuda_build.launch(
-        "att_step", "e2e_att_step_beam_loc", q, prev_att, k, v, enc_len, taps, wlp, locv, locb,
-        align, ctx, scratch, b, w, s, dk, e_dim, kk, p, 1.0 / float(temp), pl["blocks"], defines=defines,
-    )
-    return align, ctx
+    groups = range(0, b, pl["group"])
+    for b0 in groups:
+        g = slice(b0, min(b, b0 + pl["group"]))
+        cuda_build.launch(
+            "att_step", "e2e_att_step_beam_loc", q[g], prev_att[g], k[g], v[g], enc_len[g], taps, wlp, locv,
+            locb, align[g], ctx[g], scratch, g.stop - b0, w, s, dk, e_dim, kk, p, 1.0 / float(temp),
+            pl["blocks"], defines=defines,
+        )
+    return (align, ctx), len(groups)
 
 
 def att_step_beam_loc(
@@ -118,8 +127,8 @@ def att_step_beam_loc(
     """Plain version on CPU tensors; the CUDA kernel on CUDA tensors."""
     if cuda_build.use_plain(q):
         return att_step_beam_loc_plain(q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp)
-    out = _launch((), q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp)
-    att_step_beam_loc.launches += 1
+    out, n = _launch((), q, prev_att, k, v, enc_len, taps, wlp, locv, locb, temp)
+    att_step_beam_loc.launches += n
     return out
 
 

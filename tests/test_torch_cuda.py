@@ -2,8 +2,10 @@
 ragged shapes the flagship run does not reach: odd batch (one row per
 LSTM block), T not a multiple of the kernels' tiles, a wave shorter than
 one window, B = 1; the beam attention step with W = 1 and 16, S = 1 to
-1100 (k and v in several tiles), enc_len of 1, B from 1 to 5, and its plan
-refusing K > 16 and more utterances than the grid's blocks; the fused CTC prefix kernel with
+1100 (k and v in several tiles), enc_len of 1, B from 1 to 5, B = 64 at
+S = 764 and B = 140 (more utterances than one launch takes: launches for
+groups of them), and its plan refusing K > 16 and an S at which not even one
+utterance fits; the fused CTC prefix kernel with
 and without an empty prefix, K = 1 and V - 1, T up to 2000 (several
 tiles), enc_len of 1 and of T; both decode kernels repeated bitwise and
 run under the sync debug mode set to raise; the LSTM forward's plan (Wh resident
@@ -98,13 +100,17 @@ def _att_args(gen, b, w, s, dk, e_dim, lens, kk=10, p=2 * 50 + 1):
     return (q, prev, k, v, torch.tensor(lens, device="cuda"), taps, wlp, locv, locb, 0.5)
 
 
-# (B, W, S, Dk, E, enc_len): B = 3 and 5 (clusters of the plan's size, one
-# an utterance, whatever B), W = 1 and 16, S = 7 to 1100 (k and v in several
-# tiles past 48 frames a block), enc_len of 1 and of S, the flagship widths
+# (B, W, S, Dk, E, enc_len): B from 1 to 5, W = 1 and 16, S = 7 to 1100 (k
+# and v in several tiles past 48 frames a block), enc_len of 1 and of S, the
+# flagship widths; B = 64 at S = 764 (the big decode config's batch: its
+# units' frames do not fit one launch's shared memory) and B = 140 (more
+# utterances than the grid's 132 blocks): launches for groups of utterances
 ATT_SHAPES = [
     (2, 3, 7, 20, 16, [7, 2]), (2, 3, 300, 20, 64, [300, 100]), (2, 3, 1100, 20, 48, [1100, 366]),
     (3, 1, 204, 300, 640, [204, 1, 150]), (3, 16, 7, 20, 16, [1, 7, 4]), (5, 16, 204, 300, 640, [204, 1, 160, 102, 190]),
     (3, 16, 764, 300, 640, [764, 400, 1]), (2, 16, 1100, 300, 640, [1100, 551]), (1, 1, 1, 8, 8, [1]),
+    (64, 16, 764, 300, 640, [764 - 11 * i for i in range(63)] + [1]),
+    (140, 2, 30, 20, 16, [30 - i % 30 for i in range(140)]),
 ]
 
 
@@ -113,21 +119,22 @@ def test_att_step_kernel(gen, b, w, s, dk, e_dim, lens):
     args = _att_args(gen, b, w, s, dk, e_dim, lens)
     before = asc.att_step_beam_loc.launches
     got, want = asc.att_step_beam_loc(*args), asc.att_step_beam_loc_plain(*args)
-    assert asc.att_step_beam_loc.launches == before + 1
+    group = asc.plan(b, w, s, dk, e_dim, 10, 2 * 50 + 1)["group"]
+    assert (group < b) == (b in (64, 140))  # those two take several launches, the rest one
+    assert asc.att_step_beam_loc.launches == before + -(-b // group)
     _close(got[0], want[0], rtol=1e-4, atol=1e-6)
     _close(got[1], want[1], rtol=1e-4, atol=1e-5)
 
 
 def test_att_step_plan_raises_outside_its_envelope(gen):
     """More than 16 location filters (two k-steps of the energies' product),
-    or more utterances than the grid's blocks (a block an utterance's share
-    at least), have no layout: the plan raises, no launch is made."""
+    or an S at which one utterance's share of frames a block does not fit in
+    shared memory, have no layout: the plan raises, no launch is made."""
     before = asc.att_step_beam_loc.launches
     with pytest.raises(RuntimeError, match="e2e_att_step_plan"):
         asc.att_step_beam_loc(*_att_args(gen, 2, 3, 30, 20, 16, [30, 9], kk=17))
-    b = torch.cuda.get_device_properties(0).multi_processor_count * 4 + 1
     with pytest.raises(RuntimeError, match="no layout fits"):
-        asc.att_step_beam_loc(*_att_args(gen, b, 1, 3, 8, 8, [3] * b, p=3))
+        asc.att_step_beam_loc(*_att_args(gen, 1, 16, 1_000_000, 8, 8, [1_000_000], p=3))
     assert asc.att_step_beam_loc.launches == before
 
 
