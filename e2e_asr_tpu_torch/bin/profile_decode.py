@@ -27,10 +27,9 @@ sources, made by rewriting their text into ``_build/decode_variants/`` and
 built only here, are timed in turns with the normal build: the attention
 step's ablations (no tanh, one TF32 product in place of three, neither;
 their values are wrong, only their times count), and the CTC prefix kernel's
-log-sum-exp on exp2f/log2f, and in natural-log units on expf/logf or on
-the intrinsics __expf/__logf, in place of log2 units on ex2/lg2.approx,
-each also held against the plain version at T = 204, 764 and 1000
-(``profile_decode_phases.json``).
+recursion on the accurate expf/logf in place of the intrinsics
+__expf/__logf, both also held against the plain version at T = 204, 764 and
+1000 (``profile_decode_phases.json``).
 
 ``--train --scan-phases`` instead splits one step of each fused speller
 scan kernel into its phases: the kernels' timing build (``-DSCAN_PHASES``,
@@ -380,16 +379,9 @@ def alternating_ms(fns: dict, rounds: int = 21, iters: int = 3) -> dict:
 _NO_TANH = [("fmaf(l2.x, tanhf(", "fmaf(l2.x, (", 2), ("fmaf(l2.y, tanhf(", "fmaf(l2.y, (", 2)]
 _ONE_TF32 = [("                mma_tf32(fw[j], al[s2], bh);  // three TF32 products: lo hi + hi lo + hi hi\n"
               "                mma_tf32(fw[j], ah[s2], bl);\n", "", 1)]
-_EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));'
-_LG2 = 'asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));'
-_NATURAL = [("LOG2E = 1.4426950408889634f;", "LOG2E = 1.0f;", 1), ("LN2 = 0.6931471805599453f;", "LN2 = 1.0f;", 1)]
 SOURCE_VARIANTS = {
     "att_step": {"no_tanh": _NO_TANH, "one_tf32": _ONE_TF32, "no_tanh+one_tf32": _NO_TANH + _ONE_TF32},
-    "ctc_prefix": {
-        "exp2f_log2f": [(_EX2, "y = exp2f(x);", 1), (_LG2, "y = log2f(x);", 1)],
-        "natural_expf_logf": [(_EX2, "y = expf(x);", 1), (_LG2, "y = logf(x);", 1), *_NATURAL],
-        "natural___expf___logf": [(_EX2, "y = __expf(x);", 1), (_LG2, "y = __logf(x);", 1), *_NATURAL],
-    },
+    "ctc_prefix": {"expf_logf": [("m + __logf(1.0f + __expf(n - m))", "m + logf(1.0f + expf(n - m))", 1)]},
 }
 
 

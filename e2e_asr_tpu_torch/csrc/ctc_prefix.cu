@@ -17,13 +17,14 @@
 // max(a, b) > NEG/2, else NEG (decode/ctc_prefix_cuda.py lse). The recursion
 // is the serial one of prefix_scores_scan, not the TPU kernel's blockwise
 // log-depth form, which cancels catastrophically when its inputs hold NEG.
-// Precision: psi_eos is computed as the plain version does, in natural-log
-// units with the accurate expf and logf. The recursion and phi work in log2
-// units on the approximate ex2.approx.ftz and lg2.approx.ftz (2^-22 relative
-// and absolute error): r_h and psi then differ from the plain version by a
-// rounding that grows with T. PERF.md gives the errors at T = 204, 764 and
-// 1000 and the times beside a build on exp2f/log2f and one in natural-log
-// units on expf/logf (bin/profile_decode.py --decode-phases).
+// Precision: psi_eos is computed as the plain version does, with the
+// accurate expf and logf. The recursion and phi use the approximate
+// intrinsics __expf and __logf (ex2.approx and lg2.approx, a multiply
+// each): r_h then differs from the plain version by a rounding that does
+// not grow with T. A build on expf/logf is bitwise equal to the plain
+// version and about twice as slow; one in log2 units (a multiply fewer on
+// the chain) was a little faster, with an error growing with T. PERF.md
+// gives the errors and times (bin/profile_decode.py --decode-phases).
 //
 // What bounds it on the H100: latency. Per column the recursion is a chain
 // of T dependent log-sum-exps (~8 dependent instructions, two of them on the
@@ -39,13 +40,12 @@
 // run the serial recursion CH steps at a time unrolled: each lane loads its
 // own candidate's emissions from ctc_lp (never the whole vocabulary row;
 // the lanes of a warp read one row a step, a few sectors) a whole chunk
-// ahead into registers, and works in log2 units (the emissions scaled by
-// log2 e when loaded, the outputs by ln 2 when written), so that each
-// log-sum-exp is max, min, one ex2 and one lg2 (.approx.ftz) and three adds
-// on the chain. Stager warps compute, a group of CH steps a warp, phi(t-1)
-// of each beam of the block in both forms (candidate equal to the beam's
-// last token or not) from the parents' r_g, and the blank's emissions, into
-// shared memory, and publish each group by a flag the recursion waits on.
+// ahead into registers, and each log-sum-exp on the chain is max, min, one
+// ex2 and one lg2 (.approx.ftz), two multiplies and three adds. Stager
+// warps compute, a group of CH steps a warp, phi(t-1) of each beam of the
+// block in both forms (candidate equal to the beam's last token or not)
+// from the parents' r_g, and the blank's emissions, into shared memory, and
+// publish each group by a flag the recursion waits on.
 // Writer warps, each paired with a recursion warp by named barriers, take
 // the (r_n, r_b) it stages for CH steps (two buffers) and write them out as
 // 128-byte runs of the [K, T, 2] layout, one column a store instruction
@@ -58,9 +58,6 @@
 namespace {
 
 constexpr float NEG = -1.0e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-constexpr float NEG2 = NEG * LOG2E;  // NEG in log2 units
 constexpr int NT = 256;  // threads a block
 constexpr int RWMAX = 3;  // warps a block that run the recursion (as many more write their output)
 constexpr int CH = 16;   // steps a warp stages before writing its columns' runs (2 CH = 32 floats)
@@ -89,26 +86,13 @@ __device__ unsigned long long g_prefix_ts[PREFIX_SLOTS];
   } while (0)
 #endif
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the log-sum-exp of the recursion in log2 units (a value x here is x ln 2
-// in the function's units): log2(2^a + 2^b) = m + log2(1 + 2^(n - m)),
-// floored at NEG2 where m = max(a, b) <= NEG2 / 2 (the NEG / 2 guard of
-// decode/ctc_prefix_cuda.py lse); the short chain of the serial recursion
-__device__ __forceinline__ float lse2(float a, float b) {
+// the log-sum-exp of the serial recursion, m + log(1 + exp(n - m)) on the
+// approximate intrinsics, floored at NEG where m = max(a, b) <= NEG / 2
+// (the guard of decode/ctc_prefix_cuda.py lse): the chain's short form
+__device__ __forceinline__ float lse_fast(float a, float b) {
   const float m = fmaxf(a, b), n = fminf(a, b);
-  const float out = m + lg2(1.0f + ex2(n - m));
-  return m > NEG2 / 2 ? out : NEG2;
+  const float out = m + __logf(1.0f + __expf(n - m));
+  return m > NEG / 2 ? out : NEG;
 }
 
 // the log-sum-exp in the function's natural-log units as the plain version
@@ -151,12 +135,12 @@ struct Args {
   int B, T, V, W, K, empty, CPB, nbu, TT;
 };
 
-// one step of a column's recursion in log2 units: p = phi(t-1), c and lb the
+// one step of a column's recursion: p = phi(t-1), c and lb the
 // candidate's and the blank's emissions at t
 __device__ __forceinline__ void step(float& rn, float& rb, float& psi, float p, float c, float lb) {
-  const float rn_t = lse2(rn, p) + c;
-  const float rb_t = lse2(rb, rn) + lb;
-  psi = lse2(psi, p + c);
+  const float rn_t = lse_fast(rn, p) + c;
+  const float rb_t = lse_fast(rb, rn) + lb;
+  psi = lse_fast(psi, p + c);
   rn = rn_t;
   rb = rb_t;
 }
@@ -170,15 +154,15 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
   const int wa = c0 / K, nbb = (c0 + ncol - 1) / K - wa + 1;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   const int L = min(max(a.enc_len[b], 0), T);
-  const float init = a.empty ? 0.0f : NEG2;
+  const float init = a.empty ? 0.0f : NEG;
 #ifdef PREFIX_PHASES
   unsigned long long ph_ns[PREFIX_SLOTS] = {}, ph_last = 0;
   if (blockIdx.x == 0 && tid == 0) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ph_last));
 #endif
 
   const int nbm = beams_of(CPB, K);
-  float* lpb = smem;                            // [TT] blank emissions, log2 units
-  float* phi = lpb + TT;                        // [nbb][TT][2] phi(t-1): (no match, match), log2 units
+  float* lpb = smem;                            // [TT] blank emissions
+  float* phi = lpb + TT;                        // [nbb][TT][2] phi(t-1): (no match, match)
   float* stage = phi + (size_t)TT * 2 * nbm;    // [recursion warps][2][32][SST]
   volatile int* ready = (volatile int*)(stage + (size_t)cdiv(CPB, 32) * 2 * 32 * SST);  // [groups]: staged
 
@@ -214,7 +198,7 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
     }
   }
 
-  float rn = NEG2, rb = NEG2, psi = NEG2;
+  float rn = NEG, rb = NEG, psi = NEG;
   for (int t0 = 0; t0 < T; t0 += TT) {
     const int nt = min(TT, T - t0), nv = max(0, min(nt, L - t0));  // steps of the tile, valid ones
     const int ng = cdiv(nt, CH);
@@ -231,13 +215,13 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
           float p0 = init, p1 = init;
           if (t > 0) {
             const float2 r = __ldg(reinterpret_cast<const float2*>(rg_b + ((long)w * T + t - 1) * 2));
-            p0 = lse2(r.y * LOG2E, r.x * LOG2E);
-            p1 = lse2(r.y * LOG2E, NEG2);
+            p0 = lse_fast(r.y, r.x);
+            p1 = lse_fast(r.y, NEG);
           }
           phi[((size_t)w * TT + tl) * 2] = p0;
           phi[((size_t)w * TT + tl) * 2 + 1] = p1;
         }
-        if (lane < s1 - s0) lpb[s0 + lane] = __ldg(lp_b + (long)(t0 + s0 + lane) * V) * LOG2E;
+        if (lane < s1 - s0) lpb[s0 + lane] = __ldg(lp_b + (long)(t0 + s0 + lane) * V);
         __syncwarp();
         if (lane == 0) {
           __threadfence_block();
@@ -257,7 +241,7 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
         float cc[CH];
 #pragma unroll
         for (int s2 = 0; s2 < CH; ++s2) {
-          cc[s2] = cn_[s2] * LOG2E;
+          cc[s2] = cn_[s2];
           cn_[s2] = c + CH + s2 < nv ? __ldg(lc + (long)(c + CH + s2) * V) : 0.0f;  // the next chunk's
         }
         float* sb = st + (size_t)u * 32 * SST + lane * SST;
@@ -295,20 +279,19 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
         bar_arrive(bar_full(pr, u));
       }
     } else if (writer) {
-      // the pair's runs of steps [t0 + c, t0 + c + cn), 128 bytes a column,
-      // in natural-log units
+      // the pair's runs of steps [t0 + c, t0 + c + cn), 128 bytes a column
       for (int c = 0; c < nt; c += CH, ++kc) {
         const int cn = min(CH, nt - c), u = kc & 1;
         const float* sb = st + (size_t)u * 32 * SST;
         bar_sync(bar_full(pr, u));
         if (lane < 2 * cn)
 #pragma unroll 4
-          for (int jc = 0; jc < wcols; ++jc) rh_warp[(long)jc * T * 2 + 2 * (t0 + c) + lane] = sb[jc * SST + lane] * LN2;
+          for (int jc = 0; jc < wcols; ++jc) rh_warp[(long)jc * T * 2 + 2 * (t0 + c) + lane] = sb[jc * SST + lane];
         bar_arrive(bar_empty(pr, u));
       }
     }
   }
-  if (mine) a.psi[n] = psi * LN2;
+  if (mine) a.psi[n] = psi;
   MARK(1);  // the tiles: staging, overlapped with thread 0's recursion
 #ifdef PREFIX_PHASES
   if (blockIdx.x == 0 && tid == 0)
