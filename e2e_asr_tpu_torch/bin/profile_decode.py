@@ -27,9 +27,9 @@ sources, made by rewriting their text into ``_build/decode_variants/`` and
 built only here, are timed in turns with the normal build: the attention
 step's ablations (no tanh, one TF32 product in place of three, neither;
 their values are wrong, only their times count), and the CTC prefix kernel's
-recursion on the accurate expf/logf in place of the intrinsics
-__expf/__logf, both also held against the plain version at T = 204, 764 and
-1000 (``profile_decode_phases.json``).
+log-sum-exp on the approximate intrinsics __expf/__logf in place of the
+accurate expf/logf, both also held against the plain version at T = 204,
+764 and 1000 (``profile_decode_phases.json``).
 
 ``--train --scan-phases`` instead splits one step of each fused speller
 scan kernel into its phases: the kernels' timing build (``-DSCAN_PHASES``,
@@ -381,7 +381,7 @@ _ONE_TF32 = [("                mma_tf32(fw[j], al[s2], bh);  // three TF32 produ
               "                mma_tf32(fw[j], ah[s2], bl);\n", "", 1)]
 SOURCE_VARIANTS = {
     "att_step": {"no_tanh": _NO_TANH, "one_tf32": _ONE_TF32, "no_tanh+one_tf32": _NO_TANH + _ONE_TF32},
-    "ctc_prefix": {"expf_logf": [("m + __logf(1.0f + __expf(n - m))", "m + logf(1.0f + expf(n - m))", 1)]},
+    "ctc_prefix": {"__expf___logf": [("m + logf(1.0f + expf(n - m))", "m + __logf(1.0f + __expf(n - m))", 1)]},
 }
 
 

@@ -17,20 +17,19 @@
 // max(a, b) > NEG/2, else NEG (decode/ctc_prefix_cuda.py lse). The recursion
 // is the serial one of prefix_scores_scan, not the TPU kernel's blockwise
 // log-depth form, which cancels catastrophically when its inputs hold NEG.
-// Precision: psi_eos is computed as the plain version does, with the
-// accurate expf and logf. The recursion and phi use the approximate
-// intrinsics __expf and __logf (ex2.approx and lg2.approx, a multiply
-// each): r_h then differs from the plain version by a rounding that does
-// not grow with T. A build on expf/logf is bitwise equal to the plain
-// version and about twice as slow; one in log2 units (a multiply fewer on
-// the chain) was a little faster, with an error growing with T. PERF.md
-// gives the errors and times (bin/profile_decode.py --decode-phases).
+// Precision: every log-sum-exp is computed as the plain version computes
+// it, with the accurate expf and logf, so that the kernel's outputs are
+// bitwise equal to the plain version's. The approximate intrinsics
+// (__expf/__logf, or ex2/lg2.approx in log2 units) take about half the
+// time, but their rounding turned one of 16 top hypotheses of the flagship
+// decode against the plain decode (PERF.md; bin/profile_decode.py
+// --decode-phases times the __expf/__logf build beside this one).
 //
 // What bounds it on the H100: latency. Per column the recursion is a chain
-// of T dependent log-sum-exps (~8 dependent instructions, two of them on the
-// special-function unit: ~70 cycles, ~7 us at T = 204); the function's
-// traffic (ctc_lp and the parents' r_g in, r_h out: ~11 MB at the flagship
-// decode shapes) takes ~3 us of HBM time. The parent composition built four
+// of T dependent log-sum-exps (an accurate expf and logf each, a few dozen
+// dependent instructions); the function's traffic (ctc_lp and the parents'
+// r_g in, r_h out: ~11 MB at the flagship decode shapes) takes ~3 us of
+// HBM time. The parent composition built four
 // [T, B W K] streams in ~24 device ops, then the recursion read them back
 // (one thread a column, 48 blocks at the flagship), and eos_score took 14
 // more ops.
@@ -40,12 +39,11 @@
 // run the serial recursion CH steps at a time unrolled: each lane loads its
 // own candidate's emissions from ctc_lp (never the whole vocabulary row;
 // the lanes of a warp read one row a step, a few sectors) a whole chunk
-// ahead into registers, and each log-sum-exp on the chain is max, min, one
-// ex2 and one lg2 (.approx.ftz), two multiplies and three adds. Stager
-// warps compute, a group of CH steps a warp, phi(t-1) of each beam of the
-// block in both forms (candidate equal to the beam's last token or not)
-// from the parents' r_g, and the blank's emissions, into shared memory, and
-// publish each group by a flag the recursion waits on.
+// ahead into registers, so that only the log-sum-exps are on the chain.
+// Stager warps compute, a group of CH steps a warp, phi(t-1) of each beam
+// of the block in both forms (candidate equal to the beam's last token or
+// not) from the parents' r_g, and the blank's emissions, into shared
+// memory, and publish each group by a flag the recursion waits on.
 // Writer warps, each paired with a recursion warp by named barriers, take
 // the (r_n, r_b) it stages for CH steps (two buffers) and write them out as
 // 128-byte runs of the [K, T, 2] layout, one column a store instruction
@@ -86,20 +84,13 @@ __device__ unsigned long long g_prefix_ts[PREFIX_SLOTS];
   } while (0)
 #endif
 
-// the log-sum-exp of the serial recursion, m + log(1 + exp(n - m)) on the
-// approximate intrinsics, floored at NEG where m = max(a, b) <= NEG / 2
-// (the guard of decode/ctc_prefix_cuda.py lse): the chain's short form
-__device__ __forceinline__ float lse_fast(float a, float b) {
-  const float m = fmaxf(a, b), n = fminf(a, b);
-  const float out = m + __logf(1.0f + __expf(n - m));
-  return m > NEG / 2 ? out : NEG;
-}
-
-// the log-sum-exp in the function's natural-log units as the plain version
-// computes it, accurate expf and logf (decode/ctc_prefix_cuda.py lse)
+// log(exp(a) + exp(b)) as the plain version computes it (decode/
+// ctc_prefix_cuda.py lse: one of its two exps is exp(0) = 1), accurate expf
+// and logf: m + log(1 + exp(n - m)), floored at NEG where m = max(a, b) <=
+// NEG / 2
 __device__ __forceinline__ float lse(float a, float b) {
-  const float m = fmaxf(a, b), ms = fmaxf(m, NEG);
-  const float out = ms + logf(expf(a - ms) + expf(b - ms));
+  const float m = fmaxf(a, b), n = fminf(a, b);
+  const float out = m + logf(1.0f + expf(n - m));
   return m > NEG / 2 ? out : NEG;
 }
 
@@ -138,9 +129,9 @@ struct Args {
 // one step of a column's recursion: p = phi(t-1), c and lb the
 // candidate's and the blank's emissions at t
 __device__ __forceinline__ void step(float& rn, float& rb, float& psi, float p, float c, float lb) {
-  const float rn_t = lse_fast(rn, p) + c;
-  const float rb_t = lse_fast(rb, rn) + lb;
-  psi = lse_fast(psi, p + c);
+  const float rn_t = lse(rn, p) + c;
+  const float rb_t = lse(rb, rn) + lb;
+  psi = lse(psi, p + c);
   rn = rn_t;
   rb = rb_t;
 }
@@ -215,8 +206,8 @@ __global__ void __launch_bounds__(NT, 1) prefix_scores_kernel(const Args a) {
           float p0 = init, p1 = init;
           if (t > 0) {
             const float2 r = __ldg(reinterpret_cast<const float2*>(rg_b + ((long)w * T + t - 1) * 2));
-            p0 = lse_fast(r.y, r.x);
-            p1 = lse_fast(r.y, NEG);
+            p0 = lse(r.y, r.x);
+            p1 = lse(r.y, NEG);
           }
           phi[((size_t)w * TT + tl) * 2] = p0;
           phi[((size_t)w * TT + tl) * 2 + 1] = p1;
