@@ -73,6 +73,7 @@ import time
 from contextlib import nullcontext
 from unittest import mock
 
+import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks (dense, 700 W): f32 outside the tensor cores
@@ -137,8 +138,10 @@ def compare(name, got, want, rtol, atol, unreachable=None):
     return max_abs
 
 
-def kernel_checks(dev, cfg, vocab):
-    """Each kernel against its plain version at the flagship decode shapes."""
+def kernel_checks(dev, cfg, vocab, batch_wav, parent=""):
+    """Each kernel against its plain version at the flagship decode shapes
+    (``batch_wav``: the decode batch's int16 waves; ``parent``: a checkout
+    of the parent commit whose log_mel is timed in turns with this one)."""
     from e2e_asr_tpu_torch.bin.profile_decode import (att_phase_split, flagship_att_inputs, flagship_prefix_inputs,
                                                       prefix_phase_split, print_decode_phases)
     from e2e_asr_tpu_torch.decode import ctc_prefix
@@ -159,28 +162,52 @@ def kernel_checks(dev, cfg, vocab):
     n = (816 - 1) * shift + win
     out = {}
 
-    # ---- 1. log_mel: wav [B, N]
+    # ---- 1. log_mel: wav [B, N], a randn wave and the decode batch's own
+    # (the synthetic corpus's int16 waves, scaled as compute_features does)
     print("[kernel] log_mel", flush=True)
-    wav = 0.1 * torch.randn((b, n), generator=gen, device=dev)
+    waves = {"randn": 0.1 * torch.randn((b, n), generator=gen, device=dev),
+             "decode_batch": torch.from_numpy(batch_wav).to(dev).float() * (1.0 / 32768.0)}
     t = fec.n_log_mel_frames(n, win, shift)
+    composed = composed_log_mel(a, win, shift, n_fft, dev)
+    reference = composed_log_mel(a, win, shift, n_fft, dev, torch.float64)
+    errs, cufft_errs, f64_errs = {}, {}, {}
+    for name, x in waves.items():
+        got, want = fec.log_mel(x, a, win, shift, n_fft), fec.log_mel_plain(x, a, win, shift, n_fft)
+        errs[name] = compare(f"log_mel ({name})", got, want, rtol=1e-3, atol=2e-3)
+        cufft_errs[name] = compare(f"log_mel cuFFT yardstick ({name})", composed(x), want, rtol=1e-3, atol=2e-3)
+        ref = reference(x)
+        f64_errs[name] = {"kernel": float((got.double() - ref).abs().max()),
+                          "plain": float((want.double() - ref).abs().max())}
+        print(f"  log_mel ({name}) against the float64 reference: kernel {f64_errs[name]['kernel']:.3e}, "
+              f"plain version {f64_errs[name]['plain']:.3e}", flush=True)
+    wav = waves["randn"]
     got = fec.log_mel(wav, a, win, shift, n_fft)
-    want = fec.log_mel_plain(wav, a, win, shift, n_fft)
-    err = compare("log_mel", got, want, rtol=1e-3, atol=2e-3)
+    mel_extra = _repeat_and_sync("log_mel", lambda: (fec.log_mel(wav, a, win, shift, n_fft),), (got,))
     f, mel = n_fft // 2 + 1, a.feat_dim
-    # the function's least work: wav in, features out, window and mel bank
-    # read once; per frame DC removal, pre-emphasis and window (~5 per
-    # sample), a real FFT of n_fft points (~2.5 n log2 n), power, the mel
-    # product and the log
-    nb = 4 * (b * n + win + f * mel + b * t * mel)
-    nf = b * t * (5 * win + 2.5 * n_fft * math.log2(n_fft) + 3 * f + 2 * f * mel + mel)
+    nnz = int(np.count_nonzero(fe.mel_filterbank(mel, n_fft, a.sample_rate, a.low_freq, a.high_freq)))
+    # the function's least work: the wave in and the features out, the window
+    # and the mel bank's nonzeros read once; per frame DC removal, pre-emphasis
+    # and window (~5 per sample), a real FFT of n_fft points (~2.5 n log2 n),
+    # power, the mel product and the log. The mel product counts the bank's
+    # nonzeros (2 nnz a frame, 492 of F x M = 257 x 40 at the flagship), as a
+    # sparse product's least work does, not the dense 2 F M
+    nb = 4 * (b * n + win + nnz + b * t * mel)
+    nf = b * t * (5 * win + 2.5 * n_fft * math.log2(n_fft) + 3 * f + 2 * nnz + mel)
     out["log_mel"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/log_mel.cu",
-        replaces="e2e_asr_tpu/ops/frontend_pallas.py:151", max_abs_err=err,
+        replaces="e2e_asr_tpu/ops/frontend_pallas.py:151", max_abs_err=max(errs.values()),
+        max_abs_err_by_wave=errs,
         ms=time_ms(lambda: fec.log_mel(wav, a, win, shift, n_fft), 20),
         plain_ms=time_ms(lambda: fec.log_mel_plain(wav, a, win, shift, n_fft), 20),
-        library_ms=None, bound=bound_ms(nb, nf),
-        shapes=f"wav [{b},{n}] -> [{b},{t},{mel}]",
+        library_ms=None, cufft_ms=time_ms(lambda: composed(wav), 20), cufft_max_abs_err_by_wave=cufft_errs,
+        f64_max_abs_err_by_wave=f64_errs,
+        bound=bound_ms(nb, nf), shapes=f"wav [{b},{n}] -> [{b},{t},{mel}]", **mel_extra,
     )
+    r = out["log_mel"]
+    print(f"  log_mel: {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, cuFFT yardstick "
+          f"{r['cufft_ms'] * 1e3:.2f} us, bound {r['bound'][0] * 1e3:.2f} us ({r['bound'][1]})", flush=True)
+    if parent:
+        r["parent_path"] = parent_log_mel(parent, waves, a, (win, shift, n_fft))
 
     # ---- 2. lstm_bidir_fwd at both flagship input widths
     s_len = (t // 4)  # VGG prenet: 4x time downsample
@@ -383,29 +410,109 @@ print(json.dumps({"fused": fused is not None, "ms": t0.elapsed_time(t1) / n, "ho
 """
 
 
-def parent_prefix_path(parent: str) -> dict:
-    """The CTC prefix side of a beam step (PREFIX_PATH) in the parent's
-    checkout at ``parent`` and in this one, in turns (parent, change, change,
-    parent); medians of each tree's two runs."""
+def _in_turns(parent: str, script: str, argv=()) -> dict:
+    """``script`` run in a process of its own over the package of the
+    parent's checkout at ``parent`` and of this one, in turns (parent,
+    change, change, parent): each tree's two runs (the JSON line each
+    printed last) and, for each number, the median (the upper of the two)."""
     here = os.path.dirname(os.path.abspath(__file__))
     runs = {"parent": [], "change": []}
     for which in ("parent", "change", "change", "parent"):
         root = os.path.abspath(parent) if which == "parent" else here
-        proc = subprocess.run([sys.executable, "-c", PREFIX_PATH], cwd=root, capture_output=True, text=True,
+        proc = subprocess.run([sys.executable, "-c", script, *argv], cwd=root, capture_output=True, text=True,
                               env={**os.environ, "PYTHONPATH": root}, timeout=600)
         if proc.returncode != 0:
-            fail(f"the {which}'s prefix path did not run: {proc.stderr[-2000:]}")
+            fail(f"the {which}'s run did not finish: {proc.stderr[-2000:]}")
         runs[which].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     res = {}
     for which, rs in runs.items():
-        res[which] = {key: sorted(r[key] for r in rs)[len(rs) // 2] if key != "fused" else rs[0][key]
-                      for key in rs[0]}
+        res[which] = {key: sorted(r[key] for r in rs)[len(rs) // 2] if isinstance(rs[0][key], (int, float))
+                      and not isinstance(rs[0][key], bool) else rs[0][key] for key in rs[0]}
         res[which]["runs"] = rs
+    return res
+
+
+def parent_prefix_path(parent: str) -> dict:
+    """The CTC prefix side of a beam step (PREFIX_PATH) in the parent's
+    checkout at ``parent`` and in this one, in turns."""
+    res = _in_turns(parent, PREFIX_PATH)
     print(f"  CTC prefix side of a beam step, parent (prefix_scores + eos_score + gather) vs change "
           f"(prefix_scores_fused + gather): device {res['parent']['ms']:.4f} vs {res['change']['ms']:.4f} ms, "
           f"host {res['parent']['host_ms']:.3f} vs {res['change']['host_ms']:.3f} ms, launches "
           f"{res['parent']['launches']} vs {res['change']['launches']}", flush=True)
     return res
+
+
+# A tree's log_mel on saved waves (argv[1]: a torch.save of the waves, the
+# audio config and (win, shift, n_fft)), in a process of its own over the
+# package of the tree at its working directory. Prints one JSON line: for
+# each wave the kernel's max abs error against the plain version and its
+# device ms a call.
+LOG_MEL_PATH = """
+import json, sys, torch
+from e2e_asr_tpu_torch.bin.profile_decode import device_ms
+from e2e_asr_tpu_torch.config import AudioConfig
+from e2e_asr_tpu_torch.device import resolve_device
+from e2e_asr_tpu_torch.ops import frontend_cuda as fec
+dev = resolve_device("cuda")
+saved = torch.load(sys.argv[1])
+cfg = AudioConfig(**saved["audio"])
+win, shift, n_fft = saved["sizes"]
+res = {}
+for name, wav in saved["waves"].items():
+    wav = wav.to(dev)
+    diff = fec.log_mel(wav, cfg, win, shift, n_fft).double() - fec.log_mel_plain(wav, cfg, win, shift, n_fft).double()
+    res[f"{name}_max_abs_err"] = float(diff.abs().max())
+    res[f"{name}_ms"] = device_ms(lambda: fec.log_mel(wav, cfg, win, shift, n_fft), 20, 2)
+print(json.dumps(res))
+"""
+
+
+def parent_log_mel(parent: str, waves: dict, audio, sizes) -> dict:
+    """The parent's log_mel kernel and this one on the same waves, in turns:
+    device ms and max abs error against the plain version, per wave."""
+    import dataclasses
+
+    from e2e_asr_tpu_torch import cuda_build
+
+    path = os.path.join(cuda_build.BUILD_DIR, "log_mel_waves.pt")
+    torch.save({"waves": {k: v.cpu() for k, v in waves.items()}, "audio": dataclasses.asdict(audio),
+                "sizes": list(sizes)}, path)
+    res = _in_turns(parent, LOG_MEL_PATH, (path,))
+    for name in waves:
+        print(f"  log_mel ({name}), parent vs change: device {res['parent'][f'{name}_ms']:.4f} vs "
+              f"{res['change'][f'{name}_ms']:.4f} ms, max abs err {res['parent'][f'{name}_max_abs_err']:.3e} vs "
+              f"{res['change'][f'{name}_max_abs_err']:.3e}", flush=True)
+    return res
+
+
+def composed_log_mel(audio, win, shift, n_fft, dev, dtype=torch.float32):
+    """The log-mel function composed of PyTorch calls in ``dtype``, used
+    nowhere in the port: in float32 a yardstick timed beside the kernel, in
+    float64 the reference both the kernel and its plain version are held
+    to. The frames, their mean, pre-emphasis and window, ``torch.fft.rfft``
+    (cuFFT), the power, the dense mel product and the log."""
+    import torch.nn.functional as F
+
+    from e2e_asr_tpu_torch.ops import frontend as fe
+    from e2e_asr_tpu_torch.ops import frontend_cuda as fec
+
+    window = fe.const(fe.feature_window(audio.window, win), dev).to(dtype)
+    fb = fe.const(fe.mel_filterbank(audio.feat_dim, n_fft, audio.sample_rate, audio.low_freq, audio.high_freq),
+                  dev).to(dtype)
+    p = max(float(audio.preemphasis), 0.0)
+
+    def composed(wav):
+        t = fec.n_log_mel_frames(wav.shape[1], win, shift)
+        need = (t - 1) * shift + win
+        x = F.pad(wav, (0, need - wav.shape[1])) if need > wav.shape[1] else wav[:, :need]
+        d = x.to(dtype).unfold(-1, win, shift)
+        d = d - d.mean(-1, keepdim=True)
+        y = torch.cat([(1 - p) * d[..., :1], d[..., 1:] - p * d[..., :-1]], -1) * window
+        spec = torch.fft.rfft(y, n=n_fft)
+        return torch.log(torch.clamp((spec.real * spec.real + spec.imag * spec.imag) @ fb, min=fe.LOG_FLOOR))
+
+    return composed
 
 
 def _lstm_inputs(gen, dev, s_len, b, d, h, lens):
@@ -1364,8 +1471,11 @@ def main(json_path: str = "", parent: str = "") -> None:
 
     solver = smoke_solver(os.path.join(cuda_build.BUILD_DIR, "smoke"), SEED)
     cfg = solver.config
+    batch = next(solver.eval_sets["dev"].epoch())
+    if batch.wav.shape != (16, (816 - 1) * 160 + 400):
+        fail(f"smoke batch has shape {batch.wav.shape}, expected 16 utterances in the 816 bucket")
     with torch.inference_mode():
-        kern = kernel_checks(dev, cfg, solver.vocab_size)
+        kern = kernel_checks(dev, cfg, solver.vocab_size, batch.wav, parent)
     kern.update(train_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(scan_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(lstm_seq_checks(dev))
@@ -1374,9 +1484,6 @@ def main(json_path: str = "", parent: str = "") -> None:
 
     # ---- the serving path through the CLI's Solver, on the card, under
     # either LSTM route: the default first, then the fused-projection kernel
-    batch = next(solver.eval_sets["dev"].epoch())
-    if batch.wav.shape != (16, (816 - 1) * 160 + 400):
-        fail(f"smoke batch has shape {batch.wav.shape}, expected 16 utterances in the 816 bucket")
     decode = {impl: decode_phase(solver, batch, impl, lstm_fwd, smi)
               for impl, lstm_fwd in (("auto", ("lstm_seq_fwd", lstm_seq_fwd)),
                                      ("pallas", ("lstm_bidir_fwd", lstm_bidir_fwd)))}
@@ -1426,7 +1533,8 @@ def main(json_path: str = "", parent: str = "") -> None:
                                   "launches_per_fwd_bwd", "device_launches_per_fwd_bwd",
                                   "ms_sampled", "ms_s764_l8", "phases_us", "grid", "alternating", "plan",
                                   "ms_s764", "repeats_bitwise", "host_sync",
-                                  "parent_path")
+                                  "parent_path", "max_abs_err_by_wave", "cufft_ms", "cufft_max_abs_err_by_wave",
+                                  "f64_max_abs_err_by_wave")
                                   if k in kv},
         })
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
@@ -1442,8 +1550,9 @@ def main(json_path: str = "", parent: str = "") -> None:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="chip smoke run of the PyTorch/CUDA port")
-    ap.add_argument("--parent", default="", help="a checkout of the parent commit: time the CTC prefix side "
-                    "of a beam step there and here, in turns")
+    ap.add_argument("--parent", default="", help="a checkout of the parent commit: time log_mel (and hold it "
+                    "against its plain version on the same waves) and the CTC prefix side of a beam step there "
+                    "and here, in turns")
     ap.add_argument("--json", default="", help="where to write the detailed JSON "
                     "(default: e2e_asr_tpu_torch/_build/chip_smoke.json)")
     args = ap.parse_args()

@@ -29,7 +29,11 @@ step's ablations (no tanh, one TF32 product in place of three, neither;
 their values are wrong, only their times count), and the CTC prefix kernel's
 log-sum-exp on the approximate intrinsics __expf/__logf in place of the
 accurate expf/logf, both also held against the plain version at T = 204,
-764 and 1000 (``profile_decode_phases.json``).
+764 and 1000; and the log-mel kernel with its parts compiled out in turn
+(the FFT passes after the first, all but one pair of the split's bins, the
+mel sums, every frame's transform; wrong values, times only) and in two
+other layouts (a block a tile; three blocks an SM) at the flagship decode shapes
+(``profile_decode_phases.json``).
 
 ``--train --scan-phases`` instead splits one step of each fused speller
 scan kernel into its phases: the kernels' timing build (``-DSCAN_PHASES``,
@@ -379,17 +383,32 @@ def alternating_ms(fns: dict, rounds: int = 21, iters: int = 3) -> dict:
 _NO_TANH = [("fmaf(l2.x, tanhf(", "fmaf(l2.x, (", 2), ("fmaf(l2.y, tanhf(", "fmaf(l2.y, (", 2)]
 _ONE_TF32 = [("                mma_tf32(fw[j], al[s2], bh);  // three TF32 products: lo hi + hi lo + hi hi\n"
               "                mma_tf32(fw[j], ah[s2], bl);\n", "", 1)]
+# the log-mel kernel's parts compiled out in turn (timed only): the FFT
+# passes after the first, all but one pair of bins of the split, the mel
+# sums and logs, every frame's transform (staging, tables and stores stay);
+# and two other layouts of the same work: a block a tile instead of the
+# persistent grid, three blocks an SM (80 registers) instead of four
+_NO_PASSES = [("  fft_passes<NC, R>(buf, t.tw, l);\n", "", 1)]
+_ONE_PAIR = [("  constexpr int KP = NC / (2 * P);", "  constexpr int KP = 1;", 1)]
+_NO_MEL = [("    mel_tile<NC>(a, t, smem + l.buf, ot, nvalid, warp, lane);\n", "", 1)]
+_NO_FRAMES = [("    frame<NC>(a, t, span", "    if (false) frame<NC>(a, t, span", 1)]
+_GRID_PER_TILE = [("  const int grid = a.n_tiles < per_sm * sms ? a.n_tiles : per_sm * sms;",
+                   "  const int grid = a.n_tiles;", 1)]
+_THREE_BLOCKS = [("__launch_bounds__(THREADS, NC <= 256 ? 4 : 1)", "__launch_bounds__(THREADS, NC <= 256 ? 3 : 1)", 1)]
 SOURCE_VARIANTS = {
     "att_step": {"no_tanh": _NO_TANH, "one_tf32": _ONE_TF32, "no_tanh+one_tf32": _NO_TANH + _ONE_TF32},
     "ctc_prefix": {"__expf___logf": [("m + logf(1.0f + expf(n - m))", "m + __logf(1.0f + __expf(n - m))", 1)]},
+    "log_mel": {"no_passes": _NO_PASSES, "split_one_pair": _ONE_PAIR, "no_mel": _NO_MEL, "no_frames": _NO_FRAMES,
+                "no_frames+no_mel": _NO_FRAMES + _NO_MEL, "grid_per_tile": _GRID_PER_TILE,
+                "three_blocks": _THREE_BLOCKS},
 }
 
 
-def build_source_variants() -> None:
-    """Write each variant of ``SOURCE_VARIANTS`` (its source's text with
-    the replacements made, each found as often as stated) into
-    ``_build/decode_variants/``, compile them in parallel and register each
-    library as ``cuda_build.library(source, (variant,))``."""
+def build_source_variants(sources=tuple(SOURCE_VARIANTS)) -> None:
+    """Write each variant of ``SOURCE_VARIANTS`` of the ``sources`` (its
+    source's text with the replacements made, each found as often as
+    stated) into ``_build/decode_variants/``, compile them in parallel and
+    register each library as ``cuda_build.library(source, (variant,))``."""
     from e2e_asr_tpu_torch import cuda_build
 
     out_dir = os.path.join(cuda_build.BUILD_DIR, "decode_variants")
@@ -398,7 +417,8 @@ def build_source_variants() -> None:
             open(os.path.join(out_dir, "tf32_mma.cuh"), "w") as g:
         g.write(f.read())
     procs = {}
-    for name, variants in SOURCE_VARIANTS.items():
+    for name in sources:
+        variants = SOURCE_VARIANTS[name]
         with open(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu")) as f:
             base = f.read()
         for var, edits in variants.items():
@@ -476,6 +496,28 @@ def prefix_variants(dev, ts=(816 // 4, 764, 1000)) -> dict:
                          for nm, g, wv in zip(("psi", "r_h", "psi_eos"), got, want)}
         ms = alternating_ms({name: (lambda d=d: cpc._launch(d, *args)) for name, d in builds.items()}, rounds=9)
         res[f"T{t}"] = {name: {"ms": ms[name], "max_abs_err": err[name]} for name in builds}
+    return res
+
+
+def log_mel_variants_ms(dev, seed: int = 0) -> dict:
+    """us a launch, in turns, of the log-mel kernel's normal build and each
+    variant of ``SOURCE_VARIANTS["log_mel"]`` (built by
+    ``build_source_variants``) at the flagship decode shapes (B=16,
+    N=130,800, a randn wave; M=40, 25 ms / 10 ms at 16 kHz); and of the
+    normal build and the one with neither frames nor mel sums at B = 1 and
+    64, which part of the time does not grow with the batch."""
+    from e2e_asr_tpu_torch.ops import frontend_cuda as fec
+
+    a = flagship_smoke_config().data.audio
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    res = {}
+    for b, names in ((16, list(SOURCE_VARIANTS["log_mel"])), (1, ["no_frames+no_mel"]), (64, ["no_frames+no_mel"])):
+        wav = 0.1 * torch.randn((b, 815 * 160 + 400), generator=gen, device=dev)
+        builds = {"normal": ()} | {v: (v,) for v in names}
+        ms = alternating_ms({name: (lambda d=d: fec._launch(d, wav, a, 400, 160, 512)) for name, d in builds.items()},
+                            rounds=9)
+        res[f"B{b}"] = {name: v * 1e3 for name, v in ms.items()}
     return res
 
 
@@ -586,6 +628,10 @@ def main(argv=None):
         split["prefix_recursion"]["variants"] = prefix_variants(dev)
         print(f"{card}: decode kernels at the flagship decode shapes")
         print_decode_phases(split)
+        split["log_mel"] = {"variants_us": log_mel_variants_ms(dev)}
+        for b, us in split["log_mel"]["variants_us"].items():
+            print(f"log_mel {b}, variants in turns, us a launch: " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()),
+                  flush=True)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
             json.dump({"card": card, **split}, f, indent=1)

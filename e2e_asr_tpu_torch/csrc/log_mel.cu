@@ -1,80 +1,465 @@
-// Raw audio -> log-mel spectrogram, one kernel.
+// Raw audio -> log-mel spectrogram, one kernel: a real FFT per frame in
+// shared memory.
 //
 // Replaces the TPU kernel e2e_asr_tpu/ops/frontend_pallas.py log_mel_pallas
-// (_kernel, fused_bases, _dot3). What it computes is the same: frames of
-// `win` samples every `shift` samples (snip-edges framing), DC removal and
-// pre-emphasis folded offline into the windowed real-DFT bases
-// (wc, ws = A^T Wc, A^T Ws, [win, F]), power re^2 + im^2, the mel product
-// with fb [F, M], and log(max(mel, 1.1921e-7)).
+// (_kernel, fused_bases). It computes the same function: frames of `win`
+// samples every `shift` samples (snip-edges framing, samples past N read as
+// zero); per frame the mean removed, pre-emphasis (y0 = (1 - p) x0,
+// yi = xi - p x(i-1)), the window, zero padding to n_fft, the real DFT,
+// power re^2 + im^2, the mel bank and log(max(mel, 1.1921e-7)).
 //
-// What bounds it on the H100: operations. Per frame it does 2*win*F
-// multiply-adds for the DFT (400 x 257 x 2 at 25 ms / 512-point) against
-// 640 bytes of new audio and 160 bytes of output, far above the card's
-// f32 balance point, so the limit is the 67 TFLOP/s f32 rate.
-// Design: one block per (utterance, tile of TF frames). The tile's audio
-// span ((TF-1)*shift + win samples) is loaded once into shared memory, so
-// overlapping frames are never materialised in device memory. Each thread
-// owns one frequency bin k and keeps TF re/im sums in registers; the bases
-// are read once per tile, coalesced across k (they are 0.8 MB and stay in
-// L2), and every loaded basis value feeds 2*TF FMAs. Plain f32 FMAs replace
-// the TPU's 3-pass bf16 "_dot3" products, which were a TPU matrix-unit
-// workaround. Power goes to shared memory for the small mel product.
+// What bounds it on the H100: bytes, by the count of the work: the TPU kernel
+// folds DC removal and pre-emphasis into dense windowed DFT bases because its
+// matrix unit makes a dense product cheap; on the CUDA cores that is 2 win F
+// FMAs a frame (~411 kFLOP at 25 ms / 512 points). A real FFT does the same
+// in ~12 kFLOP and each bin feeds at most two mel filters (~1 kFLOP), so the
+// least time is that of the wave in and the features out. What limits this
+// kernel in practice is shared memory: every FFT pass, the split and the mel
+// sums go through it (PERF.md), so the design keeps the accesses few
+// and conflict-free.
+//
+// Design: a persistent grid of four blocks an SM walks tiles of 16
+// consecutive frames of one utterance (8 where n_fft > 512). A block stages a
+// tile's span ((tf - 1) shift + win samples) into shared memory with 16-byte
+// cp.async copies, so the frames' ~2.5x overlap never reaches device memory
+// twice; the next tile's span lands while the block sums the mel filters,
+// and the other blocks of the SM compute while one waits (measured faster
+// than a second span buffer, which leaves room for three blocks only:
+// PERF.md). A group of 16 lanes (two frames a warp; 32 lanes
+// where n_fft > 512) transforms one frame: the mean is a reduction over the
+// group; pre-emphasis and window are applied as the first pass reads the
+// samples in pairs (the sample before a pair comes by a shuffle); the
+// n_fft-point real FFT is an NC = n_fft / 2-point complex FFT of the
+// even/odd-packed frame (Stockham passes of radix 16, the last of what is
+// left; each lane holds its NC / 16 points in registers between a pass's
+// loads and stores in the frame's shared buffer), then the split step gives
+// power for bins 0..NC into the same buffer. The tile's mel sums follow: a
+// warp takes two (four) filters of about equal length at a time for all the
+// tile's frames, a lane a (filter, frame), each filter summed over its own
+// bins in increasing order with fmaf, then the accurate logf; the tile's
+// outputs, contiguous rows of out, are stored coalesced. The twiddles, the
+// window, the mel ranges and the filter groups are tables computed on the
+// host in float64 and rounded once to f32 (ops/frontend_cuda.py); a block
+// copies them into shared memory once.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TF = 16;  // frames per block
+// 16 bytes global -> shared in the background, of which the first `bytes`
+// (0 to 16) come from src and the rest are zero
+__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most n of the thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+constexpr int WARPS = 8;  // ops/frontend_cuda.py KERNEL_WARPS
+constexpr int THREADS = WARPS * 32;
 constexpr float LOG_FLOOR = 1.1921e-7f;
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on the H100
 
-__global__ void log_mel_kernel(const float* __restrict__ wav,
-                               const float* __restrict__ wc,
-                               const float* __restrict__ ws,
-                               const float* __restrict__ fb,
-                               float* __restrict__ out,
-                               int N, int T, int win, int shift, int F, int M) {
-  extern __shared__ float smem[];
-  const int span_len = (TF - 1) * shift + win;
-  float* span = smem;               // [span_len]
-  float* power = smem + span_len;   // [TF][F]
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+}
+__device__ __forceinline__ float2 mul_mi(float2 a) { return make_float2(a.y, -a.x); }  // -i a
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * TF;
-  const long base = (long)t0 * shift;
-  const float* w = wav + (long)b * N;
-  for (int i = threadIdx.x; i < span_len; i += blockDim.x) {
-    long s = base + i;
-    span[i] = s < N ? w[s] : 0.0f;
+// In registers, natural order in and out: v_k <- sum_n v_n e^{-2 pi i n k / R}
+template <int R>
+__device__ __forceinline__ void dft(float2* v);
+
+template <>
+__device__ __forceinline__ void dft<2>(float2* v) {
+  const float2 a = v[0], b = v[1];
+  v[0] = cadd(a, b);
+  v[1] = csub(a, b);
+}
+
+template <>
+__device__ __forceinline__ void dft<4>(float2* v) {
+  const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+  const float2 t2 = cadd(v[1], v[3]), t3 = mul_mi(csub(v[1], v[3]));
+  v[0] = cadd(t0, t2);
+  v[2] = csub(t0, t2);
+  v[1] = cadd(t1, t3);
+  v[3] = csub(t1, t3);
+}
+
+// a e^{-2 pi i e / 16}
+template <int E>
+__device__ __forceinline__ float2 w16(float2 a) {
+  constexpr float c = 0.70710678118654752f, c1 = 0.92387953251128676f, s1 = 0.38268343236508977f;
+  if constexpr (E == 2) return make_float2(c * (a.x + a.y), c * (a.y - a.x));
+  else if constexpr (E == 4) return mul_mi(a);
+  else if constexpr (E == 6) return make_float2(c * (a.y - a.x), -c * (a.x + a.y));
+  else {
+    constexpr float wr = E == 1 ? c1 : E == 3 ? s1 : -c1, wi = E == 1 ? -s1 : E == 3 ? -c1 : s1;  // 1, 3, 9
+    return make_float2(fmaf(a.x, wr, -a.y * wi), fmaf(a.x, wi, a.y * wr));
   }
-  __syncthreads();
+}
 
-  for (int k = threadIdx.x; k < F; k += blockDim.x) {
-    float re[TF], im[TF];
+// 8 = 2 x 4 and 16 = 4 x 4: DFTs of the R / Q interleaved subsequences,
+// twiddled, then Q-point DFTs across them
+template <>
+__device__ __forceinline__ void dft<8>(float2* v) {
+  float2 e[4] = {v[0], v[2], v[4], v[6]}, o[4] = {v[1], v[3], v[5], v[7]};
+  dft<4>(e);
+  dft<4>(o);
+  o[1] = w16<2>(o[1]);
+  o[2] = w16<4>(o[2]);
+  o[3] = w16<6>(o[3]);
 #pragma unroll
-    for (int f = 0; f < TF; ++f) { re[f] = 0.0f; im[f] = 0.0f; }
-    for (int s = 0; s < win; ++s) {
-      const float c = __ldg(wc + (long)s * F + k);
-      const float sn = __ldg(ws + (long)s * F + k);
+  for (int k = 0; k < 4; ++k) {
+    v[k] = cadd(e[k], o[k]);
+    v[k + 4] = csub(e[k], o[k]);
+  }
+}
+
+template <>
+__device__ __forceinline__ void dft<16>(float2* v) {
+  float2 a[4][4];
 #pragma unroll
-      for (int f = 0; f < TF; ++f) {
-        const float x = span[f * shift + s];
-        re[f] = fmaf(x, c, re[f]);
-        im[f] = fmaf(x, sn, im[f]);
-      }
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int m = 0; m < 4; ++m) a[r][m] = v[r + 4 * m];
+    dft<4>(a[r]);
+  }
+  float2 b[4][4] = {{a[0][0], a[1][0], a[2][0], a[3][0]},
+                    {a[0][1], w16<1>(a[1][1]), w16<2>(a[2][1]), w16<3>(a[3][1])},
+                    {a[0][2], w16<2>(a[1][2]), w16<4>(a[2][2]), w16<6>(a[3][2])},
+                    {a[0][3], w16<3>(a[1][3]), w16<6>(a[2][3]), w16<9>(a[3][3])}};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    dft<4>(b[k]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[k + 4 * q] = b[k][q];
+  }
+}
+
+// Lanes a frame: 16 (two frames a warp) up to NC = 256, else 32.
+__host__ __device__ constexpr int lanes_of(int nc) { return nc <= 256 ? 16 : 32; }
+
+// The radix of the Stockham pass that follows sub-transforms of length ns:
+// 16 (or the nc / lanes points a lane holds, if fewer) while it divides what
+// is left, then what is left. ops/frontend_cuda.py fft_passes mirrors it.
+__host__ __device__ constexpr int radix_of(int nc, int ns) {
+  const int e = nc / lanes_of(nc), rm = e < 16 ? e : 16;
+  return ns * rm <= nc ? rm : nc / ns;
+}
+
+// A frame's FFT buffer holds one pad float2 after every R1 (the first pass's
+// radix), so that the first pass's stride-R1 stores, and every pass's loads
+// and stores, fall on distinct banks within a half-warp.
+__host__ __device__ constexpr int pad(int nc, int i) { return i + i / radix_of(nc, 1); }
+
+// Where the pass after sub-transforms of length ns starts in the pass
+// twiddle table ([R - 1][ns] entries a pass with ns > 1); ns = nc: its size.
+__host__ __device__ constexpr int tw_offset(int nc, int ns) {
+  int off = 0;
+  for (int n = 1; n < ns; n *= radix_of(nc, n))
+    if (n > 1) off += (radix_of(nc, n) - 1) * n;
+  return off;
+}
+
+// Twiddle, butterfly and store of lane l's NB = NC / (P R) butterflies
+// (butterfly b is sub-transform j = l + P b): Stockham's autosort order, so
+// the last pass leaves the NC points in natural order. The pass's twiddles
+// e^{-2 pi i r k / (NS R)} sit at [r - 1][k]: the lanes read consecutive k.
+template <int NC, int R, int NS>
+__device__ __forceinline__ void butterflies(float2 (*v)[R], float2* buf, const float2* tw, int l) {
+  constexpr int P = lanes_of(NC), NB = NC / (P * R), TW = tw_offset(NC, NS);
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int j = l + P * b, k = j % NS;
+    if constexpr (NS > 1) {
+#pragma unroll
+      for (int r = 1; r < R; ++r) v[b][r] = cmul(v[b][r], tw[TW + (r - 1) * NS + k]);
     }
+    dft<R>(v[b]);
+    const int d = (j / NS) * (NS * R) + k;
 #pragma unroll
-    for (int f = 0; f < TF; ++f) power[f * F + k] = re[f] * re[f] + im[f] * im[f];
+    for (int r = 0; r < R; ++r) buf[pad(NC, d + r * NS)] = v[b][r];
   }
-  __syncthreads();
+  __syncwarp();
+}
 
-  for (int idx = threadIdx.x; idx < TF * M; idx += blockDim.x) {
-    const int f = idx / M, m = idx % M;
-    if (t0 + f >= T) continue;
-    const float* p = power + f * F;
-    float acc = 0.0f;
-    for (int k = 0; k < F; ++k) acc = fmaf(p[k], __ldg(fb + (long)k * M + m), acc);
-    out[((long)b * T + t0 + f) * M + m] = logf(fmaxf(acc, LOG_FLOOR));
+// The passes after the first, in place in the frame's buffer.
+template <int NC, int NS>
+__device__ __forceinline__ void fft_passes(float2* buf, const float2* tw, int l) {
+  if constexpr (NS < NC) {
+    constexpr int P = lanes_of(NC), R = radix_of(NC, NS), NB = NC / (P * R);
+    float2 v[NB][R];
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int r = 0; r < R; ++r) v[b][r] = buf[pad(NC, l + P * b + r * (NC / R))];
+    __syncwarp();
+    butterflies<NC, R, NS>(v, buf, tw, l);
+    fft_passes<NC, NS * R>(buf, tw, l);
   }
+}
+
+// Offsets (in floats) of a block's shared memory: the two span buffers, the
+// tables, an FFT buffer for each frame of the tile (its power row, once the
+// transform is read, at row_offset floats into it), then the tile's log-mel
+// rows.
+struct Layout {
+  int tw, sw, win, mw, rng, grp, buf, ot, total;
+};
+
+__host__ __device__ inline Layout layout(int nc, int span_cap, int win, int n_w, int m, int grp, int tf) {
+  Layout l;
+  l.tw = span_cap;                          // span_cap is a multiple of 4: a 16-byte aligned span
+  l.sw = l.tw + 2 * tw_offset(nc, nc);      // pass twiddles, float2
+  l.win = l.sw + 2 * (nc / 2 + 1);          // [nc / 2 + 1] float2 split twiddles
+  l.mw = (l.win + win + 3) & ~3;            // [win] window; then 16-byte aligned
+  l.rng = l.mw + n_w;                       // [n_w] mel weights, a filter's from a multiple of 4
+  l.grp = l.rng + 3 * m;                    // [m][3] int mel ranges
+  l.buf = (l.grp + grp + 1) & ~1;           // [groups][32 / tf] int filter groups; then float2 aligned
+  l.ot = l.buf + 2 * pad(nc, nc) * tf;      // [tf][pad(nc, nc)] float2
+  l.total = l.ot + tf * m;                  // [tf][m] log-mel
+  return l;
+}
+
+struct Args {
+  const float* wav;
+  const float* window;
+  const float2* pass_tw;
+  const float2* split_tw;
+  const float* mel_w;
+  const int* mel_rng;
+  const int* mel_grp;
+  float* out;
+  int N, T, win, shift, M, n_w, groups;
+  float pre;
+  int tf, tiles_per_utt, n_tiles, span_cap;
+};
+
+struct Tables {
+  const float2* tw;
+  const float2* sw;
+  const float* wt;
+  const float* mw;
+  const int* rng;
+  const int* grp;
+};
+
+// A tile's span (from its first sample, rounded down to 16 bytes) into dst;
+// samples past the utterance's end are zeros.
+__device__ __forceinline__ void stage(const Args& a, int tile, float* dst) {
+  const int b = tile / a.tiles_per_utt, t0 = (tile - b * a.tiles_per_utt) * a.tf;
+  const long row = (long)b * a.N, g0 = row + (long)t0 * a.shift, ga = g0 & ~3L, end = row + a.N;
+  const int chunks = (int)((g0 - ga) + (long)(a.tf - 1) * a.shift + a.win + 3) >> 2;
+  for (int c = threadIdx.x; c < chunks; c += THREADS) {
+    const long gi = ga + 4L * c, valid = end - gi;
+    const int bytes = valid >= 4 ? 16 : (valid > 0 ? 4 * (int)valid : 0);
+    cp_async16_zfill(dst + 4 * c, a.wav + (bytes ? gi : 0), bytes);
+  }
+}
+
+// One frame x[0, win) of the staged span -> its power row pw[0, NC], by the
+// P lanes of its group (lane l of them, group mask gm).
+template <int NC>
+__device__ __forceinline__ void frame(const Args& a, const Tables& t, const float* x, float2* buf, float* pw,
+                                      int l, unsigned gm) {
+  constexpr int P = lanes_of(NC);
+  const int win = a.win;
+  // Lane l's points of the packed frame are i = l + P q (q = r NB + b),
+  // point i the pair (x[2i], x[2i + 1]); where the frame starts at an even
+  // float the pair is one 8-byte load (served a half-warp at a time: the two
+  // frames of a warp do not meet on a bank). Past win the samples are read
+  // and never used.
+  constexpr int R = radix_of(NC, 1), NB = NC / (P * R), E = NB * R;
+  const bool pairs = ((reinterpret_cast<uintptr_t>(x) >> 2) & 1) == 0;
+  float2 xs[E];
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int s0 = 2 * (l + P * q);
+    xs[q] = pairs ? *reinterpret_cast<const float2*>(x + s0) : make_float2(x[s0], x[s0 + 1]);
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int s0 = 2 * (l + P * q);
+    s += (s0 < win ? xs[q].x : 0.0f) + (s0 + 1 < win ? xs[q].y : 0.0f);
+  }
+#pragma unroll
+  for (int m = P / 2; m; m >>= 1) s += __shfl_xor_sync(gm, s, m);  // the same sum in the P lanes
+  const float mean = s / (float)win;
+
+  // first pass: y, the frame with its mean removed, pre-emphasised and
+  // windowed, zero from win. The sample before a point's pair is the last of
+  // the point before: lane l - 1's (lane P - 1's of q - 1 for lane 0), by a
+  // shuffle.
+  float2 v[NB][R];
+#pragma unroll
+  for (int q = 0; q < E; ++q) {
+    const int s0 = 2 * (l + P * q);
+    const float xm = __shfl_sync(gm, l == P - 1 ? (q > 0 ? xs[q - 1].y : 0.0f) : xs[q].y, (l + P - 1) % P, P);
+    const float2 w = *reinterpret_cast<const float2*>(t.wt + s0);
+    const float d0 = xs[q].x - mean, dm = s0 > 0 ? xm - mean : d0;
+    v[q % NB][q / NB] = make_float2(s0 < win ? w.x * fmaf(-a.pre, dm, d0) : 0.0f,
+                                    s0 + 1 < win ? w.y * fmaf(-a.pre, d0, xs[q].y - mean) : 0.0f);
+  }
+  butterflies<NC, R, 1>(v, buf, t.tw, l);
+  fft_passes<NC, R>(buf, t.tw, l);
+
+  // split: Z = FFT(packed) -> X[k] = Ye + W^k Yo and X[NC - k] = conj(Ye - W^k Yo),
+  // Ye = (Z[k] + conj Z[NC - k]) / 2, Yo = (Z[k] - conj Z[NC - k]) / 2i, W = e^{-2 pi i / n_fft};
+  // X[NC / 2] = conj Z[NC / 2]. Every lane reads before any writes the power
+  // row over the buffer.
+  constexpr int KP = NC / (2 * P);
+  float hi2[KP], lo2[KP];
+#pragma unroll
+  for (int i = 0; i < KP; ++i) {
+    const int k = l + P * i;
+    const float2 p = buf[pad(NC, k)], q = buf[pad(NC, (NC - k) & (NC - 1))];
+    const float2 ye = make_float2(0.5f * (p.x + q.x), 0.5f * (p.y - q.y));
+    const float2 yo = make_float2(0.5f * (p.y + q.y), 0.5f * (q.x - p.x));
+    const float2 w = cmul(t.sw[k], yo);
+    const float2 hi = cadd(ye, w), lo = csub(ye, w);
+    hi2[i] = fmaf(hi.x, hi.x, hi.y * hi.y);
+    lo2[i] = fmaf(lo.x, lo.x, lo.y * lo.y);
+  }
+  const float2 z = buf[pad(NC, NC / 2)];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < KP; ++i) {
+    pw[l + P * i] = hi2[i];
+    pw[NC - l - P * i] = lo2[i];
+  }
+  if (l == 0) pw[NC / 2] = fmaf(z.x, z.x, z.y * z.y);
+}
+
+// Where frame f's power row starts in its buffer (floats): the two frames of
+// a warp 16 banks apart, so that their stores do not meet; rows of frames
+// 0..15 on 16 distinct banks for the mel sums (the buffers are 0 mod 32 banks).
+template <int NC>
+__device__ __forceinline__ int row_offset(int f) {
+  return lanes_of(NC) == 16 ? (f >> 1) + 16 * (f & 1) : f;
+}
+
+// The tile's mel filters and logs, [nvalid][M] -> ot. A warp takes a group
+// of G = 32 / tf filters of about equal length at a time for all tf frames
+// (lane = filter g of the group, frame f), so no lane waits on a longer
+// loop; the host deals the groups to the warps (row i * WARPS + warp of the
+// table: the warp's group of round i). Each filter is summed over its bins
+// in increasing order with fmaf.
+template <int NC>
+__device__ __forceinline__ void mel_tile(const Args& a, const Tables& t, const float* bufs, float* ot, int nvalid,
+                                         int warp, int lane) {
+  const int g_size = 32 / a.tf, f = lane % a.tf, g = lane / a.tf;
+  for (int q = warp; q < a.groups; q += WARPS) {
+    const int m = t.grp[q * g_size + g];
+    if (m < 0 || f >= nvalid) continue;
+    const int st = t.rng[3 * m], len = t.rng[3 * m + 1], off = t.rng[3 * m + 2];
+    const float* p = bufs + f * (2 * pad(NC, NC)) + row_offset<NC>(f) + st;
+    const float4* w4 = reinterpret_cast<const float4*>(t.mw + off);
+    float acc = 0.0f;
+    // four bins a step: the host pads a filter's weights with zeros to a
+    // multiple of 4, and fmaf(p, 0, acc) is acc (p past the row is finite)
+    for (int j = 0; j < len; j += 4) {
+      const float4 w = w4[j >> 2];
+      acc = fmaf(p[j], w.x, acc);
+      acc = fmaf(p[j + 1], w.y, acc);
+      acc = fmaf(p[j + 2], w.z, acc);
+      acc = fmaf(p[j + 3], w.w, acc);
+    }
+    ot[f * a.M + m] = logf(fmaxf(acc, LOG_FLOOR));
+  }
+}
+
+// Up to n_fft 512, four blocks an SM (64 registers, no spills; the shared
+// memory of four fits at n_fft 512).
+template <int NC>
+__global__ void __launch_bounds__(THREADS, NC <= 256 ? 4 : 1) log_mel_fft(Args a) {
+  constexpr int P = lanes_of(NC);
+  extern __shared__ __align__(16) float smem[];
+  const Layout l = layout(NC, a.span_cap, a.win, a.n_w, a.M, a.groups * (32 / a.tf), a.tf);
+  float2* tw = reinterpret_cast<float2*>(smem + l.tw);
+  float2* sw = reinterpret_cast<float2*>(smem + l.sw);
+  float* wt = smem + l.win;
+  float* mw = smem + l.mw;
+  int* rng = reinterpret_cast<int*>(smem + l.rng);
+  int* grp = reinterpret_cast<int*>(smem + l.grp);
+  float* ot = smem + l.ot;
+  const Tables t{tw, sw, wt, mw, rng, grp};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f = warp * (32 / P) + lane / P;  // this lane group's frame of each tile
+  float2* buf = reinterpret_cast<float2*>(smem + l.buf) + f * pad(NC, NC);
+  const unsigned gm = P == 32 ? 0xffffffffu : 0xffffu << (lane & 16);  // this lane group
+
+  if ((int)blockIdx.x < a.n_tiles) stage(a, blockIdx.x, smem);  // the first span lands while the tables load
+  cp_async_commit();
+  for (int i = threadIdx.x; i < tw_offset(NC, NC); i += THREADS) tw[i] = a.pass_tw[i];
+  for (int i = threadIdx.x; i <= NC / 2; i += THREADS) sw[i] = a.split_tw[i];
+  for (int i = threadIdx.x; i < a.win; i += THREADS) wt[i] = a.window[i];
+  for (int i = threadIdx.x; i < a.n_w; i += THREADS) mw[i] = a.mel_w[i];
+  for (int i = threadIdx.x; i < 3 * a.M; i += THREADS) rng[i] = a.mel_rng[i];
+  for (int i = threadIdx.x; i < a.groups * (32 / a.tf); i += THREADS) grp[i] = a.mel_grp[i];
+  for (int i = l.buf + threadIdx.x; i < l.ot; i += THREADS) smem[i] = 0.0f;  // what the mel sums read past a row
+
+  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();  // the tile's span has landed (and the tile before is stored)
+    const int b = tile / a.tiles_per_utt, t0 = (tile - b * a.tiles_per_utt) * a.tf;
+    const int nvalid = a.T - t0 < a.tf ? a.T - t0 : a.tf;
+    // every lane group transforms its frame, past nvalid too (staged zeros,
+    // never read), so that no lane leaves the warp's shuffles and syncs
+    const float* span = smem + (int)(((long)b * a.N + (long)t0 * a.shift) & 3);
+    frame<NC>(a, t, span + f * a.shift, buf, reinterpret_cast<float*>(buf) + row_offset<NC>(f), lane % P, gm);
+    __syncthreads();  // every power row is in; the span is free for the next tile's, which lands meanwhile
+    if (tile + (int)gridDim.x < a.n_tiles) stage(a, tile + gridDim.x, smem);
+    cp_async_commit();
+    mel_tile<NC>(a, t, smem + l.buf, ot, nvalid, warp, lane);
+    __syncthreads();
+    float* o = a.out + ((long)b * a.T + t0) * a.M;  // the tile's frames are contiguous rows of out
+    for (int i = threadIdx.x; i < nvalid * a.M; i += THREADS) o[i] = ot[i];
+  }
+}
+
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) return 0;
+  if (!count[dev]) cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+template <int NC>
+int launch(Args a, int B, int n_tw, int group_size, cudaStream_t stream) {
+  a.tf = WARPS * (32 / lanes_of(NC));  // a frame a lane group
+  // the host's tables must follow this plan: the passes' twiddles, G filters
+  // a group, a group a warp a round
+  if (n_tw != tw_offset(NC, NC) || group_size != 32 / a.tf || a.groups % WARPS) return (int)cudaErrorInvalidValue;
+  a.span_cap = (((a.tf - 1) * a.shift + a.win + 3) + 3) & ~3;
+  const size_t bytes =
+      sizeof(float) * (size_t)layout(NC, a.span_cap, a.win, a.n_w, a.M, a.groups * group_size, a.tf).total;
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(log_mel_fft<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, log_mel_fft<NC>, THREADS, bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  a.tiles_per_utt = (a.T + a.tf - 1) / a.tf;
+  a.n_tiles = B * a.tiles_per_utt;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const int grid = a.n_tiles < per_sm * sms ? a.n_tiles : per_sm * sms;
+  log_mel_fft<NC><<<grid, THREADS, bytes, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -83,19 +468,25 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// wav [B, N], wc/ws [win, F], fb [F, M] -> out [B, T, M]; all f32, contiguous.
-extern "C" int e2e_log_mel(const float* wav, const float* wc, const float* ws,
-                           const float* fb, float* out, int B, int N, int T,
-                           int win, int shift, int F, int M, void* stream) {
-  const int threads = ((F + 31) / 32) * 32 > 1024 ? 1024 : ((F + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * ((size_t)(TF - 1) * shift + win + (size_t)TF * F);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        log_mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// wav [B, N] (16-byte aligned), window [win], pass_tw [n_tw] (each pass's
+// twiddles at [r - 1][k], the passes with NS > 1 in order) and split_tw
+// [n_fft / 4 + 1] complex as float pairs, mel_w [n_w], mel_rng [M][3] int
+// (first bin, bins, offset into mel_w), mel_grp [groups][group_size] int
+// (filters of about equal length, -1 for none; row i * 8 + w: warp w's group
+// of round i; group_size 2 up to n_fft 512, else 4) -> out [B, T, M]; all f32 but
+// the int tables, contiguous. n_fft is 256, 512, 1024 or 2048.
+extern "C" int e2e_log_mel(const float* wav, const float* window, const float* pass_tw, const float* split_tw,
+                           const float* mel_w, const int* mel_rng, const int* mel_grp, float* out, int B, int N,
+                           int T, int win, int shift, int n_fft, int M, int n_w, int n_tw, int groups,
+                           int group_size, float pre, void* stream) {
+  Args a{wav, window, reinterpret_cast<const float2*>(pass_tw), reinterpret_cast<const float2*>(split_tw),
+         mel_w, mel_rng, mel_grp, out, N, T, win, shift, M, n_w, groups, pre, 0, 0, 0, 0};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (n_fft) {
+    case 256: return launch<128>(a, B, n_tw, group_size, s);
+    case 512: return launch<256>(a, B, n_tw, group_size, s);
+    case 1024: return launch<512>(a, B, n_tw, group_size, s);
+    case 2048: return launch<1024>(a, B, n_tw, group_size, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  dim3 grid((T + TF - 1) / TF, B);
-  log_mel_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(wav, wc, ws, fb, out, N, T,
-                                                                win, shift, F, M);
-  return (int)cudaGetLastError();
 }

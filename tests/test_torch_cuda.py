@@ -1,14 +1,17 @@
 """The CUDA kernels against their plain versions on the card, at small and
 ragged shapes the flagship run does not reach: odd batch (one row per
-LSTM block), T not a multiple of the kernels' tiles, a wave shorter than
-one window, B = 1; the beam attention step with W = 1 and 16, S = 1 to
+LSTM block), T not a multiple of the kernels' tiles, B = 1; the log-mel
+kernel with a wave shorter than one window, N not a multiple of the shift,
+a last tile of one frame, B = 32 and M = 80, n_fft 256, 512 and 2048, the
+three windows, preemphasis 0, digital silence (exactly the floor), rows
+that start off 16 bytes and the synthetic corpus's int16 waves; the beam attention step with W = 1 and 16, S = 1 to
 1100 (k and v in several tiles), enc_len of 1, B from 1 to 5, B = 64 at
 S = 764 and B = 140 (more utterances than one launch takes: launches for
 groups of them), and its plan refusing K > 16 and an S at which not even one
 utterance fits; the fused CTC prefix kernel with
 and without an empty prefix, K = 1 and V - 1, T up to 2000 (several
-tiles), enc_len of 1 and of T; both decode kernels repeated bitwise and
-run under the sync debug mode set to raise; the LSTM forward's plan (Wh resident
+tiles), enc_len of 1 and of T; both decode kernels and the log-mel
+kernel repeated bitwise and run under the sync debug mode set to raise; the LSTM forward's plan (Wh resident
 at the flagship and convergence layers; a shape with no layout raises), its
 projection's kernel-time rows, H = 512 and 1024 (Wh read from L2) and
 bitwise-equal repeats; the LSTM backward with D and 4H off
@@ -33,11 +36,13 @@ same inputs (bitwise equal); the kernels' shared-memory plan over grids of
 import math
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
 from e2e_asr_tpu_torch import cuda_build
 from e2e_asr_tpu_torch.config import AudioConfig
+from e2e_asr_tpu_torch.data import corpus
 from e2e_asr_tpu_torch.decode import ctc_prefix
 from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
 from e2e_asr_tpu_torch.ops import att_step_cuda as asc
@@ -65,14 +70,72 @@ def _close(got, want, rtol, atol):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
-@pytest.mark.parametrize("n", [100, 400, 7000, 24160])
-def test_log_mel_kernel(gen, n):
-    cfg = AudioConfig(feat_dim=40)
-    wav = 0.1 * torch.randn((3, n), generator=gen, device="cuda")
+# (B, N, sample rate, M, window, preemphasis): N < win (one zero-padded
+# frame), N = win, N not a multiple of shift, T = 17 (a last tile of one
+# frame), the flagship decode batch's N, B = 32 and M = 80 (the convergence
+# recipe), 25 ms windows at 8 kHz (n_fft 256), 16 kHz (512) and 48 kHz
+# (2048), the three windows, preemphasis 0
+LOG_MEL_SHAPES = [
+    (3, 100, 16000, 40, "povey", 0.97), (3, 400, 16000, 40, "povey", 0.97), (3, 7000, 16000, 40, "povey", 0.97),
+    (3, 24160, 16000, 40, "povey", 0.97), (2, 16 * 160 + 400 + 7, 16000, 40, "povey", 0.97),
+    (16, 815 * 160 + 400, 16000, 40, "povey", 0.97), (32, 815 * 160 + 400 + 93, 16000, 80, "povey", 0.97),
+    (4, 9001, 8000, 40, "hamming", 0.0), (4, 9001, 8000, 80, "hanning", 0.97), (5, 12345, 16000, 80, "hanning", 0.0),
+    (2, 48000 + 77, 48000, 80, "povey", 0.97), (1, 1000, 48000, 40, "hamming", 0.0),
+]
+
+
+def _log_mel_cfg(sr, m, window, pre):
+    cfg = AudioConfig(feat_dim=m, sample_rate=sr, window=window, preemphasis=pre)
+    win, shift = sr * 25 // 1000, sr * 10 // 1000
+    return cfg, win, shift, 1 << (win - 1).bit_length()
+
+
+def _log_mel_check(wav, cfg, win, shift, n_fft):
+    """The kernel against its plain version at rtol 1e-3 / atol 2e-3; frames
+    of digital silence (all samples zero) exactly at the floor."""
     before = fec.log_mel.launches
-    got = fec.log_mel(wav, cfg, 400, 160, 512)
+    got = fec.log_mel(wav, cfg, win, shift, n_fft)
     assert fec.log_mel.launches == before + 1
-    _close(got, fec.log_mel_plain(wav, cfg, 400, 160, 512), rtol=1e-3, atol=2e-3)
+    want = fec.log_mel_plain(wav, cfg, win, shift, n_fft)
+    _close(got, want, rtol=1e-3, atol=2e-3)
+    t = got.shape[1]
+    x = torch.nn.functional.pad(wav, (0, max(0, (t - 1) * shift + win - wav.shape[1])))
+    silent = (x.unfold(-1, win, shift)[:, :t] == 0).all(-1)
+    floor = torch.log(torch.tensor(1.1921e-7, device="cuda"))
+    assert bool((got[silent] == floor).all())
+    return got
+
+
+@pytest.mark.parametrize("b,n,sr,m,window,pre", LOG_MEL_SHAPES)
+def test_log_mel_kernel(gen, b, n, sr, m, window, pre):
+    cfg, win, shift, n_fft = _log_mel_cfg(sr, m, window, pre)
+    wav = 0.1 * torch.randn((b, n), generator=gen, device="cuda")
+    wav[0, n // 3: n // 3 + 3 * win] = 0.0  # digital silence inside a row
+    if b > 2:
+        wav[-1] = 0.0  # and a whole row of it
+    _log_mel_check(wav, cfg, win, shift, n_fft)
+
+
+@pytest.mark.parametrize("coding", ["word", "char", "formant"])
+def test_log_mel_kernel_synthetic_waves(gen, coding):
+    """Waves of the synthetic corpus (narrow bands with quiet spectrum
+    between them) quantised to int16 as the loader ships them, rows padded
+    with zeros as a bucket pads them."""
+    utts = corpus.synthetic(n_utts=5, seed=1, max_sec=3.0, coding=coding)
+    n = max(u.n_samples for u in utts) + 211
+    wav = np.zeros((len(utts), n), np.float32)
+    for i, u in enumerate(utts):
+        wav[i, :u.n_samples] = np.clip(u.load() * 32768.0, -32768, 32767).astype(np.int16) / 32768.0
+    cfg, win, shift, n_fft = _log_mel_cfg(16000, 40, "povey", 0.97)
+    _log_mel_check(torch.from_numpy(wav).cuda(), cfg, win, shift, n_fft)
+
+
+def test_log_mel_kernel_misaligned_rows(gen):
+    """A wave whose rows start off 16 bytes (a view one sample in): the
+    wrapper copies it for the kernel's 16-byte staging."""
+    cfg, win, shift, n_fft = _log_mel_cfg(16000, 40, "povey", 0.97)
+    base = 0.1 * torch.randn((3 * 5001 + 1,), generator=gen, device="cuda")
+    _log_mel_check(base[1:].view(3, 5001), cfg, win, shift, n_fft)
 
 
 @pytest.mark.parametrize("b,t,d,h", [(3, 11, 40, 32), (2, 17, 1280, 320), (5, 9, 24, 104), (16, 30, 640, 320)])
@@ -184,32 +247,44 @@ def test_prefix_recursion_kernel(gen, b, w, k, t, v, lens, empty):
 
 
 def test_decode_kernels_repeat_bitwise(gen):
-    """No atomics: both decode kernels give bitwise equal outputs from run to
-    run, at the flagship decode shapes."""
+    """No atomics: both decode kernels, and the log-mel kernel that feeds
+    the decode, give bitwise equal outputs from run to run, at the flagship
+    decode shapes."""
     att = _att_args(gen, 16, 16, 204, 300, 640, list(range(204, 101, -6))[:16], p=201)
     prefix = _prefix_args(gen, 16, 16, 24, 204, 26, list(range(204, 101, -6))[:16], False)
-    for fn, args in ((asc.att_step_beam_loc, att), (cpc.prefix_scores_fused, prefix)):
+    mel = (0.1 * torch.randn((16, 815 * 160 + 400), generator=gen, device="cuda"), AudioConfig(feat_dim=40),
+           400, 160, 512)
+    for fn, args in ((asc.att_step_beam_loc, att), (cpc.prefix_scores_fused, prefix), (fec.log_mel, mel)):
         first = fn(*args)
+        first = (first,) if isinstance(first, torch.Tensor) else first
         for _ in range(3):
-            assert all(torch.equal(x, y) for x, y in zip(first, fn(*args)))
+            again = fn(*args)
+            again = (again,) if isinstance(again, torch.Tensor) else again
+            assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 def test_decode_kernels_make_no_host_sync(gen):
-    """Both decode wrappers under PyTorch's sync debug mode set to raise (as
-    a CUDA graph of the beam step needs): no device-to-host synchronisation,
-    once their plans are cached and their libraries built."""
+    """Both decode wrappers and the log-mel one under PyTorch's sync debug
+    mode set to raise (as a CUDA graph of the beam step needs): no
+    device-to-host synchronisation, once their plans and tables are cached
+    and their libraries built."""
     att = _att_args(gen, 3, 16, 204, 300, 640, [204, 150, 1], p=201)
     prefix = _prefix_args(gen, 3, 16, 24, 204, 26, [204, 150, 1], False)
+    wav = 0.1 * torch.randn((3, 24160), generator=gen, device="cuda")
+    cfg = AudioConfig(feat_dim=40)
     asc.att_step_beam_loc(*att)
     cpc.prefix_scores_fused(*prefix)
+    fec.log_mel(wav, cfg, 400, 160, 512)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         align, ctx = asc.att_step_beam_loc(*att)
         psi, r_h, psi_eos = cpc.prefix_scores_fused(*prefix)
+        mel = fec.log_mel(wav, cfg, 400, 160, 512)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool(torch.isfinite(ctx).all()) and bool(torch.isfinite(psi_eos).all())
+    assert bool(torch.isfinite(mel).all())
 
 
 def _lstm_args(gen, b, t, d, h, full=False):

@@ -1,10 +1,14 @@
 """Port features vs the JAX frontend: compute_features on both paths
 (the Pallas kernel in interpret mode / its kernel's plain version, and the
-XLA oracle / the plain framing path), and the log-mel kernel module alone.
+XLA oracle / the plain framing path), the log-mel kernel module alone, and
+the CUDA kernel's decomposition (time-side preprocessing, a real FFT from
+its host tables, sparse mel ranges) emulated on the CPU.
 
 Tolerance: the JAX suite's own for features, rtol 1e-3, atol 2e-3
 (tests/test_frontend.py): log-mel amplifies f32 rounding near the floor.
 """
+
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -81,3 +85,149 @@ def test_dither_only_with_generator(wav_batch):
     gen = torch.Generator().manual_seed(0)
     noisy, _ = tfe.compute_features(*args, generator=gen)
     assert not torch.equal(plain, noisy)
+
+
+# ---- the CUDA kernel's decomposition, emulated on the CPU in float32: the
+# frame's mean removed, pre-emphasis and the window on the time side; the
+# n_fft-point real FFT as an n_fft / 2-point complex FFT of the even/odd
+# packed frame, by the kernel's Stockham passes (``fft_passes``) on its
+# passes' twiddle table, then the split step on its split table; each mel
+# filter summed over its bin range in increasing bin order. The kernel runs only on the card; this
+# holds its plan and its tables.
+
+
+def _stockham(z, pass_tw, n_fft):
+    """[..., NC] complex64 -> its DFT, pass by pass as the kernel's lane
+    groups compute it (sub-transform j = k + NS q of each pass, the pass's
+    twiddle table at [r - 1][k], radix-R DFT, autosort store)."""
+    nc = z.shape[-1]
+    off = 0
+    for ns, r in frontend_cuda.fft_passes(n_fft):
+        j = torch.arange(nc // r)[:, None]
+        rr = torch.arange(r)[None, :]
+        k = j % ns
+        v = z[..., j + rr * (nc // r)]
+        if ns > 1:
+            tw = torch.cat([torch.ones(ns, dtype=torch.complex64), pass_tw[off:off + (r - 1) * ns]])
+            v = v * tw[rr * ns + k]
+            off += (r - 1) * ns
+        n = np.arange(r)
+        v = v @ torch.from_numpy(np.exp(-2j * np.pi * np.outer(n, n) / r).astype(np.complex64))
+        out = torch.empty_like(z)
+        out[..., (j // ns) * ns * r + k + rr * ns] = v
+        z = out
+    assert off == pass_tw.shape[0]
+    return z
+
+
+def _emulate(wav, tabs, win, shift, n_fft):
+    """[B, N] f32 -> [B, T, M] as the kernel computes it."""
+    b, n = wav.shape
+    t = frontend_cuda.n_log_mel_frames(n, win, shift)
+    x = torch.nn.functional.pad(wav, (0, max(0, (t - 1) * shift + win - n)))
+    frames = x.unfold(-1, win, shift)[:, :t]
+    d = frames - frames.sum(-1, keepdim=True) / win
+    prev = torch.cat([d[..., :1], d[..., :-1]], -1)  # y0 = d0 - p d0 = (1 - p) d0
+    y = (d - tabs.pre * prev) * torch.from_numpy(tabs.window)
+    y = torch.nn.functional.pad(y, (0, n_fft - win))
+    tw = torch.view_as_complex(torch.from_numpy(tabs.pass_tw))
+    sw = torch.view_as_complex(torch.from_numpy(tabs.split_tw))
+    nc = n_fft // 2
+    z = _stockham(torch.complex(y[..., 0::2], y[..., 1::2]), tw, n_fft)
+    k = torch.arange(nc // 2 + 1)
+    p, q = z[..., k], z[..., (nc - k) % nc]
+    ye, yo = (p + q.conj()) / 2, (p - q.conj()) / 2j
+    hi, lo = ye + sw * yo, ye - sw * yo
+    power = torch.zeros(y.shape[:-1] + (nc + 1,))
+    power[..., nc - k] = lo.abs() ** 2
+    power[..., k] = hi.abs() ** 2
+    want = torch.fft.rfft(y).abs() ** 2
+    scale = want.amax(-1, keepdim=True).clamp_min(1e-30)
+    assert float(((power - want).abs() / scale).max()) < 1e-5  # the FFT itself
+    mel = torch.zeros(power.shape[:-1] + (len(tabs.mel_rng),))
+    for m, (start, count, off) in enumerate(tabs.mel_rng):
+        for i in range(count):
+            mel[..., m] += power[..., start + i] * float(tabs.mel_w[off + i])
+    return torch.log(torch.clamp(mel, min=tfe.LOG_FLOOR))
+
+
+def _speechlike(rng, b, n, sr):
+    """Tones under noise, quantised to int16 steps, with a stretch of digital
+    silence (exact zeros) longer than two frames."""
+    tt = np.arange(n) / sr
+    wav = 0.05 * rng.randn(b, n) + 0.4 * np.sin(2 * np.pi * 300 * tt) + 0.2 * np.sin(2 * np.pi * 1700 * tt)
+    wav = np.round(wav * 32767.0) / 32768.0
+    wav[:, n // 3: n // 3 + int(0.05 * sr)] = 0.0
+    return wav.astype(np.float32)
+
+
+def _check_ranges(tabs, fb):
+    """The ranges' weights are fb's nonzeros exactly; the filter groups
+    hold every filter once and are dealt to the warps about evenly."""
+    dense = np.zeros_like(fb)
+    for m, (start, count, off) in enumerate(tabs.mel_rng):
+        dense[start:start + count, m] = tabs.mel_w[off:off + count]
+    np.testing.assert_array_equal(dense, fb)
+    assert np.count_nonzero(tabs.mel_w) == np.count_nonzero(fb)  # the padding is zeros
+    assert (tabs.mel_rng[:, 2] % 4 == 0).all() and tabs.mel_w.size % 4 == 0
+    groups = tabs.mel_grp
+    assert groups.shape[1] == frontend_cuda.kernel_lanes(2 * (len(fb) - 1)) // frontend_cuda.KERNEL_WARPS
+    assert len(groups) % frontend_cuda.KERNEL_WARPS == 0
+    assert sorted(groups[groups >= 0].tolist()) == list(range(fb.shape[1]))  # each filter once
+    lens = tabs.mel_rng[:, 1]
+    per_warp = [sum(int(lens[g[g >= 0]].max()) for g in groups[w::frontend_cuda.KERNEL_WARPS] if (g >= 0).any())
+                for w in range(frontend_cuda.KERNEL_WARPS)]
+    longest_group = max(int(lens[g[g >= 0]].max()) for g in groups if (g >= 0).any())
+    assert max(per_warp) <= sum(per_warp) / len(per_warp) + longest_group  # dealt about evenly
+
+
+@pytest.mark.parametrize("sample_rate", [16000, 8000])
+@pytest.mark.parametrize("feat_dim", [40, 80])
+@pytest.mark.parametrize("preemphasis", [0.97, 0.0])
+@pytest.mark.parametrize("window", ["povey", "hamming", "hanning"])
+def test_kernel_decomposition_matches_plain_and_pallas(window, preemphasis, feat_dim, sample_rate):
+    kw = dict(feat_dim=feat_dim, sample_rate=sample_rate, preemphasis=preemphasis, window=window)
+    cfg_t, cfg_j = TAudio(**kw), JAudio(**kw)
+    win, shift = sample_rate * 25 // 1000, sample_rate * 10 // 1000
+    n_fft = tfe.next_pow2(win)
+    tabs = frontend_cuda.kernel_tables(win, n_fft, window, preemphasis, feat_dim, sample_rate, 20.0, 0.0)
+    _check_ranges(tabs, tfe.mel_filterbank(feat_dim, n_fft, sample_rate, 20.0, 0.0))
+    wav = _speechlike(np.random.RandomState(feat_dim + sample_rate), 2, sample_rate // 4 + 37, sample_rate)
+    got = _emulate(torch.from_numpy(wav), tabs, win, shift, n_fft)
+    plain = frontend_cuda.log_mel_plain(torch.from_numpy(wav), cfg_t, win, shift, n_fft)
+    pallas = log_mel_pallas(jnp.asarray(wav), cfg_j, win, shift, n_fft, interpret=True)
+    assert got.shape == plain.shape == pallas.shape
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=RTOL, atol=ATOL)
+    first_silent = -(-(wav.shape[1] // 3) // shift)  # a frame wholly inside the silence
+    floor = torch.log(torch.tensor(tfe.LOG_FLOOR, dtype=torch.float32))
+    assert bool((got[:, first_silent] == floor).all()) and bool((plain[:, first_silent] == floor).all())
+
+
+@pytest.mark.parametrize("sample_rate,n_fft", [(32000, 1024), (48000, 2048), (10000, 256)])
+def test_kernel_decomposition_other_sizes(sample_rate, n_fft):
+    """The FFT sizes the 16 and 8 kHz recipes do not reach (n_fft 1024 and
+    2048), and a window (250 samples) that is not a multiple of the pack."""
+    cfg = TAudio(feat_dim=80, sample_rate=sample_rate)
+    win, shift = sample_rate * 25 // 1000, sample_rate * 10 // 1000
+    assert tfe.next_pow2(win) == n_fft
+    tabs = frontend_cuda.kernel_tables(win, n_fft, "povey", 0.97, 80, sample_rate, 20.0, 0.0)
+    _check_ranges(tabs, tfe.mel_filterbank(80, n_fft, sample_rate, 20.0, 0.0))
+    wav = torch.from_numpy(_speechlike(np.random.RandomState(n_fft), 2, win + 3 * shift + 11, sample_rate))
+    np.testing.assert_allclose(_emulate(wav, tabs, win, shift, n_fft).numpy(),
+                               frontend_cuda.log_mel_plain(wav, cfg, win, shift, n_fft).numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_kernel_sizes_outside_its_range_raise():
+    """The kernel covers n_fft 256 to 2048 (powers of two); the wrapper says so
+    before any device work. Checked with a CUDA tensor stand-in: the size check
+    comes before the kernel is built."""
+    cfg = TAudio(feat_dim=40)
+    meta = torch.empty((1, 4000), device="meta")
+    with mock.patch.object(frontend_cuda.cuda_build, "use_plain", lambda x: False):
+        for n_fft in (128, 4096, 500):
+            with pytest.raises(ValueError, match="power of two in \\[256, 2048\\]"):
+                frontend_cuda.log_mel(meta, cfg, 100, 40, n_fft)
+        with pytest.raises(ValueError, match="win <= n_fft"):
+            frontend_cuda.log_mel(meta, cfg, 600, 160, 512)
