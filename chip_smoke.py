@@ -7,12 +7,16 @@
    the build time.
 2. Holds every kernel against its plain PyTorch version, each with its
    stated tolerance, and times kernel, plain version and, where one
-   PyTorch call computes the same function, that call: the decode kernels
-   at the flagship decode shapes (configs/libri/asr_example.yaml model,
-   decode B=16, W=16; the attention step also at S=764; both repeated
-   bitwise and run once under the sync debug mode set to raise, each split
-   by phase by its timing build; with ``--parent DIR``, a checkout of the parent commit, the CTC
-   prefix side of a beam step is timed there and here in turns), the
+   PyTorch call computes the same function, that call: the log-mel kernel
+   on a randn wave and on the decode batch's own waves (also against a
+   float64 reference, beside a composed cuFFT yardstick; repeated bitwise,
+   no host sync) and the decode kernels at the flagship decode shapes
+   (configs/libri/asr_example.yaml model, decode B=16, W=16; the attention
+   step also at S=764; both repeated bitwise and run once under the sync
+   debug mode set to raise, each split by phase by its timing build); with
+   ``--parent DIR``, a checkout of the parent commit, the log-mel kernel
+   (time and error on the same waves) and the CTC prefix side of a beam
+   step are run there and here in turns; the
    training kernels (the LSTM's training forward
    and backward, each one's two launches timed apart, their outputs
    repeated bitwise; the CTC

@@ -404,11 +404,11 @@ SOURCE_VARIANTS = {
 }
 
 
-def build_source_variants(sources=tuple(SOURCE_VARIANTS)) -> None:
-    """Write each variant of ``SOURCE_VARIANTS`` of the ``sources`` (its
-    source's text with the replacements made, each found as often as
-    stated) into ``_build/decode_variants/``, compile them in parallel and
-    register each library as ``cuda_build.library(source, (variant,))``."""
+def build_source_variants() -> None:
+    """Write each variant of ``SOURCE_VARIANTS`` (its source's text with
+    the replacements made, each found as often as stated) into
+    ``_build/decode_variants/``, compile them in parallel and register each
+    library as ``cuda_build.library(source, (variant,))``."""
     from e2e_asr_tpu_torch import cuda_build
 
     out_dir = os.path.join(cuda_build.BUILD_DIR, "decode_variants")
@@ -417,8 +417,7 @@ def build_source_variants(sources=tuple(SOURCE_VARIANTS)) -> None:
             open(os.path.join(out_dir, "tf32_mma.cuh"), "w") as g:
         g.write(f.read())
     procs = {}
-    for name in sources:
-        variants = SOURCE_VARIANTS[name]
+    for name, variants in SOURCE_VARIANTS.items():
         with open(os.path.join(cuda_build.CSRC_DIR, f"{name}.cu")) as f:
             base = f.read()
         for var, edits in variants.items():
