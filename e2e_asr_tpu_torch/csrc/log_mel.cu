@@ -209,10 +209,11 @@ __device__ __forceinline__ void fft_passes(float2* buf, const float2* tw, int l)
   }
 }
 
-// Offsets (in floats) of a block's shared memory: the two span buffers, the
-// tables, an FFT buffer for each frame of the tile (its power row, once the
+// Offsets (in floats) of a block's shared memory: the span, the tables, an
+// FFT buffer for each frame of the tile (its power row, once the
 // transform is read, at row_offset floats into it), then the tile's log-mel
-// rows.
+// rows. A frame's first pass reads up to n_fft - win floats past the span,
+// into the tables: inside the block's memory, and never used.
 struct Layout {
   int tw, sw, win, mw, rng, grp, buf, ot, total;
 };
