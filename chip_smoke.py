@@ -14,9 +14,8 @@
    (configs/libri/asr_example.yaml model, decode B=16, W=16; the attention
    step also at S=764; both repeated bitwise and run once under the sync
    debug mode set to raise, each split by phase by its timing build); with
-   ``--parent DIR``, a checkout of the parent commit, the log-mel kernel
-   (time and error on the same waves) and the CTC prefix side of a beam
-   step are run there and here in turns; the
+   ``--parent DIR``, a checkout of the parent commit, the CTC prefix side
+   of a beam step is run there and here in turns; the
    training kernels (the LSTM's training forward
    and backward, each one's two launches timed apart, their outputs
    repeated bitwise; the CTC
@@ -57,8 +56,12 @@
    to 0 just before the run it belongs to.
 5. Drives the convergence recipe (configs/synthetic_convergence.yaml, full
    width, BiLSTM layers through lstm_seq, tf_rate 0.8) for CONV_STEPS steps
-   and one validation through ``bin/train_asr.Solver.exec``: the lstm_seq
-   pair and the fused scan's pair must have launched, losses finite.
+   and one validation through ``bin/train_asr.Solver.exec``, after holding
+   the log-mel kernel against its plain version and the float64 reference
+   on the recipe's first batch (B=32, M=80): log_mel, the lstm_seq pair and
+   the fused scan's pair must have launched, losses finite. With
+   ``--parent DIR`` the parent's log-mel kernel runs on the randn, decode
+   and convergence waves in turns with this one.
 6. Prints a ``kernels`` JSON line (each row names the path its ``launches``
    were counted on), then the device JSON line last; the details go to ``--json`` (default e2e_asr_tpu_torch/_build/chip_smoke.json).
 
@@ -142,10 +145,9 @@ def compare(name, got, want, rtol, atol, unreachable=None):
     return max_abs
 
 
-def kernel_checks(dev, cfg, vocab, batch_wav, parent=""):
+def kernel_checks(dev, cfg, vocab, batch_wav):
     """Each kernel against its plain version at the flagship decode shapes
-    (``batch_wav``: the decode batch's int16 waves; ``parent``: a checkout
-    of the parent commit whose log_mel is timed in turns with this one)."""
+    (``batch_wav``: the decode batch's int16 waves)."""
     from e2e_asr_tpu_torch.bin.profile_decode import (att_phase_split, flagship_att_inputs, flagship_prefix_inputs,
                                                       prefix_phase_split, print_decode_phases)
     from e2e_asr_tpu_torch.decode import ctc_prefix
@@ -167,23 +169,16 @@ def kernel_checks(dev, cfg, vocab, batch_wav, parent=""):
     out = {}
 
     # ---- 1. log_mel: wav [B, N], a randn wave and the decode batch's own
-    # (the synthetic corpus's int16 waves, scaled as compute_features does)
+    # (the synthetic corpus's int16 waves, scaled as compute_features does);
+    # the convergence recipe's batch (B=32, M=80) is held in its phase
     print("[kernel] log_mel", flush=True)
     waves = {"randn": 0.1 * torch.randn((b, n), generator=gen, device=dev),
              "decode_batch": torch.from_numpy(batch_wav).to(dev).float() * (1.0 / 32768.0)}
     t = fec.n_log_mel_frames(n, win, shift)
     composed = composed_log_mel(a, win, shift, n_fft, dev)
-    reference = composed_log_mel(a, win, shift, n_fft, dev, torch.float64)
     errs, cufft_errs, f64_errs = {}, {}, {}
     for name, x in waves.items():
-        got, want = fec.log_mel(x, a, win, shift, n_fft), fec.log_mel_plain(x, a, win, shift, n_fft)
-        errs[name] = compare(f"log_mel ({name})", got, want, rtol=1e-3, atol=2e-3)
-        cufft_errs[name] = compare(f"log_mel cuFFT yardstick ({name})", composed(x), want, rtol=1e-3, atol=2e-3)
-        ref = reference(x)
-        f64_errs[name] = {"kernel": float((got.double() - ref).abs().max()),
-                          "plain": float((want.double() - ref).abs().max())}
-        print(f"  log_mel ({name}) against the float64 reference: kernel {f64_errs[name]['kernel']:.3e}, "
-              f"plain version {f64_errs[name]['plain']:.3e}", flush=True)
+        errs[name], cufft_errs[name], f64_errs[name] = log_mel_wave_check(name, x, a, dev)
     wav = waves["randn"]
     got = fec.log_mel(wav, a, win, shift, n_fft)
     mel_extra = _repeat_and_sync("log_mel", lambda: (fec.log_mel(wav, a, win, shift, n_fft),), (got,))
@@ -194,7 +189,9 @@ def kernel_checks(dev, cfg, vocab, batch_wav, parent=""):
     # and window (~5 per sample), a real FFT of n_fft points (~2.5 n log2 n),
     # power, the mel product and the log. The mel product counts the bank's
     # nonzeros (2 nnz a frame, 492 of F x M = 257 x 40 at the flagship), as a
-    # sparse product's least work does, not the dense 2 F M
+    # sparse product's least work does, not the dense 2 F M. Counted as f32
+    # work (the function's inputs and outputs are f32; the kernel's float64
+    # transform is its own choice)
     nb = 4 * (b * n + win + nnz + b * t * mel)
     nf = b * t * (5 * win + 2.5 * n_fft * math.log2(n_fft) + 3 * f + 2 * nnz + mel)
     out["log_mel"] = dict(
@@ -210,8 +207,7 @@ def kernel_checks(dev, cfg, vocab, batch_wav, parent=""):
     r = out["log_mel"]
     print(f"  log_mel: {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, cuFFT yardstick "
           f"{r['cufft_ms'] * 1e3:.2f} us, bound {r['bound'][0] * 1e3:.2f} us ({r['bound'][1]})", flush=True)
-    if parent:
-        r["parent_path"] = parent_log_mel(parent, waves, a, (win, shift, n_fft))
+    r["parent_waves"] = {name: (x, a) for name, x in waves.items()}
 
     # ---- 2. lstm_bidir_fwd at both flagship input widths
     s_len = (t // 4)  # VGG prenet: 4x time downsample
@@ -447,11 +443,10 @@ def parent_prefix_path(parent: str) -> dict:
     return res
 
 
-# A tree's log_mel on saved waves (argv[1]: a torch.save of the waves, the
-# audio config and (win, shift, n_fft)), in a process of its own over the
-# package of the tree at its working directory. Prints one JSON line: for
-# each wave the kernel's max abs error against the plain version and its
-# device ms a call.
+# A tree's log_mel on saved waves (argv[1]: a torch.save of {name: (wave,
+# audio config)}), in a process of its own over the package of the tree at
+# its working directory. Prints one JSON line: for each wave the kernel's
+# max abs error against the plain version and its device ms a call.
 LOG_MEL_PATH = """
 import json, sys, torch
 from e2e_asr_tpu_torch.bin.profile_decode import device_ms
@@ -459,12 +454,11 @@ from e2e_asr_tpu_torch.config import AudioConfig
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.ops import frontend_cuda as fec
 dev = resolve_device("cuda")
-saved = torch.load(sys.argv[1])
-cfg = AudioConfig(**saved["audio"])
-win, shift, n_fft = saved["sizes"]
 res = {}
-for name, wav in saved["waves"].items():
-    wav = wav.to(dev)
+for name, (wav, audio) in torch.load(sys.argv[1]).items():
+    wav, cfg = wav.to(dev), AudioConfig(**audio)
+    win, shift = int(cfg.sample_rate * cfg.frame_length / 1000), int(cfg.sample_rate * cfg.frame_shift / 1000)
+    n_fft = 1 << (win - 1).bit_length()
     diff = fec.log_mel(wav, cfg, win, shift, n_fft).double() - fec.log_mel_plain(wav, cfg, win, shift, n_fft).double()
     res[f"{name}_max_abs_err"] = float(diff.abs().max())
     res[f"{name}_ms"] = device_ms(lambda: fec.log_mel(wav, cfg, win, shift, n_fft), 20, 2)
@@ -472,16 +466,16 @@ print(json.dumps(res))
 """
 
 
-def parent_log_mel(parent: str, waves: dict, audio, sizes) -> dict:
-    """The parent's log_mel kernel and this one on the same waves, in turns:
-    device ms and max abs error against the plain version, per wave."""
+def parent_log_mel(parent: str, waves: dict) -> dict:
+    """The parent's log_mel kernel and this one on the same waves ({name:
+    (wave, audio config)}), in turns: device ms and max abs error against
+    the plain version, per wave."""
     import dataclasses
 
     from e2e_asr_tpu_torch import cuda_build
 
     path = os.path.join(cuda_build.BUILD_DIR, "log_mel_waves.pt")
-    torch.save({"waves": {k: v.cpu() for k, v in waves.items()}, "audio": dataclasses.asdict(audio),
-                "sizes": list(sizes)}, path)
+    torch.save({k: (x.cpu(), dataclasses.asdict(a)) for k, (x, a) in waves.items()}, path)
     res = _in_turns(parent, LOG_MEL_PATH, (path,))
     for name in waves:
         print(f"  log_mel ({name}), parent vs change: device {res['parent'][f'{name}_ms']:.4f} vs "
@@ -517,6 +511,30 @@ def composed_log_mel(audio, win, shift, n_fft, dev, dtype=torch.float32):
         return torch.log(torch.clamp((spec.real * spec.real + spec.imag * spec.imag) @ fb, min=fe.LOG_FLOOR))
 
     return composed
+
+
+def log_mel_wave_check(name, x, audio, dev):
+    """log_mel on wave ``x`` [B, N] f32 under ``audio``: the kernel and the
+    composed cuFFT yardstick against the plain version (rtol 1e-3, atol
+    2e-3), and the kernel and the plain version against the float64
+    reference. Returns (kernel's max abs error, the yardstick's, {kernel,
+    plain: max abs error against float64})."""
+    from e2e_asr_tpu_torch.ops import frontend as fe
+    from e2e_asr_tpu_torch.ops import frontend_cuda as fec
+
+    win = int(audio.sample_rate * audio.frame_length / 1000)
+    shift = int(audio.sample_rate * audio.frame_shift / 1000)
+    n_fft = fe.next_pow2(win)
+    m = f"M={audio.feat_dim}, B={x.shape[0]}"
+    got, want = fec.log_mel(x, audio, win, shift, n_fft), fec.log_mel_plain(x, audio, win, shift, n_fft)
+    err = compare(f"log_mel ({name}, {m})", got, want, rtol=1e-3, atol=2e-3)
+    cufft_err = compare(f"log_mel cuFFT yardstick ({name}, {m})",
+                        composed_log_mel(audio, win, shift, n_fft, dev)(x), want, rtol=1e-3, atol=2e-3)
+    ref = composed_log_mel(audio, win, shift, n_fft, dev, torch.float64)(x)
+    f64 = {"kernel": float((got.double() - ref).abs().max()), "plain": float((want.double() - ref).abs().max())}
+    print(f"  log_mel ({name}, {m}) against the float64 reference: kernel {f64['kernel']:.3e}, "
+          f"plain version {f64['plain']:.3e}", flush=True)
+    return err, cufft_err, f64
 
 
 def _lstm_inputs(gen, dev, s_len, b, d, h, lens):
@@ -1225,13 +1243,15 @@ def _run_counted(solver, wrappers, what):
 def convergence_phase(dev, smi):
     """The convergence recipe (configs/synthetic_convergence.yaml) at its full
     width: first the scan pair against its plain versions at the recipe's
-    shapes (``convergence_scan_checks``), then CONV_STEPS steps and one
-    validation through bin/train_asr.Solver.exec, its BiLSTM layers through
-    the lstm_seq kernel pair and its speller through the fused scan, coins
-    failing (tf 0.8)."""
+    shapes (``convergence_scan_checks``) and log_mel on the recipe's first
+    batch (B=32, M=80; ``log_mel_wave_check``), then CONV_STEPS steps and
+    one validation through bin/train_asr.Solver.exec, its features through
+    log_mel, its BiLSTM layers through the lstm_seq kernel pair and its
+    speller through the fused scan, coins failing (tf 0.8)."""
     from e2e_asr_tpu_torch import cuda_build
     from e2e_asr_tpu_torch.bin.profile_decode import convergence_train_solver
     from e2e_asr_tpu_torch.ops.decoder_cuda import decoder_scan_bwd, decoder_scan_fwd
+    from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
     from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_bwd, lstm_seq_fwd
 
     solver = convergence_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_convergence"), SEED,
@@ -1241,7 +1261,15 @@ def convergence_phase(dev, smi):
             32, [256, 256, 256], 128, 256):
         fail("the convergence recipe is not at its full width")
     scan_check = convergence_scan_checks(dev, solver.config, solver.vocab_size)
-    wrappers = {"lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd,
+    # log_mel on the recipe's first batch (its int16 waves, scaled as
+    # compute_features does): B=32, M=80
+    audio = solver.config.data.audio
+    wav = torch.from_numpy(next(solver.tr_set.epoch(0)).wav).to(dev).float() * (1.0 / 32768.0)
+    if wav.shape[0] != 32 or audio.feat_dim != 80 or not audio.use_pallas:
+        fail(f"the convergence batch is {tuple(wav.shape)} at M={audio.feat_dim}, expected B=32, M=80, the kernel")
+    with torch.inference_mode():
+        mel_check = log_mel_wave_check("convergence_batch", wav, audio, dev)
+    wrappers = {"log_mel": log_mel, "lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd,
                 "decoder_scan_fwd": decoder_scan_fwd, "decoder_scan_bwd": decoder_scan_bwd}
     launches, wall = _run_counted(solver, wrappers, "convergence")
     log = list(solver.step_log)
@@ -1257,7 +1285,8 @@ def convergence_phase(dev, smi):
     rate = log[-1]["audio_s"] / log[-1]["wall_s"]
     print(f"convergence e2e: last step {rate:.2f} audio-s/s on {smi} (B=32, 3x256 BiLSTM on 80-dim "
           f"fbank, seed-{SEED} weights); {CONV_STEPS} steps + validation {wall:.1f}s", flush=True)
-    return dict(launches=launches, steps=log, dev=dev_sum, wall_s=wall, scan_check=scan_check)
+    return dict(launches=launches, steps=log, dev=dev_sum, wall_s=wall, scan_check=scan_check,
+                log_mel_check=mel_check, log_mel_wave=(wav, audio))
 
 
 def train_phase(smi):
@@ -1479,12 +1508,13 @@ def main(json_path: str = "", parent: str = "") -> None:
     if batch.wav.shape != (16, (816 - 1) * 160 + 400):
         fail(f"smoke batch has shape {batch.wav.shape}, expected 16 utterances in the 816 bucket")
     with torch.inference_mode():
-        kern = kernel_checks(dev, cfg, solver.vocab_size, batch.wav, parent)
+        kern = kernel_checks(dev, cfg, solver.vocab_size, batch.wav)
     kern.update(train_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(scan_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(lstm_seq_checks(dev))
     if parent:
         kern["prefix_recursion"]["parent_path"] = parent_prefix_path(parent)
+    mel_waves = kern["log_mel"].pop("parent_waves")
 
     # ---- the serving path through the CLI's Solver, on the card, under
     # either LSTM route: the default first, then the fused-projection kernel
@@ -1503,6 +1533,14 @@ def main(json_path: str = "", parent: str = "") -> None:
     # ---- the training path
     train = train_phase(smi)
     conv = convergence_phase(dev, smi)
+    r = kern["log_mel"]
+    mel_waves["convergence_batch"] = conv.pop("log_mel_wave")
+    for key, v in zip(("max_abs_err_by_wave", "cufft_max_abs_err_by_wave", "f64_max_abs_err_by_wave"),
+                      conv["log_mel_check"]):
+        r[key]["convergence_batch"] = v
+    r["max_abs_err"] = max(r["max_abs_err_by_wave"].values())
+    if parent:
+        r["parent_path"] = parent_log_mel(parent, mel_waves)
 
     # launches: every counted run that launched the kernel, by path, each
     # with its counts set to 0 just before; ``launches`` is the count of the

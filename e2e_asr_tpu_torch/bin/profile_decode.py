@@ -30,9 +30,8 @@ their values are wrong, only their times count), and the CTC prefix kernel's
 log-sum-exp on the approximate intrinsics __expf/__logf in place of the
 accurate expf/logf, both also held against the plain version at T = 204,
 764 and 1000; and the log-mel kernel with its parts compiled out in turn
-(the FFT passes after the first, all but one pair of the split's bins, the
-mel sums, every frame's transform; wrong values, times only) and in two
-other layouts (a block a tile; three blocks an SM) at the flagship decode shapes
+(the mel sums, every frame's transform, both; wrong values, times only) at
+the flagship decode shapes
 (``profile_decode_phases.json``).
 
 ``--train --scan-phases`` instead splits one step of each fused speller
@@ -383,24 +382,14 @@ def alternating_ms(fns: dict, rounds: int = 21, iters: int = 3) -> dict:
 _NO_TANH = [("fmaf(l2.x, tanhf(", "fmaf(l2.x, (", 2), ("fmaf(l2.y, tanhf(", "fmaf(l2.y, (", 2)]
 _ONE_TF32 = [("                mma_tf32(fw[j], al[s2], bh);  // three TF32 products: lo hi + hi lo + hi hi\n"
               "                mma_tf32(fw[j], ah[s2], bl);\n", "", 1)]
-# the log-mel kernel's parts compiled out in turn (timed only): the FFT
-# passes after the first, all but one pair of bins of the split, the mel
-# sums and logs, every frame's transform (staging, tables and stores stay);
-# and two other layouts of the same work: a block a tile instead of the
-# persistent grid, three blocks an SM (80 registers) instead of four
-_NO_PASSES = [("  fft_passes<NC, R>(buf, t.tw, l);\n", "", 1)]
-_ONE_PAIR = [("  constexpr int KP = NC / (2 * P);", "  constexpr int KP = 1;", 1)]
+# the log-mel kernel's parts compiled out in turn (timed only): the mel sums
+# and logs, every frame's transform (staging, tables and stores stay), both
 _NO_MEL = [("    mel_tile<NC>(a, t, smem + l.buf, ot, nvalid, warp, lane);\n", "", 1)]
 _NO_FRAMES = [("    frame<NC>(a, t, span", "    if (false) frame<NC>(a, t, span", 1)]
-_GRID_PER_TILE = [("  const int grid = a.n_tiles < per_sm * sms ? a.n_tiles : per_sm * sms;",
-                   "  const int grid = a.n_tiles;", 1)]
-_THREE_BLOCKS = [("__launch_bounds__(THREADS, NC <= 256 ? 4 : 1)", "__launch_bounds__(THREADS, NC <= 256 ? 3 : 1)", 1)]
 SOURCE_VARIANTS = {
     "att_step": {"no_tanh": _NO_TANH, "one_tf32": _ONE_TF32, "no_tanh+one_tf32": _NO_TANH + _ONE_TF32},
     "ctc_prefix": {"__expf___logf": [("m + logf(1.0f + expf(n - m))", "m + __logf(1.0f + __expf(n - m))", 1)]},
-    "log_mel": {"no_passes": _NO_PASSES, "split_one_pair": _ONE_PAIR, "no_mel": _NO_MEL, "no_frames": _NO_FRAMES,
-                "no_frames+no_mel": _NO_FRAMES + _NO_MEL, "grid_per_tile": _GRID_PER_TILE,
-                "three_blocks": _THREE_BLOCKS},
+    "log_mel": {"no_mel": _NO_MEL, "no_frames": _NO_FRAMES, "no_frames+no_mel": _NO_FRAMES + _NO_MEL},
 }
 
 

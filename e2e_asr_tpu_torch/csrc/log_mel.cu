@@ -1,5 +1,5 @@
 // Raw audio -> log-mel spectrogram, one kernel: a real FFT per frame in
-// shared memory.
+// shared memory, in float64 from the samples to the power.
 //
 // Replaces the TPU kernel e2e_asr_tpu/ops/frontend_pallas.py log_mel_pallas
 // (_kernel, fused_bases). It computes the same function: frames of `win`
@@ -18,29 +18,41 @@
 // sums go through it (PERF.md), so the design keeps the accesses few
 // and conflict-free.
 //
-// Design: a persistent grid of four blocks an SM walks tiles of 16
+// Why float64: pre-emphasis leaves 1e-3 of the power at the lowest bins, and
+// speech-like waves have quiet bands besides. A float32 frame, once
+// pre-emphasised, carries rounding noise at 6e-8 of its whole energy in
+// every bin, and each FFT pass adds as much: at those bins that is ~1e-3 of
+// their power, ~1e-3 in log units (measured against a float64 reference,
+// PERF.md). The folded bases of the plain version apply the attenuation to
+// the raw samples and err less. In float64 the transform's rounding is gone;
+// what is left is the float32 power's and the mel sums' (~1e-6). The H100
+// issues float64 at half the float32 rate, and the kernel is bound by its
+// shared-memory traffic, which float64 doubles.
+//
+// Design: a persistent grid of two blocks an SM walks tiles of 16
 // consecutive frames of one utterance (8 where n_fft > 512). A block stages a
 // tile's span ((tf - 1) shift + win samples) into shared memory with 16-byte
 // cp.async copies, so the frames' ~2.5x overlap never reaches device memory
 // twice; the next tile's span lands while the block sums the mel filters,
-// and the other blocks of the SM compute while one waits (measured faster
-// than a second span buffer, which leaves room for three blocks only:
-// PERF.md). A group of 16 lanes (two frames a warp; 32 lanes
-// where n_fft > 512) transforms one frame: the mean is a reduction over the
-// group; pre-emphasis and window are applied as the first pass reads the
-// samples in pairs (the sample before a pair comes by a shuffle); the
-// n_fft-point real FFT is an NC = n_fft / 2-point complex FFT of the
-// even/odd-packed frame (Stockham passes of radix 16, the last of what is
-// left; each lane holds its NC / 16 points in registers between a pass's
-// loads and stores in the frame's shared buffer), then the split step gives
-// power for bins 0..NC into the same buffer. The tile's mel sums follow: a
-// warp takes two (four) filters of about equal length at a time for all the
-// tile's frames, a lane a (filter, frame), each filter summed over its own
-// bins in increasing order with fmaf, then the accurate logf; the tile's
-// outputs, contiguous rows of out, are stored coalesced. The twiddles, the
-// window, the mel ranges and the filter groups are tables computed on the
-// host in float64 and rounded once to f32 (ops/frontend_cuda.py); a block
-// copies them into shared memory once.
+// and the other block of the SM computes while one waits. A group of 16
+// lanes (two frames a warp; 32 lanes where n_fft > 512) transforms one
+// frame: the mean is a reduction over the group; pre-emphasis and window are
+// applied as the first pass reads the samples in pairs (the sample before a
+// pair comes by a shuffle); the n_fft-point real FFT is an NC = n_fft /
+// 2-point complex FFT of the even/odd-packed frame (Stockham passes of radix
+// 16, the last of what is left; each lane holds its NC / 16 points in
+// registers between a pass's loads and stores in the frame's shared buffer),
+// then the split step gives float32 power for bins 0..NC into the same
+// buffer. The tile's mel sums follow: a warp takes two (four) filters of
+// about equal length at a time for all the tile's frames, a lane a (filter,
+// frame), each filter summed over its own bins in increasing order with
+// fmaf, then the accurate logf; the tile's outputs, contiguous rows of out,
+// are stored coalesced. The window and the roots of unity are float64 tables
+// from the host, the mel ranges and the filter groups float32 / int tables;
+// a block builds each pass's twiddles from the roots, and copies the rest,
+// into shared memory once. The plan (lanes a frame, the passes' radices,
+// warps, filters a group) is this file's alone: e2e_log_mel_plan tells the
+// host what it needs of it to build the filter groups.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,33 +74,35 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
-constexpr int WARPS = 8;  // ops/frontend_cuda.py KERNEL_WARPS
+constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr float LOG_FLOOR = 1.1921e-7f;
 constexpr int SMEM_MAX = 232448;  // a block's shared memory on the H100
 
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
+using cplx = double2;
+
+__device__ __forceinline__ cplx cadd(cplx a, cplx b) { return make_double2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ cplx csub(cplx a, cplx b) { return make_double2(a.x - b.x, a.y - b.y); }
+__device__ __forceinline__ cplx cmul(cplx a, cplx b) {
+  return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
 }
-__device__ __forceinline__ float2 mul_mi(float2 a) { return make_float2(a.y, -a.x); }  // -i a
+__device__ __forceinline__ cplx mul_mi(cplx a) { return make_double2(a.y, -a.x); }  // -i a
 
 // In registers, natural order in and out: v_k <- sum_n v_n e^{-2 pi i n k / R}
 template <int R>
-__device__ __forceinline__ void dft(float2* v);
+__device__ __forceinline__ void dft(cplx* v);
 
 template <>
-__device__ __forceinline__ void dft<2>(float2* v) {
-  const float2 a = v[0], b = v[1];
+__device__ __forceinline__ void dft<2>(cplx* v) {
+  const cplx a = v[0], b = v[1];
   v[0] = cadd(a, b);
   v[1] = csub(a, b);
 }
 
 template <>
-__device__ __forceinline__ void dft<4>(float2* v) {
-  const float2 t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
-  const float2 t2 = cadd(v[1], v[3]), t3 = mul_mi(csub(v[1], v[3]));
+__device__ __forceinline__ void dft<4>(cplx* v) {
+  const cplx t0 = cadd(v[0], v[2]), t1 = csub(v[0], v[2]);
+  const cplx t2 = cadd(v[1], v[3]), t3 = mul_mi(csub(v[1], v[3]));
   v[0] = cadd(t0, t2);
   v[2] = csub(t0, t2);
   v[1] = cadd(t1, t3);
@@ -97,22 +111,22 @@ __device__ __forceinline__ void dft<4>(float2* v) {
 
 // a e^{-2 pi i e / 16}
 template <int E>
-__device__ __forceinline__ float2 w16(float2 a) {
-  constexpr float c = 0.70710678118654752f, c1 = 0.92387953251128676f, s1 = 0.38268343236508977f;
-  if constexpr (E == 2) return make_float2(c * (a.x + a.y), c * (a.y - a.x));
+__device__ __forceinline__ cplx w16(cplx a) {
+  constexpr double c = 0.70710678118654752440, c1 = 0.92387953251128675613, s1 = 0.38268343236508977173;
+  if constexpr (E == 2) return make_double2(c * (a.x + a.y), c * (a.y - a.x));
   else if constexpr (E == 4) return mul_mi(a);
-  else if constexpr (E == 6) return make_float2(c * (a.y - a.x), -c * (a.x + a.y));
+  else if constexpr (E == 6) return make_double2(c * (a.y - a.x), -c * (a.x + a.y));
   else {
-    constexpr float wr = E == 1 ? c1 : E == 3 ? s1 : -c1, wi = E == 1 ? -s1 : E == 3 ? -c1 : s1;  // 1, 3, 9
-    return make_float2(fmaf(a.x, wr, -a.y * wi), fmaf(a.x, wi, a.y * wr));
+    constexpr double wr = E == 1 ? c1 : E == 3 ? s1 : -c1, wi = E == 1 ? -s1 : E == 3 ? -c1 : s1;  // 1, 3, 9
+    return make_double2(fma(a.x, wr, -a.y * wi), fma(a.x, wi, a.y * wr));
   }
 }
 
 // 8 = 2 x 4 and 16 = 4 x 4: DFTs of the R / Q interleaved subsequences,
 // twiddled, then Q-point DFTs across them
 template <>
-__device__ __forceinline__ void dft<8>(float2* v) {
-  float2 e[4] = {v[0], v[2], v[4], v[6]}, o[4] = {v[1], v[3], v[5], v[7]};
+__device__ __forceinline__ void dft<8>(cplx* v) {
+  cplx e[4] = {v[0], v[2], v[4], v[6]}, o[4] = {v[1], v[3], v[5], v[7]};
   dft<4>(e);
   dft<4>(o);
   o[1] = w16<2>(o[1]);
@@ -126,18 +140,18 @@ __device__ __forceinline__ void dft<8>(float2* v) {
 }
 
 template <>
-__device__ __forceinline__ void dft<16>(float2* v) {
-  float2 a[4][4];
+__device__ __forceinline__ void dft<16>(cplx* v) {
+  cplx a[4][4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
 #pragma unroll
     for (int m = 0; m < 4; ++m) a[r][m] = v[r + 4 * m];
     dft<4>(a[r]);
   }
-  float2 b[4][4] = {{a[0][0], a[1][0], a[2][0], a[3][0]},
-                    {a[0][1], w16<1>(a[1][1]), w16<2>(a[2][1]), w16<3>(a[3][1])},
-                    {a[0][2], w16<2>(a[1][2]), w16<4>(a[2][2]), w16<6>(a[3][2])},
-                    {a[0][3], w16<3>(a[1][3]), w16<6>(a[2][3]), w16<9>(a[3][3])}};
+  cplx b[4][4] = {{a[0][0], a[1][0], a[2][0], a[3][0]},
+                  {a[0][1], w16<1>(a[1][1]), w16<2>(a[2][1]), w16<3>(a[3][1])},
+                  {a[0][2], w16<2>(a[1][2]), w16<4>(a[2][2]), w16<6>(a[3][2])},
+                  {a[0][3], w16<3>(a[1][3]), w16<6>(a[2][3]), w16<9>(a[3][3])}};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     dft<4>(b[k]);
@@ -149,17 +163,20 @@ __device__ __forceinline__ void dft<16>(float2* v) {
 // Lanes a frame: 16 (two frames a warp) up to NC = 256, else 32.
 __host__ __device__ constexpr int lanes_of(int nc) { return nc <= 256 ? 16 : 32; }
 
+// Frames a tile: a frame a lane group.
+__host__ __device__ constexpr int frames_of(int nc) { return WARPS * (32 / lanes_of(nc)); }
+
 // The radix of the Stockham pass that follows sub-transforms of length ns:
 // 16 (or the nc / lanes points a lane holds, if fewer) while it divides what
-// is left, then what is left. ops/frontend_cuda.py fft_passes mirrors it.
+// is left, then what is left.
 __host__ __device__ constexpr int radix_of(int nc, int ns) {
   const int e = nc / lanes_of(nc), rm = e < 16 ? e : 16;
   return ns * rm <= nc ? rm : nc / ns;
 }
 
-// A frame's FFT buffer holds one pad float2 after every R1 (the first pass's
+// A frame's FFT buffer holds one pad point after every R1 (the first pass's
 // radix), so that the first pass's stride-R1 stores, and every pass's loads
-// and stores, fall on distinct banks within a half-warp.
+// and stores, fall on distinct banks within a quarter-warp.
 __host__ __device__ constexpr int pad(int nc, int i) { return i + i / radix_of(nc, 1); }
 
 // Where the pass after sub-transforms of length ns starts in the pass
@@ -176,7 +193,7 @@ __host__ __device__ constexpr int tw_offset(int nc, int ns) {
 // the last pass leaves the NC points in natural order. The pass's twiddles
 // e^{-2 pi i r k / (NS R)} sit at [r - 1][k]: the lanes read consecutive k.
 template <int NC, int R, int NS>
-__device__ __forceinline__ void butterflies(float2 (*v)[R], float2* buf, const float2* tw, int l) {
+__device__ __forceinline__ void butterflies(cplx (*v)[R], cplx* buf, const cplx* tw, int l) {
   constexpr int P = lanes_of(NC), NB = NC / (P * R), TW = tw_offset(NC, NS);
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
@@ -195,10 +212,10 @@ __device__ __forceinline__ void butterflies(float2 (*v)[R], float2* buf, const f
 
 // The passes after the first, in place in the frame's buffer.
 template <int NC, int NS>
-__device__ __forceinline__ void fft_passes(float2* buf, const float2* tw, int l) {
+__device__ __forceinline__ void fft_passes(cplx* buf, const cplx* tw, int l) {
   if constexpr (NS < NC) {
     constexpr int P = lanes_of(NC), R = radix_of(NC, NS), NB = NC / (P * R);
-    float2 v[NB][R];
+    cplx v[NB][R];
 #pragma unroll
     for (int b = 0; b < NB; ++b)
 #pragma unroll
@@ -210,10 +227,11 @@ __device__ __forceinline__ void fft_passes(float2* buf, const float2* tw, int l)
 }
 
 // Offsets (in floats) of a block's shared memory: the span, the tables, an
-// FFT buffer for each frame of the tile (its power row, once the
+// FFT buffer for each frame of the tile (its float32 power row, once the
 // transform is read, at row_offset floats into it), then the tile's log-mel
-// rows. A frame's first pass reads up to n_fft - win floats past the span,
-// into the tables: inside the block's memory, and never used.
+// rows. A frame's first pass reads up to n_fft - win samples past the span,
+// and up to n_fft - win window entries past the window, into the tables
+// that follow: inside the block's memory, and never used.
 struct Layout {
   int tw, sw, win, mw, rng, grp, buf, ot, total;
 };
@@ -221,35 +239,34 @@ struct Layout {
 __host__ __device__ inline Layout layout(int nc, int span_cap, int win, int n_w, int m, int grp, int tf) {
   Layout l;
   l.tw = span_cap;                          // span_cap is a multiple of 4: a 16-byte aligned span
-  l.sw = l.tw + 2 * tw_offset(nc, nc);      // pass twiddles, float2
-  l.win = l.sw + 2 * (nc / 2 + 1);          // [nc / 2 + 1] float2 split twiddles
-  l.mw = (l.win + win + 3) & ~3;            // [win] window; then 16-byte aligned
+  l.sw = l.tw + 4 * tw_offset(nc, nc);      // pass twiddles, double2
+  l.win = l.sw + 4 * (nc / 2 + 1);          // [nc / 2 + 1] double2 split twiddles
+  l.mw = (l.win + 2 * win + 3) & ~3;        // [win] double window; then 16-byte aligned
   l.rng = l.mw + n_w;                       // [n_w] mel weights, a filter's from a multiple of 4
   l.grp = l.rng + 3 * m;                    // [m][3] int mel ranges
-  l.buf = (l.grp + grp + 1) & ~1;           // [groups][32 / tf] int filter groups; then float2 aligned
-  l.ot = l.buf + 2 * pad(nc, nc) * tf;      // [tf][pad(nc, nc)] float2
+  l.buf = (l.grp + grp + 3) & ~3;           // [groups][32 / tf] int filter groups; then 16-byte aligned
+  l.ot = l.buf + 4 * pad(nc, nc) * tf;      // [tf][pad(nc, nc)] double2
   l.total = l.ot + tf * m;                  // [tf][m] log-mel
   return l;
 }
 
 struct Args {
   const float* wav;
-  const float* window;
-  const float2* pass_tw;
-  const float2* split_tw;
+  const double* window;
+  const double2* roots;
   const float* mel_w;
   const int* mel_rng;
   const int* mel_grp;
   float* out;
   int N, T, win, shift, M, n_w, groups;
-  float pre;
+  double pre;
   int tf, tiles_per_utt, n_tiles, span_cap;
 };
 
 struct Tables {
-  const float2* tw;
-  const float2* sw;
-  const float* wt;
+  const cplx* tw;
+  const cplx* sw;
+  const double* wt;
   const float* mw;
   const int* rng;
   const int* grp;
@@ -268,10 +285,11 @@ __device__ __forceinline__ void stage(const Args& a, int tile, float* dst) {
   }
 }
 
-// One frame x[0, win) of the staged span -> its power row pw[0, NC], by the
-// P lanes of its group (lane l of them, group mask gm).
+// One frame x[0, win) of the staged span -> its float32 power row pw[0, NC],
+// then three zeros, by the P lanes of its group (lane l of them, group mask
+// gm).
 template <int NC>
-__device__ __forceinline__ void frame(const Args& a, const Tables& t, const float* x, float2* buf, float* pw,
+__device__ __forceinline__ void frame(const Args& a, const Tables& t, const float* x, cplx* buf, float* pw,
                                       int l, unsigned gm) {
   constexpr int P = lanes_of(NC);
   const int win = a.win;
@@ -288,29 +306,29 @@ __device__ __forceinline__ void frame(const Args& a, const Tables& t, const floa
     const int s0 = 2 * (l + P * q);
     xs[q] = pairs ? *reinterpret_cast<const float2*>(x + s0) : make_float2(x[s0], x[s0 + 1]);
   }
-  float s = 0.0f;
+  double s = 0.0;
 #pragma unroll
   for (int q = 0; q < E; ++q) {
     const int s0 = 2 * (l + P * q);
-    s += (s0 < win ? xs[q].x : 0.0f) + (s0 + 1 < win ? xs[q].y : 0.0f);
+    s += (s0 < win ? (double)xs[q].x : 0.0) + (s0 + 1 < win ? (double)xs[q].y : 0.0);
   }
 #pragma unroll
   for (int m = P / 2; m; m >>= 1) s += __shfl_xor_sync(gm, s, m);  // the same sum in the P lanes
-  const float mean = s / (float)win;
+  const double mean = s / (double)win;
 
   // first pass: y, the frame with its mean removed, pre-emphasised and
   // windowed, zero from win. The sample before a point's pair is the last of
   // the point before: lane l - 1's (lane P - 1's of q - 1 for lane 0), by a
   // shuffle.
-  float2 v[NB][R];
+  cplx v[NB][R];
 #pragma unroll
   for (int q = 0; q < E; ++q) {
     const int s0 = 2 * (l + P * q);
     const float xm = __shfl_sync(gm, l == P - 1 ? (q > 0 ? xs[q - 1].y : 0.0f) : xs[q].y, (l + P - 1) % P, P);
-    const float2 w = *reinterpret_cast<const float2*>(t.wt + s0);
-    const float d0 = xs[q].x - mean, dm = s0 > 0 ? xm - mean : d0;
-    v[q % NB][q / NB] = make_float2(s0 < win ? w.x * fmaf(-a.pre, dm, d0) : 0.0f,
-                                    s0 + 1 < win ? w.y * fmaf(-a.pre, d0, xs[q].y - mean) : 0.0f);
+    const double2 w = *reinterpret_cast<const double2*>(t.wt + s0);
+    const double d0 = (double)xs[q].x - mean, dm = s0 > 0 ? (double)xm - mean : d0;
+    v[q % NB][q / NB] = make_double2(s0 < win ? w.x * fma(-a.pre, dm, d0) : 0.0,
+                                     s0 + 1 < win ? w.y * fma(-a.pre, d0, (double)xs[q].y - mean) : 0.0);
   }
   butterflies<NC, R, 1>(v, buf, t.tw, l);
   fft_passes<NC, R>(buf, t.tw, l);
@@ -324,22 +342,24 @@ __device__ __forceinline__ void frame(const Args& a, const Tables& t, const floa
 #pragma unroll
   for (int i = 0; i < KP; ++i) {
     const int k = l + P * i;
-    const float2 p = buf[pad(NC, k)], q = buf[pad(NC, (NC - k) & (NC - 1))];
-    const float2 ye = make_float2(0.5f * (p.x + q.x), 0.5f * (p.y - q.y));
-    const float2 yo = make_float2(0.5f * (p.y + q.y), 0.5f * (q.x - p.x));
-    const float2 w = cmul(t.sw[k], yo);
-    const float2 hi = cadd(ye, w), lo = csub(ye, w);
-    hi2[i] = fmaf(hi.x, hi.x, hi.y * hi.y);
-    lo2[i] = fmaf(lo.x, lo.x, lo.y * lo.y);
+    const cplx p = buf[pad(NC, k)], q = buf[pad(NC, (NC - k) & (NC - 1))];
+    const cplx ye = make_double2(0.5 * (p.x + q.x), 0.5 * (p.y - q.y));
+    const cplx yo = make_double2(0.5 * (p.y + q.y), 0.5 * (q.x - p.x));
+    const cplx w = cmul(t.sw[k], yo);
+    const cplx hi = cadd(ye, w), lo = csub(ye, w);
+    hi2[i] = (float)fma(hi.x, hi.x, hi.y * hi.y);
+    lo2[i] = (float)fma(lo.x, lo.x, lo.y * lo.y);
   }
-  const float2 z = buf[pad(NC, NC / 2)];
+  const cplx z = buf[pad(NC, NC / 2)];
   __syncwarp();
 #pragma unroll
   for (int i = 0; i < KP; ++i) {
     pw[l + P * i] = hi2[i];
     pw[NC - l - P * i] = lo2[i];
   }
-  if (l == 0) pw[NC / 2] = fmaf(z.x, z.x, z.y * z.y);
+  if (l == 0) pw[NC / 2] = (float)fma(z.x, z.x, z.y * z.y);
+  // what the mel sums read past the row (a filter's weights padded to 4)
+  if (l >= 1 && l <= 3) pw[NC + l] = 0.0f;
 }
 
 // Where frame f's power row starts in its buffer (floats): the two frames of
@@ -364,11 +384,11 @@ __device__ __forceinline__ void mel_tile(const Args& a, const Tables& t, const f
     const int m = t.grp[q * g_size + g];
     if (m < 0 || f >= nvalid) continue;
     const int st = t.rng[3 * m], len = t.rng[3 * m + 1], off = t.rng[3 * m + 2];
-    const float* p = bufs + f * (2 * pad(NC, NC)) + row_offset<NC>(f) + st;
+    const float* p = bufs + f * (4 * pad(NC, NC)) + row_offset<NC>(f) + st;
     const float4* w4 = reinterpret_cast<const float4*>(t.mw + off);
     float acc = 0.0f;
     // four bins a step: the host pads a filter's weights with zeros to a
-    // multiple of 4, and fmaf(p, 0, acc) is acc (p past the row is finite)
+    // multiple of 4, and the frame pads its row with zeros
     for (int j = 0; j < len; j += 4) {
       const float4 w = w4[j >> 2];
       acc = fmaf(p[j], w.x, acc);
@@ -380,16 +400,16 @@ __device__ __forceinline__ void mel_tile(const Args& a, const Tables& t, const f
   }
 }
 
-// Up to n_fft 512, four blocks an SM (64 registers, no spills; the shared
-// memory of four fits at n_fft 512).
+// Up to n_fft 512, two blocks an SM (the shared memory of two fits at
+// n_fft 512).
 template <int NC>
-__global__ void __launch_bounds__(THREADS, NC <= 256 ? 4 : 1) log_mel_fft(Args a) {
+__global__ void __launch_bounds__(THREADS, NC <= 256 ? 2 : 1) log_mel_fft(Args a) {
   constexpr int P = lanes_of(NC);
   extern __shared__ __align__(16) float smem[];
   const Layout l = layout(NC, a.span_cap, a.win, a.n_w, a.M, a.groups * (32 / a.tf), a.tf);
-  float2* tw = reinterpret_cast<float2*>(smem + l.tw);
-  float2* sw = reinterpret_cast<float2*>(smem + l.sw);
-  float* wt = smem + l.win;
+  cplx* tw = reinterpret_cast<cplx*>(smem + l.tw);
+  cplx* sw = reinterpret_cast<cplx*>(smem + l.sw);
+  double* wt = reinterpret_cast<double*>(smem + l.win);
   float* mw = smem + l.mw;
   int* rng = reinterpret_cast<int*>(smem + l.rng);
   int* grp = reinterpret_cast<int*>(smem + l.grp);
@@ -397,18 +417,26 @@ __global__ void __launch_bounds__(THREADS, NC <= 256 ? 4 : 1) log_mel_fft(Args a
   const Tables t{tw, sw, wt, mw, rng, grp};
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int f = warp * (32 / P) + lane / P;  // this lane group's frame of each tile
-  float2* buf = reinterpret_cast<float2*>(smem + l.buf) + f * pad(NC, NC);
+  cplx* buf = reinterpret_cast<cplx*>(smem + l.buf) + f * pad(NC, NC);
   const unsigned gm = P == 32 ? 0xffffffffu : 0xffffu << (lane & 16);  // this lane group
 
   if ((int)blockIdx.x < a.n_tiles) stage(a, blockIdx.x, smem);  // the first span lands while the tables load
   cp_async_commit();
-  for (int i = threadIdx.x; i < tw_offset(NC, NC); i += THREADS) tw[i] = a.pass_tw[i];
-  for (int i = threadIdx.x; i <= NC / 2; i += THREADS) sw[i] = a.split_tw[i];
+  // each pass's twiddles e^{-2 pi i r k / (ns R)} at [r - 1][k], from the
+  // roots e^{-2 pi i j / (2 NC)}; the split's are the first NC / 2 + 1 roots
+  for (int ns = 1; ns < NC; ns *= radix_of(NC, ns)) {
+    if (ns == 1) continue;
+    const int r_ = radix_of(NC, ns), off = tw_offset(NC, ns), step = 2 * NC / (ns * r_);
+    for (int i = threadIdx.x; i < (r_ - 1) * ns; i += THREADS) {
+      const int r = i / ns + 1, k = i - (r - 1) * ns;
+      tw[off + i] = a.roots[r * k * step];
+    }
+  }
+  for (int i = threadIdx.x; i <= NC / 2; i += THREADS) sw[i] = a.roots[i];
   for (int i = threadIdx.x; i < a.win; i += THREADS) wt[i] = a.window[i];
   for (int i = threadIdx.x; i < a.n_w; i += THREADS) mw[i] = a.mel_w[i];
   for (int i = threadIdx.x; i < 3 * a.M; i += THREADS) rng[i] = a.mel_rng[i];
   for (int i = threadIdx.x; i < a.groups * (32 / a.tf); i += THREADS) grp[i] = a.mel_grp[i];
-  for (int i = l.buf + threadIdx.x; i < l.ot; i += THREADS) smem[i] = 0.0f;  // what the mel sums read past a row
 
   for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
     cp_async_wait<0>();
@@ -439,11 +467,11 @@ int sm_count() {
 }
 
 template <int NC>
-int launch(Args a, int B, int n_tw, int group_size, cudaStream_t stream) {
-  a.tf = WARPS * (32 / lanes_of(NC));  // a frame a lane group
-  // the host's tables must follow this plan: the passes' twiddles, G filters
-  // a group, a group a warp a round
-  if (n_tw != tw_offset(NC, NC) || group_size != 32 / a.tf || a.groups % WARPS) return (int)cudaErrorInvalidValue;
+int launch(Args a, int B, int group_size, cudaStream_t stream) {
+  a.tf = frames_of(NC);
+  // the host's filter groups must follow this plan: G filters a group, a
+  // group a warp a round (e2e_log_mel_plan)
+  if (group_size != 32 / a.tf || a.groups % WARPS) return (int)cudaErrorInvalidValue;
   a.span_cap = (((a.tf - 1) * a.shift + a.win + 3) + 3) & ~3;
   const size_t bytes =
       sizeof(float) * (size_t)layout(NC, a.span_cap, a.win, a.n_w, a.M, a.groups * group_size, a.tf).total;
@@ -469,25 +497,35 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// wav [B, N] (16-byte aligned), window [win], pass_tw [n_tw] (each pass's
-// twiddles at [r - 1][k], the passes with NS > 1 in order) and split_tw
-// [n_fft / 4 + 1] complex as float pairs, mel_w [n_w], mel_rng [M][3] int
-// (first bin, bins, offset into mel_w), mel_grp [groups][group_size] int
-// (filters of about equal length, -1 for none; row i * 8 + w: warp w's group
-// of round i; group_size 2 up to n_fft 512, else 4) -> out [B, T, M]; all f32 but
-// the int tables, contiguous. n_fft is 256, 512, 1024 or 2048.
-extern "C" int e2e_log_mel(const float* wav, const float* window, const float* pass_tw, const float* split_tw,
-                           const float* mel_w, const int* mel_rng, const int* mel_grp, float* out, int B, int N,
-                           int T, int win, int shift, int n_fft, int M, int n_w, int n_tw, int groups,
-                           int group_size, float pre, void* stream) {
-  Args a{wav, window, reinterpret_cast<const float2*>(pass_tw), reinterpret_cast<const float2*>(split_tw),
-         mel_w, mel_rng, mel_grp, out, N, T, win, shift, M, n_w, groups, pre, 0, 0, 0, 0};
+// What the host needs of the kernel's plan at n_fft (256, 512, 1024 or
+// 2048) to build its filter groups: out[0] filters a group (32 / frames a
+// tile), out[1] warps a block.
+extern "C" int e2e_log_mel_plan(int n_fft, int* out) {
+  if (n_fft != 256 && n_fft != 512 && n_fft != 1024 && n_fft != 2048) return (int)cudaErrorInvalidValue;
+  out[0] = 32 / frames_of(n_fft / 2);
+  out[1] = WARPS;
+  return 0;
+}
+
+// wav [B, N] f32 (16-byte aligned), window [win] f64, roots [n_fft] complex
+// f64 as double pairs (e^{-2 pi i j / n_fft}), mel_w [n_w] f32, mel_rng
+// [M][3] int (first bin, bins, offset into mel_w), mel_grp [groups]
+// [group_size] int (filters of about equal length, -1 for none; row
+// i * warps + w: warp w's group of round i; e2e_log_mel_plan gives
+// group_size and warps) -> out [B, T, M] f32; all contiguous. n_fft is 256,
+// 512, 1024 or 2048.
+extern "C" int e2e_log_mel(const float* wav, const double* window, const double* roots, const float* mel_w,
+                           const int* mel_rng, const int* mel_grp, float* out, int B, int N, int T, int win,
+                           int shift, int n_fft, int M, int n_w, int groups, int group_size, double pre,
+                           void* stream) {
+  Args a{wav, window, reinterpret_cast<const double2*>(roots), mel_w, mel_rng, mel_grp, out,
+         N, T, win, shift, M, n_w, groups, pre, 0, 0, 0, 0};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (n_fft) {
-    case 256: return launch<128>(a, B, n_tw, group_size, s);
-    case 512: return launch<256>(a, B, n_tw, group_size, s);
-    case 1024: return launch<512>(a, B, n_tw, group_size, s);
-    case 2048: return launch<1024>(a, B, n_tw, group_size, s);
+    case 256: return launch<128>(a, B, group_size, s);
+    case 512: return launch<256>(a, B, group_size, s);
+    case 1024: return launch<512>(a, B, group_size, s);
+    case 2048: return launch<1024>(a, B, group_size, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

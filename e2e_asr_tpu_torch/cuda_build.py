@@ -141,11 +141,14 @@ def launch(name: str, fn: str, *args, defines: Sequence[str] = ()) -> None:
     the current stream.
 
     ``args`` are tensors (passed as device pointers), Python ints (passed as
-    C ``int``) or floats (passed as C ``float``); the stream goes last."""
+    C ``int``), floats (passed as C ``float``) or ``ctypes.c_double``; the
+    stream goes last."""
     lib = library(name, defines)
     cargs = []
     for a in args:
-        if isinstance(a, torch.Tensor):
+        if isinstance(a, ctypes.c_double):
+            cargs.append(a)
+        elif isinstance(a, torch.Tensor):
             cargs.append(ctypes.c_void_p(a.data_ptr()))
         elif isinstance(a, bool) or not isinstance(a, (int, float)):
             raise TypeError(f"unsupported kernel argument {type(a)}")

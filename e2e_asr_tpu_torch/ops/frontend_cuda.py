@@ -6,13 +6,15 @@ T = max(1, 1 + (N - win) // shift) frames (samples past N read as zero),
 per frame DC removal, pre-emphasis, the window, the real DFT, power, the
 mel product and the log floor -> [B, T, n_mels]. The plain version folds
 DC removal and pre-emphasis into the windowed DFT bases, as the TPU kernel
-does; the kernel applies them on the time side and runs a real FFT, from
-the tables ``kernel_tables`` builds. The source note in the .cu file says
-what bounds the kernel on the H100 and how its design answers that.
+does; the kernel applies them on the time side and runs a real FFT in
+float64, from the tables ``kernel_tables`` builds. The source note in the
+.cu file says what bounds the kernel on the H100, why it computes in
+float64 and how its design answers both.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from types import SimpleNamespace
 
@@ -46,83 +48,58 @@ def mel_ranges(fb: np.ndarray):
     return rng, np.concatenate(weights).astype(np.float32)
 
 
-def kernel_lanes(n_fft: int) -> int:
-    """Lanes that transform one frame in the kernel: 16 (two frames a warp)
-    up to n_fft 512, else 32 (``lanes_of`` in csrc/log_mel.cu)."""
-    return 16 if n_fft <= 512 else 32
+def plan(n_fft: int):
+    """(filters a group, warps a block) of the kernel's plan at ``n_fft``,
+    asked of the kernel itself (``e2e_log_mel_plan``): what the host needs
+    to build the filter groups."""
+    out = torch.zeros(2, dtype=torch.int32)
+    lib = cuda_build.library("log_mel")
+    fn = lib.e2e_log_mel_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(n_fft, out.data_ptr())
+    if err != 0:
+        raise RuntimeError(f"e2e_log_mel_plan: {lib.e2e_error_string(err).decode()}")
+    return int(out[0]), int(out[1])
 
 
-def fft_passes(n_fft: int):
-    """The kernel's Stockham passes of its n_fft / 2-point complex FFT, as
-    (NS, R): the length of the sub-transforms done before the pass and its
-    radix, 16 (or the points a lane holds, if fewer) while it divides what
-    is left, then what is left (``radix_of`` in csrc/log_mel.cu)."""
-    nc = n_fft // 2
-    rm = min(16, nc // kernel_lanes(n_fft))
-    out, ns = [], 1
-    while ns < nc:
-        r = rm if ns * rm <= nc else nc // ns
-        out.append((ns, r))
-        ns *= r
-    return out
-
-
-def pass_twiddles(n_fft: int) -> np.ndarray:
-    """The twiddles of the passes with NS > 1, in pass order, each pass's
-    e^{-2 pi i r k / (NS R)} at [r - 1][k] (r in 1..R-1, k in 0..NS-1), as
-    float pairs [n, 2]."""
-    parts = [np.exp(-2j * np.pi * np.outer(np.arange(1, r), np.arange(ns)) / (ns * r)).ravel()
-             for ns, r in fft_passes(n_fft) if ns > 1]
-    return _pairs(np.concatenate(parts))
-
-
-KERNEL_WARPS = 8  # warps a block of the kernel (``WARPS`` in csrc/log_mel.cu)
-
-
-def mel_groups(rng: np.ndarray, size: int) -> np.ndarray:
-    """The kernel's mel work, [rounds * KERNEL_WARPS, size] int32: groups of
+def mel_groups(rng: np.ndarray, size: int, warps: int) -> np.ndarray:
+    """The kernel's mel work, [rounds * warps, size] int32: groups of
     ``size`` filters of about equal length (consecutive in order of length),
     a warp summing one group's filters at a time, one filter a row of lanes.
-    Row i * KERNEL_WARPS + w is warp w's group of round i (-1: no filter):
-    the groups, longest first, each go to the warp with the fewest bins so
-    far (its groups' longest filters), so that the warps' loops are of about
+    Row i * warps + w is warp w's group of round i (-1: no filter): the
+    groups, longest first, each go to the warp with the fewest bins so far
+    (its groups' longest filters), so that the warps' loops are of about
     equal length."""
     order = sorted(range(len(rng)), key=lambda m: (-int(rng[m][1]), m))
     groups = [order[i:i + size] for i in range(0, len(order), size)]
-    load = [0] * KERNEL_WARPS
-    dealt = [[] for _ in range(KERNEL_WARPS)]
+    load = [0] * warps
+    dealt = [[] for _ in range(warps)]
     for g in groups:  # longest first
-        w = min(range(KERNEL_WARPS), key=lambda w: (load[w], w))
+        w = min(range(warps), key=lambda w: (load[w], w))
         dealt[w].append(g)
         load[w] += int(rng[g[0]][1])
     rounds = max(len(d) for d in dealt)
-    out = np.full((rounds, KERNEL_WARPS, size), -1, np.int32)
+    out = np.full((rounds, warps, size), -1, np.int32)
     for w, d in enumerate(dealt):
         for i, g in enumerate(d):
             out[i, w, :len(g)] = g
-    return out.reshape(rounds * KERNEL_WARPS, size)
-
-
-def _pairs(z: np.ndarray) -> np.ndarray:
-    return np.stack([z.real, z.imag], -1).astype(np.float32)
+    return out.reshape(rounds * warps, size)
 
 
 @functools.lru_cache(maxsize=None)
 def kernel_tables(win, n_fft, window, preemphasis, feat_dim, sample_rate, low, high):
-    """The kernel's tables, computed in float64 and rounded once to f32:
-    the window [win]; the twiddles of the n_fft / 2-point complex FFT's
-    passes (``pass_twiddles``); those of the split step, e^{-2 pi i k / n_fft}
-    for k in 0..n_fft / 4 [n_fft / 4 + 1, 2]; the mel ranges and weights
-    (``mel_ranges``) and filter groups (``mel_groups``: two filters a group
-    where 16 lanes transform a frame, four where 32 do); the pre-emphasis
-    (0 where the frontend applies none)."""
+    """The kernel's tables: the window [win] and the roots of unity
+    e^{-2 pi i j / n_fft} [n_fft, 2] in float64 (the window's values are
+    ``feature_window``'s, as the plain version's bases take them); the mel
+    ranges and float32 weights (``mel_ranges``); the pre-emphasis (0 where
+    the frontend applies none)."""
     rng, weights = mel_ranges(fe.mel_filterbank(feat_dim, n_fft, sample_rate, low, high))
+    roots = np.exp(-2j * np.pi * np.arange(n_fft) / n_fft)
     return SimpleNamespace(
-        window=fe.feature_window(window, win),
-        pass_tw=pass_twiddles(n_fft),
-        split_tw=_pairs(np.exp(-2j * np.pi * np.arange(n_fft // 4 + 1) / n_fft)),
-        mel_rng=rng, mel_w=weights, mel_grp=mel_groups(rng, kernel_lanes(n_fft) // KERNEL_WARPS),
-        pre=float(preemphasis) if preemphasis > 0 else 0.0,
+        window=fe.feature_window(window, win).astype(np.float64),
+        roots=np.stack([roots.real, roots.imag], -1),
+        mel_rng=rng, mel_w=weights, pre=float(preemphasis) if preemphasis > 0 else 0.0,
     )
 
 
@@ -136,18 +113,26 @@ def _constants(win, n_fft, window, preemphasis, feat_dim, sample_rate, low, high
     k = kernel_tables(win, n_fft, window, preemphasis, feat_dim, sample_rate, low, high)
     mel_w = k.mel_w if k.mel_w.size else np.zeros(1, np.float32)  # a filter bank of empty filters
     return SimpleNamespace(
-        wc=fe.const(wc, dev), ws=fe.const(ws, dev), fb=fe.const(fb, dev),
-        window=fe.const(k.window, dev), pass_tw=fe.const(k.pass_tw, dev), split_tw=fe.const(k.split_tw, dev),
-        mel_rng=fe.const(k.mel_rng, dev), mel_w=fe.const(mel_w, dev), mel_grp=fe.const(k.mel_grp, dev),
+        wc=fe.const(wc, dev), ws=fe.const(ws, dev), fb=fe.const(fb, dev), window=fe.const(k.window, dev),
+        roots=fe.const(k.roots, dev), mel_rng=fe.const(k.mel_rng, dev), mel_w=fe.const(mel_w, dev),
         n_w=int(k.mel_w.size), pre=k.pre,
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _groups(win, n_fft, window, preemphasis, feat_dim, sample_rate, low, high, device):
+    """Per device: the kernel's filter groups (``mel_groups`` by its ``plan``)."""
+    k = kernel_tables(win, n_fft, window, preemphasis, feat_dim, sample_rate, low, high)
+    return fe.const(mel_groups(k.mel_rng, *plan(n_fft)), torch.device(device))
+
+
+def _key(wav: torch.Tensor, cfg: AudioConfig, win: int, n_fft: int):
+    return (win, n_fft, cfg.window, float(cfg.preemphasis), cfg.feat_dim, cfg.sample_rate,
+            float(cfg.low_freq), float(cfg.high_freq), str(wav.device))
+
+
 def _bases(wav: torch.Tensor, cfg: AudioConfig, win: int, n_fft: int):
-    return _constants(
-        win, n_fft, cfg.window, float(cfg.preemphasis), cfg.feat_dim, cfg.sample_rate,
-        float(cfg.low_freq), float(cfg.high_freq), str(wav.device),
-    )
+    return _constants(*_key(wav, cfg, win, n_fft))
 
 
 def n_log_mel_frames(n: int, win: int, shift: int) -> int:
@@ -197,13 +182,14 @@ def _launch(defines, wav: torch.Tensor, cfg: AudioConfig, win: int, shift: int, 
     out = torch.empty((b, n_log_mel_frames(n, win, shift), c.fb.shape[1]), dtype=torch.float32, device=wav.device)
     if b == 0:
         return out
+    grp = _groups(*_key(wav, cfg, win, n_fft))
     if n == 0:
         wav = wav.new_zeros((b, 4))  # the one frame is all zeros either way
     if wav.data_ptr() % 16:
         wav = wav.clone()  # the kernel stages rows with 16-byte copies
     cuda_build.launch(
-        "log_mel", "e2e_log_mel", wav, c.window, c.pass_tw, c.split_tw, c.mel_w, c.mel_rng, c.mel_grp, out,
-        b, n, out.shape[1], win, shift, n_fft, c.fb.shape[1], c.n_w, c.pass_tw.shape[0], *c.mel_grp.shape, c.pre,
+        "log_mel", "e2e_log_mel", wav, c.window, c.roots, c.mel_w, c.mel_rng, grp, out,
+        b, n, out.shape[1], win, shift, n_fft, c.fb.shape[1], c.n_w, *grp.shape, ctypes.c_double(c.pre),
         defines=defines,
     )
     return out

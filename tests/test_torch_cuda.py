@@ -4,7 +4,8 @@ LSTM block), T not a multiple of the kernels' tiles, B = 1; the log-mel
 kernel with a wave shorter than one window, N not a multiple of the shift,
 a last tile of one frame, B = 32 and M = 80, n_fft 256, 512 and 2048, the
 three windows, preemphasis 0, digital silence (exactly the floor), rows
-that start off 16 bytes and the synthetic corpus's int16 waves; the beam attention step with W = 1 and 16, S = 1 to
+that start off 16 bytes and the synthetic corpus's int16 waves at M = 40
+and 80 (also against the function in float64), its plan; the beam attention step with W = 1 and 16, S = 1 to
 1100 (k and v in several tiles), enc_len of 1, B from 1 to 5, B = 64 at
 S = 764 and B = 140 (more utterances than one launch takes: launches for
 groups of them), and its plan refusing K > 16 and an S at which not even one
@@ -116,18 +117,53 @@ def test_log_mel_kernel(gen, b, n, sr, m, window, pre):
     _log_mel_check(wav, cfg, win, shift, n_fft)
 
 
+def _log_mel_f64(wav, cfg, win, shift, n_fft):
+    """The log-mel function wholly in float64 on the CPU (the frames' mean,
+    pre-emphasis and window, the library FFT, the dense mel product)."""
+    from e2e_asr_tpu_torch.ops import frontend as fe
+
+    t = fec.n_log_mel_frames(wav.shape[1], win, shift)
+    x = torch.nn.functional.pad(wav.cpu().double(), (0, max(0, (t - 1) * shift + win - wav.shape[1])))
+    d = x.unfold(-1, win, shift)[:, :t]
+    d = d - d.mean(-1, keepdim=True)
+    p = cfg.preemphasis if cfg.preemphasis > 0 else 0.0
+    y = torch.cat([(1 - p) * d[..., :1], d[..., 1:] - p * d[..., :-1]], -1)
+    y = y * torch.from_numpy(fe.feature_window(cfg.window, win)).double()
+    fb = torch.from_numpy(fe.mel_filterbank(cfg.feat_dim, n_fft, cfg.sample_rate, cfg.low_freq, cfg.high_freq))
+    return torch.log(torch.clamp((torch.fft.rfft(y, n=n_fft).abs() ** 2) @ fb.double(), min=fe.LOG_FLOOR))
+
+
+@pytest.mark.parametrize("m", [40, 80])
 @pytest.mark.parametrize("coding", ["word", "char", "formant"])
-def test_log_mel_kernel_synthetic_waves(gen, coding):
+def test_log_mel_kernel_synthetic_waves(gen, coding, m):
     """Waves of the synthetic corpus (narrow bands with quiet spectrum
     between them) quantised to int16 as the loader ships them, rows padded
-    with zeros as a bucket pads them."""
+    with zeros as a bucket pads them, at both recipes' M; the kernel's
+    float64 transform is also held within 1e-5 of the function in float64
+    (what is left: the float32 power's and mel sums' rounding)."""
     utts = corpus.synthetic(n_utts=5, seed=1, max_sec=3.0, coding=coding)
     n = max(u.n_samples for u in utts) + 211
     wav = np.zeros((len(utts), n), np.float32)
     for i, u in enumerate(utts):
         wav[i, :u.n_samples] = np.clip(u.load() * 32768.0, -32768, 32767).astype(np.int16) / 32768.0
-    cfg, win, shift, n_fft = _log_mel_cfg(16000, 40, "povey", 0.97)
-    _log_mel_check(torch.from_numpy(wav).cuda(), cfg, win, shift, n_fft)
+    cfg, win, shift, n_fft = _log_mel_cfg(16000, m, "povey", 0.97)
+    got = _log_mel_check(torch.from_numpy(wav).cuda(), cfg, win, shift, n_fft)
+    ref = _log_mel_f64(torch.from_numpy(wav), cfg, win, shift, n_fft)
+    assert float((got.cpu().double() - ref).abs().max()) < 1e-5
+
+
+def test_log_mel_plan():
+    """The kernel's plan, as the host asks it for the filter groups: a
+    group's filters fill a warp's lanes by whole frames; sizes outside the
+    kernel's are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for n_fft in (256, 512, 1024, 2048):
+        size, warps = fec.plan(n_fft)
+        assert size >= 1 and 32 % size == 0 and warps >= 1
+    for n_fft in (128, 4096, 500):
+        with pytest.raises(RuntimeError, match="e2e_log_mel_plan"):
+            fec.plan(n_fft)
 
 
 def test_log_mel_kernel_misaligned_rows(gen):

@@ -87,36 +87,36 @@ def test_dither_only_with_generator(wav_batch):
     assert not torch.equal(plain, noisy)
 
 
-# ---- the CUDA kernel's decomposition, emulated on the CPU in float32: the
-# frame's mean removed, pre-emphasis and the window on the time side; the
+# ---- the CUDA kernel's decomposition, emulated on the CPU in float64 from
+# the float32 samples to the power, as the kernel computes it: the frame's
+# mean removed, pre-emphasis and the window on the time side; the
 # n_fft-point real FFT as an n_fft / 2-point complex FFT of the even/odd
-# packed frame, by the kernel's Stockham passes (``fft_passes``) on its
-# passes' twiddle table, then the split step on its split table; each mel
-# filter summed over its bin range in increasing bin order. The kernel runs only on the card; this
-# holds its plan and its tables.
+# packed frame, by Stockham passes whose twiddles come from the roots table
+# as the kernel takes them (e^{-2 pi i r k / (NS R)} = root r k n_fft /
+# (NS R)), then the split step on the first roots; the power rounded to
+# float32 and each mel filter summed over its bin range in increasing bin
+# order in float32. The kernel runs only on the card; this holds its
+# tables. The passes here are radix 16 while 16 divides what is left, then
+# what is left: the kernel's plan is its own and tested on the card.
 
 
-def _stockham(z, pass_tw, n_fft):
-    """[..., NC] complex64 -> its DFT, pass by pass as the kernel's lane
-    groups compute it (sub-transform j = k + NS q of each pass, the pass's
-    twiddle table at [r - 1][k], radix-R DFT, autosort store)."""
+def _stockham(z, roots, n_fft):
+    """[..., NC] complex128 -> its DFT, pass by pass (sub-transform j = k +
+    NS q of each pass, radix-R DFT, autosort store)."""
     nc = z.shape[-1]
-    off = 0
-    for ns, r in frontend_cuda.fft_passes(n_fft):
+    ns = 1
+    while ns < nc:
+        r = 16 if nc % (ns * 16) == 0 else nc // ns
         j = torch.arange(nc // r)[:, None]
         rr = torch.arange(r)[None, :]
         k = j % ns
-        v = z[..., j + rr * (nc // r)]
-        if ns > 1:
-            tw = torch.cat([torch.ones(ns, dtype=torch.complex64), pass_tw[off:off + (r - 1) * ns]])
-            v = v * tw[rr * ns + k]
-            off += (r - 1) * ns
+        v = z[..., j + rr * (nc // r)] * roots[rr * k * (n_fft // (ns * r))]
         n = np.arange(r)
-        v = v @ torch.from_numpy(np.exp(-2j * np.pi * np.outer(n, n) / r).astype(np.complex64))
+        v = v @ torch.from_numpy(np.exp(-2j * np.pi * np.outer(n, n) / r))
         out = torch.empty_like(z)
         out[..., (j // ns) * ns * r + k + rr * ns] = v
         z = out
-    assert off == pass_tw.shape[0]
+        ns *= r
     return z
 
 
@@ -125,30 +125,42 @@ def _emulate(wav, tabs, win, shift, n_fft):
     b, n = wav.shape
     t = frontend_cuda.n_log_mel_frames(n, win, shift)
     x = torch.nn.functional.pad(wav, (0, max(0, (t - 1) * shift + win - n)))
-    frames = x.unfold(-1, win, shift)[:, :t]
+    frames = x.unfold(-1, win, shift)[:, :t].double()
     d = frames - frames.sum(-1, keepdim=True) / win
     prev = torch.cat([d[..., :1], d[..., :-1]], -1)  # y0 = d0 - p d0 = (1 - p) d0
     y = (d - tabs.pre * prev) * torch.from_numpy(tabs.window)
     y = torch.nn.functional.pad(y, (0, n_fft - win))
-    tw = torch.view_as_complex(torch.from_numpy(tabs.pass_tw))
-    sw = torch.view_as_complex(torch.from_numpy(tabs.split_tw))
+    roots = torch.view_as_complex(torch.from_numpy(tabs.roots).contiguous())
     nc = n_fft // 2
-    z = _stockham(torch.complex(y[..., 0::2], y[..., 1::2]), tw, n_fft)
+    z = _stockham(torch.complex(y[..., 0::2], y[..., 1::2]), roots, n_fft)
     k = torch.arange(nc // 2 + 1)
     p, q = z[..., k], z[..., (nc - k) % nc]
     ye, yo = (p + q.conj()) / 2, (p - q.conj()) / 2j
-    hi, lo = ye + sw * yo, ye - sw * yo
-    power = torch.zeros(y.shape[:-1] + (nc + 1,))
+    hi, lo = ye + roots[k] * yo, ye - roots[k] * yo
+    power = torch.zeros(y.shape[:-1] + (nc + 1,), dtype=torch.float64)
     power[..., nc - k] = lo.abs() ** 2
     power[..., k] = hi.abs() ** 2
     want = torch.fft.rfft(y).abs() ** 2
-    scale = want.amax(-1, keepdim=True).clamp_min(1e-30)
-    assert float(((power - want).abs() / scale).max()) < 1e-5  # the FFT itself
+    scale = want.amax(-1, keepdim=True).clamp_min(1e-300)
+    assert float(((power - want).abs() / scale).max()) < 1e-12  # the FFT itself
+    power = power.float()
     mel = torch.zeros(power.shape[:-1] + (len(tabs.mel_rng),))
     for m, (start, count, off) in enumerate(tabs.mel_rng):
         for i in range(count):
             mel[..., m] += power[..., start + i] * float(tabs.mel_w[off + i])
     return torch.log(torch.clamp(mel, min=tfe.LOG_FLOOR))
+
+
+def _reference(wav, tabs, fb, win, shift, n_fft):
+    """The same function wholly in float64 (the library FFT, the dense mel
+    product): what the kernel's float64 transform is held to."""
+    t = frontend_cuda.n_log_mel_frames(wav.shape[1], win, shift)
+    x = torch.nn.functional.pad(wav, (0, max(0, (t - 1) * shift + win - wav.shape[1])))
+    d = x.unfold(-1, win, shift)[:, :t].double()
+    d = d - d.mean(-1, keepdim=True)
+    y = torch.cat([(1 - tabs.pre) * d[..., :1], d[..., 1:] - tabs.pre * d[..., :-1]], -1)
+    power = torch.fft.rfft(y * torch.from_numpy(tabs.window), n=n_fft).abs() ** 2
+    return torch.log(torch.clamp(power @ torch.from_numpy(fb).double(), min=tfe.LOG_FLOOR))
 
 
 def _speechlike(rng, b, n, sr):
@@ -162,23 +174,24 @@ def _speechlike(rng, b, n, sr):
 
 
 def _check_ranges(tabs, fb):
-    """The ranges' weights are fb's nonzeros exactly; the filter groups
-    hold every filter once and are dealt to the warps about evenly."""
+    """The ranges' weights are fb's nonzeros exactly; the filter groups,
+    at either group size the kernel's plans take, hold every filter once
+    and are dealt to the warps about evenly."""
     dense = np.zeros_like(fb)
     for m, (start, count, off) in enumerate(tabs.mel_rng):
         dense[start:start + count, m] = tabs.mel_w[off:off + count]
     np.testing.assert_array_equal(dense, fb)
     assert np.count_nonzero(tabs.mel_w) == np.count_nonzero(fb)  # the padding is zeros
     assert (tabs.mel_rng[:, 2] % 4 == 0).all() and tabs.mel_w.size % 4 == 0
-    groups = tabs.mel_grp
-    assert groups.shape[1] == frontend_cuda.kernel_lanes(2 * (len(fb) - 1)) // frontend_cuda.KERNEL_WARPS
-    assert len(groups) % frontend_cuda.KERNEL_WARPS == 0
-    assert sorted(groups[groups >= 0].tolist()) == list(range(fb.shape[1]))  # each filter once
     lens = tabs.mel_rng[:, 1]
-    per_warp = [sum(int(lens[g[g >= 0]].max()) for g in groups[w::frontend_cuda.KERNEL_WARPS] if (g >= 0).any())
-                for w in range(frontend_cuda.KERNEL_WARPS)]
-    longest_group = max(int(lens[g[g >= 0]].max()) for g in groups if (g >= 0).any())
-    assert max(per_warp) <= sum(per_warp) / len(per_warp) + longest_group  # dealt about evenly
+    for size, warps in ((2, 8), (4, 8)):
+        groups = frontend_cuda.mel_groups(tabs.mel_rng, size, warps)
+        assert groups.shape[1] == size and len(groups) % warps == 0
+        assert sorted(groups[groups >= 0].tolist()) == list(range(fb.shape[1]))  # each filter once
+        per_warp = [sum(int(lens[g[g >= 0]].max()) for g in groups[w::warps] if (g >= 0).any())
+                    for w in range(warps)]
+        longest_group = max(int(lens[g[g >= 0]].max()) for g in groups if (g >= 0).any())
+        assert max(per_warp) <= sum(per_warp) / len(per_warp) + longest_group  # dealt about evenly
 
 
 @pytest.mark.parametrize("sample_rate", [16000, 8000])
@@ -191,7 +204,8 @@ def test_kernel_decomposition_matches_plain_and_pallas(window, preemphasis, feat
     win, shift = sample_rate * 25 // 1000, sample_rate * 10 // 1000
     n_fft = tfe.next_pow2(win)
     tabs = frontend_cuda.kernel_tables(win, n_fft, window, preemphasis, feat_dim, sample_rate, 20.0, 0.0)
-    _check_ranges(tabs, tfe.mel_filterbank(feat_dim, n_fft, sample_rate, 20.0, 0.0))
+    fb = tfe.mel_filterbank(feat_dim, n_fft, sample_rate, 20.0, 0.0)
+    _check_ranges(tabs, fb)
     wav = _speechlike(np.random.RandomState(feat_dim + sample_rate), 2, sample_rate // 4 + 37, sample_rate)
     got = _emulate(torch.from_numpy(wav), tabs, win, shift, n_fft)
     plain = frontend_cuda.log_mel_plain(torch.from_numpy(wav), cfg_t, win, shift, n_fft)
@@ -199,6 +213,9 @@ def test_kernel_decomposition_matches_plain_and_pallas(window, preemphasis, feat
     assert got.shape == plain.shape == pallas.shape
     np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=RTOL, atol=ATOL)
+    # the float64 transform leaves the float32 power's and mel sums' rounding
+    ref = _reference(torch.from_numpy(wav), tabs, fb, win, shift, n_fft)
+    assert float((got.double() - ref).abs().max()) < 1e-5
     first_silent = -(-(wav.shape[1] // 3) // shift)  # a frame wholly inside the silence
     floor = torch.log(torch.tensor(tfe.LOG_FLOOR, dtype=torch.float32))
     assert bool((got[:, first_silent] == floor).all()) and bool((plain[:, first_silent] == floor).all())
