@@ -27,8 +27,9 @@
    lstm_seq pair at the convergence recipe's first layer (T=816, B=32,
    H=256) and the flagship's (T=204, B=16, H=320), the forward in
    alternating rounds with cuDNN's, and a BiLSTM layer forward + backward
-   by either kernel pair at five input widths. Each LSTM forward row
-   carries its sweep's plan.
+   by either kernel pair at five input widths; the pair with one direction
+   at the LM's layer (T=256, B=32, H=512) beside a unidirectional cuDNN
+   nn.LSTM. Each LSTM forward row carries its sweep's plan.
 3. Drives the serving path: the flagship-width model from a fixed seed
    decodes 16 synthetic utterances in the 816-frame bucket (beam 16,
    ctc_weight 0.3, lm_weight 0) through ``bin/test_asr.Solver`` on the
@@ -39,7 +40,11 @@
    identical. All of this runs twice: under the default LSTM route
    (``encoder.rnn_impl`` auto: one matmul + lstm_seq) and with the
    fused-projection kernel pinned (``rnn_impl`` pallas); the two routes'
-   top-beam scores must agree too.
+   top-beam scores must agree too. Then the same batch with a seed-0 RNN-LM
+   of configs/libri/lm_example.yaml's width fused in at
+   decode_example.yaml's lm_weight 0.3 (ctc_weight 0.3), under both
+   routes with the same checks, and one batch decoded without and with the
+   LM in turns (wall, device busy time, launches).
 4. Drives the training path: the flagship at full width from seed-0
    weights trains TRAIN_STEPS steps (batch 16 in the 816-frame bucket of
    the synthetic train split) through ``bin/train_asr.Solver.exec`` and
@@ -54,6 +59,13 @@
    updated parameters, under either route; the profiler counts the device
    launches of a kernel step. Every launch count is read from counters set
    to 0 just before the run it belongs to.
+   The LM's training path: configs/libri/lm_example.yaml at full width (512
+   / 2 x 512 LSTM, tied, batch 32, Adam, clip 5) on synthetic transcripts,
+   LM_STEPS steps and one validation through ``bin/train_lm.Solver.exec``
+   (the lstm_seq pair must have launched, losses finite, no step skipped,
+   best_ppl written); one LM step with the kernels against one with the
+   plain versions (the train step's tolerances); one step timed at B=32 on
+   random ids at L=256 and L=512.
 5. Drives the convergence recipe (configs/synthetic_convergence.yaml, full
    width, BiLSTM layers through lstm_seq, tf_rate 0.8) for CONV_STEPS steps
    and one validation through ``bin/train_asr.Solver.exec``, after holding
@@ -61,7 +73,12 @@
    on the recipe's first batch (B=32, M=80): log_mel, the lstm_seq pair and
    the fused scan's pair must have launched, losses finite. With
    ``--parent DIR`` the parent's log-mel kernel runs on the randn, decode
-   and convergence waves in turns with this one.
+   and convergence waves in turns with this one. Then the shipped recipes
+   through the CLI, as shipped apart from their paths and run length:
+   ``main --lm`` on configs/synthetic_lm_conv.yaml for RECIPE_LM_STEPS
+   steps, then ``main --test`` on configs/synthetic_decode_conv.yaml with
+   the convergence checkpoint and that LM's best_ppl fused in; both must end
+   normally and the decode write output_dev.csv and output_test.csv.
 6. Prints a ``kernels`` JSON line (each row names the path its ``launches``
    were counted on), then the device JSON line last; the details go to ``--json`` (default e2e_asr_tpu_torch/_build/chip_smoke.json).
 
@@ -77,6 +94,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from contextlib import nullcontext
 from unittest import mock
 
@@ -91,6 +109,8 @@ SEED = 0
 TRAIN_STEPS = 5
 ALT_ROUNDS = 21  # rounds of a kernel against its library call in turns
 CONV_STEPS = 3
+LM_STEPS = 10  # LM training steps at lm_example.yaml's width
+RECIPE_LM_STEPS = 100  # synthetic_lm_conv.yaml's steps (it logs every 50)
 NOISE_SEED = 20261016  # the scan checks' sampled feedback
 
 
@@ -1206,7 +1226,71 @@ def lstm_seq_checks(dev):
             if k in e0:
                 out[name][k] = e0[k]
     out["lstm_seq_fwd"]["layer_routes"] = routes
+    for name, e in zip(("lstm_seq_fwd", "lstm_seq_bwd"), lm_lstm_checks(dev)):
+        out[name]["per_shape"][f"LM_T{e['t']}_B{e['b']}_H{e['h']}_dirs1"] = {
+            k: e[k] for k in ("ms", "plain_ms", "library_ms", "bound", "projection_ms", "plan", "max_abs_err")
+            if k in e}
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e["max_abs_err"])
     return out
+
+
+def lm_lstm_checks(dev):
+    """The LM's layer on the lstm_seq pair with one direction, at
+    configs/libri/lm_example.yaml's width (B=32, D=H=512) over the LibriSpeech
+    LM bucket of T=256 tokens, ragged lengths: forward and backward against
+    their plain versions, timed beside a unidirectional cuDNN nn.LSTM (its
+    projection included; the port's projection outside the kernel timed
+    apart). Returns (fwd, bwd) entries for lstm_seq_checks' per_shape."""
+    from e2e_asr_tpu_torch.ops import rnn_cuda
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    t, b, d, h = 256, 32, 512, 512
+    print(f"[kernel] lstm_seq_fwd / lstm_seq_bwd, one direction (the LM), T={t} B={b} H={h}", flush=True)
+    lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev)
+    lens[0] = t
+    x, _, wx, wh, bias = _lstm_inputs(gen, dev, t, b, d, h, lens)
+    wx, wh, bias = wx[:1], wh[:1], bias[:1]
+    m2 = (torch.arange(t, device=dev)[:, None] < lens[None, :]).float()
+    with torch.no_grad():
+        xw = (x @ wx[0] + bias[0]).contiguous()
+        got = rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True)
+        want = rnn_cuda.lstm_seq_fwd_plain(xw, m2, wh)
+        err = max(compare(f"lstm_seq_fwd LM T={t} {nm}", g, w, rtol=1e-4, atol=1e-4)
+                  for nm, g, w in zip(("ys", "c", "acts"), got, want))
+        ys, c, acts = want
+        dy = torch.randn(ys.shape, generator=gen, device=dev)
+        got_b = rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy)
+        want_b = rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy)
+        err_b = max(_scaled(f"lstm_seq_bwd LM T={t} {nm}", g, w, 1e-4)
+                    for nm, g, w in zip(("dxw", "dWh"), got_b, want_b))
+        vr = float(lens.sum())
+        io_f = 4 * (t * b * 4 * h + t * b + h * 4 * h + t * b * h * 6)
+        io_b = 4 * (t * b + h * 4 * h + t * b * h * 7 + t * b * 4 * h + h * 4 * h)
+        fwd = dict(t=t, b=b, h=h, dirs=1, max_abs_err=err, bound=bound_ms(io_f, vr * (2 * h * 4 * h + 12 * h)),
+                   ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True), 5),
+                   plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd_plain(xw, m2, wh), 2, 1),
+                   projection_ms=time_ms(lambda: x @ wx[0] + bias[0], 5), plan=_fwd_plan(b, h, dev, dirs=1))
+        bwd = dict(t=t, b=b, h=h, dirs=1, max_abs_err=err_b, bound=bound_ms(io_b, vr * (16 * h * h + 20 * h)),
+                   ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy), 5),
+                   plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy), 2, 1))
+    lstm = torch.nn.LSTM(d, h).to(dev)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(wx[0].t())
+        lstm.weight_hh_l0.copy_(wh[0].t())
+        lstm.bias_ih_l0.copy_(bias[0])
+        lstm.bias_hh_l0.zero_()
+    xg = x.clone().requires_grad_()
+    fwd["library_ms"] = time_ms(lambda: lstm(xg), 5)
+    out_lib, _ = lstm(xg)
+    lib_in = [xg] + list(lstm.parameters())
+    bwd["library_ms"] = time_ms(lambda: torch.autograd.grad(out_lib, lib_in, dy, retain_graph=True), 5)
+    for name, e in (("lstm_seq_fwd", fwd), ("lstm_seq_bwd", bwd)):
+        print(f"  {name} LM T={t} B={b} H={h} dirs 1: {e['ms']:.3f} ms (bound {e['bound'][0]:.3f}, "
+              f"{e['bound'][1]}), plain {e['plain_ms']:.2f} ms, cuDNN unidirectional nn.LSTM "
+              f"{e['library_ms']:.3f} ms (projection included)", flush=True)
+    print(f"  LM projection outside the kernel (x Wx + b): {fwd['projection_ms']:.3f} ms", flush=True)
+    return fwd, bwd
 
 
 def _check_steps(log, what):
@@ -1286,7 +1370,7 @@ def convergence_phase(dev, smi):
     print(f"convergence e2e: last step {rate:.2f} audio-s/s on {smi} (B=32, 3x256 BiLSTM on 80-dim "
           f"fbank, seed-{SEED} weights); {CONV_STEPS} steps + validation {wall:.1f}s", flush=True)
     return dict(launches=launches, steps=log, dev=dev_sum, wall_s=wall, scan_check=scan_check,
-                log_mel_check=mel_check, log_mel_wave=(wav, audio))
+                log_mel_check=mel_check, log_mel_wave=(wav, audio), ckpt=os.path.join(solver.ckpdir, "latest"))
 
 
 def train_phase(smi):
@@ -1405,12 +1489,173 @@ def train_phase(smi):
     return dict(routes=routes, sampled_steps=sampled, sampled_launches=sampled_launches, parity=parity)
 
 
-def decode_phase(solver, batch, impl, lstm_fwd, smi):
+def lm_train_phase(dev, smi):
+    """The LM's training path at configs/libri/lm_example.yaml's full width
+    (512 / 2 x 512 LSTM, tied, batch 32, Adam, clip 5) on synthetic
+    transcripts: LM_STEPS steps and one validation through
+    bin/train_lm.Solver.exec (the lstm_seq pair must have launched, losses
+    finite, no step skipped, best_ppl written); one train step with the
+    kernels against one with the plain versions from the same weights, batch
+    and dropout stream; one step timed at B=32 on random ids at L=256 and
+    L=512, the LibriSpeech LM buckets."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin import train_lm
+    from e2e_asr_tpu_torch.bin.profile_decode import lm_train_solver
+    from e2e_asr_tpu_torch.models import lm as lm_mod
+    from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_bwd, lstm_seq_fwd
+    from e2e_asr_tpu_torch.optim import Optimizer
+    from e2e_asr_tpu_torch.training.step import TrainState, param_leaves
+
+    solver = lm_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_lm"), SEED, LM_STEPS)
+    cfg = solver.config
+    lm, h = cfg.lm, cfg.hparas
+    if (lm.emb_dim, lm.dim, lm.n_layers, lm.emb_tying, lm.batch_size, h.optimizer.lower(), h.grad_clip) != (
+            512, 512, 2, True, 32, "adam", 5.0):
+        fail("the LM recipe is not at its full width")
+    launches, wall = _run_counted(solver, {"lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd},
+                                  "LM train")
+    log = list(solver.step_log)
+    if len(log) != LM_STEPS:
+        fail(f"{len(log)} LM steps ran, expected {LM_STEPS}")
+    for rec in log:
+        print(f"  LM step {rec['step']}: loss {rec['loss']:.4f} gnorm {rec['grad_norm']:.3f} "
+              f"{rec['n_tokens']:.0f} tokens in {rec['wall_s'] * 1e3:.1f} ms", flush=True)
+        if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+            fail(f"LM step {rec['step']}: the loss or the gradient norm is not finite")
+        if rec["step_skipped"] != 0.0:
+            fail(f"LM step {rec['step']} was skipped")
+    best = os.path.join(solver.ckpdir, "best_ppl")
+    if not (math.isfinite(solver.dev_ppl) and os.path.isfile(best)):
+        fail(f"LM validation: dev ppl {solver.dev_ppl}, best_ppl written {os.path.isfile(best)}")
+    print(f"LM e2e: {LM_STEPS} steps + validation {wall:.1f}s on {smi}; dev ppl {solver.dev_ppl:.3f}", flush=True)
+
+    # ---- one step with the kernels, one with the plain versions
+    batch = solver._put(next(solver.tr_set.epoch(0)))
+
+    def fresh():
+        gen = torch.Generator()
+        gen.manual_seed(SEED)
+        params = lm_mod.lm_init(gen, solver.vocab_size, lm, dev)
+        leaves = param_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        opt = Optimizer(h)
+        return TrainState(params, opt.init(leaves), 0), opt
+
+    res = {}
+    for mode in ("kernel", "plain"):
+        state, opt = fresh()
+        ctx = mock.patch.object(cuda_build, "use_plain", lambda x: True) if mode == "plain" else nullcontext()
+        with ctx:
+            m = train_lm.train_step(state, opt, lm, batch, solver.step_generator(0))
+        res[mode] = (float(m["loss"]), float(m["grad_norm"]), [p.detach().clone() for p in param_leaves(state.params)])
+    (lk, gk, pk), (lp_, gp, pp) = res["kernel"], res["plain"]
+    loss_rel, gn_rel = abs(lk - lp_) / abs(lp_), abs(gk - gp) / abs(gp)
+    p_err = max(float((a - c).abs().max()) for a, c in zip(pk, pp))
+    print(f"LM train step kernel vs plain (B={batch['text'].shape[0]}, L={batch['text'].shape[1]}): loss "
+          f"{lk:.6f} vs {lp_:.6f} (rel {loss_rel:.2e}, tolerance 1e-4); grad_norm {gk:.6f} vs {gp:.6f} (rel "
+          f"{gn_rel:.2e}, tolerance 1e-3); updated params max abs diff {p_err:.3e} (tolerance 1e-5; Adam's "
+          f"first step moves a parameter by at most lr {h.lr:g})", flush=True)
+    if not (loss_rel <= 1e-4 and gn_rel <= 1e-3 and p_err <= 1e-5):
+        fail("the kernel and plain LM train steps disagree")
+
+    # ---- one step at the LibriSpeech LM buckets, random ids, B=32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    step_ms = {}
+    for length in (256, 512):
+        text = torch.randint(1, solver.vocab_size, (32, length), generator=gen, device=dev, dtype=torch.int32)
+        b_l = {"text": text, "text_len": torch.full((32,), length, dtype=torch.int32, device=dev)}
+        state, opt = fresh()
+        times = []
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_lm.train_step(state, opt, lm, b_l, solver.step_generator(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        step_ms[length] = sorted(times[1:])[len(times[1:]) // 2]
+        print(f"LM train step B=32 L={length} (random ids, lm_example width): median {step_ms[length]:.2f} ms "
+              f"of steps 2-6 (step 1 {times[0]:.2f} ms), host clock around a synchronised step, on {smi}",
+              flush=True)
+    return dict(launches=launches, steps=log, dev_ppl=solver.dev_ppl, wall_s=wall,
+                parity=dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, param_max_abs=p_err),
+                step_ms_by_length=step_ms)
+
+
+def decode_in_turns(solvers: dict, batch) -> dict:
+    """Wall, device busy time and launches of one decoded batch for each
+    solver, in turns (a, b, b, a): ``profile_decode.profile_run``."""
+    from e2e_asr_tpu_torch.bin.profile_decode import profile_run
+
+    names = list(solvers)
+    audio_s = float(batch.wav_len.sum()) / solvers[names[0]].config.data.audio.sample_rate
+    runs = {name: [] for name in names}
+    for name in names + names[::-1]:
+        r = profile_run(lambda: solvers[name].decode_batch(batch.wav, batch.wav_len), audio_s)
+        runs[name].append({k: r[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
+                                             "audio_s_per_s")})
+        print(f"  {name}: wall {r['wall_ms']:.1f} ms, device busy {r['device_busy_ms']:.1f} ms, idle "
+              f"{r['device_idle_share']:.3f}, {r['kernel_launches']} launches, "
+              f"{r['audio_s_per_s']:.1f} audio-s/s", flush=True)
+    return runs
+
+
+def recipe_phase(conv_ckpt: str, smi):
+    """The shipped recipes as shipped apart from their paths and run length:
+    ``main --lm`` on configs/synthetic_lm_conv.yaml (max_step and valid_step
+    cut to RECIPE_LM_STEPS), then ``main --test`` on
+    configs/synthetic_decode_conv.yaml with the convergence phase's
+    checkpoint and that LM's best_ppl fused in (its lm_weight 0.3 and
+    ctc_weight 0.3): both exit normally, the decode writes output_dev.csv
+    and output_test.csv, and the kernels of each path launched."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.decode.ctc_prefix_cuda import prefix_scores_fused
+    from e2e_asr_tpu_torch.main import main as cli_main
+    from e2e_asr_tpu_torch.ops.att_step_cuda import att_step_beam_loc
+    from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
+    from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_bwd, lstm_seq_fwd
+
+    root = os.path.join(cuda_build.BUILD_DIR, "smoke_recipes")
+    lm_argv = ["--lm", "--config", "configs/synthetic_lm_conv.yaml", "-o", f"hparas.max_step={RECIPE_LM_STEPS}",
+               "-o", f"hparas.valid_step={RECIPE_LM_STEPS}", "--name", "lm_conv",
+               "--logdir", os.path.join(root, "log"), "--ckpdir", os.path.join(root, "ckpt")]
+    lm_launches, lm_wall = _run_counted(
+        types.SimpleNamespace(exec=lambda: cli_main(lm_argv)),
+        {"lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd}, "synthetic_lm_conv.yaml")
+    best = os.path.join(root, "ckpt", "lm_conv", "best_ppl")
+    if not os.path.isfile(best):
+        fail("main --lm on synthetic_lm_conv.yaml wrote no best_ppl")
+    outdir = os.path.join(root, "result")
+    dec_argv = ["--test", "--config", "configs/synthetic_decode_conv.yaml", "--load", conv_ckpt,
+                "-o", f"decode.lm_path={best}", "--name", "decode_conv", "--outdir", outdir]
+    ers = {}
+    dec_launches, dec_wall = _run_counted(
+        types.SimpleNamespace(exec=lambda: ers.update(cli_main(dec_argv))),
+        {"log_mel": log_mel, "lstm_seq_fwd": lstm_seq_fwd, "att_step_beam_loc": att_step_beam_loc,
+         "prefix_recursion": prefix_scores_fused}, "synthetic_decode_conv.yaml (LM fused)")
+    for split in ("dev", "test"):
+        path = os.path.join(outdir, "decode_conv", f"output_{split}.csv")
+        with open(path) as f:
+            rows = f.read().splitlines()
+        if len(rows) < 2:
+            fail(f"{path} holds no decoded utterance")
+    if set(ers) != {"dev", "test"} or not all(math.isfinite(v) for v in ers.values()):
+        fail(f"synthetic_decode_conv.yaml error rates {ers}")
+    print(f"recipes on {smi}: synthetic_lm_conv.yaml {RECIPE_LM_STEPS} steps + validation {lm_wall:.1f}s; "
+          f"synthetic_decode_conv.yaml with that LM fused, dev and test decoded in {dec_wall:.1f}s, cer {ers} "
+          f"(the recogniser is the convergence phase's {CONV_STEPS}-step checkpoint)", flush=True)
+    return dict(lm_launches=lm_launches, lm_wall_s=lm_wall, decode_launches=dec_launches, decode_wall_s=dec_wall,
+                error_rates=ers)
+
+
+def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
     """The dev split decoded through ``Solver.exec`` with the BiLSTM layers
     on route ``impl``, the decode kernels' launch counts set to 0 just
     before and read just after; then the same batch with the kernels and
     with the plain versions on the card: top-beam scores within rel 1e-3 and
-    identical top hypotheses."""
+    identical top hypotheses. ``tag`` names the run in what is printed
+    (the solver's lm_weight, where an LM is fused in)."""
     from torch.profiler import ProfilerActivity, profile
 
     from e2e_asr_tpu_torch import cuda_build
@@ -1427,13 +1672,13 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi):
         fn.launches = 0
     solver.exec()
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    print(f"decode path launches (rnn_impl {impl}): {launches}", flush=True)
+    print(f"decode path launches (rnn_impl {impl}{tag}): {launches}", flush=True)
     for name, cnt in launches.items():
         if cnt <= 0:
-            fail(f"kernel {name} was not launched on the decode path (rnn_impl {impl})")
+            fail(f"kernel {name} was not launched on the decode path (rnn_impl {impl}{tag})")
     st = dict(solver.stats["dev"])
     rate = st["audio_sec"] / st["wall_s"]
-    print(f"e2e (rnn_impl {impl}): {st['utts']} utts, {st['audio_sec']:.2f} audio-s in {st['wall_s']:.3f}s "
+    print(f"e2e (rnn_impl {impl}{tag}): {st['utts']} utts, {st['audio_sec']:.2f} audio-s in {st['wall_s']:.3f}s "
           f"wall = {rate:.2f} audio-s/s on {smi} (decode B=16 W=16, seed-{SEED} weights, cer {st['cer']:.3f})",
           flush=True)
 
@@ -1443,7 +1688,7 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi):
         solver.decode_batch(batch.wav, batch.wav_len)
         torch.cuda.synchronize()
     batch_launches = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"decode launches (rnn_impl {impl}): {batch_launches} a batch of {steps} beam steps, "
+    print(f"decode launches (rnn_impl {impl}{tag}): {batch_launches} a batch of {steps} beam steps, "
           f"{batch_launches / steps:.1f} a step", flush=True)
 
     # ---- the same batch with kernels and with plain versions, on the card
@@ -1460,7 +1705,7 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi):
         fail("non-finite top-beam scores")
     score_err = float(((sk - sp).abs() / sp.abs()).max())
     same = int((res_k.tokens[:, 0] == res_p.tokens[:, 0]).all(-1).sum())
-    print(f"top-beam score max rel diff kernel vs plain (rnn_impl {impl}): {score_err:.3e} (tolerance "
+    print(f"top-beam score max rel diff kernel vs plain (rnn_impl {impl}{tag}): {score_err:.3e} (tolerance "
           f"1e-3); identical top hypotheses {same}/16", flush=True)
     if score_err > 1e-3:
         fail("kernel decode and plain decode disagree on top-beam scores")
@@ -1530,9 +1775,28 @@ def main(json_path: str = "", parent: str = "") -> None:
     if route_err > 1e-3:
         fail("the two LSTM routes decode to different top-beam scores")
 
-    # ---- the training path
+    # ---- the fused decode: a seed-0 LM of lm_example.yaml's width fused in at
+    # decode_example.yaml's lm_weight 0.3, under either LSTM route; then one
+    # batch decoded without and with the LM in turns
+    lm_solver = smoke_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_lm_decode"), SEED, lm_weight=0.3)
+    if lm_solver.lm_params is None or (lm_solver.config.decode.lm_weight, lm_solver.config.decode.ctc_weight) != (
+            0.3, 0.3):
+        fail("the fused decode has no LM, or not decode_example.yaml's weights")
+    decode_lm = {impl: decode_phase(lm_solver, batch, impl, lstm_fwd, smi, tag=", lm_weight 0.3")
+                 for impl, lstm_fwd in (("auto", ("lstm_seq_fwd", lstm_seq_fwd)),
+                                        ("pallas", ("lstm_bidir_fwd", lstm_bidir_fwd)))}
+    lm_solver.config.model.encoder.rnn_impl = "auto"
+    for d in decode_lm.values():
+        d.pop("top_scores")
+        d.pop("top_tokens")
+    print(f"decode of one batch without and with the LM, in turns, on {smi} (rnn_impl auto):", flush=True)
+    decode_lm["in_turns"] = decode_in_turns({"lm_weight 0": solver, "lm_weight 0.3": lm_solver}, batch)
+
+    # ---- the training paths
     train = train_phase(smi)
+    lm_train = lm_train_phase(dev, smi)
     conv = convergence_phase(dev, smi)
+    recipes = recipe_phase(conv.pop("ckpt"), smi)
     r = kern["log_mel"]
     mel_waves["convergence_batch"] = conv.pop("log_mel_wave")
     for key, v in zip(("max_abs_err_by_wave", "cufft_max_abs_err_by_wave", "f64_max_abs_err_by_wave"),
@@ -1557,6 +1821,15 @@ def main(json_path: str = "", parent: str = "") -> None:
         ("flagship decode, rnn_impl pallas (pinned)", decode["pallas"]["launches"]),
         (f"flagship train, {TRAIN_STEPS} steps + validation, rnn_impl pallas (pinned)", tr["pallas"]["launches"]),
         ("flagship train, 2 steps at tf 0.5, rnn_impl auto (default)", train["sampled_launches"]),
+        ("flagship decode with the LM fused in (lm_weight 0.3), rnn_impl auto (default)",
+         decode_lm["auto"]["launches"]),
+        ("flagship decode with the LM fused in (lm_weight 0.3), rnn_impl pallas (pinned)",
+         decode_lm["pallas"]["launches"]),
+        (f"LM train (lm_example.yaml width), {LM_STEPS} steps + validation through bin/train_lm.Solver.exec",
+         lm_train["launches"]),
+        (f"main --lm on configs/synthetic_lm_conv.yaml, {RECIPE_LM_STEPS} steps + validation",
+         recipes["lm_launches"]),
+        ("main --test on configs/synthetic_decode_conv.yaml with that LM fused in", recipes["decode_launches"]),
     ]
     path_of = {"log_mel": 0, "att_step_beam_loc": 0, "prefix_recursion": 0, "lstm_seq_fwd": 1,
                "lstm_seq_bwd": 1, "ctc_loss": 2, "decoder_scan_fwd": 2, "decoder_scan_bwd": 2,
@@ -1583,7 +1856,8 @@ def main(json_path: str = "", parent: str = "") -> None:
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump({"card": smi, "kernels": rows, "decode": decode, "decode_routes_score_rel_diff": route_err,
-                   "train": train, "convergence": conv}, f, indent=1)
+                   "decode_lm": decode_lm, "train": train, "lm_train": lm_train, "convergence": conv,
+                   "recipes": recipes}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

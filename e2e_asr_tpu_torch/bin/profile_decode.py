@@ -1,11 +1,15 @@
 """Where the time of one flagship decode batch, or one training step, goes
 on the card.
 
-    python -m e2e_asr_tpu_torch.bin.profile_decode [--train [--scan-phases]] [--rnn-impl IMPL] [--out PATH]
+    python -m e2e_asr_tpu_torch.bin.profile_decode [--train [--scan-phases]] [--rnn-impl IMPL]
+        [--lm-weight W] [--out PATH]
 
 Decode (default): decodes the chip smoke batch (16 synthetic utterances in
 the 816-frame bucket, flagship width, seed-0 weights, beam 16, ctc_weight
-0.3, lm 0). ``--train``: one training step of the flagship
+0.3, lm_weight 0; with ``--lm-weight W`` > 0 a seed-0 RNN-LM of
+configs/libri/lm_example.yaml's width, 512-wide embedding, two 512-wide
+LSTM layers, tied output, is fused in at weight W, as
+configs/libri/decode_example.yaml fuses its LM at 0.3). ``--train``: one training step of the flagship
 (configs/libri/asr_example.yaml: Adadelta, grad_clip 5, SpecAugment on,
 ctc_weight 0.5, tf 1.0, float32) on a batch of 16 synthetic utterances in
 the 816-frame bucket, through ``bin/train_asr.Solver``'s trainer.
@@ -15,8 +19,8 @@ synchronised run, and once under ``torch.profiler``. Prints the wall time,
 the device's busy time (the sum of kernel times: one stream, so kernels do
 not overlap), its idle share of the unprofiled and of the profiled wall,
 and the kernels by device time. Writes the same as JSON to ``--out``
-(default ``e2e_asr_tpu_torch/_build/profile_decode.json`` or
-``profile_train.json``).
+(default ``e2e_asr_tpu_torch/_build/profile_decode.json``,
+``profile_decode_lm.json`` or ``profile_train.json``).
 
 ``--decode-phases`` instead splits one launch of each decode kernel into
 its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
@@ -57,15 +61,16 @@ import torch
 from e2e_asr_tpu_torch.ops.decoder_cuda import PHASE_BUILD
 
 FLAGSHIP = "configs/libri/asr_example.yaml"
+LM_RECIPE = "configs/libri/lm_example.yaml"  # the LM that decode_example.yaml fuses in
 
 
 def flagship_smoke_config(rnn_impl: str = "auto"):
     """Flagship model + audio (configs/libri/asr_example.yaml), decoded as
     configs/libri/decode_example.yaml (beam 16, batch 16, ctc_weight 0.3,
-    ctc_beam_ratio 1.5, max_len_ratio 0.6) with lm_weight 0, on 16
-    synthetic utterances that all fall in the 816-frame bucket
-    (half_batch_len above it keeps them one batch). ``rnn_impl`` routes the
-    BiLSTM layers (``encoder.rnn_impl``)."""
+    ctc_beam_ratio 1.5, max_len_ratio 0.6) with lm_weight 0 (``smoke_solver``
+    fuses an LM in), on 16 synthetic utterances that all fall in the
+    816-frame bucket (half_batch_len above it keeps them one batch).
+    ``rnn_impl`` routes the BiLSTM layers (``encoder.rnn_impl``)."""
     from e2e_asr_tpu_torch.config import Config
 
     cfg = Config.load(FLAGSHIP)
@@ -80,9 +85,27 @@ def flagship_smoke_config(rnn_impl: str = "auto"):
     return cfg
 
 
-def smoke_solver(outdir: str, seed: int = 0, rnn_impl: str = "auto"):
+def smoke_lm_checkpoint(outdir: str, vocab: int, seed: int = 0) -> str:
+    """An LM checkpoint (kind "lm") of seeded weights at LM_RECIPE's width,
+    written to ``outdir``; returns its path."""
+    from e2e_asr_tpu_torch import convert
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.models import lm as lm_mod
+
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    params = lm_mod.lm_init(gen, vocab, Config.load(LM_RECIPE).lm, torch.device("cpu"))
+    os.makedirs(outdir, exist_ok=True)
+    path = os.path.join(outdir, f"lm_seed{seed}.pt")
+    convert.save_checkpoint(path, params, vocab, 0, kind="lm")
+    return path
+
+
+def smoke_solver(outdir: str, seed: int = 0, rnn_impl: str = "auto", lm_weight: float = 0.0):
     """A test-mode Solver on the card over the smoke config, with a
-    checkpoint of seeded flagship-width weights written to ``outdir``."""
+    checkpoint of seeded flagship-width weights written to ``outdir``; with
+    ``lm_weight`` > 0 it fuses in a seeded LM of LM_RECIPE's width
+    (``smoke_lm_checkpoint``) through ``decode.lm_path`` / ``lm_config``."""
     from e2e_asr_tpu_torch import convert
     from e2e_asr_tpu_torch.bin.test_asr import Solver
     from e2e_asr_tpu_torch.data.dataset import load_eval_datasets
@@ -96,6 +119,10 @@ def smoke_solver(outdir: str, seed: int = 0, rnn_impl: str = "auto"):
     os.makedirs(outdir, exist_ok=True)
     ckpt = os.path.join(outdir, f"flagship_seed{seed}.pt")
     convert.save_checkpoint(ckpt, params, vocab, feat_dim)
+    if lm_weight > 0:
+        d = cfg.decode
+        d.lm_weight, d.lm_config = lm_weight, LM_RECIPE
+        d.lm_path = smoke_lm_checkpoint(outdir, vocab, seed)
     paras = types.SimpleNamespace(
         config=FLAGSHIP, name="smoke", outdir=outdir, load=ckpt, seed=seed, cpu=False, verbose=True,
     )
@@ -167,6 +194,30 @@ def convergence_train_solver(outdir: str, seed: int = 0, max_step: int = 3, rnn_
     return solver
 
 
+def lm_train_solver(outdir: str, seed: int = 0, max_step: int = 10):
+    """A train-mode LM Solver (bin/train_lm.py) on the card over LM_RECIPE at
+    its full width (512-wide embedding, two 512-wide LSTM layers, tied
+    output, batch 32, Adam, clip 5) on synthetic transcripts (no LibriSpeech
+    text here): 640 training and 64 dev utterances, ``max_step`` steps and
+    one validation at the last, logging every step."""
+    from e2e_asr_tpu_torch.bin.train_lm import Solver
+    from e2e_asr_tpu_torch.config import Config
+
+    cfg = Config.load(LM_RECIPE)
+    c = cfg.data.corpus
+    c.name, c.path, c.train_split, c.dev_split = "synthetic", "", ["train:640"], ["dev:64"]
+    h = cfg.hparas
+    h.max_step, h.valid_step, h.log_step, h.seed = max_step, max_step, 1, seed
+    paras = types.SimpleNamespace(
+        config=LM_RECIPE, name="smoke_lm", logdir=os.path.join(outdir, "log"),
+        ckpdir=os.path.join(outdir, "ckpt"), load=None, seed=seed, cpu=False, verbose=True,
+    )
+    solver = Solver(cfg, paras, "train")
+    solver.load_data()
+    solver.set_model()
+    return solver
+
+
 def _device_time_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
@@ -174,7 +225,7 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-def _run_fn(train: bool, rnn_impl: str):
+def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0):
     """(function that runs one unit of work, audio seconds in it)."""
     from e2e_asr_tpu_torch import cuda_build
 
@@ -188,7 +239,7 @@ def _run_fn(train: bool, rnn_impl: str):
             float(m["loss"])  # the step's own fence (the NaN/inf check already waits)
 
         return run, audio_s
-    solver = smoke_solver(os.path.join(cuda_build.BUILD_DIR, "profile"), rnn_impl=rnn_impl)
+    solver = smoke_solver(os.path.join(cuda_build.BUILD_DIR, "profile"), rnn_impl=rnn_impl, lm_weight=lm_weight)
     batch = next(solver.eval_sets["dev"].epoch())
     audio_s = float(batch.wav_len.sum()) / solver.config.data.audio.sample_rate
     return (lambda: solver.decode_batch(batch.wav, batch.wav_len)), audio_s
@@ -576,6 +627,43 @@ def print_scan_phases(split: dict) -> None:
               f"{split[w + '_ms']:.2f} (global timer step {split['timer_step_ns']:.0f} ns)", flush=True)
 
 
+def profile_run(run, audio_s: float) -> dict:
+    """``run`` once to warm up, once timed by the host clock around a
+    synchronised run, once under ``torch.profiler``: the wall, the device's
+    busy time (the sum of kernel times: one stream), idle shares, launches
+    and the kernels by device time."""
+    run()  # warm-up
+    torch.cuda.synchronize()
+
+    # wall time without the profiler, host clock around a synchronised run
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        us = _device_time_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append({"name": evt.key, "count": evt.count, "device_ms": us / 1e3})
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy_ms = sum(r["device_ms"] for r in rows)
+    return {
+        "wall_ms": wall_ms, "audio_s": audio_s, "audio_s_per_s": audio_s / (wall_ms / 1e3),
+        "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_idle_share_profiled": 1.0 - busy_ms / prof_wall_ms,
+        "kernel_launches": sum(r["count"] for r in rows), "kernels": rows,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true", help="profile one training step")
@@ -588,16 +676,20 @@ def main(argv=None):
     ap.add_argument("--cluster-sizes", default="",
                     help="with --scan-phases: comma-separated cluster sizes to split the kernels at "
                          "(default: the size the grid picks)")
+    ap.add_argument("--lm-weight", type=float, default=0.0,
+                    help="decode: fuse a seed-0 LM of configs/libri/lm_example.yaml's width at this weight")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
     args = ap.parse_args(argv)
     if args.scan_phases and not args.train:
         ap.error("--scan-phases needs --train")
+    if args.lm_weight and (args.train or args.decode_phases):
+        ap.error("--lm-weight is an option of the decode profile")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
     what = ("scan_phases" if args.scan_phases else "decode_phases" if args.decode_phases
-            else "train" if args.train else "decode")
+            else "train" if args.train else "decode_lm" if args.lm_weight else "decode")
     out = args.out or os.path.join(cuda_build.BUILD_DIR, f"profile_{what}.json")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -643,46 +735,17 @@ def main(argv=None):
         with open(out, "w") as f:
             json.dump({"card": card, "by_cluster_size": splits}, f, indent=1)
         return
-    run, audio_s = _run_fn(args.train, args.rnn_impl)
-    run()  # warm-up
-    torch.cuda.synchronize()
-
-    # wall time without the profiler, host clock around a synchronised run
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    rows = []
-    for evt in prof.key_averages():
-        us = _device_time_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows.append({"name": evt.key, "count": evt.count, "device_ms": us / 1e3})
-    rows.sort(key=lambda r: -r["device_ms"])
-    busy_ms = sum(r["device_ms"] for r in rows)
-    launches = sum(r["count"] for r in rows)
-    result = {
-        "card": card, "what": what, "rnn_impl": args.rnn_impl, "wall_ms": wall_ms, "audio_s": audio_s,
-        "audio_s_per_s": audio_s / (wall_ms / 1e3),
-        "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "device_idle_share_profiled": 1.0 - busy_ms / prof_wall_ms, "kernel_launches": launches,
-        "kernels": rows,
-    }
-    unit = "one train step (B=16)" if args.train else "decode (B=16, W=16)"
-    print(f"{card}: {unit} of {audio_s:.2f} audio-s wall {wall_ms:.1f} ms = "
+    run, audio_s = _run_fn(args.train, args.rnn_impl, args.lm_weight)
+    result = {"card": card, "what": what, "rnn_impl": args.rnn_impl, "lm_weight": args.lm_weight,
+              **profile_run(run, audio_s)}
+    unit = ("one train step (B=16)" if args.train
+            else f"decode (B=16, W=16, lm_weight {args.lm_weight:g})")
+    print(f"{card}: {unit} of {audio_s:.2f} audio-s wall {result['wall_ms']:.1f} ms = "
           f"{result['audio_s_per_s']:.1f} audio-s/s")
-    print(f"profiled: wall {prof_wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
-          f"{result['device_idle_share']:.3f} of the unprofiled wall "
-          f"({result['device_idle_share_profiled']:.3f} profiled), {launches} kernel launches")
-    for r in rows[:25]:
+    print(f"profiled: wall {result['profiled_wall_ms']:.1f} ms, device busy {result['device_busy_ms']:.1f} ms, "
+          f"idle share {result['device_idle_share']:.3f} of the unprofiled wall "
+          f"({result['device_idle_share_profiled']:.3f} profiled), {result['kernel_launches']} kernel launches")
+    for r in result["kernels"][:25]:
         print(f"  {r['device_ms']:9.3f} ms  {r['count']:6d}x  {r['name'][:100]}")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:

@@ -2,7 +2,10 @@
 
 Counterpart of ``e2e_asr_tpu/bin/test_asr.py``. Each eval batch goes
 through ``compute_features`` then ``beam_search`` on the chosen device, one
-bucket shape per batch. Writes <outdir>/<name>/output_{split}.csv (best
+bucket shape per batch. With ``decode.lm_weight`` > 0 the RNN-LM checkpoint
+``decode.lm_path`` (``bin/train_lm.py``; its ``lm`` section from the
+``decode.lm_config`` yaml, else this config's) is fused into the beam
+search. Writes <outdir>/<name>/output_{split}.csv (best
 hypothesis vs truth per utterance) and beam_{split}.csv (every beam), with
 the JAX package's columns, and reports the split's error rate and decoded
 audio-seconds per second.
@@ -71,8 +74,6 @@ class Solver:
         self.verbose(msg)
 
     def set_model(self):
-        if self.config.decode.lm_weight > 0:
-            raise NotImplementedError("RNN-LM shallow fusion: later slice")
         payload = convert.load_checkpoint(self.ckpt, self.device)
         if (payload["vocab_size"], payload["feat_dim"]) != (self.vocab_size, self.feat_dim):
             raise ValueError(
@@ -81,6 +82,18 @@ class Solver:
             )
         self.params = payload["params"]
         self.verbose(f"Loaded ASR ckpt from {self.ckpt} on {self.device}")
+        self.lm_params, self.lm_cfg = None, None
+        dcfg = self.config.decode
+        if dcfg.lm_weight > 0:
+            if not dcfg.lm_path:
+                raise ValueError("decode.lm_weight > 0 needs decode.lm_path (an LM checkpoint)")
+            self.lm_cfg = Config.load(dcfg.lm_config).lm if dcfg.lm_config else self.config.lm
+            lm = convert.load_checkpoint(dcfg.lm_path, self.device, kind="lm")
+            if lm["vocab_size"] != self.vocab_size:
+                raise ValueError(f"LM checkpoint {dcfg.lm_path} has vocabulary size {lm['vocab_size']}, "
+                                 f"the recogniser's tokenizer {self.vocab_size}")
+            self.lm_params = lm["params"]
+            self.verbose(f"Loaded RNNLM from {dcfg.lm_path} for shallow fusion (w={dcfg.lm_weight})")
         if self.device.type == "cuda":
             t0 = time.time()
             cuda_build.build_all()
@@ -101,7 +114,7 @@ class Solver:
         feat, feat_len = compute_features(wav_t, len_t, self.config.data.audio)
         return beam_search(
             self.params, self.config.model, self.config.decode, feat, feat_len,
-            self.max_step_for(wav.shape[1]),
+            self.max_step_for(wav.shape[1]), lm_params=self.lm_params, lm_cfg=self.lm_cfg,
         )
 
     def exec(self):

@@ -1,9 +1,11 @@
 """Carry JAX parameters over to the port, and port checkpoints on disk.
 
 ``params_from_jax`` takes the ``e2e_asr_tpu/models/asr.py`` ``asr_init``
-pytree as numpy arrays (``jax.device_get`` of it; LSTM weights may be the
-JAX ``LSTMWeights`` named tuple or any ``(wx, wh, b)`` triple) and returns
-the port's parameter tree. Layouts that change:
+pytree, or the ``e2e_asr_tpu/models/lm.py`` ``lm_init`` one (the RNN-LM:
+embedding, a list of ``LSTMWeights`` cells, ``out`` or the tied
+``out_proj``), as numpy arrays (``jax.device_get`` of it; LSTM weights may
+be the JAX ``LSTMWeights`` named tuple or any ``(wx, wh, b)`` triple) and
+returns the port's parameter tree. Layouts that change:
 
 - conv2d ``w``: HWIO (NHWC activations) -> OIHW (NCHW);
 - ``loc_conv.w``: [P, heads, K] (TIO) -> [K, heads, P] (OIW);
@@ -11,10 +13,13 @@ the port's parameter tree. Layouts that change:
   order i,f,g,o unchanged;
 - dense ``w [in, out]``, embeddings and vectors are kept as they are.
 
-The port's checkpoint is ``torch.save({"params": tree, "vocab_size",
-"feat_dim"})``; a training checkpoint adds ``opt_state`` and ``step``.
-``bin/test_asr.py`` reads either with ``load_checkpoint`` and uses only
-``params``.
+The port's checkpoint is ``torch.save({"params": tree, "kind",
+"vocab_size", "feat_dim"})``; a training checkpoint adds ``opt_state`` and
+``step``. ``kind`` says whose parameters they are: ``"asr"`` (the
+recogniser; a checkpoint without the field is one) or ``"lm"`` (the RNN-LM
+of ``bin/train_lm.py``, whose ``feat_dim`` is 0: it takes no audio).
+``bin/test_asr.py`` reads both with ``load_checkpoint``, checks the kind
+and the vocabulary size and uses only ``params``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,9 @@ from typing import Any
 
 import numpy as np
 import torch
+
+
+CHECKPOINT_KINDS = ("asr", "lm")
 
 
 def _tensor(x) -> torch.Tensor:
@@ -62,17 +70,26 @@ def params_to(tree: Any, device: torch.device) -> Any:
     return tree
 
 
-def save_checkpoint(path: str, params: Any, vocab_size: int, feat_dim: int, **extra) -> None:
+def save_checkpoint(path: str, params: Any, vocab_size: int, feat_dim: int, kind: str = "asr",
+                    **extra) -> None:
     """``extra`` (a training run's ``opt_state`` and ``step``) is saved beside
     the parameters."""
+    if kind not in CHECKPOINT_KINDS:
+        raise ValueError(f"checkpoint kind must be one of {CHECKPOINT_KINDS}, got {kind!r}")
     cpu = torch.device("cpu")
-    payload = {"params": params_to(params, cpu), "vocab_size": vocab_size, "feat_dim": feat_dim}
+    payload = {"params": params_to(params, cpu), "kind": kind, "vocab_size": vocab_size,
+               "feat_dim": feat_dim}
     payload.update({k: params_to(v, cpu) for k, v in extra.items()})
     torch.save(payload, path)
 
 
-def load_checkpoint(path: str, device: torch.device) -> dict:
+def load_checkpoint(path: str, device: torch.device, kind: str = "asr") -> dict:
+    """The payload with its tensors on ``device``; raises unless the
+    checkpoint is of ``kind``."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
+    found = payload.get("kind", "asr")
+    if found != kind:
+        raise ValueError(f"{path} is a checkpoint of kind {found!r}, not {kind!r}")
     for key in ("params", "opt_state"):
         if key in payload:
             payload[key] = params_to(payload[key], device)

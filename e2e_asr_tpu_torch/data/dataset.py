@@ -6,10 +6,10 @@ to its bucket's (samples, tokens) shape), the HALF_BATCHSIZE_AUDIO_LEN
 rule, ``batch_shapes()``, the training schedule (batch order shuffled per
 epoch with ``RandomState(seed + epoch)``, a length-ascending curriculum
 epoch, ``forever(skip_steps)`` to replay a resumed run's data) and
-``load_dataset`` / ``load_eval_datasets``. Batches are materialised on the
-calling thread. The device-resident corpus, the prefetch threads,
-multi-process row blocks and LM text batches of the JAX package are not
-ported yet (ROADMAP).
+``load_dataset`` / ``load_eval_datasets``, and ``TextLoader``, the LM's
+text batches. Batches are materialised on the calling thread. The
+device-resident corpus, the prefetch threads and the audio loader's
+multi-process row blocks of the JAX package are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -170,6 +170,86 @@ class BucketedLoader:
         while True:
             yield from self.epoch(e, ascending=(e < curriculum_epochs), skip_first=skip)
             skip = 0
+            e += 1
+
+
+class TextLoader:
+    """LM batches in fixed-shape token buckets (the JAX ``TextLoader``).
+
+    Each utterance's ids (with <eos>) go to the first bucket that holds
+    them (longer ones are dropped); within a bucket, sorted by length, runs
+    of ``batch_size`` make the batches. Every batch of a bucket is padded to
+    the bucket's largest batch, rounded up to a multiple of
+    ``process_count``, and process ``process_index`` takes its block of
+    rows, so that every process sees the same number of batches of the
+    same shapes. ``epoch(e)`` shuffles the batch order with
+    ``RandomState(seed + e)`` when ``shuffle``."""
+
+    def __init__(
+        self,
+        utts: List[corpus_mod.Utterance],
+        tokenizer: text_mod.TextEncoder,
+        batch_size: int,
+        token_buckets: Sequence[int] = (32, 64, 128, 256, 512),
+        shuffle: bool = True,
+        seed: int = 0,
+        process_index: int = 0,
+        process_count: int = 1,
+    ):
+        self.process_index = process_index
+        self.process_count = process_count
+        self.token_buckets = list(token_buckets)
+        items: List[Tuple[List[int], int]] = []
+        for u in utts:
+            ids = tokenizer.encode(u.text)
+            for i, tb in enumerate(self.token_buckets):
+                if len(ids) <= tb:
+                    items.append((ids, i))
+                    break
+        items.sort(key=lambda it: len(it[0]))
+        per_bucket: Dict[int, List[List[int]]] = {}
+        for ids, bi in items:
+            per_bucket.setdefault(bi, []).append(ids)
+        self._batches: List[Tuple[int, List[List[int]]]] = []
+        for bi, seqs in sorted(per_bucket.items()):
+            for s in range(0, len(seqs), batch_size):
+                self._batches.append((bi, seqs[s : s + batch_size]))
+        self.shuffle = shuffle
+        self.seed = seed
+        self.batch_size = batch_size
+        self._pad_bs: Dict[int, int] = {}
+        for bi, seqs in self._batches:
+            self._pad_bs[bi] = max(self._pad_bs.get(bi, 0), len(seqs))
+        for bi in self._pad_bs:
+            self._pad_bs[bi] = ((self._pad_bs[bi] + process_count - 1) // process_count) * process_count
+
+    def __len__(self) -> int:
+        return len(self._batches)
+
+    def epoch(self, epoch_idx: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """{"text": [B, L] int32 (0-padded), "text_len": [B] int32} per batch."""
+        order = list(range(len(self._batches)))
+        if self.shuffle:
+            np.random.RandomState(self.seed + epoch_idx).shuffle(order)
+        for oi in order:
+            bi, seqs = self._batches[oi]
+            b = self._pad_bs[bi]
+            if self.process_count > 1:
+                rpp = b // self.process_count
+                seqs = seqs[self.process_index * rpp : (self.process_index + 1) * rpp]
+                b = rpp
+            length = self.token_buckets[bi]
+            txt = np.zeros((b, length), np.int32)
+            txt_len = np.zeros((b,), np.int32)
+            for j, ids in enumerate(seqs):
+                txt[j, : len(ids)] = ids[:length]
+                txt_len[j] = min(len(ids), length)
+            yield {"text": txt, "text_len": txt_len}
+
+    def forever(self) -> Iterator[Dict[str, np.ndarray]]:
+        e = 0
+        while True:
+            yield from self.epoch(e)
             e += 1
 
 

@@ -1,18 +1,21 @@
-"""Batched hybrid CTC/attention beam search with a fixed-shape masked beam.
+"""Batched hybrid CTC/attention/LM beam search with a fixed-shape masked beam.
 
 Counterpart of ``e2e_asr_tpu/decode/beam.py`` ``beam_search`` as a Python
 loop over ``max_step`` (the JAX package scans it). Every step advances all
 (batch x beam) hypotheses at once: the beam-aware attention step
-(models/attention.py ``step_beam``), the speller, top-k candidates, CTC
+(models/attention.py ``step_beam``), the speller, with ``lm_weight`` > 0
+and an LM the RNN-LM's step (models/lm.py ``step``), top-k candidates, CTC
 prefix rescoring (decode/ctc_prefix.py), finished-set routing of <eos>
 candidates inside the length window, pruning to W live hypotheses, and the
 per-utterance freeze once an utterance's window has closed.
 
-Score semantics: per-step candidate score is the attention log-prob; with
-ctc_weight w the top ``int(beam * ctc_beam_ratio)`` candidates are
-prefix-rescored and the running total is (1-w)*att + w*psi_ctc (kept
-additive through per-step psi deltas); finished hypotheses are ranked by
-length-normalized score. RNN-LM shallow fusion comes with a later slice.
+Score semantics: per-step candidate score is att_log_prob + lm_weight *
+lm_log_prob (shallow fusion, added before the top-k); with ctc_weight w the
+top ``int(beam * ctc_beam_ratio)`` candidates are prefix-rescored and the
+running total is (1-w)*(att+lm) + w*psi_ctc (kept additive through per-step
+psi deltas); finished hypotheses are ranked by length-normalized score. The
+LM's state follows its hypothesis through the pruning and freezes with the
+utterance, as the speller's does; its step makes no host synchronisation.
 
 Behaviours copied from the JAX package on purpose (not faults):
 
@@ -31,17 +34,18 @@ Behaviours copied from the JAX package on purpose (not faults):
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
-from e2e_asr_tpu_torch.config import DecodeConfig, ModelConfig
+from e2e_asr_tpu_torch.config import DecodeConfig, LMConfig, ModelConfig
 from e2e_asr_tpu_torch.data.text import EOS_ID
 from e2e_asr_tpu_torch.decode import ctc_prefix
 from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.models import attention as att_mod
 from e2e_asr_tpu_torch.models import decoder as dec_mod
 from e2e_asr_tpu_torch.models import layers as L
+from e2e_asr_tpu_torch.models import lm as lm_mod
 
 NEG = -1.0e30
 
@@ -64,15 +68,21 @@ def _gather_beams(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[rows, idx]
 
 
+def follow_parents(new, old, flat_parent: torch.Tensor, act_bw: torch.Tensor):
+    """A recurrent (h, c) state [layers, B*W, H] after pruning: each
+    surviving hypothesis takes its parent's new state (``flat_parent`` [B*W]),
+    and rows of a frozen utterance (``act_bw`` False) keep ``old``."""
+    return tuple(torch.where(act_bw[None, :, None], n[:, flat_parent], o) for n, o in zip(new, old))
+
+
 def beam_search(
     params, cfg: ModelConfig, dcfg: DecodeConfig, feat: torch.Tensor, feat_len: torch.Tensor,
-    max_step: int,
+    max_step: int, lm_params=None, lm_cfg: Optional[LMConfig] = None,
 ) -> BeamResult:
-    if dcfg.lm_weight > 0:
-        raise NotImplementedError("RNN-LM shallow fusion: later slice")
     if cfg.emb_reg.enable and cfg.emb_reg.fuse > 0:
         raise NotImplementedError("embedding-regularizer fused decoding: later slice")
     w = dcfg.beam_size
+    use_lm = dcfg.lm_weight > 0 and lm_params is not None
     use_ctc = dcfg.ctc_weight > 0 and "ctc" in params
     dev = feat.device
 
@@ -93,6 +103,7 @@ def beam_search(
     tokens = torch.zeros((b, w, max_step), dtype=torch.long, device=dev)
     scores = torch.where(torch.arange(w, device=dev)[None, :] == 0, 0.0, NEG).expand(b, w).float()
     dec_state = dec_mod.init_state(b * w, cfg.decoder, dev)
+    lm_state = lm_mod.init_state(b * w, lm_cfg, dev) if use_lm else None
     prev_tok = torch.zeros((b, w), dtype=torch.long, device=dev)
     r_g = (
         ctc_prefix.init_empty_prefix(ctc_lp, enc_len, w)
@@ -120,6 +131,9 @@ def beam_search(
             params["decoder"], cfg.decoder, dec_state, torch.cat([emb, ctx], -1)
         )
         step_lp = torch.log_softmax(logits, -1).reshape(b, w, vocab)
+        if use_lm:
+            lm_lp, new_lm_state = lm_mod.step(lm_params, lm_cfg, tok_flat, lm_state)
+            step_lp = step_lp + dcfg.lm_weight * lm_lp.reshape(b, w, vocab)
 
         # ---- candidate set + mixed scores
         if use_ctc:
@@ -165,8 +179,6 @@ def beam_search(
         new_tokens[:, :, t] = tok
 
         flat_parent = (parent + rows * w).reshape(-1)
-        h, c = new_dec_state
-        new_dec = (h[:, flat_parent], c[:, flat_parent])
         new_prev_att = align[flat_parent]
         if use_ctc:
             new_r_g = r_h[rows, parent, live_idx % k_cand]  # [B, W, T, 2]
@@ -184,10 +196,10 @@ def beam_search(
         act_bw = active.repeat_interleave(w)  # [B*W]
         tokens = torch.where(a2, new_tokens, tokens)
         scores = torch.where(a1, top_live, scores)
-        dec_state = tuple(
-            torch.where(act_bw[None, :, None], n, o) for n, o in zip(new_dec, dec_state)
-        )
+        dec_state = follow_parents(new_dec_state, dec_state, flat_parent, act_bw)
         prev_att = torch.where(act_bw[:, None, None], new_prev_att, prev_att)
+        if use_lm:
+            lm_state = follow_parents(new_lm_state, lm_state, flat_parent, act_bw)
         prev_tok = torch.where(a1, tok, prev_tok)
         r_g = torch.where(active[:, None, None, None], new_r_g, r_g)
         psi_g = torch.where(a1, new_psi, psi_g)

@@ -5,10 +5,14 @@
         [--no-auto-resume] [-o KEY=VAL ...] [--cpu]
     python -m e2e_asr_tpu_torch.main --config cfg.yaml --test --load ckpt
         [--name exp] [--outdir result/] [-o KEY=VAL ...] [--cpu]
+    python -m e2e_asr_tpu_torch.main --config lm.yaml --lm        # train the RNN-LM
+        [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt] [-o KEY=VAL ...] [--cpu]
 
 Training and decoding run on the card unless ``--cpu`` is given (without
-CUDA and without ``--cpu`` they raise). ``--lm`` comes with a later slice of
-the port and raises ``NotImplementedError``.
+CUDA and without ``--cpu`` they raise). ``--lm`` trains the LM that a decode
+config fuses in (``decode.lm_weight``, ``decode.lm_path``); ``--lm --test``
+raises, as in the JAX package (the LM's dev perplexity is part of its
+training logs).
 """
 
 from __future__ import annotations
@@ -66,8 +70,12 @@ def main(argv=None):
     paras.verbose = not paras.no_msg
     np.random.seed(paras.seed)
     if paras.lm:
-        raise NotImplementedError("RNN-LM task: later slice")
-    if paras.test:
+        if paras.test:
+            raise ValueError("--lm --test: LM evaluation is part of --lm training (dev perplexity)")
+        from e2e_asr_tpu_torch.bin.train_lm import Solver
+
+        mode = "train"
+    elif paras.test:
         from e2e_asr_tpu_torch.bin.test_asr import Solver
 
         mode = "test"

@@ -11,7 +11,8 @@ the kernel, when autograd records (grad enabled and an input needs grad)
 the training forward and the backward kernel through ``lstm_bidir_train``,
 otherwise the inference kernel ``lstm_bidir_fwd``; or ``lstm_seq`` over
 projections computed outside (each the hand-written kernel on CUDA
-tensors).
+tensors). ``lstm`` is one direction over a padded batch (the LM's
+layers), through ``lstm_seq`` with one direction.
 """
 
 from __future__ import annotations
@@ -85,3 +86,19 @@ def bidir(
     y_f = ys[:, :b].transpose(0, 1)
     y_b = torch.flip(ys[:, b:], dims=[0]).transpose(0, 1)
     return torch.cat([y_f, y_b], dim=-1)
+
+
+def lstm(x: torch.Tensor, x_len: torch.Tensor, w: LSTMWeights) -> torch.Tensor:
+    """[B, T, D] -> [B, T, H], one direction, zero past x_len.
+
+    xw = x @ Wx + b for every step is one matmul outside the recurrence (as
+    the JAX ``lstm`` hoists it), computed time-major; the recurrence is
+    ``lstm_seq`` with one direction: on CUDA tensors the kernel pair (a
+    shape it refuses raises, e.g. H not a multiple of 8 or above 1024), on
+    CPU tensors their plain versions. The JAX ``lstm`` also returns the
+    final carry (h_T, c_T) and takes ``reverse``, ``h0`` and ``c0``: the LM
+    uses none of them, so they are left out."""
+    t = x.shape[1]
+    mask = (torch.arange(t, device=x.device)[:, None] < x_len[None, :]).float()  # [T, B]
+    xw = x.transpose(0, 1) @ w["wx"] + w["b"]  # [T, B, 4H]
+    return lstm_seq(xw, mask, w["wh"][None]).transpose(0, 1)

@@ -4,8 +4,10 @@ Counterpart of ``e2e_asr_tpu/solver.py``. Experiment ``<name>`` (default:
 the config's file name + ``_sd<seed>``) writes its logs under
 ``<logdir>/<name>`` and its checkpoints under ``<ckpdir>/<name>``.
 Checkpoints are ``torch.save`` files of ``{params, opt_state, step}`` (plus
-the vocabulary size and feature dim that ``bin/test_asr.py`` checks) named
-``best_att``, ``best_ctc`` and ``latest``, each with a ``.meta`` text file
+the kind, ``ckpt_kind``, and the vocabulary size and feature dim that
+``bin/test_asr.py`` checks; ``convert.save_checkpoint``) named
+``best_att``, ``best_ctc`` and ``latest`` (the LM: ``best_ppl`` and
+``latest``), each with a ``.meta`` text file
 (``<metric> <score>`` and ``global_step <n>``). Scalars go to
 ``<logdir>/<name>/scalars.jsonl``, one JSON object per line (the JAX
 package's tensorboard tags; no tensorboard writer is needed).
@@ -22,6 +24,8 @@ from e2e_asr_tpu_torch import convert
 
 
 class BaseSolver:
+    ckpt_kind = "asr"  # convert.save_checkpoint's kind
+
     def __init__(self, config, paras, mode: str):
         self.config = config
         self.paras = paras
@@ -55,7 +59,7 @@ class BaseSolver:
     def save_checkpoint(self, fname: str, metric: str, score: float, state) -> None:
         path = os.path.join(self.ckpdir, fname)
         tmp = path + ".tmp"
-        convert.save_checkpoint(tmp, state.params, self.vocab_size, self.feat_dim,
+        convert.save_checkpoint(tmp, state.params, self.vocab_size, self.feat_dim, kind=self.ckpt_kind,
                                 opt_state=state.opt_state, step=state.step)
         os.replace(tmp, path)
         with open(path + ".meta", "w") as f:

@@ -114,6 +114,32 @@ class TrainState:
     step: int
 
 
+def update_step(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch.Tensor]:
+    """One update of ``state`` in place from ``loss_fn(params) -> (loss,
+    metrics)``: gradients, their global norm, the NaN/inf skip (the step's
+    one host synchronisation) and, where both are finite, clip and update.
+    Returns the metrics (detached) with the pre-clip ``grad_norm``,
+    ``step_skipped`` and ``device_wait_s`` (host seconds spent waiting for
+    the device at the finiteness check)."""
+    leaves = param_leaves(state.params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(state.params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    loss = loss.detach()
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    g_norm = global_norm(grads)
+    metrics["grad_norm"] = g_norm
+    t0 = time.perf_counter()
+    ok = bool(torch.isfinite(loss) & torch.isfinite(g_norm))
+    metrics["device_wait_s"] = torch.tensor(time.perf_counter() - t0)
+    metrics["step_skipped"] = torch.tensor(0.0 if ok else 1.0)
+    if ok:
+        opt.update(leaves, grads, state.opt_state, g_norm)
+    state.step += 1
+    return metrics
+
+
 class Trainer:
     """``train_step`` / ``eval_step`` over one parameter tree (the
     counterpart of ``make_train_step`` / ``make_eval_step``)."""
@@ -134,26 +160,10 @@ class Trainer:
         (host seconds spent waiting for the device at the finiteness
         check)."""
         tf = tf_rate(self.cfg.hparas, state.step)
-        leaves = param_leaves(state.params)
-        with torch.enable_grad():
-            loss, metrics = compute_loss(
-                state.params, self.cfg, batch["wav"], batch["wav_len"], batch["text"],
-                batch["text_len"], tf, generator, train=True, sample_decoding=sample_decoding,
-            )
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        loss = loss.detach()
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        g_norm = global_norm(grads)
-        metrics["grad_norm"] = g_norm
+        metrics = update_step(state, self.opt, lambda params: compute_loss(
+            params, self.cfg, batch["wav"], batch["wav_len"], batch["text"], batch["text_len"], tf,
+            generator, train=True, sample_decoding=sample_decoding))
         metrics["tf_rate"] = torch.tensor(tf)
-        t0 = time.perf_counter()
-        ok = bool(torch.isfinite(loss) & torch.isfinite(g_norm))
-        metrics["device_wait_s"] = torch.tensor(time.perf_counter() - t0)
-        metrics["step_skipped"] = torch.tensor(0.0 if ok else 1.0)
-        if ok:
-            self.opt.update(leaves, grads, state.opt_state, g_norm)
-        state.step += 1
         return metrics
 
     @torch.no_grad()

@@ -19,11 +19,13 @@ from e2e_asr_tpu.config import Config as JConfig
 from e2e_asr_tpu.models import asr as jasr
 from e2e_asr_tpu_torch import convert, cuda_build
 from e2e_asr_tpu_torch.config import AudioConfig
+from e2e_asr_tpu_torch.config import Config as TConfig
 from e2e_asr_tpu_torch.data import corpus
 from e2e_asr_tpu_torch.data.dataset import build_tokenizer
 from e2e_asr_tpu_torch.decode import ctc_prefix, ctc_prefix_cuda
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.main import main as cli_main
+from e2e_asr_tpu_torch.models import lm as lm_mod
 from e2e_asr_tpu_torch.ops import att_step_cuda, ctc_cuda, decoder_cuda, frontend_cuda, rnn_cuda
 from tests.torch_parity import small_config
 
@@ -75,10 +77,12 @@ def test_port_imports_nothing_of_jax():
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, check=True, timeout=120)
 
 
-def test_decode_cli_on_cpu(tmp_path):
-    """main --test --cpu on the shipped configs/synthetic_decode.yaml (splits
-    shrunk, src pointed at a small training config) with a checkpoint that
-    convert.py wrote from JAX weights: both CSVs for both splits."""
+def _decode_setup(tmp_path, n_eval=4):
+    """(decode yaml, ASR checkpoint, vocabulary size):
+    configs/synthetic_decode.yaml with its splits shrunk (``n_eval``
+    utterances each for dev and test) and src pointed at a small training
+    config, and a checkpoint that convert.py wrote from JAX weights
+    (tokenizer of train:16)."""
     train_d = small_config()
     train_d["data"] = {
         "corpus": {"name": "synthetic", "train_split": ["train:16"]},
@@ -89,21 +93,24 @@ def test_decode_cli_on_cpu(tmp_path):
     train_yaml.write_text(yaml.safe_dump(train_d))
     with open(os.path.join(ROOT, "configs", "synthetic_decode.yaml")) as f:
         d = yaml.safe_load(f)
-    d["data"]["corpus"].update(
-        train_split=["train:16"], dev_split=["dev:6"], test_split=["test:6"],
-        buckets=[416], token_buckets=[48],
-    )
+    d["data"]["corpus"].update(train_split=["train:16"], dev_split=[f"dev:{n_eval}"],
+                               test_split=[f"test:{n_eval}"], buckets=[416], token_buckets=[48])
     d["src"] = {"ckpt": "", "config": str(train_yaml)}
     d["decode"].update(beam_size=2, batch_size=2, max_len_ratio=0.3)
     decode_yaml = tmp_path / "decode.yaml"
     decode_yaml.write_text(yaml.safe_dump(d))
-
     tok = build_tokenizer(JConfig.from_dict(train_d).data, corpus.load_corpus("synthetic", "", ["train:16"]))
-    jcfg = JConfig.from_dict(train_d)
-    jp, _ = jasr.asr_init(jax.random.PRNGKey(0), 40, tok.vocab_size, jcfg.model)
+    jp, _ = jasr.asr_init(jax.random.PRNGKey(0), 40, tok.vocab_size, JConfig.from_dict(train_d).model)
     ckpt = str(tmp_path / "asr.pt")
     convert.save_checkpoint(ckpt, convert.params_from_jax(jax.device_get(jp)), tok.vocab_size, 40)
+    return decode_yaml, ckpt, tok.vocab_size
 
+
+def test_decode_cli_on_cpu(tmp_path):
+    """main --test --cpu on the shipped configs/synthetic_decode.yaml (splits
+    shrunk, src pointed at a small training config) with a checkpoint that
+    convert.py wrote from JAX weights: both CSVs for both splits."""
+    decode_yaml, ckpt, _ = _decode_setup(tmp_path, n_eval=6)
     out = tmp_path / "res"
     ers = cli_main(["--config", str(decode_yaml), "--test", "--cpu", "--load", ckpt,
                     "--name", "port", "--outdir", str(out), "--no-msg"])
@@ -214,11 +221,75 @@ def test_train_cli_routes_fused_scan_and_lstm_seq(tmp_path, monkeypatch):
     assert calls["scan"] >= 2 and calls["seq"] == seq  # 'pallas': the fused-projection pair
 
 
+def _tiny_lm_yaml(tmp_path):
+    """configs/synthetic_lm.yaml's recipe at test size, on the decode
+    setup's train split (so that the two tokenizers agree)."""
+    with open(os.path.join(ROOT, "configs", "synthetic_lm.yaml")) as f:
+        d = yaml.safe_load(f)
+    d["data"]["corpus"].update(train_split=["train:16"], dev_split=["dev:4"])
+    d["hparas"].update(max_step=4, valid_step=4, log_step=2)
+    d["lm"].update(emb_dim=16, dim=24, n_layers=2, batch_size=4)
+    path = tmp_path / "lm.yaml"
+    path.write_text(yaml.safe_dump(d))
+    return path
+
+
+def test_lm_cli_on_cpu_then_fused_decode(tmp_path):
+    """main --lm --cpu trains a tiny LM (best_ppl, latest, tokenizer.vocab
+    and the lm_loss / lm_ppl / dev_ppl scalars); main --test --cpu with -o
+    decode.lm_weight=0.3 -o decode.lm_path=<best_ppl> fuses it into the
+    beam search and writes both splits' csvs."""
+    decode_yaml, ckpt, _ = _decode_setup(tmp_path)
+    lm_yaml = _tiny_lm_yaml(tmp_path)
+    cli_main(["--config", str(lm_yaml), "--lm", "--cpu", "--name", "lm", "--logdir", str(tmp_path / "log"),
+              "--ckpdir", str(tmp_path / "ckpt"), "--no-msg"])
+    ck = tmp_path / "ckpt" / "lm"
+    for f in ("best_ppl", "latest", "tokenizer.vocab"):
+        assert (ck / f).is_file(), f
+    assert (ck / "latest.meta").read_text().splitlines()[1] == "global_step 4"
+    with open(tmp_path / "log" / "lm" / "scalars.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert {"lm_loss", "lm_ppl", "dev_ppl"} <= {r["tag"] for r in recs}
+    assert all(np.isfinite(r["value"]) for r in recs)
+
+    out = tmp_path / "res"
+    ers = cli_main(["--config", str(decode_yaml), "--test", "--cpu", "--load", ckpt, "--name", "fused",
+                    "--outdir", str(out), "--no-msg", "-o", "decode.lm_weight=0.3",
+                    "-o", f"decode.lm_path={ck / 'best_ppl'}", "-o", f"decode.lm_config={lm_yaml}"])
+    assert set(ers) == {"dev", "test"} and all(np.isfinite(v) for v in ers.values())
+    for split in ("dev", "test"):
+        with open(out / "fused" / f"output_{split}.csv") as f:
+            rows = list(csv.reader(f, delimiter="\t"))
+        assert rows[0] == ["idx", "truth", "prediction"] and len(rows) > 1
+        assert (out / "fused" / f"beam_{split}.csv").is_file()
+
+
+def test_fused_decode_checks_the_lm_checkpoint(tmp_path):
+    """lm_weight > 0 without decode.lm_path, an LM whose vocabulary is not
+    the recogniser's, and an ASR checkpoint given as the LM all raise."""
+    decode_yaml, ckpt, vocab = _decode_setup(tmp_path)
+    lm_cfg = TConfig.from_dict({"lm": {"emb_dim": 8, "dim": 16, "n_layers": 1}}).lm
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    bad_lm = str(tmp_path / "lm_vocab_plus_one.pt")
+    convert.save_checkpoint(bad_lm, lm_mod.lm_init(gen, vocab + 1, lm_cfg, torch.device("cpu")), vocab + 1, 0,
+                            kind="lm")
+    argv = ["--config", str(decode_yaml), "--test", "--cpu", "--load", ckpt, "--name", "x",
+            "--outdir", str(tmp_path / "res"), "--no-msg", "-o", "decode.lm_weight=0.3"]
+    with pytest.raises(ValueError, match="lm_path"):
+        cli_main(argv)
+    with pytest.raises(ValueError, match="vocabulary size"):
+        cli_main(argv + ["-o", f"decode.lm_path={bad_lm}"])
+    with pytest.raises(ValueError, match="kind 'asr'"):
+        cli_main(argv + ["-o", f"decode.lm_path={ckpt}"])
+
+
 def test_cli_later_slices_raise(tmp_path):
-    """--lm is a later slice; training needs CUDA unless --cpu is given."""
-    cfg = str(os.path.join(ROOT, "configs", "synthetic_decode.yaml"))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cli_main(["--config", cfg, "--lm", "--cpu"])
+    """--lm --test raises (LM evaluation is part of --lm training, as in the
+    JAX package); training needs CUDA unless --cpu is given."""
+    cfg = str(os.path.join(ROOT, "configs", "synthetic_lm.yaml"))
+    with pytest.raises(ValueError, match="--lm --test"):
+        cli_main(["--config", cfg, "--lm", "--test", "--cpu"])
     if torch.cuda.is_available():
         return
     train_yaml = _tiny_train_yaml(tmp_path)

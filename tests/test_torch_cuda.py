@@ -30,7 +30,9 @@ utterances than resident clusters), with H = 8 (most blocks of the grid own
 no hidden unit), at S = 3000 (the backward's working buffers in global
 memory), at the convergence recipe's widths with B = 32, and twice on the
 same inputs (bitwise equal); the kernels' shared-memory plan over grids of
-8 to 132 blocks. Marked ``cuda``: they skip without a card. Run on the card with
+8 to 132 blocks; the LM's one-direction layer through the lstm_seq pair at
+its width (B = 32, D = H = 512, T = 256, a row of length 0) and the LM's
+part of a fused beam step with no host synchronisation. Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
@@ -794,3 +796,81 @@ def test_flagship_plan_keeps_the_cell_resident(gen):
     smem, flags, scratch = dc.plan("bwd", 15, 8, 16, 4000, 512, 640, 10, 201, 320, 26)
     assert not flags["es_smem"] and not flags["dfa_smem"] and smem <= dc.SMEM_MAX
     assert scratch == 500 * 512 + (4000 + 8) * 10
+
+
+# ------------------------------------------------------------------ the RNN-LM
+@pytest.mark.parametrize("t", [256, 9])
+def test_lm_lstm_through_lstm_seq(gen, t):
+    """ops/rnn.py lstm, one direction through the lstm_seq kernel pair, at the
+    LM's width (B = 32, D = H = 512) over a bucket of T = 256 tokens (and a
+    short one), ragged lengths with one row of length 0 (a padded row of the
+    text loader) and one of T: the outputs and the gradients of x, Wx, Wh and
+    b against the plain versions; one launch of each kernel."""
+    from e2e_asr_tpu_torch.ops import rnn as rnn_ops
+
+    b, d, h = 32, 512, 512
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    lens[0], lens[1] = t, 0
+    x = torch.tanh(torch.randn((b, t, d), generator=gen, device="cuda"))
+    w = {k: (torch.rand(s, generator=gen, device="cuda") * 2 - 1) / math.sqrt(h)
+         for k, s in (("wx", (d, 4 * h)), ("wh", (h, 4 * h)), ("b", (4 * h,)))}
+    dy = torch.randn((b, t, h), generator=gen, device="cuda")
+
+    def run():
+        leaves = [x.clone().requires_grad_()] + [v.clone().requires_grad_() for v in w.values()]
+        ys = rnn_ops.lstm(leaves[0], lens, dict(zip(w, leaves[1:])))
+        return [ys.detach()] + list(torch.autograd.grad((ys * dy).sum(), leaves))
+
+    before = (rnn_cuda.lstm_seq_fwd.launches, rnn_cuda.lstm_seq_bwd.launches)
+    got = run()
+    assert (rnn_cuda.lstm_seq_fwd.launches, rnn_cuda.lstm_seq_bwd.launches) == (before[0] + 1, before[1] + 1)
+    with mock.patch.object(cuda_build, "use_plain", lambda a: True):
+        want = run()
+    _close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    assert not bool(got[0][1].any())  # the row of length 0
+    for g, wv in zip(got[1:], want[1:]):
+        _close_scaled(g, wv, 1e-4)
+
+
+def test_fused_lm_step_makes_no_host_sync(gen):
+    """The LM's part of a fused beam step at the flagship decode's rows (B =
+    16, W = 16) with configs/libri/lm_example.yaml's LM (512 / 2 x 512,
+    tied): models/lm.py step, the fusion term added to the speller's
+    log-probs, the state following its parents and freezing with its
+    utterance (decode/beam.py follow_parents), three steps under PyTorch's
+    sync debug mode set to raise, as a CUDA graph of the beam step needs."""
+    from e2e_asr_tpu_torch.config import LMConfig
+    from e2e_asr_tpu_torch.decode.beam import follow_parents
+    from e2e_asr_tpu_torch.models import lm as lm_mod
+
+    b, w, vocab = 16, 16, 26
+    cfg = LMConfig(emb_tying=True, emb_dim=512, dim=512, n_layers=2)
+    cpu_gen = torch.Generator()
+    cpu_gen.manual_seed(0)
+    params = lm_mod.lm_init(cpu_gen, vocab, cfg, _dev())
+    state = lm_mod.init_state(b * w, cfg, _dev())
+    tok = torch.randint(0, vocab, (b * w,), generator=gen, device="cuda")
+    step_lp = torch.log_softmax(torch.randn((b, w, vocab), generator=gen, device="cuda"), -1)
+    parent = torch.randint(0, w, (b, w), generator=gen, device="cuda")
+    flat_parent = (parent + torch.arange(b, device="cuda")[:, None] * w).reshape(-1)
+    act_bw = (torch.arange(b, device="cuda") < 12).repeat_interleave(w)
+
+    def lm_part(state):
+        lm_lp, new = lm_mod.step(params, cfg, tok, state)
+        return step_lp + 0.3 * lm_lp.reshape(b, w, vocab), follow_parents(new, state, flat_parent, act_bw)
+
+    lm_part(state)  # warm-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        states = [state]
+        for _ in range(3):
+            fused, nxt = lm_part(states[-1])
+            states.append(nxt)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(fused).all())
+    frozen = ~act_bw
+    for s in states[1:]:
+        assert all(torch.equal(x[:, frozen], y[:, frozen]) for x, y in zip(s, state))
+        assert bool((s[0][:, act_bw] != 0).any())
