@@ -79,7 +79,20 @@
    steps, then ``main --test`` on configs/synthetic_decode_conv.yaml with
    the convergence checkpoint and that LM's best_ppl fused in; both must end
    normally and the decode write output_dev.csv and output_test.csv.
-6. Prints a ``kernels`` JSON line (each row names the path its ``launches``
+   Every training path here takes its batches through the prefetcher
+   (``data/prefetch.py``): the flagship and convergence runs gather them
+   from the device-resident corpus (``device_cache`` auto), and each step's
+   ``rd`` (the wait for its batch) is printed; the decodes print
+   ``input_s``, the time they waited on the prefetcher.
+6. The loader phase (``loader_phase``): the convergence recipe at full
+   width on LOADER_UTTS training utterances, LOADER_STEPS steps through
+   ``bin/train_asr.Solver.exec`` three ways in turns, (a) batches filled on
+   the prefetch thread with no wave cache, streamed, (b) two loader threads
+   with the wave cache, streamed, (c) the device-resident corpus: each way's ``rd``
+   share, median audio-s/s, flat_corpus seconds and MB, host RSS; the first
+   8 device batches and step 1's loss must be equal across the ways, each
+   way in the input mode it asked for.
+7. Prints a ``kernels`` JSON line (each row names the path its ``launches``
    were counted on), then the device JSON line last; the details go to ``--json`` (default e2e_asr_tpu_torch/_build/chip_smoke.json).
 
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -112,6 +125,13 @@ CONV_STEPS = 3
 LM_STEPS = 10  # LM training steps at lm_example.yaml's width
 RECIPE_LM_STEPS = 100  # synthetic_lm_conv.yaml's steps (it logs every 50)
 NOISE_SEED = 20261016  # the scan checks' sampled feedback
+LOADER_STEPS = 100  # the loader phase's steps a way (convergence recipe)
+LOADER_UTTS = 1024  # its train split
+# (way, loader threads, data.corpus fields, the input mode it must take): (a)
+# is the input path before the loader was ported, bar the prefetch thread
+LOADER_MODES = (("a", 0, {"device_cache": "off", "cache_bytes": 0}, "stream"),
+                ("b", 2, {"device_cache": "off"}, "stream"),
+                ("c", 2, {"device_cache": "on"}, "device_corpus"))
 
 
 def fail(msg: str) -> None:
@@ -1299,7 +1319,7 @@ def _check_steps(log, what):
         print(f"  {what} step {rec['step']}: loss {rec['loss']:.4f} att {rec['att_loss']:.4f} "
               f"ctc {rec['ctc_loss']:.4f} gnorm {rec['grad_norm']:.3f} tf {rec['tf_rate']:.2f} | "
               f"{rec['audio_s']:.2f} audio-s in {rec['wall_s']:.3f}s = "
-              f"{rec['audio_s'] / rec['wall_s']:.2f} audio-s/s", flush=True)
+              f"{rec['audio_s'] / rec['wall_s']:.2f} audio-s/s, rd {rec['rd_s'] * 1e3:.2f} ms", flush=True)
         if not all(math.isfinite(rec[k]) for k in ("loss", "att_loss", "ctc_loss", "grad_norm")):
             fail(f"{what} step {rec['step']}: a loss or the gradient norm is not finite")
         if rec["step_skipped"] != 0.0:
@@ -1345,10 +1365,12 @@ def convergence_phase(dev, smi):
             32, [256, 256, 256], 128, 256):
         fail("the convergence recipe is not at its full width")
     scan_check = convergence_scan_checks(dev, solver.config, solver.vocab_size)
-    # log_mel on the recipe's first batch (its int16 waves, scaled as
-    # compute_features does): B=32, M=80
+    # log_mel on the recipe's first batch (its int16 waves, gathered from the
+    # device-resident corpus by resolve_wav, scaled as compute_features does): B=32, M=80
+    from e2e_asr_tpu_torch.training.step import resolve_wav
+
     audio = solver.config.data.audio
-    wav = torch.from_numpy(next(solver.tr_set.epoch(0)).wav).to(dev).float() * (1.0 / 32768.0)
+    wav = resolve_wav(solver._put(next(solver.tr_set.epoch(0))))[0].float() * (1.0 / 32768.0)
     if wav.shape[0] != 32 or audio.feat_dim != 80 or not audio.use_pallas:
         fail(f"the convergence batch is {tuple(wav.shape)} at M={audio.feat_dim}, expected B=32, M=80, the kernel")
     with torch.inference_mode():
@@ -1398,9 +1420,11 @@ def train_phase(smi):
         what = f"train (rnn_impl {impl})"
         solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, f"smoke_train_{impl}"), SEED,
                                     TRAIN_STEPS, rnn_impl=impl)
-        batch = next(solver.tr_set.epoch(0))
-        if batch.wav.shape != (16, (816 - 1) * 160 + 400):
-            fail(f"train batch has shape {batch.wav.shape}, expected 16 utterances in the 816 bucket")
+        batch = next(solver.tr_set.epoch(0))  # offsets into the device-resident corpus (auto)
+        shape = (len(batch.wav_len), batch.n_samples)
+        if shape != (16, (816 - 1) * 160 + 400) or solver.input_mode != "device_corpus":
+            fail(f"train batch has shape {shape} ({solver.input_mode}), expected 16 utterances in the 816 "
+                 "bucket from the device-resident corpus")
         launches, wall = _run_counted(solver, {**common, **lstm_pair[impl]}, what)
         log = list(solver.step_log)
         if len(log) != TRAIN_STEPS:
@@ -1412,12 +1436,13 @@ def train_phase(smi):
             fail("validation gave a non-finite number")
         steady = sorted(r["audio_s"] / r["wall_s"] for r in log[1:])
         rate = steady[len(steady) // 2]
+        rd_ms = [round(r["rd_s"] * 1e3, 3) for r in log]
         print(f"train e2e (rnn_impl {impl}): median {rate:.2f} audio-s/s per step over steps "
               f"2-{TRAIN_STEPS} (step 1 {log[0]['audio_s'] / log[0]['wall_s']:.2f}) on {smi} (flagship, "
-              f"B=16, 816 bucket, seed-{SEED} weights); {TRAIN_STEPS} steps + validation {wall:.1f}s",
-              flush=True)
+              f"B=16, 816 bucket, seed-{SEED} weights, device-resident corpus); rd per step {rd_ms} ms; "
+              f"{TRAIN_STEPS} steps + validation {wall:.1f}s", flush=True)
         runs[impl] = dict(solver=solver, batch=batch, launches=launches, steps=log, dev=dev_sum,
-                          audio_s_per_s=rate, wall_s=wall)
+                          audio_s_per_s=rate, wall_s=wall, rd_ms=rd_ms)
     # the two routes compute the same function from the same seed
     loss_gap = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
                    for x, y in zip(runs["auto"]["steps"], runs["pallas"]["steps"]))
@@ -1590,9 +1615,10 @@ def decode_in_turns(solvers: dict, batch) -> dict:
 
     names = list(solvers)
     audio_s = float(batch.wav_len.sum()) / solvers[names[0]].config.data.audio.sample_rate
+    wav, wav_len = solvers[names[0]].put(batch.wav, batch.wav_len)
     runs = {name: [] for name in names}
     for name in names + names[::-1]:
-        r = profile_run(lambda: solvers[name].decode_batch(batch.wav, batch.wav_len), audio_s)
+        r = profile_run(lambda: solvers[name].decode_batch(wav, wav_len), audio_s)
         runs[name].append({k: r[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
                                              "audio_s_per_s")})
         print(f"  {name}: wall {r['wall_ms']:.1f} ms, device busy {r['device_busy_ms']:.1f} ms, idle "
@@ -1649,6 +1675,119 @@ def recipe_phase(conv_ckpt: str, smi):
                 error_rates=ers)
 
 
+def _rss_mb() -> tuple:
+    """(current, peak) resident set of this process, MB."""
+    import resource
+
+    cur = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                cur = float(line.split()[1]) / 1024
+    return cur, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def loader_phase(smi):
+    """The input path at the convergence recipe's full width (B=32, 3 x 256
+    BiLSTM, 80-dim fbank, the recipe's own teacher-forcing schedule), its
+    train split cut to LOADER_UTTS utterances and dev to 32: LOADER_STEPS
+    steps through bin/train_asr.Solver.exec, logging every 10, validating
+    once at the end, three ways in turns from the same seed (LOADER_MODES):
+    (a) batches filled on the prefetch thread with no wave cache and
+    streamed, as before the loader was ported but for that thread; (b) two
+    loader threads and the int16 wave cache, streamed; (c) the
+    device-resident corpus. Each way prints the share of its wall that
+    ``rd`` (the wait in next(prefetch)) took over steps 11-LOADER_STEPS,
+    over the rest of the first epoch and over the later epochs, the median
+    audio-s/s of steps 11-LOADER_STEPS, (c)'s flat_corpus seconds and MB,
+    and the host RSS. Fails if the first 8 device batches of (b) or (c)
+    (after resolve_wav) differ bitwise from (a)'s, if step 1's loss differs
+    between the ways, or if a way ran another input mode than it asked for.
+    No speed threshold."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import convergence_train_solver
+    from e2e_asr_tpu_torch.ops.decoder_cuda import decoder_scan_bwd, decoder_scan_fwd
+    from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
+    from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_bwd, lstm_seq_fwd
+    from e2e_asr_tpu_torch.training.step import resolve_wav
+
+    wrappers = {"log_mel": log_mel, "lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd,
+                "decoder_scan_fwd": decoder_scan_fwd, "decoder_scan_bwd": decoder_scan_bwd}
+    out, seen = {}, {}
+    for way, njobs, corpus, mode in LOADER_MODES:
+        what = f"loader ({way}: njobs {njobs}, " + ", ".join(f"{k} {v}" for k, v in corpus.items()) + ")"
+        rss0, _ = _rss_mb()
+        t0 = time.time()
+        solver = convergence_train_solver(os.path.join(cuda_build.BUILD_DIR, f"smoke_loader_{way}"), SEED,
+                                          LOADER_STEPS, tf=None, train_utts=LOADER_UTTS, log_step=10,
+                                          njobs=njobs, corpus=corpus)
+        setup_s = time.time() - t0
+        if (solver.input_mode, solver.tr_set.num_workers, solver.tr_set.emit_offsets) != (
+                mode, njobs, mode == "device_corpus"):
+            fail(f"{what} ran input mode {solver.input_mode} with {solver.tr_set.num_workers} loader threads")
+        m = solver.config.model
+        if (solver.config.data.corpus.batch_size, m.encoder.dim, solver.config.data.audio.feat_dim) != (
+                32, [256, 256, 256], 80):
+            fail(f"{what}: the convergence recipe is not at its full width")
+        batches, forms = [], set()
+        real_step = solver.trainer.train_step
+
+        def spy(state, batch, gen, *a, **k):
+            if len(batches) < 8:  # the device batch the step sees, copied out
+                forms.add("wav" if batch.get("wav") is not None else "offsets")
+                wav, wav_len = resolve_wav(batch)
+                batches.append([t.cpu() for t in (wav, wav_len, batch["text"], batch["text_len"])])
+            return real_step(state, batch, gen, *a, **k)
+
+        solver.trainer.train_step = spy
+        launches, wall = _run_counted(solver, wrappers, what)
+        log = list(solver.step_log)
+        if len(log) != LOADER_STEPS:
+            fail(f"{what}: {len(log)} steps ran, expected {LOADER_STEPS}")
+        if not all(math.isfinite(r["loss"]) and r["step_skipped"] == 0.0 for r in log):
+            fail(f"{what}: a loss is not finite or a step was skipped")
+        if forms != {"offsets" if mode == "device_corpus" else "wav"}:
+            fail(f"{what}: the step saw {forms} batches")
+        n_epoch = len(solver.tr_set)
+
+        def share(steps):
+            return sum(r["rd_s"] for r in steps) / max(sum(r["wall_s"] for r in steps), 1e-9)
+
+        steady = log[10:]
+        rates = sorted(r["audio_s"] / r["wall_s"] for r in steady)
+        rss, peak = _rss_mb()
+        res = dict(njobs=njobs, corpus=corpus, input_mode=solver.input_mode, setup_s=setup_s, wall_s=wall,
+                   launches=launches, step1_loss=log[0]["loss"], median_audio_s_per_s=rates[len(rates) // 2],
+                   batches_an_epoch=n_epoch, rd_share=share(steady), rd_share_first_epoch=share(log[10:n_epoch]),
+                   rd_share_later_epochs=share(log[n_epoch:]), rd_share_of_run=sum(r["rd_s"] for r in log) / wall,
+                   rd_ms=[round(r["rd_s"] * 1e3, 3) for r in log], wall_ms=[round(r["wall_s"] * 1e3, 3) for r in log],
+                   host_rss_mb=rss, host_rss_growth_mb=rss - rss0, host_peak_rss_mb=peak, dev=solver.dev_summary)
+        extra = ""
+        if mode == "device_corpus":
+            res.update(flat_corpus_s=solver.flat_corpus_s, corpus_mb=solver._corpus_buf.numel() * 2 / (1 << 20))
+            extra = f"; flat_corpus {res['flat_corpus_s']:.2f}s, {res['corpus_mb']:.1f} MB int16 on the card"
+        print(f"{what} on {smi}: median {res['median_audio_s_per_s']:.2f} audio-s/s over steps 11-{LOADER_STEPS}; "
+              f"rd {res['rd_share']:.1%} of their wall ({res['rd_share_first_epoch']:.1%} over steps 11-{n_epoch}, "
+              f"the rest of the first epoch; {res['rd_share_later_epochs']:.1%} over steps {n_epoch + 1}-"
+              f"{LOADER_STEPS}; {res['rd_share_of_run']:.1%} of the whole {wall:.1f}s run, validation included); "
+              f"step 1 loss {log[0]['loss']:.6f}; set-up {setup_s:.1f}s{extra}; host RSS {rss:.0f} MB "
+              f"({rss - rss0:+.0f} MB over this way; peak {peak:.0f})", flush=True)
+        out[way] = res
+        seen[way] = batches
+        del solver, spy, real_step
+        torch.cuda.empty_cache()
+    ref = seen["a"]
+    for way in ("b", "c"):
+        if len(seen[way]) != 8 or not all(all(torch.equal(x, y) for x, y in zip(p, q))
+                                          for p, q in zip(seen[way], ref)):
+            fail(f"loader way ({way}): its first 8 device batches differ from way (a)'s")
+        if out[way]["step1_loss"] != out["a"]["step1_loss"]:
+            fail(f"loader way ({way}): step 1 loss {out[way]['step1_loss']!r} against (a)'s "
+                 f"{out['a']['step1_loss']!r}")
+    print("loader: the first 8 device batches of (b) and (c) equal (a)'s bitwise; step 1 losses equal", flush=True)
+    return out
+
+
 def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
     """The dev split decoded through ``Solver.exec`` with the BiLSTM layers
     on route ``impl``, the decode kernels' launch counts set to 0 just
@@ -1664,7 +1803,8 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
     from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
 
     solver.config.model.encoder.rnn_impl = impl
-    solver.decode_batch(batch.wav, batch.wav_len)  # warm-up (cuBLAS/cuDNN handles)
+    wav, wav_len = solver.put(batch.wav, batch.wav_len)
+    solver.decode_batch(wav, wav_len)  # warm-up (cuBLAS/cuDNN handles)
     torch.cuda.synchronize()
     wrappers = {"log_mel": log_mel, lstm_fwd[0]: lstm_fwd[1],
                 "att_step_beam_loc": att_step_beam_loc, "prefix_recursion": prefix_scores_fused}
@@ -1679,23 +1819,24 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
     st = dict(solver.stats["dev"])
     rate = st["audio_sec"] / st["wall_s"]
     print(f"e2e (rnn_impl {impl}{tag}): {st['utts']} utts, {st['audio_sec']:.2f} audio-s in {st['wall_s']:.3f}s "
-          f"wall = {rate:.2f} audio-s/s on {smi} (decode B=16 W=16, seed-{SEED} weights, cer {st['cer']:.3f})",
+          f"wall = {rate:.2f} audio-s/s on {smi} (decode B=16 W=16, seed-{SEED} weights, cer {st['cer']:.3f}); "
+          f"input_s {st['input_s'] * 1e3:.2f} ms (the wait on the prefetcher), decode_s {st['decode_s']:.3f}s",
           flush=True)
 
     # device launches of one decoded batch and of one beam step (profiler)
     steps = solver.max_step_for(batch.wav.shape[1])
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        solver.decode_batch(batch.wav, batch.wav_len)
+        solver.decode_batch(wav, wav_len)
         torch.cuda.synchronize()
     batch_launches = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
     print(f"decode launches (rnn_impl {impl}{tag}): {batch_launches} a batch of {steps} beam steps, "
           f"{batch_launches / steps:.1f} a step", flush=True)
 
     # ---- the same batch with kernels and with plain versions, on the card
-    res_k = solver.decode_batch(batch.wav, batch.wav_len)
+    res_k = solver.decode_batch(wav, wav_len)
     t_p = time.time()
     with mock.patch.object(cuda_build, "use_plain", lambda x: True):
-        res_p = solver.decode_batch(batch.wav, batch.wav_len)
+        res_p = solver.decode_batch(wav, wav_len)
     torch.cuda.synchronize()
     print(f"plain-version decode of the batch: {time.time() - t_p:.2f}s", flush=True)
     sk, sp = res_k.scores[:, 0].double().cpu(), res_p.scores[:, 0].double().cpu()
@@ -1797,6 +1938,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     lm_train = lm_train_phase(dev, smi)
     conv = convergence_phase(dev, smi)
     recipes = recipe_phase(conv.pop("ckpt"), smi)
+    loader = loader_phase(smi)
     r = kern["log_mel"]
     mel_waves["convergence_batch"] = conv.pop("log_mel_wave")
     for key, v in zip(("max_abs_err_by_wave", "cufft_max_abs_err_by_wave", "f64_max_abs_err_by_wave"),
@@ -1830,6 +1972,8 @@ def main(json_path: str = "", parent: str = "") -> None:
         (f"main --lm on configs/synthetic_lm_conv.yaml, {RECIPE_LM_STEPS} steps + validation",
          recipes["lm_launches"]),
         ("main --test on configs/synthetic_decode_conv.yaml with that LM fused in", recipes["decode_launches"]),
+        *((f"loader way ({way}): convergence recipe, {LOADER_STEPS} steps + validation, njobs {r['njobs']}, "
+           f"{r['input_mode']}", r["launches"]) for way, r in loader.items()),
     ]
     path_of = {"log_mel": 0, "att_step_beam_loc": 0, "prefix_recursion": 0, "lstm_seq_fwd": 1,
                "lstm_seq_bwd": 1, "ctc_loss": 2, "decoder_scan_fwd": 2, "decoder_scan_bwd": 2,
@@ -1857,7 +2001,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     with open(out, "w") as f:
         json.dump({"card": smi, "kernels": rows, "decode": decode, "decode_routes_score_rel_diff": route_err,
                    "decode_lm": decode_lm, "train": train, "lm_train": lm_train, "convergence": conv,
-                   "recipes": recipes}, f, indent=1)
+                   "recipes": recipes, "loader": loader}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

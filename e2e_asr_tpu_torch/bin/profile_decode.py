@@ -165,28 +165,38 @@ CONVERGENCE = "configs/synthetic_convergence.yaml"
 
 
 def convergence_train_solver(outdir: str, seed: int = 0, max_step: int = 3, rnn_impl: str = "auto",
-                             tf: float = 0.8):
+                             tf: float = 0.8, train_utts: int = 96, log_step: int = 1,
+                             njobs: int = None, corpus: dict = None):
     """A train-mode Solver on the card over the convergence recipe
     (configs/synthetic_convergence.yaml at its full width: batch 32, three
     256-wide BiLSTM layers on 80-dim fbank with no prenet, attention 128 / 8
     filters / 65 taps, 256-wide speller, Adam, encoder dropout 0.1), its
-    splits cut to 96 training and 32 dev utterances, ``max_step`` steps and
-    one validation, the teacher-forcing rate held at ``tf`` so that coins
-    fail from the first step, and the BiLSTM layers routed by ``rnn_impl``."""
+    splits cut to ``train_utts`` training and 32 dev utterances, ``max_step``
+    steps and one validation, logging every ``log_step`` steps, the
+    teacher-forcing rate held at ``tf`` so that coins fail from the first
+    step (None: the recipe's schedule), and the BiLSTM layers routed by
+    ``rnn_impl``. ``njobs`` (loader threads; None: the recipe's
+    ``num_workers``) and ``corpus`` (fields of ``data.corpus`` to set, e.g.
+    ``device_cache``, ``cache_bytes``) pick the input path."""
     from e2e_asr_tpu_torch.bin.train_asr import Solver
     from e2e_asr_tpu_torch.config import Config
 
     cfg = Config.load(CONVERGENCE)
     c = cfg.data.corpus
-    c.train_split, c.dev_split, c.test_split = ["train:96"], ["dev:32"], []
+    c.train_split, c.dev_split, c.test_split = [f"train:{train_utts}"], ["dev:32"], []
+    for k, v in (corpus or {}).items():
+        if not hasattr(c, k):
+            raise AttributeError(f"data.corpus has no field {k!r}")
+        setattr(c, k, v)
     h = cfg.hparas
-    h.max_step, h.valid_step, h.log_step, h.seed = max_step, max_step, 1, seed
-    h.tf_start = h.tf_end = tf
+    h.max_step, h.valid_step, h.log_step, h.seed = max_step, max_step, log_step, seed
+    if tf is not None:
+        h.tf_start = h.tf_end = tf
     cfg.model.encoder.rnn_impl = rnn_impl
     paras = types.SimpleNamespace(
         config=CONVERGENCE, name="smoke_convergence", logdir=os.path.join(outdir, "log"),
         ckpdir=os.path.join(outdir, "ckpt"), load=None, seed=seed, cpu=False, verbose=True,
-        auto_resume=False,
+        auto_resume=False, njobs=njobs,
     )
     solver = Solver(cfg, paras, "train")
     solver.load_data()
@@ -226,12 +236,18 @@ def _device_time_us(evt) -> float:
 
 
 def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0):
-    """(function that runs one unit of work, audio seconds in it)."""
+    """(function that runs one unit of work, audio seconds in it). The
+    training batch is one streaming batch on the device, repeated: an
+    offsets batch (the smoke corpus is device-resident under
+    ``device_cache: auto``) is gathered once through ``resolve_wav``, so
+    that the profiled step is the model's alone."""
     from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.training.step import resolve_wav
 
     if train:
         solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "profile_train"), rnn_impl=rnn_impl)
         batch = solver._put(next(solver.tr_set.epoch(0)))
+        batch = {"wav": resolve_wav(batch)[0], **{k: batch[k] for k in ("wav_len", "text", "text_len")}}
         audio_s = float(batch["wav_len"].sum()) / solver.config.data.audio.sample_rate
 
         def run():
@@ -242,7 +258,8 @@ def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0):
     solver = smoke_solver(os.path.join(cuda_build.BUILD_DIR, "profile"), rnn_impl=rnn_impl, lm_weight=lm_weight)
     batch = next(solver.eval_sets["dev"].epoch())
     audio_s = float(batch.wav_len.sum()) / solver.config.data.audio.sample_rate
-    return (lambda: solver.decode_batch(batch.wav, batch.wav_len)), audio_s
+    wav, wav_len = solver.put(batch.wav, batch.wav_len)
+    return (lambda: solver.decode_batch(wav, wav_len)), audio_s
 
 
 # ----------------------------------------------- the fused scan's phase split

@@ -8,7 +8,9 @@ bucket shape per batch. With ``decode.lm_weight`` > 0 the RNN-LM checkpoint
 search. Writes <outdir>/<name>/output_{split}.csv (best
 hypothesis vs truth per utterance) and beam_{split}.csv (every beam), with
 the JAX package's columns, and reports the split's error rate and decoded
-audio-seconds per second.
+audio-seconds per second. The loader's threads fill the batches and a
+``DevicePrefetcher`` copies them to the device ahead of the decode;
+``stats[split]["input_s"]`` is the time the decode waited on it.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from e2e_asr_tpu_torch import convert, cuda_build
 from e2e_asr_tpu_torch.config import Config
 from e2e_asr_tpu_torch.data.dataset import load_eval_datasets
+from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from e2e_asr_tpu_torch.decode.beam import BeamResult, beam_search
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.metrics import edit_distance
@@ -69,7 +72,8 @@ class Solver:
                 self.config.data.text.vocab_file = cand
                 self.verbose(f"Pinned tokenizer from training run: {cand}")
         self.eval_sets, self.feat_dim, self.vocab_size, self.tokenizer, msg = load_eval_datasets(
-            self.config.data, batch_size=self.config.decode.batch_size
+            self.config.data, batch_size=self.config.decode.batch_size,
+            num_workers=getattr(self.paras, "njobs", None),
         )
         self.verbose(msg)
 
@@ -107,11 +111,15 @@ class Solver:
         max_enc = n_samples // shift // ds + 1
         return max(4, int(cfg.decode.max_len_ratio * max_enc))
 
+    def put(self, wav: np.ndarray, wav_len: np.ndarray):
+        """A host batch's (wav, wav_len) on the solver's device (pinned
+        ``non_blocking`` copies on the card)."""
+        return to_device(wav, self.device), to_device(wav_len, self.device)
+
     @torch.inference_mode()
-    def decode_batch(self, wav: np.ndarray, wav_len: np.ndarray) -> BeamResult:
-        wav_t = torch.from_numpy(wav).to(self.device)
-        len_t = torch.from_numpy(wav_len).to(self.device)
-        feat, feat_len = compute_features(wav_t, len_t, self.config.data.audio)
+    def decode_batch(self, wav: torch.Tensor, wav_len: torch.Tensor) -> BeamResult:
+        """Beam-decodes one batch given as tensors on the solver's device."""
+        feat, feat_len = compute_features(wav, wav_len, self.config.data.audio)
         return beam_search(
             self.params, self.config.model, self.config.decode, feat, feat_len,
             self.max_step_for(wav.shape[1]), lm_params=self.lm_params, lm_cfg=self.lm_cfg,
@@ -126,25 +134,33 @@ class Solver:
         rows_out, rows_beam = [], []
         audio_sec = 0.0
         n_utt = 0
-        t_dev = 0.0
+        t_dev = t_in = 0.0
         t0 = time.time()
-        for batch in loader.epoch():
-            t_b = time.time()
-            res = self.decode_batch(batch.wav, batch.wav_len)
-            toks = res.tokens.cpu().numpy()
-            lens = res.lengths.cpu().numpy()
-            scores = res.scores.cpu().numpy()
-            t_dev += time.time() - t_b
-            for i, uid in enumerate(batch.uids):
-                if not uid:
-                    continue
-                truth = self.tokenizer.decode(batch.text[i])
-                rows_out.append((uid, truth, self.tokenizer.decode(toks[i, 0, : lens[i, 0]])))
-                for wi in range(toks.shape[1]):
-                    hyp = self.tokenizer.decode(toks[i, wi, : lens[i, wi]])
-                    rows_beam.append((uid, truth, hyp, float(scores[i, wi])))
-                n_utt += 1
-                audio_sec += float(batch.wav_len[i]) / cfg.data.audio.sample_rate
+        prefetch = DevicePrefetcher(loader.epoch(), lambda b: self.put(b.wav, b.wav_len), depth=2,
+                                    device=self.device)
+        try:
+            t_r = time.time()
+            for batch, (wav, wav_len) in prefetch:
+                t_b = time.time()
+                t_in += t_b - t_r
+                res = self.decode_batch(wav, wav_len)
+                toks = res.tokens.cpu().numpy()
+                lens = res.lengths.cpu().numpy()
+                scores = res.scores.cpu().numpy()
+                t_dev += time.time() - t_b
+                for i, uid in enumerate(batch.uids):
+                    if not uid:
+                        continue
+                    truth = self.tokenizer.decode(batch.text[i])
+                    rows_out.append((uid, truth, self.tokenizer.decode(toks[i, 0, : lens[i, 0]])))
+                    for wi in range(toks.shape[1]):
+                        hyp = self.tokenizer.decode(toks[i, wi, : lens[i, wi]])
+                        rows_beam.append((uid, truth, hyp, float(scores[i, wi])))
+                    n_utt += 1
+                    audio_sec += float(batch.wav_len[i]) / cfg.data.audio.sample_rate
+                t_r = time.time()
+        finally:
+            prefetch.close()
         wall = time.time() - t0
 
         os.makedirs(self.outdir, exist_ok=True)
@@ -164,10 +180,12 @@ class Solver:
             err += edit_distance(hh, rr)
             tot += max(len(rr), 1)
         er = err / max(tot, 1)
-        self.stats[split] = {"utts": n_utt, "audio_sec": audio_sec, "wall_s": wall, "decode_s": t_dev, mode: er}
+        self.stats[split] = {"utts": n_utt, "audio_sec": audio_sec, "wall_s": wall, "decode_s": t_dev,
+                             "input_s": t_in, mode: er}
         self.verbose(
             f"[{split}] decoded {n_utt} utts on {self.device} | {mode} {er:.4f} | "
-            f"{audio_sec / max(wall, 1e-9):.1f} audio-s/s (decode {t_dev:.2f}s of {wall:.2f}s wall) "
+            f"{audio_sec / max(wall, 1e-9):.1f} audio-s/s (decode {t_dev:.2f}s, input {t_in:.2f}s "
+            f"of {wall:.2f}s wall) "
             f"| results -> {self.outdir}"
         )
         return er

@@ -1,18 +1,27 @@
 """ASR training solver.
 
 Counterpart of ``e2e_asr_tpu/bin/train_asr.py``. ``exec`` runs the step loop
-to ``hparas.max_step``: fetch a bucketed batch on the host -> copy it to
-the device -> one training step (features, SpecAugment, encoder, joint
-loss, gradients, clip, update, NaN/inf skip; ``training/step.py``) -> every
-``valid_step`` steps ``validate`` (teacher-forced dev losses and greedy
-CER/WER of both heads) with the ``best_att`` / ``best_ctc`` / ``latest``
-checkpoints. Throughput is audio-seconds per wall second. A run resumes from
-its ``latest`` checkpoint (or ``--load``), data trajectory included.
+to ``hparas.max_step``: the next batch from a ``DevicePrefetcher`` (the
+loader's threads fill bucketed batches, a prefetch thread copies them to
+the device ahead of the step) -> one training step (features, SpecAugment,
+encoder, joint loss, gradients, clip, update, NaN/inf skip;
+``training/step.py``) -> every ``valid_step`` steps ``validate``
+(teacher-forced dev losses and greedy CER/WER of both heads) with the
+``best_att`` / ``best_ctc`` / ``latest`` checkpoints. Throughput is
+audio-seconds per wall second. A run resumes from its ``latest``
+checkpoint (or ``--load``), data trajectory included.
 
-Time per logged window: ``rd`` is the wait for the host loader, ``disp``
-the host time spent issuing the step's work, ``dev`` the wait for the
-device at the step's finiteness check (the skip decision needs the loss and
-the gradient norm on the host, so every step is fenced there).
+Input modes (``data.corpus.device_cache``): ``on``, or ``auto`` when the
+training corpus's int16 waves fit ``device_cache_bytes``, uploads every
+wave once (``flat_corpus``) and each step copies [B] offsets, the step
+gathering its waves on the device; ``off`` (or a corpus past int32 sample
+offsets) streams padded waves. The dev set streams.
+
+Time per logged window: ``rd`` is the wait for the next batch in
+``next(prefetch)``, ``disp`` the host time spent issuing the step's work,
+``dev`` the wait for the device at the step's finiteness check (the skip
+decision needs the loss and the gradient norm on the host, so every step
+is fenced there).
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import torch
 
 from e2e_asr_tpu_torch import convert, cuda_build
 from e2e_asr_tpu_torch.data.dataset import load_dataset
+from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from e2e_asr_tpu_torch.decode.greedy import greedy_decode
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.metrics import cal_er
@@ -48,12 +58,15 @@ class Solver(BaseSolver):
         self.valid_step = config.hparas.valid_step
         # one record per training step, the most recent STEP_LOG_LEN steps
         self.step_log: Deque[Dict[str, float]] = collections.deque(maxlen=STEP_LOG_LEN)
+        self.input_mode = ""  # "stream" or "device_corpus", set by set_model
+        self.flat_corpus_s = 0.0  # host seconds flat_corpus() took (device corpus)
 
     # ------------------------------------------------------------------ data
     def load_data(self):
         cfg = self.config
         (self.tr_set, self.dv_set, self.feat_dim, self.vocab_size, self.tokenizer,
-         msg) = load_dataset(cfg.data, ascending=cfg.hparas.curriculum > 0)
+         msg) = load_dataset(cfg.data, ascending=cfg.hparas.curriculum > 0,
+                             num_workers=getattr(self.paras, "njobs", None))
         self.verbose(msg)
         # the decode solver reads the id mapping from beside the checkpoints
         try:
@@ -90,13 +103,46 @@ class Solver(BaseSolver):
             t0 = time.time()
             cuda_build.build_all()
             self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
+        self._corpus_buf = self._device_corpus()
+
+    def _device_corpus(self):
+        """The training corpus's flat int16 buffer on the device, or None to
+        stream (``data.corpus.device_cache``)."""
+        c = self.config.data.corpus
+        # YAML reads a bare on / off as a boolean: take it as the word
+        mode = {True: "on", False: "off"}.get(c.device_cache, c.device_cache)
+        if mode not in ("auto", "on", "off"):
+            raise ValueError(f"data.corpus.device_cache must be auto, on or off, not {c.device_cache!r}")
+        want = mode == "on" or (mode == "auto" and self.tr_set.total_wav_bytes <= c.device_cache_bytes)
+        if want and not self.tr_set.flat_corpus_fits:
+            self.verbose("Device-resident corpus disabled: the corpus exceeds int32 sample offsets; "
+                         "streaming instead")
+            want = False
+        if not want:
+            self.input_mode = "stream"
+            self.verbose(f"Input: streaming padded waves ({self.tr_set.num_workers} loader threads, "
+                         f"device_cache {mode})")
+            return None
+        t0 = time.time()
+        flat, _ = self.tr_set.flat_corpus()
+        self.flat_corpus_s = time.time() - t0
+        buf = torch.from_numpy(flat).to(self.device)
+        self.input_mode = "device_corpus"
+        self.verbose(f"Input: device-resident corpus, {flat.nbytes / (1 << 20):.1f} MB int16 on "
+                     f"{self.device} (flat_corpus {self.flat_corpus_s:.2f}s; a step copies offsets)")
+        return buf
 
     # ------------------------------------------------------------------ loop
     def _put(self, batch) -> Dict[str, torch.Tensor]:
-        return {
-            k: torch.from_numpy(getattr(batch, k)).to(self.device)
-            for k in ("wav", "wav_len", "text", "text_len")
-        }
+        """A host batch on the device, in either form: pinned
+        ``non_blocking`` copies on the card; an offsets batch also carries
+        the device-resident ``corpus`` and its ``n_samples``."""
+        keys = ("wav_len", "text", "text_len") + (("wav",) if batch.wav is not None else ("wav_off",))
+        out = {k: to_device(getattr(batch, k), self.device) for k in keys}
+        if batch.wav is None:
+            out["corpus"] = self._corpus_buf  # already on the device
+            out["n_samples"] = batch.n_samples
+        return out
 
     def step_generator(self, step: int) -> torch.Generator:
         """The random stream of one training step, from the seed and the step."""
@@ -109,47 +155,51 @@ class Solver(BaseSolver):
         self.verbose(f"Total training steps {self.max_step}.")
         curriculum_epochs = 1 if cfg.hparas.curriculum > 0 else 0
         data_iter = self.tr_set.forever(curriculum_epochs=curriculum_epochs, skip_steps=self.step)
+        prefetch = DevicePrefetcher(data_iter, self._put, depth=2, device=self.device)
         sr = cfg.data.audio.sample_rate
         t_wall = time.time()
         audio_acc = t_rd = t_disp = t_dev = 0.0
-        while self.step < self.max_step:
-            t0 = time.time()
-            batch = next(data_iter)
-            dbatch = self._put(batch)
-            t1 = time.time()
-            metrics = self.trainer.train_step(self.state, dbatch, self.step_generator(self.step))
-            t2 = time.time()
-            self.step += 1
-            audio = float(batch.wav_len.sum()) / sr
-            m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
-            wait = m.pop("device_wait_s")
-            self.step_log.append({**m, "step": self.step, "audio_s": audio, "wall_s": t2 - t0,
-                                  "rd_s": t1 - t0, "dev_s": wait})
-            audio_acc += audio
-            t_rd += t1 - t0
-            t_dev += wait
-            t_disp += t2 - t1 - wait
+        try:
+            while self.step < self.max_step:
+                t0 = time.time()
+                batch, dbatch = next(prefetch)
+                t1 = time.time()
+                metrics = self.trainer.train_step(self.state, dbatch, self.step_generator(self.step))
+                t2 = time.time()
+                self.step += 1
+                audio = float(batch.wav_len.sum()) / sr
+                m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
+                wait = m.pop("device_wait_s")
+                self.step_log.append({**m, "step": self.step, "audio_s": audio, "wall_s": t2 - t0,
+                                      "rd_s": t1 - t0, "dev_s": wait})
+                audio_acc += audio
+                t_rd += t1 - t0
+                t_dev += wait
+                t_disp += t2 - t1 - wait
 
-            if self.step % cfg.hparas.log_step == 0:
-                dt = time.time() - t_wall
-                thr = audio_acc / max(dt, 1e-9)
-                self.progress(
-                    f"loss {m['loss']:.3f} | att {m.get('att_loss', 0):.3f} | "
-                    f"ctc {m.get('ctc_loss', 0):.3f} | gnorm {m['grad_norm']:.2f} | "
-                    f"tf {m['tf_rate']:.2f} | {thr:.1f} audio-s/s | rd {t_rd:.2f}s | "
-                    f"disp {t_disp:.2f}s | dev {t_dev:.2f}s ({t_dev / max(dt, 1e-9):.0%})"
-                )
-                self.write_log("loss", {"tr_att": m.get("att_loss", 0.0), "tr_ctc": m.get("ctc_loss", 0.0)})
-                self.write_log("grad_norm", m["grad_norm"])
-                self.write_log("tf_rate", m["tf_rate"])
-                self.write_log("throughput_audio_sec_per_sec", thr)
-                t_wall, audio_acc = time.time(), 0.0
-                t_rd = t_disp = t_dev = 0.0
+                if self.step % cfg.hparas.log_step == 0:
+                    dt = time.time() - t_wall
+                    thr = audio_acc / max(dt, 1e-9)
+                    self.progress(
+                        f"loss {m['loss']:.3f} | att {m.get('att_loss', 0):.3f} | "
+                        f"ctc {m.get('ctc_loss', 0):.3f} | gnorm {m['grad_norm']:.2f} | "
+                        f"tf {m['tf_rate']:.2f} | {thr:.1f} audio-s/s | "
+                        f"rd {t_rd:.2f}s ({t_rd / max(dt, 1e-9):.0%}) | disp {t_disp:.2f}s | "
+                        f"dev {t_dev:.2f}s ({t_dev / max(dt, 1e-9):.0%})"
+                    )
+                    self.write_log("loss", {"tr_att": m.get("att_loss", 0.0), "tr_ctc": m.get("ctc_loss", 0.0)})
+                    self.write_log("grad_norm", m["grad_norm"])
+                    self.write_log("tf_rate", m["tf_rate"])
+                    self.write_log("throughput_audio_sec_per_sec", thr)
+                    t_wall, audio_acc = time.time(), 0.0
+                    t_rd = t_disp = t_dev = 0.0
 
-            if self.step % self.valid_step == 0:
-                self.validate()
-                t_wall, audio_acc = time.time(), 0.0
-                t_rd = t_disp = t_dev = 0.0
+                if self.step % self.valid_step == 0:
+                    self.validate()
+                    t_wall, audio_acc = time.time(), 0.0
+                    t_rd = t_disp = t_dev = 0.0
+        finally:
+            prefetch.close()
         self.verbose("Training completed.")
         self.save_checkpoint("latest", "step", float(self.step), self.state)
 
@@ -162,7 +212,7 @@ class Solver(BaseSolver):
         losses: Dict[str, list] = {}
         er = np.zeros(6, np.float64)  # att err/len, att alt err/len, ctc err/len
         have_att = have_ctc = sample_logged = False
-        for batch in self.dv_set.epoch():
+        for batch in self.dv_set.epoch():  # the dev set streams
             dbatch = self._put(batch)
             m = self.trainer.eval_step(params, dbatch)
             for k in ("loss", "att_loss", "ctc_loss"):

@@ -5,15 +5,29 @@ of the JAX package). It keeps the static bucket ladder (every batch padded
 to its bucket's (samples, tokens) shape), the HALF_BATCHSIZE_AUDIO_LEN
 rule, ``batch_shapes()``, the training schedule (batch order shuffled per
 epoch with ``RandomState(seed + epoch)``, a length-ascending curriculum
-epoch, ``forever(skip_steps)`` to replay a resumed run's data) and
+epoch, ``forever(skip_steps)`` to replay a resumed run's data),
 ``load_dataset`` / ``load_eval_datasets``, and ``TextLoader``, the LM's
-text batches. Batches are materialised on the calling thread. The
-device-resident corpus, the prefetch threads and the audio loader's
-multi-process row blocks of the JAX package are not ported yet (ROADMAP).
+text batches.
+
+The input path's throughput half is the JAX loader's too: an int16 wave
+cache (``cache_bytes``), batches filled by ``num_workers`` threads in
+order, and the device-resident corpus (``flat_corpus()``: every wave in
+one int16 buffer, after which batches carry sample offsets into it and the
+step gathers the waves on the device, ``training/step.py``
+``resolve_wav``). ``data/prefetch.py`` copies batches to the device ahead
+of the step. The audio loader's multi-process row blocks, the native
+``pack_batch`` route and ``rebatch`` / ``bucket_counts`` /
+``fill_factor`` are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
+import hashlib
+import itertools
+import os
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -31,13 +45,20 @@ def quantize_i16(x: np.ndarray) -> np.ndarray:
 
 @dataclass
 class Batch:
-    """Fixed-shape host batch (all numpy)."""
+    """Fixed-shape host batch (all numpy).
 
-    wav: np.ndarray  # [B, N_bucket] int16 or float32
+    Two forms: streaming (``wav`` filled, int16 PCM or float32) or offsets
+    (``wav`` None, ``wav_off`` filled: each row's sample offset into the
+    device-resident flat corpus, ``n_samples`` the bucket's length; the
+    step gathers the waves on the device)."""
+
+    wav: Optional[np.ndarray]  # [B, N_bucket] int16 or float32, or None (offsets)
     wav_len: np.ndarray  # [B] i32
     text: np.ndarray  # [B, L_bucket] i32 (includes <eos>, 0-padded)
     text_len: np.ndarray  # [B] i32 (includes <eos>)
     uids: Tuple[str, ...]
+    wav_off: Optional[np.ndarray] = None  # [B] i32 (offsets form)
+    n_samples: int = 0  # bucket length in samples (offsets form)
 
 
 def frames_to_samples(frames: int, win: int, shift: int) -> int:
@@ -45,7 +66,9 @@ def frames_to_samples(frames: int, win: int, shift: int) -> int:
 
 
 class BucketedLoader:
-    """Bucketing batcher over a manifest."""
+    """Bucketing batcher over a manifest, with an int16 wave cache, batches
+    filled by ``num_workers`` threads (0: on the calling thread) and an
+    optional device-resident corpus (``flat_corpus``)."""
 
     def __init__(
         self,
@@ -61,6 +84,8 @@ class BucketedLoader:
         shuffle: bool = False,
         ascending: bool = False,
         seed: int = 0,
+        num_workers: int = 2,
+        cache_bytes: int = 2 << 30,
     ):
         if len(buckets_frames) != len(token_buckets):
             raise ValueError("buckets and token_buckets must have the same length")
@@ -72,6 +97,15 @@ class BucketedLoader:
         self.shuffle = shuffle
         self.ascending = ascending
         self.seed = seed
+        self.num_workers = num_workers
+        self.emit_offsets = False  # set by flat_corpus()
+        self._flat_offsets: Optional[np.ndarray] = None
+        # int16 waves by item index, up to cache_bytes: an utterance is
+        # loaded (decoded or synthesised) once, not once an epoch
+        self._wav_cache: Dict[int, np.ndarray] = {}
+        self._cache_used = 0
+        self._cache_cap = cache_bytes
+        self._cache_lock = threading.Lock()
         self._items = []
         skipped = 0
         for u in utts:
@@ -121,43 +155,154 @@ class BucketedLoader:
             }
         )
 
+    def _cached_wav_i16(self, idx: int) -> np.ndarray:
+        """Item ``idx``'s whole wave as int16, loaded once while the cache
+        has room (float32 waves pass through int16, as in the JAX loader)."""
+        x = self._wav_cache.get(idx)
+        if x is None:
+            x = quantize_i16(self._items[idx][0].load())
+            with self._cache_lock:
+                if idx not in self._wav_cache and self._cache_used + x.nbytes <= self._cache_cap:
+                    self._wav_cache[idx] = x
+                    self._cache_used += x.nbytes
+        return x
+
     def _materialize(self, bi: int, idxs: List[int]) -> Batch:
         n_bucket = self.buckets_samples[bi]
         l_bucket = self.token_buckets[bi]
         b = self._pad_bs[bi]
-        dt = np.int16 if self.wire_dtype == "int16" else np.float32
-        wav = np.zeros((b, n_bucket), dt)
+        wav = wav_off = None
         wav_len = np.zeros((b,), np.int32)
+        if self.emit_offsets:
+            # the waves live on the device already: ship offsets
+            wav_off = np.zeros((b,), np.int32)
+            for j, idx in enumerate(idxs):
+                wav_off[j] = self._flat_offsets[idx]
+                wav_len[j] = min(self._items[idx][0].n_samples, n_bucket)
+        else:
+            dt = np.int16 if self.wire_dtype == "int16" else np.float32
+            wav = np.zeros((b, n_bucket), dt)
+            for j, idx in enumerate(idxs):
+                x = self._cached_wav_i16(idx)
+                n = min(len(x), n_bucket)
+                wav[j, :n] = x[:n] if dt == np.int16 else x[:n].astype(np.float32) / 32768.0
+                wav_len[j] = n
         txt = np.zeros((b, l_bucket), np.int32)
         txt_len = np.zeros((b,), np.int32)
         uids = []
         for j, idx in enumerate(idxs):
             u, ids, _ = self._items[idx]
-            x = u.load()
-            n = min(len(x), n_bucket)
-            # float32 waves pass through int16 too, as the JAX loader's cache does
-            q = quantize_i16(x[:n])
-            wav[j, :n] = q if dt == np.int16 else q.astype(np.float32) / 32768.0
-            wav_len[j] = n
             txt[j, : len(ids)] = ids[:l_bucket]
             txt_len[j] = min(len(ids), l_bucket)
             uids.append(u.uid)
         # batch padding rows keep wav_len=0/text_len=0 => fully masked
         uids += [""] * (b - len(idxs))
-        return Batch(wav, wav_len, txt, txt_len, tuple(uids))
+        return Batch(wav, wav_len, txt, txt_len, tuple(uids), wav_off, n_bucket)
+
+    # ------------------------------------------------- device-resident corpus
+    @property
+    def total_wav_bytes(self) -> int:
+        """int16 bytes of every utterance: the device memory of flat_corpus()."""
+        return sum(it[0].n_samples * 2 for it in self._items)
+
+    @property
+    def flat_corpus_fits(self) -> bool:
+        """True iff the flat corpus (+ tail pad) is addressable with int32
+        sample offsets; check it before choosing the device corpus."""
+        total = sum(it[0].n_samples for it in self._items) + max(self.buckets_samples)
+        return total < (1 << 31)
+
+    def _corpus_cache_path(self, total: int) -> Optional[str]:
+        """``$E2E_CORPUS_CACHE/flat_<sig>.npy`` (None without the variable):
+        the flat buffer on disk, addressed by the manifest (uids, lengths,
+        the total) and the first utterance's int16 wave, as the JAX loader
+        addresses it, so that both packages share one file."""
+        cache_dir = os.environ.get("E2E_CORPUS_CACHE", "")
+        if not cache_dir:
+            return None
+        sig = hashlib.sha1()
+        for it in self._items:
+            sig.update(it[0].uid.encode())
+            sig.update(str(it[0].n_samples).encode())
+        sig.update(str(total).encode())
+        if self._items:
+            # uids and lengths alone do not tell codings of one synthetic
+            # manifest apart (char vs formant): fold in one wave
+            sig.update(quantize_i16(self._items[0][0].load()).tobytes())
+        return os.path.join(cache_dir, f"flat_{sig.hexdigest()[:16]}.npy")
+
+    def flat_corpus(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every wave in one int16 buffer, (flat [total] int16, offsets
+        [num_utts] int32), the tail padded by the largest bucket so that a
+        bucket-long slice from any offset stays inside it. Switches the
+        loader to offsets batches and clears the per-utterance cache, which
+        the buffer supersedes."""
+        if not self.flat_corpus_fits:
+            raise ValueError("corpus too large for int32 sample offsets (check flat_corpus_fits)")
+        lens = np.asarray([it[0].n_samples for it in self._items], np.int64)
+        total = int(lens.sum()) + max(self.buckets_samples)
+        offs = np.zeros(len(lens), np.int64)
+        if len(lens) > 1:
+            np.cumsum(lens[:-1], out=offs[1:])
+        cache_path = self._corpus_cache_path(total)
+        flat = None
+        if cache_path and os.path.isfile(cache_path):
+            flat = np.load(cache_path)
+            if flat.shape != (total,) or flat.dtype != np.int16:
+                flat = None
+        if flat is None:
+            flat = np.zeros(total, np.int16)
+
+            def fill(idx):
+                x = self._cached_wav_i16(idx)
+                n = min(len(x), int(lens[idx]))
+                flat[int(offs[idx]) : int(offs[idx]) + n] = x[:n]
+
+            with ThreadPoolExecutor(max_workers=max(self.num_workers, 4)) as ex:
+                list(ex.map(fill, range(len(self._items))))
+            if cache_path:
+                os.makedirs(os.path.dirname(cache_path), exist_ok=True)
+                tmp = cache_path + f".tmp{os.getpid()}.npy"
+                np.save(tmp, flat)
+                os.replace(tmp, cache_path)
+        self._flat_offsets = offs.astype(np.int32)
+        self.emit_offsets = True
+        with self._cache_lock:
+            self._wav_cache.clear()
+            self._cache_used = 0
+        return flat, self._flat_offsets
 
     def epoch(
         self, epoch_idx: int = 0, ascending: Optional[bool] = None, skip_first: int = 0
     ) -> Iterator[Batch]:
         """One epoch of batches: duration-ascending, or shuffled per epoch;
-        ``skip_first`` batches are skipped without being materialised."""
+        ``skip_first`` batches are skipped without being materialised. With
+        ``num_workers`` > 0 that many threads fill batches ahead, up to
+        ``num_workers + 2`` in flight, yielded in order."""
         order = list(range(len(self._batches)))
         asc = self.ascending if ascending is None else ascending
         if not asc and self.shuffle:
             np.random.RandomState(self.seed + epoch_idx).shuffle(order)
-        for oi in order[skip_first:]:
-            bi, idxs = self._batches[oi]
-            yield self._materialize(bi, idxs)
+        order = order[skip_first:]
+        if self.num_workers <= 0:
+            for oi in order:
+                yield self._materialize(*self._batches[oi])
+            return
+        depth = self.num_workers + 2
+        with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
+            it = iter(order)
+            futs = deque(ex.submit(self._materialize, *self._batches[oi])
+                         for oi in itertools.islice(it, depth))
+            try:
+                while futs:
+                    f = futs.popleft()
+                    for oi in itertools.islice(it, 1):
+                        futs.append(ex.submit(self._materialize, *self._batches[oi]))
+                    yield f.result()
+            finally:
+                # a consumer that stops early: do not fill what it will not read
+                for f in futs:
+                    f.cancel()
 
     def forever(
         self, start_epoch: int = 0, curriculum_epochs: int = 0, skip_steps: int = 0
@@ -270,9 +415,10 @@ def build_tokenizer(cfg: DataConfig, utts: List[corpus_mod.Utterance]) -> text_m
     raise ValueError(f"unknown text mode {mode}")
 
 
-def load_dataset(cfg: DataConfig, ascending: bool = False):
+def load_dataset(cfg: DataConfig, ascending: bool = False, num_workers: Optional[int] = None):
     """(train loader, dev loader, feat_dim, vocab size, tokenizer, msg). The
-    train loader shuffles its batches per epoch unless ``ascending``."""
+    train loader shuffles its batches per epoch unless ``ascending``;
+    ``num_workers`` None takes ``data.corpus.num_workers``."""
     c = cfg.corpus
     win = int(cfg.audio.sample_rate * cfg.audio.frame_length / 1000)
     shift = int(cfg.audio.sample_rate * cfg.audio.frame_shift / 1000)
@@ -281,7 +427,8 @@ def load_dataset(cfg: DataConfig, ascending: bool = False):
     tokenizer = build_tokenizer(cfg, tr_utts)
     common = dict(
         buckets_frames=c.buckets, token_buckets=c.token_buckets, win=win, shift=shift,
-        half_batch_len=c.half_batch_len, wire_dtype=c.wire_dtype,
+        half_batch_len=c.half_batch_len, wire_dtype=c.wire_dtype, cache_bytes=c.cache_bytes,
+        num_workers=c.num_workers if num_workers is None else num_workers,
     )
     tr = BucketedLoader(tr_utts, tokenizer, c.batch_size, shuffle=not ascending,
                         ascending=ascending, **common)
@@ -294,11 +441,13 @@ def load_dataset(cfg: DataConfig, ascending: bool = False):
     return tr, dv, cfg.audio.output_dim, tokenizer.vocab_size, tokenizer, msg
 
 
-def load_eval_datasets(cfg: DataConfig, batch_size: Optional[int] = None):
+def load_eval_datasets(cfg: DataConfig, batch_size: Optional[int] = None,
+                       num_workers: Optional[int] = None):
     """Evaluation loaders for BOTH held-out splits (dev_split, test_split).
 
     The tokenizer is derived from the train split (same derivation as
-    training) unless data.text.vocab_file pins it. Returns
+    training) unless data.text.vocab_file pins it; ``num_workers`` None
+    takes ``data.corpus.num_workers``. Returns
     ({split_name: loader}, feat_dim, vocab, tokenizer, msg).
     """
     c = cfg.corpus
@@ -306,6 +455,7 @@ def load_eval_datasets(cfg: DataConfig, batch_size: Optional[int] = None):
     shift = int(cfg.audio.sample_rate * cfg.audio.frame_shift / 1000)
     tokenizer = build_tokenizer(cfg, corpus_mod.load_corpus(c.name, c.path, c.train_split))
     bs = c.batch_size if batch_size is None else batch_size
+    nw = c.num_workers if num_workers is None else num_workers
     loaders: Dict[str, BucketedLoader] = {}
     parts = []
     for split_name, splits in (("dev", c.dev_split), ("test", c.test_split)):
@@ -316,7 +466,7 @@ def load_eval_datasets(cfg: DataConfig, batch_size: Optional[int] = None):
             utts, tokenizer, bs,
             buckets_frames=c.buckets, token_buckets=c.token_buckets,
             win=win, shift=shift, half_batch_len=c.half_batch_len,
-            wire_dtype=c.wire_dtype,
+            wire_dtype=c.wire_dtype, num_workers=nw, cache_bytes=c.cache_bytes,
         )
         loaders[split_name] = ld
         parts.append(f"{split_name}={ld.num_utts} utts/{len(ld)} batches")

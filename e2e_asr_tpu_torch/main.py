@@ -1,10 +1,10 @@
 """CLI entry point, with the JAX package's flag surface.
 
     python -m e2e_asr_tpu_torch.main --config cfg.yaml              # train ASR
-        [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt]
+        [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt] [--njobs N]
         [--no-auto-resume] [-o KEY=VAL ...] [--cpu]
     python -m e2e_asr_tpu_torch.main --config cfg.yaml --test --load ckpt
-        [--name exp] [--outdir result/] [-o KEY=VAL ...] [--cpu]
+        [--name exp] [--outdir result/] [--njobs N] [-o KEY=VAL ...] [--cpu]
     python -m e2e_asr_tpu_torch.main --config lm.yaml --lm        # train the RNN-LM
         [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt] [-o KEY=VAL ...] [--cpu]
 
@@ -12,7 +12,8 @@ Training and decoding run on the card unless ``--cpu`` is given (without
 CUDA and without ``--cpu`` they raise). ``--lm`` trains the LM that a decode
 config fuses in (``decode.lm_weight``, ``decode.lm_path``); ``--lm --test``
 raises, as in the JAX package (the LM's dev perplexity is part of its
-training logs).
+training logs). ``--njobs`` is the number of threads that fill the train,
+dev and eval batches ahead of the step (0: on the calling thread).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--load", default=None, type=str,
                    help="checkpoint (convert.save_checkpoint) to resume from / decode")
     p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--njobs", default=2, type=int, help="loader threads filling batches ahead")
     p.add_argument("--test", action="store_true", help="evaluation (beam decode)")
     p.add_argument("--lm", action="store_true", help="RNN-LM task")
     p.add_argument("--no-msg", action="store_true")

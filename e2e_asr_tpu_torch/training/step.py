@@ -2,7 +2,9 @@
 
 Counterpart of ``e2e_asr_tpu/training/step.py``: features (with dither) ->
 SpecAugment -> encoder -> both heads -> joint loss -> gradients -> global
-norm -> clip + update, with the NaN/inf step skip. Loss conventions:
+norm -> clip + update, with the NaN/inf step skip. A batch is streaming
+(``wav``) or offsets into the device-resident corpus (``resolve_wav``
+gathers its waves). Loss conventions:
 
 - attention head: cross-entropy over the non-pad target tokens, mean over
   them;
@@ -46,6 +48,32 @@ def param_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in param_leaves(v)]
     return [tree]
+
+
+def resolve_wav(batch: Dict[str, torch.Tensor], n_samples: int = 0):
+    """(wav, wav_len) of a batch in either form (``e2e_asr_tpu/training/
+    step.py`` ``resolve_wav``).
+
+    A streaming batch carries ``wav``. An offsets batch carries ``wav_off``
+    [B], the device-resident flat int16 corpus under ``corpus`` and
+    ``n_samples`` (the argument, where given, stands in for it); row b is
+    the ``n_samples`` samples from ``wav_off[b]``, the start clamped to the
+    buffer as ``lax.dynamic_slice`` clamps it, and every sample at or past
+    ``wav_len[b]`` is zeroed: the zero-padded streaming batch, bitwise.
+    Plain indexing of a strided view; no host synchronisation."""
+    if batch.get("wav") is not None:
+        return batch["wav"], batch["wav_len"]
+    n = int(n_samples or batch.get("n_samples", 0))
+    if n <= 0:
+        raise ValueError("an offsets batch needs its n_samples")
+    flat = batch["corpus"]
+    if flat.shape[0] < n:
+        raise ValueError(f"flat corpus of {flat.shape[0]} samples is shorter than a {n}-sample row")
+    off = torch.clamp(batch["wav_off"].long(), 0, flat.shape[0] - n)
+    wav = flat.unfold(0, n, 1)[off]  # [B, n]: rows of the [len - n + 1, n] view
+    wav_len = batch["wav_len"]
+    pos = torch.arange(n, device=wav.device)[None, :]
+    return wav.masked_fill(pos >= wav_len[:, None], 0), wav_len
 
 
 def compute_loss(
@@ -155,13 +183,14 @@ class Trainer:
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator], sample_decoding: bool = True):
-        """One update in place. Returns metrics (tensors), with the pre-clip
-        ``grad_norm``, ``tf_rate``, ``step_skipped`` and ``device_wait_s``
-        (host seconds spent waiting for the device at the finiteness
-        check)."""
+        """One update in place from a batch in either form (``resolve_wav``).
+        Returns metrics (tensors), with the pre-clip ``grad_norm``,
+        ``tf_rate``, ``step_skipped`` and ``device_wait_s`` (host seconds
+        spent waiting for the device at the finiteness check)."""
         tf = tf_rate(self.cfg.hparas, state.step)
+        wav, wav_len = resolve_wav(batch)
         metrics = update_step(state, self.opt, lambda params: compute_loss(
-            params, self.cfg, batch["wav"], batch["wav_len"], batch["text"], batch["text_len"], tf,
+            params, self.cfg, wav, wav_len, batch["text"], batch["text_len"], tf,
             generator, train=True, sample_decoding=sample_decoding))
         metrics["tf_rate"] = torch.tensor(tf)
         return metrics
@@ -169,8 +198,9 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, params, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Teacher-forced losses and greedy per-head predictions."""
+        wav, wav_len = resolve_wav(batch)
         _, metrics = compute_loss(
-            params, self.cfg, batch["wav"], batch["wav_len"], batch["text"], batch["text_len"],
+            params, self.cfg, wav, wav_len, batch["text"], batch["text_len"],
             tf=1.0, generator=None, train=False,
         )
         return metrics

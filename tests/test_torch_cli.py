@@ -184,6 +184,99 @@ def test_train_cli_on_cpu_then_resume_and_decode(tmp_path):
     assert set(ers) == {"dev", "test"} and all(np.isfinite(v) for v in ers.values())
 
 
+def _train_latest(tmp_path, capsys, name, *args):
+    """main --cpu on the tiny recipe for 2 steps (+ validation): the
+    ``latest`` checkpoint and the input line the solver logged."""
+    train_yaml = _tiny_train_yaml(tmp_path)
+    capsys.readouterr()
+    cli_main(["--config", str(train_yaml), "--cpu", "--name", name, "--logdir", str(tmp_path / "log"),
+              "--ckpdir", str(tmp_path / "ckpt"), *args])
+    inputs = [line for line in capsys.readouterr().out.splitlines() if line.startswith("[INFO] Input:")]
+    assert len(inputs) == 1, inputs
+    return torch.load(tmp_path / "ckpt" / name / "latest", weights_only=True), inputs[0]
+
+
+def _assert_same_checkpoint(a, b):
+    from e2e_asr_tpu_torch.training.step import param_leaves
+
+    assert a["step"] == b["step"] == 2
+    for part in ("params", "opt_state"):
+        la, lb = param_leaves(a[part]), param_leaves(b[part])
+        assert len(la) == len(lb) > 0
+        for x, y in zip(la, lb):
+            assert torch.equal(torch.as_tensor(x), torch.as_tensor(y)), part
+
+
+def test_train_cli_njobs_gives_the_same_checkpoint(tmp_path, capsys):
+    """--njobs 0 (batches filled on the training thread) and --njobs 2 (two
+    loader threads) train to the same ``latest`` checkpoint, bitwise, each
+    through the prefetcher and the input mode it logs."""
+    serial, line0 = _train_latest(tmp_path, capsys, "nj0", "--njobs", "0", "-o", "data.corpus.device_cache=off")
+    threaded, line2 = _train_latest(tmp_path, capsys, "nj2", "--njobs", "2", "-o", "data.corpus.device_cache=off")
+    assert "streaming" in line0 and "0 loader threads" in line0
+    assert "streaming" in line2 and "2 loader threads" in line2
+    _assert_same_checkpoint(serial, threaded)
+
+
+def test_train_cli_device_cache_gives_the_same_checkpoint(tmp_path, capsys):
+    """-o data.corpus.device_cache=on (the corpus uploaded once, offsets a
+    step), =off (streaming) and the default auto (on: the tiny corpus fits)
+    train to the same ``latest`` checkpoint, bitwise; a limit below the
+    corpus's bytes makes auto stream; a value outside auto/on/off raises."""
+    on, line_on = _train_latest(tmp_path, capsys, "on", "-o", "data.corpus.device_cache=on")
+    off, line_off = _train_latest(tmp_path, capsys, "off", "-o", "data.corpus.device_cache=off",
+                                  "-o", "data.corpus.cache_bytes=0")
+    auto, line_auto = _train_latest(tmp_path, capsys, "auto")
+    small, line_small = _train_latest(tmp_path, capsys, "small", "-o", "data.corpus.device_cache_bytes=1000")
+    assert "device-resident corpus" in line_on and "flat_corpus" in line_on and "MB int16" in line_on
+    assert "streaming" in line_off and "device_cache off" in line_off
+    assert "device-resident corpus" in line_auto
+    assert "streaming" in line_small and "device_cache auto" in line_small
+    for other in (off, auto, small):
+        _assert_same_checkpoint(on, other)
+    with pytest.raises(ValueError, match="device_cache"):
+        _train_latest(tmp_path, capsys, "bad", "-o", "data.corpus.device_cache=always")
+
+
+def test_decode_cli_through_the_prefetcher_writes_the_same_csvs(tmp_path):
+    """main --test through the prefetcher (--njobs 0 and 2) writes the csvs
+    that decoding each loader batch directly on the calling thread gives,
+    and reports the time it waited on the input."""
+    from e2e_asr_tpu_torch.bin.test_asr import Solver
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.main import apply_overrides, build_parser
+
+    decode_yaml, ckpt, _ = _decode_setup(tmp_path, n_eval=5)
+    out = tmp_path / "res"
+    for nj in ("0", "2"):
+        cli_main(["--config", str(decode_yaml), "--test", "--cpu", "--load", ckpt, "--name", f"nj{nj}",
+                  "--outdir", str(out), "--no-msg", "--njobs", nj])
+    paras = build_parser().parse_args(["--config", str(decode_yaml), "--test", "--cpu", "--load", ckpt,
+                                       "--name", "direct", "--outdir", str(out), "--njobs", "0"])
+    paras.verbose = False
+    solver = Solver(apply_overrides(Config.load(paras.config), []), paras, "test")
+    solver.load_data()
+    solver.set_model()
+    for split, loader in solver.eval_sets.items():
+        want = [["idx", "truth", "prediction"]]
+        for batch in loader.epoch():
+            res = solver.decode_batch(torch.from_numpy(batch.wav), torch.from_numpy(batch.wav_len))
+            for i, uid in enumerate(batch.uids):
+                if uid:
+                    toks = res.tokens[i, 0, : res.lengths[i, 0]].numpy()
+                    want.append([uid, solver.tokenizer.decode(batch.text[i]), solver.tokenizer.decode(toks)])
+        assert len(want) == 1 + loader.num_utts > 2
+        for nj in ("0", "2"):
+            with open(out / f"nj{nj}" / f"output_{split}.csv") as f:
+                assert list(csv.reader(f, delimiter="\t")) == want, (split, nj)
+        with open(out / "nj0" / f"beam_{split}.csv") as a, open(out / "nj2" / f"beam_{split}.csv") as b:
+            assert a.read() == b.read()
+    solver.exec()
+    for split, st in solver.stats.items():
+        assert st["utts"] == solver.eval_sets[split].num_utts
+        assert 0.0 <= st["input_s"] <= st["wall_s"] and st["decode_s"] > 0
+
+
 def test_train_cli_routes_fused_scan_and_lstm_seq(tmp_path, monkeypatch):
     """-o model.decoder.fused_scan=pallas and -o model.encoder.rnn_impl=pallas
     send the CLI's training through the fused scan (with failing coins and

@@ -32,7 +32,11 @@ memory), at the convergence recipe's widths with B = 32, and twice on the
 same inputs (bitwise equal); the kernels' shared-memory plan over grids of
 8 to 132 blocks; the LM's one-direction layer through the lstm_seq pair at
 its width (B = 32, D = H = 512, T = 256, a row of length 0) and the LM's
-part of a fused beam step with no host synchronisation. Marked ``cuda``: they skip without a card. Run on the card with
+part of a fused beam step with no host synchronisation; the prefetcher's
+batches equal the loader's (streaming, and offsets gathered by
+resolve_wav), its consumer side and the gather make no host
+synchronisation, and its copies come from pinned memory on a stream of
+their own. Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
@@ -874,3 +878,111 @@ def test_fused_lm_step_makes_no_host_sync(gen):
     for s in states[1:]:
         assert all(torch.equal(x[:, frozen], y[:, frozen]) for x, y in zip(s, state))
         assert bool((s[0][:, act_bw] != 0).any())
+
+
+# ------------------------------------------------------------ the input path
+def _card_loader(workers=2):
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.data.dataset import BucketedLoader, build_tokenizer
+
+    utts = corpus.load_corpus("synthetic", "", ["train:24"])
+    tok = build_tokenizer(Config.from_dict({"data": {"text": {"mode": "character"}}}).data, utts)
+    return BucketedLoader(utts, tok, 4, buckets_frames=[100, 208, 416], token_buckets=[24, 32, 48],
+                          win=400, shift=160, shuffle=True, num_workers=workers)
+
+
+def _card_put(corpus_buf=None):
+    from e2e_asr_tpu_torch.data.prefetch import to_device
+
+    def put(b):
+        keys = ("wav_len", "text", "text_len") + (("wav",) if b.wav is not None else ("wav_off",))
+        out = {k: to_device(getattr(b, k), _dev()) for k in keys}
+        if b.wav is None:
+            out.update(corpus=corpus_buf, n_samples=b.n_samples)
+        return out
+    return put
+
+
+def test_prefetched_batches_equal_host_batches(gen):
+    """Streaming and offsets batches through the prefetcher's stream: the
+    device batch (after resolve_wav) equals the host batch, bitwise, in the
+    loader's order over two epochs."""
+    from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+    from e2e_asr_tpu_torch.training.step import resolve_wav
+
+    loader = _card_loader()
+    stream = [b for e in (0, 1) for b in loader.epoch(e)]
+    pf = DevicePrefetcher(loader.forever(), _card_put(), depth=2, device=_dev())
+    try:
+        for want in stream:
+            hb, db = next(pf)
+            assert hb.uids == want.uids and db["wav"].is_cuda
+            for k in ("wav", "wav_len", "text", "text_len"):
+                assert np.array_equal(db[k].cpu().numpy(), getattr(want, k)), k
+    finally:
+        pf.close()
+    flat, _ = loader.flat_corpus()
+    pf = DevicePrefetcher(loader.forever(), _card_put(to_device(flat, _dev())), depth=2, device=_dev())
+    try:
+        for want in stream:
+            hb, db = next(pf)
+            assert hb.wav is None and hb.uids == want.uids
+            wav, _ = resolve_wav(db)
+            assert np.array_equal(wav.cpu().numpy(), want.wav)
+    finally:
+        pf.close()
+
+
+def test_prefetch_next_and_resolve_wav_make_no_host_sync(gen):
+    """The consumer's next() (its stream waits on the copy's event) and the
+    offsets batch's gather run under the sync debug mode set to raise, the
+    prefetch thread's pinned copies with them."""
+    from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
+    from e2e_asr_tpu_torch.training.step import resolve_wav
+
+    loader = _card_loader()
+    want = list(loader.epoch(0))
+    flat, _ = loader.flat_corpus()
+    pf = DevicePrefetcher(loader.epoch(0), _card_put(to_device(flat, _dev())), depth=2, device=_dev())
+    try:
+        _, db = next(pf)
+        resolve_wav(db)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = [resolve_wav(db)[0] for _, db in [next(pf) for _ in range(len(want) - 1)]]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        pf.close()
+    for g, w in zip(got, want[1:], strict=True):
+        assert np.array_equal(g.cpu().numpy(), w.wav)
+
+
+def test_prefetch_copies_come_from_pinned_memory(gen):
+    """Every host-to-device copy of a prefetched batch is from pinned host
+    memory (the profiler's memcpy kind), issued on the prefetcher's own
+    stream."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher
+
+    loader = _card_loader()
+    x = torch.zeros(1 << 16, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pf = DevicePrefetcher(loader.epoch(0), _card_put(), depth=2, device=_dev())
+        try:
+            n = 0
+            for _ in pf:
+                x.add_(1.0)  # a kernel on the consumer's stream
+                n += 1
+        finally:
+            pf.close()
+        torch.cuda.synchronize()
+    assert n == len(loader) and float(x[0]) == n
+    cuda_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    htod = [e for e in cuda_events if "HtoD" in e.name]
+    kernels = [e for e in cuda_events if "Memcpy" not in e.name and "Memset" not in e.name]
+    assert len(htod) >= 4 * n, [e.name for e in htod][:8]
+    assert all("Pinned" in e.name for e in htod), sorted({e.name for e in htod})
+    assert kernels and not ({e.device_resource_id for e in htod} & {e.device_resource_id for e in kernels})

@@ -466,16 +466,23 @@ def test_schedules_match_jax():
         np.testing.assert_allclose(tf_rate(h, step), float(jtf_rate(h, step)), rtol=1e-6)
 
 
-@pytest.mark.parametrize("curriculum,skip,wire", [
-    pytest.param(1, 0, "int16", id="1-0"),
-    pytest.param(0, 5, "int16", id="0-5"),
-    pytest.param(1, 0, "float32", id="1-0-float32"),
+@pytest.mark.parametrize("curriculum,skip,wire,workers", [
+    pytest.param(1, 0, "int16", 0, id="1-0"),
+    pytest.param(0, 5, "int16", 0, id="0-5"),
+    pytest.param(1, 0, "float32", 0, id="1-0-float32"),
+    pytest.param(1, 0, "int16", 2, id="1-0-w2"),
+    pytest.param(0, 5, "int16", 2, id="0-5-w2"),
+    pytest.param(0, 5, "float32", 2, id="0-5-float32-w2"),
+    pytest.param(1, 0, "int16", 4, id="1-0-w4"),
+    pytest.param(0, 5, "int16", 4, id="0-5-w4"),
+    pytest.param(1, 0, "float32", 4, id="1-0-float32-w4"),
 ])
-def test_train_loader_order_matches_jax(curriculum, skip, wire):
+def test_train_loader_order_matches_jax(curriculum, skip, wire, workers):
     """The training data trajectory: a length-ascending first epoch with
     curriculum, shuffled epochs (RandomState(seed + epoch)) after it, and a
     resumed run's skip_steps, batch for batch as the JAX loader gives it;
-    with either wire dtype (float32 waves pass through int16 as in JAX)."""
+    with either wire dtype (float32 waves pass through int16 as in JAX),
+    filled on the calling thread or by ``workers`` threads."""
     from e2e_asr_tpu.data.dataset import load_dataset as jload
 
     from e2e_asr_tpu_torch.data.dataset import load_dataset as tload
@@ -485,8 +492,9 @@ def test_train_loader_order_matches_jax(curriculum, skip, wire):
                     "wire_dtype": wire},
          "audio": {"feat_dim": FEAT_DIM}, "text": {"mode": "character"}}
     jc, tc = JConfig.from_dict({"data": d}), TConfig.from_dict({"data": d})
-    jtr = jload(jc.data, ascending=curriculum > 0, num_workers=0)[0]
-    ttr = tload(tc.data, ascending=curriculum > 0)[0]
+    jtr = jload(jc.data, ascending=curriculum > 0, num_workers=workers)[0]
+    ttr = tload(tc.data, ascending=curriculum > 0, num_workers=workers)[0]
+    assert ttr.num_workers == workers
     assert len(ttr) == len(jtr)
     ji = jtr.forever(curriculum_epochs=curriculum, skip_steps=skip)
     ti = ttr.forever(curriculum_epochs=curriculum, skip_steps=skip)
