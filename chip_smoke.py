@@ -33,11 +33,16 @@
 3. Drives the serving path: the flagship-width model from a fixed seed
    decodes 16 synthetic utterances in the 816-frame bucket (beam 16,
    ctc_weight 0.3, lm_weight 0) through ``bin/test_asr.Solver`` on the
-   card, and checks that every decode kernel was launched in that run; the
-   profiler counts the device launches of one decoded batch. The
-   same batch is then decoded with the kernels and with the plain versions
-   on the card: the top-beam scores must agree and the top hypotheses be
-   identical. All of this runs twice: under the default LSTM route
+   card, its beam steps replaying the CUDA graphs the solver captured for
+   the bucket (decode/beam_graph.py; the capture time is printed), and
+   checks that every decode kernel was launched in that run, the two
+   decode kernels once a beam step. The same batch is then decoded through
+   the graphs and through the eager loop (``graphs=False``): tokens,
+   lengths and scores must be bitwise equal and the launch counts the
+   same; the profiler counts the device launches and the launches the host
+   issued of each. The batch is decoded with the kernels and with the plain
+   versions on the card (eager loop): the top-beam scores must agree and
+   the top hypotheses be identical. All of this runs twice: under the default LSTM route
    (``encoder.rnn_impl`` auto: one matmul + lstm_seq) and with the
    fused-projection kernel pinned (``rnn_impl`` pallas); the two routes'
    top-beam scores must agree too. Then the same batch with a seed-0 RNN-LM
@@ -1620,10 +1625,10 @@ def decode_in_turns(solvers: dict, batch) -> dict:
     for name in names + names[::-1]:
         r = profile_run(lambda: solvers[name].decode_batch(wav, wav_len), audio_s)
         runs[name].append({k: r[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share", "kernel_launches",
-                                             "audio_s_per_s")})
+                                             "host_launches", "audio_s_per_s")})
         print(f"  {name}: wall {r['wall_ms']:.1f} ms, device busy {r['device_busy_ms']:.1f} ms, idle "
-              f"{r['device_idle_share']:.3f}, {r['kernel_launches']} launches, "
-              f"{r['audio_s_per_s']:.1f} audio-s/s", flush=True)
+              f"{r['device_idle_share']:.3f}, {r['kernel_launches']} launches ({r['host_launches']} issued by the "
+              f"host), {r['audio_s_per_s']:.1f} audio-s/s", flush=True)
     return runs
 
 
@@ -1791,21 +1796,31 @@ def loader_phase(smi):
 def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
     """The dev split decoded through ``Solver.exec`` with the BiLSTM layers
     on route ``impl``, the decode kernels' launch counts set to 0 just
-    before and read just after; then the same batch with the kernels and
-    with the plain versions on the card: top-beam scores within rel 1e-3 and
-    identical top hypotheses. ``tag`` names the run in what is printed
-    (the solver's lm_weight, where an LM is fused in)."""
+    before and read just after (the beam steps replay the solver's CUDA
+    graphs, captured by the warm-up); then the same batch through the graphs
+    and through the eager loop (tokens, lengths and scores bitwise equal,
+    the same launch counts) and with the kernels and with the plain
+    versions on the card (eager loop): top-beam scores within rel 1e-3 and
+    identical top hypotheses. ``tag`` names the run in what is printed (the
+    solver's lm_weight, where an LM is fused in)."""
     from torch.profiler import ProfilerActivity, profile
 
     from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import host_launches
     from e2e_asr_tpu_torch.decode.ctc_prefix_cuda import prefix_scores_fused
     from e2e_asr_tpu_torch.ops.att_step_cuda import att_step_beam_loc
     from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
 
     solver.config.model.encoder.rnn_impl = impl
     wav, wav_len = solver.put(batch.wav, batch.wav_len)
-    solver.decode_batch(wav, wav_len)  # warm-up (cuBLAS/cuDNN handles)
+    steps = solver.max_step_for(batch.wav.shape[1])
+    n_captures = len(solver.beam_graphs.captures)
+    solver.decode_batch(wav, wav_len)  # warm-up: captures the beam step (once for the solver's weights)
+    solver.decode_batch(wav, wav_len, graphs=False)  # and the eager loop's
     torch.cuda.synchronize()
+    capture_s = [sec for _, sec in solver.beam_graphs.captures[n_captures:]]
+    print(f"beam step graphs (rnn_impl {impl}{tag}): {len(solver.beam_graphs.graphs)} captured for the solver, "
+          f"this warm-up's capture {capture_s} s", flush=True)
     wrappers = {"log_mel": log_mel, lstm_fwd[0]: lstm_fwd[1],
                 "att_step_beam_loc": att_step_beam_loc, "prefix_recursion": prefix_scores_fused}
     for fn in wrappers.values():
@@ -1816,6 +1831,9 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
     for name, cnt in launches.items():
         if cnt <= 0:
             fail(f"kernel {name} was not launched on the decode path (rnn_impl {impl}{tag})")
+    for name in ("att_step_beam_loc", "prefix_recursion"):
+        if launches[name] != steps:
+            fail(f"{name}: {launches[name]} launches in a decoded batch of {steps} beam steps")
     st = dict(solver.stats["dev"])
     rate = st["audio_sec"] / st["wall_s"]
     print(f"e2e (rnn_impl {impl}{tag}): {st['utts']} utts, {st['audio_sec']:.2f} audio-s in {st['wall_s']:.3f}s "
@@ -1823,24 +1841,40 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
           f"input_s {st['input_s'] * 1e3:.2f} ms (the wait on the prefetcher), decode_s {st['decode_s']:.3f}s",
           flush=True)
 
-    # device launches of one decoded batch and of one beam step (profiler)
-    steps = solver.max_step_for(batch.wav.shape[1])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        solver.decode_batch(wav, wav_len)
-        torch.cuda.synchronize()
-    batch_launches = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
-    print(f"decode launches (rnn_impl {impl}{tag}): {batch_launches} a batch of {steps} beam steps, "
-          f"{batch_launches / steps:.1f} a step", flush=True)
+    # ---- the graphs against the eager loop: results, counts, launches (profiler)
+    res, counts, device_l, host_l = {}, {}, {}, {}
+    for mode in ("graph", "eager"):
+        for fn in wrappers.values():
+            fn.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res[mode] = solver.decode_batch(wav, wav_len, graphs=mode == "graph")
+            torch.cuda.synchronize()
+        counts[mode] = {name: fn.launches for name, fn in wrappers.items()}
+        device_l[mode] = sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA)
+        host_l[mode] = host_launches(prof)
+        print(f"decode launches (rnn_impl {impl}{tag}, {mode}): {device_l[mode]} device launches a batch of "
+              f"{steps} beam steps ({device_l[mode] / steps:.1f} a step), {host_l[mode]} issued by the host "
+              f"({host_l[mode] / steps:.2f} a step)", flush=True)
+    diff = {k: float((getattr(res["graph"], k).double() - getattr(res["eager"], k).double()).abs().max())
+            for k in ("tokens", "lengths", "scores")}
+    bitwise = all(torch.equal(x, y) for x, y in zip(res["graph"], res["eager"]))
+    print(f"graph replay vs eager loop (rnn_impl {impl}{tag}): bitwise equal {bitwise} (max abs diff {diff}); "
+          f"kernel counts {counts['graph']} vs {counts['eager']}", flush=True)
+    if not bitwise:
+        fail("the graph replay and the eager loop decode differently")
+    if counts["graph"] != counts["eager"]:
+        fail("the graph replay and the eager loop count different launches")
 
     # ---- the same batch with kernels and with plain versions, on the card
-    res_k = solver.decode_batch(wav, wav_len)
+    res_k = res["eager"]
     t_p = time.time()
     with mock.patch.object(cuda_build, "use_plain", lambda x: True):
-        res_p = solver.decode_batch(wav, wav_len)
+        res_p = solver.decode_batch(wav, wav_len, graphs=False)
     torch.cuda.synchronize()
     print(f"plain-version decode of the batch: {time.time() - t_p:.2f}s", flush=True)
     sk, sp = res_k.scores[:, 0].double().cpu(), res_p.scores[:, 0].double().cpu()
-    if res_k.tokens.shape != (16, 16, solver.max_step_for(batch.wav.shape[1])):
+    if res_k.tokens.shape != (16, 16, steps):
         fail(f"unexpected token shape {tuple(res_k.tokens.shape)}")
     if not (torch.isfinite(sk).all() and torch.isfinite(sp).all()):
         fail("non-finite top-beam scores")
@@ -1856,7 +1890,9 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
         fail("kernel decode and plain decode differ in top hypotheses")
     return dict(launches=launches, e2e=st, audio_s_per_s=rate, top_score_rel_diff=score_err,
                 identical_top=same, top_tokens=res_k.tokens[:, 0].cpu(), top_scores=sk,
-                device_launches_a_batch=batch_launches, beam_steps=steps)
+                device_launches_a_batch=device_l["graph"], device_launches_a_batch_eager=device_l["eager"],
+                host_launches_a_batch=host_l["graph"], host_launches_a_batch_eager=host_l["eager"],
+                graph_vs_eager_bitwise=bitwise, capture_s=capture_s, beam_steps=steps)
 
 
 def main(json_path: str = "", parent: str = "") -> None:

@@ -2,7 +2,7 @@
 on the card.
 
     python -m e2e_asr_tpu_torch.bin.profile_decode [--train [--scan-phases]] [--rnn-impl IMPL]
-        [--lm-weight W] [--out PATH]
+        [--lm-weight W] [--eager] [--parent DIR] [--out PATH]
 
 Decode (default): decodes the chip smoke batch (16 synthetic utterances in
 the 816-frame bucket, flagship width, seed-0 weights, beam 16, ctc_weight
@@ -14,13 +14,28 @@ configs/libri/decode_example.yaml fuses its LM at 0.3). ``--train``: one trainin
 ctc_weight 0.5, tf 1.0, float32) on a batch of 16 synthetic utterances in
 the 816-frame bucket, through ``bin/train_asr.Solver``'s trainer.
 
+The decode replays the beam step's CUDA graphs (decode/beam_graph.py; the
+warm-up run captures them); ``--eager`` decodes through the eager loop of
+``beam_step`` instead (``beam_search(..., graphs=False)``).
+
 Either runs once to warm up, once timed by the host clock around a
 synchronised run, and once under ``torch.profiler``. Prints the wall time,
 the device's busy time (the sum of kernel times: one stream, so kernels do
 not overlap), its idle share of the unprofiled and of the profiled wall,
-and the kernels by device time. Writes the same as JSON to ``--out``
-(default ``e2e_asr_tpu_torch/_build/profile_decode.json``,
-``profile_decode_lm.json`` or ``profile_train.json``).
+the launches the host issued (runtime calls that launch a kernel or a
+graph) and the kernels the device ran, and the kernels by device time.
+Writes the same as JSON to ``--out`` (default
+``e2e_asr_tpu_torch/_build/profile_decode[_eager].json``,
+``profile_decode_lm[_eager].json`` or ``profile_train.json``).
+
+``--parent DIR`` (DIR: a checkout of the parent commit, e.g. a ``git
+archive`` under ``runs/``) profiles the decode in processes of their own in
+turns, parent, change, change, parent: in each, the batch without an LM and
+with one fused in at 0.3; the change's process through the graphs and
+through the eager loop in turns (graph, eager, eager, graph), the parent's
+its own loop twice; each run's wall the median of DECODE_REPS timed
+decodes. Prints wall, busy, idle share and host-issued launches a beam step
+of each (``profile_decode_turns.json``).
 
 ``--decode-phases`` instead splits one launch of each decode kernel into
 its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
@@ -53,6 +68,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import time
 import types
 
@@ -235,7 +251,7 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0):
+def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0, eager: bool = False):
     """(function that runs one unit of work, audio seconds in it). The
     training batch is one streaming batch on the device, repeated: an
     offsets batch (the smoke corpus is device-resident under
@@ -259,7 +275,7 @@ def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0):
     batch = next(solver.eval_sets["dev"].epoch())
     audio_s = float(batch.wav_len.sum()) / solver.config.data.audio.sample_rate
     wav, wav_len = solver.put(batch.wav, batch.wav_len)
-    return (lambda: solver.decode_batch(wav, wav_len)), audio_s
+    return (lambda: solver.decode_batch(wav, wav_len, graphs=not eager)), audio_s
 
 
 # ----------------------------------------------- the fused scan's phase split
@@ -644,19 +660,33 @@ def print_scan_phases(split: dict) -> None:
               f"{split[w + '_ms']:.2f} (global timer step {split['timer_step_ns']:.0f} ns)", flush=True)
 
 
-def profile_run(run, audio_s: float) -> dict:
-    """``run`` once to warm up, once timed by the host clock around a
-    synchronised run, once under ``torch.profiler``: the wall, the device's
-    busy time (the sum of kernel times: one stream), idle shares, launches
-    and the kernels by device time."""
+HOST_LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")  # runtime / driver API names
+
+
+def host_launches(prof) -> int:
+    """Launches the host issued under ``prof``: the runtime and driver calls
+    that launch a kernel (cooperative ones too) or a whole graph."""
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith(HOST_LAUNCH_CALLS))
+
+
+def profile_run(run, audio_s: float, reps: int = 1) -> dict:
+    """``run`` once to warm up, ``reps`` times timed by the host clock around
+    a synchronised run (``wall_ms`` their median), once under
+    ``torch.profiler``: the wall, the device's busy time (the sum of kernel
+    times: one stream), idle shares, the launches the host issued and the
+    kernels the device ran, and the kernels by device time."""
     run()  # warm-up
     torch.cuda.synchronize()
 
     # wall time without the profiler, host clock around a synchronised run
-    t0 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls)[len(walls) // 2]
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -673,12 +703,77 @@ def profile_run(run, audio_s: float) -> dict:
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
     return {
-        "wall_ms": wall_ms, "audio_s": audio_s, "audio_s_per_s": audio_s / (wall_ms / 1e3),
+        "wall_ms": wall_ms, "walls_ms": walls, "audio_s": audio_s, "audio_s_per_s": audio_s / (wall_ms / 1e3),
         "profiled_wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_idle_share_profiled": 1.0 - busy_ms / prof_wall_ms,
-        "kernel_launches": sum(r["count"] for r in rows), "kernels": rows,
+        "kernel_launches": sum(r["count"] for r in rows), "host_launches": host_launches(prof), "kernels": rows,
     }
+
+
+DECODE_REPS = 5  # timed decodes a run in the parent comparison
+# One tree's decode profiles (``--parent``), run in a process of its own
+# from the root of that tree: argv[1] the modes in order ("graph", "eager";
+# "loop": the tree's own decode_batch, the parent's). Prints one JSON line,
+# {lm_weight: [run, ...]}.
+_TURNS_DRIVER = """
+import json, os, sys
+from e2e_asr_tpu_torch.bin.profile_decode import smoke_solver
+res = {}
+for lm_weight in (0.0, 0.3):
+    solver = smoke_solver(os.path.join("e2e_asr_tpu_torch", "_build", "profile_turns"), 0, lm_weight=lm_weight)
+    batch = next(solver.eval_sets["dev"].epoch())
+    audio_s = float(batch.wav_len.sum()) / solver.config.data.audio.sample_rate
+    steps = solver.max_step_for(batch.wav.shape[1])
+    wav, wav_len = solver.put(batch.wav, batch.wav_len)
+    runs = []
+    for mode in sys.argv[1].split(","):
+        kw = {"graphs": mode == "graph"} if mode != "loop" else {}
+        r = profile_run(lambda: solver.decode_batch(wav, wav_len, **kw), audio_s, reps=int(sys.argv[2]))
+        r.pop("kernels")
+        runs.append({"mode": mode, "beam_steps": steps, **r})
+    res[str(lm_weight)] = runs
+print(json.dumps(res))
+"""
+
+
+def turns_script() -> str:
+    """``_TURNS_DRIVER`` with this module's profiling functions in its text,
+    so that every tree is measured by the same code."""
+    import inspect
+
+    head = "import time\nimport torch\n"
+    head += f"HOST_LAUNCH_CALLS = {HOST_LAUNCH_CALLS!r}\n"
+    for fn in (_device_time_us, host_launches, profile_run):
+        head += inspect.getsource(fn) + "\n"
+    return head + _TURNS_DRIVER
+
+
+def decode_turns(parent: str, card: str) -> dict:
+    """The flagship decode batch, unfused and fused at 0.3, in the parent's
+    checkout at ``parent`` and in this one, in processes of their own in
+    turns (parent, change, change, parent); this tree's through the graphs
+    and the eager loop in turns."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    script = turns_script()
+    out = {}
+    for which, path, modes in (("parent", parent, "loop,loop"), ("change", root, "graph,eager,eager,graph"),
+                               ("change", root, "graph,eager,eager,graph"), ("parent", parent, "loop,loop")):
+        path = os.path.abspath(path)
+        proc = subprocess.run([sys.executable, "-c", script, modes, str(DECODE_REPS)], cwd=path,
+                              capture_output=True, text=True, env={**os.environ, "PYTHONPATH": path}, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {which}'s decode profile failed:\n{proc.stderr[-3000:]}")
+        for lm_weight, runs in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+            for r in runs:
+                name = "parent" if which == "parent" else f"change {r['mode']}"
+                out.setdefault(lm_weight, {}).setdefault(name, []).append(r)
+                print(f"{card}: lm_weight {lm_weight} {name}: wall {r['wall_ms']:.1f} ms (timed "
+                      f"{', '.join(f'{w:.1f}' for w in r['walls_ms'])}), busy {r['device_busy_ms']:.1f} ms, idle "
+                      f"{r['device_idle_share']:.3f}, host launches {r['host_launches']} "
+                      f"({r['host_launches'] / r['beam_steps']:.2f} a beam step), device launches "
+                      f"{r['kernel_launches']}, {r['audio_s_per_s']:.1f} audio-s/s", flush=True)
+    return out
 
 
 def main(argv=None):
@@ -695,23 +790,34 @@ def main(argv=None):
                          "(default: the size the grid picks)")
     ap.add_argument("--lm-weight", type=float, default=0.0,
                     help="decode: fuse a seed-0 LM of configs/libri/lm_example.yaml's width at this weight")
+    ap.add_argument("--eager", action="store_true",
+                    help="decode through the eager loop of beam_step instead of the captured graphs")
+    ap.add_argument("--parent", default="",
+                    help="a checkout of the parent commit: decode profiles there and here in turns")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
     args = ap.parse_args(argv)
     if args.scan_phases and not args.train:
         ap.error("--scan-phases needs --train")
-    if args.lm_weight and (args.train or args.decode_phases):
-        ap.error("--lm-weight is an option of the decode profile")
+    if (args.lm_weight or args.eager or args.parent) and (args.train or args.decode_phases):
+        ap.error("--lm-weight, --eager and --parent are options of the decode profile")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
     what = ("scan_phases" if args.scan_phases else "decode_phases" if args.decode_phases
-            else "train" if args.train else "decode_lm" if args.lm_weight else "decode")
+            else "train" if args.train else "decode_turns" if args.parent
+            else ("decode_lm" if args.lm_weight else "decode") + ("_eager" if args.eager else ""))
     out = args.out or os.path.join(cuda_build.BUILD_DIR, f"profile_{what}.json")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.parent:
+        turns = decode_turns(args.parent, card)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"card": card, "reps": DECODE_REPS, "by_lm_weight": turns}, f, indent=1)
+        return
     if args.decode_phases:
         from e2e_asr_tpu_torch.device import resolve_device
 
@@ -752,16 +858,17 @@ def main(argv=None):
         with open(out, "w") as f:
             json.dump({"card": card, "by_cluster_size": splits}, f, indent=1)
         return
-    run, audio_s = _run_fn(args.train, args.rnn_impl, args.lm_weight)
+    run, audio_s = _run_fn(args.train, args.rnn_impl, args.lm_weight, args.eager)
     result = {"card": card, "what": what, "rnn_impl": args.rnn_impl, "lm_weight": args.lm_weight,
               **profile_run(run, audio_s)}
     unit = ("one train step (B=16)" if args.train
-            else f"decode (B=16, W=16, lm_weight {args.lm_weight:g})")
+            else f"decode (B=16, W=16, lm_weight {args.lm_weight:g}, {'eager loop' if args.eager else 'graphs'})")
     print(f"{card}: {unit} of {audio_s:.2f} audio-s wall {result['wall_ms']:.1f} ms = "
           f"{result['audio_s_per_s']:.1f} audio-s/s")
     print(f"profiled: wall {result['profiled_wall_ms']:.1f} ms, device busy {result['device_busy_ms']:.1f} ms, "
           f"idle share {result['device_idle_share']:.3f} of the unprofiled wall "
-          f"({result['device_idle_share_profiled']:.3f} profiled), {result['kernel_launches']} kernel launches")
+          f"({result['device_idle_share_profiled']:.3f} profiled), {result['kernel_launches']} kernel launches, "
+          f"{result['host_launches']} issued by the host")
     for r in result["kernels"][:25]:
         print(f"  {r['device_ms']:9.3f} ms  {r['count']:6d}x  {r['name'][:100]}")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

@@ -2,10 +2,13 @@
 
 Counterpart of ``e2e_asr_tpu/bin/test_asr.py``. Each eval batch goes
 through ``compute_features`` then ``beam_search`` on the chosen device, one
-bucket shape per batch. With ``decode.lm_weight`` > 0 the RNN-LM checkpoint
-``decode.lm_path`` (``bin/train_lm.py``; its ``lm`` section from the
-``decode.lm_config`` yaml, else this config's) is fused into the beam
-search. Writes <outdir>/<name>/output_{split}.csv (best
+bucket shape per batch. On the card the beam steps replay CUDA graphs
+(decode/beam_graph.py), captured once a bucket shape and kept on the
+solver for its weights, as the JAX package compiles its decode once a
+bucket shape; each capture and its time is logged. With
+``decode.lm_weight`` > 0 the RNN-LM checkpoint ``decode.lm_path``
+(``bin/train_lm.py``; its ``lm`` section from the ``decode.lm_config``
+yaml, else this config's) is fused into the beam search. Writes <outdir>/<name>/output_{split}.csv (best
 hypothesis vs truth per utterance) and beam_{split}.csv (every beam), with
 the JAX package's columns, and reports the split's error rate and decoded
 audio-seconds per second. The loader's threads fill the batches and a
@@ -28,6 +31,7 @@ from e2e_asr_tpu_torch.config import Config
 from e2e_asr_tpu_torch.data.dataset import load_eval_datasets
 from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from e2e_asr_tpu_torch.decode.beam import BeamResult, beam_search
+from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.metrics import edit_distance
 from e2e_asr_tpu_torch.models.encoder import total_downsample
@@ -85,6 +89,8 @@ class Solver:
                 f"data {self.vocab_size}/{self.feat_dim}"
             )
         self.params = payload["params"]
+        # the beam step's CUDA graphs, by bucket shape, for these weights
+        self.beam_graphs = BeamGraphs(log=self.verbose)
         self.verbose(f"Loaded ASR ckpt from {self.ckpt} on {self.device}")
         self.lm_params, self.lm_cfg = None, None
         dcfg = self.config.decode
@@ -117,12 +123,15 @@ class Solver:
         return to_device(wav, self.device), to_device(wav_len, self.device)
 
     @torch.inference_mode()
-    def decode_batch(self, wav: torch.Tensor, wav_len: torch.Tensor) -> BeamResult:
-        """Beam-decodes one batch given as tensors on the solver's device."""
+    def decode_batch(self, wav: torch.Tensor, wav_len: torch.Tensor, graphs: bool = True) -> BeamResult:
+        """Beam-decodes one batch given as tensors on the solver's device;
+        on the card through the solver's graphs, or with ``graphs=False``
+        through the eager loop (for comparison)."""
         feat, feat_len = compute_features(wav, wav_len, self.config.data.audio)
         return beam_search(
             self.params, self.config.model, self.config.decode, feat, feat_len,
             self.max_step_for(wav.shape[1]), lm_params=self.lm_params, lm_cfg=self.lm_cfg,
+            graphs=graphs, graph_cache=self.beam_graphs,
         )
 
     def exec(self):

@@ -207,6 +207,27 @@ def _assert_same_checkpoint(a, b):
             assert torch.equal(torch.as_tensor(x), torch.as_tensor(y)), part
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_train_cli_logs_the_compute_dtype(tmp_path, capsys, dtype):
+    """A recipe whose hparas.dtype is bfloat16 (every shipped training
+    recipe) trains one step in float32, and the solver says so beside the
+    recipe's dtype; a float32 recipe gets no such line."""
+    train_yaml = _tiny_train_yaml(tmp_path, max_step=1)
+    d = yaml.safe_load(train_yaml.read_text())
+    d["hparas"]["dtype"] = dtype
+    train_yaml.write_text(yaml.safe_dump(d))
+    capsys.readouterr()
+    cli_main(["--config", str(train_yaml), "--cpu", "--name", dtype, "--logdir", str(tmp_path / "log"),
+              "--ckpdir", str(tmp_path / "ckpt")])
+    lines = [line for line in capsys.readouterr().out.splitlines() if "Compute dtype" in line]
+    assert torch.load(tmp_path / "ckpt" / dtype / "latest", weights_only=True)["step"] == 1
+    if dtype == "float32":
+        assert lines == []
+    else:
+        assert lines == ["[INFO] Compute dtype: float32, not the recipe's hparas.dtype bfloat16 (the port trains "
+                         "in float32 until bf16 is ported: ROADMAP Queue 1 item 4)"]
+
+
 def test_train_cli_njobs_gives_the_same_checkpoint(tmp_path, capsys):
     """--njobs 0 (batches filled on the training thread) and --njobs 2 (two
     loader threads) train to the same ``latest`` checkpoint, bitwise, each

@@ -36,7 +36,13 @@ part of a fused beam step with no host synchronisation; the prefetcher's
 batches equal the loader's (streaming, and offsets gathered by
 resolve_wav), its consumer side and the gather make no host
 synchronisation, and its copies come from pinned memory on a stream of
-their own. Marked ``cuda``: they skip without a card. Run on the card with
+their own; the beam search through CUDA graphs (decode/beam_graph.py) at
+test size, with and without an LM: replay bitwise equal to the eager loop
+with the same launch counts, a graph reused for a second batch and
+captured anew for a new shape or new weights, the whole beam step without
+host synchronisation, a capture beside a thread making pinned copies, the
+attention step captured as a cooperative kernel node in a chain of nodes,
+and a capture that fails raising (in a subprocess). Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
@@ -861,7 +867,8 @@ def test_fused_lm_step_makes_no_host_sync(gen):
 
     def lm_part(state):
         lm_lp, new = lm_mod.step(params, cfg, tok, state)
-        return step_lp + 0.3 * lm_lp.reshape(b, w, vocab), follow_parents(new, state, flat_parent, act_bw)
+        nxt = follow_parents(new, tuple(x.clone() for x in state), flat_parent, act_bw)  # (in place)
+        return step_lp + 0.3 * lm_lp.reshape(b, w, vocab), nxt
 
     lm_part(state)  # warm-up (cuBLAS handles)
     torch.cuda.synchronize()
@@ -986,3 +993,258 @@ def test_prefetch_copies_come_from_pinned_memory(gen):
     assert len(htod) >= 4 * n, [e.name for e in htod][:8]
     assert all("Pinned" in e.name for e in htod), sorted({e.name for e in htod})
     assert kernels and not ({e.device_resource_id for e in htod} & {e.device_resource_id for e in kernels})
+
+
+# ------------------------------------------- the beam search as CUDA graphs
+def _small_decode(lm: bool, seed: int = 0):
+    """(params, model cfg, decode cfg, lm params, lm cfg) of the flagship's
+    structure at test size (VGG prenet, two 32-wide BiLSTM layers, location
+    attention 16 / 3 filters / 11 taps, one 32-wide speller layer, CTC
+    head), beam 4, ctc_weight 0.3, an <eos> bias so that hypotheses finish
+    inside the length window; with ``lm`` a 2 x 16 LSTM LM fused at 0.4."""
+    from e2e_asr_tpu_torch.config import Config, LMConfig
+    from e2e_asr_tpu_torch.data.text import EOS_ID
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.models import lm as lm_mod
+
+    cfg = Config.from_dict({
+        "model": {
+            "ctc_weight": 0.5,
+            "encoder": {"prenet": "vgg", "dim": [32, 32], "dropout": [0.0, 0.0], "layer_norm": [False, False],
+                        "proj": [True, True], "sample_rate": [1, 1], "sample_style": "drop"},
+            "attention": {"mode": "location", "dim": 16, "num_head": 1, "loc_kernel_size": 5, "loc_kernel_num": 3},
+            "decoder": {"dim": 32, "layer": 1},
+        },
+        "decode": {"beam_size": 4, "ctc_weight": 0.3, "lm_weight": 0.4 if lm else 0.0, "max_len_ratio": 0.8,
+                   "min_len_ratio": 0.2},
+    })
+    params, _ = asr_mod.asr_init(seed, 40, 12, cfg.model, _dev())
+    params["decoder"]["char"]["b"][EOS_ID] += 2.5
+    lm_params = lm_cfg = None
+    if lm:
+        lm_cfg = LMConfig(emb_tying=False, emb_dim=8, dim=16, n_layers=2, dropout=0.0)
+        g = torch.Generator()
+        g.manual_seed(seed + 5)
+        lm_params = lm_mod.lm_init(g, 12, lm_cfg, _dev())
+    return params, cfg.model, cfg.decode, lm_params, lm_cfg
+
+
+def _small_feats(gen, b=3, t=64):
+    feat = torch.randn((b, t, 40), generator=gen, device="cuda")
+    feat_len = torch.tensor([t, 45, 30, 64, 50][:b], device="cuda", dtype=torch.int32)
+    return torch.where(torch.arange(t, device="cuda")[None, :, None] < feat_len[:, None, None], feat, 0.0), feat_len
+
+
+def _decode(setup, feat, feat_len, max_step=12, **kw):
+    from e2e_asr_tpu_torch.decode.beam import beam_search
+
+    params, cfg, dcfg, lm_params, lm_cfg = setup
+    return beam_search(params, cfg, dcfg, feat, feat_len, max_step, lm_params=lm_params, lm_cfg=lm_cfg, **kw)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_tree(v) for v in tree]
+    return tree
+
+
+def _launch_counts():
+    return (asc.att_step_beam_loc.launches, cpc.prefix_scores_fused.launches)
+
+
+def _zero_counts():
+    asc.att_step_beam_loc.launches = cpc.prefix_scores_fused.launches = 0
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["no-lm", "lm"])
+def test_graph_replay_equals_eager_loop_bitwise(gen, lm):
+    """Two batches of one shape decoded through one graph cache (the first
+    captures, the second replays) and through the eager loop: tokens,
+    lengths and scores bitwise equal; one capture; the decode kernels'
+    counts of a replayed decode, and of the capturing one, equal the eager
+    loop's (one a step)."""
+    from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
+
+    setup = _small_decode(lm)
+    cache = BeamGraphs()
+    for i in range(2):
+        feat, feat_len = _small_feats(gen)
+        _zero_counts()
+        got = _decode(setup, feat, feat_len, graph_cache=cache)
+        counts = _launch_counts()
+        _zero_counts()
+        want = _decode(setup, feat, feat_len, graphs=False)
+        assert _launch_counts() == counts == (12, 12), (i, counts)
+        for name, x, y in zip(("tokens", "lengths", "scores"), got, want):
+            assert torch.equal(x, y), (i, name)
+        assert len(cache.graphs) == len(cache.captures) == 1
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["no-lm", "lm"])
+def test_beam_step_makes_no_host_sync(gen, lm):
+    """The whole beam step (the speller, the attention and CTC prefix
+    kernels, the fused LM, top-k, the finished set, pruning, the in-place
+    state update) under PyTorch's sync debug mode set to raise, once the
+    libraries are built and the plans cached: no host synchronisation, as
+    the capture needs."""
+    from e2e_asr_tpu_torch.decode import beam
+
+    setup = _small_decode(lm)
+    feat, feat_len = _small_feats(gen)
+    _decode(setup, feat, feat_len, graphs=False)  # warm-up
+    params, cfg, dcfg, lm_params, lm_cfg = setup
+    with torch.inference_mode():
+        spec, inp = beam.prepare(params, cfg, dcfg, feat, feat_len, 12, lm_params, lm_cfg)
+        st = beam.init_state(spec, inp)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(3):
+                beam.beam_step(spec, inp, st, first=i == 0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert int(st.t) == 3 and bool(torch.isfinite(st.scores).all())
+
+
+def test_graphs_are_captured_anew_for_a_new_shape_or_new_weights(gen):
+    """A second batch of one shape replays its graph; another batch size,
+    another max_step or the same weights at other addresses capture anew,
+    and each decode equals the eager loop's."""
+    from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
+
+    setup = _small_decode(False)
+    clone = (_clone_tree(setup[0]),) + setup[1:]
+    cache = BeamGraphs()
+    runs = [(setup, 3, 12), (setup, 3, 12), (setup, 2, 12), (setup, 3, 14), (clone, 3, 12), (clone, 3, 12)]
+    for n, (s, b, max_step) in enumerate(runs):
+        feat, feat_len = _small_feats(gen, b=b)
+        got = _decode(s, feat, feat_len, max_step=max_step, graph_cache=cache)
+        want = _decode(s, feat, feat_len, max_step=max_step, graphs=False)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), n
+    assert len(cache.graphs) == len(cache.captures) == 4
+
+
+def test_capture_beside_a_copying_thread(gen):
+    """Capture (``capture_error_mode="thread_local"``) while another thread
+    does what the decode's prefetcher does: pinned copies on a stream of
+    its own, events, synchronising on them. The capture goes through, the
+    thread's copies arrive intact, and the decode equals the eager loop."""
+    import threading
+
+    import numpy as np
+
+    from e2e_asr_tpu_torch.data.prefetch import to_device
+    from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
+
+    setup = _small_decode(True)
+    feat, feat_len = _small_feats(gen)
+    stop, errors, copies = threading.Event(), [], [0]
+
+    def copier():
+        try:
+            side = torch.cuda.Stream()
+            host = np.arange(1 << 18, dtype=np.int16)
+            while not stop.is_set():
+                with torch.cuda.stream(side):
+                    x = to_device(host, _dev())
+                    ev = torch.cuda.Event()
+                    ev.record(side)
+                ev.synchronize()
+                assert int(x[-1]) == int(host[-1])
+                copies[0] += 1
+        except BaseException as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    th = threading.Thread(target=copier, daemon=True)
+    th.start()
+    try:
+        got = _decode(setup, feat, feat_len, graph_cache=BeamGraphs())
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    assert not errors, errors
+    assert copies[0] > 0
+    want = _decode(setup, feat, feat_len, graphs=False)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def test_attention_step_is_a_cooperative_kernel_node(gen, tmp_path):
+    """A later beam step captured as decode/beam_graph.py captures it (after
+    an eager step on the side stream), with the graph's debug mode on: the
+    DOT dump shows the attention step as a kernel node whose cooperative
+    attribute is set (the runtime keeps cudaLaunchAttributeCooperative under
+    stream capture), and the nodes form one chain in stream order, so no
+    node starts while the cooperative grid still runs (none can reuse its
+    scratch early)."""
+    import re
+
+    from e2e_asr_tpu_torch.decode import beam
+
+    params, cfg, dcfg, lm_params, lm_cfg = _small_decode(False)
+    feat, feat_len = _small_feats(gen)
+    with torch.inference_mode():
+        spec, inp = beam.prepare(params, cfg, dcfg, feat, feat_len, 12, lm_params, lm_cfg)
+        st = beam.init_state(spec, inp)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            beam.beam_step(spec, inp, st, first=True)
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph(keep_graph=True)  # keeps the cudaGraph_t for the dump
+        g.enable_debug_mode()
+        before = _launch_counts()
+        with torch.cuda.graph(g, stream=side, capture_error_mode="thread_local"):
+            beam.beam_step(spec, inp, st, first=False)
+    path = tmp_path / "beam_step.dot"
+    g.debug_dump(str(path))
+    dot = path.read_text()
+    # a node: "graph_i_node_j"[... label="{KERNEL | ... | {cooperative | 1} ...}"]; an edge: "a" -> "b" [...]
+    nodes = dict(re.findall(r'^"(graph_\d+_node_\d+)"\[(.*?)\];', dot, flags=re.S | re.M))
+    edges = re.findall(r'^"(graph_\d+_node_\d+)"\s*->\s*"(graph_\d+_node_\d+)"', dot, flags=re.M)
+    att = [label for label in nodes.values() if "att_step_kernel" in label]
+    assert len(att) == 1 == _launch_counts()[0] - before[0], (len(att), dot[:3000])
+    assert "{cooperative | 1}" in att[0], att[0]
+    assert len(nodes) > 50 and len(edges) == len(nodes) - 1, (len(nodes), len(edges))
+    assert len({b for _, b in edges}) == len(edges) and len({a for a, _ in edges}) == len(edges)
+
+
+_SYNC_IN_CAPTURE = """
+import importlib.util, sys, torch
+spec = importlib.util.spec_from_file_location("card_tests", "tests/test_torch_cuda.py")
+card = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(card)
+from e2e_asr_tpu_torch.decode import beam
+from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
+step = beam.beam_step
+def syncing_step(spec, inp, st, first):
+    step(spec, inp, st, first)
+    float(st.scores.sum())  # a host synchronisation: illegal while capturing
+beam.beam_step = syncing_step
+g = torch.Generator(device="cuda")
+g.manual_seed(0)
+feat, feat_len = card._small_feats(g)
+try:
+    card._decode(card._small_decode(False), feat, feat_len, graph_cache=BeamGraphs())
+except RuntimeError as e:
+    print("RAISED", type(e).__name__, str(e).splitlines()[0][:200])
+    sys.exit(0)
+print("NO ERROR")
+"""
+
+
+def test_a_failing_capture_raises(gen):
+    """A step that synchronises with the host cannot be captured: the decode
+    raises (it does not fall back to the eager loop). In a subprocess, since
+    a failed capture may leave the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _SYNC_IN_CAPTURE], cwd=root, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": root})
+    assert res.returncode == 0 and "RAISED" in res.stdout, res.stdout + res.stderr[-3000:]
