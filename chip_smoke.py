@@ -97,8 +97,28 @@
    share, median audio-s/s, flat_corpus seconds and MB, host RSS; the first
    8 device batches and step 1's loss must be equal across the ways, each
    way in the input mode it asked for.
-7. Prints a ``kernels`` JSON line (each row names the path its ``launches``
-   were counted on), then the device JSON line last; the details go to ``--json`` (default e2e_asr_tpu_torch/_build/chip_smoke.json).
+7. The bfloat16 compute type, every shipped training recipe's
+   ``hparas.dtype`` (the training phases above pin float32 and keep their
+   float32 tolerances): each bf16 kernel variant (the lstm_seq pair, the
+   fused-projection pair, the scan pair) against its bf16 plain version at
+   the flagship and the convergence recipe's shapes
+   (``bf16_kernel_checks``: bf16 outputs within one ulp of the tensor's
+   scale on at most BF16_SHARE of the elements), timed beside its float32
+   instantiation on the same values; then ``bf16_phase``: the flagship
+   TRAIN_STEPS steps + validation through ``Solver.exec`` in bf16, every
+   kernel of the path launched in its bf16 variant and no float32 variant
+   but the validation's greedy decode's; one bf16 train step with kernels
+   against plain versions under either LSTM route; the bf16-trained
+   checkpoint decoded in float32 (kernels against plain versions, 16/16
+   identical top hypotheses); the convergence recipe CONV_STEPS steps +
+   validation in bf16. With ``--parent DIR`` the float32 instantiations of
+   those kernels run there and here on the same seeded inputs and must be
+   bitwise equal (``parent_f32``; one float32 train step a route is
+   compared too, beside the parent's own rerun).
+8. Prints a ``kernels`` JSON line (each row names the path its ``launches``
+   were counted on; the bf16 variants in rows of their own, ``_bf16``), then
+   the device JSON line last; the details go to ``--json`` (default
+   e2e_asr_tpu_torch/_build/chip_smoke.json).
 
 Exits non-zero, printing no result, without CUDA or without the package.
 """
@@ -120,7 +140,8 @@ import numpy as np
 import torch
 
 # H100 SXM data-sheet peaks (dense, 700 W): f32 outside the tensor cores
-# and HBM3 bandwidth. Every kernel here computes in f32 on the CUDA cores.
+# and HBM3 bandwidth. Every float32 kernel's bound is reckoned at the f32
+# rate; the bf16 variants' at the bf16 tensor cores' (PEAK_BF16_FLOPS).
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 SEED = 0
@@ -529,6 +550,90 @@ def parent_log_mel(parent: str, waves: dict) -> dict:
     return res
 
 
+# A tree's float32 training kernels (each kernel pair with a bf16 variant)
+# on seeded inputs at the flagship's shapes, and one float32 flagship train
+# step a LSTM route, in a process of its own over the package of the tree at
+# its working directory; argv[1]: where to torch.save {name: [outputs]}.
+F32_PATH = """
+import inspect, os, sys, torch
+from e2e_asr_tpu_torch import cuda_build
+from e2e_asr_tpu_torch.bin import profile_decode as pdm
+from e2e_asr_tpu_torch.device import resolve_device
+from e2e_asr_tpu_torch.ops import decoder_cuda as dc, rnn_cuda
+from e2e_asr_tpu_torch.training.step import param_leaves
+dev = resolve_device("cuda")
+g = torch.Generator(device=dev)
+g.manual_seed(7)
+t, b, d, h = 204, 16, 1280, 320
+lens = torch.randint(t // 2, t + 1, (b,), generator=g, device=dev)
+lens[0] = t
+mask = (torch.arange(t, device=dev)[:, None] < lens[None, :]).float()
+m2 = torch.cat([mask, torch.flip(mask, dims=[0])], dim=1)
+rn = lambda *shape, sc=1.0: torch.randn(shape, generator=g, device=dev) * sc
+xw, wh, x = rn(t, 2 * b, 4 * h, sc=0.5), rn(2, h, 4 * h, sc=h ** -0.5), torch.tanh(rn(t, b, d))
+wx, bias, dy = rn(2, d, 4 * h, sc=h ** -0.5), rn(2, 4 * h, sc=0.1), rn(t, 2 * b, h, sc=h ** -0.5)
+res = {}
+with torch.no_grad():
+    ys, c, acts = rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True)
+    res["lstm_seq_fwd"] = [ys, c, acts]
+    res["lstm_seq_bwd"] = list(rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy))
+    f = rnn_cuda.lstm_bidir_fwd_train(x, mask, wx, wh, bias)
+    res["lstm_bidir_fwd_train"] = list(f)
+    res["lstm_bidir_bwd"] = list(rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, *f, dy))
+    args, temp = pdm.flagship_scan_inputs(dev)
+    l = args[-1].shape[0]
+    for mode in ("teacher", "argmax"):
+        use = torch.ones(l, dtype=torch.bool) if mode == "teacher" else torch.zeros(l, dtype=torch.bool)
+        lg, al, hd, rs = dc.decoder_scan_fwd(*args, use, temp)
+        res["decoder_scan_fwd_" + mode] = [lg, al, hd, *rs]
+    lg, al, hd, cs, tk, ac, qs, cx = res["decoder_scan_fwd_teacher"]
+    cots = [rn(*o.shape, sc=o.shape[-1] ** -0.5) for o in (lg, al, hd)]
+    k, v, ln, taps, wq, _, wlp, locv, locb, _, wxs, whs, _, wout, _, _ = args
+    res["decoder_scan_bwd"] = list(dc.decoder_scan_bwd(k, v, ln, taps, wq, wlp, locv, locb, wxs, whs, wout, al, hd, cs,
+                                                       ac, qs, cx, *cots, temp))
+kw = {"dtype": "float32"} if "dtype" in inspect.signature(pdm.smoke_train_solver).parameters else {}
+for impl in ("auto", "pallas"):
+    solver = pdm.smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "f32_" + impl), 0, 1, rnn_impl=impl, **kw)
+    batch = solver._put(next(solver.tr_set.epoch(0)))
+    m = solver.trainer.train_step(solver.state, batch, solver.step_generator(0))
+    res["train_step_" + impl] = [p.detach() for p in param_leaves(solver.state.params)] + [m["loss"], m["grad_norm"]]
+torch.save({n: [a.cpu() for a in v] for n, v in res.items()}, sys.argv[1])
+print("{}")
+"""
+
+
+def parent_f32(parent: str) -> dict:
+    """The float32 instantiations of the kernels that gained a bf16 variant,
+    run in the parent's checkout at ``parent`` and in this one on the same
+    seeded inputs: every output must be bitwise equal; and one float32
+    flagship train step a route, whose max abs difference is printed beside
+    the parent's own from a second run (cuDNN's and index_add_'s atomics
+    make a whole step differ run to run)."""
+    from e2e_asr_tpu_torch import cuda_build
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    outs = {}
+    for which, root in (("parent", os.path.abspath(parent)), ("change", here), ("parent_again", os.path.abspath(parent))):
+        path = os.path.join(cuda_build.BUILD_DIR, f"f32_{which}.pt")
+        proc = subprocess.run([sys.executable, "-c", F32_PATH, path], cwd=root, capture_output=True, text=True,
+                              env={**os.environ, "PYTHONPATH": root}, timeout=600)
+        if proc.returncode != 0:
+            fail(f"the {which}'s float32 run did not finish: {proc.stderr[-2000:]}")
+        outs[which] = torch.load(path)
+    res = {}
+    for name, want in outs["parent"].items():
+        got, again = outs["change"][name], outs["parent_again"][name]
+        diff = lambda xs: max(float((a.double() - c.double()).abs().max()) for a, c in zip(xs, want))
+        res[name] = dict(bitwise=all(torch.equal(a, c) for a, c in zip(got, want)), max_abs=diff(got),
+                         parent_rerun_max_abs=diff(again))
+        print(f"  float32 {name}, change vs parent: bitwise {res[name]['bitwise']} (max abs diff "
+              f"{res[name]['max_abs']:.3e}; the parent against its own rerun {res[name]['parent_rerun_max_abs']:.3e})",
+              flush=True)
+        if not name.startswith("train_step") and not res[name]["bitwise"]:
+            fail(f"the float32 {name} is not bitwise the parent's")
+    return res
+
+
 def composed_log_mel(audio, win, shift, n_fft, dev, dtype=torch.float32):
     """The log-mel function composed of PyTorch calls in ``dtype``, used
     nowhere in the port: in float32 a yardstick timed beside the kernel, in
@@ -622,8 +727,8 @@ def _bidir_bwd_parts(x, mask, wx, wh, ys, c, acts, dy, iters: int = 10) -> dict:
     outs = (torch.empty_like(x), torch.empty_like(wx), torch.empty_like(wh),
             torch.empty((2, 4 * h), device=x.device))
     return dict(
-        sweep_ms=time_ms(lambda: rnn_cuda._sweep(mask, wh, c, acts, dy, dg, t, b, 2, h, 0), iters),
-        products_ms=time_ms(lambda: rnn_cuda._bidir_products(x, wx, ys, dg, *outs), iters),
+        sweep_ms=time_ms(lambda: rnn_cuda._sweep(mask, wh, c, acts, dy, dg, dg, t, b, 2, h, 0), iters),
+        products_ms=time_ms(lambda: rnn_cuda._bidir_products(x, wx, ys, dg, dg, *outs), iters),
         sweep_grid=dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
                             rnn_cuda.sweep_grid(t, b, 2, h, x.device))))
 
@@ -969,6 +1074,244 @@ def _scan_parity(gen, dev, args, vocab, temp, what):
     return err, err_b, bargs, cots
 
 
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores, 700 W
+BF16_ULPS = 1.0  # bf16 outputs both versions round alike: at most one bf16 ulp of the tensor's scale apart ...
+BF16_SHARE = 0.15  # ... on at most this share of its elements
+
+
+def bound_ms_bf16(n_bytes: float, n_flops: float):
+    """bound_ms at the bf16 tensor cores' rate (bytes reckoned by the caller
+    in bf16 where the kernel stores bf16)."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ulps(got, want):
+    """(the largest |got - want| in bf16 ulps at want's scale, i.e. of its
+    largest magnitude, the share of elements that differ)."""
+    g, w = got.float(), want.float()
+    ulp = 2.0 ** (math.floor(math.log2(max(float(w.abs().max()), 2.0 ** -126))) - 7)
+    return float((g - w).abs().max()) / ulp, float((g != w).float().mean())
+
+
+def _bf16_state(name, got, want):
+    """A bf16 output that the kernel and its plain version round alike: at
+    most BF16_ULPS ulp of the tensor's scale apart on at most BF16_SHARE of
+    its elements. Float32 sums in another order and FMA contraction flip a
+    rounding now and then, and in a recurrence each flip carries to later
+    steps: 1-10% of the state at one ulp on this card's shapes; leaving one
+    rounding point out moves more than BF16_SHARE of it
+    (tests/test_torch_bf16.py::test_a_left_out_rounding_point_is_told_apart_from_noise).
+    Returns the max abs error."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        fail(f"{name}: {got.dtype} / {want.dtype}, expected bfloat16 from both versions")
+    mx, share = _ulps(got, want)
+    err = float((got.float() - want.float()).abs().max())
+    print(f"  {name}: max abs err {err:.3e} = {mx:.2f} bf16 ulp at the tensor's scale, {100 * share:.3f}% of "
+          f"elements differ (tolerance {BF16_ULPS} ulp on {100 * BF16_SHARE}%)", flush=True)
+    if not (mx <= BF16_ULPS and share <= BF16_SHARE) or not bool(torch.isfinite(got.float()).all()):
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def bf16_kernel_checks(dev, cfg, vocab):
+    """Each bf16 kernel variant against its bf16 plain version (the plain
+    version on the card with use_plain patched), at the flagship training
+    shapes (LSTM layer T=204, B=16, H=320, D=1280; the scan at B=16, S=204,
+    L=200) and the convergence recipe's (T=816, B=32, H=256, D=80; the scan
+    at B=32, S=204, L=72): every bf16 output within BF16_ULPS on BF16_SHARE
+    (``_bf16_state``), the forwards' float32 residuals (acts, q, ctx) at
+    scaled rtol 1e-3 (their bf16 inputs differ where a rounding flipped),
+    the scan backward's float32 outputs, from the same inputs on both
+    sides, at scaled rtol 1e-4 as in float32. Times the bf16 kernel, its float32 instantiation on
+    the same values and the bf16 plain version."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import flagship_scan_inputs, scan_inputs, scan_shape
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+    from e2e_asr_tpu_torch.ops import rnn_cuda
+
+    bf = torch.bfloat16
+    plain = lambda: mock.patch.object(cuda_build, "use_plain", lambda x: True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    rows = {n: dict(per_shape={}) for n in ("lstm_seq_fwd", "lstm_seq_bwd", "lstm_bidir_fwd_train",
+                                            "lstm_bidir_bwd", "decoder_scan_fwd", "decoder_scan_bwd")}
+
+    def record(name, shape, err, ms, ms_f32, plain_ms, bound, library_ms=None):
+        rows[name]["per_shape"][shape] = dict(max_abs_err=err, ms=ms, ms_f32=ms_f32, plain_ms=plain_ms,
+                                              bound=bound, library_ms=library_ms)
+        print(f"  {name} bf16 [{shape}]: {ms:.3f} ms (float32 instantiation {ms_f32:.3f} ms), plain "
+              f"{plain_ms:.3f} ms, library {library_ms if library_ms is None else round(library_ms, 3)} ms, "
+              f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
+
+    with torch.no_grad():
+        for shape, (t, b, d, h) in (("flagship", (204, 16, 1280, 320)), ("convergence", (816, 32, 80, 256))):
+            lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev)
+            lens[0] = t
+            x, mask, wx, wh, bias = _lstm_inputs(gen, dev, t, b, d, h, lens)
+            xs, wxs, whs, bs = (a.to(bf) for a in (x, wx, wh, bias))
+            r = 2 * b
+            m2 = torch.cat([mask, torch.flip(mask, dims=[0])], dim=1)
+            vr = 2 * float(lens.sum())
+            print(f"[kernel] bf16 lstm_seq pair [{shape}]: T={t}, B={b}, H={h}", flush=True)
+            xw = (torch.randn((t, r, 4 * h), generator=gen, device=dev) * 0.5).to(bf)
+            dy = (torch.randn((t, r, h), generator=gen, device=dev) / math.sqrt(h)).to(bf)
+            got = rnn_cuda.lstm_seq_fwd(xw, m2, whs, train=True)
+            with plain():
+                want = rnn_cuda.lstm_seq_fwd(xw, m2, whs, train=True)
+            if got[2].dtype != torch.float32:
+                fail("lstm_seq_fwd bf16: acts are not float32")
+            err = max(_bf16_state(f"lstm_seq_fwd bf16 {n} [{shape}]", g, w) for n, g, w in zip(("ys", "c"), got, want))
+            err = max(err, _scaled(f"lstm_seq_fwd bf16 acts [{shape}]", got[2], want[2], 1e-3))
+            io = 2 * (t * r * 4 * h + 2 * h * 4 * h + 2 * t * r * h) + 4 * (t * r + t * r * 4 * h)
+            lib = _cudnn_lstm(dev, wx, wh, bias).to(bf)
+            record("lstm_seq_fwd", shape, err, time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw, m2, whs, train=True), 5),
+                   time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw.float(), m2, whs.float(), train=True), 5),
+                   time_ms(lambda: rnn_cuda.lstm_seq_fwd_plain(xw, m2, whs), 1, 0),
+                   bound_ms_bf16(io, vr * (2 * h * 4 * h + 12 * h)), time_ms(lambda: lib(xs), 5))
+            ys, c, acts = got
+            gb = rnn_cuda.lstm_seq_bwd(m2, whs, ys, c, acts, dy)
+            with plain():
+                wb = rnn_cuda.lstm_seq_bwd(m2, whs, ys, c, acts, dy)
+            err = max(_bf16_state(f"lstm_seq_bwd bf16 {n} [{shape}]", g, w)
+                      for n, g, w in zip(("dxw", "dwh"), gb, wb))
+            io = 2 * (2 * h * 4 * h * 2 + 3 * t * r * h + t * r * 4 * h) + 4 * (t * r + t * r * 4 * h)
+            f32 = [a.float() for a in (whs, ys, c, dy)]
+            xl = xs.clone().requires_grad_()
+            with torch.enable_grad():
+                out_l = lib(xl)[0]
+            record("lstm_seq_bwd", shape, err, time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, whs, ys, c, acts, dy), 5),
+                   time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, f32[0], f32[1], f32[2], acts, f32[3]), 5),
+                   time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, whs, ys, c, acts, dy), 1, 0),
+                   bound_ms_bf16(io, vr * (16 * h * h + 20 * h)),
+                   time_ms(lambda: torch.autograd.grad(out_l, [xl] + list(lib.parameters()), dy[:, :b].repeat(
+                       1, 1, 2), retain_graph=True), 3))
+
+            print(f"[kernel] bf16 lstm_bidir pair [{shape}]: T={t}, B={b}, D={d}, H={h}", flush=True)
+            got = rnn_cuda.lstm_bidir_fwd_train(xs, mask, wxs, whs, bs)
+            with plain():
+                want = rnn_cuda.lstm_bidir_fwd_train(xs, mask, wxs, whs, bs)
+            err = max(_bf16_state(f"lstm_bidir_fwd_train bf16 {n} [{shape}]", g, w)
+                      for n, g, w in zip(("ys", "c", "acts"), got, want))
+            io = 2 * (t * b * d + 2 * d * 4 * h + 2 * h * 4 * h + 2 * 4 * h + 2 * t * r * h + t * r * 4 * h) + 4 * t * b
+            record("lstm_bidir_fwd_train", shape, err,
+                   time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train(xs, mask, wxs, whs, bs), 5),
+                   time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train(*(a.float() for a in (xs, mask, wxs, whs, bs))), 5),
+                   time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train_plain(xs, mask, wxs, whs, bs), 1, 0),
+                   bound_ms_bf16(io, 2 * t * b * d * 8 * h + vr * (2 * h * 4 * h + 12 * h)), time_ms(lambda: lib(xs), 5))
+            ys, c, acts = got
+            dyb = (torch.randn((t, r, h), generator=gen, device=dev) / math.sqrt(h)).to(bf)
+            gb = rnn_cuda.lstm_bidir_bwd(xs, mask, wxs, whs, ys, c, acts, dyb)
+            with plain():
+                wb = rnn_cuda.lstm_bidir_bwd(xs, mask, wxs, whs, ys, c, acts, dyb)
+            err = max(_bf16_state(f"lstm_bidir_bwd bf16 {n} [{shape}]", g, w)
+                      for n, g, w in zip(("dx", "dwx", "dwh", "db"), gb, wb))
+            io = 2 * (2 * t * b * d + 2 * 2 * d * 4 * h + 2 * 2 * h * 4 * h + 2 * 4 * h + 3 * t * r * h + t * r * 4 * h)
+            record("lstm_bidir_bwd", shape, err,
+                   time_ms(lambda: rnn_cuda.lstm_bidir_bwd(xs, mask, wxs, whs, ys, c, acts, dyb), 5),
+                   time_ms(lambda: rnn_cuda.lstm_bidir_bwd(*(a.float() for a in (xs, mask, wxs, whs, ys, c, acts, dyb))), 5),
+                   time_ms(lambda: rnn_cuda.lstm_bidir_bwd_plain(xs, mask, wxs, whs, ys, c, acts, dyb), 1, 0),
+                   bound_ms_bf16(io, 2 * 2 * t * b * d * 8 * h + vr * (16 * h * h + 20 * h)),
+                   time_ms(lambda: torch.autograd.grad(out_l, [xl] + list(lib.parameters()), dyb[:, :b].repeat(
+                       1, 1, 2), retain_graph=True), 3))
+
+        # the scan pair at the flagship's and the convergence recipe's shapes
+        conv_gen = torch.Generator(device=dev)
+        conv_gen.manual_seed(SEED + 13)
+        f_args, temp = flagship_scan_inputs(dev)
+        ccfg = _convergence_config()
+        m, ac = ccfg.model, ccfg.model.attention
+        cb, cs, cl = ccfg.data.corpus.batch_size, ccfg.data.corpus.buckets[-1] // 4, ccfg.data.corpus.token_buckets[-1]
+        clens = torch.randint(cs // 2, cs + 1, (cb,), generator=conv_gen, device=dev)
+        clens[0] = cs
+        c_args = scan_inputs(conv_gen, dev, cb, cs, ac.dim, 2 * m.encoder.dim[-1], ac.loc_kernel_num,
+                             2 * ac.loc_kernel_size + 1, m.decoder.dim, m.decoder.dim, vocab, cl, clens)
+        for shape, args, tp in (("flagship", f_args, temp), ("convergence", c_args, float(ac.temperature))):
+            sargs = tuple(a.to(bf) if a.is_floating_point() else a for a in args)
+            b, s, dk, e_dim, kk, p, h, v = scan_shape(sargs)
+            l = sargs[-1].shape[0]
+            print(f"[kernel] bf16 decoder_scan pair [{shape}]: B={b}, S={s}, L={l}, H={h}, V={v}", flush=True)
+            err = 0.0
+            for mode in ("teacher", "argmax"):
+                use = torch.ones(l, dtype=torch.bool) if mode == "teacher" else torch.zeros(l, dtype=torch.bool)
+                got = dc.decoder_scan_fwd(*sargs, use, tp)
+                with plain():
+                    want = dc.decoder_scan_fwd(*sargs, use, tp)
+                err = max(err, _compare_scan_fwd_bf16(f"decoder_scan_fwd bf16 {mode} [{shape}]", got, want))
+            use = torch.ones(l, dtype=torch.bool)
+            fwd_out = got_t = dc.decoder_scan_fwd(*sargs, use, tp)
+            io = 2 * sum(a.numel() for a in sargs if a.is_floating_point()) + 2 * sum(
+                o.numel() for o in got_t[:3]) + 4 * sum(o.numel() for o in got_t[3][2:])
+            nf = 2.0 * l * b * (s * (dk * (kk + 2) + e_dim) + (e_dim + h) * 4 * h + h * (v + dk))
+            f32_args = tuple(a.float() if a.is_floating_point() else a for a in sargs)
+            record("decoder_scan_fwd", shape, err, time_ms(lambda: dc.decoder_scan_fwd(*sargs, use, tp), 3),
+                   time_ms(lambda: dc.decoder_scan_fwd(*f32_args, use, tp), 3),
+                   time_ms(lambda: dc.decoder_scan_fwd_plain(*sargs, use, tp), 1, 0), bound_ms_bf16(io, nf))
+            logits, align, hidden, (cseq, _, acts, qs, ctxs) = fwd_out
+            cots = [(torch.randn(o.shape, generator=gen, device=dev) / math.sqrt(o.shape[-1])).to(bf)
+                    for o in (logits, align, hidden)]
+            k, vv, lens, taps, wq, _, wlp, locv, locb, _, wx, wh, _, wout, _, _ = sargs
+            # the context of the stored alignment, as DecoderScanFn passes it at bf16
+            ctx_r = torch.einsum("lbs,bse->lbe", align.float(), vv.float())
+            bargs = (k, vv, lens, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs,
+                     ctx_r, *cots, tp)
+            gb = dc.decoder_scan_bwd(*bargs)
+            with plain():
+                wb = dc.decoder_scan_bwd(*bargs)
+            err_b = max(_scaled(f"decoder_scan_bwd bf16 {n} [{shape}]", g, w, 1e-4)
+                        for n, g, w in zip(("dgates", "dq", "dfpre", "dk", "dWlp", "dlocv"), gb, wb))
+            fb = tuple(a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in bargs)
+            io_b = 2 * (sum(a.numel() for a in bargs[:11] if a.is_floating_point()) + align.numel()
+                        + hidden.numel() + cseq.numel() + sum(c.numel() for c in cots)) + 4 * (
+                acts.numel() + qs.numel() + ctxs.numel() + sum(o.numel() for o in gb))
+            record("decoder_scan_bwd", shape, err_b, time_ms(lambda: dc.decoder_scan_bwd(*bargs), 3),
+                   time_ms(lambda: dc.decoder_scan_bwd(*fb), 3),
+                   time_ms(lambda: dc.decoder_scan_bwd_plain(*bargs), 1, 0), bound_ms_bf16(io_b, 3 * nf))
+    for name, row in rows.items():
+        f = row["per_shape"]["flagship"]
+        row.update(route="cuda", max_abs_err=max(v["max_abs_err"] for v in row["per_shape"].values()),
+                   ms=f["ms"], plain_ms=f["plain_ms"], bound=f["bound"], library_ms=f["library_ms"],
+                   ms_f32=f["ms_f32"], shapes="flagship (rows' numbers) and convergence (per_shape)")
+    return rows
+
+
+def _compare_scan_fwd_bf16(name, got, want):
+    """``_compare_scan_fwd`` at bf16: where an utterance's fed tokens first
+    differ, the plain version's two scores must lie within two bf16 ulps of
+    the logits' scale (the argmax is taken of the float32 logits, whose bf16
+    state may differ by an ulp), that utterance's later steps are left out;
+    then every bf16 output within ``_bf16_state``'s tolerance and the
+    float32 residuals at scaled rtol 1e-3. Returns the largest error."""
+    (lg, al, hd, (cs, tk, ac, qs, cx)), (lg_p, al_p, hd_p, (cs_p, tk_p, ac_p, qs_p, cx_p)) = got, want
+    l, b = tk.shape
+    keep = torch.ones((l, b), dtype=torch.bool, device=tk.device)
+    diff = tk != tk_p
+    tie_tol = 2 * 2.0 ** (math.floor(math.log2(float(lg_p.float().abs().max()))) - 7)
+    for row in torch.nonzero(diff.any(0))[:, 0].tolist():
+        t = int(torch.nonzero(diff[:, row])[0, 0])
+        sc = lg_p[t - 1, row].float()
+        gap = float((sc[tk_p[t, row]] - sc[tk[t, row]]).abs())
+        print(f"  {name}: utterance {row} feeds {int(tk[t, row])} vs {int(tk_p[t, row])} at step {t}, "
+              f"score gap {gap:.2e} (tie within {tie_tol:.2e})", flush=True)
+        if gap > tie_tol:
+            fail(f"{name}: fed tokens differ without a near-tie")
+        keep[t:, row] = False
+    if int((~keep).sum()) > l * b // 4:
+        fail(f"{name}: more than a quarter of the steps left the plain version's path")
+    err = max(_bf16_state(f"{name} {nm}", g[keep], w[keep])
+              for nm, g, w in (("logits", lg, lg_p), ("align", al, al_p), ("hidden", hd, hd_p), ("c", cs, cs_p)))
+    return max([err] + [_scaled(f"{name} {nm}", g[keep], w[keep], 1e-3)
+                        for nm, g, w in (("acts", ac, ac_p), ("q", qs, qs_p), ("ctx", cx, cx_p))])
+
+
+def _convergence_config():
+    """configs/synthetic_convergence.yaml as the port reads it."""
+    from e2e_asr_tpu_torch.config import Config
+
+    return Config.load("configs/synthetic_convergence.yaml")
+
+
 def convergence_scan_checks(dev, cfg, vocab):
     """The scan pair at the convergence recipe's shapes (B=32, the longest
     bucket's S=204 with ragged lengths, L=72, Dk 128, E 512, 8 x 65 taps,
@@ -1158,7 +1501,7 @@ def lstm_seq_checks(dev):
                 t=t, b=b, h=h, max_abs_err=err_b, bound=bound_ms(io_b, vr * (16 * h * h + 20 * h)),
                 ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy), 5),
                 plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy), 2, 1),
-                sweep_ms=time_ms(lambda: rnn_cuda._sweep(m2, wh, c, acts, dy, dxw, t, b, 2, h, 1), 5),
+                sweep_ms=time_ms(lambda: rnn_cuda._sweep(m2, wh, c, acts, dy, dxw, dxw, t, b, 2, h, 1), 5),
                 products_ms=time_ms(lambda: rnn_cuda._seq_products(ys, dxw, dwh), 5),
                 sweep_grid=dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
                                     rnn_cuda.sweep_grid(t, b, 2, h, dev)))))
@@ -1331,17 +1674,18 @@ def _check_steps(log, what):
             fail(f"{what} step {rec['step']} was skipped")
 
 
-def _run_counted(solver, wrappers, what):
-    """solver.exec() with the wrappers' launch counts set to 0 just before
-    and read just after; every one must have launched. Returns the counts
-    and the wall seconds."""
+def _run_counted(solver, wrappers, what, attr="launches"):
+    """solver.exec() with the wrappers' launch counts (``attr``: launches of
+    the float32 variants, ``launches_bf16`` of the bf16 ones) set to 0 just
+    before and read just after; every one must have launched. Returns the
+    counts and the wall seconds."""
     for fn in wrappers.values():
-        fn.launches = 0
+        setattr(fn, attr, 0)
     t0 = time.time()
     solver.exec()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = {name: getattr(fn, attr) for name, fn in wrappers.items()}
     print(f"{what} path launches: {launches}", flush=True)
     for name, cnt in launches.items():
         if cnt <= 0:
@@ -1363,8 +1707,10 @@ def convergence_phase(dev, smi):
     from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
     from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_bwd, lstm_seq_fwd
 
+    # float32 pinned: these checks keep their float32 tolerances (bf16_phase
+    # runs the recipe at its own bfloat16)
     solver = convergence_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_convergence"), SEED,
-                                      CONV_STEPS)
+                                      CONV_STEPS, dtype="float32")
     m = solver.config.model
     if (solver.config.data.corpus.batch_size, m.encoder.dim, m.attention.dim, m.decoder.dim) != (
             32, [256, 256, 256], 128, 256):
@@ -1423,8 +1769,10 @@ def train_phase(smi):
     runs = {}
     for impl in ("auto", "pallas"):
         what = f"train (rnn_impl {impl})"
+        # float32 pinned: these checks keep their float32 tolerances (bf16_phase
+        # trains the recipe at its own bfloat16)
         solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, f"smoke_train_{impl}"), SEED,
-                                    TRAIN_STEPS, rnn_impl=impl)
+                                    TRAIN_STEPS, rnn_impl=impl, dtype="float32")
         batch = next(solver.tr_set.epoch(0))  # offsets into the device-resident corpus (auto)
         shape = (len(batch.wav_len), batch.n_samples)
         if shape != (16, (816 - 1) * 160 + 400) or solver.input_mode != "device_corpus":
@@ -1517,6 +1865,171 @@ def train_phase(smi):
     cfg.model.encoder.rnn_impl = "auto"
     routes = {impl: {k: v for k, v in r.items() if k not in ("solver", "batch")} for impl, r in runs.items()}
     return dict(routes=routes, sampled_steps=sampled, sampled_launches=sampled_launches, parity=parity)
+
+
+def _bf16_counted(run, kernels, what, decode_f32=()):
+    """run() with every kernel's launch counts (both variants) set to 0 just
+    before and read just after: the bf16 variants of ``kernels["bf16"]`` and
+    the float32 kernels of ``kernels["f32"]`` (log_mel and the CTC loss stay
+    float32, as in the JAX package) must have launched, and no float32
+    variant of a kernel that has a bf16 one (a bf16 recipe never runs them
+    quietly) but those in ``decode_f32``: the validation's greedy decode
+    runs float32, as the JAX package's does. Returns ({name: launches}, the
+    wall seconds)."""
+    fns = {**kernels["bf16"], **kernels["f32"]}
+    for fn in fns.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_bf16"):
+            fn.launches_bf16 = 0
+    t0 = time.time()
+    run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**{f"{n}_bf16": fn.launches_bf16 for n, fn in kernels["bf16"].items()},
+                **{n: fn.launches for n, fn in kernels["f32"].items()}}
+    quiet = {n: fn.launches for n, fn in kernels["bf16"].items() if fn.launches and n not in decode_f32}
+    print(f"{what} path launches: {launches}", flush=True)
+    if quiet:
+        fail(f"the {what} path ran float32 variants of kernels that have a bf16 one: {quiet}")
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            fail(f"kernel {name} was not launched on the {what} path")
+    return launches, wall
+
+
+BF16_STEP_TOL = dict(loss_rel=1e-4, grad_norm_rel=1e-3, param_abs=1e-4)
+
+
+def bf16_phase(dev, smi, batch):
+    """The bfloat16 compute type (every shipped training recipe's
+    hparas.dtype) on the card: the flagship trains TRAIN_STEPS steps + one
+    validation through bin/train_asr.Solver.exec in bf16 (default route),
+    every kernel of the path in its bf16 variant (``_bf16_counted``); one
+    bf16 train step with the kernels against one with the plain versions
+    under either LSTM route (BF16_STEP_TOL: the float32 check's loss and
+    gradient-norm tolerances, the parameters' ten times its 1e-5: a rounding
+    flipped in one version's bf16 state carries through the recurrences,
+    and an Adadelta first step moves a parameter by at most 3.2e-4, with
+    its sign where the gradient is near zero); the checkpoint it wrote decoded in float32 through
+    bin/test_asr.Solver (``decode_phase``: kernels against plain versions,
+    16/16 identical top hypotheses); the convergence recipe CONV_STEPS steps
+    + validation in bf16."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import convergence_train_solver, smoke_solver, smoke_train_solver
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.ops.ctc_cuda import ctc_lattice
+    from e2e_asr_tpu_torch.ops.decoder_cuda import decoder_scan_bwd, decoder_scan_fwd
+    from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
+    from e2e_asr_tpu_torch.ops.rnn_cuda import (lstm_bidir_bwd, lstm_bidir_fwd_train, lstm_seq_bwd,
+                                                lstm_seq_fwd)
+    from e2e_asr_tpu_torch.training.step import Trainer, param_leaves
+
+    scan = {"decoder_scan_fwd": decoder_scan_fwd, "decoder_scan_bwd": decoder_scan_bwd}
+    pairs = {"auto": {"lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd},
+             "pallas": {"lstm_bidir_fwd_train": lstm_bidir_fwd_train, "lstm_bidir_bwd": lstm_bidir_bwd}}
+    f32 = {"log_mel": log_mel, "ctc_loss": ctc_lattice}
+    out = {}
+
+    # ---- the flagship through Solver.exec in bf16 (the recipe's own dtype)
+    solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_train_bf16"), SEED, TRAIN_STEPS)
+    if solver.compute_dtype != "bfloat16":
+        fail(f"the flagship recipe trains in {solver.compute_dtype}, expected its hparas.dtype bfloat16")
+    launches, wall = _bf16_counted(solver.exec, {"bf16": {**scan, **pairs["auto"]}, "f32": f32},
+                                   "bf16 train (rnn_impl auto)", decode_f32=("lstm_seq_fwd",))
+    log = list(solver.step_log)
+    if len(log) != TRAIN_STEPS:
+        fail(f"{len(log)} bf16 training steps ran, expected {TRAIN_STEPS}")
+    _check_steps(log, "bf16 train (rnn_impl auto)")
+    dev_sum = solver.dev_summary
+    print(f"  bf16 dev: {dev_sum}", flush=True)
+    if not all(math.isfinite(v) for v in dev_sum.values()):
+        fail("bf16 validation gave a non-finite number")
+    steady = sorted(r["audio_s"] / r["wall_s"] for r in log[1:])
+    rate = steady[len(steady) // 2]
+    print(f"bf16 train e2e (rnn_impl auto): median {rate:.2f} audio-s/s per step over steps 2-{TRAIN_STEPS} "
+          f"on {smi} (flagship, B=16, 816 bucket, seed-{SEED} weights); {TRAIN_STEPS} steps + validation "
+          f"{wall:.1f}s", flush=True)
+    meta = open(os.path.join(solver.ckpdir, "latest.meta")).read()
+    if "compute_dtype bfloat16" not in meta:
+        fail(f"the bf16 checkpoint's .meta does not record its compute dtype: {meta!r}")
+    out["train"] = dict(launches=launches, steps=log, dev=dev_sum, audio_s_per_s=rate, wall_s=wall)
+
+    # ---- one bf16 step with the kernels, one with the plain versions, per route
+    cfg = solver.config
+    dbatch = solver._put(next(solver.tr_set.epoch(0)))
+    parity = {}
+    for impl in ("pallas", "auto"):
+        cfg.model.encoder.rnn_impl = impl
+        res = {}
+        for mode in ("kernel", "plain"):
+            params, _ = asr_mod.asr_init(SEED, solver.feat_dim, solver.vocab_size, cfg.model, solver.device)
+            trainer = Trainer(cfg)
+            state = trainer.init_state(params)
+            ctx = mock.patch.object(cuda_build, "use_plain", lambda x: True) if mode == "plain" else nullcontext()
+            holder = {}
+
+            def step():
+                holder["m"] = trainer.train_step(state, dbatch, solver.step_generator(0))
+
+            with ctx:
+                if mode == "kernel":
+                    cnt, dt = _bf16_counted(step, {"bf16": {**scan, **pairs[impl]}, "f32": f32},
+                                            f"bf16 train step (rnn_impl {impl})")
+                else:
+                    t1 = time.time()
+                    step()
+                    torch.cuda.synchronize()
+                    dt = time.time() - t1
+            m = holder["m"]
+            res[mode] = (float(m["loss"]), float(m["grad_norm"]),
+                         [p.detach().clone() for p in param_leaves(state.params)], dt)
+            if not all(p.dtype == torch.float32 for p in res[mode][2]):
+                fail("a parameter is not float32 after a bf16 step")
+        (lk, gk, pk, tk), (lp_, gp, pp, tp) = res["kernel"], res["plain"]
+        loss_rel, gn_rel = abs(lk - lp_) / abs(lp_), abs(gk - gp) / abs(gp)
+        diffs = torch.cat([(a - c).abs().flatten() for a, c in zip(pk, pp)])
+        p_err = float(diffs.max())
+        moved = float((diffs > 1e-5).float().mean())
+        tol = BF16_STEP_TOL
+        print(f"bf16 train step kernel vs plain (rnn_impl {impl}): loss {lk:.6f} vs {lp_:.6f} (rel {loss_rel:.2e}, "
+              f"tolerance {tol['loss_rel']}); grad_norm {gk:.6f} vs {gp:.6f} (rel {gn_rel:.2e}, tolerance "
+              f"{tol['grad_norm_rel']}); updated params max abs diff {p_err:.3e} (tolerance {tol['param_abs']}), "
+              f"{100 * moved:.3f}% of them more than 1e-5 apart; step {tk:.2f}s vs {tp:.2f}s", flush=True)
+        if not (loss_rel <= tol["loss_rel"] and gn_rel <= tol["grad_norm_rel"] and p_err <= tol["param_abs"]):
+            fail("the kernel and plain bf16 train steps disagree")
+        parity[impl] = dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, param_max_abs=p_err,
+                            param_share_over_1e5=moved, kernel_step_s=tk, plain_step_s=tp, launches=cnt)
+    cfg.model.encoder.rnn_impl = "auto"
+    out["parity"] = parity
+
+    # ---- the bf16-trained checkpoint decoded in float32 (the decode's own type)
+    from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_fwd as seq_fwd
+
+    dsolver = smoke_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_bf16_decode"), SEED,
+                           ckpt=os.path.join(solver.ckpdir, "latest"))
+    d = decode_phase(dsolver, batch, "auto", ("lstm_seq_fwd", seq_fwd), smi, tag=", bf16-trained checkpoint")
+    d.pop("top_tokens")
+    d.pop("top_scores")
+    out["decode_f32_of_bf16_ckpt"] = d
+
+    # ---- the convergence recipe in bf16
+    csolver = convergence_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_convergence_bf16"), SEED,
+                                       CONV_STEPS)
+    if csolver.compute_dtype != "bfloat16":
+        fail(f"the convergence recipe trains in {csolver.compute_dtype}, expected bfloat16")
+    launches, wall = _bf16_counted(csolver.exec, {"bf16": {**scan, **pairs["auto"]}, "f32": {"log_mel": log_mel}},
+                                   "bf16 convergence", decode_f32=("lstm_seq_fwd",))
+    log = list(csolver.step_log)
+    _check_steps(log, "bf16 convergence")
+    dev_sum = csolver.dev_summary
+    print(f"  bf16 convergence dev: {dev_sum}", flush=True)
+    if len(log) != CONV_STEPS or not all(math.isfinite(v) for v in dev_sum.values()):
+        fail("the bf16 convergence run did not give CONV_STEPS finite steps and a finite validation")
+    rate = log[-1]["audio_s"] / log[-1]["wall_s"]
+    print(f"bf16 convergence e2e: last step {rate:.2f} audio-s/s on {smi}; {CONV_STEPS} steps + validation "
+          f"{wall:.1f}s", flush=True)
+    out["convergence"] = dict(launches=launches, steps=log, dev=dev_sum, audio_s_per_s=rate, wall_s=wall)
+    return out
 
 
 def lm_train_phase(dev, smi):
@@ -1723,9 +2236,11 @@ def loader_phase(smi):
         what = f"loader ({way}: njobs {njobs}, " + ", ".join(f"{k} {v}" for k, v in corpus.items()) + ")"
         rss0, _ = _rss_mb()
         t0 = time.time()
+        # float32 pinned, as the loader phase measured it before bf16 (the
+        # input path is the same at either dtype)
         solver = convergence_train_solver(os.path.join(cuda_build.BUILD_DIR, f"smoke_loader_{way}"), SEED,
                                           LOADER_STEPS, tf=None, train_utts=LOADER_UTTS, log_step=10,
-                                          njobs=njobs, corpus=corpus)
+                                          njobs=njobs, corpus=corpus, dtype="float32")
         setup_s = time.time() - t0
         if (solver.input_mode, solver.tr_set.num_workers, solver.tr_set.emit_offsets) != (
                 mode, njobs, mode == "device_corpus"):
@@ -1934,6 +2449,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     kern.update(train_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(scan_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(lstm_seq_checks(dev))
+    kern_bf16 = bf16_kernel_checks(dev, cfg, solver.vocab_size)
     if parent:
         kern["prefix_recursion"]["parent_path"] = parent_prefix_path(parent)
     mel_waves = kern["log_mel"].pop("parent_waves")
@@ -1975,6 +2491,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     conv = convergence_phase(dev, smi)
     recipes = recipe_phase(conv.pop("ckpt"), smi)
     loader = loader_phase(smi)
+    bf16 = bf16_phase(dev, smi, batch)
     r = kern["log_mel"]
     mel_waves["convergence_batch"] = conv.pop("log_mel_wave")
     for key, v in zip(("max_abs_err_by_wave", "cufft_max_abs_err_by_wave", "f64_max_abs_err_by_wave"),
@@ -1983,6 +2500,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     r["max_abs_err"] = max(r["max_abs_err_by_wave"].values())
     if parent:
         r["parent_path"] = parent_log_mel(parent, mel_waves)
+        bf16["f32_against_parent"] = parent_f32(parent)
 
     # launches: every counted run that launched the kernel, by path, each
     # with its counts set to 0 just before; ``launches`` is the count of the
@@ -2032,12 +2550,31 @@ def main(json_path: str = "", parent: str = "") -> None:
                                   "f64_max_abs_err_by_wave")
                                   if k in kv},
         })
+    # the bf16 variants: launches of the bf16 flagship training through
+    # Solver.exec (default route), and of the bf16 kernel step of the parity
+    # check with rnn_impl pallas pinned for the fused-projection pair
+    bf16_paths = {
+        "lstm_seq_fwd": ("bf16 flagship train through bin/train_asr.Solver.exec, rnn_impl auto (default)",
+                         bf16["train"]["launches"]),
+        "lstm_bidir_fwd_train": ("bf16 flagship train step (parity check), rnn_impl pallas (pinned)",
+                                 bf16["parity"]["pallas"]["launches"]),
+    }
+    for name, kv in kern_bf16.items():
+        what, counts = bf16_paths["lstm_bidir_fwd_train" if name.startswith("lstm_bidir") else "lstm_seq_fwd"]
+        rows.append({
+            "name": f"{name}_bf16", "route": "cuda", "source": kern[name]["source"],
+            "replaces": kern[name]["replaces"], "launches": counts[f"{name}_bf16"],
+            "max_abs_err": kv["max_abs_err"], "ms": kv["ms"], "plain_ms": kv["plain_ms"],
+            "bound_ms": kv["bound"][0], "bound_by": kv["bound"][1], "library_ms": kv["library_ms"],
+            "ms_f32_same_values": kv["ms_f32"], "shapes": kv["shapes"], "per_shape": kv["per_shape"],
+            "launches_path": what,
+        })
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump({"card": smi, "kernels": rows, "decode": decode, "decode_routes_score_rel_diff": route_err,
                    "decode_lm": decode_lm, "train": train, "lm_train": lm_train, "convergence": conv,
-                   "recipes": recipes, "loader": loader}, f, indent=1)
+                   "recipes": recipes, "loader": loader, "bf16": bf16}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2048,7 +2585,8 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description="chip smoke run of the PyTorch/CUDA port")
     ap.add_argument("--parent", default="", help="a checkout of the parent commit: time log_mel (and hold it "
                     "against its plain version on the same waves) and the CTC prefix side of a beam step there "
-                    "and here, in turns")
+                    "and here, in turns; hold the float32 kernels that have a bf16 variant bitwise to the "
+                    "parent's")
     ap.add_argument("--json", default="", help="where to write the detailed JSON "
                     "(default: e2e_asr_tpu_torch/_build/chip_smoke.json)")
     args = ap.parse_args()

@@ -117,9 +117,11 @@ def smoke_lm_checkpoint(outdir: str, vocab: int, seed: int = 0) -> str:
     return path
 
 
-def smoke_solver(outdir: str, seed: int = 0, rnn_impl: str = "auto", lm_weight: float = 0.0):
+def smoke_solver(outdir: str, seed: int = 0, rnn_impl: str = "auto", lm_weight: float = 0.0,
+                 ckpt: str = ""):
     """A test-mode Solver on the card over the smoke config, with a
-    checkpoint of seeded flagship-width weights written to ``outdir``; with
+    checkpoint of seeded flagship-width weights written to ``outdir`` (or
+    the checkpoint ``ckpt``, e.g. one a smoke training wrote); with
     ``lm_weight`` > 0 it fuses in a seeded LM of LM_RECIPE's width
     (``smoke_lm_checkpoint``) through ``decode.lm_path`` / ``lm_config``."""
     from e2e_asr_tpu_torch import convert
@@ -131,10 +133,11 @@ def smoke_solver(outdir: str, seed: int = 0, rnn_impl: str = "auto", lm_weight: 
     cfg = flagship_smoke_config(rnn_impl)
     dev = resolve_device("cuda")
     _, feat_dim, vocab, _, _ = load_eval_datasets(cfg.data, cfg.decode.batch_size)
-    params, _ = asr_mod.asr_init(seed, feat_dim, vocab, cfg.model, dev)
     os.makedirs(outdir, exist_ok=True)
-    ckpt = os.path.join(outdir, f"flagship_seed{seed}.pt")
-    convert.save_checkpoint(ckpt, params, vocab, feat_dim)
+    if not ckpt:
+        params, _ = asr_mod.asr_init(seed, feat_dim, vocab, cfg.model, dev)
+        ckpt = os.path.join(outdir, f"flagship_seed{seed}.pt")
+        convert.save_checkpoint(ckpt, params, vocab, feat_dim)
     if lm_weight > 0:
         d = cfg.decode
         d.lm_weight, d.lm_config = lm_weight, LM_RECIPE
@@ -148,23 +151,27 @@ def smoke_solver(outdir: str, seed: int = 0, rnn_impl: str = "auto", lm_weight: 
     return solver
 
 
-def flagship_train_config(max_step: int, rnn_impl: str = "auto"):
+def flagship_train_config(max_step: int, rnn_impl: str = "auto", dtype: str = ""):
     """The smoke config (flagship model, audio and hparas; synthetic corpus,
     one 816-frame bucket of batch 16) trained for ``max_step`` steps and
-    validated once at the last, logging every step."""
+    validated once at the last, logging every step; ``dtype`` pins
+    ``hparas.dtype`` (empty: the recipe's, bfloat16)."""
     cfg = flagship_smoke_config(rnn_impl)
     h = cfg.hparas
     h.max_step, h.valid_step, h.log_step = max_step, max_step, 1
+    if dtype:
+        h.dtype = dtype
     return cfg
 
 
-def smoke_train_solver(outdir: str, seed: int = 0, max_step: int = 5, rnn_impl: str = "auto"):
+def smoke_train_solver(outdir: str, seed: int = 0, max_step: int = 5, rnn_impl: str = "auto",
+                       dtype: str = ""):
     """A train-mode Solver on the card over ``flagship_train_config``, with
     fresh seed-``seed`` weights (no resume) and its logs and checkpoints
     under ``outdir``."""
     from e2e_asr_tpu_torch.bin.train_asr import Solver
 
-    cfg = flagship_train_config(max_step, rnn_impl)
+    cfg = flagship_train_config(max_step, rnn_impl, dtype)
     cfg.hparas.seed = seed
     paras = types.SimpleNamespace(
         config=FLAGSHIP, name="smoke_train", logdir=os.path.join(outdir, "log"),
@@ -182,7 +189,7 @@ CONVERGENCE = "configs/synthetic_convergence.yaml"
 
 def convergence_train_solver(outdir: str, seed: int = 0, max_step: int = 3, rnn_impl: str = "auto",
                              tf: float = 0.8, train_utts: int = 96, log_step: int = 1,
-                             njobs: int = None, corpus: dict = None):
+                             njobs: int = None, corpus: dict = None, dtype: str = ""):
     """A train-mode Solver on the card over the convergence recipe
     (configs/synthetic_convergence.yaml at its full width: batch 32, three
     256-wide BiLSTM layers on 80-dim fbank with no prenet, attention 128 / 8
@@ -193,7 +200,8 @@ def convergence_train_solver(outdir: str, seed: int = 0, max_step: int = 3, rnn_
     step (None: the recipe's schedule), and the BiLSTM layers routed by
     ``rnn_impl``. ``njobs`` (loader threads; None: the recipe's
     ``num_workers``) and ``corpus`` (fields of ``data.corpus`` to set, e.g.
-    ``device_cache``, ``cache_bytes``) pick the input path."""
+    ``device_cache``, ``cache_bytes``) pick the input path; ``dtype`` pins
+    ``hparas.dtype`` (empty: the recipe's, bfloat16)."""
     from e2e_asr_tpu_torch.bin.train_asr import Solver
     from e2e_asr_tpu_torch.config import Config
 
@@ -206,6 +214,8 @@ def convergence_train_solver(outdir: str, seed: int = 0, max_step: int = 3, rnn_
         setattr(c, k, v)
     h = cfg.hparas
     h.max_step, h.valid_step, h.log_step, h.seed = max_step, max_step, log_step, seed
+    if dtype:
+        h.dtype = dtype
     if tf is not None:
         h.tf_start = h.tf_end = tf
     cfg.model.encoder.rnn_impl = rnn_impl
@@ -251,17 +261,19 @@ def _device_time_us(evt) -> float:
     return 0.0
 
 
-def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0, eager: bool = False):
+def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0, eager: bool = False, dtype: str = ""):
     """(function that runs one unit of work, audio seconds in it). The
     training batch is one streaming batch on the device, repeated: an
     offsets batch (the smoke corpus is device-resident under
     ``device_cache: auto``) is gathered once through ``resolve_wav``, so
-    that the profiled step is the model's alone."""
+    that the profiled step is the model's alone; ``dtype`` pins the
+    training's ``hparas.dtype`` (empty: the recipe's)."""
     from e2e_asr_tpu_torch import cuda_build
     from e2e_asr_tpu_torch.training.step import resolve_wav
 
     if train:
-        solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "profile_train"), rnn_impl=rnn_impl)
+        solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "profile_train"), rnn_impl=rnn_impl,
+                                    dtype=dtype)
         batch = solver._put(next(solver.tr_set.epoch(0)))
         batch = {"wav": resolve_wav(batch)[0], **{k: batch[k] for k in ("wav_len", "text", "text_len")}}
         audio_s = float(batch["wav_len"].sum()) / solver.config.data.audio.sample_rate
@@ -794,10 +806,14 @@ def main(argv=None):
                     help="decode through the eager loop of beam_step instead of the captured graphs")
     ap.add_argument("--parent", default="",
                     help="a checkout of the parent commit: decode profiles there and here in turns")
+    ap.add_argument("--dtype", default="recipe", choices=("recipe", "float32", "bfloat16"),
+                    help="with --train: the compute type (hparas.dtype; recipe: the recipe's, bfloat16)")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
     args = ap.parse_args(argv)
     if args.scan_phases and not args.train:
         ap.error("--scan-phases needs --train")
+    if args.dtype != "recipe" and (not args.train or args.scan_phases):
+        ap.error("--dtype is an option of the training profile")
     if (args.lm_weight or args.eager or args.parent) and (args.train or args.decode_phases):
         ap.error("--lm-weight, --eager and --parent are options of the decode profile")
     if not torch.cuda.is_available():
@@ -858,10 +874,11 @@ def main(argv=None):
         with open(out, "w") as f:
             json.dump({"card": card, "by_cluster_size": splits}, f, indent=1)
         return
-    run, audio_s = _run_fn(args.train, args.rnn_impl, args.lm_weight, args.eager)
+    dtype = "" if args.dtype == "recipe" else args.dtype
+    run, audio_s = _run_fn(args.train, args.rnn_impl, args.lm_weight, args.eager, dtype)
     result = {"card": card, "what": what, "rnn_impl": args.rnn_impl, "lm_weight": args.lm_weight,
-              **profile_run(run, audio_s)}
-    unit = ("one train step (B=16)" if args.train
+              "dtype": args.dtype, **profile_run(run, audio_s)}
+    unit = (f"one train step (B=16, dtype {args.dtype})" if args.train
             else f"decode (B=16, W=16, lm_weight {args.lm_weight:g}, {'eager loop' if args.eager else 'graphs'})")
     print(f"{card}: {unit} of {audio_s:.2f} audio-s wall {result['wall_ms']:.1f} ms = "
           f"{result['audio_s_per_s']:.1f} audio-s/s")

@@ -1,13 +1,16 @@
 """Where a step of the LSTM sweeps goes, by ablation, on the card.
 
-    python -m e2e_asr_tpu_torch.bin.sweep_split [--sweep forward|backward] [--out PATH]
+    python -m e2e_asr_tpu_torch.bin.sweep_split [--sweep forward|backward]
+        [--dtype recipe|float32|bfloat16] [--out PATH]
 
 Builds variants of each sweep's source with one part of the step compiled
 out (their outputs are wrong; only their times count) into
 ``_build/sweep_split/`` and times each variant's sweep launch (CUDA events,
 10 launches) at the flagship's layer (T=204, B=16, H=320) and the
 convergence recipe's first layer (T=816, B=32, H=256), both directions;
-both sweeps unless ``--sweep`` names one.
+both sweeps unless ``--sweep`` names one; in the storage type ``--dtype``
+names (recipe: the flagship recipe's ``hparas.dtype``, bfloat16), acts
+float32 (the lstm_seq route's).
 
 The backward sweep (csrc/lstm_bidir_bwd.cu):
 
@@ -101,7 +104,7 @@ def ablated_source(sweep: str) -> str:
 def build(out_dir: str, sweeps=tuple(SWEEPS)) -> dict:
     """One library a (sweep, variant), compiled in parallel; {sweep: {variant: path}}."""
     os.makedirs(out_dir, exist_ok=True)
-    for header in ("tf32_mma.cuh", "gemm_tf32.cuh"):
+    for header in ("bf16.cuh", "tf32_mma.cuh", "gemm_tf32.cuh"):
         with open(os.path.join(cuda_build.CSRC_DIR, header)) as f, open(os.path.join(out_dir, header), "w") as g:
             g.write(f.read())
     procs, paths = {}, {}
@@ -123,12 +126,13 @@ def build(out_dir: str, sweeps=tuple(SWEEPS)) -> dict:
     return paths
 
 
-def _inputs(t: int, b: int, h: int, dev: torch.device) -> dict:
-    """Both sweeps' inputs at (T, B, H), two directions, every row valid."""
+def _inputs(t: int, b: int, h: int, dev: torch.device, dtype: torch.dtype = torch.float32) -> dict:
+    """Both sweeps' inputs at (T, B, H), two directions, every row valid;
+    wh, c, dy, xw and ys in ``dtype``, the rest float32."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     r = 2 * b
-    return dict(
+    x = dict(
         mask=torch.ones((t, r), device=dev),
         wh=torch.randn((2, h, 4 * h), generator=gen, device=dev) / h ** 0.5,
         c=torch.randn((t, r, h), generator=gen, device=dev),
@@ -139,19 +143,25 @@ def _inputs(t: int, b: int, h: int, dev: torch.device) -> dict:
         ys=torch.empty((t, r, h), device=dev),
         hbuf=torch.empty((2, r, h), device=dev),
     )
+    for k in ("wh", "c", "dy", "xw", "ys"):
+        x[k] = x[k].to(dtype)
+    x["dgs"] = torch.empty((t, r, 4 * h), dtype=dtype, device=dev)
+    return x
 
 
 def _launcher(sweep: str, path: str, t: int, b: int, h: int, x: dict, dev: torch.device):
     """A function that launches the variant's sweep once (raises on error)."""
     lib = ctypes.CDLL(path)
+    dt = x["wh"].dtype
+    codes = (cuda_build.dtype_code(dt, "sweep_split"), 0)  # storage type; acts float32
     if sweep == "backward":
         fn = lib.e2e_lstm_bwd_sweep
-        ptrs = (x["mask"], x["wh"], x["c"], x["acts"], x["dy"], x["dg"])
-        ints = (t, b, 2, h, 1, *rnn_cuda.sweep_grid(t, b, 2, h, dev)[:3])
+        ptrs = (x["mask"], x["wh"], x["c"], x["acts"], x["dy"], x["dg"], x["dgs"])
+        ints = (t, b, 2, h, 1, *rnn_cuda.sweep_grid(t, b, 2, h, dev, dt)[:3], *codes)
     else:
         fn = lib.e2e_lstm_fwd_sweep
         ptrs = (x["xw"], x["mask"], x["wh"], x["ys"], x["c"], x["acts"], x["hbuf"])
-        ints = (t, b, 2, h, 1, 1, *rnn_cuda.fwd_plan(b, 2, h, dev)[:3])
+        ints = (t, b, 2, h, 1, 1, *rnn_cuda.fwd_plan(b, 2, h, dev, dt)[:3], *codes)
     fn.restype = ctypes.c_int
 
     def run():
@@ -164,11 +174,12 @@ def _launcher(sweep: str, path: str, t: int, b: int, h: int, x: dict, dev: torch
     return run
 
 
-def time_variant(sweep: str, path: str, t: int, b: int, h: int, iters: int = 10) -> float:
+def time_variant(sweep: str, path: str, t: int, b: int, h: int, iters: int = 10,
+                 dtype: torch.dtype = torch.float32) -> float:
     """ms a sweep launch of the variant at (T, B, H), two directions, every
-    row valid (the forward in its training variant)."""
+    row valid (the forward in its training variant), in storage type ``dtype``."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    run = _launcher(sweep, path, t, b, h, _inputs(t, b, h, dev), dev)
+    run = _launcher(sweep, path, t, b, h, _inputs(t, b, h, dev, dtype), dev)
     run()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -199,8 +210,15 @@ def _split(sweep: str, us: dict) -> dict:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sweep", choices=sorted(SWEEPS), default=None, help="time one sweep only (default: both)")
+    ap.add_argument("--dtype", default="recipe", choices=("recipe", "float32", "bfloat16"),
+                    help="storage type of the sweeps (recipe: the flagship recipe's hparas.dtype)")
     ap.add_argument("--out", default="", help="JSON result (default: _build/sweep_split.json)")
     args = ap.parse_args(argv)
+    from e2e_asr_tpu_torch.bin.profile_decode import FLAGSHIP
+    from e2e_asr_tpu_torch.config import Config
+
+    name = Config.load(FLAGSHIP).hparas.dtype if args.dtype == "recipe" else args.dtype
+    dtype = torch.bfloat16 if name == "bfloat16" else torch.float32
     if not torch.cuda.is_available():
         raise SystemExit("sweep_split: needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -208,20 +226,21 @@ def main(argv=None):
     sweeps = (args.sweep,) if args.sweep else tuple(SWEEPS)
     paths = build(os.path.join(cuda_build.BUILD_DIR, "sweep_split"), sweeps)
     dev = torch.device("cuda", torch.cuda.current_device())
-    result = {"card": card, "shapes": {}, "forward": {}}
+    result = {"card": card, "dtype": name, "shapes": {}, "forward": {}}
     for sweep in sweeps:
         for t, b, h in SHAPES:
-            ms = {name: time_variant(sweep, path, t, b, h) for name, path in paths[sweep].items()}
+            ms = {v: time_variant(sweep, path, t, b, h, dtype=dtype) for v, path in paths[sweep].items()}
             us = {name: v / t * 1e3 for name, v in ms.items()}
             split = _split(sweep, us)
             if sweep == "backward":
-                plan = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"), rnn_cuda.sweep_grid(t, b, 2, h, dev)))
+                plan = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
+                                rnn_cuda.sweep_grid(t, b, 2, h, dev, dtype)))
             else:
                 plan = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
-                                rnn_cuda.fwd_plan(b, 2, h, dev)))
+                                rnn_cuda.fwd_plan(b, 2, h, dev, dtype)))
             entry = {"ms": ms, "us_per_step": us, "split_us": split, "grid" if sweep == "backward" else "plan": plan}
             (result["shapes"] if sweep == "backward" else result["forward"])[f"T{t}_B{b}_H{h}"] = entry
-            print(f"{card}: {sweep} sweep T={t} B={b} H={h} plan {plan}: "
+            print(f"{card}: {sweep} sweep ({name}) T={t} B={b} H={h} plan {plan}: "
                   + "; ".join(f"{n} {v:.3f} ms ({us[n]:.2f} us/step)" for n, v in ms.items()), flush=True)
             print("  split (us a step): " + "; ".join(f"{k} {v:.2f}" for k, v in split.items()), flush=True)
     out = args.out or os.path.join(cuda_build.BUILD_DIR, "sweep_split.json")

@@ -43,7 +43,7 @@ from e2e_asr_tpu_torch.metrics import cal_er
 from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.ops.frontend import compute_features
 from e2e_asr_tpu_torch.solver import BaseSolver
-from e2e_asr_tpu_torch.training.step import Trainer, param_leaves
+from e2e_asr_tpu_torch.training.step import Trainer, compute_dtype, param_leaves
 
 DEV_STEP_RATIO = 1.2  # greedy decode steps per target token at validation
 STEP_LOG_LEN = 1000
@@ -99,9 +99,8 @@ class Solver(BaseSolver):
             f"ASR model: enc_dim={self.shapes.enc_dim}, vocab={self.vocab_size}, "
             f"#params={n_params}, device={self.device}"
         )
-        if cfg.hparas.dtype == "bfloat16":  # the JAX step's test (e2e_asr_tpu/training/step.py _dtype)
-            self.verbose(f"Compute dtype: float32, not the recipe's hparas.dtype {cfg.hparas.dtype} (the port "
-                         "trains in float32 until bf16 is ported: ROADMAP Queue 1 item 4)")
+        self.compute_dtype = str(compute_dtype(cfg)).replace("torch.", "")
+        self.verbose(f"Compute dtype: {self.compute_dtype}")
         if self.device.type == "cuda":
             t0 = time.time()
             cuda_build.build_all()

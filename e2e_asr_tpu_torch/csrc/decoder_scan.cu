@@ -63,11 +63,23 @@
 // in order: gate weights, v, Wq, Wout, k) and are read from L2 otherwise;
 // S is bounded only by the per-frame buffers (about 6,000 frames at the
 // flagship widths on 8-block clusters). No atomics: every sum has a fixed order.
+//
+// Storage types (csrc/bf16.cuh): the kernel is a template on the storage
+// type S (float or bf16) of k, v, the weights and the outputs logits, align,
+// hidden and c; acts, q, ctx and the scratch stay float. The bf16 variant
+// rounds where the TPU kernel rounds at bfloat16: all arithmetic in float32
+// from the widened inputs; h, c and the alignment carried rounded to bf16
+// (so are the stored ones, and the uniform initial alignment); h' and the
+// logits from the unrounded c' and h' (h' kept in the hf scratch for phase
+// C), the next q from the rounded h'; the context from the unrounded
+// alignment; the location features in float32. Its residents (gate weights,
+// Wq, Wout, k, v) are held in bf16, half the shared memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -210,15 +222,17 @@ __device__ __forceinline__ int slot_utterance(const int* ord, int B, int G, int 
   return idx < B ? ord[idx] : -1;
 }
 
+template <typename ST>
 struct FwdArgs {
-  const float *k, *v;
+  const ST *k, *v;
   const int* enc_len;
-  const float *taps, *wq, *bq, *wlp, *locv, *locb, *embed, *wx, *wh, *bl, *wout, *bout;
+  const ST *taps, *wq, *bq, *wlp, *locv, *locb, *embed, *wx, *wh, *bl, *wout, *bout;
   const int *teacher, *use_teacher;
-  float *logits, *align, *hidden, *cseq;
+  ST *logits, *align, *hidden, *cseq;
   int* tokens;
   float *acts, *qs, *ctxs;
   float* ew;  // scratch [V, 4H]: embed Wx[:Emb] + bl, each block its own columns
+  float* hf;  // scratch [B, H]: h' of the step unrounded (bf16; hidden itself at float)
   int B, S, Dk, E, K, P, H, Emb, V, L;
   float inv_temp;
   int sample;
@@ -232,18 +246,24 @@ struct FwdArgs {
 // row r of the gate product's input [ctx, h] of (step, utterance) ``row``:
 // ctx of this step, then h of the step before (written by other blocks in
 // this launch, so read through L2)
-__device__ __forceinline__ float gate_input(const FwdArgs& a, long row, int r) {
-  return r < a.E ? __ldcg(a.ctxs + row * a.E + r) : __ldcg(a.hidden + (row - a.B) * a.H + r - a.E);
+template <typename S>
+__device__ __forceinline__ float gate_input(const FwdArgs<S>& a, long row, int r) {
+  return r < a.E ? __ldcg(a.ctxs + row * a.E + r) : ldcgf(a.hidden + (row - a.B) * a.H + r - a.E);
 }
 
 // the block's gate weight (column cc, row r of [Wx[Emb:]; Wh]) from global
 // memory, where the weights are not resident; column cc is gate cc / nu of
 // unit u0 + cc % nu
-__device__ __forceinline__ float gate_weight(const FwdArgs& a, int cc, int r, int nu, int u0) {
+template <typename S>
+__device__ __forceinline__ float gate_weight(const FwdArgs<S>& a, int cc, int r, int nu, int u0) {
   const int gcol = (cc / nu) * a.H + u0 + cc % nu;
-  return r < a.E ? __ldg(a.wx + (long)(a.Emb + r) * 4 * a.H + gcol)
-                 : __ldg(a.wh + (long)(r - a.E) * 4 * a.H + gcol);
+  return r < a.E ? ldgf(a.wx + (long)(a.Emb + r) * 4 * a.H + gcol)
+                 : ldgf(a.wh + (long)(r - a.E) * 4 * a.H + gcol);
 }
+
+// floats of shared memory that n elements of es bytes take (a float each at
+// es = 4)
+__host__ __device__ inline size_t sfl(size_t n, int es) { return (n * es + 3) / 4; }
 
 // resident gate weights: [4 numax][WST], column cc of the block at row cc,
 // its E + H rows padded with zeros to WST = a multiple of 32, + 16 (a
@@ -255,20 +275,21 @@ struct FwdLayout {
       cst, red, sc, ord, tp, cpart, opart, epart, total;
 };
 
-// shared-memory layout of the forward kernel, in floats
+// shared-memory layout of the forward kernel, in floats; es: bytes an
+// element of the residents (the storage type)
 __host__ __device__ inline FwdLayout fwd_layout(int B, int S, int Dk, int E, int K, int P, int H,
                                                  int V, int G, int CL, int NS, int w, int wq,
-                                                 int wo, int kres, int vres) {
+                                                 int wo, int kres, int vres, int es) {
   const int nb = G * CL, numax = cdiv(H, nb), ncmax = 4 * numax;
   const int Sl = cdiv(S, CL), Dkc = cdiv(Dk, CL), Vc = cdiv(V, CL);
   const int Sl4 = cdiv(Sl, 4) * 4, Sl16 = cdiv(Sl, 16) * 16, Dk8 = cdiv(Dk, 8) * 8;
   FwdLayout l;
   size_t o = 0;
-  l.wt = o;   o += w ? (size_t)ncmax * gate_stride(E, H) : 0;
-  l.wqs = o;  o += wq ? (size_t)Dkc * H : 0;
-  l.wos = o;  o += wo ? (size_t)Vc * H : 0;
-  l.ks = o;   o += kres ? (size_t)Sl * Dk : 0;
-  l.vs = o;   o += vres ? (size_t)Sl * E : 0;
+  l.wt = o;   o += w ? sfl((size_t)ncmax * gate_stride(E, H), es) : 0;
+  l.wqs = o;  o += wq ? sfl((size_t)Dkc * H, es) : 0;
+  l.wos = o;  o += wo ? sfl((size_t)Vc * H, es) : 0;
+  l.ks = o;   o += kres ? sfl((size_t)Sl * Dk, es) : 0;
+  l.vs = o;   o += vres ? sfl((size_t)Sl * E, es) : 0;
   l.att = o;  o += (size_t)NS * (S + 2 * APAD);
   l.ctxp = o; o += (size_t)NS * E;
   l.en = o;   o += (size_t)NS * Sl;
@@ -296,7 +317,8 @@ __host__ __device__ inline FwdLayout fwd_layout(int B, int S, int Dk, int E, int
   return l;
 }
 
-__global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
+template <typename S_>
+__global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> a) {
   cg::cluster_group cluster = cg::this_cluster();
   cg::grid_group grid = cg::this_grid();
   const int rank = (int)cluster.block_rank();
@@ -318,12 +340,12 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
 
   extern __shared__ float smem[];
   const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, a.w_smem, a.wq_smem,
-                                  a.wo_smem, a.k_smem, a.v_smem);
-  float* wt = smem + ly.wt;      // [ncmax][WST]   gate weights, column-major (gate_stride)
-  float* wqs = smem + ly.wqs;    // [H][Dkc]       own columns of Wq
-  float* wos = smem + ly.wos;    // [H][Vc]        own columns of Wout
-  float* ks = smem + ly.ks;      // [Sl][Dk]       slot 0's own frames of k
-  float* vs = smem + ly.vs;      // [Sl][E]        and of v
+                                  a.wo_smem, a.k_smem, a.v_smem, sizeof(S_));
+  S_* wt = reinterpret_cast<S_*>(smem + ly.wt);    // [ncmax][WST] gate weights, column-major (gate_stride)
+  S_* wqs = reinterpret_cast<S_*>(smem + ly.wqs);  // [H][Dkc]     own columns of Wq
+  S_* wos = reinterpret_cast<S_*>(smem + ly.wos);  // [H][Vc]      own columns of Wout
+  S_* ks = reinterpret_cast<S_*>(smem + ly.ks);    // [Sl][Dk]     slot 0's own frames of k
+  S_* vs = reinterpret_cast<S_*>(smem + ly.vs);    // [Sl][E]      and of v
   float* att = smem + ly.att;    // [NS][S + 2 APAD] alignment of the last step, zeros around it
   float* ctxp = smem + ly.ctxp;  // [NS][E]        unnormalised partial context
   float* en = smem + ly.en;      // [NS][Sl]       exp(energy - local max)
@@ -352,19 +374,19 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
   const int SA = S + 2 * APAD, KPS = kps_of(K), WLS = wls_of(Dk);
 
   // ---- once per launch: residents, the embedding table's own columns
-  for (int i = tid; i < K * WLS; i += NT) wl[i] = i % WLS < Dk ? a.wlp[(i / WLS) * Dk + i % WLS] : 0.0f;
+  for (int i = tid; i < K * WLS; i += NT) wl[i] = i % WLS < Dk ? ldf(a.wlp + (i / WLS) * Dk + i % WLS) : 0.0f;
   for (int i = tid; i < Dk8; i += NT) {
-    lv[i] = i < Dk ? a.locv[i] : 0.0f;
+    lv[i] = i < Dk ? ldf(a.locv + i) : 0.0f;
     qb[i] = 0.0f;
   }
-  for (int i = tid; i < K * P; i += NT) tp[i] = a.taps[i];
+  for (int i = tid; i < K * P; i += NT) tp[i] = ldf(a.taps + i);
   for (int i = tid; i < B * numax; i += NT) cst[i] = 0.0f;
   const int WST = gate_stride(E, H);
   if (a.w_smem) {
     for (int i = tid; i < nc * WST; i += NT) {
       const int cc = i / WST, r = i % WST;
       const int gcol = (cc / nu) * H + u0 + cc % nu;
-      wt[i] = r >= X ? 0.0f : r < E ? a.wx[(long)(Emb + r) * G4 + gcol] : a.wh[(long)(r - E) * G4 + gcol];
+      stf(wt + i, r >= X ? 0.0f : r < E ? ldf(a.wx + (long)(Emb + r) * G4 + gcol) : ldf(a.wh + (long)(r - E) * G4 + gcol));
     }
   }
   if (a.wq_smem)
@@ -376,9 +398,9 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
     const int gcol = (cc / nu) * H + u0 + cc % nu;
     float acc = 0.0f;
     for (int m = lane; m < Emb; m += 32)
-      acc = fmaf(a.embed[(long)vv * Emb + m], __ldg(a.wx + (long)m * G4 + gcol), acc);
+      acc = fmaf(ldf(a.embed + (long)vv * Emb + m), ldgf(a.wx + (long)m * G4 + gcol), acc);
     acc = warp_sum(acc);
-    if (lane == 0) a.ew[(long)vv * G4 + gcol] = acc + a.bl[gcol];
+    if (lane == 0) a.ew[(long)vv * G4 + gcol] = acc + ldf(a.bl + gcol);
   }
   rank_utterances(a.enc_len, B, S, ord);
   __syncthreads();
@@ -386,9 +408,9 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
     const int b = slot_utterance(ord, B, G, c, i);
     if (b < 0) continue;
     const int len = min(max(a.enc_len[b], 0), S);
-    const float uni = len > 0 ? 1.0f / (float)len : 0.0f;
+    const float uni = rnd<S_>(len > 0 ? 1.0f / (float)len : 0.0f);
     for (int x = tid; x < SA; x += NT) att[i * SA + x] = x >= APAD && x - APAD < len ? uni : 0.0f;
-    for (int dl = tid; dl < ndk; dl += NT) qsl[i * Dkc + dl] = a.bq[d0 + dl];  // h = 0
+    for (int dl = tid; dl < ndk; dl += NT) qsl[i * Dkc + dl] = ldf(a.bq + d0 + dl);  // h = 0
     if (i == 0) {
       const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
       if (a.k_smem)
@@ -413,7 +435,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
         const int q = d / Dkc;
         const float qv = *cluster.map_shared_rank(qsl + i * Dkc + d - q * Dkc, q);
         if (rank == 0) a.qs[row * Dk + d] = qv;
-        qb[d] = qv + a.locb[d];
+        qb[d] = qv + ldf(a.locb + d);
       }
       const bool fed = !a.use_teacher[t] && t > 0;
       if (fed && tid < CL) {  // the blocks' local argmaxes
@@ -490,8 +512,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
       {
         const int nt = cdiv(Dk, 8), g8 = lane >> 2, tig = lane & 3;
         const int wpm = max(1, NW / max(mt, 1)), mg = NW / wpm;  // warps a frame tile, tiles at once
-        const float* kp = i == 0 && a.k_smem ? ks : a.k + ((long)b * S + s0) * Dk;
-        const bool k2 = Dk % 2 == 0 && ((uintptr_t)kp & 7) == 0;
+        const S_* kp = i == 0 && a.k_smem ? ks : a.k + ((long)b * S + s0) * Dk;
+        const bool k2 = Dk % 2 == 0 && ((uintptr_t)kp & (2 * sizeof(S_) - 1)) == 0;
         for (int x = tid; x < NW * Sl16; x += NT) epart[x] = 0.0f;
         __syncthreads();
         for (int mi = wid / wpm; wid < mg * wpm && mi < mt; mi += mg) {
@@ -506,17 +528,17 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
             for (int u = 0; u < NTPF; ++u) {
               const int d = (nc0 + u * wpm) * 8 + 2 * tig;
               if (k2) {  // d even, Dk even: the pair in one 8-byte load
-                const float2 x = va && d < Dk ? *reinterpret_cast<const float2*>(kp + ra * Dk + d) : make_float2(0.0f, 0.0f);
-                const float2 y = vb && d < Dk ? *reinterpret_cast<const float2*>(kp + rb * Dk + d) : make_float2(0.0f, 0.0f);
+                const float2 x = va && d < Dk ? ld2(kp + ra * Dk + d) : make_float2(0.0f, 0.0f);
+                const float2 y = vb && d < Dk ? ld2(kp + rb * Dk + d) : make_float2(0.0f, 0.0f);
                 kv[u][0] = x.x;
                 kv[u][1] = x.y;
                 kv[u][2] = y.x;
                 kv[u][3] = y.y;
               } else {
-                kv[u][0] = va && d < Dk ? kp[ra * Dk + d] : 0.0f;
-                kv[u][1] = va && d + 1 < Dk ? kp[ra * Dk + d + 1] : 0.0f;
-                kv[u][2] = vb && d < Dk ? kp[rb * Dk + d] : 0.0f;
-                kv[u][3] = vb && d + 1 < Dk ? kp[rb * Dk + d + 1] : 0.0f;
+                kv[u][0] = va && d < Dk ? ldf(kp + ra * Dk + d) : 0.0f;
+                kv[u][1] = va && d + 1 < Dk ? ldf(kp + ra * Dk + d + 1) : 0.0f;
+                kv[u][2] = vb && d < Dk ? ldf(kp + rb * Dk + d) : 0.0f;
+                kv[u][3] = vb && d + 1 < Dk ? ldf(kp + rb * Dk + d + 1) : 0.0f;
               }
             }
 #pragma unroll
@@ -573,11 +595,11 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
       }
       PHASE(t, 4);  // softmax
       const bool vres = i == 0 && a.v_smem;
-      const float* vb = vres ? vs : a.v + ((long)b * S + s0) * E;
+      const S_* vb = vres ? vs : a.v + ((long)b * S + s0) * E;
       for (int e = tid; e < E; e += NT) {
         float acc = 0.0f;
 #pragma unroll 8
-        for (int sl = 0; sl < nv; ++sl) acc = fmaf(en[i * Sl + sl], vb[(long)sl * E + e], acc);
+        for (int sl = 0; sl < nv; ++sl) acc = fmaf(en[i * Sl + sl], ldf(vb + (long)sl * E + e), acc);
         ctxp[i * E + e] = acc;
       }
       PHASE(t, 5);  // context partial
@@ -612,8 +634,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
           const int q = s / Sb;
           al = *cluster.map_shared_rank(en + i * Sl + s - q * Sb, q) * scl[q];
         }
-        att[i * SA + APAD + s] = al;
-        if (s / Sl == rank) a.align[row * S + s] = al;
+        att[i * SA + APAD + s] = rnd<S_>(al);
+        if (s / Sl == rank) stf(a.align + row * S + s, al);
       }
       for (int e = e0 + tid; e < e0 + ne; e += NT) {
         float pv[CLMAX];  // the blocks' partials, all loads in flight
@@ -652,8 +674,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
       const bool oka = ub + g8 < B, okb = ub + g8 + 8 < B;
       const float* ca = a.ctxs + ra * E;
       const float* cb = a.ctxs + rb * E;
-      const float* ha = a.hidden + (ra - B) * H - E;  // ha[r] = h of row r >= E
-      const float* hb = a.hidden + (rb - B) * H - E;
+      const S_* ha = a.hidden + (ra - B) * H - E;  // ha[r] = h of row r >= E
+      const S_* hb = a.hidden + (rb - B) * H - E;
       const bool vec = E % 4 == 0;  // rows of ctx and h start on 16 bytes
       for (int n0 = 0; n0 < nc; n0 += 16) {
         const int c0 = n0 + g8, c1 = c0 + 8;  // the lane's columns of the two tiles
@@ -674,8 +696,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
               aa[u][0] = x.x; aa[u][1] = x.y; aa[u][2] = x.z; aa[u][3] = x.w;
               ab[u][0] = y.x; ab[u][1] = y.y; ab[u][2] = y.z; ab[u][3] = y.w;
             } else if (vec && k0 >= E && k0 + 16 <= rows) {
-              const float4 x = oka ? __ldcg(reinterpret_cast<const float4*>(ha + kx)) : make_float4(0, 0, 0, 0);
-              const float4 y = okb ? __ldcg(reinterpret_cast<const float4*>(hb + kx)) : make_float4(0, 0, 0, 0);
+              const float4 x = oka ? ld4cg(ha + kx) : make_float4(0, 0, 0, 0);
+              const float4 y = okb ? ld4cg(hb + kx) : make_float4(0, 0, 0, 0);
               aa[u][0] = x.x; aa[u][1] = x.y; aa[u][2] = x.z; aa[u][3] = x.w;
               ab[u][0] = y.x; ab[u][1] = y.y; ab[u][2] = y.z; ab[u][3] = y.w;
             } else {
@@ -692,8 +714,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
             if (k0 >= rows) break;
             float w0[4], w1[4];  // rows kx .. + 3 of the lane's two columns
             if (a.w_smem) {
-              const float4 x = okc0 ? *reinterpret_cast<const float4*>(wt + c0 * WST + kx) : make_float4(0, 0, 0, 0);
-              const float4 y = okc1 ? *reinterpret_cast<const float4*>(wt + c1 * WST + kx) : make_float4(0, 0, 0, 0);
+              const float4 x = okc0 ? ld4(wt + c0 * WST + kx) : make_float4(0, 0, 0, 0);
+              const float4 y = okc1 ? ld4(wt + c1 * WST + kx) : make_float4(0, 0, 0, 0);
               w0[0] = x.x; w0[1] = x.y; w0[2] = x.z; w0[3] = x.w;
               w1[0] = y.x; w1[1] = y.y; w1[2] = y.z; w1[3] = y.w;
             } else {
@@ -753,9 +775,11 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
       const float ig = sigmoidf_(gs[jj] + ewv[0]), fg = sigmoidf_(gs[nu + jj] + ewv[1]),
                   gg = tanhf(gs[2 * nu + jj] + ewv[2]), og = sigmoidf_(gs[3 * nu + jj] + ewv[3]);
       const float cn = fg * cst[b * numax + jj] + ig * gg;
-      cst[b * numax + jj] = cn;
-      a.hidden[row * H + u] = og * tanhf(cn);
-      a.cseq[row * H + u] = cn;
+      const float hn = og * tanhf(cn);
+      cst[b * numax + jj] = rnd<S_>(cn);
+      stf(a.hidden + row * H + u, hn);
+      if constexpr (sizeof(S_) == 2) a.hf[(long)b * H + u] = hn;
+      stf(a.cseq + row * H + u, cn);
       float* ac = a.acts + row * G4 + u;
       ac[0] = ig;
       ac[H] = fg;
@@ -774,7 +798,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
       const int b = slot_utterance(ord, B, G, c, i);
       if (b < 0) continue;
       const long row = (long)t * B + b;
-      for (int x = tid; x < H; x += NT) hs[x] = __ldcg(a.hidden + row * H + x);
+      for (int x = tid; x < H; x += NT)
+        hs[x] = sizeof(S_) == 2 ? __ldcg(a.hf + (long)b * H + x) : ldcgf(a.hidden + row * H + x);
       __syncthreads();
       // outputs o < nvc: own logits; then the own slice of q. Threads over
       // (output, chunk of h'), neighbours on neighbouring columns
@@ -783,18 +808,19 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
         float acc = 0.0f;
         if (o < nvc) {
           if (a.wo_smem) {
-            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], wos[x * Vc + o], acc);
+            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], ldf(wos + x * Vc + o), acc);
           } else {
 #pragma unroll 12
-            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], __ldg(a.wout + (long)x * V + v0 + o), acc);
+            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], ldgf(a.wout + (long)x * V + v0 + o), acc);
           }
         } else {
+          // q from h' as stored (rounded in bf16)
           const int dl = o - nvc;
           if (a.wq_smem) {
-            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], wqs[x * Dkc + dl], acc);
+            for (int x = xa; x < xb; ++x) acc = fmaf(rnd<S_>(hs[x]), ldf(wqs + x * Dkc + dl), acc);
           } else {
 #pragma unroll 12
-            for (int x = xa; x < xb; ++x) acc = fmaf(hs[x], __ldg(a.wq + (long)x * Dk + d0 + dl), acc);
+            for (int x = xa; x < xb; ++x) acc = fmaf(rnd<S_>(hs[x]), ldgf(a.wq + (long)x * Dk + d0 + dl), acc);
           }
         }
         opart[x2] = acc;
@@ -805,11 +831,11 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs a) {
         for (int xs = 0; xs < xsplit; ++xs) acc += opart[xs * no + o];
         if (o < nvc) {
           const int col = v0 + o;
-          const float lgt = acc + a.bout[col];
-          a.logits[row * V + col] = lgt;
+          const float lgt = acc + ldf(a.bout + col);
+          stf(a.logits + row * V + col, lgt);
           lg[o] = a.sample ? lgt + gumbel(a.seed_lo, a.seed_hi, t, b, col) : lgt;
         } else {
-          qsl[i * Dkc + o - nvc] = acc + a.bq[d0 + o - nvc];
+          qsl[i * Dkc + o - nvc] = acc + ldf(a.bq + d0 + o - nvc);
         }
       }
       __syncthreads();
@@ -855,9 +881,14 @@ __global__ void gumbel_noise_kernel(float* out, int L, int B, int V, uint32_t se
   }
 }
 
+// the kernel of storage type dt (0 float, 1 bf16)
+const void* fwd_kernel(int dt) {
+  return dt ? (const void*)decoder_scan_fwd_kernel<bf16> : (const void*)decoder_scan_fwd_kernel<float>;
+}
+
 // a cooperative launch of G clusters with smem bytes of shared memory a block
 cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* at, int G, int CL,
-                          size_t smem, cudaStream_t stream) {
+                          size_t smem, int dt, cudaStream_t stream) {
   cfg = {};
   cfg.gridDim = dim3(G * CL);
   cfg.blockDim = dim3(NT);
@@ -871,8 +902,7 @@ cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* at, int 
   at[1].val.cooperative = 1;
   cfg.attrs = at;
   cfg.numAttrs = 2;
-  return cudaFuncSetAttribute(decoder_scan_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return cudaFuncSetAttribute(fwd_kernel(dt), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -881,31 +911,33 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out[0] = the clusters of cl blocks of the forward kernel that can be
-// resident at once with smem bytes of dynamic shared memory a block
-extern "C" int e2e_decoder_scan_fwd_clusters(int cl, int smem, int* out, void* stream) {
-  if (cl < 1 || cl > CLMAX) return (int)cudaErrorInvalidValue;
+// out[0] = the clusters of cl blocks of the forward kernel of storage type
+// dt (0 float, 1 bf16) that can be resident at once with smem bytes of
+// dynamic shared memory a block
+extern "C" int e2e_decoder_scan_fwd_clusters(int cl, int smem, int dt, int* out, void* stream) {
+  if (cl < 1 || cl > CLMAX || dt < 0 || dt > 1) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute at[2];
-  cudaError_t e = launch_config(cfg, at, 1, cl, (size_t)smem, (cudaStream_t)stream);
+  cudaError_t e = launch_config(cfg, at, 1, cl, (size_t)smem, dt, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   cfg.numAttrs = 1;  // the query takes the cluster shape
-  return (int)cudaOccupancyMaxActiveClusters(out, (void*)decoder_scan_fwd_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, fwd_kernel(dt), &cfg);
 }
 
 // The forward kernel's shared memory on G clusters of CL blocks (host only):
 // out[0] = bytes a block, or -1 where the working buffers alone exceed
 // SMEM_MAX; out[1..5] = the flags w_smem, v_smem, wq_smem, wo_smem, k_smem
 // of e2e_decoder_scan_fwd, each resident taken in that order while the
-// block's total stays within SMEM_MAX.
+// block's total stays within SMEM_MAX; dt: the storage type (0 float, 1
+// bf16), in which the residents are held.
 extern "C" int e2e_decoder_scan_fwd_plan(int B, int S, int Dk, int E, int K, int P, int H, int V,
-                                         int G, int CL, int* out, void* stream) {
+                                         int G, int CL, int dt, int* out, void* stream) {
   (void)stream;
-  if (B < 1 || S < 1 || G < 1 || CL < 1 || CL > CLMAX) return (int)cudaErrorInvalidValue;
-  const int NS = cdiv(B, G);
+  if (B < 1 || S < 1 || G < 1 || CL < 1 || CL > CLMAX || dt < 0 || dt > 1) return (int)cudaErrorInvalidValue;
+  const int NS = cdiv(B, G), es = dt ? 2 : 4;
   int f[5] = {0, 0, 0, 0, 0};  // w, v, wq, wo, k
   auto bytes = [&]() {
-    return sizeof(float) * fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, f[0], f[2], f[3], f[4], f[1]).total;
+    return sizeof(float) * fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, f[0], f[2], f[3], f[4], f[1], es).total;
   };
   out[0] = -1;
   if (bytes() > SMEM_MAX) return 0;
@@ -923,36 +955,45 @@ extern "C" int e2e_decoder_scan_fwd_plan(int B, int S, int Dk, int E, int K, int
 // wh [H, 4H], bl [4H], wout [H, V], bout [V], teacher [L, B] i32,
 // use_teacher [L] i32 -> logits [L, B, V], align [L, B, S], hidden [L, B, H],
 // cseq [L, B, H], tokens [L, B] i32, acts [L, B, 4H], qs [L, B, Dk],
-// ctxs [L, B, E]; ew [V, 4H] scratch. All f32 but the ids, contiguous. H a
-// multiple of 8 up to 512, Dk up to 512, P odd. G clusters of CL blocks (all
+// ctxs [L, B, E]; ew [V, 4H] and hf [B, H] scratch (hf unused at float).
+// k, v, the weights, logits, align, hidden and cseq of storage type dt (0
+// float, 1 bf16), the rest float but the ids, all contiguous. H a multiple
+// of 8 up to 512, Dk up to 512, P odd. G clusters of CL blocks (all
 // resident: the cooperative launch fails otherwise), ceil(B / G) utterance
 // slots each; the flags say what lives in shared memory.
 extern "C" int e2e_decoder_scan_fwd(
-    const float* k, const float* v, const int* enc_len, const float* taps, const float* wq,
-    const float* bq, const float* wlp, const float* locv, const float* locb, const float* embed,
-    const float* wx, const float* wh, const float* bl, const float* wout, const float* bout,
-    const int* teacher, const int* use_teacher, float* logits, float* align, float* hidden,
-    float* cseq, int* tokens, float* acts, float* qs, float* ctxs, float* ew, int B, int S, int Dk,
-    int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample, int seed_lo,
-    int seed_hi, int G, int CL, int w_smem, int wq_smem, int wo_smem, int k_smem, int v_smem,
+    const void* k, const void* v, const int* enc_len, const void* taps, const void* wq,
+    const void* bq, const void* wlp, const void* locv, const void* locb, const void* embed,
+    const void* wx, const void* wh, const void* bl, const void* wout, const void* bout,
+    const int* teacher, const int* use_teacher, void* logits, void* align, void* hidden,
+    void* cseq, int* tokens, float* acts, float* qs, float* ctxs, float* ew, float* hf, int B, int S,
+    int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample, int seed_lo,
+    int seed_hi, int G, int CL, int w_smem, int wq_smem, int wo_smem, int k_smem, int v_smem, int dt,
     void* stream) {
   if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
-      CL < 1 || CL > CLMAX)
+      CL < 1 || CL > CLMAX || dt < 0 || dt > 1)
     return (int)cudaErrorInvalidValue;
   const int NS = cdiv(B, G);
   const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, w_smem, wq_smem, wo_smem,
-                                  k_smem, v_smem);
+                                  k_smem, v_smem, dt ? 2 : 4);
   const size_t smem = sizeof(float) * ly.total;
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute at[2];
-  cudaError_t e = launch_config(cfg, at, G, CL, smem, (cudaStream_t)stream);
+  cudaError_t e = launch_config(cfg, at, G, CL, smem, dt, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  FwdArgs a{k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-            teacher, use_teacher, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew,
-            B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, sample,
-            (uint32_t)seed_lo, (uint32_t)seed_hi, G, CL, NS, w_smem, wq_smem, wo_smem, k_smem, v_smem};
-  return (int)cudaLaunchKernelEx(&cfg, decoder_scan_fwd_kernel, a);
+  auto run = [&](auto zero) -> cudaError_t {
+    using T = decltype(zero);
+    using C = const T*;
+    using O = T*;
+    FwdArgs<T> a{(C)k, (C)v, enc_len, (C)taps, (C)wq, (C)bq, (C)wlp, (C)locv, (C)locb, (C)embed, (C)wx,
+                 (C)wh, (C)bl, (C)wout, (C)bout, teacher, use_teacher, (O)logits, (O)align, (O)hidden,
+                 (O)cseq, tokens, acts, qs, ctxs, ew, hf,
+                 B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, sample,
+                 (uint32_t)seed_lo, (uint32_t)seed_hi, G, CL, NS, w_smem, wq_smem, wo_smem, k_smem, v_smem};
+    return cudaLaunchKernelEx(&cfg, decoder_scan_fwd_kernel<T>, a);
+  };
+  return (int)(dt ? run(bf16{}) : run(0.0f));
 }
 
 // out [PH_STEPS * PH_SLOTS] u64: the timing build's phase marks of the last

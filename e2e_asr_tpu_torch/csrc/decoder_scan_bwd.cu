@@ -69,11 +69,22 @@
 // energies and dfpre buffers, the rows, dk, k, v) and are read from L2 or
 // a global scratch otherwise; S is bounded only by the per-frame buffers (about
 // 6,800 frames at the flagship widths on 8-block clusters).
+//
+// Storage types (csrc/bf16.cuh): the kernel is a template on the storage
+// type S (float or bf16) of k, v, the weights, the stored alignment and c,
+// and the cotangents of logits, alignment and hidden; acts, q, ctx and
+// every output stay float32 (the caller rounds the per-step streams where
+// the TPU kernel stores them in bf16). The bf16 variant widens at the loads,
+// keeps its carries (dh, dc, d_align) in float32, rebuilds the uniform
+// initial alignment rounded to bf16 and holds its residents (the rows, k, v)
+// in bf16; it does not prefetch k into the energies' buffer (bf16 k there
+// would be overwritten by the float energies before all of it is read).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -185,11 +196,14 @@ __device__ __forceinline__ int slot_utterance(const int* ord, int B, int G, int 
   return idx < B ? ord[idx] : -1;
 }
 
+template <typename ST>
 struct BwdArgs {
-  const float *k, *v;
+  const ST *k, *v;
   const int* enc_len;
-  const float *taps, *wq, *wlp, *locv, *locb, *wx, *wh, *wout;
-  const float *align, *cseq, *acts, *qs, *ctxs, *dlogits, *dalign, *dhidden;
+  const ST *taps, *wq, *wlp, *locv, *locb, *wx, *wh, *wout;
+  const ST *align, *cseq;
+  const float *acts, *qs, *ctxs;
+  const ST *dlogits, *dalign, *dhidden;
   float *dgates, *dq, *dfpre, *dk, *dwlp_part, *dlocv_part;
   float* dctxg;    // scratch [B, E]: dctx of the step
   float* scratch;  // [G CL][Sl Dk + S K]: es and dfa of the blocks that keep them out of shared memory
@@ -203,30 +217,36 @@ struct BwdArgs {
 
 // the block's row r (of [Wx[Emb + er0 .. + ner]; Wh[u0 ..]]) at column k
 // from global memory, where the rows are not resident
-__device__ __forceinline__ float row_weight(const BwdArgs& a, int r, int k, int ner, int er0, int u0) {
-  return r < ner ? __ldg(a.wx + (long)(a.Emb + er0 + r) * 4 * a.H + k)
-                 : __ldg(a.wh + (long)(u0 + r - ner) * 4 * a.H + k);
+template <typename S>
+__device__ __forceinline__ float row_weight(const BwdArgs<S>& a, int r, int k, int ner, int er0, int u0) {
+  return r < ner ? ldgf(a.wx + (long)(a.Emb + er0 + r) * 4 * a.H + k)
+                 : ldgf(a.wh + (long)(u0 + r - ner) * 4 * a.H + k);
 }
+
+// floats of shared memory that n elements of es bytes take (a float each at
+// es = 4)
+__host__ __device__ inline size_t sfl(size_t n, int es) { return (n * es + 3) / 4; }
 
 struct BwdLayout {
   size_t wr, dks, ks, vs, es, attp, attt, base, den, dnx, fs, dfo, dfa, dctx, ctx, dqp, qb, lv, wl, dwl,
       datt, p2s, dhl, dcc, gdot, red, ord, tp, cpart, tpart, total;
 };
 
-// shared-memory layout of the backward kernel, in floats
+// shared-memory layout of the backward kernel, in floats; es: bytes an
+// element of the residents the storage type holds (rows, k, v)
 __host__ __device__ inline BwdLayout bwd_layout(int B, int S, int Dk, int E, int K, int P, int H,
                                                  int G, int CL, int NS, int esres, int dfares,
-                                                 int wr, int dkres, int kres, int vres) {
+                                                 int wr, int dkres, int kres, int vres, int es) {
   const int nb = G * CL, numax = cdiv(H, nb), nrmax = cdiv(E, nb) + numax;
   const int Sl = cdiv(S, CL);
   const int Sl4 = cdiv(Sl, 4) * 4, Sl16 = cdiv(Sl, 16) * 16, Dk8 = cdiv(Dk, 8) * 8;
   BwdLayout l;
   size_t o = 0;
-  l.wr = o;   o += wr ? (size_t)nrmax * row_stride(H) : 0;
+  l.wr = o;   o += wr ? sfl((size_t)nrmax * row_stride(H), es) : 0;
   l.dctx = o; o += E;  // on 16 bytes: row_stride is a multiple of 16 floats
   l.dks = o;  o += dkres ? (size_t)Sl * Dk : 0;
-  l.ks = o;   o += kres ? (size_t)Sl * Dk : 0;
-  l.vs = o;   o += vres ? (size_t)Sl * E : 0;
+  l.ks = o;   o += kres ? sfl((size_t)Sl * Dk, es) : 0;
+  l.vs = o;   o += vres ? sfl((size_t)Sl * E, es) : 0;
   l.es = o;   o += esres ? (size_t)Sl * Dk : 0;
   l.attp = o; o += S + 2 * APAD;
   l.attt = o; o += Sl;
@@ -256,7 +276,8 @@ __host__ __device__ inline BwdLayout bwd_layout(int B, int S, int Dk, int E, int
   return l;
 }
 
-__global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
+template <typename S_>
+__global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs<S_> a) {
   cg::cluster_group cluster = cg::this_cluster();
   cg::grid_group grid = cg::this_grid();
   const int rank = (int)cluster.block_rank();
@@ -277,16 +298,16 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
 
   extern __shared__ float smem[];
   const BwdLayout ly = bwd_layout(B, S, Dk, E, K, P, H, G, CL, NS, a.es_smem, a.dfa_smem, a.wr_smem,
-                                  a.dk_smem, a.k_smem, a.v_smem);
+                                  a.dk_smem, a.k_smem, a.v_smem, sizeof(S_));
   const int Sl4 = cdiv(Sl, 4) * 4, Dk8 = cdiv(Dk, 8) * 8;
   const int nsp = conv_parts(Sl, K);
   const int SA = S + 2 * APAD, KPS = kps_of(K), WLS = wls_of(Dk);
   const int WRS = row_stride(H);
   float* own = a.scratch + (long)j * ((long)Sl * Dk + (long)SA * K);  // this block's scratch
-  float* wr = smem + ly.wr;      // [nr][WRS] rows of Wx[Emb:] and Wh (row_stride)
+  S_* wr = reinterpret_cast<S_*>(smem + ly.wr);  // [nr][WRS] rows of Wx[Emb:] and Wh (row_stride)
   float* dks = smem + ly.dks;    // [Sl][Dk]  dk of slot 0's own frames
-  float* ks = smem + ly.ks;      // [Sl][Dk]  slot 0's own frames of k
-  float* vs = smem + ly.vs;      // [Sl][E]   and of v
+  S_* ks = reinterpret_cast<S_*>(smem + ly.ks);  // [Sl][Dk]  slot 0's own frames of k
+  S_* vs = reinterpret_cast<S_*>(smem + ly.vs);  // [Sl][E]   and of v
   float* es = a.es_smem ? smem + ly.es : own;  // [Sl][Dk]  the rebuilt tanh energies
   float* attp = smem + ly.attp + APAD;  // [S] alignment of step t-1, APAD zeros on each side
   float* attt = smem + ly.attt;  // [Sl]      alignment of step t, own frames
@@ -317,9 +338,9 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
 
   // ---- once per launch
   for (int i = tid; i < K * Dk; i += NT) dwl[i] = 0.0f;
-  for (int i = tid; i < K * WLS; i += NT) wl[i] = i % WLS < Dk ? a.wlp[(i / WLS) * Dk + i % WLS] : 0.0f;
+  for (int i = tid; i < K * WLS; i += NT) wl[i] = i % WLS < Dk ? ldf(a.wlp + (i / WLS) * Dk + i % WLS) : 0.0f;
   for (int i = tid; i < Dk8; i += NT) {
-    lv[i] = i < Dk ? a.locv[i] : 0.0f;
+    lv[i] = i < Dk ? ldf(a.locv + i) : 0.0f;
     qb[i] = 0.0f;
   }
   for (int i = tid; i < APAD; i += NT) {
@@ -327,7 +348,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
     attp[S + i] = 0.0f;
   }
   for (int i = tid; i < APAD * K; i += NT) dfa[-APAD * K + i] = 0.0f;
-  for (int i = tid; i < K * P; i += NT) tp[i] = a.taps[i];
+  for (int i = tid; i < K * P; i += NT) tp[i] = ldf(a.taps + i);
   for (int i = tid; i < B * numax; i += NT) {
     dhl[i] = 0.0f;
     dcc[i] = 0.0f;
@@ -365,7 +386,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
     const long row = (long)(L - 1) * B + b;
     float p2 = 0.0f;
     for (int sl = tid; sl < nv; sl += NT)
-      p2 = fmaf(a.dalign[row * S + s0 + sl], a.align[row * S + s0 + sl], p2);
+      p2 = fmaf(ldf(a.dalign + row * S + s0 + sl), ldf(a.align + row * S + s0 + sl), p2);
     p2 = block_sum(p2, red);
     if (tid == 0) p2s[i] = p2;
   }
@@ -380,16 +401,16 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
     // UCH units at once; then one thread per (utterance, unit), whose
     // stored activations, c and dhidden are loaded first, in the background,
     // for a thread's first (utterance, unit)
-    const bool dq4 = Dk % 4 == 0 && ((uintptr_t)a.dq & 15) == 0 && ((uintptr_t)a.wq & 15) == 0;
+    const bool dq4 = Dk % 4 == 0 && ((uintptr_t)a.dq & 15) == 0 && ((uintptr_t)a.wq & (4 * sizeof(S_) - 1)) == 0;
     float pf[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     if (nu > 0 && tid < B * nu) {
       const int u = u0 + tid % nu;
       const long row = (long)t * B + tid / nu;
 #pragma unroll
       for (int g = 0; g < 4; ++g) pf[g] = a.acts[row * G4 + g * H + u];
-      pf[4] = a.cseq[row * H + u];
-      pf[5] = t > 0 ? a.cseq[(row - B) * H + u] : 0.0f;
-      pf[6] = a.dhidden[row * H + u];
+      pf[4] = ldf(a.cseq + row * H + u);
+      pf[5] = t > 0 ? ldf(a.cseq + (row - B) * H + u) : 0.0f;
+      pf[6] = ldf(a.dhidden + row * H + u);
     }
     for (int b = wid; b < B && nu > 0; b += NW) {
       const long row = (long)t * B + b;
@@ -398,10 +419,10 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
 #pragma unroll
         for (int q = 0; q < UCH; ++q) acc[q] = 0.0f;
         for (int vv = lane; vv < V; vv += 32) {
-          const float x = a.dlogits[row * V + vv];
+          const float x = ldf(a.dlogits + row * V + vv);
 #pragma unroll
           for (int q = 0; q < UCH; ++q)
-            if (j0 + q < nu) acc[q] = fmaf(x, __ldg(a.wout + (long)(u0 + j0 + q) * V + vv), acc[q]);
+            if (j0 + q < nu) acc[q] = fmaf(x, ldgf(a.wout + (long)(u0 + j0 + q) * V + vv), acc[q]);
         }
         if (t + 1 < L && dq4) {  // rows of dq and Wq on 16 bytes: 16-byte loads, dq's all in flight
           float4 xs[NT / 128];
@@ -419,7 +440,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
 #pragma unroll
             for (int q = 0; q < UCH; ++q) {
               if (j0 + q < nu) {
-                const float4 w = __ldg(reinterpret_cast<const float4*>(a.wq + (long)(u0 + j0 + q) * Dk + d));
+                const float4 w = ld4g(a.wq + (long)(u0 + j0 + q) * Dk + d);
                 acc[q] = fmaf(x.x, w.x, acc[q]);
                 acc[q] = fmaf(x.y, w.y, acc[q]);
                 acc[q] = fmaf(x.z, w.z, acc[q]);
@@ -433,7 +454,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
             const float x = __ldcg(a.dq + (row + B) * Dk + d);
 #pragma unroll
             for (int q = 0; q < UCH; ++q)
-              if (j0 + q < nu) acc[q] = fmaf(x, __ldg(a.wq + (long)(u0 + j0 + q) * Dk + d), acc[q]);
+              if (j0 + q < nu) acc[q] = fmaf(x, ldgf(a.wq + (long)(u0 + j0 + q) * Dk + d), acc[q]);
           }
         }
 #pragma unroll
@@ -454,9 +475,9 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
       } else {
 #pragma unroll
         for (int g = 0; g < 4; ++g) v[g] = a.acts[row * G4 + g * H + u];
-        v[4] = a.cseq[row * H + u];
-        v[5] = t > 0 ? a.cseq[(row - B) * H + u] : 0.0f;
-        v[6] = a.dhidden[row * H + u];
+        v[4] = ldf(a.cseq + row * H + u);
+        v[5] = t > 0 ? ldf(a.cseq + (row - B) * H + u) : 0.0f;
+        v[6] = ldf(a.dhidden + row * H + u);
       }
       const float ig = v[0], fg = v[1], gg = v[2], og = v[3];
       const float tc = tanhf(v[4]);
@@ -506,8 +527,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
             const int kx = 16 * (kc + NW * u) + 4 * tig;
             float w0[4], w1[4];  // columns kx .. + 3 of the lane's two rows
             if (a.wr_smem) {
-              const float4 x = okr0 ? *reinterpret_cast<const float4*>(wr + r0 * WRS + kx) : make_float4(0, 0, 0, 0);
-              const float4 y = okr1 ? *reinterpret_cast<const float4*>(wr + r1 * WRS + kx) : make_float4(0, 0, 0, 0);
+              const float4 x = okr0 ? ld4(wr + r0 * WRS + kx) : make_float4(0, 0, 0, 0);
+              const float4 y = okr1 ? ld4(wr + r1 * WRS + kx) : make_float4(0, 0, 0, 0);
               w0[0] = x.x; w0[1] = x.y; w0[2] = x.z; w0[3] = x.w;
               w1[0] = y.x; w1[1] = y.y; w1[2] = y.z; w1[3] = y.w;
             } else {
@@ -562,22 +583,22 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
       const long row = (long)t * B + b;
       const int len = min(max(a.enc_len[b], 0), S);
       const int Sb = cdiv(max(len, 1), CL), s0 = rank * Sb, nv = max(0, min(Sb, len - s0));
-      const float uni = len > 0 ? 1.0f / (float)len : 0.0f;
+      const float uni = rnd<S_>(len > 0 ? 1.0f / (float)len : 0.0f);
       // k of the own frames into es in the background, where k is not resident
-      const bool kres = i == 0 && a.k_smem, kpref = !kres && a.es_smem;
+      const bool kres = i == 0 && a.k_smem, kpref = !kres && a.es_smem && sizeof(S_) == 4;
       if (kpref) {
-        const float* kg = a.k + ((long)b * S + s0) * Dk;
+        const float* kg = reinterpret_cast<const float*>(a.k) + ((long)b * S + s0) * Dk;
         const int n4 = ((uintptr_t)kg & 15) == 0 && ((uintptr_t)es & 15) == 0 ? nv * Dk / 4 : 0;
         for (int x = tid; x < n4; x += NT) cp_async16(es + 4 * x, kg + 4 * x);
         for (int x = 4 * n4 + tid; x < nv * Dk; x += NT) cp_async4(es + x, kg + x);
       }
-      for (int s = tid; s < S; s += NT) attp[s] = t > 0 ? a.align[(row - B) * S + s] : (s < len ? uni : 0.0f);
+      for (int s = tid; s < S; s += NT) attp[s] = t > 0 ? ldf(a.align + (row - B) * S + s) : (s < len ? uni : 0.0f);
       for (int sl = tid; sl < nv; sl += NT) {
-        attt[sl] = a.align[row * S + s0 + sl];
-        base[sl] = a.dalign[row * S + s0 + sl] + datt[i * Sl + sl];
-        dnx[sl] = t > 0 ? a.dalign[(row - B) * S + s0 + sl] : 0.0f;
+        attt[sl] = ldf(a.align + row * S + s0 + sl);
+        base[sl] = ldf(a.dalign + row * S + s0 + sl) + datt[i * Sl + sl];
+        dnx[sl] = t > 0 ? ldf(a.dalign + (row - B) * S + s0 + sl) : 0.0f;
       }
-      for (int d = tid; d < Dk; d += NT) qb[d] = a.qs[row * Dk + d] + a.locb[d];
+      for (int d = tid; d < Dk; d += NT) qb[d] = a.qs[row * Dk + d] + ldf(a.locb + d);
       float sdot = 0.0f;
       for (int e = tid; e < E; e += NT) {
         const float dce = __ldcg(a.dctxg + (long)b * E + e), ce = a.ctxs[row * E + e];
@@ -594,19 +615,19 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
       for (int q = 0; q < CL; ++q) sdot += red[NW - CLMAX + q];
       // the softmax term, two own frames a warp
       const bool vres = i == 0 && a.v_smem;
-      const bool v4 = E % 4 == 0 && ((uintptr_t)(vres ? vs : a.v) & 15) == 0;
+      const bool v4 = E % 4 == 0 && ((uintptr_t)(vres ? vs : a.v) & (4 * sizeof(S_) - 1)) == 0;
       for (int sl = wid; sl < nv; sl += 2 * NW) {
         const int sl2 = sl + NW;
         const bool two = sl2 < nv;
-        const float* vr1 = vres ? vs + (long)sl * E : a.v + ((long)b * S + s0 + sl) * E;
-        const float* vr2 = vres ? vs + (long)sl2 * E : a.v + ((long)b * S + s0 + sl2) * E;
+        const S_* vr1 = vres ? vs + (long)sl * E : a.v + ((long)b * S + s0 + sl) * E;
+        const S_* vr2 = vres ? vs + (long)sl2 * E : a.v + ((long)b * S + s0 + sl2) * E;
         float acc1 = 0.0f, acc2 = 0.0f;
         if (v4) {  // 16-byte loads of v and dctx
 #pragma unroll 5
           for (int e = 4 * lane; e < E; e += 128) {
             const float4 c = *reinterpret_cast<const float4*>(dctx + e);
-            const float4 x = *reinterpret_cast<const float4*>(vr1 + e);
-            const float4 y = two ? *reinterpret_cast<const float4*>(vr2 + e) : make_float4(0, 0, 0, 0);
+            const float4 x = ld4(vr1 + e);
+            const float4 y = two ? ld4(vr2 + e) : make_float4(0, 0, 0, 0);
             acc1 = fmaf(c.x, x.x, acc1);
             acc1 = fmaf(c.y, x.y, acc1);
             acc1 = fmaf(c.z, x.z, acc1);
@@ -620,8 +641,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
 #pragma unroll 8
           for (int e = lane; e < E; e += 32) {
             const float x = dctx[e];
-            acc1 = fmaf(x, vr1[e], acc1);
-            if (two) acc2 = fmaf(x, vr2[e], acc2);
+            acc1 = fmaf(x, ldf(vr1 + e), acc1);
+            if (two) acc2 = fmaf(x, ldf(vr2 + e), acc2);
           }
         }
         acc1 = warp_sum(acc1);
@@ -685,8 +706,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
       {
         const int nt = cdiv(Dk, 8);
         const int wpm = max(1, NW / max(mt, 1)), mg = NW / wpm;  // warps a frame tile, tiles at once
-        const float* kp = kres ? ks : kpref ? es : a.k + ((long)b * S + s0) * Dk;
-        const bool k2 = Dk % 2 == 0 && ((uintptr_t)kp & 7) == 0;
+        const S_* kp = kres ? ks : kpref ? reinterpret_cast<const S_*>(es) : a.k + ((long)b * S + s0) * Dk;
+        const bool k2 = Dk % 2 == 0 && ((uintptr_t)kp & (2 * sizeof(S_) - 1)) == 0;
         float* dkp = dkres ? dks : dkg;
         for (int mi = wid / wpm; wid < mg * wpm && mi < mt; mi += mg) {
           const int ra = mi * 16 + g8, rb = ra + 8;
@@ -700,17 +721,17 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
             for (int u = 0; u < NTPF; ++u) {
               const int d = (nc0 + u * wpm) * 8 + 2 * tig;
               if (k2) {  // d even, Dk even: the pair in one 8-byte load
-                const float2 x = va && d < Dk ? *reinterpret_cast<const float2*>(kp + ra * Dk + d) : make_float2(0.0f, 0.0f);
-                const float2 y = vb && d < Dk ? *reinterpret_cast<const float2*>(kp + rb * Dk + d) : make_float2(0.0f, 0.0f);
+                const float2 x = va && d < Dk ? ld2(kp + ra * Dk + d) : make_float2(0.0f, 0.0f);
+                const float2 y = vb && d < Dk ? ld2(kp + rb * Dk + d) : make_float2(0.0f, 0.0f);
                 kv[u][0] = x.x;
                 kv[u][1] = x.y;
                 kv[u][2] = y.x;
                 kv[u][3] = y.y;
               } else {
-                kv[u][0] = va && d < Dk ? kp[ra * Dk + d] : 0.0f;
-                kv[u][1] = va && d + 1 < Dk ? kp[ra * Dk + d + 1] : 0.0f;
-                kv[u][2] = vb && d < Dk ? kp[rb * Dk + d] : 0.0f;
-                kv[u][3] = vb && d + 1 < Dk ? kp[rb * Dk + d + 1] : 0.0f;
+                kv[u][0] = va && d < Dk ? ldf(kp + ra * Dk + d) : 0.0f;
+                kv[u][1] = va && d + 1 < Dk ? ldf(kp + ra * Dk + d + 1) : 0.0f;
+                kv[u][2] = vb && d < Dk ? ldf(kp + rb * Dk + d) : 0.0f;
+                kv[u][3] = vb && d + 1 < Dk ? ldf(kp + rb * Dk + d + 1) : 0.0f;
               }
             }
 #pragma unroll
@@ -907,9 +928,14 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs a) {
   for (int i = tid; i < K * Dk; i += NT) a.dwlp_part[(long)j * K * Dk + i] = dwl[i];
 }
 
+// the kernel of storage type dt (0 float, 1 bf16)
+const void* bwd_kernel(int dt) {
+  return dt ? (const void*)decoder_scan_bwd_kernel<bf16> : (const void*)decoder_scan_bwd_kernel<float>;
+}
+
 // a cooperative launch of G clusters with smem bytes of shared memory a block
 cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* at, int G, int CL,
-                          size_t smem, cudaStream_t stream) {
+                          size_t smem, int dt, cudaStream_t stream) {
   cfg = {};
   cfg.gridDim = dim3(G * CL);
   cfg.blockDim = dim3(NT);
@@ -923,8 +949,7 @@ cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* at, int 
   at[1].val.cooperative = 1;
   cfg.attrs = at;
   cfg.numAttrs = 2;
-  return cudaFuncSetAttribute(decoder_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return cudaFuncSetAttribute(bwd_kernel(dt), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -933,16 +958,17 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// out[0] = the clusters of cl blocks of the backward kernel that can be
-// resident at once with smem bytes of dynamic shared memory a block
-extern "C" int e2e_decoder_scan_bwd_clusters(int cl, int smem, int* out, void* stream) {
-  if (cl < 1 || cl > CLMAX) return (int)cudaErrorInvalidValue;
+// out[0] = the clusters of cl blocks of the backward kernel of storage type
+// dt (0 float, 1 bf16) that can be resident at once with smem bytes of
+// dynamic shared memory a block
+extern "C" int e2e_decoder_scan_bwd_clusters(int cl, int smem, int dt, int* out, void* stream) {
+  if (cl < 1 || cl > CLMAX || dt < 0 || dt > 1) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute at[2];
-  cudaError_t e = launch_config(cfg, at, 1, cl, (size_t)smem, (cudaStream_t)stream);
+  cudaError_t e = launch_config(cfg, at, 1, cl, (size_t)smem, dt, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
   cfg.numAttrs = 1;  // the query takes the cluster shape
-  return (int)cudaOccupancyMaxActiveClusters(out, (void*)decoder_scan_bwd_kernel, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, bwd_kernel(dt), &cfg);
 }
 
 // The backward kernel's shared memory on G clusters of CL blocks (host
@@ -950,15 +976,16 @@ extern "C" int e2e_decoder_scan_bwd_clusters(int cl, int smem, int* out, void* s
 // exceed SMEM_MAX; out[1..6] = the flags es_smem, dfa_smem, wr_smem,
 // dk_smem, k_smem, v_smem of e2e_decoder_scan_bwd, each resident taken in
 // that order while the block's total stays within SMEM_MAX; out[7] = the
-// floats of scratch a block needs (0 when es and dfa are both resident).
+// floats of scratch a block needs (0 when es and dfa are both resident);
+// dt: the storage type (0 float, 1 bf16), in which the residents are held.
 extern "C" int e2e_decoder_scan_bwd_plan(int B, int S, int Dk, int E, int K, int P, int H, int G,
-                                         int CL, int* out, void* stream) {
+                                         int CL, int dt, int* out, void* stream) {
   (void)stream;
-  if (B < 1 || S < 1 || G < 1 || CL < 1 || CL > CLMAX) return (int)cudaErrorInvalidValue;
-  const int NS = cdiv(B, G);
+  if (B < 1 || S < 1 || G < 1 || CL < 1 || CL > CLMAX || dt < 0 || dt > 1) return (int)cudaErrorInvalidValue;
+  const int NS = cdiv(B, G), es = dt ? 2 : 4;
   int f[6] = {0, 0, 0, 0, 0, 0};  // es, dfa, wr, dk, k, v
   auto bytes = [&]() {
-    return sizeof(float) * bwd_layout(B, S, Dk, E, K, P, H, G, CL, NS, f[0], f[1], f[2], f[3], f[4], f[5]).total;
+    return sizeof(float) * bwd_layout(B, S, Dk, E, K, P, H, G, CL, NS, f[0], f[1], f[2], f[3], f[4], f[5], es).total;
   };
   out[0] = -1;
   if (bytes() > SMEM_MAX) return 0;
@@ -993,33 +1020,41 @@ extern "C" int e2e_decoder_scan_phase_times(unsigned long long* out, int n, void
 // cotangents dlogits [L, B, V], dalign [L, B, S], dhidden [L, B, H]
 // -> dgates [L, B, 4H], dq [L, B, Dk], dfpre [L, B, S, K], dk [B, S, Dk],
 // dwlp_part [G CL, K, Dk], dlocv_part [G CL, Dk]; scratch dctxg [B, E] and
-// scratch [G CL, ceil(S / CL) Dk + S K]. All f32, contiguous. H a multiple of 8 up to 512, Dk up to 512, P odd. G
-// clusters of CL blocks (all resident: the cooperative launch fails
-// otherwise); the flags say what lives in shared memory.
+// scratch [G CL, ceil(S / CL) Dk + S K]. The inputs of storage type dt (0
+// float, 1 bf16) but acts, qs and ctxs; those and every output float, all
+// contiguous. H a multiple of 8 up to 512, Dk up to 512, P odd. G clusters
+// of CL blocks (all resident: the cooperative launch fails otherwise); the
+// flags say what lives in shared memory.
 extern "C" int e2e_decoder_scan_bwd(
-    const float* k, const float* v, const int* enc_len, const float* taps, const float* wq,
-    const float* wlp, const float* locv, const float* locb, const float* wx, const float* wh,
-    const float* wout, const float* align, const float* cseq, const float* acts, const float* qs,
-    const float* ctxs, const float* dlogits, const float* dalign, const float* dhidden,
+    const void* k, const void* v, const int* enc_len, const void* taps, const void* wq,
+    const void* wlp, const void* locv, const void* locb, const void* wx, const void* wh,
+    const void* wout, const void* align, const void* cseq, const float* acts, const float* qs,
+    const float* ctxs, const void* dlogits, const void* dalign, const void* dhidden,
     float* dgates, float* dq, float* dfpre, float* dk, float* dwlp_part, float* dlocv_part,
     float* dctxg, float* scratch, int B, int S, int Dk, int E, int K, int P, int H, int Emb, int V,
     int L, float inv_temp, int G, int CL, int es_smem, int dfa_smem, int wr_smem, int dk_smem,
-    int k_smem, int v_smem, void* stream) {
+    int k_smem, int v_smem, int dt, void* stream) {
   if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
-      CL < 1 || CL > CLMAX)
+      CL < 1 || CL > CLMAX || dt < 0 || dt > 1)
     return (int)cudaErrorInvalidValue;
   const int NS = cdiv(B, G);
   const BwdLayout ly = bwd_layout(B, S, Dk, E, K, P, H, G, CL, NS, es_smem, dfa_smem, wr_smem, dk_smem,
-                                  k_smem, v_smem);
+                                  k_smem, v_smem, dt ? 2 : 4);
   const size_t smem = sizeof(float) * ly.total;
   if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute at[2];
-  cudaError_t e = launch_config(cfg, at, G, CL, smem, (cudaStream_t)stream);
+  cudaError_t e = launch_config(cfg, at, G, CL, smem, dt, (cudaStream_t)stream);
   if (e != cudaSuccess) return (int)e;
-  BwdArgs a{k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, cseq, acts, qs, ctxs,
-            dlogits, dalign, dhidden, dgates, dq, dfpre, dk, dwlp_part, dlocv_part, dctxg, scratch,
-            B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, G, CL, NS, es_smem, dfa_smem, wr_smem, dk_smem,
-            k_smem, v_smem};
-  return (int)cudaLaunchKernelEx(&cfg, decoder_scan_bwd_kernel, a);
+  auto run = [&](auto zero) -> cudaError_t {
+    using T = decltype(zero);
+    using C = const T*;
+    BwdArgs<T> a{(C)k, (C)v, enc_len, (C)taps, (C)wq, (C)wlp, (C)locv, (C)locb, (C)wx, (C)wh, (C)wout,
+                 (C)align, (C)cseq, acts, qs, ctxs, (C)dlogits, (C)dalign, (C)dhidden, dgates, dq, dfpre,
+                 dk, dwlp_part, dlocv_part, dctxg, scratch,
+                 B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, G, CL, NS, es_smem, dfa_smem, wr_smem, dk_smem,
+                 k_smem, v_smem};
+    return cudaLaunchKernelEx(&cfg, decoder_scan_bwd_kernel<T>, a);
+  };
+  return (int)(dt ? run(bf16{}) : run(0.0f));
 }

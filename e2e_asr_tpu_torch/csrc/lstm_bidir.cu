@@ -48,11 +48,24 @@
 // one launch, x's rows read through a plain map, the bias added and the rows
 // placed in kernel time by the epilogue's row map, each k8 step's products
 // summed apart (STEP_SUMS: K = D is up to 1280 here).
+//
+// Storage types (csrc/bf16.cuh): each kernel is a template on its storage
+// type S (float or bf16: xw, x, the weights, ys, c_out) and on the type A of
+// acts; the bf16 variants round where the TPU kernels round at bfloat16:
+// the gates and the cell in float32 from the widened inputs, h and c carried
+// rounded to bf16 (h_t from the unrounded c_t, ys the masked unrounded h_t
+// rounded), acts float32 for lstm_seq (its TPU backward rebuilds the gates in
+// float32) and bf16 for the fused layer (its TPU kernel stores them so), and
+// the fused layer's projection x Wx + b summed in float32 and rounded once.
+// Wh is resident in S (half the shared memory in bf16); h and Wh both hold
+// bf16 values there, so one TF32 product a tile is exact and the other two
+// of the float32 build are left out.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "gemm_tf32.cuh"
 #include "tf32_mma.cuh"
 
@@ -70,33 +83,42 @@ __device__ __forceinline__ float sigmoidf_(float x) { return 1.0f / (1.0f + expf
 __host__ __device__ inline int fw_kp(int H) { return cdiv(H, 16) * 16; }  // K in whole 16-wide chunks
 __host__ __device__ inline int fw_ldh(int H) { return fw_kp(H) | 16; }    // 16-byte h loads conflict-free
 
-// floats of shared memory: the resident Wh columns (none where w_smem is
-// 0), h of the block's rows, the warps' partial tiles
-__host__ __device__ inline int fw_smem_floats(int H, int nt, int w_smem) {
-  return (w_smem ? 64 * fw_kp(H) : 0) + 8 * nt * fw_ldh(H) + 4 * FW_KSPLIT * nt * 128;
+// the resident Wh columns' share of shared memory, in floats (none where
+// w_smem is 0; es: bytes an element of Wh)
+__host__ __device__ inline int fw_wh_floats(int H, int w_smem, int es) { return w_smem ? 64 * fw_kp(H) * es / 4 : 0; }
+
+// bytes of shared memory: the resident Wh columns, h of the block's rows (float), the
+// warps' partial tiles
+__host__ __device__ inline int fw_smem_bytes(int H, int nt, int w_smem, int es) {
+  return 4 * (fw_wh_floats(H, w_smem, es) + 8 * nt * fw_ldh(H) + 4 * FW_KSPLIT * nt * 128);
 }
 
+// pointers of the storage types S (xw, wh, ys, c_out) and A (acts)
 struct FwdArgs {
-  const float *xw, *mask, *wh;
-  float *ys, *c_out, *acts, *hbuf;
+  const void *xw;
+  const float* mask;
+  const void* wh;
+  void *ys, *c_out, *acts;
+  float* hbuf;
   int T, B, H, dirs, row_mask, train;
   int slices, nrg, w_smem;
 };
 
 // four consecutive rows k0 .. k0+3 of Wh column col (zero where col < 0 or
 // k0 >= H; H is a multiple of 8, k0 of 4)
-__device__ __forceinline__ float4 wh_col4(const float* whd, int G, int H, int col, int k0) {
+template <typename S>
+__device__ __forceinline__ float4 wh_col4(const S* whd, int G, int H, int col, int k0) {
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (col >= 0 && k0 < H) {
-    const float* p = whd + (long)k0 * G + col;
-    v = make_float4(__ldg(p), __ldg(p + G), __ldg(p + 2 * G), __ldg(p + 3 * G));
+    const S* p = whd + (long)k0 * G + col;
+    v = make_float4(ldgf(p), ldgf(p + G), ldgf(p + 2 * G), ldgf(p + 3 * G));
   }
   return v;
 }
 
 // the step's inputs of the thread's (unit, row) pairs: pair p = tid + FW_NT i
 // owns unit p % 16 and row p / 16 of the block's group
-template <int NT>
+template <int NT, typename S>
 __device__ __forceinline__ void load_step(const FwdArgs& a, int k, int dir, int u0, int nu, int b0,
                                           int nb, int tid, float (&xv)[NT][4], float (&mk)[NT]) {
   const int R = a.dirs * a.B, G = 4 * a.H;
@@ -106,19 +128,20 @@ __device__ __forceinline__ void load_step(const FwdArgs& a, int k, int dir, int 
     const int p = tid + FW_NT * i, ul = p % FW_US, rl = p / FW_US;
     if (ul < nu && rl < nb) {
       const int r = dir * a.B + b0 + rl;
-      const float* x = a.xw + ((long)k * R + r) * G + u0 + ul;
-      xv[i][0] = x[0];
-      xv[i][1] = x[a.H];
-      xv[i][2] = x[2 * a.H];
-      xv[i][3] = x[3 * a.H];
+      const S* x = static_cast<const S*>(a.xw) + ((long)k * R + r) * G + u0 + ul;
+      xv[i][0] = ldf(x);
+      xv[i][1] = ldf(x + a.H);
+      xv[i][2] = ldf(x + 2 * a.H);
+      xv[i][3] = ldf(x + 3 * a.H);
       mk[i] = a.row_mask ? a.mask[(long)k * R + r] : a.mask[(long)t * a.B + b0 + rl];
     }
   }
 }
 
-// NT n8 tiles of rows a block
-template <int NT>
+// NT n8 tiles of rows a block; storage type S, acts in A
+template <int NT, typename S, typename A>
 __global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
+  constexpr bool EXACT = sizeof(S) == 2;  // Wh and h hold bf16 values: one TF32 product is exact
   constexpr int NA = NT >= 4 ? 1 : 2;  // accumulator sets a tile (the two mma steps of a chunk)
   cg::grid_group grid = cg::this_grid();
   const int T = a.T, B = a.B, H = a.H, G = 4 * H, R = a.dirs * B;
@@ -132,10 +155,10 @@ __global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
   const int gate = warp % 4, kh = warp / 4;  // the warp's gate (m16 tile) and K chunks kh, kh + FW_KSPLIT, ...
 
   extern __shared__ __align__(16) float smem[];
-  float* whs = smem;                                 // [KC][4][2][32][4] (w_smem)
-  float* hs = smem + (a.w_smem ? 64 * fw_kp(H) : 0);  // [8 NT][LDH]
-  float* red = hs + 8 * NT * LDH;                    // [warps][NT][16][8]
-  const float* whd = a.wh + (long)dir * H * G;
+  S* whs = reinterpret_cast<S*>(smem);                        // [KC][4][2][32][4] (w_smem)
+  float* hs = smem + fw_wh_floats(H, a.w_smem, sizeof(S));    // [8 NT][LDH]
+  float* red = hs + 8 * NT * LDH;                             // [warps][NT][16][8]
+  const S* whd = static_cast<const S*>(a.wh) + (long)dir * H * G;
 
   // the block's columns of Wh (column m: gate m / 16, unit u0 + m % 16; none
   // past nu) in fragment order: chunk c, gate j, half hf, lane (g, q) holds
@@ -144,9 +167,9 @@ __global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
     const int kp = fw_kp(H);
     for (int i = tid; i < kp * 64; i += FW_NT) {
       const int k = i / 64, m = i % 64, ul = m % 16;
-      const float v = k < H && ul < nu ? whd[(long)k * G + (m / 16) * H + u0 + ul] : 0.0f;
+      const float v = k < H && ul < nu ? ldf(whd + (long)k * G + (m / 16) * H + u0 + ul) : 0.0f;
       const int kk = k % 16;
-      whs[((((k / 16) * 4 + m / 16) * 2 + ul / 8) * 32 + (ul % 8) * 4 + kk / 4) * 4 + kk % 4] = v;
+      stf(whs + ((((k / 16) * 4 + m / 16) * 2 + ul / 8) * 32 + (ul % 8) * 4 + kk / 4) * 4 + kk % 4, v);
     }
   }
   for (int i = tid; i < 8 * NT * LDH; i += FW_NT) hs[i] = 0.0f;  // h_{-1} = 0, padding 0
@@ -156,7 +179,7 @@ __global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
   float c[NT], hcar[NT], xv[NT][4], mk[NT];
 #pragma unroll
   for (int i = 0; i < NT; ++i) c[i] = hcar[i] = 0.0f;
-  load_step<NT>(a, 0, dir, u0, nu, b0, nb, tid, xv, mk);
+  load_step<NT, S>(a, 0, dir, u0, nu, b0, nb, tid, xv, mk);
   __syncthreads();
 
   for (int k = 0; k < T; ++k) {
@@ -179,9 +202,9 @@ __global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
     for (int cc = kh; cc < KC; cc += FW_KSPLIT) {
       float4 w0, w1;
       if (a.w_smem) {
-        const float* wp = whs + ((cc * 4 + gate) * 2 * 32 + lane) * 4;
-        w0 = *reinterpret_cast<const float4*>(wp);
-        w1 = *reinterpret_cast<const float4*>(wp + 128);
+        const S* wp = whs + ((cc * 4 + gate) * 2 * 32 + lane) * 4;
+        w0 = ld4(wp);
+        w1 = ld4(wp + 128);
       } else {
         w0 = wh_col4(whd, G, H, col0, 16 * cc + 4 * q);
         w1 = wh_col4(whd, G, H, col1, 16 * cc + 4 * q);
@@ -204,8 +227,10 @@ __global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
           uint32_t bh[2], bl[2];
           tf32_split(bfr[s][0], bh[0], bl[0]);
           tf32_split(bfr[s][1], bh[1], bl[1]);
-          mma_tf32(acc[n][3 * (s % NA)], al[s], bh);
-          mma_tf32(acc[n][3 * (s % NA) + 1], ah[s], bl);
+          if constexpr (!EXACT) {
+            mma_tf32(acc[n][3 * (s % NA)], al[s], bh);
+            mma_tf32(acc[n][3 * (s % NA) + 1], ah[s], bl);
+          }
           mma_tf32(acc[n][3 * (s % NA) + 2], ah[s], bh);
         }
       }
@@ -246,19 +271,19 @@ __global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
       const float h2 = og * tanhf(c2);
       const bool m = mk[i] > 0.0f;
       if (m) {
-        c[i] = c2;
-        hcar[i] = h2;
+        c[i] = rnd<S>(c2);
+        hcar[i] = rnd<S>(h2);
       }
       const long r = (long)k * R + dir * B + b0 + rl;
       const int u = u0 + ul;
-      a.ys[r * H + u] = m ? h2 : 0.0f;
+      stf(static_cast<S*>(a.ys) + r * H + u, m ? h2 : 0.0f);
       if (a.train) {
-        a.c_out[r * H + u] = c[i];
-        float* ac = a.acts + r * G + u;
-        ac[0] = ig;
-        ac[H] = fg;
-        ac[2 * H] = gg;
-        ac[3 * H] = og;
+        stf(static_cast<S*>(a.c_out) + r * H + u, c[i]);
+        A* ac = static_cast<A*>(a.acts) + r * G + u;
+        stf(ac, ig);
+        stf(ac + H, fg);
+        stf(ac + 2 * H, gg);
+        stf(ac + 3 * H, og);
       }
     }
     if (k + 1 == T) break;
@@ -268,22 +293,32 @@ __global__ void __launch_bounds__(FW_NT, 1) lstm_fwd_sweep_kernel(FwdArgs a) {
       if (ul < nu && rl < nb)
         a.hbuf[((long)((k + 1) & 1) * R + dir * B + b0 + rl) * H + u0 + ul] = hcar[i];
     }
-    load_step<NT>(a, k + 1, dir, u0, nu, b0, nb, tid, xv, mk);
+    load_step<NT, S>(a, k + 1, dir, u0, nu, b0, nb, tid, xv, mk);
     grid.sync();  // h_k is in hbuf; hs and red are free again
   }
 }
 
-const void* sweep_kernel(int nt) {
-  return nt == 1 ? (const void*)lstm_fwd_sweep_kernel<1>
-         : nt == 2 ? (const void*)lstm_fwd_sweep_kernel<2>
-                   : (const void*)lstm_fwd_sweep_kernel<4>;
+template <typename S, typename A>
+const void* sweep_kernel_of(int nt) {
+  return nt == 1 ? (const void*)lstm_fwd_sweep_kernel<1, S, A>
+         : nt == 2 ? (const void*)lstm_fwd_sweep_kernel<2, S, A>
+                   : (const void*)lstm_fwd_sweep_kernel<4, S, A>;
 }
+
+// the variant of storage type dt (0 float, 1 bf16) and acts type adt; a
+// float variant keeps float acts
+const void* sweep_kernel(int nt, int dt, int adt) {
+  return !dt ? sweep_kernel_of<float, float>(nt)
+         : adt ? sweep_kernel_of<bf16, bf16>(nt) : sweep_kernel_of<bf16, float>(nt);
+}
+
+int elem_bytes(int dt) { return dt ? 2 : 4; }
 
 // out = [n8 tiles of rows a block (-1: no grid can be resident), Wh
 // resident in shared memory (1; 0: read from L2), shared memory bytes a
 // block, blocks]: the first of (w_smem = 1, 0) x (nt = 1, 2, 4) whose grid
 // is resident at once
-int fwd_plan(int B, int dirs, int H, int* out) {
+int fwd_plan(int B, int dirs, int H, int dt, int adt, int* out) {
   int dev = 0, nsm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
@@ -291,12 +326,13 @@ int fwd_plan(int B, int dirs, int H, int* out) {
   out[0] = -1;
   for (int w_smem = 1; w_smem >= 0; --w_smem) {
     for (int nt = 1; nt <= 4; nt *= 2) {
-      const int smem = 4 * fw_smem_floats(H, nt, w_smem);
+      const int smem = fw_smem_bytes(H, nt, w_smem, elem_bytes(dt));
       if (smem > SMEM_MAX) continue;
-      e = cudaFuncSetAttribute(sweep_kernel(nt), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      const void* kern = sweep_kernel(nt, dt, adt);
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return (int)e;
       int per_sm = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel(nt), FW_NT, smem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FW_NT, smem);
       if (e != cudaSuccess) return (int)e;
       const int nb = dirs * cdiv(H, FW_US) * cdiv(B, 8 * nt);
       if (nb <= per_sm * nsm) {
@@ -321,12 +357,13 @@ extern "C" const char* e2e_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The sweep's plan for R = dirs * B rows of H units: out as fwd_plan
-// above (out[0] = -1 where no grid can be resident).
-extern "C" int e2e_lstm_fwd_plan(int B, int dirs, int H, int* out, void* stream) {
+// The sweep's plan for R = dirs * B rows of H units, storage type dt (0
+// float, 1 bf16) and acts type adt: out as fwd_plan above (out[0] = -1
+// where no grid can be resident).
+extern "C" int e2e_lstm_fwd_plan(int B, int dirs, int H, int dt, int adt, int* out, void* stream) {
   (void)stream;
-  if (!fwd_shape_ok(B, dirs, H)) return (int)cudaErrorInvalidValue;
-  return fwd_plan(B, dirs, H, out);
+  if (!fwd_shape_ok(B, dirs, H) || dt < 0 || dt > 1 || adt < 0 || adt > 1) return (int)cudaErrorInvalidValue;
+  return fwd_plan(B, dirs, H, dt, adt, out);
 }
 
 // The recurrence over xw [T, dirs B, 4H] (rows in kernel time) -> ys
@@ -334,38 +371,47 @@ extern "C" int e2e_lstm_fwd_plan(int B, int dirs, int H, int* out, void* stream)
 // [T, dirs B, 4H]. mask [T, B] in original time (row_mask 0, the fused
 // layer: dirs = 2) or [T, dirs B] in kernel time (row_mask 1); wh
 // [dirs, H, 4H]; hbuf [2, dirs B, H] scratch; nt, w_smem and smem from the
-// plan. One cooperative launch (a grid barrier a step): it fails
-// where the grid cannot be resident.
-extern "C" int e2e_lstm_fwd_sweep(const float* xw, const float* mask, const float* wh, float* ys,
-                                  float* c_out, float* acts, float* hbuf, int T, int B, int dirs, int H,
-                                  int row_mask, int train, int nt, int w_smem, int smem, void* stream) {
+// plan; xw, wh, ys and c_out of storage type dt (0 float, 1 bf16), acts of
+// adt, mask and hbuf float. One cooperative launch (a grid barrier a step):
+// it fails where the grid cannot be resident.
+extern "C" int e2e_lstm_fwd_sweep(const void* xw, const float* mask, const void* wh, void* ys,
+                                  void* c_out, void* acts, float* hbuf, int T, int B, int dirs, int H,
+                                  int row_mask, int train, int nt, int w_smem, int smem, int dt, int adt,
+                                  void* stream) {
   if (!fwd_shape_ok(B, dirs, H) || T < 1 || (nt != 1 && nt != 2 && nt != 4) || w_smem < 0 || w_smem > 1 ||
-      smem != 4 * fw_smem_floats(H, nt, w_smem) || smem > SMEM_MAX)
+      dt < 0 || dt > 1 || adt < 0 || adt > 1 || (!dt && adt) ||
+      smem != fw_smem_bytes(H, nt, w_smem, elem_bytes(dt)) || smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(sweep_kernel(nt), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const void* kern = sweep_kernel(nt, dt, adt);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   FwdArgs a{xw, mask, wh, ys, c_out, acts, hbuf, T, B, H, dirs, row_mask, train,
             cdiv(H, FW_US), cdiv(B, 8 * nt), w_smem};
   void* params[] = {&a};
   const int nb = dirs * a.nrg * a.slices;
-  return (int)cudaLaunchCooperativeKernel(sweep_kernel(nt), dim3(nb), dim3(FW_NT), params,
-                                          (size_t)smem, (cudaStream_t)stream);
+  return (int)cudaLaunchCooperativeKernel(kern, dim3(nb), dim3(FW_NT), params, (size_t)smem,
+                                          (cudaStream_t)stream);
 }
 
 // The fused layer's input projection: x [T, B, D], wx [2, D, 4H], b [2, 4H]
 // -> xw [T, 2B, 4H] = x wx[d] + b[d] for direction d's rows [dB, (d+1)B),
-// in kernel time (direction 1 flipped over T).
-extern "C" int e2e_lstm_bidir_projection(const float* x, const float* wx, const float* b, float* xw,
-                                         int T, int B, int D, int H, void* stream) {
-  if (H % 8 != 0 || H > 1024 || D < 1 || B < 1 || T < 1) return (int)cudaErrorInvalidValue;
+// in kernel time (direction 1 flipped over T); all of storage type dt (0
+// float, 1 bf16: summed in float32, rounded once).
+extern "C" int e2e_lstm_bidir_projection(const void* x, const void* wx, const void* b, void* xw,
+                                         int T, int B, int D, int H, int dt, void* stream) {
+  if (H % 8 != 0 || H > 1024 || D < 1 || B < 1 || T < 1 || dt < 0 || dt > 1) return (int)cudaErrorInvalidValue;
   const long long G = 4LL * H, R = 2LL * B;
+  const int es = elem_bytes(dt);
+  const char* wxc = static_cast<const char*>(wx);
+  const char* bc = static_cast<const char*>(b);
   GemmArgs ga{};
   for (int d = 0; d < 2; ++d) {
     ga.pr[d].a[0] = {x, plain_rows(D)};
-    ga.pr[d].b[0] = {wx + (long long)d * D * G, plain_rows(G)};
+    ga.pr[d].b[0] = {wxc + (long long)d * D * G * es, plain_rows(G)};
     ga.pr[d].c = xw;
-    ga.pr[d].bias = b + (long long)d * G;
+    ga.pr[d].bias = bc + (long long)d * G * es;
   }
+  ga.c16 = dt;
   // row (t, b) of x: kernel time t for direction 0, T-1-t for direction 1
   ga.pr[0].crow = row_map(0, B, R * G, G);
   ga.pr[1].crow = row_map(((long long)(T - 1) * R + B) * G, B, -R * G, G);
@@ -376,5 +422,6 @@ extern "C" int e2e_lstm_bidir_projection(const float* x, const float* wx, const 
   ga.seg_len = D;
   ga.splits = 1;
   ga.kchunk = cdiv(D, GK);
-  return gemm(ga, 2, true, false, D % 4 == 0 && aligned16(x) && aligned16(wx), true, (cudaStream_t)stream);
+  return gemm(ga, 2, true, false, D % (16 / es) == 0 && aligned16(x) && aligned16(wx), true, dt, dt,
+              (cudaStream_t)stream);
 }

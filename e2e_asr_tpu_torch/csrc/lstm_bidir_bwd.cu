@@ -61,11 +61,25 @@
 // the partials summed in a fixed order by a second kernel: no atomics, so
 // every output repeats bitwise. db is folded into dWx: the blocks of its
 // first row of tiles also sum the columns of the dg tiles they load.
+//
+// Storage types (csrc/bf16.cuh): the sweep is a template on the storage type
+// S (wh, c_out, dy, and the rounded gate gradients) and the type A of acts.
+// The bf16 variants round where the TPU kernels round at bfloat16: dh and dc
+// carried in float32; the gate gradients written in float32 (dg: dh's
+// product and dWh read them) and rounded to bf16 (dgs: lstm_seq's dxw, and
+// the fused layer's dx, dWx and db read them); tanh of c' rebuilt in float32
+// as f c_prev + i g from float32 acts and the rounded c_prev where acts are
+// wider than S (lstm_seq: its TPU kernel rebuilds the gates), else of the
+// stored c; every product's output rounded once; the fused layer's dx as
+// its two directions' products, each rounded, summed and rounded; its db as
+// the sums of blocks of DB_STEPS steps of original time, each rounded,
+// summed and rounded (the fused TPU kernel's time blocks).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "gemm_tf32.cuh"
 #include "tf32_mma.cuh"
 
@@ -82,16 +96,26 @@ constexpr int SW_US = 16;   // hidden units a block (one m16 tile)
 
 __host__ __device__ inline int sw_stride(int G) { return G + 16; }  // 16-byte loads free of conflicts
 
-// floats of shared memory: the resident Wh rows (none where w_smem is 0:
-// read from L2), the step's dgates of the block's rows, the warps' partial
-// tiles
-__host__ __device__ inline int sw_smem_floats(int G, int nt, int w_smem) {
-  return (w_smem ? SW_US * sw_stride(G) : 0) + 8 * nt * sw_stride(G) + SW_NW * nt * SW_US * 8;
+constexpr int DB_STEPS = 8;  // steps of original time a block of the fused layer's db sums
+
+// the resident Wh rows' share of shared memory, in floats (none where w_smem
+// is 0: read from L2; es: bytes an element of Wh)
+__host__ __device__ inline int sw_wh_floats(int G, int w_smem, int es) {
+  return w_smem ? SW_US * sw_stride(G) * es / 4 : 0;
 }
 
+// bytes of shared memory: the resident Wh rows, the step's dgates of the
+// block's rows, the warps' partial tiles
+__host__ __device__ inline int sw_smem_bytes(int G, int nt, int w_smem, int es) {
+  return 4 * (sw_wh_floats(G, w_smem, es) + 8 * nt * sw_stride(G) + SW_NW * nt * SW_US * 8);
+}
+
+// pointers of the storage types S (wh, c_out, dy, dgs) and A (acts)
 struct SweepArgs {
-  const float *mask, *wh, *c_out, *acts, *dy;
+  const float* mask;
+  const void *wh, *c_out, *acts, *dy;
   float* dg;
+  void* dgs;
   int T, B, H, dirs, row_mask;
   int nt, nrg, slices, w_smem;
 };
@@ -101,6 +125,7 @@ struct PairIn {
   float m, ig, fg, gg, og, c, cp, dy;
 };
 
+template <typename S, typename A>
 __device__ __forceinline__ PairIn load_pair(const SweepArgs& a, int k, int r, int row, int u,
                                             int dir) {
   const int R = a.dirs * a.B, H = a.H, G = 4 * a.H;
@@ -108,20 +133,22 @@ __device__ __forceinline__ PairIn load_pair(const SweepArgs& a, int k, int r, in
   const int t = dir == 0 ? k : a.T - 1 - k;
   PairIn p;
   p.m = (a.row_mask ? a.mask[base] : a.mask[(long)t * a.B + row]) > 0.0f ? 1.0f : 0.0f;
-  const float* ac = a.acts + base * G + u;
-  p.ig = ac[0];
-  p.fg = ac[H];
-  p.gg = ac[2 * H];
-  p.og = ac[3 * H];
-  p.c = a.c_out[base * H + u];
-  p.cp = k > 0 ? a.c_out[(base - R) * H + u] : 0.0f;
-  p.dy = a.dy[base * H + u];
+  const A* ac = static_cast<const A*>(a.acts) + base * G + u;
+  const S* c = static_cast<const S*>(a.c_out);
+  p.ig = ldf(ac);
+  p.fg = ldf(ac + H);
+  p.gg = ldf(ac + 2 * H);
+  p.og = ldf(ac + 3 * H);
+  p.c = ldf(c + base * H + u);
+  p.cp = k > 0 ? ldf(c + (base - R) * H + u) : 0.0f;
+  p.dy = ldf(static_cast<const S*>(a.dy) + base * H + u);
   return p;
 }
 
-// NT n8 tiles of rows a block
-template <int NT>
+// NT n8 tiles of rows a block; storage type S, acts in A
+template <int NT, typename S, typename A>
 __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
+  constexpr bool REMAT_C = sizeof(S) < sizeof(A);  // tanh of c' rebuilt from acts and c_prev
   constexpr int SW_PPT = (SW_US * 8 * NT + SW_NT - 1) / SW_NT;  // (unit, row) pairs a thread
   cg::grid_group grid = cg::this_grid();
   const int T = a.T, B = a.B, H = a.H, G = 4 * H, R = a.dirs * B;
@@ -134,26 +161,25 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
   const int LS = sw_stride(G);
 
   extern __shared__ __align__(16) float smem[];
-  float* whs = smem;                                // [16][LS] (w_smem)
-  float* dgs = smem + (a.w_smem ? SW_US * LS : 0);  // [8 NT][LS]
-  float* red = dgs + 8 * NT * LS;                   // [warps][NT][16][8]
-  const float* whd = a.wh + (long)dir * H * G;
+  S* whs = reinterpret_cast<S*>(smem);                       // [16][LS] (w_smem)
+  float* dgs = smem + sw_wh_floats(G, a.w_smem, sizeof(S));  // [8 NT][LS]
+  float* red = dgs + 8 * NT * LS;                            // [warps][NT][16][8]
+  const S* whd = static_cast<const S*>(a.wh) + (long)dir * H * G;
 
   // the block's rows of Wh (rows past H zero), and zero rows past B
   if (a.w_smem) {
     for (int i = tid; i < SW_US * (G / 4); i += SW_NT) {
       const int ul = i / (G / 4), c4 = (i % (G / 4)) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ul < nu) v = __ldg(reinterpret_cast<const float4*>(whd + (long)(u0 + ul) * G + c4));
-      *reinterpret_cast<float4*>(whs + ul * LS + c4) = v;
+      if (ul < nu) copy4(whs + ul * LS + c4, whd + (long)(u0 + ul) * G + c4);
+      else zero4(whs + ul * LS + c4);
     }
   }
   for (int i = tid; i < (8 * NT - nb) * (G / 4); i += SW_NT) {
     const int rl = nb + i / (G / 4), c4 = (i % (G / 4)) * 4;
     *reinterpret_cast<float4*>(dgs + rl * LS + c4) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  const float* wrow0 = a.w_smem ? whs + g * LS : whd + (long)(u0 + g) * G;
-  const float* wrow1 = a.w_smem ? whs + (g + 8) * LS : whd + (long)(u0 + g + 8) * G;
+  const S* wrow0 = a.w_smem ? whs + g * LS : whd + (long)(u0 + g) * G;
+  const S* wrow1 = a.w_smem ? whs + (g + 8) * LS : whd + (long)(u0 + g + 8) * G;
   const bool ok0 = a.w_smem || g < nu, ok1 = a.w_smem || g + 8 < nu;
 
   // the (unit, row) pairs this thread owns: p = tid + SW_NT i, unit p % 16,
@@ -166,7 +192,7 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
     dh[i] = dc[i] = mk[i] = 0.0f;
     const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
     if (p < npairs && ul < nu && rl < nb) {
-      in[i] = load_pair(a, T - 1, dir * B + b0 + rl, b0 + rl, u0 + ul, dir);
+      in[i] = load_pair<S, A>(a, T - 1, dir * B + b0 + rl, b0 + rl, u0 + ul, dir);
     }
   }
   __syncthreads();
@@ -177,14 +203,18 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
       const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
       if (!(p < npairs && ul < nu && rl < nb)) continue;
       const PairIn& x = in[i];
-      const float tc = tanhf(x.c);
+      // rebuilt as the plain version's float32 products and sum, unfused
+      const float tc = tanhf(REMAT_C ? __fadd_rn(__fmul_rn(x.fg, x.cp), __fmul_rn(x.ig, x.gg)) : x.c);
       const float dh2 = x.m * (x.dy + dh[i]);
       const float dc2 = x.m * dc[i] + dh2 * x.og * (1.0f - tc * tc);
-      float* dgo = a.dg + ((long)k * R + dir * B + b0 + rl) * G + u0 + ul;
-      dgo[0] = dc2 * x.gg * x.ig * (1.0f - x.ig);
-      dgo[H] = dc2 * x.cp * x.fg * (1.0f - x.fg);
-      dgo[2 * H] = dc2 * x.ig * (1.0f - x.gg * x.gg);
-      dgo[3 * H] = dh2 * tc * x.og * (1.0f - x.og);
+      const long off = ((long)k * R + dir * B + b0 + rl) * G + u0 + ul;
+      const float dgv[4] = {dc2 * x.gg * x.ig * (1.0f - x.ig), dc2 * x.cp * x.fg * (1.0f - x.fg),
+                            dc2 * x.ig * (1.0f - x.gg * x.gg), dh2 * tc * x.og * (1.0f - x.og)};
+#pragma unroll
+      for (int gi = 0; gi < 4; ++gi) {
+        a.dg[off + gi * H] = dgv[gi];
+        if constexpr (sizeof(S) == 2) stf(static_cast<S*>(a.dgs) + off + gi * H, dgv[gi]);
+      }
       dc[i] = (1.0f - x.m) * dc[i] + dc2 * x.fg;
       mk[i] = x.m;
     }
@@ -202,7 +232,7 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
     for (int i = 0; i < SW_PPT; ++i) {
       const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
       if (p < npairs && ul < nu && rl < nb) {
-        in[i] = load_pair(a, k - 1, dir * B + b0 + rl, b0 + rl, u0 + ul, dir);
+        in[i] = load_pair<S, A>(a, k - 1, dir * B + b0 + rl, b0 + rl, u0 + ul, dir);
       }
     }
     cp_async_wait_all();
@@ -227,8 +257,8 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
         const int c = c0 + r * SW_NW;
         const bool live = c < G / 16;
         const int col = 16 * c + 4 * q;
-        wv[r][0] = live && ok0 ? *reinterpret_cast<const float4*>(wrow0 + col) : z;
-        wv[r][1] = live && ok1 ? *reinterpret_cast<const float4*>(wrow1 + col) : z;
+        wv[r][0] = live && ok0 ? ld4(wrow0 + col) : z;
+        wv[r][1] = live && ok1 ? ld4(wrow1 + col) : z;
 #pragma unroll
         for (int j = 0; j < NT; ++j)
           bv[r][j] = live ? *reinterpret_cast<const float4*>(dgs + (j * 8 + g) * LS + col) : z;
@@ -285,18 +315,22 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
   }
 }
 
+int elem_bytes(int dt) { return dt ? 2 : 4; }
+
 // dWh[d] = h_prev^T dg over kernel steps k >= 1 and direction d's rows:
-// h_prev = ys[k-1] (T = 1 gives a product over no rows: zeros)
-int dwh_products(const float* ys, const float* dg, float* dwh, float* ws, int T, int B, int dirs,
-                 int H, int splits, int kchunk, cudaStream_t stream) {
+// h_prev = ys[k-1] (T = 1 gives a product over no rows: zeros); ys and dwh
+// of storage type dt, dg float
+int dwh_products(const void* ys, const float* dg, void* dwh, float* ws, int T, int B, int dirs,
+                 int H, int splits, int kchunk, int dt, cudaStream_t stream) {
   const long long G = 4LL * H, R = (long long)dirs * B;
   GemmArgs ga{};
   for (int d = 0; d < dirs; ++d) {
     ga.pr[d].a[0] = {ys, row_map((long long)d * B * H, B, R * H, H)};
     ga.pr[d].b[0] = {dg, row_map((R + (long long)d * B) * G, B, R * G, G)};
-    ga.pr[d].c = dwh + (long long)d * H * G;
+    ga.pr[d].c = static_cast<char*>(dwh) + (long long)d * H * G * elem_bytes(dt);
     ga.pr[d].crow = plain_rows(G);
   }
+  ga.c16 = dt;
   ga.ws = ws;
   ga.M = H;
   ga.N = (int)G;
@@ -304,16 +338,48 @@ int dwh_products(const float* ys, const float* dg, float* dwh, float* ws, int T,
   ga.seg_len = ga.K > 0 ? ga.K : 1;
   ga.splits = splits;
   ga.kchunk = kchunk;
-  return gemm(ga, dirs, false, false, aligned16(ys) && aligned16(dg), false, stream);
+  return gemm(ga, dirs, false, false, aligned16(ys) && aligned16(dg), false, dt, false, stream);
 }
 
-const void* sweep_kernel(int nt) {
-  return nt == 1 ? (const void*)lstm_bwd_sweep_kernel<1>
-         : nt == 2 ? (const void*)lstm_bwd_sweep_kernel<2>
-                   : (const void*)lstm_bwd_sweep_kernel<4>;
+template <typename S, typename A>
+const void* sweep_kernel_of(int nt) {
+  return nt == 1 ? (const void*)lstm_bwd_sweep_kernel<1, S, A>
+         : nt == 2 ? (const void*)lstm_bwd_sweep_kernel<2, S, A>
+                   : (const void*)lstm_bwd_sweep_kernel<4, S, A>;
 }
 
-int sweep_plan(int T, int B, int dirs, int H, int* out) {
+// the variant of storage type dt (0 float, 1 bf16) and acts type adt
+const void* sweep_kernel(int nt, int dt, int adt) {
+  return !dt ? sweep_kernel_of<float, float>(nt)
+         : adt ? sweep_kernel_of<bf16, bf16>(nt) : sweep_kernel_of<bf16, float>(nt);
+}
+
+// the fused layer's db at bf16, two kernels: db_blocks_kernel writes, for
+// each block of DB_STEPS steps of original time (blockIdx.z) and direction
+// d (blockIdx.y), the sum of d's rounded gate gradients dgs (kernel time)
+// over the block's steps and rows, rounded to bf16, into part [2][nblk][G]
+// (a thread a column); db_sum_kernel sums those in block order and rounds
+__global__ void db_blocks_kernel(const bf16* dgs, float* part, int T, int B, int G) {
+  const int d = blockIdx.y, R = 2 * B, blk = blockIdx.z, nblk = gridDim.z;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= G) return;
+  float s = 0.0f;
+  for (int t = blk * DB_STEPS; t < min(T, (blk + 1) * DB_STEPS); ++t) {
+    const int k = d == 0 ? t : T - 1 - t;  // kernel step of original time t
+    for (int b = 0; b < B; ++b) s += ldf(dgs + ((long)k * R + d * B + b) * G + n);
+  }
+  part[((long)d * nblk + blk) * G + n] = rnd<bf16>(s);
+}
+
+__global__ void db_sum_kernel(const float* part, bf16* db, int nblk, int G) {
+  const int d = blockIdx.y, n = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n >= G) return;
+  float tot = 0.0f;
+  for (int blk = 0; blk < nblk; ++blk) tot += part[((long)d * nblk + blk) * G + n];
+  stf(db + (long)d * G + n, tot);
+}
+
+int sweep_plan(int T, int B, int dirs, int H, int dt, int adt, int* out) {
   (void)T;
   const int G = 4 * H;
   int dev = 0, nsm = 0;
@@ -324,12 +390,13 @@ int sweep_plan(int T, int B, int dirs, int H, int* out) {
   const int slices = cdiv(H, SW_US);
   for (int w_smem = 1; w_smem >= 0; --w_smem) {
     for (int nt = 1; nt <= 4; nt *= 2) {
-      const int smem = 4 * sw_smem_floats(G, nt, w_smem);
+      const int smem = sw_smem_bytes(G, nt, w_smem, elem_bytes(dt));
       if (smem > SMEM_MAX) continue;
-      e = cudaFuncSetAttribute(sweep_kernel(nt), cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      const void* kern = sweep_kernel(nt, dt, adt);
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return (int)e;
       int per_sm = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sweep_kernel(nt), SW_NT, smem);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, SW_NT, smem);
       if (e != cudaSuccess) return (int)e;
       const int nb = dirs * slices * cdiv(B, 8 * nt);
       if (nb <= per_sm * nsm) {
@@ -354,60 +421,73 @@ extern "C" const char* e2e_error_string(int err) {
 // resident), Wh resident in shared memory (1; 0: read from L2), shared
 // memory bytes a block, blocks]. The first of (w_smem = 1, 0) x (nt = 1, 2,
 // 4) whose grid is resident at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int e2e_lstm_bwd_sweep_plan(int T, int B, int dirs, int H, int* out, void* stream) {
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for storage type dt (0
+// float, 1 bf16) and acts type adt.
+extern "C" int e2e_lstm_bwd_sweep_plan(int T, int B, int dirs, int H, int dt, int adt, int* out,
+                                       void* stream) {
   (void)stream;
-  if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1) return (int)cudaErrorInvalidValue;
-  return sweep_plan(T, B, dirs, H, out);
+  if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1 || dt < 0 || dt > 1 || adt < 0 || adt > 1)
+    return (int)cudaErrorInvalidValue;
+  return sweep_plan(T, B, dirs, H, dt, adt, out);
 }
 
 // The reverse sweep over all rows (dirs * B) -> dg [T, dirs * B, 4H]. mask
 // [T, B] in original time (row_mask 0, the fused-projection layer) or
 // [T, dirs * B] in kernel time (row_mask 1), wh [dirs, H, 4H], c_out / dy
 // [T, dirs * B, H], acts [T, dirs * B, 4H]; nt, w_smem and smem from the
-// plan. One cooperative launch (a grid barrier a step): it fails where the
-// grid cannot be resident.
-extern "C" int e2e_lstm_bwd_sweep(const float* mask, const float* wh, const float* c_out,
-                                  const float* acts, const float* dy, float* dg, int T, int B,
-                                  int dirs, int H, int row_mask, int nt, int w_smem, int smem,
-                                  void* stream) {
+// plan; wh, c_out, dy and dgs of storage type dt (0 float, 1 bf16: dgs the
+// gate gradients rounded, unwritten at float), acts of adt. One cooperative
+// launch (a grid barrier a step): it fails where the grid cannot be
+// resident.
+extern "C" int e2e_lstm_bwd_sweep(const float* mask, const void* wh, const void* c_out,
+                                  const void* acts, const void* dy, float* dg, void* dgs, int T, int B,
+                                  int dirs, int H, int row_mask, int nt, int w_smem, int smem, int dt,
+                                  int adt, void* stream) {
   if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1 || T < 1 ||
-      (nt != 1 && nt != 2 && nt != 4) || w_smem < 0 || w_smem > 1 ||
-      smem != 4 * sw_smem_floats(4 * H, nt, w_smem) ||
+      (nt != 1 && nt != 2 && nt != 4) || w_smem < 0 || w_smem > 1 || dt < 0 || dt > 1 || adt < 0 ||
+      adt > 1 || (!dt && adt) || smem != sw_smem_bytes(4 * H, nt, w_smem, elem_bytes(dt)) ||
       smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(sweep_kernel(nt),
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const void* kern = sweep_kernel(nt, dt, adt);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  SweepArgs a{mask, wh, c_out, acts, dy, dg, T, B, H, dirs, row_mask,
+  SweepArgs a{mask, wh, c_out, acts, dy, dg, dgs, T, B, H, dirs, row_mask,
               nt, cdiv(B, 8 * nt), cdiv(H, SW_US), w_smem};
   void* params[] = {&a};
   const int nb = dirs * a.slices * a.nrg;
-  return (int)cudaLaunchCooperativeKernel(sweep_kernel(nt), dim3(nb), dim3(SW_NT), params,
-                                          (size_t)smem, (cudaStream_t)stream);
+  return (int)cudaLaunchCooperativeKernel(kern, dim3(nb), dim3(SW_NT), params, (size_t)smem,
+                                          (cudaStream_t)stream);
 }
 
-// The fused-projection layer's products from dg [T, 2B, 4H] (kernel time):
-// x [T, B, D], wx [2, D, 4H], ys [T, 2B, H] -> dx [T, B, D], dwx [2, D, 4H],
-// dwh [2, H, 4H], db [2, 4H]. ws: split partials, at least 2 x max(sx x
-// (D + 1), sh x (H + 1)) x 4H floats where a split count is above 1; sx /
-// sh and cx / ch: the splits and k-tiles a split of dWx and dWh.
-extern "C" int e2e_lstm_bidir_bwd_products(const float* x, const float* wx, const float* ys,
-                                           const float* dg, float* dx, float* dwx, float* dwh,
-                                           float* db, float* ws, int T, int B, int D, int H,
-                                           int sx, int cx, int sh, int ch, void* stream_) {
-  if (H % 8 != 0 || H > 1024 || D < 1 || B < 1 || T < 1 || sx < 1 || sh < 1)
+// The fused-projection layer's products from the gate gradients (kernel
+// time): dg [T, 2B, 4H] float for dWh, dgs (dg itself at float) for dx,
+// dWx and db; x [T, B, D], wx [2, D, 4H], ys [T, 2B, H] -> dx [T, B, D], dwx
+// [2, D, 4H], dwh [2, H, 4H], db [2, 4H]; all but dg, ws of storage type dt
+// (0 float, 1 bf16). ws: split partials, at least 2 x max(sx x (D + 1), sh x
+// (H + 1)) x 4H floats where a split count is above 1, and at bf16 also 2 x
+// (T B + 1) x D (dx's two directions) and 2 x ceil(T / DB_STEPS) x 4H (db's
+// block sums); sx / sh and cx / ch: the splits and k-tiles a split of dWx
+// and dWh.
+extern "C" int e2e_lstm_bidir_bwd_products(const void* x, const void* wx, const void* ys,
+                                           const float* dg, const void* dgs, void* dx, void* dwx,
+                                           void* dwh, void* db, float* ws, int T, int B, int D, int H,
+                                           int sx, int cx, int sh, int ch, int dt, void* stream_) {
+  if (H % 8 != 0 || H > 1024 || D < 1 || B < 1 || T < 1 || sx < 1 || sh < 1 || dt < 0 || dt > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_;
   const long long G = 4LL * H, R = 2LL * B;
-  const int TB = T * B;
+  const int TB = T * B, es = elem_bytes(dt);
+  const void* dgp = dt ? dgs : static_cast<const void*>(dg);
+  const char* wxc = static_cast<const char*>(wx);
   // dx rows (t, b) in original time: dg_fwd at kernel time t, row b; dg_bwd
-  // at kernel time T-1-t, row B+b; B(k, n) = wx[dir][n][k]
+  // at kernel time T-1-t, row B+b; B(k, n) = wx[dir][n][k]. At bf16 the two
+  // directions (the two K segments) are two splits, each product rounded
+  // before their sum.
   GemmArgs ga{};
-  ga.pr[0].a[0] = {dg, row_map(0, B, R * G, G)};
-  ga.pr[0].a[1] = {dg, row_map(((long long)(T - 1) * R + B) * G, B, -R * G, G)};
-  ga.pr[0].b[0] = {wx, plain_rows(G)};
-  ga.pr[0].b[1] = {wx + (long long)D * G, plain_rows(G)};
+  ga.pr[0].a[0] = {dgp, row_map(0, B, R * G, G)};
+  ga.pr[0].a[1] = {dgp, row_map(((long long)(T - 1) * R + B) * G, B, -R * G, G)};
+  ga.pr[0].b[0] = {wxc, plain_rows(G)};
+  ga.pr[0].b[1] = {wxc + (long long)D * G * es, plain_rows(G)};
   ga.pr[0].c = dx;
   ga.pr[0].crow = plain_rows(D);
   ga.ws = ws;
@@ -415,21 +495,24 @@ extern "C" int e2e_lstm_bidir_bwd_products(const float* x, const float* wx, cons
   ga.N = D;
   ga.K = (int)(2 * G);
   ga.seg_len = (int)G;
-  ga.splits = 1;
-  ga.kchunk = cdiv(ga.K, GK);
-  int err = gemm(ga, 1, true, true, aligned16(dg) && aligned16(wx), false, stream);
+  ga.splits = dt ? 2 : 1;
+  ga.kchunk = dt ? (int)(G / GK) : cdiv(ga.K, GK);
+  ga.c16 = dt;
+  ga.round_parts = dt;
+  int err = gemm(ga, 1, true, true, aligned16(dgp) && aligned16(wx), false, dt, dt, stream);
   if (err) return err;
 
   // dWx[d] = x^T dg_d over rows (k, b); direction 1's kernel step k reads x
-  // at original time T-1-k; db[d] = the columns of dg_d summed
+  // at original time T-1-k; db[d] = the columns of dg_d summed (at bf16 by
+  // db_blocks_kernel instead)
   GemmArgs gx{};
   gx.pr[0].a[0] = {x, plain_rows(D)};
   gx.pr[1].a[0] = {x, row_map((long long)(T - 1) * B * D, B, -(long long)B * D, D)};
   for (int d = 0; d < 2; ++d) {
-    gx.pr[d].b[0] = {dg, row_map((long long)d * B * G, B, R * G, G)};
-    gx.pr[d].c = dwx + (long long)d * D * G;
+    gx.pr[d].b[0] = {dgp, row_map((long long)d * B * G, B, R * G, G)};
+    gx.pr[d].c = static_cast<char*>(dwx) + (long long)d * D * G * es;
     gx.pr[d].crow = plain_rows(G);
-    gx.pr[d].ones = db + (long long)d * G;
+    gx.pr[d].ones = dt ? nullptr : static_cast<float*>(db) + (long long)d * G;
   }
   gx.ws = ws;
   gx.M = D;
@@ -438,17 +521,27 @@ extern "C" int e2e_lstm_bidir_bwd_products(const float* x, const float* wx, cons
   gx.seg_len = TB;
   gx.splits = sx;
   gx.kchunk = cx;
-  err = gemm(gx, 2, false, false, D % 4 == 0 && aligned16(x) && aligned16(dg), false, stream);
+  gx.c16 = dt;
+  err = gemm(gx, 2, false, false, D % (16 / es) == 0 && aligned16(x) && aligned16(dgp), false, dt, dt, stream);
   if (err) return err;
-  return dwh_products(ys, dg, dwh, ws, T, B, 2, H, sh, ch, stream);
+  if (dt) {  // ws is free again: dWx's split sums have run
+    const int nblk = cdiv(T, DB_STEPS);
+    db_blocks_kernel<<<dim3(cdiv((int)G, 128), 2, nblk), 128, 0, stream>>>(static_cast<const bf16*>(dgs), ws,
+                                                                            T, B, (int)G);
+    db_sum_kernel<<<dim3(cdiv((int)G, 128), 2), 128, 0, stream>>>(ws, static_cast<bf16*>(db), nblk, (int)G);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return dwh_products(ys, dg, dwh, ws, T, B, 2, H, sh, ch, dt, stream);
 }
 
-// lstm_seq's product: dwh [dirs, H, 4H] = h_prev^T dxw per direction, from
-// ys [T, R, H] and dxw [T, R, 4H] (kernel time); ws as above with sh x (H+1).
-extern "C" int e2e_lstm_seq_bwd_products(const float* ys, const float* dxw, float* dwh, float* ws,
-                                         int T, int B, int dirs, int H, int sh, int ch,
+// lstm_seq's product: dwh [dirs, H, 4H] = h_prev^T dg per direction, from
+// ys [T, R, H] and the float gate gradients dg [T, R, 4H] (kernel time);
+// ys and dwh of storage type dt; ws as above with sh x (H+1).
+extern "C" int e2e_lstm_seq_bwd_products(const void* ys, const float* dg, void* dwh, float* ws,
+                                         int T, int B, int dirs, int H, int sh, int ch, int dt,
                                          void* stream) {
-  if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1 || T < 1 || sh < 1)
+  if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1 || T < 1 || sh < 1 || dt < 0 || dt > 1)
     return (int)cudaErrorInvalidValue;
-  return dwh_products(ys, dxw, dwh, ws, T, B, dirs, H, sh, ch, (cudaStream_t)stream);
+  return dwh_products(ys, dg, dwh, ws, T, B, dirs, H, sh, ch, dt, (cudaStream_t)stream);
 }

@@ -23,16 +23,16 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// 16 bytes of which the first `bytes` (0, 4, 8, 12 or 16) come from src and
-// the rest are zero; with bytes = 0 nothing is read
-__device__ __forceinline__ void cp_async16_zfill(float* dst, const float* src, int bytes) {
+// 16 bytes of which the first `bytes` (0 to 16: whole floats or bf16s)
+// come from src and the rest are zero; with bytes = 0 nothing is read
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int bytes) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");
 }
 
 // 4 bytes, or a zero where bytes = 0
-__device__ __forceinline__ void cp_async4_zfill(float* dst, const float* src, int bytes) {
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int bytes) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
                : "memory");

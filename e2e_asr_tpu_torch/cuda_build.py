@@ -166,6 +166,27 @@ def launch(name: str, fn: str, *args, defines: Sequence[str] = ()) -> None:
         raise RuntimeError(f"{name}.{fn} launch failed: {lib.e2e_error_string(err).decode()}")
 
 
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)  # the types a kernel with a bf16 variant takes
+
+
+def dtype_code(dtype: torch.dtype, name: str) -> int:
+    """The storage-type argument of the kernels that have a bf16 variant: 0
+    float32, 1 bfloat16; raises on any other type."""
+    if dtype not in STORAGE_DTYPES:
+        raise ValueError(f"{name}: no kernel variant for {dtype}")
+    return int(dtype == torch.bfloat16)
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One launch of ``wrapper``'s kernel in its ``dtype`` variant: its
+    float32 variant counts in ``wrapper.launches``, its bfloat16 variant
+    in ``wrapper.launches_bf16``."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def use_plain(x: torch.Tensor) -> bool:
     """True when a wrapper must run its plain version: for CPU tensors."""
     if x.device.type == "cpu":

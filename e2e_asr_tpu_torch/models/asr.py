@@ -65,7 +65,7 @@ def encode(
 
 
 def ctc_log_probs(params: Params, enc: torch.Tensor) -> torch.Tensor:
-    return torch.log_softmax(L.dense(params["ctc"], enc), dim=-1)
+    return L.log_softmax(L.dense(params["ctc"], enc), dim=-1)
 
 
 class DecodeCarry(NamedTuple):
@@ -79,8 +79,8 @@ def init_carry(params: Params, cfg: ModelConfig, enc: torch.Tensor, enc_len: tor
     mem = att_mod.prepare(params["attention"], cfg.attention, enc, enc_len)
     b = enc.shape[0]
     carry = DecodeCarry(
-        dec_mod.init_state(b, cfg.decoder, enc.device),
-        att_mod.init_align(cfg.attention, mem),
+        dec_mod.init_state(b, cfg.decoder, enc.device, enc.dtype),
+        att_mod.init_align(cfg.attention, mem).to(enc.dtype),
         torch.zeros((b,), dtype=torch.long, device=enc.device),  # <sos>
     )
     return mem, carry
@@ -93,7 +93,7 @@ def attend_and_step(
     """Embed ``tok``, attend with the current decoder state as query
     (attention before the RNN step), then advance the speller. Returns
     (logits, align, hidden, new_carry)."""
-    emb = L.embed(params["embed"], tok)
+    emb = L.embed(params["embed"], tok, mem["k"].dtype)
     query = dec_mod.query_of(carry.dec_state)
     align, ctx = att_mod.step(params["attention"], cfg.attention, query, mem, carry.prev_att)
     logits, hidden, new_state = dec_mod.step(

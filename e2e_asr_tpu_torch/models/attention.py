@@ -91,15 +91,16 @@ def step(
     if cfg.mode == "dot":
         energy = torch.einsum("bhd,bhsd->bhs", q, k) / math.sqrt(d)
     elif cfg.mode == "location":
-        f = location_features(prev_att, params["loc_conv"]["w"]) + params["loc_conv"]["b"]
+        dt = q.dtype
+        f = location_features(prev_att, params["loc_conv"]["w"].to(dt)) + params["loc_conv"]["b"].to(dt)
         f = L.dense(params["loc_proj"], f)  # [B, S, d]
-        e = torch.tanh(q[:, :, None, :] + k + f[:, None] + params["loc_b"])
-        energy = torch.einsum("bhsd,hd->bhs", e, params["loc_v"])
+        e = torch.tanh(q[:, :, None, :] + k + f[:, None] + params["loc_b"].to(dt))
+        energy = torch.einsum("bhsd,hd->bhs", e, params["loc_v"].to(dt))
     else:
         raise ValueError(f"unknown attention mode {cfg.mode}")
     m = mask[:, None]
     energy = torch.where(m, energy, NEG)
-    align = torch.softmax(energy / cfg.temperature, dim=-1)
+    align = L.softmax(energy / cfg.temperature, dim=-1)
     align = torch.where(m, align, 0.0)
     ctx = torch.einsum("bhs,bhse->bhe", align, v).reshape(b, -1)
     if "merge" in params:

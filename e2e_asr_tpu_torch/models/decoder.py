@@ -34,8 +34,9 @@ def decoder_init(gen: torch.Generator, in_dim: int, vocab: int, cfg: DecoderConf
     return {"cells": cells, "char": L.dense_init(gen, cfg.dim, vocab)}
 
 
-def init_state(b: int, cfg: DecoderConfig, device: torch.device) -> State:
-    z = torch.zeros((cfg.layer, b, cfg.dim), device=device)
+def init_state(b: int, cfg: DecoderConfig, device: torch.device,
+               dtype: torch.dtype = torch.float32) -> State:
+    z = torch.zeros((cfg.layer, b, cfg.dim), device=device, dtype=dtype)
     return (z, z)
 
 
@@ -57,7 +58,8 @@ def step(
     hs, cs = [], []
     inp = x
     for i, w in enumerate(params["cells"]):
-        h_new, c_new = lstm_cell(inp @ w["wx"] + w["b"], h_all[i], c_all[i], w["wh"])
+        dt = inp.dtype  # the weights are cast to the input's type
+        h_new, c_new = lstm_cell(inp @ w["wx"].to(dt) + w["b"].to(dt), h_all[i], c_all[i], w["wh"].to(dt))
         hs.append(h_new)
         cs.append(c_new)
         inp = h_new

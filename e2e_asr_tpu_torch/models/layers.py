@@ -7,6 +7,10 @@ drawn from an explicit ``torch.Generator`` (the numbers differ from
 
 Layout differences from the JAX package: conv weights are OIHW / OIW and
 activations NCHW, PyTorch's own layout; dense weights stay [in, out].
+
+Parameters are float32; the apply functions cast them to the input's type,
+as the JAX package's do, so a bfloat16 input computes in bfloat16 (autograd
+brings the parameters' gradients back to float32).
 """
 
 from __future__ import annotations
@@ -33,9 +37,9 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, bias: bool = True) -
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = x @ p["w"].to(x.dtype)
     if "b" in p:
-        y = y + p["b"]
+        y = y + p["b"].to(x.dtype)
     return y
 
 
@@ -43,8 +47,36 @@ def embedding_init(gen: torch.Generator, vocab: int, dim: int) -> Params:
     return {"table": torch.randn((vocab, dim), generator=gen, device=gen.device) / math.sqrt(dim)}
 
 
-def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids]
+def embed(p: Params, ids: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return p["table"].to(dtype)[ids]
+
+
+# Below float32 the JAX package's elementwise functions round after every
+# primitive they are made of (XLA rounds each op's result to the input's
+# type); PyTorch's fused sigmoid and softmax round once. These three take
+# the JAX decomposition there, and PyTorch's own functions in float32.
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid: 1 / (1 + exp(-x)), each step rounded below float32."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """jax.nn.softmax: exp(x - max) / sum, each step rounded below float32."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim)
+    e = torch.exp(x - x.amax(dim, keepdim=True).detach())
+    return e / e.sum(dim, keepdim=True)
+
+
+def log_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """jax.nn.log_softmax: (x - max) - log(sum(exp(x - max))), each step
+    rounded below float32."""
+    if x.dtype == torch.float32:
+        return torch.log_softmax(x, dim)
+    s = x - x.amax(dim, keepdim=True).detach()
+    return s - torch.log(torch.exp(s).sum(dim, keepdim=True))
 
 
 def layernorm_init(dim: int, device: torch.device) -> Params:
@@ -54,7 +86,7 @@ def layernorm_init(dim: int, device: torch.device) -> Params:
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mean = x.mean(-1, keepdim=True)
     var = ((x - mean) ** 2).mean(-1, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return (x - mean) * torch.rsqrt(var + eps) * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
 def lstm_init(gen: torch.Generator, d_in: int, dim: int, forget_bias: float = 1.0) -> Params:
@@ -73,8 +105,12 @@ def conv2d_init(gen: torch.Generator, h: int, w: int, c_in: int, c_out: int) -> 
 
 
 def conv2d(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x: [B, C, H, W] (NCHW), weights OIHW, stride 1, SAME padding."""
-    return F.conv2d(x, p["w"], p["b"], padding="same")
+    """x: [B, C, H, W] (NCHW), weights OIHW, stride 1, SAME padding. Below
+    float32 the bias is added after the convolution's result is rounded, as
+    the JAX package adds it."""
+    if x.dtype == torch.float32:
+        return F.conv2d(x, p["w"], p["b"], padding="same")
+    return F.conv2d(x, p["w"].to(x.dtype), None, padding="same") + p["b"].to(x.dtype)[:, None, None]
 
 
 def conv1d_init(gen: torch.Generator, k: int, c_in: int, c_out: int) -> Params:

@@ -43,6 +43,24 @@ version draws its noise from the generator itself. Neither reproduces
 distribution is the same (Gumbel-max), the numbers are not. Teacher-forced
 and argmax feedback are comparable value for value.
 
+Storage types: k, v, the weights and the outputs logits, align, hidden
+and c are float32 or bfloat16, one type a call (each kernel has a variant
+of each); the residuals acts, q and ctx and every gradient the backward
+kernel returns are float32. At bfloat16 the rounding points are the TPU
+kernel's: every product and the cell run in float32 from the widened
+inputs; h, c and the alignment are carried rounded to bfloat16 (h' and the
+logits from the unrounded c' and h'; q from the rounded h; the context from
+the unrounded alignment; the location features in float32), the initial
+alignment too; the backward's carries stay float32 and it reads the rounded
+stored c, alignment and h. ``DecoderScanFn`` takes the float32 parameters,
+casts them to k's type for the kernels (as the TPU kernel's wrapper casts
+them) and returns their gradients in float32, from the per-step streams
+rounded to bfloat16 where the TPU kernel stores them so (dgates, dq,
+dfpre); dk and dv come back in bfloat16. As the TPU kernel's backward, it
+rebuilds the context from the stored (rounded) alignment, for the softmax
+term and dWx, and the gate activations from that context and the stored h
+(products outside the sweep, in float32), in place of the forward's.
+
 The kernels take H a multiple of 8 up to 512, Dk up to 512, any L, V, E,
 Emb, K, odd P and S up to what their per-frame buffers leave of a block's
 shared memory (``scan_grid`` raises past it: about 6,000 frames at the
@@ -63,6 +81,7 @@ import torch
 import torch.nn.functional as F
 
 from e2e_asr_tpu_torch import cuda_build
+from e2e_asr_tpu_torch.cuda_build import dtype_code
 from e2e_asr_tpu_torch.ops.att_step_cuda import NEG, location_features
 
 CL = 8  # blocks per cluster, at most (the portable cluster size)
@@ -81,16 +100,18 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def plan(which: str, g: int, cl: int, b: int, s: int, dk: int, e_dim: int, kk: int, p: int,
-         h_dim: int, vocab: int):
+         h_dim: int, vocab: int, dtype: torch.dtype = torch.float32):
     """Shared memory of kernel ``which`` ("fwd" or "bwd") on ``g`` clusters
-    of ``cl`` blocks, from the kernel's own layout (csrc
+    of ``cl`` blocks for storage type ``dtype`` (the residents, k, v and the
+    weights, held in it), from the kernel's own layout (csrc
     ``e2e_decoder_scan_{fwd,bwd}_plan``): (bytes a block, {resident: 0/1},
     floats of global scratch a block). Residents are taken in order of
     priority while a block stays within 227 KB; raises ValueError when its
     working buffers alone exceed that. Needs the built library, not the card."""
     out = torch.zeros(8, dtype=torch.int32)
     dims = (b, s, dk, e_dim, kk, p, h_dim) + ((vocab,) if which == "fwd" else ())
-    cuda_build.launch(_library(which), f"e2e_decoder_scan_{which}_plan", *dims, g, cl, out)
+    cuda_build.launch(_library(which), f"e2e_decoder_scan_{which}_plan", *dims, g, cl,
+                      dtype_code(dtype, f"decoder_scan_{which}"), out)
     o = out.tolist()
     if o[0] < 0:
         raise ValueError(f"decoder_scan_{which}: S = {s} leaves a block's working buffers above "
@@ -110,15 +131,18 @@ def _library(which: str) -> str:
 _clusters = {}
 
 
-def resident_clusters(which: str, cl: int = CL, smem: int = SMEM_MAX) -> int:
+def resident_clusters(which: str, cl: int = CL, smem: int = SMEM_MAX,
+                      dtype: torch.dtype = torch.float32) -> int:
     """How many clusters of ``cl`` blocks of kernel ``which`` ("fwd" or
-    "bwd") can be resident at once with ``smem`` bytes of shared memory a
-    block (cudaOccupancyMaxActiveClusters; card only)."""
+    "bwd", its ``dtype`` variant) can be resident at once with ``smem``
+    bytes of shared memory a block (cudaOccupancyMaxActiveClusters; card
+    only)."""
     name = _library(which)
-    key = (which, cl, smem, torch.cuda.current_device())
+    key = (which, cl, smem, dtype, torch.cuda.current_device())
     if key not in _clusters:
         out = torch.zeros(1, dtype=torch.int32)
-        cuda_build.launch(name, f"e2e_decoder_scan_{which}_clusters", cl, smem, out)
+        cuda_build.launch(name, f"e2e_decoder_scan_{which}_clusters", cl, smem,
+                          dtype_code(dtype, f"decoder_scan_{which}"), out)
         _clusters[key] = int(out[0])
     return _clusters[key]
 
@@ -139,20 +163,21 @@ _grids = {}
 
 
 def scan_grid(which: str, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, h_dim: int,
-              vocab: int, cluster_size: Optional[int] = None):
-    """The grid a launch of kernel ``which`` uses at these shapes: G clusters
-    of CL blocks (all that can be resident, CL from ``pick_cluster_size``),
-    the shared memory a block, the residents and the global scratch a block
-    (``cluster_size`` overrides the pick). Raises when the planned grid
-    cannot be resident: a cooperative grid that does not fit would not run."""
+              vocab: int, cluster_size: Optional[int] = None, dtype: torch.dtype = torch.float32):
+    """The grid a launch of kernel ``which`` (its ``dtype`` variant) uses at
+    these shapes: G clusters of CL blocks (all that can be resident, CL from
+    ``pick_cluster_size``), the shared memory a block, the residents and the
+    global scratch a block (``cluster_size`` overrides the pick). Raises
+    when the planned grid cannot be resident: a cooperative grid that does
+    not fit would not run."""
     _library(which)
-    key = (which, b, s, dk, e_dim, kk, p, h_dim, vocab, cluster_size, torch.cuda.current_device())
+    key = (which, b, s, dk, e_dim, kk, p, h_dim, vocab, cluster_size, dtype, torch.cuda.current_device())
     if key in _grids:
         return dict(_grids[key])
-    shapes = (b, s, dk, e_dim, kk, p, h_dim, vocab)
+    shapes = (b, s, dk, e_dim, kk, p, h_dim, vocab, dtype)
 
     def fits_plan(cl):
-        g = resident_clusters(which, cl)
+        g = resident_clusters(which, cl, dtype=dtype)
         if g < 1:
             return False
         try:
@@ -161,12 +186,13 @@ def scan_grid(which: str, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, 
             return False
         return True
 
-    cl = cluster_size or pick_cluster_size(b, s, lambda c: resident_clusters(which, c) if fits_plan(c) else 0)
-    g = resident_clusters(which, cl)
+    cl = cluster_size or pick_cluster_size(
+        b, s, lambda c: resident_clusters(which, c, dtype=dtype) if fits_plan(c) else 0)
+    g = resident_clusters(which, cl, dtype=dtype)
     if g < 1 or not fits_plan(cl):
         raise RuntimeError(f"decoder_scan_{which}: no grid of clusters fits on this card at these shapes")
     smem, flags, scratch = plan(which, g, cl, *shapes)
-    if resident_clusters(which, cl, smem) < g:
+    if resident_clusters(which, cl, smem, dtype) < g:
         raise RuntimeError(f"decoder_scan_{which}: {g} clusters with {smem} bytes of shared memory a "
                            "block cannot be resident at once")
     _grids[key] = dict(clusters=g, cluster_size=cl, blocks=g * cl, slots=_cdiv(b, g), smem=smem,
@@ -194,9 +220,11 @@ def fits(h_dim: int, dk: int) -> bool:
     return h_dim % CL == 0 and h_dim <= MAX_H and dk <= MAX_DK
 
 
-def _init_align(enc_len: torch.Tensor, s: int) -> torch.Tensor:
+def _init_align(enc_len: torch.Tensor, s: int, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The uniform alignment over the valid frames, computed in float32 and
+    stored in ``dtype``."""
     mask = torch.arange(s, device=enc_len.device)[None, :] < enc_len[:, None]
-    return mask.float() / torch.clamp(enc_len, min=1)[:, None].float()
+    return (mask.float() / torch.clamp(enc_len, min=1)[:, None].float()).to(dtype)
 
 
 def _attend(k, v, mask, prev_att, q, taps, wlp, locv, locb, temp):
@@ -218,27 +246,31 @@ def decoder_scan_fwd_plain(
     where it is false the prediction of the step before is fed (argmax of
     the logits, plus ``noise`` [L, B, V] when ``sample``; without a buffer
     the noise is Gumbel noise drawn from ``generator``). Returns (logits,
-    align, hidden, residuals = (cseq, tokens, acts, q, ctx))."""
+    align, hidden, residuals = (cseq, tokens, acts, q, ctx)): the first
+    four in k's type (the inputs' storage type), the rest float32."""
     b, s, _ = k.shape
     l = teacher.shape[0]
     h_dim = wh.shape[0]
+    dt = k.dtype
+    k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout = (
+        a.float() for a in (k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout))
     mask = torch.arange(s, device=k.device)[None, :] < enc_len[:, None]
-    att = _init_align(enc_len, s)
-    h = k.new_zeros((b, h_dim))
-    c = k.new_zeros((b, h_dim))
+    att = _init_align(enc_len, s, dt)
+    h = k.new_zeros((b, h_dim), dtype=dt)
+    c = k.new_zeros((b, h_dim), dtype=dt)
     pred = torch.zeros((b,), dtype=torch.long, device=k.device)  # <sos>
     use = use_teacher.tolist()
     outs = [[] for _ in range(8)]
     for t in range(l):
         tok = teacher[t].long() if use[t] else pred
-        q = h @ wq + bq
-        att, ctx, _, _ = _attend(k, v, mask, att, q, taps, wlp, locv, locb, temp)
-        gates = torch.cat([embed[tok], ctx], -1) @ wx + h @ wh + bl
+        q = h.float() @ wq + bq
+        align, ctx, _, _ = _attend(k, v, mask, att.float(), q, taps, wlp, locv, locb, temp)
+        gates = torch.cat([embed[tok], ctx], -1) @ wx + h.float() @ wh + bl
         gi, gf, gg, go = gates.chunk(4, dim=-1)
         i, f, g, o = torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)
-        c = f * c + i * g
-        h = o * torch.tanh(c)
-        logits = h @ wout + bout
+        c2 = f * c.float() + i * g
+        h2 = o * torch.tanh(c2)
+        logits = h2 @ wout + bout
         scores = logits
         if sample:
             if noise is not None:
@@ -248,14 +280,21 @@ def decoder_scan_fwd_plain(
                                device=generator.device if generator is not None else None)
                 scores = logits - torch.log(-torch.log(u.to(logits.device) + 1e-12))
         pred = torch.argmax(scores, -1)
-        for lst, val in zip(outs, (logits, att, h, c, tok.int(), torch.cat([i, f, g, o], -1), q, ctx)):
+        att, h, c = align.to(dt), h2.to(dt), c2.to(dt)
+        for lst, val in zip(outs, (logits.to(dt), att, h, c, tok.int(), torch.cat([i, f, g, o], -1), q,
+                                   ctx)):
             lst.append(val)
     logits, align, hidden, cseq, tokens, acts, qs, ctxs = (torch.stack(o) for o in outs)
     return logits, align, hidden, (cseq, tokens, acts, qs, ctxs)
 
 
-def _check(name, tensors, ints=()):
+def _check(name, tensors, ints=(), dtype=torch.float32, wide=()):
+    """``tensors`` in the storage type ``dtype``, ``wide`` in float32, ``ints``
+    in int32."""
+    dtype_code(dtype, name)
     for a, an in tensors:
+        cuda_build.check_cuda(a, f"{name} {an}", dtype)
+    for a, an in wide:
         cuda_build.check_cuda(a, f"{name} {an}")
     for a, an in ints:
         cuda_build.check_cuda(a, f"{name} {an}", torch.int32)
@@ -296,7 +335,7 @@ def decoder_scan_fwd(
                                       generator)
     out = _fwd_launch((), k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
                       teacher, use_teacher, temp, sample, seed)
-    decoder_scan_fwd.launches += 1
+    cuda_build.count_launch(decoder_scan_fwd, k.dtype)
     return out
 
 
@@ -310,30 +349,34 @@ def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx
     teacher = teacher.to(torch.int32).contiguous()
     use_i = use_teacher.to(device=k.device, dtype=torch.int32).contiguous()
     names = "k v taps wq bq wlp locv locb embed wx wh bl wout bout".split()
+    dt = k.dtype
     _check("decoder_scan_fwd", zip(fl, names),
-           ((enc_len, "enc_len"), (teacher, "teacher"), (use_i, "use_teacher")))
+           ((enc_len, "enc_len"), (teacher, "teacher"), (use_i, "use_teacher")), dt)
     b, s, dk, e_dim, kk, p, h_dim, vocab, emb, l = _dims(
         "decoder_scan_fwd", k, v, taps, wq, wlp, embed, wx, wh, wout, teacher)
-    grid = scan_grid("fwd", b, s, dk, e_dim, kk, p, h_dim, vocab, cluster_size)
+    grid = scan_grid("fwd", b, s, dk, e_dim, kk, p, h_dim, vocab, cluster_size, dt)
     dev = k.device
-    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    logits, align, hidden, cseq = new(l, b, vocab), new(l, b, s), new(l, b, h_dim), new(l, b, h_dim)
+    new = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device=dev)
+    logits, align = new(l, b, vocab, dtype=dt), new(l, b, s, dtype=dt)
+    hidden, cseq = new(l, b, h_dim, dtype=dt), new(l, b, h_dim, dtype=dt)
     acts, qs, ctxs = new(l, b, 4 * h_dim), new(l, b, dk), new(l, b, e_dim)
     tokens = torch.empty((l, b), dtype=torch.int32, device=dev)
     ew = new(vocab, 4 * h_dim)  # scratch: embed Wx[:Emb] + bl
+    hs = new(b, h_dim) if dt != torch.float32 else hidden  # scratch: h' of the step, unrounded
     seed = int(seed)
     cuda_build.launch(
         "decoder_scan", "e2e_decoder_scan_fwd", k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed,
         wx, wh, bl, wout, bout, teacher, use_i, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew,
-        b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)),
+        hs, b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)),
         seed & 0x7FFFFFFF, (seed >> 31) & 0x7FFFFFFF, grid["clusters"], grid["cluster_size"],
         grid["w_smem"], grid["wq_smem"], grid["wo_smem"], grid["k_smem"], grid["v_smem"],
-        defines=defines,
+        dtype_code(dt, "decoder_scan_fwd"), defines=defines,
     )
     return logits, align, hidden, (cseq, tokens, acts, qs, ctxs)
 
 
 decoder_scan_fwd.launches = 0
+decoder_scan_fwd.launches_bf16 = 0
 
 
 def gumbel_noise(seed: int, l: int, b: int, vocab: int, device) -> torch.Tensor:
@@ -375,13 +418,18 @@ def decoder_scan_bwd_plain(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wou
     step by step (not autograd). Returns what the kernel returns: the
     per-step dgates [L, B, 4H], dq [L, B, Dk] and the location-feature
     cotangent dfpre [L, B, S, K], then dk [B, S, Dk], dwlp [K, Dk] and
-    dlocv [Dk] summed over steps and utterances."""
+    dlocv [Dk] summed over steps and utterances, all float32 (the inputs in
+    their storage type are widened)."""
     l, b, s = align.shape
     h_dim = wh.shape[0]
     e_dim = v.shape[2]
+    init = _init_align(enc_len, s, align.dtype).float()
+    (k, v, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, dlogits, dalign,
+     dhidden) = (a.float() for a in (k, v, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
+                                      cseq, dlogits, dalign, dhidden))
     wx_ctx = wx[wx.shape[0] - e_dim:]
     mask = torch.arange(s, device=k.device)[None, :] < enc_len[:, None]
-    att_prev_all = _shift(align, _init_align(enc_len, s))
+    att_prev_all = _shift(align, init)
     c_prev_all = _shift(cseq, torch.zeros_like(cseq[0]))
     p = taps.shape[1]
     dh_c = k.new_zeros((b, h_dim))
@@ -435,7 +483,7 @@ def decoder_scan_bwd(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
     if cuda_build.use_plain(k):
         return decoder_scan_bwd_plain(*args, temp)
     out = _bwd_launch((), *args, temp)
-    decoder_scan_bwd.launches += 1
+    cuda_build.count_launch(decoder_scan_bwd, k.dtype)
     return out
 
 
@@ -450,7 +498,10 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
     enc_len = enc_len.to(torch.int32).contiguous()
     names = ("k v taps wq wlp locv locb wx wh wout align hidden cseq acts q ctx dlogits dalign "
              "dhidden").split()
-    _check("decoder_scan_bwd", zip(fl, names), ((enc_len, "enc_len"),))
+    dt = k.dtype
+    wide = {"acts", "q", "ctx"}
+    _check("decoder_scan_bwd", [(a, n) for a, n in zip(fl, names) if n not in wide],
+           ((enc_len, "enc_len"),), dt, [(a, n) for a, n in zip(fl, names) if n in wide])
     b, s, dk_dim = k.shape
     e_dim = v.shape[2]
     kk, p = taps.shape
@@ -467,7 +518,7 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
                          (dhidden, "dhidden", (l, b, h_dim))):
         if a.shape != shape:
             raise ValueError(f"decoder_scan_bwd: {an} {tuple(a.shape)} != {shape}")
-    grid = scan_grid("bwd", b, s, dk_dim, e_dim, kk, p, h_dim, vocab, cluster_size)
+    grid = scan_grid("bwd", b, s, dk_dim, e_dim, kk, p, h_dim, vocab, cluster_size, dt)
     dev = k.device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     dgates, dq, dfpre = new(l, b, 4 * h_dim), new(l, b, dk_dim), new(l, b, s, kk)
@@ -482,12 +533,13 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
         dwlp_part, dlocv_part, dctx, scratch, b, s, dk_dim, e_dim, kk, p, h_dim, emb, vocab, l,
         1.0 / float(temp), grid["clusters"], grid["cluster_size"], grid["es_smem"], grid["dfa_smem"],
         grid["wr_smem"], grid["dk_smem"], grid["k_smem"],
-        grid["v_smem"], defines=defines,
+        grid["v_smem"], dtype_code(dt, "decoder_scan_bwd"), defines=defines,
     )
     return dgates, dq, dfpre, dk, dwlp_part.sum(dim=0), dlocv_part.sum(dim=0)
 
 
 decoder_scan_bwd.launches = 0
+decoder_scan_bwd.launches_bf16 = 0
 
 
 PHASE_BUILD = ("SCAN_PHASES",)  # the define of the kernels' timing build (bin/profile_decode.py)
@@ -498,37 +550,59 @@ class DecoderScanFn(torch.autograd.Function):
     above and, outside it, one contraction over L*B for every gradient that
     is a sum of per-step outer products (dv, dWx, dWh, db, dWq, dbq, dlocb,
     d_embed, dWout, dbout) and one more product for the taps' gradient (the
-    counterpart of ``decoder_scan_fused.defvjp``)."""
+    counterpart of ``decoder_scan_fused.defvjp``). k and v set the storage
+    type; the float32 parameters are cast to it for the kernels, and their
+    gradients come back in float32, summed in float32 from the per-step
+    streams as stored in that type (dgates, dq, dfpre) and the float32
+    parameters, as the TPU kernel's VJP sums them."""
 
     @staticmethod
     def forward(ctx, k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
                 enc_len, teacher, use_teacher, temp, sample, seed, noise, generator):
+        dt = k.dtype
+        w = [a.to(dt) for a in (taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout)]
         logits, align, hidden, res = decoder_scan_fwd(
-            k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout, teacher,
-            use_teacher, temp, sample, seed, noise, generator)
+            k, v, enc_len, *w, teacher, use_teacher, temp, sample, seed, noise, generator)
         cseq, tokens, acts, qs, ctxs = res
-        ctx.save_for_backward(k, v, enc_len, taps, wq, wlp, locv, locb, embed, wx, wh, wout,
-                              align, hidden, cseq, tokens, acts, qs, ctxs)
+        taps_s, wq_s, _, wlp_s, locv_s, locb_s, embed_s, wx_s, wh_s, bl_s, wout_s, _ = w
+        ctx.save_for_backward(k, v, enc_len, taps_s, wq_s, wlp_s, locv_s, locb_s, wx_s, wh_s, wout_s,
+                              embed, wx, embed_s, bl_s, align, hidden, cseq, tokens, acts, qs, ctxs)
         ctx.temp = temp
         return logits, align, hidden
 
     @staticmethod
     def backward(ctx, dlogits, dalign, dhidden):
-        (k, v, enc_len, taps, wq, wlp, locv, locb, embed, wx, wh, wout,
+        (k, v, enc_len, taps, wq, wlp, locv, locb, wx_s, wh, wout, embed, wx, embed_s, bl_s,
          align, hidden, cseq, tokens, acts, qs, ctxs) = ctx.saved_tensors
+        dt = k.dtype
         l, b, s = align.shape
         dlogits, dalign, dhidden = (
-            ctxs.new_zeros(shape) if d is None else d.contiguous()
+            align.new_zeros(shape) if d is None else d.contiguous()
             for d, shape in ((dlogits, (l, b, wout.shape[1])), (dalign, align.shape),
                              (dhidden, hidden.shape)))
+        al, hid = align.float(), hidden.float()
+        h_prev = _shift(hid, torch.zeros_like(hid[0]))
+        toks = tokens.reshape(-1).long()
+        if dt != torch.float32:
+            # below float32 the TPU kernel's backward rebuilds the context from
+            # the alignment as stored (the softmax term and dWx read it) and the
+            # gate activations from it and the stored h; at float32 both equal
+            # the forward's
+            ctxs = torch.einsum("lbs,bse->lbe", al, v.float())
+            xin_s = torch.cat([embed_s[toks].float().reshape(l, b, -1), ctxs], dim=-1)
+            gates = xin_s @ wx_s.float() + h_prev @ wh.float() + bl_s.float()
+            gi, gf, gg, go = gates.chunk(4, dim=-1)
+            acts = torch.cat([torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)], dim=-1)
         dgates, dq, dfpre, dk, dwlp, dlocv = decoder_scan_bwd(
-            k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs,
+            k, v, enc_len, taps, wq, wlp, locv, locb, wx_s, wh, wout, align, hidden, cseq, acts, qs,
             ctxs, dlogits, dalign, dhidden, ctx.temp)
+        dlocb = dq.sum(dim=(0, 1))
+        # the streams as the TPU kernel stores them (no-ops at float32)
+        dgates, dq, dfpre = (a.to(dt).float() for a in (dgates, dq, dfpre))
         emb_dim = embed.shape[1]
         flat = lambda x: x.reshape(l * b, -1)
-        h_prev = _shift(hidden, torch.zeros_like(hidden[0]))
-        att_prev = _shift(align, _init_align(enc_len, s))
-        toks = tokens.reshape(-1).long()
+        dlog = dlogits.float()
+        att_prev = _shift(al, _init_align(enc_len, s, dt).float())
         din = dgates @ wx.T  # [L, B, Emb + E]
         xin = torch.cat([embed[toks].reshape(l, b, emb_dim), ctxs], dim=-1)
         dwx = flat(xin).T @ flat(dgates)
@@ -537,17 +611,18 @@ class DecoderScanFn(torch.autograd.Function):
         dembed = torch.zeros_like(embed).index_add_(0, toks, flat(din[..., :emb_dim]))
         dwq = flat(h_prev).T @ flat(dq)
         dbq = dq.sum(dim=(0, 1))
-        dv = torch.einsum("lbs,lbe->bse", align, din[..., emb_dim:])
-        dwout = flat(hidden).T @ flat(dlogits)
-        dbout = dlogits.sum(dim=(0, 1))
+        dv = torch.einsum("lbs,lbe->bse", al, din[..., emb_dim:]).to(dt)
+        dwout = flat(hid).T @ flat(dlog)
+        dbout = dlog.sum(dim=(0, 1))
         dtaps = _taps_grad(att_prev.reshape(l * b, s), dfpre.reshape(l * b, s, -1), taps.shape[1])
-        return (dk, dv, dtaps, dwq, dbq, dwlp, dlocv, dbq.clone(), dembed, dwx, dwh, dbl, dwout,
+        return (dk.to(dt), dv, dtaps, dwq, dbq, dwlp, dlocv, dlocb, dembed, dwx, dwh, dbl, dwout,
                 dbout, None, None, None, None, None, None, None, None)
 
 
 def decoder_scan(k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
                  teacher, use_teacher, temp, sample=False, seed=0, noise=None, generator=None):
-    """Differentiable (logits [L, B, V], align [L, B, S], hidden [L, B, H])."""
+    """Differentiable (logits [L, B, V], align [L, B, S], hidden [L, B, H]),
+    in k's type."""
     return DecoderScanFn.apply(k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
                                enc_len, teacher, use_teacher, temp, sample, seed, noise, generator)
 
@@ -566,7 +641,7 @@ def run_decode_scan(
     Returns (att_logits [B, L, V], align [B, L, 1, S], att_hidden [B, L, H])."""
     ap, dp = params["attention"], params["decoder"]
     cell = dp["cells"][0]
-    k = enc @ ap["proj_k"]["w"]
+    k = enc @ ap["proj_k"]["w"].to(enc.dtype)
     wlp = ap["loc_proj"]["w"]
     locb = ap["loc_b"] + ap["loc_conv"]["b"] @ wlp
     use_teacher = coins.to("cpu", torch.bool) if train else torch.ones(teacher_in.shape[1], dtype=torch.bool)

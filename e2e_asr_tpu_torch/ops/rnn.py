@@ -21,6 +21,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from e2e_asr_tpu_torch.models.layers import sigmoid
 from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_fwd, lstm_bidir_train, lstm_seq
 
 LSTMWeights = Dict[str, torch.Tensor]
@@ -32,8 +33,8 @@ def lstm_cell(
     """One LSTM step. xw_t = x_t @ Wx + b precomputed. Returns (h', c')."""
     gates = xw_t + h @ wh
     i, f, g, o = gates.chunk(4, dim=-1)
-    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    c_new = sigmoid(f) * c + sigmoid(i) * torch.tanh(g)
+    h_new = sigmoid(o) * torch.tanh(c_new)
     return h_new, c_new
 
 
@@ -52,7 +53,9 @@ def bidir(
     the backward direction in time and runs the ``lstm_seq`` kernel pair over
     it, autograd giving dx, dWx and db from the matmul; ``auto`` is an alias
     of ``pallas_xw`` and no route of its own. On CPU tensors each route runs
-    its kernels' plain versions.
+    its kernels' plain versions. A bfloat16 x runs both routes in bfloat16
+    storage (the weights cast to it; ``rnn_cuda``'s rounding points, which
+    are the TPU kernels'), float32 in float32.
 
     The alias rests on one layer's forward + backward on an NVIDIA H100 80GB
     HBM3 at 700 W (chip_smoke.py, ``layer_routes``), lstm_seq route against
@@ -68,18 +71,19 @@ def bidir(
     if impl == "auto":
         impl = "pallas_xw"
     b, t, _ = x.shape
+    dt = x.dtype  # the weights are cast to it, as the JAX bidir casts them
     mask = (torch.arange(t, device=x.device)[:, None] < x_len[None, :]).float()  # [T, B]
-    wh = torch.stack([w_fwd["wh"], w_bwd["wh"]])
+    wh = torch.stack([w_fwd["wh"], w_bwd["wh"]]).to(dt)
     if impl == "pallas_xw":
         h4 = wh.shape[2]
-        xw = x.transpose(0, 1) @ torch.cat([w_fwd["wx"], w_bwd["wx"]], dim=1) + torch.cat(
-            [w_fwd["b"], w_bwd["b"]])  # [T, B, 2 * 4H]
+        xw = x.transpose(0, 1) @ torch.cat([w_fwd["wx"], w_bwd["wx"]], dim=1).to(dt) + torch.cat(
+            [w_fwd["b"], w_bwd["b"]]).to(dt)  # [T, B, 2 * 4H]
         xw = torch.cat([xw[..., :h4], torch.flip(xw[..., h4:], dims=[0])], dim=1)  # [T, 2B, 4H]
         mask2 = torch.cat([mask, torch.flip(mask, dims=[0])], dim=1)
         ys = lstm_seq(xw, mask2, wh)
     else:
-        wx = torch.stack([w_fwd["wx"], w_bwd["wx"]])
-        bias = torch.stack([w_fwd["b"], w_bwd["b"]])
+        wx = torch.stack([w_fwd["wx"], w_bwd["wx"]]).to(dt)
+        bias = torch.stack([w_fwd["b"], w_bwd["b"]]).to(dt)
         train = torch.is_grad_enabled() and any(a.requires_grad for a in (x, wx, wh, bias))
         run = lstm_bidir_train if train else lstm_bidir_fwd
         ys = run(x.transpose(0, 1), mask, wx, wh, bias)  # [T, 2B, H]

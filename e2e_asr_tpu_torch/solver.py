@@ -25,6 +25,7 @@ from e2e_asr_tpu_torch import convert
 
 class BaseSolver:
     ckpt_kind = "asr"  # convert.save_checkpoint's kind
+    compute_dtype = "float32"  # written into every checkpoint's .meta
 
     def __init__(self, config, paras, mode: str):
         self.config = config
@@ -63,7 +64,7 @@ class BaseSolver:
                                 opt_state=state.opt_state, step=state.step)
         os.replace(tmp, path)
         with open(path + ".meta", "w") as f:
-            f.write(f"{metric} {score}\nglobal_step {state.step}\n")
+            f.write(f"{metric} {score}\nglobal_step {state.step}\ncompute_dtype {self.compute_dtype}\n")
         self.verbose(f"Saved checkpoint (step = {state.step}, {metric} = {score:.2f}) -> {fname}")
 
     def latest_ckpt_path(self) -> Optional[str]:

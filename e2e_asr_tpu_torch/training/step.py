@@ -18,10 +18,16 @@ gathers its waves). Loss conventions:
   neither the parameters nor the optimizer state (both are checked before
   the optimizer touches anything).
 
-The port computes in float32 whatever ``hparas.dtype`` says: the JAX
-recipes' ``bfloat16`` compute type is not ported yet (ROADMAP). Random
-draws (dither, SpecAugment, dropout, the teacher-forcing coins, sampled
-feedback) come from one ``torch.Generator`` per step.
+Compute type: ``hparas.dtype`` (``compute_dtype``). The features, dither
+and SpecAugment are computed in float32 and then cast to it; every layer
+casts its float32 parameters to its input's type, so at ``bfloat16`` the
+whole forward and backward are stored in bfloat16 (the kernels' own
+rounding points are those of the JAX package's Pallas kernels); both
+heads' outputs go back to float32 for the losses. Parameters, gradients,
+their norm and the optimizer state stay float32. Evaluation runs the same
+``compute_loss``. Random draws (dither, SpecAugment, dropout, the
+teacher-forcing coins, sampled feedback) come from one ``torch.Generator``
+per step.
 """
 
 from __future__ import annotations
@@ -48,6 +54,12 @@ def param_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [t for v in tree for t in param_leaves(v)]
     return [tree]
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    """The compute type of ASR training and validation (``hparas.dtype``,
+    as ``e2e_asr_tpu/training/step.py`` ``_dtype`` reads it)."""
+    return torch.bfloat16 if cfg.hparas.dtype == "bfloat16" else torch.float32
 
 
 def resolve_wav(batch: Dict[str, torch.Tensor], n_samples: int = 0):
@@ -94,6 +106,7 @@ def compute_loss(
     )
     if train and m.specaugment.enable and generator is not None:
         feat = specaugment(feat, feat_len, m.specaugment, generator)
+    feat = feat.to(compute_dtype(cfg))
     out = asr_mod.forward(
         params, m, feat, feat_len, decode_step=text.shape[1], tf_rate=tf, teacher=text,
         generator=generator if train else None, train=train, sample_decoding=sample_decoding,
@@ -106,7 +119,7 @@ def compute_loss(
     total = torch.zeros((), device=wav.device)
 
     if "att_logits" in out:
-        logp = torch.log_softmax(out["att_logits"], -1)
+        logp = torch.log_softmax(out["att_logits"].float(), -1)
         pos = torch.arange(text.shape[1], device=text.device)[None, :]
         tok_mask = ((pos < text_len[:, None]) & valid_utt[:, None]).to(logp.dtype)
         nll = -logp.gather(2, text[..., None])[..., 0]
@@ -116,7 +129,7 @@ def compute_loss(
         total = total + (1.0 - m.ctc_weight) * att_loss
 
     if "ctc_log_probs" in out:
-        lp = out["ctc_log_probs"]
+        lp = out["ctc_log_probs"].float()
         label_len = torch.clamp(text_len - 1, min=0)  # strip <eos>
         pos = torch.arange(text.shape[1], device=text.device)[None, :]
         labels = torch.where(pos < label_len[:, None], text, 0)

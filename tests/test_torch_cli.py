@@ -209,9 +209,10 @@ def _assert_same_checkpoint(a, b):
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_train_cli_logs_the_compute_dtype(tmp_path, capsys, dtype):
-    """A recipe whose hparas.dtype is bfloat16 (every shipped training
-    recipe) trains one step in float32, and the solver says so beside the
-    recipe's dtype; a float32 recipe gets no such line."""
+    """A recipe trains in its hparas.dtype (bfloat16, every shipped training
+    recipe's, or float32): the solver logs the compute type it uses, and
+    every checkpoint's .meta records it; parameters and the optimizer state
+    stay float32 either way."""
     train_yaml = _tiny_train_yaml(tmp_path, max_step=1)
     d = yaml.safe_load(train_yaml.read_text())
     d["hparas"]["dtype"] = dtype
@@ -220,12 +221,15 @@ def test_train_cli_logs_the_compute_dtype(tmp_path, capsys, dtype):
     cli_main(["--config", str(train_yaml), "--cpu", "--name", dtype, "--logdir", str(tmp_path / "log"),
               "--ckpdir", str(tmp_path / "ckpt")])
     lines = [line for line in capsys.readouterr().out.splitlines() if "Compute dtype" in line]
-    assert torch.load(tmp_path / "ckpt" / dtype / "latest", weights_only=True)["step"] == 1
-    if dtype == "float32":
-        assert lines == []
-    else:
-        assert lines == ["[INFO] Compute dtype: float32, not the recipe's hparas.dtype bfloat16 (the port trains "
-                         "in float32 until bf16 is ported: ROADMAP Queue 1 item 4)"]
+    ckpt = torch.load(tmp_path / "ckpt" / dtype / "latest", weights_only=True)
+    assert ckpt["step"] == 1
+    assert lines == [f"[INFO] Compute dtype: {dtype}"]
+    meta = (tmp_path / "ckpt" / dtype / "latest.meta").read_text().splitlines()
+    assert f"compute_dtype {dtype}" in meta
+    from e2e_asr_tpu_torch.training.step import param_leaves
+
+    assert all(torch.as_tensor(x).dtype == torch.float32 for part in ("params", "opt_state")
+               for x in param_leaves(ckpt[part]) if torch.as_tensor(x).is_floating_point())
 
 
 def test_train_cli_njobs_gives_the_same_checkpoint(tmp_path, capsys):

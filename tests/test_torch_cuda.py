@@ -1248,3 +1248,148 @@ def test_a_failing_capture_raises(gen):
     res = subprocess.run([sys.executable, "-c", _SYNC_IN_CAPTURE], cwd=root, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": root})
     assert res.returncode == 0 and "RAISED" in res.stdout, res.stdout + res.stderr[-3000:]
+
+
+# --------------------------------------------------------- bfloat16 variants
+def _bf16_close(got, want):
+    """A bf16 output the kernel and its plain version round alike:
+    chip_smoke's criterion (at most BF16_ULPS ulp of the tensor's scale
+    apart, on at most BF16_SHARE of its elements)."""
+    from chip_smoke import BF16_SHARE, BF16_ULPS
+
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.float(), want.float()
+    ulp = 2.0 ** (math.floor(math.log2(max(float(w.abs().max()), 2.0 ** -126))) - 7)
+    assert float((g - w).abs().max()) <= BF16_ULPS * ulp
+    assert float((g != w).float().mean()) <= BF16_SHARE
+
+
+@pytest.mark.parametrize("dirs,b,t,h", [(2, 3, 11, 64), (1, 5, 13, 104), (2, 33, 17, 320)])
+def test_bf16_lstm_seq_kernels(gen, dirs, b, t, h):
+    """The bf16 variants of the lstm_seq pair against their bf16 plain
+    versions: ys, c, dxw and dWh bf16 (``_bf16_close``), acts float32
+    (scaled rtol 1e-3); the launches count as bf16 ones; LSTMSeqFn gives
+    bf16 gradients of bf16 inputs."""
+    bf = torch.bfloat16
+    r = dirs * b
+    lens = torch.randint(1, t + 1, (r,), generator=gen, device="cuda")
+    lens[0] = t
+    mask = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
+    xw = torch.randn((t, r, 4 * h), generator=gen, device="cuda").to(bf)
+    wh = ((torch.rand((dirs, h, 4 * h), generator=gen, device="cuda") * 2 - 1) / math.sqrt(h)).to(bf)
+    before, before32 = rnn_cuda.lstm_seq_fwd.launches_bf16, rnn_cuda.lstm_seq_fwd.launches
+    got = rnn_cuda.lstm_seq_fwd(xw, mask, wh, train=True)
+    assert (rnn_cuda.lstm_seq_fwd.launches_bf16, rnn_cuda.lstm_seq_fwd.launches) == (before + 1, before32)
+    want = rnn_cuda.lstm_seq_fwd_plain(xw, mask, wh)
+    assert got[2].dtype == want[2].dtype == torch.float32
+    for g, w in zip(got[:2], want[:2]):
+        _bf16_close(g, w)
+    _close_scaled(got[2], want[2], 1e-3)
+    ys, c, acts = want
+    dy = torch.randn(ys.shape, generator=gen, device="cuda").to(bf)
+    for g, w in zip(rnn_cuda.lstm_seq_bwd(mask, wh, ys, c, acts, dy),
+                    rnn_cuda.lstm_seq_bwd_plain(mask, wh, ys, c, acts, dy)):
+        _bf16_close(g, w)
+    leaves = [a.clone().requires_grad_() for a in (xw, wh)]
+    grads = torch.autograd.grad((rnn_cuda.lstm_seq(leaves[0], mask, leaves[1]).float() * dy.float()).sum(), leaves)
+    assert all(g.dtype == bf for g in grads)
+
+
+@pytest.mark.parametrize("b,t,d,h", [(3, 11, 24, 64), (16, 30, 1280, 320), (5, 9, 80, 256)])
+def test_bf16_lstm_bidir_kernels(gen, b, t, d, h):
+    """The bf16 variants of the fused layer's pair against their bf16 plain
+    versions: ys, c, acts (the training forward), ys (the inference
+    forward), dx, dWx, dWh and db, all bf16 (``_bf16_close``)."""
+    bf = torch.bfloat16
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    lens[0] = t
+    mask = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
+    bound = 1 / math.sqrt(h)
+    x = torch.tanh(torch.randn((t, b, d), generator=gen, device="cuda")).to(bf)
+    wx, wh = ((torch.rand(s, generator=gen, device="cuda") * 2 - 1).mul(bound).to(bf)
+              for s in ((2, d, 4 * h), (2, h, 4 * h)))
+    bias = ((torch.rand((2, 4 * h), generator=gen, device="cuda") * 2 - 1) * bound).to(bf)
+    got = rnn_cuda.lstm_bidir_fwd_train(x, mask, wx, wh, bias)
+    want = rnn_cuda.lstm_bidir_fwd_train_plain(x, mask, wx, wh, bias)
+    for g, w in zip(got, want):
+        _bf16_close(g, w)
+    _bf16_close(rnn_cuda.lstm_bidir_fwd(x, mask, wx, wh, bias), want[0])
+    ys, c, acts = want
+    dy = torch.randn(ys.shape, generator=gen, device="cuda").to(bf)
+    for g, w in zip(rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy),
+                    rnn_cuda.lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy)):
+        _bf16_close(g, w)
+
+
+@pytest.mark.parametrize("shape", [SCAN_SHAPES[1], SCAN_SHAPES[4], SCAN_SHAPES[8], SCAN_SHAPES[9]])
+def test_bf16_decoder_scan_kernels(gen, shape):
+    """The bf16 variants of the scan pair against their bf16 plain versions,
+    teacher-forced: logits, align, hidden and c bf16 (``_bf16_close``), the
+    float32 residuals and every output of the backward at scaled rtol 1e-3;
+    S = 764 and weights too wide for shared memory among the shapes."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    args = tuple(a.to(torch.bfloat16) if a.is_floating_point() else a for a in _scan_args(gen, *shape))
+    l = shape[-1]
+    use = torch.ones(l, dtype=torch.bool)
+    got = dc.decoder_scan_fwd(*args, use, 0.5)
+    want = dc.decoder_scan_fwd_plain(*args, use, 0.5)
+    for g, w in zip(list(got[:3]) + [got[3][0]], list(want[:3]) + [want[3][0]]):
+        _bf16_close(g, w)
+    for g, w in zip(got[3][2:], want[3][2:]):
+        _close_scaled(g, w, 1e-3)
+    logits, align, hidden, (cseq, _, acts, qs, _) = want
+    k, v, lens, taps, wq, _, wlp, locv, locb, _, wx, wh, _, wout, _, _ = args
+    ctx_r = torch.einsum("lbs,bse->lbe", align.float(), v.float())
+    cots = [torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16) for o in (logits, align, hidden)]
+    bargs = (k, v, lens, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs, ctx_r, *cots, 0.5)
+    for g, w in zip(dc.decoder_scan_bwd(*bargs), dc.decoder_scan_bwd_plain(*bargs)):
+        assert g.dtype == torch.float32
+        _close_scaled(g, w, 1e-3)
+
+
+def test_bf16_reaches_no_kernel_without_a_variant(gen):
+    """A bf16 tensor that reaches a kernel with no bf16 variant raises (the
+    CTC loss, the log-mel frontend), and so do a type no kernel takes
+    (float16) and storage types mixed within one call (lstm_seq, the scan);
+    nothing is cast to reach a kernel."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    bf = torch.bfloat16
+    lp, labels, inlen, lablen = _ctc_args(gen, 2, 20, 9, 5)
+    with pytest.raises(ValueError):
+        ctc_cuda.ctc_lattice(lp.to(bf), labels, inlen, lablen)
+    cfg, win, shift, n_fft = _log_mel_cfg(16000, 40, "povey", 0.97)
+    with pytest.raises(ValueError):
+        fec.log_mel(torch.randn((2, 4000), generator=gen, device="cuda").to(bf), cfg, win, shift, n_fft)
+    t, r, h = 5, 4, 16
+    mask = torch.ones((t, r), device="cuda")
+    xw = torch.randn((t, r, 4 * h), generator=gen, device="cuda")
+    wh = torch.randn((2, h, 4 * h), generator=gen, device="cuda")
+    with pytest.raises(ValueError):
+        rnn_cuda.lstm_seq_fwd(xw.to(bf), mask, wh)  # wh float32
+    with pytest.raises(ValueError):
+        rnn_cuda.lstm_seq_fwd(xw.half(), mask, wh.half())
+    args = list(_scan_args(gen, *SCAN_SHAPES[1]))
+    args[0] = args[0].to(bf)
+    with pytest.raises(ValueError):
+        dc.decoder_scan_fwd(*args, torch.ones(SCAN_SHAPES[1][-1], dtype=torch.bool), 0.5)
+
+
+def test_bf16_plans_reckon_in_bf16_bytes(gen):
+    """The plans count the residents in the storage type: the bf16 forward
+    sweep keeps Wh in shared memory at H = 1024 and the backward sweep at
+    H = 768, where float32 cannot (the backward's staged gate gradients
+    stay float32), and the scan's bf16 plans take fewer bytes at the
+    flagship's shapes."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    bf = torch.bfloat16
+    assert rnn_cuda.fwd_plan(5, 2, 1024, dev)[1] == 0 and rnn_cuda.fwd_plan(5, 2, 1024, dev, bf)[1] == 1
+    assert rnn_cuda.sweep_grid(9, 5, 2, 768, dev)[1] == 0 and rnn_cuda.sweep_grid(9, 5, 2, 768, dev, bf)[1] == 1
+    shape = (16, 204, 300, 640, 10, 201, 320, 26)
+    for which in ("fwd", "bwd"):
+        s32, _, _ = dc.plan(which, 15, 8, *shape)
+        s16, _, _ = dc.plan(which, 15, 8, *shape, dtype=bf)
+        assert s16 < s32
