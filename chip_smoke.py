@@ -54,9 +54,18 @@
    weights trains TRAIN_STEPS steps (batch 16 in the 816-frame bucket of
    the synthetic train split) through ``bin/train_asr.Solver.exec`` and
    validates once on dev, under the default LSTM route and again with the
-   fused-projection pair pinned; every loss must be finite, no step
-   skipped, every training kernel of the route launched in that run (the
-   fused scan's two among them), and the two routes' losses agree. Two
+   fused-projection pair pinned, its steps replaying the CUDA graph the
+   solver captured for the bucket (training/step_graph.py; one capture a
+   run, its time and the peak memory allocated printed); every loss must
+   be finite, no step skipped, every training kernel of the route launched
+   in that run (the fused scan's two among them, counted on the replays),
+   and the two routes' losses agree. Then ``graph_phase``: GRAPH_STEPS
+   steps through the graphs against the eager step at flagship width,
+   under both LSTM routes and at float32 and bf16 (loss, grad norm, every
+   parameter and optimizer tensor bitwise, launch counts equal, coins
+   failing from the second step on), the host-issued launches of one
+   replayed step (fewer than 20) and one eager step under the sync debug
+   mode set to raise. Two
    more steps run on the default route at tf_rate 0.5, so that coins fail
    and sampled tokens are fed back inside the scan. Then one train step
    with the kernels and one with the plain versions, from the same weights,
@@ -113,8 +122,10 @@
    identical top hypotheses); the convergence recipe CONV_STEPS steps +
    validation in bf16. With ``--parent DIR`` the float32 instantiations of
    those kernels run there and here on the same seeded inputs and must be
-   bitwise equal (``parent_f32``; one float32 train step a route is
-   compared too, beside the parent's own rerun).
+   bitwise equal (``parent_f32``; the scan forward in its three feedback
+   modes, the sampled one at one seed, which the parent passes as launch
+   arguments and this tree in device memory; one float32 train step a
+   route is compared too, beside the parent's own rerun).
 8. Prints a ``kernels`` JSON line (each row names the path its ``launches``
    were counted on; the bf16 variants in rows of their own, ``_bf16``), then
    the device JSON line last; the details go to ``--json`` (default
@@ -582,9 +593,10 @@ with torch.no_grad():
     res["lstm_bidir_bwd"] = list(rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, *f, dy))
     args, temp = pdm.flagship_scan_inputs(dev)
     l = args[-1].shape[0]
-    for mode in ("teacher", "argmax"):
+    for mode in ("teacher", "argmax", "sampled"):
         use = torch.ones(l, dtype=torch.bool) if mode == "teacher" else torch.zeros(l, dtype=torch.bool)
-        lg, al, hd, rs = dc.decoder_scan_fwd(*args, use, temp)
+        # sampled: the seed as an int, which the parent passes as launch arguments
+        lg, al, hd, rs = dc.decoder_scan_fwd(*args, use, temp, mode == "sampled", 20261016)
         res["decoder_scan_fwd_" + mode] = [lg, al, hd, *rs]
     lg, al, hd, cs, tk, ac, qs, cx = res["decoder_scan_fwd_teacher"]
     cots = [rn(*o.shape, sc=o.shape[-1] ** -0.5) for o in (lg, al, hd)]
@@ -1674,6 +1686,22 @@ def _check_steps(log, what):
             fail(f"{what} step {rec['step']} was skipped")
 
 
+def _reset_peak() -> float:
+    """Collects what is free and resets the peak statistic; returns the MB
+    still allocated (the process's other solvers and caches)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2 ** 20
+
+
+def _peak_line(before_mb: float, peak_mb: float) -> str:
+    return (f"peak memory allocated {peak_mb:.1f} MB (torch.cuda.max_memory_allocated, graphs included), "
+            f"{peak_mb - before_mb:.1f} MB above the {before_mb:.1f} MB allocated before the run")
+
+
 def _run_counted(solver, wrappers, what, attr="launches"):
     """solver.exec() with the wrappers' launch counts (``attr``: launches of
     the float32 variants, ``launches_bf16`` of the bf16 ones) set to 0 just
@@ -1778,7 +1806,16 @@ def train_phase(smi):
         if shape != (16, (816 - 1) * 160 + 400) or solver.input_mode != "device_corpus":
             fail(f"train batch has shape {shape} ({solver.input_mode}), expected 16 utterances in the 816 "
                  "bucket from the device-resident corpus")
+        if solver.train_graphs is None:
+            fail(f"the flagship train step ({what}) does not run through the CUDA graphs")
+        before_mb = _reset_peak()
         launches, wall = _run_counted(solver, {**common, **lstm_pair[impl]}, what)
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        captures = [(k, round(t, 3)) for k, t in solver.train_graphs.captures]
+        print(f"  {what}: {len(captures)} capture(s), {', '.join(f'{t:.2f}s' for _, t in captures)}; "
+              f"{_peak_line(before_mb, peak_mb)}", flush=True)
+        if len(captures) != 1:
+            fail(f"the flagship train phase ({what}) captured {len(captures)} graphs, expected one (one bucket)")
         log = list(solver.step_log)
         if len(log) != TRAIN_STEPS:
             fail(f"{len(log)} training steps ran, expected {TRAIN_STEPS}")
@@ -1795,7 +1832,8 @@ def train_phase(smi):
               f"B=16, 816 bucket, seed-{SEED} weights, device-resident corpus); rd per step {rd_ms} ms; "
               f"{TRAIN_STEPS} steps + validation {wall:.1f}s", flush=True)
         runs[impl] = dict(solver=solver, batch=batch, launches=launches, steps=log, dev=dev_sum,
-                          audio_s_per_s=rate, wall_s=wall, rd_ms=rd_ms)
+                          audio_s_per_s=rate, wall_s=wall, rd_ms=rd_ms, captures=captures, peak_mb=peak_mb,
+                          allocated_before_mb=before_mb)
     # the two routes compute the same function from the same seed
     loss_gap = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
                    for x, y in zip(runs["auto"]["steps"], runs["pallas"]["steps"]))
@@ -1867,6 +1905,115 @@ def train_phase(smi):
     return dict(routes=routes, sampled_steps=sampled, sampled_launches=sampled_launches, parity=parity)
 
 
+GRAPH_STEPS = 3  # steps of the replay-against-eager check (the first captures)
+
+
+def _graph_counts():
+    from e2e_asr_tpu_torch.training.step_graph import COUNTED, COUNTERS
+
+    return {f"{fn.__name__}{'' if a == 'launches' else '_bf16'}": getattr(fn, a, 0) for fn in COUNTED for a in COUNTERS}
+
+
+def graph_phase(smi):
+    """The train step's CUDA graphs (training/step_graph.py) against the
+    eager step at the flagship's full width, under both LSTM routes and
+    both compute types: GRAPH_STEPS steps of the smoke train batches from
+    seed-0 weights through ``TrainGraphs`` (the first runs eagerly and
+    captures, the rest replay) and through the eager step, from the same
+    weights, batches (offsets into the device-resident corpus) and seeds,
+    the teacher-forcing rate 1.0, 0.75, 0.5 (coins fail from the second
+    step on): loss, grad norm, step_skipped, every parameter and optimizer
+    tensor bitwise equal after each step, and the same launch counts. Then,
+    float32 on the default route: the profiler's host-issued and device
+    launches of one replayed step, and one eager step under the sync debug
+    mode set to raise."""
+    from itertools import islice
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import host_launches, smoke_train_solver
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.training.step import Trainer, param_leaves
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_graph"), SEED, GRAPH_STEPS)
+    cfg = solver.config
+    cfg.hparas.tf_start, cfg.hparas.tf_end, cfg.hparas.tf_step = 1.0, 0.5, 2
+    batches = [solver._put(b) for b in islice(solver.tr_set.epoch(0), GRAPH_STEPS)]
+    if len(batches) != GRAPH_STEPS or batches[0].get("wav") is not None:
+        fail("the graph phase needs GRAPH_STEPS offsets batches of the smoke train split")
+
+    def tensors(state):
+        return [p.detach() for p in param_leaves(state.params)] + [
+            t for k in sorted(state.opt_state) for t in param_leaves(state.opt_state[k])]
+
+    def fresh():
+        params, _ = asr_mod.asr_init(SEED, solver.feat_dim, solver.vocab_size, cfg.model, solver.device)
+        trainer = Trainer(cfg)
+        return trainer, trainer.init_state(params)
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for impl in ("auto", "pallas"):
+            cfg.hparas.dtype, cfg.model.encoder.rnn_impl = dtype, impl
+            what = f"{dtype}, rnn_impl {impl}"
+            (tg, sg), (te, se) = fresh(), fresh()
+            graphs = TrainGraphs(log=lambda m, what=what: print(f"  graph phase ({what}): {m}", flush=True))
+            steps = []
+            for i, b in enumerate(batches):
+                c0 = _graph_counts()
+                mg = tg.train_step(sg, b, solver.step_generator(i), graphs=graphs)
+                got = [float(mg[k]) for k in ("loss", "grad_norm", "step_skipped", "tf_rate")]
+                got_t = [mg[k].clone() for k in ("loss", "grad_norm", "step_skipped")]
+                c1 = _graph_counts()
+                me = te.train_step(se, b, solver.step_generator(i))
+                c2 = _graph_counts()
+                same = all(torch.equal(a, me[k]) for a, k in zip(got_t, ("loss", "grad_norm", "step_skipped")))
+                state_same = all(torch.equal(a, c) for a, c in zip(tensors(sg), tensors(se)))
+                dg = {k: c1[k] - c0[k] for k in c0 if c1[k] - c0[k]}
+                de = {k: c2[k] - c1[k] for k in c0 if c2[k] - c1[k]}
+                steps.append(dict(loss=got[0], grad_norm=got[1], tf_rate=got[3], bitwise=same and state_same,
+                                  launches_graph=dg, launches_eager=de))
+                print(f"  graph vs eager ({what}) step {i + 1}{' (capture)' if i == 0 else ' (replay)'}: loss "
+                      f"{got[0]:.6f}, grad_norm {got[1]:.6f}, tf {got[3]:.2f}; loss, grad norm and skip bitwise "
+                      f"{same}, every parameter and optimizer tensor bitwise {state_same}; launches {dg}", flush=True)
+                if not (same and state_same):
+                    fail(f"the replayed train step ({what}) is not bitwise the eager step at step {i + 1}")
+                if dg != de or not dg:
+                    fail(f"the graph and eager steps ({what}) counted other launches: {dg} vs {de}")
+                if got[2] != 0.0 or not math.isfinite(got[0]):
+                    fail(f"the graph phase's step {i + 1} ({what}) was skipped or not finite")
+            out[f"{dtype}_{impl}"] = dict(steps=steps, captures=graphs.captures)
+            if (dtype, impl) == ("float32", "auto"):
+                b = batches[-1]
+                tg.train_step(sg, b, solver.step_generator(9), graphs=graphs)
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    tg.train_step(sg, b, solver.step_generator(10), graphs=graphs)
+                    torch.cuda.synchronize()
+                host = host_launches(prof)
+                dev_launches = sum(e.count for e in prof.key_averages()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                print(f"  one replayed flagship step ({what}): {host} launches issued by the host, {dev_launches} "
+                      "device launches (profiler)", flush=True)
+                if host >= 20:
+                    fail(f"a replayed train step issued {host} launches from the host (limit 20)")
+                out["replay_host_launches"], out["replay_device_launches"] = host, dev_launches
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    m = te.train_step(se, b, solver.step_generator(11))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                print(f"  one eager flagship step ({what}) under the sync debug mode 'error': no host "
+                      f"synchronisation (loss {float(m['loss']):.6f})", flush=True)
+                out["eager_step_sync_debug_error"] = "no host synchronisation"
+            del graphs, tg, sg, te, se
+    cfg.hparas.dtype, cfg.model.encoder.rnn_impl = "float32", "auto"
+    return out
+
+
 def _bf16_counted(run, kernels, what, decode_f32=()):
     """run() with every kernel's launch counts (both variants) set to 0 just
     before and read just after: the bf16 variants of ``kernels["bf16"]`` and
@@ -1934,8 +2081,15 @@ def bf16_phase(dev, smi, batch):
     solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_train_bf16"), SEED, TRAIN_STEPS)
     if solver.compute_dtype != "bfloat16":
         fail(f"the flagship recipe trains in {solver.compute_dtype}, expected its hparas.dtype bfloat16")
+    if solver.train_graphs is None:
+        fail("the bf16 flagship train step does not run through the CUDA graphs")
+    before_mb = _reset_peak()
     launches, wall = _bf16_counted(solver.exec, {"bf16": {**scan, **pairs["auto"]}, "f32": f32},
                                    "bf16 train (rnn_impl auto)", decode_f32=("lstm_seq_fwd",))
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    captures = [(k, round(t, 3)) for k, t in solver.train_graphs.captures]
+    print(f"  bf16 train: {len(captures)} capture(s), {', '.join(f'{t:.2f}s' for _, t in captures)}; "
+          f"{_peak_line(before_mb, peak_mb)}", flush=True)
     log = list(solver.step_log)
     if len(log) != TRAIN_STEPS:
         fail(f"{len(log)} bf16 training steps ran, expected {TRAIN_STEPS}")
@@ -1952,7 +2106,8 @@ def bf16_phase(dev, smi, batch):
     meta = open(os.path.join(solver.ckpdir, "latest.meta")).read()
     if "compute_dtype bfloat16" not in meta:
         fail(f"the bf16 checkpoint's .meta does not record its compute dtype: {meta!r}")
-    out["train"] = dict(launches=launches, steps=log, dev=dev_sum, audio_s_per_s=rate, wall_s=wall)
+    out["train"] = dict(launches=launches, steps=log, dev=dev_sum, audio_s_per_s=rate, wall_s=wall,
+                        captures=captures, peak_mb=peak_mb, allocated_before_mb=before_mb)
 
     # ---- one bf16 step with the kernels, one with the plain versions, per route
     cfg = solver.config
@@ -2216,8 +2371,10 @@ def loader_phase(smi):
     loader threads and the int16 wave cache, streamed; (c) the
     device-resident corpus. Each way prints the share of its wall that
     ``rd`` (the wait in next(prefetch)) took over steps 11-LOADER_STEPS,
-    over the rest of the first epoch and over the later epochs, the median
-    audio-s/s of steps 11-LOADER_STEPS, (c)'s flat_corpus seconds and MB,
+    over the rest of the first epoch and over the later epochs, the
+    audio-s/s of steps 11-LOADER_STEPS (their audio over their wall: the
+    metrics are read once a log window, so only a window's wall waits for
+    the device), (c)'s flat_corpus seconds and MB,
     and the host RSS. Fails if the first 8 device batches of (b) or (c)
     (after resolve_wav) differ bitwise from (a)'s, if step 1's loss differs
     between the ways, or if a way ran another input mode than it asked for.
@@ -2274,10 +2431,12 @@ def loader_phase(smi):
             return sum(r["rd_s"] for r in steps) / max(sum(r["wall_s"] for r in steps), 1e-9)
 
         steady = log[10:]
-        rates = sorted(r["audio_s"] / r["wall_s"] for r in steady)
+        # the steps' audio over their wall: one step's wall is its issue, but
+        # for the last of a log window, whose record waits for the device
+        rate = sum(r["audio_s"] for r in steady) / max(sum(r["wall_s"] for r in steady), 1e-9)
         rss, peak = _rss_mb()
         res = dict(njobs=njobs, corpus=corpus, input_mode=solver.input_mode, setup_s=setup_s, wall_s=wall,
-                   launches=launches, step1_loss=log[0]["loss"], median_audio_s_per_s=rates[len(rates) // 2],
+                   launches=launches, step1_loss=log[0]["loss"], audio_s_per_s=rate,
                    batches_an_epoch=n_epoch, rd_share=share(steady), rd_share_first_epoch=share(log[10:n_epoch]),
                    rd_share_later_epochs=share(log[n_epoch:]), rd_share_of_run=sum(r["rd_s"] for r in log) / wall,
                    rd_ms=[round(r["rd_s"] * 1e3, 3) for r in log], wall_ms=[round(r["wall_s"] * 1e3, 3) for r in log],
@@ -2286,7 +2445,8 @@ def loader_phase(smi):
         if mode == "device_corpus":
             res.update(flat_corpus_s=solver.flat_corpus_s, corpus_mb=solver._corpus_buf.numel() * 2 / (1 << 20))
             extra = f"; flat_corpus {res['flat_corpus_s']:.2f}s, {res['corpus_mb']:.1f} MB int16 on the card"
-        print(f"{what} on {smi}: median {res['median_audio_s_per_s']:.2f} audio-s/s over steps 11-{LOADER_STEPS}; "
+        print(f"{what} on {smi}: {res['audio_s_per_s']:.2f} audio-s/s over steps 11-{LOADER_STEPS} (their audio "
+              f"over their wall, nine log windows); "
               f"rd {res['rd_share']:.1%} of their wall ({res['rd_share_first_epoch']:.1%} over steps 11-{n_epoch}, "
               f"the rest of the first epoch; {res['rd_share_later_epochs']:.1%} over steps {n_epoch + 1}-"
               f"{LOADER_STEPS}; {res['rd_share_of_run']:.1%} of the whole {wall:.1f}s run, validation included); "
@@ -2487,6 +2647,7 @@ def main(json_path: str = "", parent: str = "") -> None:
 
     # ---- the training paths
     train = train_phase(smi)
+    graph = graph_phase(smi)
     lm_train = lm_train_phase(dev, smi)
     conv = convergence_phase(dev, smi)
     recipes = recipe_phase(conv.pop("ckpt"), smi)
@@ -2573,7 +2734,8 @@ def main(json_path: str = "", parent: str = "") -> None:
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump({"card": smi, "kernels": rows, "decode": decode, "decode_routes_score_rel_diff": route_err,
-                   "decode_lm": decode_lm, "train": train, "lm_train": lm_train, "convergence": conv,
+                   "decode_lm": decode_lm, "train": train, "train_graphs": graph, "lm_train": lm_train,
+                   "convergence": conv,
                    "recipes": recipes, "loader": loader, "bf16": bf16}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

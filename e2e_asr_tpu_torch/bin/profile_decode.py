@@ -16,7 +16,9 @@ the 816-frame bucket, through ``bin/train_asr.Solver``'s trainer.
 
 The decode replays the beam step's CUDA graphs (decode/beam_graph.py; the
 warm-up run captures them); ``--eager`` decodes through the eager loop of
-``beam_step`` instead (``beam_search(..., graphs=False)``).
+``beam_step`` instead (``beam_search(..., graphs=False)``). The train step
+likewise replays the solver's CUDA graph of the step
+(training/step_graph.py); ``--train --eager`` runs the eager step.
 
 Either runs once to warm up, once timed by the host clock around a
 synchronised run, and once under ``torch.profiler``. Prints the wall time,
@@ -35,7 +37,11 @@ with one fused in at 0.3; the change's process through the graphs and
 through the eager loop in turns (graph, eager, eager, graph), the parent's
 its own loop twice; each run's wall the median of DECODE_REPS timed
 decodes. Prints wall, busy, idle share and host-issued launches a beam step
-of each (``profile_decode_turns.json``).
+of each (``profile_decode_turns.json``). ``--train --parent DIR`` does the
+same for the flagship train step (``--dtype``, default the recipe's bf16):
+the change's process through the graph and the eager step in turns, the
+parent's its own step twice, each run's wall the median of TRAIN_REPS
+timed steps (``profile_train_turns.json``).
 
 ``--decode-phases`` instead splits one launch of each decode kernel into
 its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
@@ -266,8 +272,9 @@ def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0, eager: bool = Fa
     training batch is one streaming batch on the device, repeated: an
     offsets batch (the smoke corpus is device-resident under
     ``device_cache: auto``) is gathered once through ``resolve_wav``, so
-    that the profiled step is the model's alone; ``dtype`` pins the
-    training's ``hparas.dtype`` (empty: the recipe's)."""
+    that the profiled step is the model's alone; the step replays the
+    solver's CUDA graph unless ``eager``, its loss read as the fence;
+    ``dtype`` pins the training's ``hparas.dtype`` (empty: the recipe's)."""
     from e2e_asr_tpu_torch import cuda_build
     from e2e_asr_tpu_torch.training.step import resolve_wav
 
@@ -277,10 +284,11 @@ def _run_fn(train: bool, rnn_impl: str, lm_weight: float = 0.0, eager: bool = Fa
         batch = solver._put(next(solver.tr_set.epoch(0)))
         batch = {"wav": resolve_wav(batch)[0], **{k: batch[k] for k in ("wav_len", "text", "text_len")}}
         audio_s = float(batch["wav_len"].sum()) / solver.config.data.audio.sample_rate
+        graphs = None if eager else solver.train_graphs
 
         def run():
-            m = solver.trainer.train_step(solver.state, batch, solver.step_generator(0))
-            float(m["loss"])  # the step's own fence (the NaN/inf check already waits)
+            m = solver.trainer.train_step(solver.state, batch, solver.step_generator(0), graphs=graphs)
+            float(m["loss"])
 
         return run, audio_s
     solver = smoke_solver(os.path.join(cuda_build.BUILD_DIR, "profile"), rnn_impl=rnn_impl, lm_weight=lm_weight)
@@ -728,7 +736,7 @@ DECODE_REPS = 5  # timed decodes a run in the parent comparison
 # from the root of that tree: argv[1] the modes in order ("graph", "eager";
 # "loop": the tree's own decode_batch, the parent's). Prints one JSON line,
 # {lm_weight: [run, ...]}.
-_TURNS_DRIVER = """
+_TURNS_SCRIPT = """
 import json, os, sys
 from e2e_asr_tpu_torch.bin.profile_decode import smoke_solver
 res = {}
@@ -747,18 +755,6 @@ for lm_weight in (0.0, 0.3):
     res[str(lm_weight)] = runs
 print(json.dumps(res))
 """
-
-
-def turns_script() -> str:
-    """``_TURNS_DRIVER`` with this module's profiling functions in its text,
-    so that every tree is measured by the same code."""
-    import inspect
-
-    head = "import time\nimport torch\n"
-    head += f"HOST_LAUNCH_CALLS = {HOST_LAUNCH_CALLS!r}\n"
-    for fn in (_device_time_us, host_launches, profile_run):
-        head += inspect.getsource(fn) + "\n"
-    return head + _TURNS_DRIVER
 
 
 def decode_turns(parent: str, card: str) -> dict:
@@ -788,6 +784,69 @@ def decode_turns(parent: str, card: str) -> dict:
     return out
 
 
+TRAIN_REPS = 9  # timed steps a run in the parent comparison of the train step
+# One tree's train-step profiles (``--train --parent``), run in a process of
+# its own from the root of that tree: argv[1] the modes in order ("graph",
+# "eager"; "loop": the tree's own step, the parent's), argv[2] the timed
+# steps a run, argv[3] the dtype. Prints one JSON line, [run, ...].
+_TRAIN_TURNS_SCRIPT = """
+import json, os, sys
+from e2e_asr_tpu_torch.bin.profile_decode import smoke_train_solver
+from e2e_asr_tpu_torch.training.step import resolve_wav
+solver = smoke_train_solver(os.path.join("e2e_asr_tpu_torch", "_build", "profile_train_turns"), 0, dtype=sys.argv[3])
+batch = solver._put(next(solver.tr_set.epoch(0)))
+batch = {"wav": resolve_wav(batch)[0], **{k: batch[k] for k in ("wav_len", "text", "text_len")}}
+audio_s = float(batch["wav_len"].sum()) / solver.config.data.audio.sample_rate
+runs = []
+for mode in sys.argv[1].split(","):
+    kw = {"graphs": solver.train_graphs if mode == "graph" else None} if mode != "loop" else {}
+    def run():
+        m = solver.trainer.train_step(solver.state, batch, solver.step_generator(0), **kw)
+        float(m["loss"])
+    r = profile_run(run, audio_s, reps=int(sys.argv[2]))
+    r.pop("kernels")
+    runs.append({"mode": mode, **r})
+print(json.dumps(runs))
+"""
+
+
+def turns_script(body: str = None) -> str:
+    """``body`` (default ``_TURNS_SCRIPT``) with this module's profiling
+    functions in its text, so that every tree is measured by the same code."""
+    import inspect
+
+    head = "import time\nimport torch\n"
+    head += f"HOST_LAUNCH_CALLS = {HOST_LAUNCH_CALLS!r}\n"
+    for fn in (_device_time_us, host_launches, profile_run):
+        head += inspect.getsource(fn) + "\n"
+    return head + (body or _TURNS_SCRIPT)
+
+
+def train_turns(parent: str, card: str, dtype: str) -> list:
+    """The flagship train step in the parent's checkout at ``parent`` and in
+    this one, in processes of their own in turns (parent, change, change,
+    parent); this tree's through the graph and the eager step in turns."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    script = turns_script(_TRAIN_TURNS_SCRIPT)
+    out = []
+    for which, path, modes in (("parent", parent, "loop,loop"), ("change", root, "graph,eager,eager,graph"),
+                               ("change", root, "graph,eager,eager,graph"), ("parent", parent, "loop,loop")):
+        path = os.path.abspath(path)
+        proc = subprocess.run([sys.executable, "-c", script, modes, str(TRAIN_REPS), dtype], cwd=path,
+                              capture_output=True, text=True, env={**os.environ, "PYTHONPATH": path}, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {which}'s train-step profile failed:\n{proc.stderr[-3000:]}")
+        for r in json.loads(proc.stdout.strip().splitlines()[-1]):
+            r["tree"] = which
+            name = "parent" if which == "parent" else f"change {r['mode']}"
+            out.append(r)
+            print(f"{card}: train step ({dtype or 'recipe dtype'}) {name}: wall {r['wall_ms']:.1f} ms (timed "
+                  f"{', '.join(f'{w:.1f}' for w in r['walls_ms'])}), busy {r['device_busy_ms']:.1f} ms, idle "
+                  f"{r['device_idle_share']:.3f}, host launches {r['host_launches']}, device launches "
+                  f"{r['kernel_launches']}, {r['audio_s_per_s']:.1f} audio-s/s", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true", help="profile one training step")
@@ -803,9 +862,11 @@ def main(argv=None):
     ap.add_argument("--lm-weight", type=float, default=0.0,
                     help="decode: fuse a seed-0 LM of configs/libri/lm_example.yaml's width at this weight")
     ap.add_argument("--eager", action="store_true",
-                    help="decode through the eager loop of beam_step instead of the captured graphs")
+                    help="decode through the eager loop of beam_step (with --train: the eager step) instead of "
+                         "the captured graphs")
     ap.add_argument("--parent", default="",
-                    help="a checkout of the parent commit: decode profiles there and here in turns")
+                    help="a checkout of the parent commit: decode (with --train: train-step) profiles there and "
+                         "here in turns")
     ap.add_argument("--dtype", default="recipe", choices=("recipe", "float32", "bfloat16"),
                     help="with --train: the compute type (hparas.dtype; recipe: the recipe's, bfloat16)")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
@@ -814,20 +875,29 @@ def main(argv=None):
         ap.error("--scan-phases needs --train")
     if args.dtype != "recipe" and (not args.train or args.scan_phases):
         ap.error("--dtype is an option of the training profile")
-    if (args.lm_weight or args.eager or args.parent) and (args.train or args.decode_phases):
-        ap.error("--lm-weight, --eager and --parent are options of the decode profile")
+    if args.lm_weight and (args.train or args.decode_phases):
+        ap.error("--lm-weight is an option of the decode profile")
+    if (args.eager or args.parent) and (args.scan_phases or args.decode_phases):
+        ap.error("--eager and --parent are options of the decode and train-step profiles")
     if not torch.cuda.is_available():
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
     what = ("scan_phases" if args.scan_phases else "decode_phases" if args.decode_phases
-            else "train" if args.train else "decode_turns" if args.parent
+            else "train_turns" if args.train and args.parent else ("train" + ("_eager" if args.eager else ""))
+            if args.train else "decode_turns" if args.parent
             else ("decode_lm" if args.lm_weight else "decode") + ("_eager" if args.eager else ""))
     out = args.out or os.path.join(cuda_build.BUILD_DIR, f"profile_{what}.json")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.train and args.parent:
+        turns = train_turns(args.parent, card, "" if args.dtype == "recipe" else args.dtype)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"card": card, "reps": TRAIN_REPS, "dtype": args.dtype, "runs": turns}, f, indent=1)
+        return
     if args.parent:
         turns = decode_turns(args.parent, card)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
@@ -878,7 +948,7 @@ def main(argv=None):
     run, audio_s = _run_fn(args.train, args.rnn_impl, args.lm_weight, args.eager, dtype)
     result = {"card": card, "what": what, "rnn_impl": args.rnn_impl, "lm_weight": args.lm_weight,
               "dtype": args.dtype, **profile_run(run, audio_s)}
-    unit = (f"one train step (B=16, dtype {args.dtype})" if args.train
+    unit = (f"one train step (B=16, dtype {args.dtype}, {'eager' if args.eager else 'graph'})" if args.train
             else f"decode (B=16, W=16, lm_weight {args.lm_weight:g}, {'eager loop' if args.eager else 'graphs'})")
     print(f"{card}: {unit} of {audio_s:.2f} audio-s wall {result['wall_ms']:.1f} ms = "
           f"{result['audio_s_per_s']:.1f} audio-s/s")

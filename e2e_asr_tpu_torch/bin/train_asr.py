@@ -17,11 +17,25 @@ wave once (``flat_corpus``) and each step copies [B] offsets, the step
 gathering its waves on the device; ``off`` (or a corpus past int32 sample
 offsets) streams padded waves. The dev set streams.
 
+The step (``training/step.py``): on the card, wherever the speller takes
+the fused scan or the model has no attention head, a replay of the CUDA
+graph captured for the batch's bucket shape (``training/step_graph.py``;
+one capture a key, logged with its time, the counterpart of the JAX
+package's compile); where the configuration takes the Python-loop speller
+(``decoder.fused_scan: scan``, or a speller outside the fused scan's
+envelope) the eager step, said once in the log; on the CPU the eager step.
+Neither reads the device: each step's scalar metrics (loss, att_loss,
+ctc_loss, grad_norm, tf_rate, step_skipped) go into a device ring that is
+read once at every ``log_step``, before validation and at the end, as the
+JAX loop reads its metrics at its log boundary; ``step_log`` still gets
+one record per step.
+
 Time per logged window: ``rd`` is the wait for the next batch in
-``next(prefetch)``, ``disp`` the host time spent issuing the step's work,
-``dev`` the wait for the device at the step's finiteness check (the skip
-decision needs the loss and the gradient norm on the host, so every step
-is fenced there).
+``next(prefetch)``, ``disp`` the host time spent issuing the steps' work,
+``dev`` the rest of the window (window time - rd - disp): the time the
+device's queue held the host back, ending with the ring's read. A record's
+``wall_s`` is the host time from its step's start to the next step's
+start (the window's last step: to the end of the ring's read).
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ from typing import Deque, Dict
 import numpy as np
 import torch
 
-from e2e_asr_tpu_torch import convert, cuda_build
+from e2e_asr_tpu_torch import convert, cuda_build, optim
 from e2e_asr_tpu_torch.data.dataset import load_dataset
 from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from e2e_asr_tpu_torch.decode.greedy import greedy_decode
@@ -44,6 +58,7 @@ from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.ops.frontend import compute_features
 from e2e_asr_tpu_torch.solver import BaseSolver
 from e2e_asr_tpu_torch.training.step import Trainer, compute_dtype, param_leaves
+from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
 
 DEV_STEP_RATIO = 1.2  # greedy decode steps per target token at validation
 STEP_LOG_LEN = 1000
@@ -88,7 +103,7 @@ class Solver(BaseSolver):
             payload = convert.load_checkpoint(load_path, self.device)
             self.state = self.trainer.init_state(payload["params"])
             if "opt_state" in payload:
-                self.state.opt_state = payload["opt_state"]
+                self.state.opt_state = optim.restore(payload["opt_state"], self.device)
                 self.state.step = int(payload["step"])
             self.step = self.state.step
             self.verbose(f"Resumed from {load_path} @ step {self.step}")
@@ -106,6 +121,21 @@ class Solver(BaseSolver):
             cuda_build.build_all()
             self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
         self._corpus_buf = self._device_corpus()
+        self.train_graphs = self._train_graphs()
+
+    def _train_graphs(self):
+        """The solver's cache of train-step graphs, or None where the step
+        runs eagerly: on the CPU, and where the speller takes the Python
+        loop (a route of the configuration, said here once)."""
+        if self.device.type != "cuda":
+            return None
+        route = asr_mod.speller_route(self.state.params, self.config.model, True, self.device)
+        if route == "loop":
+            self.verbose("Train step: eager (the speller takes the Python loop: decoder.fused_scan "
+                         f"{self.config.model.decoder.fused_scan!r}, or a speller outside the fused scan's envelope)")
+            return None
+        self.verbose("Train step: CUDA graphs, one a bucket shape (training/step_graph.py)")
+        return TrainGraphs(log=self.verbose)
 
     def _device_corpus(self):
         """The training corpus's flat int16 buffer on the device, or None to
@@ -159,28 +189,49 @@ class Solver(BaseSolver):
         data_iter = self.tr_set.forever(curriculum_epochs=curriculum_epochs, skip_steps=self.step)
         prefetch = DevicePrefetcher(data_iter, self._put, depth=2, device=self.device)
         sr = cfg.data.audio.sample_rate
+        keys = self.trainer.scalar_keys()
+        # the steps' scalar metrics, one row a step, read at the window's end;
+        # allocated here, outside any graph's pool
+        ring = torch.empty((STEP_LOG_LEN, len(keys)), dtype=torch.float32, device=self.device)
+        pending = []  # the host half of each step's record, until the ring is read
         t_wall = time.time()
-        audio_acc = t_rd = t_disp = t_dev = 0.0
+        audio_acc = t_rd = t_disp = 0.0
+
+        def flush() -> Dict[str, float]:
+            """Reads the ring (the window's one wait for the device) into
+            ``step_log``; returns the last step's metrics."""
+            rows = ring[:len(pending)].tolist()
+            t_end = time.time()
+            for n, (rec, row) in enumerate(zip(pending, rows)):
+                t_next = pending[n + 1]["t0"] if n + 1 < len(pending) else t_end
+                self.step_log.append({**dict(zip(keys, row)), "step": rec["step"], "audio_s": rec["audio_s"],
+                                      "wall_s": t_next - rec.pop("t0"), "rd_s": rec["rd_s"]})
+            pending.clear()
+            return self.step_log[-1]
+
         try:
             while self.step < self.max_step:
                 t0 = time.time()
                 batch, dbatch = next(prefetch)
                 t1 = time.time()
-                metrics = self.trainer.train_step(self.state, dbatch, self.step_generator(self.step))
+                metrics = self.trainer.train_step(self.state, dbatch, self.step_generator(self.step),
+                                                  graphs=self.train_graphs)
+                ring[len(pending)].copy_(metrics["scalars"])
                 t2 = time.time()
                 self.step += 1
                 audio = float(batch.wav_len.sum()) / sr
-                m = {k: float(v) for k, v in metrics.items() if v.dim() == 0}
-                wait = m.pop("device_wait_s")
-                self.step_log.append({**m, "step": self.step, "audio_s": audio, "wall_s": t2 - t0,
-                                      "rd_s": t1 - t0, "dev_s": wait})
+                pending.append({"step": self.step, "audio_s": audio, "t0": t0, "rd_s": t1 - t0})
                 audio_acc += audio
                 t_rd += t1 - t0
-                t_dev += wait
-                t_disp += t2 - t1 - wait
+                t_disp += t2 - t1
 
-                if self.step % cfg.hparas.log_step == 0:
+                logged = self.step % cfg.hparas.log_step == 0
+                validate = self.step % self.valid_step == 0
+                if logged or validate or len(pending) == STEP_LOG_LEN or self.step >= self.max_step:
+                    m = flush()
+                if logged:
                     dt = time.time() - t_wall
+                    t_dev = max(dt - t_rd - t_disp, 0.0)
                     thr = audio_acc / max(dt, 1e-9)
                     self.progress(
                         f"loss {m['loss']:.3f} | att {m.get('att_loss', 0):.3f} | "
@@ -194,12 +245,12 @@ class Solver(BaseSolver):
                     self.write_log("tf_rate", m["tf_rate"])
                     self.write_log("throughput_audio_sec_per_sec", thr)
                     t_wall, audio_acc = time.time(), 0.0
-                    t_rd = t_disp = t_dev = 0.0
+                    t_rd = t_disp = 0.0
 
-                if self.step % self.valid_step == 0:
+                if validate:
                     self.validate()
                     t_wall, audio_acc = time.time(), 0.0
-                    t_rd = t_disp = t_dev = 0.0
+                    t_rd = t_disp = 0.0
         finally:
             prefetch.close()
         self.verbose("Training completed.")

@@ -30,7 +30,7 @@ from typing import Deque, Dict, Optional
 import numpy as np
 import torch
 
-from e2e_asr_tpu_torch import convert, cuda_build
+from e2e_asr_tpu_torch import convert, cuda_build, optim
 from e2e_asr_tpu_torch.config import LMConfig
 from e2e_asr_tpu_torch.data import corpus as corpus_mod
 from e2e_asr_tpu_torch.data.dataset import TextLoader, build_tokenizer
@@ -110,7 +110,7 @@ class Solver(BaseSolver):
             p.requires_grad_(True)
         self.state = TrainState(params, self.opt.init(param_leaves(params)), 0)
         if self.paras.load:
-            self.state.opt_state = payload["opt_state"]
+            self.state.opt_state = optim.restore(payload["opt_state"], self.device)
             self.state.step = self.step = int(payload["step"])
             self.verbose(f"Resumed from {self.paras.load} @ step {self.step}")
         n = sum(p.numel() for p in param_leaves(params))

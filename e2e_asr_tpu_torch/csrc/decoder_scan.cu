@@ -236,7 +236,7 @@ struct FwdArgs {
   int B, S, Dk, E, K, P, H, Emb, V, L;
   float inv_temp;
   int sample;
-  uint32_t seed_lo, seed_hi;
+  const long long* seed;  // [1] in device memory, read at each step (null without sampling)
   int G, CL, NS;  // clusters, blocks per cluster, utterance slots per cluster
   // residents in shared memory: gate weights, Wq columns, Wout columns, and
   // the first slot's frames of k and of v
@@ -793,6 +793,9 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> 
     // ---- phase C, each slot: logits of the own vocabulary slice, local
     // argmax, own slice of the next q
     const bool feed = t + 1 < L && !a.use_teacher[t + 1];
+    // the sampling seed, split as the host split it before it moved to device memory
+    const unsigned long long sd = a.sample ? (unsigned long long)*a.seed : 0ull;
+    const uint32_t seed_lo = (uint32_t)(sd & 0x7FFFFFFFull), seed_hi = (uint32_t)((sd >> 31) & 0x7FFFFFFFull);
     const int no = nvc + ndk, xsplit = max(1, min(H, NT / max(no, 1))), xchunk = cdiv(H, xsplit);
     for (int i = 0; i < NS; ++i) {
       const int b = slot_utterance(ord, B, G, c, i);
@@ -833,7 +836,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> 
           const int col = v0 + o;
           const float lgt = acc + ldf(a.bout + col);
           stf(a.logits + row * V + col, lgt);
-          lg[o] = a.sample ? lgt + gumbel(a.seed_lo, a.seed_hi, t, b, col) : lgt;
+          lg[o] = a.sample ? lgt + gumbel(seed_lo, seed_hi, t, b, col) : lgt;
         } else {
           qsl[i * Dkc + o - nvc] = acc + ldf(a.bq + d0 + o - nvc);
         }
@@ -953,7 +956,8 @@ extern "C" int e2e_decoder_scan_fwd_plan(int B, int S, int Dk, int E, int K, int
 // k [B, S, Dk], v [B, S, E], enc_len [B] i32, taps [K, P], wq [H, Dk], bq [Dk],
 // wlp [K, Dk], locv [Dk], locb [Dk], embed [V, Emb], wx [Emb + E, 4H],
 // wh [H, 4H], bl [4H], wout [H, V], bout [V], teacher [L, B] i32,
-// use_teacher [L] i32 -> logits [L, B, V], align [L, B, S], hidden [L, B, H],
+// use_teacher [L] i32, seed [1] i64 (read where sample; may be null otherwise)
+// -> logits [L, B, V], align [L, B, S], hidden [L, B, H],
 // cseq [L, B, H], tokens [L, B] i32, acts [L, B, 4H], qs [L, B, Dk],
 // ctxs [L, B, E]; ew [V, 4H] and hf [B, H] scratch (hf unused at float).
 // k, v, the weights, logits, align, hidden and cseq of storage type dt (0
@@ -967,11 +971,11 @@ extern "C" int e2e_decoder_scan_fwd(
     const void* wx, const void* wh, const void* bl, const void* wout, const void* bout,
     const int* teacher, const int* use_teacher, void* logits, void* align, void* hidden,
     void* cseq, int* tokens, float* acts, float* qs, float* ctxs, float* ew, float* hf, int B, int S,
-    int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample, int seed_lo,
-    int seed_hi, int G, int CL, int w_smem, int wq_smem, int wo_smem, int k_smem, int v_smem, int dt,
-    void* stream) {
+    int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample,
+    const long long* seed, int G, int CL, int w_smem, int wq_smem, int wo_smem, int k_smem, int v_smem,
+    int dt, void* stream) {
   if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
-      CL < 1 || CL > CLMAX || dt < 0 || dt > 1)
+      CL < 1 || CL > CLMAX || dt < 0 || dt > 1 || (sample && !seed))
     return (int)cudaErrorInvalidValue;
   const int NS = cdiv(B, G);
   const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, w_smem, wq_smem, wo_smem,
@@ -990,7 +994,7 @@ extern "C" int e2e_decoder_scan_fwd(
                  (C)wh, (C)bl, (C)wout, (C)bout, teacher, use_teacher, (O)logits, (O)align, (O)hidden,
                  (O)cseq, tokens, acts, qs, ctxs, ew, hf,
                  B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, sample,
-                 (uint32_t)seed_lo, (uint32_t)seed_hi, G, CL, NS, w_smem, wq_smem, wo_smem, k_smem, v_smem};
+                 (const long long*)seed, G, CL, NS, w_smem, wq_smem, wo_smem, k_smem, v_smem};
     return cudaLaunchKernelEx(&cfg, decoder_scan_fwd_kernel<T>, a);
   };
   return (int)(dt ? run(bf16{}) : run(0.0f));

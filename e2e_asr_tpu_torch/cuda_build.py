@@ -140,14 +140,16 @@ def launch(name: str, fn: str, *args, defines: Sequence[str] = ()) -> None:
     """Call launcher ``fn`` of library ``name`` (built with ``defines``) on
     the current stream.
 
-    ``args`` are tensors (passed as device pointers), Python ints (passed as
-    C ``int``), floats (passed as C ``float``) or ``ctypes.c_double``; the
-    stream goes last."""
+    ``args`` are tensors (passed as device pointers), None (a null
+    pointer), Python ints (passed as C ``int``), floats (passed as C
+    ``float``) or ``ctypes.c_double``; the stream goes last."""
     lib = library(name, defines)
     cargs = []
     for a in args:
         if isinstance(a, ctypes.c_double):
             cargs.append(a)
+        elif a is None:
+            cargs.append(ctypes.c_void_p(None))
         elif isinstance(a, torch.Tensor):
             cargs.append(ctypes.c_void_p(a.data_ptr()))
         elif isinstance(a, bool) or not isinstance(a, (int, float)):

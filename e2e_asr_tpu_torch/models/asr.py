@@ -103,7 +103,15 @@ def attend_and_step(
     return logits, align, hidden, DecodeCarry(new_state, align, tok)
 
 
-def _use_fused_scan(params: Params, cfg: ModelConfig, train: bool, enc: torch.Tensor) -> bool:
+def speller_route(params: Params, cfg: ModelConfig, train: bool, device: torch.device) -> str:
+    """The speller's route for tensors on ``device``: ``none`` (no attention
+    head), ``fused`` (the fused scan, ``_use_fused_scan``) or ``loop``."""
+    if "decoder" not in params:
+        return "none"
+    return "fused" if _use_fused_scan(params, cfg, train, device) else "loop"
+
+
+def _use_fused_scan(params: Params, cfg: ModelConfig, train: bool, device: torch.device) -> bool:
     """The route of the speller scan under ``decoder.fused_scan`` (the JAX
     package's value names): ``scan`` is the Python loop; ``pallas`` forces
     the fused scan (``ops/decoder_cuda.py``: the hand-written kernels on CUDA
@@ -126,13 +134,13 @@ def _use_fused_scan(params: Params, cfg: ModelConfig, train: bool, enc: torch.Te
                 f"envelope (attention mode={cfg.attention.mode}, num_head={cfg.attention.num_head}, "
                 f"v_proj={cfg.attention.v_proj}, decoder {cfg.decoder.module}/layer="
                 f"{cfg.decoder.layer}/dropout={cfg.decoder.dropout})")
-        if enc.device.type == "cuda" and not fits:
+        if device.type == "cuda" and not fits:
             raise ValueError(
                 f"decoder.fused_scan='pallas': the kernels take a speller width that is a multiple "
                 f"of {decoder_cuda.CL} up to {decoder_cuda.MAX_H} and an attention dim up to "
                 f"{decoder_cuda.MAX_DK}, got {cfg.decoder.dim} and {dk}")
         return True
-    if enc.device.type != "cuda":
+    if device.type != "cuda":
         return False
     if ok and not fits:
         _warn_once(f"decoder.fused_scan=auto: speller width {cfg.decoder.dim} / attention dim {dk} "
@@ -155,7 +163,7 @@ def forward(
     feat: torch.Tensor,
     feat_len: torch.Tensor,
     decode_step: int,
-    tf_rate: float = 1.0,
+    tf_rate=1.0,
     teacher: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
     train: bool = False,
@@ -165,7 +173,8 @@ def forward(
 
     teacher: [B, L] target ids (with <eos>, 0-padded). The speller's inputs
     are the right-shifted targets starting from <sos> = 0. One coin per step
-    for the whole batch, drawn up front (``uniform < tf_rate``); where a
+    for the whole batch, drawn up front on the generator's device
+    (``uniform < tf_rate``, the rate a float or a 0-dim tensor); where a
     training step's coin fails, the previous prediction is fed back instead,
     sampled from the output distribution when ``sample_decoding``, its
     argmax otherwise (drawn only for the steps that feed it back). Outside
@@ -188,18 +197,22 @@ def forward(
     teacher_in = torch.cat([teacher.new_zeros((b, 1)), teacher[:, : decode_step - 1]], dim=1)
     dev = enc.device
     if generator is not None:
-        coins = (torch.rand((decode_step,), generator=generator, device=generator.device) < tf_rate).cpu()
+        # on the generator's device: the fused scan reads them there, and a
+        # captured step may not copy them to the host
+        coins = torch.rand((decode_step,), generator=generator, device=generator.device) < tf_rate
     else:
         coins = torch.ones((decode_step,), dtype=torch.bool)
 
-    if _use_fused_scan(params, cfg, train, enc):
+    if _use_fused_scan(params, cfg, train, enc.device):
         out["att_logits"], out["align"], out["att_hidden"] = decoder_cuda.run_decode_scan(
             params, cfg, enc, enc_len, teacher_in, coins, generator=generator, train=train,
             sample_decoding=sample_decoding,
         )
         return out
 
-    use_teacher = [c or not train for c in coins.tolist()]
+    # the Python loop branches on each coin: they come to the host (this
+    # route is never captured)
+    use_teacher = [c or not train for c in coins.cpu().tolist()]
     mem, carry = init_carry(params, cfg, enc, enc_len)
     logits_all, aligns, hiddens = [], [], []
     for t in range(decode_step):

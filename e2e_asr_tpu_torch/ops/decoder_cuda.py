@@ -35,7 +35,13 @@ step are too large to store and are rebuilt in the backward.
 
 Sampled feedback: the kernel draws Gumbel noise from a counter-based
 generator (Philox-4x32-10) keyed by (seed, step, utterance, vocabulary
-column), the seed drawn by the caller from its ``torch.Generator``.
+column), the seed an int64 in device memory that the kernel reads at each
+step (``run_decode_scan`` draws it on the card from the step's
+``torch.Generator`` at every training step; a Python int is written into
+such a tensor by the wrapper), so that no launch argument changes from
+step to step and a captured step replays with the generator's new draw.
+The noise matters only at steps whose coin failed, so a launch in which
+every step uses the teacher gives the same outputs with sampling on or off.
 ``gumbel_noise`` fills a [L, B, V] buffer with exactly that noise so that
 the plain version can be fed the same numbers; given no buffer the plain
 version draws its noise from the generator itself. Neither reproduces
@@ -328,7 +334,9 @@ def decoder_scan_fwd(
 ):
     """Plain version on CPU tensors; the CUDA kernel on CUDA tensors (its
     sampled feedback draws the noise of ``gumbel_noise(seed, ...)`` in the
-    kernel; ``noise`` and ``generator`` are the plain version's)."""
+    kernel, ``seed`` an int or an int64 tensor of one element on k's device
+    that the kernel reads; ``noise`` and ``generator`` are the plain
+    version's)."""
     if cuda_build.use_plain(k):
         return decoder_scan_fwd_plain(k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh,
                                       bl, wout, bout, teacher, use_teacher, temp, sample, noise,
@@ -363,12 +371,18 @@ def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx
     tokens = torch.empty((l, b), dtype=torch.int32, device=dev)
     ew = new(vocab, 4 * h_dim)  # scratch: embed Wx[:Emb] + bl
     hs = new(b, h_dim) if dt != torch.float32 else hidden  # scratch: h' of the step, unrounded
-    seed = int(seed)
+    seed_t = None  # the kernel reads no seed without sampling
+    if sample:
+        seed_t = seed if isinstance(seed, torch.Tensor) else torch.full((1,), int(seed), dtype=torch.int64,
+                                                                        device=dev)
+        if seed_t.dtype != torch.int64 or seed_t.numel() != 1 or seed_t.device != dev:
+            raise ValueError(f"decoder_scan_fwd: the seed must be one int64 on {dev}, got {seed_t.dtype} "
+                             f"{tuple(seed_t.shape)} on {seed_t.device}")
     cuda_build.launch(
         "decoder_scan", "e2e_decoder_scan_fwd", k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed,
         wx, wh, bl, wout, bout, teacher, use_i, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew,
         hs, b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)),
-        seed & 0x7FFFFFFF, (seed >> 31) & 0x7FFFFFFF, grid["clusters"], grid["cluster_size"],
+        seed_t, grid["clusters"], grid["cluster_size"],
         grid["w_smem"], grid["wq_smem"], grid["wo_smem"], grid["k_smem"], grid["v_smem"],
         dtype_code(dt, "decoder_scan_fwd"), defines=defines,
     )
@@ -550,7 +564,8 @@ class DecoderScanFn(torch.autograd.Function):
     above and, outside it, one contraction over L*B for every gradient that
     is a sum of per-step outer products (dv, dWx, dWh, db, dWq, dbq, dlocb,
     d_embed, dWout, dbout) and one more product for the taps' gradient (the
-    counterpart of ``decoder_scan_fused.defvjp``). k and v set the storage
+    counterpart of ``decoder_scan_fused.defvjp``; d_embed as the product of
+    the fed tokens' one-hot, a fixed order of sums). k and v set the storage
     type; the float32 parameters are cast to it for the kernels, and their
     gradients come back in float32, summed in float32 from the per-step
     streams as stored in that type (dgates, dq, dfpre) and the float32
@@ -608,7 +623,12 @@ class DecoderScanFn(torch.autograd.Function):
         dwx = flat(xin).T @ flat(dgates)
         dwh = flat(h_prev).T @ flat(dgates)
         dbl = dgates.sum(dim=(0, 1))
-        dembed = torch.zeros_like(embed).index_add_(0, toks, flat(din[..., :emb_dim]))
+        # the rows of each token summed by one product with the tokens'
+        # one-hot, in a fixed order (index_add_ adds atomically on the card, so
+        # two runs of one step would differ; index_put_'s sorted accumulate
+        # takes 1.4 ms at the flagship)
+        onehot = (toks[:, None] == torch.arange(embed.shape[0], device=toks.device)).to(din.dtype)
+        dembed = onehot.T @ flat(din[..., :emb_dim])
         dwq = flat(h_prev).T @ flat(dq)
         dbq = dq.sum(dim=(0, 1))
         dv = torch.einsum("lbs,lbe->bse", al, din[..., emb_dim:]).to(dt)
@@ -635,8 +655,9 @@ def run_decode_scan(
     """Drop-in for the loop of ``models/asr.py`` ``forward`` inside the
     envelope of ``supported``. teacher_in [B, L]: the right-shifted targets;
     coins [L] bool: the steps that use the teacher (all do outside
-    training). Sampled feedback needs a generator; without one the
-    prediction fed back is the argmax, as in the loop.
+    training), on enc's device for the kernel. Sampled feedback needs a
+    generator; without one the prediction fed back is the argmax, as in the
+    loop.
 
     Returns (att_logits [B, L, V], align [B, L, 1, S], att_hidden [B, L, H])."""
     ap, dp = params["attention"], params["decoder"]
@@ -644,11 +665,12 @@ def run_decode_scan(
     k = enc @ ap["proj_k"]["w"].to(enc.dtype)
     wlp = ap["loc_proj"]["w"]
     locb = ap["loc_b"] + ap["loc_conv"]["b"] @ wlp
-    use_teacher = coins.to("cpu", torch.bool) if train else torch.ones(teacher_in.shape[1], dtype=torch.bool)
-    sample = bool(train and sample_decoding and generator is not None and not bool(use_teacher.all()))
-    seed = 0
-    if sample and enc.device.type == "cuda":
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device))
+    use_teacher = coins if train else torch.ones(teacher_in.shape[1], dtype=torch.bool, device=enc.device)
+    # a static choice: whether a coin failed is known only on the device; the
+    # seed is drawn at every training step, the step's last draw (on the
+    # CPU the plain version draws its noise from the generator instead)
+    sample = bool(train and sample_decoding and generator is not None)
+    seed = torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device) if sample else 0
     logits, align, hidden = decoder_scan(
         k, enc, enc_len, ap["loc_conv"]["w"][:, 0], ap["proj_q"]["w"], ap["proj_q"]["b"], wlp,
         ap["loc_v"][0], locb, params["embed"]["table"], cell["wx"], cell["wh"], cell["b"],

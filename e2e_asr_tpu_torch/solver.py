@@ -20,7 +20,7 @@ import os
 import sys
 from typing import Optional
 
-from e2e_asr_tpu_torch import convert
+from e2e_asr_tpu_torch import convert, optim
 
 
 class BaseSolver:
@@ -61,7 +61,7 @@ class BaseSolver:
         path = os.path.join(self.ckpdir, fname)
         tmp = path + ".tmp"
         convert.save_checkpoint(tmp, state.params, self.vocab_size, self.feat_dim, kind=self.ckpt_kind,
-                                opt_state=state.opt_state, step=state.step)
+                                opt_state=optim.checkpoint_state(state.opt_state), step=state.step)
         os.replace(tmp, path)
         with open(path + ".meta", "w") as f:
             f.write(f"{metric} {score}\nglobal_step {state.step}\ncompute_dtype {self.compute_dtype}\n")

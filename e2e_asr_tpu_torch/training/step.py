@@ -15,8 +15,20 @@ gathers its waves). Loss conventions:
   make the loss +inf, and the step is then skipped; 'mask' leaves such
   utterances out of the mean (evaluation always masks them);
 - a step whose loss or pre-clip gradient norm is not finite changes
-  neither the parameters nor the optimizer state (both are checked before
-  the optimizer touches anything).
+  neither the parameters nor the optimizer state, counts included: the
+  update is computed all the same and every tensor takes
+  ``where(ok, new, old)`` on the device, as the JAX step selects
+  (``e2e_asr_tpu/training/step.py``); ``step_skipped`` = 1 - ok stays a
+  device tensor.
+
+Nothing in a step reads the device from the host, and no number that
+changes from step to step is a Python scalar inside it: the teacher-forcing
+rate is a 0-dim device tensor (``Trainer.tf_buf``, written with ``fill_``
+before the step), the coins stay on the device, the scan's sampled-feedback
+seed is a device tensor, and the learning rate and bias corrections come
+from the optimizer's device counts. So the same code runs eagerly and as a
+captured CUDA graph (``training/step_graph.py``), which the solver replays
+on the card.
 
 Compute type: ``hparas.dtype`` (``compute_dtype``). The features, dither
 and SpecAugment are computed in float32 and then cast to it; every layer
@@ -27,12 +39,11 @@ heads' outputs go back to float32 for the losses. Parameters, gradients,
 their norm and the optimizer state stay float32. Evaluation runs the same
 ``compute_loss``. Random draws (dither, SpecAugment, dropout, the
 teacher-forcing coins, sampled feedback) come from one ``torch.Generator``
-per step.
+per step (the graphs re-seed a generator of their own with its seed).
 """
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -95,7 +106,7 @@ def compute_loss(
     wav_len: torch.Tensor,
     text: torch.Tensor,
     text_len: torch.Tensor,
-    tf: float,
+    tf,
     generator: Optional[torch.Generator],
     train: bool = True,
     sample_decoding: bool = True,
@@ -155,13 +166,18 @@ class TrainState:
     step: int
 
 
-def update_step(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch.Tensor]:
-    """One update of ``state`` in place from ``loss_fn(params) -> (loss,
-    metrics)``: gradients, their global norm, the NaN/inf skip (the step's
-    one host synchronisation) and, where both are finite, clip and update.
-    Returns the metrics (detached) with the pre-clip ``grad_norm``,
-    ``step_skipped`` and ``device_wait_s`` (host seconds spent waiting for
-    the device at the finiteness check)."""
+# the scalar metrics a training step writes into the solver's ring, in this
+# order (those of the heads the model has)
+SCALARS = ("loss", "att_loss", "ctc_loss", "grad_norm", "tf_rate", "step_skipped")
+
+
+def device_update(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch.Tensor]:
+    """One update of ``state``'s tensors in place from ``loss_fn(params) ->
+    (loss, metrics)``: gradients, their global norm, clip and update, each
+    tensor taking ``where(ok, new, old)`` with ok = loss and norm finite.
+    Touches no host state and reads nothing back. Returns the metrics
+    (detached) with the pre-clip ``grad_norm`` and ``step_skipped`` (1 -
+    ok, float32), all on the device."""
     leaves = param_leaves(state.params)
     with torch.enable_grad():
         loss, metrics = loss_fn(state.params)
@@ -171,12 +187,16 @@ def update_step(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch.T
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     g_norm = global_norm(grads)
     metrics["grad_norm"] = g_norm
-    t0 = time.perf_counter()
-    ok = bool(torch.isfinite(loss) & torch.isfinite(g_norm))
-    metrics["device_wait_s"] = torch.tensor(time.perf_counter() - t0)
-    metrics["step_skipped"] = torch.tensor(0.0 if ok else 1.0)
-    if ok:
-        opt.update(leaves, grads, state.opt_state, g_norm)
+    ok = torch.isfinite(loss) & torch.isfinite(g_norm)
+    metrics["step_skipped"] = 1.0 - ok.float()
+    opt.update(leaves, grads, state.opt_state, g_norm, ok)
+    return metrics
+
+
+def update_step(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch.Tensor]:
+    """``device_update`` and the host's step count (every step counts, a
+    skipped one too, as in the JAX step)."""
+    metrics = device_update(state, opt, loss_fn)
     state.step += 1
     return metrics
 
@@ -188,24 +208,58 @@ class Trainer:
     def __init__(self, cfg: Config):
         self.cfg = cfg
         self.opt = Optimizer(cfg.hparas)
+        self.tf_buf: Optional[torch.Tensor] = None  # the step's teacher-forcing rate, on the device
 
     def init_state(self, params) -> TrainState:
         for p in param_leaves(params):
             p.requires_grad_(True)
         return TrainState(params, self.opt.init(param_leaves(params)), 0)
 
-    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator], sample_decoding: bool = True):
-        """One update in place from a batch in either form (``resolve_wav``).
-        Returns metrics (tensors), with the pre-clip ``grad_norm``,
-        ``tf_rate``, ``step_skipped`` and ``device_wait_s`` (host seconds
-        spent waiting for the device at the finiteness check)."""
-        tf = tf_rate(self.cfg.hparas, state.step)
+    def scalar_keys(self) -> Tuple[str, ...]:
+        """The names of ``metrics["scalars"]``, in order: ``SCALARS`` of the
+        heads this model has."""
+        w = self.cfg.model.ctc_weight
+        return tuple(k for k in SCALARS if not (k == "att_loss" and w >= 1) and not (k == "ctc_loss" and w <= 0))
+
+    def set_tf(self, step: int, device: torch.device) -> torch.Tensor:
+        """``tf_buf`` (allocated once, outside any graph) holding the
+        teacher-forcing rate of ``step``, written by one ``fill_``."""
+        if self.tf_buf is None or self.tf_buf.device != torch.device(device):
+            self.tf_buf = torch.zeros((), dtype=torch.float32, device=device)
+        return self.tf_buf.fill_(tf_rate(self.cfg.hparas, step))
+
+    def device_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                    generator: Optional[torch.Generator], sample_decoding: bool = True):
+        """The step's device work from ``tf_buf`` and a batch in either form
+        (``resolve_wav``): what a CUDA graph captures. Returns the metrics
+        with ``tf_rate`` and ``scalars`` (the ``scalar_keys`` stacked, float32)."""
         wav, wav_len = resolve_wav(batch)
-        metrics = update_step(state, self.opt, lambda params: compute_loss(
+        tf = self.tf_buf
+        metrics = device_update(state, self.opt, lambda params: compute_loss(
             params, self.cfg, wav, wav_len, batch["text"], batch["text_len"], tf,
             generator, train=True, sample_decoding=sample_decoding))
-        metrics["tf_rate"] = torch.tensor(tf)
+        metrics["tf_rate"] = tf.clone()
+        metrics["scalars"] = torch.stack([metrics[k] for k in self.scalar_keys()])
+        return metrics
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator], sample_decoding: bool = True, graphs=None):
+        """One update in place from a batch in either form (``resolve_wav``).
+        Returns metrics (device tensors), with the pre-clip ``grad_norm``,
+        ``tf_rate``, ``step_skipped`` and ``scalars``. With ``graphs`` (a
+        ``training/step_graph.TrainGraphs``) the step replays the CUDA
+        graph of the batch's shape (capturing it at its first batch) with
+        ``generator``'s seed, and the metrics are the graph's static
+        outputs: read them before the next step. Without, it runs eagerly
+        (the tests' and comparisons' route, and the solver's where the
+        speller takes the Python loop)."""
+        dev = batch["wav_len"].device
+        self.set_tf(state.step, dev)
+        if graphs is not None:
+            metrics = graphs.step(self, state, batch, generator.initial_seed(), sample_decoding)
+        else:
+            metrics = self.device_step(state, batch, generator, sample_decoding)
+        state.step += 1
         return metrics
 
     @torch.no_grad()

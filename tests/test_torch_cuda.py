@@ -42,7 +42,16 @@ with the same launch counts, a graph reused for a second batch and
 captured anew for a new shape or new weights, the whole beam step without
 host synchronisation, a capture beside a thread making pinned copies, the
 attention step captured as a cooperative kernel node in a chain of nodes,
-and a capture that fails raising (in a subprocess). Marked ``cuda``: they skip without a card. Run on the card with
+and a capture that fails raising (in a subprocess); the train step through
+CUDA graphs (training/step_graph.py) at test size under both LSTM routes
+and both compute types: replay bitwise equal to the eager step (loss, grad
+norm, every parameter and optimizer tensor) with the same launch counts,
+through failing coins and a skipped step, a graph captured anew for a new
+bucket or new weights, the eager step without host synchronisation, a
+capture beside a copying thread, a failing capture raising (in a
+subprocess); the scan forward's seed in device memory; the optimizer's
+device bias corrections and learning rate against the host formulas.
+Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
 
@@ -1393,3 +1402,293 @@ def test_bf16_plans_reckon_in_bf16_bytes(gen):
         s32, _, _ = dc.plan(which, 15, 8, *shape)
         s16, _, _ = dc.plan(which, 15, 8, *shape, dtype=bf)
         assert s16 < s32
+
+
+# ------------------------------------------- the train step as CUDA graphs
+def _small_train(dtype="float32", rnn_impl="auto", **hparas):
+    """(Trainer, TrainState) of the flagship's structure at test size (VGG
+    prenet on 40-dim fbank through the log-mel kernel, two 32-wide BiLSTM
+    layers by ``rnn_impl``, location attention 16 / 3 filters / 11 taps, a
+    32-wide speller through the fused scan, CTC head, ctc_weight 0.5), Adam
+    with the warmup schedule and clip 5, dither, SpecAugment and encoder
+    dropout on, the teacher-forcing rate 1.0 -> 0.5 over 2 steps, compute
+    type ``dtype``."""
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.device import resolve_device
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.training.step import Trainer
+
+    resolve_device("cuda")  # as the solver: TF32 off, cuDNN on deterministic algorithms
+    h = dict(dtype=dtype, optimizer="Adam", lr=1e-3, eps=1e-8, grad_clip=5.0, lr_scheduler="warmup", warmup_step=3,
+             tf_start=1.0, tf_end=0.5, tf_step=2, ctc_infeasible="skip")
+    h.update(hparas)
+    cfg = Config.from_dict({
+        "data": {"audio": {"feat_dim": 40, "use_pallas": True, "dither": 1e-5}},
+        "model": {
+            "ctc_weight": 0.5,
+            "encoder": {"prenet": "vgg", "dim": [32, 32], "dropout": [0.1, 0.0], "layer_norm": [False, False],
+                        "proj": [True, True], "sample_rate": [1, 1], "sample_style": "drop", "rnn_impl": rnn_impl},
+            "attention": {"mode": "location", "dim": 16, "num_head": 1, "loc_kernel_size": 5, "loc_kernel_num": 3},
+            "decoder": {"dim": 32, "layer": 1},
+            "specaugment": {"enable": True, "freq_mask_width": 5, "time_mask_width": 10},
+        },
+        "hparas": h,
+    })
+    params, _ = asr_mod.asr_init(0, 40, 12, cfg.model, _dev())
+    trainer = Trainer(cfg)
+    return trainer, trainer.init_state(params)
+
+
+def _train_batch(seed, frames=(64, 52, 24), text_len=(8, 6, 5), l_pad=10):
+    """A streaming batch on the card: numpy waves of ``frames`` 10 ms frames
+    and targets without repeats (every row fits its CTC lattice unless a
+    text is made longer than its encoder frames)."""
+    rng = np.random.RandomState(seed)
+    n = (max(frames) - 1) * 160 + 400
+    wav_len = np.array([(f - 1) * 160 + 400 for f in frames], np.int32)
+    wav = (0.1 * rng.randn(len(frames), n)).astype(np.float32)
+    text = (1 + np.cumsum(rng.randint(1, 10, size=(len(frames), l_pad)), axis=1) % 11).astype(np.int32)
+    for i, (m, t) in enumerate(zip(wav_len, text_len)):
+        wav[i, m:] = 0.0
+        text[i, t:] = 0
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            (("wav", wav), ("wav_len", wav_len), ("text", text), ("text_len", np.asarray(text_len, np.int32)))}
+
+
+def _train_counts():
+    from e2e_asr_tpu_torch.training.step_graph import COUNTED, COUNTERS
+
+    return {f"{fn.__name__}.{a}": getattr(fn, a, 0) for fn in COUNTED for a in COUNTERS}
+
+
+def _leaf_clone(tree):
+    """A parameter tree at other addresses, its tensors leaves that need grad."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone().requires_grad_(tree.requires_grad)
+    if isinstance(tree, dict):
+        return {k: _leaf_clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_leaf_clone(v) for v in tree]
+    return tree
+
+
+def _gen_of(seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def _state_tensors(state):
+    from e2e_asr_tpu_torch.training.step import param_leaves
+
+    return [p.detach() for p in param_leaves(state.params)] + [
+        t for k in sorted(state.opt_state) for t in param_leaves(state.opt_state[k])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rnn_impl", ["auto", "pallas"])
+def test_train_graph_replay_equals_eager_step_bitwise(gen, dtype, rnn_impl):
+    """Six steps of one bucket shape through TrainGraphs (the first runs
+    eagerly and captures, the rest replay) and through the eager step from
+    the same weights, batches and seeds: loss, grad norm, step_skipped,
+    every parameter and optimizer tensor bitwise equal after each step, and
+    the same launch counts. The rate falls below 1 from the second step on
+    (coins fail: sampled feedback in the scan) and the fifth has a row with
+    no CTC alignment (loss +inf: the skip by select)."""
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    tg, sg = _small_train(dtype, rnn_impl)
+    te, se = _small_train(dtype, rnn_impl)
+    graphs = TrainGraphs()
+    for i in range(6):
+        batch = _train_batch(i, text_len=(8, 6, 9) if i == 4 else (8, 6, 5))
+        counts0 = _train_counts()
+        mg = tg.train_step(sg, batch, _gen_of(100 + i), graphs=graphs)
+        got = [mg[k].clone() for k in ("loss", "grad_norm", "step_skipped", "tf_rate")]
+        counts1 = _train_counts()
+        me = te.train_step(se, batch, _gen_of(100 + i))
+        counts2 = _train_counts()
+        want = [me[k] for k in ("loss", "grad_norm", "step_skipped", "tf_rate")]
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (i, got, want)
+        assert float(want[2]) == float(i == 4) and (float(want[3]) < 1.0) == (i >= 1)
+        assert all(torch.equal(a, b) for a, b in zip(_state_tensors(sg), _state_tensors(se))), i
+        dg = {k: counts1[k] - counts0[k] for k in counts0}
+        de = {k: counts2[k] - counts1[k] for k in counts0}
+        assert dg == de and sum(de.values()) >= 6, (i, dg, de)
+    assert len(graphs.graphs) == len(graphs.captures) == 1
+    assert int(sg.opt_state["count"]) == 5 and sg.step == 6
+
+
+def test_eager_train_step_makes_no_host_sync(gen):
+    """One eager train step (tf 0.5: failing coins, the scan's seed drawn on
+    the card) under PyTorch's sync debug mode set to raise, once the
+    libraries are built and the plans cached: the step reads nothing back,
+    as its capture needs."""
+    trainer, state = _small_train(tf_start=0.5, tf_end=0.5)
+    batch = _train_batch(0)
+    trainer.train_step(state, batch, _gen_of(1))  # warm-up
+    gens = [_gen_of(2 + i) for i in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for g in gens:
+            m = trainer.train_step(state, batch, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(m["step_skipped"]) == 0.0 and bool(torch.isfinite(m["loss"]))
+
+
+def test_train_graphs_are_captured_anew_for_a_new_bucket_or_new_weights(gen):
+    """A second batch of one bucket replays its graph; a longer bucket, a
+    longer token bucket, or the same model and state at other addresses
+    capture anew; each step equals the eager one's loss."""
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    trainer, state = _small_train()
+    graphs = TrainGraphs()
+    shapes = [((64, 52, 24), 10), ((64, 52, 24), 10), ((80, 52, 24), 10), ((64, 52, 24), 12)]
+    for i, (frames, l_pad) in enumerate(shapes):
+        trainer.train_step(state, _train_batch(i, frames=frames, l_pad=l_pad), _gen_of(i), graphs=graphs)
+    assert len(graphs.graphs) == len(graphs.captures) == 3
+    moved = type(state)(_leaf_clone(state.params), _clone_tree(state.opt_state), state.step)
+    for p in _state_tensors(moved)[:1]:
+        assert p.data_ptr() != _state_tensors(state)[0].data_ptr()
+    before = [t.clone() for t in _state_tensors(moved)]
+    trainer.train_step(moved, _train_batch(9), _gen_of(9), graphs=graphs)
+    assert len(graphs.graphs) == 4
+    assert any(not torch.equal(a, b) for a, b in zip(_state_tensors(moved), before))
+
+
+def test_train_capture_beside_a_copying_thread(gen):
+    """Capture (``capture_error_mode="thread_local"``) of the train step
+    while another thread does what the prefetcher does: pinned copies on a
+    stream of its own, events, synchronising on them. The capture goes
+    through, the copies arrive intact, and the next step replays equal to
+    the eager step."""
+    import threading
+
+    from e2e_asr_tpu_torch.data.prefetch import to_device
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    tg, sg = _small_train()
+    te, se = _small_train()
+    stop, errors, copies = threading.Event(), [], [0]
+
+    def copier():
+        try:
+            side = torch.cuda.Stream()
+            host = np.arange(1 << 18, dtype=np.int16)
+            while not stop.is_set():
+                with torch.cuda.stream(side):
+                    x = to_device(host, _dev())
+                    ev = torch.cuda.Event()
+                    ev.record(side)
+                ev.synchronize()
+                assert int(x[-1]) == int(host[-1])
+                copies[0] += 1
+        except BaseException as e:  # noqa: BLE001 (reported below)
+            errors.append(e)
+
+    graphs = TrainGraphs()
+    th = threading.Thread(target=copier, daemon=True)
+    th.start()
+    try:
+        tg.train_step(sg, _train_batch(0), _gen_of(0), graphs=graphs)
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    assert not errors, errors
+    assert copies[0] > 0 and len(graphs.captures) == 1
+    te.train_step(se, _train_batch(0), _gen_of(0))
+    mg = tg.train_step(sg, _train_batch(1), _gen_of(1), graphs=graphs)
+    me = te.train_step(se, _train_batch(1), _gen_of(1))
+    assert torch.equal(mg["loss"], me["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(_state_tensors(sg), _state_tensors(se)))
+
+
+_SYNC_IN_TRAIN_CAPTURE = """
+import importlib.util, sys, torch
+spec = importlib.util.spec_from_file_location("card_tests", "tests/test_torch_cuda.py")
+card = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(card)
+from e2e_asr_tpu_torch.training.step import Trainer
+from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+step = Trainer.device_step
+def syncing_step(self, *args, **kw):
+    m = step(self, *args, **kw)
+    float(m["loss"])  # a host synchronisation: illegal while capturing
+    return m
+Trainer.device_step = syncing_step
+trainer, state = card._small_train()
+try:
+    trainer.train_step(state, card._train_batch(0), card._gen_of(0), graphs=TrainGraphs())
+except RuntimeError as e:
+    print("RAISED", type(e).__name__, str(e).splitlines()[0][:200])
+    sys.exit(0)
+print("NO ERROR")
+"""
+
+
+def test_a_failing_train_capture_raises(gen):
+    """A train step that synchronises with the host cannot be captured: the
+    step raises (it does not fall back to the eager step). In a subprocess,
+    since a failed capture may leave the CUDA context unusable."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _SYNC_IN_TRAIN_CAPTURE], cwd=root, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": root})
+    assert res.returncode == 0 and "RAISED" in res.stdout, res.stdout + res.stderr[-3000:]
+
+
+@pytest.mark.parametrize("mode", ["teacher", "argmax", "sample"])
+def test_scan_seed_in_device_memory(gen, mode):
+    """The scan forward with its seed in device memory: a seed given as an
+    int (written into a device tensor by the wrapper) and the same seed
+    drawn into a tensor give bitwise-equal outputs in each feedback mode;
+    where every step uses the teacher, sampling on and off are bitwise
+    equal (the noise acts only where a coin failed); sampled feedback feeds
+    the tokens the plain version feeds on ``gumbel_noise`` of that seed."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    shape = (16, 61, 300, 640, 10, 201, 320, 320, 26, 6)
+    b, s, dk, e_dim, kk, p, h, emb, v, l = shape
+    args = _scan_args(gen, *shape)
+    use = torch.ones(l, dtype=torch.bool, device="cuda") if mode == "teacher" else \
+        torch.zeros(l, dtype=torch.bool, device="cuda")
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen, device="cuda"))
+    sample = mode != "argmax"
+    as_int = dc.decoder_scan_fwd(*args, use, 0.5, sample, seed)
+    as_tensor = dc.decoder_scan_fwd(*args, use, 0.5, sample,
+                                    torch.full((1,), seed, dtype=torch.int64, device="cuda"))
+    for g, w in zip((*as_int[:3], *as_int[3]), (*as_tensor[:3], *as_tensor[3])):
+        assert torch.equal(g, w)
+    if mode == "teacher":
+        off = dc.decoder_scan_fwd(*args, use, 0.5, False, 0)
+        for g, w in zip((*as_int[:3], *as_int[3]), (*off[:3], *off[3])):
+            assert torch.equal(g, w)
+    if mode == "sample":
+        want = dc.decoder_scan_fwd_plain(*args, use.cpu(), 0.5, True, dc.gumbel_noise(seed, l, b, v, "cuda"))
+        assert torch.equal(as_int[3][1], want[3][1])
+    with pytest.raises(ValueError, match="seed"):
+        dc.decoder_scan_fwd(*args, use, 0.5, True, torch.zeros(2, dtype=torch.int64, device="cuda"))
+
+
+def test_device_bias_corrections_and_lr_on_the_card(gen):
+    """The optimizer's device formulas on the card against the host
+    formulas over counts 1..10^5: bitwise."""
+    from e2e_asr_tpu_torch.config import HparasConfig
+    from e2e_asr_tpu_torch.optim import _bias_correction, bias_correction, build_schedule, device_lr
+
+    counts = torch.arange(1, 100_001, dtype=torch.int32, device="cuda")
+    for decay in (0.9, 0.999):
+        got = bias_correction(decay, counts).cpu().numpy()
+        want = np.array([_bias_correction(decay, c) for c in range(1, 100_001)], np.float32)
+        assert np.array_equal(got, want), (decay, np.nonzero(got != want)[0][:5] + 1)
+    h = HparasConfig(lr_scheduler="warmup", lr=1.0, warmup_step=25000)
+    sched = build_schedule(h)
+    got = device_lr(h, counts).cpu().numpy()
+    want = np.array([sched(c) for c in range(1, 100_001)], np.float32)
+    assert np.array_equal(got, want), np.nonzero(got != want)[0][:5] + 1

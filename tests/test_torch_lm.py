@@ -232,6 +232,42 @@ def test_train_step_matches_jax(tying):
     _close_adam_params(param_leaves(state.params), leaves(jnew), p0, g, tc.hparas.lr)
 
 
+def test_a_non_finite_step_keeps_params_and_opt_state(monkeypatch):
+    """A step whose loss is not finite leaves the parameters and the whole
+    optimizer state (moments and counts) bit for bit as they were, counts
+    the step and reports ``step_skipped`` 1; the next finite step trains.
+    (The JAX LM step keeps the parameters but advances the optimizer state;
+    the port keeps both, as the JAX ASR step does: ROADMAP Queue 3.)"""
+    _, tc, _, tp = _models(False)
+    text, lens = _text(4)
+    batch = {"text": torch.from_numpy(text), "text_len": torch.from_numpy(lens)}
+    for p in param_leaves(tp):
+        p.requires_grad_(True)
+    opt = Optimizer(tc.hparas)
+    state = TrainState(tp, opt.init(param_leaves(tp)), 0)
+    train_lm.train_step(state, opt, tc.lm, batch, None)  # a real step first: moments not all zero
+    params0 = [p.detach().clone() for p in param_leaves(state.params)]
+    opt0 = {k: [t.clone() for t in param_leaves(v)] for k, v in state.opt_state.items()}
+    loss_fn = train_lm.lm_loss
+
+    def inf_loss(*args, **kw):
+        loss, metrics = loss_fn(*args, **kw)
+        return loss * float("inf"), metrics
+
+    monkeypatch.setattr(train_lm, "lm_loss", inf_loss)
+    m = train_lm.train_step(state, opt, tc.lm, batch, None)
+    assert float(m["step_skipped"]) == 1.0 and not np.isfinite(float(m["grad_norm"]))
+    assert state.step == 2
+    assert all(torch.equal(p.detach(), q) for p, q in zip(param_leaves(state.params), params0))
+    for k, v in opt0.items():
+        assert all(torch.equal(a, b) for a, b in zip(param_leaves(state.opt_state[k]), v)), k
+    assert int(state.opt_state["count"]) == int(state.opt_state["sched_count"]) == 1
+    monkeypatch.undo()
+    m = train_lm.train_step(state, opt, tc.lm, batch, None)
+    assert float(m["step_skipped"]) == 0.0 and int(state.opt_state["count"]) == 2
+    assert any(not torch.equal(p.detach(), q) for p, q in zip(param_leaves(state.params), params0))
+
+
 def _loaders(cls, build, corpus_mod, **kw):
     cfg = TConfig.from_dict({"data": {"text": {"mode": "character"}}}).data
     utts = corpus_mod.load_corpus("synthetic", "", ["train:45"])
