@@ -56,7 +56,8 @@
    validates once on dev, under the default LSTM route and again with the
    fused-projection pair pinned, its steps replaying the CUDA graph the
    solver captured for the bucket (training/step_graph.py; one capture a
-   run, its time and the peak memory allocated printed); every loss must
+   run, its time and the peak memory allocated printed) and its validation
+   the graph of the dev bucket (training/eval_graph.py); every loss must
    be finite, no step skipped, every training kernel of the route launched
    in that run (the fused scan's two among them, counted on the replays),
    and the two routes' losses agree. Then ``graph_phase``: GRAPH_STEPS
@@ -65,7 +66,13 @@
    parameter and optimizer tensor bitwise, launch counts equal, coins
    failing from the second step on), the host-issued launches of one
    replayed step (fewer than 20) and one eager step under the sync debug
-   mode set to raise. Two
+   mode set to raise. Then ``eval_graph_phase``: the dev epoch through the
+   validation's graphs (a capture run, a replay) against the eager
+   validation at flagship width, under both routes and dtypes (summary,
+   tokens and CTC ids bitwise, launch counts equal, each run's wall), the
+   capture's memory in the train graphs' pool against a pool of its own,
+   the host-issued launches of a replayed dev batch (at most
+   EVAL_HOST_LIMIT) and one eager validation under the sync debug mode. Two
    more steps run on the default route at tf_rate 0.5, so that coins fail
    and sampled tokens are fed back inside the scan. Then one train step
    with the kernels and one with the plain versions, from the same weights,
@@ -75,11 +82,15 @@
    to 0 just before the run it belongs to.
    The LM's training path: configs/libri/lm_example.yaml at full width (512
    / 2 x 512 LSTM, tied, batch 32, Adam, clip 5) on synthetic transcripts,
-   LM_STEPS steps and one validation through ``bin/train_lm.Solver.exec``
-   (the lstm_seq pair must have launched, losses finite, no step skipped,
-   best_ppl written); one LM step with the kernels against one with the
-   plain versions (the train step's tolerances); one step timed at B=32 on
-   random ids at L=256 and L=512.
+   LM_STEPS steps and one validation through ``bin/train_lm.Solver.exec``,
+   the step and the evaluation replaying CUDA graphs (training/lm_graph.py;
+   the lstm_seq pair must have launched, losses finite, no step skipped,
+   best_ppl written; captures and peak memory printed); the replayed LM
+   step against the eager one bitwise over LM_GRAPH_STEPS steps with
+   dropout and a non-finite step, and the host-issued launches of a
+   replayed step (``lm_graph_check``); one LM step with the kernels against
+   one with the plain versions (the train step's tolerances); one step
+   timed at B=32 on random ids at L=256 and L=512, eager and graph.
 5. Drives the convergence recipe (configs/synthetic_convergence.yaml, full
    width, BiLSTM layers through lstm_seq, tf_rate 0.8) for CONV_STEPS steps
    and one validation through ``bin/train_asr.Solver.exec``, after holding
@@ -1812,10 +1823,15 @@ def train_phase(smi):
         launches, wall = _run_counted(solver, {**common, **lstm_pair[impl]}, what)
         peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
         captures = [(k, round(t, 3)) for k, t in solver.train_graphs.captures]
-        print(f"  {what}: {len(captures)} capture(s), {', '.join(f'{t:.2f}s' for _, t in captures)}; "
+        eval_captures = [(k, round(t, 3)) for k, t in solver.eval_graphs.captures] if solver.eval_graphs else []
+        print(f"  {what}: {len(captures)} capture(s), {', '.join(f'{t:.2f}s' for _, t in captures)}; validation "
+              f"{len(eval_captures)} capture(s), {', '.join(f'{t:.2f}s' for _, t in eval_captures)}; "
               f"{_peak_line(before_mb, peak_mb)}", flush=True)
         if len(captures) != 1:
             fail(f"the flagship train phase ({what}) captured {len(captures)} graphs, expected one (one bucket)")
+        if len(eval_captures) != 1:
+            fail(f"the flagship validation ({what}) captured {len(eval_captures)} graphs, expected one "
+                 "(one dev bucket)")
         log = list(solver.step_log)
         if len(log) != TRAIN_STEPS:
             fail(f"{len(log)} training steps ran, expected {TRAIN_STEPS}")
@@ -1833,7 +1849,7 @@ def train_phase(smi):
               f"{TRAIN_STEPS} steps + validation {wall:.1f}s", flush=True)
         runs[impl] = dict(solver=solver, batch=batch, launches=launches, steps=log, dev=dev_sum,
                           audio_s_per_s=rate, wall_s=wall, rd_ms=rd_ms, captures=captures, peak_mb=peak_mb,
-                          allocated_before_mb=before_mb)
+                          allocated_before_mb=before_mb, eval_captures=eval_captures)
     # the two routes compute the same function from the same seed
     loss_gap = max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
                    for x, y in zip(runs["auto"]["steps"], runs["pallas"]["steps"]))
@@ -1906,6 +1922,7 @@ def train_phase(smi):
 
 
 GRAPH_STEPS = 3  # steps of the replay-against-eager check (the first captures)
+EVAL_HOST_LIMIT = 10  # host-issued launches of a replayed dev batch or LM step
 
 
 def _graph_counts():
@@ -2011,6 +2028,122 @@ def graph_phase(smi):
                 out["eager_step_sync_debug_error"] = "no host synchronisation"
             del graphs, tg, sg, te, se
     cfg.hparas.dtype, cfg.model.encoder.rnn_impl = "float32", "auto"
+    return out
+
+
+EVAL_COUNTED = ("log_mel", "ctc_lattice", "decoder_scan_fwd", "lstm_seq_fwd", "lstm_bidir_fwd")
+
+
+def _eval_counts():
+    """The validation path's launch counters (both variants) by name."""
+    return {k: v for k, v in _graph_counts().items() if k.replace("_bf16", "") in EVAL_COUNTED}
+
+
+def eval_graph_phase(smi):
+    """Validation through CUDA graphs (training/eval_graph.py) against the
+    eager validation at the flagship's full width, under both LSTM routes
+    and both compute types: the smoke train solver's dev epoch (16
+    utterances in the 816 bucket, one batch, 240 greedy steps) through
+    ``Solver.dev_epoch`` three times, the graphs' first run (a capture),
+    their replay and the eager run, each with the launch counters set to 0
+    just before: the summary, every token and CTC id bitwise equal, the
+    replay's counts the eager run's, and each run's wall. Before them one
+    train step through the solver's train graphs, so that the validation's
+    graphs share a pool that holds a train step; at float32 on the default
+    route the peak memory of the capture in that shared pool against one in
+    a pool of its own, the profiler's host-issued and device launches of a
+    replayed dev batch (at most EVAL_HOST_LIMIT issued by the host), and one
+    eager validation under the sync debug mode set to raise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import host_launches, smoke_train_solver
+    from e2e_asr_tpu_torch.bin.train_asr import DEV_STEP_RATIO
+    from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+
+    solver = smoke_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_eval_graph"), SEED, 1)
+    cfg = solver.config
+    if solver.eval_graphs is None or solver.eval_graphs.share is not solver.train_graphs:
+        fail("the flagship's validation does not run through CUDA graphs sharing the train graphs' pool")
+    solver.trainer.train_step(solver.state, solver._put(next(solver.tr_set.epoch(0))), solver.step_generator(0),
+                              graphs=solver.train_graphs)
+    torch.cuda.synchronize()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for impl in ("auto", "pallas"):
+            cfg.hparas.dtype, cfg.model.encoder.rnn_impl = dtype, impl
+            what = f"{dtype}, rnn_impl {impl}"
+            runs, kept = {}, {}
+            for mode in ("capture", "replay", "eager"):
+                before_mb = _reset_peak()
+                c0 = _eval_counts()
+                kept[mode] = []
+                t0 = time.perf_counter()
+                summary, _ = solver.dev_epoch(graphs=mode != "eager", keep=kept[mode])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                c1 = _eval_counts()
+                runs[mode] = dict(summary=summary, wall_s=wall,
+                                  launches={k: c1[k] - c0[k] for k in c0 if c1[k] - c0[k]},
+                                  peak_mb_above=torch.cuda.max_memory_allocated() / 2 ** 20 - before_mb)
+            same = runs["capture"]["summary"] == runs["replay"]["summary"] == runs["eager"]["summary"]
+            arrays = all(np.array_equal(a[k], b[k]) for m in ("capture", "replay") for a, b in
+                         zip(kept[m], kept["eager"]) for k in b) and len(kept["replay"]) == len(kept["eager"]) > 0
+            captures = [(k, round(t, 3)) for k, t in solver.eval_graphs.captures]
+            print(f"  validation graphs vs eager ({what}): summary bitwise {same}, tokens and CTC ids bitwise "
+                  f"{arrays}; wall capture run {runs['capture']['wall_s']:.3f} s, replay {runs['replay']['wall_s']:.3f} "
+                  f"s, eager {runs['eager']['wall_s']:.3f} s; launches replay {runs['replay']['launches']}, eager "
+                  f"{runs['eager']['launches']}; captures so far {[t for _, t in captures]} s; "
+                  f"{runs['replay']['summary']}", flush=True)
+            if not (same and arrays):
+                fail(f"graph validation ({what}) is not bitwise the eager validation")
+            if runs["replay"]["launches"] != runs["eager"]["launches"] or not runs["replay"]["launches"]:
+                fail(f"graph and eager validation ({what}) counted other launches")
+            if not all(math.isfinite(v) for v in runs["replay"]["summary"].values()):
+                fail(f"graph validation ({what}) gave a non-finite number")
+            out[f"{dtype}_{impl}"] = dict(runs=runs, captures=captures)
+    cfg.hparas.dtype, cfg.model.encoder.rnn_impl = "float32", "auto"
+
+    # ---- float32, default route: the pool's choice, launches, the sync check
+    batch = solver._put(next(solver.dv_set.epoch()))
+    max_step = int(batch["text"].shape[1] * DEV_STEP_RATIO)
+    shared = solver.eval_graphs
+    peaks = {}
+    for name, graphs in (("shared with the train graphs", EvalGraphs(share=solver.train_graphs)),
+                         ("its own", EvalGraphs())):
+        before_mb = _reset_peak()
+        torch.cuda.empty_cache()  # as the capture does when it starts: the growth below is the pool's own
+        res0 = torch.cuda.memory_reserved() / 2 ** 20
+        solver.trainer.validate_batch(solver.state.params, batch, max_step, graphs=graphs)
+        torch.cuda.synchronize()
+        peaks[name] = dict(peak_mb_above=torch.cuda.max_memory_allocated() / 2 ** 20 - before_mb,
+                           reserved_mb_added=torch.cuda.memory_reserved() / 2 ** 20 - res0,
+                           capture_s=graphs.captures[-1][1])
+        peak = peaks[name]
+        print(f"  a flagship dev batch's validation captured into a pool {name}: "
+              f"{_peak_line(before_mb, before_mb + peak['peak_mb_above'])}; reserved memory grew "
+              f"{peak['reserved_mb_added']:.1f} MB; capture {peak['capture_s']:.2f} s", flush=True)
+        del graphs
+    out["pool"] = peaks
+    solver.trainer.validate_batch(solver.state.params, batch, max_step, graphs=shared)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver.trainer.validate_batch(solver.state.params, batch, max_step, graphs=shared)
+        torch.cuda.synchronize()
+    host = host_launches(prof)
+    device = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"  one replayed flagship dev batch (float32, auto, {max_step} greedy steps): {host} launches issued by the "
+          f"host, {device} device launches (profiler)", flush=True)
+    if host > EVAL_HOST_LIMIT:
+        fail(f"a replayed dev batch issued {host} launches from the host (limit {EVAL_HOST_LIMIT})")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        solver.trainer.eval_device(solver.state.params, batch, max_step)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("  one eager flagship dev batch under the sync debug mode 'error': no host synchronisation", flush=True)
+    out.update(replay_host_launches=host, replay_device_launches=device,
+               eager_sync_debug_error="no host synchronisation")
     return out
 
 
@@ -2202,6 +2335,7 @@ def lm_train_phase(dev, smi):
     from e2e_asr_tpu_torch.models import lm as lm_mod
     from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_bwd, lstm_seq_fwd
     from e2e_asr_tpu_torch.optim import Optimizer
+    from e2e_asr_tpu_torch.training.lm_graph import LMGraphs
     from e2e_asr_tpu_torch.training.step import TrainState, param_leaves
 
     solver = lm_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_lm"), SEED, LM_STEPS)
@@ -2210,8 +2344,18 @@ def lm_train_phase(dev, smi):
     if (lm.emb_dim, lm.dim, lm.n_layers, lm.emb_tying, lm.batch_size, h.optimizer.lower(), h.grad_clip) != (
             512, 512, 2, True, 32, "adam", 5.0):
         fail("the LM recipe is not at its full width")
+    if solver.graphs is None or solver.eval_graphs is None:
+        fail("the LM step or its evaluation does not run through CUDA graphs on the card")
+    before_mb = _reset_peak()
     launches, wall = _run_counted(solver, {"lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd},
                                   "LM train")
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    captures = {what: [(k, round(t, 3)) for k, t in g.captures]
+                for what, g in (("step", solver.graphs), ("evaluation", solver.eval_graphs))}
+    print(f"  LM train: step captures {[t for _, t in captures['step']]} s, evaluation captures "
+          f"{[t for _, t in captures['evaluation']]} s; {_peak_line(before_mb, peak_mb)}", flush=True)
+    if not captures["step"] or not captures["evaluation"]:
+        fail("the LM run captured no step or no evaluation graph")
     log = list(solver.step_log)
     if len(log) != LM_STEPS:
         fail(f"{len(log)} LM steps ran, expected {LM_STEPS}")
@@ -2240,6 +2384,8 @@ def lm_train_phase(dev, smi):
         opt = Optimizer(h)
         return TrainState(params, opt.init(leaves), 0), opt
 
+    graph_check = lm_graph_check(solver, fresh, smi)
+
     res = {}
     for mode in ("kernel", "plain"):
         state, opt = fresh()
@@ -2264,21 +2410,111 @@ def lm_train_phase(dev, smi):
     for length in (256, 512):
         text = torch.randint(1, solver.vocab_size, (32, length), generator=gen, device=dev, dtype=torch.int32)
         b_l = {"text": text, "text_len": torch.full((32,), length, dtype=torch.int32, device=dev)}
-        state, opt = fresh()
-        times = []
-        for i in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            train_lm.train_step(state, opt, lm, b_l, solver.step_generator(i))
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        step_ms[length] = sorted(times[1:])[len(times[1:]) // 2]
-        print(f"LM train step B=32 L={length} (random ids, lm_example width): median {step_ms[length]:.2f} ms "
-              f"of steps 2-6 (step 1 {times[0]:.2f} ms), host clock around a synchronised step, on {smi}",
-              flush=True)
-    return dict(launches=launches, steps=log, dev_ppl=solver.dev_ppl, wall_s=wall,
+        for mode in ("eager", "graph"):
+            state, opt = fresh()
+            graphs = LMGraphs() if mode == "graph" else None
+            times = []
+            for i in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_lm.train_step(state, opt, lm, b_l, solver.step_generator(i), graphs=graphs)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            step_ms[f"{length}_{mode}"] = sorted(times[1:])[len(times[1:]) // 2]
+            print(f"LM train step B=32 L={length} (random ids, lm_example width, {mode}): median "
+                  f"{step_ms[f'{length}_{mode}']:.2f} ms of steps 2-6 (step 1 {times[0]:.2f} ms"
+                  f"{', the capture' if graphs else ''}), host clock around a synchronised step, on {smi}", flush=True)
+    return dict(launches=launches, steps=log, dev_ppl=solver.dev_ppl, wall_s=wall, captures=captures,
+                peak_mb=peak_mb, allocated_before_mb=before_mb, graph_check=graph_check,
                 parity=dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, param_max_abs=p_err),
                 step_ms_by_length=step_ms)
+
+
+LM_GRAPH_STEPS = 4  # steps of the LM's replay-against-eager check (the first captures, the third non-finite)
+
+
+def lm_graph_check(solver, fresh, smi):
+    """The LM step's CUDA graphs (training/lm_graph.py) against the eager
+    step at lm_example.yaml's width: LM_GRAPH_STEPS steps of the solver's
+    training batches of one bucket shape from the same weights and seeds
+    (dropout on; the first captures, the rest replay), the third
+    made non-finite by a NaN bias in both models (restored after it): the
+    metrics and every parameter and optimizer tensor bitwise after each
+    step (NaNs compared by their bits), the skipped step leaving both models
+    as they were, the same launch counts; then the profiler's host-issued
+    launches of one replayed step and its ring copy (at most
+    EVAL_HOST_LIMIT)."""
+    from itertools import islice
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from e2e_asr_tpu_torch.bin import train_lm
+    from e2e_asr_tpu_torch.bin.profile_decode import host_launches
+    from e2e_asr_tpu_torch.training.lm_graph import LMGraphs
+    from e2e_asr_tpu_torch.training.step import param_leaves
+
+    lm = solver.config.lm
+    if lm.dropout <= 0:
+        fail("the LM graph check needs the recipe's dropout on")
+    bits = lambda t: t.detach().reshape(-1).contiguous().view(torch.uint8)  # noqa: E731
+
+    def tensors(state):
+        return [p.detach() for p in param_leaves(state.params)] + [
+            t for k in sorted(state.opt_state) for t in param_leaves(state.opt_state[k])]
+
+    def same(xs, ys):
+        return all(a.dtype == b.dtype and torch.equal(bits(a), bits(b)) for a, b in zip(xs, ys))
+
+    (sg, og), (se, oe) = fresh(), fresh()
+    graphs = LMGraphs()
+    first = next(solver.tr_set.epoch(0))["text"].shape  # batches of one bucket shape: replays after the capture
+    batches = [solver._put(b) for b in islice((b for b in solver.tr_set.forever() if b["text"].shape == first),
+                                              LM_GRAPH_STEPS)]
+    steps = []
+    for i, b in enumerate(batches):
+        if i == 2:
+            saved = sg.params["cells"][0]["b"].detach().clone()
+            for st in (sg, se):
+                st.params["cells"][0]["b"].data.fill_(float("nan"))
+            before = [t.clone() for t in tensors(sg)]
+        c0 = _graph_counts()
+        mg = train_lm.train_step(sg, og, lm, b, solver.step_generator(i), graphs=graphs)
+        got = mg["scalars"].clone()
+        c1 = _graph_counts()
+        me = train_lm.train_step(se, oe, lm, b, solver.step_generator(i))
+        c2 = _graph_counts()
+        ok = same([got], [me["scalars"]]) and same(tensors(sg), tensors(se))
+        skipped = float(got[3])
+        kept = i != 2 or same(tensors(sg), before)
+        dg = {k: c1[k] - c0[k] for k in c0 if c1[k] - c0[k]}
+        de = {k: c2[k] - c1[k] for k in c0 if c2[k] - c1[k]}
+        steps.append(dict(scalars=got.tolist(), bitwise=ok, launches_graph=dg, launches_eager=de))
+        print(f"  LM graph vs eager step {i + 1}{' (capture)' if i == 0 else ' (replay)'}, shape "
+              f"{list(b['text'].shape)}: {dict(zip(train_lm.SCALARS, got.tolist()))}; bitwise {ok}; launches {dg}",
+              flush=True)
+        if i == 2:
+            for st in (sg, se):
+                st.params["cells"][0]["b"].data.copy_(saved)
+        if not ok or not kept:
+            fail(f"the replayed LM step is not bitwise the eager step at step {i + 1}")
+        if skipped != float(i == 2):
+            fail(f"LM graph check step {i + 1}: step_skipped {skipped}")
+        if dg != de or not dg:
+            fail(f"the LM graph and eager steps counted other launches: {dg} vs {de}")
+    b = batches[-1]
+    ring = torch.empty((2, len(train_lm.SCALARS)), device=b["text"].device)
+    ring[0].copy_(train_lm.train_step(sg, og, lm, b, solver.step_generator(9), graphs=graphs)["scalars"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ring[1].copy_(train_lm.train_step(sg, og, lm, b, solver.step_generator(10), graphs=graphs)["scalars"])
+        torch.cuda.synchronize()
+    host = host_launches(prof)
+    device = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"  one replayed LM step (lm_example width, B={b['text'].shape[0]}, L={b['text'].shape[1]}): {host} "
+          f"launches issued by the host, {device} device launches (profiler) on {smi}", flush=True)
+    if host > EVAL_HOST_LIMIT:
+        fail(f"a replayed LM step issued {host} launches from the host (limit {EVAL_HOST_LIMIT})")
+    return dict(steps=steps, captures=graphs.captures, replay_host_launches=host, replay_device_launches=device)
 
 
 def decode_in_turns(solvers: dict, batch) -> dict:
@@ -2648,6 +2884,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     # ---- the training paths
     train = train_phase(smi)
     graph = graph_phase(smi)
+    evals = eval_graph_phase(smi)
     lm_train = lm_train_phase(dev, smi)
     conv = convergence_phase(dev, smi)
     recipes = recipe_phase(conv.pop("ckpt"), smi)
@@ -2682,8 +2919,12 @@ def main(json_path: str = "", parent: str = "") -> None:
          decode_lm["auto"]["launches"]),
         ("flagship decode with the LM fused in (lm_weight 0.3), rnn_impl pallas (pinned)",
          decode_lm["pallas"]["launches"]),
-        (f"LM train (lm_example.yaml width), {LM_STEPS} steps + validation through bin/train_lm.Solver.exec",
-         lm_train["launches"]),
+        (f"LM train (lm_example.yaml width), {LM_STEPS} steps + validation through bin/train_lm.Solver.exec "
+         "(step and evaluation graph replays)", lm_train["launches"]),
+        *((f"flagship validation, one dev epoch (one batch, 240 greedy steps) replaying its CUDA graph, float32, "
+           f"rnn_impl {impl}", {("ctc_loss" if k == "ctc_lattice" else k): v
+                                for k, v in evals[f"float32_{impl}"]["runs"]["replay"]["launches"].items()})
+          for impl in ("auto", "pallas")),
         (f"main --lm on configs/synthetic_lm_conv.yaml, {RECIPE_LM_STEPS} steps + validation",
          recipes["lm_launches"]),
         ("main --test on configs/synthetic_decode_conv.yaml with that LM fused in", recipes["decode_launches"]),
@@ -2734,7 +2975,8 @@ def main(json_path: str = "", parent: str = "") -> None:
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump({"card": smi, "kernels": rows, "decode": decode, "decode_routes_score_rel_diff": route_err,
-                   "decode_lm": decode_lm, "train": train, "train_graphs": graph, "lm_train": lm_train,
+                   "decode_lm": decode_lm, "train": train, "train_graphs": graph, "eval_graphs": evals,
+                   "lm_train": lm_train,
                    "convergence": conv,
                    "recipes": recipes, "loader": loader, "bf16": bf16}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,9 @@
-"""Where the time of one flagship decode batch, or one training step, goes
-on the card.
+"""Where the time of one flagship decode batch, one training step, a dev
+epoch or an LM step goes on the card.
 
     python -m e2e_asr_tpu_torch.bin.profile_decode [--train [--scan-phases]] [--rnn-impl IMPL]
         [--lm-weight W] [--eager] [--parent DIR] [--out PATH]
+    python -m e2e_asr_tpu_torch.bin.profile_decode --validate [--dtype D] | --lm [--parent DIR]
 
 Decode (default): decodes the chip smoke batch (16 synthetic utterances in
 the 816-frame bucket, flagship width, seed-0 weights, beam 16, ctc_weight
@@ -42,6 +43,21 @@ same for the flagship train step (``--dtype``, default the recipe's bf16):
 the change's process through the graph and the eager step in turns, the
 parent's its own step twice, each run's wall the median of TRAIN_REPS
 timed steps (``profile_train_turns.json``).
+
+``--validate`` profiles the flagship's dev epoch (VALIDATE_DEV_UTTS
+utterances: 4 batches of 16 in the 816 bucket, at the recipe's bf16 or
+``--dtype``) through ``bin/train_asr.Solver.validate`` (checkpoint writes
+taken out), after one train step through the train graphs: this tree's
+validation through its CUDA graphs and eagerly (``graphs=False``) in turns,
+and with ``--parent DIR`` the parent's validation, processes parent,
+change, change, parent; each run's wall the median of VALIDATE_REPS dev
+epochs. Prints wall, busy, idle, host-issued and device launches a dev
+batch, capture seconds and peak memory (``profile_validate_turns.json``).
+``--lm`` does the same for the LM step (configs/libri/lm_example.yaml's
+width, B = 32, random ids, L = 256 and 512): runs of LM_WINDOW steps,
+graphs and eager steps with their metrics into a ring read once a run,
+against the parent's steps with every metric read after each step
+(``profile_lm_turns.json``).
 
 ``--decode-phases`` instead splits one launch of each decode kernel into
 its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
@@ -757,22 +773,35 @@ print(json.dumps(res))
 """
 
 
+def _in_turns(parent: str, body: str, argv, what: str) -> list:
+    """``body`` (with this module's profiling functions, ``turns_script``)
+    run in processes of their own in turns: parent, change, change, parent
+    with ``parent`` (a checkout of the parent commit), else the change
+    once; the parent's modes "loop,loop", the change's "graph,eager,eager,
+    graph". Returns [(tree, its JSON line)]."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    change = ("change", root, "graph,eager,eager,graph")
+    order = [("parent", parent, "loop,loop"), change, change, ("parent", parent, "loop,loop")] if parent else [change]
+    script = turns_script(body)
+    out = []
+    for which, path, modes in order:
+        path = os.path.abspath(path)
+        proc = subprocess.run([sys.executable, "-c", script, modes, *map(str, argv)], cwd=path, capture_output=True,
+                              text=True, env={**os.environ, "PYTHONPATH": path}, timeout=1200)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {which}'s {what} profile failed:\n{proc.stderr[-3000:]}")
+        out.append((which, json.loads(proc.stdout.strip().splitlines()[-1])))
+    return out
+
+
 def decode_turns(parent: str, card: str) -> dict:
     """The flagship decode batch, unfused and fused at 0.3, in the parent's
     checkout at ``parent`` and in this one, in processes of their own in
     turns (parent, change, change, parent); this tree's through the graphs
     and the eager loop in turns."""
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    script = turns_script()
     out = {}
-    for which, path, modes in (("parent", parent, "loop,loop"), ("change", root, "graph,eager,eager,graph"),
-                               ("change", root, "graph,eager,eager,graph"), ("parent", parent, "loop,loop")):
-        path = os.path.abspath(path)
-        proc = subprocess.run([sys.executable, "-c", script, modes, str(DECODE_REPS)], cwd=path,
-                              capture_output=True, text=True, env={**os.environ, "PYTHONPATH": path}, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"the {which}'s decode profile failed:\n{proc.stderr[-3000:]}")
-        for lm_weight, runs in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+    for which, res in _in_turns(parent, _TURNS_SCRIPT, (DECODE_REPS,), "decode"):
+        for lm_weight, runs in res.items():
             for r in runs:
                 name = "parent" if which == "parent" else f"change {r['mode']}"
                 out.setdefault(lm_weight, {}).setdefault(name, []).append(r)
@@ -810,33 +839,25 @@ print(json.dumps(runs))
 """
 
 
-def turns_script(body: str = None) -> str:
-    """``body`` (default ``_TURNS_SCRIPT``) with this module's profiling
-    functions in its text, so that every tree is measured by the same code."""
+def turns_script(body: str) -> str:
+    """``body`` with this module's profiling functions in its text, so that
+    every tree is measured by the same code."""
     import inspect
 
     head = "import time\nimport torch\n"
     head += f"HOST_LAUNCH_CALLS = {HOST_LAUNCH_CALLS!r}\n"
     for fn in (_device_time_us, host_launches, profile_run):
         head += inspect.getsource(fn) + "\n"
-    return head + (body or _TURNS_SCRIPT)
+    return head + body
 
 
 def train_turns(parent: str, card: str, dtype: str) -> list:
     """The flagship train step in the parent's checkout at ``parent`` and in
     this one, in processes of their own in turns (parent, change, change,
     parent); this tree's through the graph and the eager step in turns."""
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    script = turns_script(_TRAIN_TURNS_SCRIPT)
     out = []
-    for which, path, modes in (("parent", parent, "loop,loop"), ("change", root, "graph,eager,eager,graph"),
-                               ("change", root, "graph,eager,eager,graph"), ("parent", parent, "loop,loop")):
-        path = os.path.abspath(path)
-        proc = subprocess.run([sys.executable, "-c", script, modes, str(TRAIN_REPS), dtype], cwd=path,
-                              capture_output=True, text=True, env={**os.environ, "PYTHONPATH": path}, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"the {which}'s train-step profile failed:\n{proc.stderr[-3000:]}")
-        for r in json.loads(proc.stdout.strip().splitlines()[-1]):
+    for which, runs in _in_turns(parent, _TRAIN_TURNS_SCRIPT, (TRAIN_REPS, dtype), "train-step"):
+        for r in runs:
             r["tree"] = which
             name = "parent" if which == "parent" else f"change {r['mode']}"
             out.append(r)
@@ -844,6 +865,135 @@ def train_turns(parent: str, card: str, dtype: str) -> list:
                   f"{', '.join(f'{w:.1f}' for w in r['walls_ms'])}), busy {r['device_busy_ms']:.1f} ms, idle "
                   f"{r['device_idle_share']:.3f}, host launches {r['host_launches']}, device launches "
                   f"{r['kernel_launches']}, {r['audio_s_per_s']:.1f} audio-s/s", flush=True)
+    return out
+
+
+VALIDATE_REPS = 3  # timed dev epochs a run in the validation profile
+VALIDATE_DEV_UTTS = 64  # the flagship dev epoch: 4 batches of 16 in the 816 bucket
+# One tree's validation profiles (``--validate``), run in a process of its own
+# from the root of that tree: argv[1] the modes in order ("graph", "eager";
+# "loop": the tree's own validate, the parent's), argv[2] the timed epochs a
+# run, argv[3] the dtype, argv[4] the dev utterances. Each run is
+# ``Solver.validate`` with its checkpoint writes taken out, after one train
+# step through the solver's train graphs. Prints one JSON line, [run, ...].
+_VALIDATE_TURNS_SCRIPT = """
+import json, os, sys, types
+from e2e_asr_tpu_torch.bin.profile_decode import flagship_train_config
+from e2e_asr_tpu_torch.bin.train_asr import Solver
+cfg = flagship_train_config(1, "auto", sys.argv[3])
+cfg.hparas.seed = 0
+cfg.data.corpus.dev_split = ["dev:" + sys.argv[4]]
+out = os.path.join("e2e_asr_tpu_torch", "_build", "profile_validate_turns")
+paras = types.SimpleNamespace(config="configs/libri/asr_example.yaml", name="validate", logdir=os.path.join(out, "log"),
+                              ckpdir=os.path.join(out, "ckpt"), load=None, seed=0, cpu=False, verbose=True,
+                              auto_resume=False)
+solver = Solver(cfg, paras, "train")
+solver.load_data()
+solver.set_model()
+solver.save_checkpoint = lambda *a, **k: None
+sr = cfg.data.audio.sample_rate
+audio_s = sum(float(b.wav_len.sum()) for b in solver.dv_set.epoch()) / sr
+solver.trainer.train_step(solver.state, solver._put(next(solver.tr_set.epoch(0))), solver.step_generator(0),
+                          graphs=solver.train_graphs)
+torch.cuda.synchronize()
+runs = []
+for mode in sys.argv[1].split(","):
+    kw = {"graphs": mode == "graph"} if mode != "loop" else {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    r = profile_run(lambda: solver.validate(**kw), audio_s, reps=int(sys.argv[2]))
+    r.pop("kernels")
+    r["peak_mb_above"] = (torch.cuda.max_memory_allocated() - before) / 2 ** 20
+    r["dev_batches"] = len(solver.dv_set)
+    graphs = getattr(solver, "eval_graphs", None)
+    r["captures_s"] = [] if graphs is None else [t for _, t in graphs.captures]
+    runs.append({"mode": mode, **r})
+print(json.dumps(runs))
+"""
+
+LM_WINDOW = 10  # LM steps a profiled run: a log window, the metrics read at its end
+# One tree's LM-step profiles (``--lm``), as above: argv[1] the modes ("graph",
+# "eager": the change's exec loop, its metrics into a ring read once a run;
+# "loop": the tree's own train_step with every metric read after each step,
+# as the parent's exec reads them), argv[2] the timed runs, argv[3] the
+# steps a run. Random ids, B = 32, at L = 256 and 512. Prints one JSON line,
+# {length: [run, ...]}.
+_LM_TURNS_SCRIPT = """
+import json, os, sys
+from e2e_asr_tpu_torch.bin import train_lm
+from e2e_asr_tpu_torch.bin.profile_decode import lm_train_solver
+LM_WINDOW = int(sys.argv[3])
+solver = lm_train_solver(os.path.join("e2e_asr_tpu_torch", "_build", "profile_lm_turns"), 0, 1)
+cfg = solver.config
+gen = torch.Generator(device="cuda")
+gen.manual_seed(11)
+res = {}
+for length in (256, 512):
+    text = torch.randint(1, solver.vocab_size, (32, length), generator=gen, device="cuda", dtype=torch.int32)
+    batch = {"text": text, "text_len": torch.full((32,), length, dtype=torch.int32, device="cuda")}
+    runs = []
+    for mode in sys.argv[1].split(","):
+        graphs = getattr(solver, "graphs", None) if mode == "graph" else None
+        ring = torch.empty((LM_WINDOW, 4), device="cuda")
+        def run():
+            for i in range(LM_WINDOW):
+                if mode == "loop":
+                    m = train_lm.train_step(solver.state, solver.opt, cfg.lm, batch, solver.step_generator(i))
+                    {k: float(v) for k, v in m.items()}
+                else:
+                    m = train_lm.train_step(solver.state, solver.opt, cfg.lm, batch, solver.step_generator(i),
+                                            graphs=graphs)
+                    ring[i].copy_(m["scalars"])
+            if mode != "loop":
+                ring.tolist()
+        r = profile_run(run, 32.0 * length * LM_WINDOW, reps=int(sys.argv[2]))
+        r.pop("kernels")
+        runs.append({"mode": mode, **r})
+    res[str(length)] = runs
+print(json.dumps(res))
+"""
+
+
+def validate_turns(parent: str, card: str, dtype: str) -> list:
+    """The flagship's dev epoch (VALIDATE_DEV_UTTS utterances) through
+    ``Solver.validate``: graphs and the eager validation in this tree, the
+    parent's own validation, in turns. Prints wall, busy, idle and launches
+    a dev batch, capture seconds and peak memory of each run."""
+    out = []
+    for which, runs in _in_turns(parent, _VALIDATE_TURNS_SCRIPT, (VALIDATE_REPS, dtype, VALIDATE_DEV_UTTS),
+                                 "validation"):
+        for r in runs:
+            r["tree"] = which
+            n = r["dev_batches"]
+            out.append(r)
+            name = "parent" if which == "parent" else f"change {r['mode']}"
+            print(f"{card}: dev epoch ({dtype or 'recipe dtype'}, {n} batches) {name}: wall {r['wall_ms']:.1f} ms "
+                  f"(timed {', '.join(f'{w:.1f}' for w in r['walls_ms'])}) = {r['wall_ms'] / n:.2f} ms a batch, busy "
+                  f"{r['device_busy_ms'] / n:.2f} ms a batch, idle {r['device_idle_share']:.3f}, host launches "
+                  f"{r['host_launches'] / n:.1f} a batch, device launches {r['kernel_launches'] / n:.1f} a batch, "
+                  f"captures {r['captures_s']} s, peak memory {r['peak_mb_above']:.1f} MB above the run's start",
+                  flush=True)
+    return out
+
+
+def lm_turns(parent: str, card: str) -> dict:
+    """The LM step (lm_example.yaml's width, B = 32, random ids, L = 256 and
+    512), LM_WINDOW steps a run: graphs and eager steps with the metrics
+    ring in this tree, the parent's steps with their per-step reads, in
+    turns. Prints wall, busy, idle and launches a step."""
+    out = {}
+    for which, res in _in_turns(parent, _LM_TURNS_SCRIPT, (VALIDATE_REPS, LM_WINDOW), "LM step"):
+        for length, runs in res.items():
+            for r in runs:
+                r["tree"] = which
+                out.setdefault(length, []).append(r)
+                name = "parent" if which == "parent" else f"change {r['mode']}"
+                w = LM_WINDOW
+                print(f"{card}: LM step L={length} {name}: wall {r['wall_ms'] / w:.3f} ms a step (runs of {w}: "
+                      f"{', '.join(f'{x / w:.3f}' for x in r['walls_ms'])}), busy {r['device_busy_ms'] / w:.3f} ms, "
+                      f"idle {r['device_idle_share']:.3f}, host launches {r['host_launches'] / w:.1f} a step, device "
+                      f"launches {r['kernel_launches'] / w:.1f} a step", flush=True)
     return out
 
 
@@ -869,12 +1019,21 @@ def main(argv=None):
                          "here in turns")
     ap.add_argument("--dtype", default="recipe", choices=("recipe", "float32", "bfloat16"),
                     help="with --train: the compute type (hparas.dtype; recipe: the recipe's, bfloat16)")
+    ap.add_argument("--validate", action="store_true",
+                    help="profile the flagship's dev epoch, the validation's graphs against the eager validation "
+                         "(with --parent: and the parent's), in turns")
+    ap.add_argument("--lm", action="store_true",
+                    help="profile the LM step at L=256 and 512, graphs against eager (with --parent: and the "
+                         "parent's), in turns")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
     args = ap.parse_args(argv)
+    if (args.validate or args.lm) and (args.train or args.scan_phases or args.decode_phases or args.lm_weight
+                                       or args.eager or args.validate == args.lm):
+        ap.error("--validate and --lm stand alone (with --parent, and --dtype for --validate)")
     if args.scan_phases and not args.train:
         ap.error("--scan-phases needs --train")
-    if args.dtype != "recipe" and (not args.train or args.scan_phases):
-        ap.error("--dtype is an option of the training profile")
+    if args.dtype != "recipe" and (not (args.train or args.validate) or args.scan_phases):
+        ap.error("--dtype is an option of the training and validation profiles")
     if args.lm_weight and (args.train or args.decode_phases):
         ap.error("--lm-weight is an option of the decode profile")
     if (args.eager or args.parent) and (args.scan_phases or args.decode_phases):
@@ -883,7 +1042,8 @@ def main(argv=None):
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
-    what = ("scan_phases" if args.scan_phases else "decode_phases" if args.decode_phases
+    what = ("validate_turns" if args.validate else "lm_turns" if args.lm
+            else "scan_phases" if args.scan_phases else "decode_phases" if args.decode_phases
             else "train_turns" if args.train and args.parent else ("train" + ("_eager" if args.eager else ""))
             if args.train else "decode_turns" if args.parent
             else ("decode_lm" if args.lm_weight else "decode") + ("_eager" if args.eager else ""))
@@ -892,6 +1052,13 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.validate or args.lm:
+        res = (validate_turns(args.parent, card, "" if args.dtype == "recipe" else args.dtype) if args.validate
+               else lm_turns(args.parent, card))
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"card": card, "reps": VALIDATE_REPS, "dtype": args.dtype, "runs": res}, f, indent=1)
+        return
     if args.train and args.parent:
         turns = train_turns(args.parent, card, "" if args.dtype == "recipe" else args.dtype)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

@@ -30,6 +30,14 @@ read once at every ``log_step``, before validation and at the end, as the
 JAX loop reads its metrics at its log boundary; ``step_log`` still gets
 one record per step.
 
+Validation (``dev_epoch``): the dev batches come through a prefetcher; on
+the card each is one replay of the CUDA graph of its dev bucket shape
+(``training/eval_graph.py``: losses, CTC argmax and the greedy decode,
+sharing the train graphs' memory pool), eager where the evaluation's
+speller takes the Python loop (said once) and on the CPU. The losses are
+read once an epoch; each batch's tokens and CTC ids reach the host through
+pinned buffers while the next batch runs.
+
 Time per logged window: ``rd`` is the wait for the next batch in
 ``next(prefetch)``, ``disp`` the host time spent issuing the steps' work,
 ``dev`` the rest of the window (window time - rd - disp): the time the
@@ -43,7 +51,7 @@ from __future__ import annotations
 import collections
 import os
 import time
-from typing import Deque, Dict
+from typing import Deque, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,13 +59,12 @@ import torch
 from e2e_asr_tpu_torch import convert, cuda_build, optim
 from e2e_asr_tpu_torch.data.dataset import load_dataset
 from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
-from e2e_asr_tpu_torch.decode.greedy import greedy_decode
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.metrics import cal_er
 from e2e_asr_tpu_torch.models import asr as asr_mod
-from e2e_asr_tpu_torch.ops.frontend import compute_features
 from e2e_asr_tpu_torch.solver import BaseSolver
-from e2e_asr_tpu_torch.training.step import Trainer, compute_dtype, param_leaves
+from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+from e2e_asr_tpu_torch.training.step import EVAL_SCALARS, Trainer, compute_dtype, param_leaves
 from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
 
 DEV_STEP_RATIO = 1.2  # greedy decode steps per target token at validation
@@ -122,6 +129,7 @@ class Solver(BaseSolver):
             self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
         self._corpus_buf = self._device_corpus()
         self.train_graphs = self._train_graphs()
+        self.eval_graphs = self._eval_graphs()
 
     def _train_graphs(self):
         """The solver's cache of train-step graphs, or None where the step
@@ -136,6 +144,21 @@ class Solver(BaseSolver):
             return None
         self.verbose("Train step: CUDA graphs, one a bucket shape (training/step_graph.py)")
         return TrainGraphs(log=self.verbose)
+
+    def _eval_graphs(self):
+        """The solver's cache of validation graphs (sharing the train graphs'
+        memory pool), or None where validation runs eagerly: on the CPU, and
+        where the evaluation's speller takes the Python loop (said here
+        once)."""
+        if self.device.type != "cuda":
+            return None
+        route = asr_mod.speller_route(self.state.params, self.config.model, False, self.device)
+        if route == "loop":
+            self.verbose("Validation: eager (the speller takes the Python loop: decoder.fused_scan "
+                         f"{self.config.model.decoder.fused_scan!r}, or a speller outside the fused scan's envelope)")
+            return None
+        self.verbose("Validation: CUDA graphs, one a dev bucket shape (training/eval_graph.py)")
+        return EvalGraphs(log=self.verbose, share=self.train_graphs)
 
     def _device_corpus(self):
         """The training corpus's flat int16 buffer on the device, or None to
@@ -257,46 +280,13 @@ class Solver(BaseSolver):
         self.save_checkpoint("latest", "step", float(self.step), self.state)
 
     # ------------------------------------------------------------ validation
-    def validate(self) -> Dict[str, float]:
-        """Dev losses (teacher-forced) and greedy error rates of both heads;
-        saves ``best_att`` / ``best_ctc`` on improvement and ``latest``."""
-        cfg = self.config
-        params = self.state.params
-        losses: Dict[str, list] = {}
-        er = np.zeros(6, np.float64)  # att err/len, att alt err/len, ctc err/len
-        have_att = have_ctc = sample_logged = False
-        for batch in self.dv_set.epoch():  # the dev set streams
-            dbatch = self._put(batch)
-            m = self.trainer.eval_step(params, dbatch)
-            for k in ("loss", "att_loss", "ctc_loss"):
-                if k in m:
-                    losses.setdefault(k, []).append(float(m[k]))
-            text, valid = batch.text, batch.text_len > 0
-            if "att_preds" in m:
-                have_att = True
-                feat, feat_len = compute_features(dbatch["wav"], dbatch["wav_len"], cfg.data.audio)
-                max_step = int(text.shape[1] * DEV_STEP_RATIO)
-                toks, _ = greedy_decode(params, cfg.model, feat, feat_len, max_step)
-                toks = toks.cpu().numpy()
-                er[0:2] += cal_er(self.tokenizer, toks[valid], text[valid], mode=self._er_mode())
-                er[2:4] += cal_er(self.tokenizer, toks[valid], text[valid], mode=self._er_mode(alt=True))
-                if not sample_logged and valid.any():
-                    i = int(np.argmax(valid))
-                    self.write_log("dev_sample", f"hyp: {self.tokenizer.decode(toks[i])}\n\n"
-                                                 f"ref: {self.tokenizer.decode(text[i])}")
-                    sample_logged = True
-            if "ctc_preds" in m:
-                have_ctc = True
-                ids = m["ctc_preds"].cpu().numpy()
-                enc_len = m["enc_len"].cpu().numpy()
-                er[4:6] += cal_er(self.tokenizer, ids[valid], text[valid], mode=self._er_mode(),
-                                  ctc=True, pred_len=enc_len[valid])
-        summary = {k: float(np.mean(v)) for k, v in losses.items()}
-        if have_att:
-            summary["dev_er_att"] = float(er[0] / max(er[1], 1))
-            summary[f"dev_{self._er_mode(alt=True)}_att"] = float(er[2] / max(er[3], 1))
-        if have_ctc:
-            summary["dev_er_ctc"] = float(er[4] / max(er[5], 1))
+    def validate(self, graphs: bool = True) -> Dict[str, float]:
+        """Dev losses (teacher-forced) and greedy error rates of both heads
+        (``dev_epoch``); saves ``best_att`` / ``best_ctc`` on improvement and
+        ``latest``. ``graphs=False`` runs the dev batches eagerly on the card."""
+        summary, sample = self.dev_epoch(graphs)
+        if sample is not None:
+            self.write_log("dev_sample", sample)
         self.progress("DEV " + " | ".join(f"{k} {v:.3f}" for k, v in summary.items()))
         self.write_log("dev_loss", {k: v for k, v in summary.items() if "loss" in k})
         for head, key in (("att", "dev_er_att"), ("ctc", "dev_er_ctc")):
@@ -308,6 +298,79 @@ class Solver(BaseSolver):
         self.save_checkpoint("latest", "step", float(self.step), self.state)
         self.dev_summary = summary
         return summary
+
+    def dev_epoch(self, graphs: bool = True, keep: Optional[list] = None) -> Tuple[Dict[str, float], Optional[str]]:
+        """One pass over the dev set: (summary, the ``dev_sample`` text of
+        the first batch with a reference, or None).
+
+        The dev batches come through a ``DevicePrefetcher``. Each runs
+        ``Trainer.eval_device`` (losses, CTC argmax, greedy tokens), on the
+        card a replay of ``eval_graphs`` unless ``graphs`` is False, with no
+        host read: its losses stay on the device, one row a batch, read once
+        after the last batch; its tokens, CTC ids and encoder lengths are
+        copied to pinned host buffers behind its work, and the host scores
+        batch i (``cal_er``) while batch i + 1 runs. The summary is the
+        per-batch host path's: each loss the mean of the batches' float32
+        values in float64, each error rate the corpus-level ratio of the
+        counts. ``keep`` (a list) receives each batch's host arrays."""
+        params = self.state.params
+        keys = self.trainer.scalar_keys(EVAL_SCALARS)
+        eval_graphs = self.eval_graphs if graphs else None
+        er = np.zeros(6, np.float64)  # att err/len, att alt err/len, ctc err/len
+        have = set()
+        rows = []  # each batch's losses, on the device
+        sample = []
+
+        def score(batch, host, event):
+            if event is not None:
+                event.synchronize()
+            host = {k: v.numpy() for k, v in host.items()}
+            text, valid = batch.text, batch.text_len > 0
+            if "tokens" in host:
+                toks = host["tokens"]
+                er[0:2] += cal_er(self.tokenizer, toks[valid], text[valid], mode=self._er_mode())
+                er[2:4] += cal_er(self.tokenizer, toks[valid], text[valid], mode=self._er_mode(alt=True))
+                if not sample and valid.any():
+                    i = int(np.argmax(valid))
+                    sample.append(f"hyp: {self.tokenizer.decode(toks[i])}\n\nref: {self.tokenizer.decode(text[i])}")
+            if "ctc_preds" in host:
+                er[4:6] += cal_er(self.tokenizer, host["ctc_preds"][valid], text[valid], mode=self._er_mode(),
+                                  ctc=True, pred_len=host["enc_len"][valid])
+            have.update(host)
+            if keep is not None:
+                keep.append(host)
+
+        pending = None
+        prefetch = DevicePrefetcher(self.dv_set.epoch(), self._put, depth=2, device=self.device)
+        try:
+            for batch, dbatch in prefetch:
+                max_step = int(batch.text.shape[1] * DEV_STEP_RATIO)
+                m = self.trainer.validate_batch(params, dbatch, max_step, graphs=eval_graphs)
+                rows.append(m["scalars"].clone())
+                outs = {k: m[k] for k in ("tokens", "ctc_preds", "enc_len") if k in m}
+                event = None
+                if self.device.type == "cuda":
+                    outs = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)
+                            for k, v in outs.items()}
+                    event = torch.cuda.Event()
+                    event.record()
+                if pending is not None:
+                    score(*pending)
+                pending = (batch, outs, event)
+            if pending is not None:
+                score(*pending)
+        finally:
+            prefetch.close()
+        summary = {}
+        if rows:
+            losses = torch.stack(rows).T.tolist()  # the one read of the losses
+            summary = {k: float(np.mean(col)) for k, col in zip(keys, losses)}
+        if "tokens" in have:
+            summary["dev_er_att"] = float(er[0] / max(er[1], 1))
+            summary[f"dev_{self._er_mode(alt=True)}_att"] = float(er[2] / max(er[3], 1))
+        if "ctc_preds" in have:
+            summary["dev_er_ctc"] = float(er[4] / max(er[5], 1))
+        return summary, (sample[0] if sample else None)
 
     def _er_mode(self, alt: bool = False) -> str:
         primary = "cer" if self.tokenizer.token_type == "character" else "wer"

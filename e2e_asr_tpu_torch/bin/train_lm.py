@@ -12,6 +12,14 @@ scalars, every ``valid_step`` the token-weighted dev perplexity with the
 tokenizer is pinned beside the checkpoints (``tokenizer.vocab``): fusion at
 decode time must share the recogniser's id mapping.
 
+On the card the step and the dev evaluation replay CUDA graphs, one a text
+bucket shape (``training/lm_graph.py``; dropout from a generator registered
+with the step's graph, re-seeded with each step's seed); on the CPU they
+run eagerly. Neither reads the device: each step's scalar metrics go into a
+device ring read once a log window (``step_log`` keeps one record a step,
+``wall_s`` from the step's start to the next one's), and the dev sums are
+read once a validation.
+
 A step whose loss or gradient norm is not finite leaves the parameters and
 the optimizer state as they were (the JAX step keeps the parameters but
 advances the optimizer state, so that a non-finite gradient stays in
@@ -34,11 +42,13 @@ from e2e_asr_tpu_torch import convert, cuda_build, optim
 from e2e_asr_tpu_torch.config import LMConfig
 from e2e_asr_tpu_torch.data import corpus as corpus_mod
 from e2e_asr_tpu_torch.data.dataset import TextLoader, build_tokenizer
+from e2e_asr_tpu_torch.data.prefetch import to_device
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.models import lm as lm_mod
 from e2e_asr_tpu_torch.optim import Optimizer
 from e2e_asr_tpu_torch.solver import BaseSolver
-from e2e_asr_tpu_torch.training.step import TrainState, param_leaves, update_step
+from e2e_asr_tpu_torch.training.lm_graph import LMEvalGraphs, LMGraphs
+from e2e_asr_tpu_torch.training.step import TrainState, device_update, param_leaves
 
 STEP_LOG_LEN = 1000
 
@@ -59,13 +69,39 @@ def lm_loss(params, cfg: LMConfig, text: torch.Tensor, text_len: torch.Tensor,
     return loss, {"loss": loss, "n_tokens": n_tokens}
 
 
-def train_step(state: TrainState, opt: Optimizer, cfg: LMConfig, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-    """One update of ``state`` in place (``training/step.py`` ``update_step``:
-    gradients, the NaN/inf skip, clip and update). Returns metrics (tensors)
-    with the pre-clip ``grad_norm`` and ``step_skipped``."""
-    return update_step(state, opt, lambda params: lm_loss(
+# the scalar metrics an LM step writes into the solver's ring, in this order
+SCALARS = ("loss", "n_tokens", "grad_norm", "step_skipped")
+
+
+def device_step(state: TrainState, opt: Optimizer, cfg: LMConfig, batch: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+    """The device work of one update of ``state`` in place
+    (``training/step.py`` ``device_update``: gradients, the NaN/inf skip by
+    select, clip and update): what a CUDA graph captures
+    (``training/lm_graph.py``). Reads nothing back. Returns metrics (device
+    tensors) with the pre-clip ``grad_norm``, ``step_skipped`` and
+    ``scalars`` (``SCALARS`` stacked, float32)."""
+    m = device_update(state, opt, lambda params: lm_loss(
         params, cfg, batch["text"], batch["text_len"], generator, True))
+    m["scalars"] = torch.stack([m[k] for k in SCALARS])
+    return m
+
+
+def train_step(state: TrainState, opt: Optimizer, cfg: LMConfig, batch: Dict[str, torch.Tensor],
+               generator: Optional[torch.Generator], graphs=None) -> Dict[str, torch.Tensor]:
+    """One update of ``state`` in place and the host's step count (every
+    step counts, a skipped one too). Eagerly, or with ``graphs`` (a
+    ``training/lm_graph.LMGraphs``) by a replay of the graph of the batch's
+    shape (captured at its first batch) with ``generator``'s seed, whose
+    outputs are the graph's static tensors: read them before the next
+    replay."""
+    if graphs is not None:
+        m = graphs.step(cfg, state, batch, generator.initial_seed(),
+                        lambda b, gen: device_step(state, opt, cfg, b, gen))
+    else:
+        m = device_step(state, opt, cfg, batch, generator)
+    state.step += 1
+    return m
 
 
 class Solver(BaseSolver):
@@ -115,13 +151,19 @@ class Solver(BaseSolver):
             self.verbose(f"Resumed from {self.paras.load} @ step {self.step}")
         n = sum(p.numel() for p in param_leaves(params))
         self.verbose(f"RNNLM: #params={n}, device={self.device}")
+        self.graphs = self.eval_graphs = None  # the CPU runs the eager step and evaluation
         if self.device.type == "cuda":
             t0 = time.time()
             cuda_build.build_all()
             self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
+            self.verbose("LM step and evaluation: CUDA graphs, one a text bucket shape (training/lm_graph.py)")
+            self.graphs = LMGraphs(log=self.verbose)
+            self.eval_graphs = LMEvalGraphs(log=self.verbose, share=self.graphs)
 
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        """A host batch on the device (on the card pinned ``non_blocking``
+        copies, so that the host does not wait for the queued steps)."""
+        return {k: to_device(v, self.device) for k, v in batch.items()}
 
     def step_generator(self, step: int) -> torch.Generator:
         """The dropout stream of one training step, from the seed and the step."""
@@ -137,32 +179,60 @@ class Solver(BaseSolver):
         cfg = self.config
         self.verbose(f"Total training steps {self.max_step}.")
         it = self.tr_set.forever()
+        # the steps' scalar metrics, one row a step, read at the window's end;
+        # allocated here, outside any graph's pool
+        ring = torch.empty((STEP_LOG_LEN, len(SCALARS)), dtype=torch.float32, device=self.device)
+        pending = []  # (step, start time) of each step, until the ring is read
+
+        def flush() -> Dict[str, float]:
+            """Reads the ring (the window's one wait for the device) into
+            ``step_log``; returns the last step's metrics."""
+            rows = ring[:len(pending)].tolist()
+            t_end = time.time()
+            for n, ((step, t0), row) in enumerate(zip(pending, rows)):
+                t_next = pending[n + 1][1] if n + 1 < len(pending) else t_end
+                self.step_log.append({**dict(zip(SCALARS, row)), "step": step, "wall_s": t_next - t0})
+            pending.clear()
+            return self.step_log[-1]
+
         while self.step < self.max_step:
             t0 = time.time()
             batch = self._put(next(it))
-            m = train_step(self.state, self.opt, cfg.lm, batch, self.step_generator(self.step))
+            m = train_step(self.state, self.opt, cfg.lm, batch, self.step_generator(self.step), graphs=self.graphs)
+            ring[len(pending)].copy_(m["scalars"])
             self.step += 1
-            rec = {k: float(v) for k, v in m.items()}
-            self.step_log.append({**rec, "step": self.step, "wall_s": time.time() - t0})
-            if self.step % cfg.hparas.log_step == 0:
+            pending.append((self.step, t0))
+            logged = self.step % cfg.hparas.log_step == 0
+            validate = self.step % self.valid_step == 0
+            if logged or validate or len(pending) == STEP_LOG_LEN or self.step >= self.max_step:
+                rec = flush()
+            if logged:
                 self.progress(f"lm loss {rec['loss']:.3f} | ppl {np.exp(rec['loss']):.1f} | "
                               f"gnorm {rec['grad_norm']:.2f}")
                 self.write_log("lm_loss", rec["loss"])
                 self.write_log("lm_ppl", float(np.exp(rec["loss"])))
-            if self.step % self.valid_step == 0:
+            if validate:
                 self.validate()
         self.verbose("Training completed.")
         self.save_checkpoint("latest", "step", float(self.step), self.state)
 
-    def validate(self) -> float:
+    def validate(self, graphs: bool = True) -> float:
         """Token-weighted dev perplexity; saves ``best_ppl`` on improvement
-        and ``latest``."""
-        tot_nll, tot_tok = 0.0, 0.0
+        and ``latest``. Each dev batch's evaluation (on the card a replay of
+        the graph of its shape, unless ``graphs`` is False) adds its
+        token-weighted nll and its token count, in float64, to a device sum
+        read once after the last batch: the host sums' arithmetic, bit for
+        bit."""
+        acc = torch.zeros(2, dtype=torch.float64, device=self.device)
         for batch in self.dv_set.epoch(0):
-            m = self.eval_step(self._put(batch))
-            n = float(m["n_tokens"])
-            tot_nll += float(m["loss"]) * n
-            tot_tok += n
+            batch = self._put(batch)
+            if graphs and self.eval_graphs is not None:
+                m = self.eval_graphs.eval(self.config.lm, self.state.params, batch, lambda b, _: self.eval_step(b))
+            else:
+                m = self.eval_step(batch)
+            n = m["n_tokens"].double()
+            acc += torch.stack([m["loss"].double() * n, n])
+        tot_nll, tot_tok = acc.tolist()
         ppl = float(np.exp(tot_nll / max(tot_tok, 1)))
         self.progress(f"DEV ppl {ppl:.2f}")
         self.write_log("dev_ppl", ppl)

@@ -37,9 +37,11 @@ whole forward and backward are stored in bfloat16 (the kernels' own
 rounding points are those of the JAX package's Pallas kernels); both
 heads' outputs go back to float32 for the losses. Parameters, gradients,
 their norm and the optimizer state stay float32. Evaluation runs the same
-``compute_loss``. Random draws (dither, SpecAugment, dropout, the
-teacher-forcing coins, sampled feedback) come from one ``torch.Generator``
-per step (the graphs re-seed a generator of their own with its seed).
+``compute_loss`` (``eval_device``: with the greedy decode, one program on
+the card, ``training/eval_graph.py``). Random draws (dither, SpecAugment,
+dropout, the teacher-forcing coins, sampled feedback) come from one
+``torch.Generator`` per step (the graphs re-seed a generator of their own
+with its seed).
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from e2e_asr_tpu_torch.config import Config
+from e2e_asr_tpu_torch.decode.greedy import greedy_decode
 from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.ops.ctc import ctc_loss
 from e2e_asr_tpu_torch.ops.frontend import compute_features
@@ -169,6 +172,7 @@ class TrainState:
 # the scalar metrics a training step writes into the solver's ring, in this
 # order (those of the heads the model has)
 SCALARS = ("loss", "att_loss", "ctc_loss", "grad_norm", "tf_rate", "step_skipped")
+EVAL_SCALARS = ("loss", "att_loss", "ctc_loss")  # those of a dev batch
 
 
 def device_update(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch.Tensor]:
@@ -193,17 +197,10 @@ def device_update(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch
     return metrics
 
 
-def update_step(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch.Tensor]:
-    """``device_update`` and the host's step count (every step counts, a
-    skipped one too, as in the JAX step)."""
-    metrics = device_update(state, opt, loss_fn)
-    state.step += 1
-    return metrics
-
-
 class Trainer:
-    """``train_step`` / ``eval_step`` over one parameter tree (the
-    counterpart of ``make_train_step`` / ``make_eval_step``)."""
+    """``train_step`` / ``eval_step`` / ``eval_device`` over one parameter
+    tree (the counterpart of ``make_train_step`` / ``make_eval_step`` and
+    the validation's jitted greedy decode)."""
 
     def __init__(self, cfg: Config):
         self.cfg = cfg
@@ -215,11 +212,12 @@ class Trainer:
             p.requires_grad_(True)
         return TrainState(params, self.opt.init(param_leaves(params)), 0)
 
-    def scalar_keys(self) -> Tuple[str, ...]:
-        """The names of ``metrics["scalars"]``, in order: ``SCALARS`` of the
-        heads this model has."""
+    def scalar_keys(self, names: Tuple[str, ...] = SCALARS) -> Tuple[str, ...]:
+        """The names of ``metrics["scalars"]``, in order: those of ``names``
+        (``SCALARS`` of a train step, ``EVAL_SCALARS`` of a dev batch) that
+        the heads this model has give."""
         w = self.cfg.model.ctc_weight
-        return tuple(k for k in SCALARS if not (k == "att_loss" and w >= 1) and not (k == "ctc_loss" and w <= 0))
+        return tuple(k for k in names if not (k == "att_loss" and w >= 1) and not (k == "ctc_loss" and w <= 0))
 
     def set_tf(self, step: int, device: torch.device) -> torch.Tensor:
         """``tf_buf`` (allocated once, outside any graph) holding the
@@ -271,3 +269,40 @@ class Trainer:
             tf=1.0, generator=None, train=False,
         )
         return metrics
+
+    @torch.no_grad()
+    def eval_device(self, params, batch: Dict[str, torch.Tensor], max_step: int) -> Dict[str, torch.Tensor]:
+        """The validation of one dev batch in either form (``resolve_wav``),
+        on the device and with no host read: what a CUDA graph captures
+        (``training/eval_graph.py``). Returns ``scalars`` (the teacher-forced
+        losses of ``eval_step`` at the compute type, ``scalar_keys
+        (EVAL_SCALARS)`` stacked, float32); with a CTC head ``ctc_preds`` [B,
+        S] (the frame-wise argmax) and ``enc_len``; with an attention head
+        ``tokens`` [B, max_step], the greedy decode (``decode/greedy.py``) of
+        float32 features. As in the JAX package's validation, which jits the
+        eval step, the features and the greedy decode apart
+        (``e2e_asr_tpu/bin/train_asr.py``), the encoder runs twice: at the
+        compute type for the losses, in float32 for the decode. ``max_step``
+        (a Python int: the dev batch's token bucket times the solver's step
+        ratio) sets the decode's length."""
+        wav, wav_len = resolve_wav(batch)
+        _, m = compute_loss(params, self.cfg, wav, wav_len, batch["text"], batch["text_len"],
+                            tf=1.0, generator=None, train=False)
+        out = {"scalars": torch.stack([m[k] for k in self.scalar_keys(EVAL_SCALARS)])}
+        if "ctc_preds" in m:
+            out["ctc_preds"], out["enc_len"] = m["ctc_preds"], m["enc_len"]
+        if "att_preds" in m:
+            feat, feat_len = compute_features(wav, wav_len, self.cfg.data.audio)
+            out["tokens"], _ = greedy_decode(params, self.cfg.model, feat, feat_len, max_step, keep_align=False)
+        return out
+
+    def validate_batch(self, params, batch: Dict[str, torch.Tensor], max_step: int,
+                       graphs=None) -> Dict[str, torch.Tensor]:
+        """``eval_device`` of one dev batch: eagerly, or with ``graphs`` (a
+        ``training/eval_graph.EvalGraphs``) by a replay of the CUDA graph of
+        the batch's shape and ``max_step`` (captured at its first batch),
+        whose outputs are the graph's static tensors: read or copy them
+        before the next replay."""
+        if graphs is not None:
+            return graphs.eval(self, params, batch, max_step)
+        return self.eval_device(params, batch, max_step)

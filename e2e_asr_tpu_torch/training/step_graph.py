@@ -36,14 +36,19 @@ kernels' cached plans and device constants are made there, outside any
 graph), then the step is captured on that stream with
 ``capture_error_mode="thread_local"``, so that the prefetch thread's CUDA
 calls (``data/prefetch.py``) may go on meanwhile. The graphs share one
-memory pool: their outputs (the metrics) are read, or copied into the
-solver's ring, before the next replay. A failure to capture or replay
-raises; nothing falls back to the eager step.
+memory pool and one capture stream (a pool's freed blocks go back to the
+stream that allocated them): their outputs (the metrics) are read, or
+copied into the solver's ring, before the next replay. A failure to
+capture or replay raises; nothing falls back to the eager step.
 
 The kernel wrappers count launches where Python calls them, so a capture
 would count once and the replays not at all: the capture's deltas are taken
 back and added again on every replay, and a replayed step counts what an
 eager one counts.
+
+``Captured`` (one program) and ``GraphCache`` (programs by key, their pool
+and stream) carry all of this; the validation's and the LM's caches
+(``training/eval_graph.py``, ``training/lm_graph.py``) are built on them.
 """
 
 from __future__ import annotations
@@ -58,9 +63,11 @@ from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.ops import ctc_cuda, decoder_cuda, frontend_cuda, rnn_cuda
 from e2e_asr_tpu_torch.training.step import TrainState, Trainer, compute_dtype, param_leaves
 
-# the kernel wrappers a train step calls, whose launch counts replays carry
+# the kernel wrappers the captured programs (a train step, a validation, an
+# LM step) call, whose launch counts replays carry
 COUNTED = (frontend_cuda.log_mel, ctc_cuda.ctc_lattice, decoder_cuda.decoder_scan_fwd, decoder_cuda.decoder_scan_bwd,
-           rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_bwd, rnn_cuda.lstm_bidir_fwd_train, rnn_cuda.lstm_bidir_bwd)
+           rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_bwd, rnn_cuda.lstm_bidir_fwd, rnn_cuda.lstm_bidir_fwd_train,
+           rnn_cuda.lstm_bidir_bwd)
 COUNTERS = ("launches", "launches_bf16")  # a wrapper's float32 and bf16 counters (cuda_build.count_launch)
 STATIC = ("wav", "wav_off", "wav_len", "text", "text_len")  # the batch's tensors a step reads
 
@@ -80,6 +87,16 @@ def _opt_leaves(opt_state) -> List[torch.Tensor]:
     return [t for k in sorted(opt_state) for t in param_leaves(opt_state[k]) if isinstance(t, torch.Tensor)]
 
 
+def batch_key(batch: Dict[str, torch.Tensor], keys=STATIC) -> tuple:
+    """The input mode of a batch (streaming ``wav``, offsets ``wav_off``
+    into the device corpus, or an LM's ``text``), its tensors' shapes and
+    types, and its ``n_samples``."""
+    mode = "stream" if batch.get("wav") is not None else "device_corpus" if "wav_off" in batch else "text"
+    return (mode,
+            tuple((k, tuple(batch[k].shape), batch[k].dtype) for k in keys if batch.get(k) is not None),
+            int(batch.get("n_samples") or 0))
+
+
 def graph_key(trainer: Trainer, state: TrainState, batch: Dict[str, torch.Tensor],
               sample_decoding: bool = True) -> tuple:
     """What a captured step depends on: the batch's shapes and input mode
@@ -91,9 +108,7 @@ def graph_key(trainer: Trainer, state: TrainState, batch: Dict[str, torch.Tensor
     cfg = trainer.cfg
     corpus = batch.get("corpus")
     return (
-        "stream" if batch.get("wav") is not None else "device_corpus",
-        tuple((k, tuple(batch[k].shape), batch[k].dtype) for k in STATIC if batch.get(k) is not None),
-        int(batch.get("n_samples") or 0), compute_dtype(cfg), cfg.model.encoder.rnn_impl,
+        *batch_key(batch), compute_dtype(cfg), cfg.model.encoder.rnn_impl,
         asr_mod.speller_route(state.params, cfg.model, True, batch["wav_len"].device), sample_decoding,
         cuda_build.use_plain(batch["wav_len"]), repr(cfg.model), repr(cfg.data.audio), cfg.hparas.ctc_infeasible,
         tuple(p.data_ptr() for p in param_leaves(state.params)),
@@ -102,39 +117,46 @@ def graph_key(trainer: Trainer, state: TrainState, batch: Dict[str, torch.Tensor
     )
 
 
-class TrainGraph:
-    """The captured step of one key, with its static inputs, generator and
-    outputs."""
+class Captured:
+    """One captured program: ``fn(batch, generator) -> outputs`` over static
+    input buffers (a contiguous copy of the first batch's tensors of
+    ``keys``; an offsets batch's corpus and ``n_samples`` as given), with a
+    CUDA generator registered with it where ``random`` (re-seeded before
+    every replay), captured on ``stream``; its outputs are static tensors
+    that the next replay overwrites."""
 
-    def __init__(self, batch: Dict[str, torch.Tensor]):
-        # static inputs: a contiguous copy of the first batch's
-        self.inputs = {k: batch[k].contiguous().clone() for k in STATIC if batch.get(k) is not None}
+    def __init__(self, batch: Dict[str, torch.Tensor], keys, stream: torch.cuda.Stream, random: bool = True):
+        self.inputs = {k: batch[k].contiguous().clone() for k in keys if batch.get(k) is not None}
         self.batch = dict(self.inputs)
-        if batch.get("wav") is None:
+        if "corpus" in batch:
             self.batch["corpus"], self.batch["n_samples"] = batch["corpus"], batch["n_samples"]
-        self.gen = torch.Generator(device=batch["wav_len"].device)
-        self.stream = torch.cuda.Stream()
+        dev = next(iter(self.inputs.values())).device
+        self.gen = torch.Generator(device=dev) if random else None
+        self.stream = stream
         self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.out: Dict[str, torch.Tensor] = {}
+        self.out = None
         self.deltas: List[int] = []
         self.capture_s = 0.0
 
-    def capture(self, trainer: Trainer, state: TrainState, seed: int, sample_decoding: bool,
-                pool=None) -> Dict[str, torch.Tensor]:
-        """The step run eagerly on the side stream (the warm-up: this batch's
-        real step), then captured there. Returns the warm-up's metrics."""
+    def capture(self, fn: Callable, seed: int = 0, pool=None):
+        """``fn`` run eagerly on the side stream (the warm-up: this batch's
+        real work, which makes the libraries' handles, the kernels' cached
+        plans and device constants outside any graph), then captured there.
+        Returns the warm-up's outputs."""
         t0 = time.perf_counter()
         main = torch.cuda.current_stream()
         self.stream.wait_stream(main)
         with torch.cuda.stream(self.stream):
-            self.gen.manual_seed(seed)
-            warm = trainer.device_step(state, self.batch, self.gen, sample_decoding)
+            if self.gen is not None:
+                self.gen.manual_seed(seed)
+            warm = fn(self.batch, self.gen)
         main.wait_stream(self.stream)
         g = torch.cuda.CUDAGraph()
-        g.register_generator_state(self.gen)
+        if self.gen is not None:
+            g.register_generator_state(self.gen)
         before = _counts()
         with torch.cuda.graph(g, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
-            self.out = trainer.device_step(state, self.batch, self.gen, sample_decoding)
+            self.out = fn(self.batch, self.gen)
         after = _counts()
         self.deltas = [a - b for a, b in zip(after, before)]
         _add_counts([-d for d in self.deltas])  # a capture launches nothing
@@ -148,24 +170,81 @@ class TrainGraph:
         for k, dst in self.inputs.items():
             dst.copy_(batch[k])
 
-    def replay(self, seed: int) -> Dict[str, torch.Tensor]:
-        self.gen.manual_seed(seed)
+    def replay(self, seed: int = 0):
+        if self.gen is not None:
+            self.gen.manual_seed(seed)
         self.graph.replay()
         _add_counts(self.deltas)
         return self.out
 
 
-class TrainGraphs:
-    """Captured train steps by ``graph_key``; ``log`` (e.g. a solver's
-    ``verbose``) hears of each capture and its time, the counterpart of the
-    JAX package's compile."""
+class GraphCache:
+    """Captured programs by key, sharing one memory pool and one capture
+    stream (``share``: another cache whose pool and stream these graphs
+    take too); ``log`` (e.g. a solver's ``verbose``) hears of each capture
+    and its time, the counterpart of the JAX package's compile."""
 
-    def __init__(self, log: Optional[Callable[[str], None]] = None):
-        self.graphs: Dict[tuple, TrainGraph] = {}
+    what = "program"
+
+    def __init__(self, log: Optional[Callable[[str], None]] = None, share: Optional["GraphCache"] = None):
+        self.graphs: Dict[tuple, Captured] = {}
         # ((input mode, {tensor: shape}, n_samples), seconds) of every capture
         self.captures: List[Tuple[tuple, float]] = []
-        self.pool = None  # the graphs' shared memory pool
         self.log = log
+        self.share = share
+        self._pool = None
+        self._stream: Optional[torch.cuda.Stream] = None
+
+    @property
+    def pool(self):
+        """The graphs' shared memory pool (None before the first capture)."""
+        return self._pool if self.share is None else self.share.pool
+
+    @pool.setter
+    def pool(self, value):
+        if self.share is None:
+            self._pool = value
+        else:
+            self.share.pool = value
+
+    @property
+    def stream(self) -> torch.cuda.Stream:
+        """The side stream every capture runs on: a pool's freed blocks go
+        back to the stream they were allocated on, so graphs share memory
+        only where they are captured on one stream."""
+        if self.share is not None:
+            return self.share.stream
+        if self._stream is None:
+            self._stream = torch.cuda.Stream()
+        return self._stream
+
+    def run(self, key: tuple, batch: Dict[str, torch.Tensor], fn: Callable, keys=STATIC, seed: int = 0,
+            random: bool = True):
+        """``fn(batch, generator)`` for ``batch`` by the graph of ``key``: the
+        first batch of a key runs it eagerly and captures it, every later one
+        replays it with the random stream of ``seed``. Returns the outputs:
+        for a replay the graph's static outputs, which the next replay of a
+        graph sharing the pool may overwrite."""
+        g = self.graphs.get(key)
+        if g is not None:
+            g.load(batch)
+            return g.replay(seed)
+        g = Captured(batch, keys, self.stream, random)
+        warm = g.capture(fn, seed, self.pool)
+        self.pool = g.graph.pool()
+        self.graphs[key] = g
+        mode, shapes, n = batch_key(batch, keys)
+        self.captures.append(((mode, {k: list(s) for k, s, _ in shapes}, n), g.capture_s))
+        if self.log is not None:
+            self.log(f"Captured the {self.what} ({mode}, {', '.join(f'{k} {list(s)}' for k, s, _ in shapes)}"
+                     f"{f', n_samples {n}' if n else ''}) in {g.capture_s:.2f}s")
+        return warm
+
+
+class TrainGraphs(GraphCache):
+    """Captured train steps by ``graph_key``."""
+
+    what = "train step"
 
     def step(self, trainer: Trainer, state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
              sample_decoding: bool = True) -> Dict[str, torch.Tensor]:
@@ -176,18 +255,5 @@ class TrainGraphs:
         replay of any graph overwrites."""
         if batch["wav_len"].device.type != "cuda":
             raise ValueError(f"CUDA graphs of the train step need CUDA tensors, not {batch['wav_len'].device}")
-        key = graph_key(trainer, state, batch, sample_decoding)
-        g = self.graphs.get(key)
-        if g is not None:
-            g.load(batch)
-            return g.replay(seed)
-        g = TrainGraph(batch)
-        warm = g.capture(trainer, state, seed, sample_decoding, self.pool)
-        self.pool = g.graph.pool()
-        self.graphs[key] = g
-        shape = (key[0], {k: list(s) for k, s, _ in key[1]}, key[2])
-        self.captures.append((shape, g.capture_s))
-        if self.log is not None:
-            self.log(f"Captured the train step ({shape[0]}, {', '.join(f'{k} {s}' for k, s in shape[1].items())}"
-                     f"{f', n_samples {shape[2]}' if shape[2] else ''}) in {g.capture_s:.2f}s")
-        return warm
+        return self.run(graph_key(trainer, state, batch, sample_decoding), batch,
+                        lambda b, gen: trainer.device_step(state, b, gen, sample_decoding), seed=seed)

@@ -49,8 +49,17 @@ norm, every parameter and optimizer tensor) with the same launch counts,
 through failing coins and a skipped step, a graph captured anew for a new
 bucket or new weights, the eager step without host synchronisation, a
 capture beside a copying thread, a failing capture raising (in a
-subprocess); the scan forward's seed in device memory; the optimizer's
-device bias corrections and learning rate against the host formulas.
+subprocess); validation through CUDA graphs (training/eval_graph.py) under
+both routes and compute types: replay bitwise equal to the eager
+``eval_device`` (losses, CTC ids, greedy tokens) with the same launch
+counts, beside the train graphs in one memory pool, the eager validation
+without host synchronisation, a failing capture raising (in a subprocess);
+the LM step through CUDA graphs (training/lm_graph.py) bitwise equal to the
+eager step through dropout and a non-finite step, its evaluation too; the
+host-issued launches of a replayed dev batch and LM step (at most
+HOST_LAUNCH_LIMIT); the scan forward's seed in device memory; the
+optimizer's device bias corrections and learning rate against the host
+formulas.
 Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
@@ -1639,6 +1648,255 @@ def test_a_failing_train_capture_raises(gen):
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", _SYNC_IN_TRAIN_CAPTURE], cwd=root, capture_output=True, text=True,
+                         timeout=300, env={**os.environ, "PYTHONPATH": root})
+    assert res.returncode == 0 and "RAISED" in res.stdout, res.stdout + res.stderr[-3000:]
+
+
+# ------------------------------------- validation and the LM as CUDA graphs
+EVAL_MAX_STEP = 12
+HOST_LAUNCH_LIMIT = 10  # host-issued launches of a replayed dev batch or LM step
+
+
+def _eval_outputs(out):
+    return {k: v.clone() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rnn_impl", ["auto", "pallas"])
+def test_eval_graph_replay_equals_eager_validation_bitwise(gen, dtype, rnn_impl):
+    """Three dev batches of one shape through EvalGraphs (the first runs
+    eagerly and captures, the rest replay) and through the eager
+    ``eval_device``: losses, CTC ids, encoder lengths and greedy tokens
+    bitwise, the same launch counts; a new max_step captures anew."""
+    from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+
+    trainer, state = _small_train(dtype, rnn_impl)
+    graphs = EvalGraphs()
+    for i in range(3):
+        batch = _train_batch(10 + i)
+        counts0 = _train_counts()
+        got = _eval_outputs(trainer.validate_batch(state.params, batch, EVAL_MAX_STEP, graphs=graphs))
+        counts1 = _train_counts()
+        want = trainer.eval_device(state.params, batch, EVAL_MAX_STEP)
+        counts2 = _train_counts()
+        assert set(got) == set(want) == {"scalars", "ctc_preds", "enc_len", "tokens"}
+        assert got["tokens"].shape == (3, EVAL_MAX_STEP) and got["scalars"].dtype == torch.float32
+        for k in want:
+            assert torch.equal(got[k], want[k]), (i, k)
+        dg = {k: counts1[k] - counts0[k] for k in counts0}
+        de = {k: counts2[k] - counts1[k] for k in counts0}
+        assert dg == de and sum(de.values()) >= 4, (i, dg, de)
+    assert len(graphs.graphs) == len(graphs.captures) == 1
+    out = trainer.validate_batch(state.params, _train_batch(20), EVAL_MAX_STEP + 3, graphs=graphs)
+    assert len(graphs.captures) == 2 and out["tokens"].shape == (3, EVAL_MAX_STEP + 3)
+
+
+def test_eval_graphs_beside_train_graphs_in_one_pool(gen):
+    """Train steps and validations in turns, the validation graphs sharing
+    the train graphs' memory pool and capture stream, against the eager
+    step and ``eval_device`` on a second copy of the model: every step and
+    every validation bitwise, so that neither kind of graph overwrites what
+    the other still reads."""
+    from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    tg, sg = _small_train()
+    te, se = _small_train()
+    train = TrainGraphs()
+    evals = EvalGraphs(share=train)
+    for i in range(4):
+        batch = _train_batch(i)
+        mg = tg.train_step(sg, batch, _gen_of(30 + i), graphs=train)
+        assert torch.equal(mg["loss"].clone(), te.train_step(se, batch, _gen_of(30 + i))["loss"])
+        got = _eval_outputs(tg.validate_batch(sg.params, _train_batch(40 + i), EVAL_MAX_STEP, graphs=evals))
+        want = te.eval_device(se.params, _train_batch(40 + i), EVAL_MAX_STEP)
+        assert all(torch.equal(got[k], want[k]) for k in want), i
+        assert all(torch.equal(a, b) for a, b in zip(_state_tensors(sg), _state_tensors(se))), i
+    assert evals.pool == train.pool is not None and evals.stream is train.stream
+    assert len(train.captures) == len(evals.captures) == 1
+
+
+def test_eager_validation_makes_no_host_sync(gen):
+    """``eval_device`` (losses, CTC argmax, the greedy loop) under PyTorch's
+    sync debug mode set to raise, once the plans are cached: it reads
+    nothing back, as its capture needs."""
+    trainer, state = _small_train()
+    batch = _train_batch(0)
+    trainer.eval_device(state.params, batch, EVAL_MAX_STEP)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = trainer.eval_device(state.params, batch, EVAL_MAX_STEP)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(out["scalars"]).all())
+
+
+def _small_lm(dropout=0.2):
+    """(LM config, Optimizer, TrainState) of a two-layer 16-wide LM (its
+    layers through the lstm_seq pair), Adam with clip 5, on the card."""
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.models import lm as lm_mod
+    from e2e_asr_tpu_torch.optim import Optimizer
+    from e2e_asr_tpu_torch.training.step import TrainState, param_leaves
+
+    cfg = Config.from_dict({"hparas": {"optimizer": "Adam", "lr": 1e-2, "grad_clip": 5.0},
+                            "lm": {"emb_dim": 8, "dim": 16, "n_layers": 2, "dropout": dropout, "emb_tying": True}})
+    g = torch.Generator()
+    g.manual_seed(0)
+    params = lm_mod.lm_init(g, 12, cfg.lm, _dev())
+    for p in param_leaves(params):
+        p.requires_grad_(True)
+    opt = Optimizer(cfg.hparas)
+    return cfg.lm, opt, TrainState(params, opt.init(param_leaves(params)), 0)
+
+
+def _lm_batch(seed, b=4, length=9):
+    rng = np.random.RandomState(seed)
+    text = rng.randint(1, 12, size=(b, length)).astype(np.int32)
+    lens = np.array([length, length - 2, 3, 0][:b] + [length] * max(b - 4, 0), np.int32)
+    for i, n in enumerate(lens):
+        text[i, n:] = 0
+    return {"text": torch.from_numpy(text).cuda(), "text_len": torch.from_numpy(lens).cuda()}
+
+
+def _same_bits(a, b):
+    """Bitwise equality that holds for NaNs too (``torch.equal`` is False on them)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.detach().reshape(-1).contiguous().view(torch.uint8), b.detach().reshape(-1).contiguous().view(torch.uint8))
+
+
+def test_lm_graph_replay_equals_eager_lm_step_bitwise(gen):
+    """Five LM steps of one shape through LMGraphs and eagerly, dropout 0.2
+    from each step's seed, the third made non-finite (a NaN bias in both
+    models, restored after it): loss, grad norm, step_skipped and every
+    parameter and optimizer tensor bitwise after each step, the same launch
+    counts; the skipped step leaves both models as they were."""
+    from e2e_asr_tpu_torch.bin import train_lm
+    from e2e_asr_tpu_torch.training.lm_graph import LMGraphs
+
+    cfg, og, sg = _small_lm()
+    _, oe, se = _small_lm()
+    graphs = LMGraphs()
+    for i in range(5):
+        batch = _lm_batch(i)
+        if i == 2:
+            saved = sg.params["cells"][0]["b"].detach().clone()
+            for st in (sg, se):
+                st.params["cells"][0]["b"].data.fill_(float("nan"))
+            before = [t.clone() for t in _state_tensors(sg)]
+        counts0 = _train_counts()
+        mg = train_lm.train_step(sg, og, cfg, batch, _gen_of(50 + i), graphs=graphs)
+        got = {k: mg[k].clone() for k in train_lm.SCALARS}
+        counts1 = _train_counts()
+        me = train_lm.train_step(se, oe, cfg, batch, _gen_of(50 + i))
+        counts2 = _train_counts()
+        assert all(_same_bits(got[k], me[k]) for k in train_lm.SCALARS), (i, got, me)
+        assert _same_bits(mg["scalars"], me["scalars"])
+        assert float(got["step_skipped"]) == float(i == 2)
+        assert all(_same_bits(a, b) for a, b in zip(_state_tensors(sg), _state_tensors(se))), i
+        if i == 2:
+            assert all(_same_bits(a, b) for a, b in zip(_state_tensors(sg), before))
+            for st in (sg, se):
+                st.params["cells"][0]["b"].data.copy_(saved)
+        dg = {k: counts1[k] - counts0[k] for k in counts0}
+        de = {k: counts2[k] - counts1[k] for k in counts0}
+        assert dg == de and de["lstm_seq_fwd.launches"] == de["lstm_seq_bwd.launches"] == 2, (i, dg)
+    assert len(graphs.captures) == 1 and sg.step == se.step == 5 and int(sg.opt_state["count"]) == 4
+
+
+def test_lm_eval_graph_equals_eager(gen):
+    from e2e_asr_tpu_torch.bin import train_lm
+    from e2e_asr_tpu_torch.training.lm_graph import LMEvalGraphs
+
+    cfg, _, state = _small_lm()
+    graphs = LMEvalGraphs()
+
+    def ev(b, _=None):
+        with torch.no_grad():
+            return train_lm.lm_loss(state.params, cfg, b["text"], b["text_len"], None, False)[1]
+
+    for i in range(3):
+        batch = _lm_batch(60 + i)
+        got = {k: v.clone() for k, v in graphs.eval(cfg, state.params, batch, ev).items()}
+        want = ev(batch)
+        assert all(torch.equal(got[k], want[k]) for k in ("loss", "n_tokens")), i
+    assert len(graphs.captures) == 1
+
+
+def test_host_launches_of_a_replayed_dev_batch_and_lm_step(gen):
+    """The launches the host issues for one dev batch through EvalGraphs
+    (its copies into the static buffers and one replay) and for one LM step
+    through LMGraphs (the same and the ring's copy), by the profiler: each
+    at most HOST_LAUNCH_LIMIT, where the eager ones issue hundreds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e2e_asr_tpu_torch.bin import train_lm
+    from e2e_asr_tpu_torch.bin.profile_decode import host_launches
+    from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+    from e2e_asr_tpu_torch.training.lm_graph import LMGraphs
+
+    trainer, state = _small_train()
+    evals = EvalGraphs()
+    cfg, opt, lm_state = _small_lm()
+    lm_graphs = LMGraphs()
+    ring = torch.empty((4, len(train_lm.SCALARS)), device="cuda")
+
+    def dev_batch(eager=False):
+        return trainer.validate_batch(state.params, _train_batch(1), EVAL_MAX_STEP, graphs=None if eager else evals)
+
+    def lm_step(eager=False):
+        m = train_lm.train_step(lm_state, opt, cfg, _lm_batch(1), _gen_of(1), graphs=None if eager else lm_graphs)
+        ring[0].copy_(m["scalars"])
+
+    counted = {}
+    for name, fn in (("dev batch", dev_batch), ("LM step", lm_step)):
+        fn()  # captures
+        for eager in (False, True):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn(eager)
+                torch.cuda.synchronize()
+            counted[name, eager] = host_launches(prof)
+    print(counted)
+    for name in ("dev batch", "LM step"):
+        assert 1 <= counted[name, False] <= HOST_LAUNCH_LIMIT < counted[name, True], counted
+
+
+_SYNC_IN_EVAL_CAPTURE = """
+import importlib.util, sys, torch
+spec = importlib.util.spec_from_file_location("card_tests", "tests/test_torch_cuda.py")
+card = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(card)
+from e2e_asr_tpu_torch.training.step import Trainer
+from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+run = Trainer.eval_device
+def syncing(self, *args, **kw):
+    out = run(self, *args, **kw)
+    out["scalars"].tolist()  # a host synchronisation: illegal while capturing
+    return out
+Trainer.eval_device = syncing
+trainer, state = card._small_train()
+try:
+    trainer.validate_batch(state.params, card._train_batch(0), 5, graphs=EvalGraphs())
+except RuntimeError as e:
+    print("RAISED", type(e).__name__, str(e).splitlines()[0][:200])
+    sys.exit(0)
+print("NO ERROR")
+"""
+
+
+def test_a_failing_eval_capture_raises(gen):
+    """A validation that synchronises with the host cannot be captured: it
+    raises (it does not fall back to the eager validation). In a
+    subprocess, since a failed capture may leave the CUDA context
+    unusable."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _SYNC_IN_EVAL_CAPTURE], cwd=root, capture_output=True, text=True,
                          timeout=300, env={**os.environ, "PYTHONPATH": root})
     assert res.returncode == 0 and "RAISED" in res.stdout, res.stdout + res.stderr[-3000:]
 
