@@ -137,7 +137,20 @@
    modes, the sampled one at one seed, which the parent passes as launch
    arguments and this tree in device memory; one float32 train step a
    route is compared too, beside the parent's own rerun).
-8. Prints a ``kernels`` JSON line (each row names the path its ``launches``
+8. Data parallelism (``ddp_phase``, parallel/dist.py), in processes of
+   their own so that this one creates no group: (a) in a world-1 NCCL group
+   ``Solver.exec`` trains DDP_STEPS flagship steps through the step graphs
+   (the loss's denominators and the flat buffer of gradients and loss
+   metrics all-reduced inside them) and validates through the eval graphs,
+   in float32 and bf16, and the dev batch is decoded: each bitwise the same
+   run without a group (summary, step log, parameters, csvs), with capture
+   seconds and peak memory; (b) two gloo ranks sharing the card take one
+   eager flagship step (encoder dropout, SpecAugment) against the one-rank
+   step on the global batch here, within the kernel-versus-plain
+   tolerances, the ranks' parameters bitwise equal; (c) a two-rank sharded
+   decode over gloo writes the one-rank decode's top hypotheses; and the
+   scan's Gumbel noise at a row offset is the global batch's rows'.
+9. Prints a ``kernels`` JSON line (each row names the path its ``launches``
    were counted on; the bf16 variants in rows of their own, ``_bf16``), then
    the device JSON line last; the details go to ``--json`` (default
    e2e_asr_tpu_torch/_build/chip_smoke.json).
@@ -2320,6 +2333,157 @@ def bf16_phase(dev, smi, batch):
     return out
 
 
+DDP_STEPS = 3  # flagship steps of the data-parallel phase's world-1 runs
+DDP_TIMEOUT = 600  # seconds a spawned group of the data-parallel phase may take
+DDP_TOL = {"float32": (1e-4, 1e-3, 1e-5), "bfloat16": (1e-4, 1e-3, 1e-4)}  # loss rel, grad norm rel, params abs
+
+
+def _ddp_flagship(path, steps, dev_utts=16, dropout=0.0):
+    """The flagship smoke config (flagship_train_config) written to ``path``:
+    ``steps`` steps and a validation at the last, ``dev_utts`` dev
+    utterances (16 a batch), encoder dropout ``dropout``."""
+    from e2e_asr_tpu_torch.bin.profile_decode import flagship_train_config
+
+    cfg = flagship_train_config(steps, "auto", "")
+    cfg.hparas.seed = SEED
+    cfg.data.corpus.dev_split = [f"dev:{dev_utts}"]
+    cfg.model.encoder.dropout = [dropout] * len(cfg.model.encoder.dim)
+    cfg.save(path)
+    return str(path), cfg
+
+
+def ddp_phase(smi):
+    """Data parallelism (parallel/dist.py) on the one card, in processes of
+    their own (parallel/mp_worker.py), so that this process creates no
+    group:
+
+    (a) a world-1 NCCL group: ``Solver.exec`` trains DDP_STEPS flagship steps
+        through the step graphs (the two collectives captured in them) and
+        validates through the eval graphs (DDP_STEPS and once more), in
+        float32 and bf16, and ``bin/test_asr.Solver`` decodes the dev batch,
+        each first without a group and then in the group: summary, step log,
+        parameters and csvs bitwise equal; capture seconds and peak memory;
+    (b) two gloo ranks sharing the card: one eager flagship step (encoder
+        dropout 0.1, SpecAugment on; float32 and bf16) against the one-rank
+        eager step on the global batch here (loss rel 1e-4, grad norm rel
+        1e-3, params abs 1e-5 float32 / 1e-4 bf16), the ranks' parameters
+        bitwise equal to each other;
+    (c) a two-rank sharded decode over gloo (two dev batches, one a rank):
+        the csvs of the one-rank decode here.
+
+    Also the scan's Gumbel noise at a row offset: ``gumbel_noise(..., row0)``
+    bitwise the full batch's rows. Returns the numbers and each run's kernel
+    launches."""
+    from e2e_asr_tpu_torch import convert, cuda_build
+    from e2e_asr_tpu_torch.data.dataset import load_dataset
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+    from e2e_asr_tpu_torch.parallel import mp_worker
+    from e2e_asr_tpu_torch.training.step import Trainer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(cuda_build.BUILD_DIR, "smoke_ddp")
+    os.makedirs(out_dir, exist_ok=True)
+    dev = torch.device("cuda")
+    out = {}
+
+    # ---- the Gumbel noise's row offset (the scan's sampled feedback)
+    full = dc.gumbel_noise(NOISE_SEED, 200, 16, 31, dev)
+    half = dc.gumbel_noise(NOISE_SEED, 200, 8, 31, dev, row0=8)
+    same_noise = torch.equal(full[:, 8:], half)
+    print(f"ddp: scan Gumbel noise of rows 8-15 at row0 8 bitwise the full batch's rows: {same_noise}", flush=True)
+    if not same_noise:
+        fail("the scan's Gumbel noise at a row offset is not the global batch's")
+
+    # ---- (a) a world-1 NCCL group against no group
+    cfg_path, cfg = _ddp_flagship(os.path.join(out_dir, "flagship.yaml"), DDP_STEPS)
+    tr, _, feat_dim, vocab, _, _ = load_dataset(cfg.data, num_workers=0)
+    params, _ = asr_mod.asr_init(SEED, feat_dim, vocab, cfg.model, dev)
+    ckpt = os.path.join(out_dir, f"flagship_seed{SEED}.pt")
+    convert.save_checkpoint(ckpt, params, vocab, feat_dim)
+    spec = {"config": cfg_path, "ckpt": ckpt, "dir": os.path.join(out_dir, "world1"), "device": "cuda",
+            "modes": ["train", "decode"], "dtypes": ["float32", "bfloat16"], "out": os.path.join(out_dir, "w1.pt")}
+    t0 = time.time()
+    mp_worker.run("world1", spec, 1, os.path.join(out_dir, "world1_log"), DDP_TIMEOUT, cwd=root)
+    w1 = torch.load(spec["out"], weights_only=False)
+    for run, r in w1.items():
+        extra = ""
+        if run.startswith("train"):
+            g, w = r["with"], r["without"]
+            extra = (f"; summary {g['summary']}; step graphs {g['train_graphs']}, captures {g['captures_s']} s with "
+                     f"the group ({w['captures_s']} s without); peak memory {g['peak_mb_above']:.1f} MB above the "
+                     f"run's start with the group ({w['peak_mb_above']:.1f} without); wall {g['wall_s']:.2f} s "
+                     f"({w['wall_s']:.2f} without)")
+        print(f"ddp (a) world-1 NCCL group vs no group, {run}: bitwise {r['same']}; launches "
+              f"{r['with']['launches']}{extra}", flush=True)
+        if not all(r["same"].values()):
+            fail(f"the world-1 NCCL group's {run} is not bitwise the run without a group: {r['same']}")
+        if run.startswith("train") and not r["with"]["train_graphs"]:
+            fail(f"the world-1 NCCL {run} did not run through the step graphs")
+    out["world1_nccl"] = {run: {"same": r["same"], "launches": r["with"]["launches"],
+                                **{k: r["with"].get(k) for k in ("captures_s", "peak_mb_above", "wall_s", "summary")},
+                                "without": {k: r["without"].get(k) for k in ("captures_s", "peak_mb_above", "wall_s")}}
+                          for run, r in w1.items()}
+    out["world1_nccl_s"] = time.time() - t0
+
+    # ---- (b) two gloo ranks on the card, one eager step, against one rank here
+    step_path, step_cfg = _ddp_flagship(os.path.join(out_dir, "flagship_dropout.yaml"), 1, dropout=0.1)
+    b = next(tr.epoch(0))
+    batch = {"wav": b.wav, "wav_len": b.wav_len, "text": b.text, "text_len": b.text_len}
+    if b.wav.shape[0] != 16:
+        fail(f"the data-parallel step needs a batch of 16 rows, got {b.wav.shape}")
+    np.savez(os.path.join(out_dir, "batch.npz"), **batch)
+    spec = {"config": step_path, "params": ckpt, "batch": os.path.join(out_dir, "batch.npz"), "seed": 7,
+            "device": "cuda", "backend": "gloo", "dtypes": ["float32", "bfloat16"], "out": os.path.join(out_dir, "step")}
+    t0 = time.time()
+    mp_worker.run("step", spec, 2, os.path.join(out_dir, "step_log"), DDP_TIMEOUT, local_rank_zero=True, cwd=root)
+    ranks = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in (0, 1)]
+    out["two_gloo_ranks_step"] = {"s": time.time() - t0}
+    dbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    for dtype in ("float32", "bfloat16"):
+        step_cfg.hparas.dtype = dtype
+        trainer = Trainer(step_cfg)
+        state = trainer.init_state(convert.load_checkpoint(ckpt, dev)["params"])
+        one = mp_worker.step_result(trainer, state, dbatch, 7, dev)
+        got = ranks[0][dtype]
+        loss_rel = abs(float(got["loss"]) - float(one["loss"])) / abs(float(one["loss"]))
+        gn_rel = abs(float(got["grad_norm"]) - float(one["grad_norm"])) / abs(float(one["grad_norm"]))
+        p_err = max(float((a - c).abs().max()) for a, c in zip(got["params"], one["params"]))
+        equal = all(torch.equal(a, c) for a, c in zip(ranks[0][dtype]["params"], ranks[1][dtype]["params"]))
+        tl, tg, tp = DDP_TOL[dtype]
+        print(f"ddp (b) two gloo ranks on one card vs one rank on the global batch, eager flagship step ({dtype}, "
+              f"encoder dropout 0.1, SpecAugment): loss {float(got['loss']):.6f} vs {float(one['loss']):.6f} (rel "
+              f"{loss_rel:.2e}, tolerance {tl:g}); grad_norm rel {gn_rel:.2e} (tolerance {tg:g}); params max abs "
+              f"diff {p_err:.3e} (tolerance {tp:g}); the ranks' params bitwise equal {equal}; rank 0 launches "
+              f"{got['launches']}", flush=True)
+        if not (loss_rel <= tl and gn_rel <= tg and p_err <= tp and equal) or float(got["step_skipped"]):
+            fail(f"two gloo ranks' step ({dtype}) is not the one-rank step on the global batch")
+        out["two_gloo_ranks_step"][dtype] = dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, param_max_abs=p_err,
+                                                 ranks_bitwise=equal, launches=got["launches"])
+
+    # ---- (c) a two-rank sharded decode over gloo against one rank here
+    dec_path, _ = _ddp_flagship(os.path.join(out_dir, "flagship_decode.yaml"), 1, dev_utts=32)
+    spec = {"config": dec_path, "ckpt": ckpt, "dir": os.path.join(out_dir, "decode"), "device": "cuda",
+            "backend": "gloo", "out": os.path.join(out_dir, "decode")}
+    t0 = time.time()
+    mp_worker.run("decode", spec, 2, os.path.join(out_dir, "decode_log"), DDP_TIMEOUT, local_rank_zero=True, cwd=root)
+    ranks = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in (0, 1)]
+    wall = time.time() - t0
+    one = mp_worker.decode_run({**spec, "dir": os.path.join(out_dir, "decode_one")}, "single")
+    n_rows = len(one["csvs"]["output_dev.csv"].splitlines()) - 1
+    same_top = ranks[0]["csvs"]["output_dev.csv"] == one["csvs"]["output_dev.csv"]
+    same_beam = ranks[0]["csvs"]["beam_dev.csv"] == one["csvs"]["beam_dev.csv"]
+    print(f"ddp (c) two-rank sharded decode over gloo on one card ({n_rows} utterances, 2 batches): top "
+          f"hypotheses csv bitwise the one-rank decode's {same_top}, beam csv {same_beam}; cer {ranks[0]['er']} / "
+          f"{ranks[1]['er']} vs {one['er']}; rank 1 wrote {ranks[1]['files']}; launches rank 0 "
+          f"{ranks[0]['launches']}, rank 1 {ranks[1]['launches']}; {wall:.1f} s", flush=True)
+    if not (same_top and ranks[0]["er"] == ranks[1]["er"] == one["er"]) or ranks[1]["files"] or n_rows <= 16:
+        fail("the two-rank sharded decode does not give the one-rank decode's hypotheses")
+    out["two_rank_decode"] = dict(top_bitwise=same_top, beam_bitwise=same_beam, er=ranks[0]["er"],
+                                  launches=[r["launches"] for r in ranks], s=wall)
+    return out
+
+
 def lm_train_phase(dev, smi):
     """The LM's training path at configs/libri/lm_example.yaml's full width
     (512 / 2 x 512 LSTM, tied, batch 32, Adam, clip 5) on synthetic
@@ -2890,6 +3054,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     recipes = recipe_phase(conv.pop("ckpt"), smi)
     loader = loader_phase(smi)
     bf16 = bf16_phase(dev, smi, batch)
+    ddp = ddp_phase(smi)
     r = kern["log_mel"]
     mel_waves["convergence_batch"] = conv.pop("log_mel_wave")
     for key, v in zip(("max_abs_err_by_wave", "cufft_max_abs_err_by_wave", "f64_max_abs_err_by_wave"),
@@ -2930,6 +3095,11 @@ def main(json_path: str = "", parent: str = "") -> None:
         ("main --test on configs/synthetic_decode_conv.yaml with that LM fused in", recipes["decode_launches"]),
         *((f"loader way ({way}): convergence recipe, {LOADER_STEPS} steps + validation, njobs {r['njobs']}, "
            f"{r['input_mode']}", r["launches"]) for way, r in loader.items()),
+        *((f"data parallel (a), world-1 NCCL group: {run} (flagship, {DDP_STEPS} steps + 2 validations through the "
+           "graphs, or the dev batch's decode)", r["launches"]) for run, r in ddp["world1_nccl"].items()),
+        ("data parallel (b), two gloo ranks on one card: rank 0's eager flagship step, float32",
+         ddp["two_gloo_ranks_step"]["float32"]["launches"]),
+        ("data parallel (c), two-rank sharded decode over gloo: rank 0's dev batch", ddp["two_rank_decode"]["launches"][0]),
     ]
     path_of = {"log_mel": 0, "att_step_beam_loc": 0, "prefix_recursion": 0, "lstm_seq_fwd": 1,
                "lstm_seq_bwd": 1, "ctc_loss": 2, "decoder_scan_fwd": 2, "decoder_scan_bwd": 2,
@@ -2970,6 +3140,11 @@ def main(json_path: str = "", parent: str = "") -> None:
             "bound_ms": kv["bound"][0], "bound_by": kv["bound"][1], "library_ms": kv["library_ms"],
             "ms_f32_same_values": kv["ms_f32"], "shapes": kv["shapes"], "per_shape": kv["per_shape"],
             "launches_path": what,
+            "launches_data_parallel": {
+                "world-1 NCCL group, flagship bf16 train": ddp["world1_nccl"]["train_bfloat16"]["launches"].get(
+                    f"{name}_bf16", 0),
+                "two gloo ranks on one card, rank 0's bf16 step": ddp["two_gloo_ranks_step"]["bfloat16"]["launches"].get(
+                    f"{name}_bf16", 0)},
         })
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
@@ -2978,7 +3153,7 @@ def main(json_path: str = "", parent: str = "") -> None:
                    "decode_lm": decode_lm, "train": train, "train_graphs": graph, "eval_graphs": evals,
                    "lm_train": lm_train,
                    "convergence": conv,
-                   "recipes": recipes, "loader": loader, "bf16": bf16}, f, indent=1)
+                   "recipes": recipes, "loader": loader, "bf16": bf16, "data_parallel": ddp}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,6 +4,7 @@ epoch or an LM step goes on the card.
     python -m e2e_asr_tpu_torch.bin.profile_decode [--train [--scan-phases]] [--rnn-impl IMPL]
         [--lm-weight W] [--eager] [--parent DIR] [--out PATH]
     python -m e2e_asr_tpu_torch.bin.profile_decode --validate [--dtype D] | --lm [--parent DIR]
+    python -m e2e_asr_tpu_torch.bin.profile_decode --ddp [--dtype D] [--parent DIR]
 
 Decode (default): decodes the chip smoke batch (16 synthetic utterances in
 the 816-frame bucket, flagship width, seed-0 weights, beam 16, ctc_weight
@@ -58,6 +59,20 @@ width, B = 32, random ids, L = 256 and 512): runs of LM_WINDOW steps,
 graphs and eager steps with their metrics into a ring read once a run,
 against the parent's steps with every metric read after each step
 (``profile_lm_turns.json``).
+
+``--ddp`` profiles what the data-parallel layout (``parallel/dist.py``)
+costs on one card: the flagship train step (``--dtype``, default the
+recipe's bf16) replaying its CUDA graph in a process without a group
+(``nogroup``), in a world-1 NCCL group (``group``: the loss's denominators
+and the flat buffer of gradients and loss metrics all-reduced inside the
+graph), and without a group but drawing every random tensor at twice the
+batch's rows, as a rank of a world of two draws (``draws2``); with
+``--parent DIR`` the parent's own step too; processes in turns (parent,
+nogroup, group, draws2, draws2, group, nogroup, parent), each run the
+median of TRAIN_REPS timed steps. Prints wall, busy, idle, host-issued and
+device launches a step, the device time of the collective (NCCL) kernels,
+of the random draws and of every kernel the group adds to the step
+(``profile_ddp_turns.json``).
 
 ``--decode-phases`` instead splits one launch of each decode kernel into
 its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
@@ -955,6 +970,94 @@ print(json.dumps(res))
 """
 
 
+# One tree's data-parallel step profiles (``--ddp``), run in a process of its
+# own from the root of that tree: argv[1] the mode ("loop": the tree's own
+# graph step without a group, the parent's; "nogroup"; "group": a world-1
+# NCCL group; "draws2": no group, the random draws at twice the rows),
+# argv[2] the timed steps a run, argv[3] the dtype. Prints one JSON line,
+# [run].
+_DDP_TURNS_SCRIPT = """
+import json, os, sys
+mode = sys.argv[1]
+if mode == "group":
+    from e2e_asr_tpu_torch.parallel import dist, mp_worker
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(mp_worker.free_port()))
+    dist.init(torch.device("cuda"))
+if mode == "draws2":
+    from e2e_asr_tpu_torch.parallel import dist
+    dist.row_block = lambda rows: (0, 2 * rows)
+from e2e_asr_tpu_torch.bin.profile_decode import smoke_train_solver
+from e2e_asr_tpu_torch.training.step import resolve_wav
+solver = smoke_train_solver(os.path.join("e2e_asr_tpu_torch", "_build", "profile_ddp_turns"), 0, dtype=sys.argv[3])
+batch = solver._put(next(solver.tr_set.epoch(0)))
+batch = {"wav": resolve_wav(batch)[0], **{k: batch[k] for k in ("wav_len", "text", "text_len")}}
+audio_s = float(batch["wav_len"].sum()) / solver.config.data.audio.sample_rate
+def run():
+    m = solver.trainer.train_step(solver.state, batch, solver.step_generator(0), graphs=solver.train_graphs)
+    float(m["loss"])
+r = profile_run(run, audio_s, reps=int(sys.argv[2]))
+r["graphs"] = solver.train_graphs is not None
+print(json.dumps([{"mode": mode, **r}]))
+if mode == "group":
+    dist.shutdown()
+"""
+
+
+def _ddp_kind(name: str) -> str:
+    low = name.lower()
+    if "nccl" in low:
+        return "collective"
+    if "distribution" in low or "philox" in low or "normal" in low or "uniform" in low:
+        return "random"
+    return ""
+
+
+def ddp_turns(parent: str, card: str, dtype: str) -> list:
+    """The flagship graph step without a group, in a world-1 NCCL group and
+    with the draws of a rank of two, (and the parent's) in processes of
+    their own in turns. Prints wall, busy, idle, launches a step, the
+    collective kernels' and the random draws' device time, and the kernels
+    the group adds."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    change = [("change", root, m) for m in ("nogroup", "group", "draws2")]
+    order = change + change[::-1]
+    if parent:
+        order = [("parent", parent, "loop")] + order + [("parent", parent, "loop")]
+    script = turns_script(_DDP_TURNS_SCRIPT)
+    out = []
+    for which, path, mode in order:
+        path = os.path.abspath(path)
+        proc = subprocess.run([sys.executable, "-c", script, mode, str(TRAIN_REPS), dtype], cwd=path,
+                              capture_output=True, text=True, env={**os.environ, "PYTHONPATH": path}, timeout=1200)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the {which}'s {mode} step profile failed:\n{proc.stderr[-3000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])[0]
+        r["tree"] = which
+        for kind in ("collective", "random"):
+            rows = [k for k in r["kernels"] if _ddp_kind(k["name"]) == kind]
+            r[f"{kind}_ms"] = sum(k["device_ms"] for k in rows)
+            r[f"{kind}_launches"] = sum(k["count"] for k in rows)
+        out.append(r)
+        print(f"{card}: ddp train step ({dtype or 'recipe dtype'}) {which} {mode}: wall {r['wall_ms']:.2f} ms (timed "
+              f"{', '.join(f'{w:.2f}' for w in r['walls_ms'])}), busy {r['device_busy_ms']:.3f} ms, idle "
+              f"{r['device_idle_share']:.3f}, host launches {r['host_launches']}, device launches "
+              f"{r['kernel_launches']}, collectives {r['collective_ms']:.4f} ms in {r['collective_launches']} "
+              f"launches, random draws {r['random_ms']:.4f} ms in {r['random_launches']}, graphs {r['graphs']}",
+              flush=True)
+    base = {k["name"]: k for k in next(r for r in out if r["mode"] == "nogroup")["kernels"]}
+    grp = next(r for r in out if r["mode"] == "group")
+    added = [{"name": k["name"], "count": k["count"] - base.get(k["name"], {}).get("count", 0),
+              "device_ms": k["device_ms"] - base.get(k["name"], {}).get("device_ms", 0.0)}
+             for k in grp["kernels"] if k["count"] > base.get(k["name"], {}).get("count", 0)]
+    print(f"{card}: kernels the world-1 group adds to a step (count, device ms):", flush=True)
+    for k in added:
+        print(f"  {k['device_ms']:9.4f} ms  {k['count']:5d}x  {k['name'][:110]}", flush=True)
+    for r in out:
+        r["kernels"] = r["kernels"][:40]
+    return [{"added_by_group": added}] + out
+
+
 def validate_turns(parent: str, card: str, dtype: str) -> list:
     """The flagship's dev epoch (VALIDATE_DEV_UTTS utterances) through
     ``Solver.validate``: graphs and the eager validation in this tree, the
@@ -1025,14 +1128,20 @@ def main(argv=None):
     ap.add_argument("--lm", action="store_true",
                     help="profile the LM step at L=256 and 512, graphs against eager (with --parent: and the "
                          "parent's), in turns")
+    ap.add_argument("--ddp", action="store_true",
+                    help="profile the flagship graph step without a group, in a world-1 NCCL group and with the "
+                         "draws of a rank of two (with --parent: and the parent's), in turns")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
     args = ap.parse_args(argv)
+    if args.ddp and (args.train or args.validate or args.lm or args.scan_phases or args.decode_phases
+                     or args.lm_weight or args.eager):
+        ap.error("--ddp stands alone (with --parent and --dtype)")
     if (args.validate or args.lm) and (args.train or args.scan_phases or args.decode_phases or args.lm_weight
                                        or args.eager or args.validate == args.lm):
         ap.error("--validate and --lm stand alone (with --parent, and --dtype for --validate)")
     if args.scan_phases and not args.train:
         ap.error("--scan-phases needs --train")
-    if args.dtype != "recipe" and (not (args.train or args.validate) or args.scan_phases):
+    if args.dtype != "recipe" and (not (args.train or args.validate or args.ddp) or args.scan_phases):
         ap.error("--dtype is an option of the training and validation profiles")
     if args.lm_weight and (args.train or args.decode_phases):
         ap.error("--lm-weight is an option of the decode profile")
@@ -1042,7 +1151,7 @@ def main(argv=None):
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
-    what = ("validate_turns" if args.validate else "lm_turns" if args.lm
+    what = ("ddp_turns" if args.ddp else "validate_turns" if args.validate else "lm_turns" if args.lm
             else "scan_phases" if args.scan_phases else "decode_phases" if args.decode_phases
             else "train_turns" if args.train and args.parent else ("train" + ("_eager" if args.eager else ""))
             if args.train else "decode_turns" if args.parent
@@ -1052,6 +1161,12 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.ddp:
+        res = ddp_turns(args.parent, card, "" if args.dtype == "recipe" else args.dtype)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"card": card, "reps": TRAIN_REPS, "dtype": args.dtype, "runs": res}, f, indent=1)
+        return
     if args.validate or args.lm:
         res = (validate_turns(args.parent, card, "" if args.dtype == "recipe" else args.dtype) if args.validate
                else lm_turns(args.parent, card))

@@ -14,6 +14,16 @@ the JAX package's columns, and reports the split's error rate and decoded
 audio-seconds per second. The loader's threads fill the batches and a
 ``DevicePrefetcher`` copies them to the device ahead of the decode;
 ``stats[split]["input_s"]`` is the time the decode waited on it.
+
+Under a process group (``main --multihost --test``, ``parallel/dist.py``)
+the decode is sharded by batch: rank r decodes batches r, r + n, r + 2n, ...
+of the split's order, chosen before any batch is loaded
+(``BucketedLoader.epoch(shard=...)``), so that no rank reads another's
+waves. Each rank's rows reach rank 0 through the group
+(``dist.gather_to_main``; no shared output directory is assumed), and rank
+0 writes both csvs in the one-process order, bit for bit a one-process
+run's. The error counts, utterances and audio are summed over the ranks, so
+that every rank returns the same ``{split: error rate}``.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.metrics import edit_distance
 from e2e_asr_tpu_torch.models.encoder import total_downsample
 from e2e_asr_tpu_torch.ops.frontend import compute_features
+from e2e_asr_tpu_torch.parallel import dist
 
 
 class Solver:
@@ -59,13 +70,14 @@ class Solver:
             self.config.data.audio = train_cfg.data.audio
             if not self.config.data.text.vocab_file:
                 self.config.data.text = train_cfg.data.text
+        dist.check_config(config.parallel.dp, config.parallel.mp)
         self.ckpt = paras.load or config.src.ckpt
         if not self.ckpt:
             raise ValueError("test mode needs src.ckpt or --load")
         self.stats: Dict[str, dict] = {}
 
     def verbose(self, msg: str) -> None:
-        if self.paras.verbose:
+        if self.paras.verbose and dist.is_main():
             print("[INFO]", msg, flush=True)
 
     def load_data(self):
@@ -106,7 +118,7 @@ class Solver:
             self.verbose(f"Loaded RNNLM from {dcfg.lm_path} for shallow fusion (w={dcfg.lm_weight})")
         if self.device.type == "cuda":
             t0 = time.time()
-            cuda_build.build_all()
+            dist.local_first(cuda_build.build_all)  # the host's other ranks load what its local rank 0 built
             self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
 
     def max_step_for(self, n_samples: int) -> int:
@@ -140,13 +152,14 @@ class Solver:
 
     def _decode_set(self, split: str, loader) -> float:
         cfg = self.config
-        rows_out, rows_beam = [], []
+        batches = []  # (rows_out, rows_beam) of each batch this rank decodes, in order
         audio_sec = 0.0
         n_utt = 0
         t_dev = t_in = 0.0
         t0 = time.time()
-        prefetch = DevicePrefetcher(loader.epoch(), lambda b: self.put(b.wav, b.wav_len), depth=2,
-                                    device=self.device)
+        rank, world = dist.rank(), dist.world()
+        prefetch = DevicePrefetcher(loader.epoch(shard=(rank, world)), lambda b: self.put(b.wav, b.wav_len),
+                                    depth=2, device=self.device)
         try:
             t_r = time.time()
             for batch, (wav, wav_len) in prefetch:
@@ -157,6 +170,7 @@ class Solver:
                 lens = res.lengths.cpu().numpy()
                 scores = res.scores.cpu().numpy()
                 t_dev += time.time() - t_b
+                rows_out, rows_beam = [], []
                 for i, uid in enumerate(batch.uids):
                     if not uid:
                         continue
@@ -167,27 +181,37 @@ class Solver:
                         rows_beam.append((uid, truth, hyp, float(scores[i, wi])))
                     n_utt += 1
                     audio_sec += float(batch.wav_len[i]) / cfg.data.audio.sample_rate
+                batches.append((rows_out, rows_beam))
                 t_r = time.time()
         finally:
             prefetch.close()
         wall = time.time() - t0
 
-        os.makedirs(self.outdir, exist_ok=True)
-        with open(os.path.join(self.outdir, f"output_{split}.csv"), "w", newline="") as f:
-            wtr = csv.writer(f, delimiter="\t")
-            wtr.writerow(["idx", "truth", "prediction"])
-            wtr.writerows(rows_out)
-        with open(os.path.join(self.outdir, f"beam_{split}.csv"), "w", newline="") as f:
-            wtr = csv.writer(f, delimiter="\t")
-            wtr.writerow(["idx", "truth", "prediction", "score"])
-            wtr.writerows(rows_beam)
-
         mode = "cer" if self.tokenizer.token_type == "character" else "wer"
         err = tot = 0
-        for _, ref, hyp in rows_out:
-            hh, rr = (hyp.split(), ref.split()) if mode == "wer" else (list(hyp), list(ref))
-            err += edit_distance(hh, rr)
-            tot += max(len(rr), 1)
+        for rows_out, _ in batches:
+            for _, ref, hyp in rows_out:
+                hh, rr = (hyp.split(), ref.split()) if mode == "wer" else (list(hyp), list(ref))
+                err += edit_distance(hh, rr)
+                tot += max(len(rr), 1)
+        if world > 1:
+            err, tot, n_utt, audio_sec = dist.allsum_scalars([err, tot, n_utt, audio_sec]).tolist()
+            n_utt = int(n_utt)
+        # every rank's batches on rank 0: batch i of the split is rank (i % world)'s (i // world)-th
+        parts = dist.gather_to_main(batches)
+        if parts is not None:
+            order = [parts[i % world][i // world] for i in range(sum(len(p) for p in parts))]
+            os.makedirs(self.outdir, exist_ok=True)
+            with open(os.path.join(self.outdir, f"output_{split}.csv"), "w", newline="") as f:
+                wtr = csv.writer(f, delimiter="\t")
+                wtr.writerow(["idx", "truth", "prediction"])
+                for rows_out, _ in order:
+                    wtr.writerows(rows_out)
+            with open(os.path.join(self.outdir, f"beam_{split}.csv"), "w", newline="") as f:
+                wtr = csv.writer(f, delimiter="\t")
+                wtr.writerow(["idx", "truth", "prediction", "score"])
+                for _, rows_beam in order:
+                    wtr.writerows(rows_beam)
         er = err / max(tot, 1)
         self.stats[split] = {"utts": n_utt, "audio_sec": audio_sec, "wall_s": wall, "decode_s": t_dev,
                              "input_s": t_in, mode: er}

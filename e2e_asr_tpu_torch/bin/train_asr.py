@@ -38,6 +38,22 @@ speller takes the Python loop (said once) and on the CPU. The losses are
 read once an epoch; each batch's tokens and CTC ids reach the host through
 pinned buffers while the next batch runs.
 
+Data parallelism (``main --multihost``, ``parallel/dist.py``): each rank
+loads its row block of every train and dev batch (the config's batch size
+is the global one), streams its waves (the device corpus is kept to
+single-process runs, as in the JAX solver: said once in the log), and runs
+the step with the trainer's ``reduce``: the loss's denominators and the
+flat buffer of gradients and loss metrics are summed over the ranks inside
+the step (captured in its graph under NCCL; eager under gloo, said once).
+Validation shards the same way: each dev batch's loss sums stay on the
+card, are summed over the ranks once an epoch and divided there, and the
+six error counts are summed by ``allsum_scalars``, so that every rank holds
+one summary and takes the same ``best_att`` / ``best_ctc`` decisions. The
+throughput counts the global audio (each window's per-step audio summed
+over the ranks at the window's one read). Rank 0 alone logs and writes
+checkpoints; each save ends in a barrier. Local rank 0 builds the kernels
+while the host's other ranks wait.
+
 Time per logged window: ``rd`` is the wait for the next batch in
 ``next(prefetch)``, ``disp`` the host time spent issuing the steps' work,
 ``dev`` the rest of the window (window time - rd - disp): the time the
@@ -62,6 +78,7 @@ from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.metrics import cal_er
 from e2e_asr_tpu_torch.models import asr as asr_mod
+from e2e_asr_tpu_torch.parallel import dist
 from e2e_asr_tpu_torch.solver import BaseSolver
 from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
 from e2e_asr_tpu_torch.training.step import EVAL_SCALARS, Trainer, compute_dtype, param_leaves
@@ -88,13 +105,18 @@ class Solver(BaseSolver):
         cfg = self.config
         (self.tr_set, self.dv_set, self.feat_dim, self.vocab_size, self.tokenizer,
          msg) = load_dataset(cfg.data, ascending=cfg.hparas.curriculum > 0,
-                             num_workers=getattr(self.paras, "njobs", None))
+                             num_workers=getattr(self.paras, "njobs", None),
+                             process_index=dist.rank(), process_count=dist.world())
         self.verbose(msg)
+        if dist.world() > 1:
+            self.verbose(f"Data parallel: {dist.world()} ranks ({dist.backend()}), each loading its row block "
+                         "of every train and dev batch")
         # the decode solver reads the id mapping from beside the checkpoints
-        try:
-            self.tokenizer.save(os.path.join(self.ckpdir, "tokenizer.vocab"))
-        except NotImplementedError:
-            pass
+        if dist.is_main():
+            try:
+                self.tokenizer.save(os.path.join(self.ckpdir, "tokenizer.vocab"))
+            except NotImplementedError:
+                pass
 
     # ----------------------------------------------------------------- model
     def set_model(self):
@@ -102,7 +124,8 @@ class Solver(BaseSolver):
         params, self.shapes = asr_mod.asr_init(
             cfg.hparas.seed, self.feat_dim, self.vocab_size, cfg.model, self.device
         )
-        self.trainer = Trainer(cfg)
+        # a data-parallel step sums over the ranks; in a world of one it sums nothing
+        self.trainer = Trainer(cfg, reduce=dist.all_sum_ if dist.initialized() else None)
         load_path = self.paras.load or (
             self.latest_ckpt_path() if getattr(self.paras, "auto_resume", True) else None
         )
@@ -125,7 +148,7 @@ class Solver(BaseSolver):
         self.verbose(f"Compute dtype: {self.compute_dtype}")
         if self.device.type == "cuda":
             t0 = time.time()
-            cuda_build.build_all()
+            dist.local_first(cuda_build.build_all)  # the host's other ranks load what its local rank 0 built
             self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
         self._corpus_buf = self._device_corpus()
         self.train_graphs = self._train_graphs()
@@ -141,6 +164,9 @@ class Solver(BaseSolver):
         if route == "loop":
             self.verbose("Train step: eager (the speller takes the Python loop: decoder.fused_scan "
                          f"{self.config.model.decoder.fused_scan!r}, or a speller outside the fused scan's envelope)")
+            return None
+        if self.trainer.reduce is not None and not dist.capturable():
+            self.verbose(f"Train step: eager (the {dist.backend()} group's collectives cannot be captured)")
             return None
         self.verbose("Train step: CUDA graphs, one a bucket shape (training/step_graph.py)")
         return TrainGraphs(log=self.verbose)
@@ -169,6 +195,10 @@ class Solver(BaseSolver):
         if mode not in ("auto", "on", "off"):
             raise ValueError(f"data.corpus.device_cache must be auto, on or off, not {c.device_cache!r}")
         want = mode == "on" or (mode == "auto" and self.tr_set.total_wav_bytes <= c.device_cache_bytes)
+        if want and dist.world() > 1:
+            self.verbose(f"Device-resident corpus disabled: {dist.world()} ranks stream their rows "
+                         "(the device corpus is kept to single-process runs)")
+            want = False
         if want and not self.tr_set.flat_corpus_fits:
             self.verbose("Device-resident corpus disabled: the corpus exceeds int32 sample offsets; "
                          "streaming instead")
@@ -222,13 +252,17 @@ class Solver(BaseSolver):
 
         def flush() -> Dict[str, float]:
             """Reads the ring (the window's one wait for the device) into
-            ``step_log``; returns the last step's metrics."""
+            ``step_log``, each step's audio the global batch's (summed over
+            the ranks); returns the last step's metrics."""
+            nonlocal audio_acc
             rows = ring[:len(pending)].tolist()
+            audio = dist.allsum_scalars([rec["audio_s"] for rec in pending]).tolist()
             t_end = time.time()
             for n, (rec, row) in enumerate(zip(pending, rows)):
                 t_next = pending[n + 1]["t0"] if n + 1 < len(pending) else t_end
-                self.step_log.append({**dict(zip(keys, row)), "step": rec["step"], "audio_s": rec["audio_s"],
+                self.step_log.append({**dict(zip(keys, row)), "step": rec["step"], "audio_s": audio[n],
                                       "wall_s": t_next - rec.pop("t0"), "rd_s": rec["rd_s"]})
+                audio_acc += audio[n]
             pending.clear()
             return self.step_log[-1]
 
@@ -244,7 +278,6 @@ class Solver(BaseSolver):
                 self.step += 1
                 audio = float(batch.wav_len.sum()) / sr
                 pending.append({"step": self.step, "audio_s": audio, "t0": t0, "rd_s": t1 - t0})
-                audio_acc += audio
                 t_rd += t1 - t0
                 t_disp += t2 - t1
 
@@ -312,13 +345,20 @@ class Solver(BaseSolver):
         batch i (``cal_er``) while batch i + 1 runs. The summary is the
         per-batch host path's: each loss the mean of the batches' float32
         values in float64, each error rate the corpus-level ratio of the
-        counts. ``keep`` (a list) receives each batch's host arrays."""
+        counts. Under data parallelism each rank validates its row block of
+        every dev batch: the batches' loss numerators and denominators
+        (``eval_device`` ``sums``, one device row a batch) are summed over
+        the ranks in one collective after the last batch and divided on the
+        card (``Trainer.eval_losses``: in a world of one, the batches' own
+        losses bit for bit), and the error counts are summed by
+        ``allsum_scalars``; the sample is rank 0's. ``keep`` (a list)
+        receives each batch's host arrays."""
         params = self.state.params
         keys = self.trainer.scalar_keys(EVAL_SCALARS)
         eval_graphs = self.eval_graphs if graphs else None
         er = np.zeros(6, np.float64)  # att err/len, att alt err/len, ctc err/len
         have = set()
-        rows = []  # each batch's losses, on the device
+        rows = []  # each batch's loss sums, on the device
         sample = []
 
         def score(batch, host, event):
@@ -346,7 +386,7 @@ class Solver(BaseSolver):
             for batch, dbatch in prefetch:
                 max_step = int(batch.text.shape[1] * DEV_STEP_RATIO)
                 m = self.trainer.validate_batch(params, dbatch, max_step, graphs=eval_graphs)
-                rows.append(m["scalars"].clone())
+                rows.append(m["sums"].clone())
                 outs = {k: m[k] for k in ("tokens", "ctc_preds", "enc_len") if k in m}
                 event = None
                 if self.device.type == "cuda":
@@ -362,9 +402,11 @@ class Solver(BaseSolver):
         finally:
             prefetch.close()
         summary = {}
-        if rows:
-            losses = torch.stack(rows).T.tolist()  # the one read of the losses
+        if rows:  # as many dev batches on every rank
+            sums = dist.all_sum_(torch.stack(rows))
+            losses = self.trainer.eval_losses(sums).T.tolist()  # the one read of the losses
             summary = {k: float(np.mean(col)) for k, col in zip(keys, losses)}
+        er = dist.allsum_scalars(er)
         if "tokens" in have:
             summary["dev_er_att"] = float(er[0] / max(er[1], 1))
             summary[f"dev_{self._er_mode(alt=True)}_att"] = float(er[2] / max(er[3], 1))

@@ -26,6 +26,14 @@ advances the optimizer state, so that a non-finite gradient stays in
 Adam's moments). ``--load`` restores ``params``, ``opt_state`` and ``step``;
 there is no auto-resume, as in the JAX package. Checkpoints are of kind
 ``"lm"`` (``convert.py``).
+
+Data parallelism (``main --lm --multihost``, ``parallel/dist.py``): each
+rank's ``TextLoader`` yields its row block of every global batch; the
+step's token count is summed over the ranks before the division
+(``lm_loss(reduce=...)``) and its gradients and loss in one flat buffer
+(``training/step.py`` ``device_update``), captured in the step's graph
+under NCCL (eager under gloo); the dev sums are summed over the ranks once
+a validation. Rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -46,18 +54,20 @@ from e2e_asr_tpu_torch.data.prefetch import to_device
 from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.models import lm as lm_mod
 from e2e_asr_tpu_torch.optim import Optimizer
+from e2e_asr_tpu_torch.parallel import dist
 from e2e_asr_tpu_torch.solver import BaseSolver
 from e2e_asr_tpu_torch.training.lm_graph import LMEvalGraphs, LMGraphs
-from e2e_asr_tpu_torch.training.step import TrainState, device_update, param_leaves
+from e2e_asr_tpu_torch.training.step import Reduce, TrainState, device_update, param_leaves
 
 STEP_LOG_LEN = 1000
 
 
 def lm_loss(params, cfg: LMConfig, text: torch.Tensor, text_len: torch.Tensor,
-            generator: Optional[torch.Generator], train: bool):
+            generator: Optional[torch.Generator], train: bool, reduce: Optional[Reduce] = None):
     """Next-token cross-entropy of ``<sos> y_1 ... y_{L-1}`` (``<sos>`` = 0)
-    against ``y``, the mean over the tokens inside each row's length.
-    Returns (loss, {"loss", "n_tokens"})."""
+    against ``y``, the mean over the tokens inside each row's length (with
+    ``reduce``, over the global batch's tokens: the count summed over the
+    ranks). Returns (loss, {"loss", "n_tokens"})."""
     b, length = text.shape
     text = text.long()
     inputs = torch.cat([torch.zeros((b, 1), dtype=text.dtype, device=text.device), text[:, :-1]], 1)
@@ -65,6 +75,8 @@ def lm_loss(params, cfg: LMConfig, text: torch.Tensor, text_len: torch.Tensor,
     nll = -logp.gather(2, text[..., None])[..., 0]
     mask = (torch.arange(length, device=text.device)[None, :] < text_len[:, None]).to(nll.dtype)
     n_tokens = mask.sum()
+    if reduce is not None:
+        n_tokens = reduce(n_tokens.reshape(1))[0]
     loss = torch.sum(nll * mask) / torch.clamp(n_tokens, min=1)
     return loss, {"loss": loss, "n_tokens": n_tokens}
 
@@ -74,32 +86,34 @@ SCALARS = ("loss", "n_tokens", "grad_norm", "step_skipped")
 
 
 def device_step(state: TrainState, opt: Optimizer, cfg: LMConfig, batch: Dict[str, torch.Tensor],
-                generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator], reduce: Optional[Reduce] = None) -> Dict[str, torch.Tensor]:
     """The device work of one update of ``state`` in place
     (``training/step.py`` ``device_update``: gradients, the NaN/inf skip by
     select, clip and update): what a CUDA graph captures
     (``training/lm_graph.py``). Reads nothing back. Returns metrics (device
     tensors) with the pre-clip ``grad_norm``, ``step_skipped`` and
-    ``scalars`` (``SCALARS`` stacked, float32)."""
+    ``scalars`` (``SCALARS`` stacked, float32). With ``reduce`` the step is
+    the global batch's (``lm_loss``, ``device_update``)."""
     m = device_update(state, opt, lambda params: lm_loss(
-        params, cfg, batch["text"], batch["text_len"], generator, True))
+        params, cfg, batch["text"], batch["text_len"], generator, True, reduce), reduce)
     m["scalars"] = torch.stack([m[k] for k in SCALARS])
     return m
 
 
 def train_step(state: TrainState, opt: Optimizer, cfg: LMConfig, batch: Dict[str, torch.Tensor],
-               generator: Optional[torch.Generator], graphs=None) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator], graphs=None, reduce: Optional[Reduce] = None
+               ) -> Dict[str, torch.Tensor]:
     """One update of ``state`` in place and the host's step count (every
     step counts, a skipped one too). Eagerly, or with ``graphs`` (a
     ``training/lm_graph.LMGraphs``) by a replay of the graph of the batch's
     shape (captured at its first batch) with ``generator``'s seed, whose
     outputs are the graph's static tensors: read them before the next
-    replay."""
+    replay. ``reduce`` sums over the ranks (``device_step``)."""
     if graphs is not None:
         m = graphs.step(cfg, state, batch, generator.initial_seed(),
-                        lambda b, gen: device_step(state, opt, cfg, b, gen))
+                        lambda b, gen: device_step(state, opt, cfg, b, gen, reduce))
     else:
-        m = device_step(state, opt, cfg, batch, generator)
+        m = device_step(state, opt, cfg, batch, generator, reduce)
     state.step += 1
     return m
 
@@ -124,10 +138,11 @@ class Solver(BaseSolver):
         self.tokenizer = build_tokenizer(self.config.data, tr_utts)
         self.vocab_size = self.tokenizer.vocab_size
         bs = self.config.lm.batch_size
-        self.tr_set = TextLoader(tr_utts, self.tokenizer, bs)
-        self.dv_set = TextLoader(dv_utts, self.tokenizer, bs, shuffle=False)
+        procs = dict(process_index=dist.rank(), process_count=dist.world())
+        self.tr_set = TextLoader(tr_utts, self.tokenizer, bs, **procs)
+        self.dv_set = TextLoader(dv_utts, self.tokenizer, bs, shuffle=False, **procs)
         self.verbose(f"LM data: {len(self.tr_set)}/{len(self.dv_set)} tr/dv batches, vocab {self.vocab_size}")
-        if self.mode == "train":
+        if self.mode == "train" and dist.is_main():
             try:
                 self.tokenizer.save(os.path.join(self.ckpdir, "tokenizer.vocab"))
             except NotImplementedError:
@@ -151,13 +166,19 @@ class Solver(BaseSolver):
             self.verbose(f"Resumed from {self.paras.load} @ step {self.step}")
         n = sum(p.numel() for p in param_leaves(params))
         self.verbose(f"RNNLM: #params={n}, device={self.device}")
+        # a data-parallel step sums over the ranks; in a world of one it sums nothing
+        self.reduce = dist.all_sum_ if dist.initialized() else None
         self.graphs = self.eval_graphs = None  # the CPU runs the eager step and evaluation
         if self.device.type == "cuda":
             t0 = time.time()
-            cuda_build.build_all()
+            dist.local_first(cuda_build.build_all)  # the host's other ranks load what its local rank 0 built
             self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
-            self.verbose("LM step and evaluation: CUDA graphs, one a text bucket shape (training/lm_graph.py)")
-            self.graphs = LMGraphs(log=self.verbose)
+            if dist.capturable():
+                self.verbose("LM step and evaluation: CUDA graphs, one a text bucket shape (training/lm_graph.py)")
+                self.graphs = LMGraphs(log=self.verbose)
+            else:
+                self.verbose(f"LM step: eager (the {dist.backend()} group's collectives cannot be captured); "
+                             "evaluation: CUDA graphs")
             self.eval_graphs = LMEvalGraphs(log=self.verbose, share=self.graphs)
 
     def _put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -198,7 +219,8 @@ class Solver(BaseSolver):
         while self.step < self.max_step:
             t0 = time.time()
             batch = self._put(next(it))
-            m = train_step(self.state, self.opt, cfg.lm, batch, self.step_generator(self.step), graphs=self.graphs)
+            m = train_step(self.state, self.opt, cfg.lm, batch, self.step_generator(self.step), graphs=self.graphs,
+                           reduce=self.reduce)
             ring[len(pending)].copy_(m["scalars"])
             self.step += 1
             pending.append((self.step, t0))
@@ -222,7 +244,8 @@ class Solver(BaseSolver):
         the graph of its shape, unless ``graphs`` is False) adds its
         token-weighted nll and its token count, in float64, to a device sum
         read once after the last batch: the host sums' arithmetic, bit for
-        bit."""
+        bit. Under data parallelism each rank evaluates its row block of
+        every dev batch and the sums are summed over the ranks once."""
         acc = torch.zeros(2, dtype=torch.float64, device=self.device)
         for batch in self.dv_set.epoch(0):
             batch = self._put(batch)
@@ -232,7 +255,7 @@ class Solver(BaseSolver):
                 m = self.eval_step(batch)
             n = m["n_tokens"].double()
             acc += torch.stack([m["loss"].double() * n, n])
-        tot_nll, tot_tok = acc.tolist()
+        tot_nll, tot_tok = dist.all_sum_(acc).tolist()
         ppl = float(np.exp(tot_nll / max(tot_tok, 1)))
         self.progress(f"DEV ppl {ppl:.2f}")
         self.write_log("dev_ppl", ppl)

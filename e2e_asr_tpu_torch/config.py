@@ -269,10 +269,13 @@ class SrcConfig:
 
 @dataclass
 class ParallelConfig:
-    """TPU-native: mesh layout. The reference is single-device (SURVEY §2.2)."""
+    """Data parallelism over processes (``parallel/dist.py``, ``main
+    --multihost``): ``dp`` ranks on the data axis (-1: the world size; any
+    other value than the world size raises), ``mp`` the model axis, which
+    must be 1 (``dist.check_config``)."""
 
-    dp: int = -1  # -1 => all devices on the data axis
-    mp: int = 1  # model axis, reserved (unused by default)
+    dp: int = -1  # -1 => every rank on the data axis
+    mp: int = 1  # model axis: 1 (no model parallelism)
 
 
 @dataclass

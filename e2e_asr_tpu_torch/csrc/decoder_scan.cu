@@ -174,7 +174,9 @@ __device__ __forceinline__ uint32_t philox(uint32_t c0, uint32_t c1, uint32_t c2
 }
 
 // Gumbel noise of (seed, step, utterance, vocabulary column): a pure function
-// of its key, shared by the scan and by the buffer-filling kernel
+// of its key, shared by the scan and by the buffer-filling kernel. The
+// utterance is the row of the global batch (row0 + the local row under data
+// parallelism), so that a rank's rows draw what a world of one draws for them
 __device__ __forceinline__ float gumbel(uint32_t seed_lo, uint32_t seed_hi, int t, int b, int col) {
   const uint32_t bits = philox((uint32_t)t, (uint32_t)b, (uint32_t)col, seed_lo, seed_hi);
   const float u = (float)(bits >> 8) * (1.0f / 16777216.0f) + 1e-12f;
@@ -236,6 +238,7 @@ struct FwdArgs {
   int B, S, Dk, E, K, P, H, Emb, V, L;
   float inv_temp;
   int sample;
+  int row0;  // the global batch's row of utterance 0 (the Gumbel noise's key)
   const long long* seed;  // [1] in device memory, read at each step (null without sampling)
   int G, CL, NS;  // clusters, blocks per cluster, utterance slots per cluster
   // residents in shared memory: gate weights, Wq columns, Wout columns, and
@@ -836,7 +839,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> 
           const int col = v0 + o;
           const float lgt = acc + ldf(a.bout + col);
           stf(a.logits + row * V + col, lgt);
-          lg[o] = a.sample ? lgt + gumbel(seed_lo, seed_hi, t, b, col) : lgt;
+          lg[o] = a.sample ? lgt + gumbel(seed_lo, seed_hi, t, a.row0 + b, col) : lgt;
         } else {
           qsl[i * Dkc + o - nvc] = acc + ldf(a.bq + d0 + o - nvc);
         }
@@ -873,14 +876,14 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> 
   }
 }
 
-__global__ void gumbel_noise_kernel(float* out, int L, int B, int V, uint32_t seed_lo,
+__global__ void gumbel_noise_kernel(float* out, int L, int B, int V, int row0, uint32_t seed_lo,
                                     uint32_t seed_hi) {
   const long n = (long)L * B * V;
   for (long i = blockIdx.x * (long)blockDim.x + threadIdx.x; i < n;
        i += (long)gridDim.x * blockDim.x) {
     const int col = (int)(i % V);
     const long r = i / V;
-    out[i] = gumbel(seed_lo, seed_hi, (int)(r / B), (int)(r % B), col);
+    out[i] = gumbel(seed_lo, seed_hi, (int)(r / B), row0 + (int)(r % B), col);
   }
 }
 
@@ -956,7 +959,8 @@ extern "C" int e2e_decoder_scan_fwd_plan(int B, int S, int Dk, int E, int K, int
 // k [B, S, Dk], v [B, S, E], enc_len [B] i32, taps [K, P], wq [H, Dk], bq [Dk],
 // wlp [K, Dk], locv [Dk], locb [Dk], embed [V, Emb], wx [Emb + E, 4H],
 // wh [H, 4H], bl [4H], wout [H, V], bout [V], teacher [L, B] i32,
-// use_teacher [L] i32, seed [1] i64 (read where sample; may be null otherwise)
+// use_teacher [L] i32, seed [1] i64 (read where sample; may be null otherwise),
+// row0 the global batch's row of utterance 0 (the Gumbel noise's key)
 // -> logits [L, B, V], align [L, B, S], hidden [L, B, H],
 // cseq [L, B, H], tokens [L, B] i32, acts [L, B, 4H], qs [L, B, Dk],
 // ctxs [L, B, E]; ew [V, 4H] and hf [B, H] scratch (hf unused at float).
@@ -971,11 +975,11 @@ extern "C" int e2e_decoder_scan_fwd(
     const void* wx, const void* wh, const void* bl, const void* wout, const void* bout,
     const int* teacher, const int* use_teacher, void* logits, void* align, void* hidden,
     void* cseq, int* tokens, float* acts, float* qs, float* ctxs, float* ew, float* hf, int B, int S,
-    int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample,
+    int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample, int row0,
     const long long* seed, int G, int CL, int w_smem, int wq_smem, int wo_smem, int k_smem, int v_smem,
     int dt, void* stream) {
   if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
-      CL < 1 || CL > CLMAX || dt < 0 || dt > 1 || (sample && !seed))
+      CL < 1 || CL > CLMAX || dt < 0 || dt > 1 || (sample && !seed) || row0 < 0)
     return (int)cudaErrorInvalidValue;
   const int NS = cdiv(B, G);
   const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, w_smem, wq_smem, wo_smem,
@@ -993,7 +997,7 @@ extern "C" int e2e_decoder_scan_fwd(
     FwdArgs<T> a{(C)k, (C)v, enc_len, (C)taps, (C)wq, (C)bq, (C)wlp, (C)locv, (C)locb, (C)embed, (C)wx,
                  (C)wh, (C)bl, (C)wout, (C)bout, teacher, use_teacher, (O)logits, (O)align, (O)hidden,
                  (O)cseq, tokens, acts, qs, ctxs, ew, hf,
-                 B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, sample,
+                 B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, sample, row0,
                  (const long long*)seed, G, CL, NS, w_smem, wq_smem, wo_smem, k_smem, v_smem};
     return cudaLaunchKernelEx(&cfg, decoder_scan_fwd_kernel<T>, a);
   };
@@ -1015,12 +1019,13 @@ extern "C" int e2e_decoder_scan_phase_times(unsigned long long* out, int n, void
 #endif
 }
 
-// out [L, B, V]: the Gumbel noise the scan adds under (seed_lo, seed_hi)
-extern "C" int e2e_decoder_scan_noise(float* out, int L, int B, int V, int seed_lo, int seed_hi,
+// out [L, B, V]: the Gumbel noise the scan adds under (seed_lo, seed_hi) to
+// global rows row0 .. row0 + B - 1
+extern "C" int e2e_decoder_scan_noise(float* out, int L, int B, int V, int row0, int seed_lo, int seed_hi,
                                       void* stream) {
   const long n = (long)L * B * V;
   const int blocks = (int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024);
-  gumbel_noise_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(out, L, B, V, (uint32_t)seed_lo,
+  gumbel_noise_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(out, L, B, V, row0, (uint32_t)seed_lo,
                                                                  (uint32_t)seed_hi);
   return (int)cudaGetLastError();
 }

@@ -15,9 +15,19 @@ order, and the device-resident corpus (``flat_corpus()``: every wave in
 one int16 buffer, after which batches carry sample offsets into it and the
 step gathers the waves on the device, ``training/step.py``
 ``resolve_wav``). ``data/prefetch.py`` copies batches to the device ahead
-of the step. The audio loader's multi-process row blocks, the native
-``pack_batch`` route and ``rebatch`` / ``bucket_counts`` /
-``fill_factor`` are not ported yet (ROADMAP).
+of the step.
+
+Data parallelism (``parallel/dist.py``): with ``process_count`` > 1 both
+loaders keep the global schedule (every process walks, buckets and
+shuffles the whole manifest alike, so that step k's batch has one shape on
+every process), round each bucket's batch up to a multiple of
+``process_count``, and process ``process_index`` materialises only its
+contiguous block of rows: the other blocks' waves are never read.
+``batch_shapes()`` reports local rows. ``BucketedLoader.epoch(shard=(i,
+n))`` instead takes every n-th batch from the i-th, chosen before any is
+materialised (the sharded decode). The native ``pack_batch`` route and
+``rebatch`` / ``bucket_counts`` / ``fill_factor`` are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -67,8 +77,9 @@ def frames_to_samples(frames: int, win: int, shift: int) -> int:
 
 class BucketedLoader:
     """Bucketing batcher over a manifest, with an int16 wave cache, batches
-    filled by ``num_workers`` threads (0: on the calling thread) and an
-    optional device-resident corpus (``flat_corpus``)."""
+    filled by ``num_workers`` threads (0: on the calling thread), an
+    optional device-resident corpus (``flat_corpus``) and process
+    ``process_index``'s row block of each batch of ``process_count``."""
 
     def __init__(
         self,
@@ -86,9 +97,15 @@ class BucketedLoader:
         seed: int = 0,
         num_workers: int = 2,
         cache_bytes: int = 2 << 30,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         if len(buckets_frames) != len(token_buckets):
             raise ValueError("buckets and token_buckets must have the same length")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} outside process_count {process_count}")
+        self.process_index = process_index
+        self.process_count = process_count
         self.tokenizer = tokenizer
         self.buckets_samples = [frames_to_samples(f, win, shift) for f in buckets_frames]
         self.buckets_frames = list(buckets_frames)
@@ -128,10 +145,16 @@ class BucketedLoader:
                 bs = max(1, bs // 2)  # ref: HALF_BATCHSIZE_AUDIO_LEN
             for s in range(0, len(idxs), bs):
                 self._batches.append((bi, idxs[s : s + bs]))
-        # deterministic per-bucket pad size: every batch of a bucket has B rows
+        # deterministic per-bucket pad size: every batch of a bucket has B rows,
+        # B a multiple of process_count, so that every process owns a block
+        # of B / process_count rows (alike on every process: the manifest is
+        # not sharded)
         self._pad_bs: Dict[int, int] = {}
         for bi, chunk in self._batches:
             self._pad_bs[bi] = max(self._pad_bs.get(bi, 0), len(chunk))
+        p = process_count
+        for bi in self._pad_bs:
+            self._pad_bs[bi] = ((self._pad_bs[bi] + p - 1) // p) * p
 
     def _bucket_index(self, n_samples: int, n_tokens: int) -> Optional[int]:
         for i, (bs, tb) in enumerate(zip(self.buckets_samples, self.token_buckets)):
@@ -147,10 +170,10 @@ class BucketedLoader:
         return len(self._items)
 
     def batch_shapes(self) -> List[Tuple[int, int, int]]:
-        """Distinct (rows, n_samples, l_tokens) batch shapes this loader emits."""
+        """Distinct (local rows, n_samples, l_tokens) batch shapes this loader emits."""
         return sorted(
             {
-                (self._pad_bs[bi], self.buckets_samples[bi], self.token_buckets[bi])
+                (self._pad_bs[bi] // self.process_count, self.buckets_samples[bi], self.token_buckets[bi])
                 for bi, _ in self._batches
             }
         )
@@ -171,6 +194,10 @@ class BucketedLoader:
         n_bucket = self.buckets_samples[bi]
         l_bucket = self.token_buckets[bi]
         b = self._pad_bs[bi]
+        if self.process_count > 1:
+            # this process's contiguous row block of the global batch
+            b //= self.process_count
+            idxs = idxs[self.process_index * b : (self.process_index + 1) * b]
         wav = wav_off = None
         wav_len = np.zeros((b,), np.int32)
         if self.emit_offsets:
@@ -273,17 +300,20 @@ class BucketedLoader:
         return flat, self._flat_offsets
 
     def epoch(
-        self, epoch_idx: int = 0, ascending: Optional[bool] = None, skip_first: int = 0
+        self, epoch_idx: int = 0, ascending: Optional[bool] = None, skip_first: int = 0,
+        shard: Tuple[int, int] = (0, 1),
     ) -> Iterator[Batch]:
         """One epoch of batches: duration-ascending, or shuffled per epoch;
-        ``skip_first`` batches are skipped without being materialised. With
-        ``num_workers`` > 0 that many threads fill batches ahead, up to
-        ``num_workers + 2`` in flight, yielded in order."""
+        ``skip_first`` batches are skipped without being materialised;
+        ``shard`` (i, n) keeps batches i, i + n, i + 2n, ... of what is left,
+        chosen before any is materialised. With ``num_workers`` > 0 that many
+        threads fill batches ahead, up to ``num_workers + 2`` in flight,
+        yielded in order."""
         order = list(range(len(self._batches)))
         asc = self.ascending if ascending is None else ascending
         if not asc and self.shuffle:
             np.random.RandomState(self.seed + epoch_idx).shuffle(order)
-        order = order[skip_first:]
+        order = order[skip_first:][shard[0]::shard[1]]
         if self.num_workers <= 0:
             for oi in order:
                 yield self._materialize(*self._batches[oi])
@@ -415,10 +445,13 @@ def build_tokenizer(cfg: DataConfig, utts: List[corpus_mod.Utterance]) -> text_m
     raise ValueError(f"unknown text mode {mode}")
 
 
-def load_dataset(cfg: DataConfig, ascending: bool = False, num_workers: Optional[int] = None):
+def load_dataset(cfg: DataConfig, ascending: bool = False, num_workers: Optional[int] = None,
+                 process_index: int = 0, process_count: int = 1):
     """(train loader, dev loader, feat_dim, vocab size, tokenizer, msg). The
     train loader shuffles its batches per epoch unless ``ascending``;
-    ``num_workers`` None takes ``data.corpus.num_workers``."""
+    ``num_workers`` None takes ``data.corpus.num_workers``; both loaders
+    give process ``process_index`` its row block of every batch of
+    ``process_count``."""
     c = cfg.corpus
     win = int(cfg.audio.sample_rate * cfg.audio.frame_length / 1000)
     shift = int(cfg.audio.sample_rate * cfg.audio.frame_shift / 1000)
@@ -429,6 +462,7 @@ def load_dataset(cfg: DataConfig, ascending: bool = False, num_workers: Optional
         buckets_frames=c.buckets, token_buckets=c.token_buckets, win=win, shift=shift,
         half_batch_len=c.half_batch_len, wire_dtype=c.wire_dtype, cache_bytes=c.cache_bytes,
         num_workers=c.num_workers if num_workers is None else num_workers,
+        process_index=process_index, process_count=process_count,
     )
     tr = BucketedLoader(tr_utts, tokenizer, c.batch_size, shuffle=not ascending,
                         ascending=ascending, **common)

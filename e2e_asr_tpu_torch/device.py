@@ -11,11 +11,16 @@ cuDNN to deterministic algorithms (some of its convolutions' backward
 algorithms add atomically): a train step then gives the same bits run to
 run, so that a replayed CUDA graph of it can be held against an eager step
 bitwise.
+
+Under a process group (``main --multihost``, ``parallel/dist.py``) the card
+is the local rank's.
 """
 
 from __future__ import annotations
 
 import torch
+
+from e2e_asr_tpu_torch.parallel import dist
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
@@ -23,6 +28,8 @@ def resolve_device(name: str = "cuda") -> torch.device:
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' (--cpu) to run on the CPU")
+        if device.index is None and dist.initialized():
+            device = torch.device("cuda", torch.cuda.current_device())  # the local rank's (dist.init)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True

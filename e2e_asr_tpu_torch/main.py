@@ -2,11 +2,11 @@
 
     python -m e2e_asr_tpu_torch.main --config cfg.yaml              # train ASR
         [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt] [--njobs N]
-        [--no-auto-resume] [-o KEY=VAL ...] [--cpu]
+        [--no-auto-resume] [-o KEY=VAL ...] [--cpu] [--multihost]
     python -m e2e_asr_tpu_torch.main --config cfg.yaml --test --load ckpt
-        [--name exp] [--outdir result/] [--njobs N] [-o KEY=VAL ...] [--cpu]
+        [--name exp] [--outdir result/] [--njobs N] [-o KEY=VAL ...] [--cpu] [--multihost]
     python -m e2e_asr_tpu_torch.main --config lm.yaml --lm        # train the RNN-LM
-        [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt] [-o KEY=VAL ...] [--cpu]
+        [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt] [-o KEY=VAL ...] [--cpu] [--multihost]
 
 Training and decoding run on the card unless ``--cpu`` is given (without
 CUDA and without ``--cpu`` they raise). ``--lm`` trains the LM that a decode
@@ -14,6 +14,22 @@ config fuses in (``decode.lm_weight``, ``decode.lm_path``); ``--lm --test``
 raises, as in the JAX package (the LM's dev perplexity is part of its
 training logs). ``--njobs`` is the number of threads that fill the train,
 dev and eval batches ahead of the step (0: on the calling thread).
+
+Data parallelism over processes (``--multihost``; the JAX package's flag,
+which there calls ``jax.distributed.initialize()``): launch one process a
+card with torchrun,
+
+    python -m torch.distributed.run --nproc-per-node N -m e2e_asr_tpu_torch.main \
+        --config cfg.yaml --multihost [...]
+
+(``--nnodes``, ``--node-rank`` and ``--master-addr`` for several hosts).
+Each process joins the group (``parallel/dist.py`` ``init``: NCCL on the
+card, gloo with ``--cpu``) and takes its row block of every global batch;
+the batch size of the config is the global one. Training and LM training
+sum the loss's normalisers and the gradients over the ranks inside the
+step, validation and the decode shard their batches, and rank 0 alone
+writes logs, checkpoints and result csvs. The group is shut down at exit.
+Without ``--multihost`` no group exists and nothing of this runs.
 """
 
 from __future__ import annotations
@@ -42,6 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
         help="do not auto-resume from ckpdir/<name>/latest",
     )
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--multihost", action="store_true",
+                   help="join the torchrun process group (data parallelism; NCCL on the card, gloo with --cpu)")
     p.add_argument(
         "-o", "--override", action="append", default=[], metavar="KEY=VAL",
         help="dotted config override, e.g. -o decode.beam_size=4 (VAL parsed as YAML)",
@@ -86,14 +104,21 @@ def main(argv=None):
 
         mode = "train"
     from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.device import resolve_device
+    from e2e_asr_tpu_torch.parallel import dist
 
     config = Config.load(paras.config)
     apply_overrides(config, paras.override)
     config.hparas.seed = paras.seed
-    solver = Solver(config, paras, mode)
-    solver.load_data()
-    solver.set_model()
-    return solver.exec()
+    if paras.multihost:
+        dist.init(resolve_device("cpu" if paras.cpu else "cuda"))
+    try:
+        solver = Solver(config, paras, mode)
+        solver.load_data()
+        solver.set_model()
+        return solver.exec()
+    finally:
+        dist.shutdown()
 
 
 if __name__ == "__main__":

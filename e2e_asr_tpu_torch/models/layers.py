@@ -21,6 +21,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from e2e_asr_tpu_torch.parallel import dist
+
 Params = Dict[str, object]
 
 
@@ -125,9 +127,11 @@ def maxpool2d(x: torch.Tensor) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
     """Inverted dropout with keep mask ~ Bernoulli(1 - rate) drawn from
-    ``generator`` (a no-op outside training, at rate 0 or without one)."""
+    ``generator`` (a no-op outside training, at rate 0 or without one), the
+    uniforms at the global batch's shape, this rank's rows kept
+    (``parallel/dist.py`` ``global_draw``; x's first axis is the batch)."""
     if not train or rate <= 0.0 or generator is None:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) < keep
+    mask = dist.global_draw(torch.rand, x.shape, generator).to(x.device) < keep
     return torch.where(mask, x / keep, 0.0)

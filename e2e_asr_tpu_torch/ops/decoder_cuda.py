@@ -44,7 +44,12 @@ The noise matters only at steps whose coin failed, so a launch in which
 every step uses the teacher gives the same outputs with sampling on or off.
 ``gumbel_noise`` fills a [L, B, V] buffer with exactly that noise so that
 the plain version can be fed the same numbers; given no buffer the plain
-version draws its noise from the generator itself. Neither reproduces
+version draws its noise from the generator itself. Under data parallelism
+the noise's utterance is the row of the global batch: the kernels take
+``row0``, the global row of the rank's utterance 0 (``parallel/dist.py``
+``row_block``), and the plain version draws at the global batch's shape
+(``global_draw``), so that a rank's rows get the noise that a world of one
+gives them; at ``row0`` 0 the kernels are those of a world of one. Neither reproduces
 ``jax.random`` nor the Python loop's ``torch.multinomial`` stream: the
 distribution is the same (Gumbel-max), the numbers are not. Teacher-forced
 and argmax feedback are comparable value for value.
@@ -89,6 +94,7 @@ import torch.nn.functional as F
 from e2e_asr_tpu_torch import cuda_build
 from e2e_asr_tpu_torch.cuda_build import dtype_code
 from e2e_asr_tpu_torch.ops.att_step_cuda import NEG, location_features
+from e2e_asr_tpu_torch.parallel import dist
 
 CL = 8  # blocks per cluster, at most (the portable cluster size)
 CLUSTER_SIZES = (8, 7, 6, 5, 4)  # the sizes scan_grid weighs
@@ -282,8 +288,8 @@ def decoder_scan_fwd_plain(
             if noise is not None:
                 scores = logits + noise[t]
             else:
-                u = torch.rand(logits.shape, generator=generator,
-                               device=generator.device if generator is not None else None)
+                u = (dist.global_draw(torch.rand, logits.shape, generator) if generator is not None
+                     else torch.rand(logits.shape))
                 scores = logits - torch.log(-torch.log(u.to(logits.device) + 1e-12))
         pred = torch.argmax(scores, -1)
         att, h, c = align.to(dt), h2.to(dt), c2.to(dt)
@@ -330,25 +336,25 @@ def _dims(name, k, v, taps, wq, wlp, embed, wx, wh, wout, teacher):
 def decoder_scan_fwd(
     k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
     teacher, use_teacher, temp: float, sample: bool = False, seed: int = 0,
-    noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+    noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None, row0: int = 0,
 ):
     """Plain version on CPU tensors; the CUDA kernel on CUDA tensors (its
-    sampled feedback draws the noise of ``gumbel_noise(seed, ...)`` in the
-    kernel, ``seed`` an int or an int64 tensor of one element on k's device
-    that the kernel reads; ``noise`` and ``generator`` are the plain
-    version's)."""
+    sampled feedback draws the noise of ``gumbel_noise(seed, ..., row0)`` in
+    the kernel, ``seed`` an int or an int64 tensor of one element on k's
+    device that the kernel reads, ``row0`` the global row of utterance 0;
+    ``noise`` and ``generator`` are the plain version's)."""
     if cuda_build.use_plain(k):
         return decoder_scan_fwd_plain(k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh,
                                       bl, wout, bout, teacher, use_teacher, temp, sample, noise,
                                       generator)
     out = _fwd_launch((), k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-                      teacher, use_teacher, temp, sample, seed)
+                      teacher, use_teacher, temp, sample, seed, row0=row0)
     cuda_build.count_launch(decoder_scan_fwd, k.dtype)
     return out
 
 
 def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout,
-                bout, teacher, use_teacher, temp, sample, seed, cluster_size=None):
+                bout, teacher, use_teacher, temp, sample, seed, cluster_size=None, row0=0):
     """Checks, allocates and launches the forward kernel of the library
     built with ``defines``."""
     fl = [a.contiguous() for a in (k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout)]
@@ -381,7 +387,7 @@ def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx
     cuda_build.launch(
         "decoder_scan", "e2e_decoder_scan_fwd", k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed,
         wx, wh, bl, wout, bout, teacher, use_i, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew,
-        hs, b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)),
+        hs, b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)), int(row0),
         seed_t, grid["clusters"], grid["cluster_size"],
         grid["w_smem"], grid["wq_smem"], grid["wo_smem"], grid["k_smem"], grid["v_smem"],
         dtype_code(dt, "decoder_scan_fwd"), defines=defines,
@@ -393,15 +399,16 @@ decoder_scan_fwd.launches = 0
 decoder_scan_fwd.launches_bf16 = 0
 
 
-def gumbel_noise(seed: int, l: int, b: int, vocab: int, device) -> torch.Tensor:
+def gumbel_noise(seed: int, l: int, b: int, vocab: int, device, row0: int = 0) -> torch.Tensor:
     """The [L, B, V] Gumbel noise the kernel adds to the logits of step t,
-    utterance b, column v under ``seed`` (the same device function fills
-    it, so the numbers are the kernel's bit for bit). Card only."""
+    utterance b (the global batch's row ``row0 + b``), column v under
+    ``seed`` (the same device function fills it, so the numbers are the
+    kernel's bit for bit). Card only."""
     out = torch.empty((l, b, vocab), dtype=torch.float32, device=device)
     if cuda_build.use_plain(out):
         raise RuntimeError("gumbel_noise: the kernel's noise exists on the card only")
     seed = int(seed)
-    cuda_build.launch("decoder_scan", "e2e_decoder_scan_noise", out, l, b, vocab,
+    cuda_build.launch("decoder_scan", "e2e_decoder_scan_noise", out, l, b, vocab, int(row0),
                       seed & 0x7FFFFFFF, (seed >> 31) & 0x7FFFFFFF)
     return out
 
@@ -573,11 +580,11 @@ class DecoderScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-                enc_len, teacher, use_teacher, temp, sample, seed, noise, generator):
+                enc_len, teacher, use_teacher, temp, sample, seed, noise, generator, row0):
         dt = k.dtype
         w = [a.to(dt) for a in (taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout)]
         logits, align, hidden, res = decoder_scan_fwd(
-            k, v, enc_len, *w, teacher, use_teacher, temp, sample, seed, noise, generator)
+            k, v, enc_len, *w, teacher, use_teacher, temp, sample, seed, noise, generator, row0)
         cseq, tokens, acts, qs, ctxs = res
         taps_s, wq_s, _, wlp_s, locv_s, locb_s, embed_s, wx_s, wh_s, bl_s, wout_s, _ = w
         ctx.save_for_backward(k, v, enc_len, taps_s, wq_s, wlp_s, locv_s, locb_s, wx_s, wh_s, wout_s,
@@ -636,15 +643,15 @@ class DecoderScanFn(torch.autograd.Function):
         dbout = dlog.sum(dim=(0, 1))
         dtaps = _taps_grad(att_prev.reshape(l * b, s), dfpre.reshape(l * b, s, -1), taps.shape[1])
         return (dk.to(dt), dv, dtaps, dwq, dbq, dwlp, dlocv, dlocb, dembed, dwx, dwh, dbl, dwout,
-                dbout, None, None, None, None, None, None, None, None)
+                dbout, None, None, None, None, None, None, None, None, None)
 
 
 def decoder_scan(k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-                 teacher, use_teacher, temp, sample=False, seed=0, noise=None, generator=None):
+                 teacher, use_teacher, temp, sample=False, seed=0, noise=None, generator=None, row0=0):
     """Differentiable (logits [L, B, V], align [L, B, S], hidden [L, B, H]),
     in k's type."""
     return DecoderScanFn.apply(k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-                               enc_len, teacher, use_teacher, temp, sample, seed, noise, generator)
+                               enc_len, teacher, use_teacher, temp, sample, seed, noise, generator, row0)
 
 
 def run_decode_scan(
@@ -671,10 +678,11 @@ def run_decode_scan(
     # CPU the plain version draws its noise from the generator instead)
     sample = bool(train and sample_decoding and generator is not None)
     seed = torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device) if sample else 0
+    row0 = dist.row_block(enc.shape[0])[0]  # the Gumbel noise's key: the global batch's rows
     logits, align, hidden = decoder_scan(
         k, enc, enc_len, ap["loc_conv"]["w"][:, 0], ap["proj_q"]["w"], ap["proj_q"]["b"], wlp,
         ap["loc_v"][0], locb, params["embed"]["table"], cell["wx"], cell["wh"], cell["b"],
         dp["char"]["w"], dp["char"]["b"], teacher_in.T.int(), use_teacher,
-        float(cfg.attention.temperature), sample, seed, None, generator,
+        float(cfg.attention.temperature), sample, seed, None, generator, row0,
     )
     return logits.transpose(0, 1), align.transpose(0, 1)[:, :, None, :], hidden.transpose(0, 1)

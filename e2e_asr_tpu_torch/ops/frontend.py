@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from e2e_asr_tpu_torch.config import AudioConfig
+from e2e_asr_tpu_torch.parallel import dist
 
 LOG_FLOOR = 1.1921e-7  # float32 eps, kaldi-style floor
 
@@ -208,7 +209,8 @@ def compute_features(
         # int16 PCM wire format -> normalized f32
         wav = wav.float() * (1.0 / 32768.0)
     if cfg.dither > 0 and generator is not None:
-        noise = torch.randn(wav.shape, generator=generator, device=generator.device)
+        # drawn at the global batch's shape, this rank's rows kept (parallel/dist.py)
+        noise = dist.global_draw(torch.randn, wav.shape, generator)
         wav = wav + cfg.dither * noise.to(wav.device)
 
     pallas = cfg.use_pallas if use_pallas is None else use_pallas

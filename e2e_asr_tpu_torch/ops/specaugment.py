@@ -11,6 +11,10 @@ CMVN). Per utterance and mask:
 - time: max_w = min(time_mask_width, int(feat_len * time_mask_ratio)),
   width = int(u * (max_w + 1)), start = int(u' * max(feat_len - width, 1))
   with u, u' uniform in [0, 1), so time masks stay inside the utterance.
+
+The uniforms are drawn at the global batch's shape and each rank keeps its
+rows (``parallel/dist.py`` ``global_draw``): an utterance's masks do not
+depend on the world size.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from e2e_asr_tpu_torch.config import SpecAugmentConfig
+from e2e_asr_tpu_torch.parallel import dist
 
 
 class Masks(NamedTuple):
@@ -33,10 +38,9 @@ def draw_masks(
     feat_len: torch.Tensor, feat_dim: int, cfg: SpecAugmentConfig, generator: torch.Generator
 ) -> Masks:
     b = feat_len.shape[0]
-    dev = generator.device
 
     def uniform(n):
-        return torch.rand((b, n), generator=generator, device=dev).to(feat_len.device)
+        return dist.global_draw(torch.rand, (b, n), generator).to(feat_len.device)
 
     nf, nt = cfg.freq_mask_num, cfg.time_mask_num
     fw = torch.floor(uniform(nf) * (cfg.freq_mask_width + 1)).long()

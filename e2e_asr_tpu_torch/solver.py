@@ -11,6 +11,12 @@ the kind, ``ckpt_kind``, and the vocabulary size and feature dim that
 (``<metric> <score>`` and ``global_step <n>``). Scalars go to
 ``<logdir>/<name>/scalars.jsonl``, one JSON object per line (the JAX
 package's tensorboard tags; no tensorboard writer is needed).
+
+Under a process group (``parallel/dist.py``) rank 0 alone prints, logs and
+writes checkpoints; every rank calls ``save_checkpoint``, which ends in a
+barrier, so that no rank reads a ``latest`` (auto-resume) that rank 0 is
+still writing. The ``parallel`` section is checked against the world
+(``dist.check_config``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import sys
 from typing import Optional
 
 from e2e_asr_tpu_torch import convert, optim
+from e2e_asr_tpu_torch.parallel import dist
 
 
 class BaseSolver:
@@ -38,34 +45,41 @@ class BaseSolver:
         self.logdir = os.path.join(paras.logdir, self.exp_name)
         self.ckpdir = os.path.join(paras.ckpdir, self.exp_name)
         self.step = 0
+        dist.check_config(config.parallel.dp, config.parallel.mp)
         os.makedirs(self.ckpdir, exist_ok=True)
         os.makedirs(self.logdir, exist_ok=True)
         self._log_path = os.path.join(self.logdir, "scalars.jsonl")
 
     def verbose(self, msg) -> None:
-        if self.paras.verbose:
+        if self.paras.verbose and dist.is_main():
             for m in msg if isinstance(msg, list) else [msg]:
                 print("[INFO]", m, flush=True)
 
     def progress(self, msg: str) -> None:
-        if self.paras.verbose:
+        if self.paras.verbose and dist.is_main():
             sys.stdout.write("\033[K")
             print(f"[{self.step}] {msg}", flush=True)
 
     def write_log(self, tag: str, value) -> None:
-        """A number, a dict of numbers or a string, at the current step."""
+        """A number, a dict of numbers or a string, at the current step
+        (rank 0's log alone)."""
+        if not dist.is_main():
+            return
         with open(self._log_path, "a") as f:
             f.write(json.dumps({"step": self.step, "tag": tag, "value": value}) + "\n")
 
     def save_checkpoint(self, fname: str, metric: str, score: float, state) -> None:
-        path = os.path.join(self.ckpdir, fname)
-        tmp = path + ".tmp"
-        convert.save_checkpoint(tmp, state.params, self.vocab_size, self.feat_dim, kind=self.ckpt_kind,
-                                opt_state=optim.checkpoint_state(state.opt_state), step=state.step)
-        os.replace(tmp, path)
-        with open(path + ".meta", "w") as f:
-            f.write(f"{metric} {score}\nglobal_step {state.step}\ncompute_dtype {self.compute_dtype}\n")
-        self.verbose(f"Saved checkpoint (step = {state.step}, {metric} = {score:.2f}) -> {fname}")
+        """Rank 0 writes the checkpoint; every rank then meets in a barrier."""
+        if dist.is_main():
+            path = os.path.join(self.ckpdir, fname)
+            tmp = path + ".tmp"
+            convert.save_checkpoint(tmp, state.params, self.vocab_size, self.feat_dim, kind=self.ckpt_kind,
+                                    opt_state=optim.checkpoint_state(state.opt_state), step=state.step)
+            os.replace(tmp, path)
+            with open(path + ".meta", "w") as f:
+                f.write(f"{metric} {score}\nglobal_step {state.step}\ncompute_dtype {self.compute_dtype}\n")
+            self.verbose(f"Saved checkpoint (step = {state.step}, {metric} = {score:.2f}) -> {fname}")
+        dist.barrier()
 
     def latest_ckpt_path(self) -> Optional[str]:
         """Auto-resume: the run's ``latest`` checkpoint, if there is one."""

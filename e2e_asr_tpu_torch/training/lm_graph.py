@@ -21,7 +21,10 @@ A graph holds the addresses of the parameters and the optimizer state
 and whether the kernels run. Capture, launch counts and failures are
 ``training/step_graph.py``'s: an eager warm-up on a side stream, the
 capture with ``capture_error_mode="thread_local"``, the counts of the
-capture added on every replay, and a failure raises.
+capture added on every replay, and a failure raises. So are its
+collectives under an NCCL group (the token count and the flat buffer of
+gradients and loss, captured in the step's graph; the world size in
+``graph_key``); a gloo group's step runs eagerly.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from e2e_asr_tpu_torch import cuda_build
 from e2e_asr_tpu_torch.config import LMConfig
+from e2e_asr_tpu_torch.parallel import dist
 from e2e_asr_tpu_torch.training.step import TrainState, param_leaves
 from e2e_asr_tpu_torch.training.step_graph import GraphCache, _opt_leaves, batch_key
 
@@ -41,10 +45,10 @@ STATIC = ("text", "text_len")  # the batch's tensors an LM step reads
 def graph_key(cfg: LMConfig, params, opt_state, batch: Dict[str, torch.Tensor]) -> tuple:
     """What a captured LM step (``opt_state`` given) or evaluation (None)
     depends on: the batch's (B, L) shapes and types, whether the kernels run
-    (``cuda_build.use_plain``), the LM configuration and the addresses of
-    every parameter and optimizer tensor."""
+    (``cuda_build.use_plain``), the LM configuration, the world size and the
+    addresses of every parameter and optimizer tensor."""
     return (
-        *batch_key(batch, STATIC), cuda_build.use_plain(batch["text"]), repr(cfg),
+        *batch_key(batch, STATIC), cuda_build.use_plain(batch["text"]), repr(cfg), dist.world(),
         tuple(p.data_ptr() for p in param_leaves(params)),
         None if opt_state is None else tuple(t.data_ptr() for t in _opt_leaves(opt_state)),
     )
@@ -66,6 +70,8 @@ class LMGraphs(GraphCache):
         stream of ``seed``: the first batch of a key runs it eagerly and
         captures it, every later one replays."""
         _on_card(batch, self.what)
+        if not dist.capturable():
+            raise RuntimeError(f"a {dist.backend()} group's collectives cannot be captured: run the step eagerly")
         return self.run(graph_key(cfg, state.params, state.opt_state, batch), batch, fn, STATIC, seed)
 
 

@@ -42,12 +42,30 @@ the card, ``training/eval_graph.py``). Random draws (dither, SpecAugment,
 dropout, the teacher-forcing coins, sampled feedback) come from one
 ``torch.Generator`` per step (the graphs re-seed a generator of their own
 with its seed).
+
+Data parallelism (``parallel/dist.py``): the JAX step computes the loss of
+the *global* batch, so its normalisers are global. With ``reduce`` (the
+trainer's, ``dist.all_sum_``, set where a process group exists)
+``compute_loss`` sums the two denominators (the attention head's token
+count, the CTC head's utterance count) over the ranks in one 2-element
+collective before its divisions, each rank's loss its own numerator over
+the global count; ``device_update`` copies the gradients and the loss
+metrics into one flat float32 buffer, sums it over the ranks in one
+collective and takes the norm, the skip, the clip and the update from the
+sums, so that every rank updates alike. A mean of per-rank losses would
+not be the reference wherever the ranks' token counts differ. Padding rows
+(``text_len`` = ``wav_len`` = 0) add nothing to either sum. Random draws
+of a row's tensor take the global batch's shape (``dist.global_draw``); the
+step generator's seed is the same on every rank. Without ``reduce`` there
+is no collective, no flat buffer and no extra copy. Validation returns each
+dev batch's loss numerators and denominators (``eval_device`` ``sums``),
+summed over the ranks once an epoch and divided by ``eval_losses``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,6 +76,8 @@ from e2e_asr_tpu_torch.ops.ctc import ctc_loss
 from e2e_asr_tpu_torch.ops.frontend import compute_features
 from e2e_asr_tpu_torch.ops.specaugment import specaugment
 from e2e_asr_tpu_torch.optim import Optimizer, OptState, global_norm, tf_rate
+
+Reduce = Callable[[torch.Tensor], torch.Tensor]  # a sum over the ranks, in place (dist.all_sum_)
 
 
 def param_leaves(tree) -> List[torch.Tensor]:
@@ -113,7 +133,12 @@ def compute_loss(
     generator: Optional[torch.Generator],
     train: bool = True,
     sample_decoding: bool = True,
+    reduce: Optional[Reduce] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(joint loss, metrics) of a batch. The metrics hold each head's loss
+    and its numerator and denominator (``att_num`` / ``att_den``,
+    ``ctc_num`` / ``ctc_den``); with ``reduce`` the denominators are the
+    global batch's (one collective of both counts, before the divisions)."""
     m = cfg.model
     feat, feat_len = compute_features(
         wav, wav_len, cfg.data.audio, generator=generator if train else None
@@ -128,19 +153,21 @@ def compute_loss(
     enc_len = out["enc_len"]
     text = text.long()
     valid_utt = text_len > 0
-    n_utt = torch.clamp(valid_utt.sum(), min=1)
+    pos = torch.arange(text.shape[1], device=text.device)[None, :]
+    tok_mask = ((pos < text_len[:, None]) & valid_utt[:, None]).float()
+    att_den, ctc_den = tok_mask.sum(), valid_utt.sum()
+    if reduce is not None:
+        att_den, ctc_den = reduce(torch.stack([att_den, ctc_den.float()]))
     metrics: Dict[str, torch.Tensor] = {}
-    total = torch.zeros((), device=wav.device)
+    att_loss = ctc_l = None
 
     if "att_logits" in out:
         logp = torch.log_softmax(out["att_logits"].float(), -1)
-        pos = torch.arange(text.shape[1], device=text.device)[None, :]
-        tok_mask = ((pos < text_len[:, None]) & valid_utt[:, None]).to(logp.dtype)
         nll = -logp.gather(2, text[..., None])[..., 0]
-        att_loss = torch.sum(nll * tok_mask) / torch.clamp(tok_mask.sum(), min=1)
-        metrics["att_loss"] = att_loss
+        att_num = torch.sum(nll * tok_mask)
+        att_loss = att_num / torch.clamp(att_den, min=1)
+        metrics.update(att_loss=att_loss, att_num=att_num, att_den=att_den.float())
         metrics["att_preds"] = torch.argmax(logp, -1)
-        total = total + (1.0 - m.ctc_weight) * att_loss
 
     if "ctc_log_probs" in out:
         lp = out["ctc_log_probs"].float()
@@ -152,14 +179,28 @@ def compute_loss(
         if not train or cfg.hparas.ctc_infeasible == "mask":
             keep = keep & torch.isfinite(nll)
         per_utt = torch.where(keep, nll / torch.clamp(label_len, min=1), 0.0)
-        ctc_l = per_utt.sum() / n_utt
-        metrics["ctc_loss"] = ctc_l
+        ctc_num = per_utt.sum()
+        ctc_l = ctc_num / torch.clamp(ctc_den, min=1)
+        metrics.update(ctc_loss=ctc_l, ctc_num=ctc_num, ctc_den=ctc_den.float())
         metrics["ctc_preds"] = torch.argmax(lp, -1)
-        total = total + m.ctc_weight * ctc_l
 
+    total = joint_loss(att_loss, ctc_l, m.ctc_weight, wav.device)
     metrics["loss"] = total
     metrics["enc_len"] = enc_len
     return total, metrics
+
+
+def joint_loss(att_loss: Optional[torch.Tensor], ctc_loss_: Optional[torch.Tensor], ctc_weight: float,
+               device) -> torch.Tensor:
+    """ctc_weight * ctc + (1 - ctc_weight) * att over the heads there are
+    (elementwise, so that ``eval_losses`` computes each dev batch's loss with
+    the arithmetic of ``compute_loss``)."""
+    total = torch.zeros((), device=device)
+    if att_loss is not None:
+        total = total + (1.0 - ctc_weight) * att_loss
+    if ctc_loss_ is not None:
+        total = total + ctc_weight * ctc_loss_
+    return total
 
 
 @dataclass
@@ -172,16 +213,36 @@ class TrainState:
 # the scalar metrics a training step writes into the solver's ring, in this
 # order (those of the heads the model has)
 SCALARS = ("loss", "att_loss", "ctc_loss", "grad_norm", "tf_rate", "step_skipped")
-EVAL_SCALARS = ("loss", "att_loss", "ctc_loss")  # those of a dev batch
+EVAL_SCALARS = ("loss", "att_loss", "ctc_loss")  # the losses: those of a dev batch
+EVAL_SUMS = ("att_num", "att_den", "ctc_num", "ctc_den")  # a dev batch's row of loss sums
 
 
-def device_update(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch.Tensor]:
+def flat_all_sum(grads: List[torch.Tensor], scalars: List[torch.Tensor],
+                 reduce: Reduce) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """``grads`` and the 0-dim ``scalars`` copied into one flat float32
+    buffer (one concatenation: a batched copy kernel on the card, not a
+    copy a tensor), summed over the ranks by ``reduce`` in one collective;
+    returns (the summed gradients, the summed scalars), views of that
+    buffer."""
+    sizes = [g.numel() for g in grads]
+    n = sum(sizes)
+    flat = torch.empty(n + len(scalars), dtype=torch.float32, device=grads[0].device)
+    torch.cat([g.reshape(-1) for g in grads] + [s.reshape(1) for s in scalars], out=flat)
+    reduce(flat)
+    return [v.view(g.shape) for v, g in zip(flat[:n].split(sizes), grads)], list(flat[n:].unbind())
+
+
+def device_update(state: TrainState, opt: Optimizer, loss_fn, reduce: Optional[Reduce] = None
+                  ) -> Dict[str, torch.Tensor]:
     """One update of ``state``'s tensors in place from ``loss_fn(params) ->
     (loss, metrics)``: gradients, their global norm, clip and update, each
     tensor taking ``where(ok, new, old)`` with ok = loss and norm finite.
-    Touches no host state and reads nothing back. Returns the metrics
-    (detached) with the pre-clip ``grad_norm`` and ``step_skipped`` (1 -
-    ok, float32), all on the device."""
+    With ``reduce`` the gradients and the losses (``EVAL_SCALARS``)
+    are first summed over the ranks in one flat buffer (``flat_all_sum``),
+    and everything after comes from the sums. Touches no host state and
+    reads nothing back. Returns the metrics (detached) with the pre-clip
+    ``grad_norm`` and ``step_skipped`` (1 - ok, float32), all on the
+    device."""
     leaves = param_leaves(state.params)
     with torch.enable_grad():
         loss, metrics = loss_fn(state.params)
@@ -189,6 +250,11 @@ def device_update(state: TrainState, opt: Optimizer, loss_fn) -> Dict[str, torch
     loss = loss.detach()
     metrics = {k: v.detach() for k, v in metrics.items()}
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+    if reduce is not None:
+        keys = [k for k in EVAL_SCALARS if k in metrics]
+        grads, sums = flat_all_sum(grads, [metrics[k].float() for k in keys], reduce)
+        metrics.update(zip(keys, sums))
+        loss = metrics["loss"]
     g_norm = global_norm(grads)
     metrics["grad_norm"] = g_norm
     ok = torch.isfinite(loss) & torch.isfinite(g_norm)
@@ -202,10 +268,12 @@ class Trainer:
     tree (the counterpart of ``make_train_step`` / ``make_eval_step`` and
     the validation's jitted greedy decode)."""
 
-    def __init__(self, cfg: Config):
+    def __init__(self, cfg: Config, reduce: Optional[Reduce] = None):
         self.cfg = cfg
         self.opt = Optimizer(cfg.hparas)
         self.tf_buf: Optional[torch.Tensor] = None  # the step's teacher-forcing rate, on the device
+        # the sum over the ranks of a data-parallel step (dist.all_sum_), None in a world of one
+        self.reduce = reduce
 
     def init_state(self, params) -> TrainState:
         for p in param_leaves(params):
@@ -218,6 +286,24 @@ class Trainer:
         the heads this model has give."""
         w = self.cfg.model.ctc_weight
         return tuple(k for k in names if not (k == "att_loss" and w >= 1) and not (k == "ctc_loss" and w <= 0))
+
+    def sum_keys(self) -> Tuple[str, ...]:
+        """The names of ``eval_device``'s ``sums``, in order: the numerator
+        and denominator of each head this model has (``EVAL_SUMS``)."""
+        have = {k.split("_")[0] for k in self.scalar_keys(EVAL_SCALARS) if k != "loss"}
+        return tuple(k for k in EVAL_SUMS if k.split("_")[0] in have)
+
+    def eval_losses(self, sums: torch.Tensor) -> torch.Tensor:
+        """[n, len(sum_keys())] rows of ``sums`` (each dev batch's, summed
+        over the ranks) -> [n, len(scalar_keys(EVAL_SCALARS))] losses, on
+        the sums' device with ``compute_loss``'s arithmetic: in a world of
+        one each row is ``eval_device``'s ``scalars`` bit for bit."""
+        col = dict(zip(self.sum_keys(), sums.unbind(1)))
+        heads = {h: col[f"{h}_num"] / torch.clamp(col[f"{h}_den"], min=1) for h in ("att", "ctc")
+                 if f"{h}_num" in col}
+        total = joint_loss(heads.get("att"), heads.get("ctc"), self.cfg.model.ctc_weight, sums.device)
+        by_key = {"loss": total.expand(sums.shape[0]), "att_loss": heads.get("att"), "ctc_loss": heads.get("ctc")}
+        return torch.stack([by_key[k] for k in self.scalar_keys(EVAL_SCALARS)], 1)
 
     def set_tf(self, step: int, device: torch.device) -> torch.Tensor:
         """``tf_buf`` (allocated once, outside any graph) holding the
@@ -235,7 +321,7 @@ class Trainer:
         tf = self.tf_buf
         metrics = device_update(state, self.opt, lambda params: compute_loss(
             params, self.cfg, wav, wav_len, batch["text"], batch["text_len"], tf,
-            generator, train=True, sample_decoding=sample_decoding))
+            generator, train=True, sample_decoding=sample_decoding, reduce=self.reduce), self.reduce)
         metrics["tf_rate"] = tf.clone()
         metrics["scalars"] = torch.stack([metrics[k] for k in self.scalar_keys()])
         return metrics
@@ -276,8 +362,11 @@ class Trainer:
         on the device and with no host read: what a CUDA graph captures
         (``training/eval_graph.py``). Returns ``scalars`` (the teacher-forced
         losses of ``eval_step`` at the compute type, ``scalar_keys
-        (EVAL_SCALARS)`` stacked, float32); with a CTC head ``ctc_preds`` [B,
-        S] (the frame-wise argmax) and ``enc_len``; with an attention head
+        (EVAL_SCALARS)`` stacked, float32) and ``sums`` (their numerators and
+        denominators, ``sum_keys()`` stacked, float32: what the ranks of a
+        sharded validation add up before ``eval_losses`` divides); with a CTC
+        head ``ctc_preds`` [B, S] (the frame-wise argmax) and ``enc_len``;
+        with an attention head
         ``tokens`` [B, max_step], the greedy decode (``decode/greedy.py``) of
         float32 features. As in the JAX package's validation, which jits the
         eval step, the features and the greedy decode apart
@@ -288,7 +377,8 @@ class Trainer:
         wav, wav_len = resolve_wav(batch)
         _, m = compute_loss(params, self.cfg, wav, wav_len, batch["text"], batch["text_len"],
                             tf=1.0, generator=None, train=False)
-        out = {"scalars": torch.stack([m[k] for k in self.scalar_keys(EVAL_SCALARS)])}
+        out = {"scalars": torch.stack([m[k] for k in self.scalar_keys(EVAL_SCALARS)]),
+               "sums": torch.stack([m[k] for k in self.sum_keys()])}
         if "ctc_preds" in m:
             out["ctc_preds"], out["enc_len"] = m["ctc_preds"], m["enc_len"]
         if "att_preds" in m:

@@ -46,6 +46,19 @@ would count once and the replays not at all: the capture's deltas are taken
 back and added again on every replay, and a replayed step counts what an
 eager one counts.
 
+Data parallelism (``parallel/dist.py``): under an NCCL group the step's two
+collectives (the loss's denominators, the flat buffer of gradients and loss
+metrics; ``training/step.py``) are captured inside the graph as nodes on
+NCCL's stream, joined to the capture stream by events, and every replay
+sums over the ranks. The communicator must exist before a capture: the
+group's first all-reduce makes it (``dist.init``) and the cache issues one
+more on its capture stream before every capture (``dist.warm_up``); a
+capture does not hand its collectives to the group's watchdog, so the
+watchdog does not time out a long capture. ``graph_key`` holds the world
+size. A gloo group cannot be captured: ``TrainGraphs`` raises, and the
+solver runs such a step eagerly. Every rank captures and replays the same
+keys in the same order, because the shapes of a step agree on every rank.
+
 ``Captured`` (one program) and ``GraphCache`` (programs by key, their pool
 and stream) carry all of this; the validation's and the LM's caches
 (``training/eval_graph.py``, ``training/lm_graph.py``) are built on them.
@@ -61,6 +74,7 @@ import torch
 from e2e_asr_tpu_torch import cuda_build
 from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.ops import ctc_cuda, decoder_cuda, frontend_cuda, rnn_cuda
+from e2e_asr_tpu_torch.parallel import dist
 from e2e_asr_tpu_torch.training.step import TrainState, Trainer, compute_dtype, param_leaves
 
 # the kernel wrappers the captured programs (a train step, a validation, an
@@ -103,12 +117,13 @@ def graph_key(trainer: Trainer, state: TrainState, batch: Dict[str, torch.Tensor
     (streaming ``wav`` or offsets ``wav_off`` into the device corpus with its
     ``n_samples``), the compute type, the LSTM and speller routes, whether
     the kernels run (``cuda_build.use_plain``), the configuration the step
-    reads, and the addresses of every parameter, optimizer tensor, the
-    corpus and the teacher-forcing buffer."""
+    reads, the world size (whether the step holds collectives), and the
+    addresses of every parameter, optimizer tensor, the corpus and the
+    teacher-forcing buffer."""
     cfg = trainer.cfg
     corpus = batch.get("corpus")
     return (
-        *batch_key(batch), compute_dtype(cfg), cfg.model.encoder.rnn_impl,
+        *batch_key(batch), compute_dtype(cfg), cfg.model.encoder.rnn_impl, dist.world(), trainer.reduce is not None,
         asr_mod.speller_route(state.params, cfg.model, True, batch["wav_len"].device), sample_decoding,
         cuda_build.use_plain(batch["wav_len"]), repr(cfg.model), repr(cfg.data.audio), cfg.hparas.ctc_infeasible,
         tuple(p.data_ptr() for p in param_leaves(state.params)),
@@ -230,6 +245,7 @@ class GraphCache:
             g.load(batch)
             return g.replay(seed)
         g = Captured(batch, keys, self.stream, random)
+        dist.warm_up(self.stream)  # the communicator exists before the capture
         warm = g.capture(fn, seed, self.pool)
         self.pool = g.graph.pool()
         self.graphs[key] = g
@@ -255,5 +271,7 @@ class TrainGraphs(GraphCache):
         replay of any graph overwrites."""
         if batch["wav_len"].device.type != "cuda":
             raise ValueError(f"CUDA graphs of the train step need CUDA tensors, not {batch['wav_len'].device}")
+        if trainer.reduce is not None and not dist.capturable():
+            raise RuntimeError(f"a {dist.backend()} group's collectives cannot be captured: run the step eagerly")
         return self.run(graph_key(trainer, state, batch, sample_decoding), batch,
                         lambda b, gen: trainer.device_step(state, b, gen, sample_decoding), seed=seed)

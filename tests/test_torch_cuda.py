@@ -1679,7 +1679,7 @@ def test_eval_graph_replay_equals_eager_validation_bitwise(gen, dtype, rnn_impl)
         counts1 = _train_counts()
         want = trainer.eval_device(state.params, batch, EVAL_MAX_STEP)
         counts2 = _train_counts()
-        assert set(got) == set(want) == {"scalars", "ctc_preds", "enc_len", "tokens"}
+        assert set(got) == set(want) == {"scalars", "sums", "ctc_preds", "enc_len", "tokens"}
         assert got["tokens"].shape == (3, EVAL_MAX_STEP) and got["scalars"].dtype == torch.float32
         for k in want:
             assert torch.equal(got[k], want[k]), (i, k)
@@ -1950,3 +1950,156 @@ def test_device_bias_corrections_and_lr_on_the_card(gen):
     got = device_lr(h, counts).cpu().numpy()
     want = np.array([sched(c) for c in range(1, 100_001)], np.float32)
     assert np.array_equal(got, want), np.nonzero(got != want)[0][:5] + 1
+
+
+# ------------------------------------------------------------ data parallelism
+def _ddp_train_yaml(tmp_path, dropout=0.0):
+    """A small training recipe on the synthetic corpus for the data-parallel
+    checks (parallel/mp_worker.py): the flagship's structure at test size,
+    the fused scan (speller dropout 0), SpecAugment, encoder dropout
+    ``dropout``, 3 steps of 4 rows, validations at 2 and 3."""
+    from e2e_asr_tpu_torch.config import Config
+
+    cfg = Config.from_dict({
+        "data": {"corpus": {"name": "synthetic", "train_split": ["train:8"], "dev_split": ["dev:4"], "test_split": [],
+                            "batch_size": 4, "buckets": [416], "token_buckets": [48], "half_batch_len": 1000,
+                            "num_workers": 0},
+                 "audio": {"feat_dim": 40, "use_pallas": True}, "text": {"mode": "character"}},
+        "hparas": {"max_step": 3, "valid_step": 2, "log_step": 1, "optimizer": "Adadelta", "lr": 1.0, "eps": 1e-8,
+                   "grad_clip": 5.0, "curriculum": 0, "tf_start": 1.0, "tf_end": 0.5, "tf_step": 2},
+        "model": {
+            "ctc_weight": 0.5,
+            "encoder": {"prenet": "vgg", "dim": [32, 32], "dropout": [dropout, dropout], "layer_norm": [False, False],
+                        "proj": [True, True], "sample_rate": [1, 1], "sample_style": "drop"},
+            "attention": {"mode": "location", "dim": 16, "num_head": 1, "loc_kernel_size": 5, "loc_kernel_num": 3},
+            "decoder": {"dim": 32, "layer": 1},
+            "specaugment": {"enable": True, "freq_mask_width": 5, "time_mask_width": 10},
+        },
+        "decode": {"beam_size": 2, "batch_size": 2, "ctc_weight": 0.3, "max_len_ratio": 0.3},
+    })
+    path = tmp_path / "ddp_train.yaml"
+    cfg.save(path)
+    return str(path), cfg
+
+
+def _root():
+    import os
+
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_world1_nccl_group_step_validation_decode_and_lm_are_bitwise(gen, tmp_path):
+    """In an NCCL group of one (the collectives captured in the step graphs,
+    the validation's sums all-reduced, the LM step's flat buffer) training
+    with its validations at float32 and bf16, the decode and the LM trainer
+    give the bits of the same runs without a group."""
+    from e2e_asr_tpu_torch import convert
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.data.dataset import load_dataset
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.parallel import mp_worker
+
+    path, cfg = _ddp_train_yaml(tmp_path)
+    _, _, feat_dim, vocab, _, _ = load_dataset(cfg.data, num_workers=0)
+    ckpt = str(tmp_path / "asr.pt")
+    convert.save_checkpoint(ckpt, asr_mod.asr_init(0, feat_dim, vocab, cfg.model, torch.device("cpu"))[0], vocab,
+                            feat_dim)
+    spec = {"config": path, "ckpt": ckpt, "dir": str(tmp_path / "runs"), "device": "cuda",
+            "modes": ["train", "decode"], "dtypes": ["float32", "bfloat16"], "out": str(tmp_path / "w1.pt")}
+    mp_worker.run("world1", spec, 1, str(tmp_path / "w1"), 600, cwd=_root())
+    res = torch.load(spec["out"], weights_only=False)
+    assert set(res) == {"train_float32", "train_bfloat16", "decode"}
+    for run, r in res.items():
+        assert all(r["same"].values()), (run, r["same"])
+    assert res["train_float32"]["with"]["train_graphs"] and res["train_bfloat16"]["with"]["train_graphs"]
+    lm = Config.from_dict({"data": {"corpus": {"name": "synthetic", "train_split": ["train:16"], "dev_split": ["dev:4"]},
+                                    "text": {"mode": "character"}},
+                           "hparas": {"max_step": 4, "valid_step": 2, "log_step": 1, "optimizer": "Adam", "lr": 1e-3},
+                           "lm": {"emb_dim": 16, "dim": 24, "n_layers": 2, "batch_size": 4, "dropout": 0.2}})
+    lm.save(tmp_path / "lm.yaml")
+    spec = {"config": str(tmp_path / "lm.yaml"), "dir": str(tmp_path / "lmruns"), "device": "cuda", "modes": ["lm"],
+            "out": str(tmp_path / "w1lm.pt")}
+    mp_worker.run("world1", spec, 1, str(tmp_path / "w1lm"), 600, cwd=_root())
+    r = torch.load(spec["out"], weights_only=False)["lm"]
+    assert all(r["same"].values()) and r["with"]["graphs"], r["same"]
+
+
+def test_two_gloo_ranks_on_one_card_give_the_global_step(gen, tmp_path):
+    """Two gloo ranks sharing the card (the step eager: gloo cannot be
+    captured) take one step with dropout and SpecAugment on their row
+    blocks: the one-rank step on the global batch within the
+    kernel-versus-plain tolerances, the ranks' parameters bitwise equal."""
+    from e2e_asr_tpu_torch import convert
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.parallel import mp_worker
+    from e2e_asr_tpu_torch.training.step import Trainer
+
+    path, cfg = _ddp_train_yaml(tmp_path, dropout=0.2)
+    ckpt = str(tmp_path / "asr.pt")
+    convert.save_checkpoint(ckpt, asr_mod.asr_init(0, 40, 12, cfg.model, torch.device("cpu"))[0], 12, 40)
+    batch = {k: v.cpu().numpy() for k, v in _train_batch(3, frames=(64, 52, 24, 40), text_len=(8, 6, 5, 2)).items()}
+    np.savez(tmp_path / "batch.npz", **batch)
+    spec = {"config": path, "params": ckpt, "batch": str(tmp_path / "batch.npz"), "seed": 3, "device": "cuda",
+            "backend": "gloo", "dtypes": ["float32", "bfloat16"], "out": str(tmp_path / "step")}
+    mp_worker.run("step", spec, 2, str(tmp_path / "step_log"), 600, local_rank_zero=True, cwd=_root())
+    ranks = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in (0, 1)]
+    dbatch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    for dtype, p_tol in (("float32", 1e-5), ("bfloat16", 1e-4)):
+        cfg.hparas.dtype = dtype
+        trainer = Trainer(cfg)
+        one = mp_worker.step_result(trainer, trainer.init_state(convert.load_checkpoint(ckpt, torch.device("cuda"))
+                                                                ["params"]), dbatch, 3, torch.device("cuda"))
+        got = ranks[0][dtype]
+        assert all(torch.equal(a, b) for a, b in zip(got["params"], ranks[1][dtype]["params"]))
+        assert abs(float(got["loss"]) - float(one["loss"])) <= 1e-4 * abs(float(one["loss"]))
+        assert abs(float(got["grad_norm"]) - float(one["grad_norm"])) <= 1e-3 * abs(float(one["grad_norm"]))
+        assert max(float((a - b).abs().max()) for a, b in zip(got["params"], one["params"])) <= p_tol
+
+
+def test_two_card_nccl_gradients_are_the_global_batch_gradients(gen, tmp_path):
+    """On two cards (NCCL), the loss and gradients of the global batch
+    summed over the ranks equal one card's on the whole batch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from e2e_asr_tpu_torch import convert
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.parallel import mp_worker
+    from e2e_asr_tpu_torch.training.step import compute_loss, param_leaves
+
+    path, cfg = _ddp_train_yaml(tmp_path)
+    params, _ = asr_mod.asr_init(0, 40, 12, cfg.model, torch.device("cuda"))
+    ckpt = str(tmp_path / "asr.pt")
+    convert.save_checkpoint(ckpt, params, 12, 40)
+    batch = {k: v.cpu().numpy() for k, v in _train_batch(5, frames=(64, 52, 24, 40), text_len=(8, 6, 5, 2)).items()}
+    np.savez(tmp_path / "batch.npz", **batch)
+    spec = {"config": path, "params": ckpt, "batch": str(tmp_path / "batch.npz"), "device": "cuda",
+            "out": str(tmp_path / "grads.npz")}
+    mp_worker.run("grads", spec, 2, str(tmp_path / "grads_log"), 600, cwd=_root())
+    got = np.load(tmp_path / "grads.npz")
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    loss, _ = compute_loss(params, cfg, b["wav"], b["wav_len"], b["text"], b["text_len"], 1.0, None, train=False)
+    want = torch.cat([g.reshape(-1) for g in torch.autograd.grad(loss, leaves)]).cpu().numpy()
+    np.testing.assert_allclose(float(got["loss"]), float(loss.detach()), rtol=1e-5)
+    np.testing.assert_allclose(got["grads"], want, rtol=1e-4, atol=1e-6)
+
+
+def test_scan_gumbel_noise_at_a_row_offset(gen):
+    """A rank's rows draw the global batch's Gumbel noise: ``gumbel_noise``
+    at ``row0`` is rows row0.. of the full batch's bit for bit, and the scan
+    forward with sampled feedback on rows 8-15 at ``row0`` 8 feeds back the
+    tokens the plain version feeds on that noise."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    seed = 123456789
+    full = dc.gumbel_noise(seed, 6, 16, 26, "cuda")
+    assert torch.equal(dc.gumbel_noise(seed, 6, 8, 26, "cuda", row0=8), full[:, 8:])
+    assert not torch.equal(dc.gumbel_noise(seed, 6, 8, 26, "cuda"), full[:, 8:])
+    shape = (8, 61, 300, 640, 10, 201, 320, 320, 26, 6)
+    args = _scan_args(gen, *shape)
+    use = torch.zeros(shape[-1], dtype=torch.bool, device="cuda")
+    got = dc.decoder_scan_fwd(*args, use, 0.5, True, seed, row0=8)
+    want = dc.decoder_scan_fwd_plain(*args, use.cpu(), 0.5, True, full[:, 8:])
+    assert torch.equal(got[3][1], want[3][1])
