@@ -3,8 +3,9 @@
     python3 chip_smoke.py [--parent DIR] [--json PATH]
 
 1. Prints the card's name and power limit, builds every CUDA kernel from
-   e2e_asr_tpu_torch/csrc/ (one nvcc per source, in parallel) and prints
-   the build time.
+   e2e_asr_tpu_torch/csrc/ (one nvcc per source, in parallel) and the
+   native host library (csrc/native.cpp + flac.cpp, g++: edit distance,
+   wav and FLAC input) and prints the build times.
 2. Holds every kernel against its plain PyTorch version, each with its
    stated tolerance, and times kernel, plain version and, where one
    PyTorch call computes the same function, that call: the log-mel kernel
@@ -113,10 +114,13 @@
    width on LOADER_UTTS training utterances, LOADER_STEPS steps through
    ``bin/train_asr.Solver.exec`` three ways in turns, (a) batches filled on
    the prefetch thread with no wave cache, streamed, (b) two loader threads
-   with the wave cache, streamed, (c) the device-resident corpus: each way's ``rd``
-   share, median audio-s/s, flat_corpus seconds and MB, host RSS; the first
-   8 device batches and step 1's loss must be equal across the ways, each
-   way in the input mode it asked for.
+   with the wave cache, streamed, (c) the device-resident corpus; then the
+   same utterances written as LibriSpeech-layout wav and FLAC trees, (d)
+   the wav files through the int16 wave cache and (e) through one native
+   ``pack_batch`` a batch, in turns d, e, e, d, (f) the FLAC files: each
+   way's ``rd`` share, median audio-s/s, flat_corpus seconds and MB, host
+   RSS; the first 8 device batches and step 1's loss must be equal across
+   the ways, each way in the input mode and route it asked for.
 7. The bfloat16 compute type, every shipped training recipe's
    ``hparas.dtype`` (the training phases above pin float32 and keep their
    float32 tolerances): each bf16 kernel variant (the lstm_seq pair, the
@@ -150,7 +154,20 @@
    tolerances, the ranks' parameters bitwise equal; (c) a two-rank sharded
    decode over gloo writes the one-rank decode's top hypotheses; and the
    scan's Gumbel noise at a row offset is the global batch's rows'.
-9. Prints a ``kernels`` JSON line (each row names the path its ``launches``
+9. configs/libri/asr_960h.yaml (``recipe_960h_phase``), the recipe behind
+   the reference's headline numbers, at its full widths (4 x 512 BiLSTM,
+   512-wide speller, E = 1024), seed-0 weights, bf16, on synthetic wav
+   files: one replayed train step under each encoder route on its
+   416-frame bucket (B = 32) and its 3056-frame bucket (B = 16, S = 764,
+   L = 520), each bitwise the eager step and within BF16_STEP_TOL of the
+   plain step, every kernel of the route launched, wall and busy; the
+   validation's replay bitwise the eager validation over two dev batches;
+   the recipe's decode block with a seed-0 LM fused in (``decode_phase``).
+   Every kernel at the recipe's shapes is held against its plain version
+   and timed with its bound (``recipe_960h_kernel_checks``, and the "960h"
+   shape of ``bf16_kernel_checks``): each kernel row carries it as
+   ``recipe_960h``, with its launches in the phase's runs.
+10. Prints a ``kernels`` JSON line (each row names the path its ``launches``
    were counted on; the bf16 variants in rows of their own, ``_bf16``), then
    the device JSON line last; the details go to ``--json`` (default
    e2e_asr_tpu_torch/_build/chip_smoke.json).
@@ -246,6 +263,64 @@ def compare(name, got, want, rtol, atol, unreachable=None):
     return max_abs
 
 
+def log_mel_work(a, b, n, win, n_fft):
+    """(bytes, operations) of the log-mel function's least work on [b, n]
+    waves: the wave in and the features out, the window and the mel bank's
+    nonzeros read once; per frame DC removal, pre-emphasis and window (~5
+    per sample), a real FFT of n_fft points (~2.5 n log2 n), power, the mel
+    product and the log. The mel product counts the bank's nonzeros (2 nnz
+    a frame, 492 of F x M = 257 x 40 at the flagship), as a sparse
+    product's least work does, not the dense 2 F M. Counted as f32 work
+    (the function's inputs and outputs are f32; the kernel's float64
+    transform is its own choice)."""
+    from e2e_asr_tpu_torch.ops import frontend as fe
+    from e2e_asr_tpu_torch.ops import frontend_cuda as fec
+
+    shift = int(a.sample_rate * a.frame_shift / 1000)
+    t, f, mel = fec.n_log_mel_frames(n, win, shift), n_fft // 2 + 1, a.feat_dim
+    nnz = int(np.count_nonzero(fe.mel_filterbank(mel, n_fft, a.sample_rate, a.low_freq, a.high_freq)))
+    return (4 * (b * n + win + nnz + b * t * mel),
+            b * t * (5 * win + 2.5 * n_fft * math.log2(n_fft) + 3 * f + 2 * nnz + mel))
+
+
+def att_step_work(args):
+    """(bytes, operations) of one beam attention step's least work on
+    ``att_step_beam_loc``'s arguments: q, prev_att, the valid frames of k
+    and v, the lengths and the weights read once, align and ctx written
+    once; per valid (beam, frame) the conv, the energies and the context."""
+    q, prev, k, v, alens, taps = args[:6]
+    b, w, dk = q.shape
+    s_len, e_dim, (kk, p) = prev.shape[2], v.shape[2], taps.shape
+    nvalid = float(alens.sum())
+    return (4 * (b * w * dk + 2 * b * w * s_len + nvalid * (dk + e_dim) + b + kk * p + kk * dk + 2 * dk
+                 + b * w * e_dim),
+            w * nvalid * (2 * p * kk + dk * (2 * kk + 4) + 2 * e_dim) + b * w * s_len * 4)
+
+
+def prefix_work(pargs):
+    """(bytes, operations) of the fused CTC prefix function's least work on
+    ``prefix_scores_fused``'s arguments: ctc_lp and the parents' r_g in,
+    the candidate and last-token ids, r_h, psi and psi_eos out; ~30
+    operations per valid (t, column) cell."""
+    ctc_lp, plens, r_g1, last1, cand1 = pargs[:5]
+    b, w, kc = cand1.shape
+    t_p, n_p = ctc_lp.shape[1], cand1.numel()
+    return ((4 * (ctc_lp.numel() + r_g1.numel() + 2 * t_p * n_p + n_p + b + b * w)
+             + 8 * (cand1.numel() + last1.numel())),
+            30 * float(torch.clamp(plens, max=t_p).sum()) * w * kc)
+
+
+def ctc_work(lp, labels, inlen, lablen):
+    """(bytes, operations) of the CTC loss and gradient's least work, the
+    same for the kernel and the library: log_probs, labels and lengths read
+    once, nll and G [B, T, V] written once; ~30 operations per valid (t, s)
+    cell for alpha and beta."""
+    b, s_len = lp.shape[:2]
+    return ((4 * lp.numel() + labels.element_size() * labels.numel() + inlen.element_size() * b
+             + lablen.element_size() * b + 4 * (b + lp.numel())),
+            30 * float((inlen.clamp(max=s_len) * (2 * lablen + 1)).sum()))
+
+
 def kernel_checks(dev, cfg, vocab, batch_wav):
     """Each kernel against its plain version at the flagship decode shapes
     (``batch_wav``: the decode batch's int16 waves)."""
@@ -283,18 +358,8 @@ def kernel_checks(dev, cfg, vocab, batch_wav):
     wav = waves["randn"]
     got = fec.log_mel(wav, a, win, shift, n_fft)
     mel_extra = _repeat_and_sync("log_mel", lambda: (fec.log_mel(wav, a, win, shift, n_fft),), (got,))
-    f, mel = n_fft // 2 + 1, a.feat_dim
-    nnz = int(np.count_nonzero(fe.mel_filterbank(mel, n_fft, a.sample_rate, a.low_freq, a.high_freq)))
-    # the function's least work: the wave in and the features out, the window
-    # and the mel bank's nonzeros read once; per frame DC removal, pre-emphasis
-    # and window (~5 per sample), a real FFT of n_fft points (~2.5 n log2 n),
-    # power, the mel product and the log. The mel product counts the bank's
-    # nonzeros (2 nnz a frame, 492 of F x M = 257 x 40 at the flagship), as a
-    # sparse product's least work does, not the dense 2 F M. Counted as f32
-    # work (the function's inputs and outputs are f32; the kernel's float64
-    # transform is its own choice)
-    nb = 4 * (b * n + win + nnz + b * t * mel)
-    nf = b * t * (5 * win + 2.5 * n_fft * math.log2(n_fft) + 3 * f + 2 * nnz + mel)
+    mel = a.feat_dim
+    nb, nf = log_mel_work(a, b, n, win, n_fft)
     out["log_mel"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/log_mel.cu",
         replaces="e2e_asr_tpu/ops/frontend_pallas.py:151", max_abs_err=max(errs.values()),
@@ -379,10 +444,7 @@ def kernel_checks(dev, cfg, vocab, batch_wav):
               compare("att_step ctx S=764", g764[1], w764[1], rtol=1e-4, atol=1e-5))
     split = att_phase_split(args)
     print_decode_phases({"att_step_beam_loc": split})
-    nvalid = float(alens.sum())
-    nb = 4 * (b * w * dk + 2 * b * w * s_len + nvalid * (dk + e_dim) + b + kk * p + kk * dk
-              + 2 * dk + b * w * e_dim)
-    nf = w * nvalid * (2 * p * kk + dk * (2 * kk + 4) + 2 * e_dim) + b * w * s_len * 4
+    nb, nf = att_step_work(args)
     out["att_step_beam_loc"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/att_step.cu",
         replaces="e2e_asr_tpu/ops/att_step_pallas.py:159", max_abs_err=err,
@@ -411,13 +473,7 @@ def kernel_checks(dev, cfg, vocab, batch_wav):
     psplit = prefix_phase_split(pargs)
     print_decode_phases({"prefix_recursion": psplit})
     t_p = ctc_lp.shape[1]
-    n_p = cand1.numel()
-    # the function's least traffic: ctc_lp and the parents' r_g in, the
-    # candidate and last-token ids, r_h, psi and psi_eos out; ~30 operations
-    # per valid (t, column) cell
-    nb = (4 * (ctc_lp.numel() + r_g1.numel() + 2 * t_p * n_p + n_p + b + b * w)
-          + 8 * (cand1.numel() + last1.numel()))
-    nf = 30 * float(torch.clamp(plens, max=t_p).sum()) * w * cand1.shape[2]
+    nb, nf = prefix_work(pargs)
     out["prefix_recursion"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/ctc_prefix.cu",
         replaces="e2e_asr_tpu/decode/ctc_prefix_pallas.py:155", max_abs_err=err,
@@ -994,12 +1050,7 @@ def train_kernel_checks(dev, cfg, vocab):
           f"{device_launches['kernel']} (F.ctc_loss {device_launches['library']}); no host sync", flush=True)
     print(f"  alternating rounds ({ALT_ROUNDS}, median): ctc_loss forward + backward {alt['kernel']:.3f} ms vs "
           f"F.ctc_loss {alt['library']:.3f} ms (ratio {alt['kernel'] / alt['library']:.3f})", flush=True)
-    # the function's least work, the same for the kernel and the library:
-    # log_probs, labels and lengths read once, nll and G [B, T, V] written
-    # once; ~30 operations per valid (t, s) cell for alpha and beta
-    io = (4 * lp.numel() + labels.element_size() * labels.numel()
-          + inlen.element_size() * b + lablen.element_size() * b + 4 * (b + lp.numel()))
-    nf = 30 * float((inlen.clamp(max=s_len) * (2 * lablen + 1)).sum())
+    io, nf = ctc_work(lp, labels, inlen, lablen)
     out["ctc_loss"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/ctc_loss.cu",
         replaces="e2e_asr_tpu/ops/ctc_pallas.py:170", max_abs_err=err,
@@ -1163,7 +1214,8 @@ def bf16_kernel_checks(dev, cfg, vocab):
     sides, at scaled rtol 1e-4 as in float32. Times the bf16 kernel, its float32 instantiation on
     the same values and the bf16 plain version."""
     from e2e_asr_tpu_torch import cuda_build
-    from e2e_asr_tpu_torch.bin.profile_decode import flagship_scan_inputs, scan_inputs, scan_shape
+    from e2e_asr_tpu_torch.bin.profile_decode import RECIPE_960H, flagship_scan_inputs, scan_inputs, scan_shape
+    from e2e_asr_tpu_torch.config import Config
     from e2e_asr_tpu_torch.ops import decoder_cuda as dc
     from e2e_asr_tpu_torch.ops import rnn_cuda
 
@@ -1182,7 +1234,8 @@ def bf16_kernel_checks(dev, cfg, vocab):
               f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
 
     with torch.no_grad():
-        for shape, (t, b, d, h) in (("flagship", (204, 16, 1280, 320)), ("convergence", (816, 32, 80, 256))):
+        for shape, (t, b, d, h) in (("flagship", (204, 16, 1280, 320)), ("convergence", (816, 32, 80, 256)),
+                                    ("960h", (764, 16, 1280, 512))):
             lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev)
             lens[0] = t
             x, mask, wx, wh, bias = _lstm_inputs(gen, dev, t, b, d, h, lens)
@@ -1263,18 +1316,32 @@ def bf16_kernel_checks(dev, cfg, vocab):
         clens[0] = cs
         c_args = scan_inputs(conv_gen, dev, cb, cs, ac.dim, 2 * m.encoder.dim[-1], ac.loc_kernel_num,
                              2 * ac.loc_kernel_size + 1, m.decoder.dim, m.decoder.dim, vocab, cl, clens)
-        for shape, args, tp in (("flagship", f_args, temp), ("convergence", c_args, float(ac.temperature))):
+        # configs/libri/asr_960h.yaml's longest bucket: B = 16, S = 764, L = 520,
+        # Dk 300, E = 1024, 10 x 201 taps, H = 512 (the kernels' MAX_H)
+        hcfg = Config.load(RECIPE_960H)
+        hm, ha, hc = hcfg.model, hcfg.model.attention, hcfg.data.corpus
+        hb, hs, hl = hc.batch_size // 2, hc.buckets[-1] // 4, hc.token_buckets[-1]
+        hlens = torch.randint(hs // 2, hs + 1, (hb,), generator=conv_gen, device=dev)
+        hlens[0] = hs
+        h_args = scan_inputs(conv_gen, dev, hb, hs, ha.dim, 2 * hm.encoder.dim[-1], ha.loc_kernel_num,
+                             2 * ha.loc_kernel_size + 1, hm.decoder.dim, hm.decoder.dim, vocab, hl, hlens)
+        for shape, args, tp in (("flagship", f_args, temp), ("convergence", c_args, float(ac.temperature)),
+                                ("960h", h_args, float(ha.temperature))):
             sargs = tuple(a.to(bf) if a.is_floating_point() else a for a in args)
             b, s, dk, e_dim, kk, p, h, v = scan_shape(sargs)
             l = sargs[-1].shape[0]
             print(f"[kernel] bf16 decoder_scan pair [{shape}]: B={b}, S={s}, L={l}, H={h}, V={v}", flush=True)
             err = 0.0
-            for mode in ("teacher", "argmax"):
+            # the 960 h recipe's L = 520 teacher-forced only (its tf_start is 1.0);
+            # its float32 residuals carry the bf16 state's flipped roundings
+            # over 520 steps (``_carried``)
+            for mode in ("teacher",) if shape == "960h" else ("teacher", "argmax"):
                 use = torch.ones(l, dtype=torch.bool) if mode == "teacher" else torch.zeros(l, dtype=torch.bool)
                 got = dc.decoder_scan_fwd(*sargs, use, tp)
                 with plain():
                     want = dc.decoder_scan_fwd(*sargs, use, tp)
-                err = max(err, _compare_scan_fwd_bf16(f"decoder_scan_fwd bf16 {mode} [{shape}]", got, want))
+                err = max(err, _compare_scan_fwd_bf16(f"decoder_scan_fwd bf16 {mode} [{shape}]", got, want,
+                                                      carried=shape == "960h"))
             use = torch.ones(l, dtype=torch.bool)
             fwd_out = got_t = dc.decoder_scan_fwd(*sargs, use, tp)
             io = 2 * sum(a.numel() for a in sargs if a.is_floating_point()) + 2 * sum(
@@ -1308,17 +1375,39 @@ def bf16_kernel_checks(dev, cfg, vocab):
         f = row["per_shape"]["flagship"]
         row.update(route="cuda", max_abs_err=max(v["max_abs_err"] for v in row["per_shape"].values()),
                    ms=f["ms"], plain_ms=f["plain_ms"], bound=f["bound"], library_ms=f["library_ms"],
-                   ms_f32=f["ms_f32"], shapes="flagship (rows' numbers) and convergence (per_shape)")
+                   ms_f32=f["ms_f32"], shapes="flagship (rows' numbers), convergence and 960h (per_shape)")
     return rows
 
 
-def _compare_scan_fwd_bf16(name, got, want):
+def _carried(name, got, want):
+    """A float32 output computed from a long bf16 recurrence's state (the
+    960 h recipe's scan residuals over L = 520 steps): within scaled rtol
+    1e-3 but on at most BF16_SHARE of its elements, and within BF16_ULPS
+    bf16 ulp of the tensor's scale on all of them. A rounding of the bf16
+    state that the two versions take apart carries into every later step's
+    float32 products by about an ulp of the state: over the flagship's 200
+    steps no element goes past 1e-3, over 520 at E = 1024 a few do. Returns
+    the max abs error."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(max(scale, 2.0 ** -126))) - 7)
+    diff = (g - w).abs()
+    err, over = float(diff.max()), float((diff > 1e-3 * (scale + w.abs())).float().mean())
+    print(f"  {name}: max abs err {err:.3e} = {err / ulp:.2f} bf16 ulp at the tensor's scale, {100 * over:.4f}% of "
+          f"elements past scaled rtol 1e-3 (tolerance {BF16_ULPS} ulp; {100 * BF16_SHARE}%)", flush=True)
+    if not (err <= BF16_ULPS * ulp and over <= BF16_SHARE):
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def _compare_scan_fwd_bf16(name, got, want, carried=False):
     """``_compare_scan_fwd`` at bf16: where an utterance's fed tokens first
     differ, the plain version's two scores must lie within two bf16 ulps of
     the logits' scale (the argmax is taken of the float32 logits, whose bf16
     state may differ by an ulp), that utterance's later steps are left out;
     then every bf16 output within ``_bf16_state``'s tolerance and the
-    float32 residuals at scaled rtol 1e-3. Returns the largest error."""
+    float32 residuals at scaled rtol 1e-3 (``carried``: ``_carried``'s
+    criterion). Returns the largest error."""
     (lg, al, hd, (cs, tk, ac, qs, cx)), (lg_p, al_p, hd_p, (cs_p, tk_p, ac_p, qs_p, cx_p)) = got, want
     l, b = tk.shape
     keep = torch.ones((l, b), dtype=torch.bool, device=tk.device)
@@ -1337,7 +1426,8 @@ def _compare_scan_fwd_bf16(name, got, want):
         fail(f"{name}: more than a quarter of the steps left the plain version's path")
     err = max(_bf16_state(f"{name} {nm}", g[keep], w[keep])
               for nm, g, w in (("logits", lg, lg_p), ("align", al, al_p), ("hidden", hd, hd_p), ("c", cs, cs_p)))
-    return max([err] + [_scaled(f"{name} {nm}", g[keep], w[keep], 1e-3)
+    check = _carried if carried else lambda n, g, w: _scaled(n, g, w, 1e-3)
+    return max([err] + [check(f"{name} {nm}", g[keep], w[keep])
                         for nm, g, w in (("acts", ac, ac_p), ("q", qs, qs_p), ("ctx", cx, cx_p))])
 
 
@@ -2760,6 +2850,188 @@ def _rss_mb() -> tuple:
     return cur, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
 
 
+def _crc_table(poly: int, bits: int) -> np.ndarray:
+    top, mask = 1 << (bits - 1), (1 << bits) - 1
+    table = np.zeros(256, np.int64)
+    for i in range(256):
+        c = i << (bits - 8)
+        for _ in range(8):
+            c = ((c << 1) ^ poly) & mask if c & top else (c << 1) & mask
+        table[i] = c
+    return table
+
+
+_CRC8, _CRC16 = _crc_table(0x07, 8), _crc_table(0x8005, 16)
+
+
+def _crc16_rows(rows: np.ndarray) -> np.ndarray:
+    """FLAC's CRC-16 (poly 0x8005, init 0) of each row of a uint8 matrix, the
+    rows at once: a row's leading zero bytes leave a CRC at 0, so shorter
+    frames are passed right-aligned behind zeros."""
+    crc = np.zeros(rows.shape[0], np.int64)
+    for col in rows.T:
+        crc = ((crc << 8) & 0xFFFF) ^ _CRC16[((crc >> 8) ^ col) & 0xFF]
+    return crc
+
+
+def flac_verbatim(waves, sample_rate: int = 16000, block: int = 4096) -> list:
+    """Mono 16-bit FLAC streams of the int16 ``waves``, VERBATIM subframes in
+    frames of ``block`` samples: the bytes ``tests/flac_tools.write_flac``
+    writes with ``kind="verbatim"`` (STREAMINFO with the block size and the
+    sample count, frame headers with a one-byte frame number and a 16-bit
+    block size, CRC-8 and CRC-16), computed with numpy so that a corpus of a
+    thousand utterances takes seconds."""
+    heads, frames = [], []  # per frame: header bytes; payload (subframe)
+    for x in waves:
+        n = len(x)
+        if n > 127 * block:
+            raise ValueError("a one-byte frame number holds 128 frames")
+        head = bytearray(b"fLaC\x80\x00\x00\x22")
+        info = (sample_rate << 44) | (0 << 41) | (15 << 36) | n  # rate 20 b, channels-1 3 b, bps-1 5 b, total 36 b
+        head += block.to_bytes(2, "big") * 2 + bytes(6) + info.to_bytes(8, "big") + bytes(16)
+        heads.append([bytes(head)])
+        for i, start in enumerate(range(0, n, block)):
+            bs = min(block, n - start)
+            fh = bytearray([0xFF, 0xF8, 0x70, 0x00, i]) + (bs - 1).to_bytes(2, "big")
+            c = 0
+            for byte in fh:
+                c = _CRC8[c ^ byte]
+            fh.append(int(c))
+            frames.append((len(heads) - 1, bytes(fh) + b"\x02" + np.asarray(x[start:start + bs], ">i2").tobytes()))
+    width = max(len(f) for _, f in frames)
+    mat = np.zeros((len(frames), width), np.uint8)
+    for r, (_, f) in enumerate(frames):
+        mat[r, width - len(f):] = np.frombuffer(f, np.uint8)
+    crcs = _crc16_rows(mat)
+    for (w, f), c in zip(frames, crcs):
+        heads[w].append(f + int(c).to_bytes(2, "big"))
+    return [b"".join(parts) for parts in heads]
+
+
+def write_file_corpus(root: str, utts: dict) -> dict:
+    """The utterances ``utts`` ({split: [Utterance]}) as two
+    LibriSpeech-layout trees under ``root``, ``wav`` (16-bit PCM) and
+    ``flac`` (``flac_verbatim``), of the same int16 samples (the loader's
+    int16 pass of each wave), in the manifest's order; returns {kind:
+    tree}."""
+    import wave
+
+    from e2e_asr_tpu_torch.data.dataset import quantize_i16
+
+    trees = {k: os.path.join(root, k) for k in ("wav", "flac")}
+    for split, us in utts.items():
+        pcm = [quantize_i16(u.load()) for u in us]
+        lines = "\n".join(f"1-{split}-{i:05d} {u.text}" for i, u in enumerate(us)) + "\n"
+        dirs = {k: os.path.join(t, split, "1", split) for k, t in trees.items()}
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
+            with open(os.path.join(d, f"1-{split}.trans.txt"), "w") as f:
+                f.write(lines)
+        for i, (x, data) in enumerate(zip(pcm, flac_verbatim(pcm))):
+            with wave.open(os.path.join(dirs["wav"], f"1-{split}-{i:05d}.wav"), "wb") as f:
+                f.setnchannels(1)
+                f.setsampwidth(2)
+                f.setframerate(16000)
+                f.writeframes(x.astype("<i2").tobytes())
+            with open(os.path.join(dirs["flac"], f"1-{split}-{i:05d}.flac"), "wb") as f:
+                f.write(data)
+    return trees
+
+
+def _loader_way(way, njobs, corpus, mode, smi, wrappers, cache_route=False):
+    """One way of ``loader_phase``: the convergence recipe through
+    ``Solver.exec`` with ``njobs`` loader threads and ``corpus`` (fields of
+    data.corpus); ``cache_route`` takes every row's wav path away, so that a
+    wav corpus fills its batches from the int16 wave cache instead of one
+    native ``pack_batch`` a batch. Returns (result, the first 8 device
+    batches)."""
+    from e2e_asr_tpu_torch import cuda_build, native
+    from e2e_asr_tpu_torch.bin.profile_decode import convergence_train_solver
+    from e2e_asr_tpu_torch.training.step import resolve_wav
+
+    shown = {k: v for k, v in corpus.items() if k not in ("path", "name", "train_split", "dev_split")}
+    what = (f"loader ({way}: njobs {njobs}, " + ", ".join(f"{k} {v}" for k, v in shown.items())
+            + (f", {corpus['name']} {os.path.basename(corpus['path'])} files" if "path" in corpus else "")
+            + (", int16 cache route" if cache_route else "") + ")")
+    rss0, _ = _rss_mb()
+    t0 = time.time()
+    # float32 pinned, as the loader phase measured it before bf16 (the
+    # input path is the same at either dtype)
+    solver = convergence_train_solver(os.path.join(cuda_build.BUILD_DIR, f"smoke_loader_{way}"), SEED,
+                                      LOADER_STEPS, tf=None, train_utts=LOADER_UTTS, log_step=10,
+                                      njobs=njobs, corpus=corpus, dtype="float32")
+    setup_s = time.time() - t0
+    if (solver.input_mode, solver.tr_set.num_workers, solver.tr_set.emit_offsets) != (
+            mode, njobs, mode == "device_corpus"):
+        fail(f"{what} ran input mode {solver.input_mode} with {solver.tr_set.num_workers} loader threads")
+    if cache_route:
+        for it in (*solver.tr_set._items, *solver.dv_set._items):
+            it[0].wav_path = None
+    paths = {bool(it[0].wav_path) for it in solver.tr_set._items}
+    m = solver.config.model
+    if (solver.config.data.corpus.batch_size, m.encoder.dim, solver.config.data.audio.feat_dim) != (
+            32, [256, 256, 256], 80):
+        fail(f"{what}: the convergence recipe is not at its full width")
+    batches, forms = [], set()
+    real_step = solver.trainer.train_step
+    real_pack, packs = native.pack_batch, []
+
+    def spy(state, batch, gen, *a, **k):
+        if len(batches) < 8:  # the device batch the step sees, copied out
+            forms.add("wav" if batch.get("wav") is not None else "offsets")
+            wav, wav_len = resolve_wav(batch)
+            batches.append([t.cpu() for t in (wav, wav_len, batch["text"], batch["text_len"])])
+        return real_step(state, batch, gen, *a, **k)
+
+    def pack(paths_, n, *a):
+        packs.append(len(paths_))
+        return real_pack(paths_, n, *a)
+
+    solver.trainer.train_step = spy
+    with mock.patch.object(native, "pack_batch", pack):
+        launches, wall = _run_counted(solver, wrappers, what)
+    log = list(solver.step_log)
+    if len(log) != LOADER_STEPS:
+        fail(f"{what}: {len(log)} steps ran, expected {LOADER_STEPS}")
+    if not all(math.isfinite(r["loss"]) and r["step_skipped"] == 0.0 for r in log):
+        fail(f"{what}: a loss is not finite or a step was skipped")
+    if forms != {"offsets" if mode == "device_corpus" else "wav"}:
+        fail(f"{what}: the step saw {forms} batches")
+    native_route = paths == {True} and mode == "stream"
+    if bool(packs) != native_route:
+        fail(f"{what}: {len(packs)} native pack_batch calls, a wav-path corpus streamed {native_route}")
+    n_epoch = len(solver.tr_set)
+
+    def share(steps):
+        return sum(r["rd_s"] for r in steps) / max(sum(r["wall_s"] for r in steps), 1e-9)
+
+    steady = log[10:]
+    # the steps' audio over their wall: one step's wall is its issue, but
+    # for the last of a log window, whose record waits for the device
+    rate = sum(r["audio_s"] for r in steady) / max(sum(r["wall_s"] for r in steady), 1e-9)
+    rss, peak = _rss_mb()
+    res = dict(njobs=njobs, corpus=corpus, input_mode=solver.input_mode, setup_s=setup_s, wall_s=wall,
+               launches=launches, step1_loss=log[0]["loss"], audio_s_per_s=rate, pack_batch_calls=len(packs),
+               batches_an_epoch=n_epoch, rd_share=share(steady), rd_share_first_epoch=share(log[10:n_epoch]),
+               rd_share_later_epochs=share(log[n_epoch:]), rd_share_of_run=sum(r["rd_s"] for r in log) / wall,
+               rd_ms=[round(r["rd_s"] * 1e3, 3) for r in log], wall_ms=[round(r["wall_s"] * 1e3, 3) for r in log],
+               host_rss_mb=rss, host_rss_growth_mb=rss - rss0, host_peak_rss_mb=peak, dev=solver.dev_summary)
+    extra = f"; {len(packs)} native pack_batch calls" if packs else ""
+    if mode == "device_corpus":
+        res.update(flat_corpus_s=solver.flat_corpus_s, corpus_mb=solver._corpus_buf.numel() * 2 / (1 << 20))
+        extra = f"; flat_corpus {res['flat_corpus_s']:.2f}s, {res['corpus_mb']:.1f} MB int16 on the card"
+    print(f"{what} on {smi}: {res['audio_s_per_s']:.2f} audio-s/s over steps 11-{LOADER_STEPS} (their audio "
+          f"over their wall, nine log windows); "
+          f"rd {res['rd_share']:.1%} of their wall ({res['rd_share_first_epoch']:.1%} over steps 11-{n_epoch}, "
+          f"the rest of the first epoch; {res['rd_share_later_epochs']:.1%} over steps {n_epoch + 1}-"
+          f"{LOADER_STEPS}; {res['rd_share_of_run']:.1%} of the whole {wall:.1f}s run, validation included); "
+          f"step 1 loss {log[0]['loss']:.6f}; set-up {setup_s:.1f}s{extra}; host RSS {rss:.0f} MB "
+          f"({rss - rss0:+.0f} MB over this way; peak {peak:.0f})", flush=True)
+    del solver, spy, real_step
+    torch.cuda.empty_cache()
+    return res, batches
+
+
 def loader_phase(smi):
     """The input path at the convergence recipe's full width (B=32, 3 x 256
     BiLSTM, 80-dim fbank, the recipe's own teacher-forcing schedule), its
@@ -2769,102 +3041,60 @@ def loader_phase(smi):
     (a) batches filled on the prefetch thread with no wave cache and
     streamed, as before the loader was ported but for that thread; (b) two
     loader threads and the int16 wave cache, streamed; (c) the
-    device-resident corpus. Each way prints the share of its wall that
-    ``rd`` (the wait in next(prefetch)) took over steps 11-LOADER_STEPS,
-    over the rest of the first epoch and over the later epochs, the
-    audio-s/s of steps 11-LOADER_STEPS (their audio over their wall: the
-    metrics are read once a log window, so only a window's wall waits for
-    the device), (c)'s flat_corpus seconds and MB,
-    and the host RSS. Fails if the first 8 device batches of (b) or (c)
+    device-resident corpus. Then the same utterances from files
+    (``write_file_corpus``: a LibriSpeech-layout tree of wav files and one
+    of FLAC files, the same int16 samples), streamed with two loader
+    threads: the wav tree through the int16 wave cache (d) and through one
+    native ``pack_batch`` a batch (e), in turns d, e, e, d; the FLAC tree
+    (f, decoded by the native FLAC reader into the wave cache). Each way
+    prints the share of its wall that ``rd`` (the wait in next(prefetch))
+    took over steps 11-LOADER_STEPS, over the rest of the first epoch and
+    over the later epochs, the audio-s/s of steps 11-LOADER_STEPS (their
+    audio over their wall: the metrics are read once a log window, so only
+    a window's wall waits for the device), (c)'s flat_corpus seconds and
+    MB, and the host RSS. Fails if the first 8 device batches of any way
     (after resolve_wav) differ bitwise from (a)'s, if step 1's loss differs
-    between the ways, or if a way ran another input mode than it asked for.
-    No speed threshold."""
+    between the ways, if a way ran another input mode than it asked for, or
+    if (e) made no native pack_batch call or (d) or (f) made one. No speed
+    threshold."""
     from e2e_asr_tpu_torch import cuda_build
-    from e2e_asr_tpu_torch.bin.profile_decode import convergence_train_solver
+    from e2e_asr_tpu_torch.data import corpus as corpus_mod
     from e2e_asr_tpu_torch.ops.decoder_cuda import decoder_scan_bwd, decoder_scan_fwd
     from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
     from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_bwd, lstm_seq_fwd
-    from e2e_asr_tpu_torch.training.step import resolve_wav
 
     wrappers = {"log_mel": log_mel, "lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd,
                 "decoder_scan_fwd": decoder_scan_fwd, "decoder_scan_bwd": decoder_scan_bwd}
     out, seen = {}, {}
     for way, njobs, corpus, mode in LOADER_MODES:
-        what = f"loader ({way}: njobs {njobs}, " + ", ".join(f"{k} {v}" for k, v in corpus.items()) + ")"
-        rss0, _ = _rss_mb()
-        t0 = time.time()
-        # float32 pinned, as the loader phase measured it before bf16 (the
-        # input path is the same at either dtype)
-        solver = convergence_train_solver(os.path.join(cuda_build.BUILD_DIR, f"smoke_loader_{way}"), SEED,
-                                          LOADER_STEPS, tf=None, train_utts=LOADER_UTTS, log_step=10,
-                                          njobs=njobs, corpus=corpus, dtype="float32")
-        setup_s = time.time() - t0
-        if (solver.input_mode, solver.tr_set.num_workers, solver.tr_set.emit_offsets) != (
-                mode, njobs, mode == "device_corpus"):
-            fail(f"{what} ran input mode {solver.input_mode} with {solver.tr_set.num_workers} loader threads")
-        m = solver.config.model
-        if (solver.config.data.corpus.batch_size, m.encoder.dim, solver.config.data.audio.feat_dim) != (
-                32, [256, 256, 256], 80):
-            fail(f"{what}: the convergence recipe is not at its full width")
-        batches, forms = [], set()
-        real_step = solver.trainer.train_step
+        out[way], seen[way] = _loader_way(way, njobs, corpus, mode, smi, wrappers)
 
-        def spy(state, batch, gen, *a, **k):
-            if len(batches) < 8:  # the device batch the step sees, copied out
-                forms.add("wav" if batch.get("wav") is not None else "offsets")
-                wav, wav_len = resolve_wav(batch)
-                batches.append([t.cpu() for t in (wav, wav_len, batch["text"], batch["text_len"])])
-            return real_step(state, batch, gen, *a, **k)
-
-        solver.trainer.train_step = spy
-        launches, wall = _run_counted(solver, wrappers, what)
-        log = list(solver.step_log)
-        if len(log) != LOADER_STEPS:
-            fail(f"{what}: {len(log)} steps ran, expected {LOADER_STEPS}")
-        if not all(math.isfinite(r["loss"]) and r["step_skipped"] == 0.0 for r in log):
-            fail(f"{what}: a loss is not finite or a step was skipped")
-        if forms != {"offsets" if mode == "device_corpus" else "wav"}:
-            fail(f"{what}: the step saw {forms} batches")
-        n_epoch = len(solver.tr_set)
-
-        def share(steps):
-            return sum(r["rd_s"] for r in steps) / max(sum(r["wall_s"] for r in steps), 1e-9)
-
-        steady = log[10:]
-        # the steps' audio over their wall: one step's wall is its issue, but
-        # for the last of a log window, whose record waits for the device
-        rate = sum(r["audio_s"] for r in steady) / max(sum(r["wall_s"] for r in steady), 1e-9)
-        rss, peak = _rss_mb()
-        res = dict(njobs=njobs, corpus=corpus, input_mode=solver.input_mode, setup_s=setup_s, wall_s=wall,
-                   launches=launches, step1_loss=log[0]["loss"], audio_s_per_s=rate,
-                   batches_an_epoch=n_epoch, rd_share=share(steady), rd_share_first_epoch=share(log[10:n_epoch]),
-                   rd_share_later_epochs=share(log[n_epoch:]), rd_share_of_run=sum(r["rd_s"] for r in log) / wall,
-                   rd_ms=[round(r["rd_s"] * 1e3, 3) for r in log], wall_ms=[round(r["wall_s"] * 1e3, 3) for r in log],
-                   host_rss_mb=rss, host_rss_growth_mb=rss - rss0, host_peak_rss_mb=peak, dev=solver.dev_summary)
-        extra = ""
-        if mode == "device_corpus":
-            res.update(flat_corpus_s=solver.flat_corpus_s, corpus_mb=solver._corpus_buf.numel() * 2 / (1 << 20))
-            extra = f"; flat_corpus {res['flat_corpus_s']:.2f}s, {res['corpus_mb']:.1f} MB int16 on the card"
-        print(f"{what} on {smi}: {res['audio_s_per_s']:.2f} audio-s/s over steps 11-{LOADER_STEPS} (their audio "
-              f"over their wall, nine log windows); "
-              f"rd {res['rd_share']:.1%} of their wall ({res['rd_share_first_epoch']:.1%} over steps 11-{n_epoch}, "
-              f"the rest of the first epoch; {res['rd_share_later_epochs']:.1%} over steps {n_epoch + 1}-"
-              f"{LOADER_STEPS}; {res['rd_share_of_run']:.1%} of the whole {wall:.1f}s run, validation included); "
-              f"step 1 loss {log[0]['loss']:.6f}; set-up {setup_s:.1f}s{extra}; host RSS {rss:.0f} MB "
-              f"({rss - rss0:+.0f} MB over this way; peak {peak:.0f})", flush=True)
-        out[way] = res
-        seen[way] = batches
-        del solver, spy, real_step
-        torch.cuda.empty_cache()
+    # ---- the same utterances from wav and FLAC files
+    t0 = time.time()
+    ccfg = _convergence_config().data.corpus
+    utts = {"train": corpus_mod.load_corpus(ccfg.name, "", [f"train:{LOADER_UTTS}"]),
+            "dev": corpus_mod.load_corpus(ccfg.name, "", ["dev:32"])}
+    trees = write_file_corpus(os.path.join(cuda_build.BUILD_DIR, "loader_files"), utts)
+    sizes = {k: sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(t) for f in fs) / 2 ** 20
+             for k, t in trees.items()}
+    print(f"loader: {LOADER_UTTS} + 32 utterances written as wav ({sizes['wav']:.1f} MB) and FLAC "
+          f"({sizes['flac']:.1f} MB) files in {time.time() - t0:.1f}s", flush=True)
+    files = lambda kind: {"name": "librispeech", "path": trees[kind], "train_split": ["train"],  # noqa: E731
+                          "dev_split": ["dev"], "device_cache": "off"}
+    for way, kind, cache in (("d", "wav", True), ("e", "wav", False), ("e2", "wav", False), ("d2", "wav", True),
+                             ("f", "flac", False)):
+        out[way], seen[way] = _loader_way(way, 2, files(kind), "stream", smi, wrappers, cache_route=cache)
+        out[way]["files_mb"] = sizes[kind]
     ref = seen["a"]
-    for way in ("b", "c"):
+    for way in seen:
         if len(seen[way]) != 8 or not all(all(torch.equal(x, y) for x, y in zip(p, q))
                                           for p, q in zip(seen[way], ref)):
             fail(f"loader way ({way}): its first 8 device batches differ from way (a)'s")
         if out[way]["step1_loss"] != out["a"]["step1_loss"]:
             fail(f"loader way ({way}): step 1 loss {out[way]['step1_loss']!r} against (a)'s "
                  f"{out['a']['step1_loss']!r}")
-    print("loader: the first 8 device batches of (b) and (c) equal (a)'s bitwise; step 1 losses equal", flush=True)
+    print(f"loader: the first 8 device batches of ways {sorted(w for w in seen if w != 'a')} equal (a)'s bitwise "
+          "(the wav and FLAC files' among them); step 1 losses equal", flush=True)
     return out
 
 
@@ -2970,13 +3200,315 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
                 graph_vs_eager_bitwise=bitwise, capture_s=capture_s, beam_steps=steps)
 
 
+RECIPE_960H_REPS = 5  # timed replays of a 960 h train step and dev epochs
+
+
+def recipe_960h_kernel_checks(dev, cfg, vocab):
+    """The float32 kernels of configs/libri/asr_960h.yaml's path at its own
+    shapes (its bf16 kernels: ``bf16_kernel_checks``' "960h" shape), each
+    against its plain version with the tolerances of the flagship's checks,
+    timed, with its bound: log_mel on the 3056-frame bucket's [16, 489200]
+    waves; the CTC lattice at S = 764 with up to 519 labels; the beam
+    attention step (E = 1024) and the fused CTC prefix function at the
+    decode batch's S = T = 104, the attention step also at S = 764.
+    Returns {name: row}."""
+    from e2e_asr_tpu_torch.bin.profile_decode import flagship_att_inputs, flagship_prefix_inputs
+    from e2e_asr_tpu_torch.decode import ctc_prefix
+    from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
+    from e2e_asr_tpu_torch.ops import att_step_cuda as asc
+    from e2e_asr_tpu_torch.ops import ctc_cuda
+    from e2e_asr_tpu_torch.ops import frontend as fe
+    from e2e_asr_tpu_torch.ops import frontend_cuda as fec
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 960)
+    a, c = cfg.data.audio, cfg.data.corpus
+    win, shift = int(a.sample_rate * a.frame_length / 1000), int(a.sample_rate * a.frame_shift / 1000)
+    n_fft = fe.next_pow2(win)
+    frames, l_max = c.buckets[-1], c.token_buckets[-1] - 1
+    b_long = max(1, c.batch_size // 2)  # the half-batch rule's rows at the longest bucket
+    out = {}
+
+    def row(name, shapes, err, ms, plain_ms, work, library_ms=None, **extra):
+        out[name] = dict(shapes=shapes, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bound_ms(*work),
+                         library_ms=library_ms, **extra)
+        r = out[name]
+        print(f"  {name} [960h: {shapes}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms} ms, "
+              f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})", flush=True)
+
+    print("[kernel] asr_960h.yaml shapes: log_mel, ctc_loss, att_step_beam_loc, prefix_recursion", flush=True)
+    n = (frames - 1) * shift + win
+    wav = 0.1 * torch.randn((b_long, n), generator=gen, device=dev)
+    err, _, _ = log_mel_wave_check("randn, the 3056-frame bucket", wav, a, dev)
+    row("log_mel", f"wav [{b_long},{n}] -> [{b_long},{frames},{a.feat_dim}]", err,
+        time_ms(lambda: fec.log_mel(wav, a, win, shift, n_fft), 10),
+        time_ms(lambda: fec.log_mel_plain(wav, a, win, shift, n_fft), 3, 1), log_mel_work(a, b_long, n, win, n_fft))
+
+    s_len = frames // 4
+    logits = 3.0 * torch.randn((b_long, s_len, vocab), generator=gen, device=dev)
+    logits[:, :, 0] += 2.0
+    lp = torch.log_softmax(logits, -1)
+    lablen = torch.randint(l_max // 2, l_max + 1, (b_long,), generator=gen, device=dev)
+    lablen[0] = l_max
+    labels = torch.randint(1, vocab, (b_long, l_max), generator=gen, device=dev)
+    labels = torch.where(torch.arange(l_max, device=dev)[None] < lablen[:, None], labels, 0)
+    inlen = torch.randint(l_max + l_max // 8, s_len + 1, (b_long,), generator=gen, device=dev)
+    inlen[0] = s_len
+    got, want = ctc_cuda.ctc_lattice(lp, labels, inlen, lablen), ctc_cuda.ctc_lattice_grad_plain(lp, labels, inlen, lablen)
+    ok = want[0] <= ctc_cuda.BIG  # rows with an alignment
+    if not torch.equal(got[0] <= ctc_cuda.BIG, ok) or not bool(ok[0]):
+        fail("ctc_loss [960h]: the kernel and its plain version find alignments for other rows")
+    err = max(compare("ctc_loss nll [960h]", got[0][ok], want[0][ok], rtol=1e-5, atol=1e-3),
+              compare("ctc_loss G [960h]", got[1], want[1], rtol=1e-4, atol=1e-4))
+    targets = torch.cat([labels[i, :lablen[i]] for i in range(b_long)])
+    lp_t = lp.transpose(0, 1).detach().requires_grad_()
+
+    def library():
+        nll = torch.nn.functional.ctc_loss(lp_t, targets, inlen, lablen, reduction="sum", zero_infinity=True)
+        torch.autograd.grad(nll, lp_t)
+
+    row("ctc_loss", f"log_probs [{b_long},{s_len},{vocab}], labels [{b_long},{l_max}]", err,
+        time_ms(lambda: ctc_cuda.ctc_lattice(lp, labels, inlen, lablen), 10),
+        time_ms(lambda: ctc_cuda.ctc_lattice_grad_plain(lp, labels, inlen, lablen), 3, 1),
+        ctc_work(lp, labels, inlen, lablen), library_ms=time_ms(library, 5))
+
+    s_dec = c.buckets[1] // 4  # the decode batch's bucket (416 frames)
+    args = flagship_att_inputs(dev, s=s_dec, cfg=cfg)
+    args764 = flagship_att_inputs(dev, s=s_len, cfg=cfg)
+    err = 0.0
+    for tag, x in (("", args), (" S=764", args764)):
+        g, w_ = asc.att_step_beam_loc(*x), asc.att_step_beam_loc_plain(*x)
+        err = max(err, compare(f"att_step align [960h{tag}]", g[0], w_[0], rtol=1e-4, atol=1e-6),
+                  compare(f"att_step ctx [960h{tag}]", g[1], w_[1], rtol=1e-4, atol=1e-5))
+    q, v = args[0], args[3]
+    row("att_step_beam_loc", f"q [{q.shape[0]},{q.shape[1]},{q.shape[2]}], S {s_dec}, E {v.shape[2]}", err,
+        time_ms(lambda: asc.att_step_beam_loc(*args), 20), time_ms(lambda: asc.att_step_beam_loc_plain(*args), 20),
+        att_step_work(args), ms_s764=time_ms(lambda: asc.att_step_beam_loc(*args764), 10),
+        plan=asc.plan(q.shape[0], q.shape[1], s_dec, q.shape[2], v.shape[2], args[5].shape[0], args[5].shape[1]),
+        plan_s764=asc.plan(q.shape[0], q.shape[1], s_len, q.shape[2], v.shape[2], args[5].shape[0],
+                           args[5].shape[1]))
+
+    pargs = flagship_prefix_inputs(dev, t=s_dec, cfg=cfg, vocab=vocab)
+    got, want = cpc.prefix_scores_fused(*pargs), cpc.prefix_scores_fused_plain(*pargs)
+    err = max(compare(f"prefix_scores_fused {nm} [960h]", g, wt, rtol=1e-5, atol=2e-3, unreachable=ctc_prefix.NEG / 2)
+              for nm, g, wt in zip(("psi", "r_h", "psi_eos"), got, want))
+    row("prefix_recursion", f"ctc_lp [{pargs[0].shape[0]},{s_dec},{vocab}], W {pargs[4].shape[1]}, "
+        f"K {pargs[4].shape[2]}", err, time_ms(lambda: cpc.prefix_scores_fused(*pargs), 20),
+        time_ms(lambda: cpc.prefix_scores_fused_plain(*pargs), 3, 1), prefix_work(pargs))
+    return out
+
+
+def recipe_960h_phase(smi):
+    """configs/libri/asr_960h.yaml on the card at its full widths (4 x 512
+    BiLSTM, 512-wide speller: the scan kernels' MAX_H, E = 1024), seed-0
+    weights, at bf16, the recipe's type, on a LibriSpeech-layout tree of
+    synthetic wav files (``profile_decode.recipe_960h_corpus``: its
+    416-frame bucket at B = 32 and its 3056-frame one at the half-batch
+    rule's B = 16, read from ``batch_shapes()``, with 519-character
+    transcripts: the scan's S = 764 and L = 520):
+
+    - under each encoder route (``rnn_impl`` auto: lstm_seq; pallas:
+      lstm_bidir), for each of the two buckets, one train step through a
+      ``TrainGraphs`` (the first call runs it eagerly and captures; the
+      state is put back and the step replayed), the replay bitwise the eager
+      step, held against the plain step on the card (``use_plain`` patched)
+      with BF16_STEP_TOL; the launches of the replay counted (the route's
+      LSTM pair and the scan pair in their bf16 variants, log_mel and
+      ctc_loss: none may be 0); the replayed step's wall and busy
+      (``profile_run``);
+    - validation over the two dev batches: the graphs' capture run, their
+      replay and the eager run (summary, tokens and CTC ids bitwise, the same
+      launches), each run's wall;
+    - the recipe's decode block (B 16, beam 16, ctc_weight 0.3, lm_weight
+      0.3 with a seed-0 LM of lm_example.yaml's width at this vocabulary)
+      on one batch of 16 through ``bin/test_asr.Solver`` (``decode_phase``:
+      graphs against the eager loop, kernels against plain versions, top
+      hypotheses identical, the attention step and the CTC prefix kernel
+      once a beam step).
+    """
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import (profile_run, recipe_960h_config, recipe_960h_corpus,
+                                                      recipe_960h_train_solver, smoke_solver)
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.ops.ctc_cuda import ctc_lattice
+    from e2e_asr_tpu_torch.ops.decoder_cuda import decoder_scan_bwd, decoder_scan_fwd
+    from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
+    from e2e_asr_tpu_torch.ops.rnn_cuda import (lstm_bidir_bwd, lstm_bidir_fwd_train, lstm_seq_bwd,
+                                                lstm_seq_fwd)
+    from e2e_asr_tpu_torch.training.step import Trainer, param_leaves
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    t0 = time.time()
+    root = recipe_960h_corpus(os.path.join(cuda_build.BUILD_DIR, "recipe_960h_corpus"), SEED)
+    print(f"asr_960h.yaml phase: corpus written in {time.time() - t0:.1f}s", flush=True)
+    solver = recipe_960h_train_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_960h"), root, SEED)
+    cfg = solver.config
+    if solver.compute_dtype != "bfloat16" or solver.train_graphs is None or solver.eval_graphs is None:
+        fail("asr_960h.yaml does not train in bf16 through the CUDA graphs")
+    shapes = solver.tr_set.batch_shapes()
+    c = cfg.data.corpus
+    by_bucket = {n: (rows, toks) for rows, n, toks in shapes}
+    want_rows = {416: c.batch_size, 3056: max(1, c.batch_size // 2)}
+    bucket_n = {fr: (fr - 1) * 160 + 400 for fr in want_rows}
+    if any(by_bucket.get(bucket_n[fr], (0,))[0] != rows for fr, rows in want_rows.items()):
+        fail(f"asr_960h.yaml batch shapes {shapes}: expected B = {want_rows} in the 416 and 3056 buckets")
+    frames_of = {v: k for k, v in bucket_n.items()}
+    batches = {}
+    for b in solver.tr_set.epoch(0):
+        batches.setdefault(frames_of.get(b.n_samples), b)
+    print(f"  batch shapes {shapes}; steps on the 416 bucket (B={want_rows[416]}) and the 3056 bucket "
+          f"(B={want_rows[3056]}, text up to {int(batches[3056].text_len.max())} tokens)", flush=True)
+    sr = cfg.data.audio.sample_rate
+    scan = {"decoder_scan_fwd": decoder_scan_fwd, "decoder_scan_bwd": decoder_scan_bwd}
+    pairs = {"auto": {"lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd},
+             "pallas": {"lstm_bidir_fwd_train": lstm_bidir_fwd_train, "lstm_bidir_bwd": lstm_bidir_bwd}}
+    f32 = {"log_mel": log_mel, "ctc_loss": ctc_lattice}
+
+    def tensors(state):
+        return [p.detach() for p in param_leaves(state.params)] + [
+            t for k in sorted(state.opt_state) for t in param_leaves(state.opt_state[k])]
+
+    def fresh():
+        params, _ = asr_mod.asr_init(SEED, solver.feat_dim, solver.vocab_size, cfg.model, solver.device)
+        trainer = Trainer(cfg)
+        return trainer, trainer.init_state(params)
+
+    out = {"batch_shapes": shapes, "steps": {}}
+    tol = BF16_STEP_TOL
+    for impl in ("auto", "pallas"):
+        cfg.model.encoder.rnn_impl = impl
+        for fr in (416, 3056):
+            what = f"asr_960h.yaml bf16 step, {fr}-frame bucket, rnn_impl {impl}"
+            dbatch = solver._put(batches[fr])
+            audio_s = float(batches[fr].wav_len.sum()) / sr
+            trainer, state = fresh()
+            snap = [t.clone() for t in tensors(state)]
+            graphs = TrainGraphs(log=lambda m, what=what: print(f"  {what}: {m}", flush=True))
+            before_mb = _reset_peak()
+            m = trainer.train_step(state, dbatch, solver.step_generator(0), graphs=graphs)  # eager + capture
+            eager = [float(m[k]) for k in ("loss", "grad_norm")], [t.clone() for t in tensors(state)]
+            for t, s0 in zip(tensors(state), snap):
+                t.copy_(s0)
+            state.step = 0
+            holder = {}
+
+            def replay():
+                holder["m"] = trainer.train_step(state, dbatch, solver.step_generator(0), graphs=graphs)
+
+            launches, _ = _bf16_counted(replay, {"bf16": {**scan, **pairs[impl]}, "f32": f32}, what)
+            peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+            mk = [float(holder["m"][k]) for k in ("loss", "grad_norm", "step_skipped")]
+            pk = [t.clone() for t in tensors(state)]
+            same = mk[:2] == eager[0] and all(torch.equal(x, y) for x, y in zip(pk, eager[1]))
+            if not same:
+                fail(f"{what}: the replayed step is not bitwise the eager step")
+            if mk[2] != 0.0 or not math.isfinite(mk[0]):
+                fail(f"{what}: the step was skipped or its loss is not finite")
+            trainer_p, state_p = fresh()
+            t1 = time.time()
+            with mock.patch.object(cuda_build, "use_plain", lambda x: True):
+                mp = trainer_p.train_step(state_p, dbatch, solver.step_generator(0))
+                mp = [float(mp[k]) for k in ("loss", "grad_norm")]
+            torch.cuda.synchronize()
+            plain_s = time.time() - t1
+            loss_rel, gn_rel = abs(mk[0] - mp[0]) / abs(mp[0]), abs(mk[1] - mp[1]) / abs(mp[1])
+            p_err = max(float((x - y).abs().max()) for x, y in zip(pk[:len(param_leaves(state.params))],
+                                                                    tensors(state_p)))
+            print(f"  {what}: replay bitwise the eager step; kernel vs plain loss {mk[0]:.6f} vs {mp[0]:.6f} "
+                  f"(rel {loss_rel:.2e}, tolerance {tol['loss_rel']}), grad_norm {mk[1]:.6f} vs {mp[1]:.6f} "
+                  f"(rel {gn_rel:.2e}, tolerance {tol['grad_norm_rel']}), updated params max abs diff "
+                  f"{p_err:.3e} (tolerance {tol['param_abs']}); plain step {plain_s:.2f} s; "
+                  f"{_peak_line(before_mb, peak_mb)}", flush=True)
+            if not (loss_rel <= tol["loss_rel"] and gn_rel <= tol["grad_norm_rel"] and p_err <= tol["param_abs"]):
+                fail(f"{what}: the kernel and plain steps disagree")
+            del trainer_p, state_p
+            prof = profile_run(replay, audio_s, reps=RECIPE_960H_REPS)
+            print(f"  {what}: wall {prof['wall_ms']:.2f} ms (median of {RECIPE_960H_REPS} replays; "
+                  f"{', '.join(f'{w:.2f}' for w in prof['walls_ms'])}), busy {prof['device_busy_ms']:.2f} ms, "
+                  f"idle {prof['device_idle_share']:.3f}, {prof['audio_s_per_s']:.1f} audio-s/s on {smi}, "
+                  f"{prof['kernel_launches']} device launches, {prof['host_launches']} issued by the host; "
+                  f"capture {graphs.captures[-1][1]:.2f} s", flush=True)
+            for k in prof["kernels"][:8]:
+                print(f"    {k['device_ms']:.3f} ms  {k['count']}x  {k['name'][:110]}", flush=True)
+            out["steps"][f"{impl}_{fr}"] = dict(
+                launches=launches, loss=mk[0], grad_norm=mk[1], loss_rel=loss_rel, grad_norm_rel=gn_rel,
+                param_max_abs=p_err, plain_step_s=plain_s, capture_s=graphs.captures[-1][1], peak_mb=peak_mb,
+                rows=len(batches[fr].uids),
+                **{k: prof[k] for k in ("wall_ms", "walls_ms", "device_busy_ms", "device_idle_share",
+                                        "audio_s", "audio_s_per_s", "kernel_launches", "host_launches")},
+                kernels=prof["kernels"][:12])
+            del graphs, trainer, state, snap, eager, pk
+    cfg.model.encoder.rnn_impl = "auto"
+
+    # ---- validation: two dev batches of 32, the graphs against eager
+    runs, kept = {}, {}
+    for mode in ("capture", "replay", "eager"):
+        c0 = _eval_counts()
+        kept[mode] = []
+        t1 = time.perf_counter()
+        summary, _ = solver.dev_epoch(graphs=mode != "eager", keep=kept[mode])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        c1 = _eval_counts()
+        runs[mode] = dict(summary=summary, wall_s=wall, launches={k: c1[k] - c0[k] for k in c0 if c1[k] - c0[k]})
+    same = runs["replay"]["summary"] == runs["eager"]["summary"] == runs["capture"]["summary"]
+    arrays = len(kept["replay"]) == len(kept["eager"]) == 2 and all(
+        np.array_equal(x[k], y[k]) for x, y in zip(kept["replay"], kept["eager"]) for k in y)
+    n_dev = len(kept["eager"])
+    print(f"  asr_960h.yaml validation ({n_dev} dev batches of {c.batch_size}, bf16): summary bitwise {same}, tokens "
+          f"and CTC ids bitwise {arrays}; wall capture run {runs['capture']['wall_s']:.3f} s, replay "
+          f"{runs['replay']['wall_s']:.3f} s ({runs['replay']['wall_s'] / max(n_dev, 1) * 1e3:.1f} ms a dev batch), "
+          f"eager {runs['eager']['wall_s']:.3f} s on {smi}; launches replay {runs['replay']['launches']}; "
+          f"{runs['replay']['summary']}", flush=True)
+    if not (same and arrays):
+        fail("asr_960h.yaml: graph validation is not bitwise the eager validation")
+    if runs["replay"]["launches"] != runs["eager"]["launches"] or not runs["replay"]["launches"]:
+        fail("asr_960h.yaml: graph and eager validation counted other launches")
+    if not all(math.isfinite(v) for v in runs["replay"]["summary"].values()):
+        fail("asr_960h.yaml: validation gave a non-finite number")
+    walls = []
+    for _ in range(RECIPE_960H_REPS):
+        t1 = time.perf_counter()
+        solver.dev_epoch(graphs=True)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) / n_dev * 1e3)
+    print(f"  asr_960h.yaml dev batch (B={c.batch_size}, 416 bucket) through the graphs: "
+          f"{', '.join(f'{w:.1f}' for w in walls)} ms a batch ({RECIPE_960H_REPS} epochs) on {smi}", flush=True)
+    out["validation"] = dict(runs=runs, dev_batch_wall_ms=walls, captures=solver.eval_graphs.captures)
+    del solver
+    _reset_peak()
+    torch.cuda.empty_cache()
+
+    # ---- the recipe's decode block with a seed-0 LM fused in
+    from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_fwd as seq_fwd
+
+    dcfg = recipe_960h_config(root, "dev-decode")
+    dsolver = smoke_solver(os.path.join(cuda_build.BUILD_DIR, "smoke_960h_decode"), SEED, cfg=dcfg,
+                           lm_weight=dcfg.decode.lm_weight)
+    d = dsolver.config.decode
+    if (d.beam_size, d.batch_size, d.ctc_weight, d.lm_weight) != (16, 16, 0.3, 0.3) or dsolver.lm_params is None:
+        fail(f"asr_960h.yaml's decode block is not beam 16, batch 16, ctc 0.3, lm 0.3 with an LM: {d}")
+    batch = next(dsolver.eval_sets["dev"].epoch())
+    dec = decode_phase(dsolver, batch, "auto", ("lstm_seq_fwd", seq_fwd), smi, tag=", asr_960h.yaml, lm_weight 0.3")
+    dec.pop("top_tokens")
+    dec.pop("top_scores")
+    out["decode"] = dec
+    del dsolver
+    _reset_peak()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.time() - t0
+    print(f"asr_960h.yaml phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main(json_path: str = "", parent: str = "") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
-        from e2e_asr_tpu_torch import cuda_build
+        from e2e_asr_tpu_torch import cuda_build, native
         from e2e_asr_tpu_torch.bin.profile_decode import (DECODE_PHASE_VARIANTS, FLAGSHIP, PHASE_VARIANTS,
-                                                          smoke_solver)
+                                                          RECIPE_960H, smoke_solver)
+        from e2e_asr_tpu_torch.config import Config
         from e2e_asr_tpu_torch.device import resolve_device
         from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_bidir_fwd, lstm_seq_fwd
         from e2e_asr_tpu_torch.training.step import Trainer  # noqa: F401
@@ -2994,6 +3526,8 @@ def main(json_path: str = "", parent: str = "") -> None:
     t0 = time.time()
     logs = cuda_build.build_all(PHASE_VARIANTS + DECODE_PHASE_VARIANTS)  # the timing builds too
     print(f"build: {time.time() - t0:.1f}s for {sorted(logs) or 'nothing (cached)'}", flush=True)
+    t0 = time.time()
+    print(f"native host library (g++): {os.path.basename(native.build())} in {time.time() - t0:.1f}s", flush=True)
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "bytes stack frame" in line:
@@ -3010,6 +3544,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     kern.update(scan_kernel_checks(dev, cfg, solver.vocab_size))
     kern.update(lstm_seq_checks(dev))
     kern_bf16 = bf16_kernel_checks(dev, cfg, solver.vocab_size)
+    kern_960h = recipe_960h_kernel_checks(dev, Config.load(RECIPE_960H), solver.vocab_size)
     if parent:
         kern["prefix_recursion"]["parent_path"] = parent_prefix_path(parent)
     mel_waves = kern["log_mel"].pop("parent_waves")
@@ -3054,6 +3589,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     recipes = recipe_phase(conv.pop("ckpt"), smi)
     loader = loader_phase(smi)
     bf16 = bf16_phase(dev, smi, batch)
+    r960 = recipe_960h_phase(smi)
     ddp = ddp_phase(smi)
     r = kern["log_mel"]
     mel_waves["convergence_batch"] = conv.pop("log_mel_wave")
@@ -3146,6 +3682,20 @@ def main(json_path: str = "", parent: str = "") -> None:
                 "two gloo ranks on one card, rank 0's bf16 step": ddp["two_gloo_ranks_step"]["bfloat16"]["launches"].get(
                     f"{name}_bf16", 0)},
         })
+    # configs/libri/asr_960h.yaml: each kernel at the recipe's shapes, with
+    # its launches in the recipe's runs (a replayed train step a bucket and
+    # route, each counted alone; the decode batch)
+    runs_960h = {f"train step replay, rnn_impl {k.split('_')[0]}, {k.split('_')[1]}-frame bucket": v["launches"]
+                 for k, v in r960["steps"].items()}
+    runs_960h["decode batch (lm_weight 0.3), rnn_impl auto"] = r960["decode"]["launches"]
+    for row in rows:
+        name = row["name"]
+        at = kern_960h.get(name) or row.get("per_shape", {}).get("960h")
+        counted = {run: cnt[name] for run, cnt in runs_960h.items() if cnt.get(name)}
+        if at is not None or counted:
+            row["recipe_960h"] = {**({k: v for k, v in at.items() if k != "bound"} if at else {}),
+                                  **({"bound_ms": at["bound"][0], "bound_by": at["bound"][1]} if at else {}),
+                                  "launches": counted}
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
@@ -3153,7 +3703,8 @@ def main(json_path: str = "", parent: str = "") -> None:
                    "decode_lm": decode_lm, "train": train, "train_graphs": graph, "eval_graphs": evals,
                    "lm_train": lm_train,
                    "convergence": conv,
-                   "recipes": recipes, "loader": loader, "bf16": bf16, "data_parallel": ddp}, f, indent=1)
+                   "recipes": recipes, "loader": loader, "bf16": bf16, "recipe_960h": r960,
+                   "data_parallel": ddp}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

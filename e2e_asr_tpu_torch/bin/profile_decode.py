@@ -109,6 +109,7 @@ import sys
 import time
 import types
 
+import numpy as np
 import torch
 
 from e2e_asr_tpu_torch.ops.decoder_cuda import PHASE_BUILD
@@ -155,19 +156,21 @@ def smoke_lm_checkpoint(outdir: str, vocab: int, seed: int = 0) -> str:
 
 
 def smoke_solver(outdir: str, seed: int = 0, rnn_impl: str = "auto", lm_weight: float = 0.0,
-                 ckpt: str = ""):
-    """A test-mode Solver on the card over the smoke config, with a
-    checkpoint of seeded flagship-width weights written to ``outdir`` (or
-    the checkpoint ``ckpt``, e.g. one a smoke training wrote); with
-    ``lm_weight`` > 0 it fuses in a seeded LM of LM_RECIPE's width
-    (``smoke_lm_checkpoint``) through ``decode.lm_path`` / ``lm_config``."""
+                 ckpt: str = "", cfg=None):
+    """A test-mode Solver on the card over the smoke config (or ``cfg``, e.g.
+    ``recipe_960h_config``'s), with a checkpoint of seeded weights at its
+    width written to ``outdir`` (or the checkpoint ``ckpt``, e.g. one a
+    smoke training wrote); with ``lm_weight`` > 0 it fuses in a seeded LM of
+    LM_RECIPE's width at its vocabulary (``smoke_lm_checkpoint``) through
+    ``decode.lm_path`` / ``lm_config``."""
     from e2e_asr_tpu_torch import convert
     from e2e_asr_tpu_torch.bin.test_asr import Solver
     from e2e_asr_tpu_torch.data.dataset import load_eval_datasets
     from e2e_asr_tpu_torch.device import resolve_device
     from e2e_asr_tpu_torch.models import asr as asr_mod
 
-    cfg = flagship_smoke_config(rnn_impl)
+    cfg = cfg or flagship_smoke_config(rnn_impl)
+    cfg.model.encoder.rnn_impl = rnn_impl
     dev = resolve_device("cuda")
     _, feat_dim, vocab, _, _ = load_eval_datasets(cfg.data, cfg.decode.batch_size)
     os.makedirs(outdir, exist_ok=True)
@@ -212,6 +215,93 @@ def smoke_train_solver(outdir: str, seed: int = 0, max_step: int = 5, rnn_impl: 
     cfg.hparas.seed = seed
     paras = types.SimpleNamespace(
         config=FLAGSHIP, name="smoke_train", logdir=os.path.join(outdir, "log"),
+        ckpdir=os.path.join(outdir, "ckpt"), load=None, seed=seed, cpu=False, verbose=True,
+        auto_resume=False,
+    )
+    solver = Solver(cfg, paras, "train")
+    solver.load_data()
+    solver.set_model()
+    return solver
+
+
+RECIPE_960H = "configs/libri/asr_960h.yaml"
+# the 960 h recipe's corpus written as LibriSpeech-layout wav files:
+# {split: (utterances, seconds from, to, characters a transcript from, to
+# (0: the synthetic text's own))}; the 416-frame bucket (2.1-4.2 s) and the
+# 3056-frame one (its 16 utterances of 29-30.5 s with transcripts of
+# 500-519 characters: the speller's L at the token bucket's 520)
+RECIPE_960H_SPLITS = {"train-clean-100": ((32, 2.2, 4.1, 0), (16, 29.0, 30.5, 500)),
+                      "dev-clean": ((64, 2.2, 4.1, 0),), "dev-decode": ((16, 2.2, 4.1, 0),)}
+
+
+def recipe_960h_corpus(root: str, seed: int = 0) -> str:
+    """Writes RECIPE_960H_SPLITS's utterances under ``root`` as a
+    LibriSpeech-layout tree of 16-bit wav files (a speaker a split, a
+    chapter a group): the synthetic corpus's waves (word coding) and
+    transcripts, a long one's transcript continued with the words of
+    further synthetic transcripts; returns ``root``. A tree written before
+    is kept."""
+    import wave
+
+    from e2e_asr_tpu_torch.data import corpus
+
+    done = os.path.join(root, ".complete")
+    if os.path.isfile(done):
+        return root
+    for si, (split, groups) in enumerate(RECIPE_960H_SPLITS.items()):
+        for gi, (n, lo, hi, chars) in enumerate(groups):
+            d = os.path.join(root, split, str(100 + si), str(gi))
+            os.makedirs(d, exist_ok=True)
+            utts = corpus.synthetic(n, min_sec=lo, max_sec=hi, seed=seed + 10 * si + gi)
+            extra = iter(u.text for u in corpus.synthetic(64 * n if chars else 0, seed=seed + 1000 + si))
+            lines = []
+            for i, u in enumerate(utts):
+                words = u.text.split()
+                while chars and len(" ".join(words)) < chars:
+                    words += next(extra).split()
+                text = " ".join(words)
+                while chars and len(text) > chars + 19:
+                    text = text.rsplit(" ", 1)[0]
+                uid = f"{100 + si}-{gi}-{i:04d}"
+                with wave.open(os.path.join(d, f"{uid}.wav"), "wb") as f:
+                    f.setnchannels(1)
+                    f.setsampwidth(2)
+                    f.setframerate(16000)
+                    f.writeframes(np.clip(u.load() * 32768, -32768, 32767).astype("<i2").tobytes())
+                lines.append(f"{uid} {text}")
+            with open(os.path.join(d, f"{100 + si}-{gi}.trans.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+    open(done, "w").close()
+    return root
+
+
+def recipe_960h_config(root: str, dev_split: str = "dev-clean"):
+    """configs/libri/asr_960h.yaml as shipped (4 x 512 BiLSTM, 512-wide
+    speller, batch 32 with the half-batch rule at 800 frames, buckets to
+    3056 frames / 520 tokens, ctc_weight 0.5, Adadelta, SpecAugment, bf16;
+    the decode block: beam 16, batch 16, ctc_weight 0.3, lm_weight 0.3) on
+    the tree ``recipe_960h_corpus`` wrote: train-clean-100, ``dev_split``,
+    no test split."""
+    from e2e_asr_tpu_torch.config import Config
+
+    cfg = Config.load(RECIPE_960H)
+    c = cfg.data.corpus
+    c.path, c.train_split, c.dev_split, c.test_split = root, ["train-clean-100"], [dev_split], []
+    return cfg
+
+
+def recipe_960h_train_solver(outdir: str, root: str, seed: int = 0, rnn_impl: str = "auto"):
+    """A train-mode Solver on the card over ``recipe_960h_config`` (one
+    validation a run, logging every step), fresh seed-``seed`` weights, its
+    logs and checkpoints under ``outdir``."""
+    from e2e_asr_tpu_torch.bin.train_asr import Solver
+
+    cfg = recipe_960h_config(root)
+    h = cfg.hparas
+    h.max_step, h.valid_step, h.log_step, h.seed = 1, 1, 1, seed
+    cfg.model.encoder.rnn_impl = rnn_impl
+    paras = types.SimpleNamespace(
+        config=RECIPE_960H, name="smoke_960h", logdir=os.path.join(outdir, "log"),
         ckpdir=os.path.join(outdir, "ckpt"), load=None, seed=seed, cpu=False, verbose=True,
         auto_resume=False,
     )
@@ -454,12 +544,13 @@ def scan_phase_split(args, use_teacher, temp: float, cots=None, cluster_size=Non
     return res
 
 
-def flagship_att_inputs(dev, seed: int = 1, s: int = 816 // 4):
+def flagship_att_inputs(dev, seed: int = 1, s: int = 816 // 4, cfg=None):
     """The beam attention step's inputs at the flagship decode shapes (B=16,
     W=16, S=204 unless given, Dk=300, E=640, 10 x 201 taps, lengths in [S/2,
-    S] with the first at S, int32), weights at their init scales: the
-    arguments of ``att_step_cuda.att_step_beam_loc``."""
-    cfg = flagship_smoke_config()
+    S] with the first at S, int32), or at those of ``cfg``'s model and
+    decode block, weights at their init scales: the arguments of
+    ``att_step_cuda.att_step_beam_loc``."""
+    cfg = cfg or flagship_smoke_config()
     m, ac = cfg.model, cfg.model.attention
     b, w = cfg.decode.batch_size, cfg.decode.beam_size
     dk, e_dim, kk, p = ac.dim, 2 * m.encoder.dim[-1], ac.loc_kernel_num, 2 * ac.loc_kernel_size + 1
@@ -644,17 +735,17 @@ def log_mel_variants_ms(dev, seed: int = 0) -> dict:
     return res
 
 
-def flagship_prefix_inputs(dev, seed: int = 3, t: int = 816 // 4):
+def flagship_prefix_inputs(dev, seed: int = 3, t: int = 816 // 4, cfg=None, vocab: int = 26):
     """The fused CTC prefix function's inputs at the flagship decode shapes
     (B=16, W=16, K=24 candidates a beam, T=204 unless given, vocabulary 26,
-    lengths in [T/2, T] with the first at T): parents that emitted one
-    token, one candidate of each beam equal to its last token, as
-    ``chip_smoke.py`` draws them."""
+    lengths in [T/2, T] with the first at T), or at ``cfg``'s decode block:
+    parents that emitted one token, one candidate of each beam equal to its
+    last token, as ``chip_smoke.py`` draws them."""
     from e2e_asr_tpu_torch.decode import ctc_prefix_cuda as cpc
     from e2e_asr_tpu_torch.decode.ctc_prefix import init_empty_prefix
 
-    cfg = flagship_smoke_config()
-    b, w, vocab = cfg.decode.batch_size, cfg.decode.beam_size, 26
+    cfg = cfg or flagship_smoke_config()
+    b, w = cfg.decode.batch_size, cfg.decode.beam_size
     k = min(vocab, max(w, int(w * cfg.decode.ctc_beam_ratio)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

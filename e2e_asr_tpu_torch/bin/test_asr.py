@@ -43,8 +43,8 @@ from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from e2e_asr_tpu_torch.decode.beam import BeamResult, beam_search
 from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
 from e2e_asr_tpu_torch.device import resolve_device
-from e2e_asr_tpu_torch.metrics import edit_distance
 from e2e_asr_tpu_torch.models.encoder import total_downsample
+from e2e_asr_tpu_torch.native import levenshtein_batch
 from e2e_asr_tpu_torch.ops.frontend import compute_features
 from e2e_asr_tpu_torch.parallel import dist
 
@@ -188,12 +188,10 @@ class Solver:
         wall = time.time() - t0
 
         mode = "cer" if self.tokenizer.token_type == "character" else "wer"
-        err = tot = 0
-        for rows_out, _ in batches:
-            for _, ref, hyp in rows_out:
-                hh, rr = (hyp.split(), ref.split()) if mode == "wer" else (list(hyp), list(ref))
-                err += edit_distance(hh, rr)
-                tot += max(len(rr), 1)
+        split_ = str.split if mode == "wer" else list
+        pairs = [(split_(hyp), split_(ref)) for rows_out, _ in batches for _, ref, hyp in rows_out]
+        err = int(levenshtein_batch(pairs).sum())  # one native call a split
+        tot = sum(max(len(r), 1) for _, r in pairs)
         if world > 1:
             err, tot, n_utt, audio_sec = dist.allsum_scalars([err, tot, n_utt, audio_sec]).tolist()
             n_utt = int(n_utt)

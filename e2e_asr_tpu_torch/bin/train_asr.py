@@ -48,9 +48,13 @@ the step (captured in its graph under NCCL; eager under gloo, said once).
 Validation shards the same way: each dev batch's loss sums stay on the
 card, are summed over the ranks once an epoch and divided there, and the
 six error counts are summed by ``allsum_scalars``, so that every rank holds
-one summary and takes the same ``best_att`` / ``best_ctc`` decisions. The
-throughput counts the global audio (each window's per-step audio summed
-over the ranks at the window's one read). Rank 0 alone logs and writes
+one summary and takes the same ``best_att`` / ``best_ctc`` decisions. Two
+audio counts: a ``step_log`` record's ``audio_s`` is the global batch's
+audio (each step's audio summed over the ranks at the window's one read),
+``rank_audio_s`` the rank's own rows'; the logged
+``throughput_audio_sec_per_sec_chip`` is per card, as the JAX package's:
+the logging rank's own audio over the window's wall, over its one card.
+Rank 0 alone logs and writes
 checkpoints; each save ends in a barrier. Local rank 0 builds the kernels
 while the host's other ranks wait.
 
@@ -252,8 +256,10 @@ class Solver(BaseSolver):
 
         def flush() -> Dict[str, float]:
             """Reads the ring (the window's one wait for the device) into
-            ``step_log``, each step's audio the global batch's (summed over
-            the ranks); returns the last step's metrics."""
+            ``step_log``, each step's ``audio_s`` the global batch's (summed
+            over the ranks) and ``rank_audio_s`` this rank's rows'; the
+            window's throughput counts the latter. Returns the last step's
+            metrics."""
             nonlocal audio_acc
             rows = ring[:len(pending)].tolist()
             audio = dist.allsum_scalars([rec["audio_s"] for rec in pending]).tolist()
@@ -261,8 +267,9 @@ class Solver(BaseSolver):
             for n, (rec, row) in enumerate(zip(pending, rows)):
                 t_next = pending[n + 1]["t0"] if n + 1 < len(pending) else t_end
                 self.step_log.append({**dict(zip(keys, row)), "step": rec["step"], "audio_s": audio[n],
-                                      "wall_s": t_next - rec.pop("t0"), "rd_s": rec["rd_s"]})
-                audio_acc += audio[n]
+                                      "rank_audio_s": rec["audio_s"], "wall_s": t_next - rec.pop("t0"),
+                                      "rd_s": rec["rd_s"]})
+                audio_acc += rec["audio_s"]
             pending.clear()
             return self.step_log[-1]
 
@@ -288,18 +295,18 @@ class Solver(BaseSolver):
                 if logged:
                     dt = time.time() - t_wall
                     t_dev = max(dt - t_rd - t_disp, 0.0)
-                    thr = audio_acc / max(dt, 1e-9)
+                    thr = audio_acc / max(dt, 1e-9)  # per card: a rank drives one (JAX: / local devices)
                     self.progress(
                         f"loss {m['loss']:.3f} | att {m.get('att_loss', 0):.3f} | "
                         f"ctc {m.get('ctc_loss', 0):.3f} | gnorm {m['grad_norm']:.2f} | "
-                        f"tf {m['tf_rate']:.2f} | {thr:.1f} audio-s/s | "
+                        f"tf {m['tf_rate']:.2f} | {thr:.1f} audio-s/s/chip | "
                         f"rd {t_rd:.2f}s ({t_rd / max(dt, 1e-9):.0%}) | disp {t_disp:.2f}s | "
                         f"dev {t_dev:.2f}s ({t_dev / max(dt, 1e-9):.0%})"
                     )
                     self.write_log("loss", {"tr_att": m.get("att_loss", 0.0), "tr_ctc": m.get("ctc_loss", 0.0)})
                     self.write_log("grad_norm", m["grad_norm"])
                     self.write_log("tf_rate", m["tf_rate"])
-                    self.write_log("throughput_audio_sec_per_sec", thr)
+                    self.write_log("throughput_audio_sec_per_sec_chip", thr)
                     t_wall, audio_acc = time.time(), 0.0
                     t_rd = t_disp = 0.0
 

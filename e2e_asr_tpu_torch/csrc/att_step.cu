@@ -42,8 +42,10 @@
 //     chunks' partial sums added in a fixed order;
 //   - each beam's local max and sum of the exps, and the partial context
 //     exps [W, frames] @ v [frames, E] on the tensor cores (three TF32
-//     products, v in tiles through shared memory), to a scratch slot of the
-//     unit;
+//     products, v in tiles of TV frames through shared memory: TF where
+//     that fits, fewer where E is wide, 32 at E = 1024; the frames are
+//     summed 8 at a time in order whatever TV is, so the result does not
+//     depend on it), to a scratch slot of the unit;
 //   - one grid barrier; then each block scales its exps by the statistics
 //     of its utterance's units into align, and the warps sum the units'
 //     partial contexts, scaled, in unit order into ctx.
@@ -134,7 +136,7 @@ __host__ __device__ inline size_t take(size_t& o, size_t n) {
 
 struct Layout {
   size_t tt, wl, lv, lb, qb, aw, en, scl, offs, kb, fs, ep, vt, total;
-  int SbM, AW, KP4, KS, WLS, KPS, QS, VS;
+  int SbM, AW, KP4, KS, WLS, KPS, QS, VS, TV;
 };
 
 // frames a unit (a block's share of one utterance) holds, at most: with B
@@ -176,8 +178,10 @@ __host__ __device__ inline Layout att_layout(int B, int W, int S, int Dk, int E,
   l.ep = take(o, (size_t)NCHMAX * rows);     // partial energies [NCH][W TF]
   const size_t ts = f0 + (size_t)K * P;      // staging: the taps [K][P] as they come, at fs
   o = o > ts ? o : ts;
-  l.vt = u0;                                 // v tile [TF][VS]
-  const size_t u1 = u0 + (size_t)TF * l.VS;
+  l.vt = u0;                                 // v tile [TV][VS]: TF frames, fewer (a multiple of 8) where
+  l.TV = TF;                                 // E is too wide for them to fit (E = 1024: 32)
+  while (l.TV > 8 && sizeof(float) * (u0 + (size_t)l.TV * l.VS) > SMEM_MAX) l.TV -= 8;
+  const size_t u1 = u0 + (size_t)l.TV * l.VS;
   l.total = o > u1 ? o : u1;
   return l;
 }
@@ -202,7 +206,7 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
   extern __shared__ float smem[];
   const Layout ly = att_layout(B, W, S, Dk, E, K, P, G);
   const int AW = ly.AW, KP4 = ly.KP4, KS = ly.KS, WLS = ly.WLS, KPS = ly.KPS, QS = ly.QS, SbM = ly.SbM;
-  const int VS = ly.VS;
+  const int VS = ly.VS, TV = ly.TV;
   float* tt = smem + ly.tt;
   float* wl = smem + ly.wl;
   float* lv = smem + ly.lv;
@@ -452,7 +456,7 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
       PHASE(PH_ENERGY);
     }
     // v's first tile into the union, behind the softmax
-    load_rows(vt, VS, vg, E, 0, min(nv, TF));
+    load_rows(vt, VS, vg, E, 0, min(nv, TV));
     cp_async_commit();
 
     // ---- local softmax statistics, a warp a beam, to the scratch
@@ -476,7 +480,7 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
     PHASE(PH_SOFTMAX);
 
     // ---- partial context exps [W, nv] @ v [nv, E] on the tensor cores, v in
-    // tiles of TF frames through shared memory: rows = beams (16-beam
+    // tiles of TV frames through shared memory: rows = beams (16-beam
     // tiles), columns = E's n-tiles dealt over the warps (NPW each), k =
     // frames; to the scratch
     {
@@ -485,8 +489,8 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
         const int wa = m0 + g8, wb = wa + 8;
         for (int nb = 0; nb < nte; nb += NW * NPW) {
           float acc[NPW][4] = {};
-          for (int f0 = 0; f0 < nv; f0 += TF) {
-            const int nt = min(TF, nv - f0);
+          for (int f0 = 0; f0 < nv; f0 += TV) {
+            const int nt = min(TV, nv - f0);
             if (m0 > 0 || nb > 0 || f0 > 0) load_rows(vt, VS, vg, E, f0, nt);  // (the first is in flight)
             cp_async_commit();
             cp_async_wait_all();

@@ -1,9 +1,9 @@
 """Corpus adapters: filesystem -> utterance manifests.
 
 A copy of ``e2e_asr_tpu/data/corpus.py`` (the port imports nothing of the
-JAX package): LibriSpeech-layout walking over wav/npy mirrors plus the
-deterministic numpy-generated synthetic corpus used by tests and the chip
-smoke run.
+JAX package): LibriSpeech-layout walking over flac (the port's native
+decoder, ``native.py``), wav and npy files, plus the deterministic
+numpy-generated synthetic corpus used by tests and the chip smoke run.
 
 An utterance is (uid, loader, transcript, n_samples); `loader()` returns the
 float32 waveform lazily so manifests stay cheap.
@@ -19,6 +19,8 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from e2e_asr_tpu_torch import native
+
 
 @dataclass
 class Utterance:
@@ -26,23 +28,28 @@ class Utterance:
     load: Callable[[], np.ndarray]  # -> float32 [n_samples]
     text: str
     n_samples: int
-    wav_path: Optional[str] = None  # set when backed by a wav file => the
-    # bucketed loader can batch-decode via the native C++ packer
+    wav_path: Optional[str] = None  # set when backed by a wav file: the
+    # loader fills a batch of such rows with one native pack_batch
 
 
 def _load_wav(path: str) -> np.ndarray:
-    """Minimal PCM wav reader (no soundfile/torchaudio in the image)."""
+    """Minimal PCM wav reader (no soundfile/torchaudio in the image): channel
+    0, as the native reader takes it. A file shorter than its header says
+    raises."""
     with wave.open(path, "rb") as f:
         n = f.getnframes()
         width = f.getsampwidth()
+        channels = f.getnchannels()
         data = f.readframes(n)
+    if len(data) != n * width * channels:
+        raise IOError(f"wav shorter than its header: {path}")
     if width == 2:
         x = np.frombuffer(data, dtype="<i2").astype(np.float32) / 32768.0
     elif width == 4:
         x = np.frombuffer(data, dtype="<i4").astype(np.float32) / 2147483648.0
     else:
         raise ValueError(f"unsupported wav sample width {width} in {path}")
-    return x
+    return x[::channels]
 
 
 def _wav_samples(path: str) -> int:
@@ -59,9 +66,10 @@ def librispeech(
 ) -> List[Utterance]:
     """Walk LibriSpeech-layout split dirs (ref: corpus/librispeech.py).
 
-    Layout: <path>/<split>/<spk>/<chap>/<uid>.{wav,npy} + <spk>-<chap>.trans.txt
-    (a pre-decoded mirror: the port reads wav/npy only; decode .flac offline
-    into the same directory structure).
+    Layout: <path>/<split>/<spk>/<chap>/<uid>.{flac,wav,npy} + <spk>-<chap>.trans.txt
+    (LibriSpeech as shipped, or a pre-decoded wav/npy mirror). FLAC goes
+    through the port's native decoder; a wav utterance keeps its path, so
+    that the loader can fill a batch of them with one native ``pack_batch``.
     """
     utts: List[Utterance] = []
     for split in splits:
@@ -78,7 +86,7 @@ def librispeech(
                             trans[uid] = text
             for fn in sorted(files):
                 base, ext = os.path.splitext(fn)
-                if ext not in (".wav", ".npy"):
+                if ext not in (".wav", ".npy", ".flac"):
                     continue
                 if base not in trans:
                     continue
@@ -90,6 +98,9 @@ def librispeech(
                             _wav_samples(full), wav_path=full,
                         )
                     )
+                elif ext == ".flac":
+                    utts.append(Utterance(base, lambda p=full: native.read_flac(p), trans[base],
+                                          native.flac_num_samples(full)))
                 else:
                     n = int(np.load(full, mmap_mode="r").size)
                     utts.append(Utterance(base, lambda p=full: _load_npy(p), trans[base], n))

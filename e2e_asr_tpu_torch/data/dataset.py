@@ -25,9 +25,16 @@ every process), round each bucket's batch up to a multiple of
 contiguous block of rows: the other blocks' waves are never read.
 ``batch_shapes()`` reports local rows. ``BucketedLoader.epoch(shard=(i,
 n))`` instead takes every n-th batch from the i-th, chosen before any is
-materialised (the sharded decode). The native ``pack_batch`` route and
-``rebatch`` / ``bucket_counts`` / ``fill_factor`` are not ported yet
-(ROADMAP).
+materialised (the sharded decode). ``rebatch`` / ``bucket_counts`` /
+``fill_factor`` are not ported yet (ROADMAP).
+
+Waves reach a streaming batch by one of two routes, the JAX loader's
+routing: when every row of the process's block is backed by a wav file,
+one native ``pack_batch`` call (``native.py``: C++ threads decode and pad
+the rows, no GIL) fills the block, passed through int16 as the cache route
+passes every wave, so that the batch is bitwise the cache route's; else
+each row comes from the int16 wave cache. A file that cannot be decoded
+raises on either route: neither gives way to the other.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from e2e_asr_tpu_torch import native
 from e2e_asr_tpu_torch.config import DataConfig
 from e2e_asr_tpu_torch.data import corpus as corpus_mod
 from e2e_asr_tpu_torch.data import text as text_mod
@@ -209,11 +217,18 @@ class BucketedLoader:
         else:
             dt = np.int16 if self.wire_dtype == "int16" else np.float32
             wav = np.zeros((b, n_bucket), dt)
-            for j, idx in enumerate(idxs):
-                x = self._cached_wav_i16(idx)
-                n = min(len(x), n_bucket)
-                wav[j, :n] = x[:n] if dt == np.int16 else x[:n].astype(np.float32) / 32768.0
-                wav_len[j] = n
+            utts = [self._items[idx][0] for idx in idxs]
+            if utts and all(u.wav_path for u in utts):
+                packed, lens = native.pack_batch([u.wav_path for u in utts], n_bucket)
+                packed = quantize_i16(packed)
+                wav[: len(utts)] = packed if dt == np.int16 else packed.astype(np.float32) / 32768.0
+                wav_len[: len(utts)] = lens
+            else:
+                for j, idx in enumerate(idxs):
+                    x = self._cached_wav_i16(idx)
+                    n = min(len(x), n_bucket)
+                    wav[j, :n] = x[:n] if dt == np.int16 else x[:n].astype(np.float32) / 32768.0
+                    wav_len[j] = n
         txt = np.zeros((b, l_bucket), np.int32)
         txt_len = np.zeros((b,), np.int32)
         uids = []

@@ -44,6 +44,7 @@ import torch
 from e2e_asr_tpu_torch import cuda_build
 from e2e_asr_tpu_torch.decode import beam
 from e2e_asr_tpu_torch.decode import ctc_prefix_cuda
+from e2e_asr_tpu_torch.device import graph_capture
 from e2e_asr_tpu_torch.ops import att_step_cuda
 
 # the kernel wrappers a beam step calls, whose launch counts replays carry
@@ -105,7 +106,7 @@ class BeamGraph:
         for first in (True, False):
             before = _counts()
             g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
+            with graph_capture(g, pool, self.stream):
                 beam.beam_step(spec, self.inputs, self.state, first=first)
             after = _counts()
             for fn, n in zip(COUNTED, before):

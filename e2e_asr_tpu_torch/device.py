@@ -14,9 +14,16 @@ bitwise.
 
 Under a process group (``main --multihost``, ``parallel/dist.py``) the card
 is the local rank's.
+
+``graph_capture`` is the one way the port captures a CUDA graph (the train
+step, validation and the LM in ``training/step_graph.py``, the beam step in
+``decode/beam_graph.py``).
 """
 
 from __future__ import annotations
+
+import gc
+from contextlib import contextmanager
 
 import torch
 
@@ -36,3 +43,23 @@ def resolve_device(name: str = "cuda") -> torch.device:
     elif device.type != "cpu":
         raise ValueError(f"unsupported device {name!r}")
     return device
+
+
+@contextmanager
+def graph_capture(graph: torch.cuda.CUDAGraph, pool=None, stream=None):
+    """``torch.cuda.graph(graph, pool, stream, capture_error_mode=
+    "thread_local")`` with Python's garbage collector run just before and
+    held off until the capture ends. A collection inside a capture would run
+    the destructors of dead cycles that hold CUDA objects (a solver's old
+    graphs, its events, pinned buffers), and their CUDA calls (a graph's
+    reset, an event's destruction) invalidate the capture; torch no longer
+    collects at a capture's start."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+            yield
+    finally:
+        if enabled:
+            gc.enable()

@@ -2,7 +2,7 @@
 
     python -m e2e_asr_tpu_torch.main --config cfg.yaml              # train ASR
         [--name exp] [--logdir log/] [--ckpdir ckpt/] [--load ckpt] [--njobs N]
-        [--no-auto-resume] [-o KEY=VAL ...] [--cpu] [--multihost]
+        [--no-auto-resume] [--amp | --pure-f32] [-o KEY=VAL ...] [--cpu] [--multihost]
     python -m e2e_asr_tpu_torch.main --config cfg.yaml --test --load ckpt
         [--name exp] [--outdir result/] [--njobs N] [-o KEY=VAL ...] [--cpu] [--multihost]
     python -m e2e_asr_tpu_torch.main --config lm.yaml --lm        # train the RNN-LM
@@ -14,6 +14,8 @@ config fuses in (``decode.lm_weight``, ``decode.lm_path``); ``--lm --test``
 raises, as in the JAX package (the LM's dev perplexity is part of its
 training logs). ``--njobs`` is the number of threads that fill the train,
 dev and eval batches ahead of the step (0: on the calling thread).
+``--amp`` / ``--pure-f32`` set ``hparas.dtype`` to bfloat16 / float32 after
+the ``-o`` overrides; ``--pure-f32`` wins when both are given.
 
 Data parallelism over processes (``--multihost``; the JAX package's flag,
 which there calls ``jax.distributed.initialize()``): launch one process a
@@ -60,6 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     p.add_argument("--multihost", action="store_true",
                    help="join the torchrun process group (data parallelism; NCCL on the card, gloo with --cpu)")
+    p.add_argument("--amp", action="store_true", help="force the bfloat16 compute dtype")
+    p.add_argument("--pure-f32", action="store_true", help="force the float32 compute dtype (wins over --amp)")
     p.add_argument(
         "-o", "--override", action="append", default=[], metavar="KEY=VAL",
         help="dotted config override, e.g. -o decode.beam_size=4 (VAL parsed as YAML)",
@@ -110,6 +114,10 @@ def main(argv=None):
     config = Config.load(paras.config)
     apply_overrides(config, paras.override)
     config.hparas.seed = paras.seed
+    if paras.amp:
+        config.hparas.dtype = "bfloat16"
+    if paras.pure_f32:
+        config.hparas.dtype = "float32"
     if paras.multihost:
         dist.init(resolve_device("cpu" if paras.cpu else "cuda"))
     try:

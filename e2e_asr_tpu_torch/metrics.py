@@ -1,4 +1,10 @@
-"""Error rates (WER/CER) on the host, as ``e2e_asr_tpu/utils/metrics.py``."""
+"""Error rates (WER/CER) on the host, as ``e2e_asr_tpu/utils/metrics.py``.
+
+The distances come from the native Levenshtein (``native.py``): ``cal_er``
+makes one ``levenshtein_batch`` call a batch. ``edit_distance_plain`` is the
+same distance as a Python loop, the plain version the tests hold the native
+one against; no scoring path calls it.
+"""
 
 from __future__ import annotations
 
@@ -6,8 +12,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from e2e_asr_tpu_torch import native
 
-def edit_distance(a: Sequence, b: Sequence) -> int:
+
+def edit_distance_plain(a: Sequence, b: Sequence) -> int:
     """Levenshtein distance (insert, delete, substitute: cost 1 each)."""
     prev = list(range(len(b) + 1))
     for i in range(1, len(a) + 1):
@@ -16,6 +24,11 @@ def edit_distance(a: Sequence, b: Sequence) -> int:
             cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + (a[i - 1] != b[j - 1]))
         prev = cur
     return prev[-1]
+
+
+def edit_distance(a: Sequence, b: Sequence) -> int:
+    """Levenshtein distance through the native library."""
+    return native.levenshtein(a, b)
 
 
 def cal_er(
@@ -27,15 +40,14 @@ def cal_er(
     pred_len: Optional[np.ndarray] = None,
 ) -> tuple:
     """(errors, reference length) over a batch. ``ctc`` collapses repeats
-    before blanks are dropped; rows with an empty reference are skipped."""
-    total_err, total_len = 0, 0
+    before blanks are dropped; rows with an empty reference are skipped.
+    The batch's distances come from one native call."""
+    pairs = []
     for i in range(len(pred_ids)):
         p = pred_ids[i][: None if pred_len is None else int(pred_len[i])]
         hyp = tokenizer.decode(p, ignore_repeat=ctc)
         ref = tokenizer.decode(truth_ids[i])
         if not ref:
             continue
-        h, r = (hyp.split(), ref.split()) if mode == "wer" else (list(hyp), list(ref))
-        total_err += edit_distance(h, r)
-        total_len += len(r)
-    return total_err, total_len
+        pairs.append((hyp.split(), ref.split()) if mode == "wer" else (list(hyp), list(ref)))
+    return int(native.levenshtein_batch(pairs).sum()), sum(len(r) for _, r in pairs)

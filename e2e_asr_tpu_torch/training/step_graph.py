@@ -72,6 +72,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from e2e_asr_tpu_torch import cuda_build
+from e2e_asr_tpu_torch.device import graph_capture
 from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.ops import ctc_cuda, decoder_cuda, frontend_cuda, rnn_cuda
 from e2e_asr_tpu_torch.parallel import dist
@@ -170,7 +171,7 @@ class Captured:
         if self.gen is not None:
             g.register_generator_state(self.gen)
         before = _counts()
-        with torch.cuda.graph(g, pool=pool, stream=self.stream, capture_error_mode="thread_local"):
+        with graph_capture(g, pool, self.stream):
             self.out = fn(self.batch, self.gen)
         after = _counts()
         self.deltas = [a - b for a, b in zip(after, before)]

@@ -164,7 +164,7 @@ def test_train_cli_on_cpu_then_resume_and_decode(tmp_path):
     with open(tmp_path / "log" / "tiny" / "scalars.jsonl") as f:
         recs = [json.loads(line) for line in f]
     tags = {r["tag"] for r in recs}
-    assert {"loss", "grad_norm", "tf_rate", "throughput_audio_sec_per_sec", "dev_loss", "er"} <= tags
+    assert {"loss", "grad_norm", "tf_rate", "throughput_audio_sec_per_sec_chip", "dev_loss", "er"} <= tags
     assert all(np.isfinite(r["value"]) for r in recs if r["tag"] == "grad_norm")
 
     cli_main(["--config", str(train_yaml), "--cpu", "--name", "tiny", "-o", "hparas.max_step=3", *dirs])
@@ -230,6 +230,29 @@ def test_train_cli_logs_the_compute_dtype(tmp_path, capsys, dtype):
 
     assert all(torch.as_tensor(x).dtype == torch.float32 for part in ("params", "opt_state")
                for x in param_leaves(ckpt[part]) if torch.as_tensor(x).is_floating_point())
+
+
+@pytest.mark.parametrize("recipe,flags,want", [
+    ("bfloat16", ["--pure-f32"], "float32"),
+    ("float32", ["--amp"], "bfloat16"),
+    ("bfloat16", ["--amp", "--pure-f32"], "float32"),
+])
+def test_train_cli_amp_and_pure_f32_set_the_compute_dtype(tmp_path, capsys, recipe, flags, want):
+    """``--amp`` / ``--pure-f32`` (``e2e_asr_tpu/main.py``'s flags) set
+    hparas.dtype after the overrides, ``--pure-f32`` winning when both are
+    given, as in the JAX ``main``: the solver logs and checkpoints the
+    compute type the flags chose."""
+    train_yaml = _tiny_train_yaml(tmp_path, max_step=1)
+    d = yaml.safe_load(train_yaml.read_text())
+    d["hparas"]["dtype"] = recipe
+    train_yaml.write_text(yaml.safe_dump(d))
+    capsys.readouterr()
+    cli_main(["--config", str(train_yaml), "--cpu", "--name", "flags", "--logdir", str(tmp_path / "log"),
+              "--ckpdir", str(tmp_path / "ckpt"), "-o", f"hparas.dtype={recipe}", *flags])
+    lines = [line for line in capsys.readouterr().out.splitlines() if "Compute dtype" in line]
+    assert lines == [f"[INFO] Compute dtype: {want}"]
+    meta = (tmp_path / "ckpt" / "flags" / "latest.meta").read_text().splitlines()
+    assert f"compute_dtype {want}" in meta
 
 
 def test_train_cli_njobs_gives_the_same_checkpoint(tmp_path, capsys):

@@ -2103,3 +2103,180 @@ def test_scan_gumbel_noise_at_a_row_offset(gen):
     got = dc.decoder_scan_fwd(*args, use, 0.5, True, seed, row0=8)
     want = dc.decoder_scan_fwd_plain(*args, use.cpu(), 0.5, True, full[:, 8:])
     assert torch.equal(got[3][1], want[3][1])
+
+
+# ----------------------------------------------- configs/libri/asr_960h.yaml
+# The recipe's speller at its widths (Dk 300, E = 2 x 512, 10 x 201 taps,
+# H 512 = the scan kernels' MAX_H, a 512-wide embedding, the character
+# vocabulary): (B, S, Dk, E, K, P, H, Emb, V, L) of its 416-frame bucket at
+# B = 32 and of its 3056-frame bucket at the half-batch rule's B = 16, the
+# scan's longest S (764) and L (520).
+SCAN_960H = {"416": (32, 104, 300, 1024, 10, 201, 512, 512, 30, 160),
+             "3056": (16, 764, 300, 1024, 10, 201, 512, 512, 30, 520)}
+
+
+def _bf16_carried(got, want):
+    """A float32 output computed from a bf16 recurrence's state (the scan's
+    residuals and gradients over 160 or 520 steps): within the flagship
+    tests' scaled rtol 1e-3 but on at most BF16_SHARE of its elements, and
+    within BF16_ULPS bf16 ulp of the tensor's scale on all of them. A
+    rounding of the bf16 state that the two versions take apart carries
+    into every later step's float32 products by about an ulp of the state;
+    over the flagship tests' 6 steps no element goes past 1e-3, over a
+    recipe's L a few do."""
+    from chip_smoke import BF16_SHARE, BF16_ULPS
+
+    assert got.dtype == want.dtype == torch.float32
+    scale = float(want.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(max(scale, 2.0 ** -126))) - 7)
+    diff = (got - want).abs()
+    assert float(diff.max()) <= BF16_ULPS * ulp
+    assert float((diff > 1e-3 * (scale + want.abs())).float().mean()) <= BF16_SHARE
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bucket", ["416", "3056"])
+def test_recipe_960h_scan_kernels(gen, bucket, dtype):
+    """The scan pair at asr_960h.yaml's shapes: a grid of clusters fits
+    (``scan_grid`` raises where none does) and each kernel holds against its
+    plain version, teacher-forced: float32 at rtol 1e-4 (scaled for the
+    backward), as at the flagship's widths; bf16 outputs by ``_bf16_close``,
+    the float32 residuals and gradients of the bf16 variants by
+    ``_bf16_carried``."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    shape = SCAN_960H[bucket]
+    b, s, dk, e_dim, kk, p, h, emb, v, l = shape
+    dt = getattr(torch, dtype)
+    for which in ("fwd", "bwd"):
+        grid = dc.scan_grid(which, b, s, dk, e_dim, kk, p, h, v, dtype=dt)
+        assert grid["smem"] <= dc.SMEM_MAX and grid["clusters"] >= 1
+    args = tuple(a.to(dt) if a.is_floating_point() else a for a in _scan_args(gen, *shape))
+    use = torch.ones(l, dtype=torch.bool)
+    got = dc.decoder_scan_fwd(*args, use, 0.5)
+    want = dc.decoder_scan_fwd_plain(*args, use, 0.5)
+    if dt == torch.float32:
+        for g, w in zip((*got[:3], got[3][0], *got[3][2:]), (*want[:3], want[3][0], *want[3][2:])):
+            _close(g, w, rtol=1e-4, atol=1e-4)
+    else:
+        for g, w in zip(list(got[:3]) + [got[3][0]], list(want[:3]) + [want[3][0]]):
+            _bf16_close(g, w)
+        for g, w in zip(got[3][2:], want[3][2:]):
+            _bf16_carried(g, w)
+    logits, align, hidden, (cseq, _, acts, qs, ctxs) = want
+    k, vv, lens, taps, wq, _, wlp, locv, locb, _, wx, wh, _, wout, _, _ = args
+    cots = [torch.randn(o.shape, generator=gen, device="cuda").to(dt) for o in (logits, align, hidden)]
+    if dt == torch.bfloat16:
+        ctxs = torch.einsum("lbs,bse->lbe", align.float(), vv.float())
+    bargs = (k, vv, lens, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs, ctxs, *cots, 0.5)
+    for g, w in zip(dc.decoder_scan_bwd(*bargs), dc.decoder_scan_bwd_plain(*bargs)):
+        if dt == torch.float32:
+            _close_scaled(g, w, 1e-4)
+        else:
+            _bf16_carried(g, w)
+
+
+@pytest.mark.parametrize("s,lens", [(104, [104, 1, 80] + [104 - 3 * i for i in range(13)]),
+                                    (764, [764, 400, 1] + [764 - 50 * i for i in range(13)])])
+def test_recipe_960h_att_step_kernel(gen, s, lens):
+    """The beam attention step at asr_960h.yaml's decode (B 16, beam 16, Dk
+    300, E = 1024, 10 x 201 taps) over its 416-frame bucket's 104 encoder
+    frames and the longest bucket's 764: a layout fits and the kernel holds
+    against its plain version (the flagship's tolerances)."""
+    args = _att_args(gen, 16, 16, s, 300, 1024, lens, kk=10, p=201)
+    p = asc.plan(16, 16, s, 300, 1024, 10, 201)
+    assert p["blocks"] >= 1 and p["group"] >= 1
+    before = asc.att_step_beam_loc.launches
+    got, want = asc.att_step_beam_loc(*args), asc.att_step_beam_loc_plain(*args)
+    assert asc.att_step_beam_loc.launches == before + -(-16 // p["group"])
+    _close(got[0], want[0], rtol=1e-4, atol=1e-6)
+    _close(got[1], want[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [1280, 1024])
+def test_recipe_960h_bf16_lstm_layer(gen, d):
+    """A BiLSTM layer of asr_960h.yaml (H = 512; D 1280 after the VGG prenet,
+    1024 after a layer) by either kernel pair in bf16, the recipe's dtype,
+    against the plain versions; the backward's sweep holds Wh at H = 512."""
+    bf = torch.bfloat16
+    b, t, h = 8, 40, 512
+    lens = torch.randint(1, t + 1, (b,), generator=gen, device="cuda")
+    lens[0] = t
+    mask = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
+    bound = 1 / math.sqrt(h)
+    x = torch.tanh(torch.randn((t, b, d), generator=gen, device="cuda")).to(bf)
+    wx, wh = ((torch.rand(sh, generator=gen, device="cuda") * 2 - 1).mul(bound).to(bf)
+              for sh in ((2, d, 4 * h), (2, h, 4 * h)))
+    bias = ((torch.rand((2, 4 * h), generator=gen, device="cuda") * 2 - 1) * bound).to(bf)
+    want = rnn_cuda.lstm_bidir_fwd_train_plain(x, mask, wx, wh, bias)
+    for g, w in zip(rnn_cuda.lstm_bidir_fwd_train(x, mask, wx, wh, bias), want):
+        _bf16_close(g, w)
+    ys, c, acts = want
+    dy = torch.randn(ys.shape, generator=gen, device="cuda").to(bf)
+    for g, w in zip(rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy),
+                    rnn_cuda.lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy)):
+        _bf16_close(g, w)
+    xw = (x.float().transpose(0, 1) @ wx[0].float()).transpose(0, 1).to(bf).repeat(1, 2, 1).contiguous()
+    m2 = mask.repeat(1, 2)
+    got = rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True)
+    want = rnn_cuda.lstm_seq_fwd_plain(xw, m2, wh)
+    for g, w in zip(got[:2], want[:2]):
+        _bf16_close(g, w)
+    ys, c, acts = want
+    dy = torch.randn(ys.shape, generator=gen, device="cuda").to(bf)
+    for g, w in zip(rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy), rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy)):
+        _bf16_close(g, w)
+
+
+_DEAD_GRAPH_CAPTURE = """
+import gc, sys, torch
+from e2e_asr_tpu_torch.device import graph_capture
+
+def dead():  # a captured graph and its pool's tensor in a cycle: only the collector frees them
+    x = torch.zeros(1 << 20, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    with graph_capture(g):
+        z = x * 2
+    d = {"graph": g, "x": x, "z": z}
+    d["self"] = d
+
+gc.disable()  # no automatic collection: the cycle lives until one is asked for
+dead()
+y = torch.zeros(8, device="cuda")
+g = torch.cuda.CUDAGraph()
+bare = sys.argv[1] == "bare"
+with (torch.cuda.graph(g, capture_error_mode="thread_local") if bare else graph_capture(g)):
+    y.add_(1)
+    assert bare or not gc.isenabled()
+    gc.collect()  # a collection inside the capture: the dead graph's, if it still lives
+    y.add_(1)
+g.replay()
+torch.cuda.synchronize()
+print("value", float(y[0]))
+"""
+
+
+@pytest.mark.parametrize("how", ["graph_capture", "bare"])
+def test_dead_graphs_are_collected_before_a_capture_not_in_it(gen, how, tmp_path):
+    """A cycle that holds a captured graph (an old solver's cache) and dies
+    before a new capture, and a collection inside that capture (the
+    collector runs wherever allocations take it): ``device.graph_capture``
+    (every capture site of the port goes through it) freed the cycle before
+    the capture and holds the automatic collector off inside it, so the
+    capture replays; under a bare ``torch.cuda.graph`` the collection frees
+    the dead graph inside the capture, whose reset invalidates it (run in
+    a subprocess)."""
+    import os
+    import subprocess
+    import sys
+
+    script = tmp_path / "capture.py"
+    script.write_text(_DEAD_GRAPH_CAPTURE)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, str(script), how], capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "PYTHONPATH": root})
+    if how == "graph_capture":
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        assert "value 2.0" in proc.stdout
+    else:
+        assert proc.returncode != 0 and "capture" in proc.stderr, proc.stdout + proc.stderr[-2000:]

@@ -283,6 +283,27 @@ def test_two_rank_solver_exec_and_validate_give_the_one_rank_summary(tmp_path):
     assert ranks[1]["files"] == []
 
 
+def test_two_rank_throughput_tag_is_the_ranks_own_audio_over_the_window(tmp_path):
+    """``throughput_audio_sec_per_sec_chip`` (the JAX solver's tag) is per
+    card under two ranks: rank 0's own rows' audio over the window's wall
+    (one step a window here), not the global batch's audio summed over the
+    ranks; the step log keeps both counts."""
+    import json
+
+    spec = {"config": _train_yaml(tmp_path, max_step=2), "dir": str(tmp_path / "runs"),
+            "out": str(tmp_path / "thr")}
+    _run("train", spec, tmp_path)
+    ranks = [torch.load(f"{spec['out']}.rank{r}.pt", weights_only=False) for r in (0, 1)]
+    with open(tmp_path / "runs" / "rank0" / "log" / "mp" / "scalars.jsonl") as f:
+        thr = {r["step"]: r["value"] for r in map(json.loads, f) if r["tag"] == "throughput_audio_sec_per_sec_chip"}
+    assert sorted(thr) == [1, 2]
+    for rec, other in zip(ranks[0]["step_log"], ranks[1]["step_log"]):
+        own, glob = rec["rank_audio_s"], rec["audio_s"]
+        assert 0 < own < glob and own + other["rank_audio_s"] == pytest.approx(glob, rel=1e-12)
+        np.testing.assert_allclose(thr[rec["step"]], own / rec["wall_s"], rtol=0.05)
+        assert thr[rec["step"]] < 0.95 * glob / rec["wall_s"]
+
+
 def _decode_yaml(tmp_path):
     """configs/synthetic_decode.yaml on 6 dev and 6 test utterances in
     batches of 2 (3 a split: rank 0 decodes batches 0 and 2, rank 1 batch
