@@ -167,7 +167,21 @@
    and timed with its bound (``recipe_960h_kernel_checks``, and the "960h"
    shape of ``bf16_kernel_checks``): each kernel row carries it as
    ``recipe_960h``, with its launches in the phase's runs.
-10. Prints a ``kernels`` JSON line (each row names the path its ``launches``
+10. The encoder and speller variants (``variants_phase``) at the
+   flagship's full widths, bf16, set by ``main``'s overrides (``VARIANTS``):
+   V1 (CNN prenet, bidirectional GRU layers, GRU speller: the recurrences
+   and the Python-loop speller plain, captured in the graphs) and V2 (VGG,
+   one-direction LSTM layers through the lstm_seq pair, the fused scan with
+   the embedding regularizer's loss): VARIANT_STEPS steps + validation
+   through ``Solver.exec`` replaying their graphs (the att_align PNG
+   written), one replayed step profiled (wall, busy, launches), the replay
+   against the eager step and validation bitwise, the kernel step within
+   BF16_STEP_TOL of the plain step; V1's GRU LM at lm_example.yaml's
+   widths trained through its graphs and fused into a decode batch, V2 at
+   ``emb_reg.fuse`` 0.3 taking the captured loop and decoding with it
+   (``decode_phase``: graphs bitwise eager, kernels against plain versions,
+   16/16 top hypotheses). Each kernel row gains ``launches_variants``.
+11. Prints a ``kernels`` JSON line (each row names the path its ``launches``
    were counted on; the bf16 variants in rows of their own, ``_bf16``), then
    the device JSON line last; the details go to ``--json`` (default
    e2e_asr_tpu_torch/_build/chip_smoke.json).
@@ -3100,7 +3114,9 @@ def loader_phase(smi):
 
 def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
     """The dev split decoded through ``Solver.exec`` with the BiLSTM layers
-    on route ``impl``, the decode kernels' launch counts set to 0 just
+    on route ``impl`` (``lstm_fwd``: the (name, wrapper) of the LSTM
+    forward it launches; None for a GRU encoder), the decode kernels'
+    launch counts set to 0 just
     before and read just after (the beam steps replay the solver's CUDA
     graphs, captured by the warm-up); then the same batch through the graphs
     and through the eager loop (tokens, lengths and scores bitwise equal,
@@ -3126,7 +3142,7 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
     capture_s = [sec for _, sec in solver.beam_graphs.captures[n_captures:]]
     print(f"beam step graphs (rnn_impl {impl}{tag}): {len(solver.beam_graphs.graphs)} captured for the solver, "
           f"this warm-up's capture {capture_s} s", flush=True)
-    wrappers = {"log_mel": log_mel, lstm_fwd[0]: lstm_fwd[1],
+    wrappers = {"log_mel": log_mel, **({lstm_fwd[0]: lstm_fwd[1]} if lstm_fwd else {}),
                 "att_step_beam_loc": att_step_beam_loc, "prefix_recursion": prefix_scores_fused}
     for fn in wrappers.values():
         fn.launches = 0
@@ -3501,6 +3517,411 @@ def recipe_960h_phase(smi):
     return out
 
 
+VARIANT_STEPS = 3  # train steps of a variant through Solver.exec (the first captures), then one validation
+VARIANT_LM_STEPS = 4  # the GRU LM's steps through train_lm.Solver.exec
+# the variants of the flagship (configs/libri/asr_example.yaml, its widths
+# and bf16 kept) as main's -o overrides
+VARIANTS = {
+    "V1": ("model.encoder.prenet=cnn", "model.encoder.module=GRU", "model.decoder.module=GRU"),
+    "V2": ("model.encoder.bidirection=false", "model.emb_reg.enable=true", "model.emb_reg.weight=0.5",
+           "model.emb_reg.fuse=0"),
+}
+
+
+def _variant_config(name: str, max_step: int, extra=()):
+    from e2e_asr_tpu_torch.bin.profile_decode import flagship_train_config
+    from e2e_asr_tpu_torch.main import apply_overrides
+
+    cfg = flagship_train_config(max_step)
+    apply_overrides(cfg, list(VARIANTS[name]) + list(extra))
+    return cfg
+
+
+def _variant_train_solver(outdir: str, cfg, name: str):
+    from e2e_asr_tpu_torch.bin.train_asr import Solver
+
+    cfg.hparas.seed = SEED
+    paras = types.SimpleNamespace(config="asr_example.yaml", name=name, logdir=os.path.join(outdir, "log"),
+                                  ckpdir=os.path.join(outdir, "ckpt"), load=None, seed=SEED, cpu=False,
+                                  verbose=True, auto_resume=False)
+    solver = Solver(cfg, paras, "train")
+    solver.load_data()
+    solver.set_model()
+    return solver
+
+
+def _state_tensors(state):
+    from e2e_asr_tpu_torch.training.step import param_leaves
+
+    return [p.detach() for p in param_leaves(state.params)] + [
+        t for k in sorted(state.opt_state) for t in param_leaves(state.opt_state[k])]
+
+
+def _variant_replay_vs_eager(solver, what):
+    """GRAPH_STEPS train steps of the solver's batches from seed-0 weights
+    through ``TrainGraphs`` (the first captures) and through the eager step,
+    teacher forcing 1.0, 0.75, 0.5 (failing coins from the second step on):
+    metrics and every parameter and optimizer tensor bitwise after each step,
+    the same launch counts. Then the validation of the first dev batch,
+    alignment kept, through ``EvalGraphs`` twice (capture, replay) against
+    the eager ``eval_device``: every output bitwise."""
+    from itertools import islice
+
+    from e2e_asr_tpu_torch.bin.train_asr import DEV_STEP_RATIO
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+    from e2e_asr_tpu_torch.training.step import Trainer
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    cfg = solver.config
+    tf = (cfg.hparas.tf_start, cfg.hparas.tf_end, cfg.hparas.tf_step)
+    cfg.hparas.tf_start, cfg.hparas.tf_end, cfg.hparas.tf_step = 1.0, 0.5, 2
+    batches = [solver._put(b) for b in islice(solver.tr_set.epoch(0), GRAPH_STEPS)]
+
+    def fresh():
+        params, _ = asr_mod.asr_init(SEED, solver.feat_dim, solver.vocab_size, cfg.model, solver.device)
+        trainer = Trainer(cfg)
+        return trainer, trainer.init_state(params)
+
+    (tg, sg), (te, se) = fresh(), fresh()
+    graphs = TrainGraphs(log=lambda m: print(f"  {what}: {m}", flush=True))
+    steps = []
+    for i, b in enumerate(batches):
+        c0 = _graph_counts()
+        mg = tg.train_step(sg, b, solver.step_generator(i), graphs=graphs)
+        got = {k: mg[k].clone() for k in ("loss", "grad_norm", "step_skipped", "tf_rate")}
+        c1 = _graph_counts()
+        me = te.train_step(se, b, solver.step_generator(i))
+        c2 = _graph_counts()
+        same = all(torch.equal(got[k], me[k]) for k in ("loss", "grad_norm", "step_skipped"))
+        state_same = all(torch.equal(a, c) for a, c in zip(_state_tensors(sg), _state_tensors(se)))
+        dg = {k: c1[k] - c0[k] for k in c0 if c1[k] - c0[k]}
+        de = {k: c2[k] - c1[k] for k in c0 if c2[k] - c1[k]}
+        steps.append(dict(loss=float(got["loss"]), grad_norm=float(got["grad_norm"]), tf_rate=float(got["tf_rate"]),
+                          bitwise=same and state_same, launches_graph=dg, launches_eager=de))
+        print(f"  {what} graph vs eager step {i + 1}{' (capture)' if i == 0 else ' (replay)'}: loss "
+              f"{float(got['loss']):.6f}, grad_norm {float(got['grad_norm']):.6f}, tf {float(got['tf_rate']):.2f}; "
+              f"metrics bitwise {same}, every parameter and optimizer tensor bitwise {state_same}; launches {dg}",
+              flush=True)
+        if not (same and state_same):
+            fail(f"{what}: the replayed train step is not bitwise the eager step at step {i + 1}")
+        if dg != de:
+            fail(f"{what}: the graph and eager steps counted other launches: {dg} vs {de}")
+        if float(got["step_skipped"]) != 0.0 or not math.isfinite(float(got["loss"])):
+            fail(f"{what}: graph check step {i + 1} was skipped or not finite")
+    cfg.hparas.tf_start, cfg.hparas.tf_end, cfg.hparas.tf_step = tf
+
+    dev_batch = next(solver.dv_set.epoch())
+    db = solver._put(dev_batch)
+    max_step = int(dev_batch.text.shape[1] * DEV_STEP_RATIO)
+    evals = EvalGraphs(log=lambda m: print(f"  {what}: {m}", flush=True))
+    outs = []
+    for _ in range(2):
+        outs.append({k: v.clone() for k, v in tg.validate_batch(sg.params, db, max_step, graphs=evals,
+                                                                keep_align=True).items()})
+    eager = tg.eval_device(sg.params, db, max_step, keep_align=True)
+    ev_same = all(torch.equal(o[k], eager[k]) for o in outs for k in eager)
+    if "align" not in eager or set(outs[0]) != set(eager):
+        fail(f"{what}: the validation kept no alignment")
+    print(f"  {what} validation (alignment kept) capture + replay vs eager: every output bitwise {ev_same} "
+          f"({', '.join(f'{k} {list(v.shape)}' for k, v in eager.items())})", flush=True)
+    if not ev_same:
+        fail(f"{what}: the replayed validation is not bitwise the eager one")
+    return dict(steps=steps, captures=graphs.captures, validation_bitwise=ev_same,
+                validation_captures=evals.captures)
+
+
+def _variant_parity(solver, kernels, what):
+    """One eager bf16 train step with the kernels against one with the
+    plain versions (``cuda_build.use_plain`` patched), from seed-0 weights
+    on the same batch and seed: BF16_STEP_TOL."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.training.step import Trainer, param_leaves
+
+    cfg = solver.config
+    dbatch = solver._put(next(solver.tr_set.epoch(0)))
+    res = {}
+    for mode in ("kernel", "plain"):
+        params, _ = asr_mod.asr_init(SEED, solver.feat_dim, solver.vocab_size, cfg.model, solver.device)
+        trainer = Trainer(cfg)
+        state = trainer.init_state(params)
+        holder = {}
+
+        def step():
+            holder["m"] = trainer.train_step(state, dbatch, solver.step_generator(0))
+
+        if mode == "kernel":
+            cnt, dt = _bf16_counted(step, kernels, f"{what} train step (kernels)")
+        else:
+            with mock.patch.object(cuda_build, "use_plain", lambda x: True):
+                t1 = time.time()
+                step()
+                torch.cuda.synchronize()
+                dt = time.time() - t1
+        m = holder["m"]
+        res[mode] = (float(m["loss"]), float(m["grad_norm"]), [p.detach().clone() for p in param_leaves(state.params)],
+                     dt)
+    (lk, gk, pk, tk), (lp_, gp, pp, tp) = res["kernel"], res["plain"]
+    loss_rel, gn_rel = abs(lk - lp_) / abs(lp_), abs(gk - gp) / abs(gp)
+    p_err = max(float((a - c).abs().max()) for a, c in zip(pk, pp))
+    tol = BF16_STEP_TOL
+    print(f"{what} bf16 train step kernel vs plain: loss {lk:.6f} vs {lp_:.6f} (rel {loss_rel:.2e}, tolerance "
+          f"{tol['loss_rel']}); grad_norm {gk:.6f} vs {gp:.6f} (rel {gn_rel:.2e}, tolerance {tol['grad_norm_rel']}); "
+          f"updated params max abs diff {p_err:.3e} (tolerance {tol['param_abs']}); step {tk:.2f}s vs {tp:.2f}s",
+          flush=True)
+    if not (loss_rel <= tol["loss_rel"] and gn_rel <= tol["grad_norm_rel"] and p_err <= tol["param_abs"]):
+        fail(f"{what}: the kernel and plain bf16 train steps disagree")
+    return dict(loss_rel=loss_rel, grad_norm_rel=gn_rel, param_max_abs=p_err, kernel_step_s=tk, plain_step_s=tp,
+                launches=cnt)
+
+
+def _variant_step_profile(solver, what, smi):
+    """Wall, device busy and launches of one replayed train step of the
+    solver's graphs (``profile_run``: median of 3 host-clock walls)."""
+    from e2e_asr_tpu_torch.bin.profile_decode import profile_run
+
+    batch = next(solver.tr_set.epoch(0))
+    dbatch = solver._put(batch)
+    k = [100]
+
+    def run():
+        k[0] += 1
+        solver.trainer.train_step(solver.state, dbatch, solver.step_generator(k[0]), graphs=solver.train_graphs)
+
+    prof = profile_run(run, float(batch.wav_len.sum()) / solver.config.data.audio.sample_rate, reps=3)
+    prof["kernels"] = prof["kernels"][:12]
+    print(f"{what} train step (replayed graph, B=16, 816 bucket, bf16): wall {prof['wall_ms']:.2f} ms, device busy "
+          f"{prof['device_busy_ms']:.2f} ms (idle share {prof['device_idle_share']:.3f}), {prof['host_launches']} "
+          f"launches issued by the host, {prof['kernel_launches']} device launches, on {smi}", flush=True)
+    for row in prof["kernels"][:6]:
+        print(f"    {row['device_ms']:.3f} ms  x{row['count']}  {row['name'][:100]}", flush=True)
+    return prof
+
+
+def _variant_encoder_profile(solver, what, smi):
+    """The encoder's share of a variant's step: its forward and backward
+    alone (the step's features, at the compute type; the gradients of every
+    encoder parameter from the sum of its output) captured as a CUDA graph
+    and profiled replaying (``profile_run``), against the whole step's
+    busy (``_variant_step_profile``)."""
+    from e2e_asr_tpu_torch.bin.profile_decode import profile_run
+    from e2e_asr_tpu_torch.device import graph_capture
+    from e2e_asr_tpu_torch.models.encoder import encoder_apply
+    from e2e_asr_tpu_torch.ops.frontend import compute_features
+    from e2e_asr_tpu_torch.training.step import compute_dtype, param_leaves, resolve_wav
+
+    cfg = solver.config
+    batch = next(solver.tr_set.epoch(0))
+    wav, wav_len = resolve_wav(solver._put(batch))
+    feat, feat_len = compute_features(wav, wav_len, cfg.data.audio)
+    feat = feat.to(compute_dtype(cfg))
+    enc_p = solver.state.params["encoder"]
+    leaves = param_leaves(enc_p)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            enc, _ = encoder_apply(enc_p, cfg.model.encoder, feat, feat_len)
+            return torch.autograd.grad(enc.float().sum(), leaves)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fwd_bwd()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with graph_capture(graph, None, side):
+        out = fwd_bwd()
+    torch.cuda.synchronize()
+    prof = profile_run(graph.replay, float(batch.wav_len.sum()) / cfg.data.audio.sample_rate, reps=3)
+    prof["kernels"] = prof["kernels"][:8]
+    del graph, out
+    print(f"{what} encoder forward + backward alone (replayed graph, bf16): wall {prof['wall_ms']:.2f} ms, device "
+          f"busy {prof['device_busy_ms']:.2f} ms, {prof['kernel_launches']} device launches, on {smi}", flush=True)
+    return prof
+
+
+def variants_phase(dev, smi, batch):
+    """The encoder and speller variants at the flagship's full widths
+    (40-dim features, 4 layers of 320, attention 300 / 10 x 201 taps, a
+    320-wide speller, B 16 in the 816 bucket, bf16), set by ``VARIANTS``'
+    overrides. V1 (CNN prenet, bidirectional GRU layers, GRU speller):
+    VARIANT_STEPS steps + validation through Solver.exec (the step and the
+    validation replaying their CUDA graphs; log_mel and the CTC loss
+    launched; the GRU and the loop speller plain), the att_align PNG
+    written; the replay against the eager step and validation, bitwise;
+    the kernel step against the plain step (BF16_STEP_TOL); one replayed
+    step profiled, and the encoder's forward + backward alone (its share of
+    the step's busy); a GRU LM at lm_example.yaml's widths trained
+    VARIANT_LM_STEPS steps + validation through its graphs (replay against
+    eager bitwise); one decode batch with that LM fused (beam 16, ctc 0.3,
+    LM 0.3) through ``decode_phase``. V2 (VGG prenet, one-direction LSTM
+    layers, LSTM speller, the embedding regularizer at weight 0.5, fuse 0):
+    the same training checks, the encoder through the lstm_seq pair with
+    one direction and the speller through the scan pair with the plugin's
+    hidden-state cotangent (all bf16 variants launched); one step at fuse
+    0.3, which takes the loop (no scan launch); one decode batch at fuse
+    0.3."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.align_image import read_png
+    from e2e_asr_tpu_torch.bin import train_lm
+    from e2e_asr_tpu_torch.bin.profile_decode import LM_RECIPE, smoke_solver
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.ops.ctc_cuda import ctc_lattice
+    from e2e_asr_tpu_torch.ops.decoder_cuda import decoder_scan_bwd, decoder_scan_fwd
+    from e2e_asr_tpu_torch.ops.frontend_cuda import log_mel
+    from e2e_asr_tpu_torch.ops.rnn_cuda import lstm_seq_bwd, lstm_seq_fwd
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    f32 = {"log_mel": log_mel, "ctc_loss": ctc_lattice}
+    bf16 = {"V1": {}, "V2": {"lstm_seq_fwd": lstm_seq_fwd, "lstm_seq_bwd": lstm_seq_bwd,
+                             "decoder_scan_fwd": decoder_scan_fwd, "decoder_scan_bwd": decoder_scan_bwd}}
+    out = {}
+    for name in ("V1", "V2"):
+        what = f"variant {name} ({', '.join(o.split('.', 1)[1] for o in VARIANTS[name])})"
+        t_phase = time.time()
+        root = os.path.join(cuda_build.BUILD_DIR, f"smoke_variant_{name}")
+        solver = _variant_train_solver(root, _variant_config(name, VARIANT_STEPS), f"variant_{name}")
+        cfg = solver.config
+        if (cfg.model.encoder.dim, cfg.model.decoder.dim, solver.compute_dtype) != ([320] * 4, 320, "bfloat16"):
+            fail(f"{what} is not at the flagship's widths and bf16")
+        if solver.train_graphs is None or solver.eval_graphs is None:
+            fail(f"{what}: the train step or the validation does not run through CUDA graphs")
+        route = asr_mod.speller_route(solver.state.params, cfg.model, True, solver.device)
+        if route != {"V1": "loop", "V2": "fused"}[name]:
+            fail(f"{what}: the speller takes the {route} route")
+        launches, wall = _bf16_counted(solver.exec, {"bf16": bf16[name], "f32": f32}, f"{what} train",
+                                       decode_f32=("lstm_seq_fwd",))
+        log = list(solver.step_log)
+        if len(log) != VARIANT_STEPS:
+            fail(f"{what}: {len(log)} steps ran, expected {VARIANT_STEPS}")
+        _check_steps(log, what)
+        if name == "V2" and not all(math.isfinite(r["emb_reg_loss"]) and r["emb_reg_loss"] > 0 for r in log):
+            fail(f"{what}: the embedding regularizer's loss is missing or not positive")
+        pngs = sorted(f for f in os.listdir(solver.logdir) if f.startswith("att_align_") and f.endswith(".png"))
+        if len(pngs) != 1:
+            fail(f"{what}: validation wrote {pngs}, expected one att_align PNG")
+        img = read_png(os.path.join(solver.logdir, pngs[0]))
+        print(f"  {what}: dev {solver.dev_summary}; {pngs[0]} {list(img.shape)}; {VARIANT_STEPS} steps + "
+              f"validation {wall:.1f}s; captures {[round(t, 2) for _, t in solver.train_graphs.captures]} s (train), "
+              f"{[round(t, 2) for _, t in solver.eval_graphs.captures]} s (validation)", flush=True)
+        if not all(math.isfinite(v) for v in solver.dev_summary.values()):
+            fail(f"{what}: validation gave a non-finite number")
+        res = dict(launches=launches, steps=log, dev=solver.dev_summary, wall_s=wall, align_png=list(img.shape),
+                   captures=solver.train_graphs.captures, eval_captures=solver.eval_graphs.captures)
+        res["step_profile"] = _variant_step_profile(solver, what, smi)
+        res["encoder_profile"] = _variant_encoder_profile(solver, what, smi)
+        share = res["encoder_profile"]["device_busy_ms"] / res["step_profile"]["device_busy_ms"]
+        res["encoder_busy_share"] = share
+        print(f"{what}: the encoder's forward + backward is {100 * share:.1f}% of the step's busy", flush=True)
+        res["graph_check"] = _variant_replay_vs_eager(solver, what)
+        res["parity"] = _variant_parity(solver, {"bf16": bf16[name], "f32": f32}, what)
+        ckpt = os.path.join(solver.ckpdir, "latest")
+
+        dcfg = _variant_config(name, VARIANT_STEPS)
+        if name == "V1":
+            # ---- a GRU LM at lm_example.yaml's widths, on the recogniser's tokenizer
+            from e2e_asr_tpu_torch.bin.train_lm import Solver as LMSolver
+
+            lm_cfg = Config.load(LM_RECIPE)
+            lm_cfg.lm.module = "GRU"
+            c = lm_cfg.data.corpus
+            c.name, c.path, c.train_split, c.dev_split = "synthetic", "", ["train:640"], ["dev:64"]
+            lm_cfg.data.text.vocab_file = os.path.join(solver.ckpdir, "tokenizer.vocab")
+            h = lm_cfg.hparas
+            h.max_step, h.valid_step, h.log_step, h.seed = VARIANT_LM_STEPS, VARIANT_LM_STEPS, 1, SEED
+            paras = types.SimpleNamespace(config=LM_RECIPE, name="gru_lm", logdir=os.path.join(root, "lm_log"),
+                                          ckpdir=os.path.join(root, "lm_ckpt"), load=None, seed=SEED, cpu=False,
+                                          verbose=True)
+            lm_solver = LMSolver(lm_cfg, paras, "train")
+            lm_solver.load_data()
+            lm_solver.set_model()
+            if lm_solver.graphs is None or (lm_cfg.lm.emb_dim, lm_cfg.lm.dim, lm_cfg.lm.n_layers) != (512, 512, 2):
+                fail("the GRU LM is not at lm_example.yaml's widths or does not run through its graphs")
+            t0 = time.time()
+            lm_solver.exec()
+            torch.cuda.synchronize()
+            lm_wall = time.time() - t0
+            lm_log = list(lm_solver.step_log)
+            if len(lm_log) != VARIANT_LM_STEPS or not all(math.isfinite(r["loss"]) and r["step_skipped"] == 0.0
+                                                         for r in lm_log):
+                fail(f"the GRU LM's steps: {lm_log}")
+            print(f"  GRU LM (lm_example width): {VARIANT_LM_STEPS} steps + validation {lm_wall:.1f}s, step walls "
+                  f"{[round(r['wall_s'] * 1e3, 1) for r in lm_log]} ms, dev ppl {lm_solver.dev_ppl:.3f} on {smi}",
+                  flush=True)
+            # the LM step's replay against the eager step, two steps of one batch
+            from e2e_asr_tpu_torch.models import lm as lm_mod
+            from e2e_asr_tpu_torch.optim import Optimizer
+            from e2e_asr_tpu_torch.training.lm_graph import LMGraphs
+            from e2e_asr_tpu_torch.training.step import TrainState, param_leaves
+
+            def fresh_lm():
+                gen = torch.Generator()
+                gen.manual_seed(SEED)
+                params = lm_mod.lm_init(gen, lm_solver.vocab_size, lm_cfg.lm, dev)
+                leaves = param_leaves(params)
+                for p in leaves:
+                    p.requires_grad_(True)
+                opt = Optimizer(lm_cfg.hparas)
+                return TrainState(params, opt.init(leaves), 0), opt
+
+            (sg, og), (se, oe) = fresh_lm(), fresh_lm()
+            lb = lm_solver._put(next(lm_solver.tr_set.epoch(0)))
+            lm_graphs = LMGraphs()
+            lm_same = True
+            for i in range(2):
+                mg = train_lm.train_step(sg, og, lm_cfg.lm, lb, lm_solver.step_generator(i), graphs=lm_graphs)
+                got = mg["scalars"].clone()
+                me = train_lm.train_step(se, oe, lm_cfg.lm, lb, lm_solver.step_generator(i))
+                lm_same &= torch.equal(got, me["scalars"]) and all(
+                    torch.equal(a, c) for a, c in zip(_state_tensors(sg), _state_tensors(se)))
+            print(f"  GRU LM step capture + replay vs eager: scalars and every tensor bitwise {lm_same}", flush=True)
+            if not lm_same:
+                fail("the GRU LM's replayed step is not bitwise the eager step")
+            res["lm"] = dict(steps=lm_log, wall_s=lm_wall, dev_ppl=lm_solver.dev_ppl, graph_bitwise=lm_same)
+            dcfg.lm = lm_cfg.lm
+            dcfg.decode.lm_weight, dcfg.decode.lm_config = 0.3, ""
+            dcfg.decode.lm_path = os.path.join(lm_solver.ckpdir, "best_ppl")
+            lstm_fwd = None
+        else:
+            # ---- fused decoding in training: the loop, captured
+            fcfg = _variant_config(name, VARIANT_STEPS, ("model.emb_reg.fuse=0.3",))
+            params, _ = asr_mod.asr_init(SEED, solver.feat_dim, solver.vocab_size, fcfg.model, solver.device)
+            from e2e_asr_tpu_torch.training.step import Trainer
+
+            trainer = Trainer(fcfg)
+            state = trainer.init_state(params)
+            if asr_mod.speller_route(state.params, fcfg.model, True, solver.device) != "loop":
+                fail(f"{what}: emb_reg.fuse 0.3 does not take the loop")
+            for fn in (decoder_scan_fwd, decoder_scan_bwd):
+                fn.launches = fn.launches_bf16 = 0
+            fb = solver._put(next(solver.tr_set.epoch(0)))
+            graphs = TrainGraphs()
+            fm = [float(trainer.train_step(state, fb, solver.step_generator(i), graphs=graphs)["loss"])
+                  for i in range(2)]
+            scan = sum(fn.launches + fn.launches_bf16 for fn in (decoder_scan_fwd, decoder_scan_bwd))
+            print(f"  {what} at emb_reg.fuse 0.3: route loop, 2 steps (capture, replay) losses {fm}, scan launches "
+                  f"{scan}", flush=True)
+            if scan or not all(math.isfinite(v) for v in fm):
+                fail(f"{what} at fuse 0.3: the scan launched or a loss is not finite")
+            res["fuse_step"] = dict(losses=fm, scan_launches=scan)
+            dcfg.model.emb_reg.fuse = 0.3
+            lstm_fwd = ("lstm_seq_fwd", lstm_seq_fwd)
+        # ---- one decode batch (beam 16, ctc 0.3; V1 with the GRU LM, V2 at fuse 0.3)
+        dsolver = smoke_solver(os.path.join(root, "decode"), SEED, ckpt=ckpt, cfg=dcfg)
+        tag = f", {what}" + (", GRU LM fused at 0.3" if name == "V1" else ", emb_reg.fuse 0.3")
+        d = decode_phase(dsolver, batch, "auto", lstm_fwd, smi, tag=tag)
+        d.pop("top_tokens")
+        d.pop("top_scores")
+        res["decode"] = d
+        res["phase_s"] = time.time() - t_phase
+        print(f"{what}: phase {res['phase_s']:.1f}s on {smi}", flush=True)
+        out[name] = res
+        del solver, dsolver
+    return out
+
+
 def main(json_path: str = "", parent: str = "") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3590,6 +4011,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     loader = loader_phase(smi)
     bf16 = bf16_phase(dev, smi, batch)
     r960 = recipe_960h_phase(smi)
+    variants = variants_phase(dev, smi, batch)
     ddp = ddp_phase(smi)
     r = kern["log_mel"]
     mel_waves["convergence_batch"] = conv.pop("log_mel_wave")
@@ -3696,6 +4118,16 @@ def main(json_path: str = "", parent: str = "") -> None:
             row["recipe_960h"] = {**({k: v for k, v in at.items() if k != "bound"} if at else {}),
                                   **({"bound_ms": at["bound"][0], "bound_by": at["bound"][1]} if at else {}),
                                   "launches": counted}
+    # the variants (variants_phase): each kernel's launches in their runs
+    variant_runs = []
+    for name, v in variants.items():
+        variant_runs += [(f"variant {name}: {VARIANT_STEPS} bf16 steps + validation through Solver.exec", v["launches"]),
+                         (f"variant {name}: one eager bf16 kernel step (parity check)", v["parity"]["launches"]),
+                         (f"variant {name}: decode batch through Solver.exec", v["decode"]["launches"])]
+    for row in rows:
+        row["launches_variants"] = {run: cnt[row["name"]] for run, cnt in variant_runs if cnt.get(row["name"])}
+    print("variants path launches: " + json.dumps({row["name"]: row["launches_variants"] for row in rows
+                                                   if row["launches_variants"]}), flush=True)
     out = json_path or os.path.join(cuda_build.BUILD_DIR, "chip_smoke.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
@@ -3703,7 +4135,7 @@ def main(json_path: str = "", parent: str = "") -> None:
                    "decode_lm": decode_lm, "train": train, "train_graphs": graph, "eval_graphs": evals,
                    "lm_train": lm_train,
                    "convergence": conv,
-                   "recipes": recipes, "loader": loader, "bf16": bf16, "recipe_960h": r960,
+                   "recipes": recipes, "loader": loader, "bf16": bf16, "recipe_960h": r960, "variants": variants,
                    "data_parallel": ddp}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

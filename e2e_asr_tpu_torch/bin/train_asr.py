@@ -17,13 +17,13 @@ wave once (``flat_corpus``) and each step copies [B] offsets, the step
 gathering its waves on the device; ``off`` (or a corpus past int32 sample
 offsets) streams padded waves. The dev set streams.
 
-The step (``training/step.py``): on the card, wherever the speller takes
-the fused scan or the model has no attention head, a replay of the CUDA
-graph captured for the batch's bucket shape (``training/step_graph.py``;
-one capture a key, logged with its time, the counterpart of the JAX
-package's compile); where the configuration takes the Python-loop speller
-(``decoder.fused_scan: scan``, or a speller outside the fused scan's
-envelope) the eager step, said once in the log; on the CPU the eager step.
+The step (``training/step.py``): on the card a replay of the CUDA graph
+captured for the batch's bucket shape (``training/step_graph.py``; one
+capture a key, logged with its time, the counterpart of the JAX package's
+compile), whichever route the speller takes (the fused scan, or the Python
+loop of ``decoder.fused_scan: scan`` or of a speller outside the fused
+scan's envelope: a GRU speller, fused decoding of the embedding
+regularizer); on the CPU the eager step.
 Neither reads the device: each step's scalar metrics (loss, att_loss,
 ctc_loss, grad_norm, tf_rate, step_skipped) go into a device ring that is
 read once at every ``log_step``, before validation and at the end, as the
@@ -33,8 +33,9 @@ one record per step.
 Validation (``dev_epoch``): the dev batches come through a prefetcher; on
 the card each is one replay of the CUDA graph of its dev bucket shape
 (``training/eval_graph.py``: losses, CTC argmax and the greedy decode,
-sharing the train graphs' memory pool), eager where the evaluation's
-speller takes the Python loop (said once) and on the CPU. The losses are
+sharing the train graphs' memory pool), eager on the CPU. The first dev
+batch also keeps its greedy alignment, written as the ``att_align`` PNG
+beside ``scalars.jsonl``. The losses are
 read once an epoch; each batch's tokens and CTC ids reach the host through
 pinned buffers while the next batch runs.
 
@@ -77,6 +78,7 @@ import numpy as np
 import torch
 
 from e2e_asr_tpu_torch import convert, cuda_build, optim
+from e2e_asr_tpu_torch.align_image import align_to_image
 from e2e_asr_tpu_torch.data.dataset import load_dataset
 from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
 from e2e_asr_tpu_torch.device import resolve_device
@@ -102,6 +104,7 @@ class Solver(BaseSolver):
         # one record per training step, the most recent STEP_LOG_LEN steps
         self.step_log: Deque[Dict[str, float]] = collections.deque(maxlen=STEP_LOG_LEN)
         self.input_mode = ""  # "stream" or "device_corpus", set by set_model
+        self.dev_align: Optional[np.ndarray] = None  # the last dev epoch's att_align image
         self.flat_corpus_s = 0.0  # host seconds flat_corpus() took (device corpus)
 
     # ------------------------------------------------------------------ data
@@ -160,34 +163,25 @@ class Solver(BaseSolver):
 
     def _train_graphs(self):
         """The solver's cache of train-step graphs, or None where the step
-        runs eagerly: on the CPU, and where the speller takes the Python
-        loop (a route of the configuration, said here once)."""
+        runs eagerly: on the CPU, and under a group whose collectives cannot
+        be captured (said here once). Either speller route is captured: the
+        fused scan, or the Python loop (which reads no coin on the host)."""
         if self.device.type != "cuda":
-            return None
-        route = asr_mod.speller_route(self.state.params, self.config.model, True, self.device)
-        if route == "loop":
-            self.verbose("Train step: eager (the speller takes the Python loop: decoder.fused_scan "
-                         f"{self.config.model.decoder.fused_scan!r}, or a speller outside the fused scan's envelope)")
             return None
         if self.trainer.reduce is not None and not dist.capturable():
             self.verbose(f"Train step: eager (the {dist.backend()} group's collectives cannot be captured)")
             return None
-        self.verbose("Train step: CUDA graphs, one a bucket shape (training/step_graph.py)")
+        route = asr_mod.speller_route(self.state.params, self.config.model, True, self.device)
+        self.verbose(f"Train step: CUDA graphs, one a bucket shape (training/step_graph.py; speller {route})")
         return TrainGraphs(log=self.verbose)
 
     def _eval_graphs(self):
         """The solver's cache of validation graphs (sharing the train graphs'
-        memory pool), or None where validation runs eagerly: on the CPU, and
-        where the evaluation's speller takes the Python loop (said here
-        once)."""
+        memory pool), or None on the CPU, where validation runs eagerly."""
         if self.device.type != "cuda":
             return None
         route = asr_mod.speller_route(self.state.params, self.config.model, False, self.device)
-        if route == "loop":
-            self.verbose("Validation: eager (the speller takes the Python loop: decoder.fused_scan "
-                         f"{self.config.model.decoder.fused_scan!r}, or a speller outside the fused scan's envelope)")
-            return None
-        self.verbose("Validation: CUDA graphs, one a dev bucket shape (training/eval_graph.py)")
+        self.verbose(f"Validation: CUDA graphs, one a dev bucket shape (training/eval_graph.py; speller {route})")
         return EvalGraphs(log=self.verbose, share=self.train_graphs)
 
     def _device_corpus(self):
@@ -327,6 +321,8 @@ class Solver(BaseSolver):
         summary, sample = self.dev_epoch(graphs)
         if sample is not None:
             self.write_log("dev_sample", sample)
+        if self.dev_align is not None:
+            self.write_image("att_align", self.dev_align)
         self.progress("DEV " + " | ".join(f"{k} {v:.3f}" for k, v in summary.items()))
         self.write_log("dev_loss", {k: v for k, v in summary.items() if "loss" in k})
         for head, key in (("att", "dev_er_att"), ("ctc", "dev_er_ctc")):
@@ -358,8 +354,14 @@ class Solver(BaseSolver):
         the ranks in one collective after the last batch and divided on the
         card (``Trainer.eval_losses``: in a world of one, the batches' own
         losses bit for bit), and the error counts are summed by
-        ``allsum_scalars``; the sample is rank 0's. ``keep`` (a list)
-        receives each batch's host arrays."""
+        ``allsum_scalars``; the sample is rank 0's. The first dev batch
+        also keeps the greedy decode's alignment (its own graph, keyed by
+        ``keep_align``; every other batch's is as before): that of its first
+        utterance with a reference, [max_step, S] of the first head, becomes
+        ``dev_align`` (``align_to_image``, [max_step, S, 3] uint8; None
+        without an attention head or such an utterance), which ``validate``
+        writes as the ``att_align`` PNG. ``keep`` (a list) receives each
+        batch's host arrays."""
         params = self.state.params
         keys = self.trainer.scalar_keys(EVAL_SCALARS)
         eval_graphs = self.eval_graphs if graphs else None
@@ -367,6 +369,7 @@ class Solver(BaseSolver):
         have = set()
         rows = []  # each batch's loss sums, on the device
         sample = []
+        self.dev_align = None
 
         def score(batch, host, event):
             if event is not None:
@@ -380,6 +383,8 @@ class Solver(BaseSolver):
                 if not sample and valid.any():
                     i = int(np.argmax(valid))
                     sample.append(f"hyp: {self.tokenizer.decode(toks[i])}\n\nref: {self.tokenizer.decode(text[i])}")
+            if "align" in host:
+                self.dev_align = align_to_image(host["align"])
             if "ctc_preds" in host:
                 er[4:6] += cal_er(self.tokenizer, host["ctc_preds"][valid], text[valid], mode=self._er_mode(),
                                   ctc=True, pred_len=host["enc_len"][valid])
@@ -392,9 +397,12 @@ class Solver(BaseSolver):
         try:
             for batch, dbatch in prefetch:
                 max_step = int(batch.text.shape[1] * DEV_STEP_RATIO)
-                m = self.trainer.validate_batch(params, dbatch, max_step, graphs=eval_graphs)
+                m = self.trainer.validate_batch(params, dbatch, max_step, graphs=eval_graphs, keep_align=not rows)
                 rows.append(m["sums"].clone())
                 outs = {k: m[k] for k in ("tokens", "ctc_preds", "enc_len") if k in m}
+                valid = batch.text_len > 0
+                if "align" in m and valid.any():
+                    outs["align"] = m["align"][int(np.argmax(valid)), :, 0, :]
                 event = None
                 if self.device.type == "cuda":
                     outs = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v, non_blocking=True)

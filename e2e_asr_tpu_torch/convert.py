@@ -3,15 +3,19 @@
 ``params_from_jax`` takes the ``e2e_asr_tpu/models/asr.py`` ``asr_init``
 pytree, or the ``e2e_asr_tpu/models/lm.py`` ``lm_init`` one (the RNN-LM:
 embedding, a list of ``LSTMWeights`` cells, ``out`` or the tied
-``out_proj``), as numpy arrays (``jax.device_get`` of it; LSTM weights may
+``out_proj``), or any tree of that structure (an optimizer's moments), as
+numpy arrays (``jax.device_get`` of it; LSTM weights may
 be the JAX ``LSTMWeights`` named tuple or any ``(wx, wh, b)`` triple) and
 returns the port's parameter tree. Layouts that change:
 
 - conv2d ``w``: HWIO (NHWC activations) -> OIHW (NCHW);
-- ``loc_conv.w``: [P, heads, K] (TIO) -> [K, heads, P] (OIW);
+- every 1-D convolution's ``w`` (3-D: the CNN prenet's ``conv1`` /
+  ``conv2``, the attention's ``loc_conv``): [K, I, O] (TIO) -> [O, I, K]
+  (OIW);
 - LSTM ``(wx [D, 4H], wh [H, 4H], b [4H])`` -> {"wx", "wh", "b"}, gate
   order i,f,g,o unchanged;
-- dense ``w [in, out]``, embeddings and vectors are kept as they are.
+- dense ``w [in, out]`` (2-D), embeddings, the embedding regularizer's
+  table and vectors are kept as they are.
 
 The port's checkpoint is ``torch.save({"params": tree, "kind",
 "vocab_size", "feat_dim"})``; a training checkpoint adds ``opt_state`` and
@@ -46,7 +50,7 @@ def _convert(tree: Any, path: str) -> Any:
     if isinstance(tree, (list, tuple)):
         return [_convert(v, f"{path}[{i}]") for i, v in enumerate(tree)]
     t = _tensor(tree)
-    if path.endswith("loc_conv.w"):
+    if path.endswith(".w") and t.dim() == 3:
         return t.permute(2, 1, 0).contiguous()
     if path.endswith(".w") and t.dim() == 4:
         return t.permute(3, 2, 0, 1).contiguous()

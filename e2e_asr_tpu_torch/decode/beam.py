@@ -13,7 +13,9 @@ graphs captured once a bucket shape and set of weights
 scan, every batch runs all ``max_step`` steps; there is no early exit.
 
 Every step advances all (batch x beam) hypotheses at once: the beam-aware
-attention step (models/attention.py ``step_beam``), the speller, with
+attention step (models/attention.py ``step_beam``), the speller (its
+log-probs mixed with the embedding regularizer's at ``emb_reg.fuse`` > 0,
+models/plugin.py), with
 ``lm_weight`` > 0 and an LM the RNN-LM's step (models/lm.py ``step``),
 top-k candidates, CTC prefix rescoring (decode/ctc_prefix.py),
 finished-set routing of <eos> candidates inside the length window, pruning
@@ -59,6 +61,7 @@ from e2e_asr_tpu_torch.models import attention as att_mod
 from e2e_asr_tpu_torch.models import decoder as dec_mod
 from e2e_asr_tpu_torch.models import layers as L
 from e2e_asr_tpu_torch.models import lm as lm_mod
+from e2e_asr_tpu_torch.models import plugin as plugin_mod
 
 NEG = -1.0e30
 
@@ -144,8 +147,6 @@ def prepare(
     max_step: int, lm_params=None, lm_cfg: Optional[LMConfig] = None,
 ):
     """Encode one batch: (BeamSpec, StepInputs)."""
-    if cfg.emb_reg.enable and cfg.emb_reg.fuse > 0:
-        raise NotImplementedError("embedding-regularizer fused decoding: later slice")
     w = dcfg.beam_size
     use_lm = dcfg.lm_weight > 0 and lm_params is not None
     use_ctc = dcfg.ctc_weight > 0 and "ctc" in params
@@ -206,7 +207,9 @@ def beam_step(spec: BeamSpec, inp: StepInputs, st: BeamState, first: bool) -> No
         st.prev_att.reshape(b, w, n_heads, s),
     )
     ctx = ctx_bw.reshape(b * w, -1)
-    logits, _, new_dec_state = dec_mod.step(params["decoder"], cfg.decoder, dec_state, torch.cat([emb, ctx], -1))
+    logits, hidden, new_dec_state = dec_mod.step(params["decoder"], cfg.decoder, dec_state, torch.cat([emb, ctx], -1))
+    if "emb_reg" in params and cfg.emb_reg.fuse > 0:
+        logits = plugin_mod.fused_log_probs(params["emb_reg"], cfg.emb_reg, logits, hidden)
     step_lp = torch.log_softmax(logits, -1).reshape(b, w, vocab)
     if spec.use_lm:
         lm_lp, new_lm_state = lm_mod.step(spec.lm_params, spec.lm_cfg, tok_flat, (st.lm_h, st.lm_c))

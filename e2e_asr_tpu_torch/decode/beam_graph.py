@@ -63,12 +63,14 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 def graph_key(spec: beam.BeamSpec, inp: beam.StepInputs) -> tuple:
     """What a captured step depends on: the shapes, the scalars it bakes in,
-    whether the kernels run (``cuda_build.use_plain``), and the addresses of
-    the weights it reads."""
+    the speller's, the embedding regularizer's and the LM's configuration
+    (their cells, fused decoding), whether the kernels run
+    (``cuda_build.use_plain``), and the addresses of the weights it reads."""
     d = spec.dcfg
     return (
         spec.b, spec.w, spec.s, spec.n_heads, spec.vocab, spec.k_cand, spec.max_step, spec.use_lm, spec.use_ctc,
         d.ctc_weight, d.lm_weight, spec.cfg.attention.temperature,
+        repr(spec.cfg.decoder), repr(spec.cfg.emb_reg), repr(spec.lm_cfg),
         tuple((tuple(x.shape), x.dtype) for x in _leaves(inp)), cuda_build.use_plain(inp.min_len),
         tuple(x.data_ptr() for x in _leaves(spec.params) + _leaves(spec.lm_params)),
     )

@@ -20,6 +20,7 @@ import torch
 
 from e2e_asr_tpu_torch.config import ModelConfig
 from e2e_asr_tpu_torch.models import asr as asr_mod
+from e2e_asr_tpu_torch.models import plugin as plugin_mod
 
 
 @torch.no_grad()
@@ -28,13 +29,17 @@ def greedy_decode(
     keep_align: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Returns (tokens [B, max_step], align [B, max_step, H, S], or None
-    without ``keep_align``)."""
+    without ``keep_align``). With ``emb_reg.fuse`` > 0 the argmax is the
+    plugin's fused log-probs'."""
     enc, enc_len = asr_mod.encode(params, cfg, feat, feat_len)
     mem, carry = asr_mod.init_carry(params, cfg, enc, enc_len)
     toks = torch.empty((enc.shape[0], max_step), dtype=torch.long, device=enc.device)
     aligns = None
+    fuse = "emb_reg" in params and cfg.emb_reg.fuse > 0
     for t in range(max_step):
-        logits, align, _, carry = asr_mod.attend_and_step(params, cfg, mem, carry, carry.prev_tok)
+        logits, align, hidden, carry = asr_mod.attend_and_step(params, cfg, mem, carry, carry.prev_tok)
+        if fuse:
+            logits = plugin_mod.fused_log_probs(params["emb_reg"], cfg.emb_reg, logits, hidden)
         tok = torch.argmax(logits, -1)
         carry = carry._replace(prev_tok=tok)
         toks[:, t] = tok

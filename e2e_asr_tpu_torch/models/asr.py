@@ -10,7 +10,9 @@ The JAX forward is a ``lax.scan`` over target positions or the fused
 Pallas decoder scan; here it is a Python loop over the steps, recorded by
 autograd, or the fused scan of ``ops/decoder_cuda.py`` (one kernel forward,
 one backward), chosen by ``decoder.fused_scan`` as ``_use_fused_scan``
-says. Random draws (dropout, the per-step
+says. Both read nothing on the host, so either is captured in the train
+step's and validation's CUDA graphs. With the embedding regularizer
+(``models/plugin.py``) the params hold ``emb_reg``. Random draws (dropout, the per-step
 teacher-forcing coins, sampled feedback) come from one explicit
 ``torch.Generator`` and cannot reproduce ``jax.random``'s numbers.
 """
@@ -26,8 +28,10 @@ from e2e_asr_tpu_torch.models import attention as att_mod
 from e2e_asr_tpu_torch.models import decoder as dec_mod
 from e2e_asr_tpu_torch.models import encoder as enc_mod
 from e2e_asr_tpu_torch.models import layers as L
+from e2e_asr_tpu_torch.models import plugin as plugin_mod
 from e2e_asr_tpu_torch.models.layers import Params
 from e2e_asr_tpu_torch.ops import decoder_cuda
+from e2e_asr_tpu_torch.parallel import dist
 
 
 class ASRShapes(NamedTuple):
@@ -40,8 +44,6 @@ class ASRShapes(NamedTuple):
 def asr_init(
     seed: int, feat_dim: int, vocab: int, cfg: ModelConfig, device: torch.device
 ) -> Tuple[Params, ASRShapes]:
-    if cfg.emb_reg.enable:
-        raise NotImplementedError("embedding-regularizer plugin: later slice")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     p: Params = {}
@@ -54,6 +56,8 @@ def asr_init(
         p["embed"] = L.embedding_init(gen, vocab, emb_dim)
         p["attention"], ctx_dim = att_mod.attention_init(gen, enc_dim, cfg.decoder.dim, cfg.attention)
         p["decoder"] = dec_mod.decoder_init(gen, ctx_dim + emb_dim, vocab, cfg.decoder)
+        if cfg.emb_reg.enable:
+            p["emb_reg"] = plugin_mod.emb_reg_init(gen, cfg.decoder.dim, vocab, cfg.emb_reg)
     return p, ASRShapes(enc_dim, ctx_dim, emb_dim, vocab)
 
 
@@ -133,7 +137,8 @@ def _use_fused_scan(params: Params, cfg: ModelConfig, train: bool, device: torch
                 "decoder.fused_scan='pallas': the configuration is outside the fused scan's "
                 f"envelope (attention mode={cfg.attention.mode}, num_head={cfg.attention.num_head}, "
                 f"v_proj={cfg.attention.v_proj}, decoder {cfg.decoder.module}/layer="
-                f"{cfg.decoder.layer}/dropout={cfg.decoder.dropout})")
+                f"{cfg.decoder.layer}/dropout={cfg.decoder.dropout}, emb_reg enable="
+                f"{cfg.emb_reg.enable}/fuse={cfg.emb_reg.fuse})")
         if device.type == "cuda" and not fits:
             raise ValueError(
                 f"decoder.fused_scan='pallas': the kernels take a speller width that is a multiple "
@@ -157,6 +162,21 @@ def _warn_once(msg: str) -> None:
         print(f"[asr] {msg}", flush=True)
 
 
+def _exponential(shape, generator: torch.Generator, device) -> torch.Tensor:
+    return torch.empty(shape, device=device).exponential_(1.0, generator=generator)
+
+
+def sample_tokens(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One token a row drawn from softmax(logits) [B, V], by ``generator``:
+    argmax(p / q) with q ~ Exp(1), which is how ``torch.multinomial`` draws
+    one sample, without its check of the probabilities on the host. The
+    noise q is drawn at the global batch's shape (``dist.global_draw``), so
+    that a rank's rows get the tokens a world of one samples for them."""
+    probs = torch.softmax(logits.float(), -1)
+    q = dist.global_draw(_exponential, probs.shape, generator).to(probs.device)
+    return torch.argmax(probs / q, -1)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -176,9 +196,10 @@ def forward(
     for the whole batch, drawn up front on the generator's device
     (``uniform < tf_rate``, the rate a float or a 0-dim tensor); where a
     training step's coin fails, the previous prediction is fed back instead,
-    sampled from the output distribution when ``sample_decoding``, its
-    argmax otherwise (drawn only for the steps that feed it back). Outside
-    training the teacher is always used.
+    sampled from the output distribution when ``sample_decoding``
+    (``sample_tokens``), its argmax otherwise. The Python loop computes that
+    prediction at every training step and selects on the device, so that it
+    reads no coin on the host. Outside training the teacher is always used.
 
     Returns ctc_log_probs [B, S, V] (with a CTC head), enc_len [B], enc, and
     with an attention head att_logits [B, L, V], align [B, L, H, S],
@@ -210,22 +231,24 @@ def forward(
         )
         return out
 
-    # the Python loop branches on each coin: they come to the host (this
-    # route is never captured)
-    use_teacher = [c or not train for c in coins.cpu().tolist()]
+    # the Python loop: no host read and no branch on a coin, so that a
+    # training step through it is captured like one through the fused scan
+    # (the coins are the generator's, on the card there; outside training
+    # none is read)
+    if train:
+        coins = coins.to(dev)
     mem, carry = init_carry(params, cfg, enc, enc_len)
     logits_all, aligns, hiddens = [], [], []
     for t in range(decode_step):
-        tok = teacher_in[:, t] if use_teacher[t] else carry.prev_tok
+        tok = torch.where(coins[t], teacher_in[:, t], carry.prev_tok) if train and t else teacher_in[:, t]
         logits, align, hidden, carry = attend_and_step(
             params, cfg, mem, carry, tok, generator=generator, train=train
         )
-        if t + 1 < decode_step and not use_teacher[t + 1]:
-            # the next step feeds this prediction back (its teacher coin failed)
+        if train and t + 1 < decode_step:
+            # the token the next step takes where its coin fails
             with torch.no_grad():
                 if sample_decoding and generator is not None:
-                    probs = torch.softmax(logits.float(), -1)
-                    pred = torch.multinomial(probs, 1, generator=generator)[:, 0].to(dev)
+                    pred = sample_tokens(logits, generator)
                 else:
                     pred = torch.argmax(logits, -1)
             carry = carry._replace(prev_tok=pred)

@@ -1,8 +1,10 @@
-"""Speller decoder: stacked LSTM cells + character projection.
+"""Speller decoder: stacked LSTM / GRU cells + character projection.
 
 Counterpart of ``e2e_asr_tpu/models/decoder.py``. The state is an explicit
 (h, c) pair of [layers, B, H] tensors that the beam loop and the
-teacher-forced loop thread through. GRU spellers come with a later slice.
+teacher-forced loop thread through; a GRU speller passes its c through
+unchanged, as the JAX one does, so that the state keeps one shape for both
+cells (the beam graph's state buffers among them).
 """
 
 from __future__ import annotations
@@ -14,22 +16,17 @@ import torch
 from e2e_asr_tpu_torch.config import DecoderConfig
 from e2e_asr_tpu_torch.models import layers as L
 from e2e_asr_tpu_torch.models.layers import Params
-from e2e_asr_tpu_torch.ops.rnn import lstm_cell
+from e2e_asr_tpu_torch.ops.rnn import cell_of, gru_cell, lstm_cell
 
 State = Tuple[torch.Tensor, torch.Tensor]  # (h, c) each [layers, B, H]
 
 
-def _check_supported(cfg: DecoderConfig) -> None:
-    if cfg.module.upper() != "LSTM":
-        raise NotImplementedError(f"decoder module {cfg.module}: later slice")
-
-
 def decoder_init(gen: torch.Generator, in_dim: int, vocab: int, cfg: DecoderConfig) -> Params:
-    _check_supported(cfg)
+    gates = 4 if cell_of(cfg.module) == "lstm" else 3
     cells = []
     d = in_dim
     for _ in range(cfg.layer):
-        cells.append(L.lstm_init(gen, d, cfg.dim))
+        cells.append(L.lstm_init(gen, d, cfg.dim, gates))
         d = cfg.dim
     return {"cells": cells, "char": L.dense_init(gen, cfg.dim, vocab)}
 
@@ -53,13 +50,17 @@ def step(
     dropout at ``cfg.dropout`` follows each layer.
 
     Returns (char_logits [B, vocab], hidden [B, H], new_state)."""
-    _check_supported(cfg)
+    is_lstm = cell_of(cfg.module) == "lstm"
     h_all, c_all = state
     hs, cs = [], []
     inp = x
     for i, w in enumerate(params["cells"]):
         dt = inp.dtype  # the weights are cast to the input's type
-        h_new, c_new = lstm_cell(inp @ w["wx"].to(dt) + w["b"].to(dt), h_all[i], c_all[i], w["wh"].to(dt))
+        xw = inp @ w["wx"].to(dt) + w["b"].to(dt)
+        if is_lstm:
+            h_new, c_new = lstm_cell(xw, h_all[i], c_all[i], w["wh"].to(dt))
+        else:
+            h_new, c_new = gru_cell(xw, h_all[i], w["wh"].to(dt)), c_all[i]
         hs.append(h_new)
         cs.append(c_new)
         inp = h_new

@@ -1,10 +1,17 @@
-"""Listener encoder: VGG prenet + pyramidal BiLSTM stack.
+"""Listener encoder: VGG / CNN prenet + pyramidal (Bi)LSTM / GRU stack.
 
-Counterpart of ``e2e_asr_tpu/models/encoder.py`` for the configurations
-this slice of the port covers: prenet ``vgg`` or none, bidirectional LSTM
-layers, optional layer norm / tanh projection, pyramid ``drop`` or
-``concat``. The CNN prenet, GRU and unidirectional layers come with a
-later slice and raise ``NotImplementedError``.
+Counterpart of ``e2e_asr_tpu/models/encoder.py``: prenet ``vgg``, ``cnn``
+(two 3-tap 1-D convolutions of stride 2, SAME-padded as JAX pads them) or
+none; LSTM or GRU layers, with one direction or two; optional layer norm /
+tanh projection; pyramid ``drop`` or ``concat``.
+
+Routes of a layer's recurrence (``ops/rnn.py``): a bidirectional LSTM layer
+takes the kernel pair that ``encoder.rnn_impl`` names (``bidir``); a
+one-direction LSTM layer runs ``lstm``, the ``lstm_seq`` kernel pair with
+one direction, under every ``rnn_impl``, since the fused-projection kernels
+take exactly two directions (``ops/rnn_cuda.py``, wx [2, D, 4H]) and the
+JAX package sends a one-direction layer to its scan whatever the impl; a
+GRU layer, of either direction count, runs its plain recurrence.
 """
 
 from __future__ import annotations
@@ -17,15 +24,6 @@ from e2e_asr_tpu_torch.config import EncoderConfig
 from e2e_asr_tpu_torch.models import layers as L
 from e2e_asr_tpu_torch.models.layers import Params
 from e2e_asr_tpu_torch.ops import rnn as rnn_ops
-
-
-def _check_supported(cfg: EncoderConfig) -> None:
-    if cfg.prenet not in ("vgg", "", None):
-        raise NotImplementedError(f"encoder prenet '{cfg.prenet}': later slice")
-    if cfg.module.upper() != "LSTM" or not cfg.bidirection:
-        raise NotImplementedError(
-            f"encoder module {cfg.module} bidirection={cfg.bidirection}: later slice"
-        )
 
 
 # ---------------------------------------------------------------- VGG prenet
@@ -69,13 +67,32 @@ def vgg_apply(p: Params, x: torch.Tensor, x_len: torch.Tensor) -> Tuple[torch.Te
     return out, torch.div(x_len, 4, rounding_mode="floor")
 
 
+# ---------------------------------------------------------------- CNN prenet
+def cnn_init(gen: torch.Generator, feat_dim: int, out_dim: int) -> Tuple[Params, int]:
+    return {"conv1": L.conv1d_init(gen, 3, feat_dim, out_dim),
+            "conv2": L.conv1d_init(gen, 3, out_dim, out_dim)}, out_dim
+
+
+def cnn_apply(p: Params, x: torch.Tensor, x_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, T, D] -> [B, ceil(ceil(T/2)/2), out_dim], len // 4 (as the JAX
+    ``cnn_apply`` counts it: a frame past that stays, zeroed by the first
+    layer's mask)."""
+    h = torch.relu(L.conv1d(p["conv1"], x, stride=2))
+    h = torch.relu(L.conv1d(p["conv2"], h, stride=2))
+    return h, torch.div(x_len, 4, rounding_mode="floor")
+
+
 # ----------------------------------------------------------------- RNN layer
 def rnn_layer_init(
     gen: torch.Generator, in_dim: int, dim: int, layer_norm: bool, proj: bool, sample_rate: int,
-    sample_style: str,
+    sample_style: str, module: str = "LSTM", bidirectional: bool = True,
 ) -> Tuple[Params, int]:
-    p: Params = {"fwd": L.lstm_init(gen, in_dim, dim), "bwd": L.lstm_init(gen, in_dim, dim)}
-    out_dim = 2 * dim
+    gates = 4 if rnn_ops.cell_of(module) == "lstm" else 3
+    p: Params = {"fwd": L.lstm_init(gen, in_dim, dim, gates)}
+    out_dim = dim
+    if bidirectional:
+        p["bwd"] = L.lstm_init(gen, in_dim, dim, gates)
+        out_dim = 2 * dim
     if sample_rate > 1 and sample_style == "concat":
         out_dim = out_dim * sample_rate
     if layer_norm:
@@ -88,9 +105,13 @@ def rnn_layer_init(
 def rnn_layer_apply(
     p: Params, x: torch.Tensor, x_len: torch.Tensor, sample_rate: int, sample_style: str,
     dropout: float = 0.0, generator: Optional[torch.Generator] = None, train: bool = False,
-    impl: str = "auto",
+    impl: str = "auto", module: str = "LSTM",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    out = rnn_ops.bidir(x, x_len, p["fwd"], p["bwd"], impl=impl)
+    cell = rnn_ops.cell_of(module)
+    if "bwd" in p:
+        out = rnn_ops.bidir(x, x_len, p["fwd"], p["bwd"], cell=cell, impl=impl)
+    else:
+        out = (rnn_ops.lstm if cell == "lstm" else rnn_ops.gru)(x, x_len, p["fwd"])
     if sample_rate > 1:
         b, t, d = out.shape
         t2 = t // sample_rate
@@ -113,15 +134,19 @@ def rnn_layer_apply(
 
 # ------------------------------------------------------------------- Encoder
 def encoder_init(gen: torch.Generator, feat_dim: int, cfg: EncoderConfig) -> Tuple[Params, int]:
-    _check_supported(cfg)
     p: Params = {}
     dim = feat_dim
     if cfg.prenet == "vgg":
         p["prenet"], dim = vgg_init(gen, feat_dim)
+    elif cfg.prenet == "cnn":
+        p["prenet"], dim = cnn_init(gen, feat_dim, cfg.dim[0])
+    elif cfg.prenet not in ("", None):
+        raise ValueError(f"unknown prenet {cfg.prenet}")
     p["layers"] = []
     for i, ldim in enumerate(cfg.dim):
         lp, dim = rnn_layer_init(
-            gen, dim, ldim, cfg.layer_norm[i], cfg.proj[i], cfg.sample_rate[i], cfg.sample_style
+            gen, dim, ldim, cfg.layer_norm[i], cfg.proj[i], cfg.sample_rate[i], cfg.sample_style,
+            cfg.module, cfg.bidirection,
         )
         p["layers"].append(lp)
     return p, dim
@@ -134,14 +159,15 @@ def encoder_apply(
     """[B, T, D] -> (enc [B, S, H], enc_len [B]). Dropout (after each
     layer's layer norm, before its projection) only with ``train`` and a
     generator."""
-    _check_supported(cfg)
     x, x_len = feat, feat_len
     if cfg.prenet == "vgg":
         x, x_len = vgg_apply(p["prenet"], x, x_len)
+    elif cfg.prenet == "cnn":
+        x, x_len = cnn_apply(p["prenet"], x, x_len)
     for i, lp in enumerate(p["layers"]):
         x, x_len = rnn_layer_apply(
             lp, x, x_len, cfg.sample_rate[i], cfg.sample_style, cfg.dropout[i], generator, train,
-            impl=cfg.rnn_impl,
+            impl=cfg.rnn_impl, module=cfg.module,
         )
     return x, torch.clamp(x_len, min=1)
 

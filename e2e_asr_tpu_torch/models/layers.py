@@ -6,7 +6,8 @@ drawn from an explicit ``torch.Generator`` (the numbers differ from
 ``jax.random``; the tests carry JAX weights over with ``convert.py``).
 
 Layout differences from the JAX package: conv weights are OIHW / OIW and
-activations NCHW, PyTorch's own layout; dense weights stay [in, out].
+the 2-D convolutions' activations NCHW, PyTorch's own layout (``conv1d``
+takes and returns [B, T, C], as the JAX one); dense weights stay [in, out].
 
 Parameters are float32; the apply functions cast them to the input's type,
 as the JAX package's do, so a bfloat16 input computes in bfloat16 (autograd
@@ -91,12 +92,14 @@ def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x - mean) * torch.rsqrt(var + eps) * p["scale"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
-def lstm_init(gen: torch.Generator, d_in: int, dim: int, forget_bias: float = 1.0) -> Params:
+def lstm_init(gen: torch.Generator, d_in: int, dim: int, gates: int = 4, forget_bias: float = 1.0) -> Params:
+    """Recurrent weights {"wx": [D, G*H], "wh": [H, G*H], "b": [G*H]}: G = 4
+    an LSTM (gates i,f,g,o; the forget bias set), G = 3 a GRU (r,z,n)."""
     bound = 1.0 / math.sqrt(dim)
-    wx = uniform(gen, (d_in, 4 * dim), bound)
-    wh = uniform(gen, (dim, 4 * dim), bound)
-    b = uniform(gen, (4 * dim,), bound)
-    if forget_bias:
+    wx = uniform(gen, (d_in, gates * dim), bound)
+    wh = uniform(gen, (dim, gates * dim), bound)
+    b = uniform(gen, (gates * dim,), bound)
+    if gates == 4 and forget_bias:
         b[dim : 2 * dim] = forget_bias
     return {"wx": wx, "wh": wh, "b": b}
 
@@ -118,6 +121,21 @@ def conv2d(p: Params, x: torch.Tensor) -> torch.Tensor:
 def conv1d_init(gen: torch.Generator, k: int, c_in: int, c_out: int) -> Params:
     bound = 1.0 / math.sqrt(k * c_in)
     return {"w": uniform(gen, (c_out, c_in, k), bound), "b": uniform(gen, (c_out,), bound)}
+
+
+def conv1d(p: Params, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """x: [B, T, C] -> [B, ceil(T / stride), O], weights OIW, SAME padding
+    as JAX pads it: (ceil(T / stride) - 1) * stride + K - T frames in all,
+    the smaller half on the left (at stride 2, K 3 and an even T: none on
+    the left, one on the right; ``F.conv1d``'s symmetric padding would give
+    the same length with every window one frame early). Below float32 the
+    bias is added after the convolution's result is rounded."""
+    k, t = p["w"].shape[2], x.shape[1]
+    total = max((-(-t // stride) - 1) * stride + k - t, 0)
+    h = F.pad(x.transpose(1, 2), (total // 2, total - total // 2))
+    if x.dtype == torch.float32:
+        return F.conv1d(h, p["w"], p["b"], stride=stride).transpose(1, 2)
+    return (F.conv1d(h, p["w"].to(x.dtype), None, stride=stride) + p["b"].to(x.dtype)[:, None]).transpose(1, 2)
 
 
 def maxpool2d(x: torch.Tensor) -> torch.Tensor:

@@ -215,7 +215,9 @@ def scan_grid(which: str, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, 
 def supported(cfg, train: bool) -> bool:
     """The fused scan's envelope (as ``decoder_pallas.supported``): location
     attention, one head, no value projection, 1-layer LSTM speller, no
-    decoder dropout in training."""
+    decoder dropout in training, no fused decoding of the embedding
+    regularizer (its loss alone is inside: it reaches the backward as the
+    hidden states' cotangent)."""
     a, d = cfg.attention, cfg.decoder
     return (
         a.mode == "location"
@@ -224,6 +226,7 @@ def supported(cfg, train: bool) -> bool:
         and d.module.upper() == "LSTM"
         and d.layer == 1
         and (d.dropout == 0.0 or not train)
+        and not (cfg.emb_reg.enable and cfg.emb_reg.fuse > 0)
     )
 
 

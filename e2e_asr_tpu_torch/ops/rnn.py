@@ -1,8 +1,8 @@
-"""Length-masked LSTM recurrences.
+"""Length-masked LSTM and GRU recurrences.
 
 Counterpart of ``e2e_asr_tpu/ops/rnn.py``. Weights are dicts
-``{"wx": [D, 4H], "wh": [H, 4H], "b": [4H]}`` in gate order i,f,g,o (the
-JAX ``LSTMWeights`` fields). ``bidir`` keeps the JAX package's layout: both
+``{"wx": [D, GH], "wh": [H, GH], "b": [GH]}`` in gate order i,f,g,o for an
+LSTM (G = 4) and r,z,n for a GRU (G = 3), the JAX ``LSTMWeights`` fields. ``bidir`` keeps the JAX package's layout: both
 directions ride as 2B rows of one recurrence, the backward rows in flipped
 time, carries freeze where the mask is 0 and outputs there are zero
 (``_masked_scan``). The recurrence itself is ``ops/rnn_cuda.py``, by one of
@@ -12,7 +12,14 @@ the training forward and the backward kernel through ``lstm_bidir_train``,
 otherwise the inference kernel ``lstm_bidir_fwd``; or ``lstm_seq`` over
 projections computed outside (each the hand-written kernel on CUDA
 tensors). ``lstm`` is one direction over a padded batch (the LM's
-layers), through ``lstm_seq`` with one direction.
+layers and one-direction encoder layers), through ``lstm_seq`` with one
+direction.
+
+GRU layers (``gru``, ``bidir(cell="gru")``) have no TPU kernel: the JAX
+package runs them as its ``lax.scan`` under every ``rnn_impl``. The port
+runs the same recurrence as a loop over time steps of plain operations, on
+the card too (captured in the CUDA graphs of the train step, validation
+and decode with everything else), autograd giving its backward.
 """
 
 from __future__ import annotations
@@ -38,14 +45,85 @@ def lstm_cell(
     return h_new, c_new
 
 
+def cell_of(module: str) -> str:
+    """A config's ``module`` (LSTM or GRU, any case) -> "lstm" or "gru"."""
+    if module.upper() not in ("LSTM", "GRU"):
+        raise ValueError(f"recurrent module must be LSTM or GRU, got '{module}'")
+    return module.lower()
+
+
+def gru_cell(xw_t: torch.Tensor, h: torch.Tensor, wh: torch.Tensor) -> torch.Tensor:
+    """One GRU step in the JAX package's formulation: the whole bias is on
+    the input side (in xw_t = x_t @ Wx + b), n = tanh(xn + r * (h @ Wh_n));
+    cuDNN's GRU equals it only with its b_hh at zero. Returns h'."""
+    return _gru_update(xw_t, h @ wh, h)
+
+
+def _gru_update(xw_t: torch.Tensor, hw: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """The GRU step from xw_t and hw = h @ Wh."""
+    xr, xz, xn = xw_t.chunk(3, dim=-1)
+    hr, hz, hn = hw.chunk(3, dim=-1)
+    r = sigmoid(xr + hr)
+    z = sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
+def _masked_gru(xw: torch.Tensor, mask: torch.Tensor, hidden) -> torch.Tensor:
+    """xw [T, R, 3H] time-major, mask [T, R] bool, ``hidden(h) -> h Wh``
+    -> ys [T, R, H]: the state frozen and the output zero where the mask is
+    false (the JAX ``_masked_scan``)."""
+    h = xw.new_zeros((xw.shape[1], xw.shape[2] // 3))
+    ys = []
+    for t in range(xw.shape[0]):
+        h2 = _gru_update(xw[t], hidden(h), h)
+        m = mask[t][:, None]
+        h = torch.where(m, h2, h)
+        ys.append(torch.where(m, h2, 0.0))
+    return torch.stack(ys)
+
+
+def gru(x: torch.Tensor, x_len: torch.Tensor, w: LSTMWeights) -> torch.Tensor:
+    """[B, T, D] -> [B, T, H], one direction, zero past x_len; the weights
+    cast to x's type. The JAX ``gru`` also returns the final state and takes
+    ``reverse`` and ``h0``, which no caller uses."""
+    dt = x.dtype
+    mask = torch.arange(x.shape[1], device=x.device)[:, None] < x_len[None, :]  # [T, B]
+    xw = x.transpose(0, 1) @ w["wx"].to(dt) + w["b"].to(dt)  # [T, B, 3H]
+    wh = w["wh"].to(dt)
+    return _masked_gru(xw, mask, lambda h: h @ wh).transpose(0, 1)
+
+
+def _bidir_gru(x: torch.Tensor, x_len: torch.Tensor, w_fwd: LSTMWeights, w_bwd: LSTMWeights) -> torch.Tensor:
+    """The JAX ``bidir`` of GRU cells: both directions as 2B rows of one
+    recurrence, the backward rows in flipped time, each direction's h Wh a
+    batched product with its own weights."""
+    b, t, _ = x.shape
+    dt = x.dtype
+    mask = torch.arange(t, device=x.device)[:, None] < x_len[None, :]  # [T, B]
+    xt = x.transpose(0, 1)
+    xw_f = xt @ w_fwd["wx"].to(dt) + w_fwd["b"].to(dt)
+    xw_b = torch.flip(xt @ w_bwd["wx"].to(dt) + w_bwd["b"].to(dt), dims=[0])
+    wh = torch.stack([w_fwd["wh"], w_bwd["wh"]]).to(dt)  # [2, H, 3H]
+    hdim = wh.shape[1]
+    ys = _masked_gru(torch.cat([xw_f, xw_b], dim=1), torch.cat([mask, torch.flip(mask, dims=[0])], dim=1),
+                     lambda h: torch.bmm(h.reshape(2, b, hdim), wh).reshape(2 * b, -1))
+    y_f = ys[:, :b].transpose(0, 1)
+    y_b = torch.flip(ys[:, b:], dims=[0]).transpose(0, 1)
+    return torch.cat([y_f, y_b], dim=-1)
+
+
 IMPLS = ("auto", "pallas", "pallas_xw")
 
 
 def bidir(
     x: torch.Tensor, x_len: torch.Tensor, w_fwd: LSTMWeights, w_bwd: LSTMWeights,
-    impl: str = "auto",
+    cell: str = "lstm", impl: str = "auto",
 ) -> torch.Tensor:
     """[B, T, D] -> [B, T, 2H] (fwd ++ bwd), zero past x_len.
+
+    ``cell="gru"`` runs the GRU recurrence (plain operations, whatever
+    ``impl`` says, as the JAX package runs it); the rest is the LSTM's.
 
     ``impl`` (the JAX package's value names): ``pallas`` is the
     fused-projection kernel pair (x @ Wx inside the kernel); ``pallas_xw``
@@ -68,6 +146,10 @@ def bidir(
     measured."""
     if impl not in IMPLS:
         raise ValueError(f"bidir impl must be one of {IMPLS}, got '{impl}'")
+    if cell == "gru":
+        return _bidir_gru(x, x_len, w_fwd, w_bwd)
+    if cell != "lstm":
+        raise ValueError(f"bidir cell must be lstm or gru, got '{cell}'")
     if impl == "auto":
         impl = "pallas_xw"
     b, t, _ = x.shape
@@ -96,7 +178,8 @@ def lstm(x: torch.Tensor, x_len: torch.Tensor, w: LSTMWeights) -> torch.Tensor:
     """[B, T, D] -> [B, T, H], one direction, zero past x_len.
 
     xw = x @ Wx + b for every step is one matmul outside the recurrence (as
-    the JAX ``lstm`` hoists it), computed time-major; the recurrence is
+    the JAX ``lstm`` hoists it), computed time-major, the weights cast to
+    x's type (float32 or bfloat16 storage); the recurrence is
     ``lstm_seq`` with one direction: on CUDA tensors the kernel pair (a
     shape it refuses raises, e.g. H not a multiple of 8 or above 1024), on
     CPU tensors their plain versions. The JAX ``lstm`` also returns the
@@ -104,5 +187,6 @@ def lstm(x: torch.Tensor, x_len: torch.Tensor, w: LSTMWeights) -> torch.Tensor:
     uses none of them, so they are left out."""
     t = x.shape[1]
     mask = (torch.arange(t, device=x.device)[:, None] < x_len[None, :]).float()  # [T, B]
-    xw = x.transpose(0, 1) @ w["wx"] + w["b"]  # [T, B, 4H]
-    return lstm_seq(xw, mask, w["wh"][None]).transpose(0, 1)
+    dt = x.dtype
+    xw = x.transpose(0, 1) @ w["wx"].to(dt) + w["b"].to(dt)  # [T, B, 4H]
+    return lstm_seq(xw, mask, w["wh"].to(dt)[None]).transpose(0, 1)

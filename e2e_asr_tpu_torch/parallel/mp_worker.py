@@ -181,7 +181,8 @@ def _params(spec: dict, dev: torch.device):
 
 
 def mode_grads(spec: dict) -> None:
-    """The global batch's loss and gradients, summed over the ranks."""
+    """The global batch's loss and gradients, summed over the ranks (and its
+    embedding-regularizer loss, where the model has one)."""
     from e2e_asr_tpu_torch.parallel import dist
     from e2e_asr_tpu_torch.training.step import compute_loss, flat_all_sum, param_leaves
 
@@ -192,14 +193,15 @@ def mode_grads(spec: dict) -> None:
     for p in leaves:
         p.requires_grad_(True)
     b = _batch(spec, dev)
-    loss, _ = compute_loss(params, cfg, b["wav"], b["wav_len"], b["text"], b["text_len"], 1.0, None,
+    loss, m = compute_loss(params, cfg, b["wav"], b["wav_len"], b["text"], b["text_len"], 1.0, None,
                            train=False, reduce=dist.all_sum_)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-    grads, (loss,) = flat_all_sum(grads, [loss.detach()], dist.all_sum_)
+    extra = [k for k in ("emb_reg_loss",) if k in m]
+    grads, (loss, *sums) = flat_all_sum(grads, [loss.detach()] + [m[k].detach() for k in extra], dist.all_sum_)
     if dist.is_main():
         np.savez(spec["out"], loss=float(loss), grads=torch.cat([g.reshape(-1) for g in grads]).cpu().numpy(),
-                 world=dist.world())
+                 world=dist.world(), **{k: float(v) for k, v in zip(extra, sums)})
 
 
 def step_result(trainer, state, batch, seed: int, generator_device) -> dict:

@@ -10,7 +10,8 @@ the kind, ``ckpt_kind``, and the vocabulary size and feature dim that
 ``latest``), each with a ``.meta`` text file
 (``<metric> <score>`` and ``global_step <n>``). Scalars go to
 ``<logdir>/<name>/scalars.jsonl``, one JSON object per line (the JAX
-package's tensorboard tags; no tensorboard writer is needed).
+package's tensorboard tags; no tensorboard writer is needed); an image
+(validation's ``att_align``) goes to a PNG beside it, named by its line.
 
 Under a process group (``parallel/dist.py``) rank 0 alone prints, logs and
 writes checkpoints; every rank calls ``save_checkpoint``, which ends in a
@@ -27,6 +28,7 @@ import sys
 from typing import Optional
 
 from e2e_asr_tpu_torch import convert, optim
+from e2e_asr_tpu_torch.align_image import write_png
 from e2e_asr_tpu_torch.parallel import dist
 
 
@@ -67,6 +69,16 @@ class BaseSolver:
             return
         with open(self._log_path, "a") as f:
             f.write(json.dumps({"step": self.step, "tag": tag, "value": value}) + "\n")
+
+    def write_image(self, tag: str, img) -> None:
+        """An [H, W, 3] uint8 image as ``<tag>_<step>.png`` beside
+        ``scalars.jsonl``, and a ``tag`` line there naming the file (rank
+        0's log alone)."""
+        if not dist.is_main():
+            return
+        name = f"{tag}_{self.step:08d}.png"
+        write_png(os.path.join(self.logdir, name), img)
+        self.write_log(tag, name)
 
     def save_checkpoint(self, fname: str, metric: str, score: float, state) -> None:
         """Rank 0 writes the checkpoint; every rank then meets in a barrier."""

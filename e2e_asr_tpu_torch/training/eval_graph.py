@@ -50,9 +50,10 @@ from e2e_asr_tpu_torch.training.step import Trainer, compute_dtype, param_leaves
 from e2e_asr_tpu_torch.training.step_graph import GraphCache, batch_key
 
 
-def graph_key(trainer: Trainer, params, batch: Dict[str, torch.Tensor], max_step: int) -> tuple:
+def graph_key(trainer: Trainer, params, batch: Dict[str, torch.Tensor], max_step: int,
+              keep_align: bool = False) -> tuple:
     """What a captured validation depends on: the dev batch's shapes and
-    input mode, ``max_step``, the compute type, the LSTM and speller routes
+    input mode, ``max_step``, whether it keeps the alignment, the compute type, the LSTM and speller routes
     (the evaluation's), whether the kernels run (``cuda_build.use_plain``),
     the configuration it reads and the addresses of every parameter and of
     the device corpus."""
@@ -60,7 +61,7 @@ def graph_key(trainer: Trainer, params, batch: Dict[str, torch.Tensor], max_step
     dev = batch["wav_len"].device
     corpus = batch.get("corpus")
     return (
-        *batch_key(batch), max_step, compute_dtype(cfg), cfg.model.encoder.rnn_impl,
+        *batch_key(batch), max_step, keep_align, compute_dtype(cfg), cfg.model.encoder.rnn_impl,
         asr_mod.speller_route(params, cfg.model, False, dev), cuda_build.use_plain(batch["wav_len"]),
         repr(cfg.model), repr(cfg.data.audio), tuple(p.data_ptr() for p in param_leaves(params)),
         0 if corpus is None else corpus.data_ptr(),
@@ -72,11 +73,13 @@ class EvalGraphs(GraphCache):
 
     what = "validation"
 
-    def eval(self, trainer: Trainer, params, batch: Dict[str, torch.Tensor], max_step: int) -> Dict[str, torch.Tensor]:
-        """``trainer.eval_device(params, batch, max_step)``: the first batch
-        of a key runs it eagerly and captures it, every later one replays.
-        Returns its outputs: for a replay the graph's static tensors."""
+    def eval(self, trainer: Trainer, params, batch: Dict[str, torch.Tensor], max_step: int,
+             keep_align: bool = False) -> Dict[str, torch.Tensor]:
+        """``trainer.eval_device(params, batch, max_step, keep_align)``: the
+        first batch of a key runs it eagerly and captures it, every later one
+        replays. Returns its outputs: for a replay the graph's static
+        tensors."""
         if batch["wav_len"].device.type != "cuda":
             raise ValueError(f"CUDA graphs of the validation need CUDA tensors, not {batch['wav_len'].device}")
-        return self.run(graph_key(trainer, params, batch, max_step), batch,
-                        lambda b, _: trainer.eval_device(params, b, max_step), random=False)
+        return self.run(graph_key(trainer, params, batch, max_step, keep_align), batch,
+                        lambda b, _: trainer.eval_device(params, b, max_step, keep_align), random=False)

@@ -72,6 +72,7 @@ import torch
 from e2e_asr_tpu_torch.config import Config
 from e2e_asr_tpu_torch.decode.greedy import greedy_decode
 from e2e_asr_tpu_torch.models import asr as asr_mod
+from e2e_asr_tpu_torch.models import plugin as plugin_mod
 from e2e_asr_tpu_torch.ops.ctc import ctc_loss
 from e2e_asr_tpu_torch.ops.frontend import compute_features
 from e2e_asr_tpu_torch.ops.specaugment import specaugment
@@ -137,8 +138,11 @@ def compute_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(joint loss, metrics) of a batch. The metrics hold each head's loss
     and its numerator and denominator (``att_num`` / ``att_den``,
-    ``ctc_num`` / ``ctc_den``); with ``reduce`` the denominators are the
-    global batch's (one collective of both counts, before the divisions)."""
+    ``ctc_num`` / ``ctc_den``; with the embedding regularizer's loss,
+    ``emb_reg_loss`` and ``emb_reg_num`` / ``emb_reg_den``); with ``reduce``
+    the denominators are the global batch's (one collective of the counts,
+    before the divisions). With ``emb_reg.fuse`` > 0 the attention head's
+    log-probs are the plugin's fused mixture, renormalised."""
     m = cfg.model
     feat, feat_len = compute_features(
         wav, wav_len, cfg.data.audio, generator=generator if train else None
@@ -155,19 +159,31 @@ def compute_loss(
     valid_utt = text_len > 0
     pos = torch.arange(text.shape[1], device=text.device)[None, :]
     tok_mask = ((pos < text_len[:, None]) & valid_utt[:, None]).float()
-    att_den, ctc_den = tok_mask.sum(), valid_utt.sum()
+    use_er = "emb_reg" in params and "att_logits" in out and m.emb_reg.weight > 0
+    dens = [tok_mask.sum(), valid_utt.sum()]  # the attention head's tokens, the CTC head's utterances
+    if use_er:
+        er_num, er_den = plugin_mod.emb_reg_sums(params["emb_reg"], m.emb_reg, out["att_hidden"], text, text_len)
+        dens.append(er_den)
     if reduce is not None:
-        att_den, ctc_den = reduce(torch.stack([att_den, ctc_den.float()]))
+        dens = list(reduce(torch.stack([d.float() for d in dens])))
+    att_den, ctc_den = dens[:2]
     metrics: Dict[str, torch.Tensor] = {}
-    att_loss = ctc_l = None
+    att_loss = ctc_l = er = None
 
     if "att_logits" in out:
-        logp = torch.log_softmax(out["att_logits"].float(), -1)
+        if "emb_reg" in params and m.emb_reg.fuse > 0:
+            logp = torch.log_softmax(plugin_mod.fused_log_probs(
+                params["emb_reg"], m.emb_reg, out["att_logits"], out["att_hidden"]), -1)
+        else:
+            logp = torch.log_softmax(out["att_logits"].float(), -1)
         nll = -logp.gather(2, text[..., None])[..., 0]
         att_num = torch.sum(nll * tok_mask)
         att_loss = att_num / torch.clamp(att_den, min=1)
         metrics.update(att_loss=att_loss, att_num=att_num, att_den=att_den.float())
         metrics["att_preds"] = torch.argmax(logp, -1)
+        if use_er:
+            er = er_num / torch.clamp(dens[2], min=1)
+            metrics.update(emb_reg_loss=er, emb_reg_num=er_num, emb_reg_den=dens[2])
 
     if "ctc_log_probs" in out:
         lp = out["ctc_log_probs"].float()
@@ -184,20 +200,23 @@ def compute_loss(
         metrics.update(ctc_loss=ctc_l, ctc_num=ctc_num, ctc_den=ctc_den.float())
         metrics["ctc_preds"] = torch.argmax(lp, -1)
 
-    total = joint_loss(att_loss, ctc_l, m.ctc_weight, wav.device)
+    total = joint_loss(att_loss, ctc_l, m.ctc_weight, wav.device, er, m.emb_reg.weight)
     metrics["loss"] = total
     metrics["enc_len"] = enc_len
     return total, metrics
 
 
 def joint_loss(att_loss: Optional[torch.Tensor], ctc_loss_: Optional[torch.Tensor], ctc_weight: float,
-               device) -> torch.Tensor:
-    """ctc_weight * ctc + (1 - ctc_weight) * att over the heads there are
+               device, emb_reg_loss: Optional[torch.Tensor] = None, emb_reg_weight: float = 0.0) -> torch.Tensor:
+    """ctc_weight * ctc + (1 - ctc_weight) * att (+ emb_reg_weight *
+    emb_reg, in the JAX package's order of sums) over the heads there are
     (elementwise, so that ``eval_losses`` computes each dev batch's loss with
     the arithmetic of ``compute_loss``)."""
     total = torch.zeros((), device=device)
     if att_loss is not None:
         total = total + (1.0 - ctc_weight) * att_loss
+    if emb_reg_loss is not None:
+        total = total + emb_reg_weight * emb_reg_loss
     if ctc_loss_ is not None:
         total = total + ctc_weight * ctc_loss_
     return total
@@ -212,9 +231,9 @@ class TrainState:
 
 # the scalar metrics a training step writes into the solver's ring, in this
 # order (those of the heads the model has)
-SCALARS = ("loss", "att_loss", "ctc_loss", "grad_norm", "tf_rate", "step_skipped")
-EVAL_SCALARS = ("loss", "att_loss", "ctc_loss")  # the losses: those of a dev batch
-EVAL_SUMS = ("att_num", "att_den", "ctc_num", "ctc_den")  # a dev batch's row of loss sums
+SCALARS = ("loss", "att_loss", "ctc_loss", "emb_reg_loss", "grad_norm", "tf_rate", "step_skipped")
+EVAL_SCALARS = ("loss", "att_loss", "ctc_loss", "emb_reg_loss")  # the losses: those of a dev batch
+EVAL_SUMS = ("att_num", "att_den", "ctc_num", "ctc_den", "emb_reg_num", "emb_reg_den")  # a dev batch's row of loss sums
 
 
 def flat_all_sum(grads: List[torch.Tensor], scalars: List[torch.Tensor],
@@ -283,15 +302,19 @@ class Trainer:
     def scalar_keys(self, names: Tuple[str, ...] = SCALARS) -> Tuple[str, ...]:
         """The names of ``metrics["scalars"]``, in order: those of ``names``
         (``SCALARS`` of a train step, ``EVAL_SCALARS`` of a dev batch) that
-        the heads this model has give."""
-        w = self.cfg.model.ctc_weight
-        return tuple(k for k in names if not (k == "att_loss" and w >= 1) and not (k == "ctc_loss" and w <= 0))
+        the heads this model has give (``emb_reg_loss``: an attention head
+        with the embedding regularizer's loss weighted in)."""
+        m = self.cfg.model
+        w = m.ctc_weight
+        er = w < 1 and m.emb_reg.enable and m.emb_reg.weight > 0
+        return tuple(k for k in names if not (k == "att_loss" and w >= 1) and not (k == "ctc_loss" and w <= 0)
+                     and not (k == "emb_reg_loss" and not er))
 
     def sum_keys(self) -> Tuple[str, ...]:
         """The names of ``eval_device``'s ``sums``, in order: the numerator
         and denominator of each head this model has (``EVAL_SUMS``)."""
-        have = {k.split("_")[0] for k in self.scalar_keys(EVAL_SCALARS) if k != "loss"}
-        return tuple(k for k in EVAL_SUMS if k.split("_")[0] in have)
+        have = {k.rsplit("_", 1)[0] for k in self.scalar_keys(EVAL_SCALARS) if k != "loss"}
+        return tuple(k for k in EVAL_SUMS if k.rsplit("_", 1)[0] in have)
 
     def eval_losses(self, sums: torch.Tensor) -> torch.Tensor:
         """[n, len(sum_keys())] rows of ``sums`` (each dev batch's, summed
@@ -299,10 +322,12 @@ class Trainer:
         the sums' device with ``compute_loss``'s arithmetic: in a world of
         one each row is ``eval_device``'s ``scalars`` bit for bit."""
         col = dict(zip(self.sum_keys(), sums.unbind(1)))
-        heads = {h: col[f"{h}_num"] / torch.clamp(col[f"{h}_den"], min=1) for h in ("att", "ctc")
+        heads = {h: col[f"{h}_num"] / torch.clamp(col[f"{h}_den"], min=1) for h in ("att", "ctc", "emb_reg")
                  if f"{h}_num" in col}
-        total = joint_loss(heads.get("att"), heads.get("ctc"), self.cfg.model.ctc_weight, sums.device)
-        by_key = {"loss": total.expand(sums.shape[0]), "att_loss": heads.get("att"), "ctc_loss": heads.get("ctc")}
+        m = self.cfg.model
+        total = joint_loss(heads.get("att"), heads.get("ctc"), m.ctc_weight, sums.device, heads.get("emb_reg"),
+                           m.emb_reg.weight)
+        by_key = {"loss": total.expand(sums.shape[0]), **{f"{h}_loss": v for h, v in heads.items()}}
         return torch.stack([by_key[k] for k in self.scalar_keys(EVAL_SCALARS)], 1)
 
     def set_tf(self, step: int, device: torch.device) -> torch.Tensor:
@@ -335,8 +360,8 @@ class Trainer:
         graph of the batch's shape (capturing it at its first batch) with
         ``generator``'s seed, and the metrics are the graph's static
         outputs: read them before the next step. Without, it runs eagerly
-        (the tests' and comparisons' route, and the solver's where the
-        speller takes the Python loop)."""
+        (the tests' and comparisons' route, and the solver's on the CPU or
+        under a gloo group)."""
         dev = batch["wav_len"].device
         self.set_tf(state.step, dev)
         if graphs is not None:
@@ -357,7 +382,8 @@ class Trainer:
         return metrics
 
     @torch.no_grad()
-    def eval_device(self, params, batch: Dict[str, torch.Tensor], max_step: int) -> Dict[str, torch.Tensor]:
+    def eval_device(self, params, batch: Dict[str, torch.Tensor], max_step: int,
+                    keep_align: bool = False) -> Dict[str, torch.Tensor]:
         """The validation of one dev batch in either form (``resolve_wav``),
         on the device and with no host read: what a CUDA graph captures
         (``training/eval_graph.py``). Returns ``scalars`` (the teacher-forced
@@ -373,7 +399,10 @@ class Trainer:
         (``e2e_asr_tpu/bin/train_asr.py``), the encoder runs twice: at the
         compute type for the losses, in float32 for the decode. ``max_step``
         (a Python int: the dev batch's token bucket times the solver's step
-        ratio) sets the decode's length."""
+        ratio) sets the decode's length. With ``keep_align`` (and an
+        attention head) also ``align`` [B, max_step, heads, S], the greedy
+        decode's attention weights (the dev epoch's first batch: its
+        ``att_align`` image)."""
         wav, wav_len = resolve_wav(batch)
         _, m = compute_loss(params, self.cfg, wav, wav_len, batch["text"], batch["text_len"],
                             tf=1.0, generator=None, train=False)
@@ -383,16 +412,19 @@ class Trainer:
             out["ctc_preds"], out["enc_len"] = m["ctc_preds"], m["enc_len"]
         if "att_preds" in m:
             feat, feat_len = compute_features(wav, wav_len, self.cfg.data.audio)
-            out["tokens"], _ = greedy_decode(params, self.cfg.model, feat, feat_len, max_step, keep_align=False)
+            out["tokens"], align = greedy_decode(params, self.cfg.model, feat, feat_len, max_step,
+                                                 keep_align=keep_align)
+            if keep_align:
+                out["align"] = align
         return out
 
     def validate_batch(self, params, batch: Dict[str, torch.Tensor], max_step: int,
-                       graphs=None) -> Dict[str, torch.Tensor]:
+                       graphs=None, keep_align: bool = False) -> Dict[str, torch.Tensor]:
         """``eval_device`` of one dev batch: eagerly, or with ``graphs`` (a
         ``training/eval_graph.EvalGraphs``) by a replay of the CUDA graph of
-        the batch's shape and ``max_step`` (captured at its first batch),
-        whose outputs are the graph's static tensors: read or copy them
-        before the next replay."""
+        the batch's shape, ``max_step`` and ``keep_align`` (captured at its
+        first batch), whose outputs are the graph's static tensors: read or
+        copy them before the next replay."""
         if graphs is not None:
-            return graphs.eval(self, params, batch, max_step)
-        return self.eval_device(params, batch, max_step)
+            return graphs.eval(self, params, batch, max_step, keep_align)
+        return self.eval_device(params, batch, max_step, keep_align)

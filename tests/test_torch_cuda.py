@@ -59,7 +59,13 @@ eager step through dropout and a non-finite step, its evaluation too; the
 host-issued launches of a replayed dev batch and LM step (at most
 HOST_LAUNCH_LIMIT); the scan forward's seed in device memory; the
 optimizer's device bias corrections and learning rate against the host
-formulas.
+formulas; the encoder and speller variants (a CNN prenet with GRU layers
+and a GRU speller, one-direction LSTM layers with the embedding
+regularizer's loss, and with its fused decoding) through the train graphs
+bitwise the eager step (the Python-loop speller captured, failing coins
+and sampled feedback on the card), their float32 kernel steps against
+their plain steps, and the first dev batch's validation keeping its
+alignment through its own graph, bitwise the eager one.
 Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
@@ -2280,3 +2286,114 @@ def test_dead_graphs_are_collected_before_a_capture_not_in_it(gen, how, tmp_path
         assert "value 2.0" in proc.stdout
     else:
         assert proc.returncode != 0 and "capture" in proc.stderr, proc.stdout + proc.stderr[-2000:]
+
+
+# ------------------------------ encoder and speller variants, the plugin
+VARIANT_OVERRIDES = {
+    # CNN prenet, bidirectional GRU layers, GRU speller (the Python loop)
+    "V1": {"encoder": {"prenet": "cnn", "module": "GRU"}, "decoder": {"module": "GRU"}},
+    # VGG prenet, one-direction LSTM layers (lstm_seq with one direction), the
+    # fused scan with the embedding regularizer's loss
+    "V2": {"encoder": {"bidirection": False}, "emb_reg": {"enable": True, "weight": 0.5, "fuse": 0.0}},
+    # V2 with fused decoding: the speller takes the loop
+    "V2-fuse": {"encoder": {"bidirection": False}, "emb_reg": {"enable": True, "weight": 0.5, "fuse": 0.3}},
+}
+
+
+def _variant_train(name, dtype="float32", **hparas):
+    """``_small_train``'s model and recipe with a variant's overrides."""
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.training.step import Trainer
+
+    trainer, _ = _small_train(dtype, **hparas)
+    cfg = trainer.cfg
+    for section, fields in VARIANT_OVERRIDES[name].items():
+        for k, v in fields.items():
+            setattr(getattr(cfg.model, section), k, v)
+    params, _ = asr_mod.asr_init(0, 40, 12, cfg.model, _dev())
+    trainer = Trainer(cfg)
+    return trainer, trainer.init_state(params)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["V1", "V2", "V2-fuse"])
+def test_variant_train_graph_replay_equals_eager_step_bitwise(gen, name, dtype):
+    """Four steps of a variant through TrainGraphs and eagerly from the same
+    weights, batches and seeds, the rate falling below 1 from the second
+    step on (V1 and V2-fuse: the Python-loop speller captured, its coins and
+    sampled feedback on the card): metrics, every parameter and optimizer
+    tensor bitwise, the same launch counts (V2: the lstm_seq and scan pairs
+    launched; V1 and V2-fuse: no scan launch)."""
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    tg, sg = _variant_train(name, dtype)
+    te, se = _variant_train(name, dtype)
+    route = asr_mod.speller_route(sg.params, tg.cfg.model, True, _dev())
+    assert route == ("fused" if name == "V2" else "loop")
+    graphs = TrainGraphs()
+    for i in range(4):
+        batch = _train_batch(i)
+        counts0 = _train_counts()
+        mg = tg.train_step(sg, batch, _gen_of(200 + i), graphs=graphs)
+        got = {k: mg[k].clone() for k in ("loss", "grad_norm", "step_skipped", "tf_rate")}
+        counts1 = _train_counts()
+        me = te.train_step(se, batch, _gen_of(200 + i))
+        counts2 = _train_counts()
+        assert all(torch.equal(got[k], me[k]) for k in got), (i, got, me)
+        assert float(got["step_skipped"]) == 0.0 and bool(torch.isfinite(got["loss"]))
+        assert all(torch.equal(a, b) for a, b in zip(_state_tensors(sg), _state_tensors(se))), i
+        dg = {k: counts1[k] - counts0[k] for k in counts0 if counts1[k] - counts0[k]}
+        de = {k: counts2[k] - counts1[k] for k in counts0 if counts2[k] - counts1[k]}
+        assert dg == de, (i, dg, de)
+        scan = [k for k in dg if k.startswith("decoder_scan")]
+        assert bool(scan) == (name == "V2"), dg
+        if name == "V2":
+            assert any(k.startswith("lstm_seq_bwd") for k in dg), dg
+    assert len(graphs.captures) == 1
+
+
+@pytest.mark.parametrize("name", ["V1", "V2"])
+def test_variant_kernel_step_matches_plain_step(gen, name):
+    """One float32 train step of a variant with the kernels against one with
+    the plain versions (``cuda_build.use_plain``) from the same weights,
+    batch and seed: loss rtol 1e-5, grad norm rtol 1e-4, every updated
+    parameter within 1e-5. Adadelta, as the flagship recipe: Adam's first
+    step moves every parameter by +-lr, its sign the gradient's rounding
+    where the gradient is near zero."""
+    from contextlib import nullcontext
+
+    from e2e_asr_tpu_torch.training.step import param_leaves
+
+    res = {}
+    for mode in ("kernel", "plain"):
+        trainer, state = _variant_train(name, optimizer="Adadelta", lr=1.0, lr_scheduler="fixed")
+        ctx = mock.patch.object(cuda_build, "use_plain", lambda x: True) if mode == "plain" else nullcontext()
+        with ctx:
+            m = trainer.train_step(state, _train_batch(3), _gen_of(7))
+        res[mode] = (float(m["loss"]), float(m["grad_norm"]), [p.detach().clone() for p in param_leaves(state.params)])
+    (lk, gk, pk), (lp, gp, pp) = res["kernel"], res["plain"]
+    np.testing.assert_allclose(lk, lp, rtol=1e-5)
+    np.testing.assert_allclose(gk, gp, rtol=1e-4)
+    assert max(float((a - b).abs().max()) for a, b in zip(pk, pp)) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["flagship", "V1"])
+def test_eval_graph_replay_keeps_the_alignment_bitwise(gen, name):
+    """The first dev batch's validation (``keep_align``): capture and replay
+    against the eager ``eval_device``, every output bitwise, the alignment
+    [B, max_step, heads, S] among them; its graph is keyed apart from the
+    other batches' (V1: the Python-loop speller in the graph)."""
+    from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+
+    trainer, state = _small_train() if name == "flagship" else _variant_train(name)
+    graphs = EvalGraphs()
+    for i in range(2):
+        batch = _train_batch(10 + i)
+        got = _eval_outputs(trainer.validate_batch(state.params, batch, EVAL_MAX_STEP, graphs=graphs,
+                                                   keep_align=True))
+        want = trainer.eval_device(state.params, batch, EVAL_MAX_STEP, keep_align=True)
+        assert set(got) == set(want) and "align" in want and want["align"].shape[:2] == (3, EVAL_MAX_STEP)
+        assert all(torch.equal(got[k], want[k]) for k in want), i
+    trainer.validate_batch(state.params, _train_batch(12), EVAL_MAX_STEP, graphs=graphs)
+    assert len(graphs.captures) == 2  # with and without the alignment

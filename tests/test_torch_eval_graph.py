@@ -66,7 +66,7 @@ def test_eval_device_matches_jax(monkeypatch):
     trainer = Trainer(tc)
     out = trainer.eval_device(tp, _tbatch(b), MAX_STEP)
     keys = trainer.scalar_keys(EVAL_SCALARS)
-    assert keys == EVAL_SCALARS and out["scalars"].dtype == torch.float32 and out["scalars"].shape == (3,)
+    assert keys == ("loss", "att_loss", "ctc_loss") and out["scalars"].dtype == torch.float32 and out["scalars"].shape == (3,)
     for k, v in zip(keys, out["scalars"].tolist()):
         np.testing.assert_allclose(v, float(jm[k]), rtol=LOSS_RTOL, err_msg=k)
     np.testing.assert_array_equal(out["ctc_preds"].numpy(), np.asarray(jm["ctc_preds"]))

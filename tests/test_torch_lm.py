@@ -1,6 +1,6 @@
 """The port's RNN-LM against the JAX package's at test size: ``lm_init``'s
 layout, the one-direction ``ops/rnn.py`` ``lstm`` (the ``lstm_seq`` pair's
-plain versions here), ``apply_seq``, ``step``, ``lm_loss`` and its
+plain versions here), ``apply_seq``, ``step`` (and both of a GRU LM), ``lm_loss`` and its
 gradients, one ``train_lm`` step with Adam and clipping, and ``TextLoader``;
 then the port's LM solver trains on the CPU.
 
@@ -111,11 +111,31 @@ def test_lm_init_has_the_converted_jax_layout(tying):
             assert torch.equal(c["b"][h : 2 * h], torch.ones(h))
 
 
-def test_gru_lm_is_not_ported():
-    _, tc = _cfg(False)
-    tc.lm.module = "GRU"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tlm.lm_init(torch.Generator(), VOCAB, tc.lm, torch.device("cpu"))
+def test_gru_lm_matches_jax():
+    """A two-layer GRU LM (tied): the port's lm_init layout (3H gates, no
+    forget bias), apply_seq over ragged lengths, and step's log-probs and
+    state over five tokens, the c of the state passing through unchanged."""
+    jc, tc = _cfg(True)
+    jc.lm.module = tc.lm.module = "GRU"
+    jp = jlm.lm_init(jax.random.PRNGKey(0), VOCAB, jc.lm)
+    tp = convert.params_from_jax(jax.device_get(jp))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    assert _shapes(tlm.lm_init(gen, VOCAB, tc.lm, torch.device("cpu"))) == _shapes(tp)
+    assert [tuple(c["wx"].shape) for c in tp["cells"]] == [(16, 72), (24, 72)]
+    text, lens = _text()
+    want = np.asarray(jlm.apply_seq(jp, jc.lm, jnp.asarray(text), jnp.asarray(lens)))
+    got = tlm.apply_seq(tp, tc.lm, torch.from_numpy(text), torch.from_numpy(lens)).numpy()
+    valid = _valid(lens, L_PAD)
+    np.testing.assert_allclose(got[valid], want[valid], rtol=VAL_RTOL, atol=VAL_ATOL)
+    toks = np.random.RandomState(1).randint(0, VOCAB, size=(5, 6))
+    jstate, tstate = jlm.init_state(6, jc.lm), tlm.init_state(6, tc.lm, torch.device("cpu"))
+    for tok in toks:
+        jlp, jstate = jlm.step(jp, jc.lm, jnp.asarray(tok), jstate)
+        tlp, tstate = tlm.step(tp, tc.lm, torch.from_numpy(tok), tstate)
+        np.testing.assert_allclose(tlp.numpy(), np.asarray(jlp), rtol=VAL_RTOL, atol=VAL_ATOL)
+        np.testing.assert_allclose(tstate[0].numpy(), np.asarray(jstate[0]), rtol=VAL_RTOL, atol=VAL_ATOL)
+    assert not tstate[1].any()
 
 
 def test_lstm_matches_jax_scan():

@@ -410,10 +410,10 @@ def test_eval_losses_of_the_sums_are_eval_devices_losses_bitwise():
 
 
 def test_loop_speller_samples_at_the_ranks_own_shape(monkeypatch):
-    """The Python-loop speller's sampled feedback (``torch.multinomial``)
-    draws from this rank's rows' probabilities, not at the global shape: a
-    rank's fed-back tokens are its own stream (ROADMAP Queue 3); the
-    dropout masks before it are drawn at the global shape."""
+    """The Python-loop speller's sampled feedback (``asr.sample_tokens``)
+    takes this rank's rows' probabilities (its noise is drawn at the global
+    shape, as the dropout masks before it are, so that the generator stays
+    in step with a world of one's)."""
     from e2e_asr_tpu_torch.models import asr as tasr
 
     d = small_config()
@@ -421,9 +421,9 @@ def test_loop_speller_samples_at_the_ranks_own_shape(monkeypatch):
     jp, _ = jasr.asr_init(jax.random.PRNGKey(0), 40, 16, JConfig.from_dict(d).model)
     tp = convert.params_from_jax(jax.device_get(jp))
     shapes, draws = [], []
-    real_multinomial, real_rand = torch.multinomial, torch.rand
-    monkeypatch.setattr(torch, "multinomial", lambda p, *a, **k: shapes.append(tuple(p.shape)) or
-                        real_multinomial(p, *a, **k))
+    real_sample, real_rand = tasr.sample_tokens, torch.rand
+    monkeypatch.setattr(tasr, "sample_tokens", lambda p, *a, **k: shapes.append(tuple(p.shape)) or
+                        real_sample(p, *a, **k))
     monkeypatch.setattr(torch, "rand", lambda *a, **k: draws.append(tuple(a[0])) or real_rand(*a, **k))
     monkeypatch.setattr(dist, "world", lambda: 2)
     monkeypatch.setattr(dist, "rank", lambda: 1)
@@ -433,6 +433,18 @@ def test_loop_speller_samples_at_the_ranks_own_shape(monkeypatch):
     tasr.forward(tp, tc.model, feat, torch.tensor([24, 20, 16]), decode_step=4, tf_rate=0.0,
                  teacher=torch.ones(3, 4, dtype=torch.long), generator=gen, train=True)
     assert shapes and all(s[0] == 3 for s in shapes)  # the rank's 3 rows
+    gen1 = torch.Generator()
+    gen1.manual_seed(7)
+    gen2 = torch.Generator()
+    gen2.manual_seed(7)
+    logits = torch.randn(3, 16)
+    monkeypatch.setattr(dist, "world", lambda: 1)
+    monkeypatch.setattr(dist, "rank", lambda: 0)
+    one = real_sample(torch.cat([torch.randn(3, 16), logits]), gen1)
+    monkeypatch.setattr(dist, "world", lambda: 2)
+    monkeypatch.setattr(dist, "rank", lambda: 1)
+    assert torch.equal(real_sample(logits, gen2), one[3:])  # rank 1's rows sample as in a world of one
+    assert torch.equal(gen1.get_state(), gen2.get_state())
     assert (4,) in draws  # the coins: one a step, alike on every rank
 
 
