@@ -120,7 +120,9 @@
    ``pack_batch`` a batch, in turns d, e, e, d, (f) the FLAC files: each
    way's ``rd`` share, median audio-s/s, flat_corpus seconds and MB, host
    RSS; the first 8 device batches and step 1's loss must be equal across
-   the ways, each way in the input mode and route it asked for.
+   the ways, each way in the input mode and route it asked for; ways (b)
+   and (c) then walk one whole epoch and print the loader's ``fill_factor``
+   and ``bucket_counts``, which must agree.
 7. The bfloat16 compute type, every shipped training recipe's
    ``hparas.dtype`` (the training phases above pin float32 and keep their
    float32 tolerances): each bf16 kernel variant (the lstm_seq pair, the
@@ -181,7 +183,16 @@
    ``emb_reg.fuse`` 0.3 taking the captured loop and decoding with it
    (``decode_phase``: graphs bitwise eager, kernels against plain versions,
    16/16 top hypotheses). Each kernel row gains ``launches_variants``.
-11. Prints a ``kernels`` JSON line (each row names the path its ``launches``
+11. The train step's stages (``stages_phase``, ``utils/stages.py``): for
+   the flagship (B 16, 816-frame bucket) at float32 and bf16 and for
+   configs/libri/asr_960h.yaml's 3056-frame bucket (B 16) at bf16, each
+   stage program (features; encoder, CTC and speller value and gradient;
+   the optimizer's update) captured from seed-0 weights and its replays
+   timed against its ceiling (sol at most STAGE_SOL_MAX, each program
+   launching its own kernels, STAGE_KERNELS), the stages' sum beside a replayed train step's
+   busy; one replayed flagship bf16 step traced (``utils/profiling.trace``)
+   and the trace must name the scan and lstm_seq kernels (TRACE_KERNELS).
+12. Prints a ``kernels`` JSON line (each row names the path its ``launches``
    were counted on; the bf16 variants in rows of their own, ``_bf16``), then
    the device JSON line last; the details go to ``--json`` (default
    e2e_asr_tpu_torch/_build/chip_smoke.json).
@@ -205,11 +216,11 @@ from unittest import mock
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense, 700 W): f32 outside the tensor cores
-# and HBM3 bandwidth. Every float32 kernel's bound is reckoned at the f32
-# rate; the bf16 variants' at the bf16 tensor cores' (PEAK_BF16_FLOPS).
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
+# the card's peaks, bound_ms and each kernel's least work (bytes,
+# operations): every float32 kernel's bound at the f32 rate, the bf16
+# variants' at the bf16 tensor cores'; without the port the import fails
+from e2e_asr_tpu_torch.utils import profiling
+
 SEED = 0
 TRAIN_STEPS = 5
 ALT_ROUNDS = 21  # rounds of a kernel against its library call in turns
@@ -231,19 +242,10 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_flops / PEAK_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """ms a call (CUDA events over ``iters`` calls queued behind a spin of
-    the card, so that a wrapper's host time does not pace a short kernel; a
-    plain version of many launches stays host-paced)."""
-    from e2e_asr_tpu_torch.bin.profile_decode import device_ms
-
-    return device_ms(fn, iters, warmup)
+    """``profiling.device_ms`` with two warm-up calls unless told otherwise,
+    the warm-up every timing of this script has taken."""
+    return profiling.device_ms(fn, iters, warmup)
 
 
 def alternating_ms(fns: dict, rounds: int = ALT_ROUNDS, iters: int = 3) -> dict:
@@ -275,64 +277,6 @@ def compare(name, got, want, rtol, atol, unreachable=None):
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return max_abs
-
-
-def log_mel_work(a, b, n, win, n_fft):
-    """(bytes, operations) of the log-mel function's least work on [b, n]
-    waves: the wave in and the features out, the window and the mel bank's
-    nonzeros read once; per frame DC removal, pre-emphasis and window (~5
-    per sample), a real FFT of n_fft points (~2.5 n log2 n), power, the mel
-    product and the log. The mel product counts the bank's nonzeros (2 nnz
-    a frame, 492 of F x M = 257 x 40 at the flagship), as a sparse
-    product's least work does, not the dense 2 F M. Counted as f32 work
-    (the function's inputs and outputs are f32; the kernel's float64
-    transform is its own choice)."""
-    from e2e_asr_tpu_torch.ops import frontend as fe
-    from e2e_asr_tpu_torch.ops import frontend_cuda as fec
-
-    shift = int(a.sample_rate * a.frame_shift / 1000)
-    t, f, mel = fec.n_log_mel_frames(n, win, shift), n_fft // 2 + 1, a.feat_dim
-    nnz = int(np.count_nonzero(fe.mel_filterbank(mel, n_fft, a.sample_rate, a.low_freq, a.high_freq)))
-    return (4 * (b * n + win + nnz + b * t * mel),
-            b * t * (5 * win + 2.5 * n_fft * math.log2(n_fft) + 3 * f + 2 * nnz + mel))
-
-
-def att_step_work(args):
-    """(bytes, operations) of one beam attention step's least work on
-    ``att_step_beam_loc``'s arguments: q, prev_att, the valid frames of k
-    and v, the lengths and the weights read once, align and ctx written
-    once; per valid (beam, frame) the conv, the energies and the context."""
-    q, prev, k, v, alens, taps = args[:6]
-    b, w, dk = q.shape
-    s_len, e_dim, (kk, p) = prev.shape[2], v.shape[2], taps.shape
-    nvalid = float(alens.sum())
-    return (4 * (b * w * dk + 2 * b * w * s_len + nvalid * (dk + e_dim) + b + kk * p + kk * dk + 2 * dk
-                 + b * w * e_dim),
-            w * nvalid * (2 * p * kk + dk * (2 * kk + 4) + 2 * e_dim) + b * w * s_len * 4)
-
-
-def prefix_work(pargs):
-    """(bytes, operations) of the fused CTC prefix function's least work on
-    ``prefix_scores_fused``'s arguments: ctc_lp and the parents' r_g in,
-    the candidate and last-token ids, r_h, psi and psi_eos out; ~30
-    operations per valid (t, column) cell."""
-    ctc_lp, plens, r_g1, last1, cand1 = pargs[:5]
-    b, w, kc = cand1.shape
-    t_p, n_p = ctc_lp.shape[1], cand1.numel()
-    return ((4 * (ctc_lp.numel() + r_g1.numel() + 2 * t_p * n_p + n_p + b + b * w)
-             + 8 * (cand1.numel() + last1.numel())),
-            30 * float(torch.clamp(plens, max=t_p).sum()) * w * kc)
-
-
-def ctc_work(lp, labels, inlen, lablen):
-    """(bytes, operations) of the CTC loss and gradient's least work, the
-    same for the kernel and the library: log_probs, labels and lengths read
-    once, nll and G [B, T, V] written once; ~30 operations per valid (t, s)
-    cell for alpha and beta."""
-    b, s_len = lp.shape[:2]
-    return ((4 * lp.numel() + labels.element_size() * labels.numel() + inlen.element_size() * b
-             + lablen.element_size() * b + 4 * (b + lp.numel())),
-            30 * float((inlen.clamp(max=s_len) * (2 * lablen + 1)).sum()))
 
 
 def kernel_checks(dev, cfg, vocab, batch_wav):
@@ -373,7 +317,7 @@ def kernel_checks(dev, cfg, vocab, batch_wav):
     got = fec.log_mel(wav, a, win, shift, n_fft)
     mel_extra = _repeat_and_sync("log_mel", lambda: (fec.log_mel(wav, a, win, shift, n_fft),), (got,))
     mel = a.feat_dim
-    nb, nf = log_mel_work(a, b, n, win, n_fft)
+    nb, nf = profiling.log_mel_work(a, b, n, win, n_fft)
     out["log_mel"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/log_mel.cu",
         replaces="e2e_asr_tpu/ops/frontend_pallas.py:151", max_abs_err=max(errs.values()),
@@ -382,7 +326,7 @@ def kernel_checks(dev, cfg, vocab, batch_wav):
         plain_ms=time_ms(lambda: fec.log_mel_plain(wav, a, win, shift, n_fft), 20),
         library_ms=None, cufft_ms=time_ms(lambda: composed(wav), 20), cufft_max_abs_err_by_wave=cufft_errs,
         f64_max_abs_err_by_wave=f64_errs,
-        bound=bound_ms(nb, nf), shapes=f"wav [{b},{n}] -> [{b},{t},{mel}]", **mel_extra,
+        bound=profiling.bound_ms(nb, nf), shapes=f"wav [{b},{n}] -> [{b},{t},{mel}]", **mel_extra,
     )
     r = out["log_mel"]
     print(f"  log_mel: {r['ms'] * 1e3:.2f} us, plain {r['plain_ms'] * 1e3:.2f} us, cuFFT yardstick "
@@ -413,16 +357,13 @@ def kernel_checks(dev, cfg, vocab, batch_wav):
                 getattr(lstm, f"weight_hh_l0{sfx}").copy_(wh[di].t())
                 getattr(lstm, f"bias_ih_l0{sfx}").copy_(bias[di])
                 getattr(lstm, f"bias_hh_l0{sfx}").zero_()
-        valid_rows = 2 * float(lens.sum())
-        nb = 4 * (s_len * b * d + s_len * b + 2 * d * 4 * h + 2 * h * 4 * h + 2 * 4 * h
-                  + s_len * 2 * b * h)
-        nf = valid_rows * (2 * (d + h) * 4 * h + 12 * h)
+        nb, nf = profiling.lstm_bidir_fwd_work(s_len, b, d, h, float(lens.sum()))
         with torch.no_grad():
             entries.append(dict(
                 d=d, max_abs_err=err,
                 ms=time_ms(lambda: rnn_cuda.lstm_bidir_fwd(*args), 10),
                 plain_ms=time_ms(lambda: rnn_cuda.lstm_bidir_fwd_plain(*args), 3, 1),
-                library_ms=time_ms(lambda: lstm(x), 10), bound=bound_ms(nb, nf),
+                library_ms=time_ms(lambda: lstm(x), 10), bound=profiling.bound_ms(nb, nf),
                 **_bidir_fwd_parts(*args, train=False),
             ))
     out["lstm_bidir_fwd"] = dict(
@@ -458,13 +399,13 @@ def kernel_checks(dev, cfg, vocab, batch_wav):
               compare("att_step ctx S=764", g764[1], w764[1], rtol=1e-4, atol=1e-5))
     split = att_phase_split(args)
     print_decode_phases({"att_step_beam_loc": split})
-    nb, nf = att_step_work(args)
+    nb, nf = profiling.att_step_work(args)
     out["att_step_beam_loc"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/att_step.cu",
         replaces="e2e_asr_tpu/ops/att_step_pallas.py:159", max_abs_err=err,
         ms=time_ms(lambda: asc.att_step_beam_loc(*args), 20),
         plain_ms=time_ms(lambda: asc.att_step_beam_loc_plain(*args), 20),
-        library_ms=None, bound=bound_ms(nb, nf),
+        library_ms=None, bound=profiling.bound_ms(nb, nf),
         shapes=f"q [{b},{w},{dk}], S {s_len}, E {e_dim}, taps [{kk},{p}]",
         ms_s764=time_ms(lambda: asc.att_step_beam_loc(*args764), 10),
         phases_us=split["phases_us"], plan=split["plan"], **att_extra,
@@ -487,13 +428,13 @@ def kernel_checks(dev, cfg, vocab, batch_wav):
     psplit = prefix_phase_split(pargs)
     print_decode_phases({"prefix_recursion": psplit})
     t_p = ctc_lp.shape[1]
-    nb, nf = prefix_work(pargs)
+    nb, nf = profiling.prefix_work(pargs)
     out["prefix_recursion"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/ctc_prefix.cu",
         replaces="e2e_asr_tpu/decode/ctc_prefix_pallas.py:155", max_abs_err=err,
         ms=time_ms(lambda: cpc.prefix_scores_fused(*pargs), 20),
         plain_ms=time_ms(lambda: cpc.prefix_scores_fused_plain(*pargs), 3, 1),
-        library_ms=None, bound=bound_ms(nb, nf),
+        library_ms=None, bound=profiling.bound_ms(nb, nf),
         shapes=f"ctc_lp [{b},{t_p},{ctc_lp.shape[2]}], W {w}, K {cand1.shape[2]}: psi, r_h [{b},{w},{cand1.shape[2]},{t_p},2], psi_eos",
         phases_us=psplit["phases_us"], **prefix_extra,
     )
@@ -878,7 +819,7 @@ def train_kernel_checks(dev, cfg, vocab):
     h = m.encoder.dim[0]
     lens = torch.randint(s_len // 2, s_len + 1, (b,), generator=gen, device=dev)
     lens[0] = s_len
-    vr = 2 * float(lens.sum())  # valid rows over both directions
+    valid = float(lens.sum())  # valid rows of one direction
     out = {}
     fwd, bwd = [], []
     for d in (1280, 2 * h):
@@ -892,11 +833,7 @@ def train_kernel_checks(dev, cfg, vocab):
                       for nm, g, w in zip(("ys", "c", "acts"), got, want))
         lstm = _cudnn_lstm(dev, wx, wh, bias)
         xg = x.clone().requires_grad_()
-        # bytes: the inference forward's, plus the residuals c [T, 2B, H]
-        # and acts [T, 2B, 4H] written once
-        io = 4 * (s_len * b * d + s_len * b + 2 * d * 4 * h + 2 * h * 4 * h + 2 * 4 * h
-                  + s_len * 2 * b * h * 6)
-        nf = vr * (2 * (d + h) * 4 * h + 12 * h)
+        io, nf = profiling.lstm_bidir_fwd_work(s_len, b, d, h, valid, train=True)
         with torch.no_grad():
             f_ms = time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train(*args), 10)
             f_plain = time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train_plain(*args), 3, 1)
@@ -906,7 +843,7 @@ def train_kernel_checks(dev, cfg, vocab):
         print(f"  lstm_bidir_fwd_train D={d}: {f_ms:.3f} ms = projection {f_parts['projection_ms']:.3f} ms + "
               f"sweep {f_parts['sweep_ms']:.3f} ms (plan {_fwd_plan(b, h, dev)}); repeats bitwise", flush=True)
         fwd.append(dict(d=d, max_abs_err=err, ms=f_ms, plain_ms=f_plain,
-                        library_ms=time_ms(lambda: lstm(xg), 10), bound=bound_ms(io, nf), **f_parts))
+                        library_ms=time_ms(lambda: lstm(xg), 10), bound=profiling.bound_ms(io, nf), **f_parts))
 
         ys, c, acts = want
         dy = torch.randn(ys.shape, generator=gen, device=dev)
@@ -926,12 +863,7 @@ def train_kernel_checks(dev, cfg, vocab):
         out_lib, _ = lstm(xg)
         dy_lib = torch.randn(out_lib.shape, generator=gen, device=dev)
         lib_in = [xg] + list(lstm.parameters())
-        # bytes: x, mask, wx, wh, ys, c, acts, dy read once; dx, dWx, dWh,
-        # db written once. Operations on the valid rows: the sweep's
-        # dgates Wh^T and its elementwise part, dx, dWx and dWh
-        io = 4 * (2 * s_len * b * d + s_len * b + 2 * 2 * d * 4 * h + 2 * 2 * h * 4 * h
-                  + 2 * 4 * h + s_len * 2 * b * h * 7)
-        nf = vr * (16 * h * d + 16 * h * h + 20 * h)
+        io, nf = profiling.lstm_bidir_bwd_work(s_len, b, d, h, valid)
         with torch.no_grad():
             b_ms = time_ms(lambda: rnn_cuda.lstm_bidir_bwd(x, mask, wx, wh, ys, c, acts, dy), 10)
             b_plain = time_ms(lambda: rnn_cuda.lstm_bidir_bwd_plain(x, mask, wx, wh, ys, c, acts, dy),
@@ -945,7 +877,7 @@ def train_kernel_checks(dev, cfg, vocab):
         bwd.append(dict(d=d, max_abs_err=err, ms=b_ms, plain_ms=b_plain,
                         library_ms=time_ms(lambda: torch.autograd.grad(out_lib, lib_in, dy_lib,
                                                                        retain_graph=True), 10),
-                        bound=bound_ms(io, nf), **parts))
+                        bound=profiling.bound_ms(io, nf), **parts))
 
         def kernel_fwd():
             with torch.no_grad():
@@ -1064,13 +996,13 @@ def train_kernel_checks(dev, cfg, vocab):
           f"{device_launches['kernel']} (F.ctc_loss {device_launches['library']}); no host sync", flush=True)
     print(f"  alternating rounds ({ALT_ROUNDS}, median): ctc_loss forward + backward {alt['kernel']:.3f} ms vs "
           f"F.ctc_loss {alt['library']:.3f} ms (ratio {alt['kernel'] / alt['library']:.3f})", flush=True)
-    io, nf = ctc_work(lp, labels, inlen, lablen)
+    io, nf = profiling.ctc_work(lp, labels, inlen, lablen)
     out["ctc_loss"] = dict(
         route="cuda", source="e2e_asr_tpu_torch/csrc/ctc_loss.cu",
         replaces="e2e_asr_tpu/ops/ctc_pallas.py:170", max_abs_err=err,
         ms=time_ms(lambda: ctc_cuda.ctc_lattice(lp, labels, inlen, lablen), 20),
         plain_ms=time_ms(lambda: ctc_cuda.ctc_lattice_grad_plain(lp, labels, inlen, lablen), 3, 1),
-        library_ms=time_ms(library, 10), bound=bound_ms(io, nf),
+        library_ms=time_ms(library, 10), bound=profiling.bound_ms(io, nf),
         loss_fwd_bwd_ms=time_ms(loss_grad, 10), launches_per_fwd_bwd=per_call,
         device_launches_per_fwd_bwd=device_launches,
         alternating={"ms": alt["kernel"], "library_ms": alt["library"]},
@@ -1079,17 +1011,6 @@ def train_kernel_checks(dev, cfg, vocab):
                "loss_fwd_bwd_ms: CTCLossFn forward + backward",
     )
     return out
-
-
-def _conv_taps(lens, p):
-    """Taps of a centred P-tap filter that fall on frames inside [0, len),
-    summed over the valid frames of every utterance."""
-    r = (p - 1) // 2
-    total = 0
-    for n in lens.tolist():
-        fr = torch.arange(n)
-        total += int((fr.clamp(max=r) + (n - 1 - fr).clamp(max=r) + 1).sum())
-    return float(total)
 
 
 def _compare_scan_fwd(name, got, want, noise, tie_tol=1e-3):
@@ -1175,17 +1096,8 @@ def _scan_parity(gen, dev, args, vocab, temp, what):
     return err, err_b, bargs, cots
 
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16 tensor cores, 700 W
 BF16_ULPS = 1.0  # bf16 outputs both versions round alike: at most one bf16 ulp of the tensor's scale apart ...
 BF16_SHARE = 0.15  # ... on at most this share of its elements
-
-
-def bound_ms_bf16(n_bytes: float, n_flops: float):
-    """bound_ms at the bf16 tensor cores' rate (bytes reckoned by the caller
-    in bf16 where the kernel stores bf16)."""
-    t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_flops / PEAK_BF16_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _ulps(got, want):
@@ -1256,7 +1168,7 @@ def bf16_kernel_checks(dev, cfg, vocab):
             xs, wxs, whs, bs = (a.to(bf) for a in (x, wx, wh, bias))
             r = 2 * b
             m2 = torch.cat([mask, torch.flip(mask, dims=[0])], dim=1)
-            vr = 2 * float(lens.sum())
+            valid = float(lens.sum())
             print(f"[kernel] bf16 lstm_seq pair [{shape}]: T={t}, B={b}, H={h}", flush=True)
             xw = (torch.randn((t, r, 4 * h), generator=gen, device=dev) * 0.5).to(bf)
             dy = (torch.randn((t, r, h), generator=gen, device=dev) / math.sqrt(h)).to(bf)
@@ -1267,19 +1179,17 @@ def bf16_kernel_checks(dev, cfg, vocab):
                 fail("lstm_seq_fwd bf16: acts are not float32")
             err = max(_bf16_state(f"lstm_seq_fwd bf16 {n} [{shape}]", g, w) for n, g, w in zip(("ys", "c"), got, want))
             err = max(err, _scaled(f"lstm_seq_fwd bf16 acts [{shape}]", got[2], want[2], 1e-3))
-            io = 2 * (t * r * 4 * h + 2 * h * 4 * h + 2 * t * r * h) + 4 * (t * r + t * r * 4 * h)
             lib = _cudnn_lstm(dev, wx, wh, bias).to(bf)
             record("lstm_seq_fwd", shape, err, time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw, m2, whs, train=True), 5),
                    time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw.float(), m2, whs.float(), train=True), 5),
                    time_ms(lambda: rnn_cuda.lstm_seq_fwd_plain(xw, m2, whs), 1, 0),
-                   bound_ms_bf16(io, vr * (2 * h * 4 * h + 12 * h)), time_ms(lambda: lib(xs), 5))
+                   profiling.bound_ms(*profiling.lstm_seq_fwd_work(t, b, h, valid, 2, bf), bf), time_ms(lambda: lib(xs), 5))
             ys, c, acts = got
             gb = rnn_cuda.lstm_seq_bwd(m2, whs, ys, c, acts, dy)
             with plain():
                 wb = rnn_cuda.lstm_seq_bwd(m2, whs, ys, c, acts, dy)
             err = max(_bf16_state(f"lstm_seq_bwd bf16 {n} [{shape}]", g, w)
                       for n, g, w in zip(("dxw", "dwh"), gb, wb))
-            io = 2 * (2 * h * 4 * h * 2 + 3 * t * r * h + t * r * 4 * h) + 4 * (t * r + t * r * 4 * h)
             f32 = [a.float() for a in (whs, ys, c, dy)]
             xl = xs.clone().requires_grad_()
             with torch.enable_grad():
@@ -1287,7 +1197,7 @@ def bf16_kernel_checks(dev, cfg, vocab):
             record("lstm_seq_bwd", shape, err, time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, whs, ys, c, acts, dy), 5),
                    time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, f32[0], f32[1], f32[2], acts, f32[3]), 5),
                    time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, whs, ys, c, acts, dy), 1, 0),
-                   bound_ms_bf16(io, vr * (16 * h * h + 20 * h)),
+                   profiling.bound_ms(*profiling.lstm_seq_bwd_work(t, b, h, valid, 2, bf), bf),
                    time_ms(lambda: torch.autograd.grad(out_l, [xl] + list(lib.parameters()), dy[:, :b].repeat(
                        1, 1, 2), retain_graph=True), 3))
 
@@ -1297,12 +1207,12 @@ def bf16_kernel_checks(dev, cfg, vocab):
                 want = rnn_cuda.lstm_bidir_fwd_train(xs, mask, wxs, whs, bs)
             err = max(_bf16_state(f"lstm_bidir_fwd_train bf16 {n} [{shape}]", g, w)
                       for n, g, w in zip(("ys", "c", "acts"), got, want))
-            io = 2 * (t * b * d + 2 * d * 4 * h + 2 * h * 4 * h + 2 * 4 * h + 2 * t * r * h + t * r * 4 * h) + 4 * t * b
             record("lstm_bidir_fwd_train", shape, err,
                    time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train(xs, mask, wxs, whs, bs), 5),
                    time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train(*(a.float() for a in (xs, mask, wxs, whs, bs))), 5),
                    time_ms(lambda: rnn_cuda.lstm_bidir_fwd_train_plain(xs, mask, wxs, whs, bs), 1, 0),
-                   bound_ms_bf16(io, 2 * t * b * d * 8 * h + vr * (2 * h * 4 * h + 12 * h)), time_ms(lambda: lib(xs), 5))
+                   profiling.bound_ms(*profiling.lstm_bidir_fwd_work(t, b, d, h, valid, True, bf), bf),
+                   time_ms(lambda: lib(xs), 5))
             ys, c, acts = got
             dyb = (torch.randn((t, r, h), generator=gen, device=dev) / math.sqrt(h)).to(bf)
             gb = rnn_cuda.lstm_bidir_bwd(xs, mask, wxs, whs, ys, c, acts, dyb)
@@ -1310,12 +1220,11 @@ def bf16_kernel_checks(dev, cfg, vocab):
                 wb = rnn_cuda.lstm_bidir_bwd(xs, mask, wxs, whs, ys, c, acts, dyb)
             err = max(_bf16_state(f"lstm_bidir_bwd bf16 {n} [{shape}]", g, w)
                       for n, g, w in zip(("dx", "dwx", "dwh", "db"), gb, wb))
-            io = 2 * (2 * t * b * d + 2 * 2 * d * 4 * h + 2 * 2 * h * 4 * h + 2 * 4 * h + 3 * t * r * h + t * r * 4 * h)
             record("lstm_bidir_bwd", shape, err,
                    time_ms(lambda: rnn_cuda.lstm_bidir_bwd(xs, mask, wxs, whs, ys, c, acts, dyb), 5),
                    time_ms(lambda: rnn_cuda.lstm_bidir_bwd(*(a.float() for a in (xs, mask, wxs, whs, ys, c, acts, dyb))), 5),
                    time_ms(lambda: rnn_cuda.lstm_bidir_bwd_plain(xs, mask, wxs, whs, ys, c, acts, dyb), 1, 0),
-                   bound_ms_bf16(io, 2 * 2 * t * b * d * 8 * h + vr * (16 * h * h + 20 * h)),
+                   profiling.bound_ms(*profiling.lstm_bidir_bwd_work(t, b, d, h, valid, bf), bf),
                    time_ms(lambda: torch.autograd.grad(out_l, [xl] + list(lib.parameters()), dyb[:, :b].repeat(
                        1, 1, 2), retain_graph=True), 3))
 
@@ -1357,14 +1266,13 @@ def bf16_kernel_checks(dev, cfg, vocab):
                 err = max(err, _compare_scan_fwd_bf16(f"decoder_scan_fwd bf16 {mode} [{shape}]", got, want,
                                                       carried=shape == "960h"))
             use = torch.ones(l, dtype=torch.bool)
-            fwd_out = got_t = dc.decoder_scan_fwd(*sargs, use, tp)
-            io = 2 * sum(a.numel() for a in sargs if a.is_floating_point()) + 2 * sum(
-                o.numel() for o in got_t[:3]) + 4 * sum(o.numel() for o in got_t[3][2:])
-            nf = 2.0 * l * b * (s * (dk * (kk + 2) + e_dim) + (e_dim + h) * 4 * h + h * (v + dk))
+            fwd_out = dc.decoder_scan_fwd(*sargs, use, tp)
+            dims = (b, s, dk, e_dim, kk, p, h, sargs[9].shape[1], v, l, sargs[2].tolist())
             f32_args = tuple(a.float() if a.is_floating_point() else a for a in sargs)
             record("decoder_scan_fwd", shape, err, time_ms(lambda: dc.decoder_scan_fwd(*sargs, use, tp), 3),
                    time_ms(lambda: dc.decoder_scan_fwd(*f32_args, use, tp), 3),
-                   time_ms(lambda: dc.decoder_scan_fwd_plain(*sargs, use, tp), 1, 0), bound_ms_bf16(io, nf))
+                   time_ms(lambda: dc.decoder_scan_fwd_plain(*sargs, use, tp), 1, 0),
+                   profiling.bound_ms(*profiling.decoder_scan_fwd_work(*dims, bf), bf))
             logits, align, hidden, (cseq, _, acts, qs, ctxs) = fwd_out
             cots = [(torch.randn(o.shape, generator=gen, device=dev) / math.sqrt(o.shape[-1])).to(bf)
                     for o in (logits, align, hidden)]
@@ -1379,12 +1287,10 @@ def bf16_kernel_checks(dev, cfg, vocab):
             err_b = max(_scaled(f"decoder_scan_bwd bf16 {n} [{shape}]", g, w, 1e-4)
                         for n, g, w in zip(("dgates", "dq", "dfpre", "dk", "dWlp", "dlocv"), gb, wb))
             fb = tuple(a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in bargs)
-            io_b = 2 * (sum(a.numel() for a in bargs[:11] if a.is_floating_point()) + align.numel()
-                        + hidden.numel() + cseq.numel() + sum(c.numel() for c in cots)) + 4 * (
-                acts.numel() + qs.numel() + ctxs.numel() + sum(o.numel() for o in gb))
             record("decoder_scan_bwd", shape, err_b, time_ms(lambda: dc.decoder_scan_bwd(*bargs), 3),
                    time_ms(lambda: dc.decoder_scan_bwd(*fb), 3),
-                   time_ms(lambda: dc.decoder_scan_bwd_plain(*bargs), 1, 0), bound_ms_bf16(io_b, 3 * nf))
+                   time_ms(lambda: dc.decoder_scan_bwd_plain(*bargs), 1, 0),
+                   profiling.bound_ms(*profiling.decoder_scan_bwd_work(*dims, bf), bf))
     for name, row in rows.items():
         f = row["per_shape"]["flagship"]
         row.update(route="cuda", max_abs_err=max(v["max_abs_err"] for v in row["per_shape"].values()),
@@ -1508,49 +1414,25 @@ def scan_kernel_checks(dev, cfg, vocab):
     out = {}
     with torch.no_grad():
         use = torch.ones(l, dtype=torch.bool)
-        nvalid = float(lens.sum())
-        ntaps = _conv_taps(lens, p)
-        # bytes: k and v over the valid frames, the weights, the teacher ids in;
-        # logits, align, hidden and the residuals (c, tokens, acts, q, ctx) out
-        w_elems = sum(a.numel() for a in args[3:15])
-        io = 4 * (nvalid * (dk + e_dim) + w_elems + l * b
-                  + l * b * (vocab + s + 2 * h + 1 + 4 * h + dk + e_dim))
-        # operations per step and utterance: q, the conv over the valid
-        # frames (only the taps that fall on valid frames), the energies, the
-        # context, the gate product, the logits
-        nf = l * 2 * (b * (h * dk + (emb + e_dim + h) * 4 * h + h * vocab)
-                      + ntaps * kk + nvalid * (dk * (kk + 2) + e_dim))
+        dims = (b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens.tolist())
         out["decoder_scan_fwd"] = dict(
             route="cuda", source="e2e_asr_tpu_torch/csrc/decoder_scan.cu",
             replaces="e2e_asr_tpu/ops/decoder_pallas.py:226", max_abs_err=err,
             ms=time_ms(lambda: dc.decoder_scan_fwd(*args, use, temp), 5),
             ms_sampled=time_ms(lambda: dc.decoder_scan_fwd(*args, ~use, temp, True, seed), 5),
             plain_ms=time_ms(lambda: dc.decoder_scan_fwd_plain(*args, use, temp), 2, 1),
-            library_ms=None, bound=bound_ms(io, nf),
+            library_ms=None, bound=profiling.bound_ms(*profiling.decoder_scan_fwd_work(*dims)),
             shapes=f"k [{b},{s},{dk}], v [{b},{s},{e_dim}], taps [{kk},{p}], H {h}, V {vocab}, L {l} "
                    "(ms: teacher-forced; ms_sampled: every step feeds a sampled token back; no "
                    "single PyTorch call computes a location-attention speller scan)",
         )
 
-        k, v, _, taps, wq, _, wlp, locv, locb, _, wx, wh, _, wout, _, _ = args
-        # bytes: k, v (valid frames), the weights, the stored sequences and the
-        # three cotangents in; dgates, dq, dfpre, dk and the partials out
-        io = 4 * (nvalid * (dk + e_dim) + sum(a.numel() for a in (taps, wq, wlp, locv, locb, wx, wh, wout))
-                  + l * b * (s + 2 * h + 4 * h + dk + e_dim) + l * b * (vocab + s + h)
-                  + l * b * (4 * h + dk + s * kk) + b * s * dk + b * 8 * (kk + 1) * dk)
-        # operations: dlogits Wout^T, dctx and dh_lstm, dq Wq^T per utterance;
-        # per valid frame dalign = v . dctx, one rebuild of the tanh energies
-        # (f Wlp), dfpre = de Wlp^T, dWlp += f^T de and ~12 elementwise
-        # operations per attention unit; the conv that rebuilds f and the
-        # transposed conv of dfpre, over the taps that fall on valid frames
-        nf = l * 2 * (b * (h * vocab + (e_dim + h) * 4 * h + h * dk)
-                      + nvalid * (e_dim + dk * (3 * kk + 6)) + 2 * ntaps * kk)
         out["decoder_scan_bwd"] = dict(
             route="cuda", source="e2e_asr_tpu_torch/csrc/decoder_scan_bwd.cu",
             replaces="e2e_asr_tpu/ops/decoder_pallas.py:482", max_abs_err=err_b,
             ms=time_ms(lambda: dc.decoder_scan_bwd(*bargs), 5),
             plain_ms=time_ms(lambda: dc.decoder_scan_bwd_plain(*bargs), 2, 1),
-            library_ms=None, bound=bound_ms(io, nf),
+            library_ms=None, bound=profiling.bound_ms(*profiling.decoder_scan_bwd_work(*dims)),
             shapes=f"as decoder_scan_fwd; cotangents of logits, align, hidden (ms: the sweep "
                    "kernel alone, without the contractions outside it)",
         )
@@ -1621,24 +1503,19 @@ def lstm_seq_checks(dev):
                         for nm, g, w in zip(("dxw", "dWh"), got_b, want_b))
         lstm = _cudnn_lstm(dev, wx, wh, bias)
         xg = x.clone().requires_grad_()
-        r = 2 * b
-        vr = 2 * float(lens.sum())
-        # forward bytes: xw, mask, wh in; ys, c, acts out. backward: mask, wh,
-        # ys, c, acts, dy in; dxw, dWh out
-        io_f = 4 * (t * r * 4 * h + t * r + 2 * h * 4 * h + t * r * h * 6)
-        io_b = 4 * (t * r + 2 * h * 4 * h + t * r * h * 7 + t * r * 4 * h + 2 * h * 4 * h)
+        valid = float(lens.sum())
         with torch.no_grad():
             # the sweep alone, its outputs allocated outside
             f_out = [torch.empty_like(v) for v in want]
             fwd.append(dict(
-                t=t, b=b, h=h, max_abs_err=err, bound=bound_ms(io_f, vr * (2 * h * 4 * h + 12 * h)),
+                t=t, b=b, h=h, max_abs_err=err, bound=profiling.bound_ms(*profiling.lstm_seq_fwd_work(t, b, h, valid)),
                 ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True), 5),
                 plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd_plain(xw, m2, wh), 2, 1),
                 sweep_ms=time_ms(lambda: rnn_cuda._fwd_sweep(xw, m2, wh, *f_out, t, b, 2, h, 1, True), 5),
                 plan=_fwd_plan(b, h, dev)))
             dxw, dwh = torch.empty_like(acts), torch.empty_like(wh)
             bwd.append(dict(
-                t=t, b=b, h=h, max_abs_err=err_b, bound=bound_ms(io_b, vr * (16 * h * h + 20 * h)),
+                t=t, b=b, h=h, max_abs_err=err_b, bound=profiling.bound_ms(*profiling.lstm_seq_bwd_work(t, b, h, valid)),
                 ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy), 5),
                 plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy), 2, 1),
                 sweep_ms=time_ms(lambda: rnn_cuda._sweep(m2, wh, c, acts, dy, dxw, dxw, t, b, 2, h, 1), 5),
@@ -1772,14 +1649,14 @@ def lm_lstm_checks(dev):
         want_b = rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy)
         err_b = max(_scaled(f"lstm_seq_bwd LM T={t} {nm}", g, w, 1e-4)
                     for nm, g, w in zip(("dxw", "dWh"), got_b, want_b))
-        vr = float(lens.sum())
-        io_f = 4 * (t * b * 4 * h + t * b + h * 4 * h + t * b * h * 6)
-        io_b = 4 * (t * b + h * 4 * h + t * b * h * 7 + t * b * 4 * h + h * 4 * h)
-        fwd = dict(t=t, b=b, h=h, dirs=1, max_abs_err=err, bound=bound_ms(io_f, vr * (2 * h * 4 * h + 12 * h)),
+        valid = float(lens.sum())
+        fwd = dict(t=t, b=b, h=h, dirs=1, max_abs_err=err,
+                   bound=profiling.bound_ms(*profiling.lstm_seq_fwd_work(t, b, h, valid, dirs=1)),
                    ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd(xw, m2, wh, train=True), 5),
                    plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_fwd_plain(xw, m2, wh), 2, 1),
                    projection_ms=time_ms(lambda: x @ wx[0] + bias[0], 5), plan=_fwd_plan(b, h, dev, dirs=1))
-        bwd = dict(t=t, b=b, h=h, dirs=1, max_abs_err=err_b, bound=bound_ms(io_b, vr * (16 * h * h + 20 * h)),
+        bwd = dict(t=t, b=b, h=h, dirs=1, max_abs_err=err_b,
+                   bound=profiling.bound_ms(*profiling.lstm_seq_bwd_work(t, b, h, valid, dirs=1)),
                    ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd(m2, wh, ys, c, acts, dy), 5),
                    plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy), 2, 1))
     lstm = torch.nn.LSTM(d, h).to(dev)
@@ -3034,6 +2911,12 @@ def _loader_way(way, njobs, corpus, mode, smi, wrappers, cache_route=False):
     if mode == "device_corpus":
         res.update(flat_corpus_s=solver.flat_corpus_s, corpus_mb=solver._corpus_buf.numel() * 2 / (1 << 20))
         extra = f"; flat_corpus {res['flat_corpus_s']:.2f}s, {res['corpus_mb']:.1f} MB int16 on the card"
+    if way in ("b", "c"):
+        # one whole epoch of the train split (the cache's waves, or offsets)
+        for _ in solver.tr_set.epoch(0):
+            pass
+        res.update(fill_factor=solver.tr_set.fill_factor, bucket_counts=solver.tr_set.bucket_counts())
+        extra += f"; epoch 0 fill_factor {res['fill_factor']:.4f}, bucket_counts {res['bucket_counts']}"
     print(f"{what} on {smi}: {res['audio_s_per_s']:.2f} audio-s/s over steps 11-{LOADER_STEPS} (their audio "
           f"over their wall, nine log windows); "
           f"rd {res['rd_share']:.1%} of their wall ({res['rd_share_first_epoch']:.1%} over steps 11-{n_epoch}, "
@@ -3107,6 +2990,8 @@ def loader_phase(smi):
         if out[way]["step1_loss"] != out["a"]["step1_loss"]:
             fail(f"loader way ({way}): step 1 loss {out[way]['step1_loss']!r} against (a)'s "
                  f"{out['a']['step1_loss']!r}")
+    if (out["b"]["fill_factor"], out["b"]["bucket_counts"]) != (out["c"]["fill_factor"], out["c"]["bucket_counts"]):
+        fail("loader: an epoch's fill_factor or bucket_counts differ between the streamed and device-corpus ways")
     print(f"loader: the first 8 device batches of ways {sorted(w for w in seen if w != 'a')} equal (a)'s bitwise "
           "(the wav and FLAC files' among them); step 1 losses equal", flush=True)
     return out
@@ -3246,7 +3131,7 @@ def recipe_960h_kernel_checks(dev, cfg, vocab):
     out = {}
 
     def row(name, shapes, err, ms, plain_ms, work, library_ms=None, **extra):
-        out[name] = dict(shapes=shapes, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=bound_ms(*work),
+        out[name] = dict(shapes=shapes, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound=profiling.bound_ms(*work),
                          library_ms=library_ms, **extra)
         r = out[name]
         print(f"  {name} [960h: {shapes}]: {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms} ms, "
@@ -3258,7 +3143,7 @@ def recipe_960h_kernel_checks(dev, cfg, vocab):
     err, _, _ = log_mel_wave_check("randn, the 3056-frame bucket", wav, a, dev)
     row("log_mel", f"wav [{b_long},{n}] -> [{b_long},{frames},{a.feat_dim}]", err,
         time_ms(lambda: fec.log_mel(wav, a, win, shift, n_fft), 10),
-        time_ms(lambda: fec.log_mel_plain(wav, a, win, shift, n_fft), 3, 1), log_mel_work(a, b_long, n, win, n_fft))
+        time_ms(lambda: fec.log_mel_plain(wav, a, win, shift, n_fft), 3, 1), profiling.log_mel_work(a, b_long, n, win, n_fft))
 
     s_len = frames // 4
     logits = 3.0 * torch.randn((b_long, s_len, vocab), generator=gen, device=dev)
@@ -3286,7 +3171,7 @@ def recipe_960h_kernel_checks(dev, cfg, vocab):
     row("ctc_loss", f"log_probs [{b_long},{s_len},{vocab}], labels [{b_long},{l_max}]", err,
         time_ms(lambda: ctc_cuda.ctc_lattice(lp, labels, inlen, lablen), 10),
         time_ms(lambda: ctc_cuda.ctc_lattice_grad_plain(lp, labels, inlen, lablen), 3, 1),
-        ctc_work(lp, labels, inlen, lablen), library_ms=time_ms(library, 5))
+        profiling.ctc_work(lp, labels, inlen, lablen), library_ms=time_ms(library, 5))
 
     s_dec = c.buckets[1] // 4  # the decode batch's bucket (416 frames)
     args = flagship_att_inputs(dev, s=s_dec, cfg=cfg)
@@ -3299,7 +3184,7 @@ def recipe_960h_kernel_checks(dev, cfg, vocab):
     q, v = args[0], args[3]
     row("att_step_beam_loc", f"q [{q.shape[0]},{q.shape[1]},{q.shape[2]}], S {s_dec}, E {v.shape[2]}", err,
         time_ms(lambda: asc.att_step_beam_loc(*args), 20), time_ms(lambda: asc.att_step_beam_loc_plain(*args), 20),
-        att_step_work(args), ms_s764=time_ms(lambda: asc.att_step_beam_loc(*args764), 10),
+        profiling.att_step_work(args), ms_s764=time_ms(lambda: asc.att_step_beam_loc(*args764), 10),
         plan=asc.plan(q.shape[0], q.shape[1], s_dec, q.shape[2], v.shape[2], args[5].shape[0], args[5].shape[1]),
         plan_s764=asc.plan(q.shape[0], q.shape[1], s_len, q.shape[2], v.shape[2], args[5].shape[0],
                            args[5].shape[1]))
@@ -3310,7 +3195,7 @@ def recipe_960h_kernel_checks(dev, cfg, vocab):
               for nm, g, wt in zip(("psi", "r_h", "psi_eos"), got, want))
     row("prefix_recursion", f"ctc_lp [{pargs[0].shape[0]},{s_dec},{vocab}], W {pargs[4].shape[1]}, "
         f"K {pargs[4].shape[2]}", err, time_ms(lambda: cpc.prefix_scores_fused(*pargs), 20),
-        time_ms(lambda: cpc.prefix_scores_fused_plain(*pargs), 3, 1), prefix_work(pargs))
+        time_ms(lambda: cpc.prefix_scores_fused_plain(*pargs), 3, 1), profiling.prefix_work(pargs))
     return out
 
 
@@ -3922,6 +3807,73 @@ def variants_phase(dev, smi, batch):
     return out
 
 
+STAGE_SOL_MAX = 1.05  # a stage's ceiling over its measured time: above this the count is wrong
+# (name, recipe, bucket frames, batch (0: the recipe's, halved above half_batch_len), compute type, traced)
+STAGE_TABLES = (("flagship, float32", "configs/libri/asr_example.yaml", 816, 16, "float32", False),
+                ("flagship, bfloat16", "configs/libri/asr_example.yaml", 816, 16, "bfloat16", True),
+                ("asr_960h.yaml, bfloat16", "configs/libri/asr_960h.yaml", 3056, 0, "bfloat16", False))
+# kernel names a traced flagship step must show: the scan pair's and the lstm_seq pair's sweeps
+TRACE_KERNELS = ("decoder_scan_fwd_kernel", "decoder_scan_bwd_kernel", "lstm_fwd_sweep_kernel",
+                 "lstm_bwd_sweep_kernel")
+# the kernels each stage program of STAGE_TABLES' recipes launches (the encoder's
+# BiLSTM layers under rnn_impl auto: the lstm_seq pair), by wrapper name
+STAGE_KERNELS = {"frontend_fwd": ("log_mel",), "encoder_fb": ("lstm_seq_fwd", "lstm_seq_bwd"),
+                 "ctc_fb": ("ctc_lattice",), "decoder_fb": ("decoder_scan_fwd", "decoder_scan_bwd")}
+
+
+def stages_phase(smi):
+    """The train step's stages (``utils/stages.py`` through
+    ``bin/profile_decode.stage_table``) for each of STAGE_TABLES: every
+    stage program (features, encoder, CTC, speller, optimizer) captured as a
+    CUDA graph from seed-0 weights and its replays timed, against its
+    ceiling, and the stages' sum against one replayed train step's busy;
+    the flagship's bf16 step traced once (``utils/profiling.trace``). Fails
+    if a stage's ms is not finite and positive, if its sol exceeds
+    STAGE_SOL_MAX, if a stage program does not launch each of its kernels
+    (STAGE_KERNELS: log_mel, the lstm_seq pair, ctc_loss, the scan pair, in
+    the table's variant) in a replay, or if the launch counters, set to 0
+    just before the stage programs run and read just after, show one of
+    them not launched; or if the trace is empty or names none of
+    TRACE_KERNELS."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.bin.profile_decode import stage_table
+    from e2e_asr_tpu_torch.config import Config
+
+    tdir = os.path.join(cuda_build.BUILD_DIR, "stages_trace")
+    out = {}
+    for name, path, frames, batch, dtype, traced in STAGE_TABLES:
+        print(f"[stages] {name} ({path}, {frames}-frame bucket) on {smi}", flush=True)
+        res = stage_table(Config.load(path), frames, dtype, batch, trace_dir=tdir if traced else "")
+        for stage, kernels in STAGE_KERNELS.items():
+            # log_mel and ctc_loss run float32 at either compute type
+            want = [k if k in ("log_mel", "ctc_lattice") or dtype == "float32" else f"{k}_bf16" for k in kernels]
+            got = res["stage_launches"].get(stage, {})
+            print(f"  {stage} launches a replay: {got}", flush=True)
+            if not all(got.get(k, 0) > 0 for k in want):
+                fail(f"stages {name}: the {stage} program does not launch {want}: {got}")
+            if not all(res["launches"].get(k, 0) > 0 for k in want):
+                fail(f"stages {name}: the counters after the stage programs show {want} not launched: "
+                     f"{res['launches']}")
+        for k, ms in res["stage_ms"].items():
+            sol = res["ceilings"][k]["ceiling_ms"] / ms if ms > 0 else math.inf
+            if not (math.isfinite(ms) and ms > 0):
+                fail(f"stages {name}: {k} took {ms} ms")
+            if sol > STAGE_SOL_MAX:
+                fail(f"stages {name}: {k}'s ceiling {res['ceilings'][k]['ceiling_ms']:.5f} ms is above its "
+                     f"measured {ms:.5f} ms (sol {sol:.3f}): a wrong count")
+        print(f"  launches in the stage programs' timed replays: {res['launches']}", flush=True)
+        out[name] = res
+    trace_path = out["flagship, bfloat16"]["trace"]
+    text = open(trace_path).read() if os.path.isfile(trace_path) else ""
+    missing = [k for k in TRACE_KERNELS if k not in text]
+    print(f"[stages] trace of a replayed flagship bf16 step: {trace_path}, {len(text)} bytes; "
+          f"kernels named: {[k for k in TRACE_KERNELS if k in text]}", flush=True)
+    if not text or missing:
+        fail(f"the traced flagship step is empty or does not name {missing}")
+    out["trace_bytes"] = len(text)
+    return out
+
+
 def main(json_path: str = "", parent: str = "") -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -4013,6 +3965,7 @@ def main(json_path: str = "", parent: str = "") -> None:
     r960 = recipe_960h_phase(smi)
     variants = variants_phase(dev, smi, batch)
     ddp = ddp_phase(smi)
+    stage_tables = stages_phase(smi)
     r = kern["log_mel"]
     mel_waves["convergence_batch"] = conv.pop("log_mel_wave")
     for key, v in zip(("max_abs_err_by_wave", "cufft_max_abs_err_by_wave", "f64_max_abs_err_by_wave"),
@@ -4136,7 +4089,7 @@ def main(json_path: str = "", parent: str = "") -> None:
                    "lm_train": lm_train,
                    "convergence": conv,
                    "recipes": recipes, "loader": loader, "bf16": bf16, "recipe_960h": r960, "variants": variants,
-                   "data_parallel": ddp}, f, indent=1)
+                   "data_parallel": ddp, "stages": stage_tables}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -5,6 +5,7 @@ epoch or an LM step goes on the card.
         [--lm-weight W] [--eager] [--parent DIR] [--out PATH]
     python -m e2e_asr_tpu_torch.bin.profile_decode --validate [--dtype D] | --lm [--parent DIR]
     python -m e2e_asr_tpu_torch.bin.profile_decode --ddp [--dtype D] [--parent DIR]
+    python -m e2e_asr_tpu_torch.bin.profile_decode --stages [--dtype D] [--config YAML] [--bucket F] [--batch B]
 
 Decode (default): decodes the chip smoke batch (16 synthetic utterances in
 the 816-frame bucket, flagship width, seed-0 weights, beam 16, ctc_weight
@@ -74,6 +75,18 @@ device launches a step, the device time of the collective (NCCL) kernels,
 of the random draws and of every kernel the group adds to the step
 (``profile_ddp_turns.json``).
 
+``--stages`` prints the train step's stage table at a recipe's bucket
+(``--config``, default the flagship; ``--bucket`` frames, default 816;
+``--batch``, default the recipe's batch size, halved above its
+half_batch_len as the loader halves it; ``--dtype``, default the
+recipe's): each stage of ``utils/stages.py`` (the features' forward, the
+encoder's, the CTC objective's and the teacher-forced speller's value and
+gradient, the optimizer's update) captured once as a CUDA graph and its
+replays timed, beside its ceiling and ``sol`` (the JAX package's rounded
+report and the unrounded numbers), then the sum of the stages' ms against
+the busy of one replayed train step at the same bucket: stages timed alone
+do not overlap, so the sum may exceed the step (``profile_stages.json``).
+
 ``--decode-phases`` instead splits one launch of each decode kernel into
 its phases: the timing builds (``-DATT_PHASES``, ``-DPREFIX_PHASES``) run at
 the flagship decode shapes (B=16, W=16, S=T=204, Dk=300, E=640, K=10, P=201,
@@ -113,6 +126,7 @@ import numpy as np
 import torch
 
 from e2e_asr_tpu_torch.ops.decoder_cuda import PHASE_BUILD
+from e2e_asr_tpu_torch.utils.profiling import device_ms
 
 FLAGSHIP = "configs/libri/asr_example.yaml"
 LM_RECIPE = "configs/libri/lm_example.yaml"  # the LM that decode_example.yaml fuses in
@@ -567,25 +581,6 @@ def flagship_att_inputs(dev, seed: int = 1, s: int = 816 // 4, cfg=None):
             0.1 * torch.randn((dk,), generator=gen, device=dev), float(ac.temperature))
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 1) -> float:
-    """ms a call of ``fn`` on the card (CUDA events over ``iters`` calls),
-    the calls queued behind a spin of the card long enough that the host's
-    issue of them does not pace the card: device time, not launch rate (a
-    function of many launches stays host-paced)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
-
-
-SPIN_CYCLES_PER_CALL = 400_000  # ~0.2 ms of the card's clock per queued call: above a wrapper's host time
 DECODE_PHASE_VARIANTS = (("att_step", ("ATT_PHASES",)), ("ctc_prefix", ("PREFIX_PHASES",)))  # timing builds
 
 
@@ -1191,6 +1186,95 @@ def lm_turns(parent: str, card: str) -> dict:
     return out
 
 
+STAGE_VOCAB = 26  # the synthetic corpus's characters: the vocabulary of every smoke model
+STAGE_ITERS = 5  # replays a round of a stage program (time_fn: the median of three rounds)
+
+
+def stage_bucket(cfg, frames: int, batch: int = 0):
+    """(B, L) at ``cfg``'s bucket of ``frames`` feature frames: its token
+    bucket, and ``batch`` or else the config's batch size, halved above
+    ``half_batch_len`` as the loader sizes it."""
+    c = cfg.data.corpus
+    if frames not in c.buckets:
+        raise ValueError(f"{frames} is not a bucket of the config: {c.buckets}")
+    b = batch or (max(1, c.batch_size // 2) if frames > c.half_batch_len else c.batch_size)
+    return b, c.token_buckets[c.buckets.index(frames)]
+
+
+def stage_table(cfg, frames: int, dtype: str, batch: int = 0, vocab: int = STAGE_VOCAB,
+                iters: int = STAGE_ITERS, trace_dir: str = "") -> dict:
+    """The train step's stages at ``cfg``'s bucket of ``frames`` frames and
+    compute type ``dtype`` (``utils/stages.py``: each stage program
+    captured and its replays timed, held against its ceiling), printed
+    with the JAX package's rounded report beside the unrounded numbers, and
+    the sum of the stages' ms against one replayed train step's busy
+    (``profile_run`` of ``Trainer.train_step`` through ``TrainGraphs`` on
+    the stage inputs). With ``trace_dir`` one replayed step is traced there
+    (``utils/profiling.trace``, ``train_step.json``). Seed-0 weights.
+    ``stage_launches``: each program's kernel launches a replay;
+    ``launches``: the launch counters, set to 0 just before the stage
+    programs run and read just after them (before the step runs)."""
+    import copy
+
+    from e2e_asr_tpu_torch.device import resolve_device
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.training.step import Trainer
+    from e2e_asr_tpu_torch.training.step_graph import COUNTED, COUNTERS, TrainGraphs
+    from e2e_asr_tpu_torch.utils import stages
+    from e2e_asr_tpu_torch.utils.profiling import trace
+
+    dev = resolve_device("cuda")
+    cfg = copy.deepcopy(cfg)
+    cfg.hparas.dtype = dtype
+    b, l_tok = stage_bucket(cfg, frames, batch)
+    for fn in COUNTED:
+        for c in COUNTERS:
+            setattr(fn, c, 0)
+    stage_launches: dict = {}
+    measured = stages.measure_stages(cfg, b, frames, l_tok, vocab, iters, dtype, dev, launches=stage_launches)
+    launches = {fn.__name__ + ("_bf16" if c == "launches_bf16" else ""): getattr(fn, c)
+                for fn in COUNTED for c in COUNTERS}
+    n_params = stages.param_count(cfg, vocab)
+    ceil = stages.stage_ceilings(cfg, b, frames, l_tok, vocab, dtype, n_params)
+    rep = stages.stage_report(cfg, b, frames, l_tok, vocab, measured, n_params, dtype)
+
+    trainer = Trainer(cfg)
+    params, _ = asr_mod.asr_init(0, cfg.data.audio.output_dim, vocab, cfg.model, dev)
+    state = trainer.init_state(params)
+    inputs = stages.stage_inputs(cfg, b, frames, l_tok, vocab)
+    tbatch = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+    graphs, gen = TrainGraphs(), torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def run():
+        float(trainer.train_step(state, tbatch, gen, graphs=graphs)["loss"])
+
+    audio_s = float(inputs["wav_len"].sum()) / cfg.data.audio.sample_rate
+    step = profile_run(run, audio_s, reps=TRAIN_REPS)
+    step.pop("kernels")
+    out = {"frames": frames, "b": b, "l_tok": l_tok, "vocab": vocab, "dtype": dtype, "n_params": n_params,
+           "report": rep, "stage_ms": {k: v * 1e3 for k, v in measured.items()},
+           "ceilings": {k: ceil[k] for k in ceil}, "stage_sum_ms": sum(measured.values()) * 1e3, "step": step,
+           "stage_launches": stage_launches, "launches": {k: n for k, n in launches.items() if n}}
+    if trace_dir:
+        with trace(trace_dir, "train_step"):
+            run()
+        out["trace"] = os.path.join(trace_dir, "train_step.json")
+    print(f"stages at the {frames}-frame bucket (B {b}, L {l_tok}, vocab {vocab}, {dtype}, "
+          f"{n_params} parameters):", flush=True)
+    print(f"  {'stage':<14} {'ms':>10} {'ceiling ms':>11} {'sol':>7}  bound  (report: ms / ceiling / sol)")
+    for k, v in rep.items():
+        c = ceil[k]
+        print(f"  {k:<14} {measured[k] * 1e3:>10.4f} {c['ceiling_ms']:>11.5f} {c['ceiling_ms'] / (measured[k] * 1e3):>7.4f}"
+              f"  {v['bound']:<10} ({v['ms']} / {v['ceiling_ms']} / {v['sol']})")
+    for k in ("vgg_fb", "recurrence_fb"):
+        print(f"  {k:<14} {'':>10} {ceil[k]['ceiling_ms']:>11.5f} {'':>7}  {ceil[k]['bound']}")
+    print(f"  sum of the stages {out['stage_sum_ms']:.3f} ms against the replayed train step's busy "
+          f"{step['device_busy_ms']:.3f} ms (wall {step['wall_ms']:.3f} ms; stages timed alone do not "
+          f"overlap)", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true", help="profile one training step")
@@ -1222,8 +1306,20 @@ def main(argv=None):
     ap.add_argument("--ddp", action="store_true",
                     help="profile the flagship graph step without a group, in a world-1 NCCL group and with the "
                          "draws of a rank of two (with --parent: and the parent's), in turns")
+    ap.add_argument("--stages", action="store_true",
+                    help="the train step's stages, each timed as its own captured program against its ceiling "
+                         "(with --config, --bucket, --batch, --dtype)")
+    ap.add_argument("--config", default=FLAGSHIP, help="with --stages: the recipe")
+    ap.add_argument("--bucket", type=int, default=816, help="with --stages: the bucket's frames")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="with --stages: the batch (default: the recipe's, halved above half_batch_len)")
     ap.add_argument("--out", default="", help="JSON result (default: _build/profile_*.json)")
     args = ap.parse_args(argv)
+    if args.stages and (args.train or args.validate or args.lm or args.ddp or args.scan_phases
+                        or args.decode_phases or args.lm_weight or args.eager or args.parent):
+        ap.error("--stages stands alone (with --config, --bucket, --batch and --dtype)")
+    if not args.stages and (args.config != FLAGSHIP or args.bucket != 816 or args.batch):
+        ap.error("--config, --bucket and --batch are options of --stages")
     if args.ddp and (args.train or args.validate or args.lm or args.scan_phases or args.decode_phases
                      or args.lm_weight or args.eager):
         ap.error("--ddp stands alone (with --parent and --dtype)")
@@ -1232,7 +1328,8 @@ def main(argv=None):
         ap.error("--validate and --lm stand alone (with --parent, and --dtype for --validate)")
     if args.scan_phases and not args.train:
         ap.error("--scan-phases needs --train")
-    if args.dtype != "recipe" and (not (args.train or args.validate or args.ddp) or args.scan_phases):
+    if args.dtype != "recipe" and (not (args.train or args.validate or args.ddp or args.stages)
+                                   or args.scan_phases):
         ap.error("--dtype is an option of the training and validation profiles")
     if args.lm_weight and (args.train or args.decode_phases):
         ap.error("--lm-weight is an option of the decode profile")
@@ -1242,7 +1339,7 @@ def main(argv=None):
         raise SystemExit("profile_decode: needs a CUDA device")
     from e2e_asr_tpu_torch import cuda_build
 
-    what = ("ddp_turns" if args.ddp else "validate_turns" if args.validate else "lm_turns" if args.lm
+    what = ("stages" if args.stages else "ddp_turns" if args.ddp else "validate_turns" if args.validate else "lm_turns" if args.lm
             else "scan_phases" if args.scan_phases else "decode_phases" if args.decode_phases
             else "train_turns" if args.train and args.parent else ("train" + ("_eager" if args.eager else ""))
             if args.train else "decode_turns" if args.parent
@@ -1252,6 +1349,17 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.stages:
+        from e2e_asr_tpu_torch.config import Config
+
+        cfg = Config.load(args.config)
+        dtype = cfg.hparas.dtype if args.dtype == "recipe" else args.dtype
+        print(f"{card}: {args.config}", flush=True)
+        res = stage_table(cfg, args.bucket, dtype, args.batch)
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump({"card": card, "config": args.config, **res}, f, indent=1)
+        return
     if args.ddp:
         res = ddp_turns(args.parent, card, "" if args.dtype == "recipe" else args.dtype)
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)

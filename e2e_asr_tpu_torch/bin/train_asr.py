@@ -62,7 +62,8 @@ while the host's other ranks wait.
 Time per logged window: ``rd`` is the wait for the next batch in
 ``next(prefetch)``, ``disp`` the host time spent issuing the steps' work,
 ``dev`` the rest of the window (window time - rd - disp): the time the
-device's queue held the host back, ending with the ring's read. A record's
+device's queue held the host back, ending with the ring's read. The line
+ends with the process's resident memory (``rss``, as the JAX trainer's). A record's
 ``wall_s`` is the host time from its step's start to the next step's
 start (the window's last step: to the end of the ring's read).
 """
@@ -89,6 +90,7 @@ from e2e_asr_tpu_torch.solver import BaseSolver
 from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
 from e2e_asr_tpu_torch.training.step import EVAL_SCALARS, Trainer, compute_dtype, param_leaves
 from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+from e2e_asr_tpu_torch.utils.misc import human_format, rss_gb
 
 DEV_STEP_RATIO = 1.2  # greedy decode steps per target token at validation
 STEP_LOG_LEN = 1000
@@ -149,7 +151,7 @@ class Solver(BaseSolver):
         n_params = sum(p.numel() for p in param_leaves(self.state.params))
         self.verbose(
             f"ASR model: enc_dim={self.shapes.enc_dim}, vocab={self.vocab_size}, "
-            f"#params={n_params}, device={self.device}"
+            f"#params={human_format(n_params)}, device={self.device}"
         )
         self.compute_dtype = str(compute_dtype(cfg)).replace("torch.", "")
         self.verbose(f"Compute dtype: {self.compute_dtype}")
@@ -295,7 +297,7 @@ class Solver(BaseSolver):
                         f"ctc {m.get('ctc_loss', 0):.3f} | gnorm {m['grad_norm']:.2f} | "
                         f"tf {m['tf_rate']:.2f} | {thr:.1f} audio-s/s/chip | "
                         f"rd {t_rd:.2f}s ({t_rd / max(dt, 1e-9):.0%}) | disp {t_disp:.2f}s | "
-                        f"dev {t_dev:.2f}s ({t_dev / max(dt, 1e-9):.0%})"
+                        f"dev {t_dev:.2f}s ({t_dev / max(dt, 1e-9):.0%}) | rss {rss_gb():.1f}G"
                     )
                     self.write_log("loss", {"tr_att": m.get("att_loss", 0.0), "tr_ctc": m.get("ctc_loss", 0.0)})
                     self.write_log("grad_norm", m["grad_norm"])

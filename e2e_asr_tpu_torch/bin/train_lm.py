@@ -58,6 +58,7 @@ from e2e_asr_tpu_torch.parallel import dist
 from e2e_asr_tpu_torch.solver import BaseSolver
 from e2e_asr_tpu_torch.training.lm_graph import LMEvalGraphs, LMGraphs
 from e2e_asr_tpu_torch.training.step import Reduce, TrainState, device_update, param_leaves
+from e2e_asr_tpu_torch.utils.misc import human_format
 
 STEP_LOG_LEN = 1000
 
@@ -165,7 +166,7 @@ class Solver(BaseSolver):
             self.state.step = self.step = int(payload["step"])
             self.verbose(f"Resumed from {self.paras.load} @ step {self.step}")
         n = sum(p.numel() for p in param_leaves(params))
-        self.verbose(f"RNNLM: #params={n}, device={self.device}")
+        self.verbose(f"RNNLM: #params={human_format(n)}, device={self.device}")
         # a data-parallel step sums over the ranks; in a world of one it sums nothing
         self.reduce = dist.all_sum_ if dist.initialized() else None
         self.graphs = self.eval_graphs = None  # the CPU runs the eager step and evaluation

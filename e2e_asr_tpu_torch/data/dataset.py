@@ -25,8 +25,13 @@ every process), round each bucket's batch up to a multiple of
 contiguous block of rows: the other blocks' waves are never read.
 ``batch_shapes()`` reports local rows. ``BucketedLoader.epoch(shard=(i,
 n))`` instead takes every n-th batch from the i-th, chosen before any is
-materialised (the sharded decode). ``rebatch`` / ``bucket_counts`` /
-``fill_factor`` are not ported yet (ROADMAP).
+materialised (the sharded decode).
+
+Sizing: ``rebatch(batch_size)`` re-partitions the batches for one batch
+size or one a bucket (the constructor calls it), ``bucket_counts()``
+gives the utterances a bucket, and ``fill_factor`` the share of the materialised slots' samples
+that is audio since the last ``epoch()`` began, on every route (the wave
+cache, ``pack_batch``, the device corpus's offsets).
 
 Waves reach a streaming batch by one of two routes, the JAX loader's
 routing: when every row of the process's block is backed by a wav file,
@@ -142,25 +147,42 @@ class BucketedLoader:
             self._items.append((u, ids, bi))
         self.skipped = skipped
         self._items.sort(key=lambda it: it[0].n_samples)
+        self._half_batch_len = half_batch_len
+        self.rebatch(batch_size)
+        # pad counters: real samples against the slots' samples of the
+        # batches materialised since the last epoch() began (fill_factor)
+        self._fill_lock = threading.Lock()
+        self.fill_num = 0
+        self.fill_den = 0
 
+    def rebatch(self, batch_size) -> None:
+        """(Re)compute the batch partition for new batch sizes without
+        re-tokenising the manifest. ``batch_size``: one int for every bucket,
+        or a list with one per bucket. A bucket longer than
+        ``half_batch_len`` frames takes half its size (HALF_BATCHSIZE_AUDIO_LEN). Every
+        batch of a bucket is padded to the bucket's largest, rounded up to a
+        multiple of ``process_count`` (alike on every process: the manifest
+        is not sharded)."""
         per_bucket: Dict[int, List[int]] = {}
         for idx, (_, _, bi) in enumerate(self._items):
             per_bucket.setdefault(bi, []).append(idx)
+        if isinstance(batch_size, (list, tuple)):
+            if len(batch_size) != len(self.buckets_frames):
+                raise ValueError(f"{len(batch_size)} batch sizes for {len(self.buckets_frames)} buckets")
+            bs_per_bucket = [int(x) for x in batch_size]
+        else:
+            bs_per_bucket = [int(batch_size)] * len(self.buckets_frames)
         self._batches: List[Tuple[int, List[int]]] = []
         for bi, idxs in sorted(per_bucket.items()):
-            bs = int(batch_size)
-            if self.buckets_frames[bi] > half_batch_len:
+            bs = bs_per_bucket[bi]
+            if self.buckets_frames[bi] > self._half_batch_len:
                 bs = max(1, bs // 2)  # ref: HALF_BATCHSIZE_AUDIO_LEN
             for s in range(0, len(idxs), bs):
                 self._batches.append((bi, idxs[s : s + bs]))
-        # deterministic per-bucket pad size: every batch of a bucket has B rows,
-        # B a multiple of process_count, so that every process owns a block
-        # of B / process_count rows (alike on every process: the manifest is
-        # not sharded)
         self._pad_bs: Dict[int, int] = {}
         for bi, chunk in self._batches:
             self._pad_bs[bi] = max(self._pad_bs.get(bi, 0), len(chunk))
-        p = process_count
+        p = self.process_count
         for bi in self._pad_bs:
             self._pad_bs[bi] = ((self._pad_bs[bi] + p - 1) // p) * p
 
@@ -176,6 +198,22 @@ class BucketedLoader:
     @property
     def num_utts(self) -> int:
         return len(self._items)
+
+    def bucket_counts(self) -> List[int]:
+        """Utterances assigned to each bucket (a batch size that does not
+        divide a bucket's count pads its last chunk with empty rows)."""
+        out = [0] * len(self.buckets_frames)
+        for _, _, bi in self._items:
+            out[bi] += 1
+        return out
+
+    @property
+    def fill_factor(self) -> float:
+        """Real samples over the slots' samples of the batches materialised
+        since the last ``epoch()`` began (this process's rows): the share of
+        a batch that is audio, not padding."""
+        with self._fill_lock:
+            return self.fill_num / max(self.fill_den, 1)
 
     def batch_shapes(self) -> List[Tuple[int, int, int]]:
         """Distinct (local rows, n_samples, l_tokens) batch shapes this loader emits."""
@@ -239,6 +277,9 @@ class BucketedLoader:
             uids.append(u.uid)
         # batch padding rows keep wav_len=0/text_len=0 => fully masked
         uids += [""] * (b - len(idxs))
+        with self._fill_lock:
+            self.fill_num += int(wav_len.sum())
+            self.fill_den += b * n_bucket
         return Batch(wav, wav_len, txt, txt_len, tuple(uids), wav_off, n_bucket)
 
     # ------------------------------------------------- device-resident corpus
@@ -329,6 +370,8 @@ class BucketedLoader:
         if not asc and self.shuffle:
             np.random.RandomState(self.seed + epoch_idx).shuffle(order)
         order = order[skip_first:][shard[0]::shard[1]]
+        with self._fill_lock:
+            self.fill_num = self.fill_den = 0
         if self.num_workers <= 0:
             for oi in order:
                 yield self._materialize(*self._batches[oi])

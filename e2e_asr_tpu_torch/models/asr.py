@@ -32,6 +32,7 @@ from e2e_asr_tpu_torch.models import plugin as plugin_mod
 from e2e_asr_tpu_torch.models.layers import Params
 from e2e_asr_tpu_torch.ops import decoder_cuda
 from e2e_asr_tpu_torch.parallel import dist
+from e2e_asr_tpu_torch.utils.misc import warn_once
 
 
 class ASRShapes(NamedTuple):
@@ -148,18 +149,10 @@ def _use_fused_scan(params: Params, cfg: ModelConfig, train: bool, device: torch
     if device.type != "cuda":
         return False
     if ok and not fits:
-        _warn_once(f"decoder.fused_scan=auto: speller width {cfg.decoder.dim} / attention dim {dk} "
-                   "exceed the fused scan kernels' limits -> Python loop")
+        warn_once(f"fused_scan:{cfg.decoder.dim}:{dk}",
+                  f"decoder.fused_scan=auto: speller width {cfg.decoder.dim} / attention dim {dk} "
+                  "exceed the fused scan kernels' limits -> Python loop")
     return fits
-
-
-_warned = set()
-
-
-def _warn_once(msg: str) -> None:
-    if msg not in _warned:
-        _warned.add(msg)
-        print(f"[asr] {msg}", flush=True)
 
 
 def _exponential(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -210,10 +203,30 @@ def forward(
         out["ctc_log_probs"] = ctc_log_probs(params, enc)
     if "decoder" not in params:
         return out
+    out.update(spell(params, cfg, enc, enc_len, decode_step, tf_rate, teacher, generator, train,
+                     sample_decoding))
+    return out
+
+
+def spell(
+    params: Params,
+    cfg: ModelConfig,
+    enc: torch.Tensor,
+    enc_len: torch.Tensor,
+    decode_step: int,
+    tf_rate=1.0,
+    teacher: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    train: bool = False,
+    sample_decoding: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """The speller half of ``forward`` over the encoder's output: att_logits
+    [B, L, V], align [B, L, H, S], att_hidden [B, L, H_dec] by the fused
+    scan or the Python loop (``_use_fused_scan``)."""
     if teacher is None:
         raise ValueError("the attention head needs teacher tokens")
 
-    b = feat.shape[0]
+    b = enc.shape[0]
     teacher = teacher.long()
     teacher_in = torch.cat([teacher.new_zeros((b, 1)), teacher[:, : decode_step - 1]], dim=1)
     dev = enc.device
@@ -224,6 +237,7 @@ def forward(
     else:
         coins = torch.ones((decode_step,), dtype=torch.bool)
 
+    out: Dict[str, torch.Tensor] = {}
     if _use_fused_scan(params, cfg, train, enc.device):
         out["att_logits"], out["align"], out["att_hidden"] = decoder_cuda.run_decode_scan(
             params, cfg, enc, enc_len, teacher_in, coins, generator=generator, train=train,

@@ -6,6 +6,7 @@ import ast
 import csv
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -567,3 +568,60 @@ def test_shared_gemm_header_renames_both_lstm_libraries(monkeypatch, tmp_path):
     header.write_text(header.read_text() + "\n// edited\n")
     after = {n: cuda_build._lib_path(n) for n in cuda_build.SOURCES}
     assert {n for n in cuda_build.SOURCES if after[n] != before[n]} == {"lstm_bidir", "lstm_bidir_bwd"}
+
+
+def _n_params(ckpt_path) -> int:
+    from e2e_asr_tpu_torch.training.step import param_leaves
+
+    return sum(torch.as_tensor(x).numel() for x in param_leaves(torch.load(ckpt_path, weights_only=True)["params"]))
+
+
+def test_train_cli_progress_line_ends_in_rss_and_counts_params_as_jax(tmp_path, capsys):
+    """As the JAX trainer logs (``e2e_asr_tpu/bin/train_asr.py``): every
+    progress line ends ``| rss <GiB>G`` and the ``#params=`` count goes
+    through ``human_format``."""
+    from e2e_asr_tpu.utils.misc import human_format as jhuman_format
+
+    train_yaml = _tiny_train_yaml(tmp_path, max_step=2)
+    capsys.readouterr()
+    cli_main(["--config", str(train_yaml), "--cpu", "--name", "rss", "--logdir", str(tmp_path / "log"),
+              "--ckpdir", str(tmp_path / "ckpt")])
+    out = capsys.readouterr().out.splitlines()
+    progress = [line for line in out if "audio-s/s/chip" in line]
+    assert len(progress) == 2 and all(re.search(r" \| dev [0-9.]+s \([0-9]+%\) \| rss \d+\.\dG$", line)
+                                      for line in progress), progress
+    params = [line for line in out if "#params=" in line]
+    n = _n_params(tmp_path / "ckpt" / "rss" / "latest")
+    assert len(params) == 1 and f"#params={jhuman_format(n)}, " in params[0], (params, n)
+
+
+def test_lm_cli_counts_params_as_jax(tmp_path, capsys):
+    """The LM trainer's ``#params=`` line through ``human_format``, as
+    ``e2e_asr_tpu/bin/train_lm.py`` logs it."""
+    from e2e_asr_tpu.utils.misc import human_format as jhuman_format
+
+    lm_yaml = _tiny_lm_yaml(tmp_path)
+    capsys.readouterr()
+    cli_main(["--config", str(lm_yaml), "--lm", "--cpu", "--name", "lm", "--logdir", str(tmp_path / "log"),
+              "--ckpdir", str(tmp_path / "ckpt")])
+    params = [line for line in capsys.readouterr().out.splitlines() if "#params=" in line]
+    n = _n_params(tmp_path / "ckpt" / "lm" / "latest")
+    assert len(params) == 1 and f"RNNLM: #params={jhuman_format(n)}, " in params[0], (params, n)
+
+
+@pytest.mark.parametrize("x", [0, 7, 999, 1000, 15345940, 35404564, 2.5e9, 9.99e12, 1.2e15, -12345])
+def test_human_format_is_jaxs(x):
+    from e2e_asr_tpu.utils.misc import human_format as jhuman_format
+    from e2e_asr_tpu_torch.utils.misc import human_format
+
+    assert human_format(x) == jhuman_format(x)
+
+
+def test_rss_gb_and_warn_once(capsys):
+    from e2e_asr_tpu_torch.utils import misc
+
+    assert 0.0 < misc.rss_gb() < 1024.0
+    misc.warn_once("test-key", "first")
+    misc.warn_once("test-key", "second")
+    err = capsys.readouterr().err
+    assert err.count("[e2e_asr_tpu_torch] first") == 1 and "second" not in err

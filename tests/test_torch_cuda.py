@@ -65,7 +65,9 @@ regularizer's loss, and with its fused decoding) through the train graphs
 bitwise the eager step (the Python-loop speller captured, failing coins
 and sampled feedback on the card), their float32 kernel steps against
 their plain steps, and the first dev batch's validation keeping its
-alignment through its own graph, bitwise the eager one.
+alignment through its own graph, bitwise the eager one; the train step's
+stage programs (``utils/stages.py``) captured and replayed within their
+ceilings, each launching its kernels.
 Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
@@ -2397,3 +2399,67 @@ def test_eval_graph_replay_keeps_the_alignment_bitwise(gen, name):
         assert all(torch.equal(got[k], want[k]) for k in want), i
     trainer.validate_batch(state.params, _train_batch(12), EVAL_MAX_STEP, graphs=graphs)
     assert len(graphs.captures) == 2  # with and without the alignment
+
+
+# ------------------------------------------------------- the stage programs
+STAGE_SHAPE = (4, 208, 32, 26)  # B, bucket frames, tokens, vocabulary: the flagship's widths, small
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_measure_stages_on_the_card_within_their_ceilings(gen, dtype):
+    """``measure_stages`` at the flagship's widths and a small bucket (B 4,
+    208 frames, L 32): every stage program captured and its replays timed,
+    each time finite and positive and at or above its ceiling (sol at most
+    1.05: a ceiling above the measured time is a wrong count), and each
+    program's replay launches its kernels in the compute type's variant
+    (log_mel and ctc_loss float32 at either)."""
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.utils import stages
+
+    cfg = Config.load("configs/libri/asr_example.yaml")
+    launches = {}
+    got = stages.measure_stages(cfg, *STAGE_SHAPE, iters=2, dtype=dtype, launches=launches)
+    ceil = stages.stage_ceilings(cfg, *STAGE_SHAPE, dtype)
+    assert set(got) == set(stages.MEASURED)
+    for k, s in got.items():
+        assert math.isfinite(s) and s > 0, (k, s)
+        assert ceil[k]["ceiling_ms"] / (s * 1e3) <= 1.05, (k, ceil[k], s)
+    sfx = "_bf16" if dtype == "bfloat16" else ""
+    want = {"frontend_fwd": ["log_mel"], "encoder_fb": ["lstm_seq_fwd" + sfx, "lstm_seq_bwd" + sfx],
+            "ctc_fb": ["ctc_lattice"], "decoder_fb": ["decoder_scan_fwd" + sfx, "decoder_scan_bwd" + sfx],
+            "optimizer": []}
+    for k, names in want.items():
+        assert all(launches[k].get(n, 0) > 0 for n in names), (k, launches[k])
+
+
+def test_stage_programs_on_the_card_launch_their_kernels(gen):
+    """Each stage program captured as ``measure_stages`` captures it and
+    replayed launches its kernels, counted by the wrappers' launch counters
+    (the features: log_mel; the encoder under rnn_impl auto: the lstm_seq
+    pair; the CTC objective: ctc_loss; the speller: the scan pair), and a
+    replay's value is the eager run's."""
+    from e2e_asr_tpu_torch.config import Config
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+    from e2e_asr_tpu_torch.training.step_graph import Captured
+    from e2e_asr_tpu_torch.utils import stages
+
+    dev = torch.device("cuda")
+    cfg = Config.load("configs/libri/asr_example.yaml")
+    b, frames, l_tok, vocab = STAGE_SHAPE
+    params, _ = asr_mod.asr_init(0, 40, vocab, cfg.model, dev)
+    programs = stages.stage_programs(cfg, params, stages.stage_inputs(cfg, b, frames, l_tok, vocab), "float32", dev)
+    expect = {"frontend_fwd": [fec.log_mel], "encoder_fb": [rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_bwd],
+              "ctc_fb": [ctc_cuda.ctc_lattice], "decoder_fb": [dc.decoder_scan_fwd, dc.decoder_scan_bwd]}
+    stream = torch.cuda.Stream()
+    for name, fns in expect.items():
+        fn, batch = programs[name]
+        eager_gen = torch.Generator(device=dev)
+        eager_gen.manual_seed(0)
+        want = float(fn(batch, eager_gen))
+        g = Captured(batch, list(batch), stream)
+        g.capture(fn, 0)
+        before = [f.launches for f in fns]
+        got = float(g.replay(0))
+        assert all(f.launches > n for f, n in zip(fns, before)), (name, before)
+        assert math.isclose(got, want, rel_tol=1e-5, abs_tol=1e-5), (name, got, want)

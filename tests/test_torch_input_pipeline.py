@@ -378,3 +378,119 @@ def test_to_device_on_the_cpu_shares_the_array():
     x = np.arange(6, dtype=np.int16).reshape(2, 3)
     t = to_device(x, torch.device("cpu"))
     assert t.dtype == torch.int16 and np.shares_memory(t.numpy(), x)
+
+
+# ------------------------------------------------ the loader's sizing half
+def _sized(batch_size, n=40, **kw):
+    """(JAX loader, port loader) over one manifest with the sizing options
+    ``kw`` (half_batch_len, process_index / count)."""
+    jutts = jcorpus.load_corpus("synthetic", "", [f"train:{n}"])
+    tutts = tcorpus.load_corpus("synthetic", "", [f"train:{n}"])
+    jtok = jbuild_tokenizer(JConfig.from_dict({"data": DATA}).data, jutts)
+    ttok = tbuild_tokenizer(TConfig.from_dict({"data": DATA}).data, tutts)
+    common = dict(LADDER, num_workers=0, **kw)
+    return JLoader(jutts, jtok, batch_size, **common), TLoader(tutts, ttok, batch_size, **common)
+
+
+def _assert_same_partition(tl, jl):
+    assert tl._batches == jl._batches
+    assert tl._pad_bs == jl._pad_bs
+    assert len(tl) == len(jl) and tl.batch_shapes() == jl.batch_shapes()
+
+
+@pytest.mark.parametrize("batch_size,kw", [
+    (4, {}),
+    (3, {}),
+    ([2, 5, 3], {}),
+    ([2, 5, 3], {"process_count": 3, "process_index": 2}),
+    ([3, 6, 4], {"half_batch_len": 200}),  # the 208 and 416 buckets take half
+    (3, {"process_count": 2, "process_index": 1}),
+    ([5, 3, 7], {"process_count": 2, "process_index": 0}),
+])
+def test_rebatch_partition_matches_jax(batch_size, kw):
+    """One batch size or one a bucket, the half-batch rule and the pad rounded up to a multiple of process_count: the batches, the
+    pad sizes and the shapes are the JAX loader's; ``rebatch`` on a built
+    loader gives the partition a loader built with that size has."""
+    jl, tl = _sized(batch_size, **kw)
+    _assert_same_partition(tl, jl)
+    jl2, tl2 = _sized(7, **kw)
+    for ld in (jl2, tl2):
+        ld.rebatch(batch_size)
+    _assert_same_partition(tl2, jl)
+    _assert_same_partition(tl2, jl2)
+    if kw.get("process_count", 1) > 1:
+        assert all(b % kw["process_count"] == 0 for b in tl._pad_bs.values())
+
+
+def test_rebatch_takes_one_size_a_bucket():
+    """Each bucket's chunks take its own size, only its last one shorter;
+    every utterance is in one batch."""
+    jl, tl = _sized([2, 5, 3], n=40)
+    counts = tl.bucket_counts()
+    for bi, n in enumerate(counts):
+        sizes = [len(c) for b, c in tl._batches if b == bi]
+        assert sum(sizes) == n
+        if not n:
+            continue
+        assert all(k == [2, 5, 3][bi] for k in sizes[:-1]) and 0 < sizes[-1] <= [2, 5, 3][bi]
+    assert sorted(i for _, c in tl._batches for i in c) == list(range(tl.num_utts))
+    with pytest.raises(ValueError, match="batch sizes for 3 buckets"):
+        tl.rebatch([2, 5])
+
+
+@pytest.mark.parametrize("n", [24, 40])
+def test_bucket_counts_match_jax(n):
+    jl, tl = _sized(4, n=n)
+    assert tl.bucket_counts() == jl.bucket_counts()
+    assert sum(tl.bucket_counts()) == tl.num_utts == n - tl.skipped
+
+
+@pytest.mark.parametrize("route,workers,index,count", [
+    ("cache", 0, 0, 1), ("cache", 2, 0, 1), ("cache", 0, 1, 2), ("offsets", 0, 0, 1), ("offsets", 2, 1, 2),
+])
+def test_fill_factor_after_an_epoch_matches_jax(route, workers, index, count):
+    """Real samples over the slots' samples of this process's rows over an
+    epoch, on the wave cache's route and the device corpus's offsets, as
+    the JAX loader counts them; epoch() starts the count anew."""
+    jl, tl = _sized(3, process_index=index, process_count=count)
+    for ld in (jl, tl):
+        ld.num_workers = workers
+        if route == "offsets":
+            ld.flat_corpus()
+    assert tl.fill_factor == jl.fill_factor == 0.0
+    tb, jb = list(tl.epoch(1)), list(jl.epoch(1))
+    want = sum(int(b.wav_len.sum()) for b in tb) / sum(b.wav_len.shape[0] * b.n_samples for b in tb)
+    assert tl.fill_factor == jl.fill_factor == pytest.approx(want, rel=1e-12)
+    assert 0.0 < tl.fill_factor < 1.0
+    assert (tl.fill_num, tl.fill_den) == (jl.fill_num, jl.fill_den)
+    # a new epoch counts from 0: the batches materialised since it began
+    # (two without threads; with them, those filled ahead too)
+    den = tl.fill_den
+    it = tl.epoch(2)
+    first = [next(it), next(it)]
+    it.close()
+    two = sum(b.wav_len.shape[0] * b.n_samples for b in first)
+    assert tl.fill_den == two if workers == 0 else two <= tl.fill_den <= den
+
+
+def test_fill_factor_counts_the_native_pack_batch_route(tmp_path):
+    """A wav-file corpus, whose batches one native pack_batch fills: the
+    fill factor of an epoch is the JAX loader's."""
+    from e2e_asr_tpu.data.dataset import load_dataset as jload
+    from e2e_asr_tpu_torch.data.dataset import load_dataset as tload
+    from e2e_asr_tpu_torch import native
+    from tests.test_torch_native import _libri_data, _wav_tree
+
+    _wav_tree(tmp_path)
+    d = _libri_data(tmp_path, buckets=[208, 416, 816], token_buckets=[32, 48, 64])
+    calls = []
+    real = native.pack_batch
+    native.pack_batch = lambda paths, n, *a: calls.append(len(paths)) or real(paths, n, *a)
+    try:
+        tl = tload(TConfig.from_dict({"data": d}).data, num_workers=0)[0]
+        list(tl.epoch(0))
+    finally:
+        native.pack_batch = real
+    jl = jload(JConfig.from_dict({"data": d}).data, num_workers=0)[0]
+    list(jl.epoch(0))
+    assert calls and tl.fill_factor == jl.fill_factor and 0.0 < tl.fill_factor < 1.0
