@@ -989,8 +989,7 @@ def train_kernel_checks(dev, cfg, vocab):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        device_launches[nm] = sum(e.count for e in prof.key_averages()
-                                  if e.device_type == torch.autograd.DeviceType.CUDA)
+        device_launches[nm] = profiling.device_launches(prof)
     alt = alternating_ms({"kernel": loss_grad, "library": library})
     print(f"  ctc_loss: {per_call} kernel launch per CTCLossFn forward + backward; device launches "
           f"{device_launches['kernel']} (F.ctc_loss {device_launches['library']}); no host sync", flush=True)
@@ -1895,8 +1894,7 @@ def train_phase(smi):
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
                     trainer.train_step(state, dbatch, solver.step_generator(1))
                     torch.cuda.synchronize()
-                step_launches = sum(e.count for e in prof.key_averages()
-                                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                step_launches = profiling.device_launches(prof)
         (lk, gk, pk, tk), (lp_, gp, pp, tp) = res["kernel"], res["plain"]
         loss_rel = abs(lk - lp_) / abs(lp_)
         gn_rel = abs(gk - gp) / abs(gp)
@@ -2004,8 +2002,7 @@ def graph_phase(smi):
                     tg.train_step(sg, b, solver.step_generator(10), graphs=graphs)
                     torch.cuda.synchronize()
                 host = host_launches(prof)
-                dev_launches = sum(e.count for e in prof.key_averages()
-                                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                dev_launches = profiling.device_launches(prof)
                 print(f"  one replayed flagship step ({what}): {host} launches issued by the host, {dev_launches} "
                       "device launches (profiler)", flush=True)
                 if host >= 20:
@@ -2125,7 +2122,7 @@ def eval_graph_phase(smi):
         solver.trainer.validate_batch(solver.state.params, batch, max_step, graphs=shared)
         torch.cuda.synchronize()
     host = host_launches(prof)
-    device = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    device = profiling.device_launches(prof)
     print(f"  one replayed flagship dev batch (float32, auto, {max_step} greedy steps): {host} launches issued by the "
           f"host, {device} device launches (profiler)", flush=True)
     if host > EVAL_HOST_LIMIT:
@@ -2654,7 +2651,7 @@ def lm_graph_check(solver, fresh, smi):
         ring[1].copy_(train_lm.train_step(sg, og, lm, b, solver.step_generator(10), graphs=graphs)["scalars"])
         torch.cuda.synchronize()
     host = host_launches(prof)
-    device = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    device = profiling.device_launches(prof)
     print(f"  one replayed LM step (lm_example width, B={b['text'].shape[0]}, L={b['text'].shape[1]}): {host} "
           f"launches issued by the host, {device} device launches (profiler) on {smi}", flush=True)
     if host > EVAL_HOST_LIMIT:
@@ -3056,8 +3053,7 @@ def decode_phase(solver, batch, impl, lstm_fwd, smi, tag=""):
             res[mode] = solver.decode_batch(wav, wav_len, graphs=mode == "graph")
             torch.cuda.synchronize()
         counts[mode] = {name: fn.launches for name, fn in wrappers.items()}
-        device_l[mode] = sum(e.count for e in prof.key_averages()
-                             if e.device_type == torch.autograd.DeviceType.CUDA)
+        device_l[mode] = profiling.device_launches(prof)
         host_l[mode] = host_launches(prof)
         print(f"decode launches (rnn_impl {impl}{tag}, {mode}): {device_l[mode]} device launches a batch of "
               f"{steps} beam steps ({device_l[mode] / steps:.1f} a step), {host_l[mode]} issued by the host "

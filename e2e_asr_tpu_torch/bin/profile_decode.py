@@ -126,7 +126,7 @@ import numpy as np
 import torch
 
 from e2e_asr_tpu_torch.ops.decoder_cuda import PHASE_BUILD
-from e2e_asr_tpu_torch.utils.profiling import device_ms
+from e2e_asr_tpu_torch.utils.profiling import ANNOTATION_PREFIXES, device_events, device_ms
 
 FLAGSHIP = "configs/libri/asr_example.yaml"
 LM_RECIPE = "configs/libri/lm_example.yaml"  # the LM that decode_example.yaml fuses in
@@ -833,9 +833,9 @@ def profile_run(run, audio_s: float, reps: int = 1) -> dict:
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t1) * 1e3
     rows = []
-    for evt in prof.key_averages():
+    for evt in device_events(prof):
         us = _device_time_us(evt)
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        if us > 0:
             rows.append({"name": evt.key, "count": evt.count, "device_ms": us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
@@ -946,8 +946,8 @@ def turns_script(body: str) -> str:
     import inspect
 
     head = "import time\nimport torch\n"
-    head += f"HOST_LAUNCH_CALLS = {HOST_LAUNCH_CALLS!r}\n"
-    for fn in (_device_time_us, host_launches, profile_run):
+    head += f"HOST_LAUNCH_CALLS = {HOST_LAUNCH_CALLS!r}\nANNOTATION_PREFIXES = {ANNOTATION_PREFIXES!r}\n"
+    for fn in (device_events, _device_time_us, host_launches, profile_run):
         head += inspect.getsource(fn) + "\n"
     return head + body
 

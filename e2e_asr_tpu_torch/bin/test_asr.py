@@ -15,6 +15,13 @@ audio-seconds per second. The loader's threads fill the batches and a
 ``DevicePrefetcher`` copies them to the device ahead of the decode;
 ``stats[split]["input_s"]`` is the time the decode waited on it.
 
+Tracing (``utils/tracing.py``): a batch is a ``decode.batch`` span (id: the
+solver's batch number) around ``decode.features`` and ``beam_search``'s
+``decode.encoder``, ``decode.steps`` and ``decode.rank``. A split's summary
+line gives each one's host ms a batch, the beam step's device sections
+(``beam.*`` marks: ms a step, and the share of the marked time that lies
+between batches) and the wait on the prefetcher (``input.wait``).
+
 Under a process group (``main --multihost --test``, ``parallel/dist.py``)
 the decode is sharded by batch: rank r decodes batches r, r + n, r + 2n, ...
 of the split's order, chosen before any batch is loaded
@@ -36,7 +43,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from e2e_asr_tpu_torch import convert, cuda_build
+from e2e_asr_tpu_torch import convert
 from e2e_asr_tpu_torch.config import Config
 from e2e_asr_tpu_torch.data.dataset import load_eval_datasets
 from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
@@ -47,6 +54,8 @@ from e2e_asr_tpu_torch.models.encoder import total_downsample
 from e2e_asr_tpu_torch.native import levenshtein_batch
 from e2e_asr_tpu_torch.ops.frontend import compute_features
 from e2e_asr_tpu_torch.parallel import dist
+from e2e_asr_tpu_torch.solver import kernels_ready
+from e2e_asr_tpu_torch.utils import tracing
 
 
 class Solver:
@@ -117,9 +126,7 @@ class Solver:
             self.lm_params = lm["params"]
             self.verbose(f"Loaded RNNLM from {dcfg.lm_path} for shallow fusion (w={dcfg.lm_weight})")
         if self.device.type == "cuda":
-            t0 = time.time()
-            dist.local_first(cuda_build.build_all)  # the host's other ranks load what its local rank 0 built
-            self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
+            kernels_ready(self.verbose)
 
     def max_step_for(self, n_samples: int) -> int:
         """One max_step per bucket, from the bucket's sample count."""
@@ -138,13 +145,15 @@ class Solver:
     def decode_batch(self, wav: torch.Tensor, wav_len: torch.Tensor, graphs: bool = True) -> BeamResult:
         """Beam-decodes one batch given as tensors on the solver's device;
         on the card through the solver's graphs, or with ``graphs=False``
-        through the eager loop (for comparison)."""
-        feat, feat_len = compute_features(wav, wav_len, self.config.data.audio)
-        return beam_search(
-            self.params, self.config.model, self.config.decode, feat, feat_len,
-            self.max_step_for(wav.shape[1]), lm_params=self.lm_params, lm_cfg=self.lm_cfg,
-            graphs=graphs, graph_cache=self.beam_graphs,
-        )
+        through the eager loop (for comparison). The ``decode.batch`` span."""
+        with tracing.span("decode.batch"):
+            with tracing.span("decode.features"):
+                feat, feat_len = compute_features(wav, wav_len, self.config.data.audio)
+            return beam_search(
+                self.params, self.config.model, self.config.decode, feat, feat_len,
+                self.max_step_for(wav.shape[1]), lm_params=self.lm_params, lm_cfg=self.lm_cfg,
+                graphs=graphs, graph_cache=self.beam_graphs,
+            )
 
     def exec(self):
         """Decode every eval split, write per-split csvs; returns {split: error rate}."""
@@ -155,16 +164,16 @@ class Solver:
         batches = []  # (rows_out, rows_beam) of each batch this rank decodes, in order
         audio_sec = 0.0
         n_utt = 0
-        t_dev = t_in = 0.0
+        t_dev = 0.0
+        tracing.drop()  # the first batch's gap is not the last split's
+        before = tracing.snapshot("all")
         t0 = time.time()
         rank, world = dist.rank(), dist.world()
         prefetch = DevicePrefetcher(loader.epoch(shard=(rank, world)), lambda b: self.put(b.wav, b.wav_len),
                                     depth=2, device=self.device)
         try:
-            t_r = time.time()
             for batch, (wav, wav_len) in prefetch:
                 t_b = time.time()
-                t_in += t_b - t_r
                 res = self.decode_batch(wav, wav_len)
                 toks = res.tokens.cpu().numpy()
                 lens = res.lengths.cpu().numpy()
@@ -182,10 +191,11 @@ class Solver:
                     n_utt += 1
                     audio_sec += float(batch.wav_len[i]) / cfg.data.audio.sample_rate
                 batches.append((rows_out, rows_beam))
-                t_r = time.time()
         finally:
             prefetch.close()
         wall = time.time() - t0
+        after = tracing.snapshot("all")  # the last batch's readback has waited for the card
+        t_in = _delta(before, after, "input.wait")[1]
 
         mode = "cer" if self.tokenizer.token_type == "character" else "wer"
         split_ = str.split if mode == "wer" else list
@@ -216,7 +226,38 @@ class Solver:
         self.verbose(
             f"[{split}] decoded {n_utt} utts on {self.device} | {mode} {er:.4f} | "
             f"{audio_sec / max(wall, 1e-9):.1f} audio-s/s (decode {t_dev:.2f}s, input {t_in:.2f}s "
-            f"of {wall:.2f}s wall) "
+            f"of {wall:.2f}s wall) | {_batch_parts(before, after)}"
             f"| results -> {self.outdir}"
         )
         return er
+
+
+def _delta(before: dict, after: dict, span: str):
+    """(count, seconds) of ``span`` between two tracing snapshots."""
+    a, b = after["spans"].get(span, {}), before["spans"].get(span, {})
+    return a.get("n", 0) - b.get("n", 0), a.get("total_s", 0.0) - b.get("total_s", 0.0)
+
+
+def _batch_parts(before: dict, after: dict) -> str:
+    """A split's decode by part between two tracing snapshots: the batches,
+    each part's host ms a batch (and the graph replays a batch), and where
+    the beam step replayed graphs with marks, its device ms a step by
+    section and the share of the marked time that lies between batches."""
+    n = max(_delta(before, after, "decode.batch")[0], 1)
+
+    def counted(name):
+        return after["counts"].get(name, 0) - before["counts"].get(name, 0)
+
+    host = ", ".join(f"{p} {_delta(before, after, 'decode.' + p)[1] * 1e3 / n:.2f}"
+                     for p in ("features", "encoder", "steps", "rank"))
+    out = (f"{counted('input.batches')} batches, host ms a batch: {host} ({counted('graph.replays') / n:.0f} "
+           f"replays, {_delta(before, after, 'graph.replay')[1] * 1e3 / n:.2f} ms) ")
+    means = tracing.section_means(before, after, "beam.", per="beam.speller")
+    if means:
+        marked = {k: v["total_ms"] - before["sections"].get(k, {}).get("total_ms", 0.0)
+                  for k, v in after["sections"].items() if k.startswith("beam.")}
+        gap = marked.get("beam.between_batches", 0.0) / max(sum(marked.values()), 1e-9)
+        out += ("| beam step, device ms a step: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in means.items() if k != "between_batches")
+                + f"; between batches {gap:.1%} of the marked time ")
+    return out

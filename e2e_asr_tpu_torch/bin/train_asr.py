@@ -59,13 +59,17 @@ Rank 0 alone logs and writes
 checkpoints; each save ends in a barrier. Local rank 0 builds the kernels
 while the host's other ranks wait.
 
-Time per logged window: ``rd`` is the wait for the next batch in
-``next(prefetch)``, ``disp`` the host time spent issuing the steps' work,
+Time per logged window (``utils/tracing.py``): ``rd`` is the wait for the
+next batch in ``next(prefetch)`` (the ``input.wait`` spans), ``disp`` the
+host time spent issuing the steps' work (the ``train.step`` spans),
 ``dev`` the rest of the window (window time - rd - disp): the time the
-device's queue held the host back, ending with the ring's read. The line
-ends with the process's resident memory (``rss``, as the JAX trainer's). A record's
-``wall_s`` is the host time from its step's start to the next step's
-start (the window's last step: to the end of the ring's read).
+device's queue held the host back, ending with the ring's read. Where the
+steps replay graphs with stage marks, ``stage ms`` gives each stage's
+device ms a step over the window (the ``train.*`` sections, copied with the
+ring's read). The line ends with the process's resident memory (``rss``,
+as the JAX trainer's). A record's ``wall_s`` is the host time from its
+step's start to the next step's start (the window's last step: to the end
+of the ring's read); its ``rd_s`` is its step's ``input.wait``.
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ from typing import Deque, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from e2e_asr_tpu_torch import convert, cuda_build, optim
+from e2e_asr_tpu_torch import convert, optim
 from e2e_asr_tpu_torch.align_image import align_to_image
 from e2e_asr_tpu_torch.data.dataset import load_dataset
 from e2e_asr_tpu_torch.data.prefetch import DevicePrefetcher, to_device
@@ -86,10 +90,11 @@ from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.metrics import cal_er
 from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.parallel import dist
-from e2e_asr_tpu_torch.solver import BaseSolver
+from e2e_asr_tpu_torch.solver import BaseSolver, kernels_ready
 from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
 from e2e_asr_tpu_torch.training.step import EVAL_SCALARS, Trainer, compute_dtype, param_leaves
 from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+from e2e_asr_tpu_torch.utils import tracing
 from e2e_asr_tpu_torch.utils.misc import human_format, rss_gb
 
 DEV_STEP_RATIO = 1.2  # greedy decode steps per target token at validation
@@ -107,7 +112,7 @@ class Solver(BaseSolver):
         self.step_log: Deque[Dict[str, float]] = collections.deque(maxlen=STEP_LOG_LEN)
         self.input_mode = ""  # "stream" or "device_corpus", set by set_model
         self.dev_align: Optional[np.ndarray] = None  # the last dev epoch's att_align image
-        self.flat_corpus_s = 0.0  # host seconds flat_corpus() took (device corpus)
+        self.flat_corpus_s = 0.0  # host seconds flat_corpus() took (device corpus: its setup.corpus span)
 
     # ------------------------------------------------------------------ data
     def load_data(self):
@@ -156,9 +161,7 @@ class Solver(BaseSolver):
         self.compute_dtype = str(compute_dtype(cfg)).replace("torch.", "")
         self.verbose(f"Compute dtype: {self.compute_dtype}")
         if self.device.type == "cuda":
-            t0 = time.time()
-            dist.local_first(cuda_build.build_all)  # the host's other ranks load what its local rank 0 built
-            self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
+            kernels_ready(self.verbose)
         self._corpus_buf = self._device_corpus()
         self.train_graphs = self._train_graphs()
         self.eval_graphs = self._eval_graphs()
@@ -208,9 +211,9 @@ class Solver(BaseSolver):
             self.verbose(f"Input: streaming padded waves ({self.tr_set.num_workers} loader threads, "
                          f"device_cache {mode})")
             return None
-        t0 = time.time()
+        before = tracing.total_s("setup.corpus")
         flat, _ = self.tr_set.flat_corpus()
-        self.flat_corpus_s = time.time() - t0
+        self.flat_corpus_s = tracing.total_s("setup.corpus") - before
         buf = torch.from_numpy(flat).to(self.device)
         self.input_mode = "device_corpus"
         self.verbose(f"Input: device-resident corpus, {flat.nbytes / (1 << 20):.1f} MB int16 on "
@@ -248,7 +251,13 @@ class Solver(BaseSolver):
         ring = torch.empty((STEP_LOG_LEN, len(keys)), dtype=torch.float32, device=self.device)
         pending = []  # the host half of each step's record, until the ring is read
         t_wall = time.time()
-        audio_acc = t_rd = t_disp = 0.0
+        audio_acc = 0.0
+
+        def window_start():
+            """The totals a logged window's rd, disp and stage ms count from."""
+            return tracing.total_s("input.wait"), tracing.total_s("train.step"), tracing.snapshot("all")
+
+        rd0, disp0, snap0 = window_start()
 
         def flush() -> Dict[str, float]:
             """Reads the ring (the window's one wait for the device) into
@@ -257,6 +266,7 @@ class Solver(BaseSolver):
             window's throughput counts the latter. Returns the last step's
             metrics."""
             nonlocal audio_acc
+            tracing.fetch()  # the stage marks' totals, copied before the ring's read waits
             rows = ring[:len(pending)].tolist()
             audio = dist.allsum_scalars([rec["audio_s"] for rec in pending]).tolist()
             t_end = time.time()
@@ -272,17 +282,15 @@ class Solver(BaseSolver):
         try:
             while self.step < self.max_step:
                 t0 = time.time()
+                rd = tracing.total_s("input.wait")
                 batch, dbatch = next(prefetch)
-                t1 = time.time()
+                rd = tracing.total_s("input.wait") - rd
                 metrics = self.trainer.train_step(self.state, dbatch, self.step_generator(self.step),
                                                   graphs=self.train_graphs)
                 ring[len(pending)].copy_(metrics["scalars"])
-                t2 = time.time()
                 self.step += 1
                 audio = float(batch.wav_len.sum()) / sr
-                pending.append({"step": self.step, "audio_s": audio, "t0": t0, "rd_s": t1 - t0})
-                t_rd += t1 - t0
-                t_disp += t2 - t1
+                pending.append({"step": self.step, "audio_s": audio, "t0": t0, "rd_s": rd})
 
                 logged = self.step % cfg.hparas.log_step == 0
                 validate = self.step % self.valid_step == 0
@@ -290,26 +298,33 @@ class Solver(BaseSolver):
                     m = flush()
                 if logged:
                     dt = time.time() - t_wall
+                    t_rd = tracing.total_s("input.wait") - rd0
+                    t_disp = tracing.total_s("train.step") - disp0
                     t_dev = max(dt - t_rd - t_disp, 0.0)
                     thr = audio_acc / max(dt, 1e-9)  # per card: a rank drives one (JAX: / local devices)
+                    snap = tracing.snapshot("all")  # copied by flush() before its read of the ring
+                    stages = tracing.section_means(snap0, snap, "train.")
                     self.progress(
                         f"loss {m['loss']:.3f} | att {m.get('att_loss', 0):.3f} | "
                         f"ctc {m.get('ctc_loss', 0):.3f} | gnorm {m['grad_norm']:.2f} | "
                         f"tf {m['tf_rate']:.2f} | {thr:.1f} audio-s/s/chip | "
                         f"rd {t_rd:.2f}s ({t_rd / max(dt, 1e-9):.0%}) | disp {t_disp:.2f}s | "
-                        f"dev {t_dev:.2f}s ({t_dev / max(dt, 1e-9):.0%}) | rss {rss_gb():.1f}G"
+                        f"dev {t_dev:.2f}s ({t_dev / max(dt, 1e-9):.0%}) | "
+                        + (f"stage ms {' '.join(f'{k} {v:.2f}' for k, v in stages.items())} | " if stages else "")
+                        + f"rss {rss_gb():.1f}G"
                     )
                     self.write_log("loss", {"tr_att": m.get("att_loss", 0.0), "tr_ctc": m.get("ctc_loss", 0.0)})
                     self.write_log("grad_norm", m["grad_norm"])
                     self.write_log("tf_rate", m["tf_rate"])
                     self.write_log("throughput_audio_sec_per_sec_chip", thr)
                     t_wall, audio_acc = time.time(), 0.0
-                    t_rd = t_disp = 0.0
+                    rd0, disp0, snap0 = tracing.total_s("input.wait"), tracing.total_s("train.step"), snap
 
                 if validate:
                     self.validate()
+                    tracing.drop()  # the validation is no gap between two steps
                     t_wall, audio_acc = time.time(), 0.0
-                    t_rd = t_disp = 0.0
+                    rd0, disp0, snap0 = window_start()
         finally:
             prefetch.close()
         self.verbose("Training completed.")

@@ -46,7 +46,7 @@ from typing import Deque, Dict, Optional
 import numpy as np
 import torch
 
-from e2e_asr_tpu_torch import convert, cuda_build, optim
+from e2e_asr_tpu_torch import convert, optim
 from e2e_asr_tpu_torch.config import LMConfig
 from e2e_asr_tpu_torch.data import corpus as corpus_mod
 from e2e_asr_tpu_torch.data.dataset import TextLoader, build_tokenizer
@@ -55,7 +55,7 @@ from e2e_asr_tpu_torch.device import resolve_device
 from e2e_asr_tpu_torch.models import lm as lm_mod
 from e2e_asr_tpu_torch.optim import Optimizer
 from e2e_asr_tpu_torch.parallel import dist
-from e2e_asr_tpu_torch.solver import BaseSolver
+from e2e_asr_tpu_torch.solver import BaseSolver, kernels_ready
 from e2e_asr_tpu_torch.training.lm_graph import LMEvalGraphs, LMGraphs
 from e2e_asr_tpu_torch.training.step import Reduce, TrainState, device_update, param_leaves
 from e2e_asr_tpu_torch.utils.misc import human_format
@@ -171,9 +171,7 @@ class Solver(BaseSolver):
         self.reduce = dist.all_sum_ if dist.initialized() else None
         self.graphs = self.eval_graphs = None  # the CPU runs the eager step and evaluation
         if self.device.type == "cuda":
-            t0 = time.time()
-            dist.local_first(cuda_build.build_all)  # the host's other ranks load what its local rank 0 built
-            self.verbose(f"CUDA kernels ready in {time.time() - t0:.1f}s")
+            kernels_ready(self.verbose)
             if dist.capturable():
                 self.verbose("LM step and evaluation: CUDA graphs, one a text bucket shape (training/lm_graph.py)")
                 self.graphs = LMGraphs(log=self.verbose)

@@ -35,11 +35,13 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from e2e_asr_tpu_torch.utils import tracing
+
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("log_mel", "lstm_bidir", "lstm_bidir_bwd", "att_step", "ctc_prefix", "ctc_loss",
-           "decoder_scan", "decoder_scan_bwd")
+           "decoder_scan", "decoder_scan_bwd", "trace_mark")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -84,7 +86,14 @@ def build_all(variants: Sequence[Tuple[str, Sequence[str]]] = ()) -> Dict[str, s
     ``variants`` (pairs of source name and defines) asked for, in parallel.
 
     Returns {name: compiler log} for the libraries compiled by this call
-    (``-Xptxas -v`` lists each kernel's registers and shared memory)."""
+    (``-Xptxas -v`` lists each kernel's registers and shared memory). Its
+    time is the ``setup.kernels`` span; each library compiled counts in
+    ``kernels.built``."""
+    with tracing.span("setup.kernels"):
+        return _build(variants)
+
+
+def _build(variants: Sequence[Tuple[str, Sequence[str]]]) -> Dict[str, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     for name, defines in [(n, ()) for n in SOURCES] + [(n, tuple(d)) for n, d in variants]:
@@ -104,6 +113,7 @@ def build_all(variants: Sequence[Tuple[str, Sequence[str]]] = ()) -> Dict[str, s
             failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{log}")
             continue
         os.replace(tmp, out)
+        tracing.count("kernels.built")
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
@@ -111,14 +121,15 @@ def build_all(variants: Sequence[Tuple[str, Sequence[str]]] = ()) -> Dict[str, s
 
 def library(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library of kernel source ``name`` built with ``defines``
-    (built on first use)."""
+    (built on first use; the load is part of the ``setup.kernels`` span)."""
     key = (name, tuple(defines))
     with _lock:
         if key not in _libs:
-            path = _lib_path(name, key[1])
-            if not os.path.isfile(path):
-                build_all([key] if key[1] else ())
-            lib = ctypes.CDLL(path)
+            with tracing.span("setup.kernels"):
+                path = _lib_path(name, key[1])
+                if not os.path.isfile(path):
+                    build_all([key] if key[1] else ())
+                lib = ctypes.CDLL(path)
             lib.e2e_error_string.argtypes = [ctypes.c_int]
             lib.e2e_error_string.restype = ctypes.c_char_p
             _libs[key] = lib

@@ -59,6 +59,7 @@ from e2e_asr_tpu_torch import native
 from e2e_asr_tpu_torch.config import DataConfig
 from e2e_asr_tpu_torch.data import corpus as corpus_mod
 from e2e_asr_tpu_torch.data import text as text_mod
+from e2e_asr_tpu_torch.utils import tracing
 
 
 def quantize_i16(x: np.ndarray) -> np.ndarray:
@@ -319,7 +320,11 @@ class BucketedLoader:
         [num_utts] int32), the tail padded by the largest bucket so that a
         bucket-long slice from any offset stays inside it. Switches the
         loader to offsets batches and clears the per-utterance cache, which
-        the buffer supersedes."""
+        the buffer supersedes. The ``setup.corpus`` span."""
+        with tracing.span("setup.corpus"):
+            return self._flat_corpus()
+
+    def _flat_corpus(self) -> Tuple[np.ndarray, np.ndarray]:
         if not self.flat_corpus_fits:
             raise ValueError("corpus too large for int32 sample offsets (check flat_corpus_fits)")
         lens = np.asarray([it[0].n_samples for it in self._items], np.int64)

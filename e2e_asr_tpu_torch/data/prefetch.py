@@ -6,7 +6,9 @@ ahead of time, so that batch filling and the copy overlap the step instead
 of running before it. On the card the copies come from pinned host memory,
 ``non_blocking``, on a stream of their own (``to_device`` on the thread,
 one event a batch); the consumer's stream waits on that event, so neither
-side waits on the host.
+side waits on the host. The consumer's wait for a batch is the
+``input.wait`` span (``utils/tracing.py``); each batch handed over counts
+in ``input.batches``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from e2e_asr_tpu_torch.utils import tracing
 
 
 def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -103,21 +107,14 @@ class DevicePrefetcher:
         return self
 
     def __next__(self) -> Tuple:
-        while True:
-            try:
-                item = self._q.get(timeout=0.5)
-                break
-            except queue.Empty:
-                # the thread gone with nothing queued: its error, or the end
-                if not self._th.is_alive():
-                    if self._error is not None:
-                        raise self._error
-                    raise StopIteration
+        with tracing.span("input.wait"):
+            item = self._get()
         if item is None:
             raise StopIteration
         if isinstance(item, BaseException):
             raise item
         hb, db, ev = item
+        tracing.count("input.batches")
         if ev is not None:
             stream = torch.cuda.current_stream(self._device)
             stream.wait_event(ev)
@@ -125,6 +122,17 @@ class DevicePrefetcher:
                 if t.is_cuda:
                     t.record_stream(stream)
         return hb, db
+
+    def _get(self):
+        while True:
+            try:
+                return self._q.get(timeout=0.5)
+            except queue.Empty:
+                # the thread gone with nothing queued: its error, or the end
+                if not self._th.is_alive():
+                    if self._error is not None:
+                        raise self._error
+                    raise StopIteration
 
     def close(self):
         """Stop the thread, release the queued batches and close the source

@@ -32,6 +32,18 @@ psi deltas); finished hypotheses are ranked by length-normalized score. The
 LM's state follows its hypothesis through the pruning and freezes with the
 utterance, as the speller's does.
 
+Tracing (``utils/tracing.py``): ``beam_search`` spans ``prepare`` as
+``decode.encoder``, the steps as ``decode.steps`` and ``rank`` as
+``decode.rank``. A captured ``beam_step`` holds device stage marks before
+the speller (``beam.speller``: embedding, attention, speller,
+log-softmax), the LM (``beam.lm``: its step and the fused add), the
+search (``beam.search``: top-k, CTC prefix scores, routing, pruning, the
+state's writes) and, with an LM, the LM state's writes (``beam.lm`` again,
+so that a step has two ``beam.lm`` intervals), and one at its end; the
+time from a step's end to the next step's first mark is
+``beam.between_steps``, or ``beam.between_batches`` before a batch's
+step 0.
+
 Behaviours copied from the JAX package on purpose (not faults):
 
 - ``top_k`` tie order. ``jax.lax.top_k`` returns equal values lowest index
@@ -62,6 +74,7 @@ from e2e_asr_tpu_torch.models import decoder as dec_mod
 from e2e_asr_tpu_torch.models import layers as L
 from e2e_asr_tpu_torch.models import lm as lm_mod
 from e2e_asr_tpu_torch.models import plugin as plugin_mod
+from e2e_asr_tpu_torch.utils import tracing
 
 NEG = -1.0e30
 
@@ -198,6 +211,7 @@ def beam_step(spec: BeamSpec, inp: StepInputs, st: BeamState, first: bool) -> No
     t = st.t
 
     # ---- one decoder/attention step for all B*W hypotheses
+    tracing.mark("beam.speller", gap="beam.between_batches" if first else "beam.between_steps")
     tok_flat = st.prev_tok.reshape(-1)
     emb = L.embed(params["embed"], tok_flat)
     dec_state = (st.dec_h, st.dec_c)
@@ -212,10 +226,12 @@ def beam_step(spec: BeamSpec, inp: StepInputs, st: BeamState, first: bool) -> No
         logits = plugin_mod.fused_log_probs(params["emb_reg"], cfg.emb_reg, logits, hidden)
     step_lp = torch.log_softmax(logits, -1).reshape(b, w, vocab)
     if spec.use_lm:
+        tracing.mark("beam.lm")
         lm_lp, new_lm_state = lm_mod.step(spec.lm_params, spec.lm_cfg, tok_flat, (st.lm_h, st.lm_c))
         step_lp = step_lp + dcfg.lm_weight * lm_lp.reshape(b, w, vocab)
 
     # ---- candidate set + mixed scores
+    tracing.mark("beam.search")
     if spec.use_ctc:
         attlm_k, cand = top_k(step_lp, k_cand)  # [B, W, K]
         # candidates' prefix scores, their forward variables and each
@@ -271,8 +287,6 @@ def beam_step(spec: BeamSpec, inp: StepInputs, st: BeamState, first: bool) -> No
     torch.where(a1, top_live, st.scores, out=st.scores)
     follow_parents(new_dec_state, dec_state, flat_parent, act_bw)
     torch.where(act_bw[:, None, None], new_prev_att, st.prev_att, out=st.prev_att)
-    if spec.use_lm:
-        follow_parents(new_lm_state, (st.lm_h, st.lm_c), flat_parent, act_bw)
     torch.where(a1, tok, st.prev_tok, out=st.prev_tok)
     if spec.use_ctc:
         torch.where(active[:, None, None, None], new_r_g, st.r_g, out=st.r_g)
@@ -281,6 +295,12 @@ def beam_step(spec: BeamSpec, inp: StepInputs, st: BeamState, first: bool) -> No
     torch.where(a1, top_fin, st.fin_scores, out=st.fin_scores)
     torch.where(a1, new_fin_len, st.fin_len, out=st.fin_len)
     t.add_(1)
+    if spec.use_lm:
+        # the LM's state follows its hypotheses: the LM's work, marked as
+        # such (nothing above reads or writes the LM's state)
+        tracing.mark("beam.lm")
+        follow_parents(new_lm_state, (st.lm_h, st.lm_c), flat_parent, act_bw)
+    tracing.mark(None)
 
 
 def rank(spec: BeamSpec, inp: StepInputs, st: BeamState) -> BeamResult:
@@ -310,13 +330,16 @@ def beam_search(
     ``decode.beam_graph.BeamGraphs``; without one, graphs captured for this
     call alone); ``graphs=False`` runs the eager loop there, for
     comparison. CPU tensors always take the eager loop."""
-    spec, inp = prepare(params, cfg, dcfg, feat, feat_len, max_step, lm_params, lm_cfg)
-    if feat.device.type == "cuda" and graphs:
-        from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
+    with tracing.span("decode.encoder"):
+        spec, inp = prepare(params, cfg, dcfg, feat, feat_len, max_step, lm_params, lm_cfg)
+    with tracing.span("decode.steps"):
+        if feat.device.type == "cuda" and graphs:
+            from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
 
-        st = (graph_cache if graph_cache is not None else BeamGraphs()).run(spec, inp)
-    else:
-        st = init_state(spec, inp)
-        for i in range(max_step):
-            beam_step(spec, inp, st, first=i == 0)
-    return rank(spec, inp, st)
+            st = (graph_cache if graph_cache is not None else BeamGraphs()).run(spec, inp)
+        else:
+            st = init_state(spec, inp)
+            for i in range(max_step):
+                beam_step(spec, inp, st, first=i == 0)
+    with tracing.span("decode.rank"):
+        return rank(spec, inp, st)

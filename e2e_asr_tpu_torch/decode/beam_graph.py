@@ -32,11 +32,16 @@ The kernel wrappers count launches where Python calls them, so a capture
 would count once and the replays not at all: the capture's deltas are taken
 back and added again on every replay, and a replayed decode counts what an
 eager one counts.
+
+Tracing (``utils/tracing.py``): a capture is a ``graph.capture`` span (the
+eager step 0 included; ``BeamGraph.capture_s`` is its duration) and a
+replay a ``graph.replay`` span, counted in ``graph.captures`` /
+``graph.replays``. Both captured steps hold ``beam_step``'s device stage
+marks (``decode/beam.py``).
 """
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -46,6 +51,7 @@ from e2e_asr_tpu_torch.decode import beam
 from e2e_asr_tpu_torch.decode import ctc_prefix_cuda
 from e2e_asr_tpu_torch.device import graph_capture
 from e2e_asr_tpu_torch.ops import att_step_cuda
+from e2e_asr_tpu_torch.utils import tracing
 
 # the kernel wrappers a beam step calls, whose launch counts replays carry
 COUNTED = (att_step_cuda.att_step_beam_loc, ctc_prefix_cuda.prefix_scores_fused)
@@ -97,27 +103,29 @@ class BeamGraph:
 
     def capture(self, spec: beam.BeamSpec) -> None:
         """Step 0 run eagerly on the side stream (the warm-up, a real step of
-        this batch), then step 0 and a later step captured there."""
-        t0 = time.perf_counter()
-        main = torch.cuda.current_stream()
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
-            beam.beam_step(spec, self.inputs, self.state, first=True)
-        main.wait_stream(self.stream)
-        pool = None
-        for first in (True, False):
-            before = _counts()
-            g = torch.cuda.CUDAGraph()
-            with graph_capture(g, pool, self.stream):
-                beam.beam_step(spec, self.inputs, self.state, first=first)
-            after = _counts()
-            for fn, n in zip(COUNTED, before):
-                fn.launches = n  # a capture launches nothing
-            self.deltas[first] = [a - b for a, b in zip(after, before)]
-            self.graphs[first] = g
-            pool = g.pool()
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
+        this batch), then step 0 and a later step captured there, each with
+        its stage marks."""
+        with tracing.span("graph.capture") as sp:
+            tracing.count("graph.captures")
+            main = torch.cuda.current_stream()
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                beam.beam_step(spec, self.inputs, self.state, first=True)
+            main.wait_stream(self.stream)
+            pool = None
+            for first in (True, False):
+                before = _counts()
+                g = torch.cuda.CUDAGraph()
+                with tracing.marking(), graph_capture(g, pool, self.stream):
+                    beam.beam_step(spec, self.inputs, self.state, first=first)
+                after = _counts()
+                for fn, n in zip(COUNTED, before):
+                    fn.launches = n  # a capture launches nothing
+                self.deltas[first] = [a - b for a, b in zip(after, before)]
+                self.graphs[first] = g
+                pool = g.pool()
+            torch.cuda.synchronize()
+        self.capture_s = sp.s
 
     def load(self, spec: beam.BeamSpec, inp: beam.StepInputs) -> None:
         """A new batch's inputs and initial state into the static buffers."""
@@ -128,9 +136,11 @@ class BeamGraph:
                 dst.copy_(src)
 
     def replay(self, first: bool) -> None:
-        self.graphs[first].replay()
-        for fn, n in zip(COUNTED, self.deltas[first]):
-            fn.launches += n
+        with tracing.span("graph.replay"):
+            tracing.count("graph.replays")
+            self.graphs[first].replay()
+            for fn, n in zip(COUNTED, self.deltas[first]):
+                fn.launches += n
 
 
 class BeamGraphs:

@@ -198,6 +198,23 @@ def forward(
     with an attention head att_logits [B, L, V], align [B, L, H, S],
     att_hidden [B, L, H_dec]."""
     enc, enc_len = encode(params, cfg, feat, feat_len, generator, train)
+    return heads(params, cfg, enc, enc_len, decode_step, tf_rate, teacher, generator, train, sample_decoding)
+
+
+def heads(
+    params: Params,
+    cfg: ModelConfig,
+    enc: torch.Tensor,
+    enc_len: torch.Tensor,
+    decode_step: int,
+    tf_rate=1.0,
+    teacher: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    train: bool = False,
+    sample_decoding: bool = True,
+) -> Dict[str, torch.Tensor]:
+    """The heads half of ``forward`` over the encoder's output: its outputs
+    from the CTC head and the speller (``spell``)."""
     out: Dict[str, torch.Tensor] = {"enc_len": enc_len, "enc": enc}
     if "ctc" in params:
         out["ctc_log_probs"] = ctc_log_probs(params, enc)

@@ -25,11 +25,25 @@ from __future__ import annotations
 import json
 import os
 import sys
-from typing import Optional
+from typing import Callable, Optional
 
 from e2e_asr_tpu_torch import convert, optim
 from e2e_asr_tpu_torch.align_image import write_png
 from e2e_asr_tpu_torch.parallel import dist
+
+
+def kernels_ready(log: Callable[[str], None]) -> None:
+    """Every kernel library built (``cuda_build.build_all``), the host's
+    other ranks loading what its local rank 0 built (every solver's, on the
+    card); ``log`` hears the time it took (its ``setup.kernels`` span) and
+    how many libraries were compiled."""
+    from e2e_asr_tpu_torch import cuda_build
+    from e2e_asr_tpu_torch.utils import tracing
+
+    built = tracing.counted("kernels.built")
+    with tracing.span("setup.kernels") as sp:
+        dist.local_first(cuda_build.build_all)
+    log(f"CUDA kernels ready in {sp.s:.1f}s ({tracing.counted('kernels.built') - built} libraries compiled)")
 
 
 class BaseSolver:

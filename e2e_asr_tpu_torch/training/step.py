@@ -21,6 +21,14 @@ gathers its waves). Loss conventions:
   (``e2e_asr_tpu/training/step.py``); ``step_skipped`` = 1 - ok stays a
   device tensor.
 
+Device stage marks (``utils/tracing.py``): a captured train step holds a
+mark before each stage (``train.features``, ``.encoder``, ``.heads``,
+``.backward``, ``.reduce`` with a ``reduce``, ``.optimizer``) and one at
+its end, so that each replay adds the stages' device times and the gap to
+the next step (``train.between_steps``). They launch only while
+``TrainGraphs`` captures; an eager step, a validation and an LM step
+launch none.
+
 Nothing in a step reads the device from the host, and no number that
 changes from step to step is a Python scalar inside it: the teacher-forcing
 rate is a 0-dim device tensor (``Trainer.tf_buf``, written with ``fill_``
@@ -77,6 +85,7 @@ from e2e_asr_tpu_torch.ops.ctc import ctc_loss
 from e2e_asr_tpu_torch.ops.frontend import compute_features
 from e2e_asr_tpu_torch.ops.specaugment import specaugment
 from e2e_asr_tpu_torch.optim import Optimizer, OptState, global_norm, tf_rate
+from e2e_asr_tpu_torch.utils import tracing
 
 Reduce = Callable[[torch.Tensor], torch.Tensor]  # a sum over the ranks, in place (dist.all_sum_)
 
@@ -150,8 +159,11 @@ def compute_loss(
     if train and m.specaugment.enable and generator is not None:
         feat = specaugment(feat, feat_len, m.specaugment, generator)
     feat = feat.to(compute_dtype(cfg))
-    out = asr_mod.forward(
-        params, m, feat, feat_len, decode_step=text.shape[1], tf_rate=tf, teacher=text,
+    tracing.mark("train.encoder")
+    enc, enc_len = asr_mod.encode(params, m, feat, feat_len, generator if train else None, train)
+    tracing.mark("train.heads")
+    out = asr_mod.heads(
+        params, m, enc, enc_len, decode_step=text.shape[1], tf_rate=tf, teacher=text,
         generator=generator if train else None, train=train, sample_decoding=sample_decoding,
     )
     enc_len = out["enc_len"]
@@ -265,15 +277,18 @@ def device_update(state: TrainState, opt: Optimizer, loss_fn, reduce: Optional[R
     leaves = param_leaves(state.params)
     with torch.enable_grad():
         loss, metrics = loss_fn(state.params)
+        tracing.mark("train.backward")
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     loss = loss.detach()
     metrics = {k: v.detach() for k, v in metrics.items()}
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     if reduce is not None:
+        tracing.mark("train.reduce")
         keys = [k for k in EVAL_SCALARS if k in metrics]
         grads, sums = flat_all_sum(grads, [metrics[k].float() for k in keys], reduce)
         metrics.update(zip(keys, sums))
         loss = metrics["loss"]
+    tracing.mark("train.optimizer")
     g_norm = global_norm(grads)
     metrics["grad_norm"] = g_norm
     ok = torch.isfinite(loss) & torch.isfinite(g_norm)
@@ -341,7 +356,9 @@ class Trainer:
                     generator: Optional[torch.Generator], sample_decoding: bool = True):
         """The step's device work from ``tf_buf`` and a batch in either form
         (``resolve_wav``): what a CUDA graph captures. Returns the metrics
-        with ``tf_rate`` and ``scalars`` (the ``scalar_keys`` stacked, float32)."""
+        with ``tf_rate`` and ``scalars`` (the ``scalar_keys`` stacked, float32).
+        Captured by ``TrainGraphs``, it holds the stage marks."""
+        tracing.mark("train.features", gap="train.between_steps")
         wav, wav_len = resolve_wav(batch)
         tf = self.tf_buf
         metrics = device_update(state, self.opt, lambda params: compute_loss(
@@ -349,6 +366,7 @@ class Trainer:
             generator, train=True, sample_decoding=sample_decoding, reduce=self.reduce), self.reduce)
         metrics["tf_rate"] = tf.clone()
         metrics["scalars"] = torch.stack([metrics[k] for k in self.scalar_keys()])
+        tracing.mark(None)
         return metrics
 
     def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor],
@@ -361,13 +379,14 @@ class Trainer:
         ``generator``'s seed, and the metrics are the graph's static
         outputs: read them before the next step. Without, it runs eagerly
         (the tests' and comparisons' route, and the solver's on the CPU or
-        under a gloo group)."""
-        dev = batch["wav_len"].device
-        self.set_tf(state.step, dev)
-        if graphs is not None:
-            metrics = graphs.step(self, state, batch, generator.initial_seed(), sample_decoding)
-        else:
-            metrics = self.device_step(state, batch, generator, sample_decoding)
+        under a gloo group). The ``train.step`` span."""
+        with tracing.span("train.step"):
+            dev = batch["wav_len"].device
+            self.set_tf(state.step, dev)
+            if graphs is not None:
+                metrics = graphs.step(self, state, batch, generator.initial_seed(), sample_decoding)
+            else:
+                metrics = self.device_step(state, batch, generator, sample_decoding)
         state.step += 1
         return metrics
 

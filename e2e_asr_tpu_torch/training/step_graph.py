@@ -59,6 +59,11 @@ size. A gloo group cannot be captured: ``TrainGraphs`` raises, and the
 solver runs such a step eagerly. Every rank captures and replays the same
 keys in the same order, because the shapes of a step agree on every rank.
 
+Tracing (``utils/tracing.py``): a capture is a ``graph.capture`` span (the
+warm-up included; ``Captured.capture_s`` is its duration) and a replay a
+``graph.replay`` span, counted in ``graph.captures`` / ``graph.replays``.
+Only the train step's captures hold its stage marks (``marks``).
+
 ``Captured`` (one program) and ``GraphCache`` (programs by key, their pool
 and stream) carry all of this; the validation's and the LM's caches
 (``training/eval_graph.py``, ``training/lm_graph.py``) are built on them.
@@ -66,7 +71,6 @@ and stream) carry all of this; the validation's and the LM's caches
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -77,6 +81,7 @@ from e2e_asr_tpu_torch.models import asr as asr_mod
 from e2e_asr_tpu_torch.ops import ctc_cuda, decoder_cuda, frontend_cuda, rnn_cuda
 from e2e_asr_tpu_torch.parallel import dist
 from e2e_asr_tpu_torch.training.step import TrainState, Trainer, compute_dtype, param_leaves
+from e2e_asr_tpu_torch.utils import tracing
 
 # the kernel wrappers the captured programs (a train step, a validation, an
 # LM step) call, whose launch counts replays carry
@@ -154,31 +159,33 @@ class Captured:
         self.deltas: List[int] = []
         self.capture_s = 0.0
 
-    def capture(self, fn: Callable, seed: int = 0, pool=None):
+    def capture(self, fn: Callable, seed: int = 0, pool=None, marks: bool = False):
         """``fn`` run eagerly on the side stream (the warm-up: this batch's
         real work, which makes the libraries' handles, the kernels' cached
-        plans and device constants outside any graph), then captured there.
-        Returns the warm-up's outputs."""
-        t0 = time.perf_counter()
-        main = torch.cuda.current_stream()
-        self.stream.wait_stream(main)
-        with torch.cuda.stream(self.stream):
+        plans and device constants outside any graph), then captured there,
+        with ``fn``'s device stage marks where ``marks``. Returns the
+        warm-up's outputs."""
+        with tracing.span("graph.capture") as sp:
+            tracing.count("graph.captures")
+            main = torch.cuda.current_stream()
+            self.stream.wait_stream(main)
+            with torch.cuda.stream(self.stream):
+                if self.gen is not None:
+                    self.gen.manual_seed(seed)
+                warm = fn(self.batch, self.gen)
+            main.wait_stream(self.stream)
+            g = torch.cuda.CUDAGraph()
             if self.gen is not None:
-                self.gen.manual_seed(seed)
-            warm = fn(self.batch, self.gen)
-        main.wait_stream(self.stream)
-        g = torch.cuda.CUDAGraph()
-        if self.gen is not None:
-            g.register_generator_state(self.gen)
-        before = _counts()
-        with graph_capture(g, pool, self.stream):
-            self.out = fn(self.batch, self.gen)
-        after = _counts()
-        self.deltas = [a - b for a, b in zip(after, before)]
-        _add_counts([-d for d in self.deltas])  # a capture launches nothing
-        self.graph = g
-        torch.cuda.synchronize()
-        self.capture_s = time.perf_counter() - t0
+                g.register_generator_state(self.gen)
+            before = _counts()
+            with tracing.marking(marks), graph_capture(g, pool, self.stream):
+                self.out = fn(self.batch, self.gen)
+            after = _counts()
+            self.deltas = [a - b for a, b in zip(after, before)]
+            _add_counts([-d for d in self.deltas])  # a capture launches nothing
+            self.graph = g
+            torch.cuda.synchronize()
+        self.capture_s = sp.s
         return warm
 
     def load(self, batch: Dict[str, torch.Tensor]) -> None:
@@ -187,10 +194,12 @@ class Captured:
             dst.copy_(batch[k])
 
     def replay(self, seed: int = 0):
-        if self.gen is not None:
-            self.gen.manual_seed(seed)
-        self.graph.replay()
-        _add_counts(self.deltas)
+        with tracing.span("graph.replay"):
+            tracing.count("graph.replays")
+            if self.gen is not None:
+                self.gen.manual_seed(seed)
+            self.graph.replay()
+            _add_counts(self.deltas)
         return self.out
 
 
@@ -235,19 +244,20 @@ class GraphCache:
         return self._stream
 
     def run(self, key: tuple, batch: Dict[str, torch.Tensor], fn: Callable, keys=STATIC, seed: int = 0,
-            random: bool = True):
+            random: bool = True, marks: bool = False):
         """``fn(batch, generator)`` for ``batch`` by the graph of ``key``: the
-        first batch of a key runs it eagerly and captures it, every later one
-        replays it with the random stream of ``seed``. Returns the outputs:
-        for a replay the graph's static outputs, which the next replay of a
-        graph sharing the pool may overwrite."""
+        first batch of a key runs it eagerly and captures it (with ``fn``'s
+        stage marks where ``marks``), every later one replays it with the
+        random stream of ``seed``. Returns the outputs: for a replay the
+        graph's static outputs, which the next replay of a graph sharing the
+        pool may overwrite."""
         g = self.graphs.get(key)
         if g is not None:
             g.load(batch)
             return g.replay(seed)
         g = Captured(batch, keys, self.stream, random)
         dist.warm_up(self.stream)  # the communicator exists before the capture
-        warm = g.capture(fn, seed, self.pool)
+        warm = g.capture(fn, seed, self.pool, marks)
         self.pool = g.graph.pool()
         self.graphs[key] = g
         mode, shapes, n = batch_key(batch, keys)
@@ -259,7 +269,8 @@ class GraphCache:
 
 
 class TrainGraphs(GraphCache):
-    """Captured train steps by ``graph_key``."""
+    """Captured train steps by ``graph_key``, holding the step's stage
+    marks."""
 
     what = "train step"
 
@@ -275,4 +286,4 @@ class TrainGraphs(GraphCache):
         if trainer.reduce is not None and not dist.capturable():
             raise RuntimeError(f"a {dist.backend()} group's collectives cannot be captured: run the step eagerly")
         return self.run(graph_key(trainer, state, batch, sample_decoding), batch,
-                        lambda b, gen: trainer.device_step(state, b, gen, sample_decoding), seed=seed)
+                        lambda b, gen: trainer.device_step(state, b, gen, sample_decoding), seed=seed, marks=True)

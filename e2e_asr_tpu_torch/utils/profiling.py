@@ -88,6 +88,25 @@ def trace(logdir: str, name: str = "trace"):
     prof.export_chrome_trace(os.path.join(logdir, f"{name}.json"))
 
 
+ANNOTATION_PREFIXES = ("asr.", "bench.")  # the port's spans (utils/tracing.py), the benchmark's
+
+
+def device_events(prof) -> list:
+    """The kernels, copies and sets the card ran under ``prof``: its
+    ``key_averages`` on the card, less the host ranges the profiler mirrors
+    onto the card's timeline (``record_function``'s user annotations, such
+    as the port's ``asr.*`` spans), which would count a range's time on top
+    of the kernels inside it."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and not e.key.startswith(ANNOTATION_PREFIXES)]
+
+
+def device_launches(prof) -> int:
+    """The kernels, copies and sets the card ran under ``prof`` (``device_events``)."""
+    return sum(e.count for e in device_events(prof))
+
+
 def device_ms(fn: Callable, iters: int = 20, warmup: int = 1) -> float:
     """ms a call of ``fn`` on the card (CUDA events over ``iters`` calls),
     the calls queued behind a spin of the card long enough that the host's

@@ -204,14 +204,14 @@ def test_compute_loss_and_gradients_match_jax_at_bf16(encoder, speller, monkeypa
     from e2e_asr_tpu_torch.models import asr as tasr
 
     seen = {}
-    real_forward = tasr.forward
+    real_heads = tasr.heads  # compute_loss: encode, then the heads
 
-    def forward(*a, **k):
-        out = real_forward(*a, **k)
+    def heads(*a, **k):
+        out = real_heads(*a, **k)
         seen.update({n: out[n].dtype for n in ("att_logits", "ctc_log_probs", "enc")})
         return out
 
-    monkeypatch.setattr(tasr, "forward", forward)
+    monkeypatch.setattr(tasr, "heads", heads)
     tl, tm = compute_loss(tp, tc, tb["wav"], tb["wav_len"], tb["text"], tb["text_len"], 1.0, _gen(),
                           train=True)
     assert seen == {"att_logits": BF16, "ctc_log_probs": BF16, "enc": BF16}

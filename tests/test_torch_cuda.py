@@ -67,7 +67,12 @@ and sampled feedback on the card), their float32 kernel steps against
 their plain steps, and the first dev batch's validation keeping its
 alignment through its own graph, bitwise the eager one; the train step's
 stage programs (``utils/stages.py``) captured and replayed within their
-ceilings, each launching its kernels.
+ceilings, each launching its kernels; the device stage marks
+(``utils/tracing.py``): a train step's and a decode's replays with marks
+bitwise those without (the decode with and without an LM), the train
+stages' sections within 3% of a replay's CUDA-event time, an interval
+across a capture or a profiler's start or stop not counted, and the decode
+spans enclosing their launches in a Chrome trace.
 Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
@@ -2463,3 +2468,217 @@ def test_stage_programs_on_the_card_launch_their_kernels(gen):
         got = float(g.replay(0))
         assert all(f.launches > n for f, n in zip(fns, before)), (name, before)
         assert math.isclose(got, want, rel_tol=1e-5, abs_tol=1e-5), (name, got, want)
+
+
+# ---------------------------------------------------------------- stage marks (utils/tracing.py)
+def _sections(bank="untraced"):
+    from e2e_asr_tpu_torch.utils import tracing
+
+    return {k: (v["n"], v["total_ms"]) for k, v in tracing.snapshot(bank)["sections"].items()}
+
+
+def _added(before, after, prefix):
+    """{section: intervals added} of the sections starting with ``prefix``."""
+    return {k: n - before.get(k, (0, 0.0))[0] for k, (n, _) in after.items()
+            if k.startswith(prefix) and n > before.get(k, (0, 0.0))[0]}
+
+
+def test_stage_marks_leave_the_train_replay_bitwise(gen):
+    """Four steps of one bucket through TrainGraphs captured with the stage
+    marks and through TrainGraphs captured without (``set_marks(False)``),
+    from the same weights, batches and seeds: loss, grad norm and every
+    parameter and optimizer tensor bitwise equal after each step. The
+    marked replays add one interval a replay to each stage and one to the
+    gap between steps from the second replay on; the unmarked ones add
+    none."""
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+    from e2e_asr_tpu_torch.utils import tracing
+
+    tm, sm = _small_train()
+    tu, su = _small_train()
+    marked, unmarked = TrainGraphs(), TrainGraphs()
+    s0 = _sections()
+    for i in range(4):
+        batch = _train_batch(i)
+        mm = tm.train_step(sm, batch, _gen_of(100 + i), graphs=marked)
+        got = [mm[k].clone() for k in ("loss", "grad_norm")]
+        s1 = _sections()
+        tracing.set_marks(False)
+        try:
+            mu = tu.train_step(su, batch, _gen_of(100 + i), graphs=unmarked)
+        finally:
+            tracing.set_marks(True)
+        assert _sections() == s1, i
+        assert all(torch.equal(a, mu[k]) for a, k in zip(got, ("loss", "grad_norm"))), i
+        assert all(torch.equal(a, b) for a, b in zip(_state_tensors(sm), _state_tensors(su))), i
+    stages = ("features", "encoder", "heads", "backward", "optimizer")
+    assert _added(s0, _sections(), "train.") == {**{f"train.{k}": 3 for k in stages}, "train.between_steps": 2}
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["no-lm", "lm"])
+def test_stage_marks_leave_the_decode_bitwise(gen, lm):
+    """Two batches of one shape decoded through a BeamGraphs cache captured
+    with the beam step's marks and one captured without: tokens, lengths
+    and scores bitwise equal. The marked decode adds a speller and search
+    interval a replayed step, two LM intervals (its step, its state's
+    writes) only with an LM, one gap
+    between batches (the second batch's step 0) and the gaps between the
+    steps that follow a replayed step."""
+    from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
+    from e2e_asr_tpu_torch.utils import tracing
+
+    setup = _small_decode(lm)
+    marked, unmarked = BeamGraphs(), BeamGraphs()
+    s0 = _sections()
+    for i in range(2):
+        feat, feat_len = _small_feats(gen)
+        got = _decode(setup, feat, feat_len, graph_cache=marked)
+        tracing.set_marks(False)
+        try:
+            want = _decode(setup, feat, feat_len, graph_cache=unmarked)
+        finally:
+            tracing.set_marks(True)
+        for name, x, y in zip(("tokens", "lengths", "scores"), got, want):
+            assert torch.equal(x, y), (i, name)
+    replays = 11 + 12  # the capturing batch replays steps 1-11, the second all 12
+    want = {"beam.speller": replays, "beam.search": replays, "beam.between_batches": 1,
+            "beam.between_steps": replays - 2}
+    if lm:
+        want["beam.lm"] = 2 * replays
+    assert _added(s0, _sections(), "beam.") == want
+
+
+def test_train_sections_sum_to_the_replays_device_time(gen):
+    """Ten replays of a captured train step queued behind a spin of the
+    card, each between CUDA events: the stages' device time (the marked
+    sections but the gap between steps) is within 3% of the events'."""
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+    from e2e_asr_tpu_torch.utils import profiling
+
+    trainer, state = _small_train()
+    graphs = TrainGraphs()
+    batch = _train_batch(0, frames=(400, 320, 240), text_len=(40, 30, 20), l_pad=48)
+    for i in range(2):
+        trainer.train_step(state, batch, _gen_of(i), graphs=graphs)
+    (g,) = graphs.graphs.values()
+    torch.cuda.synchronize()
+    s0 = _sections()
+    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(10)]
+    torch.cuda._sleep(profiling.SPIN_CYCLES_PER_CALL * 40)
+    for a, b in ev:
+        a.record()
+        g.replay(7)
+        b.record()
+    torch.cuda.synchronize()
+    events_ms = sum(a.elapsed_time(b) for a, b in ev)
+    s1 = _sections()
+    stages_ms = sum(ms - s0.get(k, (0, 0.0))[1] for k, (n, ms) in s1.items()
+                    if k.startswith("train.") and k != "train.between_steps")
+    assert abs(stages_ms - events_ms) <= 0.03 * events_ms, (stages_ms, events_ms)
+    assert _added(s0, s1, "train.")["train.optimizer"] == 10
+
+
+def test_an_interval_across_a_capture_or_a_profiler_is_dropped(gen):
+    """Two buckets, each captured (its eager step, then the capture) and
+    replayed twice: the interval from the first bucket's last replay across
+    the second's capture is not counted (two gaps between steps, not
+    three). Two replays under torch.profiler count in the traced bank, the
+    interval into the recording dropped; after it the untraced bank counts
+    again, the interval out of it dropped."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+    from e2e_asr_tpu_torch.utils import tracing
+
+    trainer, state = _small_train()
+    graphs = TrainGraphs()
+    u0, t0 = _sections(), _sections("traced")
+    captures = tracing.counted("graph.captures")
+    for frames in ((64, 52, 24), (80, 52, 24)):
+        for i in range(3):
+            trainer.train_step(state, _train_batch(i, frames=frames), _gen_of(i), graphs=graphs)
+    assert tracing.counted("graph.captures") == captures + 2
+    u1 = _sections()
+    assert _added(u0, u1, "train.")["train.features"] == 4
+    assert _added(u0, u1, "train.")["train.between_steps"] == 2
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for i in range(2):
+            trainer.train_step(state, _train_batch(i, frames=(80, 52, 24)), _gen_of(i), graphs=graphs)
+        torch.cuda.synchronize()
+    t1 = _sections("traced")
+    assert _sections() == u1
+    assert _added(t0, t1, "train.")["train.features"] == 2 and _added(t0, t1, "train.")["train.between_steps"] == 1
+    for i in range(2):
+        trainer.train_step(state, _train_batch(i, frames=(80, 52, 24)), _gen_of(i), graphs=graphs)
+    u2 = _sections()
+    assert _sections("traced") == t1
+    assert _added(u1, u2, "train.")["train.features"] == 2 and _added(u1, u2, "train.")["train.between_steps"] == 1
+
+
+_DECODE_TRACE = """
+import importlib.util, sys, torch
+spec = importlib.util.spec_from_file_location("card_tests", "tests/test_torch_cuda.py")
+card = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(card)
+from e2e_asr_tpu_torch.bin import test_asr
+from e2e_asr_tpu_torch.config import Config
+from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
+from e2e_asr_tpu_torch.utils import profiling
+params, cfg_model, dcfg, _, _ = card._small_decode(False)
+solver = test_asr.Solver.__new__(test_asr.Solver)
+solver.config = Config.from_dict({"data": {"audio": {"feat_dim": 40}}})
+solver.config.model, solver.config.decode = cfg_model, dcfg
+solver.device, solver.params, solver.lm_params, solver.lm_cfg = torch.device("cuda"), params, None, None
+solver.beam_graphs = BeamGraphs()
+g = torch.Generator(device="cuda")
+g.manual_seed(0)
+wav = 0.1 * torch.randn((3, 8000), generator=g, device="cuda")
+wav_len = torch.tensor([8000, 6400, 4000], device="cuda")
+solver.decode_batch(wav, wav_len)  # captures
+torch.cuda.synchronize()
+with profiling.trace(sys.argv[1], "decode"):
+    for _ in range(2):
+        solver.decode_batch(wav, wav_len).tokens.cpu()
+print("STEPS", solver.max_step_for(8000))
+"""
+
+
+def test_decode_spans_enclose_their_launches_in_a_chrome_trace(gen, tmp_path):
+    """``utils/profiling.trace`` around two replayed decode batches through
+    ``bin/test_asr``'s ``Solver.decode_batch`` (in a subprocess: a profiler
+    session of its own): each batch's ``asr.decode.features``,
+    ``.encoder``, ``.steps`` and ``.rank`` lie inside its
+    ``asr.decode.batch`` and each encloses CUDA launches (the steps: a graph
+    launch a beam step) whose kernels ran after them on the trace's one
+    timeline."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = _root()
+    res = subprocess.run([sys.executable, "-c", _DECODE_TRACE, str(tmp_path)], cwd=root, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": root})
+    assert res.returncode == 0 and "STEPS" in res.stdout, res.stdout + res.stderr[-3000:]
+    steps = int(res.stdout.split("STEPS")[1].split()[0])
+    events = [e for e in json.load(open(tmp_path / "decode.json"))["traceEvents"] if e.get("ph") == "X"]
+
+    def iv(e):
+        return float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+
+    spans = [(e["name"][4:], iv(e)) for e in events
+             if e.get("cat") == "user_annotation" and str(e.get("name", "")).startswith("asr.decode.")]
+    launches = [(e["name"], iv(e)[0], e.get("args", {}).get("correlation")) for e in events
+                if e.get("cat") == "cuda_runtime" and "Launch" in e.get("name", "")]
+    kernel_ts = {e.get("args", {}).get("correlation"): iv(e)[0] for e in events if e.get("cat") == "kernel"}
+    batches = [b for n, b in spans if n == "decode.batch"]
+    assert len(batches) == 2
+    for a, b in batches:
+        for part in ("decode.features", "decode.encoder", "decode.steps", "decode.rank"):
+            (s, e), = [v for n, v in spans if n == part and a <= v[0] and v[1] <= b]
+            inside = [(name, t, c) for name, t, c in launches if s <= t <= e]
+            assert inside, part
+            if part == "decode.steps":
+                assert sum(name == "cudaGraphLaunch" for name, _, _ in inside) == steps
+            assert any(c in kernel_ts and kernel_ts[c] >= t for _, t, c in inside), (
+                part, inside[:5], [(c, kernel_ts.get(c)) for _, _, c in inside[:5]])
