@@ -66,7 +66,10 @@ host time spent issuing the steps' work (the ``train.step`` spans),
 device's queue held the host back, ending with the ring's read. Where the
 steps replay graphs with stage marks, ``stage ms`` gives each stage's
 device ms a step over the window (the ``train.*`` sections, copied with the
-ring's read). The line ends with the process's resident memory (``rss``,
+ring's read), and ``scan steps`` the share of the token buckets' steps that
+the fused speller scan ran (``scan.steps_run`` over ``scan.bucket_steps``,
+``ops/decoder_cuda.py``: a step stops at its batch's longest label). The
+line ends with the process's resident memory (``rss``,
 as the JAX trainer's). A record's ``wall_s`` is the host time from its
 step's start to the next step's start (the window's last step: to the end
 of the ring's read); its ``rd_s`` is its step's ``input.wait``.
@@ -304,6 +307,8 @@ class Solver(BaseSolver):
                     thr = audio_acc / max(dt, 1e-9)  # per card: a rank drives one (JAX: / local devices)
                     snap = tracing.snapshot("all")  # copied by flush() before its read of the ring
                     stages = tracing.section_means(snap0, snap, "train.")
+                    run, bucket = (snap["counts"].get(k, 0) - snap0["counts"].get(k, 0)
+                                   for k in ("scan.steps_run", "scan.bucket_steps"))
                     self.progress(
                         f"loss {m['loss']:.3f} | att {m.get('att_loss', 0):.3f} | "
                         f"ctc {m.get('ctc_loss', 0):.3f} | gnorm {m['grad_norm']:.2f} | "
@@ -311,6 +316,7 @@ class Solver(BaseSolver):
                         f"rd {t_rd:.2f}s ({t_rd / max(dt, 1e-9):.0%}) | disp {t_disp:.2f}s | "
                         f"dev {t_dev:.2f}s ({t_dev / max(dt, 1e-9):.0%}) | "
                         + (f"stage ms {' '.join(f'{k} {v:.2f}' for k, v in stages.items())} | " if stages else "")
+                        + (f"scan steps {run / bucket:.0%} | " if bucket else "")
                         + f"rss {rss_gb():.1f}G"
                     )
                     self.write_log("loss", {"tr_att": m.get("att_loss", 0.0), "tr_ctc": m.get("ctc_loss", 0.0)})

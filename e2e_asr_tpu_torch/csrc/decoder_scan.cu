@@ -1,5 +1,7 @@
 // The fused speller scan, forward: all L teacher-forced / scheduled-sampling
-// decoder steps of a batch in one launch.
+// decoder steps of a batch in one launch, or its first n (``steps``, read
+// from device memory: a training step's longest label, past which the loss
+// reads nothing), the outputs of the steps after them written as zeros.
 //
 // Replaces the forward of the TPU kernel e2e_asr_tpu/ops/decoder_pallas.py
 // decoder_scan_fused (_fwd_call / _fwd_kernel). Per step t and utterance b:
@@ -240,6 +242,12 @@ struct FwdArgs {
   int sample;
   int row0;  // the global batch's row of utterance 0 (the Gumbel noise's key)
   const long long* seed;  // [1] in device memory, read at each step (null without sampling)
+  // the steps run, n = min(max(*steps, 0), L) (null: L), read once at entry;
+  // rows n .. L-1 of every output are written as zeros
+  const int* steps;
+  // a tracer's device counter [bank, count a bank] (null: none): n is added
+  // to the count of the bank it holds, once a launch
+  long long* steps_run;
   int G, CL, NS;  // clusters, blocks per cluster, utterance slots per cluster
   // residents in shared memory: gate weights, Wq columns, Wout columns, and
   // the first slot's frames of k and of v
@@ -340,6 +348,8 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> 
   const int Dkc = cdiv(Dk, CL), d0 = rank * Dkc, ndk = max(0, min(Dkc, Dk - d0));
   const int Vc = cdiv(V, CL), v0 = rank * Vc, nvc = max(0, min(Vc, V - v0));
   const int Ec = cdiv(E, CL), e0 = rank * Ec, ne = max(0, min(Ec, E - e0));
+  const int n = a.steps ? min(max(*a.steps, 0), L) : L;  // every block the same, before any barrier
+  if (a.steps_run && j == 0 && tid == 0) a.steps_run[1 + (a.steps_run[0] != 0)] += n;
 
   extern __shared__ float smem[];
   const FwdLayout ly = fwd_layout(B, S, Dk, E, K, P, H, V, G, CL, NS, a.w_smem, a.wq_smem,
@@ -424,7 +434,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> 
   }
   cluster.sync();  // every block's slices are set before any remote read
 
-  for (int t = 0; t < L; ++t) {
+  for (int t = 0; t < n; ++t) {
     PHASE(t, 0);
     // ---- phase A, each slot: q, token, conv, energies, local softmax, partial context
     for (int i = 0; i < NS; ++i) {
@@ -795,7 +805,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> 
 
     // ---- phase C, each slot: logits of the own vocabulary slice, local
     // argmax, own slice of the next q
-    const bool feed = t + 1 < L && !a.use_teacher[t + 1];
+    const bool feed = t + 1 < n && !a.use_teacher[t + 1];
     // the sampling seed, split as the host split it before it moved to device memory
     const unsigned long long sd = a.sample ? (unsigned long long)*a.seed : 0ull;
     const uint32_t seed_lo = (uint32_t)(sd & 0x7FFFFFFFull), seed_hi = (uint32_t)((sd >> 31) & 0x7FFFFFFFull);
@@ -874,6 +884,20 @@ __global__ void __launch_bounds__(NT) decoder_scan_fwd_kernel(const FwdArgs<S_> 
     cluster.sync();  // q slices and the local argmaxes are readable
     PHASE(t, 13);  // cluster barrier 2
   }
+
+  // ---- rows n .. L-1 of every output: zeros, over the whole grid
+  const long r0 = (long)n * B, rows = (long)(L - n) * B;
+  const long gt = (long)j * NT + tid, gs = (long)gridDim.x * NT;
+  for (long x = gt; x < rows * V; x += gs) stf(a.logits + r0 * V + x, 0.0f);
+  for (long x = gt; x < rows * S; x += gs) stf(a.align + r0 * S + x, 0.0f);
+  for (long x = gt; x < rows * H; x += gs) {
+    stf(a.hidden + r0 * H + x, 0.0f);
+    stf(a.cseq + r0 * H + x, 0.0f);
+  }
+  for (long x = gt; x < rows * G4; x += gs) a.acts[r0 * G4 + x] = 0.0f;
+  for (long x = gt; x < rows * Dk; x += gs) a.qs[r0 * Dk + x] = 0.0f;
+  for (long x = gt; x < rows * E; x += gs) a.ctxs[r0 * E + x] = 0.0f;
+  for (long x = gt; x < rows; x += gs) a.tokens[r0 + x] = 0;
 }
 
 __global__ void gumbel_noise_kernel(float* out, int L, int B, int V, int row0, uint32_t seed_lo,
@@ -960,10 +984,14 @@ extern "C" int e2e_decoder_scan_fwd_plan(int B, int S, int Dk, int E, int K, int
 // wlp [K, Dk], locv [Dk], locb [Dk], embed [V, Emb], wx [Emb + E, 4H],
 // wh [H, 4H], bl [4H], wout [H, V], bout [V], teacher [L, B] i32,
 // use_teacher [L] i32, seed [1] i64 (read where sample; may be null otherwise),
-// row0 the global batch's row of utterance 0 (the Gumbel noise's key)
+// row0 the global batch's row of utterance 0 (the Gumbel noise's key),
+// steps [1] i32 (the steps run, clamped to [0, L]; null: L), steps_run [3]
+// i64 (a tracer's counter: [0] the bank, [1 + bank] += the steps run; may be
+// null)
 // -> logits [L, B, V], align [L, B, S], hidden [L, B, H],
 // cseq [L, B, H], tokens [L, B] i32, acts [L, B, 4H], qs [L, B, Dk],
-// ctxs [L, B, E]; ew [V, 4H] and hf [B, H] scratch (hf unused at float).
+// ctxs [L, B, E], zero on rows past the steps run; ew [V, 4H] and hf [B, H]
+// scratch (hf unused at float).
 // k, v, the weights, logits, align, hidden and cseq of storage type dt (0
 // float, 1 bf16), the rest float but the ids, all contiguous. H a multiple
 // of 8 up to 512, Dk up to 512, P odd. G clusters of CL blocks (all
@@ -976,8 +1004,8 @@ extern "C" int e2e_decoder_scan_fwd(
     const int* teacher, const int* use_teacher, void* logits, void* align, void* hidden,
     void* cseq, int* tokens, float* acts, float* qs, float* ctxs, float* ew, float* hf, int B, int S,
     int Dk, int E, int K, int P, int H, int Emb, int V, int L, float inv_temp, int sample, int row0,
-    const long long* seed, int G, int CL, int w_smem, int wq_smem, int wo_smem, int k_smem, int v_smem,
-    int dt, void* stream) {
+    const long long* seed, const int* steps, long long* steps_run, int G, int CL, int w_smem, int wq_smem,
+    int wo_smem, int k_smem, int v_smem, int dt, void* stream) {
   if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
       CL < 1 || CL > CLMAX || dt < 0 || dt > 1 || (sample && !seed) || row0 < 0)
     return (int)cudaErrorInvalidValue;
@@ -998,7 +1026,7 @@ extern "C" int e2e_decoder_scan_fwd(
                  (C)wh, (C)bl, (C)wout, (C)bout, teacher, use_teacher, (O)logits, (O)align, (O)hidden,
                  (O)cseq, tokens, acts, qs, ctxs, ew, hf,
                  B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, sample, row0,
-                 (const long long*)seed, G, CL, NS, w_smem, wq_smem, wo_smem, k_smem, v_smem};
+                 (const long long*)seed, steps, steps_run, G, CL, NS, w_smem, wq_smem, wo_smem, k_smem, v_smem};
     return cudaLaunchKernelEx(&cfg, decoder_scan_fwd_kernel<T>, a);
   };
   return (int)(dt ? run(bf16{}) : run(0.0f));

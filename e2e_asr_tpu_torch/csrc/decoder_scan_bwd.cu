@@ -1,4 +1,7 @@
-// The fused speller scan, backward: one reverse sweep over the L steps.
+// The fused speller scan, backward: one reverse sweep over the L steps, or
+// over the first n (``steps``, the forward's count: the cotangents past them
+// are zero in training, so are the carries they leave), the streams of the
+// steps after them written as zeros.
 //
 // Replaces the backward of the TPU kernel e2e_asr_tpu/ops/decoder_pallas.py
 // decoder_scan_fused (_bwd_call / _bwd_kernel). Given the forward's stored
@@ -209,6 +212,9 @@ struct BwdArgs {
   float* scratch;  // [G CL][Sl Dk + S K]: es and dfa of the blocks that keep them out of shared memory
   int B, S, Dk, E, K, P, H, Emb, V, L;
   float inv_temp;
+  // the steps run, n = min(max(*steps, 0), L) (null: L), read once at entry;
+  // rows n .. L-1 of dgates, dq and dfpre are written as zeros
+  const int* steps;
   int G, CL, NS;  // clusters, blocks per cluster, utterance slots per cluster
   // residents in shared memory: the block's rows of Wx[Emb:] and Wh, and the
   // first slot's dk slice and frames of k and of v
@@ -289,6 +295,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs<S_> 
   const int half = (P - 1) / 2;
   const int G4 = 4 * H;
   const int nb = G * CL, numax = cdiv(H, nb);
+  const int n = a.steps ? min(max(*a.steps, 0), L) : L;  // every block the same, before any barrier
   int u0, nu, er0, ner;
   split_range(H, nb, j, u0, nu);    // hidden units of this block
   split_range(E, nb, j, er0, ner);  // context columns (rows of Wx[Emb:]) of this block
@@ -382,10 +389,10 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs<S_> 
       if (a.v_smem)
         for (int x = tid; x < nv * E; x += NT) vs[x] = a.v[((long)b * S + s0) * E + x];
     }
-    // the own share of <dalign_up, align> of the last step (no carry yet)
-    const long row = (long)(L - 1) * B + b;
+    // the own share of <dalign_up, align> of the last step run (no carry yet)
+    const long row = (long)(n - 1) * B + b;
     float p2 = 0.0f;
-    for (int sl = tid; sl < nv; sl += NT)
+    for (int sl = tid; sl < nv && n > 0; sl += NT)
       p2 = fmaf(ldf(a.dalign + row * S + s0 + sl), ldf(a.align + row * S + s0 + sl), p2);
     p2 = block_sum(p2, red);
     if (tid == 0) p2s[i] = p2;
@@ -394,7 +401,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs<S_> 
   __syncthreads();
   cluster.sync();
 
-  for (int t = L - 1; t >= 0; --t) {
+  for (int t = n - 1; t >= 0; --t) {
     PHASE(t, 0);
     // ---- gate stage: dh, dc, dgates of the own units, every utterance.
     // First dlogits Wout^T + dq Wq^T of the units, one warp per utterance,
@@ -424,7 +431,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs<S_> 
           for (int q = 0; q < UCH; ++q)
             if (j0 + q < nu) acc[q] = fmaf(x, ldgf(a.wout + (long)(u0 + j0 + q) * V + vv), acc[q]);
         }
-        if (t + 1 < L && dq4) {  // rows of dq and Wq on 16 bytes: 16-byte loads, dq's all in flight
+        if (t + 1 < n && dq4) {  // rows of dq and Wq on 16 bytes: 16-byte loads, dq's all in flight
           float4 xs[NT / 128];
 #pragma unroll
           for (int r = 0; r < NT / 128; ++r) {
@@ -448,7 +455,7 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs<S_> 
               }
             }
           }
-        } else if (t + 1 < L) {
+        } else if (t + 1 < n) {
 #pragma unroll 4
           for (int d = lane; d < Dk; d += 32) {
             const float x = __ldcg(a.dq + (row + B) * Dk + d);
@@ -926,6 +933,12 @@ __global__ void __launch_bounds__(NT) decoder_scan_bwd_kernel(const BwdArgs<S_> 
   }
   for (int d = tid; d < Dk; d += NT) a.dlocv_part[(long)j * Dk + d] = dloc;
   for (int i = tid; i < K * Dk; i += NT) a.dwlp_part[(long)j * K * Dk + i] = dwl[i];
+  // ---- rows n .. L-1 of the streams: zeros, over the whole grid
+  const long r0 = (long)n * B, rows = (long)(L - n) * B;
+  const long gt = (long)j * NT + tid, gs = (long)gridDim.x * NT;
+  for (long x = gt; x < rows * G4; x += gs) a.dgates[r0 * G4 + x] = 0.0f;
+  for (long x = gt; x < rows * Dk; x += gs) a.dq[r0 * Dk + x] = 0.0f;
+  for (long x = gt; x < rows * S * K; x += gs) a.dfpre[r0 * S * K + x] = 0.0f;
 }
 
 // the kernel of storage type dt (0 float, 1 bf16)
@@ -1017,8 +1030,10 @@ extern "C" int e2e_decoder_scan_phase_times(unsigned long long* out, int n, void
 // k [B, S, Dk], v [B, S, E], enc_len [B] i32, taps [K, P], wq [H, Dk], wlp [K, Dk],
 // locv [Dk], locb [Dk], wx [Emb + E, 4H], wh [H, 4H], wout [H, V]; the forward's
 // align [L, B, S], cseq [L, B, H], acts [L, B, 4H], qs [L, B, Dk], ctxs [L, B, E];
-// cotangents dlogits [L, B, V], dalign [L, B, S], dhidden [L, B, H]
-// -> dgates [L, B, 4H], dq [L, B, Dk], dfpre [L, B, S, K], dk [B, S, Dk],
+// cotangents dlogits [L, B, V], dalign [L, B, S], dhidden [L, B, H]; steps
+// [1] i32 (the steps run from the last back, clamped to [0, L]; null: L)
+// -> dgates [L, B, 4H], dq [L, B, Dk], dfpre [L, B, S, K] (zero on rows past
+// the steps run), dk [B, S, Dk],
 // dwlp_part [G CL, K, Dk], dlocv_part [G CL, Dk]; scratch dctxg [B, E] and
 // scratch [G CL, ceil(S / CL) Dk + S K]. The inputs of storage type dt (0
 // float, 1 bf16) but acts, qs and ctxs; those and every output float, all
@@ -1032,8 +1047,8 @@ extern "C" int e2e_decoder_scan_bwd(
     const float* ctxs, const void* dlogits, const void* dalign, const void* dhidden,
     float* dgates, float* dq, float* dfpre, float* dk, float* dwlp_part, float* dlocv_part,
     float* dctxg, float* scratch, int B, int S, int Dk, int E, int K, int P, int H, int Emb, int V,
-    int L, float inv_temp, int G, int CL, int es_smem, int dfa_smem, int wr_smem, int dk_smem,
-    int k_smem, int v_smem, int dt, void* stream) {
+    int L, float inv_temp, const int* steps, int G, int CL, int es_smem, int dfa_smem, int wr_smem,
+    int dk_smem, int k_smem, int v_smem, int dt, void* stream) {
   if (H % 8 != 0 || H > 512 || Dk > NT || P % 2 != 1 || B < 1 || S < 1 || L < 1 || V < 1 || G < 1 ||
       CL < 1 || CL > CLMAX || dt < 0 || dt > 1)
     return (int)cudaErrorInvalidValue;
@@ -1052,8 +1067,8 @@ extern "C" int e2e_decoder_scan_bwd(
     BwdArgs<T> a{(C)k, (C)v, enc_len, (C)taps, (C)wq, (C)wlp, (C)locv, (C)locb, (C)wx, (C)wh, (C)wout,
                  (C)align, (C)cseq, acts, qs, ctxs, (C)dlogits, (C)dalign, (C)dhidden, dgates, dq, dfpre,
                  dk, dwlp_part, dlocv_part, dctxg, scratch,
-                 B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, G, CL, NS, es_smem, dfa_smem, wr_smem, dk_smem,
-                 k_smem, v_smem};
+                 B, S, Dk, E, K, P, H, Emb, V, L, inv_temp, steps, G, CL, NS, es_smem, dfa_smem, wr_smem,
+                 dk_smem, k_smem, v_smem};
     return cudaLaunchKernelEx(&cfg, decoder_scan_bwd_kernel<T>, a);
   };
   return (int)(dt ? run(bf16{}) : run(0.0f));

@@ -212,16 +212,17 @@ def heads(
     generator: Optional[torch.Generator] = None,
     train: bool = False,
     sample_decoding: bool = True,
+    steps: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """The heads half of ``forward`` over the encoder's output: its outputs
-    from the CTC head and the speller (``spell``)."""
+    from the CTC head and the speller (``spell``, with ``steps``)."""
     out: Dict[str, torch.Tensor] = {"enc_len": enc_len, "enc": enc}
     if "ctc" in params:
         out["ctc_log_probs"] = ctc_log_probs(params, enc)
     if "decoder" not in params:
         return out
     out.update(spell(params, cfg, enc, enc_len, decode_step, tf_rate, teacher, generator, train,
-                     sample_decoding))
+                     sample_decoding, steps))
     return out
 
 
@@ -236,10 +237,13 @@ def spell(
     generator: Optional[torch.Generator] = None,
     train: bool = False,
     sample_decoding: bool = True,
+    steps: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
     """The speller half of ``forward`` over the encoder's output: att_logits
     [B, L, V], align [B, L, H, S], att_hidden [B, L, H_dec] by the fused
-    scan or the Python loop (``_use_fused_scan``)."""
+    scan or the Python loop (``_use_fused_scan``). ``steps`` (int32 [1] on
+    enc's device, or None): the fused scan runs that many of the L steps
+    and leaves the outputs past them zero; the loop runs all L."""
     if teacher is None:
         raise ValueError("the attention head needs teacher tokens")
 
@@ -258,7 +262,7 @@ def spell(
     if _use_fused_scan(params, cfg, train, enc.device):
         out["att_logits"], out["align"], out["att_hidden"] = decoder_cuda.run_decode_scan(
             params, cfg, enc, enc_len, teacher_in, coins, generator=generator, train=train,
-            sample_decoding=sample_decoding,
+            sample_decoding=sample_decoding, steps=steps,
         )
         return out
 

@@ -54,6 +54,19 @@ gives them; at ``row0`` 0 the kernels are those of a world of one. Neither repro
 distribution is the same (Gumbel-max), the numbers are not. Teacher-forced
 and argmax feedback are comparable value for value.
 
+Steps run: every version takes ``steps``, an int32 tensor of one element
+on k's device (None: all L), and runs only the first n = min(max(steps, 0),
+L) steps, forward and backward; every output and residual of the steps
+after them, and every per-step stream of the backward, is zero. A training
+step passes its batch's longest label (``training/step.py``
+``compute_loss``): the loss masks every output past it, so each step after
+it would get cotangents that are exactly zero and carry exact zeros back;
+the gradients are those of all L steps, bitwise up to the sign of an exact
+zero. The kernels read n from device memory, so a captured step replays
+with each batch's n at one grid. Each forward adds n to the device counter
+``scan.steps_run`` and L to the host counter ``scan.bucket_steps``
+(``utils/tracing.py``).
+
 Storage types: k, v, the weights and the outputs logits, align, hidden
 and c are float32 or bfloat16, one type a call (each kernel has a variant
 of each); the residuals acts, q and ctx and every gradient the backward
@@ -95,6 +108,7 @@ from e2e_asr_tpu_torch import cuda_build
 from e2e_asr_tpu_torch.cuda_build import dtype_code
 from e2e_asr_tpu_torch.ops.att_step_cuda import NEG, location_features
 from e2e_asr_tpu_torch.parallel import dist
+from e2e_asr_tpu_torch.utils import tracing
 
 CL = 8  # blocks per cluster, at most (the portable cluster size)
 CLUSTER_SIZES = (8, 7, 6, 5, 4)  # the sizes scan_grid weighs
@@ -252,21 +266,36 @@ def _attend(k, v, mask, prev_att, q, taps, wlp, locv, locb, temp):
     return align, ctx, e, f
 
 
+def _steps_run(steps: Optional[torch.Tensor], l: int) -> int:
+    """n of ``steps`` (a host read: the plain versions' alone)."""
+    return l if steps is None else min(max(int(steps.reshape(-1)[0]), 0), l)
+
+
+def _rows(xs, l: int, shape, dtype, device) -> torch.Tensor:
+    """The per-step rows ``xs`` stacked, zero rows after them up to ``l``."""
+    zeros = torch.zeros((l - len(xs),) + tuple(shape), dtype=dtype, device=device)
+    return torch.cat([torch.stack(xs), zeros]) if xs else zeros
+
+
 def decoder_scan_fwd_plain(
     k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
     teacher, use_teacher, temp: float, sample: bool = False,
     noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+    steps: Optional[torch.Tensor] = None,
 ):
-    """Plain version: the scan as a loop over L. ``use_teacher`` [L] bool;
+    """Plain version: the scan as a loop over the first n of L steps
+    (``steps``). ``use_teacher`` [L] bool;
     where it is false the prediction of the step before is fed (argmax of
     the logits, plus ``noise`` [L, B, V] when ``sample``; without a buffer
     the noise is Gumbel noise drawn from ``generator``). Returns (logits,
     align, hidden, residuals = (cseq, tokens, acts, q, ctx)): the first
-    four in k's type (the inputs' storage type), the rest float32."""
+    four in k's type (the inputs' storage type), the rest float32; zero
+    rows past step n."""
     b, s, _ = k.shape
     l = teacher.shape[0]
     h_dim = wh.shape[0]
     dt = k.dtype
+    n = _steps_run(steps, l)
     k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout = (
         a.float() for a in (k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout))
     mask = torch.arange(s, device=k.device)[None, :] < enc_len[:, None]
@@ -276,7 +305,7 @@ def decoder_scan_fwd_plain(
     pred = torch.zeros((b,), dtype=torch.long, device=k.device)  # <sos>
     use = use_teacher.tolist()
     outs = [[] for _ in range(8)]
-    for t in range(l):
+    for t in range(n):
         tok = teacher[t].long() if use[t] else pred
         q = h.float() @ wq + bq
         align, ctx, _, _ = _attend(k, v, mask, att.float(), q, taps, wlp, locv, locb, temp)
@@ -299,7 +328,11 @@ def decoder_scan_fwd_plain(
         for lst, val in zip(outs, (logits.to(dt), att, h, c, tok.int(), torch.cat([i, f, g, o], -1), q,
                                    ctx)):
             lst.append(val)
-    logits, align, hidden, cseq, tokens, acts, qs, ctxs = (torch.stack(o) for o in outs)
+    e_dim, vocab = v.shape[2], wout.shape[1]
+    kinds = (((vocab,), dt), ((s,), dt), ((h_dim,), dt), ((h_dim,), dt), ((), torch.int32),
+             ((4 * h_dim,), torch.float32), ((wq.shape[1],), torch.float32), ((e_dim,), torch.float32))
+    logits, align, hidden, cseq, tokens, acts, qs, ctxs = (
+        _rows(o, l, (b,) + shape, dtype, k.device) for o, (shape, dtype) in zip(outs, kinds))
     return logits, align, hidden, (cseq, tokens, acts, qs, ctxs)
 
 
@@ -340,26 +373,39 @@ def decoder_scan_fwd(
     k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
     teacher, use_teacher, temp: float, sample: bool = False, seed: int = 0,
     noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None, row0: int = 0,
+    steps: Optional[torch.Tensor] = None,
 ):
     """Plain version on CPU tensors; the CUDA kernel on CUDA tensors (its
     sampled feedback draws the noise of ``gumbel_noise(seed, ..., row0)`` in
     the kernel, ``seed`` an int or an int64 tensor of one element on k's
     device that the kernel reads, ``row0`` the global row of utterance 0;
-    ``noise`` and ``generator`` are the plain version's)."""
+    ``noise`` and ``generator`` are the plain version's). Either runs the
+    first n of the L steps (``steps``: an int32 tensor of one element on k's
+    device, or None for all), adds n to the ``scan.steps_run`` device counter
+    and L to the ``scan.bucket_steps`` host counter."""
+    tracing.count("scan.bucket_steps", teacher.shape[0])
+    counter = tracing.device_counter("scan.steps_run", k.device)
+    if steps is not None and (steps.dtype != torch.int32 or steps.numel() != 1 or steps.device != k.device):
+        raise ValueError(f"decoder_scan_fwd: steps must be one int32 on {k.device}, got {steps.dtype} "
+                         f"{tuple(steps.shape)} on {steps.device}")
     if cuda_build.use_plain(k):
+        counter[1 + int(counter[0] != 0)] += _steps_run(steps, teacher.shape[0])
         return decoder_scan_fwd_plain(k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh,
                                       bl, wout, bout, teacher, use_teacher, temp, sample, noise,
-                                      generator)
+                                      generator, steps)
     out = _fwd_launch((), k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-                      teacher, use_teacher, temp, sample, seed, row0=row0)
+                      teacher, use_teacher, temp, sample, seed, row0=row0, steps=steps, steps_run=counter)
     cuda_build.count_launch(decoder_scan_fwd, k.dtype)
     return out
 
 
 def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout,
-                bout, teacher, use_teacher, temp, sample, seed, cluster_size=None, row0=0):
+                bout, teacher, use_teacher, temp, sample, seed, cluster_size=None, row0=0, steps=None,
+                steps_run=None):
     """Checks, allocates and launches the forward kernel of the library
-    built with ``defines``."""
+    built with ``defines`` (``steps``: the steps run, None for all;
+    ``steps_run``: a tracer's device counter that the kernel adds them to,
+    or None)."""
     fl = [a.contiguous() for a in (k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout)]
     k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout = fl
     enc_len = enc_len.to(torch.int32).contiguous()
@@ -391,7 +437,7 @@ def _fwd_launch(defines, k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx
         "decoder_scan", "e2e_decoder_scan_fwd", k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed,
         wx, wh, bl, wout, bout, teacher, use_i, logits, align, hidden, cseq, tokens, acts, qs, ctxs, ew,
         hs, b, s, dk, e_dim, kk, p, h_dim, emb, vocab, l, 1.0 / float(temp), int(bool(sample)), int(row0),
-        seed_t, grid["clusters"], grid["cluster_size"],
+        seed_t, steps, steps_run, grid["clusters"], grid["cluster_size"],
         grid["w_smem"], grid["wq_smem"], grid["wo_smem"], grid["k_smem"], grid["v_smem"],
         dtype_code(dt, "decoder_scan_fwd"), defines=defines,
     )
@@ -437,14 +483,16 @@ def _shift(x: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
 
 def decoder_scan_bwd_plain(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
                            align, hidden, cseq, acts, qs, ctxs, dlogits, dalign, dhidden,
-                           temp: float):
+                           temp: float, steps: Optional[torch.Tensor] = None):
     """Plain version of the backward kernel: the reverse sweep written out
-    step by step (not autograd). Returns what the kernel returns: the
-    per-step dgates [L, B, 4H], dq [L, B, Dk] and the location-feature
-    cotangent dfpre [L, B, S, K], then dk [B, S, Dk], dwlp [K, Dk] and
-    dlocv [Dk] summed over steps and utterances, all float32 (the inputs in
-    their storage type are widened)."""
+    step by step (not autograd), from step n - 1 (``steps``) back. Returns
+    what the kernel returns: the per-step dgates [L, B, 4H], dq [L, B, Dk]
+    and the location-feature cotangent dfpre [L, B, S, K] (zero rows past
+    step n), then dk [B, S, Dk], dwlp [K, Dk] and dlocv [Dk] summed over
+    steps and utterances, all float32 (the inputs in their storage type are
+    widened)."""
     l, b, s = align.shape
+    n = _steps_run(steps, l)
     h_dim = wh.shape[0]
     e_dim = v.shape[2]
     init = _init_align(enc_len, s, align.dtype).float()
@@ -463,7 +511,7 @@ def decoder_scan_bwd_plain(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wou
     dwlp = torch.zeros_like(wlp)
     dlocv = torch.zeros_like(locv)
     dg_all, dq_all, dfp_all = [], [], []
-    for t in range(l - 1, -1, -1):
+    for t in range(n - 1, -1, -1):
         i, f, g, o = acts[t].chunk(4, dim=-1)
         tc = torch.tanh(cseq[t])
         dh = dlogits[t] @ wout.T + dhidden[t] + dh_c
@@ -492,27 +540,30 @@ def decoder_scan_bwd_plain(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wou
         dg_all.append(dgates)
         dq_all.append(dq)
         dfp_all.append(dfp)
-    rev = lambda xs: torch.stack(xs[::-1])
-    return rev(dg_all), rev(dq_all), rev(dfp_all), dk, dwlp, dlocv
+    rev = lambda xs, shape: _rows(xs[::-1], l, (b,) + shape, torch.float32, k.device)
+    return (rev(dg_all, (4 * h_dim,)), rev(dq_all, (wq.shape[1],)), rev(dfp_all, (s, taps.shape[0])), dk,
+            dwlp, dlocv)
 
 
 def decoder_scan_bwd(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
-                     align, hidden, cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp: float):
-    """Backward sweep: plain version on CPU tensors; the CUDA kernel on CUDA
+                     align, hidden, cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp: float,
+                     steps: Optional[torch.Tensor] = None):
+    """Backward sweep over the first n steps (``steps``, as the forward's):
+    plain version on CPU tensors; the CUDA kernel on CUDA
     tensors. dwlp and dlocv leave the kernel as one partial per block, summed
     here in a fixed order (no atomics: the result does not change from run
     to run)."""
     args = (k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs,
             ctxs, dlogits, dalign, dhidden)
     if cuda_build.use_plain(k):
-        return decoder_scan_bwd_plain(*args, temp)
-    out = _bwd_launch((), *args, temp)
+        return decoder_scan_bwd_plain(*args, temp, steps)
+    out = _bwd_launch((), *args, temp, steps=steps)
     cuda_build.count_launch(decoder_scan_bwd, k.dtype)
     return out
 
 
 def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
-                cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp, cluster_size=None):
+                cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp, cluster_size=None, steps=None):
     """Checks, allocates and launches the backward kernel of the library
     built with ``defines``; sums the per-block partials."""
     fl = [a.contiguous() for a in (k, v, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
@@ -555,7 +606,7 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
         "decoder_scan_bwd", "e2e_decoder_scan_bwd", k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh,
         wout, align, cseq, acts, qs, ctxs, dlogits, dalign, dhidden, dgates, dq, dfpre, dk,
         dwlp_part, dlocv_part, dctx, scratch, b, s, dk_dim, e_dim, kk, p, h_dim, emb, vocab, l,
-        1.0 / float(temp), grid["clusters"], grid["cluster_size"], grid["es_smem"], grid["dfa_smem"],
+        1.0 / float(temp), steps, grid["clusters"], grid["cluster_size"], grid["es_smem"], grid["dfa_smem"],
         grid["wr_smem"], grid["dk_smem"], grid["k_smem"],
         grid["v_smem"], dtype_code(dt, "decoder_scan_bwd"), defines=defines,
     )
@@ -579,26 +630,28 @@ class DecoderScanFn(torch.autograd.Function):
     type; the float32 parameters are cast to it for the kernels, and their
     gradients come back in float32, summed in float32 from the per-step
     streams as stored in that type (dgates, dq, dfpre) and the float32
-    parameters, as the TPU kernel's VJP sums them."""
+    parameters, as the TPU kernel's VJP sums them. With ``steps`` the
+    sweeps run its first n steps; the products over L*B read the zero rows
+    the kernels write past them."""
 
     @staticmethod
     def forward(ctx, k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-                enc_len, teacher, use_teacher, temp, sample, seed, noise, generator, row0):
+                enc_len, teacher, use_teacher, temp, sample, seed, noise, generator, row0, steps):
         dt = k.dtype
         w = [a.to(dt) for a in (taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout)]
         logits, align, hidden, res = decoder_scan_fwd(
-            k, v, enc_len, *w, teacher, use_teacher, temp, sample, seed, noise, generator, row0)
+            k, v, enc_len, *w, teacher, use_teacher, temp, sample, seed, noise, generator, row0, steps)
         cseq, tokens, acts, qs, ctxs = res
         taps_s, wq_s, _, wlp_s, locv_s, locb_s, embed_s, wx_s, wh_s, bl_s, wout_s, _ = w
         ctx.save_for_backward(k, v, enc_len, taps_s, wq_s, wlp_s, locv_s, locb_s, wx_s, wh_s, wout_s,
-                              embed, wx, embed_s, bl_s, align, hidden, cseq, tokens, acts, qs, ctxs)
+                              embed, wx, embed_s, bl_s, align, hidden, cseq, tokens, acts, qs, ctxs, steps)
         ctx.temp = temp
         return logits, align, hidden
 
     @staticmethod
     def backward(ctx, dlogits, dalign, dhidden):
         (k, v, enc_len, taps, wq, wlp, locv, locb, wx_s, wh, wout, embed, wx, embed_s, bl_s,
-         align, hidden, cseq, tokens, acts, qs, ctxs) = ctx.saved_tensors
+         align, hidden, cseq, tokens, acts, qs, ctxs, steps) = ctx.saved_tensors
         dt = k.dtype
         l, b, s = align.shape
         dlogits, dalign, dhidden = (
@@ -620,7 +673,7 @@ class DecoderScanFn(torch.autograd.Function):
             acts = torch.cat([torch.sigmoid(gi), torch.sigmoid(gf), torch.tanh(gg), torch.sigmoid(go)], dim=-1)
         dgates, dq, dfpre, dk, dwlp, dlocv = decoder_scan_bwd(
             k, v, enc_len, taps, wq, wlp, locv, locb, wx_s, wh, wout, align, hidden, cseq, acts, qs,
-            ctxs, dlogits, dalign, dhidden, ctx.temp)
+            ctxs, dlogits, dalign, dhidden, ctx.temp, steps=steps)
         dlocb = dq.sum(dim=(0, 1))
         # the streams as the TPU kernel stores them (no-ops at float32)
         dgates, dq, dfpre = (a.to(dt).float() for a in (dgates, dq, dfpre))
@@ -646,28 +699,31 @@ class DecoderScanFn(torch.autograd.Function):
         dbout = dlog.sum(dim=(0, 1))
         dtaps = _taps_grad(att_prev.reshape(l * b, s), dfpre.reshape(l * b, s, -1), taps.shape[1])
         return (dk.to(dt), dv, dtaps, dwq, dbq, dwlp, dlocv, dlocb, dembed, dwx, dwh, dbl, dwout,
-                dbout, None, None, None, None, None, None, None, None, None)
+                dbout, None, None, None, None, None, None, None, None, None, None)
 
 
 def decoder_scan(k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-                 teacher, use_teacher, temp, sample=False, seed=0, noise=None, generator=None, row0=0):
+                 teacher, use_teacher, temp, sample=False, seed=0, noise=None, generator=None, row0=0,
+                 steps=None):
     """Differentiable (logits [L, B, V], align [L, B, S], hidden [L, B, H]),
-    in k's type."""
+    in k's type; zero past the first n steps (``steps``)."""
     return DecoderScanFn.apply(k, v, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout,
-                               enc_len, teacher, use_teacher, temp, sample, seed, noise, generator, row0)
+                               enc_len, teacher, use_teacher, temp, sample, seed, noise, generator, row0,
+                               steps)
 
 
 def run_decode_scan(
     params, cfg, enc: torch.Tensor, enc_len: torch.Tensor, teacher_in: torch.Tensor,
     coins: torch.Tensor, generator: Optional[torch.Generator] = None, train: bool = False,
-    sample_decoding: bool = True,
+    sample_decoding: bool = True, steps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Drop-in for the loop of ``models/asr.py`` ``forward`` inside the
     envelope of ``supported``. teacher_in [B, L]: the right-shifted targets;
     coins [L] bool: the steps that use the teacher (all do outside
     training), on enc's device for the kernel. Sampled feedback needs a
     generator; without one the prediction fed back is the argmax, as in the
-    loop.
+    loop. ``steps`` (int32 [1] on enc's device, or None for all L): the
+    steps run, the outputs past them zero.
 
     Returns (att_logits [B, L, V], align [B, L, 1, S], att_hidden [B, L, H])."""
     ap, dp = params["attention"], params["decoder"]
@@ -686,6 +742,6 @@ def run_decode_scan(
         k, enc, enc_len, ap["loc_conv"]["w"][:, 0], ap["proj_q"]["w"], ap["proj_q"]["b"], wlp,
         ap["loc_v"][0], locb, params["embed"]["table"], cell["wx"], cell["wh"], cell["b"],
         dp["char"]["w"], dp["char"]["b"], teacher_in.T.int(), use_teacher,
-        float(cfg.attention.temperature), sample, seed, None, generator, row0,
+        float(cfg.attention.temperature), sample, seed, None, generator, row0, steps,
     )
     return logits.transpose(0, 1), align.transpose(0, 1)[:, :, None, :], hidden.transpose(0, 1)

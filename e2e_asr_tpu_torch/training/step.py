@@ -162,9 +162,14 @@ def compute_loss(
     tracing.mark("train.encoder")
     enc, enc_len = asr_mod.encode(params, m, feat, feat_len, generator if train else None, train)
     tracing.mark("train.heads")
+    # in training the loss reads no speller output past the batch's longest
+    # label, so the fused scan stops there: a count on the device, read by
+    # the kernels (outside training every output is read: eval_step's
+    # att_preds cover all L)
+    steps = torch.clamp(text_len.max(), max=text.shape[1]).to(torch.int32).reshape(1) if train else None
     out = asr_mod.heads(
         params, m, enc, enc_len, decode_step=text.shape[1], tf_rate=tf, teacher=text,
-        generator=generator if train else None, train=train, sample_decoding=sample_decoding,
+        generator=generator if train else None, train=train, sample_decoding=sample_decoding, steps=steps,
     )
     enc_len = out["enc_len"]
     text = text.long()

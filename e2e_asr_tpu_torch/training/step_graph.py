@@ -44,7 +44,10 @@ capture or replay raises; nothing falls back to the eager step.
 The kernel wrappers count launches where Python calls them, so a capture
 would count once and the replays not at all: the capture's deltas are taken
 back and added again on every replay, and a replayed step counts what an
-eager one counts.
+eager one counts. So are the host counters of the tracer that the wrappers
+add to (``TRACED``: the speller scan's ``scan.bucket_steps``); a device
+counter (its ``scan.steps_run``) is added to by the replayed kernels
+themselves.
 
 Data parallelism (``parallel/dist.py``): under an NCCL group the step's two
 collectives (the loss's denominators, the flat buffer of gradients and loss
@@ -89,18 +92,23 @@ COUNTED = (frontend_cuda.log_mel, ctc_cuda.ctc_lattice, decoder_cuda.decoder_sca
            rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_bwd, rnn_cuda.lstm_bidir_fwd, rnn_cuda.lstm_bidir_fwd_train,
            rnn_cuda.lstm_bidir_bwd)
 COUNTERS = ("launches", "launches_bf16")  # a wrapper's float32 and bf16 counters (cuda_build.count_launch)
+TRACED = ("scan.bucket_steps",)  # the tracer's host counters that those wrappers add to
 STATIC = ("wav", "wav_off", "wav_len", "text", "text_len")  # the batch's tensors a step reads
 
 
 def _counts() -> List[int]:
-    return [getattr(fn, a, 0) for fn in COUNTED for a in COUNTERS]
+    return [getattr(fn, a, 0) for fn in COUNTED for a in COUNTERS] + [tracing.counted(n) for n in TRACED]
 
 
 def _add_counts(deltas: List[int]) -> None:
-    for i, n in enumerate(deltas):
+    k = len(COUNTED) * len(COUNTERS)
+    for i, n in enumerate(deltas[:k]):
         if n:
             fn, a = COUNTED[i // len(COUNTERS)], COUNTERS[i % len(COUNTERS)]
             setattr(fn, a, getattr(fn, a) + n)
+    for name, n in zip(TRACED, deltas[k:]):
+        if n:
+            tracing.count(name, n)
 
 
 def _opt_leaves(opt_state) -> List[torch.Tensor]:

@@ -41,6 +41,14 @@ where two profiler sessions follow each other with no span between them,
 the interval across the first one's export lands in the traced bank (never
 in the untraced one).
 
+Device counters (``device_counter``): a count that code on the device adds
+to, e.g. a kernel inside a replayed graph, where no host code runs at each
+replay. Each is an int64 tensor [1 + banks] on its device: [0] the bank the
+host set (written by a ``fill_`` on the current stream when the bank
+changes, as the marks' bank), [1 + b] the count in bank b; the adder adds
+to [1 + [0]]. ``fetch`` copies them with the sections, and ``snapshot``
+reports them with the host counters.
+
 ``snapshot(bank)`` returns the spans' and counters' totals and the
 sections' (one device-to-host read). ``set_marks(False)`` captures graphs
 without marks (for comparisons; not a configuration option).
@@ -136,6 +144,27 @@ class _Device:
         self.event: Optional[torch.cuda.Event] = None
 
 
+class _Counter:
+    """One device counter (``Tracer.device_counter``): ``buf`` int64 [1 +
+    banks]; ``host`` its copy (pinned for a card's) and the copy's event."""
+
+    def __init__(self, device: torch.device, bank: int):
+        # a normal tensor (not an inference tensor, whatever mode its first
+        # adder runs in): the host writes it in place in any mode
+        with torch.inference_mode(False):
+            self.buf = torch.zeros(1 + len(BANKS), dtype=torch.int64, device=device)
+            self.buf[0] = bank
+            self.host = torch.empty(self.buf.shape, dtype=torch.int64, pin_memory=device.type == "cuda")
+        self.event: Optional[torch.cuda.Event] = None
+
+    def fetch(self) -> None:
+        self.host.copy_(self.buf, non_blocking=self.buf.is_cuda)
+        if self.buf.is_cuda:
+            with torch.cuda.device(self.buf.device):
+                self.event = torch.cuda.Event()
+                self.event.record()
+
+
 class Tracer:
     """Spans, counters and the device marks of one process (``TRACER``)."""
 
@@ -146,6 +175,7 @@ class Tracer:
         self._spans: List[Dict[str, list]] = [{} for _ in BANKS]  # name: [n, total ns]
         self._counts: List[Dict[str, int]] = [{} for _ in BANKS]
         self._devices: Dict[int, _Device] = {}
+        self._counters: Dict[tuple, _Counter] = {}  # (name, device): its device counter
         self.marks = True
 
     def _stack(self) -> List[Span]:
@@ -158,11 +188,13 @@ class Tracer:
         """The profiler started or stopped: the devices' bank follows, on the
         current stream (not while this thread captures a graph: a later
         span's entry switches then)."""
-        if self._devices and torch.cuda.is_current_stream_capturing():
+        if (self._devices or self._counters) and _capturing():
             return
         self._bank = bank
         for d in self._devices.values():
             d.state[2].fill_(bank)
+        for c in self._counters.values():
+            c.buf[0].fill_(bank)
 
     def span(self, name: str) -> Span:
         return Span(self, name)
@@ -171,6 +203,21 @@ class Tracer:
         with self._lock:
             c = self._counts[_profiling()]
             c[name] = c.get(name, 0) + n
+
+    def device_counter(self, name: str, device) -> torch.Tensor:
+        """The device counter ``name`` on ``device`` (int64 [1 + banks]: [0]
+        the bank, [1 + b] the count in bank b), made at its first call, which
+        may not be inside a graph's capture."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        with self._lock:
+            c = self._counters.get((name, device))
+            if c is None:
+                if _capturing():
+                    raise RuntimeError(f"tracing: the device counter {name} is made inside a graph's capture")
+                c = self._counters[(name, device)] = _Counter(device, self._bank)
+        return c.buf
 
     def total_s(self, name: str) -> float:
         """The total seconds of the spans of ``name``, both banks."""
@@ -230,12 +277,15 @@ class Tracer:
                 d.host.copy_(d.totals, non_blocking=True)
                 d.event = torch.cuda.Event()
                 d.event.record()
+        for c in self._counters.values():
+            c.fetch()
 
     def snapshot(self, bank: str = "untraced") -> dict:
         """{"spans": {name: {"n", "total_s"}}, "counts": {name: n},
         "sections": {section: {"n", "total_ms"}}} of ``bank``
-        (``untraced``, ``traced`` or ``all``); sections with no interval are
-        left out."""
+        (``untraced``, ``traced`` or ``all``), the device counters among the
+        counts (summed over the devices); sections with no interval are left
+        out."""
         banks = range(len(BANKS)) if bank == "all" else [BANKS.index(bank)]
         spans: Dict[str, dict] = {}
         counts: Dict[str, int] = {}
@@ -247,8 +297,15 @@ class Tracer:
                     s["total_s"] += tot / 1e9
                 for name, n in self._counts[b].items():
                     counts[name] = counts.get(name, 0) + n
-        if any(d.event is None for d in self._devices.values()):
+        if any(x.event is None for x in (*self._devices.values(), *self._counters.values())):
             self.fetch()
+        for (name, _), c in self._counters.items():
+            if c.event is not None:
+                c.event.synchronize()
+                c.event = None
+            host = c.host.tolist()
+            for b in banks:
+                counts[name] = counts.get(name, 0) + host[1 + b]
         sections: Dict[str, dict] = {}
         for d in self._devices.values():
             d.event.synchronize()
@@ -263,6 +320,10 @@ class Tracer:
         return {"spans": spans, "counts": counts, "sections": sections}
 
 
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
 TRACER = Tracer()
 
 
@@ -273,6 +334,10 @@ def span(name: str) -> Span:
 
 def count(name: str, n: int = 1) -> None:
     TRACER.count(name, n)
+
+
+def device_counter(name: str, device) -> torch.Tensor:
+    return TRACER.device_counter(name, device)
 
 
 def total_s(name: str) -> float:

@@ -595,6 +595,26 @@ def test_train_cli_progress_line_ends_in_rss_and_counts_params_as_jax(tmp_path, 
     assert len(params) == 1 and f"#params={jhuman_format(n)}, " in params[0], (params, n)
 
 
+def test_train_cli_progress_line_gives_the_scan_steps_run(tmp_path, capsys):
+    """On the fused scan's route (plain versions on the CPU) every progress
+    line gives the share of the token bucket's steps that the scan ran
+    (``scan steps NN%``: a step stops at its batch's longest label, under
+    the bucket's 48 tokens); the loop's route gives none."""
+    train_yaml = _tiny_train_yaml(tmp_path, max_step=2)
+    for name, overrides in (("fused", ["-o", "model.decoder.fused_scan=pallas", "-o", "model.decoder.dropout=0.0"]),
+                            ("loop", [])):
+        capsys.readouterr()
+        cli_main(["--config", str(train_yaml), "--cpu", "--name", name, "--logdir", str(tmp_path / "log"),
+                  "--ckpdir", str(tmp_path / "ckpt"), *overrides])
+        progress = [line for line in capsys.readouterr().out.splitlines() if "audio-s/s/chip" in line]
+        shares = [re.search(r" \| scan steps (\d+)% \| rss ", line) for line in progress]
+        assert len(progress) == 2, progress
+        if name == "fused":
+            assert all(m and 0 < int(m.group(1)) < 100 for m in shares), progress
+        else:
+            assert not any(shares), progress
+
+
 def test_lm_cli_counts_params_as_jax(tmp_path, capsys):
     """The LM trainer's ``#params=`` line through ``human_format``, as
     ``e2e_asr_tpu/bin/train_lm.py`` logs it."""

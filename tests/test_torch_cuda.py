@@ -72,7 +72,12 @@ ceilings, each launching its kernels; the device stage marks
 bitwise those without (the decode with and without an LM), the train
 stages' sections within 3% of a replay's CUDA-event time, an interval
 across a capture or a profiler's start or stop not counted, and the decode
-spans enclosing their launches in a Chrome trace.
+spans enclosing their launches in a Chrome trace; the scan pair given the
+steps to run (1, L/2, L at the flagship's commonest bucket and the 960 h
+recipe's longest, both storage types): outputs, streams and the gradients
+of a masked loss bitwise the uncut launch's, zero past the steps run, and
+one captured train step replayed on batches of other longest labels
+bitwise the eager step over all L steps, validation running all L.
 Marked ``cuda``: they skip without a card. Run on the card with
 ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
@@ -2682,3 +2687,124 @@ def test_decode_spans_enclose_their_launches_in_a_chrome_trace(gen, tmp_path):
                 assert sum(name == "cudaGraphLaunch" for name, _, _ in inside) == steps
             assert any(c in kernel_ts and kernel_ts[c] >= t for _, t, c in inside), (
                 part, inside[:5], [(c, kernel_ts.get(c)) for _, _, c in inside[:5]])
+
+
+# ------------------- the scan stops at a training batch's longest label
+# (B, S, Dk, E, K, P, H, Emb, V, L): the cells' commonest bucket (1632 frames,
+# 360 tokens) at the flagship's widths, the 960 h recipe's longest (3056 / 520)
+SCAN_CUT = {"flagship": (8, 408, 300, 640, 10, 201, 320, 320, 26, 360),
+            "960h": (16, 764, 300, 1024, 10, 201, 512, 512, 30, 520)}
+
+
+def _dirty_cache():
+    """The caching allocator's free blocks filled with NaN, so that an
+    output the kernels leave unwritten shows."""
+    torch.empty(1 << 28, device="cuda").fill_(float("nan"))
+
+
+def _scan_counts():
+    from e2e_asr_tpu_torch.utils import tracing
+
+    c = tracing.snapshot("all")["counts"]
+    return c.get("scan.steps_run", 0), c.get("scan.bucket_steps", 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cell", list(SCAN_CUT))
+@pytest.mark.parametrize("part", ["one", "half", "all"])
+def test_scan_kernels_stop_at_the_steps_run(gen, cell, dtype, part):
+    """Both kernels given ``steps`` = n (1, L/2, L), with sampled feedback at
+    tf 0.5: every output and residual of the forward, and the backward's
+    streams, bitwise the uncut launch's on steps < n and zero past them
+    (written over NaN), and through the autograd function the gradients of
+    a loss masked past each utterance's label (the longest n) bitwise the
+    uncut ones; the device counter adds n, the host counter L."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    shape = SCAN_CUT[cell]
+    b, s, dk, e_dim, kk, p, h, emb, v, l = shape
+    n = {"one": 1, "half": l // 2, "all": l}[part]
+    dt = getattr(torch, dtype)
+    args = _scan_args(gen, *shape)
+    stored = tuple(a.to(dt) if a.is_floating_point() else a for a in args)
+    use = torch.rand(l, generator=gen, device="cuda") < 0.5
+    steps = torch.tensor([n], dtype=torch.int32, device="cuda")
+    seed = 20261018
+    flat = lambda out: [*out[:3], *out[3]]
+    full = flat(dc.decoder_scan_fwd(*stored, use, 0.5, True, seed))
+    _dirty_cache()
+    c0 = _scan_counts()
+    cut = flat(dc.decoder_scan_fwd(*stored, use, 0.5, True, seed, steps=steps))
+    assert [a - z for a, z in zip(_scan_counts(), c0)] == [n, l]
+    for i, (c, f) in enumerate(zip(cut, full)):
+        assert torch.equal(c[:n], f[:n]), i
+        assert not c[n:].any(), i
+
+    text_len = torch.randint(0, n + 1, (b,), generator=gen, device="cuda")
+    text_len[b // 2] = n
+    mask = (torch.arange(l, device="cuda")[:, None] < text_len[None, :]).float()[..., None]
+    logits, align, hidden, cseq, _, acts, qs, ctxs = full
+    cots = [(torch.randn(o.shape, generator=gen, device="cuda") * mask).to(dt) for o in (logits, align, hidden)]
+    k, vv, lens, taps, wq, _, wlp, locv, locb, _, wx, wh, _, wout, _, _ = stored
+    if dt == torch.bfloat16:  # as DecoderScanFn passes it
+        ctxs = torch.einsum("lbs,bse->lbe", align.float(), vv.float())
+    bargs = (k, vv, lens, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs, ctxs, *cots, 0.5)
+    bfull = dc.decoder_scan_bwd(*bargs)
+    _dirty_cache()
+    bcut = dc.decoder_scan_bwd(*bargs, steps=steps)
+    for i, (c, f) in enumerate(zip(bcut, bfull)):
+        assert torch.equal(c, f), i
+    for c in bcut[:3]:
+        assert not c[n:].any()
+
+    idx = [0, 1, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14]  # every float input
+
+    def grads(st):
+        leaves = [(a.to(dt) if i < 2 else a).clone().requires_grad_() if i in idx else a for i, a in enumerate(args)]
+        outs = dc.decoder_scan(*leaves, use, 0.5, True, seed, steps=st)
+        return torch.autograd.grad(sum((o.float() * c.float()).sum() for o, c in zip(outs, cots)),
+                                   [leaves[i] for i in idx])
+
+    want = grads(None)
+    _dirty_cache()
+    got = grads(steps)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), idx[i]
+
+
+def test_train_graph_replays_each_batchs_longest_label_bitwise(gen):
+    """One captured train step (tf 0.5: sampled feedback) replayed on
+    batches whose longest labels differ (10, 4, 7 of a 10-token bucket):
+    loss, grad norm, every parameter and optimizer tensor bitwise those of
+    the eager step that runs all L steps, no new capture, and the device
+    counter adds each batch's longest label while the host counter adds L;
+    the validation graph's replay runs all L steps."""
+    from e2e_asr_tpu_torch.models import asr as asr_mod
+    from e2e_asr_tpu_torch.training.eval_graph import EvalGraphs
+    from e2e_asr_tpu_torch.training.step_graph import TrainGraphs
+
+    tg, sg = _small_train(tf_start=0.5, tf_end=0.5)
+    te, se = _small_train(tf_start=0.5, tf_end=0.5)
+    graphs = TrainGraphs()
+    real_heads = asr_mod.heads
+    for i, text_len in enumerate([(10, 6, 5), (4, 3, 4), (2, 7, 5), (4, 4, 1)]):
+        batch = _train_batch(30 + i, text_len=text_len)
+        c0 = _scan_counts()
+        mg = tg.train_step(sg, batch, _gen_of(200 + i), graphs=graphs)
+        got = [mg[k].clone() for k in ("loss", "grad_norm", "step_skipped")]
+        assert [a - z for a, z in zip(_scan_counts(), c0)] == [max(text_len), 10], i
+        with mock.patch.object(asr_mod, "heads", lambda *a, **kw: real_heads(*a, **{**kw, "steps": None})):
+            me = te.train_step(se, batch, _gen_of(200 + i))
+        want = [me[k] for k in ("loss", "grad_norm", "step_skipped")]
+        assert all(torch.equal(a, w) for a, w in zip(got, want)), (i, got, want)
+        assert float(want[2]) == 0.0
+        assert all(torch.equal(a, w) for a, w in zip(_state_tensors(sg), _state_tensors(se))), i
+    assert len(graphs.graphs) == len(graphs.captures) == 1
+    evals = EvalGraphs(share=graphs)
+    for i in range(2):
+        batch = _train_batch(40 + i, text_len=(3, 2, 2))
+        c0 = _scan_counts()
+        trainer_out = tg.validate_batch(sg.params, batch, EVAL_MAX_STEP, graphs=evals)
+        assert [a - z for a, z in zip(_scan_counts(), c0)] == [10, 10], i
+        want = tg.eval_device(sg.params, batch, EVAL_MAX_STEP)
+        assert torch.equal(trainer_out["scalars"], want["scalars"]), i

@@ -328,3 +328,176 @@ def test_pick_cluster_size(b, s, want):
     h100 = {8: 15, 7: 15, 6: 17, 5: 22, 4: 30}
     assert dc.pick_cluster_size(b, s, h100.get) == want
     assert dc.pick_cluster_size(b, s, lambda cl: 0 if cl == want else h100[cl]) != want
+
+
+# ------------------------------- (g) the steps run: a batch's longest label
+SCAN_L = 8
+STEPS = (0, 1, SCAN_L // 2, SCAN_L)
+NAMES = "k v enc_len taps wq bq wlp locv locb embed wx wh bl wout bout".split()
+
+
+def _steps(n):
+    return torch.tensor([n], dtype=torch.int32)
+
+
+def _label_mask(text_len, l=SCAN_L):
+    """[L, B, 1]: 1 where the step is inside the utterance's label."""
+    return (torch.arange(l)[:, None] < torch.as_tensor(text_len)[None, :]).float()[..., None]
+
+
+def _text_len(n, b=3):
+    """Label lengths whose longest is n (a padding row of 0 among them)."""
+    return [n, max(n - 3, 0), 0][:b]
+
+
+@pytest.mark.parametrize("n", STEPS)
+def test_plain_scan_runs_the_first_n_steps_and_zeros_the_rest(n):
+    """Every output and residual of the plain forward: bitwise the uncut
+    run's on steps < n, zero past them; n = L and None give today's result."""
+    args = _scan_args(l=SCAN_L)
+    use = torch.tensor([True, False] * (SCAN_L // 2))
+    flat = lambda out: list(out[:3]) + list(out[3])
+    full = flat(dc.decoder_scan_fwd(*args, use, 0.7))
+    cut = flat(dc.decoder_scan_fwd(*args, use, 0.7, steps=_steps(n)))
+    for i, (c, f) in enumerate(zip(cut, full)):
+        assert c.shape == f.shape and c.dtype == f.dtype, i
+        assert torch.equal(c[:n], f[:n]), i
+        assert not c[n:].any(), i
+    if n == SCAN_L:
+        assert all(torch.equal(c, f) for c, f in zip(cut, full))
+
+
+@pytest.mark.parametrize("n", STEPS)
+def test_plain_backward_sweep_over_n_steps_is_the_uncut_sweep_of_a_masked_loss(n):
+    """The plain backward sweep from step n - 1 back, given cotangents that
+    are zero past each utterance's label (the longest n): its streams and
+    sums bitwise the uncut sweep's (up to the sign of an exact zero, which
+    torch.equal does not see), the streams zero past n."""
+    args = _scan_args(l=SCAN_L)
+    k, v, enc_len, taps, wq, bq, wlp, locv, locb, embed, wx, wh, bl, wout, bout, _ = args
+    use = torch.ones(SCAN_L, dtype=torch.bool)
+    logits, align, hidden, (cseq, _, acts, qs, ctxs) = dc.decoder_scan_fwd_plain(*args, use, 0.7)
+    rng = np.random.RandomState(2)
+    mask = _label_mask(_text_len(n))
+    cots = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32)) * mask for o in (logits, align, hidden)]
+    common = (k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs, ctxs,
+              *cots, 0.7)
+    full = dc.decoder_scan_bwd(*common)
+    cut = dc.decoder_scan_bwd(*common, steps=_steps(n))
+    for i, (c, f) in enumerate(zip(cut, full)):
+        assert torch.equal(c, f), i
+    for c in cut[:3]:
+        assert not c[n:].any()
+
+
+@pytest.mark.parametrize("n", STEPS)
+def test_scan_gradients_of_a_masked_loss_are_the_uncut_ones(n):
+    """Through the autograd function (the sweeps and the products over L*B
+    outside them): the gradients of every input of a loss masked past each
+    utterance's label are bitwise those of the uncut scan."""
+    args = _scan_args(l=SCAN_L)
+    use = torch.ones(SCAN_L, dtype=torch.bool)
+    mask = _label_mask(_text_len(n))
+    rng = np.random.RandomState(3)
+    cots = None
+    grads = []
+    for steps in (None, _steps(n)):
+        leaves = {nm: a.clone().requires_grad_() for nm, a in zip(NAMES, args) if nm != "enc_len"}
+        call = [leaves.get(nm, a) for nm, a in zip(NAMES, args)] + [args[-1]]
+        outs = dc.decoder_scan(*call, use, 0.7, steps=steps)
+        if cots is None:
+            cots = [torch.from_numpy(rng.randn(*o.shape).astype(np.float32)) * mask for o in outs]
+        loss = sum((o * c).sum() for o, c in zip(outs, cots))
+        grads.append(torch.autograd.grad(loss, list(leaves.values())))
+    for name, g_full, g_cut in zip([nm for nm in NAMES if nm != "enc_len"], *grads):
+        assert torch.equal(g_cut, g_full), name
+    assert n == 0 or any(g.abs().sum() > 0 for g in grads[1])
+
+
+def test_scan_counts_the_bucket_and_the_steps_run():
+    """Each forward adds L to the host counter ``scan.bucket_steps`` and the
+    steps it ran to the device counter ``scan.steps_run``, in the bank the
+    tracer is in; the backward counts nothing."""
+    from e2e_asr_tpu_torch.utils import tracing
+
+    args = _scan_args(l=SCAN_L)
+    use = torch.ones(SCAN_L, dtype=torch.bool)
+    counts = lambda bank="untraced": {k: tracing.snapshot(bank)["counts"].get(k, 0)
+                                      for k in ("scan.bucket_steps", "scan.steps_run")}
+    before = counts()
+    dc.decoder_scan_fwd(*args, use, 0.7)
+    dc.decoder_scan_fwd(*args, use, 0.7, steps=_steps(3))
+    dc.decoder_scan_fwd(*args, use, 0.7, steps=_steps(SCAN_L + 5))  # clamped to L
+    out = dc.decoder_scan(args[0].clone().requires_grad_(), *args[1:], use, 0.7, steps=_steps(2))
+    after = counts()
+    assert after["scan.bucket_steps"] - before["scan.bucket_steps"] == 4 * SCAN_L
+    assert after["scan.steps_run"] - before["scan.steps_run"] == SCAN_L + 3 + SCAN_L + 2
+    sum(o.sum() for o in out).backward()
+    assert counts() == after
+    from torch.profiler import ProfilerActivity, profile
+
+    counter = tracing.device_counter("scan.steps_run", "cpu")
+    traced = counts("traced")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tracing.span("train.step"):  # the tracer's bank follows the profiler at a span's entry
+            dc.decoder_scan_fwd(*args, use, 0.7, steps=_steps(5))
+            assert int(counter[0]) == 1
+    with tracing.span("train.step"):
+        assert int(counter[0]) == 0
+    now = counts("traced")
+    assert [now[k] - traced[k] for k in ("scan.bucket_steps", "scan.steps_run")] == [SCAN_L, 5]
+    assert counts() == after
+
+
+def _wav_batch(text_len=(7, 4, 0), l=SCAN_L, seed=0):
+    rng = np.random.RandomState(seed)
+    wav_len = np.array([4000, 2600, 3000], np.int32)
+    wav = (0.1 * rng.randn(3, 4000)).astype(np.float32)
+    text = np.zeros((3, l), np.int32)
+    for i, m in enumerate(text_len):
+        wav[i, wav_len[i]:] = 0.0
+        if m:
+            text[i, : m - 1] = rng.randint(3, VOCAB, size=m - 1)
+            text[i, m - 1] = 1
+    return {"wav": torch.from_numpy(wav), "wav_len": torch.from_numpy(wav_len), "text": torch.from_numpy(text),
+            "text_len": torch.tensor(text_len, dtype=torch.int32)}
+
+
+def test_training_loss_takes_the_cut_and_evaluation_does_not(monkeypatch):
+    """compute_loss(train=True) on the fused route (plain versions) runs the
+    batch's longest label of the bucket's L steps, with the loss and every
+    gradient bitwise those of all L steps; eval_step runs all L."""
+    from e2e_asr_tpu_torch.training.step import Trainer, compute_loss
+    from e2e_asr_tpu_torch.utils import tracing
+
+    d = cfg_dict()
+    d["model"]["decoder"]["fused_scan"] = "pallas"
+    cfg = TConfig.from_dict(d)
+    _, _, _, tp = models(d)
+    leaves = param_leaves(tp)
+    for p in leaves:
+        p.requires_grad_()
+    b = _wav_batch()
+    counts = lambda: [tracing.snapshot()["counts"].get(k, 0) for k in ("scan.steps_run", "scan.bucket_steps")]
+
+    def loss_and_grads():
+        loss, _ = compute_loss(tp, cfg, b["wav"], b["wav_len"], b["text"], b["text_len"], 1.0, gen(), train=True)
+        return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    c0 = counts()
+    cut = loss_and_grads()
+    c1 = counts()
+    assert [a - z for a, z in zip(c1, c0)] == [7, SCAN_L]
+    real_heads = tasr.heads
+    monkeypatch.setattr(tasr, "heads", lambda *a, **k: real_heads(*a, **{**k, "steps": None}))
+    full = loss_and_grads()
+    assert [a - z for a, z in zip(counts(), c1)] == [SCAN_L, SCAN_L]
+    monkeypatch.undo()
+    assert torch.equal(cut[0], full[0])
+    for i, (g, w) in enumerate(zip(cut[1], full[1])):
+        assert (g is None) == (w is None) and (g is None or torch.equal(g, w)), i
+    c2 = counts()
+    with torch.no_grad():
+        m = Trainer(cfg).eval_step(tp, b)
+    assert [a - z for a, z in zip(counts(), c2)] == [SCAN_L, SCAN_L]
+    assert m["att_preds"].shape == (3, SCAN_L)

@@ -99,7 +99,7 @@ def test_compute_loss_with_the_plugin_matches_jax(fuse, route, monkeypatch):
     and every gradient."""
     calls = []
     real = decoder_cuda.decoder_scan_bwd
-    monkeypatch.setattr(decoder_cuda, "decoder_scan_bwd", lambda *a: calls.append(a[-2]) or real(*a))
+    monkeypatch.setattr(decoder_cuda, "decoder_scan_bwd", lambda *a, **k: calls.append(a[-2]) or real(*a, **k))
     tm = loss_and_grads(variant("V2", **_er(fuse=fuse)), keys=("loss", "att_loss", "ctc_loss", "emb_reg_loss"),
                         route=route)
     assert float(tm["emb_reg_loss"].detach()) > 0

@@ -11,10 +11,12 @@
   ``Solver.decode_batch`` writes a Chrome trace in which
   ``asr.decode.batch`` encloses ``asr.decode.features``, ``.encoder``,
   ``.steps`` and ``.rank``.
-- No device mark launches on the CPU, and the benchmark's five readers of
+- No device mark launches on the CPU, and the benchmark's six readers of
   the tracer (``asr_bench/metrics``) give their value on a hand-built
   snapshot, None on an empty one and None where the program has no tracer
   (a parent commit's).
+- A device counter counts in the bank the tracer is in, and a snapshot
+  reports it among the counters.
 The card's half (marks inside the replayed graphs) is in
 ``tests/test_torch_cuda.py``.
 """
@@ -100,6 +102,28 @@ def test_threads_lose_no_update():
     assert not any(t.is_alive() for t in threads)
     snap = tr.snapshot()
     assert snap["spans"]["input.wait"]["n"] == snap["counts"]["input.batches"] == n_threads * n_each
+
+
+def test_device_counters_count_in_the_tracers_bank():
+    """A device counter (here on the CPU): what is added to it lands in the
+    bank the tracer was in, beside the host counters of the snapshot; one
+    counter a name and device."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = tracing.Tracer()
+    c = tr.device_counter("scan.steps_run", "cpu")
+    assert tr.device_counter("scan.steps_run", torch.device("cpu")) is c
+    add = lambda n: c.index_add_(0, (c[:1] != 0).long() + 1, torch.tensor([n]))
+    add(3)
+    tr.count("scan.bucket_steps", 8)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tr.span("train.step"):
+            add(5)
+    with tr.span("train.step"):
+        add(2)
+    assert tr.snapshot()["counts"] == {"scan.steps_run": 5, "scan.bucket_steps": 8}
+    assert tr.snapshot("traced")["counts"] == {"scan.steps_run": 5}
+    assert tr.snapshot("all")["counts"]["scan.steps_run"] == 10
 
 
 def test_counters_count():
@@ -257,12 +281,12 @@ def test_chrome_trace_holds_a_decoded_batch_and_its_parts(tmp_path):
 
 
 BENCH_READERS = ("optimizer_ms.train", "lm_step_share.decode", "batch_gap_share.decode", "graph_capture_s",
-                 "kernel_load_s")
+                 "kernel_load_s", "scan_steps_run_share.train")
 
 
-def _snap(sections=(), spans=()):
+def _snap(sections=(), spans=(), counts=()):
     return {"spans": {k: {"n": 1, "total_s": v} for k, v in spans},
-            "counts": {}, "sections": {k: {"n": n, "total_ms": ms} for k, n, ms in sections}}
+            "counts": dict(counts), "sections": {k: {"n": n, "total_ms": ms} for k, n, ms in sections}}
 
 
 @pytest.mark.parametrize("name,snap,want", [
@@ -274,6 +298,8 @@ def _snap(sections=(), spans=()):
                                       ("train.optimizer", 2, 90.0)]), 10.0),
     ("graph_capture_s", _snap(spans=[("graph.capture", 2.5), ("graph.replay", 9.0)]), 2.5),
     ("kernel_load_s", _snap(spans=[("setup.kernels", 0.75)]), 0.75),
+    ("scan_steps_run_share.train", _snap(counts=[("scan.steps_run", 612), ("scan.bucket_steps", 1000),
+                                                 ("graph.replays", 9)]), 61.2),
 ])
 def test_bench_readers_of_the_tracer(monkeypatch, name, snap, want):
     from asr_bench import spec

@@ -327,7 +327,7 @@ def test_prenetless_step_through_fused_scan_and_lstm_seq_matches_jax(monkeypatch
     counts = {"scan": 0, "seq": 0}
     real_scan, real_seq = decoder_cuda.decoder_scan_bwd, rnn_cuda.lstm_seq_bwd
     monkeypatch.setattr(decoder_cuda, "decoder_scan_bwd",
-                        lambda *a: counts.__setitem__("scan", counts["scan"] + 1) or real_scan(*a))
+                        lambda *a, **k: counts.__setitem__("scan", counts["scan"] + 1) or real_scan(*a, **k))
     monkeypatch.setattr(rnn_cuda, "lstm_seq_bwd",
                         lambda *a: counts.__setitem__("seq", counts["seq"] + 1) or real_seq(*a))
     trainer = Trainer(tc)
