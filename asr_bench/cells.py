@@ -2,10 +2,12 @@
 and beam-search decoding through its beam graphs, each fed by the program's
 bucketed loader and ``DevicePrefetcher``.
 
-``run_train`` / ``run_decode`` take the configuration's recipe, the traffic
-mix, the seed, the window's seconds, whether to profile a slice after the
-window, and the device (``cuda``; the tests pass ``cpu``, where the program
-runs its plain versions eagerly). Each returns a ``Run``: the window's
+``run_train`` / ``run_decode`` take the configuration (its file's object:
+the ``recipe``, and the architecture module and vocabulary it names,
+``spec.architecture``, ``vocab.of``), the traffic mix, the seed, the
+window's seconds, whether to profile a slice after the window, and the
+device (``cuda``; the tests pass ``cpu``, where the program runs its plain
+versions eagerly). Each returns a ``Run``: the window's
 counts, the slice's trace, the device's peak memory, and the compared
 numbers from the plain reference (``asr_bench/reference``), which runs after
 the window, once the program's state is freed.
@@ -23,8 +25,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from asr_bench import shapes, traffic, weights
-from asr_bench.shapes import RESERVED, VOCAB
+from asr_bench import shapes, spec, traffic, vocab, weights
 from asr_bench.trace import profiled, sampled, span
 
 CHECK_BATCHES = 3  # a decode run's batches checked: the longest and two drawn from the seed
@@ -34,6 +35,8 @@ PREFIX_STEPS = 24  # the steps of the reference's search that a decode run's hyp
 class Run:
     kind: str
     recipe: dict
+    arch: object = None  # the architecture module
+    vocabulary: Optional[vocab.Vocabulary] = None
     setup_s: float = 0.0
     wall_s: float = 0.0
     wait_s: float = 0.0
@@ -61,18 +64,14 @@ def step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step) % (1 << 63)
 
 
-def text_ids(text: str) -> List[int]:
-    """The benchmark's own tokenisation: <eos>-terminated character ids."""
-    return [len(RESERVED) + traffic.ALPHABET.index(ch) for ch in text] + [1]
-
-
-def _loader(cfg, utts, batch_size, shuffle, seed, threads):
+def _loader(cfg, utts, voc, batch_size, shuffle, seed, threads):
     from e2e_asr_tpu_torch.data import text as text_mod
     from e2e_asr_tpu_torch.data.dataset import BucketedLoader
 
     c, a = cfg.data.corpus, cfg.data.audio
     win, shift = int(a.sample_rate * a.frame_length / 1000), int(a.sample_rate * a.frame_shift / 1000)
-    tok = text_mod.CharacterTextEncoder(RESERVED + traffic.ALPHABET)
+    encoder = {"chars": text_mod.CharacterTextEncoder, "units": text_mod.WordTextEncoder}[voc.kind]
+    tok = encoder(vocab.RESERVED + voc.symbols)
     return BucketedLoader(utts, tok, batch_size, c.buckets, c.token_buckets, win, shift,
                           half_batch_len=c.half_batch_len, wire_dtype=c.wire_dtype, shuffle=shuffle,
                           ascending=False, seed=seed % (1 << 31), num_workers=threads, cache_bytes=c.cache_bytes)
@@ -119,7 +118,7 @@ def _free():
 
 
 # --------------------------------------------------------------- training
-def run_train(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, device: str, t_start: float,
+def run_train(conf: dict, mix: dict, seed: int, seconds: float, trace: bool, device: str, t_start: float,
               control: bool = False) -> Run:
     from e2e_asr_tpu_torch import cuda_build
     from e2e_asr_tpu_torch.config import Config
@@ -131,6 +130,7 @@ def run_train(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, d
     from asr_bench.reference import model as ref_model
     from asr_bench.reference import train as ref_train
 
+    recipe, arch, voc = conf["recipe"], spec.architecture(conf), vocab.of(conf)
     cfg = Config.from_dict(recipe)
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
@@ -138,21 +138,19 @@ def run_train(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, d
         cuda_build.build_all()
     note(t_start, "kernels loaded")
     sr = cfg.data.audio.sample_rate
-    run = Run("train", recipe)
-    utts = traffic.make(mix, seed, sr)
+    run = Run("train", recipe, arch, voc)
+    utts = traffic.make(mix, seed, sr, voc)
     by_uid = {u.uid: u for u in utts}
-    loader = _loader(cfg, utts, cfg.data.corpus.batch_size, True, seed, mix["loader_threads"])
+    loader = _loader(cfg, utts, voc, cfg.data.corpus.batch_size, True, seed, mix["loader_threads"])
     corpus = None
     if cfg.data.corpus.device_cache == "on":
         flat, _ = loader.flat_corpus()
         corpus = torch.from_numpy(flat).to(dev)
     note(t_start, f"traffic made: {len(utts)} utterances, {len(loader)} batches an epoch")
-    vocab = VOCAB
-    leaves = weights.asr_names(recipe["model"], cfg.data.audio.feat_dim, vocab)
+    leaves = arch.leaves(recipe["model"], cfg.data.audio.feat_dim, voc.size)
     flat_w = weights.draw(leaves, seed, dev)
-    n_layers = len(cfg.model.encoder.dim)
-    params = weights.port_tree(flat_w, n_layers)
-    names = param_leaves(weights.port_tree({k: k for k in flat_w}, n_layers))
+    params = arch.port_tree(flat_w, recipe["model"])
+    names = param_leaves(arch.port_tree({k: k for k in flat_w}, recipe["model"]))
     del flat_w
     trainer = Trainer(cfg)
     state = trainer.init_state(params)
@@ -282,13 +280,13 @@ def run_train(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, d
         text = np.zeros((shp["b"], shp["l"]), np.int64)
         for r, uid in enumerate(shp["uids"]):
             if uid:
-                ids = text_ids(by_uid[uid].text)[: shp["l"]]
+                ids = voc.ids(by_uid[uid].text)[: shp["l"]]
                 text[r, : len(ids)] = ids
         wav_len = [min(by_uid[u].n_samples, shp["n"]) if u else 0 for u in shp["uids"]]
-        text_len = [min(len(by_uid[u].text) + 1, shp["l"]) if u else 0 for u in shp["uids"]]
+        text_len = [min(len(voc.ids(by_uid[u].text)), shp["l"]) if u else 0 for u in shp["uids"]]
         batches.append(ref_train.RefBatch(wav, torch.tensor(wav_len, device=dev), torch.from_numpy(text).to(dev),
                                           torch.tensor(text_len, device=dev), sd, tf))
-    ref = ref_train.adadelta_steps(w0, recipe, batches, ref_model.Precision("fp32"))
+    ref = ref_train.adadelta_steps(arch, w0, recipe, batches, ref_model.Precision("fp32"))
     rho = 0.9  # Adadelta's: e_g after one step is (1 - rho) g^2 of the clipped gradient g
     port = {"loss": first_loss,
             "grad_norm": {n: math.sqrt(max(float(t.double().sum()), 0.0) / (1 - rho)) for n, t in zip(names, eg1)},
@@ -296,11 +294,11 @@ def run_train(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, d
     run.numbers = compare_train(port, ref)
     run.detail = {"program": look(port, ref)}
     if control:  # the controls of step 2 and 3 of the check (asr_bench/control.py)
-        fp8 = ref_train.adadelta_steps(w0, recipe, batches, ref_model.Precision("fp8"))
+        fp8 = ref_train.adadelta_steps(arch, w0, recipe, batches, ref_model.Precision("fp8"))
         run.detail["fp8"] = look(fp8, ref)
         run.control = {
             "fp8": compare_train(fp8, ref),
-            "half_batch": compare_train(ref_train.adadelta_steps(w0, recipe, [half(bt) for bt in batches],
+            "half_batch": compare_train(ref_train.adadelta_steps(arch, w0, recipe, [half(bt) for bt in batches],
                                                                  ref_model.Precision("fp32")), ref),
             "state_unchanged": compare_train(dict(port, change={n: 0.0 for n in names}), ref)}
     note(t_start, "reference done")
@@ -345,7 +343,7 @@ def look(port: dict, ref: dict, n: int = 3) -> Dict[str, object]:
 
 
 # --------------------------------------------------------------- decoding
-def run_decode(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, device: str, t_start: float,
+def run_decode(conf: dict, mix: dict, seed: int, seconds: float, trace: bool, device: str, t_start: float,
                control: bool = False) -> Run:
     from e2e_asr_tpu_torch import cuda_build
     from e2e_asr_tpu_torch.bin import test_asr
@@ -354,6 +352,7 @@ def run_decode(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, 
     from e2e_asr_tpu_torch.decode.beam_graph import BeamGraphs
     from e2e_asr_tpu_torch.device import resolve_device
 
+    recipe, arch, voc = conf["recipe"], spec.architecture(conf), vocab.of(conf)
     recipe = dict(recipe, decode=dict(recipe["decode"], **mix.get("decode", {})))
     cfg = Config.from_dict(recipe)
     dev = resolve_device(device)
@@ -362,19 +361,18 @@ def run_decode(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, 
         cuda_build.build_all()
     note(t_start, "kernels loaded")
     sr = cfg.data.audio.sample_rate
-    run = Run("decode", recipe)
-    utts = traffic.make(mix, seed, sr)
+    run = Run("decode", recipe, arch, voc)
+    utts = traffic.make(mix, seed, sr, voc)
     by_uid = {u.uid: u for u in utts}
     bs = cfg.decode.batch_size
-    loader = _loader(cfg, utts, bs, False, seed, mix["loader_threads"])
-    vocab = VOCAB
+    loader = _loader(cfg, utts, voc, bs, False, seed, mix["loader_threads"])
     use_lm = cfg.decode.lm_weight > 0
-    leaves = weights.asr_names(recipe["model"], cfg.data.audio.feat_dim, vocab)
-    lm_leaves = weights.lm_names(recipe["lm"], vocab) if use_lm else []
+    leaves = arch.leaves(recipe["model"], cfg.data.audio.feat_dim, voc.size)
+    lm_leaves = weights.lm_names(recipe["lm"], voc.size) if use_lm else []
     flat_w = weights.draw(leaves + lm_leaves, seed, dev)
     solver = test_asr.Solver.__new__(test_asr.Solver)  # its decode path, with the benchmark's weights
     solver.config, solver.device = cfg, dev
-    solver.params = weights.port_tree(flat_w, len(cfg.model.encoder.dim))
+    solver.params = arch.port_tree(flat_w, recipe["model"])
     solver.lm_params = weights.port_lm_tree(flat_w, cfg.lm.n_layers) if use_lm else None
     solver.lm_cfg = cfg.lm if use_lm else None
     solver.beam_graphs = BeamGraphs()
@@ -473,26 +471,26 @@ def run_decode(recipe: dict, mix: dict, seed: int, seconds: float, trace: bool, 
         t = torch.from_numpy(toks[rows].astype(np.int64)).to(dev)
         ln = torch.from_numpy(lens[rows]).to(dev)
         sc = torch.from_numpy(scores[rows]).double().to(dev)
-        ref = ref_decode.rescore(w0, recipe, wav, wav_len, t, ln, dcfg, fp32)
+        ref = ref_decode.rescore(arch, w0, recipe, wav, wav_len, t, ln, dcfg, fp32)
         ms = shapes.max_step(recipe, shp["n"])
         if t.shape[2] != ms:
             run.problems.append(f"a batch of {shp['n']} samples searched {t.shape[2]} steps, not {ms}")
-        bad = ref_decode.check(t, ln, sc, ref, vocab, ms)
+        bad = ref_decode.check(t, ln, sc, ref, voc.size, ms)
         if bad:
             run.problems.append(bad)
         gaps["program"] += (sc - ref["score"].double()).abs().flatten().tolist()
-        live = ref_search.search(w0, recipe, wav, wav_len, dcfg, ms, fp32, stop=PREFIX_STEPS)["live"]
+        live = ref_search.search(arch, w0, recipe, wav, wav_len, dcfg, ms, fp32, stop=PREFIX_STEPS)["live"]
         miss["program"] = [a + b for a, b in zip(miss["program"], ref_decode.prefix_miss(t, ln, live))]
         if control:
-            tf = ref_decode.rescore(w0, recipe, wav, wav_len, t, ln, dcfg, tf32)
+            tf = ref_decode.rescore(arch, w0, recipe, wav, wav_len, t, ln, dcfg, tf32)
             gaps["tf32"] += (tf["score"] - ref["score"]).double().abs().flatten().tolist()
             for name, pr, skip in (("tf32", tf32, False), ("skip_best", fp32, True)):
-                found = ref_search.search(w0, recipe, wav, wav_len, dcfg, ms, pr, skip_best=skip)
+                found = ref_search.search(arch, w0, recipe, wav, wav_len, dcfg, ms, pr, skip_best=skip)
                 got = ref_decode.prefix_miss(found["tokens"], found["lengths"], live)
                 miss[name] = [a + b for a, b in zip(miss[name], got)]
             alt = t.clone()
-            alt[0, 0, 0] = (alt[0, 0, 0] + 1 - 3) % (vocab - 3) + 3  # another character where the first is produced
-            wrong = ref_decode.rescore(w0, recipe, wav, wav_len, alt, ln, dcfg, fp32)
+            alt[0, 0, 0] = (alt[0, 0, 0] + 1 - 3) % (voc.size - 3) + 3  # another symbol where the first is produced
+            wrong = ref_decode.rescore(arch, w0, recipe, wav, wav_len, alt, ln, dcfg, fp32)
             gaps["token_altered"] += (sc - wrong["score"].double()).abs().flatten().tolist()
         n_hyp += t.shape[0] * t.shape[1]
         n_tok += int(ln.sum())

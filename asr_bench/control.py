@@ -50,7 +50,7 @@ def main(argv=None) -> int:
     lower, upper = {}, {}
     for i, seed in enumerate(args.seeds):
         t0 = time.time()
-        run = runner(conf["recipe"], mix, seed, args.seconds, False, "cuda", t0, control=i < args.control)
+        run = runner(conf, mix, seed, args.seconds, False, "cuda", t0, control=i < args.control)
         print(json.dumps({"seed": seed, "numbers": run.numbers, "control": run.control, "problems": run.problems,
                           "checked": run.checked, "detail": run.detail, "setup_s": run.setup_s,
                           "seconds": time.time() - t0}), flush=True)

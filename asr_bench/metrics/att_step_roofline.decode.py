@@ -21,7 +21,7 @@ def read(ctx):
         s = shapes.enc_frames(recipe, b)
         lens = [e for e, u in zip(shapes.enc_lens(recipe, b), b["uids"]) if u]
         for e_len, steps in zip(lens, shapes.active_steps(recipe, b)):
-            one = work.att_step(1, w, s, att["dim"], 2 * m["encoder"]["dim"][-1], att["loc_kernel_num"],
+            one = work.att_step(1, w, s, att["dim"], ctx["arch"].enc_dim(m), att["loc_kernel_num"],
                                 2 * att["loc_kernel_size"] + 1, float(e_len))
             least += steps * work.least_s(one, "float32")
     return 100.0 * least / dev_s

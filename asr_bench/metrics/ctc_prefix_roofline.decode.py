@@ -15,11 +15,12 @@ def read(ctx):
     dev_s = sum(t for k, t in run.trace["kernels"].items() if any(n in k for n in names))
     if dev_s <= 0:
         return None
-    w, kc = recipe["decode"]["beam_size"], shapes.k_cand(recipe)
+    w, v = recipe["decode"]["beam_size"], ctx["vocab"]
+    kc = shapes.k_cand(recipe, v)
     least = 0.0
     for b in run.slice_batches:
         s = shapes.enc_frames(recipe, b)
         lens = [e for e, u in zip(shapes.enc_lens(recipe, b), b["uids"]) if u]
         for e_len, steps in zip(lens, shapes.active_steps(recipe, b)):
-            least += steps * work.least_s(work.ctc_prefix(1, w, kc, s, shapes.VOCAB, float(e_len)), "float32")
+            least += steps * work.least_s(work.ctc_prefix(1, w, kc, s, v, float(e_len)), "float32")
     return 100.0 * least / dev_s

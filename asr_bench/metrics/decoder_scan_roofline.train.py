@@ -17,8 +17,8 @@ def read(ctx):
         return None
     m, dt = recipe["model"], recipe["hparas"]["dtype"]
     att, h = m["attention"], m["decoder"]["dim"]
-    dims = (att["dim"], 2 * m["encoder"]["dim"][-1], att["loc_kernel_num"], 2 * att["loc_kernel_size"] + 1, h, h,
-            shapes.VOCAB)
+    dims = (att["dim"], ctx["arch"].enc_dim(m), att["loc_kernel_num"], 2 * att["loc_kernel_size"] + 1, h, h,
+            ctx["vocab"])
     least = 0.0
     for b in run.slice_batches:
         args = (b["b"], shapes.enc_frames(recipe, b), *dims, b["l"], shapes.enc_lens(recipe, b), dt)

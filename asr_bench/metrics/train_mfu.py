@@ -10,6 +10,6 @@ def read(ctx):
     if run.kind != "train" or not run.batches:
         return None
     feat_dim = recipe["data"]["audio"]["feat_dim"]
-    flops = sum(work.train_step_flops(recipe["model"], feat_dim, shapes.VOCAB, shapes.feat_lens(recipe, b),
-                                      b["text_len"]) for b in run.batches)
+    flops = sum(work.train_step_flops(ctx["arch"], recipe["model"], feat_dim, ctx["vocab"],
+                                      shapes.feat_lens(recipe, b), b["text_len"]) for b in run.batches)
     return 100.0 * flops / (run.wall_s * work.PEAK_FLOPS[recipe["hparas"]["dtype"]])

@@ -100,16 +100,16 @@ def prefix_f32(lp: torch.Tensor, t_len: torch.Tensor, tokens: torch.Tensor, n_to
 
 
 @torch.no_grad()
-def rescore(w: M.W, cfg: dict, wav: torch.Tensor, wav_len: torch.Tensor, tokens: torch.Tensor,
+def rescore(arch, w: M.W, cfg: dict, wav: torch.Tensor, wav_len: torch.Tensor, tokens: torch.Tensor,
             lengths: torch.Tensor, dcfg: dict, pr: M.Precision) -> Dict[str, torch.Tensor]:
     """Reference scores [B, W] (float32) of the hypotheses ``tokens`` [B, W,
     L] of ``lengths`` [B, W] (<eos> included where there is one) of one batch
-    of int16 waves, and what a valid result must satisfy: ``finished`` [B,
+    of int16 waves under architecture module ``arch``, and what a valid result must satisfy: ``finished`` [B,
     W], ``max_len`` [B] (the utterance's token window)."""
     model = cfg["model"]
     with pr.active():
         feat, feat_len = M.features(wav, wav_len, cfg["data"]["audio"])
-        enc, enc_len = M.encode(w, model, feat, feat_len, pr)
+        enc, enc_len = arch.encode(w, model, feat, feat_len, pr)
         b, nw, big_l = tokens.shape
         n = b * nw
         toks = tokens.reshape(n, big_l).long()
@@ -119,13 +119,13 @@ def rescore(w: M.W, cfg: dict, wav: torch.Tensor, wav_len: torch.Tensor, tokens:
         rows = torch.arange(b, device=enc.device).repeat_interleave(nw)
         enc_n, enc_len_n = enc[rows], enc_len[rows]
         tokens_in = torch.cat([toks.new_zeros((n, 1)), toks[:, :-1]], 1)
-        logits = M.speller(w, model, enc_n, enc_len_n, tokens_in, pr)
+        logits = M.speller(arch, w, model, enc_n, enc_len_n, tokens_in, pr)
         step = torch.log_softmax(logits, -1).gather(2, toks[..., None])[..., 0]  # [N, L] float32
         lm_w, cw = dcfg["lm_weight"], dcfg["ctc_weight"]
         if lm_w > 0:
             step = step + lm_w * M.lm_log_probs(w, cfg["lm"], tokens_in, pr).gather(2, toks[..., None])[..., 0]
         if cw > 0:
-            lp_b = M.ctc_log_probs(w, enc, pr)
+            lp_b = arch.ctc_log_probs(w, enc, pr)
             n_tok = torch.where(finished, lens - 1, lens)
             psi, full = prefix_f32(lp_b[rows], enc_len_n, toks, n_tok, empty_prefix(lp_b, enc_len)[rows])
             pos = torch.arange(big_l, device=enc.device)[None, :]

@@ -1,13 +1,38 @@
 """Plain layers of the recipe: features, SpecAugment, the VGG + BiLSTM
 listener, the CTC head, the location-aware speller and the RNN-LM.
 
-Weights are a flat dict of named float32 tensors (``asr_bench/weights.py``
-names them). Every product goes through ``Precision``: float32 with TF32 off
-(the reference), TF32, or float8 (e4m3, a scale a tensor) for the controls.
+Weights are a flat dict of named float32 tensors. Every product goes through
+``Precision``: float32 with TF32 off (the reference), TF32, or float8 (e4m3,
+a scale a tensor) for the controls.
+
+This module is also the default architecture: the one a configuration file
+takes without an ``"architecture"`` key (``spec.architecture``). An
+architecture module provides
+
+- ``leaves(model, feat_dim, vocab)``: the recogniser's leaves (``weights.Leaf``:
+  name, shape, law, scale), drawn in this order; the CTC head's weight is
+  ``ctc.w`` [E, V];
+- ``port_tree(flat, model)``: the program's parameter tree over those leaves;
+- ``enc_dim(model)``: E, the listener's output width;
+- ``encode``, ``ctc_log_probs``: the listener and the CTC head;
+- ``speller_setup`` (what every step reads of the listener's output),
+  ``speller_state`` (the state before <sos>: a tuple of [N, ...] tensors, any
+  number of layers) and ``speller_step`` (one step: logits and the new
+  state), which ``speller`` unrolls;
+- ``feedback(model, device)``: which random stream the program's training
+  step draws its sampled feedback from (``philox`` or ``exponential``);
+- ``utterance_flops(model, feat_dim, vocab, feat_len)`` and
+  ``speller_step_flops(model, vocab, feat_len)``: the model FLOPs of one
+  utterance's listener, key projection and CTC head, and of one speller step
+  of one hypothesis (``asr_bench/work.py`` sums them).
+
+The shared pieces (``Precision``, features, SpecAugment, the LM, the Philox
+noise, ``speller``) are this module's; another architecture imports them.
 """
 
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -15,6 +40,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.func import functional_call
+
+from asr_bench.weights import Leaf, dense, lstm
 
 W = Dict[str, torch.Tensor]
 NEG_ATT = -1e9  # padded frames' energy before the temperature softmax
@@ -165,6 +192,67 @@ def specaugment(feat: torch.Tensor, feat_len: torch.Tensor, sa: dict, gen: torch
     return feat * (~(fm[:, None, :] | tm[:, :, None])).float()
 
 
+# ------------------------------------------------ leaves and the port's tree
+def enc_dim(model: dict) -> int:
+    return 2 * model["encoder"]["dim"][-1]
+
+
+def front_leaves(model: dict, feat_dim: int, vocab: int) -> List[Leaf]:
+    """Every leaf before the speller's cells: VGG prenet, BiLSTM layers with
+    projections, CTC head, embedding, location-aware attention."""
+    enc, att, dec = model["encoder"], model["attention"], model["decoder"]
+    out: List[Leaf] = []
+    for i, (ci, co) in enumerate(((1, 64), (64, 64), (64, 128), (128, 128))):
+        ci = feat_dim // 40 if i == 0 else ci
+        s = 1.0 / math.sqrt(9 * ci)
+        out += [(f"enc.conv{i + 1}.w", (co, ci, 3, 3), "u", s), (f"enc.conv{i + 1}.b", (co,), "u", s)]
+    if feat_dim % 40:
+        raise ValueError("the VGG prenet here takes a multiple of 40 features")
+    d = 128 * ((40 // 2) // 2)
+    for i, h in enumerate(enc["dim"]):
+        out += lstm(f"enc.l{i}.fwd", d, h) + lstm(f"enc.l{i}.bwd", d, h) + dense(f"enc.l{i}.proj", 2 * h, 2 * h)
+        d = 2 * h
+    out += dense("ctc", d, vocab)
+    out += [("embed", (vocab, dec["dim"]), "n", 1.0 / math.sqrt(dec["dim"]))]
+    dk, k, p = att["dim"], att["loc_kernel_num"], 2 * att["loc_kernel_size"] + 1
+    out += dense("att.proj_q", dec["dim"], dk) + dense("att.proj_k", d, dk, bias=False)
+    out += [("att.loc_conv.w", (k, 1, p), "u", 1.0 / math.sqrt(p)), ("att.loc_conv.b", (k,), "u", 1.0 / math.sqrt(p))]
+    out += dense("att.loc_proj", k, dk, bias=False)
+    return out + [("att.loc_v", (1, dk), "u", 1.0 / math.sqrt(dk)), ("att.loc_b", (dk,), "zero", 0.0)]
+
+
+def leaves(model: dict, feat_dim: int, vocab: int) -> List[Leaf]:
+    """``front_leaves``, then the one-layer LSTM speller on [emb, ctx] and its
+    output."""
+    h = model["decoder"]["dim"]
+    return front_leaves(model, feat_dim, vocab) + lstm("dec", h + enc_dim(model), h) + dense("dec.char", h, vocab)
+
+
+def tree(flat: W, model: dict, cells: Sequence[str]) -> dict:
+    """The program's parameter tree (``models/asr.py``) over ``flat``'s
+    tensors, the speller's LSTM cells named ``cells``, bottom first."""
+    g = flat.__getitem__
+    cell = lambda n: {"wx": g(n + ".wx"), "wh": g(n + ".wh"), "b": g(n + ".b")}  # noqa: E731
+    lin = lambda n: {"w": g(n + ".w"), "b": g(n + ".b")}  # noqa: E731
+    return {
+        "encoder": {
+            "prenet": {f"conv{i}": lin(f"enc.conv{i}") for i in range(1, 5)},
+            "layers": [{"fwd": cell(f"enc.l{i}.fwd"), "bwd": cell(f"enc.l{i}.bwd"), "proj": lin(f"enc.l{i}.proj")}
+                       for i in range(len(model["encoder"]["dim"]))],
+        },
+        "ctc": lin("ctc"),
+        "embed": {"table": g("embed")},
+        "attention": {"proj_q": lin("att.proj_q"), "proj_k": {"w": g("att.proj_k.w")},
+                      "loc_conv": lin("att.loc_conv"), "loc_proj": {"w": g("att.loc_proj.w")},
+                      "loc_v": g("att.loc_v"), "loc_b": g("att.loc_b")},
+        "decoder": {"cells": [cell(n) for n in cells], "char": lin("dec.char")},
+    }
+
+
+def port_tree(flat: W, model: dict) -> dict:
+    return tree(flat, model, ["dec"])
+
+
 # ------------------------------------------------------------------- encoder
 def vgg_channels(feat_dim: int) -> Tuple[int, int]:
     for base in (13, 40, 80):
@@ -263,63 +351,118 @@ def ctc_log_probs(w: W, enc: torch.Tensor, pr: Precision) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------- speller
-def speller_setup(w: W, model: dict, enc: torch.Tensor, enc_len: torch.Tensor, pr: Precision) -> dict:
+def attention_setup(w: W, model: dict, enc: torch.Tensor, enc_len: torch.Tensor, pr: Precision) -> dict:
     """What every speller step reads of the listener's output: its values
     (rounded once through ``pr``), the keys, the frame mask, the uniform
     first alignment."""
     att = model["attention"]
-    if att["mode"] != "location" or att["num_head"] != 1 or att["v_proj"] or model["decoder"]["layer"] != 1:
-        raise ValueError("the reference holds the one-head location-aware speller of one LSTM layer")
+    if att["mode"] != "location" or att["num_head"] != 1 or att["v_proj"]:
+        raise ValueError("the reference holds one-head location-aware attention")
     mask = torch.arange(enc.shape[1], device=enc.device)[None, :] < enc_len[:, None]
     return {"enc": pr.q(enc), "k": mm(pr, enc, w["att.proj_k.w"]), "mask": mask,
             "prev": mask.float() / enc_len[:, None].float(), "temp": att["temperature"]}
 
 
-def speller_step(w: W, mem: dict, tok: torch.Tensor, h: torch.Tensor, c: torch.Tensor, prev: torch.Tensor,
-                 pr: Precision) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One step from the previous token ``tok``, state (h, c) and alignment
-    ``prev``: energies locv . tanh(k + q + (conv(prev align) + conv bias) Wlp
-    + loc_b) masked past the frames, align = softmax(energy / temperature),
-    ctx = align . enc, one LSTM cell on [emb, ctx]. Returns (logits, h, c,
-    align), each stored through ``pr``."""
+def speller_setup(w: W, model: dict, enc: torch.Tensor, enc_len: torch.Tensor, pr: Precision) -> dict:
+    if model["decoder"]["layer"] != 1:
+        raise ValueError("this architecture holds a speller of one LSTM layer")
+    return attention_setup(w, model, enc, enc_len, pr)
+
+
+def speller_state(w: W, mem: dict) -> Tuple[torch.Tensor, ...]:
+    """(h, c, alignment) before <sos>: zeros and the uniform alignment."""
+    shape = (mem["enc"].shape[0], w["dec.wh"].shape[0])
+    return mem["enc"].new_zeros(shape), mem["enc"].new_zeros(shape), mem["prev"]
+
+
+def attend(w: W, mem: dict, q: torch.Tensor, prev: torch.Tensor, pr: Precision
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(context, alignment) from the projected query ``q`` and the previous
+    alignment ``prev``: energies locv . tanh(k + q + (conv(prev align) +
+    conv bias) Wlp + loc_b) masked past the frames, align = softmax(energy /
+    temperature), ctx = align . enc."""
     enc, mask = mem["enc"], mem["mask"]
     taps = w["att.loc_conv.w"]  # [K, 1, P]
     pad = (taps.shape[-1] - 1) // 2
-    emb = w["embed"][tok]
-    q = mm(pr, h, w["att.proj_q.w"]) + w["att.proj_q.b"]
     f = F.conv1d(pr.q(prev[:, None]), pr.q(taps), w["att.loc_conv.b"], padding=pad).transpose(1, 2)
     e = torch.tanh(mem["k"] + q[:, None] + mm(pr, f, w["att.loc_proj.w"]) + w["att.loc_b"])
     energy = torch.where(mask, mm(pr, e, w["att.loc_v"][0]), NEG_ATT)
     align = torch.where(mask, torch.softmax(energy / mem["temp"], -1), 0.0)
-    ctx = torch.einsum("bs,bse->be", pr.q(align), enc)
-    gates = mm(pr, torch.cat([emb, ctx], -1), w["dec.wx"]) + w["dec.b"] + mm(pr, h, w["dec.wh"])
-    gi, gf, gg, go = gates.chunk(4, -1)
+    return torch.einsum("bs,bse->be", pr.q(align), enc), align
+
+
+def lstm_cell(pr: Precision, x: torch.Tensor, h: torch.Tensor, c: torch.Tensor, wx: torch.Tensor,
+              wh: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h, c) after input ``x``: gates i, f, g, o, one bias."""
+    gi, gf, gg, go = (mm(pr, x, wx) + b + mm(pr, h, wh)).chunk(4, -1)
     c2 = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
-    h2 = torch.sigmoid(go) * torch.tanh(c2)
+    return torch.sigmoid(go) * torch.tanh(c2), c2
+
+
+def speller_step(w: W, mem: dict, tok: torch.Tensor, state: Tuple[torch.Tensor, ...], pr: Precision
+                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """One step from the previous token ``tok`` and the state (h, c,
+    alignment): the query from h, ``attend``, one LSTM cell on [emb, ctx].
+    Returns (logits, the new state), each stored through ``pr``."""
+    h, c, prev = state
+    emb = w["embed"][tok]
+    q = mm(pr, h, w["att.proj_q.w"]) + w["att.proj_q.b"]
+    ctx, align = attend(w, mem, q, prev, pr)
+    h2, c2 = lstm_cell(pr, torch.cat([emb, ctx], -1), h, c, w["dec.wx"], w["dec.wh"], w["dec.b"])
     logits = pr.store(mm(pr, h2, w["dec.char.w"]) + w["dec.char.b"])
-    return logits, pr.store(h2), pr.store(c2), pr.store(align)
+    return logits, (pr.store(h2), pr.store(c2), pr.store(align))
 
 
-def speller(w: W, model: dict, enc: torch.Tensor, enc_len: torch.Tensor, tokens_in: torch.Tensor,
+def feedback(model: dict, device) -> str:
+    """The random stream of the sampled feedback in the program's training
+    step: ``philox`` (its fused scan's, ``philox_gumbel``, which takes this
+    speller on the card), ``exponential`` (its Python loop's Exp(1) draws [B,
+    V] a position after the coins) on the CPU."""
+    return "philox" if torch.device(device).type == "cuda" else "exponential"
+
+
+def speller(arch, w: W, model: dict, enc: torch.Tensor, enc_len: torch.Tensor, tokens_in: torch.Tensor,
             pr: Precision, use_teacher: Optional[List[bool]] = None,
             noise: Optional[Callable[[int, torch.Size], torch.Tensor]] = None) -> torch.Tensor:
     """Teacher-forced (or, where ``use_teacher[t]`` is False, fed back)
-    location-aware speller: ``speller_step`` from h = c = 0 and the uniform
-    alignment. Returns logits [B, L, V] (float32). A fed-back token is
+    speller of architecture module ``arch``: its ``speller_step`` from its
+    ``speller_state``. Returns logits [B, L, V] (float32). A fed-back token is
     argmax(logits of the step before + ``noise(t - 1, shape)``)."""
-    mem = speller_setup(w, model, enc, enc_len, pr)
-    hd = w["dec.wh"].shape[0]
-    h = enc.new_zeros((enc.shape[0], hd))
-    c = enc.new_zeros((enc.shape[0], hd))
-    prev = mem["prev"]
+    mem = arch.speller_setup(w, model, enc, enc_len, pr)
+    state = arch.speller_state(w, mem)
     out, pred = [], None
     for t in range(tokens_in.shape[1]):
         tok = tokens_in[:, t] if (t == 0 or use_teacher is None or use_teacher[t]) else pred
-        logits, h, c, prev = speller_step(w, mem, tok, h, c, prev, pr)
+        logits, state = arch.speller_step(w, mem, tok, state, pr)
         out.append(logits)
         if use_teacher is not None and noise is not None and not all(use_teacher[t + 1:]):
             pred = torch.argmax(logits.detach() + noise(t, logits.shape), -1)
     return torch.stack(out, 1)
+
+
+# ------------------------------------------------------------- model FLOPs
+def utterance_flops(model: dict, feat_dim: int, vocab: int, feat_len: int) -> float:
+    """One utterance's listener forward at its valid length (the VGG
+    convolutions over the valid frames, each BiLSTM layer's input and
+    recurrent products and cell, its projection), its key projection and its
+    CTC head."""
+    n, ch = int(feat_len), feat_dim // 40
+    total = 2 * 9 * 40 * n * (ch * 64 + 64 * 64) + 2 * 9 * 20 * (n // 2) * (64 * 128 + 128 * 128)
+    d, valid = 1280, n // 4
+    for h in model["encoder"]["dim"]:
+        total += 2 * valid * (2 * d * 4 * h + 2 * h * 4 * h + 12 * h) + valid * 2 * (2 * h) * (2 * h)
+        d = 2 * h
+    return float(total + 2 * valid * enc_dim(model) * (model["attention"]["dim"] + vocab))
+
+
+def speller_step_flops(model: dict, vocab: int, feat_len: int) -> float:
+    """One speller step of one hypothesis over the utterance's encoder
+    frames: q, the location conv and its projection, the energies, the
+    context, the LSTM cell and the output."""
+    att, h, e = model["attention"], model["decoder"]["dim"], enc_dim(model)
+    dk, kk, p, s = att["dim"], att["loc_kernel_num"], 2 * att["loc_kernel_size"] + 1, int(feat_len) // 4
+    return float(2 * h * dk + s * (2 * p * kk + dk * (2 * kk + 4) + 2 * e) + 2 * (h + e + h) * 4 * h + 12 * h
+                 + 2 * h * vocab)
 
 
 # ------------------------------------------------------------------------ LM
@@ -350,9 +493,8 @@ def lm_step(w: W, lm: dict, tok: torch.Tensor, state: Tuple[List[torch.Tensor], 
     x = w["lm.embed"][tok]
     hs, cs = [], []
     for i, (h, c) in enumerate(zip(*state)):
-        gi, gf, gg, go = (mm(pr, x, w[f"lm.l{i}.wx"]) + w[f"lm.l{i}.b"] + mm(pr, h, w[f"lm.l{i}.wh"])).chunk(4, -1)
-        c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
-        x = h = torch.sigmoid(go) * torch.tanh(c)
+        h, c = lstm_cell(pr, x, h, c, w[f"lm.l{i}.wx"], w[f"lm.l{i}.wh"], w[f"lm.l{i}.b"])
+        x = h
         hs.append(h)
         cs.append(c)
     e = mm(pr, x, w["lm.out_proj.w"]) + w["lm.out_proj.b"]

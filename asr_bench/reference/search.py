@@ -85,33 +85,33 @@ def prefix_scores(lp: torch.Tensor, t_len: torch.Tensor, r_g: torch.Tensor, last
 
 
 @torch.no_grad()
-def search(w: M.W, cfg: dict, wav: torch.Tensor, wav_len: torch.Tensor, dcfg: dict, max_step: int,
+def search(arch, w: M.W, cfg: dict, wav: torch.Tensor, wav_len: torch.Tensor, dcfg: dict, max_step: int,
            pr: M.Precision, skip_best: bool = False, stop: int = 0) -> Dict[str, torch.Tensor]:
-    """The n-best of one batch of int16 waves: ``tokens`` [B, W, max_step]
-    (<eos>-terminated, 0-padded), ``lengths`` [B, W] (<eos> included),
-    ``scores`` [B, W] (float64, best first). With ``stop`` > 0, only the live
+    """The n-best of one batch of int16 waves under architecture module
+    ``arch``: ``tokens`` [B, W, max_step] (<eos>-terminated, 0-padded),
+    ``lengths`` [B, W] (<eos> included), ``scores`` [B, W] (float64, best
+    first). With ``stop`` > 0, only the live
     hypotheses after that many steps: ``live`` [B, W, stop]."""
     model = cfg["model"]
     nw, lm_w, cw = dcfg["beam_size"], dcfg["lm_weight"], dcfg["ctc_weight"]
     with pr.active():
         feat, feat_len = M.features(wav, wav_len, cfg["data"]["audio"])
-        enc, enc_len = M.encode(w, model, feat, feat_len, pr)
+        enc, enc_len = arch.encode(w, model, feat, feat_len, pr)
         b, s, _ = enc.shape
         dev = enc.device
         n = b * nw
         rows = torch.arange(b, device=dev).repeat_interleave(nw)
-        mem = M.speller_setup(w, model, enc[rows], enc_len[rows], pr)
-        vocab = w["dec.char.w"].shape[1]
+        mem = arch.speller_setup(w, model, enc[rows], enc_len[rows], pr)
+        vocab = w["ctc.w"].shape[1]
         k = min(vocab, max(nw, int(nw * dcfg["ctc_beam_ratio"]))) if cw > 0 else vocab
         min_len = (dcfg["min_len_ratio"] * enc_len).to(torch.int32)
         max_len = torch.clamp((dcfg["max_len_ratio"] * enc_len).to(torch.int32), max=max_step)
-        hd = w["dec.wh"].shape[0]
-        h, c, prev = enc.new_zeros((n, hd)), enc.new_zeros((n, hd)), mem["prev"]
+        state = arch.speller_state(w, mem)
         if lm_w > 0:
             lm_layers, lm_d = cfg["lm"]["n_layers"], cfg["lm"]["dim"]
             lm_state = ([enc.new_zeros((n, lm_d)) for _ in range(lm_layers)],
                         [enc.new_zeros((n, lm_d)) for _ in range(lm_layers)])
-        lp = M.ctc_log_probs(w, enc, pr).double() if cw > 0 else None
+        lp = arch.ctc_log_probs(w, enc, pr).double() if cw > 0 else None
         r_g = empty_prefix64(lp, enc_len)[:, None].expand(b, nw, s, 2).clone() if cw > 0 else None
         f64 = dict(dtype=torch.float64, device=dev)
         scores = torch.where(torch.arange(nw, device=dev)[None, :] == 0, 0.0, NEG).to(**f64).expand(b, nw).clone()
@@ -123,7 +123,7 @@ def search(w: M.W, cfg: dict, wav: torch.Tensor, wav_len: torch.Tensor, dcfg: di
         fin_len = torch.ones((b, nw), dtype=torch.long, device=dev)
         for t in range(stop or max_step):
             tok_flat = prev_tok.reshape(-1)
-            logits, h2, c2, align = M.speller_step(w, mem, tok_flat, h, c, prev, pr)
+            logits, new_state = arch.speller_step(w, mem, tok_flat, state, pr)
             step_lp = torch.log_softmax(logits, -1).double().reshape(b, nw, vocab)
             if lm_w > 0:
                 lm_lp, lm_new = M.lm_step(w, cfg["lm"], tok_flat, lm_state, pr)
@@ -163,9 +163,8 @@ def search(w: M.W, cfg: dict, wav: torch.Tensor, wav_len: torch.Tensor, dcfg: di
             act = a1.expand(b, nw).reshape(-1)[:, None]
             tokens = torch.where(a2, torch.where(at_t, tok[:, :, None], _gather(tokens, parent)), tokens)
             scores = torch.where(a1, top_live, scores)
-            h = torch.where(act, h2[flat_parent], h)
-            c = torch.where(act, c2[flat_parent], c)
-            prev = torch.where(act, align[flat_parent], prev)
+            state = tuple(torch.where(act.view((-1,) + (1,) * (o.dim() - 1)), x[flat_parent], o)
+                          for x, o in zip(new_state, state))
             if lm_w > 0:
                 lm_state = tuple([torch.where(act, x[flat_parent], o) for x, o in zip(new, old)]
                                  for new, old in zip(lm_new, lm_state))

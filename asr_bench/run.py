@@ -83,7 +83,7 @@ def main(argv=None) -> int:
     from asr_bench import cells
 
     runner = {"train": cells.run_train, "decode": cells.run_decode}[mix["kind"]]
-    run = runner(conf["recipe"], mix, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
+    run = runner(conf, mix, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
 
     found = forbidden_modules()
     if found:
@@ -93,7 +93,8 @@ def main(argv=None) -> int:
                 if args.workload in m.get("workloads", [args.workload])]
     metrics: Dict[str, dict] = {}
     if args.trace:
-        ctx = {"run": run, "recipe": run.recipe, "mix": mix, "kernel_names": spec.kernel_names}
+        ctx = {"run": run, "recipe": run.recipe, "arch": run.arch, "vocab": run.vocabulary.size, "mix": mix,
+               "kernel_names": spec.kernel_names}
         for m in spec.per_layer(bench, args.workload, reported):
             value = spec.metric_reader(m["name"])(ctx)
             if value is not None:

@@ -5,11 +5,6 @@ from __future__ import annotations
 
 from typing import List, Tuple
 
-from asr_bench.traffic import ALPHABET
-
-RESERVED = ["<sos>", "<eos>", "<unk>"]  # ids 0 (also padding and the CTC blank), 1, 2
-VOCAB = len(RESERVED) + len(ALPHABET)  # the benchmark's character vocabulary
-
 
 def frame_params(recipe: dict) -> Tuple[int, int]:
     a = recipe["data"]["audio"]
@@ -45,6 +40,7 @@ def active_steps(recipe: dict, batch: dict) -> List[int]:
     return [min(int(ratio * e), ms) for e, u in zip(enc_lens(recipe, batch), batch["uids"]) if u]
 
 
-def k_cand(recipe: dict) -> int:
+def k_cand(recipe: dict, vocab: int) -> int:
+    """The candidates a beam keeps a step (``vocab``: the vocabulary's size)."""
     d = recipe["decode"]
-    return min(VOCAB, max(d["beam_size"], int(d["beam_size"] * d["ctc_beam_ratio"])))
+    return min(vocab, max(d["beam_size"], int(d["beam_size"] * d["ctc_beam_ratio"])))

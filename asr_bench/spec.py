@@ -5,7 +5,10 @@ operations' kernel-name lists.
 Layout under ``asr_bench/`` (a later change adds files, never edits one):
 
 - ``configs/<config>.json``: ``recipe`` (the whole recipe the program runs,
-  every default written out) beside ``source``, ``reduced`` and ``assumed``;
+  every default written out) beside ``source``, ``reduced`` and ``assumed``,
+  and optionally ``architecture`` (``architecture`` below) and
+  ``vocabulary`` (``asr_bench/vocab.py``);
+- ``reference/<module>.py``: an architecture module a configuration names;
 - ``traffic/<traffic>.json``: a mix for ``traffic.py``;
 - ``limits/<workload>.json``: each compared number's limit;
 - ``metrics/<metric>.py``: a reader ``read(ctx) -> float | None``;
@@ -19,6 +22,7 @@ import glob
 import importlib.util
 import json
 import os
+from types import ModuleType
 from typing import Callable, Dict, List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -46,6 +50,15 @@ def config(bench: dict, name: str) -> dict:
         if c["name"] == name:
             return _json(os.path.join(ROOT, c["file"]))
     raise KeyError(f"no config {name!r} in BENCHMARK.json")
+
+
+def architecture(conf: dict) -> ModuleType:
+    """The architecture module a configuration names: ``"architecture":
+    "<module>"`` is ``asr_bench/reference/<module>.py`` (a dotted name is
+    imported whole, as a test's own module); without the key,
+    ``asr_bench/reference/model.py``."""
+    name = conf.get("architecture", "model")
+    return importlib.import_module(name if "." in name else "asr_bench.reference." + name)
 
 
 def limits(workload: str) -> Dict[str, float]:

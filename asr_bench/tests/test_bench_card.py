@@ -20,9 +20,9 @@ def test_the_program_passes_and_each_control_fails(workload, seconds):
     bench = spec.benchmark()
     cell = spec.cell(bench, workload)
     mix = spec.load_mix(cell["traffic"])
-    recipe = spec.config(bench, cell["config"])["recipe"]
+    conf = spec.config(bench, cell["config"])
     runner = {"train": cells.run_train, "decode": cells.run_decode}[mix["kind"]]
-    run = runner(recipe, mix, 2 ** 31 + 99, seconds, False, "cuda", time.time(), control=True)
+    run = runner(conf, mix, 2 ** 31 + 99, seconds, False, "cuda", time.time(), control=True)
     lim = spec.limits(workload)
     assert not run.problems
     assert all(run.numbers[k] <= lim[k] for k in lim), run.numbers

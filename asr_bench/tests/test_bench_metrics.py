@@ -8,8 +8,9 @@ import shutil
 
 import pytest
 
-from asr_bench import shapes, spec, work
+from asr_bench import shapes, spec, vocab, work
 from asr_bench.cells import Run
+from asr_bench.reference import model
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
@@ -23,7 +24,8 @@ def _batch(b, n, l, wav_len, text_len):
 def _ctx(run, workload="flagship.train.clean100"):
     bench = spec.benchmark()
     recipe = spec.config(bench, spec.cell(bench, workload)["config"])["recipe"]
-    return {"run": run, "recipe": recipe, "mix": {}, "kernel_names": spec.kernel_names}
+    return {"run": run, "recipe": recipe, "arch": model, "vocab": vocab.CHARACTERS.size, "mix": {},
+            "kernel_names": spec.kernel_names}
 
 
 def test_bucket_fill_is_unpadded_over_padded_samples():
@@ -44,7 +46,7 @@ def test_idle_share_and_a_roofline_from_a_trace():
     ctx = _ctx(run)
     assert spec.metric_reader("device_idle_share.train")(ctx) == pytest.approx(25.0)
     m = ctx["recipe"]["model"]
-    args = (2, shapes.enc_frames(ctx["recipe"], b), 300, 640, 10, 201, 320, 320, shapes.VOCAB, 240,
+    args = (2, shapes.enc_frames(ctx["recipe"], b), 300, 640, 10, 201, 320, 320, 31, 240,
             shapes.enc_lens(ctx["recipe"], b), "bfloat16")
     least = work.least_s(work.scan_fwd(*args), "bfloat16") + work.least_s(work.scan_bwd(*args), "bfloat16")
     assert m["attention"]["dim"] == 300

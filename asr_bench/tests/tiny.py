@@ -1,9 +1,13 @@
 """A tiny recipe and mix of the flagship's shape, for the CPU tests: every
-layer of the cell at widths the CPU runs in seconds."""
+layer of the cell at widths the CPU runs in seconds; and tiny configurations
+over it: ``default`` (the default architecture, characters) and
+``speller2.units300`` (the two-layer speller of ``tests/speller2.py``, 300
+synthetic units)."""
 
 from __future__ import annotations
 
 import copy
+from typing import Optional
 
 from asr_bench import spec
 
@@ -23,6 +27,22 @@ def recipe(dtype: str = "float32") -> dict:
     return r
 
 
-def mix(kind: str) -> dict:
-    return {"kind": kind, "utterances": 40, "duration_s": {"bins": [[1.4, 2.0, 0.5], [2.1, 4.0, 0.5]]},
-            "chars_per_s": [13.0, 17.0], "loader_threads": 0, "trace_steps": 2, "trace_batches": 2, "decode": {}}
+CONFIGS = ["default", "speller2.units300"]
+
+
+def config(name: str = "default") -> dict:
+    """A configuration file's object over ``recipe()``."""
+    if name == "default":
+        return {"recipe": recipe()}
+    if name == "speller2.units300":
+        r = recipe()
+        r["model"]["decoder"]["layer"] = 2
+        return {"recipe": r, "architecture": "asr_bench.tests.speller2", "vocabulary": {"kind": "units", "size": 300}}
+    raise KeyError(name)
+
+
+def mix(kind: str, conf: Optional[dict] = None) -> dict:
+    """A tiny mix, its transcripts' rate for ``conf``'s vocabulary."""
+    rate = {"tokens_per_s": [3.0, 5.0]} if (conf or {}).get("vocabulary") else {"chars_per_s": [13.0, 17.0]}
+    return {"kind": kind, "utterances": 40, "duration_s": {"bins": [[1.4, 2.0, 0.5], [2.1, 4.0, 0.5]]}, **rate,
+            "loader_threads": 0, "trace_steps": 2, "trace_batches": 2, "decode": {}}

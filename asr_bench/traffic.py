@@ -2,11 +2,13 @@
 
 A mix (``asr_bench/traffic/<name>.json``) gives the corpus's size, the
 duration law of the LibriSpeech split it approximates (bins of seconds with
-their shares, uniform inside a bin), the characters a second of audio, and
+their shares, uniform inside a bin), the symbols a second of audio, and
 how the cell drives the program (``kind``: ``train`` or ``decode``, with
-their settings). Durations and transcript lengths are the same set for every
-seed, spread over the bins by stratified quantiles; the seed changes only
-which utterance gets which, the characters, the waves and, through the
+their settings). Transcripts are drawn from the configuration's vocabulary
+(``asr_bench/vocab.py``) at the mix's ``chars_per_s``, or ``tokens_per_s``
+for a unit vocabulary. Durations and transcript lengths are the same set for
+every seed, spread over the bins by stratified quantiles; the seed changes
+only which utterance gets which, the symbols, the waves and, through the
 loader, the order. So every seed asks for the same work in another order.
 
 Waves are int16 slices of one buffer of Gaussian noise (what they hold does
@@ -24,7 +26,8 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-ALPHABET = list("ABCDEFGHIJKLMNOPQRSTUVWXYZ '")
+from asr_bench.vocab import CHARACTERS, Vocabulary
+
 NOISE_S = 37.0  # seconds of noise the waves are cut from
 NOISE_GAIN = 0.1  # the noise's standard deviation, as a share of full scale
 
@@ -55,33 +58,34 @@ def durations(mix: dict) -> np.ndarray:
     return bins[k, 0] + frac * (bins[k, 1] - bins[k, 0])
 
 
-def char_rates(mix: dict) -> np.ndarray:
-    """Characters a second of each utterance: stratified over the mix's range,
-    paired with the durations by a fixed permutation (the same for every seed)."""
+def text_rates(mix: dict, key: str) -> np.ndarray:
+    """Symbols a second (the mix's ``key``) of each utterance: stratified over
+    the mix's range, paired with the durations by a fixed permutation (the
+    same for every seed)."""
     n = mix["utterances"]
-    lo, hi = mix["chars_per_s"]
+    if key not in mix:
+        raise ValueError(f"the mix states no {key}, which its configuration's vocabulary reads")
+    lo, hi = mix[key]
     rates = lo + (hi - lo) * (np.arange(n) + 0.5) / n
     return rates[np.random.RandomState(12345).permutation(n)]
 
 
-def make(mix: dict, seed: int, sample_rate: int) -> List[Utt]:
-    """The mix's utterances for ``seed`` (a ``BucketedLoader`` manifest)."""
+def make(mix: dict, seed: int, sample_rate: int, vocab: Vocabulary = CHARACTERS) -> List[Utt]:
+    """The mix's utterances for ``seed`` (a ``BucketedLoader`` manifest),
+    their transcripts in ``vocab``."""
     rng = np.random.default_rng([seed, 0x5A5])
     dur = durations(mix)
     n_samples = np.round(dur * sample_rate).astype(np.int64)
-    n_chars = np.maximum(1, np.round(dur * char_rates(mix)).astype(np.int64))
+    n_sym = np.maximum(1, np.round(dur * text_rates(mix, vocab.rate_key)).astype(np.int64))
     n_noise = int(NOISE_S * sample_rate)
     noise = np.clip(rng.standard_normal(n_noise) * NOISE_GAIN * 32768.0, -32768, 32767).astype(np.int16)
     tiled = np.concatenate([noise, noise[: int(n_samples.max())]])
     order = rng.permutation(len(dur))  # which utterance gets which duration
     offs = rng.integers(0, n_noise, len(dur))
-    letters = np.asarray(ALPHABET)
-    p = np.full(len(ALPHABET), 0.8 / (len(ALPHABET) - 1))
-    p[ALPHABET.index(" ")] = 0.2
     utts = []
     for i, j in enumerate(order):
         n, off = int(n_samples[j]), int(offs[i])
-        text = "".join(letters[rng.choice(len(ALPHABET), int(n_chars[j]), p=p)])
+        text = vocab.draw(rng, int(n_sym[j]))
         wave = tiled[off:off + n]
         utts.append(Utt(f"u{i:05d}", lambda w=wave: w.astype(np.float32) / 32768.0, text, n))
     return utts

@@ -1,12 +1,14 @@
 """Weights from the seed: the recogniser's and the RNN-LM's, drawn on the
 device in two calls (one uniform, one normal buffer) and cut into leaves.
 
-Each leaf is named as the reference names it (``asr_names``, ``lm_names``)
-and scaled as the recipe's layers initialise: uniform in +-1/sqrt(fan-in)
-(a dense layer's input width, a convolution's taps times input channels, an
-LSTM's hidden width), the LSTM forget gates' bias 1, the location bias 0,
-embedding tables normal / sqrt(width). ``port_tree`` nests the same tensors
-into the program's parameter tree.
+Each leaf is named as the reference names it (the recogniser's by its
+architecture module's ``leaves``, ``asr_bench/reference/model.py`` by
+default; the LM's by ``lm_names``) and scaled as the recipe's layers
+initialise: uniform in +-1/sqrt(fan-in) (a dense layer's input width, a
+convolution's taps times input channels, an LSTM's hidden width), the LSTM
+forget gates' bias 1, the location bias 0, embedding tables normal /
+sqrt(width). The module's ``port_tree`` and ``port_lm_tree`` nest the same
+tensors into the program's parameter trees.
 """
 
 from __future__ import annotations
@@ -20,40 +22,14 @@ import torch
 Leaf = Tuple[str, Tuple[int, ...], str, float]
 
 
-def _lstm(name: str, d: int, h: int) -> List[Leaf]:
+def lstm(name: str, d: int, h: int) -> List[Leaf]:
     s = 1.0 / math.sqrt(h)
     return [(f"{name}.wx", (d, 4 * h), "u", s), (f"{name}.wh", (h, 4 * h), "u", s), (f"{name}.b", (4 * h,), "uf", s)]
 
 
-def _dense(name: str, d_in: int, d_out: int, bias: bool = True) -> List[Leaf]:
+def dense(name: str, d_in: int, d_out: int, bias: bool = True) -> List[Leaf]:
     s = 1.0 / math.sqrt(d_in)
     return [(f"{name}.w", (d_in, d_out), "u", s)] + ([(f"{name}.b", (d_out,), "u", s)] if bias else [])
-
-
-def asr_names(model: dict, feat_dim: int, vocab: int) -> List[Leaf]:
-    """The recogniser's leaves: VGG prenet, BiLSTM layers with projections,
-    CTC head, embedding, location-aware attention, one-layer LSTM speller."""
-    enc, att, dec = model["encoder"], model["attention"], model["decoder"]
-    out: List[Leaf] = []
-    for i, (ci, co) in enumerate(((1, 64), (64, 64), (64, 128), (128, 128))):
-        ci = feat_dim // 40 if i == 0 else ci
-        s = 1.0 / math.sqrt(9 * ci)
-        out += [(f"enc.conv{i + 1}.w", (co, ci, 3, 3), "u", s), (f"enc.conv{i + 1}.b", (co,), "u", s)]
-    d = 128 * ((40 // 2) // 2) if feat_dim % 40 == 0 else None
-    if d is None:
-        raise ValueError("the VGG prenet here takes a multiple of 40 features")
-    for i, h in enumerate(enc["dim"]):
-        out += _lstm(f"enc.l{i}.fwd", d, h) + _lstm(f"enc.l{i}.bwd", d, h) + _dense(f"enc.l{i}.proj", 2 * h, 2 * h)
-        d = 2 * h
-    out += _dense("ctc", d, vocab)
-    out += [("embed", (vocab, dec["dim"]), "n", 1.0 / math.sqrt(dec["dim"]))]
-    dk, k, p = att["dim"], att["loc_kernel_num"], 2 * att["loc_kernel_size"] + 1
-    out += _dense("att.proj_q", dec["dim"], dk) + _dense("att.proj_k", d, dk, bias=False)
-    out += [("att.loc_conv.w", (k, 1, p), "u", 1.0 / math.sqrt(p)), ("att.loc_conv.b", (k,), "u", 1.0 / math.sqrt(p))]
-    out += _dense("att.loc_proj", k, dk, bias=False)
-    out += [("att.loc_v", (1, dk), "u", 1.0 / math.sqrt(dk)), ("att.loc_b", (dk,), "zero", 0.0)]
-    out += _lstm("dec", dec["dim"] + d, dec["dim"]) + _dense("dec.char", dec["dim"], vocab)
-    return out
 
 
 def lm_names(lm: dict, vocab: int) -> List[Leaf]:
@@ -61,9 +37,9 @@ def lm_names(lm: dict, vocab: int) -> List[Leaf]:
     out: List[Leaf] = [("lm.embed", (vocab, lm["emb_dim"]), "n", 1.0 / math.sqrt(lm["emb_dim"]))]
     d = lm["emb_dim"]
     for i in range(lm["n_layers"]):
-        out += _lstm(f"lm.l{i}", d, lm["dim"])
+        out += lstm(f"lm.l{i}", d, lm["dim"])
         d = lm["dim"]
-    return out + _dense("lm.out_proj", lm["dim"], lm["emb_dim"])
+    return out + dense("lm.out_proj", lm["dim"], lm["emb_dim"])
 
 
 def draw(leaves: List[Leaf], seed: int, device) -> Dict[str, torch.Tensor]:
@@ -86,26 +62,6 @@ def draw(leaves: List[Leaf], seed: int, device) -> Dict[str, torch.Tensor]:
         if law == "uf":
             out[name][shape[0] // 4:shape[0] // 2] = 1.0
     return out
-
-
-def port_tree(flat: Dict[str, torch.Tensor], n_layers: int) -> dict:
-    """The program's parameter tree (``models/asr.py``) over ``flat``'s tensors."""
-    g = flat.__getitem__
-    lstm = lambda n: {"wx": g(n + ".wx"), "wh": g(n + ".wh"), "b": g(n + ".b")}  # noqa: E731
-    dense = lambda n: {"w": g(n + ".w"), "b": g(n + ".b")}  # noqa: E731
-    return {
-        "encoder": {
-            "prenet": {f"conv{i}": dense(f"enc.conv{i}") for i in range(1, 5)},
-            "layers": [{"fwd": lstm(f"enc.l{i}.fwd"), "bwd": lstm(f"enc.l{i}.bwd"), "proj": dense(f"enc.l{i}.proj")}
-                       for i in range(n_layers)],
-        },
-        "ctc": dense("ctc"),
-        "embed": {"table": g("embed")},
-        "attention": {"proj_q": dense("att.proj_q"), "proj_k": {"w": g("att.proj_k.w")},
-                      "loc_conv": dense("att.loc_conv"), "loc_proj": {"w": g("att.loc_proj.w")},
-                      "loc_v": g("att.loc_v"), "loc_b": g("att.loc_b")},
-        "decoder": {"cells": [lstm("dec")], "char": dense("dec.char")},
-    }
 
 
 def port_lm_tree(flat: Dict[str, torch.Tensor], n_layers: int) -> dict:

@@ -10,7 +10,9 @@ written (``utils/profiling.py``), frozen here so that a change to the
 program cannot move the yardstick; the attention-step and CTC-prefix counts
 likewise. Model FLOPs count the forward's products and the elementwise work
 the roofline counts count, times three for a training step (the backward
-twice the forward), and nothing recomputed.
+twice the forward), and nothing recomputed; what a layer of the model costs
+is its architecture module's count (``asr_bench/reference/model.py`` by
+default).
 """
 
 from __future__ import annotations
@@ -120,65 +122,32 @@ def ctc_prefix(b: int, w: int, kc: int, t: int, v: int, valid: float) -> Work:
 
 
 # ------------------------------------------------------------- model FLOPs
-def encoder_fwd_flops(model: dict, feat_dim: int, feat_lens: Sequence[int]) -> float:
-    """The listener's forward at valid lengths: the VGG convolutions over the
-    valid frames, each BiLSTM layer's input and recurrent products and cell,
-    its projection."""
-    ch = feat_dim // 40
-    total = 0.0
-    for n in feat_lens:
-        n = int(n)
-        total += 2 * 9 * 40 * n * (ch * 64 + 64 * 64) + 2 * 9 * 20 * (n // 2) * (64 * 128 + 128 * 128)
-    d = 1280
-    valid = float(sum(int(n) // 4 for n in feat_lens))
-    for h in model["encoder"]["dim"]:
-        total += 2 * valid * (2 * d * 4 * h + 2 * h * 4 * h + 12 * h) + valid * 2 * (2 * h) * (2 * h)
-        d = 2 * h
-    return total
-
-
-def speller_step_flops(model: dict, enc_dim: int, vocab: int, valid_frames: float) -> float:
-    """One speller step of one hypothesis over ``valid_frames`` encoder
-    frames: q, the location conv and its projection, the energies, the
-    context, the LSTM cell and the output."""
-    att, h = model["attention"], model["decoder"]["dim"]
-    dk, kk, p = att["dim"], att["loc_kernel_num"], 2 * att["loc_kernel_size"] + 1
-    return (2 * h * dk + valid_frames * (2 * p * kk + dk * (2 * kk + 4) + 2 * enc_dim)
-            + 2 * (h + enc_dim + h) * 4 * h + 12 * h + 2 * h * vocab)
-
-
-def train_step_flops(model: dict, feat_dim: int, vocab: int, feat_lens: Sequence[int],
+def train_step_flops(arch, model: dict, feat_dim: int, vocab: int, feat_lens: Sequence[int],
                      text_lens: Sequence[int]) -> float:
-    """A training step's model FLOPs: three times the forward (encoder,
-    key projection, CTC head, the speller over each utterance's tokens)."""
-    e = 2 * model["encoder"]["dim"][-1]
-    dk = model["attention"]["dim"]
-    fwd = encoder_fwd_flops(model, feat_dim, feat_lens)
+    """A training step's model FLOPs: three times the forward of each
+    utterance with a transcript (its listener, key projection and CTC head,
+    and the speller over its tokens), as architecture module ``arch`` counts
+    them (``utterance_flops``, ``speller_step_flops``)."""
+    fwd = 0.0
     for n, l in zip(feat_lens, text_lens):
-        s = int(n) // 4
-        if l <= 0:
-            continue
-        fwd += 2 * s * e * (dk + vocab) + int(l) * speller_step_flops(model, e, vocab, s)
+        if l > 0:
+            fwd += arch.utterance_flops(model, feat_dim, vocab, n) + int(l) * arch.speller_step_flops(model, vocab, n)
     return 3.0 * fwd
 
 
-def decode_flops(model: dict, lm: dict, feat_dim: int, vocab: int, beam: int, k_cand: int, use_lm: bool,
+def decode_flops(arch, model: dict, lm: dict, feat_dim: int, vocab: int, beam: int, k_cand: int, use_lm: bool,
                  use_ctc: bool, feat_lens: Sequence[int], steps: Sequence[int]) -> float:
-    """A decoded batch's model FLOPs: the encoder's forward, the key
-    projection and CTC head, and per utterance and beam step (``steps``: the
-    steps inside its window) the speller, the LM step and the CTC prefix
+    """A decoded batch's model FLOPs: each utterance's listener, key
+    projection and CTC head, and per beam step inside its window (``steps``)
+    the speller (as ``arch`` counts them), the LM step and the CTC prefix
     scores of its hypotheses."""
-    e = 2 * model["encoder"]["dim"][-1]
-    dk = model["attention"]["dim"]
-    total = encoder_fwd_flops(model, feat_dim, feat_lens)
+    total = 0.0
     for n, st in zip(feat_lens, steps):
-        s = int(n) // 4
-        total += 2 * s * e * (dk + vocab)
-        per = speller_step_flops(model, e, vocab, s)
+        per = arch.speller_step_flops(model, vocab, n)
         if use_lm:
             d, hl = lm["emb_dim"], lm["dim"]
             per += lm["n_layers"] * (2 * (d + hl) * 4 * hl + 12 * hl) + 2 * hl * d + 2 * d * vocab
         if use_ctc:
-            per += 30.0 * s * k_cand
-        total += int(st) * beam * per
+            per += 30.0 * (int(n) // 4) * k_cand
+        total += arch.utterance_flops(model, feat_dim, vocab, n) + int(st) * beam * per
     return total
