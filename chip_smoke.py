@@ -776,7 +776,7 @@ def _bidir_bwd_parts(x, mask, wx, wh, ys, c, acts, dy, iters: int = 10) -> dict:
     return dict(
         sweep_ms=time_ms(lambda: rnn_cuda._sweep(mask, wh, c, acts, dy, dg, dg, t, b, 2, h, 0), iters),
         products_ms=time_ms(lambda: rnn_cuda._bidir_products(x, wx, ys, dg, dg, *outs), iters),
-        sweep_grid=dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
+        sweep_grid=dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks", "piece"),
                             rnn_cuda.sweep_grid(t, b, 2, h, x.device))))
 
 
@@ -1127,12 +1127,24 @@ def _bf16_state(name, got, want):
     return err
 
 
+# (T, B, D, H) of the bf16 LSTM layer checks: the flagship's, the
+# convergence recipe's, asr_960h.yaml's longest bucket, and the ESPnet
+# recipe's (5 x 1024 BLSTM after VGG2L's 2,560: B 20 and B 10 past 800
+# input frames, here both at its longest utterances' 764 frames; the
+# backward sweep stages a step's dgates in pieces there). The ESPnet layers
+# take the lstm_seq pair alone (ops/rnn.py ``auto``).
+BF16_LSTM_SHAPES = (("flagship", (204, 16, 1280, 320)), ("convergence", (816, 32, 80, 256)),
+                    ("960h", (764, 16, 1280, 512)), ("espnet_b10", (764, 10, 2560, 1024)),
+                    ("espnet_b20", (764, 20, 2560, 1024)))
+
+
 def bf16_kernel_checks(dev, cfg, vocab):
     """Each bf16 kernel variant against its bf16 plain version (the plain
     version on the card with use_plain patched), at the flagship training
     shapes (LSTM layer T=204, B=16, H=320, D=1280; the scan at B=16, S=204,
     L=200) and the convergence recipe's (T=816, B=32, H=256, D=80; the scan
-    at B=32, S=204, L=72): every bf16 output within BF16_ULPS on BF16_SHARE
+    at B=32, S=204, L=72), the LSTM layer also at BF16_LSTM_SHAPES' others:
+    every bf16 output within BF16_ULPS on BF16_SHARE
     (``_bf16_state``), the forwards' float32 residuals (acts, q, ctx) at
     scaled rtol 1e-3 (their bf16 inputs differ where a rounding flipped),
     the scan backward's float32 outputs, from the same inputs on both
@@ -1159,8 +1171,7 @@ def bf16_kernel_checks(dev, cfg, vocab):
               f"bound {bound[0]:.4f} ms ({bound[1]})", flush=True)
 
     with torch.no_grad():
-        for shape, (t, b, d, h) in (("flagship", (204, 16, 1280, 320)), ("convergence", (816, 32, 80, 256)),
-                                    ("960h", (764, 16, 1280, 512))):
+        for shape, (t, b, d, h) in BF16_LSTM_SHAPES:
             lens = torch.randint(t // 2, t + 1, (b,), generator=gen, device=dev)
             lens[0] = t
             x, mask, wx, wh, bias = _lstm_inputs(gen, dev, t, b, d, h, lens)
@@ -1199,6 +1210,8 @@ def bf16_kernel_checks(dev, cfg, vocab):
                    profiling.bound_ms(*profiling.lstm_seq_bwd_work(t, b, h, valid, 2, bf), bf),
                    time_ms(lambda: torch.autograd.grad(out_l, [xl] + list(lib.parameters()), dy[:, :b].repeat(
                        1, 1, 2), retain_graph=True), 3))
+            if shape.startswith("espnet"):
+                continue
 
             print(f"[kernel] bf16 lstm_bidir pair [{shape}]: T={t}, B={b}, D={d}, H={h}", flush=True)
             got = rnn_cuda.lstm_bidir_fwd_train(xs, mask, wxs, whs, bs)
@@ -1294,7 +1307,8 @@ def bf16_kernel_checks(dev, cfg, vocab):
         f = row["per_shape"]["flagship"]
         row.update(route="cuda", max_abs_err=max(v["max_abs_err"] for v in row["per_shape"].values()),
                    ms=f["ms"], plain_ms=f["plain_ms"], bound=f["bound"], library_ms=f["library_ms"],
-                   ms_f32=f["ms_f32"], shapes="flagship (rows' numbers), convergence and 960h (per_shape)")
+                   ms_f32=f["ms_f32"],
+                   shapes="flagship (rows' numbers), the other LSTM shapes and the scan's (per_shape)")
     return rows
 
 
@@ -1519,7 +1533,7 @@ def lstm_seq_checks(dev):
                 plain_ms=time_ms(lambda: rnn_cuda.lstm_seq_bwd_plain(m2, wh, ys, c, acts, dy), 2, 1),
                 sweep_ms=time_ms(lambda: rnn_cuda._sweep(m2, wh, c, acts, dy, dxw, dxw, t, b, 2, h, 1), 5),
                 products_ms=time_ms(lambda: rnn_cuda._seq_products(ys, dxw, dwh), 5),
-                sweep_grid=dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
+                sweep_grid=dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks", "piece"),
                                     rnn_cuda.sweep_grid(t, b, 2, h, dev)))))
             print(f"  lstm_seq_bwd T={t} B={b} H={h}: {bwd[-1]['ms']:.3f} ms = sweep {bwd[-1]['sweep_ms']:.3f} "
                   f"ms (grid {bwd[-1]['sweep_grid']}) + dWh {bwd[-1]['products_ms']:.3f} ms", flush=True)

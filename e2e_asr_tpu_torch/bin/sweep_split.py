@@ -54,8 +54,8 @@ from e2e_asr_tpu_torch.ops import rnn_cuda
 SWEEPS = {
     "backward": ("lstm_bidir_bwd", {
         "NO_GRID": [("    grid.sync();  // every block's dgates of step k are in dg\n", "statement")],
-        "NO_STAGE": [("    for (int i = tid; i < nb * (G / 4); i += SW_NT) {\n", "block")],
-        "NO_PRODUCT": [("    for (int c0 = warp; c0 < G / 16; c0 += 2 * SW_NW) {\n", "block")],
+        "NO_STAGE": [("      for (int i = tid; i < nb * (pw / 4); i += SW_NT) {\n", "block")],
+        "NO_PRODUCT": [("      for (int c0 = (STAGED ? p0 / 16 : 0) + warp; c0 < cend; c0 += 2 * SW_NW) {\n", "block")],
     }, {"full": (), "no_grid": ("NO_GRID",), "no_stage": ("NO_STAGE",), "no_product": ("NO_PRODUCT",),
         "elementwise": ("NO_GRID", "NO_STAGE", "NO_PRODUCT")}),
     "forward": ("lstm_bidir", {
@@ -157,7 +157,8 @@ def _launcher(sweep: str, path: str, t: int, b: int, h: int, x: dict, dev: torch
     if sweep == "backward":
         fn = lib.e2e_lstm_bwd_sweep
         ptrs = (x["mask"], x["wh"], x["c"], x["acts"], x["dy"], x["dg"], x["dgs"])
-        ints = (t, b, 2, h, 1, *rnn_cuda.sweep_grid(t, b, 2, h, dev, dt)[:3], *codes)
+        nt, w_smem, smem, _, piece = rnn_cuda.sweep_grid(t, b, 2, h, dev, dt)
+        ints = (t, b, 2, h, 1, nt, w_smem, smem, piece, *codes)
     else:
         fn = lib.e2e_lstm_fwd_sweep
         ptrs = (x["xw"], x["mask"], x["wh"], x["ys"], x["c"], x["acts"], x["hbuf"])
@@ -233,7 +234,7 @@ def main(argv=None):
             us = {name: v / t * 1e3 for name, v in ms.items()}
             split = _split(sweep, us)
             if sweep == "backward":
-                plan = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),
+                plan = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks", "piece"),
                                 rnn_cuda.sweep_grid(t, b, 2, h, dev, dtype)))
             else:
                 plan = dict(zip(("row_tiles", "wh_in_smem", "smem", "blocks"),

@@ -151,7 +151,7 @@ class HparasConfig:
 class EncoderConfig:
     """ref: src/module.py Encoder — per-layer list config surface."""
 
-    prenet: str = "vgg"  # vgg | cnn | ''
+    prenet: str = "vgg"  # vgg | vgg2l | cnn | ''
     module: str = "LSTM"  # LSTM | GRU
     bidirection: bool = True
     dim: List[int] = field(default_factory=lambda: [512, 512, 512, 512])
@@ -160,6 +160,10 @@ class EncoderConfig:
     proj: List[bool] = field(default_factory=lambda: [True] * 4)
     sample_rate: List[int] = field(default_factory=lambda: [1, 1, 1, 1])
     sample_style: str = "drop"  # drop | concat
+    # the stack's output projection: Linear(last layer's width -> out_proj)
+    # + tanh over the top layer, re-masked (ESPnet's RNN.l_last, its
+    # eprojs); 0 = none. No counterpart in the JAX package
+    out_proj: int = 0
     # which kernel pair runs a BiLSTM layer (ops/rnn.py bidir): 'pallas' the
     # fused-projection pair, 'pallas_xw' the lstm_seq pair over projections
     # computed outside, 'auto' an alias of 'pallas_xw' (the faster of the two
@@ -189,6 +193,9 @@ class DecoderConfig:
     dim: int = 512
     layer: int = 1
     dropout: float = 0.0
+    # the layer whose previous h is the attention query: 'top' (the JAX
+    # package's) or 'first' (ESPnet's z_list[0]); one layer reads the same
+    query_layer: str = "top"
     # the speller scan of the training / validation forward (models/asr.py):
     # 'scan' the Python loop over the steps, 'pallas' the fused scan
     # (ops/decoder_cuda.py; raises outside its envelope), 'auto' the fused

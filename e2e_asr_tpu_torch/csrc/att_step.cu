@@ -30,7 +30,8 @@
 //   - staging, all with cp.async and waited for once: the taps (then
 //     transposed, 4 filters a 16-byte load), wlp, locv, q + locb of all
 //     beams and each beam's window of prev_att around the unit; v's rows
-//     prefetched into L2; the unit's k rows in tiles of TF frames;
+//     prefetched into L2; the unit's k rows in tiles of TK frames (TF
+//     where that fits, fewer where Dk is wide: 16 at W 16, Dk 1024);
 //   - conv: a thread an item (4 filters, beam, 4 frames) over all taps, the
 //     4 frames' window slid through registers, 16 FMAs a tap; a warp's
 //     items share their filters, so the taps' loads are broadcasts;
@@ -52,7 +53,9 @@
 // A launch takes at most G utterances, and fewer where their units' frames
 // would not fit in shared memory (e2e_att_step_plan); the wrapper launches
 // the kernel for groups of utterances in turn where B is larger (one launch
-// at the flagship decode shapes).
+// at the flagship decode shapes). The plan takes k tiles of fewer than TF
+// frames only where not even one utterance fits with TF: a shape that fits
+// TF keeps its layout and its groups.
 // No atomics, every sum in a fixed order: repeats are bitwise. The wrapper
 // allocates the scratch (its size from the shapes alone) and launches on
 // PyTorch's stream with no host synchronisation.
@@ -120,7 +123,7 @@ __device__ __forceinline__ float warp_max(float x) {
 
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// row strides: k tile [TF][KS] and wlp [K][WLS] with stride = 8 mod 32 (a
+// row strides: k tile [TK][KS] and wlp [K][WLS] with stride = 8 mod 32 (a
 // quarter warp's fragment and pair loads free of bank conflicts); f [rows]
 // [KPS] with KPS = 4 mod 8 (the A fragments' eight rows on distinct banks)
 __host__ __device__ inline int stride8(int n) { return n <= 8 ? 8 : cdiv(n - 8, 32) * 32 + 8; }
@@ -136,7 +139,7 @@ __host__ __device__ inline size_t take(size_t& o, size_t n) {
 
 struct Layout {
   size_t tt, wl, lv, lb, qb, aw, en, scl, offs, kb, fs, ep, vt, total;
-  int SbM, AW, KP4, KS, WLS, KPS, QS, VS, TV;
+  int SbM, AW, KP4, KS, WLS, KPS, QS, VS, TK, TV;
 };
 
 // frames a unit (a block's share of one utterance) holds, at most: with B
@@ -159,7 +162,6 @@ __host__ __device__ inline Layout att_layout(int B, int W, int S, int Dk, int E,
   l.KPS = kps_of(K);
   l.QS = cdiv(Dk, 8) * 8;
   l.VS = stride8(E);
-  const int rows = W * TF;
   size_t o = 0;
   l.tt = take(o, (size_t)P * l.KP4);         // taps [P][KP4]
   l.wl = take(o, (size_t)K * l.WLS);         // wlp [K][WLS]
@@ -170,14 +172,21 @@ __host__ __device__ inline Layout att_layout(int B, int W, int S, int Dk, int E,
   l.en = take(o, (size_t)W * l.SbM);         // a unit's energies, then exps [W][SbM]
   l.scl = take(o, (size_t)W);                // scale of a unit's exps [W]
   l.offs = take(o, 2 * (size_t)B + 2);       // the utterances' lengths' prefix sums, their first units (ints)
-  // the union: k tile, f and the energies' partial sums; then a v tile
+  // the union: k tile, f and the energies' partial sums of TK frames (TF,
+  // fewer, a multiple of 8, where Dk is too wide for them to fit: W 16 at
+  // Dk 1024, 16); then a v tile
   const size_t u0 = o;
-  l.kb = take(o, (size_t)TF * l.KS);         // k tile [TF][KS]
-  const size_t f0 = o;
-  l.fs = take(o, (size_t)rows * l.KPS);      // f [W TF][KPS]
-  l.ep = take(o, (size_t)NCHMAX * rows);     // partial energies [NCH][W TF]
-  const size_t ts = f0 + (size_t)K * P;      // staging: the taps [K][P] as they come, at fs
-  o = o > ts ? o : ts;
+  for (l.TK = TF;; l.TK -= 8) {
+    const int rows = W * l.TK;
+    o = u0;
+    l.kb = take(o, (size_t)l.TK * l.KS);     // k tile [TK][KS]
+    const size_t f0 = o;
+    l.fs = take(o, (size_t)rows * l.KPS);    // f [W TK][KPS]
+    l.ep = take(o, (size_t)NCHMAX * rows);   // partial energies [NCH][W TK]
+    const size_t ts = f0 + (size_t)K * P;    // staging: the taps [K][P] as they come, at fs
+    o = o > ts ? o : ts;
+    if (l.TK <= 8 || sizeof(float) * o <= SMEM_MAX) break;
+  }
   l.vt = u0;                                 // v tile [TV][VS]: TF frames, fewer (a multiple of 8) where
   l.TV = TF;                                 // E is too wide for them to fit (E = 1024: 32)
   while (l.TV > 8 && sizeof(float) * (u0 + (size_t)l.TV * l.VS) > SMEM_MAX) l.TV -= 8;
@@ -206,7 +215,7 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
   extern __shared__ float smem[];
   const Layout ly = att_layout(B, W, S, Dk, E, K, P, G);
   const int AW = ly.AW, KP4 = ly.KP4, KS = ly.KS, WLS = ly.WLS, KPS = ly.KPS, QS = ly.QS, SbM = ly.SbM;
-  const int VS = ly.VS, TV = ly.TV;
+  const int VS = ly.VS, TK = ly.TK, TV = ly.TV;
   float* tt = smem + ly.tt;
   float* wl = smem + ly.wl;
   float* lv = smem + ly.lv;
@@ -301,7 +310,7 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
     }
   }
   cp_async_commit();
-  if (nv > 0) load_rows(kb, KS, kg, Dk, 0, min(nv, TF));
+  if (nv > 0) load_rows(kb, KS, kg, Dk, 0, min(nv, TK));
   cp_async_commit();
   for (long x = (long)tid * 32; x < (long)nv * E; x += (long)NT * 32)  // v's rows into L2
     asm volatile("prefetch.global.L2 [%0];" ::"l"(vg + x));
@@ -309,7 +318,7 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
     const int pad = QS - Dk;  // qb, lv and each k row past Dk
     for (int i = tid; i < W * pad; i += NT) qb[(i / pad) * QS + Dk + i % pad] = 0.0f;
     for (int i = tid; i < pad; i += NT) lv[Dk + i] = 0.0f;
-    for (int i = tid; i < TF * pad; i += NT) kb[(i / pad) * KS + Dk + i % pad] = 0.0f;
+    for (int i = tid; i < TK * pad; i += NT) kb[(i / pad) * KS + Dk + i % pad] = 0.0f;
     for (int i = tid; i < K * (WLS - Dk); i += NT) wl[(i / (WLS - Dk)) * WLS + Dk + i % (WLS - Dk)] = 0.0f;
   }
   cp_async_wait<1>();  // all but the k tile
@@ -326,8 +335,8 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
   // partial context with the local exps, both to the scratch (slot j)
   if (nv > 0) {
     const long seg = j;
-    for (int f0 = 0; f0 < nv; f0 += TF) {
-      const int nt = min(TF, nv - f0), rows = W * nt;
+    for (int f0 = 0; f0 < nv; f0 += TK) {
+      const int nt = min(TK, nv - f0), rows = W * nt;
       // ---- conv: a thread an item (4 filters, beam, 4 frames) over all
       // taps; the items of a warp share their filters, so that the taps'
       // 16-byte loads are broadcasts, and step through the taps together
@@ -439,19 +448,19 @@ __global__ void __launch_bounds__(NT, 1) att_step_kernel(const Args a) {
           r1 += __shfl_xor_sync(0xffffffffu, r1, 1);
           r1 += __shfl_xor_sync(0xffffffffu, r1, 2);
           if (tig == 0) {
-            if (va) ep[ci * W * TF + ra] = r0;
-            if (vb) ep[ci * W * TF + rb] = r1;
+            if (va) ep[ci * W * TK + ra] = r0;
+            if (vb) ep[ci * W * TK + rb] = r1;
           }
         }
         __syncthreads();
         for (int r = tid; r < rows; r += NT) {
           float e = 0.0f;
-          for (int c = 0; c < nch; ++c) e += ep[c * W * TF + r];
+          for (int c = 0; c < nch; ++c) e += ep[c * W * TK + r];
           en[(r / nt) * SbM + f0 + r % nt] = e * a.inv_temp;
         }
       }
       __syncthreads();  // the k tile, f and the partial sums are consumed
-      if (f0 + TF < nv) load_rows(kb, KS, kg, Dk, f0 + TF, min(TF, nv - f0 - TF));
+      if (f0 + TK < nv) load_rows(kb, KS, kg, Dk, f0 + TK, min(TK, nv - f0 - TK));
       cp_async_commit();
       PHASE(PH_ENERGY);
     }
@@ -676,20 +685,25 @@ extern "C" int e2e_att_step_plan(int B, int W, int S, int Dk, int E, int K, int 
   out[0] = out[1] = out[2] = out[3] = 0;
   if (B < 1 || W < 1 || S < 1 || Dk < 1 || E < 1 || K < 1 || K > 8 * KSMAX || P < 1 || P % 2 != 1)
     return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0, per_sm = 0, G = 0, bg = B;
+  int dev = 0, sms = 0, per_sm = 0, G = 0, bg = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  for (; bg >= 1; --bg) {  // the most utterances a launch whose layout fits
-    const size_t smem = sizeof(float) * att_layout(bg, W, S, Dk, E, K, P, sms).total;
-    if (smem > SMEM_MAX) continue;
-    e = cudaFuncSetAttribute(att_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, att_step_kernel, NT, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (per_sm < 1) continue;
-    G = sms * per_sm;  // (a smaller share a block: the layout for sms blocks fits)
-    if (bg <= G) break;
-    bg = G + 1;  // the next try: G utterances
+  // first with k tiles of TF frames; only where not even one utterance fits
+  // them, with the fewer frames a tile that the layout takes then
+  for (int narrow = 0; narrow < 2 && bg < 1; ++narrow) {
+    for (bg = B; bg >= 1; --bg) {  // the most utterances a launch whose layout fits
+      const Layout ly = att_layout(bg, W, S, Dk, E, K, P, sms);
+      const size_t smem = sizeof(float) * ly.total;
+      if (smem > SMEM_MAX || (!narrow && ly.TK < TF)) continue;
+      e = cudaFuncSetAttribute(att_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, att_step_kernel, NT, smem);
+      if (e != cudaSuccess) return (int)e;
+      if (per_sm < 1) continue;
+      G = sms * per_sm;  // (a smaller share a block: the layout for sms blocks fits)
+      if (bg <= G) break;
+      bg = G + 1;  // the next try: G utterances
+    }
   }
   if (bg < 1) return 0;
   bg = cdiv(B, cdiv(B, bg));  // the groups evened out (each fits: the layout grows with the utterances)

@@ -49,7 +49,14 @@
 // weights resident or not) comes from e2e_lstm_bwd_sweep_plan: the grid must
 // be resident, or the launch fails and the wrapper raises. (A barrier among
 // each group's blocks alone, per-block step counts that the group polls,
-// measured slower than the grid barrier.)
+// measured slower than the grid barrier.) Where a step's dgates of a block's
+// rows do not fit beside the rest (4H = 4096 at H = 1024 takes 128 KB for 8
+// rows), the plan stages them in pieces of whole rounds of the product's
+// columns (a round: the 256 columns that the warps take at once), each
+// loaded, then multiplied, in column order: every warp adds its products
+// in the order it adds them unstaged, so the sums are the same bits. The
+// plan tries the unstaged layouts first, so a shape that fits them keeps
+// its grid, and names the piece it chose.
 // Design, the products: the tensor-core GEMM of csrc/gemm_tf32.cuh (shared
 // with the forward's input projection; 128 x 64 x 32 tiles, three TF32
 // products a tile) whose operands are rows addressed through (time, batch)
@@ -93,6 +100,7 @@ constexpr int SMEM_MAX = 232448 - 1024;  // a block's shared memory on the H100,
 constexpr int SW_NT = 256;  // threads a block
 constexpr int SW_NW = SW_NT / 32;
 constexpr int SW_US = 16;   // hidden units a block (one m16 tile)
+constexpr int SW_ROUND = 2 * SW_NW * 16;  // columns of dgates the warps take in one round of the product
 
 __host__ __device__ inline int sw_stride(int G) { return G + 16; }  // 16-byte loads free of conflicts
 
@@ -104,10 +112,16 @@ __host__ __device__ inline int sw_wh_floats(int G, int w_smem, int es) {
   return w_smem ? SW_US * sw_stride(G) * es / 4 : 0;
 }
 
-// bytes of shared memory: the resident Wh rows, the step's dgates of the
-// block's rows, the warps' partial tiles
-__host__ __device__ inline int sw_smem_bytes(int G, int nt, int w_smem, int es) {
-  return 4 * (sw_wh_floats(G, w_smem, es) + 8 * nt * sw_stride(G) + SW_NW * nt * SW_US * 8);
+// columns of dgates a piece stages when a step's are staged in ``pieces``
+// pieces: all G in one, else whole rounds
+__host__ __device__ inline int sw_piece(int G, int pieces) {
+  return pieces == 1 ? G : cdiv(cdiv(G, pieces), SW_ROUND) * SW_ROUND;
+}
+
+// bytes of shared memory: the resident Wh rows, a piece of the step's
+// dgates of the block's rows (kp columns), the warps' partial tiles
+__host__ __device__ inline int sw_smem_bytes(int G, int nt, int w_smem, int es, int kp) {
+  return 4 * (sw_wh_floats(G, w_smem, es) + 8 * nt * sw_stride(kp) + SW_NW * nt * SW_US * 8);
 }
 
 // pointers of the storage types S (wh, c_out, dy, dgs) and A (acts)
@@ -117,7 +131,7 @@ struct SweepArgs {
   float* dg;
   void* dgs;
   int T, B, H, dirs, row_mask;
-  int nt, nrg, slices, w_smem;
+  int nt, nrg, slices, w_smem, kp;  // kp: columns of dgates a piece (sw_piece)
 };
 
 // one (unit, row) pair's inputs of a step
@@ -145,8 +159,10 @@ __device__ __forceinline__ PairIn load_pair(const SweepArgs& a, int k, int r, in
   return p;
 }
 
-// NT n8 tiles of rows a block; storage type S, acts in A
-template <int NT, typename S, typename A>
+// NT n8 tiles of rows a block; STAGED: a step's dgates in pieces of a.kp
+// columns (else in one, the unstaged build's own code); storage type S,
+// acts in A
+template <int NT, bool STAGED, typename S, typename A>
 __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
   constexpr bool REMAT_C = sizeof(S) < sizeof(A);  // tanh of c' rebuilt from acts and c_prev
   constexpr int SW_PPT = (SW_US * 8 * NT + SW_NT - 1) / SW_NT;  // (unit, row) pairs a thread
@@ -158,12 +174,12 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
   const int u0 = slice * SW_US, nu = min(SW_US, H - u0);
   const int b0 = rg * 8 * NT, nb = min(8 * NT, B - b0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, q = lane % 4;
-  const int LS = sw_stride(G);
+  const int LS = sw_stride(G), KP = STAGED ? a.kp : G, LP = sw_stride(KP);
 
   extern __shared__ __align__(16) float smem[];
   S* whs = reinterpret_cast<S*>(smem);                       // [16][LS] (w_smem)
-  float* dgs = smem + sw_wh_floats(G, a.w_smem, sizeof(S));  // [8 NT][LS]
-  float* red = dgs + 8 * NT * LS;                            // [warps][NT][16][8]
+  float* dgs = smem + sw_wh_floats(G, a.w_smem, sizeof(S));  // [8 NT][LP]: a piece of columns
+  float* red = dgs + 8 * NT * LP;                            // [warps][NT][16][8]
   const S* whd = static_cast<const S*>(a.wh) + (long)dir * H * G;
 
   // the block's rows of Wh (rows past H zero), and zero rows past B
@@ -174,9 +190,9 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
       else zero4(whs + ul * LS + c4);
     }
   }
-  for (int i = tid; i < (8 * NT - nb) * (G / 4); i += SW_NT) {
-    const int rl = nb + i / (G / 4), c4 = (i % (G / 4)) * 4;
-    *reinterpret_cast<float4*>(dgs + rl * LS + c4) = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < (8 * NT - nb) * (KP / 4); i += SW_NT) {
+    const int rl = nb + i / (KP / 4), c4 = (i % (KP / 4)) * 4;
+    *reinterpret_cast<float4*>(dgs + rl * LP + c4) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const S* wrow0 = a.w_smem ? whs + g * LS : whd + (long)(u0 + g) * G;
   const S* wrow1 = a.w_smem ? whs + (g + 8) * LS : whd + (long)(u0 + g + 8) * G;
@@ -221,73 +237,83 @@ __global__ void __launch_bounds__(SW_NT, 1) lstm_bwd_sweep_kernel(SweepArgs a) {
     if (k == 0) break;
     grid.sync();  // every block's dgates of step k are in dg
 
-    // the block's rows of dgates of step k into shared memory, and the next
-    // step's inputs, both in flight together
     const float* dgk = a.dg + ((long)k * R + dir * B + b0) * G;
-    for (int i = tid; i < nb * (G / 4); i += SW_NT) {
-      const int rl = i / (G / 4), c4 = (i % (G / 4)) * 4;
-      cp_async16(dgs + rl * LS + c4, dgk + (long)rl * G + c4);
-    }
-#pragma unroll
-    for (int i = 0; i < SW_PPT; ++i) {
-      const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
-      if (p < npairs && ul < nu && rl < nb) {
-        in[i] = load_pair<S, A>(a, k - 1, dir * B + b0 + rl, b0 + rl, u0 + ul, dir);
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    // dgates Wh^T for the block's units: [16 units x 4H] x [4H x 8 NT rows],
-    // warp w taking the 16-column chunks w, w + 8, ...; within a chunk the k
-    // index is permuted (lane q holds columns 4q .. 4q+3) so that each
-    // operand is one 16-byte load. Six accumulators (two k halves x three
-    // TF32 products) keep the mma chains short.
     float acc[NT][6][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 6; ++e) acc[j][e][0] = acc[j][e][1] = acc[j][e][2] = acc[j][e][3] = 0.0f;
-    for (int c0 = warp; c0 < G / 16; c0 += 2 * SW_NW) {
-      // two chunks a round, all their operands loaded before the first mma
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 wv[2][2], bv[2][NT];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int c = c0 + r * SW_NW;
-        const bool live = c < G / 16;
-        const int col = 16 * c + 4 * q;
-        wv[r][0] = live && ok0 ? ld4(wrow0 + col) : z;
-        wv[r][1] = live && ok1 ? ld4(wrow1 + col) : z;
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          bv[r][j] = live ? *reinterpret_cast<const float4*>(dgs + (j * 8 + g) * LS + col) : z;
+    for (int p0 = 0; p0 < G; p0 += KP) {
+      const int pw = STAGED ? min(KP, G - p0) : G;
+      if (STAGED && p0 > 0) __syncthreads();  // every warp is done with the last piece
+      // the block's rows of this piece of dgates of step k into shared memory,
+      // and (with the first piece) the next step's inputs, in flight together
+      for (int i = tid; i < nb * (pw / 4); i += SW_NT) {
+        const int rl = i / (pw / 4), c4 = (i % (pw / 4)) * 4;
+        cp_async16(dgs + rl * LP + c4, dgk + (long)rl * G + p0 + c4);
       }
+      if (!STAGED || p0 == 0) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        uint32_t ah[2][4], al[2][4];
-        const float afr[2][4] = {{wv[r][0].x, wv[r][1].x, wv[r][0].y, wv[r][1].y},
-                                 {wv[r][0].z, wv[r][1].z, wv[r][0].w, wv[r][1].w}};
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) tf32_split(afr[h2][e], ah[h2][e], al[h2][e]);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          uint32_t bh[2][2], bl[2][2];
-          const float bfr[2][2] = {{bv[r][j].x, bv[r][j].y}, {bv[r][j].z, bv[r][j].w}};
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) tf32_split(bfr[h2][e], bh[h2][e], bl[h2][e]);
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            mma_tf32(acc[j][3 * h2], al[h2], bh[h2]);
-            mma_tf32(acc[j][3 * h2 + 1], ah[h2], bl[h2]);
-            mma_tf32(acc[j][3 * h2 + 2], ah[h2], bh[h2]);
+        for (int i = 0; i < SW_PPT; ++i) {
+          const int p = tid + SW_NT * i, ul = p % SW_US, rl = p / SW_US;
+          if (p < npairs && ul < nu && rl < nb) {
+            in[i] = load_pair<S, A>(a, k - 1, dir * B + b0 + rl, b0 + rl, u0 + ul, dir);
           }
         }
       }
+      cp_async_wait_all();
+      __syncthreads();
+
+      // dgates Wh^T for the block's units: [16 units x 4H] x [4H x 8 NT
+      // rows], warp w taking the 16-column chunks w, w + 8, ...; within a
+      // chunk the k index is permuted (lane q holds columns 4q .. 4q+3) so
+      // that each operand is one 16-byte load. Six accumulators (two k
+      // halves x three TF32 products) keep the mma chains short.
+      if (!STAGED || p0 == 0) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 6; ++e) acc[j][e][0] = acc[j][e][1] = acc[j][e][2] = acc[j][e][3] = 0.0f;
+      }
+      const int cend = STAGED ? (p0 + pw) / 16 : G / 16;
+      for (int c0 = (STAGED ? p0 / 16 : 0) + warp; c0 < cend; c0 += 2 * SW_NW) {
+        // two chunks a round, all their operands loaded before the first mma
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 wv[2][2], bv[2][NT];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int c = c0 + r * SW_NW;
+          const bool live = c < cend;
+          const int col = 16 * c + 4 * q;
+          wv[r][0] = live && ok0 ? ld4(wrow0 + col) : z;
+          wv[r][1] = live && ok1 ? ld4(wrow1 + col) : z;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            bv[r][j] = live ? *reinterpret_cast<const float4*>(dgs + (j * 8 + g) * LP + col - (STAGED ? p0 : 0)) : z;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          uint32_t ah[2][4], al[2][4];
+          const float afr[2][4] = {{wv[r][0].x, wv[r][1].x, wv[r][0].y, wv[r][1].y},
+                                   {wv[r][0].z, wv[r][1].z, wv[r][0].w, wv[r][1].w}};
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tf32_split(afr[h2][e], ah[h2][e], al[h2][e]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            uint32_t bh[2][2], bl[2][2];
+            const float bfr[2][2] = {{bv[r][j].x, bv[r][j].y}, {bv[r][j].z, bv[r][j].w}};
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) tf32_split(bfr[h2][e], bh[h2][e], bl[h2][e]);
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              mma_tf32(acc[j][3 * h2], al[h2], bh[h2]);
+              mma_tf32(acc[j][3 * h2 + 1], ah[h2], bl[h2]);
+              mma_tf32(acc[j][3 * h2 + 2], ah[h2], bh[h2]);
+            }
+          }
+        }
+      }
+      if (!STAGED) break;  // one pass over all G columns
     }
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
@@ -341,17 +367,23 @@ int dwh_products(const void* ys, const float* dg, void* dwh, float* ws, int T, i
   return gemm(ga, dirs, false, false, aligned16(ys) && aligned16(dg), false, dt, false, stream);
 }
 
-template <typename S, typename A>
+template <bool STAGED, typename S, typename A>
 const void* sweep_kernel_of(int nt) {
-  return nt == 1 ? (const void*)lstm_bwd_sweep_kernel<1, S, A>
-         : nt == 2 ? (const void*)lstm_bwd_sweep_kernel<2, S, A>
-                   : (const void*)lstm_bwd_sweep_kernel<4, S, A>;
+  return nt == 1 ? (const void*)lstm_bwd_sweep_kernel<1, STAGED, S, A>
+         : nt == 2 ? (const void*)lstm_bwd_sweep_kernel<2, STAGED, S, A>
+                   : (const void*)lstm_bwd_sweep_kernel<4, STAGED, S, A>;
 }
 
-// the variant of storage type dt (0 float, 1 bf16) and acts type adt
-const void* sweep_kernel(int nt, int dt, int adt) {
-  return !dt ? sweep_kernel_of<float, float>(nt)
-         : adt ? sweep_kernel_of<bf16, bf16>(nt) : sweep_kernel_of<bf16, float>(nt);
+template <typename S, typename A>
+const void* sweep_kernel_of(int nt, bool staged) {
+  return staged ? sweep_kernel_of<true, S, A>(nt) : sweep_kernel_of<false, S, A>(nt);
+}
+
+// the variant of storage type dt (0 float, 1 bf16) and acts type adt, its
+// dgates staged in pieces or not
+const void* sweep_kernel(int nt, int dt, int adt, bool staged) {
+  return !dt ? sweep_kernel_of<float, float>(nt, staged)
+         : adt ? sweep_kernel_of<bf16, bf16>(nt, staged) : sweep_kernel_of<bf16, float>(nt, staged);
 }
 
 // the fused layer's db at bf16, two kernels: db_blocks_kernel writes, for
@@ -388,23 +420,31 @@ int sweep_plan(int T, int B, int dirs, int H, int dt, int adt, int* out) {
   if (e != cudaSuccess) return (int)e;
   out[0] = -1;
   const int slices = cdiv(H, SW_US);
-  for (int w_smem = 1; w_smem >= 0; --w_smem) {
-    for (int nt = 1; nt <= 4; nt *= 2) {
-      const int smem = sw_smem_bytes(G, nt, w_smem, elem_bytes(dt));
-      if (smem > SMEM_MAX) continue;
-      const void* kern = sweep_kernel(nt, dt, adt);
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (e != cudaSuccess) return (int)e;
-      int per_sm = 0;
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, SW_NT, smem);
-      if (e != cudaSuccess) return (int)e;
-      const int nb = dirs * slices * cdiv(B, 8 * nt);
-      if (nb <= per_sm * nsm) {
-        out[0] = nt;
-        out[1] = w_smem;
-        out[2] = smem;
-        out[3] = nb;
-        return 0;
+  // the unstaged layouts first (a step's dgates in one piece), then pieces
+  for (int staged = 0; staged <= 1; ++staged) {
+    for (int w_smem = 1; w_smem >= 0; --w_smem) {
+      for (int nt = 1; nt <= 4; nt *= 2) {
+        for (int pieces = staged ? 2 : 1; pieces <= (staged ? 16 : 1); pieces *= 2) {
+          const int kp = sw_piece(G, pieces);
+          if (staged && kp >= G) continue;
+          const int smem = sw_smem_bytes(G, nt, w_smem, elem_bytes(dt), kp);
+          if (smem > SMEM_MAX) continue;
+          const void* kern = sweep_kernel(nt, dt, adt, staged);
+          e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          if (e != cudaSuccess) return (int)e;
+          int per_sm = 0;
+          e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, SW_NT, smem);
+          if (e != cudaSuccess) return (int)e;
+          const int nb = dirs * slices * cdiv(B, 8 * nt);
+          if (nb <= per_sm * nsm) {
+            out[0] = nt;
+            out[1] = w_smem;
+            out[2] = smem;
+            out[3] = nb;
+            out[4] = kp;
+            return 0;
+          }
+        }
       }
     }
   }
@@ -419,10 +459,11 @@ extern "C" const char* e2e_error_string(int err) {
 
 // The sweep's grid: out = [n8 tiles of rows a block (-1: no grid can be
 // resident), Wh resident in shared memory (1; 0: read from L2), shared
-// memory bytes a block, blocks]. The first of (w_smem = 1, 0) x (nt = 1, 2,
-// 4) whose grid is resident at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for storage type dt (0
-// float, 1 bf16) and acts type adt.
+// memory bytes a block, blocks, columns of dgates a piece (4H: unstaged)].
+// The first of (w_smem = 1, 0) x (nt = 1, 2, 4) whose grid is resident at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for storage type dt
+// (0 float, 1 bf16) and acts type adt; where none is, the first of them
+// with the step's dgates staged in 2, 4, 8 or 16 pieces.
 extern "C" int e2e_lstm_bwd_sweep_plan(int T, int B, int dirs, int H, int dt, int adt, int* out,
                                        void* stream) {
   (void)stream;
@@ -434,25 +475,26 @@ extern "C" int e2e_lstm_bwd_sweep_plan(int T, int B, int dirs, int H, int dt, in
 // The reverse sweep over all rows (dirs * B) -> dg [T, dirs * B, 4H]. mask
 // [T, B] in original time (row_mask 0, the fused-projection layer) or
 // [T, dirs * B] in kernel time (row_mask 1), wh [dirs, H, 4H], c_out / dy
-// [T, dirs * B, H], acts [T, dirs * B, 4H]; nt, w_smem and smem from the
-// plan; wh, c_out, dy and dgs of storage type dt (0 float, 1 bf16: dgs the
-// gate gradients rounded, unwritten at float), acts of adt. One cooperative
+// [T, dirs * B, H], acts [T, dirs * B, 4H]; nt, w_smem, smem and kp (the
+// piece of dgates staged at once) from the plan; wh, c_out, dy
+// and dgs of storage type dt (0 float, 1 bf16: dgs the gate gradients
+// rounded, unwritten at float), acts of adt. One cooperative
 // launch (a grid barrier a step): it fails where the grid cannot be
 // resident.
 extern "C" int e2e_lstm_bwd_sweep(const float* mask, const void* wh, const void* c_out,
                                   const void* acts, const void* dy, float* dg, void* dgs, int T, int B,
-                                  int dirs, int H, int row_mask, int nt, int w_smem, int smem, int dt,
-                                  int adt, void* stream) {
+                                  int dirs, int H, int row_mask, int nt, int w_smem, int smem, int kp,
+                                  int dt, int adt, void* stream) {
   if (H % 8 != 0 || H > 1024 || dirs < 1 || dirs > 2 || B < 1 || T < 1 ||
       (nt != 1 && nt != 2 && nt != 4) || w_smem < 0 || w_smem > 1 || dt < 0 || dt > 1 || adt < 0 ||
-      adt > 1 || (!dt && adt) || smem != sw_smem_bytes(4 * H, nt, w_smem, elem_bytes(dt)) ||
-      smem > SMEM_MAX)
+      adt > 1 || (!dt && adt) || (kp != 4 * H && (kp < SW_ROUND || kp % SW_ROUND != 0 || kp > 4 * H)) ||
+      smem != sw_smem_bytes(4 * H, nt, w_smem, elem_bytes(dt), kp) || smem > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
-  const void* kern = sweep_kernel(nt, dt, adt);
+  const void* kern = sweep_kernel(nt, dt, adt, kp < 4 * H);
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   SweepArgs a{mask, wh, c_out, acts, dy, dg, dgs, T, B, H, dirs, row_mask,
-              nt, cdiv(B, 8 * nt), cdiv(H, SW_US), w_smem};
+              nt, cdiv(B, 8 * nt), cdiv(H, SW_US), w_smem, kp};
   void* params[] = {&a};
   const int nb = dirs * a.slices * a.nrg;
   return (int)cudaLaunchCooperativeKernel(kern, dim3(nb), dim3(SW_NT), params, (size_t)smem,

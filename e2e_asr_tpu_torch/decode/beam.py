@@ -215,7 +215,7 @@ def beam_step(spec: BeamSpec, inp: StepInputs, st: BeamState, first: bool) -> No
     tok_flat = st.prev_tok.reshape(-1)
     emb = L.embed(params["embed"], tok_flat)
     dec_state = (st.dec_h, st.dec_c)
-    query = dec_mod.query_of(dec_state)  # [B*W, H_dec]
+    query = dec_mod.query_of(dec_state, cfg.decoder)  # [B*W, H_dec]
     align_bw, ctx_bw = att_mod.step_beam(
         params["attention"], cfg.attention, query.reshape(b, w, -1), inp.mem,
         st.prev_att.reshape(b, w, n_heads, s),

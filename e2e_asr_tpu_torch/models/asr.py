@@ -11,10 +11,14 @@ Pallas decoder scan; here it is a Python loop over the steps, recorded by
 autograd, or the fused scan of ``ops/decoder_cuda.py`` (one kernel forward,
 one backward), chosen by ``decoder.fused_scan`` as ``_use_fused_scan``
 says. Both read nothing on the host, so either is captured in the train
-step's and validation's CUDA graphs. With the embedding regularizer
-(``models/plugin.py``) the params hold ``emb_reg``. Random draws (dropout, the per-step
-teacher-forcing coins, sampled feedback) come from one explicit
-``torch.Generator`` and cannot reproduce ``jax.random``'s numbers.
+step's and validation's CUDA graphs. In a captured train step the loop's
+steps are the device section ``train.speller`` (``utils/tracing.py``: a
+mark at its first step, ``train.heads`` again after its last), and every
+loop adds its steps to the host counter ``speller.loop_steps``. With the
+embedding regularizer (``models/plugin.py``) the params hold ``emb_reg``.
+Random draws (dropout, the per-step teacher-forcing coins, sampled
+feedback) come from one explicit ``torch.Generator`` and cannot reproduce
+``jax.random``'s numbers.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from e2e_asr_tpu_torch.models import plugin as plugin_mod
 from e2e_asr_tpu_torch.models.layers import Params
 from e2e_asr_tpu_torch.ops import decoder_cuda
 from e2e_asr_tpu_torch.parallel import dist
+from e2e_asr_tpu_torch.utils import tracing
 from e2e_asr_tpu_torch.utils.misc import warn_once
 
 
@@ -69,8 +74,21 @@ def encode(
     return enc_mod.encoder_apply(params["encoder"], cfg.encoder, feat, feat_len, generator, train)
 
 
+# Below float32 the CTC head's log-softmax keeps the JAX package's rounding
+# points while ln V < 4. From V = 55 on, bfloat16 holds the normaliser
+# (~ln V) on a grid of 2^-5 or coarser (2^-4 at V 5000, where it moved the
+# first step's gradient norm by up to 5%), so the log-softmax runs in
+# float32 on the compute type's logits, as the attention head's loss does
+CTC_FLOAT32_VOCAB = 55
+
+
 def ctc_log_probs(params: Params, enc: torch.Tensor) -> torch.Tensor:
-    return L.log_softmax(L.dense(params["ctc"], enc), dim=-1)
+    """The CTC head's log-probs [B, S, V]: at enc's type, or in float32 from
+    enc's type's logits where V >= ``CTC_FLOAT32_VOCAB``."""
+    logits = L.dense(params["ctc"], enc)
+    if logits.dtype != torch.float32 and logits.shape[-1] >= CTC_FLOAT32_VOCAB:
+        return torch.log_softmax(logits.float(), dim=-1)
+    return L.log_softmax(logits, dim=-1)
 
 
 class DecodeCarry(NamedTuple):
@@ -99,7 +117,7 @@ def attend_and_step(
     (attention before the RNN step), then advance the speller. Returns
     (logits, align, hidden, new_carry)."""
     emb = L.embed(params["embed"], tok, mem["k"].dtype)
-    query = dec_mod.query_of(carry.dec_state)
+    query = dec_mod.query_of(carry.dec_state, cfg.decoder)
     align, ctx = att_mod.step(params["attention"], cfg.attention, query, mem, carry.prev_att)
     logits, hidden, new_state = dec_mod.step(
         params["decoder"], cfg.decoder, carry.dec_state, torch.cat([emb, ctx], -1),
@@ -274,6 +292,8 @@ def spell(
         coins = coins.to(dev)
     mem, carry = init_carry(params, cfg, enc, enc_len)
     logits_all, aligns, hiddens = [], [], []
+    tracing.count("speller.loop_steps", decode_step)
+    tracing.mark("train.speller")
     for t in range(decode_step):
         tok = torch.where(coins[t], teacher_in[:, t], carry.prev_tok) if train and t else teacher_in[:, t]
         logits, align, hidden, carry = attend_and_step(
@@ -290,6 +310,7 @@ def spell(
         logits_all.append(logits)
         aligns.append(align)
         hiddens.append(hidden)
+    tracing.mark("train.heads")
     out["att_logits"] = torch.stack(logits_all, 1)
     out["align"] = torch.stack(aligns, 1)
     out["att_hidden"] = torch.stack(hiddens, 1)

@@ -37,9 +37,15 @@ def init_state(b: int, cfg: DecoderConfig, device: torch.device,
     return (z, z)
 
 
-def query_of(state: State) -> torch.Tensor:
-    """Attention query = top-layer hidden state [B, H]."""
-    return state[0][-1]
+def query_of(state: State, cfg: DecoderConfig) -> torch.Tensor:
+    """The attention query [B, H]: the hidden state of the layer that
+    ``cfg.query_layer`` names, ``top`` (the JAX package's) or ``first``
+    (ESPnet's)."""
+    if cfg.query_layer == "top":
+        return state[0][-1]
+    if cfg.query_layer == "first":
+        return state[0][0]
+    raise ValueError(f"decoder.query_layer must be top or first, got '{cfg.query_layer}'")
 
 
 def step(

@@ -3,7 +3,11 @@
 Counterpart of ``e2e_asr_tpu/models/encoder.py``: prenet ``vgg``, ``cnn``
 (two 3-tap 1-D convolutions of stride 2, SAME-padded as JAX pads them) or
 none; LSTM or GRU layers, with one direction or two; optional layer norm /
-tanh projection; pyramid ``drop`` or ``concat``.
+tanh projection; pyramid ``drop`` or ``concat``. Two pieces of ESPnet's RNN
+listener (``vggblstm``) that the JAX package lacks: the prenet ``vgg2l``
+(ESPnet's ``VGG2L``: one input channel over all the features, ceil-mode
+pools, lengths ceil(ceil(T / 2) / 2)) and ``out_proj``, one tanh projection
+of the stack's output to a width of its own (ESPnet's ``RNN.l_last``).
 
 Routes of a layer's recurrence (``ops/rnn.py``): a bidirectional LSTM layer
 takes the kernel pair that ``encoder.rnn_impl`` names (``bidir``); a
@@ -65,6 +69,37 @@ def vgg_apply(p: Params, x: torch.Tensor, x_len: torch.Tensor) -> Tuple[torch.Te
     b2, c2, t2, f2 = h.shape
     out = h.permute(0, 2, 1, 3).reshape(b2, t2, c2 * f2)
     return out, torch.div(x_len, 4, rounding_mode="floor")
+
+
+def _ceil_half(n):
+    """ceil(n / 2) of an int or an integer tensor."""
+    return (n + 1) // 2
+
+
+def vgg2l_init(gen: torch.Generator, feat_dim: int) -> Tuple[Params, int]:
+    p = {
+        "conv1": L.conv2d_init(gen, 3, 3, 1, 64),
+        "conv2": L.conv2d_init(gen, 3, 3, 64, 64),
+        "conv3": L.conv2d_init(gen, 3, 3, 64, 128),
+        "conv4": L.conv2d_init(gen, 3, 3, 128, 128),
+    }
+    return p, 128 * _ceil_half(_ceil_half(feat_dim))
+
+
+def vgg2l_apply(p: Params, x: torch.Tensor, x_len: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, T, D] -> [B, ceil(ceil(T/2)/2), 128 * ceil(ceil(D/2)/2)], lengths
+    ceil(ceil(len/2)/2): ESPnet's ``VGG2L`` with one input channel, the
+    conv image [B, 1, T, D], 2x2 max pools in ceil mode (a last odd row or
+    column pooled alone), the output flattened as [channel, freq] a frame."""
+    h = x[:, None]
+    h = torch.relu(L.conv2d(p["conv1"], h))
+    h = torch.relu(L.conv2d(p["conv2"], h))
+    h = L.maxpool2d(h, ceil=True)
+    h = torch.relu(L.conv2d(p["conv3"], h))
+    h = torch.relu(L.conv2d(p["conv4"], h))
+    h = L.maxpool2d(h, ceil=True)
+    b2, c2, t2, f2 = h.shape
+    return h.permute(0, 2, 1, 3).reshape(b2, t2, c2 * f2), _ceil_half(_ceil_half(x_len))
 
 
 # ---------------------------------------------------------------- CNN prenet
@@ -138,6 +173,8 @@ def encoder_init(gen: torch.Generator, feat_dim: int, cfg: EncoderConfig) -> Tup
     dim = feat_dim
     if cfg.prenet == "vgg":
         p["prenet"], dim = vgg_init(gen, feat_dim)
+    elif cfg.prenet == "vgg2l":
+        p["prenet"], dim = vgg2l_init(gen, feat_dim)
     elif cfg.prenet == "cnn":
         p["prenet"], dim = cnn_init(gen, feat_dim, cfg.dim[0])
     elif cfg.prenet not in ("", None):
@@ -149,6 +186,9 @@ def encoder_init(gen: torch.Generator, feat_dim: int, cfg: EncoderConfig) -> Tup
             cfg.module, cfg.bidirection,
         )
         p["layers"].append(lp)
+    if cfg.out_proj:
+        p["out_proj"] = L.dense_init(gen, dim, cfg.out_proj)
+        dim = cfg.out_proj
     return p, dim
 
 
@@ -158,10 +198,12 @@ def encoder_apply(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, T, D] -> (enc [B, S, H], enc_len [B]). Dropout (after each
     layer's layer norm, before its projection) only with ``train`` and a
-    generator."""
+    generator; ``out_proj`` after the last layer."""
     x, x_len = feat, feat_len
     if cfg.prenet == "vgg":
         x, x_len = vgg_apply(p["prenet"], x, x_len)
+    elif cfg.prenet == "vgg2l":
+        x, x_len = vgg2l_apply(p["prenet"], x, x_len)
     elif cfg.prenet == "cnn":
         x, x_len = cnn_apply(p["prenet"], x, x_len)
     for i, lp in enumerate(p["layers"]):
@@ -169,11 +211,14 @@ def encoder_apply(
             lp, x, x_len, cfg.sample_rate[i], cfg.sample_style, cfg.dropout[i], generator, train,
             impl=cfg.rnn_impl, module=cfg.module,
         )
+    if "out_proj" in p:
+        x = torch.tanh(L.dense(p["out_proj"], x))
+        x = torch.where((torch.arange(x.shape[1], device=x.device)[None, :] < x_len[:, None])[..., None], x, 0.0)
     return x, torch.clamp(x_len, min=1)
 
 
 def total_downsample(cfg: EncoderConfig) -> int:
-    ds = 4 if cfg.prenet in ("vgg", "cnn") else 1
+    ds = 4 if cfg.prenet in ("vgg", "vgg2l", "cnn") else 1
     for s in cfg.sample_rate:
         ds *= s
     return ds

@@ -138,9 +138,10 @@ def conv1d(p: Params, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
     return (F.conv1d(h, p["w"].to(x.dtype), None, stride=stride) + p["b"].to(x.dtype)[:, None]).transpose(1, 2)
 
 
-def maxpool2d(x: torch.Tensor) -> torch.Tensor:
-    """[B, C, H, W] floor-mode 2x2 max pool: an odd H or W drops its last row."""
-    return F.max_pool2d(x, kernel_size=2, stride=2)
+def maxpool2d(x: torch.Tensor, ceil: bool = False) -> torch.Tensor:
+    """[B, C, H, W] 2x2 max pool: in floor mode an odd H or W drops its last
+    row; in ceil mode (``ceil``) it is pooled alone."""
+    return F.max_pool2d(x, kernel_size=2, stride=2, ceil_mode=ceil)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool) -> torch.Tensor:

@@ -325,15 +325,16 @@ _sweep_grids: dict = {}
 
 def sweep_grid(t: int, b: int, dirs: int, h_dim: int, dev: torch.device,
                dtype: torch.dtype = torch.float32,
-               acts_dtype: torch.dtype = torch.float32) -> Tuple[int, int, int, int]:
+               acts_dtype: torch.dtype = torch.float32) -> Tuple[int, int, int, int, int]:
     """(n8 tiles of rows a block, Wh resident in shared memory (1; 0: read
-    from L2), shared memory bytes a block, blocks) of the backward sweep's
+    from L2), shared memory bytes a block, blocks, columns of a step's dgates
+    staged at once (4H: all, unstaged)) of the backward sweep's
     cooperative grid for storage type ``dtype`` (Wh held in it), from the
     kernel's own plan (csrc ``e2e_lstm_bwd_sweep_plan``: the first that is
     resident at once). Raises where no grid can be resident. Card only."""
     key = (t, b, dirs, h_dim, str(dev), dtype, acts_dtype)
     if key not in _sweep_grids:
-        out = torch.zeros(4, dtype=torch.int32)
+        out = torch.zeros(5, dtype=torch.int32)
         cuda_build.launch("lstm_bidir_bwd", "e2e_lstm_bwd_sweep_plan", t, b, dirs, h_dim,
                           dtype_code(dtype, "sweep_grid"), dtype_code(acts_dtype, "sweep_grid"), out)
         plan = tuple(out.tolist())
@@ -348,9 +349,9 @@ def _sweep(mask, wh, c, acts, dy, dg, dgs, t, b, dirs, h_dim, row_mask):
     """The reverse sweep kernel: the gate gradients dg [T, dirs B, 4H]
     (float32) from the residuals, and at bfloat16 also dgs, the same rounded
     to bfloat16 (at float32 dgs is dg: unwritten)."""
-    nt, w_smem, smem, _ = sweep_grid(t, b, dirs, h_dim, dg.device, c.dtype, acts.dtype)
+    nt, w_smem, smem, _, piece = sweep_grid(t, b, dirs, h_dim, dg.device, c.dtype, acts.dtype)
     cuda_build.launch("lstm_bidir_bwd", "e2e_lstm_bwd_sweep", mask, wh, c, acts, dy, dg, dgs, t, b, dirs,
-                      h_dim, row_mask, nt, w_smem, smem, dtype_code(c.dtype, "lstm backward sweep"),
+                      h_dim, row_mask, nt, w_smem, smem, piece, dtype_code(c.dtype, "lstm backward sweep"),
                       dtype_code(acts.dtype, "lstm backward sweep"))
 
 

@@ -25,7 +25,8 @@ Device stage marks (``utils/tracing.py``): a captured train step holds a
 mark before each stage (``train.features``, ``.encoder``, ``.heads``,
 ``.backward``, ``.reduce`` with a ``reduce``, ``.optimizer``) and one at
 its end, so that each replay adds the stages' device times and the gap to
-the next step (``train.between_steps``). They launch only while
+the next step (``train.between_steps``); where the speller takes the Python
+loop, its steps are ``train.speller`` inside ``.heads`` (``models/asr.py``). They launch only while
 ``TrainGraphs`` captures; an eager step, a validation and an LM step
 launch none.
 
@@ -43,7 +44,9 @@ and SpecAugment are computed in float32 and then cast to it; every layer
 casts its float32 parameters to its input's type, so at ``bfloat16`` the
 whole forward and backward are stored in bfloat16 (the kernels' own
 rounding points are those of the JAX package's Pallas kernels); both
-heads' outputs go back to float32 for the losses. Parameters, gradients,
+heads' outputs go back to float32 for the losses (the attention head's
+logits; the CTC head's log-probs, or its logits from
+``models/asr.py`` ``CTC_FLOAT32_VOCAB`` classes on). Parameters, gradients,
 their norm and the optimizer state stay float32. Evaluation runs the same
 ``compute_loss`` (``eval_device``: with the greedy decode, one program on
 the card, ``training/eval_graph.py``). Random draws (dither, SpecAugment,

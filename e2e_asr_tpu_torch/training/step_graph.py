@@ -45,7 +45,8 @@ The kernel wrappers count launches where Python calls them, so a capture
 would count once and the replays not at all: the capture's deltas are taken
 back and added again on every replay, and a replayed step counts what an
 eager one counts. So are the host counters of the tracer that the wrappers
-add to (``TRACED``: the speller scan's ``scan.bucket_steps``); a device
+add to (``TRACED``: the speller scan's ``scan.bucket_steps``, the speller
+loop's ``speller.loop_steps``); a device
 counter (its ``scan.steps_run``) is added to by the replayed kernels
 themselves.
 
@@ -92,7 +93,8 @@ COUNTED = (frontend_cuda.log_mel, ctc_cuda.ctc_lattice, decoder_cuda.decoder_sca
            rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_bwd, rnn_cuda.lstm_bidir_fwd, rnn_cuda.lstm_bidir_fwd_train,
            rnn_cuda.lstm_bidir_bwd)
 COUNTERS = ("launches", "launches_bf16")  # a wrapper's float32 and bf16 counters (cuda_build.count_launch)
-TRACED = ("scan.bucket_steps",)  # the tracer's host counters that those wrappers add to
+# the tracer's host counters that those wrappers and the speller's loop add to
+TRACED = ("scan.bucket_steps", "speller.loop_steps")
 STATIC = ("wav", "wav_off", "wav_len", "text", "text_len")  # the batch's tensors a step reads
 
 

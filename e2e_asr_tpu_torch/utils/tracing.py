@@ -69,6 +69,7 @@ SECTIONS = (
     "train.features", "train.encoder", "train.heads", "train.backward", "train.reduce", "train.optimizer",
     "train.between_steps",
     "beam.speller", "beam.lm", "beam.search", "beam.between_steps", "beam.between_batches",
+    "train.speller",
 )
 BANKS = ("untraced", "traced")
 _END = -2  # a step's end mark: the next mark names the gap (csrc/trace_mark.cu)

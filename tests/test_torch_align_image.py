@@ -56,7 +56,8 @@ def test_validate_writes_the_first_valid_utterance_alignment(tmp_path):
     from e2e_asr_tpu_torch.bin.train_asr import DEV_STEP_RATIO
 
     d = solver.config.to_dict()
-    d["model"]["encoder"].pop("rnn_impl")  # the port's key alone
+    for section, key in (("encoder", "rnn_impl"), ("encoder", "out_proj"), ("decoder", "query_layer")):
+        d["model"][section].pop(key)  # the port's keys alone
     jc = JConfig.from_dict(d)
     jp, _ = jasr.asr_init(jax.random.PRNGKey(3), solver.feat_dim, solver.vocab_size, jc.model)
     solver.state = solver.trainer.init_state(convert.params_from_jax(jax.device_get(jp)))

@@ -569,8 +569,9 @@ def test_lstm_bwd_sweep_grid_raises_when_not_resident(gen):
     launching a grid that would hang."""
     with pytest.raises(ValueError, match="no resident grid"):
         rnn_cuda.sweep_grid(10, 4096, 2, 1024, torch.device("cuda", torch.cuda.current_device()))
-    nt, w_smem, smem, blocks = rnn_cuda.sweep_grid(204, 16, 2, 320, torch.device("cuda", torch.cuda.current_device()))
-    assert (nt, w_smem) == (1, 1) and blocks == 80
+    nt, w_smem, smem, blocks, piece = rnn_cuda.sweep_grid(204, 16, 2, 320,
+                                                          torch.device("cuda", torch.cuda.current_device()))
+    assert (nt, w_smem) == (1, 1) and blocks == 80 and piece == 4 * 320
 
 
 def _dev():
@@ -690,6 +691,50 @@ def test_lstm_seq_bwd_wide_h(gen, h, resident):
     for g, w in zip(rnn_cuda.lstm_seq_bwd(mask, wh, ys, c, acts, dy),
                     rnn_cuda.lstm_seq_bwd_plain(mask, wh, ys, c, acts, dy)):
         _close_scaled(g, w, 1e-4)
+
+
+def _lstm_seq_bwd_args(gen, dirs, b, t, h):
+    lens = torch.randint(1, t + 1, (dirs * b,), generator=gen, device="cuda")
+    lens[0] = t
+    mask = (torch.arange(t, device="cuda")[:, None] < lens[None, :]).float()
+    xw = torch.randn((t, dirs * b, 4 * h), generator=gen, device="cuda")
+    wh = (torch.rand((dirs, h, 4 * h), generator=gen, device="cuda") * 2 - 1) / math.sqrt(h)
+    ys, c, acts = rnn_cuda.lstm_seq_fwd_plain(xw, mask, wh)
+    return mask, wh, ys, c, acts, torch.randn(ys.shape, generator=gen, device="cuda")
+
+
+@pytest.mark.parametrize("b", [10, 20])
+def test_lstm_seq_bwd_stages_the_dgates_at_h1024(gen, b):
+    """At H = 1024 with B 10 or 20 a direction (the ESPnet recipe's BLSTM
+    layers) no grid holding a step's dgates of a block's rows whole is
+    resident: the plan stages them in pieces (a piece of whole product
+    rounds of 256 columns, a smaller shared memory than the unstaged
+    layout's), and the backward agrees with the plain reverse sweep."""
+    dirs, t, h = 2, 9, 1024
+    nt, w_smem, smem, blocks, piece = rnn_cuda.sweep_grid(t, b, dirs, h, _dev())
+    whole = 4 * ((16 * (4 * h + 16) if w_smem else 0) + 8 * nt * (4 * h + 16) + 8 * nt * 16 * 8)
+    assert smem < whole and piece < 4 * h and piece % 256 == 0
+    args = _lstm_seq_bwd_args(gen, dirs, b, t, h)
+    for g, w in zip(rnn_cuda.lstm_seq_bwd(*args), rnn_cuda.lstm_seq_bwd_plain(*args)):
+        _close_scaled(g, w, 1e-4)
+
+
+def test_lstm_seq_bwd_in_pieces_is_bitwise_the_unstaged_sweep(gen, monkeypatch):
+    """Staging a step's dgates in two pieces (a plan naming a piece of 2H
+    columns, with its shared memory) leaves every warp's sum in its order:
+    the outputs are the unstaged sweep's bits (H = 512, B = 16, float32)."""
+    dirs, b, t, h = 2, 16, 13, 512
+    args = _lstm_seq_bwd_args(gen, dirs, b, t, h)
+    nt, w_smem, smem, blocks, piece = rnn_cuda.sweep_grid(t, b, dirs, h, _dev())
+    assert piece == 4 * h
+    whole = rnn_cuda.lstm_seq_bwd(*args)
+    wh_floats = 16 * (4 * h + 16) if w_smem else 0
+    staged = 4 * (wh_floats + 8 * nt * (2 * h + 16) + 8 * nt * 16 * 8)  # pieces of 2H columns
+    assert staged < smem
+    key = next(k for k in rnn_cuda._sweep_grids if k[:4] == (t, b, dirs, h))
+    monkeypatch.setitem(rnn_cuda._sweep_grids, key, (nt, w_smem, staged, blocks, 2 * h))
+    for g, w in zip(rnn_cuda.lstm_seq_bwd(*args), whole):
+        assert torch.equal(g, w)
 
 
 # ------------------------------------------------------- fused speller scan
@@ -2207,6 +2252,24 @@ def test_recipe_960h_att_step_kernel(gen, s, lens):
     before = asc.att_step_beam_loc.launches
     got, want = asc.att_step_beam_loc(*args), asc.att_step_beam_loc_plain(*args)
     assert asc.att_step_beam_loc.launches == before + -(-16 // p["group"])
+    _close(got[0], want[0], rtol=1e-4, atol=1e-6)
+    _close(got[1], want[1], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,lens", [(16, 104, [104, 1, 80] + [104 - 3 * i for i in range(13)]),
+                                      (16, 764, [764, 400, 1] + [764 - 50 * i for i in range(13)]),
+                                      (1, 764, [764])])
+def test_espnet_att_step_kernel(gen, b, s, lens):
+    """The beam attention step at the ESPnet recipe's widths (beam 16, Dk =
+    E = 1024, 10 x 201 taps): a k tile of 48 frames x Dk beside 16 rows of q
+    does not fit, so the layout takes fewer frames a tile, and the kernel
+    holds against its plain version (the flagship's tolerances)."""
+    args = _att_args(gen, b, 16, s, 1024, 1024, lens, kk=10, p=201)
+    p = asc.plan(b, 16, s, 1024, 1024, 10, 201)
+    assert p["blocks"] >= 1 and p["group"] >= 1
+    before = asc.att_step_beam_loc.launches
+    got, want = asc.att_step_beam_loc(*args), asc.att_step_beam_loc_plain(*args)
+    assert asc.att_step_beam_loc.launches == before + -(-b // p["group"])
     _close(got[0], want[0], rtol=1e-4, atol=1e-6)
     _close(got[1], want[1], rtol=1e-4, atol=1e-5)
 
