@@ -1419,9 +1419,14 @@ def scan_kernel_checks(dev, cfg, vocab):
     args = scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, vocab, l, lens)
     grid = {w: dc.scan_grid(w, b, s, dk, e_dim, kk, p, h, vocab) for w in ("fwd", "bwd")}
     resident = {cl: dc.resident_clusters("fwd", cl) for cl in dc.CLUSTER_SIZES}
+    resident_bwd = {cl: dc.resident_clusters("bwd", cl) for cl in dc.BWD_CLUSTER_SIZES}
+    gb, sms = grid["bwd"], torch.cuda.get_device_properties(dev).multi_processor_count
     print(f"fused scan grid: resident clusters by cluster size (cudaOccupancyMaxActiveClusters at "
-          f"{dc.SMEM_MAX} B a block) {resident}; grid used: forward {grid['fwd']}; backward "
-          f"{grid['bwd']}", flush=True)
+          f"{dc.SMEM_MAX} B a block) forward {resident}, backward {resident_bwd}; grid used: forward "
+          f"{grid['fwd']}; backward {gb}", flush=True)
+    print(f"fused scan backward plan: {gb['clusters']} clusters of {gb['cluster_size']}, {gb['slots']} "
+          f"slot(s), at most {gb['frames']} frames a block, {gb['frame_blocks']} of the card's {sms} SMs "
+          f"holding frames; resident: " + ", ".join(r for r in dc.BWD_RESIDENTS if gb[r]), flush=True)
     err, err_b, bargs, cots = _scan_parity(gen, dev, args, vocab, temp, "flagship shapes")
     seed = NOISE_SEED
     out = {}
@@ -1455,7 +1460,8 @@ def scan_kernel_checks(dev, cfg, vocab):
         print_scan_phases(split)
         for w in ("fwd", "bwd"):
             out[f"decoder_scan_{w}"]["phases_us"] = split[w]
-            out[f"decoder_scan_{w}"]["grid"] = {**grid[w], "resident_clusters_by_size": resident}
+            out[f"decoder_scan_{w}"]["grid"] = {**grid[w], "resident_clusters_by_size":
+                                                resident if w == "fwd" else resident_bwd}
 
         # the longest flagship bucket: S = 764 (3056 / 4), short L
         print("[kernel] decoder_scan_fwd / decoder_scan_bwd at S=764", flush=True)

@@ -108,7 +108,11 @@ scan kernel into its phases: the kernels' timing build (``-DSCAN_PHASES``,
 built beside the normal libraries) runs at the flagship training shapes
 (B=16, S=204, Dk=300, E=640, K=10, P=201, H=Emb=320, V=26, L=200, ragged
 lengths: the inputs of ``chip_smoke.py``'s scan checks) and the mean us per
-phase per step of each kernel is printed (``profile_scan_phases.json``).
+phase per step of each kernel is printed with each kernel's grid
+(``profile_scan_phases.json``). ``--scan-shapes flagship:8:408,asr960h:16:764``
+splits them at those recipes' widths and (B, S) instead, L = 160, in
+``--dtype`` (default bf16, the recipes'); ``--cluster-sizes`` forces the
+grids' cluster size.
 """
 
 from __future__ import annotations
@@ -440,10 +444,14 @@ PH_STEPS, PH_SLOTS = 512, 16  # csrc: steps recorded, marks per step
 FWD_PHASES = ("q pull and token", "conv", "energies", "softmax", "context partial",
               "cluster barrier 1", "combine", "grid barrier 1", "gate product", "cell update",
               "grid barrier 2", "logits, argmax and q slice", "cluster barrier 2")
-BWD_PHASES = ("gate stage", "grid barrier 1", "row stage", "grid barrier 2",
+# (the backward's carry and gate stage run side by side: the first phase holds both, the second is empty)
+BWD_PHASES = ("carry (transposed conv)", "gate stage", "grid barrier 1", "row stage", "grid barrier 2",
               "loads and the softmax term", "conv", "energies",
-              "reductions over frames", "dfpre", "cluster barrier", "pulls and transposed conv",
+              "reductions over frames", "dfpre", "cluster barrier", "dq parts",
               "grid barrier 3")
+# --scan-shapes: the widths (Dk, E, K, P, H, Emb, V) of the recipes whose training shapes it takes
+SCAN_WIDTHS = {"flagship": (300, 640, 10, 201, 320, 320, 26), "asr960h": (300, 1024, 10, 201, 512, 512, 26)}
+SCAN_SHAPE_STEPS = 160  # L of a --scan-shapes split
 
 
 def scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens):
@@ -478,6 +486,24 @@ def flagship_scan_inputs(dev, seed: int = 2):
     lens[0] = s
     args = scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, m.decoder.dim, m.decoder.dim, vocab, l, lens)
     return args, float(ac.temperature)
+
+
+def shape_scan_inputs(dev, widths: str, b: int, s: int, dtype: torch.dtype, seed: int = 2):
+    """The fused scan's inputs at recipe ``widths``' (``SCAN_WIDTHS``) with
+    B = b, S = s (ragged lengths in [S/2, S], one of S),
+    L = SCAN_SHAPE_STEPS teacher ids, in storage type ``dtype``, and the
+    cotangents of (logits, align, hidden) for the backward."""
+    dk, e_dim, kk, p, h, emb, v = SCAN_WIDTHS[widths]
+    l = SCAN_SHAPE_STEPS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device=dev)
+    lens[0] = s
+    args = scan_inputs(gen, dev, b, s, dk, e_dim, kk, p, h, emb, v, l, lens)
+    args = tuple(a.to(dtype) if a.dtype == torch.float32 else a for a in args)
+    cots = [(torch.randn(shape, generator=gen, device=dev) / math.sqrt(shape[-1])).to(dtype)
+            for shape in ((l, b, v), (l, b, s), (l, b, h))]
+    return args, cots
 
 
 def scan_shape(args):
@@ -1287,6 +1313,9 @@ def main(argv=None):
     ap.add_argument("--cluster-sizes", default="",
                     help="with --scan-phases: comma-separated cluster sizes to split the kernels at "
                          "(default: the size the grid picks)")
+    ap.add_argument("--scan-shapes", default="",
+                    help="with --scan-phases: comma-separated WIDTHS:B:S (WIDTHS flagship or asr960h) to split "
+                         "the kernels at in the --dtype (default: the flagship training shapes, float32)")
     ap.add_argument("--lm-weight", type=float, default=0.0,
                     help="decode: fuse a seed-0 LM of configs/libri/lm_example.yaml's width at this weight")
     ap.add_argument("--eager", action="store_true",
@@ -1328,9 +1357,11 @@ def main(argv=None):
         ap.error("--validate and --lm stand alone (with --parent, and --dtype for --validate)")
     if args.scan_phases and not args.train:
         ap.error("--scan-phases needs --train")
+    if args.scan_shapes and not args.scan_phases:
+        ap.error("--scan-shapes is an option of --scan-phases")
     if args.dtype != "recipe" and (not (args.train or args.validate or args.ddp or args.stages)
-                                   or args.scan_phases):
-        ap.error("--dtype is an option of the training and validation profiles")
+                                   or (args.scan_phases and not args.scan_shapes)):
+        ap.error("--dtype is an option of the training and validation profiles (and of --scan-shapes)")
     if args.lm_weight and (args.train or args.decode_phases):
         ap.error("--lm-weight is an option of the decode profile")
     if (args.eager or args.parent) and (args.scan_phases or args.decode_phases):
@@ -1412,18 +1443,27 @@ def main(argv=None):
 
         cuda_build.build_all(PHASE_VARIANTS)  # every library, the timing build too, in parallel
         dev = resolve_device("cuda")
-        scan_args, temp = flagship_scan_inputs(dev)
-        use = torch.ones(scan_args[-1].shape[0], dtype=torch.bool)
+        if args.scan_shapes:
+            dtype = getattr(torch, "bfloat16" if args.dtype == "recipe" else args.dtype)
+            cases = [(f"{w} B {b} S {s} {dtype}", *shape_scan_inputs(dev, w, int(b), int(s), dtype), 1.0)
+                     for w, b, s in (x.split(":") for x in args.scan_shapes.split(","))]
+        else:
+            scan_args, temp = flagship_scan_inputs(dev)
+            cases = [("flagship training shapes", scan_args, None, temp)]
         splits = {}
-        for cl in [int(c) for c in args.cluster_sizes.split(",") if c] or [None]:
-            split = scan_phase_split(scan_args, use, temp, cluster_size=cl)
-            grids = {w: dc.scan_grid(w, *scan_shape(scan_args), cluster_size=cl) for w in ("fwd", "bwd")}
-            print(f"{card}: fused scan phase split, flagship training shapes; grid {grids}")
-            print_scan_phases(split)
-            splits[str(grids["fwd"]["cluster_size"])] = {**split, "grid": grids}
+        for name, scan_args, cots, temp in cases:
+            use = torch.ones(scan_args[-1].shape[0], dtype=torch.bool)
+            for cl in [int(c) for c in args.cluster_sizes.split(",") if c] or [None]:
+                split = scan_phase_split(scan_args, use, temp, cots, cluster_size=cl)
+                dt = scan_args[0].dtype
+                grids = {w: dc.scan_grid(w, *scan_shape(scan_args), cluster_size=cl, dtype=dt)
+                         for w in ("fwd", "bwd")}
+                print(f"{card}: fused scan phase split, {name}; grid {grids}")
+                print_scan_phases(split)
+                splits[f"{name}, cluster size {cl or 'picked'}"] = {**split, "grid": grids}
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         with open(out, "w") as f:
-            json.dump({"card": card, "by_cluster_size": splits}, f, indent=1)
+            json.dump({"card": card, "splits": splits}, f, indent=1)
         return
     dtype = "" if args.dtype == "recipe" else args.dtype
     run, audio_s = _run_fn(args.train, args.rnn_impl, args.lm_weight, args.eager, dtype)

@@ -89,12 +89,17 @@ The kernels take H a multiple of 8 up to 512, Dk up to 512, any L, V, E,
 Emb, K, odd P and S up to what their per-frame buffers leave of a block's
 shared memory (``scan_grid`` raises past it: about 6,000 frames at the
 flagship widths). Each runs as a persistent grid of G co-resident clusters
-of CL blocks (a cooperative launch; ``scan_grid`` picks CL from 4 to 8 and G
-from cudaOccupancyMaxActiveClusters, e.g. 17 clusters of 6 on a 132-SM H100
-for B = 16): the cell's weights are split by hidden unit over all G CL
-blocks and held in shared memory for the whole launch, and each cluster
-walks ceil(B / G) utterances for the attention part. What else fits in a
-block's shared memory the kernels' own layout decides (``plan``).
+of CL blocks (a cooperative launch, G from cudaOccupancyMaxActiveClusters):
+the cell's weights are split by hidden unit over all G CL blocks and held
+in shared memory for the whole launch. The two kernels take their grids
+from plans of their own. The forward's (``scan_grid``, ``pick_cluster_size``)
+takes CL from 4 to 8, e.g. 17 clusters of 6 on a 132-SM H100 for B = 16,
+and each cluster walks ceil(B / G) utterances for the attention part. The
+backward's (``bwd_grid``, ``pick_bwd_cluster_size``) takes CL from 1 to 8
+and deals the utterances' frames over every resident block where B < G
+(``bwd_deal``): at B = 8 or 16 and S 408 or 764 on that card, 66
+clusters of 2, 16 or 8 blocks an utterance. What else fits in a block's shared memory the
+kernels' own layout decides (``plan``).
 """
 
 from __future__ import annotations
@@ -111,14 +116,16 @@ from e2e_asr_tpu_torch.parallel import dist
 from e2e_asr_tpu_torch.utils import tracing
 
 CL = 8  # blocks per cluster, at most (the portable cluster size)
-CLUSTER_SIZES = (8, 7, 6, 5, 4)  # the sizes scan_grid weighs
+CLUSTER_SIZES = (8, 7, 6, 5, 4)  # the sizes the forward's grid weighs
+BWD_CLUSTER_SIZES = (8, 7, 6, 5, 4, 3, 2, 1)  # the sizes the backward's grid weighs
 SLOT_COST = 10  # an utterance slot's fixed cost, in frames a block, for that choice
+PART_COST = 0.05  # a part of dq that every block of the backward sums each step, in frames a block
 MAX_H = 512
 MAX_DK = 512
 SMEM_MAX = 227 * 1024  # shared memory a block may use on the H100
 # the residents' flags of the kernels' plans (csrc e2e_decoder_scan_fwd_plan / _bwd_plan out[1:])
 FWD_RESIDENTS = ("w_smem", "v_smem", "wq_smem", "wo_smem", "k_smem")
-BWD_RESIDENTS = ("es_smem", "dfa_smem", "wr_smem", "dk_smem", "k_smem", "v_smem")
+BWD_RESIDENTS = ("es_smem", "wr_smem", "dk_smem", "k_smem", "v_smem")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -143,7 +150,7 @@ def plan(which: str, g: int, cl: int, b: int, s: int, dk: int, e_dim: int, kk: i
         raise ValueError(f"decoder_scan_{which}: S = {s} leaves a block's working buffers above "
                          f"{SMEM_MAX} bytes of shared memory")
     names = FWD_RESIDENTS if which == "fwd" else BWD_RESIDENTS
-    return o[0], dict(zip(names, o[1:])), (o[7] if which == "bwd" else 0)
+    return o[0], dict(zip(names, o[1:])), (o[6] if which == "bwd" else 0)
 
 
 def _library(which: str) -> str:
@@ -185,6 +192,84 @@ def pick_cluster_size(b: int, s: int, resident) -> int:
     return min(CLUSTER_SIZES, key=lambda cl: (cost(cl), -cl))
 
 
+def bwd_frames(b: int, s: int, g: int, cl: int) -> int:
+    """Frames a block of the backward holds at most (csrc ``frames_bound``):
+    where B < G every utterance gets at least G // B clusters, else one a
+    slot."""
+    return _cdiv(s, max(1, g // b) * cl)
+
+
+def pick_bwd_cluster_size(b: int, s: int, resident) -> int:
+    """The backward's cluster size for B utterances of S frames, given
+    ``resident(cl)`` = the clusters of that size that fit: the least slots x
+    (frames a block + SLOT_COST) + PART_COST x the parts of dq every block
+    sums (one a cluster where B < G, else one an utterance), larger clusters
+    first on a tie. On a 132-SM H100 (132, 66, 39, 30, 22, 17, 15, 15
+    clusters of 1 to 8) that is 2 at the training cells' long buckets: 26
+    frames a block at (8, 408) and 96 at (16, 764) against 51 and 128 on
+    one cluster an utterance."""
+    def cost(cl):
+        g = resident(cl)
+        if g < 1:
+            return float("inf")
+        return _cdiv(b, g) * (bwd_frames(b, s, g, cl) + SLOT_COST) + PART_COST * max(b, g)
+    return min(BWD_CLUSTER_SIZES, key=lambda cl: (cost(cl), -cl))
+
+
+def _split(n: int, nb: int, j: int) -> Tuple[int, int]:
+    """(first, count) of the items of block j when n items are split over nb
+    blocks, the first n % nb blocks one more (csrc ``split_range``)."""
+    base, rem = divmod(n, nb)
+    return j * base + min(j, rem), base + (1 if j < rem else 0)
+
+
+def bwd_deal(lens, g: int, cl: int):
+    """The backward kernel's deal of utterances of lengths ``lens`` (in [0,
+    S]) over g clusters of cl blocks, as the kernel makes it on the card
+    (csrc ``deal``; utterances ranked by length, longest first, ties by
+    index): a list over the g cl blocks (cluster j // cl, rank j % cl) of a
+    list over the slots of (utterance, first frame, frames), or None.
+
+    B >= G: ceil(B / G) slots; slot i of cluster c takes rank i G + c (i
+    even) or i G + G-1-c (i odd). B < G: one slot; the ranks in order take
+    consecutive clusters, each max(1, ceil(len / (M cl))) for the least M
+    at which all fit in g, the clusters left over one each from rank 0 on.
+    An utterance's frames are split evenly over its blocks."""
+    b = len(lens)
+    ns = _cdiv(b, g)
+    order = sorted(range(b), key=lambda u: (-lens[u], u))
+    pu, pp, parts = [-1] * (g * ns), [0] * (g * ns), [0] * b
+    if b >= g:
+        for r, u in enumerate(order):
+            i, pos = divmod(r, g)
+            x = (g - 1 - pos if i & 1 else pos) * ns + i
+            pu[x], parts[u] = u, 1
+    else:
+        def need(m):
+            return [max(1, _cdiv(lens[u], m * cl)) for u in order]
+        lo, hi = 1, max(1, _cdiv(max(lens), cl))
+        while lo < hi:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if sum(need(mid)) <= g else (mid + 1, hi)
+        base = need(lo)
+        left = g - sum(base)
+        c = 0
+        for r, u in enumerate(order):
+            parts[u] = base[r] + left // b + (1 if r < left % b else 0)
+            for q in range(parts[u]):
+                pu[c + q], pp[c + q] = u, q
+            c += parts[u]
+    blocks = []
+    for j in range(g * cl):
+        c, rank = divmod(j, cl)
+        row = []
+        for i in range(ns):
+            u = pu[c * ns + i]
+            row.append(None if u < 0 else (u,) + _split(lens[u], parts[u] * cl, pp[c * ns + i] * cl + rank))
+        blocks.append(row)
+    return blocks
+
+
 _grids = {}
 
 
@@ -195,7 +280,9 @@ def scan_grid(which: str, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, 
     ``pick_cluster_size``), the shared memory a block, the residents and the
     global scratch a block (``cluster_size`` overrides the pick). Raises
     when the planned grid cannot be resident: a cooperative grid that does
-    not fit would not run."""
+    not fit would not run. The backward's grid is ``bwd_grid``'s."""
+    if which == "bwd":
+        return bwd_grid(b, s, dk, e_dim, kk, p, h_dim, vocab, cluster_size, dtype)
     _library(which)
     key = (which, b, s, dk, e_dim, kk, p, h_dim, vocab, cluster_size, dtype, torch.cuda.current_device())
     if key in _grids:
@@ -223,6 +310,45 @@ def scan_grid(which: str, b: int, s: int, dk: int, e_dim: int, kk: int, p: int, 
                            "block cannot be resident at once")
     _grids[key] = dict(clusters=g, cluster_size=cl, blocks=g * cl, slots=_cdiv(b, g), smem=smem,
                        scratch=scratch, **flags)
+    return dict(_grids[key])
+
+
+def bwd_grid(b: int, s: int, dk: int, e_dim: int, kk: int, p: int, h_dim: int, vocab: int,
+             cluster_size: Optional[int] = None, dtype: torch.dtype = torch.float32):
+    """The grid a launch of the backward kernel (its ``dtype`` variant) uses
+    at these shapes: G clusters of CL blocks (all that can be resident, CL
+    from ``pick_bwd_cluster_size`` among the sizes whose plan fits;
+    ``cluster_size`` overrides it), the slots, the frames a block at most,
+    the blocks the deal gives frames at full length (``frame_blocks``), the
+    shared memory a block, the residents and the global scratch a block.
+    Raises when the planned grid cannot be resident."""
+    _library("bwd")
+    key = ("bwd", b, s, dk, e_dim, kk, p, h_dim, cluster_size, dtype, torch.cuda.current_device())
+    if key in _grids:
+        return dict(_grids[key])
+    shapes = (b, s, dk, e_dim, kk, p, h_dim, vocab, dtype)
+
+    def resident(cl):  # the clusters of cl blocks, 0 where its plan does not fit
+        g = resident_clusters("bwd", cl, dtype=dtype)
+        if g < 1:
+            return 0
+        try:
+            plan("bwd", g, cl, *shapes)
+        except ValueError:
+            return 0
+        return g
+
+    cl = cluster_size or pick_bwd_cluster_size(b, s, resident)
+    g = resident(cl)
+    if g < 1:
+        raise RuntimeError("decoder_scan_bwd: no grid of clusters fits on this card at these shapes")
+    smem, flags, scratch = plan("bwd", g, cl, *shapes)
+    if resident_clusters("bwd", cl, smem, dtype) < g:
+        raise RuntimeError(f"decoder_scan_bwd: {g} clusters with {smem} bytes of shared memory a block "
+                           "cannot be resident at once")
+    held = sum(any(x is not None and x[2] > 0 for x in row) for row in bwd_deal([s] * b, g, cl))
+    _grids[key] = dict(clusters=g, cluster_size=cl, blocks=g * cl, slots=_cdiv(b, g),
+                       frames=bwd_frames(b, s, g, cl), frame_blocks=held, smem=smem, scratch=scratch, **flags)
     return dict(_grids[key])
 
 
@@ -552,20 +678,25 @@ def decoder_scan_bwd(k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
     plain version on CPU tensors; the CUDA kernel on CUDA
     tensors. dwlp and dlocv leave the kernel as one partial per block, summed
     here in a fixed order (no atomics: the result does not change from run
-    to run)."""
+    to run). A kernel launch adds the blocks its grid deals frames to
+    (``bwd_grid``'s ``frame_blocks``) and the card's SMs to the host
+    counters ``scan.bwd_frame_blocks`` and ``scan.bwd_sms``."""
     args = (k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs,
             ctxs, dlogits, dalign, dhidden)
     if cuda_build.use_plain(k):
         return decoder_scan_bwd_plain(*args, temp, steps)
-    out = _bwd_launch((), *args, temp, steps=steps)
+    out = _bwd_launch((), *args, temp, steps=steps, counted=True)
     cuda_build.count_launch(decoder_scan_bwd, k.dtype)
     return out
 
 
 def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
-                cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp, cluster_size=None, steps=None):
+                cseq, acts, qs, ctxs, dlogits, dalign, dhidden, temp, cluster_size=None, steps=None,
+                counted=False):
     """Checks, allocates and launches the backward kernel of the library
-    built with ``defines``; sums the per-block partials."""
+    built with ``defines``; sums the per-block partials. ``counted``: add
+    the blocks the grid's deal gives frames to and the card's SMs to the
+    host counters ``scan.bwd_frame_blocks`` and ``scan.bwd_sms``."""
     fl = [a.contiguous() for a in (k, v, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden,
                                    cseq, acts, qs, ctxs, dlogits, dalign, dhidden)]
     (k, v, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs, ctxs, dlogits,
@@ -593,23 +724,27 @@ def _bwd_launch(defines, k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout,
                          (dhidden, "dhidden", (l, b, h_dim))):
         if a.shape != shape:
             raise ValueError(f"decoder_scan_bwd: {an} {tuple(a.shape)} != {shape}")
-    grid = scan_grid("bwd", b, s, dk_dim, e_dim, kk, p, h_dim, vocab, cluster_size, dt)
+    grid = bwd_grid(b, s, dk_dim, e_dim, kk, p, h_dim, vocab, cluster_size, dt)
     dev = k.device
     new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     dgates, dq, dfpre = new(l, b, 4 * h_dim), new(l, b, dk_dim), new(l, b, s, kk)
     dk = new(b, s, dk_dim)
-    nb = grid["blocks"]
+    nb, cl = grid["blocks"], grid["cluster_size"]
     dwlp_part, dlocv_part = new(nb, kk, dk_dim), new(nb, dk_dim)
     dctx = new(b, e_dim)  # scratch: dctx of the step
+    # scratch: each part's dq (16-byte rows), the blocks' shares of the softmax term, two steps
+    xch = new(grid["clusters"] * grid["slots"] * (_cdiv(dk_dim, 4) * 4 + 2 * cl))
     scratch = new(max(1, nb * grid["scratch"]))
     cuda_build.launch(
         "decoder_scan_bwd", "e2e_decoder_scan_bwd", k, v, enc_len, taps, wq, wlp, locv, locb, wx, wh,
         wout, align, cseq, acts, qs, ctxs, dlogits, dalign, dhidden, dgates, dq, dfpre, dk,
-        dwlp_part, dlocv_part, dctx, scratch, b, s, dk_dim, e_dim, kk, p, h_dim, emb, vocab, l,
-        1.0 / float(temp), steps, grid["clusters"], grid["cluster_size"], grid["es_smem"], grid["dfa_smem"],
-        grid["wr_smem"], grid["dk_smem"], grid["k_smem"],
-        grid["v_smem"], dtype_code(dt, "decoder_scan_bwd"), defines=defines,
+        dwlp_part, dlocv_part, dctx, xch, scratch, b, s, dk_dim, e_dim, kk, p, h_dim, emb, vocab, l,
+        1.0 / float(temp), steps, grid["clusters"], cl, grid["es_smem"], grid["wr_smem"],
+        grid["dk_smem"], grid["k_smem"], grid["v_smem"], dtype_code(dt, "decoder_scan_bwd"), defines=defines,
     )
+    if counted:
+        tracing.count("scan.bwd_frame_blocks", grid["frame_blocks"])
+        tracing.count("scan.bwd_sms", torch.cuda.get_device_properties(dev).multi_processor_count)
     return dgates, dq, dfpre, dk, dwlp_part.sum(dim=0), dlocv_part.sum(dim=0)
 
 

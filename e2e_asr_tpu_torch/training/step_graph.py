@@ -45,7 +45,8 @@ The kernel wrappers count launches where Python calls them, so a capture
 would count once and the replays not at all: the capture's deltas are taken
 back and added again on every replay, and a replayed step counts what an
 eager one counts. So are the host counters of the tracer that the wrappers
-add to (``TRACED``: the speller scan's ``scan.bucket_steps``, the speller
+add to (``TRACED``: the speller scan's ``scan.bucket_steps``, its
+backward's ``scan.bwd_frame_blocks`` and ``scan.bwd_sms``, the speller
 loop's ``speller.loop_steps``); a device
 counter (its ``scan.steps_run``) is added to by the replayed kernels
 themselves.
@@ -94,7 +95,7 @@ COUNTED = (frontend_cuda.log_mel, ctc_cuda.ctc_lattice, decoder_cuda.decoder_sca
            rnn_cuda.lstm_bidir_bwd)
 COUNTERS = ("launches", "launches_bf16")  # a wrapper's float32 and bf16 counters (cuda_build.count_launch)
 # the tracer's host counters that those wrappers and the speller's loop add to
-TRACED = ("scan.bucket_steps", "speller.loop_steps")
+TRACED = ("scan.bucket_steps", "scan.bwd_frame_blocks", "scan.bwd_sms", "speller.loop_steps")
 STATIC = ("wav", "wav_off", "wav_len", "text", "text_len")  # the batch's tensors a step reads
 
 

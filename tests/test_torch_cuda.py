@@ -885,8 +885,130 @@ def test_flagship_plan_keeps_the_cell_resident(gen):
     smem, flags, _ = dc.plan("fwd", 15, 8, 16, 764, 300, 640, 10, 201, 320, 26)
     assert flags["w_smem"] and not flags["k_smem"] and not flags["v_smem"] and smem <= dc.SMEM_MAX
     smem, flags, scratch = dc.plan("bwd", 15, 8, 16, 4000, 512, 640, 10, 201, 320, 26)
-    assert not flags["es_smem"] and not flags["dfa_smem"] and smem <= dc.SMEM_MAX
-    assert scratch == 500 * 512 + (4000 + 8) * 10
+    assert not flags["es_smem"] and "dfa_smem" not in flags and smem <= dc.SMEM_MAX
+    assert scratch == 500 * 512  # the energies alone: dfpre's window around a block's frames stays resident
+
+
+def test_bwd_plan_keeps_the_rows_resident_on_the_dealt_grid(gen):
+    """The backward's own grid at the training cells' long buckets (66
+    clusters of 2 on a 132-SM H100): fewer frames a block leave room for the
+    cell's rows (Wx[Emb:], Wh) beside the energies, at the flagship's (8,
+    408) with dk, k and v too, and at asr960h's B 16 buckets in bf16."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    bf = torch.bfloat16
+    smem, flags, scratch = dc.plan("bwd", 66, 2, 8, 408, 300, 640, 10, 201, 320, 26, bf)
+    assert all(flags.values()) and smem <= dc.SMEM_MAX and scratch == 0
+    for s in (408, 764):
+        smem, flags, scratch = dc.plan("bwd", 66, 2, 16, s, 300, 1024, 10, 201, 512, 30, bf)
+        assert flags["es_smem"] and flags["wr_smem"] and smem <= dc.SMEM_MAX and scratch == 0
+
+
+# ------------------------- the backward's deal of frames over every block
+DEAL_WIDTHS = {"flagship": (300, 640, 10, 201, 320, 320, 26), "asr960h": (300, 1024, 10, 201, 512, 512, 30)}
+DEAL_L = 24
+# (widths, B, S, lengths: None for ragged in [S/2, S] with one of S)
+DEAL_CASES = [("flagship", 8, 408, None), ("asr960h", 16, 764, None), ("flagship", 1, 408, None),
+              ("flagship", 40, 204, None), ("flagship", 8, 408, [408, 0, 390, 300, 250, 408, 1, 204])]
+
+
+def _deal_bwd_args(gen, widths, b, s, dt, lens=None):
+    """The backward's arguments at recipe ``widths`` (``DEAL_WIDTHS``), B, S,
+    L = DEAL_L, storage type ``dt``: the plain forward's residuals (at bf16
+    the context rebuilt from the stored alignment, as DecoderScanFn does) and
+    cotangents of chip_smoke.py's scale (1 / sqrt of the last dim)."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    dk, e_dim, kk, p, h, emb, v = DEAL_WIDTHS[widths]
+    if lens is None:
+        lens = torch.randint(s // 2, s + 1, (b,), generator=gen, device="cuda").tolist()
+    args = tuple(a.to(dt) if a.is_floating_point() else a
+                 for a in _scan_args(gen, b, s, dk, e_dim, kk, p, h, emb, v, DEAL_L, lens))
+    use = torch.ones(DEAL_L, dtype=torch.bool)
+    logits, align, hidden, (cseq, _, acts, qs, ctxs) = dc.decoder_scan_fwd_plain(*args, use, 0.5)
+    k, vv, enc_len, taps, wq, _, wlp, locv, locb, _, wx, wh, _, wout, _, _ = args
+    cots = [(torch.randn(o.shape, generator=gen, device="cuda") / math.sqrt(o.shape[-1])).to(dt)
+            for o in (logits, align, hidden)]
+    if dt == torch.bfloat16:
+        ctxs = torch.einsum("lbs,bse->lbe", align.float(), vv.float())
+    return (k, vv, enc_len, taps, wq, wlp, locv, locb, wx, wh, wout, align, hidden, cseq, acts, qs, ctxs, *cots, 0.5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DEAL_CASES)
+def test_decoder_scan_bwd_on_the_dealt_grid(gen, case, dtype):
+    """The backward on its own grid against its plain version: the training
+    cells' long buckets (flagship B 8, S 408; asr960h B 16, S 764), where
+    every block of the grid (every SM) holds frames, one utterance over all
+    the clusters (B 1), B 40 and a batch with an empty utterance and one of
+    one frame. float32 within the table's max error 9.5e-6 and scaled rtol
+    1e-4; bf16 by ``_bf16_carried``. A launch adds its grid's frame blocks
+    and the card's SMs to the tracer's counters."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+    from e2e_asr_tpu_torch.utils import tracing
+
+    widths, b, s, lens = case
+    dt = getattr(torch, dtype)
+    dk, e_dim, kk, p, h, _, v = DEAL_WIDTHS[widths]
+    grid = dc.bwd_grid(b, s, dk, e_dim, kk, p, h, v, dtype=dt)
+    sms = torch.cuda.get_device_properties(_dev()).multi_processor_count
+    if b in (8, 16):
+        assert grid["frame_blocks"] == grid["blocks"] == sms and grid["slots"] == 1
+    bargs = _deal_bwd_args(gen, widths, b, s, dt, lens)
+    counts = lambda: [tracing.counted(n) for n in ("scan.bwd_frame_blocks", "scan.bwd_sms")]
+    before, launches = counts(), dc.decoder_scan_bwd.launches + dc.decoder_scan_bwd.launches_bf16
+    got = dc.decoder_scan_bwd(*bargs)
+    assert dc.decoder_scan_bwd.launches + dc.decoder_scan_bwd.launches_bf16 == launches + 1
+    assert [a - c for a, c in zip(counts(), before)] == [grid["frame_blocks"], sms]
+    want = dc.decoder_scan_bwd_plain(*bargs)
+    for g, w in zip(got, want):
+        if dt == torch.float32:
+            assert float((g - w).abs().max()) <= 9.5e-6
+            _close_scaled(g, w, 1e-4)
+        else:
+            _bf16_carried(g, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decoder_scan_bwd_on_the_dealt_grid_repeats_bitwise(gen, dtype):
+    """Two launches at the flagship's (8, 408), 16 or 18 blocks an
+    utterance over 9 clusters: dq's parts, the shares of the softmax term
+    and the per-block partials are summed in a fixed order, no atomics."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    bargs = _deal_bwd_args(gen, "flagship", 8, 408, getattr(torch, dtype))
+    for g, w in zip(dc.decoder_scan_bwd(*bargs), dc.decoder_scan_bwd(*bargs)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b", [32, 40])
+def test_bwd_grid_past_the_clusters_is_no_slower_than_a_cluster_a_slot(gen, b):
+    """At B 32 and 40 (more utterances than clusters of 6) the backward's
+    own grid (the plan's pick, frames dealt over every block) against the
+    grid of one cluster of 6 an utterance slot, the parent's mapping, on
+    the flagship's bf16 widths at S 204: the least of 5 device times, in
+    turns, within 5%; both agree with each other as with the plain version."""
+    from e2e_asr_tpu_torch.ops import decoder_cuda as dc
+
+    s, bf = 204, torch.bfloat16
+    dk, e_dim, kk, p, h, _, v = DEAL_WIDTHS["flagship"]
+    slot = dc.bwd_grid(b, s, dk, e_dim, kk, p, h, v, cluster_size=6, dtype=bf)
+    assert slot["slots"] == -(-b // slot["clusters"]) > 1
+    bargs = _deal_bwd_args(gen, "flagship", b, s, bf)
+    runs = {cl: (lambda cl=cl: dc._bwd_launch((), *bargs, cluster_size=cl)) for cl in (None, 6)}
+    outs = {cl: fn() for cl, fn in runs.items()}
+    for g, w in zip(outs[None], outs[6]):
+        _bf16_carried(g, w)
+    best = {cl: float("inf") for cl in runs}
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(5):
+        for cl, fn in runs.items():
+            t0.record()
+            fn()
+            t1.record()
+            torch.cuda.synchronize()
+            best[cl] = min(best[cl], t0.elapsed_time(t1))
+    assert best[None] <= 1.05 * best[6], best
 
 
 # ------------------------------------------------------------------ the RNN-LM

@@ -330,6 +330,110 @@ def test_pick_cluster_size(b, s, want):
     assert dc.pick_cluster_size(b, s, lambda cl: 0 if cl == want else h100[cl]) != want
 
 
+# ------------------------- (f2) the backward's grid: frames over every block
+H100_BWD = {8: 15, 7: 15, 6: 17, 5: 22, 4: 30, 3: 39, 2: 66, 1: 132}  # clusters resident, one block an SM
+BWD_SHAPES = [(8, 408), (8, 764), (16, 408), (16, 764), (16, 204), (16, 52), (1, 3000), (1, 5), (32, 204),
+              (40, 61), (140, 204), (200, 61)]
+
+
+def _bwd_plan(b, s, lens=None):
+    """(cluster size, clusters, deal) the backward takes for B utterances of
+    S frames (``lens``: their lengths, all S if None) on a 132-SM H100."""
+    cl = dc.pick_bwd_cluster_size(b, s, H100_BWD.get)
+    g = H100_BWD[cl]
+    return cl, g, dc.bwd_deal([s] * b if lens is None else lens, g, cl)
+
+
+def _ragged(b, s, seed):
+    """Lengths in [0, S], one of S and, past one utterance, one of 0."""
+    lens = np.random.default_rng(seed).integers(0, s + 1, b).tolist()
+    lens[0] = s
+    if b > 1:
+        lens[-1] = 0
+    return lens
+
+
+@pytest.mark.parametrize("b,s", BWD_SHAPES)
+@pytest.mark.parametrize("ragged", [False, True])
+def test_bwd_deal_holds_every_frame_once(b, s, ragged):
+    """Every valid frame of every utterance falls in exactly one (block,
+    slot), each block's frames are consecutive and at most the plan's bound
+    (the kernel's per-frame buffers), and an utterance's blocks hold frames
+    that differ by at most one."""
+    lens = _ragged(b, s, b * 7919 + s) if ragged else [s] * b
+    cl, g, blocks = _bwd_plan(b, s, lens)
+    assert len(blocks) == g * cl and all(len(row) == dc._cdiv(b, g) for row in blocks)
+    held = [np.zeros(n, dtype=int) for n in lens]
+    per_utt = [[] for _ in range(b)]
+    for row in blocks:
+        for seg in row:
+            if seg is None:
+                continue
+            u, s0, nv = seg
+            assert 0 <= s0 and s0 + nv <= lens[u] and nv <= dc.bwd_frames(b, s, g, cl)
+            held[u][s0:s0 + nv] += 1
+            per_utt[u].append(nv)
+    assert all((h == 1).all() for h in held)
+    assert all(max(n) - min(n) <= 1 for n in per_utt)
+
+
+@pytest.mark.parametrize("b,s,frames", [(8, 408, 26), (8, 764, 48), (16, 408, 51), (16, 764, 96)])
+def test_bwd_deal_gives_every_block_of_the_grid_frames(b, s, frames):
+    """At the training cells' long buckets (B 8 flagship, B 16 asr960h) the
+    backward's grid takes every SM of the card (66 clusters of 2) and every
+    block holds frames: 16 or 8 blocks an utterance, half to three quarters
+    of the frames a block of one 8- or 6-block cluster an utterance (51, 96,
+    68, 128)."""
+    cl, g, blocks = _bwd_plan(b, s)
+    assert g * cl == 132 and dc._cdiv(b, g) == 1
+    assert all(row[0] is not None and row[0][2] > 0 for row in blocks)
+    assert max(row[0][2] for row in blocks) == dc.bwd_frames(b, s, g, cl) == frames
+    utts = [sum(row[0][0] == u for row in blocks) for u in range(b)]
+    assert min(utts) >= 132 // b - 1 and sum(utts) == 132
+
+
+def test_bwd_deal_gives_longer_utterances_more_blocks():
+    """Ragged lengths: the deal gives an utterance blocks as its frames
+    need, so the longest holds no more frames a block than an even split of
+    S would give it, and a short one takes fewer blocks."""
+    lens = [408, 400, 300, 250, 220, 210, 205, 60]
+    cl, g, blocks = _bwd_plan(8, 408, lens)
+    count = [sum(row[0][0] == u for row in blocks) for u in range(8)]
+    frames = max(row[0][2] for row in blocks)
+    assert count[0] >= count[3] >= count[7] and count[7] < 132 // 8
+    assert frames <= dc.bwd_frames(8, 408, g, cl)
+
+
+@pytest.mark.parametrize("b,cl", [(16, 8), (32, 6), (140, 4), (200, 1), (15, 8)])
+def test_bwd_deal_keeps_one_cluster_a_slot_where_b_reaches_the_clusters(b, cl):
+    """B >= G (the clusters of the size): ceil(B / G) slots, each utterance
+    in one slot of one cluster, its frames over that cluster's blocks, the
+    ranks dealt in a snake order (rank G is in the last cluster's second
+    slot)."""
+    g, s = H100_BWD[cl], 204
+    lens = [s - u for u in range(b)]  # ranked by index
+    blocks = dc.bwd_deal(lens, g, cl)
+    ns = dc._cdiv(b, g)
+    where = {}
+    for j, row in enumerate(blocks):
+        assert len(row) == ns
+        for i, seg in enumerate(row):
+            if seg is not None:
+                where.setdefault(seg[0], set()).add((j // cl, i))
+    assert sorted(where) == list(range(b)) and all(len(v) == 1 for v in where.values())
+    assert where[0] == {(0, 0)} and (b <= g or where[g] == {(g - 1, 1)})
+
+
+@pytest.mark.parametrize("b,s,want", [(8, 408, 2), (16, 764, 2), (16, 52, 6), (1, 3000, 8), (40, 61, 1),
+                                      (140, 204, 4)])
+def test_pick_bwd_cluster_size(b, s, want):
+    """The backward's cluster size from the same resident counts, sizes 1 to
+    8: the fewest frames a block, slots and parts of dq weighed; a size
+    that fits no cluster is never taken."""
+    assert dc.pick_bwd_cluster_size(b, s, H100_BWD.get) == want
+    assert dc.pick_bwd_cluster_size(b, s, lambda cl: 0 if cl == want else H100_BWD[cl]) != want
+
+
 # ------------------------------- (g) the steps run: a batch's longest label
 SCAN_L = 8
 STEPS = (0, 1, SCAN_L // 2, SCAN_L)

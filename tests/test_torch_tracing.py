@@ -281,7 +281,7 @@ def test_chrome_trace_holds_a_decoded_batch_and_its_parts(tmp_path):
 
 
 BENCH_READERS = ("optimizer_ms.train", "lm_step_share.decode", "batch_gap_share.decode", "graph_capture_s",
-                 "kernel_load_s", "scan_steps_run_share.train")
+                 "kernel_load_s", "scan_steps_run_share.train", "scan_bwd_sm_share.train")
 
 
 def _snap(sections=(), spans=(), counts=()):
@@ -300,6 +300,8 @@ def _snap(sections=(), spans=(), counts=()):
     ("kernel_load_s", _snap(spans=[("setup.kernels", 0.75)]), 0.75),
     ("scan_steps_run_share.train", _snap(counts=[("scan.steps_run", 612), ("scan.bucket_steps", 1000),
                                                  ("graph.replays", 9)]), 61.2),
+    ("scan_bwd_sm_share.train", _snap(counts=[("scan.bwd_frame_blocks", 3 * 132 + 102), ("scan.bwd_sms", 4 * 132),
+                                              ("scan.bucket_steps", 1000)]), 100.0 * 498 / 528),
 ])
 def test_bench_readers_of_the_tracer(monkeypatch, name, snap, want):
     from asr_bench import spec
